@@ -1,0 +1,95 @@
+"""Server front end: a dispatch thread over engines.
+
+Counterpart of ``paddle_tpu/serving/server.py``: ``Server`` owns the
+DynamicBatcher and a daemon dispatch loop that drives each engine's
+``serve_step`` — a GenerationEngine interleaves prefill admissions with
+decode ticks (continuous batching). Several engines round-robin the
+shared queue. The HTTP endpoint, the feedback plane, fault plans and
+SLO tracking come with later slices of the port.
+"""
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Optional
+
+import numpy as np
+
+from .batcher import DynamicBatcher, Future
+
+_IDLE_WAIT_S = 0.02  # dispatch-loop poll when the queue is empty
+
+log = logging.getLogger(__name__)
+
+
+class Server:
+    """Dispatch loop + admission queue over one or more engines."""
+
+    def __init__(self, engine, *, max_wait_ms: float = 5.0,
+                 max_queue: int = 256,
+                 default_timeout_ms: Optional[float] = None):
+        self.engines = list(engine) if isinstance(
+            engine, (list, tuple)) else [engine]
+        self.metrics = self.engines[0].metrics
+        # a batch never exceeds what one engine's prefill bucket can take
+        self.batcher = DynamicBatcher(
+            buckets=sorted({b for e in self.engines
+                            for b in e.prefill_batch_buckets}),
+            max_wait_ms=max_wait_ms, max_queue=max_queue,
+            default_timeout_ms=default_timeout_ms, metrics=self.metrics)
+        self._thread: Optional[threading.Thread] = None
+        self._running = False
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> "Server":
+        if self._thread is not None:
+            return self
+        self._running = True
+        self._thread = threading.Thread(target=self._loop,
+                                        name="paddle-tpu-torch-serving",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        """Stop the dispatch loop and fail whatever is still queued."""
+        self._running = False
+        self.batcher.close()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+
+    def _loop(self) -> None:
+        idx = 0
+        while self._running:
+            engine = self.engines[idx % len(self.engines)]
+            idx += 1
+            try:
+                engine.serve_step(self.batcher, idle_wait_s=_IDLE_WAIT_S)
+            except Exception:  # noqa: BLE001 - keep dispatching
+                # a crash here would silently stop dispatch for every
+                # queued request: count it, log it, keep looping
+                self.metrics.inc("dispatch_errors")
+                log.exception("serving dispatch step failed")
+
+    # -- in-process API ----------------------------------------------------
+    def submit(self, payload, timeout_ms: Optional[float] = None,
+               **meta) -> Future:
+        """Enqueue a request; returns a Future. Raises QueueFullError on
+        backpressure. The payload is a prompt (or {"prompt": ids}) with
+        max_new_tokens/eos_id in ``meta``."""
+        return self.batcher.submit(payload, timeout_ms=timeout_ms, **meta)
+
+    def generate(self, prompt, max_new_tokens: Optional[int] = None,
+                 eos_id: Optional[int] = None,
+                 timeout_s: Optional[float] = 60.0) -> np.ndarray:
+        """Blocking convenience wrapper around submit()."""
+        fut = self.submit({"prompt": prompt},
+                          max_new_tokens=max_new_tokens, eos_id=eos_id)
+        return fut.result(timeout=timeout_s)
+
+    def metrics_snapshot(self) -> dict:
+        self.metrics.update_device_gauges()
+        snap = self.metrics.snapshot()
+        snap["queue_depth"] = self.batcher.depth
+        return snap
