@@ -20,6 +20,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
    prefill went through the flash kernel (launches == layers x
    prefills), and that the served tokens match the plain path on the
    card.
+5. Backward kernels: the flash dq and dkv kernels against their plain
+   versions at the training shape (B8 H8 T2048 D128 causal), the serving
+   shape and a ragged case with a fully masked row, then timed beside
+   their plain versions, their bounds and the backward of
+   ``F.scaled_dot_product_attention`` (its backend pinned and recorded).
+6. Training: the d1024/L8/H8/V16384 LM (d_ff 4096, batch 8 x 2048
+   tokens, f32, Adam lr 1e-4) built with the port's ``layers`` and
+   ``models.transformer_lm(pipeline_stack=True)``, trained through
+   ``AdamOptimizer.minimize`` and ``Executor(CUDAPlace())`` from the
+   startup program's seeded weights. Checks one step's loss and every
+   parameter gradient against the plain path on the card, that each step
+   launched the forward, dq and dkv kernels once per layer, and that the
+   loss is finite and falls over the timed steps on one fixed batch.
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -31,6 +44,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -80,9 +94,9 @@ def _max_err(got, want):
     return float((got[fin] - want[fin]).abs().max()) if fin.any() else 0.0
 
 
-def _attention_work(B, H, Tq, Tk, D, causal, lengths):
-    """(matmul FLOPs, bytes) the forward needs for these inputs: 4*D per
-    visible (query, key) pair; q/k/v read once, o and lse written once."""
+def _visible_pairs(B, H, Tq, Tk, causal, lengths):
+    """(query, key) pairs these inputs let attend: the work every flash
+    kernel does for them."""
     vis = 0
     for b in range(B):
         n = Tk if lengths is None else max(0, min(int(lengths[b]), Tk))
@@ -90,9 +104,33 @@ def _attention_work(B, H, Tq, Tk, D, causal, lengths):
             vis += sum(min(i + 1, n) for i in range(Tq))
         else:
             vis += Tq * n
-    flops = 4.0 * D * H * vis
+    return H * vis
+
+
+def _attention_work(B, H, Tq, Tk, D, causal, lengths):
+    """(matmul FLOPs, bytes) the forward needs for these inputs: 4*D per
+    visible (query, key) pair; q/k/v read once, o and lse written once."""
+    flops = 4.0 * D * _visible_pairs(B, H, Tq, Tk, causal, lengths)
     nbytes = 4.0 * (B * H * (2 * Tq * D + 2 * Tk * D + Tq))
     return flops, nbytes
+
+
+def _backward_work(kernel, B, H, Tq, Tk, D, causal, lengths):
+    """(matmul FLOPs, bytes) of one backward kernel for these inputs. Per
+    visible pair dq does Q.K^T, dO.V^T and dS.K (6*D FLOPs) and dkv also
+    P^T.dO and dS^T.Q (8*D). Both read q, dO, k, v, lse and Di once; dq
+    writes dq, dkv writes dk and dv."""
+    pairs = _visible_pairs(B, H, Tq, Tk, causal, lengths)
+    per_pair, writes = (6, Tq * D) if kernel == "dq" else (8, 2 * Tk * D)
+    nbytes = 4.0 * B * H * (2 * Tq * D + 2 * Tk * D + 2 * Tq + writes)
+    return per_pair * D * pairs, nbytes
+
+
+def _bound(flops, nbytes, gpu_name):
+    """(bound ms, what bounds it) at the card's published f32 peaks."""
+    peak_flops, peak_bw = _peaks(gpu_name)
+    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def kernel_phase(gpu_name):
@@ -134,15 +172,13 @@ def kernel_phase(gpu_name):
     library_ms = _cuda_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     flops, nbytes = _attention_work(B, H, T, T, D, True, None)
-    peak_flops, peak_bw = _peaks(gpu_name)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    bound_ms, bound_by = _bound(flops, nbytes, gpu_name)
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:229",
         "launches": None, "max_abs_err": max(errs), "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "shape": f"B{B} H{H} T{T} D{D} causal f32",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
@@ -264,6 +300,347 @@ def serving_phase(record, gpu_name):
     return serving
 
 
+# (B, H, T, D, causal, lengths): the training shape first, then the
+# serving shape and a ragged case with a fully masked row (length 0)
+BWD_CASES = [
+    (8, 8, 2048, 128, True, None),
+    (8, 16, 1024, 64, True, None),
+    (4, 4, 1000, 64, True, [1000, 517, 0, 63]),
+    (2, 4, 300, 128, False, [300, 17]),
+]
+# The training configuration: bench_transformer_step's defaults with the
+# stacked layer path (pipeline_stack=True), f32.
+TRAIN = dict(vocab=16384, d_model=1024, n_layers=8, num_heads=8, d_ff=4096,
+             max_len=2048, batch=8, seq=2048, lr=1e-4)
+# One step's loss and gradients, kernels against plain versions: both run
+# the same f32 program from the same state and differ only in the
+# attention's summation order (64-key tiles, FMA chains vs cuBLAS), which
+# moves each gradient by ~1e-6 of its norm after 8 layers; allow 1e-4 of
+# the norm per parameter and 1e-5 relative on the loss.
+GRAD_RTOL = 1e-4
+LOSS_RTOL = 1e-5
+
+
+def backward_kernel_phase(gpu_name):
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    errs = {"dq": [], "dkv": []}
+    for B, H, T, D, causal, lengths in BWD_CASES:
+        q, k, v, do = (randn(B, H, T, D) for _ in range(4))
+        lens = None if lengths is None else torch.tensor(lengths,
+                                                         device="cuda")
+        o, lse = fa.flash_forward(q, k, v, lens, causal)
+        dq, dk, dv = fa.flash_backward(q, k, v, o, lse, do, lens, causal)
+        torch.cuda.synchronize()
+        rq, rk, rv = fa.flash_attention_backward_reference(q, k, v, o, lse,
+                                                           do, lens, causal)
+        torch.cuda.synchronize()
+        for name, t in (("dq", rq), ("dk", rk), ("dv", rv)):
+            assert t.abs().max() > 0, f"plain {name} is all zero"
+        got = {"dq": _max_err(dq, rq),
+               "dkv": max(_max_err(dk, rk), _max_err(dv, rv))}
+        for name, err in got.items():
+            errs[name].append(err)
+        if lengths is not None and 0 in lengths:
+            row = lengths.index(0)
+            assert not dq[row].any() and not dk[row].any() \
+                and not dv[row].any(), "fully masked row got a gradient"
+        print(f"flash_attention_bwd B{B} H{H} T{T} D{D} causal={causal} "
+              f"lengths={lengths}: max_abs_err dq {got['dq']:.3e} dk/dv "
+              f"{got['dkv']:.3e} (tol {ATOL}); max |dq| "
+              f"{float(rq.abs().max()):.3e} |dk| {float(rk.abs().max()):.3e} "
+              f"|dv| {float(rv.abs().max()):.3e}")
+        del q, k, v, do, o, lse, dq, dk, dv, rq, rk, rv
+
+    # timing at the training shape
+    B, H, T, D, causal, _ = BWD_CASES[0]
+    q, k, v, do = (randn(B, H, T, D) for _ in range(4))
+    o, lse = fa.flash_forward(q, k, v, None, causal)
+    di = (do * o).sum(-1)
+    ms = {"dq": _cuda_ms(lambda: fa.flash_dq(q, k, v, lse, di, do, None,
+                                             causal), iters=10),
+          "dkv": _cuda_ms(lambda: fa.flash_dkv(q, k, v, lse, di, do, None,
+                                               causal), iters=10)}
+    plain_ms = {
+        "dq": _cuda_ms(lambda: fa.flash_dq_reference(q, k, v, lse, di, do,
+                                                     None, causal), iters=5),
+        "dkv": _cuda_ms(lambda: fa.flash_dkv_reference(q, k, v, lse, di, do,
+                                                       None, causal),
+                        iters=5)}
+    fwd_ms = _cuda_ms(lambda: fa.flash_forward(q, k, v, None, causal),
+                      iters=10)
+    library_ms, backend = _sdpa_backward_ms(F, q, k, v, do)
+    print(f"flash_attention_bwd timing B{B} H{H} T{T} D{D} causal: dq "
+          f"{ms['dq']:.3f} ms (plain {plain_ms['dq']:.3f}), dkv "
+          f"{ms['dkv']:.3f} ms (plain {plain_ms['dkv']:.3f}), forward "
+          f"{fwd_ms:.3f} ms; SDPA backward ({backend}) {library_ms:.3f} ms")
+    records = []
+    for name, line in (("dq", 364), ("dkv", 386)):
+        flops, nbytes = _backward_work(name, B, H, T, T, D, causal, None)
+        bound_ms, bound_by = _bound(flops, nbytes, gpu_name)
+        records.append({
+            "name": f"flash_attention_bwd_{name}", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
+            "launches": None, "max_abs_err": max(errs[name]),
+            "ms": ms[name], "plain_ms": plain_ms[name],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            # SDPA's backward computes dq, dk and dv in one call: it is
+            # the yardstick for the two kernels together
+            "library_ms": library_ms, "library": f"sdpa backward, {backend}",
+            "shape": f"B{B} H{H} T{T} D{D} causal f32",
+            "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "fwd_ms_training_shape": fwd_ms,
+        })
+    return records
+
+
+def _sdpa_backward_ms(F, q, k, v, do):
+    """(ms, backend) of the backward of F.scaled_dot_product_attention
+    (is_causal) on these inputs: forward + backward minus the forward
+    alone, with the backend pinned to the first that takes f32."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, do)
+
+    names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+             "MATH")
+    for backend in (getattr(SDPBackend, n) for n in names
+                    if hasattr(SDPBackend, n)):
+        try:  # a backend that refuses f32 warns, then raises
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                fwd_bwd()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        with sdpa_kernel(backend):
+            total = _cuda_ms(fwd_bwd, iters=10)
+            forward = _cuda_ms(fwd, iters=10)
+        return total - forward, backend.name
+    raise RuntimeError("no SDPA backend ran f32 attention")
+
+
+def transformer_train_flops(bs, T, d, n_layers, vocab, d_ff=None):
+    """Model FLOPs of one train step (2 per MAC, forward x 3 for forward
+    plus backward), attention at its causal cost, as bench.py counts
+    them."""
+    d_ff = d_ff or 4 * d
+    dense = n_layers * (2 * bs * T * d * (4 * d)
+                        + 2 * bs * T * d * (2 * d_ff))
+    attn = n_layers * 2 * bs * T * T * d
+    head = 2 * bs * T * d * vocab
+    return 3 * (dense + attn + head)
+
+
+def _build_training_program(pt, c):
+    from paddle_tpu_torch import layers, models
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        ids = layers.data("ids", shape=[c["seq"]], dtype="int64")
+        tgt = layers.data("tgt", shape=[c["seq"]], dtype="int64")
+        logits = models.transformer_lm(
+            ids, vocab_size=c["vocab"], d_model=c["d_model"],
+            n_layers=c["n_layers"], num_heads=c["num_heads"],
+            d_ff=c["d_ff"], max_len=c["max_len"], pipeline_stack=True)
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.reshape(logits, shape=[-1, c["vocab"]]),
+            layers.reshape(tgt, shape=[-1, 1])))
+        params_grads = pt.optimizer.AdamOptimizer(
+            learning_rate=c["lr"]).minimize(loss, startup_program=startup)
+    return main, startup, loss, params_grads
+
+
+def _launch_counts(fa):
+    return (fa.flash_attention.launches, fa.flash_backward.dq_launches,
+            fa.flash_backward.dkv_launches)
+
+
+def _reset_launch_counts(fa):
+    fa.flash_attention.launches = 0
+    fa.flash_backward.dq_launches = 0
+    fa.flash_backward.dkv_launches = 0
+
+
+def training_phase(records, gpu_name):
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    c = TRAIN
+    L, tokens = c["n_layers"], c["batch"] * c["seq"]
+    t0 = time.perf_counter()
+    main, startup, loss, params_grads = _build_training_program(pt, c)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace())
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(scope.get(p.name).numel() for p, _ in params_grads)
+    print(f"training: program of {len(main.global_block.ops)} ops, "
+          f"{len(params_grads)} parameters ({n_params / 1e6:.1f} M), built "
+          f"and initialised in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(SEED)
+    feed = {"ids": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+            .astype("int64"),
+            "tgt": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+            .astype("int64")}
+    state = {n: scope.get(n).clone() for n in list(scope.keys())
+             if isinstance(scope.get(n), torch.Tensor)}
+
+    def restore():
+        for n, t in state.items():
+            scope.set(n, t.clone())
+
+    # parity on the card: one step's loss and every gradient, with the
+    # kernels and then with their plain versions, from the same state
+    grad_names = [g.name for _, g in params_grads]
+    fetch = [loss.name] + grad_names
+    kern = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   return_numpy=False)
+    restore()
+    # every flash wrapper dispatches through _plain_device: answering yes
+    # for the CUDA tensors too swaps in the plain versions on the card
+    dispatch = fa._plain_device
+    fa._plain_device = lambda t: True
+    before = _launch_counts(fa)
+    try:
+        plain = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                        return_numpy=False)
+    finally:
+        fa._plain_device = dispatch
+    assert _launch_counts(fa) == before, "the plain path launched a kernel"
+    restore()
+    lk, lp = float(kern[0]), float(plain[0])
+    assert np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), (lk, lp)
+    worst = (-1.0, "")
+    for name, gk, gp in zip(grad_names, kern[1:], plain[1:]):
+        assert torch.isfinite(gk).all(), name
+        rel = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
+        worst = max(worst, (rel, name))
+    assert worst[0] <= GRAD_RTOL, worst
+    print(f"training: step loss kernels {lk:.6f} plain {lp:.6f}; worst "
+          f"gradient |kernel - plain| / |plain| {worst[0]:.3e} ({worst[1]}) "
+          f"over {len(grad_names)} parameters (tol {GRAD_RTOL})")
+    del kern, plain
+
+    # the main path: 1 warm step, then 6 timed steps on one fixed batch
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    _reset_launch_counts(fa)
+    for step in range(7):
+        t1 = time.perf_counter()
+        lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(lo))
+    launches = _launch_counts(fa)
+    assert launches == (7 * L,) * 3, launches
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    peak_mem = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_s[1:]))
+    flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
+                                    c["vocab"], c["d_ff"])
+    peak_flops = _peaks(gpu_name)[0]
+    for rec in records:
+        rec["launches"] = launches[1 if rec["name"].endswith("_dq") else 2] \
+            // 7
+    kern_ms = {"fwd": records[0]["fwd_ms_training_shape"],
+               "dq": records[0]["ms"], "dkv": records[1]["ms"]}
+    kern_step_ms = {k: v * L for k, v in kern_ms.items()}
+    print(f"training: losses {[round(x, 5) for x in losses]}")
+    print(f"training: step median {med * 1e3:.1f} ms over 6 steps "
+          f"({[round(x * 1e3, 1) for x in step_s]} ms), "
+          f"{tokens / med:.0f} tokens/s, {flops / 1e12:.2f} TFLOP/step = "
+          f"{flops / med / peak_flops * 100:.1f}% of the f32 peak, peak "
+          f"memory {peak_mem / 2**30:.2f} GiB; launches per step fwd/dq/dkv "
+          f"{[n // 7 for n in launches]}; kernels per step (timed alone x "
+          f"{L}): fwd {kern_step_ms['fwd']:.1f} ms, dq "
+          f"{kern_step_ms['dq']:.1f} ms, dkv {kern_step_ms['dkv']:.1f} ms = "
+          f"{sum(kern_step_ms.values()) / (med * 1e3) * 100:.1f}% of the "
+          f"step")
+    profile = _profile_step(exe, main, feed, loss, scope)
+    return {
+        "config": c, "params": n_params, "losses": losses,
+        "step_ms": [x * 1e3 for x in step_s], "step_ms_median": med * 1e3,
+        "tokens_per_s": tokens / med, "tflop_per_step": flops / 1e12,
+        "f32_peak_share": flops / med / peak_flops,
+        "peak_mem_bytes": peak_mem, "launches_per_step": {
+            "fwd": launches[0] // 7, "dq": launches[1] // 7,
+            "dkv": launches[2] // 7},
+        "kernel_ms_per_step_timed_alone": kern_step_ms,
+        "parity": {"loss_kernels": lk, "loss_plain": lp,
+                   "worst_grad_rel": worst[0], "worst_grad": worst[1]},
+        "profile": profile,
+    }
+
+
+def _profile_step(exe, main, feed, loss, scope):
+    """Device time of one train step by kernel, from torch.profiler (CUPTI);
+    a measurement aid, not a check: without device times it says so."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            torch.cuda.synchronize()
+        # kernels only: an op's device time repeats its kernels'
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0)
+            if dev_us:
+                rows.append((dev_us / 1e3, e.count, e.key))
+    except Exception as exc:  # noqa: BLE001 - report, do not fail the run
+        print(f"profile: not measured ({type(exc).__name__}: {exc})")
+        return None
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    if not total:
+        print("profile: no device time recorded")
+        return None
+    groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for ms, _, key in rows:
+        for g in groups:
+            if g in key:
+                groups[g] += ms
+    print(f"profile: one step, {total:.1f} ms of device time; flash fwd "
+          f"{groups['flash_fwd']:.1f} ms, dq {groups['flash_bwd_dq']:.1f} "
+          f"ms, dkv {groups['flash_bwd_dkv']:.1f} ms")
+    for ms, n, key in rows[:12]:
+        print(f"profile: {ms:9.2f} ms {n:5d}x {key[:90]}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "train_profile.txt").write_text("\n".join(
+        f"{ms:.4f}\t{n}\t{key}" for ms, n, key in rows))
+    return {"device_ms": total, "kernels_ms": groups,
+            "top": [[ms, n, key] for ms, n, key in rows[:25]]}
+
+
 def main():
     import torch
 
@@ -292,17 +669,20 @@ def main():
 
     kern = kernel_phase(gpu)
     serving = serving_phase(kern, gpu)
+    bwd = backward_kernel_phase(gpu)
+    training = training_phase(bwd, gpu)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "kernels": [kern], "serving": serving,
-         "build_s": built}, indent=1))
+         "kernels": [kern] + bwd, "serving": serving,
+         "training": training, "build_s": built}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                  for r in [kern] + bwd]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,

@@ -1,0 +1,279 @@
+"""Program IR: Program / Block / Operator / Variable.
+
+Counterpart of ``paddle_tpu/core/program.py``: the same graph-capture
+structure (a program is a list of blocks; a block is an ordered list of
+ops plus a symbol table of variables), with torch dtypes. Each op type
+names a torch function in the port's registry (``core/registry.py``);
+the executor (``core/executor.py``) interprets the block op by op.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Dict, List, Optional, Sequence
+
+from .types import VarType, dtype_name, to_dtype
+
+# Stands in for the -1 (unknown batch) dim during build-time shape
+# inference; the executor concretises shapes from the actual feeds.
+BATCH_DIM_SENTINEL = 1297
+
+# Name under which the executor keeps the program's torch.Generator.
+RNG_VAR = "@RNG_STATE@"
+
+GRAD_SUFFIX = "@GRAD"
+
+
+def grad_var_name(name: str) -> str:
+    return name + GRAD_SUFFIX
+
+
+class Variable:
+    """A named tensor slot in a Block: build-time shape and dtype only;
+    values live in a Scope at run time. ``shape`` may use -1 for the
+    batch dimension."""
+
+    def __init__(
+        self,
+        block: "Block",
+        name: str,
+        shape: Optional[Sequence[int]] = None,
+        dtype: Any = "float32",
+        persistable: bool = False,
+        stop_gradient: bool = False,
+        var_type: VarType = VarType.DENSE_TENSOR,
+        lod_level: int = 0,
+        is_data: bool = False,
+        trainable: bool = True,
+        initializer: Optional[dict] = None,
+    ):
+        self.block = block
+        self.name = name
+        self.shape = tuple(int(d) for d in shape) if shape is not None else None
+        self.dtype = to_dtype(dtype)
+        self.persistable = persistable
+        self.stop_gradient = stop_gradient
+        self.type = var_type
+        self.lod_level = lod_level
+        self.is_data = is_data
+        self.trainable = trainable
+        self.initializer = initializer
+        self.is_parameter = False
+
+    def __repr__(self):
+        return (f"Variable(name={self.name!r}, shape={self.shape}, "
+                f"dtype={dtype_name(self.dtype)}, "
+                f"persistable={self.persistable})")
+
+
+class Parameter(Variable):
+    """A trainable persistable variable."""
+
+    def __init__(self, block, name, **kw):
+        kw.setdefault("persistable", True)
+        super().__init__(block, name, **kw)
+        self.is_parameter = True
+
+
+class Operator:
+    """One operation: type + named input/output slots + attrs. Inputs and
+    outputs are ``slot -> [var names]`` multimaps."""
+
+    def __init__(self, block: "Block", op_type: str,
+                 inputs: Dict[str, List[str]],
+                 outputs: Dict[str, List[str]],
+                 attrs: Optional[Dict[str, Any]] = None):
+        self.block = block
+        self.type = op_type
+        self.inputs = {k: list(v) for k, v in inputs.items()}
+        self.outputs = {k: list(v) for k, v in outputs.items()}
+        self.attrs = dict(attrs or {})
+
+    def input_names(self) -> List[str]:
+        return [n for vs in self.inputs.values() for n in vs]
+
+    def output_names(self) -> List[str]:
+        return [n for vs in self.outputs.values() for n in vs]
+
+    def __repr__(self):
+        return (f"Op({self.type}, inputs={self.inputs}, "
+                f"outputs={self.outputs}, attrs={self.attrs})")
+
+
+class Block:
+    """An ordered list of ops plus a symbol table of variables."""
+
+    def __init__(self, program: "Program", idx: int, parent_idx: int = -1):
+        self.program = program
+        self.idx = idx
+        self.parent_idx = parent_idx
+        self.vars: Dict[str, Variable] = {}
+        self.ops: List[Operator] = []
+
+    @property
+    def parent(self) -> Optional["Block"]:
+        if self.parent_idx < 0:
+            return None
+        return self.program.blocks[self.parent_idx]
+
+    def create_var(self, name: Optional[str] = None, **kw) -> Variable:
+        if name is None:
+            name = self.program.unique_name("tmp")
+        if name in self.vars:
+            return self.vars[name]
+        v = Variable(self, name, **kw)
+        self.vars[name] = v
+        self.program._bump()
+        return v
+
+    def create_parameter(self, name: Optional[str] = None, **kw) -> Parameter:
+        if name is None:
+            name = self.program.unique_name("param")
+        p = Parameter(self, name, **kw)
+        self.vars[name] = p
+        self.program._bump()
+        return p
+
+    def var(self, name: str) -> Variable:
+        """Look up ``name`` here or in any ancestor block."""
+        b: Optional[Block] = self
+        while b is not None:
+            if name in b.vars:
+                return b.vars[name]
+            b = b.parent
+        raise KeyError(f"Variable {name!r} not found in block {self.idx} "
+                       "or ancestors")
+
+    def has_var(self, name: str) -> bool:
+        try:
+            self.var(name)
+            return True
+        except KeyError:
+            return False
+
+    def append_op(self, op_type: str, inputs=None, outputs=None,
+                  attrs=None) -> Operator:
+        op = Operator(self, op_type, inputs or {}, outputs or {}, attrs)
+        self.ops.append(op)
+        self.program._bump()
+        return op
+
+    def insert_op(self, index: int, op_type: str, inputs=None, outputs=None,
+                  attrs=None) -> Operator:
+        op = Operator(self, op_type, inputs or {}, outputs or {}, attrs)
+        self.ops.insert(index, op)
+        self.program._bump()
+        return op
+
+    def all_parameters(self) -> List[Parameter]:
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
+
+class Program:
+    """A list of blocks; block 0 is the global block."""
+
+    _uid_counter = 0
+
+    def __init__(self):
+        self.blocks: List[Block] = [Block(self, 0)]
+        self.current_block_idx = 0
+        self._version = 0  # bumped on every mutation
+        self.random_seed: Optional[int] = None
+
+    def _bump(self):
+        self._version += 1
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    def unique_name(self, prefix: str) -> str:
+        Program._uid_counter += 1
+        return f"{prefix}_{Program._uid_counter}"
+
+    @property
+    def global_block(self) -> Block:
+        return self.blocks[0]
+
+    def current_block(self) -> Block:
+        return self.blocks[self.current_block_idx]
+
+    def all_parameters(self) -> List[Parameter]:
+        return [v for b in self.blocks for v in b.vars.values()
+                if isinstance(v, Parameter)]
+
+    def clone(self, for_test: bool = False) -> "Program":
+        """Deep-ish copy (vars and ops re-created; attrs shallow-copied).
+        ``for_test=True`` flips every op's ``is_test`` attr to True."""
+        p = Program()
+        p.random_seed = self.random_seed
+        p.blocks = []
+        for b in self.blocks:
+            nb = Block(p, b.idx, b.parent_idx)
+            for name, v in b.vars.items():
+                cls = Parameter if isinstance(v, Parameter) else Variable
+                nv = cls.__new__(cls)
+                nv.__dict__.update(v.__dict__)
+                nv.block = nb
+                nb.vars[name] = nv
+            for op in b.ops:
+                attrs = dict(op.attrs)
+                if for_test and "is_test" in attrs:
+                    attrs["is_test"] = True
+                nb.ops.append(Operator(nb, op.type, op.inputs, op.outputs,
+                                       attrs))
+            p.blocks.append(nb)
+        p.current_block_idx = self.current_block_idx
+        return p
+
+    def __str__(self):
+        lines = []
+        for b in self.blocks:
+            lines.append(f"-- block {b.idx} (parent {b.parent_idx}) --")
+            for v in b.vars.values():
+                flag = "P" if v.persistable else " "
+                lines.append(f"  var[{flag}] {v.name}: {v.shape} "
+                             f"{dtype_name(v.dtype)}")
+            for op in b.ops:
+                lines.append(f"  {op}")
+        return "\n".join(lines)
+
+
+# --- default program management (fluid program guards) ---------------------
+_main_program = Program()
+_startup_program = Program()
+
+
+def default_main_program() -> Program:
+    return _main_program
+
+
+def default_startup_program() -> Program:
+    return _startup_program
+
+
+def switch_main_program(p: Program) -> Program:
+    global _main_program
+    old, _main_program = _main_program, p
+    return old
+
+
+def switch_startup_program(p: Program) -> Program:
+    global _startup_program
+    old, _startup_program = _startup_program, p
+    return old
+
+
+@contextlib.contextmanager
+def program_guard(main_program: Program,
+                  startup_program: Optional[Program] = None):
+    """Route layer construction into the given programs."""
+    old_main = switch_main_program(main_program)
+    old_startup = None
+    if startup_program is not None:
+        old_startup = switch_startup_program(startup_program)
+    try:
+        yield
+    finally:
+        switch_main_program(old_main)
+        if old_startup is not None:
+            switch_startup_program(old_startup)

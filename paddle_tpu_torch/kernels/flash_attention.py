@@ -1,28 +1,38 @@
-"""Flash attention: a hand-written sm_90a CUDA kernel with online softmax.
+"""Flash attention: hand-written sm_90a CUDA kernels, forward and backward.
 
-Counterpart of ``paddle_tpu/kernels/flash_attention.py``. The TPU kernel it
-replaces is ``_flash_kernel`` (launched by ``_flash_forward`` through
-``pl.pallas_call``); its CUDA twin is ``csrc/flash_attention_fwd.cu``:
-one thread block per (batch*head, 64-row q tile) loops over 64-row K/V
-tiles kept in shared memory, carrying the softmax max, denominator and
-output accumulator in f32, so the [T, T] scores never reach device
-memory.
+Counterpart of ``paddle_tpu/kernels/flash_attention.py``. The TPU kernels
+it replaces, each launched through ``pl.pallas_call``:
 
-What bounds it on the H100: at the serving prefill shape (B8 H16 T1024
-D64, causal) the kernel does ~17 GFLOP on ~134 MB, well above the
-card's FLOP:byte ridge, so it is bound by operations. This first
-version uses f32 FMA on CUDA cores (the path is f32: ``_attn_proj``
-casts qkv back to the hidden dtype); register tiles reuse every
-shared-memory load 4-8 times, causal tiles above the diagonal and tiles
-past a row's K length are skipped, and the ragged edge is masked in the
-kernel instead of padding to 128 lanes. Tensor cores (wgmma, TMA) are
-later work.
+- ``_flash_kernel`` (``_flash_forward``) -> ``csrc/flash_attention_fwd.cu``:
+  one thread block per (batch*head, 64-row q tile) loops over 64-row K/V
+  tiles kept in shared memory, carrying the softmax max, denominator and
+  output accumulator in f32, so the [T, T] scores never reach device
+  memory. It also returns the logsumexp the backward needs.
+- ``_flash_dq_kernel`` and ``_flash_dkv_kernel`` (``_flash_backward``) ->
+  ``csrc/flash_attention_bwd.cu``: the dq kernel keeps one q tile (Q, dO,
+  lse, Di) and walks the K/V tiles; the dkv kernel keeps one k tile (K,
+  V) and walks the q tiles from the causal lower bound. Both recompute P
+  from the saved logsumexp, so the backward too stays O(T*d) in memory.
 
-``flash_attention`` dispatches on the tensor's device: a CPU tensor runs
-``flash_attention_reference`` (the plain version, with the kernel's exact
-edge semantics); a CUDA tensor launches the kernel or raises. The
-backward kernels (``_flash_dq_kernel``/``_flash_dkv_kernel``) land with
-the training slice; until then a CUDA input that requires grad raises.
+What bounds them on the H100: at the serving prefill shape (B8 H16 T1024
+D64) the forward does ~17 GFLOP on ~134 MB, and at the training shape
+(B8 H8 T2048 D128) dq and dkv do 103 and 137 GFLOP on ~0.4 GB, all far
+above the card's FLOP:byte ridge, so every kernel is bound by
+operations. These first versions use f32 FMA on CUDA cores (the path is
+f32: ``_attn_proj`` casts qkv back to the hidden dtype); register tiles
+reuse every shared-memory load several times, causal tiles above the
+diagonal and tiles past a row's K length are skipped, and the ragged edge
+is masked in the kernel instead of padding to 128 lanes. Tensor cores
+(wgmma, TMA, bf16) are later work.
+
+``flash_attention`` is differentiable (``_FlashAttention``). Every
+wrapper dispatches on the tensor's device: a CPU tensor runs the plain
+version (``flash_attention_reference``,
+``flash_attention_backward_reference``, with the kernels' exact edge
+semantics), a meta tensor (build-time shape inference) runs it too and
+computes nothing, and a CUDA tensor launches the kernel or raises.
+``flash_attention.launches``, ``flash_backward.dq_launches`` and
+``flash_backward.dkv_launches`` count the launches.
 """
 from __future__ import annotations
 
@@ -32,6 +42,7 @@ import math
 import torch
 
 _LIB = "flash_attention_fwd"
+_LIB_BWD = "flash_attention_bwd"
 
 
 def rotary(x, pos0=0, base=10000.0):
@@ -116,14 +127,7 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False,
     Tq, Tk = q.shape[2], k.shape[2]
     dev = q.device
     s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
-    kj = torch.arange(Tk, device=dev)
-    mask = torch.ones(Tq, Tk, dtype=torch.bool, device=dev)
-    if causal:
-        mask = torch.arange(Tq, device=dev)[:, None] >= kj[None, :]
-    mask = mask[None, None]
-    if lengths is not None:
-        lengths = torch.as_tensor(lengths, device=dev)
-        mask = mask & (kj < lengths[:, None, None, None])
+    mask = _mask(Tq, Tk, lengths, causal, dev)
     s = s.masked_fill(~mask, -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
@@ -136,13 +140,84 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False,
     return o, lse[..., 0]
 
 
-def _bind():
+def _mask(Tq, Tk, lengths, causal, dev):
+    """[B or 1, 1, Tq, Tk] bool: key k_pos is visible from query q_pos
+    (k_pos < lengths[b], and k_pos <= q_pos when causal)."""
+    kj = torch.arange(Tk, device=dev)
+    mask = torch.ones(Tq, Tk, dtype=torch.bool, device=dev)
+    if causal:
+        mask = torch.arange(Tq, device=dev)[:, None] >= kj[None, :]
+    mask = mask[None, None]
+    if lengths is not None:
+        lengths = torch.as_tensor(lengths, device=dev)
+        mask = mask & (kj < lengths[:, None, None, None])
+    return mask
+
+
+def _p_ds(q, k, v, lse, di, do, lengths, causal, sm_scale):
+    """P and dS of the backward kernels over the full [Tq, Tk] square:
+    ``p = where(mask, exp(s - lse), 0)`` and ``ds = p * (dO v^T - Di)``."""
+    mask = _mask(q.shape[2], k.shape[2], lengths, causal, q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]),
+                    torch.zeros((), dtype=s.dtype, device=s.device))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    return p, p * (dp - di[..., None])
+
+
+def flash_dq_reference(q, k, v, lse, di, do, lengths=None, causal=False,
+                       sm_scale=None):
+    """The dq kernel's plain version: dq = sm_scale * dS k, with P
+    recomputed from ``lse`` [B, H, Tq] and ``di`` = rowsum(dO * o)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    _, ds = _p_ds(q, k, v, lse, di, do, lengths, causal, sm_scale)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * sm_scale
+    return dq.to(q.dtype)
+
+
+def flash_dkv_reference(q, k, v, lse, di, do, lengths=None, causal=False,
+                        sm_scale=None):
+    """The dkv kernel's plain version: (dk = sm_scale * dS^T q,
+    dv = P^T dO)."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _p_ds(q, k, v, lse, di, do, lengths, causal, sm_scale)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _row_dot(do, o):
+    """Di = rowsum(dO * o) [B, H, Tq] f32: formed outside the kernels, as
+    the JAX package leaves it to XLA."""
+    return (do.float() * o.float()).sum(dim=-1)
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, lengths=None,
+                                       causal=False, sm_scale=None):
+    """The backward kernels' plain version: (dq, dk, dv) of the flash
+    forward, with P recomputed from ``lse`` [B, H, Tq] exactly as the
+    Pallas bodies do, ``p = where(mask, exp(s - lse), 0)``. A fully
+    masked row has lse = +inf, so its P is 0 and it contributes nothing
+    (never ``inf - inf``)."""
+    di = _row_dot(do, o)
+    dq = flash_dq_reference(q, k, v, lse, di, do, lengths, causal, sm_scale)
+    dk, dv = flash_dkv_reference(q, k, v, lse, di, do, lengths, causal,
+                                 sm_scale)
+    return dq, dk, dv
+
+
+def _bind(lib_name, fn_name, n_ptrs):
+    """(library, entry point) of a kernel library, its ctypes signature
+    set: ``n_ptrs`` device pointers, the ints BH, Tq, Tk, D, causal, the
+    float sm_scale and the stream."""
     from . import build
 
-    lib = build.load(_LIB)
-    fn = lib.paddle_flash_attention_fwd_f32
+    lib = build.load(lib_name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
@@ -156,34 +231,54 @@ def _aligned(t):
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def _launch(q, k, v, lengths, causal, sm_scale):
+def _check_kernel_inputs(q, k, v, *more):
+    """What every flash kernel takes, checked before anything is built:
+    f32 [B, H, T, D] q/k/v with D 64 or 128 and K/V heads expanded, on
+    one device; ``more`` are tensors that must match q's shape (o, dO)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if D not in (64, 128):
         raise ValueError(f"flash kernel takes head_dim 64 or 128, got {D}")
-    if q.dtype != torch.float32 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes float32 q/k/v, got {q.dtype}, "
-                        f"{k.dtype}, {v.dtype}")
+    tensors = (q, k, v) + more
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("flash kernel takes float32 tensors, got "
+                        + ", ".join(str(t.dtype) for t in tensors))
     if k.shape != (B, H, Tk, D) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)} (expand GQA heads "
                          "first)")
-    if not (k.device == q.device and v.device == q.device):
-        raise ValueError("q, k and v must lie on one CUDA device")
+    if any(t.shape != q.shape for t in more):
+        raise ValueError(f"o/dO shapes {[tuple(t.shape) for t in more]} do "
+                         f"not match q {tuple(q.shape)}")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash kernel inputs must lie on one CUDA device")
     if B * H > 65535:
         raise ValueError(f"batch*heads {B * H} exceeds the grid's y limit")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the flash backward kernels land with the training slice; "
-            "run CUDA attention under torch.no_grad() until then")
-    lib, fn = _bind()
-    dev = q.device
+
+
+def _lens_bh(lengths, B, H, Tk, dev):
+    """Per-(batch*head) K lengths, int32 [BH]."""
     if lengths is None:
         lens = torch.full((B,), Tk, dtype=torch.int32, device=dev)
     else:
         lens = torch.as_tensor(lengths, device=dev).to(torch.int32)
-    lens_bh = lens.repeat_interleave(H).contiguous()  # [BH]
+    return lens.repeat_interleave(H).contiguous()
+
+
+def _raise_on(lib, err, what):
+    if err:
+        raise RuntimeError(
+            f"{what} launch failed: CUDA error {err} "
+            f"({lib.paddle_cuda_error_string(err).decode()})")
+
+
+def _launch(q, k, v, lengths, causal, sm_scale):
+    _check_kernel_inputs(q, k, v)
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    lib, fn = _bind(_LIB, "paddle_flash_attention_fwd_f32", 6)
+    dev = q.device
+    lens_bh = _lens_bh(lengths, B, H, Tk, dev)
     q3, k3, v3 = (_aligned(t) for t in (q, k, v))
     o = torch.empty_like(q3)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=dev)
@@ -193,33 +288,167 @@ def _launch(q, k, v, lengths, causal, sm_scale):
                  lens_bh.data_ptr(), o.data_ptr(), lse.data_ptr(),
                  B * H, Tq, Tk, D, int(bool(causal)), float(sm_scale),
                  stream)
-    if err:
-        raise RuntimeError(
-            f"flash_attention_fwd launch failed: CUDA error {err} "
-            f"({lib.paddle_cuda_error_string(err).decode()})")
+    _raise_on(lib, err, "flash_attention_fwd")
     flash_attention.launches += 1
     return o, lse
 
 
+def _check_backward_inputs(q, k, v, lse, di, do):
+    _check_kernel_inputs(q, k, v, do)
+    want = tuple(q.shape[:3])
+    for name, t in (("lse", lse), ("di", di)):
+        if tuple(t.shape) != want or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 [B, H, Tq] = {want}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+
+
+def _launch_bwd(fn_name, n_ptrs, outs, q, k, v, lse, di, do, lengths,
+                causal, sm_scale):
+    """Launch one backward kernel on the current stream, writing
+    ``outs``."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    lib, fn = _bind(_LIB_BWD, fn_name, n_ptrs)
+    dev = q.device
+    lens_bh = _lens_bh(lengths, B, H, Tk, dev)
+    q3, k3, v3, do3 = (_aligned(t) for t in (q, k, v, do))
+    lse3, di3 = lse.contiguous(), di.contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do3.data_ptr(),
+                 lse3.data_ptr(), di3.data_ptr(), lens_bh.data_ptr(),
+                 *(t.data_ptr() for t in outs), B * H, Tq, Tk, D,
+                 int(bool(causal)), float(sm_scale), stream)
+    _raise_on(lib, err, fn_name)
+
+
+def _launch_dq(q, k, v, lse, di, do, lengths, causal, sm_scale):
+    _check_backward_inputs(q, k, v, lse, di, do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("paddle_flash_attention_bwd_dq_f32", 8, (dq,), q, k, v, lse,
+                di, do, lengths, causal, sm_scale)
+    flash_backward.dq_launches += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, lse, di, do, lengths, causal, sm_scale):
+    _check_backward_inputs(q, k, v, lse, di, do)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_bwd("paddle_flash_attention_bwd_dkv_f32", 9, (dk, dv), q, k, v,
+                lse, di, do, lengths, causal, sm_scale)
+    flash_backward.dkv_launches += 1
+    return dk, dv
+
+
+def _plain_device(t):
+    """True where a wrapper runs the plain version: a CPU tensor computes
+    it, a meta tensor (build-time shape inference) only shapes it. A
+    CUDA tensor takes the kernel; any other device raises."""
+    if t.device.type in ("cpu", "meta"):
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not "
+                         f"{t.device.type}")
+    return False
+
+
 def flash_forward(q, k, v, lengths=None, causal=False, sm_scale=None):
     """(o [B, H, Tq, D], lse [B, H, Tq] f32) over [B, H, T, D] tensors:
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU one.
-    ``lengths`` [B] masks K/V columns at and past each row's length."""
+    the CUDA kernel for a CUDA tensor, the plain version for a CPU or
+    meta one. ``lengths`` [B] masks K/V columns at and past each row's
+    length."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cpu":
+    if _plain_device(q):
         return flash_attention_reference(q, k, v, lengths, causal, sm_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not "
-                         f"{q.device.type}")
     return _launch(q, k, v, lengths, causal, sm_scale)
+
+
+def flash_dq(q, k, v, lse, di, do, lengths=None, causal=False,
+             sm_scale=None):
+    """dq of the flash forward given lse and Di = rowsum(dO * o), both
+    [B, H, Tq] f32: the dq CUDA kernel for a CUDA tensor, the plain
+    version for a CPU or meta one."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _plain_device(q):
+        return flash_dq_reference(q, k, v, lse, di, do, lengths, causal,
+                                  sm_scale)
+    return _launch_dq(q, k, v, lse, di, do, lengths, causal, sm_scale)
+
+
+def flash_dkv(q, k, v, lse, di, do, lengths=None, causal=False,
+              sm_scale=None):
+    """(dk, dv) of the flash forward: the dkv CUDA kernel for a CUDA
+    tensor, the plain version for a CPU or meta one."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if _plain_device(q):
+        return flash_dkv_reference(q, k, v, lse, di, do, lengths, causal,
+                                   sm_scale)
+    return _launch_dkv(q, k, v, lse, di, do, lengths, causal, sm_scale)
+
+
+def flash_backward(q, k, v, o, lse, do, lengths=None, causal=False,
+                   sm_scale=None):
+    """(dq, dk, dv) of the flash forward given its o and lse and the
+    output gradient ``do``: Di = rowsum(dO * o) in torch, then the dq and
+    the dkv kernel (their plain versions for a CPU or meta tensor).
+    ``flash_backward.dq_launches``/``.dkv_launches`` count the kernels'
+    launches."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if not _plain_device(q):  # refuse before any work, as _launch does
+        _check_kernel_inputs(q, k, v, o, do)
+        # dO arrives through transpose(1, 2).reshape(...): copy it (and
+        # any unaligned input) once for both kernels
+        q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    di = _row_dot(do, o)
+    dq = flash_dq(q, k, v, lse, di, do, lengths, causal, sm_scale)
+    dk, dv = flash_dkv(q, k, v, lse, di, do, lengths, causal, sm_scale)
+    return dq, dk, dv
+
+
+flash_backward.dq_launches = 0
+flash_backward.dkv_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel, saving q, k,
+    v, o and lse; the backward is ``flash_backward`` (the counterpart of
+    the JAX package's ``_attention`` custom_vjp). In the ``setup_context``
+    form, so ``torch.func`` transforms can see through it."""
+
+    @staticmethod
+    def forward(q, k, v, lengths, causal, sm_scale):
+        return flash_forward(q, k, v, lengths, causal, sm_scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, lengths, causal, sm_scale = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.lengths, ctx.causal, ctx.sm_scale = lengths, causal, sm_scale
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, o, lse, do, ctx.lengths,
+                                    ctx.causal, ctx.sm_scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, lengths=None, causal=False, sm_scale=None):
     """Scaled-dot-product attention over [B, H, T, D] tensors: the
-    sm_90a flash kernel on CUDA, its plain version on the CPU.
-    ``flash_attention.launches`` counts the kernel's launches."""
-    return flash_forward(q, k, v, lengths, causal, sm_scale)[0]
+    sm_90a flash kernels on CUDA, their plain versions on the CPU;
+    differentiable through ``_FlashAttention``.
+    ``flash_attention.launches`` counts the forward kernel's launches."""
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttention.apply(q, k, v, lengths, causal,
+                                 float(sm_scale))[0]
 
 
 flash_attention.launches = 0

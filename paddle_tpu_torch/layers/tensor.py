@@ -1,0 +1,53 @@
+"""Tensor layers. Counterpart of ``paddle_tpu/layers/tensor.py``, cut to
+what the training slice builds."""
+from __future__ import annotations
+
+from ..core.types import dtype_name
+from .layer_helper import LayerHelper
+
+
+def _helper(name, main_program=None, startup_program=None):
+    return LayerHelper(name, main_program=main_program,
+                       startup_program=startup_program)
+
+
+def fill_constant(shape, dtype, value, main_program=None,
+                  startup_program=None):
+    h = _helper("fill_constant", main_program, startup_program)
+    return h.simple_op("fill_constant", {},
+                       {"shape": list(shape), "dtype": dtype_name(dtype),
+                        "value": value})
+
+
+def create_global_var(shape, value, dtype, persistable=True, name=None,
+                      main_program=None, startup_program=None):
+    """A persistable var initialised in the startup program (learning
+    rates, counters)."""
+    h = _helper("global_var", main_program, startup_program)
+    var = h.create_global_variable(name=name, shape=shape, dtype=dtype,
+                                   persistable=persistable)
+    sb = h.startup_program.global_block
+    sv = sb.create_var(name=var.name, shape=shape, dtype=dtype,
+                       persistable=True)
+    sb.append_op("fill_constant", outputs={"Out": [sv.name]},
+                 attrs={"shape": list(shape), "dtype": dtype_name(sv.dtype),
+                        "value": value})
+    return var
+
+
+def assign(input, output=None, main_program=None, startup_program=None):
+    h = _helper("assign", main_program, startup_program)
+    if output is None:
+        return h.simple_op("assign", {"X": [input]})
+    h.append_op("assign", {"X": [input]}, {"Out": [output]}, {})
+    return output
+
+
+def mean(x, main_program=None, startup_program=None):
+    h = _helper("mean", main_program, startup_program)
+    return h.simple_op("mean", {"X": [x]})
+
+
+def reshape(x, shape, main_program=None, startup_program=None):
+    h = _helper("reshape", main_program, startup_program)
+    return h.simple_op("reshape", {"X": [x]}, {"shape": list(shape)})

@@ -1,12 +1,18 @@
-"""Transformer language model (decoder-only, causal) for serving.
+"""Transformer language model (decoder-only, causal).
 
 Counterpart of ``paddle_tpu/models/transformer.py`` for the stacked-weight
-LM (``transformer_lm(pipeline_stack=True)``). :class:`TransformerLM` holds
-the weights under the JAX package's parameter names (``tok_emb``,
-``pos_emb``, ``lm_stack.stack_*``, ``final_ln.scale``, ``final_ln.bias``,
-``lm_head.w``), in the JAX layout ([in, out] matrices applied as
-``x @ W``, a leading [L] layer axis on the block weights), so a JAX
-scope's values carry across by name with :meth:`load_jax_params`.
+LM (``transformer_lm(pipeline_stack=True)``), in two forms:
+
+- ``transformer_lm`` builds it into a Program with the port's ``layers``,
+  for training through ``Optimizer.minimize`` and ``Executor``;
+- :class:`TransformerLM` holds its weights for serving.
+
+Both use the JAX package's parameter names (``tok_emb``, ``pos_emb``,
+``lm_stack.stack_*``, ``final_ln.scale``, ``final_ln.bias``,
+``lm_head.w``) and layout ([in, out] matrices applied as ``x @ W``, a
+leading [L] layer axis on the block weights), so a trained scope's
+values, or a JAX scope's, load into :class:`TransformerLM` by name with
+:meth:`load_jax_params`.
 """
 from __future__ import annotations
 
@@ -16,7 +22,71 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import layers
+from ..layers.layer_helper import LayerHelper
 from ..ops.pipeline_ops import _STACK_SLOTS
+from ..param_attr import ParamAttr
+
+
+def transformer_lm(ids, vocab_size, d_model=256, n_layers=4, num_heads=8,
+                   d_ff=None, num_kv_heads=None, use_rope=False,
+                   max_len=2048, norm_type="layer_norm",
+                   pipeline_stack=False, n_microbatches=None, remat=False,
+                   include_head=True, main_program=None,
+                   startup_program=None):
+    """ids [b, T] int64 -> logits [b, T, vocab]: pre-LN GPT-style blocks,
+    a learned positional embedding (or RoPE), an untied output head.
+
+    The port builds the stacked form (``pipeline_stack=True``: one
+    ``pipelined_transformer_stack`` op over [L, ...] weights). The
+    per-layer form, other norms and a headless model are later slices."""
+    if not pipeline_stack:
+        raise NotImplementedError(
+            "transformer_lm(pipeline_stack=False) (the per-layer "
+            "transformer_encoder_layer stack) is not ported to "
+            "paddle_tpu_torch yet: it lands with the per-layer transformer "
+            "training slice; pass pipeline_stack=True")
+    if norm_type != "layer_norm":
+        raise ValueError(
+            "pipeline_stack=True supports norm_type='layer_norm' only")
+    if not include_head:
+        raise ValueError(
+            "pipeline_stack=True requires include_head=True: the serving "
+            "siblings rejoin the trained head by its fixed name (lm_head.w)")
+    kw = dict(main_program=main_program, startup_program=startup_program)
+    d_ff = d_ff or 4 * d_model
+    tok = layers.embedding(ids, size=[vocab_size, d_model],
+                           param_attr=ParamAttr(name="tok_emb"), **kw)
+    tok.seq_len = getattr(ids, "seq_len", None)
+    T = ids.shape[1]
+    helper = LayerHelper("transformer_lm", **kw)
+    if use_rope:
+        x = tok  # positions live in the attention rotation
+    else:
+        pos_table = helper.create_parameter(
+            ParamAttr(name="pos_emb"), shape=[max_len, d_model],
+            dtype="float32")
+        pos = helper.simple_op("slice", {"X": [pos_table]},
+                               {"axes": [0], "starts": [0], "ends": [T]})
+        x = helper.simple_op("elementwise_add", {"X": [tok], "Y": [pos]})
+        x.seq_len = tok.seq_len
+    if "lm_stack.stack_qkv_w" in helper.main_program.global_block.vars:
+        raise ValueError(
+            "transformer_lm(pipeline_stack=True) may be built only once per "
+            "program: its parameter names (lm_stack.*, final_ln.*, "
+            "lm_head.w) are fixed, and a second stacked LM in the same "
+            "program would silently share weights")
+    x = layers.pipelined_transformer_stack(
+        x, n_layers=n_layers, num_heads=num_heads, d_ff=d_ff,
+        num_kv_heads=num_kv_heads, use_rope=use_rope, causal=True,
+        n_microbatches=n_microbatches, remat=remat,
+        param_attr=ParamAttr(name="lm_stack"), **kw)
+    x = layers.layer_norm(x, begin_norm_axis=2,
+                          param_attr=ParamAttr(name="final_ln.scale"),
+                          bias_attr=ParamAttr(name="final_ln.bias"), **kw)
+    return layers.fc(x, size=vocab_size, num_flatten_dims=2,
+                     param_attr=ParamAttr(name="lm_head.w"),
+                     bias_attr=False, **kw)
 
 
 def param_shapes(spec) -> Dict[str, tuple]:

@@ -1,7 +1,7 @@
 """Shared helpers for the port's op functions.
 
 Counterpart of ``paddle_tpu/ops/common.py``, cut to what the serving
-path uses. An op takes ``ins``, a dict of slot name -> [tensor], and
+and training paths use. An op takes ``ins``, a dict of slot name -> [tensor], and
 returns the same shape of dict, so it is called exactly like its JAX
 twin.
 
@@ -27,3 +27,16 @@ def out(**kw):
     """Build an output dict: out(Out=x) -> {"Out": [x]}; lists pass
     through."""
     return {k: (v if isinstance(v, list) else [v]) for k, v in kw.items()}
+
+
+def broadcast_to_x(x, y, axis: int = -1):
+    """Reference elementwise broadcast semantics (elementwise_op.h):
+    ``y``'s shape must match a contiguous run of ``x``'s dims starting at
+    ``axis`` (axis=-1 means trailing-aligned, i.e. standard numpy rules).
+    Returns y reshaped so broadcasting against x is valid."""
+    if x.ndim == y.ndim or y.ndim == 0:
+        return y
+    if axis == -1:
+        axis = x.ndim - y.ndim
+    new_shape = (1,) * axis + tuple(y.shape) + (1,) * (x.ndim - axis - y.ndim)
+    return y.reshape(new_shape)

@@ -1,15 +1,17 @@
-"""Stacked transformer decode ops: L pre-LN blocks with stacked weights.
+"""Stacked transformer ops: L pre-LN blocks with stacked weights.
 
-Counterpart of ``paddle_tpu/ops/pipeline_ops.py``, cut to the serving
-path of the dense slot engine. Every weight carries a leading layer axis
-[L, ...] in the JAX layout ([in, out], applied as ``x @ W``); where the
-JAX package scans over that axis, the port runs a Python loop over
-layers. Op functions take ``(attrs, ins)`` with ``ins`` a dict of slot
-name -> [tensor] and return such a dict, exactly like their JAX twins.
+Counterpart of ``paddle_tpu/ops/pipeline_ops.py``, cut to the training
+op (``pipelined_transformer_stack``) and the serving path of the dense
+slot engine. Every weight carries a leading layer axis [L, ...] in the
+JAX layout ([in, out], applied as ``x @ W``); where the JAX package scans
+over that axis, the port runs a Python loop over layers. Op functions
+take ``(attrs, ins)`` with ``ins`` a dict of slot name -> [tensor] and
+return such a dict, exactly like their JAX twins.
 
-The prefill's causal attention is the sm_90a flash kernel
-(``kernels/flash_attention.py``); decode attention over the slot cache
-stays plain tensor code, as the JAX package leaves it to XLA.
+Causal attention over a whole sequence (the training forward and the
+prefill) is the sm_90a flash kernel (``kernels/flash_attention.py``),
+differentiable through its backward kernels; decode attention over the
+slot cache stays plain tensor code, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from ..kernels.flash_attention import (flash_attention, reference_attention,
                                        rotary)
+from ..core.registry import register_op
 from .common import maybe, out, single
 
 _EPS = 1e-5
@@ -89,6 +92,44 @@ def _attn_out_ffn(p, x, ctx):
 
 def _layer(params, i):
     return {key: w[i] for key, w in params.items()}
+
+
+def _block(p, x, num_heads, causal, num_kv_heads=None, use_rope=False):
+    """One pre-LN transformer block over x [b, T, d]; p holds one layer's
+    weights (no leading dim)."""
+    b, T, d = x.shape
+    q, k, v = _attn_proj(p, x, num_heads, num_kv_heads, use_rope)
+    k, v = _expand_kv(k, v, num_heads)
+    ctx = flash_attention(q, k, v, causal=causal)
+    return _attn_out_ffn(p, x, ctx.transpose(1, 2).reshape(b, T, d))
+
+
+@register_op("pipelined_transformer_stack")
+def pipelined_transformer_stack(attrs, ins):
+    """X [b, T, d] + stacked block weights (leading dim L) -> Out [b, T, d]:
+    a loop over the L layers. Differentiable: the executor records it
+    under autograd when its grad op follows. The port has no device mesh
+    yet, so the JAX package's GPipe branch (a ``pp`` mesh axis) belongs
+    to the parallel slice, and ``remat`` to the recompute slice."""
+    if attrs.get("remat"):
+        raise NotImplementedError(
+            "pipelined_transformer_stack(remat=...) is not ported to "
+            "paddle_tpu_torch yet: activation checkpointing lands with the "
+            "recompute slice")
+    x = single(ins, "X")
+    params = _stack_params(ins)
+    num_heads = attrs["num_heads"]
+    num_kv_heads = attrs.get("num_kv_heads") or num_heads
+    use_rope = attrs.get("use_rope", False)
+    causal = attrs.get("causal", True)
+    # unbind, not w[i]: its backward stacks the L layer grads in one
+    # allocation instead of scattering each into a zero [L, ...] tensor
+    keys = list(params)
+    h = x
+    for layer_w in zip(*(params[key].unbind(0) for key in keys)):
+        h = _block(dict(zip(keys, layer_w)), h, num_heads, causal,
+                   num_kv_heads, use_rope)
+    return out(Out=h)
 
 
 def _stack_params(ins):
