@@ -33,6 +33,25 @@ Phases, each fatal on failure (nonzero exit, no result line):
    parameter gradient against the plain path on the card, that each step
    launched the forward, dq and dkv kernels once per layer, and that the
    loss is finite and falls over the timed steps on one fixed batch.
+7. TF32: the port's conv2d (3x3 s2 p1, NHWC, 64 -> 64) on the card, with
+   cuDNN's TF32 at PyTorch's default (on), against the same op in f64 on
+   the CPU: output, dX and dW within 1e-5 of the largest reference value.
+8. Conv-epilogue kernels: conv1x1_stats, conv1x1_epilogue and
+   scale_shift_act against their plain versions at every distinct shape
+   of the ResNet-50 train step (batch 256) and inference batch (16) and
+   at ragged shapes, then timed at each of those shapes beside the plain
+   version, the roofline bound and a library yardstick.
+9. ResNet-50 training: ``models.resnet_imagenet(depth=50)`` at 224 x 224,
+   1000 classes, batch 256, f32, under ``--fused_conv_epilogue``, trained
+   through ``MomentumOptimizer(0.1, 0.9).minimize`` from the startup
+   program's seeded weights. Checks one step's loss and gradients against
+   the plain path (gradients against the plain path's own move when its
+   statistics are summed in f64), 33 conv1x1_stats and 33 scale_shift_act
+   launches per step, and a finite, falling loss over the timed steps on
+   one fixed batch; profiles one step (``chiprun_out/resnet_profile.txt``).
+10. ResNet-50 inference: the ``clone(for_test=True)`` program on the
+    trained scope at batch 16: logits against the plain path and 33
+    conv1x1_epilogue launches per batch.
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -593,9 +612,12 @@ def training_phase(records, gpu_name):
     }
 
 
-def _profile_step(exe, main, feed, loss, scope):
-    """Device time of one train step by kernel, from torch.profiler (CUPTI);
-    a measurement aid, not a check: without device times it says so."""
+def _profile_step(exe, main, feed, loss, scope, path="train_profile.txt",
+                  groups=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+    """Device time of one train step by kernel, from torch.profiler (CUPTI),
+    summed per group of kernel names (``groups``: substrings) and written
+    to ``chiprun_out/<path>``; a measurement aid, not a check: without
+    device times it says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -623,22 +645,552 @@ def _profile_step(exe, main, feed, loss, scope):
     if not total:
         print("profile: no device time recorded")
         return None
-    groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    sums = {g: 0.0 for g in groups}
     for ms, _, key in rows:
-        for g in groups:
+        for g in groups:  # the first group that matches takes the kernel
             if g in key:
-                groups[g] += ms
-    print(f"profile: one step, {total:.1f} ms of device time; flash fwd "
-          f"{groups['flash_fwd']:.1f} ms, dq {groups['flash_bwd_dq']:.1f} "
-          f"ms, dkv {groups['flash_bwd_dkv']:.1f} ms")
+                sums[g] += ms
+                break
+    print(f"profile: one step, {total:.1f} ms of device time; "
+          + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sums.items()))
     for ms, n, key in rows[:12]:
         print(f"profile: {ms:9.2f} ms {n:5d}x {key[:90]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "train_profile.txt").write_text("\n".join(
+    (out / path).write_text("\n".join(
         f"{ms:.4f}\t{n}\t{key}" for ms, n, key in rows))
-    return {"device_ms": total, "kernels_ms": groups,
+    return {"device_ms": total, "kernels_ms": sums,
             "top": [[ms, n, key] for ms, n, key in rows[:25]]}
+
+
+# --- ResNet-50 under --fused_conv_epilogue ------------------------------------
+# bench.py's ResNet-50 training configuration (measure_resnet): 224x224x3
+# images, 1000 classes, Momentum(lr 0.1, momentum 0.9), batch 256, in f32
+# where the bench runs AMP; inference on the for_test clone at
+# bench_inference's batch 16.
+RESNET = dict(size=224, classes=1000, depth=50, batch=256, infer_batch=16,
+              lr=0.1, momentum=0.9)
+FUSED_OPS = 33  # conv1x1_bn_act ops of ResNet-50 under the flag
+# Kernel against plain version, f32 on both sides:
+# - GEMM outputs (y of conv1x1_stats, conv1x1_epilogue's out): K <= 2048
+#   products summed in 8-deep slices by one FMA chain per output against
+#   cuBLAS's order; ~3e-5 at K = 2048, allow 1e-4 absolute and relative.
+# - statistics: per-channel sums over up to 802816 rows, in another order
+#   (8 rows a thread, 16 threads, 128-row tiles in a fixed order) than
+#   torch.sum; rounding grows with the summed mass, so the error of each
+#   channel's sum (sum of squares) is held to 1e-5 of sum |y| (sum y^2):
+#   a dropped 128-row tile is 1.6e-4 of the mass at the largest R.
+# - scale_shift_act: elementwise, differing at most by an FMA contraction;
+#   allow 1e-5 absolute and relative.
+# - the logits of 53 BN layers' worth of these kernels against the plain
+#   path: 1e-4 of the largest |logit|.
+# - one train step's gradients: at this initialisation they are as
+#   sensitive to the rounding of the BN statistics as the loss is not.
+#   Measured on the card (H100, batch 256 and 32): the plain path alone
+#   moves its parameter gradients by 2.5% of their norm (median; 3.1%
+#   worst) when only the fused ops' statistics are summed in f64 instead
+#   of f32, and the kernels' f32 sums land as close. So each gradient's
+#   distance from the plain path is held to SENS_FACTOR times the plain
+#   path's own distance under that f64 summation (or GRAD_RTOL of its
+#   norm, if larger), and the distance over all gradients together to
+#   SENS_TOTAL times; a dropped tile or a wrong row moves them by far
+#   more.
+GEMM_TOL = 1e-4
+STATS_TOL = 1e-5
+APPLY_TOL = 1e-5
+LOGIT_RTOL = 1e-4
+# The port's conv2d on the card against the same op on the CPU in f64: a
+# K = 576 f32 sum errs ~1e-6 of the largest output; TF32 ~1e-3.
+TF32_RTOL = 1e-5
+SENS_FACTOR = 4.0
+SENS_TOTAL = 2.0
+CONV_KERNELS = ("conv1x1_stats", "conv1x1_epilogue", "scale_shift_act")
+CONV_REPLACES = {"conv1x1_stats": 94, "conv1x1_epilogue": 169,
+                 "scale_shift_act": 235}
+
+
+def _conv_counts(ke):
+    return tuple(getattr(ke, n).launches for n in CONV_KERNELS)
+
+
+def _reset_conv_counts(ke):
+    for n in CONV_KERNELS:
+        getattr(ke, n).launches = 0
+
+
+def _build_resnet(pt, c):
+    """ResNet-50 under --fused_conv_epilogue: (main, startup, test_prog,
+    loss, logits, params_grads), the for_test clone taken before
+    minimize, as fluid does."""
+    from paddle_tpu_torch import layers, models
+
+    pt.flags.FLAGS.fused_conv_epilogue = True
+    try:
+        main, startup = pt.Program(), pt.Program()
+        startup.random_seed = SEED
+        with pt.program_guard(main, startup):
+            images = layers.data("images", [c["size"], c["size"], 3])
+            label = layers.data("label", [1], "int64")
+            logits = models.resnet_imagenet(images, num_classes=c["classes"],
+                                            depth=c["depth"])
+            test_prog = main.clone(for_test=True)
+            loss = layers.mean(layers.softmax_with_cross_entropy(logits,
+                                                                 label))
+            params_grads = pt.optimizer.MomentumOptimizer(
+                learning_rate=c["lr"], momentum=c["momentum"]).minimize(
+                    loss, startup_program=startup)
+    finally:
+        pt.flags.FLAGS.fused_conv_epilogue = False
+    return main, startup, test_prog, loss, logits, params_grads
+
+
+def _fused_shapes(program, batch):
+    """(R, I, O, residual, act) of every conv1x1_bn_act op of ``program``
+    at ``batch``, in program order."""
+    blk = program.global_block
+    shapes = []
+    for op in blk.ops:
+        if op.type != "conv1x1_bn_act":
+            continue
+        _, H, W, I = blk.var(op.inputs["X"][0]).shape
+        O = blk.var(op.inputs["Filter"][0]).shape[-1]
+        shapes.append((batch * H * W, I, O, bool(op.inputs.get("Residual")),
+                       op.attrs.get("act") or None))
+    return shapes
+
+
+def _resnet_train_flops(program, batch):
+    """Model FLOPs of one train step: 2 per MAC of every conv, fused conv
+    and fc in the forward, times 3 for forward plus backward."""
+    blk = program.global_block
+    fwd = 0
+    for op in blk.ops:
+        if op.type == "conv2d":
+            out = blk.var(op.outputs["Output"][0]).shape
+            kh, kw, ci, _ = blk.var(op.inputs["Filter"][0]).shape
+            fwd += 2 * batch * out[1] * out[2] * out[3] * kh * kw * ci
+        elif op.type == "conv1x1_bn_act":
+            _, H, W, I = blk.var(op.inputs["X"][0]).shape
+            O = blk.var(op.inputs["Filter"][0]).shape[-1]
+            fwd += 2 * batch * H * W * I * O
+        elif op.type == "mul":
+            k, n = blk.var(op.inputs["Y"][0]).shape
+            fwd += 2 * batch * k * n
+    return 3 * fwd
+
+
+def _conv_work(kind, R, I, O, residual, act):
+    """(FLOPs, bytes) of one kernel call: 2*R*I*O for the products (an
+    elementwise pass counts its multiply, add, residual add and relu per
+    value); every input read once and every output written once."""
+    rows = R * O * (1 + int(residual))  # [R, O] inputs: y or residual
+    if kind == "scale_shift_act":
+        flops = R * O * (2 + int(residual) + int(act == "relu"))
+        return flops, 4.0 * (rows + R * O + 2 * O)
+    nbytes = R * I + I * O + R * O + 2 * O  # stats out, or scale/shift in
+    if kind == "conv1x1_epilogue" and residual:
+        nbytes += R * O
+    return 2.0 * R * I * O, 4.0 * nbytes
+
+
+def _assert_close(got, want, tol, what):
+    import torch
+
+    try:
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    except AssertionError as exc:
+        raise AssertionError(f"{what}: {exc}") from None
+    return float((got - want).abs().max())
+
+
+def conv_epilogue_kernel_phase(gpu_name, train_shapes, infer_shapes):
+    """Each conv-epilogue kernel against its plain version at every
+    distinct shape of the ResNet-50 train step and inference batch, and
+    at ragged shapes; then timed at each of the main path's shapes."""
+    import torch
+
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def inputs(R, I, O, residual):
+        x = torch.randn(R, I, device="cuda", generator=gen)
+        w = torch.randn(I, O, device="cuda", generator=gen) * I ** -0.5
+        scale = 1.0 + 0.2 * torch.randn(O, device="cuda", generator=gen)
+        shift = 0.1 * torch.randn(O, device="cuda", generator=gen)
+        res = (torch.randn(R, O, device="cuda", generator=gen)
+               if residual else None)
+        return x, w, scale, shift, res
+
+    ragged = [(R, I, O, res, act) for R, I, O in ((100, 32, 16),
+                                                  (1000, 72, 40))
+              for res, act in ((False, None), (True, "relu"))]
+    errs = {k: 0.0 for k in CONV_KERNELS}
+    stats_err = 0.0
+    for R, I, O, res, act in sorted(set(train_shapes) | set(ragged)):
+        x, w, scale, shift, r = inputs(R, I, O, res)
+        y, stats = ke.conv1x1_stats(x, w)
+        torch.cuda.synchronize()
+        ry, rstats = ke.conv1x1_stats_reference(x, w)
+        err = _assert_close(y, ry, GEMM_TOL, f"conv1x1_stats y {R}x{I}x{O}")
+        mass = torch.stack([ry.abs().sum(0), (ry * ry).sum(0)])
+        s_err = float(((stats - rstats).abs() / mass.clamp_min(1e-30)).max())
+        assert s_err <= STATS_TOL, (R, I, O, s_err)
+        out = ke.scale_shift_act(ry, scale, shift, r, act)
+        torch.cuda.synchronize()
+        a_err = _assert_close(
+            out, ke.scale_shift_act_reference(ry, scale, shift, r, act),
+            APPLY_TOL, f"scale_shift_act {R}x{O}")
+        errs["conv1x1_stats"] = max(errs["conv1x1_stats"], err)
+        errs["scale_shift_act"] = max(errs["scale_shift_act"], a_err)
+        stats_err = max(stats_err, s_err)
+        print(f"conv1x1_stats/scale_shift_act R{R} I{I} O{O} residual={res} "
+              f"act={act}: y {err:.3e} (tol {GEMM_TOL}), stats {s_err:.3e} "
+              f"of the summed mass (tol {STATS_TOL}), apply {a_err:.3e} "
+              f"(tol {APPLY_TOL})")
+        del x, w, r, y, ry, out
+    for R, I, O, res, act in sorted(set(infer_shapes) | set(ragged)):
+        x, w, scale, shift, r = inputs(R, I, O, res)
+        out = ke.conv1x1_epilogue(x, w, scale, shift, r, act)
+        torch.cuda.synchronize()
+        err = _assert_close(
+            out, ke.conv1x1_epilogue_reference(x, w, scale, shift, r, act),
+            GEMM_TOL, f"conv1x1_epilogue {R}x{I}x{O}")
+        errs["conv1x1_epilogue"] = max(errs["conv1x1_epilogue"], err)
+        print(f"conv1x1_epilogue R{R} I{I} O{O} residual={res} act={act}: "
+              f"{err:.3e} (tol {GEMM_TOL})")
+        del x, w, r, out
+
+    # timing at every shape the main path runs, weighted by its count
+    timed = {k: {} for k in CONV_KERNELS}
+    for kind, shapes in (("conv1x1_stats", train_shapes),
+                         ("scale_shift_act", train_shapes),
+                         ("conv1x1_epilogue", infer_shapes)):
+        for shape in sorted(set(shapes)):
+            R, I, O, res, act = shape
+            x, w, scale, shift, r = inputs(R, I, O, res)
+            if kind == "conv1x1_stats":
+                calls = (lambda: ke.conv1x1_stats(x, w),
+                         lambda: ke.conv1x1_stats_reference(x, w),
+                         lambda: torch.matmul(x, w))
+            elif kind == "conv1x1_epilogue":
+                calls = (lambda: ke.conv1x1_epilogue(x, w, scale, shift, r,
+                                                     act),
+                         lambda: ke.conv1x1_epilogue_reference(
+                             x, w, scale, shift, r, act),
+                         lambda: torch.matmul(x, w))
+            else:
+                y = torch.randn(R, O, device="cuda", generator=gen)
+                calls = (lambda: ke.scale_shift_act(y, scale, shift, r, act),
+                         lambda: ke.scale_shift_act_reference(y, scale, shift,
+                                                              r, act),
+                         lambda: torch.addcmul(shift, y, scale))
+            ms, plain, lib = (_cuda_ms(f, iters=10) for f in calls)
+            flops, nbytes = _conv_work(kind, R, I, O, res, act)
+            bound, by = _bound(flops, nbytes, gpu_name)
+            row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                   "bound_ms": bound, "bound_by": by,
+                   "count": shapes.count(shape)}
+            if kind == "scale_shift_act":  # the same pass as addcmul's
+                row["ms_no_residual_no_act"] = _cuda_ms(
+                    lambda: ke.scale_shift_act(y, scale, shift), iters=10)
+            timed[kind][shape] = row
+            print(f"{kind} R{R} I{I} O{O} residual={res} act={act} "
+                  f"x{row['count']}: {ms:.4f} ms, plain {plain:.4f}, "
+                  f"library {lib:.4f}, bound {bound:.4f} ({by})")
+            del x, w, r, calls
+    _reset_conv_counts(ke)  # comparison launches do not count
+
+    library = {"conv1x1_stats": "torch.matmul, product only",
+               "conv1x1_epilogue": "torch.matmul, product only",
+               "scale_shift_act": "torch.addcmul(shift, y, scale), no "
+                                  "residual, no act"}
+    records = []
+    for kind in CONV_KERNELS:
+        rows = timed[kind]
+        shape, top = max(rows.items(), key=lambda kv: kv[1]["bound_ms"])
+        per_step = {k: sum(r[k] * r["count"] for r in rows.values())
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        rec = {
+            "name": kind, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
+            "replaces": f"paddle_tpu/kernels/conv_epilogue.py:"
+                        f"{CONV_REPLACES[kind]}",
+            "launches": None, "max_abs_err": errs[kind], "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "library": library[kind],
+            "shape": "R{} I{} O{} residual={} act={}".format(*shape),
+            "per_step": per_step,
+            "per_shape": [[list(k), v] for k, v in rows.items()],
+        }
+        if kind == "conv1x1_stats":
+            rec["stats_err_of_mass"] = stats_err
+        if kind == "scale_shift_act":
+            rec["ms_no_residual_no_act"] = top["ms_no_residual_no_act"]
+        print(f"{kind}: heaviest shape {rec['shape']} {top['ms']:.4f} ms vs "
+              f"bound {top['bound_ms']:.4f} ({top['bound_by']}); per "
+              f"{'batch' if kind == 'conv1x1_epilogue' else 'step'} "
+              f"{per_step['ms']:.3f} ms (plain {per_step['plain_ms']:.3f}, "
+              f"library {per_step['library_ms']:.3f}, bound "
+              f"{per_step['bound_ms']:.3f})")
+        records.append(rec)
+    return records
+
+
+def tf32_phase():
+    """The port's conv2d (3x3 s2 p1, NHWC, I = O = 64) on the card, with
+    cuDNN's TF32 left at PyTorch's default (on), against the same op on
+    the CPU in f64: output, dX and dW within TF32_RTOL of the largest
+    reference value. TF32 would err by ~1e-3."""
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op
+
+    conv = get_op("conv2d").fn
+    attrs = {"strides": 2, "paddings": 1, "dilations": 1, "groups": 1,
+             "data_format": "NHWC"}
+    gen = torch.Generator().manual_seed(SEED + 4)
+    x = torch.randn(8, 56, 56, 64, generator=gen, dtype=torch.float64)
+    w = torch.randn(3, 3, 64, 64, generator=gen,
+                    dtype=torch.float64) / 24.0
+    gy = torch.randn(8, 28, 28, 64, generator=gen, dtype=torch.float64)
+
+    def run(dev, dtype):
+        xx = x.to(dev, dtype).requires_grad_()
+        ww = w.to(dev, dtype).requires_grad_()
+        y = conv(attrs, {"Input": [xx], "Filter": [ww]})["Output"][0]
+        dx, dw = torch.autograd.grad(y, [xx, ww], gy.to(dev, dtype))
+        return [t.detach().double().cpu() for t in (y, dx, dw)]
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the op must turn it off itself
+    try:
+        got = run("cuda", torch.float32)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    want = run("cpu", torch.float64)
+    errs = {name: float((g - r).abs().max() / r.abs().max())
+            for name, g, r in zip(("out", "dX", "dW"), got, want)}
+    assert all(e <= TF32_RTOL for e in errs.values()), errs
+    print(f"conv2d 3x3 s2 p1 NHWC 64->64 on the card vs f64 on the CPU, "
+          f"cuDNN TF32 on by default: max error / max |ref| "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol {TF32_RTOL})")
+    return errs
+
+
+def resnet_training_phase(records, gpu_name, built):
+    """ResNet-50 at batch 256 trained through Momentum.minimize and
+    Executor(CUDAPlace()): one step's loss and gradients with the kernels
+    against the plain path, then 1 warm + 6 timed steps on one batch."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+
+    c = RESNET
+    B = c["batch"]
+    main, startup, test_prog, loss, logits, params_grads = built
+    t0 = time.perf_counter()
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace())
+    exe.run(startup, scope=scope)
+    torch.cuda.synchronize()
+    n_params = sum(scope.get(p.name).numel() for p, _ in params_grads)
+    print(f"resnet: program of {len(main.global_block.ops)} ops "
+          f"({sum(op.type == 'conv1x1_bn_act' for op in main.global_block.ops)}"
+          f" conv1x1_bn_act), {len(params_grads)} parameters "
+          f"({n_params / 1e6:.2f} M), initialised in "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    feed = {"images": torch.randn(B, c["size"], c["size"], 3, device="cuda",
+                                  generator=gen),
+            "label": torch.randint(0, c["classes"], (B, 1), device="cuda",
+                                   generator=gen)}
+    state = {n: scope.get(n).clone() for n in list(scope.keys())
+             if isinstance(scope.get(n), torch.Tensor)}
+
+    def restore():
+        for n, t in state.items():
+            scope.set(n, t.clone())
+
+    grad_names = [g.name for _, g in params_grads]
+    fetch = [loss.name] + grad_names
+    kern = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                   return_numpy=False)
+    restore()
+    plain = _plain_step(exe, main, feed, fetch, scope, ke)
+    restore()
+    # the plain path's own sensitivity: its statistics summed in f64
+    plain64 = _plain_step(exe, main, feed, fetch, scope, ke, f64_stats=True)
+    restore()
+    del state
+    lk, lp = float(kern[0]), float(plain[0])
+    assert np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), (lk, lp)
+    d_kp, d_pp, norms, worst = [], [], [], (-1.0, "")
+    for name, gk, gp, g64 in zip(grad_names, kern[1:], plain[1:],
+                                 plain64[1:]):
+        assert torch.isfinite(gk).all(), name
+        dk, dp, n = (float((gk - gp).norm()), float((g64 - gp).norm()),
+                     float(gp.norm()))
+        d_kp.append(dk)
+        d_pp.append(dp)
+        norms.append(n)
+        worst = max(worst, (dk / max(GRAD_RTOL * n, SENS_FACTOR * dp, 1e-30),
+                            name))
+    total_k = float(np.linalg.norm(d_kp)) / float(np.linalg.norm(norms))
+    total_p = float(np.linalg.norm(d_pp)) / float(np.linalg.norm(norms))
+    rel_k = np.array(d_kp) / np.maximum(norms, 1e-30)
+    rel_p = np.array(d_pp) / np.maximum(norms, 1e-30)
+    print(f"resnet: step loss kernels {lk:.6f} plain {lp:.6f} plain with "
+          f"f64 statistics {float(plain64[0]):.6f}; gradients |kernel - "
+          f"plain| / |plain| median {np.median(rel_k):.3e} max "
+          f"{rel_k.max():.3e}, all together {total_k:.3e}; the plain path's "
+          f"own move under f64 statistics median {np.median(rel_p):.3e} max "
+          f"{rel_p.max():.3e}, all together {total_p:.3e}; worst "
+          f"kernel-to-allowance ratio {worst[0]:.3f} ({worst[1]}) over "
+          f"{len(grad_names)} parameters")
+    assert worst[0] <= 1.0, worst
+    assert total_k <= max(SENS_TOTAL * total_p, GRAD_RTOL), (total_k,
+                                                              total_p)
+    del kern, plain, plain64
+
+    # the main path: 1 warm step, then 6 timed steps on one fixed batch
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    _reset_conv_counts(ke)
+    for _ in range(7):
+        t1 = time.perf_counter()
+        lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(lo))
+    launches = _conv_counts(ke)
+    assert launches == (7 * FUSED_OPS, 0, 7 * FUSED_OPS), launches
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    peak_mem = torch.cuda.max_memory_allocated()
+    med = float(np.median(step_s[1:]))
+    flops = _resnet_train_flops(main, B)
+    peak_flops = _peaks(gpu_name)[0]
+    by_name = {r["name"]: r for r in records}
+    by_name["conv1x1_stats"]["launches"] = launches[0] // 7
+    by_name["scale_shift_act"]["launches"] = launches[2] // 7
+    kern_ms = {k: by_name[k]["per_step"]["ms"]
+               for k in ("conv1x1_stats", "scale_shift_act")}
+    print(f"resnet: losses {[round(x, 5) for x in losses]}")
+    print(f"resnet: step median {med * 1e3:.1f} ms over 6 steps "
+          f"({[round(x * 1e3, 1) for x in step_s]} ms), {B / med:.1f} "
+          f"images/s, {flops / 1e12:.2f} TFLOP/step = "
+          f"{flops / med / peak_flops * 100:.1f}% of the f32 peak, peak "
+          f"memory {peak_mem / 2**30:.2f} GiB; launches per step "
+          f"stats/epilogue/apply {[n // 7 for n in launches]}; kernels per "
+          f"step (timed alone): stats {kern_ms['conv1x1_stats']:.1f} ms, "
+          f"apply {kern_ms['scale_shift_act']:.1f} ms = "
+          f"{sum(kern_ms.values()) / (med * 1e3) * 100:.1f}% of the step")
+    profile = _profile_step(
+        exe, main, feed, loss, scope, "resnet_profile.txt",
+        # the port's kernels, cuDNN (its kernels carry "cudnn" or
+        # "engine"), cuBLAS ("cublas" or cutlass "sgemm"), torch's own
+        groups=("conv1x1_gemm_kernel", "stats_reduce_kernel",
+                "scale_shift_act_kernel", "cudnn", "engine", "cublas",
+                "sgemm", "elementwise", "reduce"))
+    del feed
+    return scope, {
+        "config": c, "params": n_params, "losses": losses,
+        "step_ms": [x * 1e3 for x in step_s], "step_ms_median": med * 1e3,
+        "images_per_s": B / med, "tflop_per_step": flops / 1e12,
+        "f32_peak_share": flops / med / peak_flops,
+        "peak_mem_bytes": peak_mem, "launches_per_step": {
+            k: n // 7 for k, n in zip(CONV_KERNELS, launches)},
+        "kernel_ms_per_step_timed_alone": kern_ms,
+        "parity": {"loss_kernels": lk, "loss_plain": lp,
+                   "grad_rel_median": float(np.median(rel_k)),
+                   "grad_rel_max": float(rel_k.max()),
+                   "grad_rel_total": total_k,
+                   "plain_f64_stats_rel_median": float(np.median(rel_p)),
+                   "plain_f64_stats_rel_max": float(rel_p.max()),
+                   "plain_f64_stats_rel_total": total_p,
+                   "worst_ratio_to_allowance": worst[0],
+                   "worst_grad": worst[1]},
+        "profile": profile,
+    }
+
+
+def _stats_reference_f64(x2, w):
+    """conv1x1_stats' plain version with its sums taken in f64: the same
+    function, rounded another way."""
+    import torch
+
+    y = torch.matmul(x2, w)
+    yd = y.double()
+    return y, torch.stack([yd.sum(0), (yd * yd).sum(0)]).float()
+
+
+def _plain_step(exe, main, feed, fetch, scope, ke, f64_stats=False):
+    """One run of ``main`` with every conv-epilogue wrapper on its plain
+    version (optionally with f64 statistics); it must launch nothing."""
+    dispatch, stats_ref = ke._plain_device, ke.conv1x1_stats_reference
+    ke._plain_device = lambda t: True
+    if f64_stats:
+        ke.conv1x1_stats_reference = _stats_reference_f64
+    before = _conv_counts(ke)
+    try:
+        return exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+    finally:
+        ke._plain_device, ke.conv1x1_stats_reference = dispatch, stats_ref
+        assert _conv_counts(ke) == before, "the plain path launched a kernel"
+
+
+def resnet_inference_phase(records, built, scope):
+    """The for_test clone on the trained scope at batch 16: logits with
+    the kernels against the plain path, then 2 warm + 10 timed batches."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+
+    c = RESNET
+    B = c["infer_batch"]
+    test_prog, logits = built[2], built[4]
+    exe = pt.Executor(pt.CUDAPlace())
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    feed = {"images": torch.randn(B, c["size"], c["size"], 3, device="cuda",
+                                  generator=gen)}
+    kern, = exe.run(test_prog, feed=feed, fetch_list=[logits], scope=scope,
+                    return_numpy=False)
+    plain, = _plain_step(exe, test_prog, feed, [logits], scope, ke)
+    assert kern.shape == (B, c["classes"]) and torch.isfinite(kern).all()
+    err = float((kern - plain).abs().max())
+    ref = float(plain.abs().max())
+    assert err <= LOGIT_RTOL * ref, (err, ref)
+    print(f"resnet inference: logits kernels vs plain max abs err {err:.3e} "
+          f"of max |logit| {ref:.3e} (tol {LOGIT_RTOL} of it)")
+    for _ in range(2):
+        exe.run(test_prog, feed=feed, fetch_list=[logits], scope=scope)
+    _reset_conv_counts(ke)
+    batch_s = []
+    for _ in range(10):
+        t1 = time.perf_counter()
+        exe.run(test_prog, feed=feed, fetch_list=[logits], scope=scope)
+        batch_s.append(time.perf_counter() - t1)
+    launches = _conv_counts(ke)
+    assert launches == (0, 10 * FUSED_OPS, 0), launches
+    med = float(np.median(batch_s))
+    by_name = {r["name"]: r for r in records}
+    by_name["conv1x1_epilogue"]["launches"] = launches[1] // 10
+    print(f"resnet inference: batch {B} median {med * 1e3:.2f} ms over 10 "
+          f"batches ({[round(x * 1e3, 2) for x in batch_s]} ms), "
+          f"{B / med:.1f} images/s; conv1x1_epilogue launches per batch "
+          f"{launches[1] // 10}")
+    return {"batch": B, "batch_ms": [x * 1e3 for x in batch_s],
+            "batch_ms_median": med * 1e3, "images_per_s": B / med,
+            "logits_max_abs_err": err, "logits_max_abs": ref,
+            "launches_per_batch": launches[1] // 10}
 
 
 def main():
@@ -649,9 +1201,10 @@ def main():
     sys.path.insert(0, str(ROOT))
     from paddle_tpu_torch.kernels import build
 
-    # full-f32 references: no TF32 in either matmul path
+    # full-f32 matrix products (PyTorch's default, stated); cuDNN's TF32
+    # is left at PyTorch's default (on): the port's conv2d turns it off
+    # itself, and tf32_phase checks that it does
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -671,18 +1224,33 @@ def main():
     serving = serving_phase(kern, gpu)
     bwd = backward_kernel_phase(gpu)
     training = training_phase(bwd, gpu)
+    torch.cuda.empty_cache()  # the LM phases' models are gone
+
+    import paddle_tpu_torch as pt
+
+    tf32 = tf32_phase()
+    t0 = time.perf_counter()
+    resnet = _build_resnet(pt, RESNET)
+    print(f"resnet: ResNet-50 built in {time.perf_counter() - t0:.2f} s")
+    conv = conv_epilogue_kernel_phase(
+        gpu, _fused_shapes(resnet[0], RESNET["batch"]),
+        _fused_shapes(resnet[2], RESNET["infer_batch"]))
+    scope, resnet_training = resnet_training_phase(conv, gpu, resnet)
+    resnet_inference = resnet_inference_phase(conv, resnet, scope)
+    records = [kern] + bwd + conv
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "kernels": [kern] + bwd, "serving": serving,
-         "training": training, "build_s": built}, indent=1))
+         "kernels": records, "serving": serving, "training": training,
+         "tf32_check": tf32, "resnet_training": resnet_training,
+         "resnet_inference": resnet_inference, "build_s": built}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in [kern] + bwd]}))
+                                  for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,

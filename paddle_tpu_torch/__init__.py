@@ -4,9 +4,10 @@ Module paths and public names mirror ``paddle_tpu``; the kernels the JAX
 package wrote in Pallas are hand-written sm_90a CUDA here, built with
 nvcc on first use (``kernels/build.py``). The port serves the stacked
 transformer LM through the dense-KV continuous-batching engine, and
-trains it through the Program IR: ``layers`` and ``models`` build a
-program, ``optimizer.AdamOptimizer(...).minimize`` appends the backward
-pass and the updates, and ``Executor`` runs it.
+trains it and ResNet through the Program IR: ``layers`` and ``models``
+build a program, ``optimizer.*Optimizer(...).minimize`` appends the
+backward pass and the updates, and ``Executor`` runs it (ResNet's fused
+conv epilogue under ``flags.FLAGS.fused_conv_epilogue``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);
@@ -40,7 +41,7 @@ from .core.executor import CPUPlace, CUDAPlace, Executor  # noqa: E402
 from .core.program import (Program, default_main_program,  # noqa: E402
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
-from . import layers, models, optimizer  # noqa: E402
+from . import flags, layers, models, optimizer  # noqa: E402
 from .serving import (BadRequestError, DynamicBatcher,  # noqa: E402
                       EngineClosedError, Future, GenerationEngine, LMSpec,
                       MetricsRegistry, QueueFullError, Request,
@@ -49,7 +50,8 @@ from .models.transformer import TransformerLM, init_params  # noqa: E402
 
 __all__ = [
     "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
-    "default_main_program", "default_startup_program", "global_scope",
+    "default_main_program", "default_startup_program", "flags",
+    "global_scope",
     "layers", "models", "optimizer", "program_guard", "scope_from_numpy",
     "BadRequestError", "DynamicBatcher", "EngineClosedError", "Future",
     "GenerationEngine", "LMSpec", "MetricsRegistry", "QueueFullError",

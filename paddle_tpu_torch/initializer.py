@@ -1,9 +1,9 @@
 """Parameter initializers — emit init ops into the startup program.
 
-Counterpart of ``paddle_tpu/initializer.py``, cut to the constant and
-uniform families the training slice uses (Xavier in its uniform
-form). The normal-distribution initializers need
-``gaussian_random``, which lands with the RNG plane.
+Counterpart of ``paddle_tpu/initializer.py``, cut to the constant,
+uniform, normal and Xavier initializers the training slices use. The
+random ones draw from the executor's ``torch.Generator``, not JAX's
+threefry (the RNG plane is a later slice).
 """
 from __future__ import annotations
 
@@ -39,6 +39,17 @@ class UniformInitializer(Initializer):
                    "min": self.low, "max": self.high, "seed": self.seed})
 
 
+class NormalInitializer(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.mean, self.std, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "gaussian_random", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "dtype": dtype_name(var.dtype),
+                   "mean": self.mean, "std": self.std, "seed": self.seed})
+
+
 def _fans(var):
     shape = var.shape
     if len(shape) == 2:
@@ -51,15 +62,9 @@ def _fans(var):
     return n, n
 
 
-def _normal_not_ported(kind):
-    raise NotImplementedError(
-        f"{kind}(uniform=False) draws from a normal distribution "
-        "(gaussian_random), which is not ported to paddle_tpu_torch yet: it "
-        "lands with the RNG plane")
-
-
 class XavierInitializer(Initializer):
-    """Glorot init: U(-sqrt(6 / (fan_in + fan_out)), +...)."""
+    """Glorot init: U(-sqrt(6 / (fan_in + fan_out)), +...), or with
+    ``uniform=False`` N(0, sqrt(2 / (fan_in + fan_out)))."""
 
     def __init__(self, uniform: bool = True, fan_in=None, fan_out=None,
                  seed: int = 0):
@@ -67,11 +72,13 @@ class XavierInitializer(Initializer):
             uniform, fan_in, fan_out, seed)
 
     def __call__(self, var, block):
-        if not self.uniform:
-            _normal_not_ported("XavierInitializer")
         fin, fout = _fans(var)
         fin = self.fan_in if self.fan_in is not None else fin
         fout = self.fan_out if self.fan_out is not None else fout
-        limit = math.sqrt(6.0 / (fin + fout))
-        UniformInitializer(-limit, limit, self.seed)(var, block)
+        if self.uniform:
+            limit = math.sqrt(6.0 / (fin + fout))
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / (fin + fout))
+            NormalInitializer(0.0, std, self.seed)(var, block)
 

@@ -2,5 +2,5 @@
 
 Importing this package registers every ported op in
 ``core/registry.py``."""
-from . import (loss_ops, math_ops, nn_ops, optimizer_ops,  # noqa: F401
-               pipeline_ops, tensor_ops)
+from . import (activation_ops, fusion_ops, loss_ops,  # noqa: F401
+               math_ops, nn_ops, optimizer_ops, pipeline_ops, tensor_ops)

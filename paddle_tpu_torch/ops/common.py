@@ -8,9 +8,38 @@ twin.
 Precision: the JAX package's default (``--use_amp`` off, default MXU
 precision) is f32 compute, and so is the port's. Matrix products run in
 full f32: PyTorch leaves ``torch.backends.cuda.matmul.allow_tf32`` off
-unless a caller turns it on. bf16 serving is a later slice.
+unless a caller turns it on. Convolutions would not: PyTorch runs f32
+convolutions through cuDNN in TF32 by default
+(``torch.backends.cudnn.allow_tf32`` is True), so ``conv2d``
+(``ops/nn_ops.py``) turns it off around its forward and its backward
+(``full_f32_convolutions``), whatever the caller has set. bf16 serving
+is a later slice.
 """
 from __future__ import annotations
+
+import contextlib
+import numbers
+
+import torch
+
+
+@contextlib.contextmanager
+def full_f32_convolutions():
+    """cuDNN with TF32 off inside the block, the caller's setting after
+    it."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def normalize_pair(v):
+    """int -> [v, v]; a sequence passes through as a list of ints."""
+    if isinstance(v, numbers.Integral):
+        return [int(v)] * 2
+    return [int(x) for x in v]
 
 
 def single(ins, slot):

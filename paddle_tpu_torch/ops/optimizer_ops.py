@@ -1,5 +1,5 @@
 """Optimizers as ops. Counterpart of ``paddle_tpu/ops/optimizer_ops.py``,
-cut to dense ``sgd`` and ``adam``. Each returns new tensors for its
+cut to dense ``sgd``, ``momentum`` and ``adam``. Each returns new tensors for its
 outputs (ParamOut, moments, beta powers); the executor writes them back
 to the scope over the old ones, which are freed then."""
 from __future__ import annotations
@@ -16,6 +16,23 @@ def sgd(attrs, ins):
     g = single(ins, "Grad")
     lr = single(ins, "LearningRate").to(p.dtype).reshape(())
     return out(ParamOut=p - lr * g.to(p.dtype))
+
+
+@register_op("momentum")
+def momentum(attrs, ins):
+    """v' = mu * v + g; p' = p - lr * v', or with ``use_nesterov``
+    p' = p - lr * (g + mu * v')."""
+    p = single(ins, "Param")
+    g = single(ins, "Grad").to(p.dtype)
+    v = single(ins, "Velocity")
+    lr = single(ins, "LearningRate").to(p.dtype).reshape(())
+    mu = attrs.get("mu", 0.9)
+    v_out = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_out = p - (g + mu * v_out) * lr
+    else:
+        p_out = p - lr * v_out
+    return out(ParamOut=p_out, VelocityOut=v_out)
 
 
 @register_op("adam")

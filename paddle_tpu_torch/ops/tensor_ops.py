@@ -35,6 +35,18 @@ def uniform_random(attrs, ins, rng):
                               generator=rng))
 
 
+@register_op("gaussian_random", needs_rng=True)
+def gaussian_random(attrs, ins, rng):
+    """N(mean, std) drawn from ``rng``, as ``uniform_random`` draws: not
+    JAX's threefry bits."""
+    dtype = to_dtype(attrs.get("dtype", "float32"))
+    t = torch.empty(tuple(attrs["shape"]), dtype=dtype)
+    if t.device.type == "meta":  # shape inference: nothing to draw
+        return out(Out=t)
+    return out(Out=t.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
+                             generator=rng))
+
+
 @register_op("assign")
 def assign(attrs, ins):
     return out(Out=single(ins, "X"))

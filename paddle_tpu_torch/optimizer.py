@@ -1,8 +1,8 @@
 """Optimizer classes: build backward + update ops into the program.
 
 Counterpart of ``paddle_tpu/optimizer.py``, cut to the ``Optimizer`` base
-(``minimize``, accumulators, the learning-rate variable), ``SGDOptimizer``
-and ``AdamOptimizer``. ``minimize`` appends the backward pass, then one
+(``minimize``, accumulators, the learning-rate variable), ``SGDOptimizer``,
+``MomentumOptimizer`` and ``AdamOptimizer``. ``minimize`` appends the backward pass, then one
 update op per parameter, creating accumulator state as persistable vars
 initialised in the startup program. Gradient accumulation
 (``accumulate_steps`` > 1), global steps, updater hooks and the other
@@ -121,6 +121,30 @@ class SGDOptimizer(Optimizer):
             outputs={"ParamOut": [p.name]})
 
 
+class MomentumOptimizer(Optimizer):
+    op_type = "momentum"
+
+    def __init__(self, learning_rate, momentum=0.9, use_nesterov=False,
+                 **kw):
+        super().__init__(learning_rate, **kw)
+        self.momentum = momentum
+        self.use_nesterov = use_nesterov
+
+    def _create_accumulators(self, startup, params):
+        for p in params:
+            self._add_accumulator("velocity", p, startup)
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        v = self._get_accumulator("velocity", p)
+        block.append_op(
+            "momentum",
+            inputs={"Param": [p.name], "Grad": [g.name], "Velocity": [v.name],
+                    "LearningRate": [lr_var.name]},
+            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
+            attrs={"mu": self.momentum, "use_nesterov": self.use_nesterov})
+
+
 class AdamOptimizer(Optimizer):
     op_type = "adam"
 
@@ -161,4 +185,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

@@ -334,9 +334,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_port_path_calls_no_library_attention_or_compiler():
-    """The yardstick call may appear in chip_smoke.py only."""
+    """The yardstick call may appear in chip_smoke.py only. The one
+    mention of cuDNN allowed is conv2d's switch that turns its TF32 off
+    (``ops/common.py``), which calls nothing."""
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
-        text = path.read_text()
+        text = path.read_text().replace("torch.backends.cudnn.allow_tf32",
+                                        "")
         for banned in ("scaled_dot_product_attention", "torch.compile",
                        "cudnn"):
             assert banned not in text, f"{path}: {banned}"
