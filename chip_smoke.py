@@ -2,6 +2,7 @@
 """End-to-end check of the PyTorch/CUDA port (paddle_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --backward-only   # phases 1, 2 and 5 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -22,9 +23,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    card.
 5. Backward kernels: the flash dq and dkv kernels against their plain
    versions at the training shape (B8 H8 T2048 D128 causal), the serving
-   shape and a ragged case with a fully masked row, then timed beside
-   their plain versions, their bounds and the backward of
-   ``F.scaled_dot_product_attention`` (its backend pinned and recorded).
+   shape and a ragged case with a fully masked row; two launches of each
+   at the training shape must be bitwise equal (no atomics). Prints each
+   kernel's registers, spills and shared memory, then times them beside
+   their plain versions and their bounds, and the pair in turns with the
+   backward of ``F.scaled_dot_product_attention`` (its backend pinned
+   and recorded): pair, SDPA, SDPA, pair.
 6. Training: the d1024/L8/H8/V16384 LM (d_ff 4096, batch 8 x 2048
    tokens, f32, Adam lr 1e-4) built with the port's ``layers`` and
    ``models.transformer_lm(pipeline_stack=True)``, trained through
@@ -68,14 +72,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-# f32 on both sides; the kernel sums over <= 1024 keys in another order
+# f32 on both sides. The forward sums over <= 1024 keys in another order
 # (64-key tiles, online rescaling, sequential FMA) than cuBLAS does for
-# the plain version, so expect ~1e-6 and allow 5e-5.
+# the plain version: expect ~1e-6. The backward's 3xTF32 products keep
+# f32 operands, but the tensor cores' f32 accumulation does not round to
+# nearest: expect ~1e-5 at T = 2048. Allow 5e-5.
 ATOL = RTOL = 5e-5
-# Published peaks at the full power limit (NVIDIA H100 data sheet, dense,
-# f32 outside the tensor cores): (f32 FLOP/s, memory bytes/s).
-PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12),
-         "nvl": (60e12, 3.9e12)}
+# Published peaks at the full power limit (NVIDIA H100 data sheet, dense):
+# (f32 FLOP/s on the CUDA cores, memory bytes/s, f32-accurate FLOP/s of
+# matrix products on the tensor cores as 3xTF32, i.e. the TF32 rate / 3).
+PEAKS = {"sxm": (67e12, 3.35e12, 495e12 / 3),
+         "pcie": (51e12, 2.0e12, 378e12 / 3),
+         "nvl": (60e12, 3.9e12, 417.5e12 / 3)}
 
 
 def _peaks(name):
@@ -145,11 +153,16 @@ def _backward_work(kernel, B, H, Tq, Tk, D, causal, lengths):
     return per_pair * D * pairs, nbytes
 
 
-def _bound(flops, nbytes, gpu_name):
-    """(bound ms, what bounds it) at the card's published f32 peaks."""
-    peak_flops, peak_bw = _peaks(gpu_name)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def _bound(flops, nbytes, gpu_name, products=True):
+    """(bound ms, what bounds it, bound ms at the CUDA cores' f32 rate):
+    the larger of bytes over the memory rate and FLOPs over the card's
+    fastest f32-accurate rate for them, which for matrix products
+    (``products``) is the tensor cores' 3xTF32."""
+    peak_simt, peak_bw, peak_tc = _peaks(gpu_name)
+    t_bytes = nbytes / peak_bw * 1e3
+    t_ops = flops / (peak_tc if products else peak_simt) * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
+            "bytes", max(flops / peak_simt * 1e3, t_bytes))
 
 
 def kernel_phase(gpu_name):
@@ -191,14 +204,14 @@ def kernel_phase(gpu_name):
     library_ms = _cuda_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     flops, nbytes = _attention_work(B, H, T, T, D, True, None)
-    bound_ms, bound_by = _bound(flops, nbytes, gpu_name)
+    bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name)
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:229",
         "launches": None, "max_abs_err": max(errs), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "bound_ms_simt": bound_simt, "library_ms": library_ms,
         "shape": f"B{B} H{H} T{T} D{D} causal f32",
         "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
     }
@@ -333,8 +346,9 @@ TRAIN = dict(vocab=16384, d_model=1024, n_layers=8, num_heads=8, d_ff=4096,
              max_len=2048, batch=8, seq=2048, lr=1e-4)
 # One step's loss and gradients, kernels against plain versions: both run
 # the same f32 program from the same state and differ only in the
-# attention's summation order (64-key tiles, FMA chains vs cuBLAS), which
-# moves each gradient by ~1e-6 of its norm after 8 layers; allow 1e-4 of
+# attention's summation order (tiles, FMA and tensor-core chains vs
+# cuBLAS), which moves each gradient by ~2e-6 of its norm after 8 layers;
+# allow 1e-4 of
 # the norm per parameter and 1e-5 relative on the loss.
 GRAD_RTOL = 1e-4
 LOSS_RTOL = 1e-5
@@ -384,10 +398,21 @@ def backward_kernel_phase(gpu_name):
     q, k, v, do = (randn(B, H, T, D) for _ in range(4))
     o, lse = fa.flash_forward(q, k, v, None, causal)
     di = (do * o).sum(-1)
-    ms = {"dq": _cuda_ms(lambda: fa.flash_dq(q, k, v, lse, di, do, None,
-                                             causal), iters=10),
-          "dkv": _cuda_ms(lambda: fa.flash_dkv(q, k, v, lse, di, do, None,
-                                               causal), iters=10)}
+    kernels = {"dq": lambda: (fa.flash_dq(q, k, v, lse, di, do, None,
+                                          causal),),
+               "dkv": lambda: fa.flash_dkv(q, k, v, lse, di, do, None,
+                                           causal)}
+    # no float atomics: two launches on the same inputs agree bitwise
+    for name, fn in kernels.items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+            f"two {name} launches on the same inputs differ")
+        del first, second
+    print(f"flash_attention_bwd B{B} H{H} T{T} D{D} causal: two launches of "
+          f"each kernel are bitwise equal")
+    usage = _backward_kernel_usage()
+    ms = {name: _cuda_ms(fn, iters=10) for name, fn in kernels.items()}
     plain_ms = {
         "dq": _cuda_ms(lambda: fa.flash_dq_reference(q, k, v, lse, di, do,
                                                      None, causal), iters=5),
@@ -396,15 +421,31 @@ def backward_kernel_phase(gpu_name):
                         iters=5)}
     fwd_ms = _cuda_ms(lambda: fa.flash_forward(q, k, v, None, causal),
                       iters=10)
-    library_ms, backend = _sdpa_backward_ms(F, q, k, v, do)
+
+    # the pair against SDPA's backward in turns: kernels, library,
+    # library, kernels
+    def pair():
+        kernels["dq"]()
+        kernels["dkv"]()
+
+    pair_turns, lib_turns = [_cuda_ms(pair, iters=10)], []
+    for _ in range(2):
+        lib, backend = _sdpa_backward_ms(F, q, k, v, do)
+        lib_turns.append(lib)
+    pair_turns.append(_cuda_ms(pair, iters=10))
+    pair_ms = sum(pair_turns) / 2
+    library_ms = sum(lib_turns) / 2
     print(f"flash_attention_bwd timing B{B} H{H} T{T} D{D} causal: dq "
           f"{ms['dq']:.3f} ms (plain {plain_ms['dq']:.3f}), dkv "
           f"{ms['dkv']:.3f} ms (plain {plain_ms['dkv']:.3f}), forward "
-          f"{fwd_ms:.3f} ms; SDPA backward ({backend}) {library_ms:.3f} ms")
+          f"{fwd_ms:.3f} ms; in turns, the pair "
+          f"{[round(x, 3) for x in pair_turns]} ms and SDPA backward "
+          f"({backend}) {[round(x, 3) for x in lib_turns]} ms: pair / SDPA "
+          f"{pair_ms / library_ms:.3f}")
     records = []
     for name, line in (("dq", 364), ("dkv", 386)):
         flops, nbytes = _backward_work(name, B, H, T, T, D, causal, None)
-        bound_ms, bound_by = _bound(flops, nbytes, gpu_name)
+        bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name)
         records.append({
             "name": f"flash_attention_bwd_{name}", "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -412,14 +453,51 @@ def backward_kernel_phase(gpu_name):
             "launches": None, "max_abs_err": max(errs[name]),
             "ms": ms[name], "plain_ms": plain_ms[name],
             "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_simt": bound_simt,
             # SDPA's backward computes dq, dk and dv in one call: it is
             # the yardstick for the two kernels together
             "library_ms": library_ms, "library": f"sdpa backward, {backend}",
+            "pair_ms": pair_ms, "pair_over_sdpa": pair_ms / library_ms,
+            "pair_turns_ms": pair_turns, "library_turns_ms": lib_turns,
             "shape": f"B{B} H{H} T{T} D{D} causal f32",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "fwd_ms_training_shape": fwd_ms,
+            "fwd_ms_training_shape": fwd_ms, "ptxas": usage,
         })
     return records
+
+
+def _backward_kernel_usage():
+    """Registers, spills (ptxas, from the build log) and dynamic shared
+    memory (from the library) of each backward kernel instantiation."""
+    import re
+
+    from paddle_tpu_torch.kernels import build
+
+    lib = build.load("flash_attention_bwd")
+    smem_bytes = lib.paddle_flash_attention_bwd_smem_bytes
+    usage, current = {}, None
+    for line in build.log_path("flash_attention_bwd").read_text().splitlines():
+        entry = re.search(r"Compiling entry function '.*?(flash_bwd_(dkv|dq)"
+                          r"\w*?_kernel)ILi(\d+)E", line)
+        if entry:
+            D = int(entry.group(3))
+            current = usage.setdefault(f"{entry.group(1)}<{D}>", {
+                "dynamic_smem_bytes": smem_bytes(entry.group(2) == "dkv", D)})
+            continue
+        if current is None:
+            continue
+        for key, pattern in (("registers", r"Used (\d+) registers"),
+                             ("spill_store_bytes", r"(\d+) bytes spill st"),
+                             ("spill_load_bytes", r"(\d+) bytes spill lo")):
+            found = re.search(pattern, line)
+            if found:
+                current[key] = int(found.group(1))
+    for name, u in usage.items():
+        print(f"ptxas {name}: {u.get('registers')} registers, spills "
+              f"{u.get('spill_store_bytes')} bytes stored / "
+              f"{u.get('spill_load_bytes')} loaded, "
+              f"{u['dynamic_smem_bytes']} bytes of dynamic shared memory")
+    return usage
 
 
 def _sdpa_backward_ms(F, q, k, v, do):
@@ -887,10 +965,11 @@ def conv_epilogue_kernel_phase(gpu_name, train_shapes, infer_shapes):
                          lambda: torch.addcmul(shift, y, scale))
             ms, plain, lib = (_cuda_ms(f, iters=10) for f in calls)
             flops, nbytes = _conv_work(kind, R, I, O, res, act)
-            bound, by = _bound(flops, nbytes, gpu_name)
+            bound, by, bound_simt = _bound(
+                flops, nbytes, gpu_name, products=kind != "scale_shift_act")
             row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                    "bound_ms": bound, "bound_by": by,
-                   "count": shapes.count(shape)}
+                   "bound_ms_simt": bound_simt, "count": shapes.count(shape)}
             if kind == "scale_shift_act":  # the same pass as addcmul's
                 row["ms_no_residual_no_act"] = _cuda_ms(
                     lambda: ke.scale_shift_act(y, scale, shift), iters=10)
@@ -908,9 +987,13 @@ def conv_epilogue_kernel_phase(gpu_name, train_shapes, infer_shapes):
     records = []
     for kind in CONV_KERNELS:
         rows = timed[kind]
-        shape, top = max(rows.items(), key=lambda kv: kv[1]["bound_ms"])
+        # the heaviest shape by its CUDA-core bound: the shape earlier
+        # runs reported, whichever bound the tensor-core rate leaves on top
+        shape, top = max(rows.items(),
+                         key=lambda kv: kv[1]["bound_ms_simt"])
         per_step = {k: sum(r[k] * r["count"] for r in rows.values())
-                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_ms_simt")}
         rec = {
             "name": kind, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
@@ -918,7 +1001,9 @@ def conv_epilogue_kernel_phase(gpu_name, train_shapes, infer_shapes):
                         f"{CONV_REPLACES[kind]}",
             "launches": None, "max_abs_err": errs[kind], "ms": top["ms"],
             "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
-            "bound_by": top["bound_by"], "library_ms": top["library_ms"],
+            "bound_by": top["bound_by"],
+            "bound_ms_simt": top["bound_ms_simt"],
+            "library_ms": top["library_ms"],
             "library": library[kind],
             "shape": "R{} I{} O{} residual={} act={}".format(*shape),
             "per_step": per_step,
@@ -1194,8 +1279,15 @@ def resnet_inference_phase(records, built, scope):
 
 
 def main():
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--backward-only", action="store_true",
+                        help="build the kernels and run only phase 5 (the "
+                             "flash backward kernels); prints no ok line")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device and found none")
     sys.path.insert(0, str(ROOT))
@@ -1219,6 +1311,15 @@ def main():
         for line in build.log_path(name).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "bound_ms_simt", "library_ms")
+    if args.backward_only:
+        bwd = backward_kernel_phase(gpu)
+        print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                      for r in bwd]}))
+        print(smi)
+        return
 
     kern = kernel_phase(gpu)
     serving = serving_phase(kern, gpu)
@@ -1246,9 +1347,6 @@ def main():
          "kernels": records, "serving": serving, "training": training,
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference, "build_s": built}, indent=1))
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records]}))
     print(smi)

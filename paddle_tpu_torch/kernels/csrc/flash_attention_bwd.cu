@@ -1,4 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), f32, plain FMA.
+// Flash-attention backward for Hopper (sm_90a), f32-accurate on the
+// tensor cores: every product is 3xTF32 `mma.sync.m16n8k8`, fed by
+// `cp.async` tile copies.
 //
 // Replaces the two Pallas TPU kernels of `_flash_backward`
 // (paddle_tpu/kernels/flash_attention.py): `_flash_dq_kernel` and
@@ -19,368 +21,502 @@
 // count from position 0 for both Tq and Tk, as in the forward.
 //
 // Layout on the card, and why it differs from the TPU kernels:
-// - dq: one thread block per (bh, 64-row q tile) keeps Q, dO, lse and Di
-//   of its tile and loops over the 64-row K/V tiles up to the causal
-//   bound and the row's K length. dkv: one block per (bh, 64-row k tile)
-//   keeps K and V and loops over the q tiles from the first one that can
-//   see it (the causal lower bound). The TPU walks both loops as a
-//   sequential grid axis; here each is a loop inside the block, and the
-//   accumulators (dq, or dk and dv) stay in registers.
+// - dq: one block of 8 warps per (bh, 128-row q tile). Each warp owns 16
+//   q rows. Q and dO of the tile stay in shared memory; the block walks
+//   32-row K/V tiles up to the causal bound and the row's K length. dkv:
+//   one block per (bh, 128-row k tile), each warp owning 16 k rows; K and
+//   V stay, and the block walks the 32-row q tiles (Q, dO, lse, Di) from
+//   the first one that can see the tile. A warp computes S^T = K Q^T there,
+//   so that its k rows are the MMA's M dimension. The TPU walks both loops
+//   as a sequential grid axis; here each is a loop inside the block, and
+//   the accumulators (dq, or dk and dv) stay in registers.
 // - Tiles past the row's K length, and tiles wholly above the causal
-//   diagonal, are never loaded: they contribute exactly zero.
-// - Ragged edges (T not a multiple of 64) are masked here: rows past Tq
-//   load as zeros with lse = +inf, so they contribute nothing, and no
-//   caller pads to 128 lanes the way `_pad_to_lanes` does for Mosaic.
+//   diagonal, are never loaded; a warp whose 16 rows a tile cannot reach
+//   skips its products. Ragged edges (T not a multiple of the tile) are
+//   masked here: rows past T land as zeros and are masked, and no caller
+//   pads to 128 lanes the way `_pad_to_lanes` does for Mosaic.
+// - No float atomics: each output element is summed by one thread in a
+//   fixed order, so two launches on the same inputs agree bitwise.
 //
 // What bounds it: at the training shape (B8 H8 T2048 D128, causal) dq
-// does 6*D FLOPs per visible (q, k) pair and dkv 8*D (103 and 137
-// GFLOP) on ~0.4 GB of inputs and outputs, so both are bound by
-// operations. On CUDA cores every FMA takes its operands from shared
-// memory; each thread keeps 4x4 score tiles and 4 x D/16 accumulator
-// tiles in registers so that every shared-memory load feeds 2-4 FMAs,
-// and every shared tile has an odd row stride (D+1, 65) so that the
-// column walks of Q K^T and dO V^T hit distinct banks. Tensor cores
-// (wgmma, TMA, bf16) and a fused single-pass backward are later work.
+// does 6*D FLOPs per visible (q, k) pair and dkv 8*D (103 and 137 GFLOP)
+// on ~0.4 GB of inputs and outputs: bound by operations. The card does
+// f32-accurate products fastest on its tensor cores as 3xTF32 (495 / 3 =
+// 165 TFLOP/s dense, against 67 for f32 FMA on CUDA cores), the scheme of
+// CUTLASS's OpMultiplyAddFastF32 and of PyTorch's memory-efficient
+// attention in f32. What the design does about it:
+// - Products: `mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32`. Each
+//   operand x splits in registers, per fragment, into hi = x rounded to
+//   tf32 and lo = x - hi (see split), and each product sums a_lo b_hi +
+//   a_hi b_lo + a_hi b_hi in f32, the small terms first. The split is done
+//   per fragment rather than once per tile into hi/lo copies in shared
+//   memory: the copies would not fit beside the owned tiles at D = 128.
+//   Splitting is most of the instructions a product costs, so it takes
+//   three full-rate ones (cvt.rna.tf32.f32 compiles to four, with a check
+//   for inf and NaN), and the mma.sync rate bounds what is left.
+// - The tensor cores' f32 accumulation does not round to nearest, so a
+//   product accumulated over all of T in one mma chain drifts (2.5e-5 of
+//   |dv| at T = 2048). dq, dk and dv sum each streamed tile's products in
+//   fresh registers and add those in f32 (accumulate).
+// - Shared-memory rows have stride D + 4 floats (4 mod 32 banks). The A
+//   and B fragment reads of m16n8k8 (rows lane>>2, columns lane&3 and +4)
+//   then hit 32 distinct banks, and so do the transposed B reads below
+//   (rows 2*(lane&3) and +1, column lane>>2): 8*(lane&3) + (lane>>2).
+// - P and dS never leave registers. The f32 C fragment holds columns 2t
+//   and 2t+1 of each 8-column tile (t = lane&3), the tf32 A fragment
+//   columns t and t+4. A product sums over k in any order, so dS (dq) and
+//   P^T, dS^T (dkv) become A operands as they are, with k permuted as
+//   {0, 2, 4, 6, 1, 3, 5, 7}, and the B rows (K in dS K, dO in P^T dO, Q
+//   in dS^T Q) are read in that same order. No shuffle, no shared tile.
+// - cp.async (16-byte .cg, zero-filling rows past T) fills a two-stage
+//   ring of the streamed tiles; the next tile's copy overlaps this tile's
+//   products. lse and Di of a dkv q tile come by 4-byte cp.async, since
+//   a row of them need not be 16-byte aligned.
+// - Shared memory: 2 x [128, D+4] owned tiles + 2 x 2 x [32, D+4] streamed
+//   ones: 198 KB at D = 128, so one block of 8 warps per SM; at D = 64,
+//   102 KB: two dq blocks per SM, one dkv block (registers).
+// Left for later: `wgmma` (it needs both tf32 operands K-major in shared
+// memory: it fits S and dP, not the three accumulating products without
+// transposed copies, and its B operand would need hi/lo copies in shared
+// memory), warp specialisation with TMA producers, and a persistent grid
+// over the causal triangle.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;          // q rows per tile
-constexpr int BK = 64;          // k rows per tile
-constexpr int NTHREADS = 256;
-constexpr int TX = 16;          // thread grid over a 64x64 tile: TY x TX
-constexpr int TY = NTHREADS / TX;
-constexpr int RPT = BQ / TY;    // tile rows per thread (4)
-constexpr int CPT = BK / TX;    // tile columns per thread (4)
-constexpr int PSTRIDE = BK + 1; // row stride of the 64x64 P / dS tiles
-static_assert(BQ == BK, "load_tile copies 64-row tiles of every operand");
-static_assert(BQ % TY == 0 && BK % TX == 0, "thread grid must tile 64x64");
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = 32 * NWARPS;
+constexpr int BOWN = 16 * NWARPS;  // rows a block owns: q (dq), k (dkv)
+constexpr int BSTREAM = 32;        // rows of each streamed tile
+constexpr int NT = BSTREAM / 8;    // 8-column MMA tiles across it
 
+// Shared memory, in floats: the two owned [BOWN, D] tiles (Q and dO for
+// dq, K and V for dkv), the two streamed tensors' two stages of
+// [BSTREAM, D] (K and V for dq, Q and dO for dkv), then, for dkv only, two
+// stages of lse and of Di.
 template <int D>
-struct Shape {
-  static constexpr int STRIDE = D + 1;     // row stride of [64, D] tiles
-  static constexpr int TILE = BQ * STRIDE;
-  static constexpr int DPT = D / TX;       // accumulator columns per thread
+struct Smem {
+  static constexpr int ST = D + 4;  // row stride, 4 mod 32 banks
+  static constexpr int OWN0 = 0;
+  static constexpr int OWN1 = OWN0 + BOWN * ST;
+  static constexpr int STR0 = OWN1 + BOWN * ST;
+  static constexpr int STR1 = STR0 + 2 * BSTREAM * ST;
+  static constexpr int LSE = STR1 + 2 * BSTREAM * ST;
+  static constexpr int DI = LSE + 2 * BSTREAM;
+  static constexpr int DQ_BYTES = LSE * 4;
+  static constexpr int DKV_BYTES = (DI + 2 * BSTREAM) * 4;
 };
 
-// dq kernel's shared memory, in floats: Q, dO, K, V tiles, the dS tile,
-// then lse and Di of the q tile.
-template <int D>
-struct DqLayout {
-  using S = Shape<D>;
-  static constexpr int Q = 0;
-  static constexpr int DO = Q + S::TILE;
-  static constexpr int K = DO + S::TILE;
-  static constexpr int V = K + S::TILE;
-  static constexpr int DS = V + S::TILE;
-  static constexpr int LSE = DS + BQ * PSTRIDE;
-  static constexpr int DI = LSE + BQ;
-  static constexpr int TOTAL = DI + BQ;
-};
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// dkv kernel's shared memory: K, V, Q, dO tiles, the P and dS tiles, lse
-// and Di of the current q tile.
-template <int D>
-struct DkvLayout {
-  using S = Shape<D>;
-  static constexpr int K = 0;
-  static constexpr int V = K + S::TILE;
-  static constexpr int Q = V + S::TILE;
-  static constexpr int DO = Q + S::TILE;
-  static constexpr int P = DO + S::TILE;
-  static constexpr int DS = P + BQ * PSTRIDE;
-  static constexpr int LSE = DS + BQ * PSTRIDE;
-  static constexpr int DI = LSE + BQ;
-  static constexpr int TOTAL = DI + BQ;
-};
+// 16 bytes global -> shared without passing through registers; 0 source
+// bytes when !valid fill the destination with zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
 
-// Copy rows [row0, row0 + 64) of a [T, D] plane into shared memory with
-// row stride D + 1; rows past T read as zeros. Global reads are float4.
-template <int D>
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + ROWS) of a [T, D] plane into shared memory at row
+// stride D + 4; rows past T are zero-filled.
+template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           int row0, int T) {
   constexpr int V4 = D / 4;
-  for (int idx = threadIdx.x; idx < BQ * V4; idx += NTHREADS) {
+  static_assert(ROWS * V4 % NTHREADS == 0, "tile must split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * V4 / NTHREADS; ++i) {
+    const int idx = threadIdx.x + i * NTHREADS;
     const int r = idx / V4;
     const int c = (idx % V4) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T)
-      val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
-    float* out = dst + r * Shape<D>::STRIDE + c;
-    out[0] = val.x;
-    out[1] = val.y;
-    out[2] = val.z;
-    out[3] = val.w;
+    const bool in = row0 + r < T;
+    cp_async16(dst + r * Smem<D>::ST + c,
+               src + (in ? (size_t)(row0 + r) * D + c : 0), in);
   }
 }
 
-// lse and Di of q rows [q0, q0 + 64); rows past Tq get lse = +inf (so their
-// p is 0) and Di = 0.
-__device__ __forceinline__ void load_rows(float* lse_s, float* di_s,
-                                          const float* __restrict__ lse,
-                                          const float* __restrict__ di,
-                                          int q0, int Tq) {
-  for (int r = threadIdx.x; r < BQ; r += NTHREADS) {
-    const bool in = q0 + r < Tq;
-    lse_s[r] = in ? lse[q0 + r] : INFINITY;
-    di_s[r] = in ? di[q0 + r] : 0.f;
-  }
+// --- 3xTF32 on m16n8k8 ------------------------------------------------------
+
+// x = hi + lo to 2^-21 of |x|. hi is x rounded to the nearest tf32, ties
+// away from zero: what cvt.rna.tf32.f32 gives, in two integer
+// instructions (cvt.rna compiles to four: it also checks that x is
+// finite, which every operand here is). lo = x - hi is exact in f32 and
+// goes to the tensor cores as it is: they read the top 19 bits of a tf32
+// operand, so lo is truncated to tf32 (CUTLASS's FastF32 relies on the
+// same), an error below 2^-10 of |lo| <= 2^-11 of |x|.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// For this thread's 4x4 slice of a 64x64 (q, k) tile: s = Q K^T and
-// dp = dO V^T from shared memory, then p = exp(s * sm - lse) (0 where
-// masked) and ds = p * (dp - Di). Rows are ty + TY*i, columns tx + TX*j.
+struct FragA {  // 16 x 8, row-major: rows g, g+8; columns t, t+4
+  uint32_t hi[4], lo[4];
+};
+struct FragB {  // 8 x 8, column-major: rows (k) t, t+4; column g
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in f32 accuracy: a_lo b_hi + a_hi b_lo + a_hi b_hi
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// A = tile[r0 .. r0+16, c0 .. c0+8] of a shared tile (row stride ST)
+template <int ST>
+__device__ __forceinline__ FragA load_a(const float* s, int r0, int c0,
+                                        int g, int t) {
+  const float* p = s + (r0 + g) * ST + c0 + t;
+  FragA f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * ST], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * ST + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B[k][n] = tile[n0 + n][k0 + k]: the tile's rows are B's columns (the
+// K of Q K^T, the V of dO V^T, the Q of K Q^T, the dO of V dO^T)
+template <int ST>
+__device__ __forceinline__ FragB load_b_t(const float* s, int n0, int k0,
+                                          int g, int t) {
+  const float* p = s + (n0 + g) * ST + k0 + t;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[4], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B[k][n] = tile[k0 + perm(k)][n0 + n], perm = {0, 2, 4, 6, 1, 3, 5, 7}:
+// the tile's rows are B's rows, in the k order of an A made by a_from_c
+template <int ST>
+__device__ __forceinline__ FragB load_b_perm(const float* s, int k0, int n0,
+                                             int g, int t) {
+  const float* p = s + (k0 + 2 * t) * ST + n0 + g;
+  FragB f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[ST], f.hi[1], f.lo[1]);
+  return f;
+}
+
+// The f32 C fragment of an 8-column tile (rows g, g+8; columns 2t, 2t+1)
+// as a tf32 A fragment over k permuted by perm: no data moves between lanes
+__device__ __forceinline__ FragA a_from_c(const float (&c)[4]) {
+  FragA f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// acc[n] += A(c) * tile[perm rows, 8n .. 8n+8], this tile's NT k-steps
+// summed in a fresh accumulator and then added in f32. The tensor cores'
+// f32 accumulation does not round to nearest, so one mma chain through
+// all of T drifts: at T = 2048 it moved dv by 2.5e-5 of its size. The
+// fresh accumulators go GROUP n-tiles at a time, so that GROUP mma
+// chains are in flight at once without 4 * D/8 more registers.
 template <int D>
-__device__ __forceinline__ void p_and_ds(const float* qs, const float* dos,
-                                         const float* ks, const float* vs,
-                                         const float* lse_s, const float* di_s,
-                                         int q0, int k0, int length, int causal,
-                                         float sm_scale, float (&p)[RPT][CPT],
-                                         float (&ds)[RPT][CPT]) {
-  constexpr int ST = Shape<D>::STRIDE;
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  float s[RPT][CPT], dp[RPT][CPT];
+__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
+                                           const float (&c)[NT][4],
+                                           const float* tile, int g, int t) {
+  constexpr int GROUP = 4;
+  FragA a[NT];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int j = 0; j < NT; ++j) a[j] = a_from_c(c[j]);
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[RPT], dov[RPT], kv[CPT], vv[CPT];
+  for (int n0 = 0; n0 < D / 8; n0 += GROUP) {
+    float part[GROUP][4] = {};
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      qv[i] = qs[(ty + TY * i) * ST + d];
-      dov[i] = dos[(ty + TY * i) * ST + d];
-    }
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      kv[j] = ks[(tx + TX * j) * ST + d];
-      vv[j] = vs[(tx + TX * j) * ST + d];
-    }
+      for (int n = 0; n < GROUP; ++n)
+        mma3(part[n], a[j],
+             load_b_perm<Smem<D>::ST>(tile, j * 8, (n0 + n) * 8, g, t));
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+    for (int n = 0; n < GROUP; ++n)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-      }
+      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
   }
+}
+
+// s = A0 B0^T, dp = A1 B1^T over D for a warp's 16 rows r0.. of the
+// owned tiles (a0, a1) against a streamed 32-row tile pair (b0, b1)
+template <int D>
+__device__ __forceinline__ void two_products(float (&s)[NT][4],
+                                             float (&dp)[NT][4],
+                                             const float* a0, const float* a1,
+                                             const float* b0, const float* b1,
+                                             int r0, int g, int t) {
+  constexpr int ST = Smem<D>::ST;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = ty + TY * i;
-    const int q_pos = q0 + row;
-    const float l = lse_s[row];
-    const float di = di_s[row];
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int k_pos = k0 + tx + TX * j;
-      const bool live = k_pos < length && (!causal || q_pos >= k_pos);
-      // l = +inf (a fully masked row, or a row past Tq) gives exp(-inf) = 0
-      const float pij = live ? expf(s[i][j] * sm_scale - l) : 0.f;
-      p[i][j] = pij;
-      ds[i][j] = pij * (dp[i][j] - di);
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const FragA x0 = load_a<ST>(a0, r0, kk * 8, g, t);
+    const FragA x1 = load_a<ST>(a1, r0, kk * 8, g, t);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mma3(s[j], x0, load_b_t<ST>(b0, j * 8, kk * 8, g, t));
+      mma3(dp[j], x1, load_b_t<ST>(b1, j * 8, kk * 8, g, t));
     }
   }
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
-                        const float* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ di,
-                        const int* __restrict__ lens, float* __restrict__ dq,
-                        int Tq, int Tk, int causal, float sm_scale) {
-  using L = DqLayout<D>;
-  constexpr int ST = Shape<D>::STRIDE;
-  constexpr int DPT = Shape<D>::DPT;
-  extern __shared__ float smem[];
-  float* qs = smem + L::Q;
-  float* dos = smem + L::DO;
-  float* ks = smem + L::K;
-  float* vs = smem + L::V;
-  float* dss = smem + L::DS;
-  float* lse_s = smem + L::LSE;
-  float* di_s = smem + L::DI;
+__global__ void __launch_bounds__(NTHREADS, D == 64 ? 2 : 1)
+flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ di,
+                           const int* __restrict__ lens,
+                           float* __restrict__ dq, int Tq, int Tk, int causal,
+                           float sm_scale) {
+  using L = Smem<D>;
+  constexpr int ST = L::ST;
+  extern __shared__ __align__(16) float smem[];
+  const float* qs = smem + L::OWN0;
+  const float* dos = smem + L::OWN1;
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) >> 2;
+  const int t = threadIdx.x & 3;
   // causal blocks with high q tiles do the most work: schedule them first
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int q0 = qb * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BOWN;
   const int bh = blockIdx.y;
   const size_t qoff = (size_t)bh * Tq * D;
   const size_t koff = (size_t)bh * Tk * D;
 
   const int length = max(0, min(lens[bh], Tk));
-  int n_tiles = (length + BK - 1) / BK;
+  int n_tiles = (length + BSTREAM - 1) / BSTREAM;
   if (causal) {
-    const int last = min(q0 + BQ, Tq);          // exclusive bound on q_pos
-    n_tiles = min(n_tiles, (last + BK - 1) / BK);
+    const int last = min(q0 + BOWN, Tq);  // exclusive bound on q_pos
+    n_tiles = min(n_tiles, (last + BSTREAM - 1) / BSTREAM);
   }
 
-  load_tile<D>(qs, q + qoff, q0, Tq);
-  load_tile<D>(dos, dout + qoff, q0, Tq);
-  load_rows(lse_s, di_s, lse + (size_t)bh * Tq, di + (size_t)bh * Tq, q0, Tq);
+  if (n_tiles > 0) {
+    load_tile<D, BOWN>(smem + L::OWN0, q + qoff, q0, Tq);
+    load_tile<D, BOWN>(smem + L::OWN1, dout + qoff, q0, Tq);
+    load_tile<D, BSTREAM>(smem + L::STR0, k + koff, 0, Tk);
+    load_tile<D, BSTREAM>(smem + L::STR1, v + koff, 0, Tk);
+    cp_async_commit();
+  }
 
-  float acc[RPT][DPT];
+  const int r0 = warp * 16;  // the warp's rows in the q tile
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};  // this thread's rows
+  float lse_r[2], di_r[2];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < Tq;
+    lse_r[h] = in ? lse[(size_t)bh * Tq + row[h]] : INFINITY;
+    di_r[h] = in ? di[(size_t)bh * Tq + row[h]] : 0.f;
+  }
 
-  for (int kb = 0; kb < n_tiles; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous tile's readers are done with ks/vs/dss
-    load_tile<D>(ks, k + koff, k0, Tk);
-    load_tile<D>(vs, v + koff, k0, Tk);
-    __syncthreads();
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-    float p[RPT][CPT], ds[RPT][CPT];
-    p_and_ds<D>(qs, dos, ks, vs, lse_s, di_s, q0, k0, length, causal,
-                sm_scale, p, ds);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j)
-        dss[(ty + TY * i) * PSTRIDE + tx + TX * j] = ds[i][j];
-    __syncthreads();
-
-    // dq += dS K for this thread's 4 rows x D/16 columns
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float dsv[RPT], kv[DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) dsv[i] = dss[(ty + TY * i) * PSTRIDE + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) kv[j] = ks[c * ST + tx + TX * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i & 1;
+    if (i + 1 < n_tiles) {  // the next tile's copy overlaps this one
+      const int nxt = (stage ^ 1) * BSTREAM * ST;
+      load_tile<D, BSTREAM>(smem + L::STR0 + nxt, k + koff,
+                            (i + 1) * BSTREAM, Tk);
+      load_tile<D, BSTREAM>(smem + L::STR1 + nxt, v + koff,
+                            (i + 1) * BSTREAM, Tk);
     }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and the owned tiles) have landed
+    __syncthreads();
+
+    const int k0 = i * BSTREAM;
+    const float* ks = smem + L::STR0 + stage * BSTREAM * ST;
+    const float* vs = smem + L::STR1 + stage * BSTREAM * ST;
+    // a warp whose rows are past Tq, or wholly above the tile, adds 0
+    if (q0 + r0 < Tq && (!causal || k0 <= q0 + r0 + 15)) {
+      float s[NT][4], dp[NT][4];
+      two_products<D>(s, dp, qs, dos, ks, vs, r0, g, t);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // s becomes dS
+          const int h = e >> 1;
+          const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+          const bool live = k_pos < length && row[h] < Tq &&
+                            (!causal || row[h] >= k_pos);
+          const float p = live ? expf(s[j][e] * sm_scale - lse_r[h]) : 0.f;
+          s[j][e] = p * (dp[j][e] - di_r[h]);
+        }
+      accumulate<D>(acc, s, ks, g, t);  // dq += dS K
+    }
+    __syncthreads();  // every warp is done with this stage
   }
 
   float* dqp = dq + qoff;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int q_pos = q0 + ty + TY * i;
-    if (q_pos >= Tq) continue;
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < DPT; ++j)
-      dqp[(size_t)q_pos * D + tx + TX * j] = acc[i][j] * sm_scale;
-  }
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < Tq)
+        *reinterpret_cast<float2*>(dqp + (size_t)row[h] * D + n * 8 + 2 * t) =
+            make_float2(acc[n][2 * h] * sm_scale,
+                        acc[n][2 * h + 1] * sm_scale);
 }
 
+// one block per SM at either D: at D = 64 the dk and dv accumulators,
+// the A fragments and the partial sums need more than two blocks' 128
+// registers a thread
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ di,
-                         const int* __restrict__ lens,
-                         float* __restrict__ dk, float* __restrict__ dv,
-                         int Tq, int Tk, int causal, float sm_scale) {
-  using L = DkvLayout<D>;
-  constexpr int ST = Shape<D>::STRIDE;
-  constexpr int DPT = Shape<D>::DPT;
-  extern __shared__ float smem[];
-  float* ks = smem + L::K;
-  float* vs = smem + L::V;
-  float* qs = smem + L::Q;
-  float* dos = smem + L::DO;
-  float* ps = smem + L::P;
-  float* dss = smem + L::DS;
-  float* lse_s = smem + L::LSE;
-  float* di_s = smem + L::DI;
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ di,
+                            const int* __restrict__ lens,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int Tq, int Tk, int causal, float sm_scale) {
+  using L = Smem<D>;
+  constexpr int ST = L::ST;
+  extern __shared__ __align__(16) float smem[];
+  const float* ks = smem + L::OWN0;
+  const float* vs = smem + L::OWN1;
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int k0 = blockIdx.x * BK;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) >> 2;
+  const int t = threadIdx.x & 3;
+  const int k0 = blockIdx.x * BOWN;
   const int bh = blockIdx.y;
   const size_t qoff = (size_t)bh * Tq * D;
   const size_t koff = (size_t)bh * Tk * D;
 
   const int length = max(0, min(lens[bh], Tk));
-  const int n_q_tiles = (Tq + BQ - 1) / BQ;
+  const int n_q_tiles = (Tq + BSTREAM - 1) / BSTREAM;
   // a k tile wholly past the length is seen by no query: dk = dv = 0
-  const int first = k0 >= length ? n_q_tiles : (causal ? k0 / BQ : 0);
+  const int first = k0 >= length ? n_q_tiles : (causal ? k0 / BSTREAM : 0);
 
-  load_tile<D>(ks, k + koff, k0, Tk);
-  load_tile<D>(vs, v + koff, k0, Tk);
+  // Q, dO, lse and Di of q tile qb into ring stage `stage`
+  auto load_q_tile = [&](int qb, int stage) {
+    const int q0 = qb * BSTREAM;
+    load_tile<D, BSTREAM>(smem + L::STR0 + stage * BSTREAM * ST, q + qoff, q0,
+                          Tq);
+    load_tile<D, BSTREAM>(smem + L::STR1 + stage * BSTREAM * ST, dout + qoff,
+                          q0, Tq);
+    if (threadIdx.x < 2 * BSTREAM) {
+      const int c = threadIdx.x % BSTREAM;
+      const bool is_lse = threadIdx.x < BSTREAM;
+      const bool in = q0 + c < Tq;
+      cp_async4(smem + (is_lse ? L::LSE : L::DI) + stage * BSTREAM + c,
+                (is_lse ? lse : di) + (size_t)bh * Tq + (in ? q0 + c : 0), in);
+    }
+  };
 
-  float dk_acc[RPT][DPT], dv_acc[RPT][DPT];
+  if (first < n_q_tiles) {
+    load_tile<D, BOWN>(smem + L::OWN0, k + koff, k0, Tk);
+    load_tile<D, BOWN>(smem + L::OWN1, v + koff, k0, Tk);
+    load_q_tile(first, 0);
+    cp_async_commit();
+  }
+
+  const int r0 = warp * 16;  // the warp's rows in the k tile
+  const int row[2] = {k0 + r0 + g, k0 + r0 + g + 8};  // this thread's rows
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
 
   for (int qb = first; qb < n_q_tiles; ++qb) {
-    const int q0 = qb * BQ;
-    __syncthreads();  // the previous tile's readers are done with qs/dos/ps
-    load_tile<D>(qs, q + qoff, q0, Tq);
-    load_tile<D>(dos, dout + qoff, q0, Tq);
-    load_rows(lse_s, di_s, lse + (size_t)bh * Tq, di + (size_t)bh * Tq, q0,
-              Tq);
+    const int stage = (qb - first) & 1;
+    if (qb + 1 < n_q_tiles) load_q_tile(qb + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 
-    float p[RPT][CPT], ds[RPT][CPT];
-    p_and_ds<D>(qs, dos, ks, vs, lse_s, di_s, q0, k0, length, causal,
-                sm_scale, p, ds);
+    const int q0 = qb * BSTREAM;
+    const float* qs = smem + L::STR0 + stage * BSTREAM * ST;
+    const float* dos = smem + L::STR1 + stage * BSTREAM * ST;
+    const float* lse_s = smem + L::LSE + stage * BSTREAM;
+    const float* di_s = smem + L::DI + stage * BSTREAM;
+    // a warp whose rows are past the length, or below every query of the
+    // tile, adds 0
+    if (k0 + r0 < length && (!causal || k0 + r0 < q0 + BSTREAM)) {
+      float p[NT][4], ds[NT][4];  // S^T, dP^T, then P^T, dS^T
+      two_products<D>(p, ds, ks, vs, qs, dos, r0, g, t);
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const int at = (ty + TY * i) * PSTRIDE + tx + TX * j;
-        ps[at] = p[i][j];
-        dss[at] = ds[i][j];
-      }
-    __syncthreads();
-
-    // dv += P^T dO and dk += dS^T Q for this thread's 4 k rows x D/16 cols
-#pragma unroll 2
-    for (int r = 0; r < BQ; ++r) {
-      float pv[RPT], dsv[RPT], dov[DPT], qv[DPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        pv[i] = ps[r * PSTRIDE + ty + TY * i];
-        dsv[i] = dss[r * PSTRIDE + ty + TY * i];
-      }
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        dov[j] = dos[r * ST + tx + TX * j];
-        qv[j] = qs[r * ST + tx + TX * j];
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) {
-          dv_acc[i][j] = fmaf(pv[i], dov[j], dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(dsv[i], qv[j], dk_acc[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1);
+          const int q_pos = q0 + c;
+          const int k_pos = row[e >> 1];
+          const bool live = k_pos < length && q_pos < Tq &&
+                            (!causal || q_pos >= k_pos);
+          const float pe = live ? expf(p[j][e] * sm_scale - lse_s[c]) : 0.f;
+          ds[j][e] = pe * (ds[j][e] - di_s[c]);
+          p[j][e] = pe;
         }
+      accumulate<D>(dv_acc, p, dos, g, t);  // dv += P^T dO
+      accumulate<D>(dk_acc, ds, qs, g, t);  // dk += dS^T Q
     }
+    __syncthreads();
   }
 
   float* dkp = dk + koff;
   float* dvp = dv + koff;
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int k_pos = k0 + ty + TY * i;
-    if (k_pos >= Tk) continue;
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const size_t at = (size_t)k_pos * D + tx + TX * j;
-      dkp[at] = dk_acc[i][j] * sm_scale;
-      dvp[at] = dv_acc[i][j];
-    }
-  }
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < Tk) {
+        const size_t at = (size_t)row[h] * D + n * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dkp + at) = make_float2(
+            dk_acc[n][2 * h] * sm_scale, dk_acc[n][2 * h + 1] * sm_scale);
+        *reinterpret_cast<float2*>(dvp + at) =
+            make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      }
 }
 
 template <int D>
@@ -388,13 +524,13 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* dout, const float* lse, const float* di,
                       const int* lens, float* dq, int BH, int Tq, int Tk,
                       int causal, float sm_scale, cudaStream_t stream) {
-  const int smem_bytes = DqLayout<D>::TOTAL * (int)sizeof(float);
+  const int smem_bytes = Smem<D>::DQ_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      flash_bwd_dq_tf32x3_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BQ - 1) / BQ, BH);
-  flash_bwd_dq_f32_kernel<D><<<grid, NTHREADS, smem_bytes, stream>>>(
+  const dim3 grid((Tq + BOWN - 1) / BOWN, BH);
+  flash_bwd_dq_tf32x3_kernel<D><<<grid, NTHREADS, smem_bytes, stream>>>(
       q, k, v, dout, lse, di, lens, dq, Tq, Tk, causal, sm_scale);
   return cudaGetLastError();
 }
@@ -405,13 +541,13 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const int* lens, float* dk, float* dv, int BH, int Tq,
                        int Tk, int causal, float sm_scale,
                        cudaStream_t stream) {
-  const int smem_bytes = DkvLayout<D>::TOTAL * (int)sizeof(float);
+  const int smem_bytes = Smem<D>::DKV_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_f32_kernel<D>,
+      flash_bwd_dkv_tf32x3_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tk + BK - 1) / BK, BH);
-  flash_bwd_dkv_f32_kernel<D><<<grid, NTHREADS, smem_bytes, stream>>>(
+  const dim3 grid((Tk + BOWN - 1) / BOWN, BH);
+  flash_bwd_dkv_tf32x3_kernel<D><<<grid, NTHREADS, smem_bytes, stream>>>(
       q, k, v, dout, lse, di, lens, dk, dv, Tq, Tk, causal, sm_scale);
   return cudaGetLastError();
 }
@@ -419,7 +555,8 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 }  // namespace
 
 // Plain C entry points (bound with ctypes). All pointers are device
-// pointers to contiguous tensors; each returns a cudaError_t (0 = launched).
+// pointers to contiguous tensors with 16-byte aligned bases; each returns
+// a cudaError_t (0 = launched).
 extern "C" int paddle_flash_attention_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* di, const int* lens, float* dq, int BH,
@@ -453,6 +590,19 @@ extern "C" int paddle_flash_attention_bwd_dkv_f32(
                                   Tq, Tk, causal, sm_scale, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory of one block of the dq (dkv = 0) or dkv kernel at
+// head dim D, in bytes; -1 for a D the kernels do not take.
+extern "C" int paddle_flash_attention_bwd_smem_bytes(int dkv, int D) {
+  switch (D) {
+    case 64:
+      return dkv ? Smem<64>::DKV_BYTES : Smem<64>::DQ_BYTES;
+    case 128:
+      return dkv ? Smem<128>::DKV_BYTES : Smem<128>::DQ_BYTES;
+    default:
+      return -1;
   }
 }
 
