@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --backward-only   # phases 1, 2 and 5 only
+    python3 chip_smoke.py --conv-only       # phases 1, 2 and 8 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -43,8 +44,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
 8. Conv-epilogue kernels: conv1x1_stats, conv1x1_epilogue and
    scale_shift_act against their plain versions at every distinct shape
    of the ResNet-50 train step (batch 256) and inference batch (16) and
-   at ragged shapes, then timed at each of those shapes beside the plain
-   version, the roofline bound and a library yardstick.
+   at ragged shapes; two launches of each GEMM kernel on the same inputs
+   must be bitwise equal. Prints the GEMM kernels' registers, spills and
+   shared memory and the tensor-core opcodes (HGMMA, HMMA) beside FFMA in
+   their SASS (cuobjdump), then times each kernel at each of the main
+   path's shapes beside the plain version, the roofline bound and a
+   library yardstick (the GEMM kernels in turns with torch.matmul:
+   kernel, library, library, kernel; their device time from a
+   torch.profiler trace and their host time per call as well).
 9. ResNet-50 training: ``models.resnet_imagenet(depth=50)`` at 224 x 224,
    1000 classes, batch 256, f32, under ``--fused_conv_epilogue``, trained
    through ``MomentumOptimizer(0.1, 0.9).minimize`` from the startup
@@ -106,6 +113,22 @@ def _cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _host_ms(fn, iters=30):
+    """Host time per call of ``fn``: the calls enqueued back to back and
+    timed on the host's clock, the device's work left to run after."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
 
 
 def _max_err(got, want):
@@ -466,23 +489,41 @@ def backward_kernel_phase(gpu_name):
     return records
 
 
-def _backward_kernel_usage():
-    """Registers, spills (ptxas, from the build log) and dynamic shared
-    memory (from the library) of each backward kernel instantiation."""
+def _kernel_key(mangled):
+    """``name<template args>`` of a mangled kernel name of the port's
+    sources (``..._cu_<hash><length><name>I<args>E...``)."""
+    import re
+
+    found = re.search(r"_cu_[0-9a-f]{8}(\d+)(\w+)", mangled)
+    if not found:
+        return mangled
+    n = int(found.group(1))
+    name, rest = found.group(2)[:n], found.group(2)[n:]
+    args = re.findall(r"L[ib](\d+)", rest.split("EE")[0]) if rest.startswith(
+        "I") else []
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def _kernel_usage(lib_name, dynamic_smem, match):
+    """Registers and spills (ptxas, from the build log) and dynamic shared
+    memory (``dynamic_smem(name, args)``, None where the kernel takes
+    none) of each kernel instantiation of library ``lib_name`` whose name
+    contains ``match``."""
     import re
 
     from paddle_tpu_torch.kernels import build
 
-    lib = build.load("flash_attention_bwd")
-    smem_bytes = lib.paddle_flash_attention_bwd_smem_bytes
     usage, current = {}, None
-    for line in build.log_path("flash_attention_bwd").read_text().splitlines():
-        entry = re.search(r"Compiling entry function '.*?(flash_bwd_(dkv|dq)"
-                          r"\w*?_kernel)ILi(\d+)E", line)
+    for line in build.log_path(lib_name).read_text().splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            D = int(entry.group(3))
-            current = usage.setdefault(f"{entry.group(1)}<{D}>", {
-                "dynamic_smem_bytes": smem_bytes(entry.group(2) == "dkv", D)})
+            key = _kernel_key(entry.group(1))
+            current = None
+            if match in key:
+                name, _, args = key.partition("<")
+                args = [int(a) for a in args.rstrip(">").split(",") if a]
+                current = usage.setdefault(key, {
+                    "dynamic_smem_bytes": dynamic_smem(name, args)})
             continue
         if current is None:
             continue
@@ -498,6 +539,81 @@ def _backward_kernel_usage():
               f"{u.get('spill_load_bytes')} loaded, "
               f"{u['dynamic_smem_bytes']} bytes of dynamic shared memory")
     return usage
+
+
+def _backward_kernel_usage():
+    from paddle_tpu_torch.kernels import build
+
+    lib = build.load("flash_attention_bwd")
+    smem = lib.paddle_flash_attention_bwd_smem_bytes
+    return _kernel_usage(
+        "flash_attention_bwd",
+        lambda name, args: smem("dkv" in name, args[0]), match="flash_bwd")
+
+
+def _sass_counts(lib_name, match):
+    """Opcode counts (cuobjdump -sass) of each kernel of library
+    ``lib_name`` whose name contains ``match``: HGMMA is wgmma on the
+    tensor cores, HMMA mma.sync, FFMA an f32 FMA on the CUDA cores."""
+    import re
+
+    from paddle_tpu_torch.kernels import build
+
+    ops = ("HGMMA", "HMMA", "FFMA")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build.library_path(lib_name))],
+                          check=True, capture_output=True, text=True).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            key = _kernel_key(fn.group(1))
+            current = (counts.setdefault(key, dict.fromkeys(ops, 0))
+                       if match in key else None)
+            continue
+        op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                       line)
+        if current is not None and op and op.group(1) in current:
+            current[op.group(1)] += 1
+    for key, c in counts.items():
+        print(f"sass {key}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    return counts
+
+
+def _device_ms(fn, iters=10):
+    """Device time per call of ``fn``: the time its kernels ran in a
+    torch.profiler trace of ``iters`` calls (CUPTI), without the host's
+    gaps between them; None where the trace holds no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without kernels
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(iters):
+                        fn()
+                    torch.cuda.synchronize()
+                total = sum(getattr(e, "self_device_time_total", 0)
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA)
+        except Exception as exc:  # noqa: BLE001 - a measurement aid
+            print(f"device time: not measured ({type(exc).__name__}: {exc})")
+            return None
+        if total:
+            return total / 1e3 / iters
+    print("device time: not measured (three traces held no device time)")
+    return None
+
+
+def _ms_text(ms, spec=".3f"):
+    """A measured time as text, or "not measured" where it is None."""
+    return "not measured" if ms is None else format(ms, spec)
 
 
 def _sdpa_backward_ms(F, q, k, v, do):
@@ -751,13 +867,16 @@ RESNET = dict(size=224, classes=1000, depth=50, batch=256, infer_batch=16,
 FUSED_OPS = 33  # conv1x1_bn_act ops of ResNet-50 under the flag
 # Kernel against plain version, f32 on both sides:
 # - GEMM outputs (y of conv1x1_stats, conv1x1_epilogue's out): K <= 2048
-#   products summed in 8-deep slices by one FMA chain per output against
-#   cuBLAS's order; ~3e-5 at K = 2048, allow 1e-4 absolute and relative.
+#   products as 3xTF32 on the tensor cores (f32-accurate operands), each
+#   32-deep stage summed in the tensor cores' f32 accumulation (which
+#   truncates) and the stages added in f32, against cuBLAS's order;
+#   ~1e-5 at K = 2048, allow 1e-4 absolute and relative.
 # - statistics: per-channel sums over up to 802816 rows, in another order
-#   (8 rows a thread, 16 threads, 128-row tiles in a fixed order) than
-#   torch.sum; rounding grows with the summed mass, so the error of each
-#   channel's sum (sum of squares) is held to 1e-5 of sum |y| (sum y^2):
-#   a dropped 128-row tile is 1.6e-4 of the mass at the largest R.
+#   (2 rows a thread, a shuffle tree over 8 lanes, 8 warps, 128-row tiles
+#   in a fixed order) than torch.sum; rounding grows with the summed mass,
+#   so the error of each channel's sum (sum of squares) is held to 1e-5 of
+#   sum |y| (sum y^2): a dropped 128-row tile is 1.6e-4 of the mass at the
+#   largest R.
 # - scale_shift_act: elementwise, differing at most by an FMA contraction;
 #   allow 1e-5 absolute and relative.
 # - the logits of 53 BN layers' worth of these kernels against the plain
@@ -900,15 +1019,23 @@ def conv_epilogue_kernel_phase(gpu_name, train_shapes, infer_shapes):
                if residual else None)
         return x, w, scale, shift, res
 
+    # ragged: tiles cut by R and O, a K of 72 (a partial stage) and one
+    # of 30 (I % 4 != 0: the kernels' generic copies) with an odd O
     ragged = [(R, I, O, res, act) for R, I, O in ((100, 32, 16),
-                                                  (1000, 72, 40))
+                                                  (1000, 72, 40),
+                                                  (257, 30, 9))
               for res, act in ((False, None), (True, "relu"))]
     errs = {k: 0.0 for k in CONV_KERNELS}
     stats_err = 0.0
+    repeat_ok = 0  # cases where two launches agreed bitwise
     for R, I, O, res, act in sorted(set(train_shapes) | set(ragged)):
         x, w, scale, shift, r = inputs(R, I, O, res)
         y, stats = ke.conv1x1_stats(x, w)
+        y2, stats2 = ke.conv1x1_stats(x, w)
         torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(stats, stats2), (
+            f"two conv1x1_stats launches differ at {R}x{I}x{O}")
+        repeat_ok += 1
         ry, rstats = ke.conv1x1_stats_reference(x, w)
         err = _assert_close(y, ry, GEMM_TOL, f"conv1x1_stats y {R}x{I}x{O}")
         mass = torch.stack([ry.abs().sum(0), (ry * ry).sum(0)])
@@ -926,20 +1053,32 @@ def conv_epilogue_kernel_phase(gpu_name, train_shapes, infer_shapes):
               f"act={act}: y {err:.3e} (tol {GEMM_TOL}), stats {s_err:.3e} "
               f"of the summed mass (tol {STATS_TOL}), apply {a_err:.3e} "
               f"(tol {APPLY_TOL})")
-        del x, w, r, y, ry, out
+        del x, w, r, y, y2, ry, out
     for R, I, O, res, act in sorted(set(infer_shapes) | set(ragged)):
         x, w, scale, shift, r = inputs(R, I, O, res)
         out = ke.conv1x1_epilogue(x, w, scale, shift, r, act)
+        out2 = ke.conv1x1_epilogue(x, w, scale, shift, r, act)
         torch.cuda.synchronize()
+        assert torch.equal(out, out2), (
+            f"two conv1x1_epilogue launches differ at {R}x{I}x{O}")
+        repeat_ok += 1
         err = _assert_close(
             out, ke.conv1x1_epilogue_reference(x, w, scale, shift, r, act),
             GEMM_TOL, f"conv1x1_epilogue {R}x{I}x{O}")
         errs["conv1x1_epilogue"] = max(errs["conv1x1_epilogue"], err)
-        print(f"conv1x1_epilogue R{R} I{I} O{O} residual={res} act={act}: "
+        print(f"conv1x1_epilogue R{R} I{I} O{O} residual={res} act={act} "
+              f"plan {tuple(ke.tile_plan(R, I, O, split_k=True))}: "
               f"{err:.3e} (tol {GEMM_TOL})")
-        del x, w, r, out
+        del x, w, r, out, out2
+    print(f"conv-epilogue GEMM kernels: two launches on the same inputs "
+          f"bitwise equal in all {repeat_ok} cases (y, stats, out)")
+    usage = _conv_kernel_usage()
+    sass = _sass_counts("conv_epilogue", "conv1x1_tf32x3_kernel")
 
-    # timing at every shape the main path runs, weighted by its count
+    # timing at every shape the main path runs, weighted by its count; the
+    # GEMM kernels in turns with the library (kernel, library, library,
+    # kernel), and their device time beside (the wrappers' host work can
+    # exceed the kernels' at the inference shapes)
     timed = {k: {} for k in CONV_KERNELS}
     for kind, shapes in (("conv1x1_stats", train_shapes),
                          ("scale_shift_act", train_shapes),
@@ -963,20 +1102,38 @@ def conv_epilogue_kernel_phase(gpu_name, train_shapes, infer_shapes):
                          lambda: ke.scale_shift_act_reference(y, scale, shift,
                                                               r, act),
                          lambda: torch.addcmul(shift, y, scale))
-            ms, plain, lib = (_cuda_ms(f, iters=10) for f in calls)
             flops, nbytes = _conv_work(kind, R, I, O, res, act)
             bound, by, bound_simt = _bound(
                 flops, nbytes, gpu_name, products=kind != "scale_shift_act")
-            row = {"ms": ms, "plain_ms": plain, "library_ms": lib,
-                   "bound_ms": bound, "bound_by": by,
+            row = {"bound_ms": bound, "bound_by": by,
                    "bound_ms_simt": bound_simt, "count": shapes.count(shape)}
             if kind == "scale_shift_act":  # the same pass as addcmul's
+                row.update(zip(("ms", "plain_ms", "library_ms"), (
+                    _cuda_ms(f, iters=10) for f in calls)))
                 row["ms_no_residual_no_act"] = _cuda_ms(
                     lambda: ke.scale_shift_act(y, scale, shift), iters=10)
+            else:
+                turns = [_cuda_ms(calls[i], iters=30) for i in (0, 2, 2, 0)]
+                row.update(
+                    ms=(turns[0] + turns[3]) / 2,
+                    library_ms=(turns[1] + turns[2]) / 2,
+                    plain_ms=_cuda_ms(calls[1], iters=10), turns_ms=turns,
+                    device_ms=_device_ms(calls[0]),
+                    library_device_ms=_device_ms(calls[2]),
+                    host_ms=_host_ms(calls[0]),
+                    library_host_ms=_host_ms(calls[2]),
+                    plan=list(ke.tile_plan(
+                        R, I, O, split_k=kind == "conv1x1_epilogue")))
             timed[kind][shape] = row
+            dev = ("" if "device_ms" not in row else
+                   f" (device {_ms_text(row['device_ms'], '.4f')}, library "
+                   f"{_ms_text(row['library_device_ms'], '.4f')}; host "
+                   f"{_ms_text(row['host_ms'], '.4f')}, library "
+                   f"{_ms_text(row['library_host_ms'], '.4f')})")
             print(f"{kind} R{R} I{I} O{O} residual={res} act={act} "
-                  f"x{row['count']}: {ms:.4f} ms, plain {plain:.4f}, "
-                  f"library {lib:.4f}, bound {bound:.4f} ({by})")
+                  f"x{row['count']}: {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}"
+                  f"{dev}, bound {bound:.4f} ({by})")
             del x, w, r, calls
     _reset_conv_counts(ke)  # comparison launches do not count
 
@@ -993,7 +1150,10 @@ def conv_epilogue_kernel_phase(gpu_name, train_shapes, infer_shapes):
                          key=lambda kv: kv[1]["bound_ms_simt"])
         per_step = {k: sum(r[k] * r["count"] for r in rows.values())
                     for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "bound_ms_simt")}
+                              "bound_ms_simt", "device_ms",
+                              "library_device_ms", "host_ms",
+                              "library_host_ms")
+                    if all(r.get(k) is not None for r in rows.values())}
         rec = {
             "name": kind, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
@@ -1013,14 +1173,29 @@ def conv_epilogue_kernel_phase(gpu_name, train_shapes, infer_shapes):
             rec["stats_err_of_mass"] = stats_err
         if kind == "scale_shift_act":
             rec["ms_no_residual_no_act"] = top["ms_no_residual_no_act"]
+        else:
+            rec["ptxas"], rec["sass"] = usage, sass
+        dev = ("" if kind == "scale_shift_act" else
+               f"; device time {_ms_text(per_step.get('device_ms'))} ms, "
+               f"library {_ms_text(per_step.get('library_device_ms'))}; "
+               f"host time {_ms_text(per_step.get('host_ms'))} ms, library "
+               f"{_ms_text(per_step.get('library_host_ms'))}")
         print(f"{kind}: heaviest shape {rec['shape']} {top['ms']:.4f} ms vs "
               f"bound {top['bound_ms']:.4f} ({top['bound_by']}); per "
               f"{'batch' if kind == 'conv1x1_epilogue' else 'step'} "
               f"{per_step['ms']:.3f} ms (plain {per_step['plain_ms']:.3f}, "
               f"library {per_step['library_ms']:.3f}, bound "
-              f"{per_step['bound_ms']:.3f})")
+              f"{per_step['bound_ms']:.3f}){dev}")
         records.append(rec)
     return records
+
+
+def _conv_kernel_usage():
+    from paddle_tpu_torch.kernels import build
+
+    smem = build.load("conv_epilogue").paddle_conv1x1_smem_bytes
+    return _kernel_usage("conv_epilogue", lambda name, args: smem(args[0]),
+                         match="conv1x1_tf32x3_kernel")
 
 
 def tf32_phase():
@@ -1179,9 +1354,9 @@ def resnet_training_phase(records, gpu_name, built):
         exe, main, feed, loss, scope, "resnet_profile.txt",
         # the port's kernels, cuDNN (its kernels carry "cudnn" or
         # "engine"), cuBLAS ("cublas" or cutlass "sgemm"), torch's own
-        groups=("conv1x1_gemm_kernel", "stats_reduce_kernel",
-                "scale_shift_act_kernel", "cudnn", "engine", "cublas",
-                "sgemm", "elementwise", "reduce"))
+        groups=("conv1x1_tf32x3_kernel", "split_w_kernel",
+                "stats_reduce_kernel", "scale_shift_act_kernel", "cudnn",
+                "engine", "cublas", "sgemm", "elementwise", "reduce"))
     del feed
     return scope, {
         "config": c, "params": n_params, "losses": losses,
@@ -1287,6 +1462,10 @@ def main():
     parser.add_argument("--backward-only", action="store_true",
                         help="build the kernels and run only phase 5 (the "
                              "flash backward kernels); prints no ok line")
+    parser.add_argument("--conv-only", action="store_true",
+                        help="build the kernels and run only phase 8 (the "
+                             "conv-epilogue kernels at ResNet-50's shapes); "
+                             "prints no ok line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device and found none")
@@ -1314,10 +1493,22 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_ms_simt", "library_ms")
-    if args.backward_only:
-        bwd = backward_kernel_phase(gpu)
+    if args.backward_only or args.conv_only:
+        if args.backward_only:
+            recs = backward_kernel_phase(gpu)
+        else:
+            import paddle_tpu_torch as pt
+
+            resnet = _build_resnet(pt, RESNET)
+            recs = conv_epilogue_kernel_phase(
+                gpu, _fused_shapes(resnet[0], RESNET["batch"]),
+                _fused_shapes(resnet[2], RESNET["infer_batch"]))
+            out = ROOT / "chiprun_out"
+            out.mkdir(exist_ok=True)
+            (out / "chip_smoke_conv.json").write_text(json.dumps(
+                {"gpu": smi, "kernels": recs}, indent=1))
         print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                      for r in bwd]}))
+                                      for r in recs]}))
         print(smi)
         return
 

@@ -3,8 +3,9 @@
 Each source under ``kernels/csrc/`` compiles on first use into its own
 shared library with a plain C interface,
 ``build/paddle_tpu_torch/<name>-<hash>.so`` at the repository root, where
-``<hash>`` covers the source text and the nvcc flags: an edited source
-builds anew, an unchanged one loads the library already built. The
+``<hash>`` covers the source text, the shared headers (``csrc/*.cuh``)
+and the nvcc flags: an edited source or header builds anew, an unchanged
+one loads the library already built. The
 target is ``sm_90a`` (Hopper; ``wgmma`` and ``setmaxnreg`` need the
 ``a``). A failed build raises :class:`KernelBuildError` with nvcc's
 output; nothing falls back to another implementation.
@@ -59,9 +60,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library built from ``name``'s source, the shared headers under
+    ``csrc/`` and the nvcc flags: a change to any of them builds anew."""
+    text = SOURCES[name].read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

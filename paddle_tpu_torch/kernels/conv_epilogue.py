@@ -12,18 +12,25 @@ replaces, each launched through ``pl.pallas_call``, all in
   kernel adds them in a fixed order (deterministic, no float atomics).
 - ``conv1x1_epilogue`` (``_epilogue_kernel``): act((x . W) * scale + shift
   [+ residual]) for inference: the affine, residual and relu ride the GEMM
-  tile's epilogue and the raw product never reaches device memory.
+  tile's epilogue and the raw product never reaches device memory, unless
+  the tile plan splits K (small grids), when the slices' partial products
+  do and are added in a fixed order before the affine.
 - ``scale_shift_act`` (``_apply_kernel``): act(y * scale + shift
   [+ residual]) in one read and one write of [R, O].
 
 What bounds them on the H100: the two GEMM kernels do 2*R*I*O FLOPs on
-4*(R*I + I*O + R*O) bytes, above the card's f32 FLOP:byte ridge once I and
-O reach 128 (bound by operations; by bytes at 64). They run a 128 x 128
-output tile per 256-thread block with 8 x 8 register tiles on CUDA cores
-(f32 FMA; tensor cores are later work), sharing one main loop.
-``scale_shift_act`` is bound by bytes and moves float4s when O % 4 == 0.
-Every R, I and O is taken: ragged edges are masked in the kernels, where
-the TPU wrappers fall back to XLA when ``_pick_block_r`` finds no tile.
+4*(R*I + I*O + R*O) bytes: bound by operations once I and O reach 128,
+by bytes at I = 64. They run their products on the tensor cores as
+3xTF32 ``wgmma`` (f32 accuracy: each operand split into a tf32 hi and lo,
+three products summed), W split once per launch by a pre-pass, x split
+by the thread that reads it, sharing one main loop over a ring of
+32-deep K stages. ``tile_plan`` sizes the grid from (R, I, O): 64-wide
+tiles when O <= 64, and, for the epilogue, K cut into slices where the
+output tiles fill less than one wave of the SMs (the slices are added
+in a fixed order). ``scale_shift_act`` is bound by bytes and moves
+float4s when O % 4 == 0. Every R, I and O is taken: ragged edges are
+handled in the kernels, where the TPU wrappers fall back to XLA when
+``_pick_block_r`` finds no tile.
 
 Every wrapper dispatches on the tensor's device: a CPU tensor runs the
 plain version (``*_reference``), a meta tensor (build-time shape
@@ -35,11 +42,61 @@ launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 _LIB = "conv_epilogue"
 _INT_MAX = 2**31 - 1
+
+# --- the tile plan ----------------------------------------------------------
+ROW_TILE = 128        # output rows per block (csrc: BM)
+K_TILE = 32           # K depth of one ring stage (csrc: BK)
+SMS = 132             # streaming multiprocessors of an H100 SXM
+MIN_SLICE_STEPS = 4   # a split-K slice runs at least 4 stages (128 deep)
+
+
+class TilePlan(NamedTuple):
+    """How the GEMM kernels cut one [R, I] x [I, O] product."""
+    bn: int           # output columns per block: 64 or 128
+    tiles_r: int      # row tiles, ceil(R / ROW_TILE)
+    tiles_o: int      # column tiles, ceil(O / bn)
+    slices: int       # K slices (split-K; 1 = none)
+    slice_steps: int  # K_TILE-deep steps per slice
+    i_pad: int        # I rounded up to K_TILE
+    o_pad: int        # O rounded up to bn
+
+    @property
+    def wt_shape(self) -> Tuple[int, int, int]:
+        """W's hi and lo copies, transposed and padded."""
+        return (2, self.o_pad, self.i_pad)
+
+    def partial_shape(self, O: int) -> Tuple[int, int, int]:
+        """Per-row-tile BN sums of ``conv1x1_stats``."""
+        return (self.tiles_r, 2, O)
+
+    def slices_shape(self, R: int, O: int) -> Optional[Tuple[int, int, int]]:
+        """The split-K partial products, or None without a split."""
+        return (self.slices, R, O) if self.slices > 1 else None
+
+
+def tile_plan(R, I, O, split_k=False):
+    """The kernels' grid for an [R, I] x [I, O] product: 64-wide tiles
+    when O <= 64 (no half tile of padding), else 128. With ``split_k``
+    (the epilogue; the stats need none at ResNet's shapes), where the
+    128-row tiles fill less than one wave of the SMS SMs, K is cut into
+    slices of at least MIN_SLICE_STEPS stages until they do."""
+    bn = 64 if O <= 64 else 128
+    tiles_r, tiles_o = -(-R // ROW_TILE), -(-O // bn)
+    k_steps = -(-I // K_TILE)
+    slices = 1
+    tiles = tiles_r * tiles_o
+    if split_k and 0 < tiles < SMS:
+        slices = max(1, min(-(-SMS // tiles), k_steps // MIN_SLICE_STEPS))
+    slice_steps = -(-k_steps // slices) if k_steps else 0
+    slices = -(-k_steps // slice_steps) if slice_steps else 1
+    return TilePlan(bn, tiles_r, tiles_o, slices, slice_steps,
+                    k_steps * K_TILE, tiles_o * bn)
 
 
 # --- the plain versions -----------------------------------------------------
@@ -74,12 +131,13 @@ def scale_shift_act_reference(y_raw, scale, shift, residual=None, act=None):
 
 # --- the CUDA launches ------------------------------------------------------
 _ARGTYPES = {
-    # x, w, y, partial, stats, R, I, O, stream
-    "paddle_conv1x1_stats_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    # x, w, wt, y, partial, stats, R, I, O, bn, stream
+    "paddle_conv1x1_stats_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
-    # x, w, scale, shift, residual, out, R, I, O, relu, stream
-    "paddle_conv1x1_epilogue_f32": [ctypes.c_void_p] * 6
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # x, w, wt, scale, shift, residual, out, slice_out, R, I, O, relu, bn,
+    # slices, slice_steps, stream
+    "paddle_conv1x1_epilogue_f32": [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     # y, scale, shift, residual, out, R (long long), O, relu, stream
     "paddle_scale_shift_act_f32": [ctypes.c_void_p] * 5
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
@@ -97,7 +155,10 @@ def _bind(fn_name):
         fn.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
-        lib.paddle_conv1x1_row_tile.restype = ctypes.c_int
+        tiles = (lib.paddle_conv1x1_row_tile(), lib.paddle_conv1x1_k_tile())
+        if tiles != (ROW_TILE, K_TILE):
+            raise RuntimeError(f"{_LIB} was built with tiles {tiles}, the "
+                               f"plan expects {(ROW_TILE, K_TILE)}")
     return lib, fn
 
 
@@ -150,19 +211,30 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _empty(shape, dev):
+    return None if shape is None else torch.empty(shape, dtype=torch.float32,
+                                                  device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _launch_stats(x2, w):
     _check("conv1x1_stats", x2, w)
     (R, I), O = x2.shape, w.shape[1]
     lib, fn = _bind("paddle_conv1x1_stats_f32")
     dev = x2.device
     x2, w = _aligned(x2), _aligned(w)
-    tiles = -(-R // lib.paddle_conv1x1_row_tile())
-    y = torch.empty((R, O), dtype=torch.float32, device=dev)
-    partial = torch.empty((tiles, 2, O), dtype=torch.float32, device=dev)
-    stats = torch.empty((2, O), dtype=torch.float32, device=dev)
+    plan = tile_plan(R, I, O)
+    wt = _empty(plan.wt_shape, dev)
+    partial = _empty(plan.partial_shape(O), dev)
+    y = _empty((R, O), dev)
+    stats = _empty((2, O), dev)
     with torch.cuda.device(dev):
-        err = fn(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
-                 partial.data_ptr(), stats.data_ptr(), R, I, O, _stream(dev))
+        err = fn(x2.data_ptr(), w.data_ptr(), wt.data_ptr(), y.data_ptr(),
+                 partial.data_ptr(), stats.data_ptr(), R, I, O, plan.bn,
+                 _stream(dev))
     _raise_on(lib, err, "conv1x1_stats")
     conv1x1_stats.launches += 1
     return y, stats
@@ -180,11 +252,15 @@ def _launch_epilogue(x2, w, scale, shift, residual, act):
     dev = x2.device
     x2, w = _aligned(x2), _aligned(w)
     res = None if residual is None else _aligned(residual)
-    out = torch.empty((R, O), dtype=torch.float32, device=dev)
+    plan = tile_plan(R, I, O, split_k=True)
+    wt = _empty(plan.wt_shape, dev)
+    slices = _empty(plan.slices_shape(R, O), dev)
+    out = _empty((R, O), dev)
     with torch.cuda.device(dev):
-        err = fn(x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                 shift.data_ptr(), None if res is None else res.data_ptr(),
-                 out.data_ptr(), R, I, O, int(act == "relu"), _stream(dev))
+        err = fn(x2.data_ptr(), w.data_ptr(), wt.data_ptr(),
+                 scale.data_ptr(), shift.data_ptr(), _ptr(res),
+                 out.data_ptr(), _ptr(slices), R, I, O, int(act == "relu"),
+                 plan.bn, plan.slices, plan.slice_steps, _stream(dev))
     _raise_on(lib, err, "conv1x1_epilogue")
     conv1x1_epilogue.launches += 1
     return out
@@ -198,10 +274,10 @@ def _launch_apply(y_raw, scale, shift, residual, act):
     dev = y_raw.device
     y = _aligned(y_raw)
     res = None if residual is None else _aligned(residual)
-    out = torch.empty((R, O), dtype=torch.float32, device=dev)
+    out = _empty((R, O), dev)
     with torch.cuda.device(dev):
         err = fn(y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                 None if res is None else res.data_ptr(), out.data_ptr(),
+                 _ptr(res), out.data_ptr(),
                  R, O, int(act == "relu"), _stream(dev))
     _raise_on(lib, err, "scale_shift_act")
     scale_shift_act.launches += 1

@@ -1,4 +1,5 @@
-// Fused 1x1-conv + batch-norm epilogue kernels for Hopper (sm_90a), f32.
+// Fused 1x1-conv + batch-norm epilogue kernels for Hopper (sm_90a), f32
+// accurate, the products on the tensor cores as 3xTF32 `wgmma`.
 //
 // Replaces the three Pallas TPU kernels of paddle_tpu/kernels/conv_epilogue.py,
 // which the fused `conv1x1_bn_act` op runs in ResNet under
@@ -8,246 +9,491 @@
 //                     sum_r y*y) of that y, in f32, in the same pass
 //                     (`_stats_kernel`, launched by `conv1x1_stats`)
 //   conv1x1_epilogue  out = act((x . W) * scale + shift [+ residual]); the
-//                     raw product never reaches device memory
-//                     (`_epilogue_kernel`, launched by `conv1x1_epilogue`)
+//                     raw product never reaches device memory unless K is
+//                     split (`_epilogue_kernel`, launched by
+//                     `conv1x1_epilogue`)
 //   scale_shift_act   out = act(y * scale + shift [+ residual]), one read
 //                     and one write of [R, O] (`_apply_kernel`, launched by
 //                     `scale_shift_act`)
 //
 // x [R, I], W [I, O], y / residual / out [R, O] row-major f32; scale and
 // shift [O] f32; act is none or relu. Every R, I and O is taken: ragged
-// edges are masked here, so nothing falls back the way the TPU wrappers
-// fall back to XLA when `_pick_block_r` finds no tile.
+// edges are zero-filled or masked here, so nothing falls back the way the
+// TPU wrappers fall back to XLA when `_pick_block_r` finds no tile.
 //
-// Layout on the card, and why it differs from the TPU kernels:
-// - The product is a tiled f32 GEMM on CUDA cores: one 256-thread block per
-//   128 x 128 output tile, the K = I loop staged through shared memory in
-//   8-deep slices (double-buffered: the next slice is loaded into registers
-//   while the current one is multiplied), each thread an 8 x 8 register tile
-//   (two 4-row by two 4-column groups, so its shared-memory reads are float4
-//   and a warp's are broadcasts). Both GEMM kernels share this main loop and
-//   differ only in the epilogue.
-// - The TPU walks R as a sequential grid axis and carries the BN sums across
-//   it in VMEM. Blocks here run in no order, so each 128-row tile writes its
-//   column sums to partial[tile, 2, O] and a second small kernel adds the
-//   tiles in a fixed order. No float atomics: the statistics, and every
-//   layer after them, come out the same from run to run.
-//
-// What bounds them on the H100: the ResNet-50 1x1 convs do 2*R*I*O FLOPs on
-// 4*(R*I + I*O + R*O) bytes. At I, O >= 128 that is above the card's f32
-// FLOP:byte ridge (67 TFLOP/s over 3.35 TB/s = 20), so the GEMM kernels are
-// bound by operations there and by bytes at I = O = 64; the 8 x 8 register
-// tiles reuse each shared-memory load 8 times to keep the FMA pipes fed.
-// scale_shift_act does 2-3 FLOPs a value and is bound by bytes: float4
-// loads and stores when O % 4 == 0. Tensor cores (wgmma, bf16/TF32) are
-// later work.
+// What bounds the two GEMM kernels on the H100: the ResNet-50 1x1 convs do
+// 2*R*I*O FLOPs on 4*(R*I + I*O + R*O) bytes. The card's fastest
+// f32-accurate rate for products is 3xTF32 on the tensor cores (495 / 3 =
+// 165 TFLOP/s against 67 for f32 FMA), which puts the ridge at ~50
+// FLOP/byte: bound by operations at I, O >= 128, by bytes at I = 64.
+// What the design does about it:
+// - Products: `wgmma.mma_async.m64nNk8.f32.tf32.tf32`, N = 128 (or 64),
+//   A from registers, B from shared memory. Each f32 operand splits into a
+//   tf32 hi and lo = x - hi (tf32x3.cuh), and each product sums lo.hi +
+//   hi.lo + hi.hi, small terms first. Each element is split once: W by a
+//   pre-pass (split_w_kernel) into hi and lo copies of W^T, K-major as
+//   wgmma needs tf32 operands in shared memory; x by the one thread of the
+//   warpgroup that owns its row and K slot when it reads its A fragment.
+// - A block of two warpgroups computes a 128 x BN output tile; BN is 64
+//   when O <= 64, so no half tile of padding is computed there. K runs
+//   through a ring of 32-deep stages (4 at BN = 128, 3 at BN = 64, so two
+//   blocks fit an SM there). One thread fills a stage with three TMA
+//   copies (x's tile, W's hi and lo tiles; zeros past R and I) counted on
+//   an mbarrier; each thread releases a stage on a second one when its
+//   products are done, and the refill of the stage before overlaps this
+//   one's products. No block-wide barrier in the loop. W's tiles sit in
+//   wgmma's 128-byte swizzle (see Ring). A ring of 16-byte cp.async
+//   copies in their place bound the kernel: without its products it ran
+//   as fast. x rows that TMA cannot take (I % 4 != 0) come by 4-byte
+//   cp.async.
+// - The output tile leaves through shared memory in whole rows of
+//   16-byte runs, the affine, residual and relu applied on the way: at
+//   I = 64 the kernel is bound by bytes, most of them y's.
+// - The tensor cores' f32 accumulation does not round to nearest, so a
+//   product chained over all of K drifts (the flash backward's dv, chained
+//   over 2048 terms, erred 2.5e-5 of its size). Each stage's 12 products
+//   go into fresh registers, added to the tile's sum in f32.
+// - Small grids: where the 128 x BN tiles fill less than one wave of the
+//   SMs (the inference shapes at R = 784 and 3136), the caller's tile plan
+//   splits K into slices; each writes its partial product to scratch and
+//   scale_shift_act_kernel adds the slices in a fixed order before the
+//   affine. No atomics.
+// - BN statistics: each thread sums its two rows per column, shuffles add
+//   the 8 lanes that hold a column, and the 8 warps' sums are added in
+//   order through shared memory into partial[row tile, 2, O];
+//   stats_reduce_kernel adds the row tiles in a fixed order. Two launches
+//   on the same inputs agree bitwise.
+// scale_shift_act does 2-4 FLOPs a value and is bound by bytes: float4
+// loads and stores when O % 4 == 0.
+#include <cuda.h>  // CUtensorMap (its encoder comes from the runtime)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int BM = 128;        // output rows per block
-constexpr int BN = 128;        // output columns per block
-constexpr int BK = 8;          // K slice staged in shared memory
-constexpr int NTHREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
-constexpr int TDIM = 16;
+constexpr int BM = 128;        // output rows per block: two warpgroups of 64
+constexpr int BK = 32;         // K depth of one ring stage
+constexpr int NTHREADS = 256;
+constexpr int NWARPS = NTHREADS / 32;
 constexpr int RED_X = 32;      // stats reduction block: 32 columns
 constexpr int RED_Y = 32;      //   x 32 row-tile lanes
 
 enum Epilogue { kStats = 0, kAffine = 1 };
 
-// Output row (or column) of a thread's i-th register row (column): two
-// 4-wide groups, 64 apart.
-__device__ __forceinline__ int tile_off(int t, int i) {
-  return (i < 4) ? t * 4 + i : 64 + t * 4 + (i - 4);
+// One ring stage in shared memory, in floats: the x tile [BM][BK], row
+// after row; then W's hi and lo tiles, each BN x BK, K-major in wgmma's
+// 128-byte swizzle: row n is 128 bytes (BK floats), its 16-byte chunk c
+// at c ^ (n % 8), as the tensor memory accelerator (TMA) writes it. Every
+// stage starts on a 1024-byte boundary, as that swizzle needs. After the
+// stages come the ring's barriers: full[s] (the stage's copies have
+// landed) and empty[s] (every thread is done with it). (W's tiles without
+// a swizzle, in 128-byte core matrices 128 and 1024 bytes apart, made the
+// kernel markedly slower: those share banks.)
+template <int BN>
+struct Ring {
+  static constexpr int STAGES = BN == 128 ? 4 : 3;
+  static constexpr int A = BM * BK;
+  static constexpr int B = BN * BK;
+  static constexpr int STAGE = A + 2 * B;
+  static constexpr int BARRIERS = STAGES * STAGE * 4;  // byte offset
+  static constexpr int BYTES = BARRIERS + 2 * STAGES * 8;
+  // the epilogue's staged tile and the stats' per-warp sums reuse it
+  static_assert(BM * (BN + 8) + 2 * NWARPS * BN <= STAGES * STAGE,
+                "the epilogue must fit the ring");
+};
+
+// wgmma's descriptor of a B tile in that layout: start address, leading
+// offset 16 bytes (unused with a swizzle), 8-row groups 1024 bytes apart
+// (stride offset), 128-byte swizzle (mode 1). A k8 step further along K
+// starts 32 bytes later in the row.
+__device__ __forceinline__ uint64_t b_desc(const float* tile) {
+  return ((uint64_t)(smem_u32(tile) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
-// Four consecutive values of row `row` starting at column `c` of a
-// row-major [rows, cols] matrix; entries outside it read as 0. With VEC the
-// caller guarantees cols % 4 == 0 and a 16-byte aligned base, so the four
-// values are all inside or all outside.
-template <bool VEC>
-__device__ __forceinline__ void load4(float (&v)[4], const float* __restrict__ m,
-                                      int row, int rows, int c, int cols) {
-  if (VEC) {
-    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < rows && c < cols)
-      t = *reinterpret_cast<const float4*>(m + (size_t)row * cols + c);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
+// d (+)= A . B for one warpgroup: A [64, 8] tf32 from registers (this
+// thread's rows 16 w + g and + 8, k t and t + 4, as in mma.m16n8k8), B
+// [8, N] from the descriptor; scale_d == 0 overwrites d. d holds, per
+// 8-column group j, (row g, col 8j + 2t, + 1), (row g + 8, the same).
+template <int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// no read or write of r moves across this point
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = (row < rows && c + j < cols) ? m[(size_t)row * cols + c + j] : 0.f;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// --- the ring's barriers and copies ----------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// one arrival that also expects `bytes` of copies to land
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// wait until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+// an arrival on the barrier once this thread's cp.async copies land
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// the box at (c0, c1) (innermost first) of a 2-D tensor map into shared
+// memory, counted on `bar` as it lands; past the tensor's edge, zeros
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
+                                         int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// x's K steps [k0, k0 + BK) of this block's rows into an A tile, 4 bytes
+// at a time (rows of x that are not 16-byte aligned, I % 4 != 0, which
+// TMA does not take); rows past R and columns past I land as zeros.
+__device__ __forceinline__ void copy_a(float* dst, const float* __restrict__ x,
+                                       int R, int I, int row0, int k0) {
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < BM * BK; idx += NTHREADS) {
+    const int r = idx / BK, k = k0 + idx % BK;
+    const bool in = row0 + r < R && k < I;
+    cp_async4(dst + idx, x + (in ? (size_t)(row0 + r) * I + k : 0), in);
   }
 }
 
-// acc[i][j] += sum_k x[r_i, k] * w[k, c_j] over all of K = I for this
-// block's 128 x 128 tile. smem holds 2 x (A slice [BK][BM] + B slice
-// [BK][BN]) = 4096 floats; rows past R and columns past O come out 0.
-template <bool VA, bool VB>
-__device__ __forceinline__ void gemm_tile(float (&acc)[8][8], float* smem,
-                                          const float* __restrict__ x,
-                                          const float* __restrict__ w,
-                                          int R, int I, int O, int row0,
-                                          int col0) {
-  const int tid = threadIdx.x;
-  const int tx = tid % TDIM, ty = tid / TDIM;
-  // global -> shared copy assignment: A as 128 rows x 2 float4 along K,
-  // B as 8 rows x 32 float4 along O
-  const int a_r = tid / 2, a_k = (tid % 2) * 4;
-  const int b_k = tid / 32, b_c = (tid % 32) * 4;
-  // buffer b: A slice at smem + b * SLICE, B slice BK * BM floats after it
-  constexpr int SLICE = BK * BM + BK * BN;
+// The 128 x BN output tile blockIdx.x (column tiles fastest, so the tiles
+// that share x rows run together and read them from L2) over the K steps
+// of slice blockIdx.y. kStats: y and this row tile's column sums into
+// partial[tile, 2, O]. kAffine: act(y * scale + shift [+ residual]), or,
+// with scale null (a split K), the raw slice into out + slice * R * O.
+template <int BN, bool TMA_A, int EPI>
+__global__ void __launch_bounds__(NTHREADS, BN == 128 ? 1 : 2)
+conv1x1_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const float* __restrict__ x,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ shift,
+                      const float* __restrict__ residual,
+                      float* __restrict__ out, float* __restrict__ partial,
+                      int R, int I, int O, int i_pad, int o_pad,
+                      int slice_steps, int relu) {
+  using L = Ring<BN>;
+  constexpr int NACC = BN / 2;
+  extern __shared__ __align__(1024) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<char*>(smem) + L::BARRIERS);
+  uint64_t* empty = full + L::STAGES;
+  const int tiles_o = o_pad / BN;
+  const int tile_r = blockIdx.x / tiles_o;
+  const int row0 = tile_r * BM;
+  const int col0 = (blockIdx.x % tiles_o) * BN;
+  const int step0 = blockIdx.y * slice_steps;
+  const int nk = max(0, min(slice_steps, i_pad / BK - step0));
 
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) >> 2;
+  const int t = threadIdx.x & 3;
+  const int r_in = 16 * warp + g;  // this thread's rows: r_in, r_in + 8
 
-  float ra[4], rb[4];
-  load4<VA>(ra, x, row0 + a_r, R, a_k, I);
-  load4<VB>(rb, w, b_k, I, col0 + b_c, O);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) smem[(a_k + j) * BM + a_r] = ra[j];
-  *reinterpret_cast<float4*>(smem + BK * BM + b_k * BN + b_c) =
-      make_float4(rb[0], rb[1], rb[2], rb[3]);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      // thread 0's expect, plus every thread's cp.async copies of x
+      mbar_init(&full[s], TMA_A ? 1 : 1 + NTHREADS);
+      mbar_init(&empty[s], NTHREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  const int nk = (I + BK - 1) / BK;
-  for (int t = 0; t < nk; ++t) {
-    const int cur = t & 1;
-    const bool more = t + 1 < nk;
-    if (more) {
-      const int k0 = (t + 1) * BK;
-      load4<VA>(ra, x, row0 + a_r, R, k0 + a_k, I);
-      load4<VB>(rb, w, k0 + b_k, I, col0 + b_c, O);
+  // Stage i into slot i % STAGES: thread 0 starts the TMA copies (x's tile
+  // too when TMA_A), every thread its cp.async copies of x otherwise.
+  auto produce = [&](int i) {
+    float* st = smem + (i % L::STAGES) * L::STAGE;
+    uint64_t* bar = &full[i % L::STAGES];
+    const int k0 = (step0 + i) * BK;
+    if (threadIdx.x == 0) {
+      mbar_expect(bar, (TMA_A ? L::A * 4 : 0) + 2 * L::B * 4);
+      if (TMA_A) tma_load(st, &xmap, k0, row0, bar);
+      tma_load(st + L::A, &wmap, k0, col0, bar);
+      tma_load(st + L::A + L::B, &wmap, k0, o_pad + col0, bar);
     }
-    const float* a_s = smem + cur * SLICE;
-    const float* b_s = a_s + BK * BM;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(a_s + kk * BM + ty * 4);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(a_s + kk * BM + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(b_s + kk * BN + tx * 4);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(b_s + kk * BN + 64 + tx * 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    if (!TMA_A) {
+      copy_a(st, x, R, I, row0, k0);
+      cp_async_arrive(bar);
     }
-    if (more) {
-      // the other buffer was last read before the previous barrier
-      float* nxt = smem + (cur ^ 1) * SLICE;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) nxt[(a_k + j) * BM + a_r] = ra[j];
-      *reinterpret_cast<float4*>(nxt + BK * BM + b_k * BN + b_c) =
-          make_float4(rb[0], rb[1], rb[2], rb[3]);
-    }
-    __syncthreads();
-  }
-}
+  };
+  for (int s = 0; s < L::STAGES - 1 && s < nk; ++s) produce(s);
 
-// Store four consecutive columns c..c+3 of row r (those < O).
-template <bool VO>
-__device__ __forceinline__ void store4(float* __restrict__ out, size_t r, int c,
-                                       int O, const float (&v)[4]) {
-  if (VO) {
-    if (c < O)
-      *reinterpret_cast<float4*>(out + r * O + c) =
-          make_float4(v[0], v[1], v[2], v[3]);
-  } else {
+  float acc[NACC], part[NACC];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (c + j < O) out[r * O + c + j] = v[j];
-  }
-}
+  for (int e = 0; e < NACC; ++e) acc[e] = part[e] = 0.f;
 
-template <bool VA, bool VB, int EPI>
-__global__ void __launch_bounds__(NTHREADS, 2)
-conv1x1_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ shift,
-                    const float* __restrict__ residual, float* __restrict__ out,
-                    float* __restrict__ partial, int R, int I, int O, int relu) {
-  __shared__ __align__(16) float smem[4 * BK * BM];
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int tx = threadIdx.x % TDIM, ty = threadIdx.x / TDIM;
-  float acc[8][8];
-  gemm_tile<VA, VB>(acc, smem, x, w, R, I, O, row0, col0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int slot = kt % L::STAGES;
+    mbar_wait(&full[slot], (kt / L::STAGES) & 1);
+
+    // A fragments of the stage's four k8 steps. The K order inside each
+    // 16-deep block is permuted (split_w_kernel writes W^T to match), so
+    // that one 16-byte read gives a row's k slots t and t + 4 of two steps.
+    const float* st = smem + slot * L::STAGE;
+    uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int c = (4 * u + t) * 4;
+      const float4 v0 = *reinterpret_cast<const float4*>(st + r_in * BK + c);
+      const float4 v1 =
+          *reinterpret_cast<const float4*>(st + (r_in + 8) * BK + c);
+      split(v0.x, ahi[2 * u][0], alo[2 * u][0]);
+      split(v1.x, ahi[2 * u][1], alo[2 * u][1]);
+      split(v0.y, ahi[2 * u][2], alo[2 * u][2]);
+      split(v1.y, ahi[2 * u][3], alo[2 * u][3]);
+      split(v0.z, ahi[2 * u + 1][0], alo[2 * u + 1][0]);
+      split(v1.z, ahi[2 * u + 1][1], alo[2 * u + 1][1]);
+      split(v0.w, ahi[2 * u + 1][2], alo[2 * u + 1][2]);
+      split(v1.w, ahi[2 * u + 1][3], alo[2 * u + 1][3]);
+    }
+    const uint64_t dhi = b_desc(st + L::A), dlo = b_desc(st + L::A + L::B);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < BK / 8; ++s) {
+      const uint64_t step = s * (32 >> 4);
+      Wgmma<BN>::mma(part, alo[s], dhi + step, s);  // s == 0: fresh
+      Wgmma<BN>::mma(part, ahi[s], dlo + step, 1);
+      Wgmma<BN>::mma(part, ahi[s], dhi + step, 1);
+    }
+    wgmma_commit();
+
+    // while the products run: refill the slot stage kt - 1 used, once
+    // every thread has let it go
+    const int nxt = kt + L::STAGES - 1;
+    if (nxt < nk && (TMA_A ? threadIdx.x == 0 : true)) {
+      if (kt > 0) mbar_wait(&empty[nxt % L::STAGES], (kt - 1) / L::STAGES & 1);
+      produce(nxt);
+    }
+
+    wgmma_wait_all();
+    fence_regs(part);
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) acc[e] += part[e];
+    mbar_arrive(&empty[slot]);
+  }
+  __syncthreads();  // every warp is done with the ring
+
+  // The tile goes through shared memory (rows of OST floats: the float2
+  // writes of a half-warp hit 32 distinct banks), so that its rows leave
+  // as whole 16-byte runs, with the affine, residual and relu applied on
+  // the way.
+  constexpr int OST = BN + 8;
+  float* ot = smem;
+  if (EPI == kStats) {
+    // column sums: this thread's two rows, the 8 lanes (g) that share the
+    // column by shuffles, then the 8 warps in order (rows past R hold
+    // exact zeros)
+    float* red = smem + BM * OST;  // [NWARPS][2][BN]
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a = acc[4 * j + e], b = acc[4 * j + 2 + e];
+        float s = a + b, q = fmaf(b, b, a * a);
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          s += __shfl_xor_sync(0xffffffffu, s, m);
+          q += __shfl_xor_sync(0xffffffffu, q, m);
+        }
+        if (g == 0) {
+          red[(2 * warp) * BN + 8 * j + 2 * t + e] = s;
+          red[(2 * warp + 1) * BN + 8 * j + 2 * t + e] = q;
+        }
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(ot + (r_in + 8 * h) * OST + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  __syncthreads();
 
   if (EPI == kStats) {
-    // raw y, then this tile's column sums (rows past R hold exact zeros)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = row0 + tile_off(ty, i);
-      if (r >= R) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float v[4] = {acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-                            acc[i][4 * h + 3]};
-        store4<VB>(out, (size_t)r, col0 + tile_off(tx, 4 * h), O, v);
-      }
-    }
-    // smem is free: the main loop ended on a barrier
-    float* red_s = smem;                 // [TDIM][BN] column sums
-    float* red_q = smem + TDIM * BN;     // [TDIM][BN] column sums of squares
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float s = 0.f, q = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        s += acc[i][j];
-        q = fmaf(acc[i][j], acc[i][j], q);
-      }
-      red_s[ty * BN + tile_off(tx, j)] = s;
-      red_q[ty * BN + tile_off(tx, j)] = q;
-    }
-    __syncthreads();
+    const float* red = smem + BM * OST;
     for (int idx = threadIdx.x; idx < 2 * BN; idx += NTHREADS) {
       const int stat = idx / BN, c = idx % BN;
       if (col0 + c >= O) continue;
-      const float* src = stat ? red_q : red_s;
       float total = 0.f;
-      for (int t = 0; t < TDIM; ++t) total += src[t * BN + c];
-      partial[((size_t)blockIdx.x * 2 + stat) * O + col0 + c] = total;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) total += red[(2 * w + stat) * BN + c];
+      partial[((size_t)tile_r * 2 + stat) * O + col0 + c] = total;
+    }
+  }
+  // kStats: y; kAffine: act(y * scale + shift [+ residual]), or the raw
+  // slice of a split K (scale null) at out + slice * R * O
+  const bool affine = EPI == kAffine && scale != nullptr;
+  float* dst = out + (size_t)blockIdx.y * R * O;
+  if ((O & 3) == 0) {  // float4 runs: 16-byte aligned, inside a row
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < BM * BN / 4; idx += NTHREADS) {
+      const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+      const int row = row0 + r, col = col0 + c;
+      if (row >= R || col >= O) continue;
+      float4 v = *reinterpret_cast<const float4*>(ot + r * OST + c);
+      const size_t at = (size_t)row * O + col;
+      if (affine) {
+        const float4 sc = *reinterpret_cast<const float4*>(scale + col);
+        const float4 sh = *reinterpret_cast<const float4*>(shift + col);
+        v = make_float4(v.x * sc.x + sh.x, v.y * sc.y + sh.y,
+                        v.z * sc.z + sh.z, v.w * sc.w + sh.w);
+        if (residual != nullptr) {
+          const float4 res = *reinterpret_cast<const float4*>(residual + at);
+          v.x += res.x; v.y += res.y; v.z += res.z; v.w += res.w;
+        }
+        if (relu)
+          v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f),
+                          fmaxf(v.w, 0.f));
+      }
+      *reinterpret_cast<float4*>(dst + at) = v;
     }
   } else {
-    float sc[8], sh[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = col0 + tile_off(tx, j);
-      sc[j] = c < O ? scale[c] : 0.f;
-      sh[j] = c < O ? shift[c] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = row0 + tile_off(ty, i);
-      if (r >= R) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = col0 + tile_off(tx, 4 * h);
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[j] = acc[i][4 * h + j] * sc[4 * h + j] + sh[4 * h + j];
-        if (residual != nullptr) {
-          float res[4];
-          load4<VB>(res, residual, r, R, c, O);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] += res[j];
-        }
-        if (relu) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = v[j] < 0.f ? 0.f : v[j];
-        }
-        store4<VB>(out, (size_t)r, c, O, v);
+    for (int idx = threadIdx.x; idx < BM * BN; idx += NTHREADS) {
+      const int r = idx / BN, c = idx % BN;
+      const int row = row0 + r, col = col0 + c;
+      if (row >= R || col >= O) continue;
+      float v = ot[r * OST + c];
+      const size_t at = (size_t)row * O + col;
+      if (affine) {
+        v = v * scale[col] + shift[col];
+        if (residual != nullptr) v += residual[at];
+        if (relu) v = fmaxf(v, 0.f);
       }
+      dst[at] = v;
     }
+  }
+}
+
+// wt[h][n][p] for h = 0 (hi), 1 (lo), n < o_pad, p < i_pad: the split of
+// w[k][n] (0 past I or O), K-major, with k permuted inside each 16-deep
+// block as the main loop's A fragments read x: position 16u + 8h' + q
+// holds k = 16u + 4 (q % 4) + 2h' + q / 4. One 32 x 32 tile per block of
+// 32 x 8 threads, transposed through shared memory.
+__global__ void split_w_kernel(const float* __restrict__ w,
+                               float* __restrict__ wt, int I, int O,
+                               int i_pad, int o_pad) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int ky = ty; ky < 32; ky += 8) {
+    const int k = k0 + ky, n = n0 + tx;
+    tile[ky][tx] = (k < I && n < O) ? w[(size_t)k * O + n] : 0.f;
+  }
+  __syncthreads();
+  const int kl = 16 * (tx >> 4) + 4 * (tx & 3) + 2 * ((tx >> 3) & 1) +
+                 ((tx >> 2) & 1);
+  for (int ny = ty; ny < 32; ny += 8) {
+    uint32_t hi, lo;
+    split(tile[kl][ny], hi, lo);
+    const size_t at = (size_t)(n0 + ny) * i_pad + k0 + tx;
+    wt[at] = __uint_as_float(hi);
+    wt[(size_t)o_pad * i_pad + at] = __uint_as_float(lo);
   }
 }
 
@@ -273,8 +519,12 @@ __global__ void stats_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-template <bool VEC>
+// out = act(y * scale + shift [+ residual]) over a contiguous [R, O] of n
+// values; with SLICES, y is the sum of `slices` such [R, O] planes n
+// apart, added in order (a split-K product).
+template <bool VEC, bool SLICES>
 __global__ void scale_shift_act_kernel(const float* __restrict__ y,
+                                       int slices,
                                        const float* __restrict__ scale,
                                        const float* __restrict__ shift,
                                        const float* __restrict__ residual,
@@ -286,7 +536,12 @@ __global__ void scale_shift_act_kernel(const float* __restrict__ y,
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
          i += stride) {
       const int c = (int)((i * 4) % O);
-      const float4 v = reinterpret_cast<const float4*>(y)[i];
+      float4 v = reinterpret_cast<const float4*>(y)[i];
+      if (SLICES)
+        for (int s = 1; s < slices; ++s) {
+          const float4 p = reinterpret_cast<const float4*>(y)[s * n4 + i];
+          v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+        }
       float o[4] = {v.x * scale[c] + shift[c], v.y * scale[c + 1] + shift[c + 1],
                     v.z * scale[c + 2] + shift[c + 2],
                     v.w * scale[c + 3] + shift[c + 3]};
@@ -304,7 +559,10 @@ __global__ void scale_shift_act_kernel(const float* __restrict__ y,
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
       const int c = (int)(i % O);
-      float o = y[i] * scale[c] + shift[c];
+      float v = y[i];
+      if (SLICES)
+        for (int s = 1; s < slices; ++s) v += y[s * n + i];
+      float o = v * scale[c] + shift[c];
       if (residual != nullptr) o += residual[i];
       if (relu) o = o < 0.f ? 0.f : o;
       out[i] = o;
@@ -312,61 +570,198 @@ __global__ void scale_shift_act_kernel(const float* __restrict__ y,
   }
 }
 
-template <int EPI>
-cudaError_t launch_gemm(const float* x, const float* w, const float* scale,
+int pad_to(int v, int m) { return (v + m - 1) / m * m; }
+
+// The tile plan the caller chose (kernels/conv_epilogue.py `tile_plan`):
+// BN 64 or 128, and `slices` K slices of `slice_steps` BK-deep steps that
+// cover I, none of them empty.
+bool plan_ok(int I, int bn, int slices, int slice_steps) {
+  const int k_steps = pad_to(I, BK) / BK;
+  if (bn != 64 && bn != 128) return false;
+  if (slices < 1 || slice_steps < 0) return false;
+  return (long long)slices * slice_steps >= k_steps &&
+         (slices == 1 || (long long)(slices - 1) * slice_steps < k_steps);
+}
+
+cudaError_t split_w(const float* w, float* wt, int I, int O, int bn,
+                    cudaStream_t s) {
+  const int i_pad = pad_to(I, BK), o_pad = pad_to(O, bn);
+  if (i_pad == 0) return cudaSuccess;
+  split_w_kernel<<<dim3(i_pad / 32, o_pad / 32), dim3(32, 8), 0, s>>>(
+      w, wt, I, O, i_pad, o_pad);
+  return cudaGetLastError();
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (libcuda's tensor-map encoder), found through
+// the runtime, as this library links no libcuda of its own; null where
+// it is missing.
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A TMA map of a row-major f32 [rows, cols] matrix, `stride` floats a
+// row, read in boxes of box_rows x BK; zeros past its edges.
+cudaError_t tensor_map(CUtensorMap* map, const float* base, int cols,
+                       int rows, int stride, int box_rows, bool swizzle) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride * 4};
+  const cuuint32_t box[2] = {BK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int BN, int EPI>
+cudaError_t launch_gemm(const float* x, const float* wt, const float* scale,
                         const float* shift, const float* residual, float* out,
-                        float* partial, int R, int I, int O, int relu,
-                        cudaStream_t stream) {
-  const dim3 grid((R + BM - 1) / BM, (O + BN - 1) / BN);
-  const bool va = I % 4 == 0, vb = O % 4 == 0;
-  if (va && vb)
-    conv1x1_gemm_kernel<true, true, EPI><<<grid, NTHREADS, 0, stream>>>(
-        x, w, scale, shift, residual, out, partial, R, I, O, relu);
-  else if (va)
-    conv1x1_gemm_kernel<true, false, EPI><<<grid, NTHREADS, 0, stream>>>(
-        x, w, scale, shift, residual, out, partial, R, I, O, relu);
-  else if (vb)
-    conv1x1_gemm_kernel<false, true, EPI><<<grid, NTHREADS, 0, stream>>>(
-        x, w, scale, shift, residual, out, partial, R, I, O, relu);
-  else
-    conv1x1_gemm_kernel<false, false, EPI><<<grid, NTHREADS, 0, stream>>>(
-        x, w, scale, shift, residual, out, partial, R, I, O, relu);
+                        float* partial, int R, int I, int O, int slices,
+                        int slice_steps, int relu, cudaStream_t stream) {
+  const int i_pad = pad_to(I, BK), o_pad = pad_to(O, BN);
+  const dim3 grid((unsigned)((R + BM - 1) / BM * (o_pad / BN)), slices);
+  // TMA copies x where its rows are 16-byte aligned; W's split copies
+  // always (padded to BK and BN)
+  const bool va = I % 4 == 0;
+  CUtensorMap xmap = {}, wmap = {};
+  if (i_pad > 0) {
+    cudaError_t err = cudaSuccess;
+    if (va) err = tensor_map(&xmap, x, I, R, I, BM, false);
+    if (err == cudaSuccess)
+      err = tensor_map(&wmap, wt, i_pad, 2 * o_pad, i_pad, BN, true);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = va ? conv1x1_tf32x3_kernel<BN, true, EPI>
+                   : conv1x1_tf32x3_kernel<BN, false, EPI>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NTHREADS, Ring<BN>::BYTES, stream>>>(
+      xmap, wmap, x, scale, shift, residual, out, partial, R, I, O, i_pad,
+      o_pad, slice_steps, relu);
+  return cudaGetLastError();
+}
+
+template <int EPI>
+cudaError_t launch_gemm_bn(int bn, const float* x, const float* wt,
+                        const float* scale, const float* shift,
+                        const float* residual, float* out, float* partial,
+                        int R, int I, int O, int slices, int slice_steps,
+                        int relu, cudaStream_t stream) {
+  return bn == 64
+             ? launch_gemm<64, EPI>(x, wt, scale, shift, residual, out,
+                                    partial, R, I, O, slices, slice_steps,
+                                    relu, stream)
+             : launch_gemm<128, EPI>(x, wt, scale, shift, residual, out,
+                                     partial, R, I, O, slices, slice_steps,
+                                     relu, stream);
+}
+
+cudaError_t launch_apply(const float* y, int slices, const float* scale,
+                         const float* shift, const float* residual, float* out,
+                         long long R, int O, int relu, cudaStream_t s) {
+  const long long n = R * (long long)O;
+  const bool vec = O % 4 == 0;
+  const long long work = vec ? n / 4 : n;
+  const long long cap = 132LL * 32;  // ~32 blocks of 256 per SM, grid-stride
+  long long blocks = (work + 255) / 256;
+  if (blocks > cap) blocks = cap;
+  const unsigned b = (unsigned)blocks;
+  if (slices > 1) {
+    if (vec)
+      scale_shift_act_kernel<true, true><<<b, 256, 0, s>>>(
+          y, slices, scale, shift, residual, out, n, O, relu);
+    else
+      scale_shift_act_kernel<false, true><<<b, 256, 0, s>>>(
+          y, slices, scale, shift, residual, out, n, O, relu);
+  } else if (vec) {
+    scale_shift_act_kernel<true, false><<<b, 256, 0, s>>>(
+        y, 1, scale, shift, residual, out, n, O, relu);
+  } else {
+    scale_shift_act_kernel<false, false><<<b, 256, 0, s>>>(
+        y, 1, scale, shift, residual, out, n, O, relu);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Rows of y per partial-stats tile: partial holds ceil(R / this) x 2 x O.
+// Constants the Python tile plan must agree with: rows per output tile,
+// K depth per ring stage, and a block's dynamic shared memory at BN.
 extern "C" int paddle_conv1x1_row_tile() { return BM; }
+extern "C" int paddle_conv1x1_k_tile() { return BK; }
+extern "C" int paddle_conv1x1_smem_bytes(int bn) {
+  return bn == 64 ? Ring<64>::BYTES : bn == 128 ? Ring<128>::BYTES : -1;
+}
 
-// y = x . w and stats [2, O]; partial is scratch of ceil(R / 128) x 2 x O.
-// Pointers are 16-byte aligned and contiguous (the wrapper makes them so).
+// y = x . w and stats [2, O]. Scratch from the caller: wt [2, pad(O, bn),
+// pad(I, 32)] for W's split, partial [ceil(R / 128), 2, O]. Pointers are
+// 16-byte aligned and contiguous (the wrapper makes them so).
 extern "C" int paddle_conv1x1_stats_f32(const float* x, const float* w,
-                                        float* y, float* partial, float* stats,
-                                        int R, int I, int O, void* stream) {
+                                        float* wt, float* y, float* partial,
+                                        float* stats, int R, int I, int O,
+                                        int bn, void* stream) {
   if (R <= 0 || O <= 0) return (int)cudaSuccess;
+  const int k_steps = pad_to(I, BK) / BK;
+  if (!plan_ok(I, bn, 1, k_steps)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_gemm<kStats>(x, w, nullptr, nullptr, nullptr, y,
-                                        partial, R, I, O, 0, s);
+  cudaError_t err = split_w(w, wt, I, O, bn, s);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (R + BM - 1) / BM;
+  err = launch_gemm_bn<kStats>(bn, x, wt, nullptr, nullptr, nullptr, y,
+                               partial, R, I, O, 1, k_steps, 0, s);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((O + RED_X - 1) / RED_X, 2);
-  stats_reduce_kernel<<<grid, dim3(RED_X, RED_Y), 0, s>>>(partial, stats,
-                                                          tiles, O);
+  stats_reduce_kernel<<<grid, dim3(RED_X, RED_Y), 0, s>>>(
+      partial, stats, (R + BM - 1) / BM, O);
   return (int)cudaGetLastError();
 }
 
 // out = act((x . w) * scale + shift [+ residual]); residual may be null.
-extern "C" int paddle_conv1x1_epilogue_f32(const float* x, const float* w,
-                                           const float* scale,
-                                           const float* shift,
-                                           const float* residual, float* out,
-                                           int R, int I, int O, int relu,
-                                           void* stream) {
+// wt as for the stats; with slices > 1, K is cut into `slices` slices of
+// slice_steps * 32 and slice_out is scratch [slices, R, O].
+extern "C" int paddle_conv1x1_epilogue_f32(
+    const float* x, const float* w, float* wt, const float* scale,
+    const float* shift, const float* residual, float* out, float* slice_out,
+    int R, int I, int O, int relu, int bn, int slices, int slice_steps,
+    void* stream) {
   if (R <= 0 || O <= 0) return (int)cudaSuccess;
-  return (int)launch_gemm<kAffine>(x, w, scale, shift, residual, out, nullptr,
-                                   R, I, O, relu,
-                                   static_cast<cudaStream_t>(stream));
+  if (!plan_ok(I, bn, slices, slice_steps) ||
+      (slices > 1 && slice_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = split_w(w, wt, I, O, bn, s);
+  if (err != cudaSuccess) return (int)err;
+  if (slices == 1)
+    return (int)launch_gemm_bn<kAffine>(bn, x, wt, scale, shift, residual, out,
+                                     nullptr, R, I, O, 1, slice_steps, relu,
+                                     s);
+  err = launch_gemm_bn<kAffine>(bn, x, wt, nullptr, nullptr, nullptr,
+                                slice_out, nullptr, R, I, O, slices,
+                                slice_steps, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_apply(slice_out, slices, scale, shift, residual, out, R,
+                           O, relu, s);
 }
 
 // out = act(y * scale + shift [+ residual]) over a contiguous [R, O].
@@ -375,21 +770,9 @@ extern "C" int paddle_scale_shift_act_f32(const float* y, const float* scale,
                                           const float* residual, float* out,
                                           long long R, int O, int relu,
                                           void* stream) {
-  const long long n = R * (long long)O;
-  if (n <= 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = O % 4 == 0;
-  const long long work = vec ? n / 4 : n;
-  const long long cap = 132LL * 32;  // ~32 blocks of 256 per SM, grid-stride
-  long long blocks = (work + 255) / 256;
-  if (blocks > cap) blocks = cap;
-  if (vec)
-    scale_shift_act_kernel<true><<<(unsigned)blocks, 256, 0, s>>>(
-        y, scale, shift, residual, out, n, O, relu);
-  else
-    scale_shift_act_kernel<false><<<(unsigned)blocks, 256, 0, s>>>(
-        y, scale, shift, residual, out, n, O, relu);
-  return (int)cudaGetLastError();
+  if (R * (long long)O <= 0) return (int)cudaSuccess;
+  return (int)launch_apply(y, 1, scale, shift, residual, out, R, O, relu,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {
