@@ -2,6 +2,7 @@
 """End-to-end check of the PyTorch/CUDA port (paddle_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --forward-only    # phases 1, 2 and 3 only
     python3 chip_smoke.py --backward-only   # phases 1, 2 and 5 only
     python3 chip_smoke.py --conv-only       # phases 1, 2 and 8 only
 
@@ -11,10 +12,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (nvidia-smi). Without CUDA it raises.
 2. Build: every CUDA kernel of the port, with nvcc from the repository's
    sources (kernels/build.py), all sources started together.
-3. Kernels: each kernel against its plain PyTorch version on the card at
-   the serving path's shapes (plus ragged and D=128 cases), then timed
-   with CUDA events beside the plain version and the PyTorch library call
-   that computes the same function, with its roofline bound.
+3. Flash forward: the kernel against its plain PyTorch version on the
+   card at the serving shape (B8 H16 T1024 D64 causal), a ragged case
+   with a fully masked row, a D=128 case and the LM training shape (B8
+   H8 T2048 D128 causal); at head dims the kernels take zero-padded (16,
+   32, 96) and at 70400 batch*heads (past a grid's y limit), the forward
+   and both backward kernels, each with a fully masked row. Two launches
+   at the training shape must be bitwise equal. Prints the forward's
+   registers, spills, shared memory and tensor-core opcodes (SASS), then
+   times it at the serving and training shapes in turns with
+   ``F.scaled_dot_product_attention``'s f32 forward (its backend pinned
+   and recorded: kernel, library, library, kernel), with profiler device
+   time beside event time, the plain version and the roofline bound.
 4. Serving: the d1024/L8/H16/V16384 transformer LM (random weights from a
    seed, carried in through ``load_jax_params``) serves requests with
    700-1024-token prompts through ``GenerationEngine(kv_cache="dense")``
@@ -79,11 +88,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-# f32 on both sides. The forward sums over <= 1024 keys in another order
-# (64-key tiles, online rescaling, sequential FMA) than cuBLAS does for
-# the plain version: expect ~1e-6. The backward's 3xTF32 products keep
-# f32 operands, but the tensor cores' f32 accumulation does not round to
-# nearest: expect ~1e-5 at T = 2048. Allow 5e-5.
+# f32 on both sides. The flash kernels' 3xTF32 products keep f32
+# operands, but sum in another order than cuBLAS does for the plain
+# version, and the tensor cores' f32 accumulation does not round to
+# nearest. The forward (32-key tiles, online rescaling, each tile's P V a
+# fresh sum): expect ~1e-6, ~4e-6 at T = 2048; the backward ~1e-5 at
+# T = 2048. Allow 5e-5.
 ATOL = RTOL = 5e-5
 # Published peaks at the full power limit (NVIDIA H100 data sheet, dense):
 # (f32 FLOP/s on the CUDA cores, memory bytes/s, f32-accurate FLOP/s of
@@ -188,7 +198,39 @@ def _bound(flops, nbytes, gpu_name, products=True):
             "bytes", max(flops / peak_simt * 1e3, t_bytes))
 
 
+# (B, H, T, D, causal, lengths): the serving shape first, a ragged case
+# with a fully masked row (length 0), a D = 128 case and the LM training
+# shape (B8 H8 T2048 D128 causal)
+FWD_CASES = [
+    (8, 16, 1024, 64, True, None),
+    (8, 16, 1000, 64, True, [1000, 999, 700, 513, 64, 1, 0, 1000]),
+    (2, 4, 300, 128, False, [300, 17]),
+    (8, 8, 2048, 128, True, None),
+]
+# head dims the kernels take zero-padded to 64 or 128 (16, 32, 96) and
+# more batch*heads than a grid's y axis holds (4400 x 16 = 70400 > 65535)
+# at a small T: the forward and both backward kernels, each case with a
+# fully masked row
+PAD_CASES = [
+    (4, 4, 300, 16, True, [300, 0, 129, 7]),
+    (2, 8, 256, 32, False, [256, 0]),
+    (2, 4, 300, 96, True, [300, 0]),
+    (4400, 16, 24, 16, True, [24 - b % 25 for b in range(4400)]),
+]
+
+
+def _case_text(B, H, T, D, causal, lengths):
+    lens = (lengths if lengths is None or len(lengths) <= 8 else
+            f"[{len(lengths)} lengths {min(lengths)}..{max(lengths)}]")
+    return f"B{B} H{H} T{T} D{D} causal={causal} lengths={lens}"
+
+
 def kernel_phase(gpu_name):
+    """The flash forward against its plain version at the serving and
+    training shapes and the cases above, the backward kernels at the
+    padded and wide-grid cases, two forward launches bitwise equal, the
+    forward's ptxas and SASS counts, and its time at both shapes in turns
+    with SDPA's f32 forward."""
     import torch
     import torch.nn.functional as F
 
@@ -196,18 +238,13 @@ def kernel_phase(gpu_name):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    def qkv(B, H, T, D):
-        return tuple(torch.randn(B, H, T, D, device="cuda", generator=gen)
-                     for _ in range(3))
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
 
-    errs = []
-    cases = [  # (B, H, T, D, causal, lengths): the serving shape first
-        (8, 16, 1024, 64, True, None),
-        (8, 16, 1000, 64, True, [1000, 999, 700, 513, 64, 1, 0, 1000]),
-        (2, 4, 300, 128, False, [300, 17]),
-    ]
-    for B, H, T, D, causal, lengths in cases:
-        q, k, v = qkv(B, H, T, D)
+    errs, bwd_errs = [], []
+    for case in FWD_CASES + PAD_CASES:
+        B, H, T, D, causal, lengths = case
+        q, k, v = (randn(B, H, T, D) for _ in range(3))
         lens = None if lengths is None else torch.tensor(lengths,
                                                          device="cuda")
         o, lse = fa.flash_forward(q, k, v, lens, causal)
@@ -216,28 +253,115 @@ def kernel_phase(gpu_name):
         torch.cuda.synchronize()
         err = max(_max_err(o, ro), _max_err(lse, rlse))
         errs.append(err)
-        print(f"flash_attention_fwd B{B} H{H} T{T} D{D} causal={causal} "
-              f"lengths={lengths}: max_abs_err {err:.3e} (tol {ATOL})")
+        text = f"{_case_text(*case)}: max_abs_err o/lse {err:.3e}"
+        masked = [b for b, n in enumerate(lengths or ()) if n == 0]
+        assert not o[masked].any(), "a fully masked row got an output"
+        if case in PAD_CASES:
+            do = randn(B, H, T, D)
+            grads = fa.flash_backward(q, k, v, o, lse, do, lens, causal)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                         lens, causal)
+            torch.cuda.synchronize()
+            bwd = max(_max_err(a, b) for a, b in zip(grads, want))
+            bwd_errs.append(bwd)
+            assert masked and not any(g[masked].any() for g in grads), (
+                "a fully masked row got a gradient")
+            text += f", dq/dk/dv {bwd:.3e}"
+            del do, grads, want
+        print(f"flash_attention_fwd {text} (tol {ATOL})")
+        del q, k, v, o, lse, ro, rlse
 
-    B, H, T, D = 8, 16, 1024, 64
-    q, k, v = qkv(B, H, T, D)
-    ms = _cuda_ms(lambda: fa.flash_forward(q, k, v, None, True))
-    plain_ms = _cuda_ms(
-        lambda: fa.flash_attention_reference(q, k, v, None, True))
-    library_ms = _cuda_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
-    flops, nbytes = _attention_work(B, H, T, T, D, True, None)
-    bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name)
+    # no atomics: two launches at the training shape agree bitwise
+    B, H, T, D, causal, _ = FWD_CASES[3]
+    q, k, v = (randn(B, H, T, D) for _ in range(3))
+    first, second = (fa.flash_forward(q, k, v, None, True) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+        "two flash forward launches on the same inputs differ")
+    print(f"flash_attention_fwd B{B} H{H} T{T} D{D} causal: two launches "
+          f"are bitwise equal")
+    del q, k, v, first, second
+    usage = _forward_kernel_usage()
+    assert not any(u.get("spill_store_bytes") or u.get("spill_load_bytes")
+                   for u in usage.values()), f"the forward spills: {usage}"
+    sass = _sass_counts("flash_attention_fwd", "flash_fwd")
+    for key, counts in sass.items():
+        assert counts["HMMA"] + counts["HGMMA"] > 0, (
+            f"{key} runs no product on the tensor cores: {counts}")
+
+    timed = {name: _time_forward(F, fa, randn, gpu_name, *FWD_CASES[i])
+             for name, i in (("serving", 0), ("training", 3))}
+    serve = timed["serving"]
     return {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/kernels/flash_attention.py:229",
-        "launches": None, "max_abs_err": max(errs), "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "bound_ms_simt": bound_simt, "library_ms": library_ms,
-        "shape": f"B{B} H{H} T{T} D{D} causal f32",
-        "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+        "launches": None, "max_abs_err": max(errs),
+        "max_abs_err_backward_padded": max(bwd_errs),
+        "ms": serve["ms"], "plain_ms": serve["plain_ms"],
+        "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+        "bound_ms_simt": serve["bound_ms_simt"],
+        "library_ms": serve["library_ms"], "library": serve["library"],
+        "shape": serve["shape"], "gflop": serve["gflop"],
+        "mbytes": serve["mbytes"], "training_shape": timed["training"],
+        "serving_shape": serve, "ptxas": usage, "sass": sass,
     }
+
+
+def _time_forward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
+    """The forward kernel at one shape in turns with SDPA's f32 forward
+    (its backend pinned: kernel, library, library, kernel), each with its
+    device time from a profiler trace, beside the plain version and the
+    bound."""
+    import torch
+    from torch.nn.attention import sdpa_kernel
+
+    assert lengths is None and causal
+    q, k, v = (randn(B, H, T, D) for _ in range(3))
+
+    def kernel():
+        return fa.flash_forward(q, k, v, None, True)
+
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    backend = _sdpa_backend(library)
+    with sdpa_kernel(backend):
+        turns = [_cuda_ms(kernel, iters=10)]
+        turns += [_cuda_ms(library, iters=10) for _ in range(2)]
+        turns.append(_cuda_ms(kernel, iters=10))
+        lib_device = _device_ms(library)
+    device = _device_ms(kernel)
+    plain_ms = _cuda_ms(
+        lambda: fa.flash_attention_reference(q, k, v, None, True), iters=5)
+    flops, nbytes = _attention_work(B, H, T, T, D, True, None)
+    bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name)
+    ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    shape = f"B{B} H{H} T{T} D{D} causal f32"
+    print(f"flash_attention_fwd timing {shape}: kernel "
+          f"{[round(x, 4) for x in turns[::3]]} ms (device "
+          f"{_ms_text(device, '.4f')}), SDPA forward ({backend.name}) "
+          f"{[round(x, 4) for x in turns[1:3]]} ms (device "
+          f"{_ms_text(lib_device, '.4f')}): kernel / SDPA "
+          f"{ms / lib_ms:.3f}; plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {flops / ms / 1e9:.1f} TFLOP/s")
+    return {"shape": shape, "ms": ms, "turns_ms": turns,
+            "device_ms": device, "library_ms": lib_ms,
+            "library_device_ms": lib_device,
+            "library": f"sdpa forward, {backend.name}", "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_simt": bound_simt, "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6, "tflop_per_s": flops / ms / 1e9}
+
+
+def _forward_kernel_usage():
+    from paddle_tpu_torch.kernels import build
+
+    lib = build.load("flash_attention_fwd")
+    smem = lib.paddle_flash_attention_fwd_smem_bytes
+    return _kernel_usage("flash_attention_fwd",
+                         lambda name, args: smem(args[0]), match="flash_fwd")
 
 
 def serving_phase(record, gpu_name):
@@ -369,10 +493,9 @@ TRAIN = dict(vocab=16384, d_model=1024, n_layers=8, num_heads=8, d_ff=4096,
              max_len=2048, batch=8, seq=2048, lr=1e-4)
 # One step's loss and gradients, kernels against plain versions: both run
 # the same f32 program from the same state and differ only in the
-# attention's summation order (tiles, FMA and tensor-core chains vs
-# cuBLAS), which moves each gradient by ~2e-6 of its norm after 8 layers;
-# allow 1e-4 of
-# the norm per parameter and 1e-5 relative on the loss.
+# attention's summation order (tiles and tensor-core chains vs cuBLAS),
+# which moves each gradient by ~2e-6 of its norm after 8 layers; allow
+# 1e-4 of the norm per parameter and 1e-5 relative on the loss.
 GRAD_RTOL = 1e-4
 LOSS_RTOL = 1e-5
 
@@ -616,12 +739,33 @@ def _ms_text(ms, spec=".3f"):
     return "not measured" if ms is None else format(ms, spec)
 
 
+def _sdpa_backend(run):
+    """The first SDPA backend (flash, memory-efficient, cuDNN, math) that
+    runs ``run`` on its f32 inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+             "MATH")
+    for backend in (getattr(SDPBackend, n) for n in names
+                    if hasattr(SDPBackend, n)):
+        try:  # a backend that refuses f32 warns, then raises
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                run()
+                torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return backend
+    raise RuntimeError("no SDPA backend ran f32 attention")
+
+
 def _sdpa_backward_ms(F, q, k, v, do):
     """(ms, backend) of the backward of F.scaled_dot_product_attention
     (is_causal) on these inputs: forward + backward minus the forward
     alone, with the backend pinned to the first that takes f32."""
     import torch
-    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention import sdpa_kernel
 
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
 
@@ -631,22 +775,11 @@ def _sdpa_backward_ms(F, q, k, v, do):
     def fwd_bwd():
         torch.autograd.grad(fwd(), leaves, do)
 
-    names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
-             "MATH")
-    for backend in (getattr(SDPBackend, n) for n in names
-                    if hasattr(SDPBackend, n)):
-        try:  # a backend that refuses f32 warns, then raises
-            with warnings.catch_warnings(), sdpa_kernel(backend):
-                warnings.simplefilter("ignore")
-                fwd_bwd()
-                torch.cuda.synchronize()
-        except RuntimeError:
-            continue
-        with sdpa_kernel(backend):
-            total = _cuda_ms(fwd_bwd, iters=10)
-            forward = _cuda_ms(fwd, iters=10)
-        return total - forward, backend.name
-    raise RuntimeError("no SDPA backend ran f32 attention")
+    backend = _sdpa_backend(fwd_bwd)
+    with sdpa_kernel(backend):
+        total = _cuda_ms(fwd_bwd, iters=10)
+        forward = _cuda_ms(fwd, iters=10)
+    return total - forward, backend.name
 
 
 def transformer_train_flops(bs, T, d, n_layers, vocab, d_ff=None):
@@ -1459,6 +1592,9 @@ def main():
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--forward-only", action="store_true",
+                        help="build the kernels and run only phase 3 (the "
+                             "flash forward kernel); prints no ok line")
     parser.add_argument("--backward-only", action="store_true",
                         help="build the kernels and run only phase 5 (the "
                              "flash backward kernels); prints no ok line")
@@ -1493,8 +1629,14 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_ms_simt", "library_ms")
-    if args.backward_only or args.conv_only:
-        if args.backward_only:
+    if args.forward_only or args.backward_only or args.conv_only:
+        if args.forward_only:
+            recs = [kernel_phase(gpu)]
+            out = ROOT / "chiprun_out"
+            out.mkdir(exist_ok=True)
+            (out / "chip_smoke_forward.json").write_text(json.dumps(
+                {"gpu": smi, "kernels": recs}, indent=1))
+        elif args.backward_only:
             recs = backward_kernel_phase(gpu)
         else:
             import paddle_tpu_torch as pt

@@ -17,8 +17,10 @@
 //   dv = p^T . dO,  dk = sm_scale * ds^T . q      (dkv kernel)
 //
 // q, dO [BH, Tq, D]; k, v [BH, Tk, D]; lse, Di [BH, Tq] f32; len [BH]
-// int32 -> dq [BH, Tq, D], dk/dv [BH, Tk, D]. D is 64 or 128. Queries
-// count from position 0 for both Tq and Tk, as in the forward.
+// int32 -> dq [BH, Tq, D], dk/dv [BH, Tk, D]. D is 64 or 128: the
+// wrapper zero-pads any other D <= 128 up to one of them (zero columns
+// change no score and give zero gradient columns). Queries count from
+// position 0 for both Tq and Tk, as in the forward.
 //
 // Layout on the card, and why it differs from the TPU kernels:
 // - dq: one block of 8 warps per (bh, 128-row q tile). Each warp owns 16
@@ -29,7 +31,9 @@
 //   the first one that can see the tile. A warp computes S^T = K Q^T there,
 //   so that its k rows are the MMA's M dimension. The TPU walks both loops
 //   as a sequential grid axis; here each is a loop inside the block, and
-//   the accumulators (dq, or dk and dv) stay in registers.
+//   the accumulators (dq, or dk and dv) stay in registers. The grid puts
+//   bh on x (up to 2^31 - 1) and the tiles on y, heaviest causal tiles
+//   first.
 // - Tiles past the row's K length, and tiles wholly above the causal
 //   diagonal, are never loaded; a warp whose 16 rows a tile cannot reach
 //   skips its products. Ragged edges (T not a multiple of the tile) are
@@ -84,7 +88,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tf32x3.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace {
 
@@ -117,120 +121,7 @@ template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const float* __restrict__ src,
                                           int row0, int T) {
-  constexpr int V4 = D / 4;
-  static_assert(ROWS * V4 % NTHREADS == 0, "tile must split evenly");
-#pragma unroll
-  for (int i = 0; i < ROWS * V4 / NTHREADS; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    const int r = idx / V4;
-    const int c = (idx % V4) * 4;
-    const bool in = row0 + r < T;
-    cp_async16(dst + r * Smem<D>::ST + c,
-               src + (in ? (size_t)(row0 + r) * D + c : 0), in);
-  }
-}
-
-// --- 3xTF32 on m16n8k8 ------------------------------------------------------
-
-struct FragA {  // 16 x 8, row-major: rows g, g+8; columns t, t+4
-  uint32_t hi[4], lo[4];
-};
-struct FragB {  // 8 x 8, column-major: rows (k) t, t+4; column g
-  uint32_t hi[2], lo[2];
-};
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in f32 accuracy: a_lo b_hi + a_hi b_lo + a_hi b_hi
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
-                                     const FragB& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// A = tile[r0 .. r0+16, c0 .. c0+8] of a shared tile (row stride ST)
-template <int ST>
-__device__ __forceinline__ FragA load_a(const float* s, int r0, int c0,
-                                        int g, int t) {
-  const float* p = s + (r0 + g) * ST + c0 + t;
-  FragA f;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[8 * ST], f.hi[1], f.lo[1]);
-  split(p[4], f.hi[2], f.lo[2]);
-  split(p[8 * ST + 4], f.hi[3], f.lo[3]);
-  return f;
-}
-
-// B[k][n] = tile[n0 + n][k0 + k]: the tile's rows are B's columns (the
-// K of Q K^T, the V of dO V^T, the Q of K Q^T, the dO of V dO^T)
-template <int ST>
-__device__ __forceinline__ FragB load_b_t(const float* s, int n0, int k0,
-                                          int g, int t) {
-  const float* p = s + (n0 + g) * ST + k0 + t;
-  FragB f;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[4], f.hi[1], f.lo[1]);
-  return f;
-}
-
-// B[k][n] = tile[k0 + perm(k)][n0 + n], perm = {0, 2, 4, 6, 1, 3, 5, 7}:
-// the tile's rows are B's rows, in the k order of an A made by a_from_c
-template <int ST>
-__device__ __forceinline__ FragB load_b_perm(const float* s, int k0, int n0,
-                                             int g, int t) {
-  const float* p = s + (k0 + 2 * t) * ST + n0 + g;
-  FragB f;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[ST], f.hi[1], f.lo[1]);
-  return f;
-}
-
-// The f32 C fragment of an 8-column tile (rows g, g+8; columns 2t, 2t+1)
-// as a tf32 A fragment over k permuted by perm: no data moves between lanes
-__device__ __forceinline__ FragA a_from_c(const float (&c)[4]) {
-  FragA f;
-  split(c[0], f.hi[0], f.lo[0]);
-  split(c[2], f.hi[1], f.lo[1]);
-  split(c[1], f.hi[2], f.lo[2]);
-  split(c[3], f.hi[3], f.lo[3]);
-  return f;
-}
-
-// acc[n] += A(c) * tile[perm rows, 8n .. 8n+8], this tile's NT k-steps
-// summed in a fresh accumulator and then added in f32. The tensor cores'
-// f32 accumulation does not round to nearest, so one mma chain through
-// all of T drifts: at T = 2048 it moved dv by 2.5e-5 of its size. The
-// fresh accumulators go GROUP n-tiles at a time, so that GROUP mma
-// chains are in flight at once without 4 * D/8 more registers.
-template <int D>
-__device__ __forceinline__ void accumulate(float (&acc)[D / 8][4],
-                                           const float (&c)[NT][4],
-                                           const float* tile, int g, int t) {
-  constexpr int GROUP = 4;
-  FragA a[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) a[j] = a_from_c(c[j]);
-#pragma unroll
-  for (int n0 = 0; n0 < D / 8; n0 += GROUP) {
-    float part[GROUP][4] = {};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int n = 0; n < GROUP; ++n)
-        mma3(part[n], a[j],
-             load_b_perm<Smem<D>::ST>(tile, j * 8, (n0 + n) * 8, g, t));
-#pragma unroll
-    for (int n = 0; n < GROUP; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n0 + n][e] += part[n][e];
-  }
+  load_rows<D, Smem<D>::ST, ROWS, NTHREADS>(dst, src, row0, T);
 }
 
 // s = A0 B0^T, dp = A1 B1^T over D for a warp's 16 rows r0.. of the
@@ -278,9 +169,10 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
   const int warp = threadIdx.x / 32;
   const int g = (threadIdx.x % 32) >> 2;
   const int t = threadIdx.x & 3;
-  // causal blocks with high q tiles do the most work: schedule them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BOWN;
-  const int bh = blockIdx.y;
+  // batch*head on grid x (up to 2^31 - 1), q tiles on y; causal blocks
+  // with high q tiles do the most work: schedule them first
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BOWN;
   const size_t qoff = (size_t)bh * Tq * D;
   const size_t koff = (size_t)bh * Tk * D;
 
@@ -346,7 +238,7 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
           const float p = live ? expf(s[j][e] * sm_scale - lse_r[h]) : 0.f;
           s[j][e] = p * (dp[j][e] - di_r[h]);
         }
-      accumulate<D>(acc, s, ks, g, t);  // dq += dS K
+      accumulate<ST>(acc, s, ks, g, t);  // dq += dS K
     }
     __syncthreads();  // every warp is done with this stage
   }
@@ -385,8 +277,10 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
   const int warp = threadIdx.x / 32;
   const int g = (threadIdx.x % 32) >> 2;
   const int t = threadIdx.x & 3;
-  const int k0 = blockIdx.x * BOWN;
-  const int bh = blockIdx.y;
+  // batch*head on grid x, k tiles on y: the low k tiles, which causal
+  // queries see most, come first
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BOWN;
   const size_t qoff = (size_t)bh * Tq * D;
   const size_t koff = (size_t)bh * Tk * D;
 
@@ -456,8 +350,8 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
           ds[j][e] = pe * (ds[j][e] - di_s[c]);
           p[j][e] = pe;
         }
-      accumulate<D>(dv_acc, p, dos, g, t);  // dv += P^T dO
-      accumulate<D>(dk_acc, ds, qs, g, t);  // dk += dS^T Q
+      accumulate<ST>(dv_acc, p, dos, g, t);  // dv += P^T dO
+      accumulate<ST>(dk_acc, ds, qs, g, t);  // dk += dS^T Q
     }
     __syncthreads();
   }
@@ -487,7 +381,7 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
       flash_bwd_dq_tf32x3_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + BOWN - 1) / BOWN, BH);
+  const dim3 grid(BH, (Tq + BOWN - 1) / BOWN);
   flash_bwd_dq_tf32x3_kernel<D><<<grid, NTHREADS, smem_bytes, stream>>>(
       q, k, v, dout, lse, di, lens, dq, Tq, Tk, causal, sm_scale);
   return cudaGetLastError();
@@ -504,7 +398,7 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
       flash_bwd_dkv_tf32x3_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tk + BOWN - 1) / BOWN, BH);
+  const dim3 grid(BH, (Tk + BOWN - 1) / BOWN);
   flash_bwd_dkv_tf32x3_kernel<D><<<grid, NTHREADS, smem_bytes, stream>>>(
       q, k, v, dout, lse, di, lens, dk, dv, Tq, Tk, causal, sm_scale);
   return cudaGetLastError();

@@ -1,6 +1,6 @@
 // Pieces shared by the port's f32-accurate tensor-core kernels
-// (flash_attention_bwd.cu, conv_epilogue.cu): cp.async tile copies and the
-// 3xTF32 operand split.
+// (conv_epilogue.cu, and the flash kernels through mma_tf32x3.cuh):
+// cp.async tile copies and the 3xTF32 operand split.
 #pragma once
 
 #include <cuda_runtime.h>

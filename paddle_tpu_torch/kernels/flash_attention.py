@@ -4,10 +4,10 @@ Counterpart of ``paddle_tpu/kernels/flash_attention.py``. The TPU kernels
 it replaces, each launched through ``pl.pallas_call``:
 
 - ``_flash_kernel`` (``_flash_forward``) -> ``csrc/flash_attention_fwd.cu``:
-  one thread block per (batch*head, 64-row q tile) loops over 64-row K/V
-  tiles kept in shared memory, carrying the softmax max, denominator and
-  output accumulator in f32, so the [T, T] scores never reach device
-  memory. It also returns the logsumexp the backward needs.
+  one thread block per (batch*head, 128-row q tile) walks the K/V tiles
+  through a shared-memory ring, carrying the softmax max, denominator and
+  output accumulator in f32 registers, so the [T, T] scores never reach
+  device memory. It also returns the logsumexp the backward needs.
 - ``_flash_dq_kernel`` and ``_flash_dkv_kernel`` (``_flash_backward``) ->
   ``csrc/flash_attention_bwd.cu``: the dq kernel keeps one 128-row q tile
   (Q, dO, lse, Di) and walks the K/V tiles; the dkv kernel keeps one
@@ -21,12 +21,19 @@ D64) the forward does ~17 GFLOP on ~134 MB, and at the training shape
 (B8 H8 T2048 D128) dq and dkv do 103 and 137 GFLOP on ~0.4 GB, all far
 above the card's FLOP:byte ridge, so every kernel is bound by
 operations. The path is f32 (``_attn_proj`` casts qkv back to the hidden
-dtype). The forward uses f32 FMA on CUDA cores. The backward pair runs
-every product on the tensor cores as 3xTF32 ``mma.sync`` (each operand
-split into two tf32 parts, three products summed in f32: f32 accuracy at
-up to 165 TFLOP/s), fed by ``cp.async`` tile copies. All of them skip
-causal tiles above the diagonal and tiles past a row's K length, and
+dtype). All three kernels run every product on the tensor cores as 3xTF32
+(each operand split into two tf32 parts, three products summed in f32:
+f32 accuracy at up to 165 TFLOP/s): the forward's S = QK^T on ``wgmma``
+from shared memory, every other product on ``mma.sync``, fed by
+asynchronous tile copies; the forward's softmax and P stay in
+registers. All of them
+skip causal tiles above the diagonal and tiles past a row's K length, and
 mask the ragged edge in the kernel instead of padding to 128 lanes.
+
+The kernels are built for head dims 64 and 128; on a CUDA tensor the
+wrappers zero-pad any other head dim up to 128 to the next of them and
+slice the outputs back (``_at_kernel_head_dim``), with ``sm_scale`` from
+the true head dim. Any batch*heads is taken (it is the grid's x axis).
 
 ``flash_attention`` is differentiable (``_FlashAttention``). Every
 wrapper dispatches on the tensor's device: a CPU tensor runs the plain
@@ -234,14 +241,47 @@ def _aligned(t):
     return t.clone() if t.data_ptr() % 16 else t
 
 
+# the head dims the kernels are built for; the wrappers pad up to them
+KERNEL_HEAD_DIMS = (64, 128)
+# q/k tiles per block of the kernels, on the grid's y axis (limit 65535)
+_MAX_T = 65535 * 128
+
+
+def _kernel_head_dim(D):
+    """The kernel instance that takes head dim D: the smallest of
+    ``KERNEL_HEAD_DIMS`` that is >= D."""
+    for kd in KERNEL_HEAD_DIMS:
+        if 1 <= D <= kd:
+            return kd
+    raise ValueError(
+        f"flash kernels take head_dim 1..{KERNEL_HEAD_DIMS[-1]} (zero-padded "
+        f"to {' or '.join(map(str, KERNEL_HEAD_DIMS))}), got {D}: the JAX "
+        "package's kernels take any head_dim, the port's do not yet")
+
+
+def _at_kernel_head_dim(fn, *tensors):
+    """``fn(*tensors)`` at the kernel's head dim: every [B, H, T, D] tensor
+    zero-padded along D to ``_kernel_head_dim(D)``, every 4-D output
+    sliced back to D. Zero columns change no score (q.k), add zero
+    columns to o, dq, dk and dv, and leave lse and Di as they are; the
+    caller passes ``sm_scale`` from the true D."""
+    D = tensors[0].shape[-1]
+    pad = _kernel_head_dim(D) - D
+    if not pad:
+        return fn(*tensors)
+    out = fn(*(torch.nn.functional.pad(t, (0, pad)) for t in tensors))
+    if isinstance(out, torch.Tensor):
+        return out[..., :D]
+    return tuple(t[..., :D] if t.ndim == 4 else t for t in out)
+
+
 def _check_kernel_inputs(q, k, v, *more):
     """What every flash kernel takes, checked before anything is built:
-    f32 [B, H, T, D] q/k/v with D 64 or 128 and K/V heads expanded, on
-    one device; ``more`` are tensors that must match q's shape (o, dO)."""
+    f32 [B, H, T, D] q/k/v with D <= 128 and K/V heads expanded, on one
+    device; ``more`` are tensors that must match q's shape (o, dO)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    if D not in (64, 128):
-        raise ValueError(f"flash kernel takes head_dim 64 or 128, got {D}")
+    _kernel_head_dim(D)
     tensors = (q, k, v) + more
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("flash kernel takes float32 tensors, got "
@@ -255,8 +295,9 @@ def _check_kernel_inputs(q, k, v, *more):
                          f"not match q {tuple(q.shape)}")
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash kernel inputs must lie on one CUDA device")
-    if B * H > 65535:
-        raise ValueError(f"batch*heads {B * H} exceeds the grid's y limit")
+    if max(Tq, Tk) > _MAX_T:
+        raise ValueError(f"sequence length {max(Tq, Tk)} exceeds the grid's "
+                         f"y limit ({_MAX_T})")
 
 
 def _lens_bh(lengths, B, H, Tk, dev):
@@ -277,6 +318,12 @@ def _raise_on(lib, err, what):
 
 def _launch(q, k, v, lengths, causal, sm_scale):
     _check_kernel_inputs(q, k, v)
+    return _at_kernel_head_dim(
+        lambda q, k, v: _launch_fwd(q, k, v, lengths, causal, sm_scale),
+        q, k, v)
+
+
+def _launch_fwd(q, k, v, lengths, causal, sm_scale):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     lib, fn = _bind(_LIB, "paddle_flash_attention_fwd_f32", 6)
@@ -327,21 +374,29 @@ def _launch_bwd(fn_name, n_ptrs, outs, q, k, v, lse, di, do, lengths,
 
 def _launch_dq(q, k, v, lse, di, do, lengths, causal, sm_scale):
     _check_backward_inputs(q, k, v, lse, di, do)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_bwd("paddle_flash_attention_bwd_dq_f32", 8, (dq,), q, k, v, lse,
-                di, do, lengths, causal, sm_scale)
-    flash_backward.dq_launches += 1
-    return dq
+
+    def launch(q, k, v, do):
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _launch_bwd("paddle_flash_attention_bwd_dq_f32", 8, (dq,), q, k, v,
+                    lse, di, do, lengths, causal, sm_scale)
+        flash_backward.dq_launches += 1
+        return dq
+
+    return _at_kernel_head_dim(launch, q, k, v, do)
 
 
 def _launch_dkv(q, k, v, lse, di, do, lengths, causal, sm_scale):
     _check_backward_inputs(q, k, v, lse, di, do)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_bwd("paddle_flash_attention_bwd_dkv_f32", 9, (dk, dv), q, k, v,
-                lse, di, do, lengths, causal, sm_scale)
-    flash_backward.dkv_launches += 1
-    return dk, dv
+
+    def launch(q, k, v, do):
+        dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+        dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+        _launch_bwd("paddle_flash_attention_bwd_dkv_f32", 9, (dk, dv), q, k,
+                    v, lse, di, do, lengths, causal, sm_scale)
+        flash_backward.dkv_launches += 1
+        return dk, dv
+
+    return _at_kernel_head_dim(launch, q, k, v, do)
 
 
 def _plain_device(t):
@@ -402,15 +457,21 @@ def flash_backward(q, k, v, o, lse, do, lengths=None, causal=False,
     launches."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
-    if not _plain_device(q):  # refuse before any work, as _launch does
-        _check_kernel_inputs(q, k, v, o, do)
+    if _plain_device(q):
+        return flash_attention_backward_reference(q, k, v, o, lse, do,
+                                                  lengths, causal, sm_scale)
+    _check_kernel_inputs(q, k, v, o, do)  # refuse before any work
+
+    def kernels(q, k, v, o, do):  # padded once for both kernels
         # dO arrives through transpose(1, 2).reshape(...): copy it (and
         # any unaligned input) once for both kernels
         q, k, v, do = (_aligned(t) for t in (q, k, v, do))
-    di = _row_dot(do, o)
-    dq = flash_dq(q, k, v, lse, di, do, lengths, causal, sm_scale)
-    dk, dv = flash_dkv(q, k, v, lse, di, do, lengths, causal, sm_scale)
-    return dq, dk, dv
+        di = _row_dot(do, o)
+        return (_launch_dq(q, k, v, lse, di, do, lengths, causal, sm_scale),
+                *_launch_dkv(q, k, v, lse, di, do, lengths, causal,
+                             sm_scale))
+
+    return _at_kernel_head_dim(kernels, q, k, v, o, do)
 
 
 flash_backward.dq_launches = 0
