@@ -5,6 +5,7 @@
     python3 chip_smoke.py --forward-only    # phases 1, 2 and 3 only
     python3 chip_smoke.py --backward-only   # phases 1, 2 and 5 only
     python3 chip_smoke.py --conv-only       # phases 1, 2 and 8 only
+    python3 chip_smoke.py --paged-only      # phases 1, 2 and 4b only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -17,10 +18,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
    with a fully masked row, a D=128 case and the LM training shape (B8
    H8 T2048 D128 causal); at head dims the kernels take zero-padded (16,
    32, 96) and at 70400 batch*heads (past a grid's y limit), the forward
-   and both backward kernels, each with a fully masked row. Two launches
-   at the training shape must be bitwise equal. Prints the forward's
+   and both backward kernels, each with a fully masked row; head dims
+   past 128 (the wide instance: D160 and D256 causal with a fully masked
+   row, one D512 case). Two launches at the training shape, and two at
+   B2 H4 T1000 D256, must be bitwise equal. Prints the forward's
    registers, spills, shared memory and tensor-core opcodes (SASS), then
-   times it at the serving and training shapes in turns with
+   times it at the serving, training and D256 shapes in turns with
    ``F.scaled_dot_product_attention``'s f32 forward (its backend pinned
    and recorded: kernel, library, library, kernel), with profiler device
    time beside event time, the plain version and the roofline bound.
@@ -31,10 +34,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
    prefill went through the flash kernel (launches == layers x
    prefills), and that the served tokens match the plain path on the
    card.
+4b. Paged serving: the same LM through the paged engine (the JAX
+   package's default; 8 slots, pages of 64, the default prefill chunk,
+   prefix sharing) and ``Server``: 16 requests of 700-1024 prompt tokens,
+   8 behind one 512-token system prompt, the last a repeat of the first,
+   half greedy and half sampled (temperature 0.8, top-k 50, top-p 0.95,
+   fixed seeds). Checks every result, zero dispatch errors, prefix hits
+   and a copy-on-write copy, every page back in the pool, that every
+   decode step was a replay of the captured CUDA graph and that none of
+   the six kernels ran, greedy tokens equal to the dense engine's,
+   sampled requests served alone equal to themselves, and over 32 ticks
+   of a full batch the replayed step equal to the eager step (tokens and
+   pools bitwise). Prints tok/s, prefill and decode-step ms (replayed,
+   eager), TTFT p50, the KV pool's bytes and the step's byte floor.
 5. Backward kernels: the flash dq and dkv kernels against their plain
    versions at the training shape (B8 H8 T2048 D128 causal), the serving
-   shape and a ragged case with a fully masked row; two launches of each
-   at the training shape must be bitwise equal (no atomics). Prints each
+   shape, a ragged case with a fully masked row and the wide-head cases
+   of phase 3; two launches of each at the training shape and at B2 H4
+   T1000 D256 must be bitwise equal (no atomics). Prints each
    kernel's registers, spills and shared memory, then times them beside
    their plain versions and their bounds, and the pair in turns with the
    backward of ``F.scaled_dot_product_attention`` (its backend pinned
@@ -218,6 +235,21 @@ PAD_CASES = [
     (4400, 16, 24, 16, True, [24 - b % 25 for b in range(4400)]),
 ]
 
+# head dims past 128, run by the wide instances (D zero-padded to a
+# multiple of 64, outputs in 128-column slices on the grid's z axis):
+# causal with a fully masked row at D160 and D256, and one D = 512 case.
+# Phase 3 holds the forward, phase 5 dq and dkv against their plain
+# versions; both check two launches bitwise equal and time D256 (WIDE_TIMED)
+WIDE_CASES = [
+    (2, 4, 1000, 160, True, [1000, 0]),
+    (2, 4, 1000, 256, True, [1000, 0]),
+    (2, 2, 300, 512, False, [300, 0]),
+]
+WIDE_TIMED = (2, 4, 1000, 256, True, None)
+# a head dim of the wide instances, to look up their shared memory (the
+# same at every D)
+WIDE_D = 256
+
 
 def _case_text(B, H, T, D, causal, lengths):
     lens = (lengths if lengths is None or len(lengths) <= 8 else
@@ -242,7 +274,7 @@ def kernel_phase(gpu_name):
         return torch.randn(*shape, device="cuda", generator=gen)
 
     errs, bwd_errs = [], []
-    for case in FWD_CASES + PAD_CASES:
+    for case in FWD_CASES + PAD_CASES + WIDE_CASES:
         B, H, T, D, causal, lengths = case
         q, k, v = (randn(B, H, T, D) for _ in range(3))
         lens = None if lengths is None else torch.tensor(lengths,
@@ -282,16 +314,29 @@ def kernel_phase(gpu_name):
     print(f"flash_attention_fwd B{B} H{H} T{T} D{D} causal: two launches "
           f"are bitwise equal")
     del q, k, v, first, second
+    B, H, T, D, causal, _ = WIDE_TIMED
+    q, k, v = (randn(B, H, T, D) for _ in range(3))
+    first, second = (fa.flash_forward(q, k, v, None, True) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+        "two wide flash forward launches on the same inputs differ")
+    print(f"flash_attention_fwd (wide) B{B} H{H} T{T} D{D} causal: two "
+          f"launches are bitwise equal")
+    del q, k, v, first, second
     usage = _forward_kernel_usage()
     assert not any(u.get("spill_store_bytes") or u.get("spill_load_bytes")
                    for u in usage.values()), f"the forward spills: {usage}"
     sass = _sass_counts("flash_attention_fwd", "flash_fwd")
     for key, counts in sass.items():
+        if "wide" in key:  # the wide instance's products are f32 FMA
+            assert counts["FFMA"] > 0, f"{key} has no FFMA: {counts}"
+            continue
         assert counts["HMMA"] + counts["HGMMA"] > 0, (
             f"{key} runs no product on the tensor cores: {counts}")
 
     timed = {name: _time_forward(F, fa, randn, gpu_name, *FWD_CASES[i])
              for name, i in (("serving", 0), ("training", 3))}
+    timed["wide"] = _time_forward(F, fa, randn, gpu_name, *WIDE_TIMED)
     serve = timed["serving"]
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -305,7 +350,8 @@ def kernel_phase(gpu_name):
         "library_ms": serve["library_ms"], "library": serve["library"],
         "shape": serve["shape"], "gflop": serve["gflop"],
         "mbytes": serve["mbytes"], "training_shape": timed["training"],
-        "serving_shape": serve, "ptxas": usage, "sass": sass,
+        "serving_shape": serve, "wide_shape": timed["wide"],
+        "ptxas": usage, "sass": sass,
     }
 
 
@@ -361,7 +407,8 @@ def _forward_kernel_usage():
     lib = build.load("flash_attention_fwd")
     smem = lib.paddle_flash_attention_fwd_smem_bytes
     return _kernel_usage("flash_attention_fwd",
-                         lambda name, args: smem(args[0]), match="flash_fwd")
+                         lambda name, args: smem(args[0] if args else WIDE_D),
+                         match="flash_fwd")
 
 
 def serving_phase(record, gpu_name):
@@ -479,6 +526,278 @@ def serving_phase(record, gpu_name):
     return serving
 
 
+# The paged serving configuration: phase 4's LM at full width, 8 slots,
+# a context of max_len 2048, pages of 64 tokens, the default
+# prefill_chunk (128), prefix sharing on. Traffic: 16 requests of
+# 700-1024 prompt tokens, 8 of them behind one shared 512-token system
+# prompt (8 pages), the last one a repeat of the first (a full-prefix hit:
+# copy-on-write), 32-128 new tokens, half greedy and half sampled with
+# fixed seeds.
+PAGED = dict(slots=8, page_size=64)
+PAGED_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+PAGED_TICKS = 32  # full-batch ticks where the replayed step meets eager
+
+
+def _drive(engine, requests):
+    """Admit into free slots as they open and tick until every request
+    is done (any engine; the paged one streams prefill chunks)."""
+    pending = list(requests)
+    paged = hasattr(engine, "prefill_tick")
+    while pending or engine.active or (paged and engine._deferred):
+        k = min(len(pending), engine.free_slots)
+        if k:
+            engine.admit(pending[:k])
+            pending = pending[k:]
+        if paged:
+            engine.prefill_tick()
+        engine.decode_tick()
+    return [r.future.result(timeout=1) for r in requests]
+
+
+def _paged_traffic(vocab):
+    """(prompts, horizons, per-request sampling meta) of the paged wave;
+    request 15 repeats request 0."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 7)
+    system = rng.randint(0, vocab, 512)
+    prompts, metas = [], []
+    for i in range(15):
+        n = int(rng.randint(700, 1025))
+        prompts.append(np.concatenate([system, rng.randint(0, vocab, n - 512)])
+                       if i % 2 == 0 else rng.randint(0, vocab, n))
+        # sampled: 1, 2, 5, 6, 9, 10, 13, 14; greedy: the rest and 15
+        metas.append(dict(PAGED_SAMPLING, seed=1000 + i)
+                     if i % 4 in (1, 2) else {})
+    prompts = [p.astype(np.int64) for p in prompts] + [prompts[0]]
+    horizons = [int(h) for h in rng.randint(32, 129, 15)]
+    return prompts, horizons + [horizons[0]], metas + [{}]
+
+
+def _replay_against_eager(eng, spec, vocab, peak_bw):
+    """A full batch decoding for PAGED_TICKS ticks; each tick runs the
+    eager step from a saved copy of the pools, then the replayed step from
+    the same pools: equal tokens and bitwise-equal pools (every row decodes
+    at its own (page, row), so no write order is left to the card).
+    Returns the two steps' host times, the replay's device time and the
+    step's byte floor."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.serving import Request
+
+    rng = np.random.RandomState(SEED + 8)
+    reqs = [Request({"prompt": rng.randint(0, vocab, int(rng.randint(
+        700, 1025))).astype(np.int64)}, dict(
+            {"max_new_tokens": PAGED_TICKS + 8},
+            **(dict(PAGED_SAMPLING, seed=2000 + i) if i % 2 else {})), None)
+        for i in range(eng.slots)]
+    assert eng.admit(reqs) == eng.slots
+    while eng.prefilling:
+        eng.prefill_tick()
+    weights = 4.0 * sum(p.numel() for n, p in eng.model.named_parameters()
+                        if n not in ("tok_emb", "pos_emb"))
+    kv_token = 2.0 * spec.n_layers * spec.kv_heads * spec.head_dim * 4
+    replay_ms, eager_ms, kv_bytes = [], [], []
+    for _ in range(PAGED_TICKS):
+        decoding = [s for s in range(eng.slots) if eng._slots[s] is not None
+                    and eng._slots[s].state == "decode"]
+        assert len(decoding) == eng.slots, "the batch is not full"
+        eng._cow_guard(decoding)
+        feed = eng._decode_feed()
+        kv_bytes.append(kv_token * float(sum(feed["pos"] + 1)))
+        k0, v0 = eng.cache_k.clone(), eng.cache_v.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager = eng._decode_step_eager(feed)
+        t1 = time.perf_counter()
+        ke, ve = eng.cache_k.clone(), eng.cache_v.clone()
+        eng.cache_k.copy_(k0)
+        eng.cache_v.copy_(v0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        replayed = eng._decode_step_replay(feed)
+        t3 = time.perf_counter()
+        eager_ms.append((t1 - t0) * 1e3)
+        replay_ms.append((t3 - t2) * 1e3)
+        assert np.array_equal(replayed, eager), (replayed, eager)
+        assert torch.equal(eng.cache_k, ke) and torch.equal(eng.cache_v, ve), (
+            "the replayed step's pools differ from the eager step's")
+        for slot in decoding:
+            eng._pos[slot] += 1
+            eng._tok[slot] = replayed[slot]
+            eng._emit(slot, int(replayed[slot]))
+        del k0, v0, ke, ve
+    # the captured step alone on the card (its inputs unchanged: the
+    # replays rewrite the same K/V rows and pick the same tokens), and
+    # its kernels by name
+    device_ms = _cuda_ms(eng._graph.replay, iters=20)
+    profile = _profile_step(
+        eng._graph.replay, "paged_decode_profile.txt",
+        # the page gathers (advanced indexing), cuBLAS, the sampler's
+        # sorts, torch's other kernels
+        groups=("index", "gemm", "gemv", "sort", "softmax", "reduce",
+                "elementwise"))
+    while eng.active:
+        eng.decode_tick()
+    for r in reqs:
+        assert r.future.result(timeout=1).size > 0
+    floor = (weights + float(np.mean(kv_bytes))) / peak_bw * 1e3
+    return {"ticks": PAGED_TICKS, "replay_ms": replay_ms,
+            "eager_ms": eager_ms,
+            "replay_ms_median": float(np.median(replay_ms)),
+            "eager_ms_median": float(np.median(eager_ms)),
+            "replay_device_ms": device_ms, "replay_profile": profile,
+            "weight_bytes": weights,
+            "kv_in_flight_bytes_mean": float(np.mean(kv_bytes)),
+            "step_floor_ms": floor, "tokens_and_pools_equal": True}
+
+
+def paged_serving_phase(gpu_name):
+    """Phase 4b: the paged engine (the JAX package's default) at full
+    width through Server, every check of the issue fatal."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import init_params
+    from paddle_tpu_torch.decoding import SamplingParams
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    from paddle_tpu_torch.serving import (GenerationEngine, LMSpec,
+                                          PagedGenerationEngine, Request,
+                                          Server)
+
+    peak_bw = _peaks(gpu_name)[1]
+    spec = LMSpec(vocab_size=16384, d_model=1024, n_layers=8, num_heads=16,
+                  max_len=2048)
+    t0 = time.perf_counter()
+    model = TransformerLM(spec, device="cuda")
+    model.load_jax_params(init_params(spec, SEED))
+    eng = GenerationEngine(spec, model, device="cuda", **PAGED)
+    assert isinstance(eng, PagedGenerationEngine), type(eng)
+    t1 = time.perf_counter()
+    combos = eng.warmup()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    assert eng.cache_stats()["decode_graph_captures"] == 1
+    print(f"paged: weights {t1 - t0:.2f} s, warmup {combos} shapes and the "
+          f"decode graph's capture {t2 - t1:.2f} s; pool {eng.n_pages} pages "
+          f"of {eng.page_size}, table width {eng.pmax}, prefill_chunk "
+          f"{eng.prefill_chunk}")
+
+    prompts, horizons, metas = _paged_traffic(spec.vocab_size)
+    # the six kernels' counts: the paged path runs none of them
+    _reset_launch_counts(fa)
+    _reset_conv_counts(ke)
+    replays0 = eng.metrics.counter("decode_graph_replays")
+    srv = Server([eng]).start()
+    try:
+        t3 = time.perf_counter()
+        futs = [srv.submit({"prompt": p}, max_new_tokens=h, **m)
+                for p, h, m in zip(prompts[:15], horizons[:15], metas[:15])]
+        first = futs[0].result(timeout=600)  # cached whole, tail included
+        futs.append(srv.submit({"prompt": prompts[15]},
+                               max_new_tokens=horizons[15], **metas[15]))
+        results = [first] + [f.result(timeout=600) for f in futs[1:]]
+        t4 = time.perf_counter()
+    finally:
+        srv.stop()
+    launches = _launch_counts(fa) + _conv_counts(ke)
+    snap = srv.metrics_snapshot()
+    counters = snap["counters"]
+    replays = eng.metrics.counter("decode_graph_replays") - replays0
+    for p, h, r in zip(prompts, horizons, results):
+        assert r.shape == (p.size + h,), (r.shape, p.size, h)
+        assert np.array_equal(r[:p.size], p)
+        assert ((r >= 0) & (r < spec.vocab_size)).all()
+    assert counters.get("dispatch_errors", 0) == 0, counters
+    assert counters["completed"] == len(prompts), counters
+    assert counters.get("bad_requests", 0) == 0, counters
+    assert counters["prefix_hit_tokens"] > 0, counters
+    assert counters["kv_cow_copies"] >= 1, counters
+    assert np.array_equal(results[15], results[0]), "the repeat differs"
+    assert not any(launches), f"the paged path launched a kernel: {launches}"
+    assert replays == counters["decode_steps"] > 0, (replays, counters)
+    stats = eng.pool.stats()
+    assert eng.pool.pages_in_use() == len(eng.prefix_index), stats
+    assert stats["shared"] == 0 and stats["reserved"] == 0, stats
+    eng.prefix_index.clear()
+    assert eng.pool.pages_in_use() == 0, eng.pool.stats()
+    print(f"paged: 16 requests served; prefix hits {counters['prefix_hits']} "
+          f"({counters['prefix_hit_tokens']} tokens), copy-on-write copies "
+          f"{counters['kv_cow_copies']}, every page back in the pool; "
+          f"{replays} decode steps, all replayed; the six kernels "
+          f"launched {sum(launches)} times")
+
+    lat = snap["latency"]
+    gen_tokens = sum(horizons)
+    wave = {
+        "requests": len(prompts),
+        "prompt_tokens": int(sum(p.size for p in prompts)),
+        "generated_tokens": gen_tokens, "wall_s": t4 - t3,
+        "tokens_per_s": gen_tokens / (t4 - t3),
+        "prefills": counters["prefills"],
+        "prefill_chunks": counters.get("prefill_chunks", 0),
+        # every prompt is longer than a chunk: it streams in chunks, and
+        # no group prefill (the "prefill" latency) runs
+        "prefill_ms_mean": lat.get("prefill_ms", {}).get("mean"),
+        "prefill_chunk_ms_mean": lat["prefill_chunk_ms"]["mean"],
+        "prefill_chunk_ms_p50": lat["prefill_chunk_ms"]["p50"],
+        "decode_step_ms_mean": lat["decode_step_ms"]["mean"],
+        "decode_step_ms_p50": lat["decode_step_ms"]["p50"],
+        "decode_steps": counters["decode_steps"],
+        "ttft_ms_p50": snap["hist"]["ttft"]["p50_ms"],
+        "prefix_hit_tokens": counters["prefix_hit_tokens"],
+        "kv_cow_copies": counters["kv_cow_copies"],
+        "kv_pool_bytes": 2.0 * eng.cache_k.numel() * 4,
+        "warmup_s": t2 - t1,
+    }
+
+    # greedy requests against the dense engine on the card
+    greedy = [i for i, m in enumerate(metas) if not m]
+    dense = GenerationEngine(spec, model, slots=8, kv_cache="dense",
+                             device="cuda")
+    want = _drive(dense, [Request({"prompt": prompts[i]},
+                                  {"max_new_tokens": horizons[i]}, None)
+                          for i in greedy])
+    for i, w in zip(greedy, want):
+        assert np.array_equal(results[i], w), f"greedy request {i} differs"
+    del dense
+    # each sampled request alone on a fresh engine: the same tokens
+    solo = GenerationEngine(spec, model, device="cuda", **PAGED)
+    sampled = [i for i, m in enumerate(metas) if m]
+    for i in sampled:
+        alone = solo.generate_all([prompts[i]], max_new_tokens=horizons[i],
+                                  sampling=SamplingParams(**metas[i]))[0]
+        assert np.array_equal(alone, results[i]), f"sampled {i} differs alone"
+    del solo
+    print(f"paged: greedy requests {greedy} equal the dense engine's tokens; "
+          f"sampled requests {sampled} served alone give their tokens")
+
+    step = _replay_against_eager(eng, spec, spec.vocab_size, peak_bw)
+    torch.cuda.empty_cache()
+    wave["decode_step"] = step
+    print(f"paged: {wave['requests']} requests, {wave['prompt_tokens']} "
+          f"prompt tokens, {gen_tokens} generated in {t4 - t3:.3f} s = "
+          f"{wave['tokens_per_s']:.1f} tok/s; prefill chunk mean "
+          f"{wave['prefill_chunk_ms_mean']:.2f} ms over "
+          f"{wave['prefill_chunks']} chunks; decode step mean "
+          f"{wave['decode_step_ms_mean']:.3f} ms (replayed) over "
+          f"{wave['decode_steps']} steps; TTFT p50 "
+          f"{wave['ttft_ms_p50']:.1f} ms; KV pool "
+          f"{wave['kv_pool_bytes'] / 2**30:.2f} GiB")
+    print(f"paged: full batch over {PAGED_TICKS} ticks, replayed = eager "
+          f"(tokens and pools bitwise): step replayed "
+          f"{step['replay_ms_median']:.3f} ms median (device "
+          f"{step['replay_device_ms']:.3f}), eager "
+          f"{step['eager_ms_median']:.3f} ms median; byte floor "
+          f"{step['step_floor_ms']:.3f} ms (weights "
+          f"{step['weight_bytes'] / 1e9:.3f} GB + KV in flight "
+          f"{step['kv_in_flight_bytes_mean'] / 1e9:.3f} GB)")
+    return wave
+
+
 # (B, H, T, D, causal, lengths): the training shape first, then the
 # serving shape and a ragged case with a fully masked row (length 0)
 BWD_CASES = [
@@ -512,7 +831,7 @@ def backward_kernel_phase(gpu_name):
         return torch.randn(*shape, device="cuda", generator=gen)
 
     errs = {"dq": [], "dkv": []}
-    for B, H, T, D, causal, lengths in BWD_CASES:
+    for B, H, T, D, causal, lengths in BWD_CASES + WIDE_CASES:
         q, k, v, do = (randn(B, H, T, D) for _ in range(4))
         lens = None if lengths is None else torch.tensor(lengths,
                                                          device="cuda")
@@ -557,6 +876,7 @@ def backward_kernel_phase(gpu_name):
         del first, second
     print(f"flash_attention_bwd B{B} H{H} T{T} D{D} causal: two launches of "
           f"each kernel are bitwise equal")
+    wide = _time_wide_backward(F, fa, randn, gpu_name, *WIDE_TIMED)
     usage = _backward_kernel_usage()
     ms = {name: _cuda_ms(fn, iters=10) for name, fn in kernels.items()}
     plain_ms = {
@@ -608,8 +928,55 @@ def backward_kernel_phase(gpu_name):
             "shape": f"B{B} H{H} T{T} D{D} causal f32",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             "fwd_ms_training_shape": fwd_ms, "ptxas": usage,
+            "wide_shape": wide[name],
         })
     return records
+
+
+def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
+    """The wide dq and dkv instances at one shape: two launches of each
+    bitwise equal, then each timed beside its plain version and its bound,
+    and SDPA's backward (its backend pinned) for the pair."""
+    import torch
+
+    assert lengths is None and causal
+    q, k, v, do = (randn(B, H, T, D) for _ in range(4))
+    o, lse = fa.flash_forward(q, k, v, None, True)
+    di = (do * o).sum(-1)
+    kernels = {"dq": lambda: (fa.flash_dq(q, k, v, lse, di, do, None,
+                                          True),),
+               "dkv": lambda: fa.flash_dkv(q, k, v, lse, di, do, None, True)}
+    plain = {"dq": lambda: fa.flash_dq_reference(q, k, v, lse, di, do, None,
+                                                 True),
+             "dkv": lambda: fa.flash_dkv_reference(q, k, v, lse, di, do,
+                                                   None, True)}
+    for name, fn in kernels.items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+            f"two wide {name} launches on the same inputs differ")
+        del first, second
+    library_ms, backend = _sdpa_backward_ms(F, q, k, v, do)
+    shape = f"B{B} H{H} T{T} D{D} causal f32"
+    out = {}
+    for name, fn in kernels.items():
+        ms = _cuda_ms(fn, iters=10)
+        plain_ms = _cuda_ms(plain[name], iters=5)
+        flops, nbytes = _backward_work(name, B, H, T, T, D, True, None)
+        bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name)
+        out[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_ms_simt": bound_simt,
+                     "library_ms": library_ms,
+                     "library": f"sdpa backward, {backend}",
+                     "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
+        print(f"flash_attention_bwd_{name} (wide) {shape}: two launches "
+              f"bitwise equal; {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms ({bound_by}; {bound_simt:.4f} at the "
+              f"CUDA cores' f32 rate)")
+    print(f"flash_attention_bwd (wide) {shape}: SDPA backward ({backend}) "
+          f"{library_ms:.3f} ms for the pair")
+    return out
 
 
 def _kernel_key(mangled):
@@ -671,7 +1038,8 @@ def _backward_kernel_usage():
     smem = lib.paddle_flash_attention_bwd_smem_bytes
     return _kernel_usage(
         "flash_attention_bwd",
-        lambda name, args: smem("dkv" in name, args[0]), match="flash_bwd")
+        lambda name, args: smem("dkv" in name, args[0] if args else WIDE_D),
+        match="flash_bwd")
 
 
 def _sass_counts(lib_name, match):
@@ -923,7 +1291,8 @@ def training_phase(records, gpu_name):
           f"{kern_step_ms['dq']:.1f} ms, dkv {kern_step_ms['dkv']:.1f} ms = "
           f"{sum(kern_step_ms.values()) / (med * 1e3) * 100:.1f}% of the "
           f"step")
-    profile = _profile_step(exe, main, feed, loss, scope)
+    profile = _profile_step(
+        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope))
     return {
         "config": c, "params": n_params, "losses": losses,
         "step_ms": [x * 1e3 for x in step_s], "step_ms_median": med * 1e3,
@@ -939,12 +1308,12 @@ def training_phase(records, gpu_name):
     }
 
 
-def _profile_step(exe, main, feed, loss, scope, path="train_profile.txt",
+def _profile_step(run, path="train_profile.txt",
                   groups=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
-    """Device time of one train step by kernel, from torch.profiler (CUPTI),
-    summed per group of kernel names (``groups``: substrings) and written
-    to ``chiprun_out/<path>``; a measurement aid, not a check: without
-    device times it says so."""
+    """Device time of one step (``run()``) by kernel, from torch.profiler
+    (CUPTI), summed per group of kernel names (``groups``: substrings) and
+    written to ``chiprun_out/<path>``; a measurement aid, not a check:
+    without device times it says so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -952,7 +1321,7 @@ def _profile_step(exe, main, feed, loss, scope, path="train_profile.txt",
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            run()
             torch.cuda.synchronize()
         # kernels only: an op's device time repeats its kernels'
         rows = []
@@ -1484,7 +1853,8 @@ def resnet_training_phase(records, gpu_name, built):
           f"apply {kern_ms['scale_shift_act']:.1f} ms = "
           f"{sum(kern_ms.values()) / (med * 1e3) * 100:.1f}% of the step")
     profile = _profile_step(
-        exe, main, feed, loss, scope, "resnet_profile.txt",
+        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+        "resnet_profile.txt",
         # the port's kernels, cuDNN (its kernels carry "cudnn" or
         # "engine"), cuBLAS ("cublas" or cutlass "sgemm"), torch's own
         groups=("conv1x1_tf32x3_kernel", "split_w_kernel",
@@ -1598,6 +1968,9 @@ def main():
     parser.add_argument("--backward-only", action="store_true",
                         help="build the kernels and run only phase 5 (the "
                              "flash backward kernels); prints no ok line")
+    parser.add_argument("--paged-only", action="store_true",
+                        help="build the kernels and run only phase 4b (paged "
+                             "serving); prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -1629,6 +2002,14 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_ms_simt", "library_ms")
+    if args.paged_only:
+        paged = paged_serving_phase(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_paged.json").write_text(json.dumps(
+            {"gpu": smi, "paged_serving": paged}, indent=1))
+        print(smi)
+        return
     if args.forward_only or args.backward_only or args.conv_only:
         if args.forward_only:
             recs = [kernel_phase(gpu)]
@@ -1656,6 +2037,8 @@ def main():
 
     kern = kernel_phase(gpu)
     serving = serving_phase(kern, gpu)
+    paged = paged_serving_phase(gpu)
+    torch.cuda.empty_cache()
     bwd = backward_kernel_phase(gpu)
     training = training_phase(bwd, gpu)
     torch.cuda.empty_cache()  # the LM phases' models are gone
@@ -1677,7 +2060,8 @@ def main():
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "kernels": records, "serving": serving, "training": training,
+         "kernels": records, "serving": serving, "paged_serving": paged,
+         "training": training,
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference, "build_s": built}, indent=1))
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

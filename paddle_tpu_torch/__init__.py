@@ -42,10 +42,12 @@ from .core.program import (Program, default_main_program,  # noqa: E402
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
 from . import flags, layers, models, optimizer  # noqa: E402
-from .serving import (BadRequestError, DynamicBatcher,  # noqa: E402
-                      EngineClosedError, Future, GenerationEngine, LMSpec,
-                      MetricsRegistry, QueueFullError, Request,
+from .serving import (BadRequestError, CacheExhaustedError,  # noqa: E402
+                      DynamicBatcher, EngineClosedError, Future,
+                      GenerationEngine, LMSpec, MetricsRegistry,
+                      PagedGenerationEngine, QueueFullError, Request,
                       RequestTimeoutError, Server, ServingError)
+from .decoding import SamplingParams  # noqa: E402
 from .models.transformer import TransformerLM, init_params  # noqa: E402
 
 __all__ = [
@@ -53,8 +55,10 @@ __all__ = [
     "default_main_program", "default_startup_program", "flags",
     "global_scope",
     "layers", "models", "optimizer", "program_guard", "scope_from_numpy",
-    "BadRequestError", "DynamicBatcher", "EngineClosedError", "Future",
-    "GenerationEngine", "LMSpec", "MetricsRegistry", "QueueFullError",
-    "Request", "RequestTimeoutError", "Server", "ServingError",
+    "BadRequestError", "CacheExhaustedError", "DynamicBatcher",
+    "EngineClosedError", "Future", "GenerationEngine", "LMSpec",
+    "MetricsRegistry", "PagedGenerationEngine", "QueueFullError",
+    "Request", "RequestTimeoutError", "SamplingParams", "Server",
+    "ServingError",
     "TransformerLM", "init_params", "resolve_device",
 ]

@@ -1,8 +1,13 @@
-"""Decode policy: the port's copy of ``paddle_tpu/decoding/params.py``'s
-:class:`SamplingParams` and its validation.
+"""Per-request decode policy: the one object a request carries.
 
-The dense engine applies one engine-wide policy (temperature, top-k);
-per-request policies ride the paged engine, a later slice of the port.
+The port's copy of ``paddle_tpu/decoding/params.py``'s
+:class:`SamplingParams`: temperature, top-k, top-p, a per-request seed,
+max_tokens, stop sequences and a logits processor, merged request over
+engine default field by field (:meth:`SamplingParams.from_meta`). The
+paged engine feeds each row's policy into its one decode step; a sampled
+request's tokens are a function of (request, ``seed``) alone, drawn from
+``fold_in(PRNGKey(seed), step)`` (``core/prng.py``) exactly as the JAX
+package draws them. Beam search (``BeamParams``) is a later slice.
 """
 from __future__ import annotations
 
@@ -29,14 +34,21 @@ def _freeze_stop(stop) -> Tuple[Tuple[int, ...], ...]:
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    """One decode policy.
+    """One request's decode policy.
 
     temperature: 0.0 = greedy argmax; > 0 samples the scaled distribution.
     top_k:       keep only the k most likely tokens (0 = off).
-    top_p:       nucleus sampling mass (1.0 = off).
-    seed:        RNG seed (None lets the engine choose).
+    top_p:       nucleus sampling — smallest token set covering this
+                 probability mass (1.0 = off).
+    seed:        per-request RNG seed. Sampled tokens are reproducible as
+                 a function of (request, seed) regardless of batch
+                 composition; None lets the engine assign one.
     max_tokens:  generation horizon (None = the engine default).
-    stop:        token-id sequences that end generation.
+    stop:        token-id sequences that end generation; the matched
+                 sequence is NOT included in the returned ids.
+    logits_processor: a per-step token-mask hook
+                 (:class:`~.masks.LogitsProcessor`): grammar/JSON-schema
+                 constrained decoding rides here.
     """
 
     temperature: float = 0.0
@@ -45,6 +57,10 @@ class SamplingParams:
     seed: Optional[int] = None
     max_tokens: Optional[int] = None
     stop: Tuple[Tuple[int, ...], ...] = ()
+    logits_processor: object = None
+
+    # meta keys a request may carry (the /v1/generate request schema)
+    _META_KEYS = ("temperature", "top_k", "top_p", "seed", "stop")
 
     def __post_init__(self):
         object.__setattr__(self, "stop", _freeze_stop(self.stop))
@@ -75,3 +91,24 @@ class SamplingParams:
     @property
     def sampled(self) -> bool:
         return self.temperature > 0
+
+    @classmethod
+    def from_meta(cls, meta: dict,
+                  default: Optional["SamplingParams"] = None
+                  ) -> "SamplingParams":
+        """Merge request meta over the engine default: any field the
+        request carries wins; absent fields inherit the default."""
+        default = default or cls()
+        meta = meta or {}
+        kw = {}
+        for key in cls._META_KEYS:
+            if meta.get(key) is not None:
+                kw[key] = meta[key]
+        if meta.get("logits_processor") is not None:
+            kw["logits_processor"] = meta["logits_processor"]
+        if not kw:
+            return default
+        return dataclasses.replace(default, **kw)
+
+    def with_seed(self, seed: int) -> "SamplingParams":
+        return dataclasses.replace(self, seed=int(seed))

@@ -30,10 +30,15 @@ registers. All of them
 skip causal tiles above the diagonal and tiles past a row's K length, and
 mask the ragged edge in the kernel instead of padding to 128 lanes.
 
-The kernels are built for head dims 64 and 128; on a CUDA tensor the
-wrappers zero-pad any other head dim up to 128 to the next of them and
-slice the outputs back (``_at_kernel_head_dim``), with ``sm_scale`` from
-the true head dim. Any batch*heads is taken (it is the grid's x axis).
+The tensor-core kernels are built for head dims 64 and 128; on a CUDA
+tensor the wrappers zero-pad any other head dim up to 128 to the next of
+them and slice the outputs back (``_at_kernel_head_dim``), with
+``sm_scale`` from the true head dim. A head dim past 128 is zero-padded to
+a multiple of 64 and runs the wide instances (``csrc/flash_wide.cuh``):
+every product over D sums 64-column chunks staged through shared memory,
+and each output's D axis is cut into 128-wide slices on the grid's z axis,
+each block recomputing S for its own slice. Any batch*heads is taken (it
+is the grid's x axis).
 
 ``flash_attention`` is differentiable (``_FlashAttention``). Every
 wrapper dispatches on the tensor's device: a CPU tensor runs the plain
@@ -105,7 +110,7 @@ def reference_attention(q, k, v, lengths=None, causal=False, sm_scale=None,
         s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
     dev = q.device
     kj = torch.arange(Tk, device=dev)
-    neg = torch.tensor(-math.inf, dtype=s.dtype, device=dev)
+    neg = torch.full((), -math.inf, dtype=s.dtype, device=dev)
     if causal:
         p0 = torch.as_tensor(q_pos0, device=dev)
         if p0.ndim:  # per-row offsets: [B] -> mask [B, 1, Tq, Tk]
@@ -241,22 +246,32 @@ def _aligned(t):
     return t.clone() if t.data_ptr() % 16 else t
 
 
-# the head dims the kernels are built for; the wrappers pad up to them
+# the head dims the tensor-core kernels are built for; the wrappers pad
+# up to them, and past the last one to a multiple of _WIDE_D (the wide
+# instances)
 KERNEL_HEAD_DIMS = (64, 128)
-# q/k tiles per block of the kernels, on the grid's y axis (limit 65535)
-_MAX_T = 65535 * 128
+_WIDE_D = 64
+# rows of a q/k tile: the tiles lie on the grid's y axis (limit 65535)
+_TILE_ROWS = 128
+_WIDE_TILE_ROWS = 64
 
 
 def _kernel_head_dim(D):
-    """The kernel instance that takes head dim D: the smallest of
-    ``KERNEL_HEAD_DIMS`` that is >= D."""
+    """The head dim of the kernel instance that takes D: the smallest of
+    ``KERNEL_HEAD_DIMS`` that is >= D, else D rounded up to a multiple of
+    64 (the wide instances)."""
+    if D < 1:
+        raise ValueError(f"flash kernels take head_dim >= 1, got {D}")
     for kd in KERNEL_HEAD_DIMS:
-        if 1 <= D <= kd:
+        if D <= kd:
             return kd
-    raise ValueError(
-        f"flash kernels take head_dim 1..{KERNEL_HEAD_DIMS[-1]} (zero-padded "
-        f"to {' or '.join(map(str, KERNEL_HEAD_DIMS))}), got {D}: the JAX "
-        "package's kernels take any head_dim, the port's do not yet")
+    return -(-D // _WIDE_D) * _WIDE_D
+
+
+def _max_t(D):
+    """The longest sequence the grid's y axis holds at head dim D."""
+    rows = _TILE_ROWS if D <= KERNEL_HEAD_DIMS[-1] else _WIDE_TILE_ROWS
+    return 65535 * rows
 
 
 def _at_kernel_head_dim(fn, *tensors):
@@ -277,11 +292,11 @@ def _at_kernel_head_dim(fn, *tensors):
 
 def _check_kernel_inputs(q, k, v, *more):
     """What every flash kernel takes, checked before anything is built:
-    f32 [B, H, T, D] q/k/v with D <= 128 and K/V heads expanded, on one
+    f32 [B, H, T, D] q/k/v (any D >= 1) with K/V heads expanded, on one
     device; ``more`` are tensors that must match q's shape (o, dO)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    _kernel_head_dim(D)
+    max_t = _max_t(_kernel_head_dim(D))
     tensors = (q, k, v) + more
     if any(t.dtype != torch.float32 for t in tensors):
         raise TypeError("flash kernel takes float32 tensors, got "
@@ -295,9 +310,9 @@ def _check_kernel_inputs(q, k, v, *more):
                          f"not match q {tuple(q.shape)}")
     if any(t.device != q.device for t in tensors):
         raise ValueError("flash kernel inputs must lie on one CUDA device")
-    if max(Tq, Tk) > _MAX_T:
+    if max(Tq, Tk) > max_t:
         raise ValueError(f"sequence length {max(Tq, Tk)} exceeds the grid's "
-                         f"y limit ({_MAX_T})")
+                         f"y limit ({max_t})")
 
 
 def _lens_bh(lengths, B, H, Tk, dev):

@@ -1,17 +1,19 @@
 """Stacked transformer ops: L pre-LN blocks with stacked weights.
 
 Counterpart of ``paddle_tpu/ops/pipeline_ops.py``, cut to the training
-op (``pipelined_transformer_stack``) and the serving path of the dense
-slot engine. Every weight carries a leading layer axis [L, ...] in the
-JAX layout ([in, out], applied as ``x @ W``); where the JAX package scans
-over that axis, the port runs a Python loop over layers. Op functions
-take ``(attrs, ins)`` with ``ins`` a dict of slot name -> [tensor] and
-return such a dict, exactly like their JAX twins.
+op (``pipelined_transformer_stack``) and the serving paths of the dense
+slot engine and the paged engine. Every weight carries a leading layer
+axis [L, ...] in the JAX layout ([in, out], applied as ``x @ W``); where
+the JAX package scans over that axis, the port runs a Python loop over
+layers. Op functions take ``(attrs, ins)`` with ``ins`` a dict of slot
+name -> [tensor] and return such a dict, exactly like their JAX twins.
 
 Causal attention over a whole sequence (the training forward and the
-prefill) is the sm_90a flash kernel (``kernels/flash_attention.py``),
+dense prefill) is the sm_90a flash kernel (``kernels/flash_attention.py``),
 differentiable through its backward kernels; decode attention over the
-slot cache stays plain tensor code, as the JAX package leaves it to XLA.
+slot cache, and both paged ops' attention over their gathered pages, stay
+plain tensor code (``reference_attention``), as the JAX package leaves
+them to XLA.
 """
 from __future__ import annotations
 
@@ -20,9 +22,10 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core.registry import register_op
 from ..kernels.flash_attention import (flash_attention, reference_attention,
                                        rotary)
-from ..core.registry import register_op
+from ..kernels.sampling import sample_rows, top_logprobs
 from .common import maybe, out, single
 
 _EPS = 1e-5
@@ -270,9 +273,17 @@ def transformer_stack_generate(attrs, ins, generator=None):
 # and every decode step advances ALL slots one token, each at its own
 # position. Where the JAX ops return updated copies (donated buffers),
 # these ops update CacheK/CacheV IN PLACE and return the same tensors.
+# Both are registered ops, as in the JAX package; ``rng`` is the
+# generator engine-wide sampling draws from.
 # ---------------------------------------------------------------------------
 
-def transformer_stack_slot_prefill(attrs, ins, generator=None):
+def _sampled(attrs):
+    return (attrs.get("temperature") or 0) > 0
+
+
+@register_op("transformer_stack_slot_prefill", optional_inputs=("PosEmb",),
+             needs_rng=_sampled)
+def transformer_stack_slot_prefill(attrs, ins, rng=None):
     """Prefill a batch of prompts into their cache slots.
 
     Prompt [b, Tp] int (right-padded to the bucket width), SlotIds [b]
@@ -305,7 +316,7 @@ def transformer_stack_slot_prefill(attrs, ins, generator=None):
                          f"{pos_emb.shape[0]}")
     embed = _embed_fn(tok_emb, pos_emb)
     pick = _make_pick(attrs.get("temperature") or 0.0,
-                      attrs.get("top_k") or 0, head_w.shape[1], generator)
+                      attrs.get("top_k") or 0, head_w.shape[1], rng)
     h, ks, vs = _prefill(params, embed(prompt, 0), num_heads, b, Tp,
                          num_kv_heads, use_rope)
     rows = torch.arange(b, device=h.device)
@@ -319,7 +330,9 @@ def transformer_stack_slot_prefill(attrs, ins, generator=None):
                CacheV=cache_v)
 
 
-def transformer_stack_slot_decode(attrs, ins, generator=None):
+@register_op("transformer_stack_slot_decode", optional_inputs=("PosEmb",),
+             needs_rng=_sampled)
+def transformer_stack_slot_decode(attrs, ins, rng=None):
     """One decode step over EVERY cache slot, each at its own position.
 
     Tok [S] int (the pending token per slot; its K/V is not yet cached),
@@ -351,7 +364,7 @@ def transformer_stack_slot_decode(attrs, ins, generator=None):
         x = x + pos_emb[pos.clamp(0, pos_emb.shape[0] - 1)]
     h1 = x[:, None, :]  # [S, 1, d]
     pick = _make_pick(attrs.get("temperature") or 0.0,
-                      attrs.get("top_k") or 0, head_w.shape[1], generator)
+                      attrs.get("top_k") or 0, head_w.shape[1], rng)
     srange = torch.arange(S, device=tok.device)[:, None]
     for i in range(params["qkv_w"].shape[0]):
         layer_p = _layer(params, i)
@@ -365,3 +378,223 @@ def transformer_stack_slot_decode(attrs, ins, generator=None):
         h1 = _attn_out_ffn(layer_p, h1, ctx.transpose(1, 2).reshape(S, 1, d))
     nxt = pick(_logits_fn(ln_s, ln_b, head_w)(h1[:, 0]))
     return out(NextTok=nxt.to(tok.dtype), CacheK=cache_k, CacheV=cache_v)
+
+
+# ---------------------------------------------------------------------------
+# Paged-cache decode ops: the block-table serving path (vLLM's
+# PagedAttention layout on the slot-op machinery). The KV cache is a PAGE
+# POOL [L, N, Hkv, page_size, dh]; a per-row int32 block table maps
+# logical positions to physical pages, so a sequence holds exactly
+# ceil(len / page_size) pages, and a page shared by several sequences (a
+# common system prompt) is stored ONCE. Page 0 is the scrap page: padding
+# rows and vacant decode slots write there and nothing attends to it.
+# Where the JAX ops return updated pools (donated buffers), these ops
+# write CacheK/CacheV IN PLACE and return the same tensors: the paged
+# engine's captured decode step needs the pools at fixed addresses.
+# Attention gathers each row's table-width context per layer and runs the
+# plain ``reference_attention``, as the JAX package does (no Pallas kernel
+# on this path there, none here).
+# ---------------------------------------------------------------------------
+
+_SAMPLING_SLOTS = ("Temperature", "TopK", "TopP", "Seed", "Step", "Mask")
+
+
+def _row_sampling(ins):
+    """The per-row sampling plane, when fed: (temperature [rows], top_k
+    [rows], top_p [rows], seed [rows], step [rows], mask [rows, V] or
+    None), or None (the engine-wide attrs path)."""
+    temp = maybe(ins, "Temperature")
+    if temp is None:
+        return None
+    return (temp, single(ins, "TopK"), single(ins, "TopP"),
+            single(ins, "Seed"), single(ins, "Step"), maybe(ins, "Mask"))
+
+
+def _pick_rows(attrs, ins, rng, vocab, logits):
+    """Next-token selection for the paged decode family: the per-row
+    plane (``kernels.sampling.sample_rows``: seeds are inputs, ``rng`` is
+    not drawn) when fed, else the engine-wide attrs drawing from ``rng``."""
+    plane = _row_sampling(ins)
+    if plane is None:
+        return _make_pick(attrs.get("temperature") or 0.0,
+                          attrs.get("top_k") or 0, vocab, rng)(logits)
+    return sample_rows(logits, *plane)
+
+
+def _maybe_topk(attrs, ins, logits, outs):
+    """Attach TopV/TopI (each row's top-``emit_topk`` masked log-probs)
+    to ``outs`` when the op is asked for the beam plane."""
+    k = attrs.get("emit_topk") or 0
+    if k:
+        vals, ids = top_logprobs(logits, int(k), maybe(ins, "Mask"))
+        outs["TopV"], outs["TopI"] = [vals], [ids]
+    return outs
+
+
+def _gather_pages(pool_l, table):
+    """pool_l [N, Hkv, ps, dh] gathered by table [b, P] -> the flattened
+    context [b, Hkv, P*ps, dh]: flattened position j holds the token at
+    sequence position j (table entry i covers positions i*ps..(i+1)*ps-1,
+    so position order survives the transpose/reshape)."""
+    b, P = table.shape
+    _, hkv, ps, dh = pool_l.shape
+    ctx = pool_l[table]  # [b, P, Hkv, ps, dh]
+    return ctx.transpose(1, 2).reshape(b, hkv, P * ps, dh)
+
+
+def _lm_head(ins):
+    return (single(ins, "TokEmb"), maybe(ins, "PosEmb"),
+            _logits_fn(single(ins, "FinalLnS"), single(ins, "FinalLnB"),
+                       single(ins, "HeadW")), single(ins, "HeadW").shape[1])
+
+
+@register_op("transformer_stack_paged_prefill",
+             optional_inputs=("PosEmb",) + _SAMPLING_SLOTS,
+             needs_rng=_sampled)
+def transformer_stack_paged_prefill(attrs, ins, rng=None):
+    """Prefill ONE CHUNK of each row's prompt into its block-table pages.
+
+    Chunk [b, Tc] int (right-padded), StartPos [b] int (absolute sequence
+    position of each row's first chunk token: 0 for a plain prefill, the
+    shared-prefix length for a prefix-cache hit, k*chunk for the k-th
+    chunk of a streaming long prompt), Lengths [b] int (valid tokens in
+    THIS chunk, 0..Tc; 0 marks a padding row), BlockTable [b, P] int (the
+    row's full logical->physical page map; padding entries 0),
+    CacheK/CacheV [L, N, Hkv, ps, dh] page pools, plus the shared LM
+    weights. Returns NextTok [b] (from each row's LAST VALID chunk
+    position: the first generated token when this chunk completes the
+    prompt) and the pools, written IN PLACE with the chunk's K/V at rows
+    StartPos..StartPos+Lengths-1 of each row's pages.
+
+    Queries attend the row's WHOLE gathered context block-causally (chunk
+    token at absolute position p sees cached position j iff j <= p), so a
+    later chunk attends every earlier chunk's pages and a shared-prefix
+    row attends shared pages it never prefilled.
+
+    Optional per-row sampling plane (Temperature/TopK/TopP/Seed/Step [b]
+    + Mask [b, V]): when fed, NextTok comes from ``sample_rows`` and
+    ``rng`` is never drawn. ``emit_topk`` > 0 adds TopV/TopI.
+    """
+    chunk = single(ins, "Chunk")
+    start = single(ins, "StartPos").long()
+    lengths = single(ins, "Lengths").long()
+    table = single(ins, "BlockTable").long()
+    cache_k, cache_v = single(ins, "CacheK"), single(ins, "CacheV")
+    tok_emb, pos_emb, logits_of, vocab = _lm_head(ins)
+    params = _stack_params(ins)
+    num_heads = attrs["num_heads"]
+    num_kv_heads = attrs.get("num_kv_heads") or num_heads
+    use_rope = attrs.get("use_rope", False)
+    b, Tc = chunk.shape
+    ps = cache_k.shape[3]
+    P = table.shape[1]
+    d = params["ln1_s"].shape[1]
+    dev = chunk.device
+    # absolute positions + per-token page targets (padding -> scrap 0)
+    steps = torch.arange(Tc, device=dev)
+    pos = start[:, None] + steps[None, :]
+    valid = steps[None, :] < lengths[:, None]
+    entry = (pos // ps).clamp(0, P - 1)
+    zero = torch.zeros_like(pos)
+    page_id = torch.where(valid, torch.gather(table, 1, entry), zero)
+    page_row = torch.where(valid, pos % ps, zero)
+    h = _take_rows(tok_emb, chunk)
+    if pos_emb is not None:
+        h = h + pos_emb[pos.clamp(0, pos_emb.shape[0] - 1)]
+    for i in range(params["qkv_w"].shape[0]):
+        layer_p = _layer(params, i)
+        ck_l, cv_l = cache_k[i], cache_v[i]  # pools [N, Hkv, ps, dh]
+        q, k, v = _attn_proj(layer_p, h, num_heads, num_kv_heads, use_rope,
+                             pos0=start)
+        # k/v [b, Hkv, Tc, dh] -> page (page_id, page_row) per token
+        ck_l[page_id, :, page_row] = k.transpose(1, 2)
+        cv_l[page_id, :, page_row] = v.transpose(1, 2)
+        ctx = reference_attention(q, _gather_pages(ck_l, table),
+                                  _gather_pages(cv_l, table), causal=True,
+                                  q_pos0=start)
+        h = _attn_out_ffn(layer_p, h, ctx.transpose(1, 2).reshape(b, Tc, d))
+    rows = torch.arange(b, device=dev)
+    logits = logits_of(h[rows, lengths.clamp(1, Tc) - 1])
+    nxt = _pick_rows(attrs, ins, rng, vocab, logits)
+    outs = out(NextTok=nxt.to(chunk.dtype), CacheK=cache_k, CacheV=cache_v)
+    return _maybe_topk(attrs, ins, logits, outs)
+
+
+@register_op("transformer_stack_paged_decode",
+             optional_inputs=("PosEmb",) + _SAMPLING_SLOTS,
+             needs_rng=_sampled)
+def transformer_stack_paged_decode(attrs, ins, rng=None):
+    """One decode step over every slot's paged context.
+
+    Tok [S] int (the pending token per slot), Pos [S] int (its sequence
+    position == rows already cached for the slot), BlockTable [S, P] int
+    (per-slot page map; vacant slots feed all-zeros + Pos 0, so their
+    write lands in the scrap page), CacheK/CacheV [L, N, Hkv, ps, dh] page
+    pools, plus the shared LM weights. Returns NextTok [S] and the pools,
+    written IN PLACE with each slot's token K/V at page
+    BlockTable[s, Pos//ps] row Pos%ps.
+
+    The slot axis is the batch axis and the table width is static, so no
+    shape depends on occupancy or sequence lengths and no value is read
+    back to the host: the paged engine captures this op (with the
+    sampling plane fed) once and replays it as a CUDA graph.
+
+    Optional per-row sampling plane (Temperature/TopK/TopP/Seed/Step [S]
+    + Mask [S, V]): per-request policy inside the one step; each row's
+    token depends only on its context, policy, seed and step.
+    ``emit_topk`` > 0 adds TopV/TopI [S, emit_topk].
+    """
+    tok = single(ins, "Tok")
+    pos = single(ins, "Pos").long()
+    table = single(ins, "BlockTable").long()
+    cache_k, cache_v = single(ins, "CacheK"), single(ins, "CacheV")
+    tok_emb, pos_emb, logits_of, vocab = _lm_head(ins)
+    params = _stack_params(ins)
+    num_heads = attrs["num_heads"]
+    num_kv_heads = attrs.get("num_kv_heads") or num_heads
+    use_rope = attrs.get("use_rope", False)
+    S = tok.shape[0]
+    if S != table.shape[0]:
+        raise ValueError(f"Tok has {S} slots but the block table holds "
+                         f"{table.shape[0]}")
+    ps = cache_k.shape[3]
+    P = table.shape[1]
+    d = params["ln1_s"].shape[1]
+    pos = pos.clamp(0, P * ps - 1)
+    x = _take_rows(tok_emb, tok)
+    if pos_emb is not None:
+        x = x + pos_emb[pos.clamp(0, pos_emb.shape[0] - 1)]
+    h1 = x[:, None, :]  # [S, 1, d]
+    page_id = torch.gather(table, 1, (pos // ps)[:, None])[:, 0]  # [S]
+    page_row = pos % ps
+    for i in range(params["qkv_w"].shape[0]):
+        layer_p = _layer(params, i)
+        ck_l, cv_l = cache_k[i], cache_v[i]  # pools [N, Hkv, ps, dh]
+        q, k, v = _attn_proj(layer_p, h1, num_heads, num_kv_heads, use_rope,
+                             pos0=pos)
+        ck_l[page_id, :, page_row] = k[:, :, 0]
+        cv_l[page_id, :, page_row] = v[:, :, 0]
+        ctx = reference_attention(q, _gather_pages(ck_l, table),
+                                  _gather_pages(cv_l, table),
+                                  lengths=pos + 1)
+        h1 = _attn_out_ffn(layer_p, h1, ctx.transpose(1, 2).reshape(S, 1, d))
+    logits = logits_of(h1[:, 0])
+    nxt = _pick_rows(attrs, ins, rng, vocab, logits)
+    outs = out(NextTok=nxt.to(tok.dtype), CacheK=cache_k, CacheV=cache_v)
+    return _maybe_topk(attrs, ins, logits, outs)
+
+
+@register_op("kv_cache_page_copy")
+def kv_cache_page_copy(attrs, ins):
+    """Copy whole KV pages inside the pools: the copy-on-write step.
+
+    Src [n] int, Dst [n] int (distinct destination pages), CacheK/CacheV
+    [L, N, Hkv, ps, dh]. Writes pool[:, Dst[i]] = pool[:, Src[i]] for both
+    pools IN PLACE and echoes Dst as Ok [n]. The serving engine runs this
+    when a sequence is about to write into a page whose refcount > 1 (a
+    shared prefix page it is diverging from)."""
+    src, dst = single(ins, "Src"), single(ins, "Dst")
+    cache_k, cache_v = single(ins, "CacheK"), single(ins, "CacheV")
+    cache_k[:, dst.long()] = cache_k[:, src.long()]
+    cache_v[:, dst.long()] = cache_v[:, src.long()]
+    return out(Ok=dst, CacheK=cache_k, CacheV=cache_v)

@@ -1,15 +1,19 @@
 """paddle_tpu_torch.serving: dynamic batching and continuous decode over
-the dense KV slot cache, on PyTorch and CUDA."""
+the paged KV cache (the default) or the dense slot cache, on PyTorch and
+CUDA."""
 from .batcher import DynamicBatcher, Future, Request
-from .errors import (BadRequestError, EngineClosedError, QueueFullError,
-                     RequestTimeoutError, ServingError)
-from .generation import GenerationEngine, LMSpec, RequestTimeline
+from .errors import (BadRequestError, CacheExhaustedError, EngineClosedError,
+                     QueueFullError, RequestTimeoutError, ServingError)
+from .generation import (GenerationEngine, LMSpec, PagedGenerationEngine,
+                         RequestTimeline)
 from .metrics import MetricsRegistry
+from .paging import PagePool, PrefixIndex
 from .server import Server
 
 __all__ = [
-    "BadRequestError", "DynamicBatcher", "EngineClosedError", "Future",
-    "GenerationEngine", "LMSpec", "MetricsRegistry", "QueueFullError",
-    "Request", "RequestTimeline", "RequestTimeoutError", "Server",
-    "ServingError",
+    "BadRequestError", "CacheExhaustedError", "DynamicBatcher",
+    "EngineClosedError", "Future", "GenerationEngine", "LMSpec",
+    "MetricsRegistry", "PagePool", "PagedGenerationEngine", "PrefixIndex",
+    "QueueFullError", "Request", "RequestTimeline", "RequestTimeoutError",
+    "Server", "ServingError",
 ]

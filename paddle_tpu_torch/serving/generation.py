@@ -1,36 +1,51 @@
 """Continuous batching for autoregressive generation (Orca-style).
 
-Counterpart of ``paddle_tpu/serving/generation.py``, dense KV layout:
-each request claims a slot of the slot table ``[L, slots+1, Hkv, Tmax,
-dh]``, a prefill writes its prompt K/V, and ONE decode step advances
-every occupied slot each tick — finished sequences vacate between ticks
-and queued requests join mid-flight. The extra slot (index ``slots``) is
-a scrap slot: padding rows of a partially filled prefill bucket scatter
-their K/V there, so every prefill shape is a (batch bucket, prompt
-bucket) pair whatever the number of requests.
+Counterpart of ``paddle_tpu/serving/generation.py``. Two KV layouts serve
+one API, and ``GenerationEngine(...)`` picks between them as the JAX
+package does: ``kv_cache="paged"`` (the default) builds a
+:class:`PagedGenerationEngine`, ``kv_cache="dense"`` the contiguous slot
+table.
 
-Prefill attention runs the sm_90a flash kernel on a CUDA device. The
-paged layout (the JAX package's default engine) is a later slice of the
-port, so ``kv_cache`` must be ``"dense"``.
+Dense layout: each request claims a slot of the slot table ``[L,
+slots+1, Hkv, Tmax, dh]``, a prefill writes its prompt K/V, and ONE decode
+step advances every occupied slot each tick: finished sequences vacate
+between ticks and queued requests join mid-flight. The extra slot (index
+``slots``) is a scrap slot: padding rows of a partially filled prefill
+bucket scatter their K/V there, so every prefill shape is a (batch
+bucket, prompt bucket) pair whatever the number of requests. Its prefill
+attention runs the sm_90a flash kernel on a CUDA device.
+
+Paged layout: see :class:`PagedGenerationEngine`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from ..decoding.params import SamplingParams
+from ..decoding.stops import StopMatcher
 from ..models.transformer import TransformerLM
-from ..ops.pipeline_ops import (transformer_stack_slot_decode,
+from ..ops.pipeline_ops import (kv_cache_page_copy,
+                                transformer_stack_paged_decode,
+                                transformer_stack_paged_prefill,
+                                transformer_stack_slot_decode,
                                 transformer_stack_slot_prefill)
 from .batcher import Request
-from .errors import BadRequestError
+from .errors import BadRequestError, CacheExhaustedError, RequestTimeoutError
 from .metrics import MetricsRegistry
+from .paging import PagePool, PrefixIndex
 
 _PAD_ID = 0  # token id of prefill padding (masked, never attended)
+# the paged ops' sampling-plane slots and their keys in a host feed
+_PLANE = (("Temperature", "temp"), ("TopK", "topk"), ("TopP", "topp"),
+          ("Seed", "seed"), ("Step", "step"), ("Mask", "mask"))
+_LATER = ("a later slice of the port (ROADMAP.md, Queue 1): the JAX "
+          "package's {} is not ported yet")
 
 
 @dataclasses.dataclass
@@ -103,7 +118,7 @@ class RequestTimeline:
 
 class _Slot:
     __slots__ = ("request", "generated", "max_new", "eos_id", "prompt",
-                 "timeline")
+                 "timeline", "truncate_to")
 
     def __init__(self, request: Request, prompt: np.ndarray,
                  max_new: int, eos_id: Optional[int]):
@@ -113,18 +128,33 @@ class _Slot:
         self.max_new = max_new
         self.eos_id = eos_id
         self.timeline = RequestTimeline(request.enqueue_t)
+        # set by a stop-sequence match: keep only this many generated
+        # tokens in the returned ids (the stop itself is dropped)
+        self.truncate_to: Optional[int] = None
 
 
 class GenerationEngine:
-    """Continuous batcher over the dense slot cache.
+    """Continuous batcher over the stacked-LM decode ops.
+
+    ``kv_cache="paged"`` (the default) constructs a
+    :class:`PagedGenerationEngine`; ``kv_cache="dense"`` keeps the
+    contiguous slot table. Both serve the same API.
 
     ``model`` is a :class:`TransformerLM` on ``device``, or a dict of the
     JAX package's parameters (numpy arrays under the JAX names) to load
     onto it. ``device`` defaults to ``cuda`` and raises without CUDA;
     pass ``device="cpu"`` to run the plain versions of the kernels.
-    Engine-wide temperature / top-k sampling draws from a
-    ``torch.Generator`` seeded with ``seed``.
+    ``temperature``/``top_k`` are the default decode policy. The dense
+    engine applies it engine-wide and draws from a ``torch.Generator``
+    seeded with ``seed``; the paged engine takes a policy per request,
+    merged over this default.
     """
+
+    def __new__(cls, *args, **kw):
+        if cls is GenerationEngine and \
+                (kw.get("kv_cache") or "paged") == "paged":
+            cls = PagedGenerationEngine
+        return object.__new__(cls)
 
     def __init__(self, spec: LMSpec,
                  model: Union[TransformerLM, Dict[str, np.ndarray]], *,
@@ -137,23 +167,20 @@ class GenerationEngine:
                  seed: int = 0):
         from .. import resolve_device
 
-        if kv_cache in (None, "paged"):
-            raise NotImplementedError(
-                "the paged KV cache (the JAX package's default engine) "
-                "lands in the paged-serving slice of the port; pass "
-                "kv_cache='dense'")
-        if kv_cache != "dense":
-            raise ValueError(f"kv_cache must be 'dense', got {kv_cache!r}")
+        if kv_cache not in (None, "dense", "paged"):
+            raise ValueError(f"kv_cache must be 'paged' or 'dense', "
+                             f"got {kv_cache!r}")
         if slots < 1:
             raise ValueError("need at least one decode slot")
         self.device = resolve_device(device)
         self.spec = spec
         self.slots = int(slots)
         self.tmax = int(spec.max_len)
-        SamplingParams(temperature=float(temperature),
-                       top_k=int(top_k)).validate(spec.vocab_size)
-        self.temperature = float(temperature)
-        self.top_k = int(top_k)
+        self.default_sampling = SamplingParams(
+            temperature=float(temperature), top_k=int(top_k))
+        self.default_sampling.validate(spec.vocab_size)
+        self.temperature = float(self.default_sampling.temperature)
+        self.top_k = int(self.default_sampling.top_k)
         self.default_max_new_tokens = int(default_max_new_tokens)
         self.eos_id = eos_id
         self.metrics = MetricsRegistry()
@@ -199,6 +226,9 @@ class GenerationEngine:
                 "num_kv_heads": self.spec.num_kv_heads,
                 "use_rope": self.spec.use_rope,
                 "temperature": self.temperature, "top_k": self.top_k}
+
+    def _gauges(self):
+        self.metrics.set_gauge("active_slots", self.active)
 
     # -- bucket helpers -------------------------------------------------
     def prompt_bucket_for(self, n: int) -> int:
@@ -285,9 +315,15 @@ class GenerationEngine:
             raise BadRequestError(
                 f"prompt ({prompt.size}) + max_new_tokens ({max_new}) "
                 f"exceeds the serving context ({self.tmax})")
-        self.prompt_bucket_for(prompt.size)  # raises when over-long
+        self._check_prompt_fits(prompt)
         eos = req.meta.get("eos_id")
         return prompt, max_new, self.eos_id if eos is None else eos
+
+    def _check_prompt_fits(self, prompt: np.ndarray) -> None:
+        """Layout-specific admission bound: the dense table serves a
+        prompt only if a single prefill bucket covers it; the paged
+        engine's chunked prefill takes any length the context allows."""
+        self.prompt_bucket_for(prompt.size)  # raises when over-long
 
     def admit(self, requests: List[Request]) -> int:
         """Prefill a group of requests into free slots (one bucketed
@@ -341,6 +377,16 @@ class GenerationEngine:
         else:              # every later token: one TPOT sample
             self.metrics.observe_hist("tpot", delta)
         st.generated.append(token)
+        stop = getattr(st, "stop_matcher", None)
+        if stop:
+            keep = stop.match(st.generated)
+            if keep is not None:
+                # the stop sequence ends here (anywhere, mid-page too):
+                # truncate before the match and finish
+                st.truncate_to = keep
+                self.metrics.inc("stop_sequence_hits")
+                self._finish(slot)
+                return
         if (len(st.generated) >= st.max_new
                 or (st.eos_id is not None and token == st.eos_id)):
             self._finish(slot)
@@ -348,7 +394,9 @@ class GenerationEngine:
     def _finish(self, slot: int) -> None:
         st = self._slots[slot]
         self._slots[slot] = None
-        ids = np.concatenate([st.prompt, np.asarray(st.generated, np.int64)])
+        gen = (st.generated if st.truncate_to is None
+               else st.generated[:st.truncate_to])
+        ids = np.concatenate([st.prompt, np.asarray(gen, np.int64)])
         latency = time.monotonic() - st.request.enqueue_t
         st.request.future.set_result(ids)
         self.metrics.inc("completed")
@@ -447,4 +495,785 @@ class GenerationEngine:
                 self.admit(pending[:k])
                 pending = pending[k:]
             self.decode_tick()
+        return [r.future.result(timeout=0.1) for r in reqs]
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache: block-table slots over a shared page pool
+# ---------------------------------------------------------------------------
+class _PagedSlot(_Slot):
+    __slots__ = ("pages", "shared_tokens", "cow_reserve", "prefill_done",
+                 "state", "sampling", "stop_matcher", "mask_proc")
+
+    def __init__(self, request, prompt, max_new, eos_id,
+                 sampling: Optional[SamplingParams] = None):
+        super().__init__(request, prompt, max_new, eos_id)
+        self.pages: List[int] = []       # physical page per table entry
+        self.shared_tokens = 0           # prefix-cache hit length
+        self.cow_reserve = 0             # pages held for copy-on-write
+        self.prefill_done = 0            # prompt tokens whose K/V is cached
+        self.state = "decode"            # "prefill" while chunks stream in
+        self.sampling = sampling or SamplingParams()
+        self.stop_matcher = StopMatcher(self.sampling.stop)
+        self.mask_proc = self.sampling.logits_processor
+
+
+class PagedGenerationEngine(GenerationEngine):
+    """Continuous batcher over a PAGED KV cache with prefix sharing and
+    chunked prefill: the port of the JAX package's default engine.
+
+    The cache is a page pool ``[L, n_pages, Hkv, page_size, dh]`` per K/V
+    on the device, updated in place, plus a host-side per-slot block
+    table: a sequence holds ``ceil(len/page_size)`` physical pages, so
+    device memory holds TOKENS IN FLIGHT, not slots x Tmax. Three levers
+    ride on the allocator (``paging.py``):
+
+    - **Prefix sharing** (``prefix_sharing=True``): page-aligned prompt
+      prefixes map to refcounted pages stored once; a request whose
+      prefix is cached skips that prefill (``prefix_hit_tokens``). A
+      shared page about to be written (a full-prompt hit diverging into
+      generation) is copied first: copy-on-write via
+      ``kv_cache_page_copy``, one page reserved at admission.
+    - **Chunked prefill**: a prompt longer than ``prefill_chunk`` tokens
+      streams in one chunk per engine tick, interleaved with decode.
+    - **Typed backpressure**: a request whose prompt + max_new_tokens can
+      never fit the pool fails with
+      :class:`~paddle_tpu_torch.serving.errors.CacheExhaustedError`;
+      transient pressure defers admission.
+
+    Every request carries its own :class:`SamplingParams` (request meta
+    merged over the engine's default): greedy, temperature, top-k, top-p, stop
+    sequences and per-step token masks mix in one decode step, and a
+    sampled row's tokens are a function of (request, seed) alone, equal
+    to the JAX engine's (``core/prng.py``).
+
+    The decode step is one fixed shape: every slot, a ``[slots, pmax]``
+    block table. On a CUDA device the engine captures it (the paged
+    decode op plus the sampler) once into a ``torch.cuda.CUDAGraph`` and
+    each tick copies the host feed into its static inputs, replays it and
+    reads NextTok back: one launch of the whole step instead of hundreds
+    of small ones. Copy-on-write copies run eagerly before the replay. A
+    capture or replay that fails raises; nothing decodes eagerly on the
+    card in its place. On the CPU the step runs eagerly.
+
+    Not in this slice (each raises, naming ROADMAP.md): beam search
+    (``beam_width``/``generate_beam``), a pool shared with another engine
+    (``share_cache_with``) and KV handoff (``export_slot``/
+    ``adopt_slot``), resume-from-token recovery, warmup manifests and
+    ``swap_params``.
+    """
+
+    def __init__(self, spec: LMSpec,
+                 model: Union[TransformerLM, Dict[str, np.ndarray]], *,
+                 page_size: Optional[int] = None,
+                 n_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_sharing: bool = True,
+                 beam_width: int = 0,
+                 share_cache_with: Optional["PagedGenerationEngine"] = None,
+                 kv_cache: Optional[str] = None, **kw):
+        if kv_cache not in (None, "paged"):
+            raise ValueError(
+                f"PagedGenerationEngine is kv_cache='paged' (got "
+                f"{kv_cache!r}); use GenerationEngine(kv_cache='dense') "
+                "for the dense slot table")
+        if page_size is not None and page_size < 1:
+            raise ValueError("page_size must be >= 1")
+        if beam_width:
+            raise NotImplementedError(_LATER.format("beam plane "
+                                                    "(beam_width)"))
+        if share_cache_with is not None:
+            raise NotImplementedError(_LATER.format(
+                "shared page pool (share_cache_with, disaggregation)"))
+        self._page_size_arg = page_size
+        self._n_pages_arg = n_pages
+        self._prefill_chunk_arg = prefill_chunk
+        self._prefix_sharing = bool(prefix_sharing)
+        super().__init__(spec, model, **kw)
+
+    # -- cache construction ---------------------------------------------------
+    def _init_cache(self):
+        s = self.spec
+        self.page_size = int(self._page_size_arg or min(64, self.tmax))
+        # table width: enough entries for a full-context sequence
+        self.pmax = -(-self.tmax // self.page_size)
+        self.n_pages = int(self._n_pages_arg
+                           or self.slots * self.pmax + 1)
+        if self.n_pages < 2:
+            raise ValueError("need at least 2 pages (one is scrap)")
+        chunk = self._prefill_chunk_arg
+        if chunk is None:
+            chunk = min(self.prompt_buckets[-1],
+                        max(2 * self.page_size, 128))
+        self.prefill_chunk = max(1, min(int(chunk), self.tmax))
+        self._chunk_widths = sorted(
+            {b for b in self.prompt_buckets if b <= self.prefill_chunk}
+            | {self.prefill_chunk})
+        self.pool = PagePool(self.n_pages, self.page_size)
+        self.prefix_index = (PrefixIndex(self.pool)
+                             if self._prefix_sharing else None)
+        # no scrap SLOT here: padding/vacant rows write the scrap PAGE,
+        # so the decode batch is exactly the slot count
+        self._nslots = self.slots
+        self._tok = np.zeros(self._nslots, np.int64)
+        self._pos = np.zeros(self._nslots, np.int32)
+        self._deferred = deque()  # pool-blocked validated admissions
+        self._pf_cursor = 0       # round-robin over prefilling slots
+        self._seed_counter = 0    # default per-request seeds
+        shape = (s.n_layers, self.n_pages, s.kv_heads, self.page_size,
+                 s.head_dim)
+        self.cache_k = torch.zeros(shape, dtype=torch.float32,
+                                   device=self.device)
+        self.cache_v = torch.zeros_like(self.cache_k)
+        self._graph = None        # the captured decode step (CUDA)
+        self._static: Dict[str, torch.Tensor] = {}
+        self._static_next: Optional[torch.Tensor] = None
+        self._mask_open = True    # the static mask is all ones
+        self.metrics.set_gauge("mem/kv_cache_bytes",
+                               2.0 * float(np.prod(shape)) * 4)
+        self.metrics.set_gauge("mem/kv_block_table_bytes",
+                               float(self.slots * self.pmax * 4))
+        self._gauges()
+
+    def _decode_attrs(self):
+        # per-request sampling rides the input plane, never the attrs
+        attrs = super()._decode_attrs()
+        attrs["temperature"] = 0.0
+        attrs["top_k"] = 0
+        attrs["page_size"] = self.page_size
+        return attrs
+
+    def _check_prompt_fits(self, prompt: np.ndarray) -> None:
+        # chunked prefill serves ANY prompt the context admits: the
+        # prompt + max_new_tokens <= tmax check already ran
+        pass
+
+    def _chunk_bucket_for(self, n: int) -> int:
+        for b in self._chunk_widths:
+            if n <= b:
+                return b
+        return self._chunk_widths[-1]
+
+    def _entries_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.page_size)
+
+    # -- sampling plane -------------------------------------------------------
+    def _neutral_sampling_feed(self, rows: int) -> Dict[str, np.ndarray]:
+        """The sampling plane for rows with no live policy (warmup,
+        vacant slots, padding): greedy, mask wide open."""
+        feed = {"temp": np.zeros(rows, np.float32),
+                "topk": np.zeros(rows, np.int32),
+                "topp": np.ones(rows, np.float32),
+                "seed": np.zeros(rows, np.int32),
+                "step": np.zeros(rows, np.int32),
+                "mask": np.ones((rows, self.spec.vocab_size), np.float32)}
+        return feed
+
+    def _slot_sampling_feed(self, row: int, st, feed: dict,
+                            step: int) -> None:
+        """Write one slot's policy into row ``row`` of a sampling feed."""
+        sp = st.sampling
+        feed["temp"][row] = sp.temperature
+        feed["topk"][row] = sp.top_k
+        feed["topp"][row] = sp.top_p
+        feed["seed"][row] = (sp.seed or 0) & 0x7FFFFFFF
+        feed["step"][row] = step
+        if st.mask_proc is not None:
+            mask = np.asarray(st.mask_proc.mask(step, st.generated),
+                              np.float32)
+            if mask.shape != (self.spec.vocab_size,):
+                raise BadRequestError(
+                    f"logits processor returned shape {mask.shape}, "
+                    f"want ({self.spec.vocab_size},)")
+            if mask.max() <= 0:  # dead end: fail open, count it
+                self.metrics.inc("mask_dead_ends")
+            else:
+                feed["mask"][row] = mask
+
+    def _sampling_ins(self, feed) -> Dict[str, list]:
+        """The sampling plane's op inputs from a host feed."""
+        return {slot: [torch.from_numpy(feed[key]).to(self.device)]
+                for slot, key in _PLANE}
+
+    # -- device steps ---------------------------------------------------------
+    @torch.no_grad()
+    def _run_prefill_chunk(self, feed) -> np.ndarray:
+        dev = self.device
+        ins = {"Chunk": [torch.from_numpy(feed["chunk"]).to(dev)],
+               "StartPos": [torch.from_numpy(feed["start"]).to(dev)],
+               "Lengths": [torch.from_numpy(feed["chunk_len"]).to(dev)],
+               "BlockTable": [torch.from_numpy(feed["block_table"]).to(dev)],
+               "CacheK": [self.cache_k], "CacheV": [self.cache_v],
+               **self._sampling_ins(feed), **self._lm_ins}
+        res = transformer_stack_paged_prefill(self._decode_attrs(), ins)
+        return res["NextTok"][0].cpu().numpy()
+
+    @torch.no_grad()
+    def _run_page_copy(self, src: int, dst: int) -> None:
+        dev = self.device
+        kv_cache_page_copy({}, {
+            "Src": [torch.tensor([src], dtype=torch.int32, device=dev)],
+            "Dst": [torch.tensor([dst], dtype=torch.int32, device=dev)],
+            "CacheK": [self.cache_k], "CacheV": [self.cache_v]})
+
+    def _decode_ins(self, feed) -> Dict[str, list]:
+        """The paged decode op's inputs from device tensors ``feed``."""
+        return {"Tok": [feed["tok"]], "Pos": [feed["pos"]],
+                "BlockTable": [feed["block_table"]],
+                **{slot: [feed[key]] for slot, key in _PLANE},
+                "CacheK": [self.cache_k], "CacheV": [self.cache_v],
+                **self._lm_ins}
+
+    @torch.no_grad()
+    def _decode_step_eager(self, feed) -> np.ndarray:
+        """One decode step run op by op (the CPU's step; on the card only
+        the reference the replayed step is checked against)."""
+        dev = self.device
+        tensors = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
+        res = transformer_stack_paged_decode(self._decode_attrs(),
+                                             self._decode_ins(tensors))
+        return res["NextTok"][0].cpu().numpy()
+
+    def _capture_decode(self) -> None:
+        """Capture the decode step into a CUDA graph over static input
+        buffers. Warmup and capture feed the neutral plane (vacant rows,
+        an all-zero table), whose writes land in the scrap page."""
+        feed = self._neutral_decode_feed()
+        self._static = {k: torch.from_numpy(v).to(self.device)
+                        for k, v in feed.items()}
+        self._mask_open = True
+        attrs = self._decode_attrs()
+        ins = self._decode_ins(self._static)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.no_grad(), torch.cuda.stream(side):
+            for _ in range(2):  # library handles and workspaces first
+                transformer_stack_paged_decode(attrs, ins)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread-local: another engine's thread may run CUDA work meanwhile
+        with torch.no_grad(), torch.cuda.graph(
+                graph, capture_error_mode="thread_local"):
+            res = transformer_stack_paged_decode(attrs, ins)
+        self._static_next = res["NextTok"][0]
+        self._graph = graph
+        self.metrics.inc("decode_graph_captures")
+
+    def _decode_step_replay(self, feed) -> np.ndarray:
+        """One decode step as a replay of the captured graph: the host
+        feed goes into the static inputs (the mask only when a row is
+        masked now or was last time), then NextTok comes back."""
+        if self._graph is None:
+            self._capture_decode()
+        static = self._static
+        for key, arr in feed.items():
+            if key == "mask":
+                open_now = not (arr <= 0).any()
+                if open_now and self._mask_open:
+                    continue
+                self._mask_open = open_now
+            static[key].copy_(torch.from_numpy(arr), non_blocking=False)
+        self._graph.replay()
+        self.metrics.inc("decode_graph_replays")
+        return self._static_next.cpu().numpy()
+
+    def _decode_step(self, feed) -> np.ndarray:
+        if self.device.type == "cuda":
+            return self._decode_step_replay(feed)
+        return self._decode_step_eager(feed)
+
+    def _neutral_decode_feed(self) -> Dict[str, np.ndarray]:
+        feed = {"tok": np.zeros(self._nslots, np.int64),
+                "pos": np.zeros(self._nslots, np.int32),
+                "block_table": np.zeros((self._nslots, self.pmax),
+                                        np.int32)}
+        feed.update(self._neutral_sampling_feed(self._nslots))
+        return feed
+
+    def _decode_feed(self) -> Dict[str, np.ndarray]:
+        """The decode step's host feed: every decoding slot's token,
+        position, block table and policy; vacant and prefilling rows
+        neutral (scrap-page writes, greedy)."""
+        feed = self._neutral_decode_feed()
+        for s in range(self.slots):
+            st = self._slots[s]
+            if st is not None and st.state == "decode":
+                feed["tok"][s] = self._tok[s]
+                feed["pos"][s] = self._pos[s]
+                feed["block_table"][s, :len(st.pages)] = st.pages
+                # step = tokens this request has sampled so far: a pure
+                # function of the request, never of the batch around it
+                self._slot_sampling_feed(s, st, feed, step=len(st.generated))
+        return feed
+
+    # -- warmup ---------------------------------------------------------------
+    def _prefill_feed(self, bucket: int, tc: int) -> Dict[str, np.ndarray]:
+        feed = {"chunk": np.full((bucket, tc), _PAD_ID, np.int64),
+                "start": np.zeros(bucket, np.int32),
+                "chunk_len": np.zeros(bucket, np.int32),
+                "block_table": np.zeros((bucket, self.pmax), np.int32)}
+        feed.update(self._neutral_sampling_feed(bucket))
+        return feed
+
+    def warmup(self) -> int:
+        """Run every (chunk width x batch bucket) prefill shape, the decode
+        step (captured as a CUDA graph on the card) and the copy-on-write
+        page copy once before traffic arrives. Every warmup row writes the
+        scrap page, so live pages are never touched. Returns the number of
+        shapes run."""
+        combos = 0
+        for tc in self._chunk_widths:
+            for b in self.prefill_batch_buckets:
+                feed = self._prefill_feed(b, tc)
+                feed["chunk_len"][:] = 1
+                self._run_prefill_chunk(feed)
+                combos += 1
+        self._decode_step(self._neutral_decode_feed())
+        combos += 1
+        self._run_page_copy(0, 0)  # scrap onto itself: harmless
+        combos += 1
+        self.metrics.inc("warmup_compiles", combos)
+        return combos
+
+    # -- page bookkeeping -----------------------------------------------------
+    def _cow_guard(self, decoding) -> None:
+        """Before a decode tick writes position ``pos`` for each slot, any
+        target page still shared (refcount > 1: a prefix-cache page this
+        sequence is diverging from) is copied to a fresh page from the
+        slot's admission-time reserve and the block table redirected."""
+        for slot in decoding:
+            st = self._slots[slot]
+            entry = int(self._pos[slot]) // self.page_size
+            pid = st.pages[entry]
+            if self.pool.refcount(pid) <= 1:
+                continue
+            if st.cow_reserve > 0:
+                st.cow_reserve -= 1
+                new = self.pool.alloc(reserved=True)
+            else:  # defensive: never expected, but never corrupt a share
+                if self.pool.available() < 1 and self.prefix_index:
+                    self.prefix_index.evict_until(1)
+                new = self.pool.alloc()
+            self._run_page_copy(pid, new)
+            self.pool.decref(pid)
+            st.pages[entry] = new
+            self.metrics.inc("kv_cow_copies")
+
+    def _register_prefix(self, st: _PagedSlot,
+                         include_tail: bool = False) -> None:
+        """Publish the slot's fully-written prompt pages into the prefix
+        index (idempotent). Full pages register once prefilled; the
+        partial tail page only at finish."""
+        if self.prefix_index is None or st.prefill_done < st.prompt.size:
+            return
+        ps = self.page_size
+        prompt = st.prompt
+        n_full = prompt.size // ps
+        key = b""
+        for i in range(n_full):
+            key = self.prefix_index.insert(
+                key, prompt[i * ps:(i + 1) * ps], st.pages[i])
+        tail = prompt[n_full * ps:]
+        if include_tail and tail.size:
+            self.prefix_index.insert(key, tail, st.pages[n_full])
+
+    def _release_pages(self, st: _PagedSlot) -> None:
+        if self._prefix_sharing:
+            self._register_prefix(st, include_tail=True)
+        for pid in st.pages:
+            self.pool.decref(pid)
+        st.pages = []
+        if st.cow_reserve:
+            self.pool.release_reservation(st.cow_reserve)
+            st.cow_reserve = 0
+
+    def _finish(self, slot: int) -> None:
+        self._release_pages(self._slots[slot])
+        super()._finish(slot)
+
+    # -- admission ------------------------------------------------------------
+    def _validate(self, req: Request):
+        """Base validation plus the request's decode policy: a
+        SamplingParams merged request over engine default, field by
+        field; a sampled request without a seed gets the engine's next
+        default seed."""
+        prompt, max_new, eos = super()._validate(req)
+        meta = req.meta or {}
+        if int(meta.get("beam_size") or 0) > 1:
+            raise BadRequestError(_LATER.format("beam search (beam_size)"))
+        if meta.get("resume_tokens"):
+            raise BadRequestError(_LATER.format("resume-from-token recovery"))
+        sp = meta.get("sampling_params")
+        try:
+            sampling = (sp if isinstance(sp, SamplingParams)
+                        else SamplingParams.from_meta(
+                            meta, self.default_sampling))
+            sampling.validate(self.spec.vocab_size)
+        except (ValueError, TypeError) as exc:
+            raise BadRequestError(str(exc))
+        if sampling.sampled and sampling.seed is None:
+            sampling = sampling.with_seed(self._seed_counter)
+            self._seed_counter = (self._seed_counter + 1) & 0x7FFFFFFF
+        if sampling.max_tokens is not None \
+                and meta.get("max_new_tokens") is None:
+            max_new = int(sampling.max_tokens)
+            if prompt.size + max_new > self.tmax:
+                raise BadRequestError(
+                    f"prompt ({prompt.size}) + max_tokens ({max_new}) "
+                    f"exceeds the serving context ({self.tmax})")
+        return prompt, max_new, eos, sampling
+
+    def admit(self, requests: List[Request]) -> int:
+        """Admit a group of requests: prefix-cache lookup + page
+        allocation per request, then ONE bucketed prefill over everyone
+        whose unshared prompt remainder fits ``prefill_chunk``; longer
+        prompts claim their slot and stream in via :meth:`prefill_tick`.
+        Requests the pool cannot hold right now are DEFERRED (retried as
+        pages free); only a request that can never fit fails, typed.
+        Returns the number admitted to a slot."""
+        todo = []
+        for req in requests:
+            try:
+                todo.append((req, *self._validate(req)))
+            except BadRequestError as exc:
+                self.metrics.inc("bad_requests")
+                req.future.set_exception(exc)
+        if not todo:
+            return 0
+        group: list = []
+        admitted = 0
+        for item in todo:
+            if self._deferred:  # keep FIFO order behind blocked work
+                self._deferred.append(item)
+                continue
+            r = self._admit_one(*item, group=group)
+            if r == "ok":
+                admitted += 1
+            elif r == "defer":
+                self._deferred.append(item)
+        if group:
+            self._run_prefill_group(group)
+        self._gauges()
+        return admitted
+
+    def _admit_one(self, req, prompt, max_new, eos, sampling, group) -> str:
+        """Claim a slot + pages for one validated request. Returns "ok"
+        (slot taken; short prefills appended to ``group``), "defer"
+        (transient pool/slot pressure), or "failed" (future completed
+        with CacheExhaustedError: the request can NEVER fit)."""
+        if self.free_slots < 1:
+            self.metrics.inc("admission_deferred")
+            return "defer"
+        plen = int(prompt.size)
+        entries_total = self._entries_for(plen + max_new)
+        # a shared prefix trades >= 1 allocated page for <= 1
+        # copy-on-write spare, so entries_total > capacity can NEVER fit
+        if entries_total > self.pool.capacity:
+            self.metrics.inc("cache_exhausted")
+            req.future.set_exception(CacheExhaustedError(
+                f"prompt ({plen}) + max_new_tokens ({max_new}) needs "
+                f"{entries_total} pages but the pool holds only "
+                f"{self.pool.capacity} allocatable pages of "
+                f"{self.page_size} tokens: shrink the request or grow "
+                f"n_pages", pages_needed=entries_total,
+                pages_free=self.pool.capacity))
+            return "failed"
+        shared, spages = 0, []
+        if self.prefix_index is not None:
+            shared, spages, _ = self.prefix_index.lookup(prompt)
+        own = entries_total - len(spages)
+        cow = 1 if shared == plen else 0  # generation writes a shared page
+        need = own + cow
+        for pid in spages:  # hold the prefix before any eviction runs
+            self.pool.incref(pid)
+        if self.pool.available() < need:
+            if self.prefix_index is not None:
+                self.prefix_index.evict_until(need)
+            if self.pool.available() < need:
+                for pid in spages:
+                    self.pool.decref(pid)
+                self.metrics.inc("admission_deferred")
+                return "defer"
+        owned = [self.pool.alloc() for _ in range(own)]
+        if cow:
+            self.pool.reserve(cow)
+        slot = self._slots.index(None)
+        st = _PagedSlot(req, prompt, max_new, eos, sampling)
+        st.pages = list(spages) + owned
+        st.shared_tokens = shared
+        st.cow_reserve = cow
+        st.prefill_done = shared
+        self.metrics.observe_hist("queue_wait", st.timeline.queue_wait_s)
+        self._slots[slot] = st
+        if shared:
+            self.metrics.inc("prefix_hits")
+            self.metrics.inc("prefix_hit_tokens", shared)
+        remaining = plen - shared
+        if remaining == 0:
+            # full prefix hit: skip prefill and enter the decode loop one
+            # step behind; re-feeding the last prompt token at its own
+            # position re-derives the K/V the shared page holds (through
+            # the copy-on-write guard) and yields the first token
+            st.state = "decode"
+            self._tok[slot] = prompt[-1]
+            self._pos[slot] = plen - 1
+        elif remaining <= self.prefill_chunk:
+            st.state = "prefill"
+            group.append((req, st, slot))
+        else:
+            st.state = "prefill"  # streams via prefill_tick
+        return "ok"
+
+    def _run_prefill_group(self, group) -> None:
+        """One bucketed prefill call over freshly admitted requests whose
+        unshared remainder fits a single chunk (mixed prefix offsets ride
+        the per-row StartPos plane). A group beyond the largest batch
+        bucket splits into bucket-sized calls."""
+        cap = self.prefill_batch_buckets[-1]
+        if len(group) > cap:
+            for i in range(0, len(group), cap):
+                self._run_prefill_group(group[i:i + cap])
+            return
+        rem = [st.prompt.size - st.prefill_done for _, st, _ in group]
+        tc = self._chunk_bucket_for(max(rem))
+        bucket = self._batch_bucket_for(len(group))
+        feed = self._prefill_feed(bucket, tc)
+        for row, (req, st, slot) in enumerate(group):
+            r = rem[row]
+            feed["chunk"][row, :r] = st.prompt[st.prefill_done:]
+            feed["start"][row] = st.prefill_done
+            feed["chunk_len"][row] = r
+            feed["block_table"][row, :len(st.pages)] = st.pages
+            self._slot_sampling_feed(row, st, feed, step=len(st.generated))
+        t0 = time.perf_counter()
+        first = self._run_prefill_chunk(feed)
+        self.metrics.observe_latency(time.perf_counter() - t0,
+                                     name="prefill")
+        self.metrics.inc("prefills")
+        self.metrics.set_gauge("prefill_occupancy", len(group) / bucket)
+        for row, (req, st, slot) in enumerate(group):
+            st.prefill_done = st.prompt.size
+            self._register_prefix(st)
+            st.state = "decode"
+            self._tok[slot] = first[row]
+            self._pos[slot] = st.prompt.size
+            self._emit(slot, int(first[row]))
+
+    def _admit_deferred(self) -> int:
+        """Retry pool-blocked admissions in arrival order. Expired ones
+        time out; when the engine is COMPLETELY idle and the head still
+        cannot fit, nothing will ever free its pages: it fails typed."""
+        admitted = 0
+        while self._deferred:
+            req, prompt, max_new, eos, sampling = self._deferred[0]
+            if req.expired():
+                self._deferred.popleft()
+                self.metrics.inc("timeouts")
+                req.future.set_exception(RequestTimeoutError(
+                    "request deadline expired while deferred on the KV "
+                    "page pool"))
+                continue
+            if self.free_slots == 0:
+                break
+            group: list = []
+            r = self._admit_one(req, prompt, max_new, eos, sampling,
+                                group=group)
+            if r == "defer":
+                if self.active == 0 and admitted == 0:
+                    self._deferred.popleft()
+                    need = self._entries_for(prompt.size + max_new)
+                    self.metrics.inc("cache_exhausted")
+                    req.future.set_exception(CacheExhaustedError(
+                        f"KV page pool cannot free the {need} pages this "
+                        f"request needs ({self.pool.available()} "
+                        "available and no requests in flight)",
+                        pages_needed=need,
+                        pages_free=self.pool.available()))
+                    continue
+                break
+            self._deferred.popleft()
+            if group:
+                self._run_prefill_group(group)
+            if r == "ok":
+                admitted += 1
+        if admitted:
+            self._gauges()
+        return admitted
+
+    # -- the tick loop --------------------------------------------------------
+    @property
+    def prefilling(self) -> int:
+        return sum(1 for s in self._slots
+                   if s is not None and s.state == "prefill")
+
+    def prefill_tick(self) -> bool:
+        """Advance ONE prefilling slot by one chunk (<= prefill_chunk
+        tokens), round-robin across prefilling slots; returns True when a
+        chunk ran."""
+        order = [(self._pf_cursor + i) % self.slots
+                 for i in range(self.slots)]
+        slot = next((i for i in order if self._slots[i] is not None
+                     and self._slots[i].state == "prefill"), None)
+        if slot is None:
+            return False
+        self._pf_cursor = (slot + 1) % self.slots
+        st = self._slots[slot]
+        plen = int(st.prompt.size)
+        start0 = st.prefill_done
+        k = min(self.prefill_chunk, plen - start0)
+        feed = self._prefill_feed(self._batch_bucket_for(1),
+                                  self._chunk_bucket_for(k))
+        feed["chunk"][0, :k] = st.prompt[start0:start0 + k]
+        feed["start"][0] = start0
+        feed["chunk_len"][0] = k
+        feed["block_table"][0, :len(st.pages)] = st.pages
+        self._slot_sampling_feed(0, st, feed, step=len(st.generated))
+        t0 = time.perf_counter()
+        first = self._run_prefill_chunk(feed)
+        self.metrics.observe_latency(time.perf_counter() - t0,
+                                     name="prefill_chunk")
+        self.metrics.inc("prefill_chunks")
+        st.prefill_done = start0 + k
+        if st.prefill_done >= plen:
+            self.metrics.inc("prefills")
+            self._register_prefix(st)
+            st.state = "decode"
+            self._tok[slot] = first[0]
+            self._pos[slot] = plen
+            self._emit(slot, int(first[0]))
+            self._gauges()
+        return True
+
+    def decode_tick(self) -> bool:
+        """Advance every DECODING slot one token (prefilling slots sit
+        out: their block tables are mid-write). One step, the same shape
+        whatever the occupancy or policy mix."""
+        decoding = [s for s in range(self.slots)
+                    if self._slots[s] is not None
+                    and self._slots[s].state == "decode"]
+        if not decoding:
+            return False
+        self._cow_guard(decoding)
+        t0 = time.perf_counter()
+        nxt = self._decode_step(self._decode_feed())
+        self.metrics.observe_latency(time.perf_counter() - t0,
+                                     name="decode_step")
+        self.metrics.inc("decode_steps")
+        self.metrics.inc("decode_tokens", len(decoding))
+        self.metrics.set_gauge("batch_occupancy",
+                               len(decoding) / self.slots)
+        for slot in decoding:
+            if self._slots[slot] is None:
+                continue
+            self._pos[slot] += 1
+            self._tok[slot] = nxt[slot]
+            self._emit(slot, int(nxt[slot]))
+        self._gauges()
+        return True
+
+    # -- state ----------------------------------------------------------------
+    def _gauges(self):
+        super()._gauges()
+        self.metrics.set_gauge("mem/kv_pages_in_use",
+                               self.pool.pages_in_use())
+        self.metrics.set_gauge("mem/kv_pages_free", self.pool.available())
+        if self.prefix_index is not None:
+            self.metrics.set_gauge("kv_prefix_entries",
+                                   len(self.prefix_index))
+
+    def cache_stats(self) -> dict:
+        """The page pool and prefix index, flattened to numbers, and the
+        decode graph's captures and replays."""
+        stats = {f"kv_pages_{k}": v for k, v in self.pool.stats().items()}
+        if self.prefix_index is not None:
+            for k, v in self.prefix_index.stats().items():
+                stats[f"kv_prefix_{k}"] = v
+        for name in ("decode_graph_captures", "decode_graph_replays"):
+            stats[name] = self.metrics.counter(name)
+        return stats
+
+    # -- hard engine death ----------------------------------------------------
+    def kill(self, reason: str = "chaos") -> int:
+        """Paged kill: the deferred queue dies with the slots (every
+        future fails retryable) and pages go back to the pool."""
+        exc = ConnectionError(f"replica killed mid-stream ({reason})")
+        for st in self._slots:
+            if st is not None and st.pages:
+                self._release_pages(st)
+        failed = super().kill(reason)
+        while self._deferred:
+            req = self._deferred.popleft()[0]
+            if not req.future.done():
+                req.future.set_exception(exc)
+                failed += 1
+        self._gauges()
+        return failed
+
+    # -- later slices ---------------------------------------------------------
+    def generate_beam(self, *args, **kw):
+        raise NotImplementedError(_LATER.format("beam search "
+                                                "(generate_beam)"))
+
+    def export_slot(self, slot: int):
+        raise NotImplementedError(_LATER.format("KV handoff (export_slot)"))
+
+    def adopt_slot(self, handoff):
+        raise NotImplementedError(_LATER.format("KV handoff (adopt_slot)"))
+
+    def swap_params(self, source, *, strict: bool = True):
+        raise NotImplementedError(_LATER.format("rolling weight update "
+                                                "(swap_params)"))
+
+    def warm_from_manifest(self, *args, **kw):
+        raise NotImplementedError(_LATER.format("warmup manifests"))
+
+    def save_manifest(self, *args, **kw):
+        raise NotImplementedError(_LATER.format("warmup manifests"))
+
+    # -- server-driver interface ----------------------------------------------
+    def serve_step(self, batcher,
+                   idle_wait_s: Optional[float] = None) -> bool:
+        """One engine tick: retry deferred admissions, admit queued
+        requests into free slots, advance one prefill chunk, then one
+        decode step."""
+        if self._killed:
+            return self._drain_killed(batcher)
+        did = self._admit_deferred() > 0
+        free = self.free_slots
+        if free and not self._deferred:
+            wait = 0 if (self.active or did) else idle_wait_s
+            reqs = batcher.next_batch(max_n=free, wait_s=wait)
+            if reqs:
+                did = self.admit(reqs) > 0 or did
+        did = self.prefill_tick() or did
+        did = self.decode_tick() or did
+        return did
+
+    def _drive(self, reqs: List[Request]) -> None:
+        """Run the engine loop until every given request completes."""
+        pending = list(reqs)
+        while pending or self.active or self._deferred:
+            if pending and self.free_slots and not self._deferred:
+                k = min(len(pending), self.free_slots)
+                self.admit(pending[:k])
+                pending = pending[k:]
+            self._admit_deferred()
+            self.prefill_tick()
+            self.decode_tick()
+
+    def generate_all(self, prompts: Sequence[Sequence[int]],
+                     max_new_tokens: Optional[int] = None,
+                     eos_id: Optional[int] = None,
+                     sampling=None) -> List[np.ndarray]:
+        """``sampling``: one SamplingParams for every prompt, or a list
+        (one per prompt): mixed policies ride one continuous batch."""
+        prompts = list(prompts)
+        max_new = max_new_tokens or self.default_max_new_tokens
+        if sampling is None or isinstance(sampling, SamplingParams):
+            sampling = [sampling] * len(prompts)
+        reqs = [Request({"prompt": p},
+                        {"max_new_tokens": max_new, "eos_id": eos_id,
+                         "sampling_params": sp}, None)
+                for p, sp in zip(prompts, sampling)]
+        self._drive(reqs)
         return [r.future.result(timeout=0.1) for r in reqs]

@@ -4,8 +4,13 @@ Counterpart of ``paddle_tpu/serving/server.py``: ``Server`` owns the
 DynamicBatcher and a daemon dispatch loop that drives each engine's
 ``serve_step`` — a GenerationEngine interleaves prefill admissions with
 decode ticks (continuous batching). Several engines round-robin the
-shared queue. The HTTP endpoint, the feedback plane, fault plans and
-SLO tracking come with later slices of the port.
+shared queue. A request's meta carries its decode policy
+(``GENERATE_META``: temperature, top_k, top_p, seed, stop beside
+max_new_tokens and eos_id), which the paged engine merges over its
+default field by field; a request the paged KV cache can never hold
+fails its future with ``CacheExhaustedError``, a malformed one with
+``BadRequestError``. The HTTP endpoint, the feedback plane, fault plans
+and SLO tracking come with later slices of the port.
 """
 from __future__ import annotations
 
@@ -18,6 +23,10 @@ import numpy as np
 from .batcher import DynamicBatcher, Future
 
 _IDLE_WAIT_S = 0.02  # dispatch-loop poll when the queue is empty
+# the request fields a generate call carries (the /v1/generate schema of
+# the JAX package's server, without its beam and routing fields)
+GENERATE_META = ("max_new_tokens", "eos_id", "temperature", "top_k",
+                 "top_p", "seed", "stop")
 
 log = logging.getLogger(__name__)
 
@@ -82,10 +91,17 @@ class Server:
 
     def generate(self, prompt, max_new_tokens: Optional[int] = None,
                  eos_id: Optional[int] = None,
-                 timeout_s: Optional[float] = 60.0) -> np.ndarray:
-        """Blocking convenience wrapper around submit()."""
+                 timeout_s: Optional[float] = 60.0,
+                 **sampling) -> np.ndarray:
+        """Blocking convenience wrapper around submit(). ``sampling``:
+        the request's temperature, top_k, top_p, seed and stop."""
+        unknown = set(sampling) - set(GENERATE_META)
+        if unknown:
+            raise TypeError(f"unknown generate fields {sorted(unknown)}; "
+                            f"a request carries {GENERATE_META}")
         fut = self.submit({"prompt": prompt},
-                          max_new_tokens=max_new_tokens, eos_id=eos_id)
+                          max_new_tokens=max_new_tokens, eos_id=eos_id,
+                          **sampling)
         return fut.result(timeout=timeout_s)
 
     def metrics_snapshot(self) -> dict:

@@ -262,12 +262,6 @@ def test_engine_wide_sampling_draws_from_a_seeded_generator(ref):
         _engine(params, top_k=VOCAB + 1)
 
 
-@pytest.mark.parametrize("kv_cache", [None, "paged"])
-def test_paged_kv_cache_is_not_ported_yet(ref, kv_cache):
-    with pytest.raises(NotImplementedError, match="paged"):
-        GenerationEngine(_spec(), ref[0], kv_cache=kv_cache, device="cpu")
-
-
 def test_construction_without_cuda_and_without_device_raises(ref,
                                                              monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
