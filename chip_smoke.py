@@ -86,9 +86,26 @@ Phases, each fatal on failure (nonzero exit, no result line):
    statistics are summed in f64), 33 conv1x1_stats and 33 scale_shift_act
    launches per step, and a finite, falling loss over the timed steps on
    one fixed batch; profiles one step (``chiprun_out/resnet_profile.txt``).
-10. ResNet-50 inference: the ``clone(for_test=True)`` program on the
-    trained scope at batch 16: logits against the plain path and 33
-    conv1x1_epilogue launches per batch.
+10. ResNet-50 inference, eager and served: the ``clone(for_test=True)``
+    program on the trained scope at batch 16 through the eager
+    ``Executor`` (logits against the plain path, 33 conv1x1_epilogue
+    launches per batch, 10 timed batches); then the JAX package's
+    deployment path: ``io.save_inference_model(transpile=True)`` (op
+    counts before and after the inference pipeline: 33 conv1x1_bn_act,
+    no batch_norm left), ``InferenceEngine(model_dir, CUDAPlace(0))``
+    whose ``warmup()`` captures one CUDA graph per batch bucket (1, 2, 4,
+    8, 16, 32). The replay at batch 16 is held against the eager run of
+    the loaded program (bitwise is the target), its plain path (kernels
+    off) and the untranspiled for_test clone; one profiled replay must
+    launch the conv1x1_epilogue GEMM 33 times. Times 10 replays after 2
+    warm beside the eager executor, then serves a wave through ``Server``:
+    64 single-image requests while one 40-row ``run`` chunks into 32 + 8
+    (images/s, p50/p99 latency, batches, occupancy).
+10b. Attention rewrite: a primitive matmul -> softmax -> matmul program
+    (B4 H8 T512 D64, non-causal) through the inference pipeline becomes
+    one ``scaled_dot_product_attention`` op, run with and without a
+    ``Length`` input: each run launches the flash forward once and
+    matches its plain version.
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -1367,6 +1384,20 @@ def _profile_step(run, path="train_profile.txt",
 RESNET = dict(size=224, classes=1000, depth=50, batch=256, infer_batch=16,
               lr=0.1, momentum=0.9)
 FUSED_OPS = 33  # conv1x1_bn_act ops of ResNet-50 under the flag
+# Phase 10's served path: the JAX InferenceEngine's default buckets, and
+# a wave of single-image requests beside one batch that chunks.
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)
+WAVE_SINGLES, WAVE_RUN = 64, 40
+# The transpiled model (BN folded into the 3x3 and 7x7 filters) against
+# the untranspiled for_test clone: folding rounds differently. Measured on
+# the CPU at ResNet-50's depth (64 x 64 images, batch 2, seeded startup):
+# 1.1e-6 of the largest |logit|; allow 1e-4 of it, as for the kernels.
+TRANSPILE_RTOL = 1e-4
+# A replay against the eager run of the same loaded program: the same
+# kernels on the same inputs. Bitwise is the target; allow 1e-6 of the
+# largest |logit| (deterministic kernels, cuDNN's choice of algorithm).
+REPLAY_RTOL = 1e-6
+ATTN = dict(B=4, H=8, T=512, D=64)
 # Kernel against plain version, f32 on both sides:
 # - GEMM outputs (y of conv1x1_stats, conv1x1_epilogue's out): K <= 2048
 #   products as 3xTF32 on the tensor cores (f32-accurate operands), each
@@ -1950,10 +1981,280 @@ def resnet_inference_phase(records, built, scope):
           f"batches ({[round(x * 1e3, 2) for x in batch_s]} ms), "
           f"{B / med:.1f} images/s; conv1x1_epilogue launches per batch "
           f"{launches[1] // 10}")
+    served = resnet_serving_phase(built, scope, feed, kern)
     return {"batch": B, "batch_ms": [x * 1e3 for x in batch_s],
             "batch_ms_median": med * 1e3, "images_per_s": B / med,
             "logits_max_abs_err": err, "logits_max_abs": ref,
-            "launches_per_batch": launches[1] // 10}
+            "launches_per_batch": launches[1] // 10, "served": served}
+
+
+def _count_kernels(run, names):
+    """Launches per kernel-name substring in a torch.profiler trace of
+    one ``run()``; None where the trace holds no device kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a trace now and then comes back without kernels
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            return {n: sum(e.count for e in events if n in e.key)
+                    for n in names}
+    return None
+
+
+def resnet_serving_phase(built, scope, feed, untranspiled):
+    """Phase 10's served path: save the for_test program through the
+    inference transpiler, load it into InferenceEngine (one CUDA graph
+    per bucket), hold the replay against the eager, plain and
+    untranspiled runs, count its kernels, time it, and serve a wave."""
+    import collections
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+
+    c = RESNET
+    B = c["infer_batch"]
+    test_prog, logits = built[2], built[4]
+    exe = pt.Executor(pt.CUDAPlace())
+    model_dir = ROOT / "build" / "resnet50_inference"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    before = collections.Counter(
+        op.type for op in pt.io.prune_program(
+            test_prog, ["images"], [logits.name]).global_block.ops)
+    torch.cuda.empty_cache()
+    _reset_conv_counts(ke)
+    t0 = time.perf_counter()
+    pt.flags.FLAGS.fused_conv_epilogue = True
+    try:
+        pt.io.save_inference_model(str(model_dir), ["images"], [logits], exe,
+                                   main_program=test_prog, scope=scope)
+    finally:
+        pt.flags.FLAGS.fused_conv_epilogue = False
+    save_s = time.perf_counter() - t0
+    meta = pt.io.read_inference_model_meta(str(model_dir))
+    after = collections.Counter(op["type"] for op in
+                                meta["program"]["blocks"][0]["ops"])
+    print(f"resnet serving: saved in {save_s:.2f} s; ops before the "
+          f"inference pipeline {sum(before.values())} {dict(before)}, after "
+          f"{sum(after.values())} {dict(after)}")
+    assert after["conv1x1_bn_act"] == FUSED_OPS and not after["batch_norm"]
+
+    t0 = time.perf_counter()
+    eng = pt.InferenceEngine(str(model_dir), place=pt.CUDAPlace(0),
+                             batch_buckets=SERVE_BUCKETS)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warmed = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    path_launches = _conv_counts(ke)
+    assert warmed == len(SERVE_BUCKETS), warmed
+    assert eng.cache_stats()["graphs"] == len(SERVE_BUCKETS)
+    assert path_launches[1] > 0 and path_launches[0] == path_launches[2] == 0
+    print(f"resnet serving: loaded in {load_s:.2f} s; warmup captured "
+          f"{eng.cache_stats()['graphs']} CUDA graphs (buckets "
+          f"{list(SERVE_BUCKETS)}) in {warm_s:.2f} s; conv1x1_epilogue "
+          f"wrapper launches while loading and capturing {path_launches[1]}")
+
+    x = feed["images"].cpu().numpy()
+    replay = eng.run({"images": x})[0]
+    dev_feed = {"images": feed["images"]}
+    eager = exe.run(eng.program, feed=dev_feed, fetch_list=eng.fetch_names,
+                    scope=eng.scope)[0]
+    plain = _plain_step(exe, eng.program, dev_feed, eng.fetch_names,
+                        eng.scope, ke)[0].cpu().numpy()
+    untr = untranspiled.cpu().numpy()
+    assert replay.shape == (B, c["classes"]) and np.isfinite(replay).all()
+    ref = float(np.abs(plain).max())
+    errs = {"eager": float(np.abs(replay - eager).max()),
+            "plain": float(np.abs(replay - plain).max()),
+            "untranspiled": float(np.abs(replay - untr).max())}
+    bitwise = bool(np.array_equal(replay, eager))
+    print(f"resnet serving: replay at batch {B} vs the eager run of the "
+          f"loaded program max abs err {errs['eager']:.3e} (bitwise "
+          f"{bitwise}; tol {REPLAY_RTOL} of max |logit| {ref:.3e}), vs its "
+          f"plain path {errs['plain']:.3e} (tol {LOGIT_RTOL} of it), vs the "
+          f"untranspiled for_test clone {errs['untranspiled']:.3e} (tol "
+          f"{TRANSPILE_RTOL} of it)")
+    assert errs["eager"] <= REPLAY_RTOL * ref, errs
+    assert errs["plain"] <= LOGIT_RTOL * ref, errs
+    assert errs["untranspiled"] <= TRANSPILE_RTOL * ref, errs
+
+    names = ("conv1x1_tf32x3_kernel", "split_w_kernel",
+             "scale_shift_act_kernel")
+    counted = _count_kernels(lambda: eng.run({"images": x}), names)
+    assert counted is not None, "the replay's trace held no device kernels"
+    print(f"resnet serving: one profiled replay launched {counted}")
+    assert counted["conv1x1_tf32x3_kernel"] == FUSED_OPS, counted
+    assert counted["split_w_kernel"] == FUSED_OPS, counted
+
+    def timed(fn, n=10, warm=2):
+        for _ in range(warm):
+            fn()
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t1)
+        return out
+
+    rep_s = timed(lambda: eng.run({"images": x}))
+    eager_s = timed(lambda: exe.run(eng.program, feed={"images": x},
+                                    fetch_list=eng.fetch_names,
+                                    scope=eng.scope))
+    graph, static_in, _ = eng._graphs[(("images", tuple(x.shape)),)]
+    device_ms = _device_ms(graph.replay)
+    profile = _profile_step(
+        graph.replay, "resnet_serving_profile.txt",
+        # the port's kernels, cuDNN's ("cudnn", "engine", "xmma"),
+        # cuBLAS ("gemm"), torch's own
+        groups=("conv1x1_tf32x3_kernel", "split_w_kernel",
+                "scale_shift_act_kernel", "cudnn", "engine", "xmma", "gemm",
+                "elementwise", "reduce", "pool"))
+    rep_med, eager_med = float(np.median(rep_s)), float(np.median(eager_s))
+    print(f"resnet serving: batch {B} replayed {rep_med * 1e3:.3f} ms median "
+          f"({B / rep_med:.1f} images/s; {[round(t * 1e3, 3) for t in rep_s]}"
+          f" ms), the graph alone {_ms_text(device_ms)} ms of device time; "
+          f"the eager executor on the loaded program {eager_med * 1e3:.3f} ms "
+          f"({B / eager_med:.1f} images/s)")
+
+    # the wave: single-image requests through Server while one 40-row run
+    # chunks into 32 + 8 on this thread
+    gen = torch.Generator().manual_seed(SEED + 7)
+    rows = torch.randn(WAVE_SINGLES, c["size"], c["size"], 3,
+                       generator=gen).numpy()
+    big = torch.randn(WAVE_RUN, c["size"], c["size"], 3,
+                      generator=gen).numpy()
+    m0 = dict(eng.metrics.snapshot()["counters"])
+    srv = pt.Server(eng, max_wait_ms=5.0).start()
+    try:
+        t0 = time.perf_counter()
+        futs = [srv.submit({"images": r}) for r in rows]
+        big_out = eng.run({"images": big})[0]
+        served = [f.result(timeout=300)[0] for f in futs]
+        wave_s = time.perf_counter() - t0
+        snap = srv.metrics_snapshot()
+    finally:
+        srv.stop()
+    m1 = snap["counters"]
+    assert m1.get("dispatch_errors", 0) == 0, m1
+    assert big_out.shape == (WAVE_RUN, c["classes"])
+    assert np.isfinite(big_out).all() and np.isfinite(served).all()
+    # the rows against runs of the same rows in fixed buckets: the buckets
+    # a row rides in differ, so the rounding may (tolerance as transpiled)
+    alone = eng.run({"images": rows})[0]
+    wave_err = float(np.abs(np.stack(served) - alone).max())
+    ref_w = float(np.abs(alone).max())
+    assert wave_err <= TRANSPILE_RTOL * ref_w, (wave_err, ref_w)
+    np.testing.assert_array_equal(eng.run({"images": big})[0], big_out)
+    batches = m1["batches_executed"] - m0.get("batches_executed", 0)
+    rows_run = m1["rows_executed"] - m0.get("rows_executed", 0)
+    cap = m1["bucket_rows_executed"] - m0.get("bucket_rows_executed", 0)
+    lat = snap["latency"]["request_ms"]
+    images = WAVE_SINGLES + WAVE_RUN
+    print(f"resnet serving: wave of {WAVE_SINGLES} single-image requests + "
+          f"one {WAVE_RUN}-row run in {wave_s * 1e3:.1f} ms: "
+          f"{images / wave_s:.1f} images/s, request latency mean "
+          f"{lat['mean']:.1f} ms p50 {lat['p50']:.1f} ms p99 "
+          f"{lat['p99']:.1f} ms, {batches} batches, "
+          f"occupancy {rows_run / cap:.3f} ({rows_run} rows in {cap} bucket "
+          f"rows); served rows vs a 64-row run max abs err {wave_err:.3e}")
+    eng.close()
+    del eng, graph, static_in
+    torch.cuda.empty_cache()
+    return {"ops_before": dict(before), "ops_after": dict(after),
+            "save_s": save_s, "load_s": load_s, "warmup_s": warm_s,
+            "graphs": len(SERVE_BUCKETS),
+            "capture_path_epilogue_launches": path_launches[1],
+            "replay_kernels": counted, "errors": errs,
+            "replay_bitwise_eager": bitwise, "logits_max_abs": ref,
+            "replay_ms": [t * 1e3 for t in rep_s],
+            "replay_ms_median": rep_med * 1e3,
+            "replay_device_ms": device_ms, "replay_profile": profile,
+            "replay_images_per_s": B / rep_med,
+            "eager_ms": [t * 1e3 for t in eager_s],
+            "eager_ms_median": eager_med * 1e3,
+            "eager_images_per_s": B / eager_med,
+            "wave": {"images": images, "seconds": wave_s,
+                     "images_per_s": images / wave_s,
+                     "mean_ms": lat["mean"], "p50_ms": lat["p50"],
+                     "p99_ms": lat["p99"],
+                     "batches": batches, "rows": rows_run,
+                     "bucket_rows": cap, "occupancy": rows_run / cap,
+                     "max_abs_err": wave_err}}
+
+
+def attention_rewrite_phase():
+    """Phase 10b: a primitive attention program transpiled onto the
+    flash forward, run without and with ``Length``."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    a = ATTN
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        q, k, v = (pt.layers.data(n, [a["H"], a["T"], a["D"]])
+                   for n in ("q", "k", "v"))
+        s = pt.layers.matmul(q, k, transpose_y=True,
+                             alpha=1.0 / a["D"] ** 0.5)
+        o = pt.layers.matmul(pt.layers.softmax(s), v)
+    pm = pt.transpiler.inference_pipeline()
+    prog = pm.run(main.clone(for_test=True), ["q", "k", "v"], [o.name],
+                  scope=pt.Scope())
+    (op,) = prog.global_block.ops
+    assert op.type == "scaled_dot_product_attention", op.type
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    shape = (a["B"], a["H"], a["T"], a["D"])
+    feed = {n: torch.randn(shape, device="cuda", generator=gen)
+            for n in ("q", "k", "v")}
+    T = a["T"]  # one full row, two ragged, one of a single key
+    lengths = torch.tensor([T, T * 3 // 5, T // 7, 1][:a["B"]],
+                           dtype=torch.int32, device="cuda")
+    exe = pt.Executor(pt.CUDAPlace())
+    result = {}
+    for tag, lens in (("full", None), ("length", lengths)):
+        if lens is not None:  # a padded batch: each row's true length
+            prog.global_block.create_var(name="length", shape=[-1],
+                                         dtype="int32", is_data=True)
+            op.inputs["Length"] = ["length"]
+            prog._bump()
+        fa.flash_attention.launches = 0
+        run_feed = dict(feed, **({"length": lens} if lens is not None
+                                 else {}))
+        got, = exe.run(prog, feed=run_feed, fetch_list=[o.name],
+                       return_numpy=False)
+        launches = fa.flash_attention.launches
+        want = fa.flash_attention_reference(
+            feed["q"], feed["k"], feed["v"], lens, False,
+            1.0 / a["D"] ** 0.5)[0]
+        err = _max_err(got, want)
+        print(f"attention rewrite ({tag}): B{a['B']} H{a['H']} T{a['T']} "
+              f"D{a['D']} non-causal, one scaled_dot_product_attention op "
+              f"from {pm.results[0].ops_before} ops; flash forward launches "
+              f"per run {launches}; max abs err vs plain {err:.3e} (tol "
+              f"{ATOL} + {RTOL} rel)")
+        assert launches == 1, launches
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+        result[tag] = {"launches": launches, "max_abs_err": err}
+    return result
 
 
 def main():
@@ -2054,6 +2355,7 @@ def main():
         _fused_shapes(resnet[2], RESNET["infer_batch"]))
     scope, resnet_training = resnet_training_phase(conv, gpu, resnet)
     resnet_inference = resnet_inference_phase(conv, resnet, scope)
+    attention = attention_rewrite_phase()
     records = [kern] + bwd + conv
 
     out = ROOT / "chiprun_out"
@@ -2063,7 +2365,8 @@ def main():
          "kernels": records, "serving": serving, "paged_serving": paged,
          "training": training,
          "tf32_check": tf32, "resnet_training": resnet_training,
-         "resnet_inference": resnet_inference, "build_s": built}, indent=1))
+         "resnet_inference": resnet_inference,
+         "attention_rewrite": attention, "build_s": built}, indent=1))
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records]}))
     print(smi)

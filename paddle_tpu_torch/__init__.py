@@ -41,11 +41,13 @@ from .core.executor import CPUPlace, CUDAPlace, Executor  # noqa: E402
 from .core.program import (Program, default_main_program,  # noqa: E402
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
-from . import flags, layers, models, optimizer  # noqa: E402
+from . import flags, io, layers, models, optimizer  # noqa: E402
+from . import initializer, transpiler  # noqa: E402
 from .serving import (BadRequestError, CacheExhaustedError,  # noqa: E402
                       DynamicBatcher, EngineClosedError, Future,
-                      GenerationEngine, LMSpec, MetricsRegistry,
-                      PagedGenerationEngine, QueueFullError, Request,
+                      GenerationEngine, InferenceEngine, LMSpec,
+                      MetricsRegistry, PagedGenerationEngine,
+                      PendingInference, QueueFullError, Request,
                       RequestTimeoutError, Server, ServingError)
 from .decoding import SamplingParams  # noqa: E402
 from .models.transformer import TransformerLM, init_params  # noqa: E402
@@ -53,11 +55,13 @@ from .models.transformer import TransformerLM, init_params  # noqa: E402
 __all__ = [
     "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
     "default_main_program", "default_startup_program", "flags",
-    "global_scope",
+    "global_scope", "initializer", "io",
     "layers", "models", "optimizer", "program_guard", "scope_from_numpy",
+    "transpiler",
     "BadRequestError", "CacheExhaustedError", "DynamicBatcher",
-    "EngineClosedError", "Future", "GenerationEngine", "LMSpec",
-    "MetricsRegistry", "PagedGenerationEngine", "QueueFullError",
+    "EngineClosedError", "Future", "GenerationEngine", "InferenceEngine",
+    "LMSpec", "MetricsRegistry", "PagedGenerationEngine",
+    "PendingInference", "QueueFullError",
     "Request", "RequestTimeoutError", "SamplingParams", "Server",
     "ServingError",
     "TransformerLM", "init_params", "resolve_device",

@@ -20,10 +20,13 @@ What the interpreter does in place of XLA's whole-program view:
   their inputs, so ``assign`` may hand on the same tensor and a ``@PRE``
   snapshot can never see a later write.
 
-Randomness: ops that draw (startup's ``uniform_random``) draw in program
-order from one ``torch.Generator`` on the run's device, seeded from
-``program.random_seed`` (0 when unset) and kept in the scope. Its bits
-differ from JAX's threefry: the RNG plane is a later slice of the port.
+Randomness is the JAX package's scope key: the first run that draws
+seeds ``prng_key(program.random_seed)`` (``FLAGS.seed`` when the program
+sets none) under ``RNG_VAR`` in the scope, and every op that draws splits
+it in program order, ``rng, sub = split(rng)``, and draws from ``sub``
+(``core/prng.py``, bit-exact with ``jax.random``); the advanced key goes
+back to the scope after the run. So startup values and dropout masks
+equal the JAX executor's for the same seed.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from . import prng
 from . import program as prog_mod
 from .backward import VJP_KEY, apply_vjp, forward_with_vjp
 from .enforce import EnforceError, op_error
@@ -105,12 +109,15 @@ class Executor:
         self._plans[id(program)] = (program, program.version, plan)
         return plan
 
-    def _rng(self, program: Program, scope: Scope) -> torch.Generator:
+    def _rng_state(self, program: Program, scope: Scope):
+        """The scope key, seeded on first use from the program's
+        ``random_seed`` or else ``FLAGS.seed``."""
         if not scope.has(RNG_VAR):
-            seed = program.random_seed if program.random_seed is not None else 0
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(int(seed))
-            scope.set(RNG_VAR, gen)
+            from ..flags import FLAGS
+
+            seed = (program.random_seed if program.random_seed is not None
+                    else FLAGS.seed)
+            scope.set(RNG_VAR, prng.prng_key(int(seed), device=self.device))
         return scope.get(RNG_VAR)
 
     def _normalize_feeds(self, block, feed: Dict[str, Any]):
@@ -147,8 +154,10 @@ class Executor:
         state_read: set = set()
         vjps: Dict[str, tuple] = {}
         rng = None
-        if any(op_uses_rng(get_op(op.type), op.attrs) for op in block.ops):
-            rng = self._rng(program, scope)
+        uses_rng = any(op_uses_rng(get_op(op.type), op.attrs)
+                       for op in block.ops)
+        if uses_rng:
+            rng = self._rng_state(program, scope)
         with torch.no_grad():
             for index, op in enumerate(block.ops):
                 opdef = get_op(op.type)
@@ -169,8 +178,11 @@ class Executor:
                             env[name] = scope.get(name)
                         vals.append(env[name])
                     ins[slot] = vals
+                sub = None
+                if op_uses_rng(opdef, op.attrs):
+                    rng, sub = prng.split(rng)
                 try:
-                    outs = self._run_op(op, opdef, ins, plan, vjps, rng)
+                    outs = self._run_op(op, opdef, ins, plan, vjps, sub)
                 except EnforceError:
                     raise
                 except Exception as exc:
@@ -182,6 +194,8 @@ class Executor:
                     if plan.last_read.get(name) == index and name not in keep \
                             and name not in state_read:
                         env.pop(name, None)
+            if uses_rng:
+                scope.set(RNG_VAR, rng)
             # write-back: persistable outputs and state read from the scope
             for op in block.ops:
                 for name in op.output_names():

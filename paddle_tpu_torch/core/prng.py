@@ -13,8 +13,15 @@ with torch integer ops, so a row's sampled token is the same function of
 - ``random_bits(key, n)``: 32-bit bits of a length-n draw, the hash of the
   counters (0, i) with the two output words xor-ed (the partitionable
   layout);
+- ``split(key, num)``: ``jax.random.split`` in the partitionable mode,
+  key i = ``threefry2x32(key, (0, i))`` (so ``split(key)[i]`` equals
+  ``fold_in(key, i)``);
 - ``uniform`` and ``gumbel`` (``mode="low"``, jax's default): the bits'
-  top 23 as a float in [1, 2) minus 1, then ``-log(-log(u))``.
+  top 23 as a float in [1, 2) minus 1, then ``-log(-log(u))``;
+- ``normal``: ``sqrt(2) * erf_inv(u)`` for u uniform on
+  [nextafter(-1, 0), 1); ``truncated_normal`` the same over
+  [erf(lower / sqrt 2), erf(upper / sqrt 2)), clipped inside the bounds;
+  ``bernoulli``: ``uniform < p``.
 
 Keys are pairs of tensors; every op is elementwise over them, so a batch
 of rows draws with one key per row, on any device, with no host sync
@@ -26,10 +33,18 @@ shift.
 Cephes polynomial with fused multiply-adds, ``_xla_log``), with each
 fused multiply-add taken in f64 and rounded once to f32, so gumbel
 values equal ``jax.random.gumbel``'s on the CPU bit for bit; ``torch.log``
-differs from it in the last place for ~1 in 7 inputs.
+differs from it in the last place for ~1 in 7 inputs. ``erf_inv``,
+``erf`` and ``log1p`` are XLA's f32 polynomials the same way (Giles'
+erf_inv over a Cephes log1p; a rational erf), and the affine steps of
+``uniform`` are one fused multiply-add, as XLA contracts them. ``erf`` and
+``log1p`` match XLA bit for bit; ``erf_inv`` in the tail (|u| > 0.9966,
+where it takes a square root) differs by one ulp for ~1 in 300 such
+inputs, so ``normal`` draws are bit-exact except ~2 in 10^5, which are
+at most 2 ulp off (``tests/test_torch_rng_plane.py``).
 """
 from __future__ import annotations
 
+import math
 import struct
 
 import torch
@@ -77,14 +92,25 @@ def fold_in(key, data):
     return threefry2x32(k1, k2, torch.zeros_like(data), data)
 
 
+def split(key, num=2):
+    """``jax.random.split(key, num)`` (partitionable threefry): a list of
+    ``num`` keys, key i = ``threefry2x32(key, (0, i))`` = ``fold_in(key,
+    i)``."""
+    return [fold_in(key, i) for i in range(num)]
+
+
 def random_bits(key, n):
-    """uint32 bits (in int64) of a length-``n`` draw per key: [..., n] for
-    keys of shape [...]."""
+    """uint32 bits (in int64) of a draw per key: [..., n] for keys of
+    shape [...] and an int ``n``; [..., *n] for a shape tuple ``n`` (the
+    counters run over the flattened shape, as jax's)."""
     k1, k2 = key
+    shape = (n,) if isinstance(n, int) else tuple(n)
     k1, k2 = k1[..., None], k2[..., None]
-    counts = torch.arange(n, dtype=torch.int64, device=k1.device)
+    counts = torch.arange(math.prod(shape), dtype=torch.int64,
+                          device=k1.device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(counts), counts)
-    return b1 ^ b2
+    bits = b1 ^ b2
+    return bits.reshape(bits.shape[:-1] + shape)
 
 
 def _f32(x):
@@ -92,18 +118,28 @@ def _f32(x):
     return struct.unpack("f", struct.pack("f", x))[0]
 
 
+def _fma(a, b, c):
+    """a * b + c rounded once to f32 (the product is exact in f64)."""
+    if isinstance(a, torch.Tensor):
+        return (a.double() * b + c).float()
+    return (b.double() * a + c).float()
+
+
 def uniform(key, n, minval=0.0, maxval=1.0):
-    """``jax.random.uniform`` f32 of a length-``n`` draw per key."""
+    """``jax.random.uniform`` f32 of a draw per key (``n`` an int or a
+    shape, as ``random_bits``): floats * (max - min) + min as one fused
+    multiply-add, then at least min."""
     bits = random_bits(key, n)
     one = (bits >> 9) | 0x3F800000  # 23 random mantissa bits in [1, 2)
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     lo = _f32(minval)
-    return torch.clamp(floats * _f32(_f32(maxval) - lo) + lo, min=lo)
+    return torch.clamp(_fma(floats, _f32(_f32(maxval) - lo), lo), min=lo)
 
 
-def _fma(a, b, c):
-    """a * b + c rounded once to f32 (the product is exact in f64)."""
-    return (a.double() * b + c).float()
+def bernoulli(key, p, shape):
+    """``jax.random.bernoulli(key, p, shape)`` (mode "low"): a bool mask,
+    uniform < p in f32."""
+    return uniform(key, shape) < _f32(p)
 
 
 # the Cephes log polynomial's coefficients and log(2) in two parts, as f32
@@ -148,3 +184,102 @@ def gumbel(key, n):
     ``-log(-log(u))`` with u uniform on [tiny, 1)."""
     u = uniform(key, n, minval=_TINY)
     return -_xla_log(-_xla_log(u))
+
+
+# XLA's f32 log1p: a Cephes rational for |x| < sqrt(2) - 1, else log(1 + x)
+_LOG1P_NUM = tuple(_f32(c) for c in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+_LOG1P_DEN = tuple(_f32(c) for c in (
+    1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+
+
+def _horner(x, coeffs):
+    """sum c_i x^(n-i) by Horner's rule, one fused multiply-add a step."""
+    r = torch.full_like(x, coeffs[0])
+    for c in coeffs[1:]:
+        r = _fma(r, x, c)
+    return r
+
+
+def _xla_log1p(x):
+    """f32 log(1 + x) as XLA's CPU backend computes it."""
+    x2 = x * x
+    small = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
+    small = x + _fma(x2, -0.5, (x * x2) * small)
+    return torch.where(x.abs() < _f32(0.41421356237309504880), small,
+                       _xla_log(x + 1.0))
+
+
+# Giles' erf_inv: one polynomial in w - 2.5 below w = 5, one in
+# sqrt(w) - 3 above, w = -log1p(-x^2)
+_ERFINV_LT5 = tuple(_f32(c) for c in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941))
+_ERFINV_GE5 = tuple(_f32(c) for c in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+
+
+def erf_inv(x):
+    """f32 inverse error function as XLA's CPU backend computes it."""
+    w = -_xla_log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, torch.full_like(x, _ERFINV_LT5[0]),
+                    torch.full_like(x, _ERFINV_GE5[0]))
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = _fma(p, w, torch.where(lt, torch.full_like(x, a),
+                                   torch.full_like(x, b)))
+    return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+_ERF_ALPHA = tuple(_f32(c) for c in (
+    0.00022905065861350646, 0.0034082910107109506, 0.050955695062380861,
+    0.18520832239976145, 1.128379143519084))
+_ERF_BETA = tuple(_f32(c) for c in (
+    -1.1791602954361697e-7, 0.000023547966471313185, 0.0010179625278914885,
+    0.014070470171167667, 0.11098505178285362, 0.49746925110067538, 1.0))
+_ERF_CLAMP = _f32(3.7439211627767994)  # erf_inv(1 - 2^-23)
+
+
+def erf(x):
+    """f32 error function as XLA's CPU backend computes it: x P(x^2) /
+    Q(x^2) over x clamped to +-erf_inv(1 - 2^-23)."""
+    x = torch.clamp(x, -_ERF_CLAMP, _ERF_CLAMP)
+    x2 = x * x
+    return (x * _horner(x2, _ERF_ALPHA)) / _horner(x2, _ERF_BETA)
+
+
+_SQRT2 = _f32(2.0 ** 0.5)
+
+
+def normal(key, shape):
+    """``jax.random.normal(key, shape, float32)``: sqrt(2) erf_inv(u), u
+    uniform on [nextafter(-1, 0), 1)."""
+    lo = _f32(-0.99999994)  # nextafter(-1, 0) in f32
+    return _SQRT2 * erf_inv(uniform(key, shape, minval=lo, maxval=1.0))
+
+
+def _nextafter(x, toward):
+    f = torch.tensor([x, toward], dtype=torch.float32, device="cpu")
+    return float(torch.nextafter(f[0], f[1]))
+
+
+def truncated_normal(key, lower, upper, shape):
+    """``jax.random.truncated_normal(key, lower, upper, shape, float32)``
+    for scalar bounds: sqrt(2) erf_inv(u) for u uniform on
+    [erf(lower / sqrt 2), erf(upper / sqrt 2)), clipped to the open
+    interval (lower, upper)."""
+    lower, upper = _f32(lower), _f32(upper)
+    ab = erf(torch.tensor([lower, upper], dtype=torch.float32, device="cpu")
+             / _SQRT2)
+    a, b = float(ab[0]), float(ab[1])
+    out = _SQRT2 * erf_inv(uniform(key, shape, minval=a, maxval=b))
+    return torch.clamp(out, _nextafter(lower, float("inf")),
+                       _nextafter(upper, float("-inf")))

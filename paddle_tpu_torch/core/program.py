@@ -9,7 +9,7 @@ the executor (``core/executor.py``) interprets the block op by op.
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .types import VarType, dtype_name, to_dtype
 
@@ -17,7 +17,7 @@ from .types import VarType, dtype_name, to_dtype
 # inference; the executor concretises shapes from the actual feeds.
 BATCH_DIM_SENTINEL = 1297
 
-# Name under which the executor keeps the program's torch.Generator.
+# Name under which the executor keeps the scope's threefry key.
 RNG_VAR = "@RNG_STATE@"
 
 GRAD_SUFFIX = "@GRAD"
@@ -94,6 +94,26 @@ class Operator:
     def output_names(self) -> List[str]:
         return [n for vs in self.outputs.values() for n in vs]
 
+    # -- single-name slot accessors (pattern matching) ----------------------
+    def input(self, slot: str) -> Optional[str]:
+        """The single var name in an input slot, or None when the slot is
+        absent or empty; raises on a multi-name slot."""
+        names = self.inputs.get(slot) or []
+        if len(names) > 1:
+            raise ValueError(
+                f"op {self.type!r} input slot {slot!r} has {len(names)} "
+                f"names; use .inputs[{slot!r}] for multi-arity slots")
+        return names[0] if names else None
+
+    def output(self, slot: str) -> Optional[str]:
+        """Single-name accessor for an output slot (see ``input``)."""
+        names = self.outputs.get(slot) or []
+        if len(names) > 1:
+            raise ValueError(
+                f"op {self.type!r} output slot {slot!r} has {len(names)} "
+                f"names; use .outputs[{slot!r}] for multi-arity slots")
+        return names[0] if names else None
+
     def __repr__(self):
         return (f"Op({self.type}, inputs={self.inputs}, "
                 f"outputs={self.outputs}, attrs={self.attrs})")
@@ -167,6 +187,58 @@ class Block:
     def all_parameters(self) -> List[Parameter]:
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
 
+    # -- pattern-match / rewrite helpers (transpiler) ----------------------
+    def var_producers(self) -> Dict[str, List[Tuple[int, Operator]]]:
+        """name -> [(op index, op)] of every op writing that name, in
+        program order (aliased state, such as batch_norm's MeanOut onto
+        Mean, shows up as several producers)."""
+        prod: Dict[str, List[Tuple[int, Operator]]] = {}
+        for i, op in enumerate(self.ops):
+            for name in op.output_names():
+                prod.setdefault(name, []).append((i, op))
+        return prod
+
+    def var_consumers(self) -> Dict[str, List[Tuple[int, Operator]]]:
+        """name -> [(op index, op)] of every op reading that name."""
+        cons: Dict[str, List[Tuple[int, Operator]]] = {}
+        for i, op in enumerate(self.ops):
+            for name in dict.fromkeys(op.input_names()):
+                cons.setdefault(name, []).append((i, op))
+        return cons
+
+    def sole_producer(self, name: str,
+                      producers=None) -> Optional[Operator]:
+        """The op producing ``name`` if exactly one op writes it."""
+        ps = (producers if producers is not None
+              else self.var_producers()).get(name, [])
+        return ps[0][1] if len(ps) == 1 else None
+
+    def replace_ops(self, old_ops: Sequence[Operator], op_type: str,
+                    inputs=None, outputs=None, attrs=None) -> Operator:
+        """Replace a matched op chain with one new op at the position of
+        the last replaced op, so every input is still produced upstream
+        and every consumer still reads downstream."""
+        idxs = []
+        for op in old_ops:
+            for i, o in enumerate(self.ops):
+                if o is op:
+                    idxs.append(i)
+                    break
+            else:
+                raise ValueError(f"op {op.type!r} not in block {self.idx}")
+        at = max(idxs)
+        new = Operator(self, op_type, inputs or {}, outputs or {}, attrs)
+        self.ops[at] = new
+        drop = set(idxs) - {at}
+        self.ops = [o for i, o in enumerate(self.ops) if i not in drop]
+        self.program._bump()
+        return new
+
+    def remove_ops(self, old_ops: Sequence[Operator]) -> None:
+        olds = {id(op) for op in old_ops}
+        self.ops = [o for o in self.ops if id(o) not in olds]
+        self.program._bump()
+
 
 class Program:
     """A list of blocks; block 0 is the global block."""
@@ -200,6 +272,10 @@ class Program:
     def all_parameters(self) -> List[Parameter]:
         return [v for b in self.blocks for v in b.vars.values()
                 if isinstance(v, Parameter)]
+
+    def list_vars(self):
+        for b in self.blocks:
+            yield from b.vars.values()
 
     def clone(self, for_test: bool = False) -> "Program":
         """Deep-ish copy (vars and ops re-created; attrs shallow-copied).

@@ -27,7 +27,8 @@ class OpDef:
     type: str
     fn: Callable  # fn(attrs, ins, [rng]) -> outs
     # True, False, or a predicate over the op's attrs. When not False the
-    # fn takes an ``rng`` keyword: a torch.Generator to draw from.
+    # fn takes an ``rng`` keyword: a threefry key (``core/prng.py``), the
+    # executor's split of its scope key.
     needs_rng: object = False
     # Custom vjp: grad_fn(attrs, ins, outs, out_grads) -> {slot: grads}
     grad_fn: Optional[Callable] = None
@@ -68,6 +69,10 @@ def get_op(type: str) -> OpDef:
                        f"{hint} ({len(known)} ops ported so far: "
                        f"{', '.join(known)})")
     return opdef
+
+
+def has_op(type: str) -> bool:
+    return type in _REGISTRY
 
 
 def op_uses_rng(opdef: OpDef, attrs) -> bool:
@@ -139,8 +144,9 @@ def _infer_outputs_uncached(op_type: str, attrs, in_shapes) -> Tensors:
     # outputs on the default device: meta here
     with torch.no_grad(), torch.device("meta"):
         if op_uses_rng(opdef, attrs):
-            # a generator the op never draws from: meta tensors hold no data
-            outs = opdef.fn(attrs, ins, rng=torch.Generator())
+            # a meta key: drawing from it computes shapes only
+            key = torch.zeros((), dtype=torch.int64)
+            outs = opdef.fn(attrs, ins, rng=(key, key))
         elif callable(opdef.needs_rng):
             outs = opdef.fn(attrs, ins, rng=None)
         else:

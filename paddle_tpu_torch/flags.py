@@ -1,5 +1,5 @@
 """Runtime flags. Counterpart of ``paddle_tpu/flags.py``, cut to the
-flags the port reads, behind the same ``FLAGS`` namespace
+flags the port reads (booleans and the int ``seed``), behind the same ``FLAGS`` namespace
 (``flags.FLAGS.fused_conv_epilogue``). Components read FLAGS when they
 build, so a flip affects what is built afterwards; ``reset_flags``
 restores every default.
@@ -8,12 +8,18 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-_DEFAULTS: Dict[str, bool] = {
+_DEFAULTS: Dict[str, Any] = {
     # lower NHWC 1x1/stride-1 conv+BN(+relu)(+residual) chains in models
     # as the fused conv1x1_bn_act op (ops/fusion_ops.py)
     "fused_conv_epilogue": False,
+    # global graph RNG seed used when a program sets no random_seed of
+    # its own; runs are deterministic for a fixed seed
+    "seed": 0,
+    # verify programs before compiling them (the JAX package's analysis
+    # plane; not ported: setting it makes the engines raise)
+    "verify_program": False,
 }
-_values: Dict[str, bool] = dict(_DEFAULTS)
+_values: Dict[str, Any] = dict(_DEFAULTS)
 
 
 class FlagError(ValueError):
@@ -44,7 +50,10 @@ class _Namespace:
     def __setattr__(self, name: str, value: Any) -> None:
         if name not in _values:
             raise FlagError(f"unknown flag {name!r}")
-        _values[name] = _parse_bool(value)
+        if isinstance(_DEFAULTS[name], bool):
+            _values[name] = _parse_bool(value)
+        else:
+            _values[name] = int(value)
 
 
 FLAGS = _Namespace()

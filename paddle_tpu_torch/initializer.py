@@ -1,9 +1,9 @@
 """Parameter initializers — emit init ops into the startup program.
 
-Counterpart of ``paddle_tpu/initializer.py``, cut to the constant,
-uniform, normal and Xavier initializers the training slices use. The
-random ones draw from the executor's ``torch.Generator``, not JAX's
-threefry (the RNG plane is a later slice).
+Counterpart of ``paddle_tpu/initializer.py``: constant, uniform, normal,
+truncated-normal, Xavier and MSRA, with the fluid-style aliases. The
+random ones draw from the executor's scope key, so a startup program's
+values equal the JAX package's for the same seed.
 """
 from __future__ import annotations
 
@@ -50,6 +50,17 @@ class NormalInitializer(Initializer):
                    "mean": self.mean, "std": self.std, "seed": self.seed})
 
 
+class TruncatedNormalInitializer(Initializer):
+    def __init__(self, loc: float = 0.0, scale: float = 1.0, seed: int = 0):
+        self.mean, self.std, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        block.append_op(
+            "truncated_gaussian_random", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "dtype": dtype_name(var.dtype),
+                   "mean": self.mean, "std": self.std, "seed": self.seed})
+
+
 def _fans(var):
     shape = var.shape
     if len(shape) == 2:
@@ -82,3 +93,30 @@ class XavierInitializer(Initializer):
             std = math.sqrt(2.0 / (fin + fout))
             NormalInitializer(0.0, std, self.seed)(var, block)
 
+
+
+class MSRAInitializer(Initializer):
+    """He init: U(-sqrt(6 / fan_in), +...), or with ``uniform=False``
+    N(0, sqrt(2 / fan_in))."""
+
+    def __init__(self, uniform: bool = True, fan_in=None, seed: int = 0):
+        self.uniform, self.fan_in, self.seed = uniform, fan_in, seed
+
+    def __call__(self, var, block):
+        fin, _ = _fans(var)
+        fin = self.fan_in if self.fan_in is not None else fin
+        if self.uniform:
+            limit = math.sqrt(6.0 / fin)
+            UniformInitializer(-limit, limit, self.seed)(var, block)
+        else:
+            std = math.sqrt(2.0 / fin)
+            NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+# fluid-style aliases
+Constant = ConstantInitializer
+Uniform = UniformInitializer
+Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
+Xavier = XavierInitializer
+MSRA = MSRAInitializer

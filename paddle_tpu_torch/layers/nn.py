@@ -258,3 +258,13 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
         ["Softmax", "Loss"], {"soft_label": soft_label,
                               "label_smoothing": float(label_smoothing)})
     return outs["Loss"][0]
+
+
+def dropout(x, dropout_prob=0.5, is_test=False, main_program=None,
+            startup_program=None):
+    helper = LayerHelper("dropout", main_program=main_program,
+                         startup_program=startup_program)
+    outs, _ = helper.append_op("dropout", {"X": [x]}, ["Out", "Mask"],
+                               {"dropout_prob": dropout_prob,
+                                "is_test": is_test})
+    return outs["Out"][0]

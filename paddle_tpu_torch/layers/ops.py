@@ -10,7 +10,7 @@ import sys
 
 from .layer_helper import LayerHelper
 
-_UNARY = ["relu"]
+_UNARY = ["relu", "softmax"]
 
 _BINARY = ["elementwise_add"]
 

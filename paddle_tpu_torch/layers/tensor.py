@@ -1,5 +1,5 @@
 """Tensor layers. Counterpart of ``paddle_tpu/layers/tensor.py``, cut to
-what the training slice builds."""
+what the training slices and primitive attention programs build."""
 from __future__ import annotations
 
 from ..core.types import dtype_name
@@ -51,3 +51,19 @@ def mean(x, main_program=None, startup_program=None):
 def reshape(x, shape, main_program=None, startup_program=None):
     h = _helper("reshape", main_program, startup_program)
     return h.simple_op("reshape", {"X": [x]}, {"shape": list(shape)})
+
+
+def scale(x, scale=1.0, bias=0.0, main_program=None, startup_program=None):
+    h = _helper("scale", main_program, startup_program)
+    return h.simple_op("scale", {"X": [x]}, {"scale": scale, "bias": bias})
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           main_program=None, startup_program=None):
+    """Batched matmul: the score and context products of primitive
+    attention over [B, H, T, D] heads."""
+    h = _helper("matmul", main_program, startup_program)
+    return h.simple_op(
+        "matmul", {"X": [x], "Y": [y]},
+        {"transpose_X": transpose_x, "transpose_Y": transpose_y,
+         "alpha": alpha})

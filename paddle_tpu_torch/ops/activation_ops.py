@@ -1,6 +1,7 @@
 """Activation ops. Counterpart of ``paddle_tpu/ops/activation_ops.py``,
-cut to ``relu``, the activation ResNet builds. Its gradient is the
-generic vjp (zero at 0, as ``jax.nn.relu``'s)."""
+cut to ``relu``, the activation ResNet builds, and ``softmax``, which
+primitive attention programs build. Their gradients are the generic vjp
+(relu's zero at 0, as ``jax.nn.relu``'s)."""
 from __future__ import annotations
 
 import torch
@@ -17,3 +18,8 @@ def _unary(op):
 
 
 register_op("relu", _unary(torch.relu))
+
+
+@register_op("softmax")
+def softmax(attrs, ins):
+    return out(Out=torch.softmax(single(ins, "X"), dim=attrs.get("axis", -1)))

@@ -1,10 +1,13 @@
 """Matrix ops. Counterpart of ``paddle_tpu/ops/math_ops.py``, cut to
-``mul``, the training slice's LM head. The product is a plain f32
+``mul`` (the training slice's LM head) and ``matmul`` (the batched
+product of primitive attention programs). The product is a plain f32
 ``torch.matmul`` (cuBLAS on the card), as the JAX package leaves it to
 XLA; its gradient is the generic vjp."""
 from __future__ import annotations
 
 import math
+
+import torch
 
 from ..core.registry import register_op
 from .common import out, single
@@ -20,3 +23,20 @@ def mul(attrs, ins):
     x2 = x.reshape(math.prod(x.shape[:xd]), -1)
     y2 = y.reshape(math.prod(y.shape[:yd]), -1)
     return out(Out=(x2 @ y2).reshape(tuple(x.shape[:xd]) + tuple(y.shape[yd:])))
+
+
+@register_op("matmul")
+def matmul(attrs, ins):
+    """Batched X @ Y with optional transposes of the last two dims, times
+    ``alpha`` when it is not 1."""
+    x = single(ins, "X")
+    y = single(ins, "Y")
+    if attrs.get("transpose_X", False) and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if attrs.get("transpose_Y", False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    res = torch.matmul(x, y)
+    alpha = attrs.get("alpha", 1.0)
+    if alpha != 1.0:
+        res = res * torch.tensor(alpha, dtype=res.dtype)
+    return out(Out=res)

@@ -1,6 +1,6 @@
 """Neural-net structural ops. Counterpart of ``paddle_tpu/ops/nn_ops.py``,
-cut to ``conv2d``, ``pool2d``, ``batch_norm`` and ``layer_norm``, the
-norms with their hand-written backwards (the JAX package's grad_fns:
+cut to ``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm`` and
+``dropout``, the norms with their hand-written backwards (the JAX package's grad_fns:
 they read the forward's saved statistics instead of keeping an x-hat of
 every activation alive for a generic vjp).
 
@@ -16,6 +16,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core import prng
 from ..core.registry import register_op
 from .common import full_f32_convolutions, maybe, normalize_pair, out, single
 
@@ -368,3 +369,25 @@ def layer_norm(attrs, ins):
         "Mean": [mean.reshape(x.shape[:begin])],
         "Variance": [var.reshape(x.shape[:begin])],
     }
+
+
+# --- dropout ------------------------------------------------------------------
+def _dropout_grad(attrs, ins, outs, ogs):
+    mask = outs["Mask"][0]
+    og = ogs["Out"][0]
+    return {"X": [og * mask.to(og.dtype)]}
+
+
+@register_op("dropout", needs_rng=True, grad_fn=_dropout_grad)
+def dropout(attrs, ins, rng):
+    """Training: keep each element with probability 1 - p (a
+    ``bernoulli`` mask from the op's split of the scope key, equal to
+    JAX's), no rescale. ``is_test``: downscale-in-infer, x * (1 - p)."""
+    x = single(ins, "X")
+    p = attrs.get("dropout_prob", 0.5)
+    if attrs.get("is_test", False):
+        keep = torch.tensor(1.0 - p, dtype=x.dtype)
+        return {"Out": [x * keep], "Mask": [torch.ones_like(x)]}
+    keep = prng.bernoulli(rng, 1.0 - p, tuple(x.shape))
+    return {"Out": [torch.where(keep, x, torch.zeros_like(x))],
+            "Mask": [keep.to(x.dtype)]}

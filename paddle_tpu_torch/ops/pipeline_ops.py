@@ -22,6 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..core import prng
 from ..core.registry import register_op
 from ..kernels.flash_attention import (flash_attention, reference_attention,
                                        rotary)
@@ -179,23 +180,26 @@ def _prefill(params, x, num_heads, b, Tp, num_kv_heads=None,
     return h, ks, vs
 
 
-def _make_pick(temperature, top_k, vocab, generator=None):
+def _make_pick(temperature, top_k, vocab, rng=None):
     """Next-token selection shared by the decode ops: argmax when
-    ``temperature`` == 0 (draws nothing), otherwise temperature/top-k
-    sampling from ``generator``. The draws are not JAX's threefry bits:
-    only greedy decoding is token-exact with the JAX package."""
+    ``temperature`` == 0 (draws nothing: the ops' needs_rng predicate
+    leaves the scope key alone), otherwise temperature/top-k sampling as
+    ``jax.random.categorical(fold_in(rng, step), z / T)``: the argmax of
+    gumbel noise plus the scaled logits (``core/prng.py``), so sampled
+    tokens equal the JAX package's."""
     if top_k and not 0 < top_k <= vocab:
         raise ValueError(f"top_k {top_k} outside [1, vocab {vocab}]")
 
-    def pick(logits):
+    def pick(logits, step):
         if temperature == 0.0:
             return torch.argmax(logits, dim=-1)
         z = logits
         if top_k:
             kth = torch.topk(z, top_k, dim=-1).values[:, -1:]
             z = torch.where(z >= kth, z, torch.full_like(z, -math.inf))
-        probs = torch.softmax(z / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        z = z / torch.tensor(temperature, dtype=z.dtype, device=z.device)
+        noise = prng.gumbel(prng.fold_in(rng, step), tuple(z.shape))
+        return torch.argmax(noise + z, dim=-1)
 
     return pick
 
@@ -215,7 +219,9 @@ def _decode_layer(layer_p, h1, ck_l, cv_l, pos, num_heads, num_kv_heads,
     return _attn_out_ffn(layer_p, h1, ctx.transpose(1, 2).reshape(b, 1, d))
 
 
-def transformer_stack_generate(attrs, ins, generator=None):
+@register_op("transformer_stack_generate", optional_inputs=("PosEmb",),
+             needs_rng=lambda attrs: (attrs.get("temperature") or 0) > 0)
+def transformer_stack_generate(attrs, ins, rng=None):
     """One-shot incremental decoding with a per-layer KV cache: Prompt
     [b, Tp] int + the stacked block weights + TokEmb [V, d], PosEmb
     [maxlen, d], FinalLnS/FinalLnB [d], HeadW [d, V] -> Out [b, Tp +
@@ -240,7 +246,7 @@ def transformer_stack_generate(attrs, ins, generator=None):
     embed = _embed_fn(tok_emb, pos_emb)
     logits_of = _logits_fn(ln_s, ln_b, head_w)
     pick = _make_pick(attrs.get("temperature") or 0.0,
-                      attrs.get("top_k") or 0, head_w.shape[1], generator)
+                      attrs.get("top_k") or 0, head_w.shape[1], rng)
 
     h, ks, vs = _prefill(params, embed(prompt, 0), num_heads, b, Tp,
                          num_kv_heads, use_rope)
@@ -250,7 +256,7 @@ def transformer_stack_generate(attrs, ins, generator=None):
     cache_v = torch.zeros_like(cache_k)
     cache_k[:, :, :, :Tp] = torch.stack(ks)
     cache_v[:, :, :, :Tp] = torch.stack(vs)
-    tok = pick(logits_of(h[:, -1]))
+    tok = pick(logits_of(h[:, -1]), 0)
     generated = [tok]
     # prefill produced token Tp; the loop decodes the remaining N - 1
     for n in range(N - 1):
@@ -260,7 +266,7 @@ def transformer_stack_generate(attrs, ins, generator=None):
             h1 = _decode_layer(_layer(params, i), h1, cache_k[i],
                                cache_v[i], pos, num_heads, num_kv_heads,
                                use_rope)
-        tok = pick(logits_of(h1[:, 0]))
+        tok = pick(logits_of(h1[:, 0]), n + 1)
         generated.append(tok)
     gen = torch.stack(generated, dim=1).to(prompt.dtype)
     return out(Out=torch.cat([prompt, gen], dim=1))
@@ -273,8 +279,8 @@ def transformer_stack_generate(attrs, ins, generator=None):
 # and every decode step advances ALL slots one token, each at its own
 # position. Where the JAX ops return updated copies (donated buffers),
 # these ops update CacheK/CacheV IN PLACE and return the same tensors.
-# Both are registered ops, as in the JAX package; ``rng`` is the
-# generator engine-wide sampling draws from.
+# Both are registered ops, as in the JAX package; ``rng`` is the key
+# engine-wide sampling draws from (the engine's split of its scope key).
 # ---------------------------------------------------------------------------
 
 def _sampled(attrs):
@@ -321,7 +327,7 @@ def transformer_stack_slot_prefill(attrs, ins, rng=None):
                          num_kv_heads, use_rope)
     rows = torch.arange(b, device=h.device)
     last = h[rows, lengths.clamp(1, Tp) - 1]  # [b, d]
-    next_tok = pick(_logits_fn(ln_s, ln_b, head_w)(last))
+    next_tok = pick(_logits_fn(ln_s, ln_b, head_w)(last), 0)
     # each batch row lands in its slot's rows 0..Tp-1
     for i, (k, v) in enumerate(zip(ks, vs)):
         cache_k[i, slot_ids, :, :Tp] = k
@@ -376,7 +382,7 @@ def transformer_stack_slot_decode(attrs, ins, rng=None):
         ctx = reference_attention(q, cache_k[i], cache_v[i],
                                   lengths=pos + 1)
         h1 = _attn_out_ffn(layer_p, h1, ctx.transpose(1, 2).reshape(S, 1, d))
-    nxt = pick(_logits_fn(ln_s, ln_b, head_w)(h1[:, 0]))
+    nxt = pick(_logits_fn(ln_s, ln_b, head_w)(h1[:, 0]), 0)
     return out(NextTok=nxt.to(tok.dtype), CacheK=cache_k, CacheV=cache_v)
 
 
@@ -417,7 +423,7 @@ def _pick_rows(attrs, ins, rng, vocab, logits):
     plane = _row_sampling(ins)
     if plane is None:
         return _make_pick(attrs.get("temperature") or 0.0,
-                          attrs.get("top_k") or 0, vocab, rng)(logits)
+                          attrs.get("top_k") or 0, vocab, rng)(logits, 0)
     return sample_rows(logits, *plane)
 
 

@@ -1,7 +1,9 @@
 """Tensor creation / manipulation / elementwise / reduction ops.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py``, cut to the ops the
-training slice runs. Ops return new tensors and never write into their
+training, image and inference slices run. The random init ops draw from
+their split of the executor's scope key (``core/prng.py``), bit-exact with
+the JAX executor's draws. Ops return new tensors and never write into their
 inputs (the executor relies on it: ``assign`` hands on the same tensor).
 Ops without inputs create their outputs on torch's default device, which
 the executor sets to the run's device (and shape inference to ``meta``).
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import prng
 from ..core.registry import register_op
 from ..core.types import to_dtype
 from .common import broadcast_to_x, out, single
@@ -23,28 +26,61 @@ def fill_constant(attrs, ins):
     return out(Out=torch.full(shape, attrs.get("value", 0.0), dtype=dtype))
 
 
+def _batch_size_like_shape(attrs, ref):
+    """Declared shape with the output batch dim copied from ``ref``'s
+    (the *_batch_size_like op family contract)."""
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = ref.shape[
+        attrs.get("input_dim_idx", 0)]
+    return tuple(shape)
+
+
+def _f32_out(x, attrs):
+    """A draw made in f32 (jax's float32 path), in the op's dtype."""
+    return x.to(to_dtype(attrs.get("dtype", "float32")))
+
+
+def _gaussian(shape, attrs, rng):
+    """mean + std * normal(rng) as the JAX executor's jitted block
+    computes it: XLA folds sqrt(2) * std into one constant and fuses the
+    add, so erf_inv(u) * f32(sqrt(2) * std) + mean in one rounding."""
+    u = prng.uniform(rng, shape, minval=prng._f32(-0.99999994), maxval=1.0)
+    k = prng._f32(prng._SQRT2 * prng._f32(attrs.get("std", 1.0)))
+    return prng._fma(prng.erf_inv(u), k, prng._f32(attrs.get("mean", 0.0)))
+
+
 @register_op("uniform_random", needs_rng=True)
 def uniform_random(attrs, ins, rng):
-    """U[min, max) drawn from ``rng`` (a torch.Generator on the output's
-    device). Not JAX's threefry bits: the RNG plane is a later slice."""
-    dtype = to_dtype(attrs.get("dtype", "float32"))
-    t = torch.empty(tuple(attrs["shape"]), dtype=dtype)
-    if t.device.type == "meta":  # shape inference: nothing to draw
-        return out(Out=t)
-    return out(Out=t.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
-                              generator=rng))
+    """U[min, max) from the op's split of the scope key, bit-exact with
+    ``jax.random.uniform`` (``core/prng.py``)."""
+    shape = tuple(attrs["shape"])
+    return out(Out=_f32_out(prng.uniform(rng, shape, attrs.get("min", -1.0),
+                                         attrs.get("max", 1.0)), attrs))
 
 
 @register_op("gaussian_random", needs_rng=True)
 def gaussian_random(attrs, ins, rng):
-    """N(mean, std) drawn from ``rng``, as ``uniform_random`` draws: not
-    JAX's threefry bits."""
-    dtype = to_dtype(attrs.get("dtype", "float32"))
-    t = torch.empty(tuple(attrs["shape"]), dtype=dtype)
-    if t.device.type == "meta":  # shape inference: nothing to draw
-        return out(Out=t)
-    return out(Out=t.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
-                             generator=rng))
+    """N(mean, std) from the op's split of the scope key."""
+    return out(Out=_f32_out(_gaussian(tuple(attrs["shape"]), attrs, rng),
+                            attrs))
+
+
+@register_op("gaussian_random_batch_size_like", needs_rng=True)
+def gaussian_random_batch_size_like(attrs, ins, rng):
+    """Gaussian noise whose batch dim copies Input's: an rng leaf, so
+    gradients flow only through whatever it is combined with."""
+    shape = _batch_size_like_shape(attrs, single(ins, "Input"))
+    return out(Out=_f32_out(_gaussian(shape, attrs, rng), attrs))
+
+
+@register_op("truncated_gaussian_random", needs_rng=True)
+def truncated_gaussian_random(attrs, ins, rng):
+    """mean + std * a normal truncated to [-2, 2] (one fused
+    multiply-add, as XLA fuses it)."""
+    x = prng.truncated_normal(rng, -2.0, 2.0, tuple(attrs["shape"]))
+    return out(Out=_f32_out(prng._fma(x, prng._f32(attrs.get("std", 1.0)),
+                                      prng._f32(attrs.get("mean", 0.0))),
+                            attrs))
 
 
 @register_op("assign")
@@ -81,6 +117,18 @@ def _elementwise(op):
 
 
 register_op("elementwise_add", _elementwise(torch.add))
+
+
+@register_op("scale")
+def scale(attrs, ins):
+    """x * scale + bias (``bias_after_scale``, the default) or (x + bias)
+    * scale, in x's dtype: what ``DropoutToScale`` emits."""
+    x = single(ins, "X")
+    s = torch.tensor(attrs.get("scale", 1.0), dtype=x.dtype)
+    b = torch.tensor(attrs.get("bias", 0.0), dtype=x.dtype)
+    if attrs.get("bias_after_scale", True):
+        return out(Out=x * s + b)
+    return out(Out=(x + b) * s)
 
 
 @register_op("sum")

@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..core import prng
 from ..decoding.params import SamplingParams
 from ..decoding.stops import StopMatcher
 from ..models.transformer import TransformerLM
@@ -145,8 +146,10 @@ class GenerationEngine:
     onto it. ``device`` defaults to ``cuda`` and raises without CUDA;
     pass ``device="cpu"`` to run the plain versions of the kernels.
     ``temperature``/``top_k`` are the default decode policy. The dense
-    engine applies it engine-wide and draws from a ``torch.Generator``
-    seeded with ``seed``; the paged engine takes a policy per request,
+    engine applies it engine-wide as the JAX engine does: a threefry key
+    ``prng_key(seed)`` (``FLAGS.seed`` when ``seed`` is None) split once
+    per prefill or decode run that samples, so its sampled tokens equal
+    the JAX dense engine's; the paged engine takes a policy per request,
     merged over this default.
     """
 
@@ -164,7 +167,7 @@ class GenerationEngine:
                  default_max_new_tokens: int = 16,
                  eos_id: Optional[int] = None,
                  kv_cache: Optional[str] = None, device=None,
-                 seed: int = 0):
+                 seed: Optional[int] = None):
         from .. import resolve_device
 
         if kv_cache not in (None, "dense", "paged"):
@@ -193,8 +196,11 @@ class GenerationEngine:
             self.model = TransformerLM.from_jax_params(spec, model,
                                                        self.device)
         self._lm_ins = self.model.shared_lm_inputs()
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(seed))
+        if seed is None:
+            from ..flags import FLAGS
+
+            seed = FLAGS.seed
+        self._rng_key = prng.prng_key(int(seed), device=self.device)
         self.prompt_buckets = sorted(set(
             min(int(b), self.tmax) for b in
             (prompt_buckets or _default_prompt_buckets(self.tmax))))
@@ -255,6 +261,15 @@ class GenerationEngine:
         return self.slots - self.active
 
     # -- device steps ---------------------------------------------------
+    def _split_rng(self):
+        """The key a sampled prefill or decode run draws from: the JAX
+        executor's ``rng, sub = split(rng)`` for the run's one sampling
+        op. A greedy run draws nothing and leaves the key alone."""
+        if self.temperature <= 0:
+            return None
+        self._rng_key, sub = prng.split(self._rng_key)
+        return sub
+
     @torch.no_grad()
     def _run_prefill(self, prompt: np.ndarray, slot_ids: np.ndarray,
                      lengths: np.ndarray) -> np.ndarray:
@@ -265,7 +280,7 @@ class GenerationEngine:
                "CacheK": [self.cache_k], "CacheV": [self.cache_v],
                **self._lm_ins}
         res = transformer_stack_slot_prefill(self._decode_attrs(), ins,
-                                             self.generator)
+                                             self._split_rng())
         return res["NextTok"][0].cpu().numpy()
 
     @torch.no_grad()
@@ -276,7 +291,7 @@ class GenerationEngine:
                "CacheK": [self.cache_k], "CacheV": [self.cache_v],
                **self._lm_ins}
         res = transformer_stack_slot_decode(self._decode_attrs(), ins,
-                                            self.generator)
+                                            self._split_rng())
         return res["NextTok"][0].cpu().numpy()
 
     # -- serving ---------------------------------------------------------

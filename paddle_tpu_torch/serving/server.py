@@ -2,9 +2,10 @@
 
 Counterpart of ``paddle_tpu/serving/server.py``: ``Server`` owns the
 DynamicBatcher and a daemon dispatch loop that drives each engine's
-``serve_step`` — a GenerationEngine interleaves prefill admissions with
-decode ticks (continuous batching). Several engines round-robin the
-shared queue. A request's meta carries its decode policy
+``serve_step``, whatever the engine: a GenerationEngine interleaves
+prefill admissions with decode ticks (continuous batching); an
+InferenceEngine runs each formed batch, grouped by row shape, through its
+bucket graphs. Several engines round-robin the shared queue. A request's meta carries its decode policy
 (``GENERATE_META``: temperature, top_k, top_p, seed, stop beside
 max_new_tokens and eos_id), which the paged engine merges over its
 default field by field; a request the paged KV cache can never hold
@@ -40,10 +41,12 @@ class Server:
         self.engines = list(engine) if isinstance(
             engine, (list, tuple)) else [engine]
         self.metrics = self.engines[0].metrics
-        # a batch never exceeds what one engine's prefill bucket can take
+        # a batch never exceeds what one engine's largest bucket (a
+        # generation engine's prefill bucket) can take
         self.batcher = DynamicBatcher(
             buckets=sorted({b for e in self.engines
-                            for b in e.prefill_batch_buckets}),
+                            for b in getattr(e, "prefill_batch_buckets",
+                                             None) or e.batch_buckets}),
             max_wait_ms=max_wait_ms, max_queue=max_queue,
             default_timeout_ms=default_timeout_ms, metrics=self.metrics)
         self._thread: Optional[threading.Thread] = None
@@ -85,8 +88,10 @@ class Server:
     def submit(self, payload, timeout_ms: Optional[float] = None,
                **meta) -> Future:
         """Enqueue a request; returns a Future. Raises QueueFullError on
-        backpressure. The payload is a prompt (or {"prompt": ids}) with
-        max_new_tokens/eos_id in ``meta``."""
+        backpressure. For a generation engine the payload is a prompt (or
+        {"prompt": ids}) with max_new_tokens/eos_id in ``meta``; for an
+        inference engine it is a per-row feed dict, and the future's
+        result is the list of that row's fetches."""
         return self.batcher.submit(payload, timeout_ms=timeout_ms, **meta)
 
     def generate(self, prompt, max_new_tokens: Optional[int] = None,

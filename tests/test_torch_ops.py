@@ -100,16 +100,20 @@ def test_fill_constant(attrs):
 
 
 def test_uniform_random_draws_in_range_from_the_generator():
-    """The bits differ from JAX's threefry (the RNG slice); shape, dtype,
-    range and determinism per seed are the contract."""
+    """The op draws from a threefry key (the executor's split of its
+    scope key): bit-exact with the JAX op on the same key, in range and
+    deterministic per key."""
+    from paddle_tpu_torch.core import prng
+
     fn = torch_op("uniform_random").fn
     attrs = {"shape": [64, 32], "dtype": "float32", "min": -0.3, "max": 0.3}
-    a = fn(attrs, {}, rng=torch.Generator().manual_seed(3))["Out"][0]
-    b = fn(attrs, {}, rng=torch.Generator().manual_seed(3))["Out"][0]
-    c = fn(attrs, {}, rng=torch.Generator().manual_seed(4))["Out"][0]
+    a = fn(attrs, {}, rng=prng.prng_key(3))["Out"][0]
+    b = fn(attrs, {}, rng=prng.prng_key(3))["Out"][0]
+    c = fn(attrs, {}, rng=prng.prng_key(4))["Out"][0]
     want = jax_op("uniform_random").fn(attrs, {},
-                                       rng=jax.random.PRNGKey(0))["Out"][0]
+                                       rng=jax.random.PRNGKey(3))["Out"][0]
     assert a.shape == tuple(want.shape) and a.dtype == torch.float32
+    assert np.array_equal(a.numpy(), np.asarray(want))
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert float(a.min()) >= -0.3 and float(a.max()) < 0.3
     assert abs(float(a.mean())) < 0.03 and float(a.std()) > 0.15

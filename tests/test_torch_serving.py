@@ -330,10 +330,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_port_path_calls_no_library_attention_or_compiler():
     """The yardstick call may appear in chip_smoke.py only. The one
     mention of cuDNN allowed is conv2d's switch that turns its TF32 off
-    (``ops/common.py``), which calls nothing."""
+    (``ops/common.py``), which calls nothing. The port's own
+    ``scaled_dot_product_attention`` op (the transpiler's attention
+    rewrite, on the flash kernels) shares the library function's name, so
+    that ban is on reaching torch's: an attribute of that name or an
+    import of it."""
     for path in sorted((REPO / "paddle_tpu_torch").rglob("*.py")):
-        text = path.read_text().replace("torch.backends.cudnn.allow_tf32",
-                                        "")
-        for banned in ("scaled_dot_product_attention", "torch.compile",
-                       "cudnn"):
+        text = path.read_text()
+        for node in ast.walk(ast.parse(text, str(path))):
+            if isinstance(node, ast.Attribute):
+                assert node.attr != "scaled_dot_product_attention", \
+                    f"{path}:{node.lineno}"
+            if isinstance(node, ast.ImportFrom) and node.level == 0:
+                assert "scaled_dot_product_attention" not in [
+                    a.name for a in node.names], f"{path}:{node.lineno}"
+        text = text.replace("torch.backends.cudnn.allow_tf32", "")
+        for banned in ("torch.compile", "cudnn"):
             assert banned not in text, f"{path}: {banned}"
