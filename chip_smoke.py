@@ -6,6 +6,7 @@
     python3 chip_smoke.py --backward-only   # phases 1, 2 and 5 only
     python3 chip_smoke.py --conv-only       # phases 1, 2 and 8 only
     python3 chip_smoke.py --paged-only      # phases 1, 2 and 4b only
+    python3 chip_smoke.py --amp-only        # phases 1, 2 and 11 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -107,6 +108,31 @@ Phases, each fatal on failure (nonzero exit, no result line):
     ``Length`` input: each run launches the flash forward once and
     matches its plain version.
 
+11. Mixed precision (``--use_amp``: bf16 products on f32 master weights,
+    the JAX package's training dtype), each part fatal on failure:
+    (a) the bf16 instances of conv1x1_stats, conv1x1_epilogue and
+    scale_shift_act against their plain versions at every 1x1 shape of
+    the ResNet-50 train step (batch 256) and served batch (16) and at
+    ragged shapes (outputs within one bf16 ulp, statistics within 1e-5
+    of each channel's summed magnitude, two launches bitwise equal),
+    timed beside the plain version, the bound (bf16 tensor-core rate or
+    bytes) and the library (bf16 torch.matmul, addcmul);
+    (b) ResNet-50 trained under AMP at batch 256: step-1 loss against the
+    same step in f32 (3e-2) and the AMP plain path (1e-2), 33 bf16
+    conv1x1_stats and scale_shift_act launches per step, a falling loss,
+    step ms, images/s, the share of the bf16 peak, peak memory;
+    (c) its for_test clone saved, loaded and served under AMP (a CUDA
+    graph at batch 16): the replay against the eager AMP run and against
+    an f32 engine's graph (3e-2 of the largest |logit|, top-1 equal where
+    the f32 margin is clear), 33 bf16 GEMM launches in one profiled
+    replay, replayed ms, images/s and the graph's device ms;
+    (d) the d1024/L8 LM trained under AMP (bf16 projections and head,
+    the f32 flash kernels: one launch per layer each of the forward, dq
+    and dkv): step-1 loss against f32 (3e-2), falling loss, parameters
+    f32, step ms, tokens/s, the share of the bf16 peak, peak memory; then
+    a paged wave under AMP whose replayed decode step equals the eager
+    AMP step over 32 ticks (tokens and pools bitwise).
+
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
@@ -131,10 +157,11 @@ SEED = 0
 ATOL = RTOL = 5e-5
 # Published peaks at the full power limit (NVIDIA H100 data sheet, dense):
 # (f32 FLOP/s on the CUDA cores, memory bytes/s, f32-accurate FLOP/s of
-# matrix products on the tensor cores as 3xTF32, i.e. the TF32 rate / 3).
-PEAKS = {"sxm": (67e12, 3.35e12, 495e12 / 3),
-         "pcie": (51e12, 2.0e12, 378e12 / 3),
-         "nvl": (60e12, 3.9e12, 417.5e12 / 3)}
+# matrix products on the tensor cores as 3xTF32, i.e. the TF32 rate / 3,
+# bf16 FLOP/s of the tensor cores).
+PEAKS = {"sxm": (67e12, 3.35e12, 495e12 / 3, 989e12),
+         "pcie": (51e12, 2.0e12, 378e12 / 3, 756e12),
+         "nvl": (60e12, 3.9e12, 417.5e12 / 3, 835e12)}
 
 
 def _peaks(name):
@@ -220,14 +247,15 @@ def _backward_work(kernel, B, H, Tq, Tk, D, causal, lengths):
     return per_pair * D * pairs, nbytes
 
 
-def _bound(flops, nbytes, gpu_name, products=True):
+def _bound(flops, nbytes, gpu_name, products=True, bf16=False):
     """(bound ms, what bounds it, bound ms at the CUDA cores' f32 rate):
     the larger of bytes over the memory rate and FLOPs over the card's
-    fastest f32-accurate rate for them, which for matrix products
-    (``products``) is the tensor cores' 3xTF32."""
-    peak_simt, peak_bw, peak_tc = _peaks(gpu_name)
+    fastest rate for them: for matrix products (``products``) the tensor
+    cores' 3xTF32 (f32 accurate), or their bf16 rate (``bf16``)."""
+    peak_simt, peak_bw, peak_tc, peak_bf16 = _peaks(gpu_name)
     t_bytes = nbytes / peak_bw * 1e3
-    t_ops = flops / (peak_tc if products else peak_simt) * 1e3
+    t_ops = flops / (peak_simt if not products else peak_bf16 if bf16
+                     else peak_tc) * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else
             "bytes", max(flops / peak_simt * 1e3, t_bytes))
 
@@ -591,7 +619,8 @@ def _paged_traffic(vocab):
     return prompts, horizons + [horizons[0]], metas + [{}]
 
 
-def _replay_against_eager(eng, spec, vocab, peak_bw):
+def _replay_against_eager(eng, spec, vocab, peak_bw,
+                          profile_path="paged_decode_profile.txt"):
     """A full batch decoding for PAGED_TICKS ticks; each tick runs the
     eager step from a saved copy of the pools, then the replayed step from
     the same pools: equal tokens and bitwise-equal pools (every row decodes
@@ -650,7 +679,7 @@ def _replay_against_eager(eng, spec, vocab, peak_bw):
     # its kernels by name
     device_ms = _cuda_ms(eng._graph.replay, iters=20)
     profile = _profile_step(
-        eng._graph.replay, "paged_decode_profile.txt",
+        eng._graph.replay, profile_path,
         # the page gathers (advanced indexing), cuBLAS, the sampler's
         # sorts, torch's other kernels
         groups=("index", "gemm", "gemv", "sort", "softmax", "reduce",
@@ -2117,7 +2146,7 @@ def resnet_serving_phase(built, scope, feed, untranspiled):
     eager_s = timed(lambda: exe.run(eng.program, feed={"images": x},
                                     fetch_list=eng.fetch_names,
                                     scope=eng.scope))
-    graph, static_in, _ = eng._graphs[(("images", tuple(x.shape)),)]
+    graph, static_in, _ = eng._graphs[eng._signature({"images": x})]
     device_ms = _device_ms(graph.replay)
     profile = _profile_step(
         graph.replay, "resnet_serving_profile.txt",
@@ -2257,6 +2286,611 @@ def attention_rewrite_phase():
     return result
 
 
+# --- mixed precision (AMP): bf16 products on f32 master weights --------------
+# The bf16 instances of the conv-epilogue kernels against their plain
+# versions (the f32 product of the bf16 operands, rounded once):
+# - bf16 outputs (y, out): within one bf16 ulp of the plain version's (two
+#   f32 sums in another order round apart at a tie); the ulp is taken at
+#   no less than 1/256 of the largest |value|, as a value that cancels to
+#   near zero moves by more than its own ulp when its f32 sum is taken in
+#   another order (~1e-7 of the summed terms);
+# - statistics: each channel's within STATS_TOL of its summed magnitude,
+#   as for the f32 instance (the same summation order, from the f32
+#   accumulator).
+# End to end, against the same step or batch in f32: the JAX package's
+# own AMP tolerance (3e-2 relative, tests/tpu_tier.py), for the step-1
+# loss and for the served logits (of the largest |logit|); the kernels'
+# AMP loss against the plain path's AMP loss within 1e-2 (the bf16
+# kernels and cuBLAS's bf16 products round the activations at ties apart,
+# and 53 BN layers pass that on).
+AMP_RTOL = 3e-2
+AMP_PLAIN_RTOL = 1e-2
+BF16_KERNELS = tuple(f"{k}_bf16" for k in CONV_KERNELS)
+
+
+def _amp_counts(ke):
+    return tuple(getattr(ke, n).bf16_launches for n in CONV_KERNELS)
+
+
+def _reset_amp_counts(ke):
+    for n in CONV_KERNELS:
+        getattr(ke, n).bf16_launches = 0
+
+
+class _Amp:
+    """``--use_amp`` on inside the block (the flag a user sets), off after."""
+
+    def __enter__(self):
+        import paddle_tpu_torch as pt
+
+        pt.flags.FLAGS.use_amp = True
+
+    def __exit__(self, *exc):
+        import paddle_tpu_torch as pt
+
+        pt.flags.FLAGS.use_amp = False
+
+
+def _bf16_ulps(got, want):
+    """The largest |got - want| in bf16 ulps of the larger of the two
+    values, each ulp taken at no less than 1/256 of max |want|."""
+    import torch
+
+    g, w = got.float(), want.float()
+    floor = max(float(w.abs().max()) / 256, 2.0 ** -126)
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(floor)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
+def _conv_work_bf16(kind, R, I, O, residual, act, res_bytes=2):
+    """(FLOPs, bytes) of one bf16-instance call: bf16 x, W, y and out at
+    2 bytes a value, f32 scale/shift and statistics at 4, the residual at
+    ``res_bytes``; each input read once and each output written once."""
+    if kind == "scale_shift_act":
+        flops = R * O * (2 + int(residual) + int(act == "relu"))
+        return flops, 2.0 * 2 * R * O + res_bytes * R * O * residual + 8 * O
+    nbytes = 2.0 * (R * I + I * O + R * O) + 8.0 * O
+    if kind == "conv1x1_epilogue" and residual:
+        nbytes += res_bytes * R * O
+    return 2.0 * R * I * O, nbytes
+
+
+def amp_kernel_phase(gpu_name, train_shapes, infer_shapes):
+    """Phase 11a: the bf16 instances against their plain versions at every
+    1x1 conv1x1_bn_act shape of ResNet-50's train step (batch 256; bf16
+    residuals, as that program carries them) and served batch (16; f32
+    residuals, as the transpiled program's BN-folded shortcuts give them)
+    and at ragged shapes (both residual dtypes; widths that TMA cannot
+    take as they are); then timed at the main path's shapes beside the
+    plain version, the bound and the library (bf16 torch.matmul with f32
+    accumulation; torch.addcmul in bf16)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+    from paddle_tpu_torch.ops.common import f32_accumulation
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def inputs(R, I, O, res_dtype):
+        x = torch.randn(R, I, device="cuda", generator=gen).bfloat16()
+        w = (torch.randn(I, O, device="cuda", generator=gen)
+             * I ** -0.5).bfloat16()
+        scale = 1.0 + 0.2 * torch.randn(O, device="cuda", generator=gen)
+        shift = 0.1 * torch.randn(O, device="cuda", generator=gen)
+        res = (None if res_dtype is None else
+               torch.randn(R, O, device="cuda", generator=gen).to(res_dtype))
+        return x, w, scale, shift, res
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    # ragged: I % 8 and O % 8 != 0 (the wrapper's padded rows), a partial
+    # K stage, tiles cut by R and O, both residual dtypes
+    ragged = [(R, I, O, rd, act) for R, I, O in ((257, 30, 9), (1000, 72, 40),
+                                                 (100, 136, 200))
+              for rd, act in ((None, None), (bf16, "relu"), (f32, "relu"))]
+    train = sorted({(R, I, O, bf16 if res else None, act)
+                    for R, I, O, res, act in train_shapes}, key=str)
+    infer = sorted({(R, I, O, f32 if res else None, act)
+                    for R, I, O, res, act in infer_shapes}, key=str)
+    errs = {k: 0.0 for k in CONV_KERNELS}  # in bf16 ulps
+    abs_errs = {k: 0.0 for k in CONV_KERNELS}
+    stats_err = 0.0
+    repeat_ok = 0
+    for R, I, O, rd, act in train + ragged:
+        x, w, scale, shift, r = inputs(R, I, O, rd)
+        y, stats = ke.conv1x1_stats(x, w)
+        y2, stats2 = ke.conv1x1_stats(x, w)
+        torch.cuda.synchronize()
+        assert y.dtype == bf16 and stats.dtype == f32, (y.dtype, stats.dtype)
+        assert torch.equal(y, y2) and torch.equal(stats, stats2), (
+            f"two bf16 conv1x1_stats launches differ at {R}x{I}x{O}")
+        repeat_ok += 1
+        ry, rstats = ke.conv1x1_stats_reference(x, w)
+        ulps = _bf16_ulps(y, ry)
+        assert ulps <= 1.0, (R, I, O, "y", ulps)
+        yf = torch.matmul(x.float(), w.float())
+        mass = torch.stack([yf.abs().sum(0), (yf * yf).sum(0)])
+        s_err = float(((stats - rstats).abs() / mass.clamp_min(1e-30)).max())
+        assert s_err <= STATS_TOL, (R, I, O, s_err)
+        out = ke.scale_shift_act(ry, scale, shift, r, act)
+        torch.cuda.synchronize()
+        want = ke.scale_shift_act_reference(ry, scale, shift, r, act)
+        a_ulps = _bf16_ulps(out, want)
+        assert out.dtype == bf16 and a_ulps <= 1.0, (R, O, "apply", a_ulps)
+        errs["conv1x1_stats"] = max(errs["conv1x1_stats"], ulps)
+        errs["scale_shift_act"] = max(errs["scale_shift_act"], a_ulps)
+        abs_errs["conv1x1_stats"] = max(abs_errs["conv1x1_stats"], float(
+            (y.float() - ry.float()).abs().max()))
+        abs_errs["scale_shift_act"] = max(abs_errs["scale_shift_act"], float(
+            (out.float() - want.float()).abs().max()))
+        stats_err = max(stats_err, s_err)
+        print(f"bf16 conv1x1_stats/scale_shift_act R{R} I{I} O{O} residual="
+              f"{rd} act={act}: y {ulps:.2f} ulp, stats {s_err:.3e} of the "
+              f"summed mass (tol {STATS_TOL}), apply {a_ulps:.2f} ulp "
+              f"(tol 1 ulp)")
+        del x, w, r, y, y2, ry, out, want, yf
+    for R, I, O, rd, act in infer + ragged:
+        x, w, scale, shift, r = inputs(R, I, O, rd)
+        out = ke.conv1x1_epilogue(x, w, scale, shift, r, act)
+        out2 = ke.conv1x1_epilogue(x, w, scale, shift, r, act)
+        torch.cuda.synchronize()
+        assert out.dtype == bf16 and torch.equal(out, out2), (
+            f"two bf16 conv1x1_epilogue launches differ at {R}x{I}x{O}")
+        repeat_ok += 1
+        want = ke.conv1x1_epilogue_reference(x, w, scale, shift, r, act)
+        ulps = _bf16_ulps(out, want)
+        assert ulps <= 1.0, (R, I, O, "epilogue", ulps)
+        errs["conv1x1_epilogue"] = max(errs["conv1x1_epilogue"], ulps)
+        abs_errs["conv1x1_epilogue"] = max(abs_errs["conv1x1_epilogue"], float(
+            (out.float() - want.float()).abs().max()))
+        print(f"bf16 conv1x1_epilogue R{R} I{I} O{O} residual={rd} act={act}"
+              f" plan {tuple(ke.tile_plan(R, I, O, True, ke.K_TILE_BF16))}: "
+              f"{ulps:.2f} ulp (tol 1 ulp)")
+        del x, w, r, out, out2, want
+    print(f"bf16 conv-epilogue GEMM kernels: two launches on the same inputs "
+          f"bitwise equal in all {repeat_ok} cases")
+    from paddle_tpu_torch.kernels import build
+
+    smem = build.load("conv_epilogue").paddle_conv1x1_smem_bytes_bf16
+    usage = _kernel_usage("conv_epilogue", lambda name, args: smem(args[0]),
+                          match="conv1x1_bf16_kernel")
+    sass = _sass_counts("conv_epilogue", "conv1x1_bf16_kernel")
+
+    def matmul_lib(x, w):
+        with f32_accumulation():
+            return torch.matmul(x, w)
+
+    timed = {k: {} for k in CONV_KERNELS}
+    for kind, shapes, rows in (("conv1x1_stats", train_shapes, train),
+                               ("scale_shift_act", train_shapes, train),
+                               ("conv1x1_epilogue", infer_shapes, infer)):
+        for R, I, O, rd, act in rows:
+            x, w, scale, shift, r = inputs(R, I, O, rd)
+            count = shapes.count((R, I, O, rd is not None, act))
+            if kind == "conv1x1_stats":
+                calls = (lambda: ke.conv1x1_stats(x, w),
+                         lambda: ke.conv1x1_stats_reference(x, w),
+                         lambda: matmul_lib(x, w))
+            elif kind == "conv1x1_epilogue":
+                calls = (lambda: ke.conv1x1_epilogue(x, w, scale, shift, r,
+                                                     act),
+                         lambda: ke.conv1x1_epilogue_reference(
+                             x, w, scale, shift, r, act),
+                         lambda: matmul_lib(x, w))
+            else:
+                y = torch.randn(R, O, device="cuda", generator=gen).bfloat16()
+                sb, hb = scale.bfloat16(), shift.bfloat16()
+                calls = (lambda: ke.scale_shift_act(y, scale, shift, r, act),
+                         lambda: ke.scale_shift_act_reference(y, scale, shift,
+                                                              r, act),
+                         lambda: torch.addcmul(hb, y, sb))
+            flops, nbytes = _conv_work_bf16(
+                kind, R, I, O, rd is not None, act,
+                4 if rd == torch.float32 else 2)
+            bound, by, bound_simt = _bound(
+                flops, nbytes, gpu_name, products=kind != "scale_shift_act",
+                bf16=True)
+            turns = [_cuda_ms(calls[i], iters=20) for i in (0, 2, 2, 0)]
+            row = {"bound_ms": bound, "bound_by": by,
+                   "bound_ms_simt": bound_simt, "count": count,
+                   "ms": (turns[0] + turns[3]) / 2,
+                   "library_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+                   "plain_ms": _cuda_ms(calls[1], iters=10),
+                   "residual": None if rd is None else str(rd)}
+            if kind != "scale_shift_act":
+                row["device_ms"] = _device_ms(calls[0])
+            timed[kind][(R, I, O, rd is not None, act)] = row
+            print(f"bf16 {kind} R{R} I{I} O{O} residual={rd} act={act} "
+                  f"x{count}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
+                  f", library {row['library_ms']:.4f}, bound {bound:.4f} "
+                  f"({by})")
+            del x, w, r, calls
+    _reset_amp_counts(ke)  # comparison launches do not count
+
+    library = {"conv1x1_stats": "torch.matmul in bf16 (f32 accumulation), "
+                                "product only",
+               "conv1x1_epilogue": "torch.matmul in bf16 (f32 "
+                                   "accumulation), product only",
+               "scale_shift_act": "torch.addcmul in bf16, no residual, "
+                                  "no act"}
+    records = []
+    for kind in CONV_KERNELS:
+        rows = timed[kind]
+        shape, top = max(rows.items(), key=lambda kv: kv[1]["bound_ms"])
+        per_step = {k: sum(r[k] * r["count"] for r in rows.values())
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "device_ms")
+                    if all(r.get(k) is not None for r in rows.values())}
+        rec = {
+            "name": f"{kind}_bf16", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
+            "replaces": f"paddle_tpu/kernels/conv_epilogue.py:"
+                        f"{CONV_REPLACES[kind]}",
+            "launches": None, "max_abs_err": abs_errs[kind],
+            "max_err_bf16_ulps": errs[kind], "ms": top["ms"],
+            "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+            "bound_by": top["bound_by"],
+            "bound_ms_simt": top["bound_ms_simt"],
+            "library_ms": top["library_ms"], "library": library[kind],
+            "shape": "R{} I{} O{} residual={} act={}".format(*shape),
+            "per_step": per_step,
+            "per_shape": [[list(k), v] for k, v in rows.items()],
+        }
+        if kind == "conv1x1_stats":
+            rec["stats_err_of_mass"] = stats_err
+        if kind != "scale_shift_act":
+            rec["ptxas"], rec["sass"] = usage, sass
+        print(f"{kind}_bf16: heaviest shape {rec['shape']} {top['ms']:.4f} ms "
+              f"vs bound {top['bound_ms']:.4f} ({top['bound_by']}), library "
+              f"{top['library_ms']:.4f}; per "
+              f"{'batch' if kind == 'conv1x1_epilogue' else 'step'} "
+              f"{per_step['ms']:.3f} ms (plain {per_step['plain_ms']:.3f}, "
+              f"library {per_step['library_ms']:.3f}, bound "
+              f"{per_step['bound_ms']:.3f}; device time "
+              f"{_ms_text(per_step.get('device_ms'))})")
+        records.append(rec)
+    return records
+
+
+def _resnet_step1(pt, built, feed):
+    """(executor, scope, its startup state, step-1 loss) of a ResNet build
+    run from its seeded startup on ``feed``."""
+    import torch
+
+    main, startup, loss = built[0], built[1], built[3]
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace())
+    exe.run(startup, scope=scope)
+    state = {n: scope.get(n).clone() for n in list(scope.keys())
+             if isinstance(scope.get(n), torch.Tensor)}
+    loss1 = float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0])
+    return exe, scope, state, loss1
+
+
+def resnet_amp_training_phase(records, gpu_name):
+    """Phase 11b: ResNet-50 at batch 256 built and trained under AMP and
+    --fused_conv_epilogue, as the JAX package's benchmark builds it
+    (parameters fed by bf16 activations are declared bf16 and become f32
+    at the first update, as in JAX): step-1 loss against an f32 build's
+    step 1 on the same batch from the same seeded startup, and against
+    the AMP plain path; then 1 warm + 6 timed steps on that batch through
+    the bf16 instances."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+
+    c = RESNET
+    B = c["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    feed = {"images": torch.randn(B, c["size"], c["size"], 3, device="cuda",
+                                  generator=gen),
+            "label": torch.randint(0, c["classes"], (B, 1), device="cuda",
+                                   generator=gen)}
+    l32 = _resnet_step1(pt, _build_resnet(pt, c), feed)[3]
+    torch.cuda.empty_cache()
+    with _Amp():
+        built = _build_resnet(pt, c)
+        main, loss = built[0], built[3]
+        exe, scope, state, _ = _resnet_step1(pt, built, feed)
+
+        def restore():
+            for n, t in state.items():
+                scope.set(n, t.clone())
+
+        restore()
+        lplain = float(_plain_step(exe, main, feed, [loss], scope, ke)[0])
+        restore()
+        del state
+        _reset_amp_counts(ke)
+        _reset_conv_counts(ke)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for _ in range(7):
+            t1 = time.perf_counter()
+            lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            step_s.append(time.perf_counter() - t1)
+            losses.append(float(lo))
+        launches = _amp_counts(ke)
+        f32_launches = _conv_counts(ke)
+        peak_mem = torch.cuda.max_memory_allocated()
+        profile = _profile_step(
+            lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+            "resnet_amp_profile.txt",
+            groups=("conv1x1_bf16_kernel", "stats_reduce_kernel",
+                    "scale_shift_act_kernel", "cudnn", "engine", "xmma",
+                    "cublas", "gemm", "elementwise", "reduce"))
+    l1 = losses[0]
+    print(f"resnet AMP: step-1 loss {l1:.6f}, the same step in f32 "
+          f"{l32:.6f} (rel {abs(l1 - l32) / abs(l32):.3e}, tol {AMP_RTOL}), "
+          f"the AMP plain path {lplain:.6f} (rel "
+          f"{abs(l1 - lplain) / abs(lplain):.3e}, tol {AMP_PLAIN_RTOL})")
+    assert np.isfinite(l1) and abs(l1 - l32) <= AMP_RTOL * abs(l32), (l1, l32)
+    assert abs(l1 - lplain) <= AMP_PLAIN_RTOL * abs(lplain), (l1, lplain)
+    assert launches == (7 * FUSED_OPS, 0, 7 * FUSED_OPS), launches
+    assert f32_launches == (0, 0, 0), f32_launches
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    med = float(np.median(step_s[1:]))
+    flops = _resnet_train_flops(main, B)
+    peak_bf16 = _peaks(gpu_name)[3]
+    by_name = {r["name"]: r for r in records}
+    by_name["conv1x1_stats_bf16"]["launches"] = launches[0] // 7
+    by_name["scale_shift_act_bf16"]["launches"] = launches[2] // 7
+    print(f"resnet AMP: losses {[round(x, 5) for x in losses]}")
+    print(f"resnet AMP: step median {med * 1e3:.1f} ms over 6 steps "
+          f"({[round(x * 1e3, 1) for x in step_s]} ms), {B / med:.1f} "
+          f"images/s, {flops / 1e12:.2f} TFLOP/step = "
+          f"{flops / med / peak_bf16 * 100:.1f}% of the bf16 peak, peak "
+          f"memory {peak_mem / 2**30:.2f} GiB; bf16 launches per step "
+          f"stats/epilogue/apply {[n // 7 for n in launches]}")
+    del feed
+    return built, scope, {
+        "losses": losses, "loss_f32_step1": l32, "loss_plain_step1": lplain,
+        "step_ms": [x * 1e3 for x in step_s], "step_ms_median": med * 1e3,
+        "images_per_s": B / med, "tflop_per_step": flops / 1e12,
+        "bf16_peak_share": flops / med / peak_bf16,
+        "peak_mem_bytes": peak_mem,
+        "bf16_launches_per_step": {k: n // 7 for k, n in
+                                   zip(CONV_KERNELS, launches)},
+        "profile": profile}
+
+
+def resnet_amp_serving_phase(records, built, scope):
+    """Phase 11c: the for_test clone saved through the inference
+    transpiler and served by two InferenceEngines on the same directory,
+    one with AMP off and one with AMP on (one CUDA graph per bucket each):
+    the AMP replay against the eager AMP run (bitwise is the target) and
+    against the f32 graph's logits; timed at batch 16."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+
+    c = RESNET
+    B = c["infer_batch"]
+    test_prog, logits = built[2], built[4]
+    exe = pt.Executor(pt.CUDAPlace())
+    model_dir = ROOT / "build" / "resnet50_inference_amp"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    pt.flags.FLAGS.fused_conv_epilogue = True
+    try:
+        pt.io.save_inference_model(str(model_dir), ["images"], [logits], exe,
+                                   main_program=test_prog, scope=scope)
+    finally:
+        pt.flags.FLAGS.fused_conv_epilogue = False
+    torch.cuda.empty_cache()
+    buckets = (B,)
+    eng32 = pt.InferenceEngine(str(model_dir), place=pt.CUDAPlace(0),
+                               batch_buckets=buckets)
+    eng32.warmup()
+    gen = torch.Generator().manual_seed(SEED + 13)
+    x = torch.randn(B, c["size"], c["size"], 3, generator=gen).numpy()
+    want32 = eng32.run({"images": x})[0]
+    eng32.close()
+    del eng32
+    with _Amp():
+        _reset_amp_counts(ke)
+        _reset_conv_counts(ke)
+        eng = pt.InferenceEngine(str(model_dir), place=pt.CUDAPlace(0),
+                                 batch_buckets=buckets)
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        capture_launches = _amp_counts(ke)
+        assert capture_launches[1] > 0 and capture_launches[0] == \
+            capture_launches[2] == 0, capture_launches
+        assert _conv_counts(ke)[1] == 0, "an f32 epilogue ran under AMP"
+        replay = eng.run({"images": x})[0]
+        eager = exe.run(eng.program, feed={"images": x},
+                        fetch_list=eng.fetch_names, scope=eng.scope)[0]
+        counted = _count_kernels(lambda: eng.run({"images": x}),
+                                 ("conv1x1_bf16_kernel",
+                                  "conv1x1_tf32x3_kernel"))
+        graph = eng._graphs[eng._signature({"images": x})][0]
+        rep_s = []
+        for i in range(12):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.run({"images": x})
+            torch.cuda.synchronize()
+            if i >= 2:
+                rep_s.append(time.perf_counter() - t1)
+        device_ms = _device_ms(graph.replay)
+        profile = _profile_step(
+            graph.replay, "resnet_amp_serving_profile.txt",
+            groups=("conv1x1_bf16_kernel", "scale_shift_act_kernel", "cudnn",
+                    "engine", "xmma", "gemm", "elementwise", "reduce",
+                    "pool"))
+    assert replay.shape == (B, c["classes"]) and np.isfinite(replay).all()
+    ref = float(np.abs(want32).max())
+    e_eager = float(np.abs(replay - eager).max())
+    e_f32 = float(np.abs(replay - want32).max())
+    bitwise = bool(np.array_equal(replay, eager))
+    top32, top16 = want32.argmax(1), replay.argmax(1)
+    srt = np.sort(want32, axis=1)
+    clear = (srt[:, -1] - srt[:, -2]) > 2 * AMP_RTOL * ref
+    agree = int((top32 == top16).sum())
+    print(f"resnet AMP serving: graph captured in {warm_s:.2f} s with "
+          f"{capture_launches[1]} bf16 conv1x1_epilogue wrapper launches; "
+          f"replay vs the eager AMP run max abs err {e_eager:.3e} (bitwise "
+          f"{bitwise}; tol {REPLAY_RTOL} of max |logit| {ref:.3e}); vs the "
+          f"f32 graph {e_f32:.3e} (tol {AMP_RTOL} of it); top-1 agrees on "
+          f"{agree}/{B} rows, on every one of the {int(clear.sum())} rows "
+          f"whose f32 margin exceeds twice the tolerance: "
+          f"{bool((top32 == top16)[clear].all())}; one profiled replay "
+          f"launched {counted}")
+    assert e_eager <= REPLAY_RTOL * ref, e_eager
+    assert e_f32 <= AMP_RTOL * ref, (e_f32, ref)
+    assert (top32 == top16)[clear].all(), (top32, top16)
+    assert counted is not None and counted["conv1x1_bf16_kernel"] == \
+        FUSED_OPS and counted["conv1x1_tf32x3_kernel"] == 0, counted
+    by_name = {r["name"]: r for r in records}
+    by_name["conv1x1_epilogue_bf16"]["launches"] = \
+        counted["conv1x1_bf16_kernel"]
+    med = float(np.median(rep_s))
+    print(f"resnet AMP serving: batch {B} replayed {med * 1e3:.3f} ms median "
+          f"({B / med:.1f} images/s; {[round(t * 1e3, 3) for t in rep_s]} "
+          f"ms), the graph alone {_ms_text(device_ms)} ms of device time")
+    eng.close()
+    del eng, graph
+    torch.cuda.empty_cache()
+    return {"replay_ms": [t * 1e3 for t in rep_s], "replay_ms_median":
+            med * 1e3, "replay_images_per_s": B / med,
+            "replay_device_ms": device_ms, "replay_profile": profile,
+            "errors": {"eager": e_eager, "f32_graph": e_f32},
+            "replay_bitwise_eager": bitwise, "logits_max_abs_f32": ref,
+            "top1_agree": agree, "top1_clear_rows": int(clear.sum()),
+            "replay_kernels": counted,
+            "capture_bf16_launches": capture_launches}
+
+
+def lm_amp_phase(gpu_name):
+    """Phase 11d: the LM trained under AMP (bf16 projections and head, the
+    f32 flash kernels): step-1 loss against the same step in f32, launch
+    counts, 1 warm + 6 timed steps; then a paged wave under AMP whose
+    replayed decode step gives the eager AMP step's tokens."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import init_params
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    from paddle_tpu_torch.serving import GenerationEngine, LMSpec
+
+    c = TRAIN
+    L, tokens = c["n_layers"], c["batch"] * c["seq"]
+    with _Amp():
+        main, startup, loss, params_grads = _build_training_program(pt, c)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace())
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED)
+    feed = {"ids": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+            .astype("int64"),
+            "tgt": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+            .astype("int64")}
+    state = {n: scope.get(n).clone() for n in list(scope.keys())
+             if isinstance(scope.get(n), torch.Tensor)}
+    l32 = float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0])
+    for n, t in state.items():
+        scope.set(n, t)
+    del state
+    with _Amp():
+        _reset_launch_counts(fa)
+        torch.cuda.reset_peak_memory_stats()
+        losses, step_s = [], []
+        for _ in range(7):
+            t1 = time.perf_counter()
+            lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            step_s.append(time.perf_counter() - t1)
+            losses.append(float(lo))
+        launches = _launch_counts(fa)
+        peak_mem = torch.cuda.max_memory_allocated()
+        dtypes = {p.name: str(scope.get(p.name).dtype)
+                  for p, _ in params_grads}
+        profile = _profile_step(
+            lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+            "train_amp_profile.txt",
+            groups=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gemm",
+                    "cutlass", "elementwise", "reduce"))
+    l1 = losses[0]
+    print(f"training AMP: step-1 loss {l1:.6f}, the same step in f32 "
+          f"{l32:.6f} (rel {abs(l1 - l32) / abs(l32):.3e}, tol {AMP_RTOL})")
+    assert np.isfinite(l1) and abs(l1 - l32) <= AMP_RTOL * abs(l32), (l1, l32)
+    assert launches == (7 * L,) * 3, launches
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert set(dtypes.values()) == {"torch.float32"}, dtypes
+    med = float(np.median(step_s[1:]))
+    flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
+                                    c["vocab"], c["d_ff"])
+    peak_bf16 = _peaks(gpu_name)[3]
+    print(f"training AMP: losses {[round(x, 5) for x in losses]}")
+    print(f"training AMP: step median {med * 1e3:.1f} ms over 6 steps "
+          f"({[round(x * 1e3, 1) for x in step_s]} ms), {tokens / med:.0f} "
+          f"tokens/s, {flops / 1e12:.2f} TFLOP/step = "
+          f"{flops / med / peak_bf16 * 100:.1f}% of the bf16 peak, peak "
+          f"memory {peak_mem / 2**30:.2f} GiB; f32 flash launches per step "
+          f"fwd/dq/dkv {[n // 7 for n in launches]}; parameters stay f32")
+    del exe, scope, main
+    torch.cuda.empty_cache()
+
+    spec = LMSpec(vocab_size=16384, d_model=1024, n_layers=8, num_heads=16,
+                  max_len=2048)
+    model = TransformerLM(spec, device="cuda")
+    model.load_jax_params(init_params(spec, SEED))
+    with _Amp():
+        eng = GenerationEngine(spec, model, device="cuda", **PAGED)
+        eng.warmup()
+        _reset_launch_counts(fa)
+        paged = _replay_against_eager(eng, spec, spec.vocab_size,
+                                      _peaks(gpu_name)[1],
+                                      "paged_decode_amp_profile.txt")
+    print(f"paged AMP: {paged['ticks']} full-batch ticks, replayed decode "
+          f"step equal to the eager AMP step (tokens and pools bitwise); "
+          f"replayed {paged['replay_ms_median']:.2f} ms, eager "
+          f"{paged['eager_ms_median']:.2f} ms, device "
+          f"{_ms_text(paged['replay_device_ms'])} ms a step; prefill flash "
+          f"launches {fa.flash_attention.launches}")
+    assert fa.flash_attention.launches == 0, "the paged plane ran flash"
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "loss_f32_step1": l32,
+            "step_ms": [x * 1e3 for x in step_s], "step_ms_median": med * 1e3,
+            "tokens_per_s": tokens / med, "tflop_per_step": flops / 1e12,
+            "bf16_peak_share": flops / med / peak_bf16,
+            "peak_mem_bytes": peak_mem, "launches_per_step": {
+                "fwd": launches[0] // 7, "dq": launches[1] // 7,
+                "dkv": launches[2] // 7},
+            "profile": profile, "paged": paged}
+
+
+def amp_phases(gpu_name):
+    """Phase 11 (a-d), all under --use_amp: returns (bf16 kernel records,
+    the record of each phase)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    resnet = _build_resnet(pt, RESNET)
+    recs = amp_kernel_phase(gpu_name, _fused_shapes(resnet[0],
+                                                    RESNET["batch"]),
+                            _fused_shapes(resnet[2], RESNET["infer_batch"]))
+    del resnet
+    built, scope, training = resnet_amp_training_phase(recs, gpu_name)
+    serving = resnet_amp_serving_phase(recs, built, scope)
+    del built, scope
+    torch.cuda.empty_cache()
+    lm = lm_amp_phase(gpu_name)
+    return recs, {"resnet_training": training, "resnet_serving": serving,
+                  "lm": lm}
+
+
 def main():
     import argparse
 
@@ -2272,6 +2906,11 @@ def main():
     parser.add_argument("--paged-only", action="store_true",
                         help="build the kernels and run only phase 4b (paged "
                              "serving); prints no ok line")
+    parser.add_argument("--amp-only", action="store_true",
+                        help="build the kernels and run only phase 11 "
+                             "(mixed precision: the bf16 kernels, ResNet-50 "
+                             "training and serving, the LM); prints no ok "
+                             "line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -2303,6 +2942,16 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_ms_simt", "library_ms")
+    if args.amp_only:
+        recs, amp = amp_phases(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_amp.json").write_text(json.dumps(
+            {"gpu": smi, "kernels": recs, "amp": amp}, indent=1))
+        print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                      for r in recs]}))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -2356,7 +3005,10 @@ def main():
     scope, resnet_training = resnet_training_phase(conv, gpu, resnet)
     resnet_inference = resnet_inference_phase(conv, resnet, scope)
     attention = attention_rewrite_phase()
-    records = [kern] + bwd + conv
+    del resnet, scope
+    torch.cuda.empty_cache()
+    amp_recs, amp = amp_phases(gpu)
+    records = [kern] + bwd + conv + amp_recs
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -2366,7 +3018,8 @@ def main():
          "training": training,
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference,
-         "attention_rewrite": attention, "build_s": built}, indent=1))
+         "attention_rewrite": attention, "amp": amp, "build_s": built},
+        indent=1))
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records]}))
     print(smi)

@@ -7,7 +7,9 @@ transformer LM through the dense-KV continuous-batching engine, and
 trains it and ResNet through the Program IR: ``layers`` and ``models``
 build a program, ``optimizer.*Optimizer(...).minimize`` appends the
 backward pass and the updates, and ``Executor`` runs it (ResNet's fused
-conv epilogue under ``flags.FLAGS.fused_conv_epilogue``).
+conv epilogue under ``flags.FLAGS.fused_conv_epilogue``), in f32 or under
+mixed precision (``set_amp(True)`` or ``flags.FLAGS.use_amp``: bf16
+products on f32 master weights).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);
@@ -38,6 +40,7 @@ def resolve_device(device=None) -> torch.device:
 from . import core, ops  # noqa: E402,F401  (ops register on import)
 from .core import backward  # noqa: E402,F401  (registers grad ops)
 from .core.executor import CPUPlace, CUDAPlace, Executor  # noqa: E402
+from .ops.common import amp_enabled, set_amp  # noqa: E402
 from .core.program import (Program, default_main_program,  # noqa: E402
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
@@ -54,6 +57,7 @@ from .models.transformer import TransformerLM, init_params  # noqa: E402
 
 __all__ = [
     "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
+    "amp_enabled", "set_amp",
     "default_main_program", "default_startup_program", "flags",
     "global_scope", "initializer", "io",
     "layers", "models", "optimizer", "program_guard", "scope_from_numpy",

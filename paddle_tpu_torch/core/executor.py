@@ -42,6 +42,7 @@ from .enforce import EnforceError, op_error
 from .program import RNG_VAR, Program
 from .registry import get_op, op_uses_rng
 from .scope import Scope, global_scope
+from .types import to_numpy
 
 
 class CUDAPlace:
@@ -140,7 +141,8 @@ class Executor:
             scope: Optional[Scope] = None, return_numpy: bool = True):
         """Run ``program``'s global block: ``feed`` maps data variable
         names to arrays or tensors; returns the ``fetch_list`` values
-        (numpy arrays unless ``return_numpy`` is False). Persistable
+        (numpy arrays unless ``return_numpy`` is False; a bfloat16 value
+        comes back as float32, ``types.to_numpy``). Persistable
         state comes from and goes back to ``scope``."""
         program = program or prog_mod.default_main_program()
         scope = scope or global_scope()
@@ -214,7 +216,7 @@ class Executor:
                     raise RuntimeError(
                         f"fetch variable {name!r} is never produced")
         if return_numpy:
-            return [v.detach().cpu().numpy() for v in fetches]
+            return [to_numpy(v) for v in fetches]
         return fetches
 
     def _run_op(self, op, opdef, ins, plan: _Plan, vjps, rng):

@@ -116,14 +116,17 @@ def _signature_key(op_type: str, attrs, in_shapes) -> Optional[tuple]:
     sig = tuple(sorted(
         (slot, tuple((tuple(a.shape), str(a.dtype)) for a in arrs))
         for slot, arrs in in_shapes.items()))
-    return (op_type, frozen_attrs, sig)
+    from ..ops import common as ops_common
+
+    return (op_type, frozen_attrs, sig, ops_common.amp_enabled())
 
 
 def infer_outputs(op_type: str, attrs, in_shapes) -> Tensors:
     """Evaluate an op on meta tensors to get its outputs' shapes and
     dtypes. ``in_shapes`` maps slot -> list of anything with ``shape`` and
     ``dtype`` (meta tensors, real tensors); the result maps slot -> list
-    of meta tensors. Memoized on (op type, attrs, input signature)."""
+    of meta tensors. Memoized on (op type, attrs, input signature, AMP
+    policy): under AMP a product's outputs are bf16."""
     key = _signature_key(op_type, attrs, in_shapes)
     if key is not None and key in _INFER_CACHE:
         return {k: list(v) for k, v in _INFER_CACHE[key].items()}

@@ -13,6 +13,8 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from .types import to_numpy
+
 
 class Scope:
     def __init__(self, parent: Optional["Scope"] = None):
@@ -42,7 +44,7 @@ class Scope:
         return iter(self._vars.keys())
 
     def get_numpy(self, name: str) -> np.ndarray:
-        return self.get(name).detach().cpu().numpy()
+        return to_numpy(self.get(name))
 
     def __contains__(self, name: str) -> bool:
         return self.has(name)

@@ -62,3 +62,14 @@ def dtype_name(dtype) -> str:
 
 def is_floating(dtype) -> bool:
     return to_dtype(dtype).is_floating_point
+
+
+def to_numpy(t):
+    """A tensor's value as a numpy array on the host. numpy has no
+    bfloat16 (JAX fetches one as ``ml_dtypes.bfloat16``, a package the
+    port does not take on), so a bf16 value comes back widened to
+    float32, which is exact."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()

@@ -12,6 +12,9 @@ _DEFAULTS: Dict[str, Any] = {
     # lower NHWC 1x1/stride-1 conv+BN(+relu)(+residual) chains in models
     # as the fused conv1x1_bn_act op (ops/fusion_ops.py)
     "fused_conv_epilogue": False,
+    # bf16 products on f32 master weights (mixed precision) for ops that
+    # run while ops.common.set_amp has not been called
+    "use_amp": False,
     # global graph RNG seed used when a program sets no random_seed of
     # its own; runs are deterministic for a fixed seed
     "seed": 0,

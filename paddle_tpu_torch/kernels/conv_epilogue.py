@@ -18,26 +18,44 @@ replaces, each launched through ``pl.pallas_call``, all in
 - ``scale_shift_act`` (``_apply_kernel``): act(y * scale + shift
   [+ residual]) in one read and one write of [R, O].
 
-What bounds them on the H100: the two GEMM kernels do 2*R*I*O FLOPs on
-4*(R*I + I*O + R*O) bytes: bound by operations once I and O reach 128,
-by bytes at I = 64. They run their products on the tensor cores as
-3xTF32 ``wgmma`` (f32 accuracy: each operand split into a tf32 hi and lo,
-three products summed), W split once per launch by a pre-pass, x split
-by the thread that reads it, sharing one main loop over a ring of
-32-deep K stages. ``tile_plan`` sizes the grid from (R, I, O): 64-wide
-tiles when O <= 64, and, for the epilogue, K cut into slices where the
-output tiles fill less than one wave of the SMs (the slices are added
-in a fixed order). ``scale_shift_act`` is bound by bytes and moves
-float4s when O % 4 == 0. Every R, I and O is taken: ragged edges are
-handled in the kernels, where the TPU wrappers fall back to XLA when
-``_pick_block_r`` finds no tile.
+Each kernel has two instances, chosen by x's dtype, as the Pallas
+kernels take either:
+
+- f32 (AMP off): the two GEMM kernels do 2*R*I*O FLOPs on
+  4*(R*I + I*O + R*O) bytes: bound by operations once I and O reach 128,
+  by bytes at I = 64. They run their products on the tensor cores as
+  3xTF32 ``wgmma`` (f32 accuracy: each operand split into a tf32 hi and
+  lo, three products summed), W split once per launch by a pre-pass, x
+  split by the thread that reads it, sharing one main loop over a ring
+  of 32-deep K stages.
+- bf16 (AMP on, ``ops/common.py``): x and W in bf16, scale and shift in
+  f32, a residual in bf16 or f32 (the transpiled serving program's
+  BN-folded shortcuts add an f32 bias), the output in bf16. One bf16
+  ``wgmma`` (k16) per product, both operands read by TMA as they are
+  stored (x K-major, W [I, O] MN-major), over 64-deep K stages; the
+  products accumulate in f32, the statistics are summed from that f32
+  accumulator and the affine, residual and relu applied in f32, and only
+  the output is rounded to bf16, as the Pallas bodies compute it
+  (``preferred_element_type=jnp.float32``). Half the bytes of the f32
+  instance and the tensor cores' full bf16 rate: bound by bytes where
+  I*O/(I+O) is below ~300 (ResNet-50's shapes with I or O <= 256), by
+  operations above.
+
+``tile_plan`` sizes the grid from (R, I, O): 64-wide tiles when O <= 64,
+and, for the epilogue, K cut into slices where the output tiles fill less
+than one wave of the SMs (the slices are added in a fixed order).
+``scale_shift_act`` is bound by bytes and moves four values a thread
+when O % 4 == 0. Every R, I and O is taken: ragged edges are handled in
+the kernels (a bf16 row whose stride is not a multiple of 16 bytes, which
+TMA does not take, is padded by the wrapper), where the TPU wrappers fall
+back to XLA when ``_pick_block_r`` finds no tile.
 
 Every wrapper dispatches on the tensor's device: a CPU tensor runs the
 plain version (``*_reference``), a meta tensor (build-time shape
 inference) runs it too and computes nothing, and a CUDA tensor launches
-the kernel or raises. ``conv1x1_stats.launches``,
+the instance of its dtypes or raises, naming them. ``conv1x1_stats.launches``,
 ``conv1x1_epilogue.launches`` and ``scale_shift_act.launches`` count the
-launches.
+f32 instances' launches, ``.bf16_launches`` the bf16 ones'.
 """
 from __future__ import annotations
 
@@ -51,9 +69,10 @@ _INT_MAX = 2**31 - 1
 
 # --- the tile plan ----------------------------------------------------------
 ROW_TILE = 128        # output rows per block (csrc: BM)
-K_TILE = 32           # K depth of one ring stage (csrc: BK)
+K_TILE = 32           # K depth of one f32 ring stage (csrc: BK)
+K_TILE_BF16 = 64      # K depth of one bf16 ring stage (csrc: BK16)
 SMS = 132             # streaming multiprocessors of an H100 SXM
-MIN_SLICE_STEPS = 4   # a split-K slice runs at least 4 stages (128 deep)
+MIN_SLICE_STEPS = 4   # a split-K slice runs at least 4 f32 stages (128 deep)
 
 
 class TilePlan(NamedTuple):
@@ -80,26 +99,33 @@ class TilePlan(NamedTuple):
         return (self.slices, R, O) if self.slices > 1 else None
 
 
-def tile_plan(R, I, O, split_k=False):
+def tile_plan(R, I, O, split_k=False, k_tile=K_TILE):
     """The kernels' grid for an [R, I] x [I, O] product: 64-wide tiles
     when O <= 64 (no half tile of padding), else 128. With ``split_k``
     (the epilogue; the stats need none at ResNet's shapes), where the
     128-row tiles fill less than one wave of the SMS SMs, K is cut into
-    slices of at least MIN_SLICE_STEPS stages until they do."""
+    slices at least 128 deep (MIN_SLICE_STEPS f32 stages) until they do.
+    ``k_tile`` is a stage's depth: K_TILE (f32) or K_TILE_BF16."""
     bn = 64 if O <= 64 else 128
     tiles_r, tiles_o = -(-R // ROW_TILE), -(-O // bn)
-    k_steps = -(-I // K_TILE)
+    k_steps = -(-I // k_tile)
+    min_steps = MIN_SLICE_STEPS * K_TILE // k_tile
     slices = 1
     tiles = tiles_r * tiles_o
     if split_k and 0 < tiles < SMS:
-        slices = max(1, min(-(-SMS // tiles), k_steps // MIN_SLICE_STEPS))
+        slices = max(1, min(-(-SMS // tiles), k_steps // min_steps))
     slice_steps = -(-k_steps // slices) if k_steps else 0
     slices = -(-k_steps // slice_steps) if slice_steps else 1
     return TilePlan(bn, tiles_r, tiles_o, slices, slice_steps,
-                    k_steps * K_TILE, tiles_o * bn)
+                    k_steps * k_tile, tiles_o * bn)
 
 
 # --- the plain versions -----------------------------------------------------
+# What the Pallas bodies compute, for f32 and bf16 operands alike: the
+# product of the operands upcast to f32 (a product of two bf16 values is
+# exact in f32), summed in f32 (``preferred_element_type=jnp.float32``);
+# statistics from that f32 product, the affine, residual and relu in f32;
+# only the output rounded to the operands' dtype.
 def _affine_act(y, scale, shift, residual, act):
     """act(y * scale + shift [+ residual]) in f32, as the Pallas bodies
     compute it."""
@@ -111,16 +137,20 @@ def _affine_act(y, scale, shift, residual, act):
     return y
 
 
+def _f32_product(x2, w):
+    return torch.matmul(x2.float(), w.float())
+
+
 def conv1x1_stats_reference(x2, w):
-    """(y = x2 @ w in x2's dtype, stats [2, O] f32 = (sum y, sum y*y))."""
-    y = torch.matmul(x2, w)
-    yf = y.float()
-    return y.to(x2.dtype), torch.stack([yf.sum(0), (yf * yf).sum(0)])
+    """(y = x2 @ w in x2's dtype, stats [2, O] f32 = (sum y, sum y*y) of
+    the f32 product, before y is rounded)."""
+    y = _f32_product(x2, w)
+    return y.to(x2.dtype), torch.stack([y.sum(0), (y * y).sum(0)])
 
 
 def conv1x1_epilogue_reference(x2, w, scale, shift, residual=None, act=None):
     """act((x2 @ w) * scale + shift [+ residual]) in x2's dtype."""
-    return _affine_act(torch.matmul(x2, w), scale, shift, residual,
+    return _affine_act(_f32_product(x2, w), scale, shift, residual,
                        act).to(x2.dtype)
 
 
@@ -141,6 +171,17 @@ _ARGTYPES = {
     # y, scale, shift, residual, out, R (long long), O, relu, stream
     "paddle_scale_shift_act_f32": [ctypes.c_void_p] * 5
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    # x, w, y, partial, stats, R, I, O, ldx, ldw, bn, stream
+    "paddle_conv1x1_stats_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    # x, w, scale, shift, residual, out, slice_out, R, I, O, ldx, ldw,
+    # res_f32, relu, bn, slices, slice_steps, stream
+    "paddle_conv1x1_epilogue_bf16": [ctypes.c_void_p] * 7
+    + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    # y, scale, shift, residual, out, R (long long), O, res_f32, relu,
+    # stream
+    "paddle_scale_shift_act_bf16": [ctypes.c_void_p] * 5
+    + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 
 
@@ -155,10 +196,12 @@ def _bind(fn_name):
         fn.restype = ctypes.c_int
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
-        tiles = (lib.paddle_conv1x1_row_tile(), lib.paddle_conv1x1_k_tile())
-        if tiles != (ROW_TILE, K_TILE):
+        tiles = (lib.paddle_conv1x1_row_tile(), lib.paddle_conv1x1_k_tile(),
+                 lib.paddle_conv1x1_k_tile_bf16())
+        if tiles != (ROW_TILE, K_TILE, K_TILE_BF16):
             raise RuntimeError(f"{_LIB} was built with tiles {tiles}, the "
-                               f"plan expects {(ROW_TILE, K_TILE)}")
+                               f"plan expects "
+                               f"{(ROW_TILE, K_TILE, K_TILE_BF16)}")
     return lib, fn
 
 
@@ -176,16 +219,30 @@ def _aligned(t):
 
 
 def _check(what, x, w, vecs=(), residual=None):
-    """What the kernels take, checked before anything is built: f32
-    ``x`` [R, I] and ``w`` [I, O] (``w`` None for scale_shift_act, whose
-    ``x`` is [R, O]), [O] scale/shift and an [R, O] residual, all on one
-    CUDA device, with R, I and O inside an int."""
+    """What the kernels take, checked before anything is built: ``x``
+    [R, I] and ``w`` [I, O] (``w`` None for scale_shift_act, whose ``x``
+    is [R, O]), [O] scale/shift and an [R, O] residual, all on one CUDA
+    device, with R, I and O inside an int. The dtypes are one of the two
+    instances': all f32; or x and w bf16, scale and shift f32 and the
+    residual bf16 or f32, as the Pallas kernels take them under AMP. Any
+    other mix raises, naming the dtypes."""
     mats = [t for t in (x, w) if t is not None]
     tensors = mats + list(vecs) + ([residual] if residual is not None
                                    else [])
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{what} takes float32 tensors, got "
-                        + ", ".join(str(t.dtype) for t in tensors))
+    f32, bf16 = torch.float32, torch.bfloat16
+    ok = (all(t.dtype == f32 for t in tensors)
+          or (all(t.dtype == bf16 for t in mats)
+              and all(t.dtype == f32 for t in vecs)
+              and (residual is None or residual.dtype in (f32, bf16))))
+    if not ok:
+        names = ["x", "w"] if w is not None else ["y"]
+        names += ["scale", "shift"][:len(vecs)]
+        names += ["residual"] if residual is not None else []
+        raise TypeError(
+            f"{what} takes all-float32 tensors, or bfloat16 "
+            f"{' and '.join(names[:len(mats)])} with float32 scale/shift "
+            f"and a bfloat16 or float32 residual; got "
+            + ", ".join(f"{n} {t.dtype}" for n, t in zip(names, tensors)))
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{what} inputs must lie on one CUDA device")
     if any(t.ndim != 2 for t in mats):
@@ -211,8 +268,8 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _empty(shape, dev):
-    return None if shape is None else torch.empty(shape, dtype=torch.float32,
+def _empty(shape, dev, dtype=torch.float32):
+    return None if shape is None else torch.empty(shape, dtype=dtype,
                                                   device=dev)
 
 
@@ -220,8 +277,38 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _tma_rows(t):
+    """(t, its row stride in values): a bf16 matrix whose rows TMA can
+    read, i.e. whose stride is a multiple of 16 bytes. Ragged widths get
+    zero columns (the kernels read only the true width)."""
+    pad = -t.shape[1] % 8
+    if pad:
+        t = torch.nn.functional.pad(t, (0, pad))
+    return _aligned(t), t.shape[1]
+
+
+def _launch_stats_bf16(x2, w):
+    (R, I), O = x2.shape, w.shape[1]
+    lib, fn = _bind("paddle_conv1x1_stats_bf16")
+    dev = x2.device
+    (x2, ldx), (w, ldw) = _tma_rows(x2), _tma_rows(w)
+    plan = tile_plan(R, I, O, k_tile=K_TILE_BF16)
+    partial = _empty(plan.partial_shape(O), dev)
+    y = _empty((R, O), dev, torch.bfloat16)
+    stats = _empty((2, O), dev)
+    with torch.cuda.device(dev):
+        err = fn(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
+                 partial.data_ptr(), stats.data_ptr(), R, I, O, ldx, ldw,
+                 plan.bn, _stream(dev))
+    _raise_on(lib, err, "conv1x1_stats")
+    conv1x1_stats.bf16_launches += 1
+    return y, stats
+
+
 def _launch_stats(x2, w):
     _check("conv1x1_stats", x2, w)
+    if x2.dtype == torch.bfloat16:
+        return _launch_stats_bf16(x2, w)
     (R, I), O = x2.shape, w.shape[1]
     lib, fn = _bind("paddle_conv1x1_stats_f32")
     dev = x2.device
@@ -244,9 +331,32 @@ def _f32_vec(t):
     return _aligned(t.float())
 
 
+def _launch_epilogue_bf16(x2, w, scale, shift, residual, act):
+    (R, I), O = x2.shape, w.shape[1]
+    lib, fn = _bind("paddle_conv1x1_epilogue_bf16")
+    dev = x2.device
+    (x2, ldx), (w, ldw) = _tma_rows(x2), _tma_rows(w)
+    res = None if residual is None else _aligned(residual)
+    plan = tile_plan(R, I, O, split_k=True, k_tile=K_TILE_BF16)
+    slices = _empty(plan.slices_shape(R, O), dev)
+    out = _empty((R, O), dev, torch.bfloat16)
+    with torch.cuda.device(dev):
+        err = fn(x2.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                 shift.data_ptr(), _ptr(res), out.data_ptr(), _ptr(slices),
+                 R, I, O, ldx, ldw,
+                 int(res is not None and res.dtype == torch.float32),
+                 int(act == "relu"), plan.bn, plan.slices, plan.slice_steps,
+                 _stream(dev))
+    _raise_on(lib, err, "conv1x1_epilogue")
+    conv1x1_epilogue.bf16_launches += 1
+    return out
+
+
 def _launch_epilogue(x2, w, scale, shift, residual, act):
     scale, shift = _f32_vec(scale), _f32_vec(shift)
     _check("conv1x1_epilogue", x2, w, (scale, shift), residual)
+    if x2.dtype == torch.bfloat16:
+        return _launch_epilogue_bf16(x2, w, scale, shift, residual, act)
     (R, I), O = x2.shape, w.shape[1]
     lib, fn = _bind("paddle_conv1x1_epilogue_f32")
     dev = x2.device
@@ -270,17 +380,24 @@ def _launch_apply(y_raw, scale, shift, residual, act):
     scale, shift = _f32_vec(scale), _f32_vec(shift)
     _check("scale_shift_act", y_raw, None, (scale, shift), residual)
     R, O = y_raw.shape
-    lib, fn = _bind("paddle_scale_shift_act_f32")
+    bf16 = y_raw.dtype == torch.bfloat16
+    lib, fn = _bind("paddle_scale_shift_act_bf16" if bf16 else
+                    "paddle_scale_shift_act_f32")
     dev = y_raw.device
     y = _aligned(y_raw)
     res = None if residual is None else _aligned(residual)
-    out = _empty((R, O), dev)
+    out = _empty((R, O), dev, y_raw.dtype)
+    args = [y.data_ptr(), scale.data_ptr(), shift.data_ptr(), _ptr(res),
+            out.data_ptr(), R, O]
+    if bf16:
+        args.append(int(res is not None and res.dtype == torch.float32))
     with torch.cuda.device(dev):
-        err = fn(y.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                 _ptr(res), out.data_ptr(),
-                 R, O, int(act == "relu"), _stream(dev))
+        err = fn(*args, int(act == "relu"), _stream(dev))
     _raise_on(lib, err, "scale_shift_act")
-    scale_shift_act.launches += 1
+    if bf16:
+        scale_shift_act.bf16_launches += 1
+    else:
+        scale_shift_act.launches += 1
     return out
 
 
@@ -298,31 +415,35 @@ def _plain_device(t):
 
 # --- the wrappers -----------------------------------------------------------
 def conv1x1_stats(x2, w):
-    """(y_raw = x2 @ w [R, O], stats [2, O] f32 = (sum y, sum y*y)): the
-    CUDA kernels for a CUDA tensor, the plain version for a CPU or meta
-    one."""
+    """(y_raw = x2 @ w [R, O] in x2's dtype, stats [2, O] f32 = (sum y,
+    sum y*y) of the f32 product): the CUDA kernels for a CUDA tensor, the
+    plain version for a CPU or meta one."""
     if _plain_device(x2):
         return conv1x1_stats_reference(x2, w)
     return _launch_stats(x2, w)
 
 
 def conv1x1_epilogue(x2, w, scale, shift, residual=None, act=None):
-    """act((x2 @ w) * scale + shift [+ residual]) with the raw product never
-    written: the CUDA kernel for a CUDA tensor, the plain version for a
-    CPU or meta one. scale/shift are the folded BN affine ([O] f32)."""
+    """act((x2 @ w) * scale + shift [+ residual]) in x2's dtype with the
+    raw product never written: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU or meta one. scale/shift are the folded BN
+    affine ([O] f32)."""
     if _plain_device(x2):
         return conv1x1_epilogue_reference(x2, w, scale, shift, residual, act)
     return _launch_epilogue(x2, w, scale, shift, residual, act)
 
 
 def scale_shift_act(y_raw, scale, shift, residual=None, act=None):
-    """act(y_raw * scale + shift [+ residual]) in one pass: the CUDA kernel
-    for a CUDA tensor, the plain version for a CPU or meta one."""
+    """act(y_raw * scale + shift [+ residual]) in one pass, in f32, out in
+    y_raw's dtype: the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU or meta one."""
     if _plain_device(y_raw):
         return scale_shift_act_reference(y_raw, scale, shift, residual, act)
     return _launch_apply(y_raw, scale, shift, residual, act)
 
 
-conv1x1_stats.launches = 0
-conv1x1_epilogue.launches = 0
-scale_shift_act.launches = 0
+# launches of the f32 instances (.launches) and of the bf16 ones
+for _wrapper in (conv1x1_stats, conv1x1_epilogue, scale_shift_act):
+    _wrapper.launches = 0
+    _wrapper.bf16_launches = 0
+del _wrapper

@@ -65,11 +65,36 @@
 //   on the same inputs agree bitwise.
 // scale_shift_act does 2-4 FLOPs a value and is bound by bytes: float4
 // loads and stores when O % 4 == 0.
+//
+// The bf16 instances (AMP: the JAX package's bf16 products on f32 master
+// weights) take x and W in bf16, scale and shift in f32, a residual in bf16
+// or f32, and write y / out in bf16; partial sums and statistics stay f32.
+// They compute what the Pallas bodies compute for bf16 operands: f32
+// accumulation (preferred_element_type=jnp.float32), statistics summed from
+// the f32 accumulator (in the f32 instance's fixed order), the affine,
+// residual and relu in f32, only the output rounded to bf16.
+// - conv1x1_bf16_kernel: one bf16 `wgmma.m64nNk16` per 16-deep step, both
+//   operands read from shared memory by descriptor, as TMA stores them in
+//   the 128-byte swizzle: x's tile K-major (rows of 64 values), W's tile
+//   MN-major as W [I, O] lies in memory (K rows of 64 values along N), so
+//   there is no pre-pass over W. 64-deep K stages in a ring of 4, filled by
+//   one thread's TMA copies on an mbarrier, as in the f32 kernel; each
+//   stage's 4 products go into fresh registers, added in f32 (the tensor
+//   cores' accumulation truncates). The epilogue, statistics and split K
+//   are the f32 kernel's, with bf16 stores.
+// - Bound on the H100: 2*R*I*O FLOPs at 989 TFLOP/s on 2*(R*I + I*O + R*O)
+//   bytes (bf16 in and out) at 3.35 TB/s: the ridge is ~295 FLOP/byte,
+//   about I*O/(I+O) at large R, so ResNet-50's 1x1 shapes with I or O <= 256
+//   are bound by bytes and the 512 x 1024 and x 2048 ones by operations.
+// - scale_shift_act in bf16 (y and out bf16, residual bf16 or f32): the f32
+//   kernel's pass over four values a thread, 8-byte bf16 loads and stores.
 #include <cuda.h>  // CUtensorMap (its encoder comes from the runtime)
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tf32x3.cuh"
+#include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
 namespace {
@@ -82,6 +107,37 @@ constexpr int RED_X = 32;      // stats reduction block: 32 columns
 constexpr int RED_Y = 32;      //   x 32 row-tile lanes
 
 enum Epilogue { kStats = 0, kAffine = 1 };
+
+typedef __nv_bfloat16 bf16;
+
+// four consecutive values (16-byte aligned f32, 8-byte aligned bf16) as
+// f32, and back; bf16 stores round to nearest
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&a);
+  u.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // One ring stage in shared memory, in floats: the x tile [BM][BK], row
 // after row; then W's hi and lo tiles, each BN x BK, K-major in wgmma's
@@ -378,52 +434,53 @@ __global__ void stats_reduce_kernel(const float* __restrict__ partial,
 }
 
 // out = act(y * scale + shift [+ residual]) over a contiguous [R, O] of n
-// values; with SLICES, y is the sum of `slices` such [R, O] planes n
-// apart, added in order (a split-K product).
-template <bool VEC, bool SLICES>
-__global__ void scale_shift_act_kernel(const float* __restrict__ y,
-                                       int slices,
+// values, in f32; with SLICES, y is the sum of `slices` such [R, O] planes
+// n apart, added in order (a split-K product). TY, TR, TO: the types of y,
+// the residual and out (f32, or bf16 in the AMP instances).
+template <bool VEC, bool SLICES, typename TY, typename TR, typename TO>
+__global__ void scale_shift_act_kernel(const TY* __restrict__ y, int slices,
                                        const float* __restrict__ scale,
                                        const float* __restrict__ shift,
-                                       const float* __restrict__ residual,
-                                       float* __restrict__ out, long long n,
+                                       const TR* __restrict__ residual,
+                                       TO* __restrict__ out, long long n,
                                        int O, int relu) {
   const long long stride = (long long)gridDim.x * blockDim.x;
-  if (VEC) {  // O % 4 == 0: a float4 never straddles two rows
+  if (VEC) {  // O % 4 == 0: four values never straddle two rows
     const long long n4 = n / 4;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
          i += stride) {
-      const int c = (int)((i * 4) % O);
-      float4 v = reinterpret_cast<const float4*>(y)[i];
+      const long long e = i * 4;
+      const int c = (int)(e % O);
+      float4 v = load4(y + e);
       if (SLICES)
         for (int s = 1; s < slices; ++s) {
-          const float4 p = reinterpret_cast<const float4*>(y)[s * n4 + i];
+          const float4 p = load4(y + s * n + e);
           v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
         }
       float o[4] = {v.x * scale[c] + shift[c], v.y * scale[c + 1] + shift[c + 1],
                     v.z * scale[c + 2] + shift[c + 2],
                     v.w * scale[c + 3] + shift[c + 3]};
       if (residual != nullptr) {
-        const float4 r = reinterpret_cast<const float4*>(residual)[i];
+        const float4 r = load4(residual + e);
         o[0] += r.x; o[1] += r.y; o[2] += r.z; o[3] += r.w;
       }
       if (relu) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) o[j] = o[j] < 0.f ? 0.f : o[j];
       }
-      reinterpret_cast<float4*>(out)[i] = make_float4(o[0], o[1], o[2], o[3]);
+      store4(out + e, make_float4(o[0], o[1], o[2], o[3]));
     }
   } else {
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
          i += stride) {
       const int c = (int)(i % O);
-      float v = y[i];
+      float v = to_f32(y[i]);
       if (SLICES)
-        for (int s = 1; s < slices; ++s) v += y[s * n + i];
+        for (int s = 1; s < slices; ++s) v += to_f32(y[s * n + i]);
       float o = v * scale[c] + shift[c];
-      if (residual != nullptr) o += residual[i];
+      if (residual != nullptr) o += to_f32(residual[i]);
       if (relu) o = o < 0.f ? 0.f : o;
-      out[i] = o;
+      store1(out + i, o);
     }
   }
 }
@@ -431,10 +488,10 @@ __global__ void scale_shift_act_kernel(const float* __restrict__ y,
 int pad_to(int v, int m) { return (v + m - 1) / m * m; }
 
 // The tile plan the caller chose (kernels/conv_epilogue.py `tile_plan`):
-// BN 64 or 128, and `slices` K slices of `slice_steps` BK-deep steps that
+// BN 64 or 128, and `slices` K slices of `slice_steps` bk-deep steps that
 // cover I, none of them empty.
-bool plan_ok(int I, int bn, int slices, int slice_steps) {
-  const int k_steps = pad_to(I, BK) / BK;
+bool plan_ok(int I, int bk, int bn, int slices, int slice_steps) {
+  const int k_steps = pad_to(I, bk) / bk;
   if (bn != 64 && bn != 128) return false;
   if (slices < 1 || slice_steps < 0) return false;
   return (long long)slices * slice_steps >= k_steps &&
@@ -474,19 +531,21 @@ EncodeTiled encoder() {
   return fn;
 }
 
-// A TMA map of a row-major f32 [rows, cols] matrix, `stride` floats a
-// row, read in boxes of box_rows x BK; zeros past its edges.
-cudaError_t tensor_map(CUtensorMap* map, const float* base, int cols,
-                       int rows, int stride, int box_rows, bool swizzle) {
+// A TMA map of a row-major [rows, cols] matrix of f32 or bf16 (`type`,
+// `elem` bytes a value), `stride` values a row, read in boxes of box_rows
+// x box_cols; zeros past its edges.
+cudaError_t tensor_map(CUtensorMap* map, const void* base,
+                       CUtensorMapDataType type, int elem, int cols, int rows,
+                       int stride, int box_cols, int box_rows, bool swizzle) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride * 4};
-  const cuuint32_t box[2] = {BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride * elem};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, type, 2, const_cast<void*>(base), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -505,9 +564,12 @@ cudaError_t launch_gemm(const float* x, const float* wt, const float* scale,
   CUtensorMap xmap = {}, wmap = {};
   if (i_pad > 0) {
     cudaError_t err = cudaSuccess;
-    if (va) err = tensor_map(&xmap, x, I, R, I, BM, false);
+    if (va)
+      err = tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, I, R, I,
+                       BK, BM, false);
     if (err == cudaSuccess)
-      err = tensor_map(&wmap, wt, i_pad, 2 * o_pad, i_pad, BN, true);
+      err = tensor_map(&wmap, wt, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, i_pad,
+                       2 * o_pad, i_pad, BK, BN, true);
     if (err != cudaSuccess) return err;
   }
   auto kernel = va ? conv1x1_tf32x3_kernel<BN, true, EPI>
@@ -536,8 +598,9 @@ cudaError_t launch_gemm_bn(int bn, const float* x, const float* wt,
                                      relu, stream);
 }
 
-cudaError_t launch_apply(const float* y, int slices, const float* scale,
-                         const float* shift, const float* residual, float* out,
+template <typename TY, typename TR, typename TO>
+cudaError_t launch_apply(const TY* y, int slices, const float* scale,
+                         const float* shift, const TR* residual, TO* out,
                          long long R, int O, int relu, cudaStream_t s) {
   const long long n = R * (long long)O;
   const bool vec = O % 4 == 0;
@@ -548,20 +611,303 @@ cudaError_t launch_apply(const float* y, int slices, const float* scale,
   const unsigned b = (unsigned)blocks;
   if (slices > 1) {
     if (vec)
-      scale_shift_act_kernel<true, true><<<b, 256, 0, s>>>(
+      scale_shift_act_kernel<true, true, TY, TR, TO><<<b, 256, 0, s>>>(
           y, slices, scale, shift, residual, out, n, O, relu);
     else
-      scale_shift_act_kernel<false, true><<<b, 256, 0, s>>>(
+      scale_shift_act_kernel<false, true, TY, TR, TO><<<b, 256, 0, s>>>(
           y, slices, scale, shift, residual, out, n, O, relu);
   } else if (vec) {
-    scale_shift_act_kernel<true, false><<<b, 256, 0, s>>>(
+    scale_shift_act_kernel<true, false, TY, TR, TO><<<b, 256, 0, s>>>(
         y, 1, scale, shift, residual, out, n, O, relu);
   } else {
-    scale_shift_act_kernel<false, false><<<b, 256, 0, s>>>(
+    scale_shift_act_kernel<false, false, TY, TR, TO><<<b, 256, 0, s>>>(
         y, 1, scale, shift, residual, out, n, O, relu);
   }
   return cudaGetLastError();
 }
+
+// --- the bf16 instances ----------------------------------------------------
+
+constexpr int BK16 = 64;  // bf16 K depth of one ring stage: rows of 128 bytes
+
+// One bf16 ring stage, in bytes: x's tile [BM][BK16] K-major, then W's
+// tile as BN / 64 MN-major boxes of [BK16][64], each in the 128-byte
+// swizzle TMA writes (see sw128_desc, sw128_mn_desc). Every stage starts
+// on a 1024-byte boundary; the barriers follow the stages.
+template <int BN>
+struct RingBf16 {
+  static constexpr int STAGES = 4;
+  static constexpr int A = BM * BK16 * 2;
+  static constexpr int B_BOX = 64 * BK16 * 2;  // one 64-wide N box
+  static constexpr int STAGE = A + BN / 64 * B_BOX;
+  static constexpr int BARRIERS = STAGES * STAGE;
+  static constexpr int BYTES = BARRIERS + 2 * STAGES * 8;
+  static_assert(STAGE % 1024 == 0, "stages must keep the swizzle's alignment");
+  // the epilogue's staged f32 tile and the stats' per-warp sums reuse it
+  static_assert(4 * (BM * (BN + 8) + 2 * NWARPS * BN) <= STAGES * STAGE,
+                "the epilogue must fit the ring");
+};
+
+// The 128 x BN output tile blockIdx.x (column tiles fastest) over the K
+// steps of slice blockIdx.y, bf16 operands, f32 accumulation. kStats: y in
+// bf16 into out and this row tile's column sums (of the f32 accumulator)
+// into partial[tile, 2, O]. kAffine: act(y * scale + shift [+ residual])
+// into out in bf16, or, with slice_out (a split K), the raw f32 slice into
+// slice_out + slice * R * O.
+template <int BN, int EPI, typename TR>
+__global__ void __launch_bounds__(NTHREADS, BN == 128 ? 1 : 2)
+conv1x1_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ shift,
+                    const TR* __restrict__ residual, bf16* __restrict__ out,
+                    float* __restrict__ slice_out,
+                    float* __restrict__ partial, int R, int O, int k_steps,
+                    int slice_steps, int relu) {
+  using L = RingBf16<BN>;
+  constexpr int NACC = BN / 2;
+  extern __shared__ __align__(1024) float smem[];
+  char* ring = reinterpret_cast<char*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::BARRIERS);
+  uint64_t* empty = full + L::STAGES;
+  const int tiles_o = (O + BN - 1) / BN;
+  const int tile_r = blockIdx.x / tiles_o;
+  const int row0 = tile_r * BM;
+  const int col0 = (blockIdx.x % tiles_o) * BN;
+  const int step0 = blockIdx.y * slice_steps;
+  const int nk = max(0, min(slice_steps, k_steps - step0));
+
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) >> 2;
+  const int t = threadIdx.x & 3;
+  const int r_in = 16 * warp + g;  // this thread's rows: r_in, r_in + 8
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NTHREADS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Stage i into slot i % STAGES: x's 128 x 64 box and W's 64 x 64 boxes,
+  // started by thread 0 and counted on the slot's full barrier.
+  auto produce = [&](int i) {
+    char* st = ring + (i % L::STAGES) * L::STAGE;
+    uint64_t* bar = &full[i % L::STAGES];
+    const int k0 = (step0 + i) * BK16;
+    mbar_expect(bar, L::STAGE);
+    tma_load(reinterpret_cast<float*>(st), &xmap, k0, row0, bar);
+#pragma unroll
+    for (int h = 0; h < BN / 64; ++h)
+      tma_load(reinterpret_cast<float*>(st + L::A + h * L::B_BOX), &wmap,
+               col0 + 64 * h, k0, bar);
+  };
+  if (threadIdx.x == 0)
+    for (int s = 0; s < L::STAGES - 1 && s < nk; ++s) produce(s);
+
+  float acc[NACC], part[NACC];
+#pragma unroll
+  for (int e = 0; e < NACC; ++e) acc[e] = part[e] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int slot = kt % L::STAGES;
+    mbar_wait(&full[slot], (kt / L::STAGES) & 1);
+    const char* st = ring + slot * L::STAGE;
+    // this warpgroup's 64 rows of x, and W's boxes; a k16 step is 32
+    // bytes along x's rows (+2) and 16 of W's rows (+128)
+    const uint64_t da = sw128_desc(
+        reinterpret_cast<const float*>(st + wg * 64 * BK16 * 2));
+    const uint64_t db = sw128_mn_desc(st + L::A, L::B_BOX);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < BK16 / 16; ++s)
+      WgmmaBf16<BN>::mma(part, da + 2 * s, db + 128 * s, s);  // s == 0: fresh
+    wgmma_commit();
+
+    // while the products run: refill the slot stage kt - 1 used, once
+    // every thread has let it go
+    const int nxt = kt + L::STAGES - 1;
+    if (nxt < nk && threadIdx.x == 0) {
+      if (kt > 0) mbar_wait(&empty[nxt % L::STAGES], (kt - 1) / L::STAGES & 1);
+      produce(nxt);
+    }
+
+    wgmma_wait_all();
+    fence_regs(part);
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) acc[e] += part[e];
+    mbar_arrive(&empty[slot]);
+  }
+  __syncthreads();  // every warp is done with the ring
+
+  // as in conv1x1_tf32x3_kernel: the f32 tile through shared memory, the
+  // column sums by shuffles and then the 8 warps in order
+  constexpr int OST = BN + 8;
+  float* ot = smem;
+  if (EPI == kStats) {
+    float* red = smem + BM * OST;  // [NWARPS][2][BN]
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a = acc[4 * j + e], b = acc[4 * j + 2 + e];
+        float s = a + b, q = fmaf(b, b, a * a);
+#pragma unroll
+        for (int m = 4; m < 32; m <<= 1) {
+          s += __shfl_xor_sync(0xffffffffu, s, m);
+          q += __shfl_xor_sync(0xffffffffu, q, m);
+        }
+        if (g == 0) {
+          red[(2 * warp) * BN + 8 * j + 2 * t + e] = s;
+          red[(2 * warp + 1) * BN + 8 * j + 2 * t + e] = q;
+        }
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(ot + (r_in + 8 * h) * OST + 8 * j + 2 * t) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  __syncthreads();
+
+  if (EPI == kStats) {
+    const float* red = smem + BM * OST;
+    for (int idx = threadIdx.x; idx < 2 * BN; idx += NTHREADS) {
+      const int stat = idx / BN, c = idx % BN;
+      if (col0 + c >= O) continue;
+      float total = 0.f;
+#pragma unroll
+      for (int w = 0; w < NWARPS; ++w) total += red[(2 * w + stat) * BN + c];
+      partial[((size_t)tile_r * 2 + stat) * O + col0 + c] = total;
+    }
+  }
+  const bool affine = EPI == kAffine && slice_out == nullptr;
+  float* raw = slice_out == nullptr ? nullptr
+                                    : slice_out + (size_t)blockIdx.y * R * O;
+  if ((O & 3) == 0) {  // four values at a time, inside a row
+#pragma unroll 4
+    for (int idx = threadIdx.x; idx < BM * BN / 4; idx += NTHREADS) {
+      const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
+      const int row = row0 + r, col = col0 + c;
+      if (row >= R || col >= O) continue;
+      float4 v = *reinterpret_cast<const float4*>(ot + r * OST + c);
+      const size_t at = (size_t)row * O + col;
+      if (raw != nullptr) {
+        store4(raw + at, v);
+        continue;
+      }
+      if (affine) {
+        const float4 sc = *reinterpret_cast<const float4*>(scale + col);
+        const float4 sh = *reinterpret_cast<const float4*>(shift + col);
+        v = make_float4(v.x * sc.x + sh.x, v.y * sc.y + sh.y,
+                        v.z * sc.z + sh.z, v.w * sc.w + sh.w);
+        if (residual != nullptr) {
+          const float4 res = load4(residual + at);
+          v.x += res.x; v.y += res.y; v.z += res.z; v.w += res.w;
+        }
+        if (relu)
+          v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f),
+                          fmaxf(v.w, 0.f));
+      }
+      store4(out + at, v);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < BM * BN; idx += NTHREADS) {
+      const int r = idx / BN, c = idx % BN;
+      const int row = row0 + r, col = col0 + c;
+      if (row >= R || col >= O) continue;
+      float v = ot[r * OST + c];
+      const size_t at = (size_t)row * O + col;
+      if (raw != nullptr) {
+        raw[at] = v;
+        continue;
+      }
+      if (affine) {
+        v = v * scale[col] + shift[col];
+        if (residual != nullptr) v += to_f32(residual[at]);
+        if (relu) v = fmaxf(v, 0.f);
+      }
+      store1(out + at, v);
+    }
+  }
+}
+
+// x [R, I] bf16 (rows ldx values apart) and W [I, O] bf16 (rows ldw apart;
+// ldx and ldw multiples of 8, so rows start 16 bytes apart, as TMA needs).
+template <int BN, int EPI, typename TR>
+cudaError_t launch_gemm_bf16(const bf16* x, const bf16* w, const float* scale,
+                             const float* shift, const TR* residual, bf16* out,
+                             float* slice_out, float* partial, int R, int I,
+                             int O, int ldx, int ldw, int slices,
+                             int slice_steps, int relu, cudaStream_t stream) {
+  const int k_steps = pad_to(I, BK16) / BK16;
+  const dim3 grid((unsigned)((R + BM - 1) / BM * ((O + BN - 1) / BN)),
+                  slices);
+  CUtensorMap xmap = {}, wmap = {};
+  if (k_steps > 0) {
+    cudaError_t err =
+        tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, I, R, ldx,
+                   BK16, BM, true);
+    if (err == cudaSuccess)
+      err = tensor_map(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, O, I,
+                       ldw, 64, BK16, true);
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = conv1x1_bf16_kernel<BN, EPI, TR>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      RingBf16<BN>::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, NTHREADS, RingBf16<BN>::BYTES, stream>>>(
+      xmap, wmap, scale, shift, residual, out, slice_out, partial, R, O,
+      k_steps, slice_steps, relu);
+  return cudaGetLastError();
+}
+
+template <int EPI, typename TR>
+cudaError_t launch_gemm_bf16_bn(int bn, const bf16* x, const bf16* w,
+                                const float* scale, const float* shift,
+                                const TR* residual, bf16* out,
+                                float* slice_out, float* partial, int R,
+                                int I, int O, int ldx, int ldw, int slices,
+                                int slice_steps, int relu,
+                                cudaStream_t stream) {
+  return bn == 64
+             ? launch_gemm_bf16<64, EPI, TR>(x, w, scale, shift, residual, out,
+                                             slice_out, partial, R, I, O, ldx,
+                                             ldw, slices, slice_steps, relu,
+                                             stream)
+             : launch_gemm_bf16<128, EPI, TR>(x, w, scale, shift, residual,
+                                              out, slice_out, partial, R, I,
+                                              O, ldx, ldw, slices,
+                                              slice_steps, relu, stream);
+}
+
+// out = act((x . w) * scale + shift [+ residual]) in bf16, residual of type
+// TR; with slices > 1 the raw slices go to slice_out [slices, R, O] f32 and
+// the apply kernel adds them in order before the affine.
+template <typename TR>
+cudaError_t epilogue_bf16(const bf16* x, const bf16* w, const float* scale,
+                          const float* shift, const TR* residual, bf16* out,
+                          float* slice_out, int R, int I, int O, int ldx,
+                          int ldw, int relu, int bn, int slices,
+                          int slice_steps, cudaStream_t s) {
+  if (slices == 1)
+    return launch_gemm_bf16_bn<kAffine, TR>(bn, x, w, scale, shift, residual,
+                                            out, nullptr, nullptr, R, I, O,
+                                            ldx, ldw, 1, slice_steps, relu, s);
+  const cudaError_t err = launch_gemm_bf16_bn<kAffine, TR>(
+      bn, x, w, nullptr, nullptr, nullptr, out, slice_out, nullptr, R, I, O,
+      ldx, ldw, slices, slice_steps, 0, s);
+  if (err != cudaSuccess) return err;
+  return launch_apply(static_cast<const float*>(slice_out), slices, scale,
+                      shift, residual, out, R, O, relu, s);
+}
+
 
 }  // namespace
 
@@ -569,8 +915,13 @@ cudaError_t launch_apply(const float* y, int slices, const float* scale,
 // K depth per ring stage, and a block's dynamic shared memory at BN.
 extern "C" int paddle_conv1x1_row_tile() { return BM; }
 extern "C" int paddle_conv1x1_k_tile() { return BK; }
+extern "C" int paddle_conv1x1_k_tile_bf16() { return BK16; }
 extern "C" int paddle_conv1x1_smem_bytes(int bn) {
   return bn == 64 ? Ring<64>::BYTES : bn == 128 ? Ring<128>::BYTES : -1;
+}
+extern "C" int paddle_conv1x1_smem_bytes_bf16(int bn) {
+  return bn == 64 ? RingBf16<64>::BYTES
+                  : bn == 128 ? RingBf16<128>::BYTES : -1;
 }
 
 // y = x . w and stats [2, O]. Scratch from the caller: wt [2, pad(O, bn),
@@ -582,7 +933,7 @@ extern "C" int paddle_conv1x1_stats_f32(const float* x, const float* w,
                                         int bn, void* stream) {
   if (R <= 0 || O <= 0) return (int)cudaSuccess;
   const int k_steps = pad_to(I, BK) / BK;
-  if (!plan_ok(I, bn, 1, k_steps)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(I, BK, bn, 1, k_steps)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = split_w(w, wt, I, O, bn, s);
   if (err != cudaSuccess) return (int)err;
@@ -604,7 +955,7 @@ extern "C" int paddle_conv1x1_epilogue_f32(
     int R, int I, int O, int relu, int bn, int slices, int slice_steps,
     void* stream) {
   if (R <= 0 || O <= 0) return (int)cudaSuccess;
-  if (!plan_ok(I, bn, slices, slice_steps) ||
+  if (!plan_ok(I, BK, bn, slices, slice_steps) ||
       (slices > 1 && slice_out == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -631,6 +982,72 @@ extern "C" int paddle_scale_shift_act_f32(const float* y, const float* scale,
   if (R * (long long)O <= 0) return (int)cudaSuccess;
   return (int)launch_apply(y, 1, scale, shift, residual, out, R, O, relu,
                            static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 instances (AMP). x [R, I] and w [I, O] bf16 with rows ldx and
+// ldw values apart (multiples of 8); y / out [R, O] bf16; scale, shift,
+// partial, stats and slice_out f32; the residual bf16, or f32 when
+// res_f32. Pointers are 16-byte aligned (the wrapper makes them so).
+extern "C" int paddle_conv1x1_stats_bf16(const void* x, const void* w,
+                                         void* y, float* partial,
+                                         float* stats, int R, int I, int O,
+                                         int ldx, int ldw, int bn,
+                                         void* stream) {
+  if (R <= 0 || O <= 0) return (int)cudaSuccess;
+  const int k_steps = pad_to(I, BK16) / BK16;
+  if (!plan_ok(I, BK16, bn, 1, k_steps) || ldx % 8 || ldw % 8)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = launch_gemm_bf16_bn<kStats, bf16>(
+      bn, static_cast<const bf16*>(x), static_cast<const bf16*>(w), nullptr,
+      nullptr, nullptr, static_cast<bf16*>(y), nullptr, partial, R, I, O, ldx,
+      ldw, 1, k_steps, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((O + RED_X - 1) / RED_X, 2);
+  stats_reduce_kernel<<<grid, dim3(RED_X, RED_Y), 0, s>>>(
+      partial, stats, (R + BM - 1) / BM, O);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int paddle_conv1x1_epilogue_bf16(
+    const void* x, const void* w, const float* scale, const float* shift,
+    const void* residual, void* out, float* slice_out, int R, int I, int O,
+    int ldx, int ldw, int res_f32, int relu, int bn, int slices,
+    int slice_steps, void* stream) {
+  if (R <= 0 || O <= 0) return (int)cudaSuccess;
+  if (!plan_ok(I, BK16, bn, slices, slice_steps) || ldx % 8 || ldw % 8 ||
+      (slices > 1 && slice_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* wb = static_cast<const bf16*>(w);
+  bf16* ob = static_cast<bf16*>(out);
+  return (int)(res_f32
+                   ? epilogue_bf16(xb, wb, scale, shift,
+                                   static_cast<const float*>(residual), ob,
+                                   slice_out, R, I, O, ldx, ldw, relu, bn,
+                                   slices, slice_steps, s)
+                   : epilogue_bf16(xb, wb, scale, shift,
+                                   static_cast<const bf16*>(residual), ob,
+                                   slice_out, R, I, O, ldx, ldw, relu, bn,
+                                   slices, slice_steps, s));
+}
+
+extern "C" int paddle_scale_shift_act_bf16(const void* y, const float* scale,
+                                           const float* shift,
+                                           const void* residual, void* out,
+                                           long long R, int O, int res_f32,
+                                           int relu, void* stream) {
+  if (R * (long long)O <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* yb = static_cast<const bf16*>(y);
+  bf16* ob = static_cast<bf16*>(out);
+  return (int)(res_f32 ? launch_apply(yb, 1, scale, shift,
+                                      static_cast<const float*>(residual), ob,
+                                      R, O, relu, s)
+                       : launch_apply(yb, 1, scale, shift,
+                                      static_cast<const bf16*>(residual), ob,
+                                      R, O, relu, s));
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

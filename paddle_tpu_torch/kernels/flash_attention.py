@@ -299,8 +299,15 @@ def _check_kernel_inputs(q, k, v, *more):
     max_t = _max_t(_kernel_head_dim(D))
     tensors = (q, k, v) + more
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("flash kernel takes float32 tensors, got "
-                        + ", ".join(str(t.dtype) for t in tensors))
+        # the Pallas kernels take the AMP dtype too; no path of the port
+        # hands them bf16 yet (the stacked transformer casts q/k/v back to
+        # f32, as the JAX op does)
+        raise TypeError(
+            "flash kernel takes float32 tensors, got "
+            + ", ".join(str(t.dtype) for t in tensors)
+            + "; its bf16 instances are still to port (ROADMAP.md Queue 2, "
+            "the flash trio's bf16 rows: reached by the per-layer path's "
+            "scaled_dot_product_attention under AMP, Queue 1 item 6)")
     if k.shape != (B, H, Tk, D) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)} (expand GQA heads "

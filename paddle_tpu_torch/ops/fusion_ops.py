@@ -6,7 +6,9 @@ Counterpart of ``paddle_tpu/ops/fusion_ops.py``. Only the NHWC
 conv2d/batch_norm/elementwise_add ops otherwise. The forward runs the
 kernels of ``kernels/conv_epilogue.py`` (sm_90a CUDA on the card, their
 plain versions on the CPU); the backward is plain torch, as the JAX
-package leaves it to XLA.
+package leaves it to XLA. Under AMP (``ops/common.py``) x and W enter the
+kernels in bf16 and Y leaves in X's dtype; the gradient products take
+bf16 operands too, as the JAX op casts them.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 
 from ..core.registry import register_op
 from ..kernels import conv_epilogue as ke
-from .common import maybe, out, single
+from .common import amp_cast, matmul, maybe, out, single
 
 
 def _affine_from_stats(scale, bias, mean, var, eps):
@@ -51,7 +53,7 @@ def conv1x1_bn_act(attrs, ins):
     B, H, W_, I = x.shape
     wm = w.reshape(w.shape[-2], w.shape[-1])
     O = wm.shape[-1]
-    x2 = x.reshape(B * H * W_, I)
+    x2, wm = amp_cast(x.reshape(B * H * W_, I), wm)
     res2 = None if res is None else res.reshape(B * H * W_, O)
 
     if attrs.get("is_test", False):
@@ -115,8 +117,10 @@ def _conv1x1_bn_act_grad(attrs, ins, outs, ogs):
     sc = scale.float()
     if is_test:
         # the inference forward never materialised the raw conv output
-        # (that is its point): recompute it for the scale/bias grads
-        y_raw2 = torch.matmul(x2, wm).float()
+        # (that is its point): recompute it for the scale/bias grads, as
+        # the kernel computes it (f32 product of the cast operands)
+        x2c, wmc = amp_cast(x2, wm)
+        y_raw2 = torch.matmul(x2c.float(), wmc.float())
         dz = dy2 * (sc * inv)
         xhat = (y_raw2 - sm) * inv
         dscale = (dy2 * xhat).sum(0)
@@ -134,9 +138,10 @@ def _conv1x1_bn_act_grad(attrs, ins, outs, ogs):
         if gv is not None:
             dz = dz + ((1.0 - momentum) * 2.0 / n) * gv.float() \
                 * (y_raw2 - sm)
-    dz = dz.to(x.dtype)
-    dx2 = torch.matmul(dz, wm.t())
-    dw2 = torch.matmul(x2.t(), dz)
+    x2c, dzc = amp_cast(x2, dz.to(x.dtype))
+    wmc = amp_cast(wm)
+    dx2 = matmul(dzc, wmc.t())
+    dw2 = matmul(x2c.t(), dzc)
     grads = {"X": [dx2.reshape(x.shape).to(x.dtype)],
              "Filter": [dw2.reshape(w.shape).to(w.dtype)],
              "Scale": [dscale.to(scale.dtype)],

@@ -1,8 +1,9 @@
 """Matrix ops. Counterpart of ``paddle_tpu/ops/math_ops.py``, cut to
 ``mul`` (the training slice's LM head) and ``matmul`` (the batched
-product of primitive attention programs). The product is a plain f32
+product of primitive attention programs). The product is a plain
 ``torch.matmul`` (cuBLAS on the card), as the JAX package leaves it to
-XLA; its gradient is the generic vjp."""
+XLA: f32, or under AMP bf16 operands with f32 accumulation and a bf16
+result (``common.matmul``). Its gradient is the generic vjp."""
 from __future__ import annotations
 
 import math
@@ -10,7 +11,7 @@ import math
 import torch
 
 from ..core.registry import register_op
-from .common import out, single
+from .common import amp_cast, matmul as _matmul, out, single
 
 
 @register_op("mul")
@@ -20,9 +21,10 @@ def mul(attrs, ins):
     y = single(ins, "Y")
     xd = attrs.get("x_num_col_dims", 1)
     yd = attrs.get("y_num_col_dims", 1)
-    x2 = x.reshape(math.prod(x.shape[:xd]), -1)
-    y2 = y.reshape(math.prod(y.shape[:yd]), -1)
-    return out(Out=(x2 @ y2).reshape(tuple(x.shape[:xd]) + tuple(y.shape[yd:])))
+    x2, y2 = amp_cast(x.reshape(math.prod(x.shape[:xd]), -1),
+                      y.reshape(math.prod(y.shape[:yd]), -1))
+    return out(Out=_matmul(x2, y2).reshape(tuple(x.shape[:xd])
+                                          + tuple(y.shape[yd:])))
 
 
 @register_op("matmul")
@@ -35,7 +37,8 @@ def matmul(attrs, ins):
         x = x.transpose(-1, -2)
     if attrs.get("transpose_Y", False) and y.ndim > 1:
         y = y.transpose(-1, -2)
-    res = torch.matmul(x, y)
+    x, y = amp_cast(x, y)
+    res = _matmul(x, y)
     alpha = attrs.get("alpha", 1.0)
     if alpha != 1.0:
         res = res * torch.tensor(alpha, dtype=res.dtype)

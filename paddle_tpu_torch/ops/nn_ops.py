@@ -8,6 +8,10 @@ Layout: the ops take the JAX package's ``data_format`` attr, NCHW (OIHW
 filters) or NHWC (HWIO filters), and keep that layout at their boundary;
 inside, an NHWC tensor is handed to torch's NCHW kernels as a permuted
 view (``channels_last`` in memory), so no layout copy is made.
+
+Under AMP (``ops/common.py``) ``conv2d`` casts its input and filter to
+bf16 and returns bf16; ``pool2d`` keeps its input's dtype; the norms
+reduce in f32 and return their input's dtype, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch.nn.functional as F
 
 from ..core import prng
 from ..core.registry import register_op
-from .common import full_f32_convolutions, maybe, normalize_pair, out, single
+from .common import (amp_cast, full_f32_convolutions, matmul, maybe,
+                     normalize_pair, out, single)
 
 
 # --- conv2d -------------------------------------------------------------------
@@ -26,7 +31,8 @@ class _Conv2dF32(torch.autograd.Function):
     """``F.conv2d`` over NCHW tensors (no bias) whose forward and backward
     both run with cuDNN's TF32 off: the generic grad op differentiates
     the op after the forward's context has closed, so the backward sets
-    it again itself."""
+    it again itself. (bf16 operands under AMP are not affected: cuDNN
+    accumulates them in f32.)"""
 
     @staticmethod
     def forward(x, w, stride, padding, dilation, groups):
@@ -53,11 +59,11 @@ class _Conv2dF32(torch.autograd.Function):
 
 @register_op("conv2d")
 def conv2d(attrs, ins):
-    """2-D convolution, full f32. A 1x1/stride-1 conv is a matmul over
-    [B*H*W, I], as the JAX op lowers it (``dot_general``); every other
-    shape is ``F.conv2d`` (cuDNN on the card) with TF32 off."""
-    x = single(ins, "Input")
-    w = single(ins, "Filter")
+    """2-D convolution, full f32 (bf16 operands and output under AMP). A
+    1x1/stride-1 conv is a matmul over [B*H*W, I], as the JAX op lowers
+    it (``dot_general``); every other shape is ``F.conv2d`` (cuDNN on the
+    card) with TF32 off."""
+    x, w = amp_cast(single(ins, "Input"), single(ins, "Filter"))
     fmt = attrs.get("data_format", "NCHW")
     strides = normalize_pair(attrs.get("strides", [1, 1]))
     pads = normalize_pair(attrs.get("paddings", [0, 0]))
@@ -69,10 +75,10 @@ def conv2d(attrs, ins):
         if fmt == "NHWC":
             B, H, W_, I = x.shape
             wm = w.reshape(w.shape[2], w.shape[3])  # HWIO -> [I, O]
-            y = torch.matmul(x.reshape(B * H * W_, I), wm)
+            y = matmul(x.reshape(B * H * W_, I), wm)
             return out(Output=y.reshape(B, H, W_, -1))
         wm = w.reshape(w.shape[0], w.shape[1])  # OIHW -> [O, I]
-        y = torch.matmul(x.movedim(1, -1), wm.t())  # [B, H, W, O]
+        y = matmul(x.movedim(1, -1), wm.t())  # [B, H, W, O]
         return out(Output=y.movedim(-1, 1))
     if fmt == "NHWC":
         y = _Conv2dF32.apply(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),

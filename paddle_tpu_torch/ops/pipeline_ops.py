@@ -8,6 +8,11 @@ the JAX package scans over that axis, the port runs a Python loop over
 layers. Op functions take ``(attrs, ins)`` with ``ins`` a dict of slot
 name -> [tensor] and return such a dict, exactly like their JAX twins.
 
+Under AMP (``ops/common.py``) the four projections and the head take
+bf16 operands (``amp_cast``, ``common.matmul``: f32 accumulation) and their
+results are cast back to the activations' dtype, as the JAX op casts them,
+so activations, q/k/v and the flash kernels stay f32.
+
 Causal attention over a whole sequence (the training forward and the
 dense prefill) is the sm_90a flash kernel (``kernels/flash_attention.py``),
 differentiable through its backward kernels; decode attention over the
@@ -27,7 +32,7 @@ from ..core.registry import register_op
 from ..kernels.flash_attention import (flash_attention, reference_attention,
                                        rotary)
 from ..kernels.sampling import sample_rows, top_logprobs
-from .common import maybe, out, single
+from .common import amp_cast, matmul, maybe, out, single
 
 _EPS = 1e-5
 
@@ -60,7 +65,8 @@ def _attn_proj(p, h, num_heads, num_kv_heads=None, use_rope=False, pos0=0):
     b, t, d = h.shape
     head_d = d // num_heads
     d_kv = head_d * num_kv_heads
-    qkv = (_ln(h, p["ln1_s"], p["ln1_b"]) @ p["qkv_w"]).to(h.dtype)
+    hn_c, qkv_c = amp_cast(_ln(h, p["ln1_s"], p["ln1_b"]), p["qkv_w"])
+    qkv = matmul(hn_c, qkv_c).to(h.dtype)
 
     def heads(a, n):
         return a.reshape(b, t, n, head_d).transpose(1, 2)
@@ -87,11 +93,11 @@ def _attn_out_ffn(p, x, ctx):
     """Out-projection + residual + FFN half of a block; ctx [b, t, d].
     The FFN's GELU is the tanh approximation, as ``jax.nn.gelu``'s
     default."""
-    x = x + (ctx @ p["out_w"]).to(x.dtype)
+    x = x + matmul(*amp_cast(ctx, p["out_w"])).to(x.dtype)
     h2 = _ln(x, p["ln2_s"], p["ln2_b"])
-    ff = F.gelu((h2 @ p["ff_w1"]).to(x.dtype) + p["ff_b1"],
+    ff = F.gelu(matmul(*amp_cast(h2, p["ff_w1"])).to(x.dtype) + p["ff_b1"],
                 approximate="tanh")
-    return x + (ff @ p["ff_w2"]).to(x.dtype) + p["ff_b2"]
+    return x + (matmul(*amp_cast(ff, p["ff_w2"])).to(x.dtype) + p["ff_b2"])
 
 
 def _layer(params, i):
@@ -155,7 +161,7 @@ def _embed_fn(tok_emb, pos_emb):
 
 def _logits_fn(ln_s, ln_b, head_w):
     def logits_of(h_last):
-        return (_ln(h_last, ln_s, ln_b) @ head_w).float()
+        return matmul(*amp_cast(_ln(h_last, ln_s, ln_b), head_w)).float()
 
     return logits_of
 

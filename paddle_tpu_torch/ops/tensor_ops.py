@@ -108,10 +108,14 @@ def slice_op(attrs, ins):
 
 # --- elementwise binary (broadcast semantics per elementwise_op.h) ----------
 def _elementwise(op):
+    """Both operands in their promoted dtype first, as jnp promotes them:
+    torch would keep a bf16 x's dtype against a 0-dim f32 y (under AMP,
+    bf16 activations meet f32 biases and scalars), where JAX widens."""
     def fn(attrs, ins):
         x = single(ins, "X")
         y = broadcast_to_x(x, single(ins, "Y"), attrs.get("axis", -1))
-        return out(Out=op(x, y))
+        dtype = torch.promote_types(x.dtype, y.dtype)
+        return out(Out=op(x.to(dtype), y.to(dtype)))
 
     return fn
 

@@ -34,6 +34,8 @@ import torch
 
 from ..core.executor import CUDAPlace, Executor
 from ..core.scope import Scope
+from ..core.types import to_numpy
+from ..ops.common import amp_enabled
 from .errors import BadRequestError, EngineClosedError
 from .metrics import MetricsRegistry
 
@@ -235,8 +237,11 @@ class InferenceEngine:
             fed[name] = a
         return fed, bucket
 
-    def _signature(self, fed: Dict[str, np.ndarray]) -> tuple:
-        return tuple((n, tuple(fed[n].shape)) for n in self.feed_names)
+    def _signature(self, fed) -> tuple:
+        """A CUDA graph's key: the feed shapes and the AMP policy it was
+        captured under (a graph replays the casts it recorded)."""
+        return tuple((n, tuple(fed[n].shape)) for n in self.feed_names) \
+            + (("amp", amp_enabled()),)
 
     def _run_program(self, feed):
         return self.executor.run(self.program, feed=feed,
@@ -274,7 +279,7 @@ class InferenceEngine:
         return [o.clone() for o in static_out]
 
     def _resolve(self, outs, bucket: int, n: int, t0: float):
-        res = [o.detach().cpu().numpy()[:n] for o in outs]
+        res = [to_numpy(o)[:n] for o in outs]
         self.metrics.observe_latency(time.perf_counter() - t0,
                                      name="batch_execute")
         self.metrics.inc("batches_executed")
@@ -319,8 +324,7 @@ class InferenceEngine:
                     continue
                 self._run_program(static_in)  # eager: kernels, workspaces
                 if self._use_graphs:
-                    sig = tuple((n, tuple(static_in[n].shape))
-                                for n in self.feed_names)
+                    sig = self._signature(static_in)
                     graph, outs = _graph_capture(
                         lambda feed=static_in: self._run_program(feed),
                         self.device)

@@ -32,7 +32,7 @@ import torch
 
 from ..core.program import Block, Operator, Program
 from ..core.registry import get_op, has_op, op_uses_rng
-from ..core.types import dtype_name
+from ..core.types import dtype_name, to_dtype
 from .framework import Pass, PassContext, register_pass
 
 SEG_ATTR = "__recompute_seg__"
@@ -382,17 +382,22 @@ class FoldBatchNorm(Pass):
                         return False
         return True
 
-    def _new_param(self, block: Block, scope, base: str, value: np.ndarray):
+    def _new_param(self, block: Block, scope, base: str, value: np.ndarray,
+                   dtype):
+        """A new parameter holding ``value`` (computed in f32) in
+        ``dtype``, rounded by torch: numpy has no bfloat16, and an AMP
+        program's folded weights and biases may be bf16."""
         name = base
         i = 0
         while name in block.vars or scope.has(name):
             i += 1
             name = f"{base}{i}"
         block.create_parameter(name=name, shape=value.shape,
-                               dtype=str(value.dtype), trainable=False)
+                               dtype=dtype_name(dtype), trainable=False)
         # on the scope's device, beside the weights it replaces
-        scope.set(name, torch.from_numpy(np.ascontiguousarray(value)).to(
-            _scope_device(scope, block)))
+        scope.set(name, torch.from_numpy(np.ascontiguousarray(
+            value, np.float32)).to(_scope_device(scope, block),
+                                   to_dtype(dtype)))
         return name
 
     def _fold_bn(self, block: Block, bn: Operator, producers, consumers,
@@ -446,18 +451,17 @@ class FoldBatchNorm(Pass):
         if k.shape[0] != w.shape[axis]:
             return False
         bshape = tuple(-1 if a == axis else 1 for a in range(w.ndim))
-        new_w = (w.astype(np.float32) * k.reshape(bshape)).astype(w.dtype)
+        new_w = w.astype(np.float32) * k.reshape(bshape)
         if prior_bias is not None:
             b = b + prior_bias.astype(np.float32) * k
         out_dtype = (xv.dtype if xv is not None and xv.shape is not None
-                     else None)
-        bias_val = (b.astype(dtype_name(out_dtype)) if out_dtype is not None
-                    else b)
+                     else "float32")
 
         bn_y = bn.output("Y")
-        new_w_name = self._new_param(block, scope, w_name + "@bnfold", new_w)
-        bias_name = self._new_param(block, scope, bn_y + "@bnfold_bias",
-                                    bias_val)
+        new_w_name = self._new_param(block, scope, w_name + "@bnfold", new_w,
+                                     scope.get(w_name).dtype)
+        bias_name = self._new_param(block, scope, bn_y + "@bnfold_bias", b,
+                                    out_dtype)
         base.inputs[w_slot] = [new_w_name]
         base.attrs["__bn_folded__"] = True
         add_axis = 1 if (w.ndim == 4 and fmt == "NCHW") else -1
@@ -493,15 +497,15 @@ class FoldBatchNorm(Pass):
         k, b = _bn_affine(scope, op)
         if k.shape[0] != wm.shape[1]:
             return False
-        new_w = (wm.astype(np.float32) * k[None, :]).astype(w.dtype)
+        new_w = wm.astype(np.float32) * k[None, :]
         new_w = new_w.reshape(1, 1, *new_w.shape)  # conv2d HWIO
         x = op.input("X")
         y = op.output("Y")
         xv = block.vars.get(x)
-        bias_val = (b.astype(dtype_name(xv.dtype)) if xv is not None else b)
-        new_w_name = self._new_param(block, scope, w_name + "@bnfold", new_w)
-        bias_name = self._new_param(block, scope, y + "@bnfold_bias",
-                                    bias_val)
+        new_w_name = self._new_param(block, scope, w_name + "@bnfold", new_w,
+                                     scope.get(w_name).dtype)
+        bias_name = self._new_param(block, scope, y + "@bnfold_bias", b,
+                                    xv.dtype if xv is not None else "float32")
         res = op.input("Residual") if op.inputs.get("Residual") else None
         act = op.attrs.get("act") or ""
         yv = block.vars.get(y)
