@@ -7,6 +7,7 @@
     python3 chip_smoke.py --conv-only       # phases 1, 2 and 8 only
     python3 chip_smoke.py --paged-only      # phases 1, 2 and 4b only
     python3 chip_smoke.py --amp-only        # phases 1, 2 and 11 only
+    python3 chip_smoke.py --per-layer-only  # phases 1, 2 and 12 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -133,12 +134,43 @@ Phases, each fatal on failure (nonzero exit, no result line):
     a paged wave under AMP whose replayed decode step equals the eager
     AMP step over 32 ticks (tokens and pools bitwise).
 
+12. The per-layer LM (``transformer_lm(pipeline_stack=False)``, the
+    model the JAX package's benchmark trains), each part fatal on
+    failure: (a) the bf16 instances of the flash forward, dq and dkv
+    against their plain versions at both training shapes (B8 H8 and B8
+    H16, T2048 D128 causal), B8 H16 T1024 D64, a ragged T = 1000 with
+    lengths and a fully masked row, a non-causal case and D 256: each of
+    o, dq, dk, dv at most 2x as far from the f32 plain version on the same
+    bf16 values as the bf16 plain version is, plus one bf16 ulp of the
+    largest |value|, and its error's Frobenius norm at most 1.5x the bf16
+    plain version's; a stale K/V stage planted in the plain version at
+    the training shape must be refused; lse within 1e-4 of the plain
+    version's; two launches at the training shape bitwise equal;
+    registers and HMMA counts; timed at B8 H8 T2048 D128 beside the
+    plain versions, the bound at the bf16 tensor-core rate and bf16 SDPA
+    (forward; backward for the pair);
+    (b) bench.py's ``transformer`` (d1024 L8 H8 d_ff 4096 V16384, 8 x 2048
+    tokens, Adam 1e-4) in f32: step 1 with the kernels against the plain
+    path (loss and every gradient within 1e-4), 8 f32 launches of each
+    flash kernel a step, falling losses, step ms; then built under AMP
+    with the same names from the same startup state: step-1 loss within
+    3e-2 of the f32 build's and 1e-2 of the AMP plain path's, every
+    gradient within 1.5e-2 of the AMP plain path's (relative, the worst
+    parameter), which a stale K/V stage planted in the plain backward
+    must exceed, 8 bf16 launches of each flash kernel a step and no f32
+    ones, falling losses, step ms, tokens/s, the share of the bf16 peak,
+    peak memory, device time by kernel
+    (``chiprun_out/per_layer_*_profile.txt``); (c)
+    ``transformer_wide`` (d2048 L8 H16 d_ff 8192) under AMP, the same
+    gates (its f32 build runs step 1 only).
+
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -228,22 +260,26 @@ def _visible_pairs(B, H, Tq, Tk, causal, lengths):
     return H * vis
 
 
-def _attention_work(B, H, Tq, Tk, D, causal, lengths):
+def _attention_work(B, H, Tq, Tk, D, causal, lengths, elem=4):
     """(matmul FLOPs, bytes) the forward needs for these inputs: 4*D per
-    visible (query, key) pair; q/k/v read once, o and lse written once."""
+    visible (query, key) pair; q/k/v read once, o and lse written once
+    (``elem`` bytes a value of q, k, v and o: 4 in f32, 2 in bf16; lse
+    f32)."""
     flops = 4.0 * D * _visible_pairs(B, H, Tq, Tk, causal, lengths)
-    nbytes = 4.0 * (B * H * (2 * Tq * D + 2 * Tk * D + Tq))
+    nbytes = B * H * (elem * (2 * Tq * D + 2 * Tk * D) + 4.0 * Tq)
     return flops, nbytes
 
 
-def _backward_work(kernel, B, H, Tq, Tk, D, causal, lengths):
+def _backward_work(kernel, B, H, Tq, Tk, D, causal, lengths, elem=4):
     """(matmul FLOPs, bytes) of one backward kernel for these inputs. Per
     visible pair dq does Q.K^T, dO.V^T and dS.K (6*D FLOPs) and dkv also
     P^T.dO and dS^T.Q (8*D). Both read q, dO, k, v, lse and Di once; dq
-    writes dq, dkv writes dk and dv."""
+    writes dq, dkv writes dk and dv (``elem`` bytes a value of those;
+    lse and Di f32)."""
     pairs = _visible_pairs(B, H, Tq, Tk, causal, lengths)
     per_pair, writes = (6, Tq * D) if kernel == "dq" else (8, 2 * Tk * D)
-    nbytes = 4.0 * B * H * (2 * Tq * D + 2 * Tk * D + 2 * Tq + writes)
+    nbytes = B * H * (elem * (2 * Tq * D + 2 * Tk * D + writes)
+                      + 4.0 * 2 * Tq)
     return per_pair * D * pairs, nbytes
 
 
@@ -1208,7 +1244,7 @@ def transformer_train_flops(bs, T, d, n_layers, vocab, d_ff=None):
     return 3 * (dense + attn + head)
 
 
-def _build_training_program(pt, c):
+def _build_training_program(pt, c, pipeline_stack=True):
     from paddle_tpu_torch import layers, models
 
     main, startup = pt.Program(), pt.Program()
@@ -1219,7 +1255,8 @@ def _build_training_program(pt, c):
         logits = models.transformer_lm(
             ids, vocab_size=c["vocab"], d_model=c["d_model"],
             n_layers=c["n_layers"], num_heads=c["num_heads"],
-            d_ff=c["d_ff"], max_len=c["max_len"], pipeline_stack=True)
+            d_ff=c["d_ff"], max_len=c["max_len"],
+            pipeline_stack=pipeline_stack)
         loss = layers.mean(layers.softmax_with_cross_entropy(
             layers.reshape(logits, shape=[-1, c["vocab"]]),
             layers.reshape(tgt, shape=[-1, 1])))
@@ -1237,6 +1274,111 @@ def _reset_launch_counts(fa):
     fa.flash_attention.launches = 0
     fa.flash_backward.dq_launches = 0
     fa.flash_backward.dkv_launches = 0
+
+
+def _flash_counts(fa):
+    """(f32 fwd, dq, dkv launches, bf16 fwd, dq, dkv launches)."""
+    return _launch_counts(fa) + (fa.flash_attention.bf16_launches,
+                                 fa.flash_backward.dq_bf16_launches,
+                                 fa.flash_backward.dkv_bf16_launches)
+
+
+def _reset_flash_counts(fa):
+    _reset_launch_counts(fa)
+    fa.flash_attention.bf16_launches = 0
+    fa.flash_backward.dq_bf16_launches = 0
+    fa.flash_backward.dkv_bf16_launches = 0
+
+
+def _snapshot(scope):
+    import torch
+
+    return {n: scope.get(n).clone() for n in list(scope.keys())
+            if isinstance(scope.get(n), torch.Tensor)}
+
+
+def _restore(scope, state, dtypes=None):
+    """The scope's tensors from ``state``, each in ``dtypes[name]`` where
+    given (an AMP program's declared dtype)."""
+    for n, t in state.items():
+        dt = (dtypes or {}).get(n)
+        scope.set(n, t.to(dt) if dt is not None else t.clone())
+
+
+def _stale_stage(t, tile=64):
+    """``t`` [B, H, T, D] with the middle 64-key tile holding the tile
+    before it: what a kernel whose K/V ring hands a tile a stale stage
+    computes. A planted fault for the gates' controls."""
+    j = t.shape[2] // tile // 2
+    out = t.clone()
+    out[:, :, j * tile:(j + 1) * tile] = t[:, :, (j - 1) * tile:j * tile]
+    return out
+
+
+@contextlib.contextmanager
+def _plain_flash(fa, planted=False):
+    """The flash wrappers run their plain versions on the card (every
+    wrapper dispatches through _plain_device, so answering yes for CUDA
+    tensors swaps them in); with ``planted`` the plain backward reads a
+    stale K/V stage (_stale_stage). No kernel may launch meanwhile."""
+    saved = fa._plain_device, fa.flash_attention_backward_reference
+    before = _flash_counts(fa)
+    fa._plain_device = lambda t: True
+    if planted:
+        fa.flash_attention_backward_reference = (
+            lambda q, k, v, *rest: saved[1](q, _stale_stage(k),
+                                            _stale_stage(v), *rest))
+    try:
+        yield
+    finally:
+        fa._plain_device, fa.flash_attention_backward_reference = saved
+    assert _flash_counts(fa) == before, "the plain path launched a kernel"
+
+
+def _step_fetches(exe, main, feed, fetch, scope, state, dtypes=None):
+    """One step's fetches (tensors) from ``state``; the scope is put back
+    to ``state`` after it."""
+    out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
+                  return_numpy=False)
+    _restore(scope, state, dtypes)
+    return out
+
+
+def _grad_gap(names, got, want):
+    """(worst |got - want| / |want| over the gradients, its name); every
+    gradient of ``got`` finite."""
+    worst = (-1.0, "")
+    for name, g, w in zip(names, got, want):
+        assert g.isfinite().all(), name
+        g, w = g.float(), w.float()
+        worst = max(worst, (float((g - w).norm() / w.norm().clamp_min(1e-30)),
+                            name))
+    return worst
+
+
+def _timed_steps(exe, main, feed, loss, scope, fa, profile_path, groups):
+    """The main path: counts to 0, 1 warm + 6 timed steps on one batch,
+    counts read (``_flash_counts``), losses finite and falling; then one
+    step profiled into ``profile_path`` by kernel ``groups``. Returns
+    (losses, step seconds, counts, peak memory, profile)."""
+    import numpy as np
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts(fa)
+    losses, step_s = [], []
+    for _ in range(7):
+        t1 = time.perf_counter()
+        lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        step_s.append(time.perf_counter() - t1)
+        losses.append(float(lo))
+    counts = _flash_counts(fa)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    profile = _profile_step(
+        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+        profile_path, groups=groups)
+    return losses, step_s, counts, peak, profile
 
 
 def training_phase(records, gpu_name):
@@ -1263,39 +1405,19 @@ def training_phase(records, gpu_name):
             .astype("int64"),
             "tgt": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
             .astype("int64")}
-    state = {n: scope.get(n).clone() for n in list(scope.keys())
-             if isinstance(scope.get(n), torch.Tensor)}
-
-    def restore():
-        for n, t in state.items():
-            scope.set(n, t.clone())
+    state = _snapshot(scope)
 
     # parity on the card: one step's loss and every gradient, with the
     # kernels and then with their plain versions, from the same state
     grad_names = [g.name for _, g in params_grads]
     fetch = [loss.name] + grad_names
-    kern = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
-                   return_numpy=False)
-    restore()
-    # every flash wrapper dispatches through _plain_device: answering yes
-    # for the CUDA tensors too swaps in the plain versions on the card
-    dispatch = fa._plain_device
-    fa._plain_device = lambda t: True
-    before = _launch_counts(fa)
-    try:
-        plain = exe.run(main, feed=feed, fetch_list=fetch, scope=scope,
-                        return_numpy=False)
-    finally:
-        fa._plain_device = dispatch
-    assert _launch_counts(fa) == before, "the plain path launched a kernel"
-    restore()
+    kern = _step_fetches(exe, main, feed, fetch, scope, state)
+    with _plain_flash(fa):
+        plain = _step_fetches(exe, main, feed, fetch, scope, state)
+    del state
     lk, lp = float(kern[0]), float(plain[0])
     assert np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), (lk, lp)
-    worst = (-1.0, "")
-    for name, gk, gp in zip(grad_names, kern[1:], plain[1:]):
-        assert torch.isfinite(gk).all(), name
-        rel = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
-        worst = max(worst, (rel, name))
+    worst = _grad_gap(grad_names, kern[1:], plain[1:])
     assert worst[0] <= GRAD_RTOL, worst
     print(f"training: step loss kernels {lk:.6f} plain {lp:.6f}; worst "
           f"gradient |kernel - plain| / |plain| {worst[0]:.3e} ({worst[1]}) "
@@ -1303,19 +1425,11 @@ def training_phase(records, gpu_name):
     del kern, plain
 
     # the main path: 1 warm step, then 6 timed steps on one fixed batch
-    torch.cuda.reset_peak_memory_stats()
-    losses, step_s = [], []
-    _reset_launch_counts(fa)
-    for step in range(7):
-        t1 = time.perf_counter()
-        lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-        step_s.append(time.perf_counter() - t1)
-        losses.append(float(lo))
-    launches = _launch_counts(fa)
-    assert launches == (7 * L,) * 3, launches
-    assert all(np.isfinite(losses)), losses
-    assert losses[-1] < losses[0], losses
-    peak_mem = torch.cuda.max_memory_allocated()
+    losses, step_s, counts, peak_mem, profile = _timed_steps(
+        exe, main, feed, loss, scope, fa, "train_profile.txt",
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+    assert counts == (7 * L,) * 3 + (0,) * 3, counts
+    launches = counts[:3]
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
                                     c["vocab"], c["d_ff"])
@@ -1337,8 +1451,6 @@ def training_phase(records, gpu_name):
           f"{kern_step_ms['dq']:.1f} ms, dkv {kern_step_ms['dkv']:.1f} ms = "
           f"{sum(kern_step_ms.values()) / (med * 1e3) * 100:.1f}% of the "
           f"step")
-    profile = _profile_step(
-        lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope))
     return {
         "config": c, "params": n_params, "losses": losses,
         "step_ms": [x * 1e3 for x in step_s], "step_ms_median": med * 1e3,
@@ -2795,36 +2907,21 @@ def lm_amp_phase(gpu_name):
             .astype("int64"),
             "tgt": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
             .astype("int64")}
-    state = {n: scope.get(n).clone() for n in list(scope.keys())
-             if isinstance(scope.get(n), torch.Tensor)}
-    l32 = float(exe.run(main, feed=feed, fetch_list=[loss], scope=scope)[0])
-    for n, t in state.items():
-        scope.set(n, t)
-    del state
+    l32 = float(_step_fetches(exe, main, feed, [loss.name], scope,
+                              _snapshot(scope))[0])
     with _Amp():
-        _reset_launch_counts(fa)
-        torch.cuda.reset_peak_memory_stats()
-        losses, step_s = [], []
-        for _ in range(7):
-            t1 = time.perf_counter()
-            lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
-            step_s.append(time.perf_counter() - t1)
-            losses.append(float(lo))
-        launches = _launch_counts(fa)
-        peak_mem = torch.cuda.max_memory_allocated()
+        losses, step_s, counts, peak_mem, profile = _timed_steps(
+            exe, main, feed, loss, scope, fa, "train_amp_profile.txt",
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gemm", "cutlass",
+             "elementwise", "reduce"))
         dtypes = {p.name: str(scope.get(p.name).dtype)
                   for p, _ in params_grads}
-        profile = _profile_step(
-            lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
-            "train_amp_profile.txt",
-            groups=("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "gemm",
-                    "cutlass", "elementwise", "reduce"))
+    launches = counts[:3]
     l1 = losses[0]
     print(f"training AMP: step-1 loss {l1:.6f}, the same step in f32 "
           f"{l32:.6f} (rel {abs(l1 - l32) / abs(l32):.3e}, tol {AMP_RTOL})")
     assert np.isfinite(l1) and abs(l1 - l32) <= AMP_RTOL * abs(l32), (l1, l32)
-    assert launches == (7 * L,) * 3, launches
-    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert counts == (7 * L,) * 3 + (0,) * 3, counts
     assert set(dtypes.values()) == {"torch.float32"}, dtypes
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
@@ -2891,6 +2988,444 @@ def amp_phases(gpu_name):
                   "lm": lm}
 
 
+# --- Phase 12: the per-layer LM, the JAX package's benchmark model ------------
+# bench.py's bench_transformer_step builds transformer_lm(pipeline_stack=
+# False) and trains it under pt.set_amp(True): "transformer" d1024 L8 H8
+# and "transformer_wide" d2048 L8 H16 (bench.py:2794-2796), d_ff 4 d, bs8
+# T2048 V16384, Adam 1e-4. Under AMP the fused qkv product hands bf16
+# q/k/v to scaled_dot_product_attention: the flash kernels' bf16
+# instances.
+PER_LAYER = dict(TRAIN)
+PER_LAYER_WIDE = dict(TRAIN, d_model=2048, num_heads=16, d_ff=8192)
+# (B, H, T, D, causal, lengths): both training shapes, the serving shape,
+# a ragged T = 1000 with lengths (a fully masked row), a non-causal case
+# and a head dim past 128 (the wide instances)
+BF16_FLASH_CASES = [
+    (8, 8, 2048, 128, True, None),
+    (8, 16, 2048, 128, True, None),
+    (8, 16, 1024, 64, True, None),
+    (4, 8, 1000, 128, True, [1000, 999, 513, 0]),
+    (2, 4, 300, 128, False, [300, 17]),
+    (2, 4, 1000, 256, True, [1000, 0]),
+]
+BF16_FLASH = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
+              "flash_attention_bwd_dkv_bf16")
+BF16_FLASH_REPLACES = (229, 364, 386)
+# The bf16 gate: truth is the f32 plain version on the same bf16-valued
+# inputs. The kernel may lie at most 2x as far from it as the bf16 plain
+# version (which rounds as the Pallas kernels do) plus one bf16 ulp of
+# the largest |value| (the kernels round P against a running max per
+# 64-key tile, the plain version against the row's max); and, since that
+# maximum is set by the few largest values of the first rows, its error's
+# Frobenius norm at most BF16_FRO_RATIO x the plain version's (their
+# rounding errors are of one size: 0.99-1.003 x in a CPU emulation with
+# 64-key blocks, where a stale K/V stage gives 48-69 x). lse is f32.
+BF16_FRO_RATIO = 1.5
+BF16_LSE_ATOL = 1e-4
+# The f32 per-layer step 1, kernels against the plain path.
+PER_LAYER_RTOL = 1e-4
+# The AMP per-layer step 1: every gradient with the bf16 kernels against
+# the AMP plain path (|kernels - plain| / |plain| of the worst parameter).
+# Two valid bf16 roundings of one step differ by about this much: 6.8e-3
+# at d1024 and d2048 on an H100 (the f32 build lies 1.0e-2 from either),
+# where a stale K/V stage planted in the plain backward moves 4.7e-2 and
+# 5.1e-2; the control must exceed the limit.
+AMP_GRAD_RTOL = 1.5e-2
+PER_LAYER_GROUPS = ("flash_fwd_bf16", "flash_bwd_dq_bf16",
+                    "flash_bwd_dkv_bf16", "flash_", "nvjet", "gemm",
+                    "elementwise", "reduce")
+
+
+def _bf16_errors(got, plain, truth):
+    """How far a bf16 output and its bf16 plain version lie from the f32
+    truth, over the truth's finite elements: max |error| of each, the
+    max-abs limit (2x the plain's + one bf16 ulp of max |truth|), the
+    ratio of their errors' Frobenius norms, and median |truth|."""
+    import math
+
+    fin = truth.isfinite()
+    t = truth[fin]
+    dk, dp = got.float()[fin] - t, plain.float()[fin] - t
+    top = float(t.abs().max()) if t.numel() else 0.0
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7) if top else 0.0
+    ep = float(dp.abs().max()) if t.numel() else 0.0
+    nk, np_ = float(dk.norm()), float(dp.norm())
+    return {"kernel": float(dk.abs().max()) if t.numel() else 0.0,
+            "plain": ep, "limit": 2 * ep + ulp,
+            "fro_ratio": nk / np_ if np_ else (0.0 if nk == 0 else math.inf),
+            "median_truth": float(t.abs().median()) if t.numel() else 0.0}
+
+
+def _bf16_passes(e):
+    return e["kernel"] <= e["limit"] and e["fro_ratio"] <= BF16_FRO_RATIO
+
+
+def _bf16_gate(got, plain, truth, what):
+    """_bf16_errors of a bf16 kernel output; raises past either limit."""
+    e = _bf16_errors(got, plain, truth)
+    if not _bf16_passes(e):
+        raise AssertionError(
+            f"{what}: kernel {e['kernel']:.3e} from the f32 truth (allowed "
+            f"{e['limit']:.3e}), Frobenius {e['fro_ratio']:.3f} x the plain "
+            f"version's (allowed {BF16_FRO_RATIO})")
+    return e
+
+
+def _bf16_text(e):
+    return (f"{e['kernel']:.3e}/{e['plain']:.3e} (limit {e['limit']:.3e}, "
+            f"median |truth| {e['median_truth']:.2e}, Frobenius "
+            f"{e['fro_ratio']:.3f}x)")
+
+
+def _sdpa_fastest(F, q, k, v, do=None):
+    """(ms, backend) of the fastest SDPA backend that takes these inputs
+    (is_causal): the forward, or with ``do`` its backward (forward and
+    backward minus the forward alone)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), leaves, do)
+
+    best = None
+    for name in ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:  # a backend that refuses the inputs warns, then raises
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                ms = (_cuda_ms(fwd) if do is None else
+                      _cuda_ms(fwd_bwd, iters=10) - _cuda_ms(fwd, iters=10))
+        except RuntimeError:
+            continue
+        if best is None or ms < best[0]:
+            best = (ms, name)
+    if best is None:
+        raise RuntimeError("no SDPA backend ran these inputs")
+    return best
+
+
+def bf16_flash_kernel_phase(gpu_name):
+    """Phase 12a: the bf16 flash forward, dq and dkv against their plain
+    versions (the gate above) at every case, two launches of each bitwise
+    equal at the training shape; registers and tensor-core opcodes; then
+    timed at B8 H8 T2048 D128 causal beside the plain versions, the bound
+    at the bf16 tensor-core rate and bf16 SDPA (forward; backward for the
+    pair)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import build
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    lib = build.load("flash_attention_bf16")
+    smem = lib.paddle_flash_attention_bf16_smem_bytes
+    usage = _kernel_usage(
+        "flash_attention_bf16",
+        lambda name, args: smem(0 if "fwd" in name else
+                                1 if "dq" in name else 2,
+                                args[0] if args else WIDE_D),
+        match="bf16_kernel")
+    sass = _sass_counts("flash_attention_bf16", "bf16_kernel")
+    assert sass and all(c["HMMA"] > 0 for c in sass.values()), sass
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    errs = {n: 0.0 for n in BF16_FLASH}
+    cases = []
+    for B, H, T, D, causal, lengths in BF16_FLASH_CASES:
+        q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
+                       .bfloat16() for _ in range(4))
+        lens = (None if lengths is None
+                else torch.tensor(lengths, device="cuda"))
+        sm = 1.0 / D ** 0.5
+        o, lse = fa.flash_forward(q, k, v, lens, causal, sm)
+        torch.cuda.synchronize()
+        po, plse = fa.flash_attention_reference(q, k, v, lens, causal, sm)
+        to, _ = fa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                             lens, causal, sm)
+        row = {"case": _case_text(B, H, T, D, causal, lengths)}
+        row["o"] = _bf16_gate(o, po, to, "o")
+        first = len(cases) == 0
+        if first:  # the control: the gate refuses a stale K/V stage
+            ks, vs = _stale_stage(k), _stale_stage(v)
+            planted = {"o": _bf16_errors(fa.flash_attention_reference(
+                q, ks, vs, lens, causal, sm)[0], po, to)}
+        if not torch.equal(lse.isinf(), plse.isinf()):
+            raise AssertionError("lse: kernel and plain version disagree on "
+                                 "which rows are fully masked")
+        fin = plse.isfinite()
+        row["lse"] = float((lse - plse)[fin].abs().max())
+        assert row["lse"] <= BF16_LSE_ATOL, row
+        errs[BF16_FLASH[0]] = max(errs[BF16_FLASH[0]],
+                                  float((o.float() - po.float()).abs().max()))
+        del to
+        # the backward on the plain forward's o and lse
+        grads = fa.flash_backward(q, k, v, po, plse, do, lens, causal, sm)
+        torch.cuda.synchronize()
+        pg = fa.flash_attention_backward_reference(q, k, v, po, plse, do,
+                                                   lens, causal, sm)
+        tg = fa.flash_attention_backward_reference(
+            q.float(), k.float(), v.float(), po.float(), plse, do.float(),
+            lens, causal, sm)
+        fg = (fa.flash_attention_backward_reference(
+            q, ks, vs, po, plse, do, lens, causal, sm) if first else pg)
+        for name, a, b, t, f in zip(("dq", "dk", "dv"), grads, pg, tg, fg):
+            assert a.dtype == torch.bfloat16, (name, a.dtype)
+            row[name] = _bf16_gate(a, b, t, name)
+            key = BF16_FLASH[1] if name == "dq" else BF16_FLASH[2]
+            errs[key] = max(errs[key], float((a.float() - b.float())
+                                             .abs().max()))
+            if first:
+                planted[name] = _bf16_errors(f, b, t)
+        del pg, tg, fg
+        if first:
+            del ks, vs
+            for name, e in planted.items():
+                assert not _bf16_passes(e), (
+                    f"the gate let a stale K/V stage through in {name}: {e}")
+                by_max = e["kernel"] > e["limit"]
+                by_fro = e["fro_ratio"] > BF16_FRO_RATIO
+                print(f"bf16 flash control (a stale K/V stage planted in "
+                      f"the plain version): {name} {_bf16_text(e)}; refused "
+                      f"by max-abs {by_max}, by Frobenius {by_fro}")
+            row["planted_stale_stage"] = planted
+            # the training shape: no atomics
+            o2, _ = fa.flash_forward(q, k, v, lens, causal, sm)
+            g2 = fa.flash_backward(q, k, v, po, plse, do, lens, causal, sm)
+            assert torch.equal(o2, o) and all(
+                torch.equal(a, b) for a, b in zip(g2, grads)), \
+                "two launches differ"
+            del o2, g2
+        print(f"bf16 flash {row['case']}: max error from the f32 truth "
+              f"(kernel/plain): " + "; ".join(
+                  f"{n} {_bf16_text(row[n])}" for n in ("o", "dq", "dk", "dv"))
+              + f"; lse {row['lse']:.2e} from the plain version")
+        cases.append(row)
+        del q, k, v, do, o, lse, po, plse, grads
+        torch.cuda.empty_cache()
+    print("bf16 flash kernels: two launches on the same inputs bitwise equal "
+          "at the training shape")
+
+    B, H, T, D, causal, _ = BF16_FLASH_CASES[0]
+    q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
+                   .bfloat16() for _ in range(4))
+    o, lse = fa.flash_forward(q, k, v, None, causal)
+    di = fa._row_dot(do, o)
+    runs = {
+        BF16_FLASH[0]: (lambda: fa.flash_forward(q, k, v, None, causal),
+                        lambda: fa.flash_attention_reference(q, k, v, None,
+                                                             causal)),
+        BF16_FLASH[1]: (lambda: fa.flash_dq(q, k, v, lse, di, do, None,
+                                            causal),
+                        lambda: fa.flash_dq_reference(q, k, v, lse, di, do,
+                                                      None, causal)),
+        BF16_FLASH[2]: (lambda: fa.flash_dkv(q, k, v, lse, di, do, None,
+                                             causal),
+                        lambda: fa.flash_dkv_reference(q, k, v, lse, di, do,
+                                                       None, causal)),
+    }
+    sdpa_fwd, backend = _sdpa_fastest(F, q, k, v)
+    sdpa_bwd, bwd_backend = _sdpa_fastest(F, q, k, v, do)
+    records = []
+    for i, name in enumerate(BF16_FLASH):
+        kernel, plain = runs[name]
+        ms = _cuda_ms(kernel)
+        plain_ms = _cuda_ms(plain, iters=3, warmup=1)
+        if i == 0:
+            flops, nbytes = _attention_work(B, H, T, T, D, causal, None, 2)
+        else:
+            flops, nbytes = _backward_work("dq" if i == 1 else "dkv", B, H,
+                                           T, T, D, causal, None, 2)
+        bound, bound_by, bound_simt = _bound(flops, nbytes, gpu_name,
+                                             bf16=True)
+        library = sdpa_fwd if i == 0 else sdpa_bwd
+        lib_text = (f"forward {library:.3f} ({backend})" if i == 0 else
+                    f"backward {library:.3f} for the pair ({bwd_backend})")
+        print(f"{name}: {ms:.3f} ms at {_case_text(B, H, T, D, causal, None)}"
+              f", plain {plain_ms:.3f}, bound {bound:.3f} ({bound_by}, bf16 "
+              f"tensor cores), bf16 SDPA {lib_text}")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bf16.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:"
+                        f"{BF16_FLASH_REPLACES[i]}",
+            "launches": 0, "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "bound_ms_simt": bound_simt, "library_ms": library,
+            "library": f"F.scaled_dot_product_attention bf16 {lib_text}",
+            "cases": cases, "ptxas": usage, "sass": sass})
+    del q, k, v, do, o, lse, di
+    torch.cuda.empty_cache()
+    return records
+
+
+def per_layer_lm_phase(gpu_name, c, time_f32):
+    """Phase 12b/c: the per-layer LM at configuration ``c``. The f32 build
+    first, from the startup program's seeded state: its step 1 with the
+    kernels against its plain path (loss and every gradient, 1e-4), and,
+    with ``time_f32``, its timed main path (8 f32 launches of each flash
+    kernel a step, no bf16 ones). Then the same program built under AMP,
+    names equal, from the same startup state (each parameter in its
+    declared dtype): step 1 against the f32 build's (3e-2) and the AMP
+    plain path (loss 1e-2, every gradient AMP_GRAD_RTOL; a planted stale
+    K/V stage must exceed that), and its timed main path (8 bf16 launches
+    of each flash kernel a step, no f32 ones), falling losses, step ms,
+    tokens/s, the share of the bf16 peak, peak memory, device time by
+    kernel."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import program as tprog
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    L, tokens = c["n_layers"], c["batch"] * c["seq"]
+    tag = f"d{c['d_model']} L{L} H{c['num_heads']}"
+    rng = np.random.RandomState(SEED)
+    feed = {"ids": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+            .astype("int64"),
+            "tgt": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+            .astype("int64")}
+    flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
+                                    c["vocab"], c["d_ff"])
+    peak_f32, peak_bf16 = _peaks(gpu_name)[0], _peaks(gpu_name)[3]
+    start = tprog.Program._uid_counter
+    t0 = time.perf_counter()
+    main, startup, loss, params_grads = _build_training_program(
+        pt, c, pipeline_stack=False)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace())
+    exe.run(startup, scope=scope)
+    state = _snapshot(scope)
+    n_params = sum(scope.get(p.name).numel() for p, _ in params_grads)
+    print(f"per-layer {tag}: f32 program of {len(main.global_block.ops)} ops, "
+          f"{len(params_grads)} parameters ({n_params / 1e6:.1f} M), built "
+          f"and initialised in {time.perf_counter() - t0:.2f} s")
+    out = {"config": c, "params": n_params}
+    fetch = [loss.name] + [g.name for _, g in params_grads]
+    kern = _step_fetches(exe, main, feed, fetch, scope, state)
+    if time_f32:
+        with _plain_flash(fa):
+            plain = _step_fetches(exe, main, feed, fetch, scope, state)
+        lk, lp = float(kern[0]), float(plain[0])
+        worst = _grad_gap(fetch[1:], kern[1:], plain[1:])
+        assert abs(lk - lp) <= PER_LAYER_RTOL * abs(lp), (lk, lp)
+        assert worst[0] <= PER_LAYER_RTOL, worst
+        print(f"per-layer {tag} f32: step-1 loss kernels {lk:.6f} plain "
+              f"{lp:.6f}; worst gradient |kernel - plain| / |plain| "
+              f"{worst[0]:.3e} ({worst[1]}) (tol {PER_LAYER_RTOL})")
+        del plain
+        losses, step_s, counts, peak, profile = _timed_steps(
+            exe, main, feed, loss, scope, fa, "per_layer_f32_profile.txt",
+            PER_LAYER_GROUPS)
+        assert counts == (7 * L,) * 3 + (0,) * 3, counts
+        med = float(np.median(step_s[1:]))
+        print(f"per-layer {tag} f32: losses {[round(x, 5) for x in losses]};"
+              f" step median {med * 1e3:.1f} ms, {tokens / med:.0f} tokens/s,"
+              f" {flops / med / peak_f32 * 100:.1f}% of the f32 peak, peak "
+              f"memory {peak / 2**30:.2f} GiB; f32 flash launches per step "
+              f"{[n // 7 for n in counts[:3]]}, bf16 {counts[3:]}")
+        out["f32"] = {"loss_kernels": lk, "loss_plain": lp,
+                      "worst_grad_rel": worst, "losses": losses,
+                      "step_ms": [x * 1e3 for x in step_s],
+                      "step_ms_median": med * 1e3,
+                      "tokens_per_s": tokens / med,
+                      "f32_peak_share": flops / med / peak_f32,
+                      "peak_mem_bytes": peak, "profile": profile}
+    l32, g32 = float(kern[0]), kern[1:]
+    del kern, exe, scope, main, startup, params_grads
+    torch.cuda.empty_cache()
+
+    tprog.Program._uid_counter = start  # the AMP build's names are equal
+    with _Amp():
+        main, _, loss, params_grads = _build_training_program(
+            pt, c, pipeline_stack=False)
+        block = main.global_block
+        dtypes = {n: block.var(n).dtype for n in state if block.has_var(n)}
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace())
+        _restore(scope, state, dtypes)
+        assert [g.name for _, g in params_grads] == fetch[1:]
+        ka = _step_fetches(exe, main, feed, fetch, scope, state, dtypes)
+        with _plain_flash(fa):
+            pa = _step_fetches(exe, main, feed, fetch, scope, state, dtypes)
+        with _plain_flash(fa, planted=True):
+            fault = _step_fetches(exe, main, feed, fetch, scope, state,
+                                  dtypes)
+        del state
+        la, lp = float(ka[0]), float(pa[0])
+        worst = _grad_gap(fetch[1:], ka[1:], pa[1:])
+        planted = _grad_gap(fetch[1:], fault[1:], pa[1:])
+        vs_f32 = _grad_gap(fetch[1:], ka[1:], g32)
+        del ka, pa, fault, g32
+        n_bf16 = sum(d == torch.bfloat16 for d in dtypes.values())
+        print(f"per-layer {tag} AMP: step-1 loss {la:.6f}, the f32 build "
+              f"{l32:.6f} (rel {abs(la - l32) / abs(l32):.3e}, tol "
+              f"{AMP_RTOL}), the AMP plain path {lp:.6f} (rel "
+              f"{abs(la - lp) / abs(lp):.3e}, tol {AMP_PLAIN_RTOL}); "
+              f"{n_bf16} parameters declared bf16")
+        print(f"per-layer {tag} AMP: worst gradient |kernels - plain| / "
+              f"|plain| {worst[0]:.3e} ({worst[1]}) (tol {AMP_GRAD_RTOL}); "
+              f"a stale K/V stage planted in the plain backward moves them "
+              f"{planted[0]:.3e} ({planted[1]}), which must exceed the tol; "
+              f"the f32 build's gradients lie {vs_f32[0]:.3e} away "
+              f"({vs_f32[1]})")
+        assert np.isfinite(la) and abs(la - l32) <= AMP_RTOL * abs(l32)
+        assert abs(la - lp) <= AMP_PLAIN_RTOL * abs(lp), (la, lp)
+        assert worst[0] <= AMP_GRAD_RTOL, worst
+        assert planted[0] > AMP_GRAD_RTOL, (
+            "the gradient gate let a stale K/V stage through", planted)
+        losses, step_s, counts, peak, profile = _timed_steps(
+            exe, main, feed, loss, scope, fa,
+            f"per_layer_amp_d{c['d_model']}_profile.txt", PER_LAYER_GROUPS)
+    assert counts == (0,) * 3 + (7 * L,) * 3, counts
+    med = float(np.median(step_s[1:]))
+    dev = profile["device_ms"] if profile else None
+    trio = (sum(profile["kernels_ms"][g] for g in (
+        "flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"))
+        if profile else None)
+    print(f"per-layer {tag} AMP: losses {[round(x, 5) for x in losses]}; "
+          f"step median {med * 1e3:.1f} ms over 6 steps "
+          f"({[round(x * 1e3, 1) for x in step_s]} ms), {tokens / med:.0f} "
+          f"tokens/s, {flops / 1e12:.2f} TFLOP/step = "
+          f"{flops / med / peak_bf16 * 100:.1f}% of the bf16 peak, peak "
+          f"memory {peak / 2**30:.2f} GiB; bf16 flash launches per step "
+          f"{[n // 7 for n in counts[3:]]}, f32 {counts[:3]}; device "
+          f"{_ms_text(dev, '.1f')} ms of the step's {med * 1e3:.1f} ms on the "
+          f"host clock, the bf16 flash trio {_ms_text(trio, '.1f')} ms")
+    out["amp"] = {"loss_step1": la, "loss_f32_step1": l32,
+                  "loss_plain_step1": lp, "params_bf16": n_bf16,
+                  "worst_grad_rel": worst, "planted_grad_rel": planted,
+                  "f32_grad_rel": vs_f32,
+                  "losses": losses, "step_ms": [x * 1e3 for x in step_s],
+                  "step_ms_median": med * 1e3, "tokens_per_s": tokens / med,
+                  "tflop_per_step": flops / 1e12,
+                  "bf16_peak_share": flops / med / peak_bf16,
+                  "peak_mem_bytes": peak, "launches_per_step": [
+                      n // 7 for n in counts[3:]],
+                  "device_ms": dev, "flash_bf16_ms": trio,
+                  "profile": profile}
+    del exe, scope, main
+    torch.cuda.empty_cache()
+    return out
+
+
+def per_layer_phases(gpu_name):
+    """Phase 12: the bf16 flash kernels (a), then the per-layer LM at
+    bench.py's transformer in f32 and under AMP (b) and at
+    transformer_wide under AMP (c). Returns (the bf16 kernel records, the
+    record of each part)."""
+    recs = bf16_flash_kernel_phase(gpu_name)
+    base = per_layer_lm_phase(gpu_name, PER_LAYER, time_f32=True)
+    for rec, n in zip(recs, base["amp"]["launches_per_step"]):
+        rec["launches"] = n
+    wide = per_layer_lm_phase(gpu_name, PER_LAYER_WIDE, time_f32=False)
+    return recs, {"transformer": base, "transformer_wide": wide}
+
+
 def main():
     import argparse
 
@@ -2911,6 +3446,10 @@ def main():
                              "(mixed precision: the bf16 kernels, ResNet-50 "
                              "training and serving, the LM); prints no ok "
                              "line")
+    parser.add_argument("--per-layer-only", action="store_true",
+                        help="build the kernels and run only phase 12 (the "
+                             "bf16 flash kernels and the per-layer LM in f32 "
+                             "and under AMP); prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -2948,6 +3487,16 @@ def main():
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_amp.json").write_text(json.dumps(
             {"gpu": smi, "kernels": recs, "amp": amp}, indent=1))
+        print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                      for r in recs]}))
+        print(smi)
+        return
+    if args.per_layer_only:
+        recs, per_layer = per_layer_phases(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_per_layer.json").write_text(json.dumps(
+            {"gpu": smi, "kernels": recs, "per_layer": per_layer}, indent=1))
         print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                       for r in recs]}))
         print(smi)
@@ -3008,7 +3557,9 @@ def main():
     del resnet, scope
     torch.cuda.empty_cache()
     amp_recs, amp = amp_phases(gpu)
-    records = [kern] + bwd + conv + amp_recs
+    torch.cuda.empty_cache()
+    per_layer_recs, per_layer = per_layer_phases(gpu)
+    records = [kern] + bwd + conv + amp_recs + per_layer_recs
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -3018,7 +3569,8 @@ def main():
          "training": training,
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference,
-         "attention_rewrite": attention, "amp": amp, "build_s": built},
+         "attention_rewrite": attention, "amp": amp,
+         "per_layer": per_layer, "build_s": built},
         indent=1))
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records]}))

@@ -125,11 +125,35 @@ def _fma(a, b, c):
     return (b.double() * a + c).float()
 
 
-def uniform(key, n, minval=0.0, maxval=1.0):
-    """``jax.random.uniform`` f32 of a draw per key (``n`` an int or a
-    shape, as ``random_bits``): floats * (max - min) + min as one fused
-    multiply-add, then at least min."""
+def _bf16(x):
+    """x rounded to bf16 (nearest even), carried as f32: one bf16 op's
+    rounding of its f32-exact result."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.bfloat16).float()
+    return float(torch.tensor(x, dtype=torch.float32, device="cpu")
+                 .to(torch.bfloat16))
+
+
+def uniform(key, n, minval=0.0, maxval=1.0, dtype=torch.float32):
+    """``jax.random.uniform`` of a draw per key (``n`` an int or a shape,
+    as ``random_bits``) in f32 or bf16.
+
+    f32: the bits' top 23 as a float in [1, 2) minus 1, then floats *
+    (max - min) + min as one fused multiply-add, then at least min.
+
+    bf16 (7 mantissa bits, fewer than 8): jax draws 8-bit words, the low
+    byte of each 32-bit word, and keeps their top 7 as the mantissa; every
+    step after is a bf16 op, each rounded to bf16 (min and max too), as
+    XLA's CPU backend computes them."""
     bits = random_bits(key, n)
+    if dtype == torch.bfloat16:
+        one = ((bits & 0xFF) >> 1) | 0x3F80  # 7 mantissa bits in [1, 2)
+        floats = one.to(torch.int16).view(torch.bfloat16).float() - 1.0
+        lo, hi = _bf16(minval), _bf16(maxval)
+        out = _bf16(_bf16(floats * _bf16(hi - lo)) + lo)
+        return torch.clamp(out, min=lo).to(torch.bfloat16)
+    if dtype != torch.float32:
+        raise TypeError(f"uniform draws float32 or bfloat16, not {dtype}")
     one = (bits >> 9) | 0x3F800000  # 23 random mantissa bits in [1, 2)
     floats = one.to(torch.int32).view(torch.float32) - 1.0
     lo = _f32(minval)
@@ -259,9 +283,15 @@ def erf(x):
 _SQRT2 = _f32(2.0 ** 0.5)
 
 
-def normal(key, shape):
-    """``jax.random.normal(key, shape, float32)``: sqrt(2) erf_inv(u), u
-    uniform on [nextafter(-1, 0), 1)."""
+def normal(key, shape, dtype=torch.float32):
+    """``jax.random.normal(key, shape, dtype)``: sqrt(2) erf_inv(u), u
+    uniform on [nextafter(-1, 0), 1) in the dtype. In bf16, XLA takes
+    erf_inv in f32 and rounds it, then multiplies by sqrt(2) rounded to
+    bf16 and rounds again."""
+    if dtype == torch.bfloat16:
+        u = uniform(key, shape, minval=-0.99609375, maxval=1.0,
+                    dtype=dtype).float()  # nextafter(-1, 0) in bf16
+        return _bf16(_bf16(2.0 ** 0.5) * _bf16(erf_inv(u))).to(dtype)
     lo = _f32(-0.99999994)  # nextafter(-1, 0) in f32
     return _SQRT2 * erf_inv(uniform(key, shape, minval=lo, maxval=1.0))
 
@@ -271,11 +301,23 @@ def _nextafter(x, toward):
     return float(torch.nextafter(f[0], f[1]))
 
 
-def truncated_normal(key, lower, upper, shape):
-    """``jax.random.truncated_normal(key, lower, upper, shape, float32)``
-    for scalar bounds: sqrt(2) erf_inv(u) for u uniform on
+def truncated_normal(key, lower, upper, shape, dtype=torch.float32):
+    """``jax.random.truncated_normal(key, lower, upper, shape, dtype)`` for
+    scalar bounds: sqrt(2) erf_inv(u) for u uniform on
     [erf(lower / sqrt 2), erf(upper / sqrt 2)), clipped to the open
-    interval (lower, upper)."""
+    interval (lower, upper). In bf16 every step is a bf16 op, rounded
+    (the bounds, sqrt(2), the quotients, erf and erf_inv taken in f32 and
+    rounded)."""
+    if dtype == torch.bfloat16:
+        lower, upper, sq2 = _bf16(lower), _bf16(upper), _bf16(2.0 ** 0.5)
+        b = torch.tensor([lower, upper], dtype=dtype, device="cpu")
+        ab = _bf16(erf(_bf16(b.float() / sq2)))
+        u = uniform(key, shape, minval=float(ab[0]), maxval=float(ab[1]),
+                    dtype=dtype).float()
+        out = _bf16(sq2 * _bf16(erf_inv(u)))
+        inf = torch.tensor([math.inf, -math.inf], dtype=dtype, device="cpu")
+        lo, hi = torch.nextafter(b, inf).tolist()
+        return torch.clamp(out, lo, hi).to(dtype)
     lower, upper = _f32(lower), _f32(upper)
     ab = erf(torch.tensor([lower, upper], dtype=torch.float32, device="cpu")
              / _SQRT2)

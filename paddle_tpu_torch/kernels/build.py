@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # every kernel source of the port, by library name
 SOURCES = {"flash_attention_fwd": CSRC / "flash_attention_fwd.cu",
            "flash_attention_bwd": CSRC / "flash_attention_bwd.cu",
+           "flash_attention_bf16": CSRC / "flash_attention_bf16.cu",
            "conv_epilogue": CSRC / "conv_epilogue.cu"}
 
 _lock = threading.Lock()

@@ -20,9 +20,9 @@
 // int32 -> dq [BH, Tq, D], dk/dv [BH, Tk, D]. D is 64 or 128: the
 // wrapper zero-pads any other D <= 128 up to one of them (zero columns
 // change no score and give zero gradient columns). Past 128 it pads D to
-// a multiple of 64 and the wide instances below run
-// (flash_bwd_{dq,dkv}_wide_kernel, flash_wide.cuh). Queries count from
-// position 0 for both Tq and Tk, as in the forward.
+// a multiple of 64 and the wide instances run
+// (flash_bwd_{dq,dkv}_wide_kernel<float>, flash_wide.cuh). Queries count
+// from position 0 for both Tq and Tk, as in the forward.
 //
 // Layout on the card, and why it differs from the TPU kernels:
 // - dq: one block of 8 warps per (bh, 128-row q tile). Each warp owns 16
@@ -407,178 +407,6 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// The wide instances (D > 128, a multiple of 64), on flash_wide.cuh's
-// tiles. dq: one block per (bh, 64-row q tile, 128-column slice of D)
-// walks the 64-key tiles up to the causal bound and the row's K length;
-// S and dP sum over D in 64-column chunks, dS goes to shared memory, and
-// dq's slice accumulates dS K over the tile's K slice. dkv: one block per
-// (bh, 64-row k tile, slice) walks the q tiles from the first one that
-// can see it, forming S^T = K Q^T and dP^T = V dO^T (keys are the rows a
-// thread owns), and accumulates dv += P^T dO and dk += dS^T Q over the
-// tile's dO and Q slices. The slices reuse the chunk tiles' space.
-__global__ void __launch_bounds__(wide::NT)
-    flash_bwd_dq_wide_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ di,
-                             const int* __restrict__ lens,
-                             float* __restrict__ dq, int Tq, int Tk, int Dp,
-                             int causal, float sm_scale) {
-  using namespace wide;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + CHUNK;
-  float* dos = ks + CHUNK;
-  float* vs = dos + CHUNK;
-  float* dss = vs + CHUNK;
-  float* kslice = smem;  // over Q's and K's chunk tiles
-  const int bh = blockIdx.x, q0 = blockIdx.y * BT, s0 = blockIdx.z * DS;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t qoff = (size_t)bh * Tq * Dp, koff = (size_t)bh * Tk * Dp;
-  const int klen = min(max(lens[bh], 0), Tk);
-  const int kend = causal ? min(klen, q0 + BT) : klen;
-  float lse_r[4], di_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    lse_r[i] = row < Tq ? lse[(size_t)bh * Tq + row] : INFINITY;
-    di_r[i] = row < Tq ? di[(size_t)bh * Tq + row] : 0.f;
-  }
-  float acc[4][8] = {};
-  for (int k0 = 0; k0 < kend; k0 += BT) {
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int d0 = 0; d0 < Dp; d0 += DC) {
-      __syncthreads();
-      load_chunk(qs, q + qoff, q0, Tq, Dp, d0);
-      load_chunk(ks, k + koff, k0, Tk, Dp, d0);
-      load_chunk(dos, dout + qoff, q0, Tq, Dp, d0);
-      load_chunk(vs, v + koff, k0, Tk, Dp, d0);
-      __syncthreads();
-      chunk_product(s, qs, ks, ty, tx);
-      chunk_product(dp, dos, vs, ty, tx);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < klen && (!causal || col <= row);
-        const float p = ok ? expf(s[i][j] * sm_scale - lse_r[i]) : 0.f;
-        dss[(ty * 4 + i) * LD + tx + 16 * j] = p * (dp[i][j] - di_r[i]);
-      }
-    }
-    __syncthreads();
-    load_slice(kslice, k + koff, k0, Tk, Dp, s0);
-    __syncthreads();
-    slice_product(acc, dss, kslice, ty, tx);
-  }
-  store_slice(dq + qoff, acc, sm_scale, q0, Tq, Dp, s0, ty, tx);
-}
-
-__global__ void __launch_bounds__(wide::NT)
-    flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
-                              const float* __restrict__ k,
-                              const float* __restrict__ v,
-                              const float* __restrict__ dout,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ di,
-                              const int* __restrict__ lens,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              int Tq, int Tk, int Dp, int causal,
-                              float sm_scale) {
-  using namespace wide;
-  extern __shared__ __align__(16) float smem[];
-  float* ks = smem;
-  float* qs = ks + CHUNK;
-  float* vs = qs + CHUNK;
-  float* dos = vs + CHUNK;
-  float* pts = dos + CHUNK;
-  float* dsts = pts + CHUNK;
-  float* qslice = smem;           // over the four chunk tiles
-  float* doslice = smem + SLICE;  // (2 SLICE <= 4 CHUNK)
-  const int bh = blockIdx.x, k0 = blockIdx.y * BT, s0 = blockIdx.z * DS;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const size_t qoff = (size_t)bh * Tq * Dp, koff = (size_t)bh * Tk * Dp;
-  const int klen = min(max(lens[bh], 0), Tk);
-  float acc_dk[4][8] = {}, acc_dv[4][8] = {};
-  // no q tile sees a k tile past the row's length; under causal masking
-  // the first q tile that sees this one starts at q_pos = k0
-  const int qbegin = k0 < klen ? (causal ? k0 : 0) : Tq;
-  for (int q0 = qbegin; q0 < Tq; q0 += BT) {
-    float st[4][4] = {}, dpt[4][4] = {};
-    for (int d0 = 0; d0 < Dp; d0 += DC) {
-      __syncthreads();
-      load_chunk(ks, k + koff, k0, Tk, Dp, d0);
-      load_chunk(qs, q + qoff, q0, Tq, Dp, d0);
-      load_chunk(vs, v + koff, k0, Tk, Dp, d0);
-      load_chunk(dos, dout + qoff, q0, Tq, Dp, d0);
-      __syncthreads();
-      chunk_product(st, ks, qs, ty, tx);
-      chunk_product(dpt, vs, dos, ty, tx);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qrow = q0 + tx + 16 * j;
-      const float lse_c =
-          qrow < Tq ? lse[(size_t)bh * Tq + qrow] : INFINITY;
-      const float di_c = qrow < Tq ? di[(size_t)bh * Tq + qrow] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + ty * 4 + i;
-        const bool ok =
-            key < klen && qrow < Tq && (!causal || key <= qrow);
-        const float p = ok ? expf(st[i][j] * sm_scale - lse_c) : 0.f;
-        pts[(ty * 4 + i) * LD + tx + 16 * j] = p;
-        dsts[(ty * 4 + i) * LD + tx + 16 * j] = p * (dpt[i][j] - di_c);
-      }
-    }
-    __syncthreads();
-    load_slice(qslice, q + qoff, q0, Tq, Dp, s0);
-    load_slice(doslice, dout + qoff, q0, Tq, Dp, s0);
-    __syncthreads();
-    slice_product(acc_dv, pts, doslice, ty, tx);
-    slice_product(acc_dk, dsts, qslice, ty, tx);
-  }
-  store_slice(dk + koff, acc_dk, sm_scale, k0, Tk, Dp, s0, ty, tx);
-  store_slice(dv + koff, acc_dv, 1.f, k0, Tk, Dp, s0, ty, tx);
-}
-
-constexpr int WIDE_DQ_BYTES = 5 * wide::CHUNK * 4;
-constexpr int WIDE_DKV_BYTES = 6 * wide::CHUNK * 4;
-
-cudaError_t launch_dq_wide(const float* q, const float* k, const float* v,
-                           const float* dout, const float* lse,
-                           const float* di, const int* lens, float* dq,
-                           int BH, int Tq, int Tk, int Dp, int causal,
-                           float sm_scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      WIDE_DQ_BYTES);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_wide_kernel<<<wide::grid(BH, Tq, Dp), wide::NT, WIDE_DQ_BYTES,
-                             stream>>>(q, k, v, dout, lse, di, lens, dq, Tq,
-                                       Tk, Dp, causal, sm_scale);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_dkv_wide(const float* q, const float* k, const float* v,
-                            const float* dout, const float* lse,
-                            const float* di, const int* lens, float* dk,
-                            float* dv, int BH, int Tq, int Tk, int Dp,
-                            int causal, float sm_scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      WIDE_DKV_BYTES);
-  if (err != cudaSuccess) return err;
-  flash_bwd_dkv_wide_kernel<<<wide::grid(BH, Tk, Dp), wide::NT,
-                              WIDE_DKV_BYTES, stream>>>(
-      q, k, v, dout, lse, di, lens, dk, dv, Tq, Tk, Dp, causal, sm_scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes). All pointers are device
@@ -600,8 +428,8 @@ extern "C" int paddle_flash_attention_bwd_dq_f32(
                                  causal, sm_scale, s);
     default:
       if (D > 128 && D % wide::DC == 0)
-        return (int)launch_dq_wide(q, k, v, dout, lse, di, lens, dq, BH, Tq,
-                                   Tk, D, causal, sm_scale, s);
+        return (int)launch_dq_wide<float>(q, k, v, dout, lse, di, lens, dq,
+                                          BH, Tq, Tk, D, causal, sm_scale, s);
       return (int)cudaErrorInvalidValue;
   }
 }
@@ -621,8 +449,9 @@ extern "C" int paddle_flash_attention_bwd_dkv_f32(
                                   Tq, Tk, causal, sm_scale, s);
     default:
       if (D > 128 && D % wide::DC == 0)
-        return (int)launch_dkv_wide(q, k, v, dout, lse, di, lens, dk, dv, BH,
-                                    Tq, Tk, D, causal, sm_scale, s);
+        return (int)launch_dkv_wide<float>(q, k, v, dout, lse, di, lens, dk,
+                                           dv, BH, Tq, Tk, D, causal,
+                                           sm_scale, s);
       return (int)cudaErrorInvalidValue;
   }
 }
@@ -637,7 +466,7 @@ extern "C" int paddle_flash_attention_bwd_smem_bytes(int dkv, int D) {
       return dkv ? Smem<128>::DKV_BYTES : Smem<128>::DQ_BYTES;
     default:
       if (D > 128 && D % wide::DC == 0)
-        return dkv ? WIDE_DKV_BYTES : WIDE_DQ_BYTES;
+        return dkv ? wide::DKV_BYTES : wide::DQ_BYTES;
       return -1;
   }
 }

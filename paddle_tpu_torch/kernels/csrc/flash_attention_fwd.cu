@@ -14,7 +14,7 @@
 // lse [BH, Tq] f32. D is 64 or 128: the wrapper zero-pads any other
 // D <= 128 up to one of them (zero columns change no score and give zero
 // output columns). Past 128 it pads D to a multiple of 64 and the wide
-// instance below runs (flash_fwd_wide_kernel, flash_wide.cuh). The
+// instance runs (flash_fwd_wide_kernel<float>, flash_wide.cuh). The
 // denominator is max(l, 1e-30).
 //
 // Layout on the card, and why it differs from the TPU kernel:
@@ -349,117 +349,6 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// The wide instance (D > 128, a multiple of 64): one block of 256 threads
-// per (bh, 64-row q tile, 128-column slice of D). It walks 64-key tiles up
-// to the causal bound and the row's K length; S sums over D in 64-column
-// chunks (flash_wide.cuh), the online softmax runs as in the instances
-// above, and O's slice accumulates P V over the tile's V slice. Every
-// slice computes the same S, max and sum in the same order, so slice 0
-// alone writes lse. Shared memory: the Q and K chunk tiles, then P; the V
-// slice reuses the chunk tiles' space once S is formed.
-__global__ void __launch_bounds__(wide::NT)
-    flash_fwd_wide_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const int* __restrict__ lens, float* __restrict__ o,
-                          float* __restrict__ lse, int Tq, int Tk, int Dp,
-                          int causal, float sm_scale) {
-  using namespace wide;
-  extern __shared__ __align__(16) float wide_smem[];
-  float* qs = wide_smem;
-  float* ks = qs + CHUNK;
-  float* ps = ks + CHUNK;
-  float* vs = wide_smem;  // the V slice over the chunk tiles
-  const int bh = blockIdx.x, q0 = blockIdx.y * BT, s0 = blockIdx.z * DS;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const float* qb = q + (size_t)bh * Tq * Dp;
-  const float* kb = k + (size_t)bh * Tk * Dp;
-  const float* vb = v + (size_t)bh * Tk * Dp;
-  const int klen = min(max(lens[bh], 0), Tk);
-  const int kend = causal ? min(klen, q0 + BT) : klen;
-
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
-  }
-  for (int k0 = 0; k0 < kend; k0 += BT) {
-    float s[4][4] = {};
-    for (int d0 = 0; d0 < Dp; d0 += DC) {
-      __syncthreads();  // the last tile's readers of these tiles are done
-      load_chunk(qs, qb, q0, Tq, Dp, d0);
-      load_chunk(ks, kb, k0, Tk, Dp, d0);
-      __syncthreads();
-      chunk_product(s, qs, ks, ty, tx);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < klen && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] * sm_scale : -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float mnew = fmaxf(m[i], row_max(mt));
-      const bool live = mnew != -INFINITY;
-      const float alpha = live ? expf(m[i] - mnew) : 1.f;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = live ? expf(s[i][j] - mnew) : 0.f;
-        ps[(ty * 4 + i) * LD + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = mnew;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();  // S's chunk tiles are free, P is complete
-    load_slice(vs, vb, k0, Tk, Dp, s0);
-    __syncthreads();
-    slice_product(acc, ps, vs, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] *= inv;
-  }
-  store_slice(o + (size_t)bh * Tq * Dp, acc, 1.f, q0, Tq, Dp, s0, ty, tx);
-  if (blockIdx.z == 0 && tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      if (row < Tq)
-        lse[(size_t)bh * Tq + row] =
-            l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-30f)) : INFINITY;
-    }
-  }
-}
-
-constexpr int WIDE_BYTES = 3 * wide::CHUNK * 4;
-
-cudaError_t launch_wide(const float* q, const float* k, const float* v,
-                        const int* lens, float* o, float* lse, int BH, int Tq,
-                        int Tk, int Dp, int causal, float sm_scale,
-                        cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      WIDE_BYTES);
-  if (err != cudaSuccess) return err;
-  flash_fwd_wide_kernel<<<wide::grid(BH, Tq, Dp), wide::NT, WIDE_BYTES,
-                          stream>>>(q, k, v, lens, o, lse, Tq, Tk, Dp,
-                                    causal, sm_scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // Plain C entry point (bound with ctypes). All pointers are device
@@ -481,8 +370,8 @@ extern "C" int paddle_flash_attention_fwd_f32(
                               sm_scale, s);
     default:
       if (D > 128 && D % wide::DC == 0)
-        return (int)launch_wide(q, k, v, lens, o, lse, BH, Tq, Tk, D, causal,
-                                sm_scale, s);
+        return (int)launch_fwd_wide<float>(q, k, v, lens, o, lse, BH, Tq, Tk,
+                                           D, causal, sm_scale, s);
       return (int)cudaErrorInvalidValue;
   }
 }
@@ -496,7 +385,7 @@ extern "C" int paddle_flash_attention_fwd_smem_bytes(int D) {
     case 128:
       return Tile<128>::BYTES;
     default:
-      return D > 128 && D % wide::DC == 0 ? WIDE_BYTES : -1;
+      return D > 128 && D % wide::DC == 0 ? wide::FWD_BYTES : -1;
   }
 }
 

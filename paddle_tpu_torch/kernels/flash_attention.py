@@ -20,8 +20,14 @@ What bounds them on the H100: at the serving prefill shape (B8 H16 T1024
 D64) the forward does ~17 GFLOP on ~134 MB, and at the training shape
 (B8 H8 T2048 D128) dq and dkv do 103 and 137 GFLOP on ~0.4 GB, all far
 above the card's FLOP:byte ridge, so every kernel is bound by
-operations. The path is f32 (``_attn_proj`` casts qkv back to the hidden
-dtype). All three kernels run every product on the tensor cores as 3xTF32
+operations. Each kernel has an f32 instance and a bf16 one. The stacked
+transformer and the serving paths hand them f32 (``_attn_proj`` casts
+qkv back to the hidden dtype, as the JAX op does); the per-layer
+transformer under AMP hands them bf16 q/k/v, and the bf16 instances
+(``csrc/flash_attention_bf16.cu``: ``mma.sync.m16n8k16`` with bf16
+operands, f32 accumulators and softmax, P and dS rounded to bf16 before
+their products, outputs rounded once, as the Pallas kernels round) take
+them. The f32 kernels run every product on the tensor cores as 3xTF32
 (each operand split into two tf32 parts, three products summed in f32:
 f32 accuracy at up to 165 TFLOP/s): the forward's S = QK^T on ``wgmma``
 from shared memory, every other product on ``mma.sync``, fed by
@@ -44,10 +50,14 @@ is the grid's x axis).
 wrapper dispatches on the tensor's device: a CPU tensor runs the plain
 version (``flash_attention_reference``,
 ``flash_attention_backward_reference``, with the kernels' exact edge
-semantics), a meta tensor (build-time shape inference) runs it too and
-computes nothing, and a CUDA tensor launches the kernel or raises.
-``flash_attention.launches``, ``flash_backward.dq_launches`` and
-``flash_backward.dkv_launches`` count the launches.
+semantics and, on bf16 inputs, the Pallas kernels' rounding), a meta
+tensor (build-time shape inference) runs it too and computes nothing,
+and a CUDA tensor launches the kernel of its dtype or raises (a mix of
+dtypes raises). ``flash_attention.launches``,
+``flash_backward.dq_launches`` and ``flash_backward.dkv_launches`` count
+the f32 launches, ``flash_attention.bf16_launches``,
+``flash_backward.dq_bf16_launches`` and
+``flash_backward.dkv_bf16_launches`` the bf16 ones.
 """
 from __future__ import annotations
 
@@ -58,6 +68,7 @@ import torch
 
 _LIB = "flash_attention_fwd"
 _LIB_BWD = "flash_attention_bwd"
+_LIB_BF16 = "flash_attention_bf16"
 
 
 def rotary(x, pos0=0, base=10000.0):
@@ -136,23 +147,39 @@ def flash_attention_reference(q, k, v, lengths=None, causal=False,
     with the TPU kernel's edge semantics. Rows attend keys k_pos <
     lengths[b] (and k_pos <= q_pos when causal, queries counted from 0);
     a fully masked row gives o = 0 and lse = +inf, and the softmax
-    denominator is max(l, 1e-30)."""
+    denominator is max(l, 1e-30). On bf16 inputs it rounds where the
+    Pallas kernel does: S and the sums in f32, P rounded to bf16 before
+    P V, o rounded once."""
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     Tq, Tk = q.shape[2], k.shape[2]
     dev = q.device
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    s = _scores(q, k, sm_scale)
     mask = _mask(Tq, Tk, lengths, causal, dev)
     s = s.masked_fill(~mask, -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(s - m_safe).masked_fill(~mask, 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v).float()
+    o = torch.einsum("bhqk,bhkd->bhqd", _rounded(p, v.dtype), v.float())
     o = (o / torch.clamp(l, min=1e-30)).to(q.dtype)
     lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-30)),
                       torch.full_like(l, math.inf))
     return o, lse[..., 0]
+
+
+def _scores(q, k, sm_scale):
+    """S = q k^T * sm_scale in f32 from the operands as they are (bf16
+    products are exact in f32): the Pallas kernels' ``dot_general`` with
+    ``preferred_element_type=f32``."""
+    return torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+
+
+def _rounded(x, dtype):
+    """f32 ``x`` rounded to the operands' dtype and widened again: the
+    Pallas kernels' ``p.astype(v.dtype)`` (and dS's) before a product
+    that accumulates in f32. A no-op in f32."""
+    return x.to(dtype).float()
 
 
 def _mask(Tq, Tk, lengths, causal, dev):
@@ -173,7 +200,7 @@ def _p_ds(q, k, v, lse, di, do, lengths, causal, sm_scale):
     """P and dS of the backward kernels over the full [Tq, Tk] square:
     ``p = where(mask, exp(s - lse), 0)`` and ``ds = p * (dO v^T - Di)``."""
     mask = _mask(q.shape[2], k.shape[2], lengths, causal, q.device)
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+    s = _scores(q, k, sm_scale)
     p = torch.where(mask, torch.exp(s - lse[..., None]),
                     torch.zeros((), dtype=s.dtype, device=s.device))
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
@@ -187,7 +214,8 @@ def flash_dq_reference(q, k, v, lse, di, do, lengths=None, causal=False,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     _, ds = _p_ds(q, k, v, lse, di, do, lengths, causal, sm_scale)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * sm_scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", _rounded(ds, k.dtype),
+                      k.float()) * sm_scale
     return dq.to(q.dtype)
 
 
@@ -198,8 +226,9 @@ def flash_dkv_reference(q, k, v, lse, di, do, lengths=None, causal=False,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     p, ds = _p_ds(q, k, v, lse, di, do, lengths, causal, sm_scale)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * sm_scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", _rounded(ds, q.dtype),
+                      q.float()) * sm_scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", _rounded(p, do.dtype), do.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -215,7 +244,9 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, lengths=None,
     forward, with P recomputed from ``lse`` [B, H, Tq] exactly as the
     Pallas bodies do, ``p = where(mask, exp(s - lse), 0)``. A fully
     masked row has lse = +inf, so its P is 0 and it contributes nothing
-    (never ``inf - inf``)."""
+    (never ``inf - inf``). On bf16 inputs S, dP, Di and the sums stay
+    f32, P and dS are rounded to bf16 before the products that take
+    them, and dq, dk, dv are rounded once, as in the Pallas kernels."""
     di = _row_dot(do, o)
     dq = flash_dq_reference(q, k, v, lse, di, do, lengths, causal, sm_scale)
     dk, dv = flash_dkv_reference(q, k, v, lse, di, do, lengths, causal,
@@ -292,22 +323,18 @@ def _at_kernel_head_dim(fn, *tensors):
 
 def _check_kernel_inputs(q, k, v, *more):
     """What every flash kernel takes, checked before anything is built:
-    f32 [B, H, T, D] q/k/v (any D >= 1) with K/V heads expanded, on one
-    device; ``more`` are tensors that must match q's shape (o, dO)."""
+    [B, H, T, D] q/k/v all f32 or all bf16 (any D >= 1) with K/V heads
+    expanded, on one device; ``more`` are tensors that must match q's
+    shape and dtype (o, dO)."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     max_t = _max_t(_kernel_head_dim(D))
     tensors = (q, k, v) + more
-    if any(t.dtype != torch.float32 for t in tensors):
-        # the Pallas kernels take the AMP dtype too; no path of the port
-        # hands them bf16 yet (the stacked transformer casts q/k/v back to
-        # f32, as the JAX op does)
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) > 1 or dtypes - {torch.float32, torch.bfloat16}:
         raise TypeError(
-            "flash kernel takes float32 tensors, got "
-            + ", ".join(str(t.dtype) for t in tensors)
-            + "; its bf16 instances are still to port (ROADMAP.md Queue 2, "
-            "the flash trio's bf16 rows: reached by the per-layer path's "
-            "scaled_dot_product_attention under AMP, Queue 1 item 6)")
+            "flash kernels take q, k, v (and o, dO) all float32 or all "
+            "bfloat16, got " + ", ".join(str(t.dtype) for t in tensors))
     if k.shape != (B, H, Tk, D) or v.shape != k.shape:
         raise ValueError(f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do "
                          f"not match q {tuple(q.shape)} (expand GQA heads "
@@ -345,10 +372,27 @@ def _launch(q, k, v, lengths, causal, sm_scale):
         q, k, v)
 
 
+# each dtype's kernel instances: (forward library, backward library,
+# entry-point suffix, launch-counter suffix). The f32 (3xTF32) instances
+# count ``flash_attention.launches`` and ``flash_backward.dq_launches``/
+# ``.dkv_launches``; the bf16 ones (``csrc/flash_attention_bf16.cu``) the
+# same names with ``bf16_`` before ``launches``.
+_INSTANCES = {
+    torch.float32: (_LIB, _LIB_BWD, "f32", "launches"),
+    torch.bfloat16: (_LIB_BF16, _LIB_BF16, "bf16", "bf16_launches"),
+}
+
+
+def _count(fn, counter):
+    """One more launch on ``fn``'s counter ``counter``."""
+    setattr(fn, counter, getattr(fn, counter) + 1)
+
+
 def _launch_fwd(q, k, v, lengths, causal, sm_scale):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    lib, fn = _bind(_LIB, "paddle_flash_attention_fwd_f32", 6)
+    fwd_lib, _, suffix, counter = _INSTANCES[q.dtype]
+    lib, fn = _bind(fwd_lib, f"paddle_flash_attention_fwd_{suffix}", 6)
     dev = q.device
     lens_bh = _lens_bh(lengths, B, H, Tk, dev)
     q3, k3, v3 = (_aligned(t) for t in (q, k, v))
@@ -361,7 +405,7 @@ def _launch_fwd(q, k, v, lengths, causal, sm_scale):
                  B * H, Tq, Tk, D, int(bool(causal)), float(sm_scale),
                  stream)
     _raise_on(lib, err, "flash_attention_fwd")
-    flash_attention.launches += 1
+    _count(flash_attention, counter)
     return o, lse
 
 
@@ -374,13 +418,15 @@ def _check_backward_inputs(q, k, v, lse, di, do):
                              f"got {t.dtype} {tuple(t.shape)}")
 
 
-def _launch_bwd(fn_name, n_ptrs, outs, q, k, v, lse, di, do, lengths,
-                causal, sm_scale):
-    """Launch one backward kernel on the current stream, writing
-    ``outs``."""
+def _launch_bwd(kind, outs, q, k, v, lse, di, do, lengths, causal,
+                sm_scale):
+    """Launch the backward kernel ``kind`` ("dq" or "dkv") of q's dtype on
+    the current stream, writing ``outs``."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    lib, fn = _bind(_LIB_BWD, fn_name, n_ptrs)
+    _, bwd_lib, suffix, _ = _INSTANCES[q.dtype]
+    fn_name = f"paddle_flash_attention_bwd_{kind}_{suffix}"
+    lib, fn = _bind(bwd_lib, fn_name, 7 + len(outs))
     dev = q.device
     lens_bh = _lens_bh(lengths, B, H, Tk, dev)
     q3, k3, v3, do3 = (_aligned(t) for t in (q, k, v, do))
@@ -399,9 +445,9 @@ def _launch_dq(q, k, v, lse, di, do, lengths, causal, sm_scale):
 
     def launch(q, k, v, do):
         dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-        _launch_bwd("paddle_flash_attention_bwd_dq_f32", 8, (dq,), q, k, v,
-                    lse, di, do, lengths, causal, sm_scale)
-        flash_backward.dq_launches += 1
+        _launch_bwd("dq", (dq,), q, k, v, lse, di, do, lengths, causal,
+                    sm_scale)
+        _count(flash_backward, "dq_" + _INSTANCES[q.dtype][3])
         return dq
 
     return _at_kernel_head_dim(launch, q, k, v, do)
@@ -413,9 +459,9 @@ def _launch_dkv(q, k, v, lse, di, do, lengths, causal, sm_scale):
     def launch(q, k, v, do):
         dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
         dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-        _launch_bwd("paddle_flash_attention_bwd_dkv_f32", 9, (dk, dv), q, k,
-                    v, lse, di, do, lengths, causal, sm_scale)
-        flash_backward.dkv_launches += 1
+        _launch_bwd("dkv", (dk, dv), q, k, v, lse, di, do, lengths, causal,
+                    sm_scale)
+        _count(flash_backward, "dkv_" + _INSTANCES[q.dtype][3])
         return dk, dv
 
     return _at_kernel_head_dim(launch, q, k, v, do)
@@ -498,6 +544,8 @@ def flash_backward(q, k, v, o, lse, do, lengths=None, causal=False,
 
 flash_backward.dq_launches = 0
 flash_backward.dkv_launches = 0
+flash_backward.dq_bf16_launches = 0
+flash_backward.dkv_bf16_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -538,3 +586,4 @@ def flash_attention(q, k, v, lengths=None, causal=False, sm_scale=None):
 
 
 flash_attention.launches = 0
+flash_attention.bf16_launches = 0

@@ -1,7 +1,8 @@
 """Core NN layers. Counterpart of ``paddle_tpu/layers/nn.py``, cut to
 what the training slices build: ``fc``, ``embedding`` (dense),
 ``conv2d``, ``pool2d``, ``batch_norm``, the fused ``conv1x1_bn_act``,
-``layer_norm`` and ``softmax_with_cross_entropy``."""
+``layer_norm``, ``rms_norm``, ``dropout`` and
+``softmax_with_cross_entropy``."""
 from __future__ import annotations
 
 import math
@@ -235,6 +236,30 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
         inputs["Bias"] = [b]
     outs, _ = helper.append_op("layer_norm", inputs,
                                ["Y", "Mean", "Variance"],
+                               {"epsilon": epsilon,
+                                "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(outs["Y"][0], act)
+
+
+def rms_norm(input, scale=True, shift=False, begin_norm_axis=1,
+             epsilon=1e-6, param_attr=None, bias_attr=None, act=None,
+             main_program=None, startup_program=None):
+    """RMSNorm: a learned scale and no shift by default (the modern LM
+    convention)."""
+    helper = LayerHelper("rms_norm", main_program=main_program,
+                         startup_program=startup_program)
+    norm_shape = [math.prod(input.shape[begin_norm_axis:])]
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            param_attr, shape=norm_shape, dtype="float32",
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(bias_attr, shape=norm_shape,
+                                    dtype="float32", is_bias=True)
+        inputs["Bias"] = [b]
+    outs, _ = helper.append_op("rms_norm", inputs, ["Y", "InvRms"],
                                {"epsilon": epsilon,
                                 "begin_norm_axis": begin_norm_axis})
     return helper.append_activation(outs["Y"][0], act)

@@ -1,5 +1,6 @@
 """Tensor layers. Counterpart of ``paddle_tpu/layers/tensor.py``, cut to
-what the training slices and primitive attention programs build."""
+what the training slices, the per-layer transformer and primitive
+attention programs build."""
 from __future__ import annotations
 
 from ..core.types import dtype_name
@@ -51,6 +52,23 @@ def mean(x, main_program=None, startup_program=None):
 def reshape(x, shape, main_program=None, startup_program=None):
     h = _helper("reshape", main_program, startup_program)
     return h.simple_op("reshape", {"X": [x]}, {"shape": list(shape)})
+
+
+def transpose(x, perm, main_program=None, startup_program=None):
+    h = _helper("transpose", main_program, startup_program)
+    return h.simple_op("transpose", {"X": [x]}, {"axis": list(perm)})
+
+
+def split(x, num_or_sections, dim=0, main_program=None, startup_program=None):
+    """A list of Variables: ``x`` cut along ``dim`` into ``num_or_sections``
+    equal parts (an int) or parts of those sizes (a list)."""
+    h = _helper("split", main_program, startup_program)
+    if isinstance(num_or_sections, int):
+        attrs = {"num": num_or_sections, "axis": dim}
+    else:
+        attrs = {"sections": list(num_or_sections), "axis": dim}
+    outs, _ = h.append_op("split", {"X": [x]}, ["Out"], attrs)
+    return outs["Out"]
 
 
 def scale(x, scale=1.0, bias=0.0, main_program=None, startup_program=None):

@@ -1,18 +1,20 @@
 """Transformer language model (decoder-only, causal).
 
-Counterpart of ``paddle_tpu/models/transformer.py`` for the stacked-weight
-LM (``transformer_lm(pipeline_stack=True)``), in two forms:
+Counterpart of ``paddle_tpu/models/transformer.py``:
 
-- ``transformer_lm`` builds it into a Program with the port's ``layers``,
-  for training through ``Optimizer.minimize`` and ``Executor``;
-- :class:`TransformerLM` holds its weights for serving.
+- ``transformer_lm`` builds the LM into a Program with the port's
+  ``layers``, for training through ``Optimizer.minimize`` and
+  ``Executor``: per layer (``transformer_encoder_layer`` blocks, the
+  model the JAX package's benchmark trains) or stacked (one
+  ``pipelined_transformer_stack`` op);
+- :class:`TransformerLM` holds the stacked LM's weights for serving.
 
-Both use the JAX package's parameter names (``tok_emb``, ``pos_emb``,
-``lm_stack.stack_*``, ``final_ln.scale``, ``final_ln.bias``,
-``lm_head.w``) and layout ([in, out] matrices applied as ``x @ W``, a
-leading [L] layer axis on the block weights), so a trained scope's
-values, or a JAX scope's, load into :class:`TransformerLM` by name with
-:meth:`load_jax_params`.
+The stacked form and :class:`TransformerLM` use the JAX package's
+parameter names (``tok_emb``, ``pos_emb``, ``lm_stack.stack_*``,
+``final_ln.scale``, ``final_ln.bias``, ``lm_head.w``) and layout ([in,
+out] matrices applied as ``x @ W``, a leading [L] layer axis on the
+block weights), so a trained scope's values, or a JAX scope's, load into
+:class:`TransformerLM` by name with :meth:`load_jax_params`.
 """
 from __future__ import annotations
 
@@ -37,22 +39,28 @@ def transformer_lm(ids, vocab_size, d_model=256, n_layers=4, num_heads=8,
     """ids [b, T] int64 -> logits [b, T, vocab]: pre-LN GPT-style blocks,
     a learned positional embedding (or RoPE), an untied output head.
 
-    The port builds the stacked form (``pipeline_stack=True``: one
-    ``pipelined_transformer_stack`` op over [L, ...] weights). The
-    per-layer form, other norms and a headless model are later slices."""
-    if not pipeline_stack:
-        raise NotImplementedError(
-            "transformer_lm(pipeline_stack=False) (the per-layer "
-            "transformer_encoder_layer stack) is not ported to "
-            "paddle_tpu_torch yet: it lands with the per-layer transformer "
-            "training slice; pass pipeline_stack=True")
-    if norm_type != "layer_norm":
+    ``pipeline_stack=False`` (the default, the model the JAX package's
+    benchmark trains) builds ``n_layers`` ``transformer_encoder_layer``
+    blocks, about ten ops each; ``pipeline_stack=True`` one
+    ``pipelined_transformer_stack`` op over [L, ...] weights under fixed
+    names the serving engines rejoin. ``remat`` (recompute segments) and
+    a headless model (``include_head=False``, for
+    ``fused_head_cross_entropy``) are not ported yet."""
+    # validate before building anything: a raise must not leave orphan
+    # embedding ops or parameters in the caller's program
+    if pipeline_stack and norm_type != "layer_norm":
         raise ValueError(
             "pipeline_stack=True supports norm_type='layer_norm' only")
     if not include_head:
-        raise ValueError(
-            "pipeline_stack=True requires include_head=True: the serving "
-            "siblings rejoin the trained head by its fixed name (lm_head.w)")
+        raise NotImplementedError(
+            "transformer_lm(include_head=False) feeds "
+            "fused_head_cross_entropy, which is not ported to "
+            "paddle_tpu_torch yet (ROADMAP.md Queue 1 item 6)")
+    if remat and not pipeline_stack:
+        raise NotImplementedError(
+            "transformer_lm(remat=True) (one recompute segment per block) "
+            "is not ported to paddle_tpu_torch yet: recompute segments are "
+            "ROADMAP.md Queue 1 item 4")
     kw = dict(main_program=main_program, startup_program=startup_program)
     d_ff = d_ff or 4 * d_model
     tok = layers.embedding(ids, size=[vocab_size, d_model],
@@ -70,23 +78,35 @@ def transformer_lm(ids, vocab_size, d_model=256, n_layers=4, num_heads=8,
                                {"axes": [0], "starts": [0], "ends": [T]})
         x = helper.simple_op("elementwise_add", {"X": [tok], "Y": [pos]})
         x.seq_len = tok.seq_len
-    if "lm_stack.stack_qkv_w" in helper.main_program.global_block.vars:
-        raise ValueError(
-            "transformer_lm(pipeline_stack=True) may be built only once per "
-            "program: its parameter names (lm_stack.*, final_ln.*, "
-            "lm_head.w) are fixed, and a second stacked LM in the same "
-            "program would silently share weights")
-    x = layers.pipelined_transformer_stack(
-        x, n_layers=n_layers, num_heads=num_heads, d_ff=d_ff,
-        num_kv_heads=num_kv_heads, use_rope=use_rope, causal=True,
-        n_microbatches=n_microbatches, remat=remat,
-        param_attr=ParamAttr(name="lm_stack"), **kw)
-    x = layers.layer_norm(x, begin_norm_axis=2,
-                          param_attr=ParamAttr(name="final_ln.scale"),
-                          bias_attr=ParamAttr(name="final_ln.bias"), **kw)
+    ln_attr = ln_bias = head_attr = None
+    if pipeline_stack:
+        if "lm_stack.stack_qkv_w" in helper.main_program.global_block.vars:
+            raise ValueError(
+                "transformer_lm(pipeline_stack=True) may be built only once "
+                "per program: its parameter names (lm_stack.*, final_ln.*, "
+                "lm_head.w) are fixed, and a second stacked LM in the same "
+                "program would silently share weights")
+        x = layers.pipelined_transformer_stack(
+            x, n_layers=n_layers, num_heads=num_heads, d_ff=d_ff,
+            num_kv_heads=num_kv_heads, use_rope=use_rope, causal=True,
+            n_microbatches=n_microbatches, remat=remat,
+            param_attr=ParamAttr(name="lm_stack"), **kw)
+        ln_attr = ParamAttr(name="final_ln.scale")
+        ln_bias = ParamAttr(name="final_ln.bias")
+        head_attr = ParamAttr(name="lm_head.w")
+    else:
+        for _ in range(n_layers):
+            x = layers.transformer_encoder_layer(
+                x, num_heads=num_heads, d_ff=d_ff,
+                num_kv_heads=num_kv_heads, use_rope=use_rope, causal=True,
+                norm_type=norm_type, **kw)
+    if norm_type == "rms_norm":
+        x = layers.rms_norm(x, begin_norm_axis=2, **kw)
+    else:
+        x = layers.layer_norm(x, begin_norm_axis=2, param_attr=ln_attr,
+                              bias_attr=ln_bias, **kw)
     return layers.fc(x, size=vocab_size, num_flatten_dims=2,
-                     param_attr=ParamAttr(name="lm_head.w"),
-                     bias_attr=False, **kw)
+                     param_attr=head_attr, bias_attr=False, **kw)
 
 
 def param_shapes(spec) -> Dict[str, tuple]:

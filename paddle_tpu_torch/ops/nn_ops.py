@@ -1,7 +1,7 @@
 """Neural-net structural ops. Counterpart of ``paddle_tpu/ops/nn_ops.py``,
-cut to ``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm`` and
-``dropout``, the norms with their hand-written backwards (the JAX package's grad_fns:
-they read the forward's saved statistics instead of keeping an x-hat of
+cut to ``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm``,
+``rms_norm`` and ``dropout``, the norms with their hand-written backwards
+(the JAX package's grad_fns: they read the forward's saved statistics instead of keeping an x-hat of
 every activation alive for a generic vjp).
 
 Layout: the ops take the JAX package's ``data_format`` attr, NCHW (OIHW
@@ -375,6 +375,77 @@ def layer_norm(attrs, ins):
         "Mean": [mean.reshape(x.shape[:begin])],
         "Variance": [var.reshape(x.shape[:begin])],
     }
+
+
+# --- rms_norm -------------------------------------------------------------------
+def _rms_norm_grad(attrs, ins, outs, ogs):
+    """RMSNorm's backward, as the JAX package's: f32 reductions over the
+    saved InvRms, dx = inv * (dxhat - xhat * mean(dxhat * xhat))."""
+    x = single(ins, "X")
+    scale = maybe(ins, "Scale")
+    bias = maybe(ins, "Bias")
+    ginv = ogs.get("InvRms", [None])[0]
+    dy = ogs.get("Y", [None])[0]
+    if dy is None and ginv is None:
+        raise NotImplementedError("rms_norm grad with no output grads")
+    eps = attrs.get("epsilon", 1e-6)
+    begin = attrs.get("begin_norm_axis", 1)
+    axes = tuple(range(begin, x.ndim))
+    kshape = tuple(x.shape[:begin]) + (1,) * (x.ndim - begin)
+    xf = x.float()
+    iv = outs.get("InvRms", [None])[0]
+    if iv is not None:
+        inv = iv.float().reshape(kshape)
+    else:
+        inv = torch.rsqrt(xf.square().mean(dim=axes, keepdim=True) + eps)
+    xhat = xf * inv
+    norm_shape = tuple(x.shape[begin:])
+    grads = {}
+    if dy is not None:
+        dyf = dy.float()
+        if scale is not None:
+            dxhat = dyf * scale.float().reshape((1,) * begin + norm_shape)
+        else:
+            dxhat = dyf
+        m = (dxhat * xhat).mean(dim=axes, keepdim=True)
+        dx = inv * (dxhat - xhat * m)
+        batch_axes = tuple(range(begin))
+        if scale is not None:
+            grads["Scale"] = [(dyf * xhat).sum(dim=batch_axes)
+                              .reshape(scale.shape).to(scale.dtype)]
+        if bias is not None:
+            grads["Bias"] = [dyf.sum(dim=batch_axes)
+                             .reshape(bias.shape).to(bias.dtype)]
+    else:
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    # InvRms is differentiable too: d inv/dx = -inv^3 * x / n
+    if ginv is not None:
+        dx = dx + (ginv.float().reshape(kshape) * (-(inv ** 3)) * xf
+                   / math.prod(norm_shape))
+    grads["X"] = [dx.to(x.dtype)]
+    return grads
+
+
+@register_op("rms_norm", grad_fn=_rms_norm_grad,
+             optional_inputs=("Scale", "Bias"))
+def rms_norm(attrs, ins):
+    """Root-mean-square normalization, reduced in f32: y = x *
+    rsqrt(mean(x^2) + eps) * scale (+ bias), in x's dtype; InvRms f32."""
+    x = single(ins, "X")
+    eps = attrs.get("epsilon", 1e-6)
+    begin = attrs.get("begin_norm_axis", 1)
+    axes = tuple(range(begin, x.ndim))
+    xf = x.float()
+    inv = torch.rsqrt(xf.square().mean(dim=axes, keepdim=True) + eps)
+    y = xf * inv
+    scale = maybe(ins, "Scale")
+    bias = maybe(ins, "Bias")
+    norm_shape = tuple(x.shape[begin:])
+    if scale is not None:
+        y = y * scale.reshape((1,) * begin + norm_shape)
+    if bias is not None:
+        y = y + bias.reshape((1,) * begin + norm_shape)
+    return {"Y": [y.to(x.dtype)], "InvRms": [inv.reshape(x.shape[:begin])]}
 
 
 # --- dropout ------------------------------------------------------------------

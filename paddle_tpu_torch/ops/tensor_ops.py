@@ -1,7 +1,8 @@
 """Tensor creation / manipulation / elementwise / reduction ops.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py``, cut to the ops the
-training, image and inference slices run. The random init ops draw from
+training, image and inference slices run (``transpose`` and ``split``
+for the per-layer transformer's heads). The random init ops draw from
 their split of the executor's scope key (``core/prng.py``), bit-exact with
 the JAX executor's draws. Ops return new tensors and never write into their
 inputs (the executor relies on it: ``assign`` hands on the same tensor).
@@ -35,15 +36,35 @@ def _batch_size_like_shape(attrs, ref):
     return tuple(shape)
 
 
-def _f32_out(x, attrs):
-    """A draw made in f32 (jax's float32 path), in the op's dtype."""
-    return x.to(to_dtype(attrs.get("dtype", "float32")))
+def _dtype(attrs):
+    """The op's draw dtype: float32, or bfloat16 (a parameter declared
+    bf16 under AMP); jax draws in it, so the port does too."""
+    dtype = to_dtype(attrs.get("dtype", "float32"))
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"random init ops draw float32 or bfloat16, not "
+                        f"{dtype}")
+    return dtype
+
+
+def _affine(x, attrs):
+    """mean + std * x as the JAX op computes it on a draw x. f32: XLA
+    fuses the two into one fused multiply-add. bf16: two bf16 ops, each
+    rounded (mean and std rounded to bf16 first)."""
+    mean, std = attrs.get("mean", 0.0), attrs.get("std", 1.0)
+    if x.dtype == torch.bfloat16:
+        r = prng._bf16
+        return r(r(r(std) * x.float()) + r(mean)).to(torch.bfloat16)
+    return prng._fma(x, prng._f32(std), prng._f32(mean))
 
 
 def _gaussian(shape, attrs, rng):
-    """mean + std * normal(rng) as the JAX executor's jitted block
-    computes it: XLA folds sqrt(2) * std into one constant and fuses the
-    add, so erf_inv(u) * f32(sqrt(2) * std) + mean in one rounding."""
+    """mean + std * normal(rng) in the op's dtype. In f32 as the JAX
+    executor's jitted block computes it: XLA folds sqrt(2) * std into one
+    constant and fuses the add, so erf_inv(u) * f32(sqrt(2) * std) + mean
+    in one rounding."""
+    dtype = _dtype(attrs)
+    if dtype == torch.bfloat16:
+        return _affine(prng.normal(rng, shape, dtype), attrs)
     u = prng.uniform(rng, shape, minval=prng._f32(-0.99999994), maxval=1.0)
     k = prng._f32(prng._SQRT2 * prng._f32(attrs.get("std", 1.0)))
     return prng._fma(prng.erf_inv(u), k, prng._f32(attrs.get("mean", 0.0)))
@@ -52,17 +73,16 @@ def _gaussian(shape, attrs, rng):
 @register_op("uniform_random", needs_rng=True)
 def uniform_random(attrs, ins, rng):
     """U[min, max) from the op's split of the scope key, bit-exact with
-    ``jax.random.uniform`` (``core/prng.py``)."""
+    ``jax.random.uniform`` in the op's dtype (``core/prng.py``)."""
     shape = tuple(attrs["shape"])
-    return out(Out=_f32_out(prng.uniform(rng, shape, attrs.get("min", -1.0),
-                                         attrs.get("max", 1.0)), attrs))
+    return out(Out=prng.uniform(rng, shape, attrs.get("min", -1.0),
+                                attrs.get("max", 1.0), dtype=_dtype(attrs)))
 
 
 @register_op("gaussian_random", needs_rng=True)
 def gaussian_random(attrs, ins, rng):
     """N(mean, std) from the op's split of the scope key."""
-    return out(Out=_f32_out(_gaussian(tuple(attrs["shape"]), attrs, rng),
-                            attrs))
+    return out(Out=_gaussian(tuple(attrs["shape"]), attrs, rng))
 
 
 @register_op("gaussian_random_batch_size_like", needs_rng=True)
@@ -70,17 +90,15 @@ def gaussian_random_batch_size_like(attrs, ins, rng):
     """Gaussian noise whose batch dim copies Input's: an rng leaf, so
     gradients flow only through whatever it is combined with."""
     shape = _batch_size_like_shape(attrs, single(ins, "Input"))
-    return out(Out=_f32_out(_gaussian(shape, attrs, rng), attrs))
+    return out(Out=_gaussian(shape, attrs, rng))
 
 
 @register_op("truncated_gaussian_random", needs_rng=True)
 def truncated_gaussian_random(attrs, ins, rng):
-    """mean + std * a normal truncated to [-2, 2] (one fused
-    multiply-add, as XLA fuses it)."""
-    x = prng.truncated_normal(rng, -2.0, 2.0, tuple(attrs["shape"]))
-    return out(Out=_f32_out(prng._fma(x, prng._f32(attrs.get("std", 1.0)),
-                                      prng._f32(attrs.get("mean", 0.0))),
-                            attrs))
+    """mean + std * a normal truncated to [-2, 2], in the op's dtype."""
+    x = prng.truncated_normal(rng, -2.0, 2.0, tuple(attrs["shape"]),
+                              dtype=_dtype(attrs))
+    return out(Out=_affine(x, attrs))
 
 
 @register_op("assign")
@@ -95,6 +113,33 @@ def reshape(attrs, ins):
     # reference semantics (reshape_op.cc): 0 means copy the input dim
     shape = [x.shape[i] if d == 0 else d for i, d in enumerate(attrs["shape"])]
     return out(Out=x.reshape(tuple(shape)))
+
+
+@register_op("transpose")
+def transpose(attrs, ins):
+    """X with its dims permuted by ``axis`` (a view: ops never write into
+    their inputs)."""
+    return out(Out=single(ins, "X").permute(tuple(attrs["axis"])))
+
+
+@register_op("split")
+def split(attrs, ins):
+    """X cut along ``axis`` into ``sections`` (their sizes) or ``num``
+    equal parts: a list ``Out``. Its gradient is the generic vjp, which
+    takes the parts that receive a gradient and zeros elsewhere."""
+    x = single(ins, "X")
+    axis = attrs.get("axis", 0)
+    if attrs.get("sections"):
+        sections = list(attrs["sections"])
+        if sum(sections) != x.shape[axis]:
+            raise ValueError(f"split sections {sections} do not sum to dim "
+                             f"{axis} of {tuple(x.shape)}")
+        return {"Out": list(torch.split(x, sections, dim=axis))}
+    num = attrs["num"]
+    if x.shape[axis] % num:
+        raise ValueError(f"split: dim {axis} of {tuple(x.shape)} does not "
+                         f"divide into {num} equal parts")
+    return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
 
 
 @register_op("slice")

@@ -375,10 +375,13 @@ def test_stack_under_amp_differs_from_f32(monkeypatch):
 
 
 def test_flash_wrappers_refuse_bf16_naming_the_roadmap():
-    """No fallback: a bf16 q/k/v reaching a flash kernel's launch path is
-    refused before anything is built, naming the item that ports it."""
+    """No fallback: since the flash kernels' bf16 instances landed, an
+    all-bf16 q/k/v passes the launch path's check, and a bf16 q beside
+    f32 k/v (a mix no kernel takes) is refused before anything is built,
+    naming the dtypes."""
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     q = torch.zeros(1, 2, 8, 16, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="ROADMAP.md Queue 2"):
-        fa._check_kernel_inputs(q, q, q)
+    fa._check_kernel_inputs(q, q, q)
+    with pytest.raises(TypeError, match="torch.bfloat16, torch.float32"):
+        fa._check_kernel_inputs(q, q.float(), q.float())

@@ -138,10 +138,10 @@ class _PlainKernels:
         return tfa.flash_attention_reference(q, k, v, lengths, causal,
                                              sm_scale)
 
-    def backward(self, fn_name, n_ptrs, outs, q, k, v, lse, di, do, lengths,
-                 causal, sm_scale):
+    def backward(self, kind, outs, q, k, v, lse, di, do, lengths, causal,
+                 sm_scale):
         self.head_dims.append(q.shape[-1])
-        if fn_name.endswith("_dq_f32"):
+        if kind == "dq":
             got = (tfa.flash_dq_reference(q, k, v, lse, di, do, lengths,
                                           causal, sm_scale),)
         else:

@@ -241,10 +241,10 @@ def test_cuda_route_pads_wide_head_dims_and_slices_back(D, monkeypatch):
         return tfa.flash_attention_reference(q, k, v, lengths, causal,
                                              sm_scale)
 
-    def backward(fn_name, n_ptrs, outs, q, k, v, lse, di, do, lengths,
-                 causal, sm_scale):
+    def backward(kind, outs, q, k, v, lse, di, do, lengths, causal,
+                 sm_scale):
         head_dims.append(q.shape[-1])
-        if fn_name.endswith("_dq_f32"):
+        if kind == "dq":
             got = (tfa.flash_dq_reference(q, k, v, lse, di, do, lengths,
                                           causal, sm_scale),)
         else:

@@ -122,9 +122,15 @@ def test_unported_options_raise_and_name_their_slice():
     main, startup = tpt.Program(), tpt.Program()
     with tpt.program_guard(main, startup):
         ids = tpt.layers.data("ids", shape=[T], dtype="int64")
-        with pytest.raises(NotImplementedError, match="per-layer"):
+        with pytest.raises(NotImplementedError, match="recompute"):
             tpt.models.transformer_lm(ids, vocab_size=V, d_model=D_MODEL,
-                                      n_layers=1, num_heads=HEADS)
+                                      n_layers=1, num_heads=HEADS,
+                                      remat=True)
+        with pytest.raises(NotImplementedError,
+                           match="fused_head_cross_entropy"):
+            tpt.models.transformer_lm(ids, vocab_size=V, d_model=D_MODEL,
+                                      n_layers=1, num_heads=HEADS,
+                                      include_head=False)
         with pytest.raises(NotImplementedError, match="sparse"):
             tpt.layers.embedding(ids, size=[V, D_MODEL], is_sparse=True)
         with pytest.raises(NotImplementedError, match="sequence"):
