@@ -8,13 +8,16 @@
     python3 chip_smoke.py --paged-only      # phases 1, 2 and 4b only
     python3 chip_smoke.py --amp-only        # phases 1, 2 and 11 only
     python3 chip_smoke.py --per-layer-only  # phases 1, 2 and 12 only
+    python3 chip_smoke.py --bf16-flash-only # phases 1, 2 and 12a only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
 1. Environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi). Without CUDA it raises.
 2. Build: every CUDA kernel of the port, with nvcc from the repository's
-   sources (kernels/build.py), all sources started together.
+   sources (kernels/build.py), all sources started together. Then a
+   printed line, not a check: how many of 10^6 ``normal`` draws from one
+   key (core/prng.py) differ between the card and the CPU.
 3. Flash forward: the kernel against its plain PyTorch version on the
    card at the serving shape (B8 H16 T1024 D64 causal), a ragged case
    with a fully masked row, a D=128 case and the LM training shape (B8
@@ -146,9 +149,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
     plain version's; a stale K/V stage planted in the plain version at
     the training shape must be refused; lse within 1e-4 of the plain
     version's; two launches at the training shape bitwise equal;
-    registers and HMMA counts; timed at B8 H8 T2048 D128 beside the
-    plain versions, the bound at the bf16 tensor-core rate and bf16 SDPA
-    (forward; backward for the pair);
+    registers, spills and shared memory; in SASS the forward and dkv run
+    HGMMA (wgmma) fed by UTMALDG (TMA) and no HMMA, dq HMMA (mma.sync);
+    timed at B8 H8 T2048 D128 beside the plain versions, the bound at the
+    bf16 tensor-core rate (TFLOP/s and share of it), PR 10's times and
+    bf16 SDPA (forward; backward for the pair); the wide instances timed
+    at B2 H4 T1000 D256 beside their bound and bf16 SDPA;
     (b) bench.py's ``transformer`` (d1024 L8 H8 d_ff 4096 V16384, 8 x 2048
     tokens, Adam 1e-4) in f32: step 1 with the kernels against the plain
     path (loss and every gradient within 1e-4), 8 f32 launches of each
@@ -160,7 +166,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
     must exceed, 8 bf16 launches of each flash kernel a step and no f32
     ones, falling losses, step ms, tokens/s, the share of the bf16 peak,
     peak memory, device time by kernel
-    (``chiprun_out/per_layer_*_profile.txt``); (c)
+    (``chiprun_out/per_layer_*_profile.txt``: one launch a layer of each
+    bf16 flash kernel in the profiled step); (c)
     ``transformer_wide`` (d2048 L8 H16 d_ff 8192) under AMP, the same
     gates (its f32 build runs step 1 only).
 
@@ -1127,12 +1134,13 @@ def _backward_kernel_usage():
 def _sass_counts(lib_name, match):
     """Opcode counts (cuobjdump -sass) of each kernel of library
     ``lib_name`` whose name contains ``match``: HGMMA is wgmma on the
-    tensor cores, HMMA mma.sync, FFMA an f32 FMA on the CUDA cores."""
+    tensor cores, HMMA mma.sync, FFMA an f32 FMA on the CUDA cores,
+    UTMALDG a TMA load."""
     import re
 
     from paddle_tpu_torch.kernels import build
 
-    ops = ("HGMMA", "HMMA", "FFMA")
+    ops = ("HGMMA", "HMMA", "FFMA", "UTMALDG")
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(build.library_path(lib_name))],
@@ -1500,10 +1508,12 @@ def _profile_step(run, path="train_profile.txt",
         print("profile: no device time recorded")
         return None
     sums = {g: 0.0 for g in groups}
-    for ms, _, key in rows:
+    launches = dict.fromkeys(groups, 0)
+    for ms, n, key in rows:
         for g in groups:  # the first group that matches takes the kernel
             if g in key:
                 sums[g] += ms
+                launches[g] += n
                 break
     print(f"profile: one step, {total:.1f} ms of device time; "
           + ", ".join(f"{g} {ms:.1f} ms" for g, ms in sums.items()))
@@ -1513,7 +1523,7 @@ def _profile_step(run, path="train_profile.txt",
     out.mkdir(exist_ok=True)
     (out / path).write_text("\n".join(
         f"{ms:.4f}\t{n}\t{key}" for ms, n, key in rows))
-    return {"device_ms": total, "kernels_ms": sums,
+    return {"device_ms": total, "kernels_ms": sums, "launches": launches,
             "top": [[ms, n, key] for ms, n, key in rows[:25]]}
 
 
@@ -3011,6 +3021,14 @@ BF16_FLASH_CASES = [
 BF16_FLASH = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
               "flash_attention_bwd_dkv_bf16")
 BF16_FLASH_REPLACES = (229, 364, 386)
+# each bf16 flash kernel instance's tensor-core opcode in SASS: the
+# forward and dkv run wgmma fed by TMA (PR 11), dq mma.sync (PR 10)
+BF16_FLASH_SASS = {
+    f"flash_{k}_bf16_kernel<{d}>": "HMMA" if k == "bwd_dq" else "HGMMA"
+    for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128)}
+# PR 10's times at B8 H8 T2048 D128 causal (mma.sync), in ms, on an NVIDIA
+# H100 80GB HBM3 at 700 W; no old kernel is kept to time it again
+BF16_FLASH_PREVIOUS_MS = (0.384, 0.471, 0.711)
 # The bf16 gate: truth is the f32 plain version on the same bf16-valued
 # inputs. The kernel may lie at most 2x as far from it as the bf16 plain
 # version (which rounds as the Pallas kernels do) plus one bf16 ulp of
@@ -3133,7 +3151,16 @@ def bf16_flash_kernel_phase(gpu_name):
                                 args[0] if args else WIDE_D),
         match="bf16_kernel")
     sass = _sass_counts("flash_attention_bf16", "bf16_kernel")
-    assert sass and all(c["HMMA"] > 0 for c in sass.values()), sass
+    # the forward and dkv: every product wgmma, operands by TMA; dq
+    # mma.sync
+    assert sorted(sass) == sorted(BF16_FLASH_SASS), sorted(sass)
+    for key, op in BF16_FLASH_SASS.items():
+        c = sass[key]
+        if op == "HGMMA":
+            assert c["HGMMA"] > 0 and c["HMMA"] == 0 and c["UTMALDG"] > 0, (
+                key, c)
+        else:
+            assert c["HMMA"] > 0, (key, c)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     errs = {n: 0.0 for n in BF16_FLASH}
     cases = []
@@ -3247,8 +3274,10 @@ def bf16_flash_kernel_phase(gpu_name):
         lib_text = (f"forward {library:.3f} ({backend})" if i == 0 else
                     f"backward {library:.3f} for the pair ({bwd_backend})")
         print(f"{name}: {ms:.3f} ms at {_case_text(B, H, T, D, causal, None)}"
-              f", plain {plain_ms:.3f}, bound {bound:.3f} ({bound_by}, bf16 "
-              f"tensor cores), bf16 SDPA {lib_text}")
+              f" ({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms * 100:.1f}% "
+              f"of the bound; PR 10: {BF16_FLASH_PREVIOUS_MS[i]:.3f}), plain "
+              f"{plain_ms:.3f}, bound {bound:.3f} ({bound_by}, bf16 tensor "
+              f"cores), bf16 SDPA {lib_text}")
         records.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bf16.cu",
@@ -3258,7 +3287,41 @@ def bf16_flash_kernel_phase(gpu_name):
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "bound_ms_simt": bound_simt, "library_ms": library,
             "library": f"F.scaled_dot_product_attention bf16 {lib_text}",
+            "tflop_per_s": flops / ms / 1e9, "bound_share": bound / ms,
+            "previous_ms": BF16_FLASH_PREVIOUS_MS[i],
             "cases": cases, "ptxas": usage, "sass": sass})
+    del q, k, v, do, o, lse, di
+    torch.cuda.empty_cache()
+
+    # the wide bf16 instances (D > 128) at phase 3's D256 shape
+    B, H, T, D, causal, _ = WIDE_TIMED
+    q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
+                   .bfloat16() for _ in range(4))
+    o, lse = fa.flash_forward(q, k, v, None, causal)
+    di = fa._row_dot(do, o)
+    sdpa_fwd, backend = _sdpa_fastest(F, q, k, v)
+    sdpa_bwd, bwd_backend = _sdpa_fastest(F, q, k, v, do)
+    wide = (lambda: fa.flash_forward(q, k, v, None, causal),
+            lambda: fa.flash_dq(q, k, v, lse, di, do, None, causal),
+            lambda: fa.flash_dkv(q, k, v, lse, di, do, None, causal))
+    for i, (name, run) in enumerate(zip(BF16_FLASH, wide)):
+        ms = _cuda_ms(run, iters=10)
+        if i == 0:
+            flops, nbytes = _attention_work(B, H, T, T, D, causal, None, 2)
+        else:
+            flops, nbytes = _backward_work("dq" if i == 1 else "dkv", B, H,
+                                           T, T, D, causal, None, 2)
+        bound, bound_by, _ = _bound(flops, nbytes, gpu_name, bf16=True)
+        library = sdpa_fwd if i == 0 else sdpa_bwd
+        lib_text = (f"forward {library:.3f} ({backend})" if i == 0 else
+                    f"backward {library:.3f} for the pair ({bwd_backend})")
+        shape = _case_text(B, H, T, D, causal, None)
+        print(f"{name} (wide): {ms:.3f} ms at {shape}, bound {bound:.4f} "
+              f"({bound_by}, bf16 tensor cores), bf16 SDPA {lib_text}")
+        records[i]["wide_d256"] = {
+            "shape": shape, "ms": ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library,
+            "library": f"F.scaled_dot_product_attention bf16 {lib_text}"}
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
     return records
@@ -3384,9 +3447,17 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
     assert counts == (0,) * 3 + (7 * L,) * 3, counts
     med = float(np.median(step_s[1:]))
     dev = profile["device_ms"] if profile else None
-    trio = (sum(profile["kernels_ms"][g] for g in (
-        "flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16"))
-        if profile else None)
+    bf16_groups = PER_LAYER_GROUPS[:3]
+    trio = (sum(profile["kernels_ms"][g] for g in bf16_groups)
+            if profile else None)
+    if profile:  # the profiled step ran each bf16 flash kernel once a layer
+        assert [profile["launches"][g] for g in bf16_groups] == [L] * 3, \
+            profile["launches"]
+        print(f"per-layer {tag} AMP: profiled step, device ms by bf16 flash "
+              f"kernel: " + ", ".join(
+                  f"{g} {profile['kernels_ms'][g]:.2f} ms "
+                  f"({profile['launches'][g]} launches)"
+                  for g in bf16_groups))
     print(f"per-layer {tag} AMP: losses {[round(x, 5) for x in losses]}; "
           f"step median {med * 1e3:.1f} ms over 6 steps "
           f"({[round(x * 1e3, 1) for x in step_s]} ms), {tokens / med:.0f} "
@@ -3426,6 +3497,25 @@ def per_layer_phases(gpu_name):
     return recs, {"transformer": base, "transformer_wide": wide}
 
 
+def rng_line():
+    """Not a check: how many of 10^6 ``normal`` draws from one key differ
+    between the card and the CPU (core/prng.py; the CPU's equal
+    jax.random.normal's bit for bit)."""
+    import torch
+
+    from paddle_tpu_torch.core import prng
+
+    n = 10 ** 6
+    cpu = prng.normal(prng.prng_key(SEED), (n,))
+    card = prng.normal(prng.prng_key(SEED, "cuda"), (n,)).cpu()
+    differ = int((card != cpu).sum())
+    gap = float((card - cpu).abs().max())
+    print(f"rng: {differ} of {n} normal draws from one key (seed {SEED}) "
+          f"differ between the card and the CPU (max |difference| "
+          f"{gap:.3e})")
+    return {"draws": n, "differ": differ, "max_abs_diff": gap}
+
+
 def main():
     import argparse
 
@@ -3450,6 +3540,10 @@ def main():
                         help="build the kernels and run only phase 12 (the "
                              "bf16 flash kernels and the per-layer LM in f32 "
                              "and under AMP); prints no ok line")
+    parser.add_argument("--bf16-flash-only", action="store_true",
+                        help="build the kernels and run only phase 12a (the "
+                             "bf16 flash kernels against their plain "
+                             "versions, timed); prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -3478,9 +3572,20 @@ def main():
         for line in build.log_path(name).read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"ptxas {name}: {line.strip()}")
+    rng = rng_line()
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "bound_ms_simt", "library_ms")
+    if args.bf16_flash_only:
+        recs = bf16_flash_kernel_phase(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_bf16_flash.json").write_text(json.dumps(
+            {"gpu": smi, "rng": rng, "kernels": recs}, indent=1))
+        print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                      for r in recs]}))
+        print(smi)
+        return
     if args.amp_only:
         recs, amp = amp_phases(gpu)
         out = ROOT / "chiprun_out"
@@ -3570,7 +3675,7 @@ def main():
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference,
          "attention_rewrite": attention, "amp": amp,
-         "per_layer": per_layer, "build_s": built},
+         "per_layer": per_layer, "build_s": built, "rng": rng},
         indent=1))
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records]}))

@@ -36,11 +36,13 @@ values equal ``jax.random.gumbel``'s on the CPU bit for bit; ``torch.log``
 differs from it in the last place for ~1 in 7 inputs. ``erf_inv``,
 ``erf`` and ``log1p`` are XLA's f32 polynomials the same way (Giles'
 erf_inv over a Cephes log1p; a rational erf), and the affine steps of
-``uniform`` are one fused multiply-add, as XLA contracts them. ``erf`` and
-``log1p`` match XLA bit for bit; ``erf_inv`` in the tail (|u| > 0.9966,
-where it takes a square root) differs by one ulp for ~1 in 300 such
-inputs, so ``normal`` draws are bit-exact except ~2 in 10^5, which are
-at most 2 ulp off (``tests/test_torch_rng_plane.py``).
+``uniform`` are one fused multiply-add, as XLA contracts them. ``erf``,
+``log1p`` and ``erf_inv`` match XLA bit for bit, so ``normal`` draws
+equal ``jax.random.normal``'s (``tests/test_torch_rng_plane.py``).
+``erf_inv``'s tail (|u| > 0.9966) takes a square root, which XLA rounds
+correctly and torch's f32 ``sqrt`` on the CPU does not always: the root
+is taken in f64 and rounded to f32, which is exact (a correctly rounded
+f64 root of an f32 value rounds to the correctly rounded f32 root).
 """
 from __future__ import annotations
 
@@ -254,7 +256,7 @@ def erf_inv(x):
     """f32 inverse error function as XLA's CPU backend computes it."""
     w = -_xla_log1p(-(x * x))
     lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     p = torch.where(lt, torch.full_like(x, _ERFINV_LT5[0]),
                     torch.full_like(x, _ERFINV_GE5[0]))
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):

@@ -94,6 +94,7 @@
 #include <stdint.h>
 
 #include "tf32x3.cuh"
+#include "tma.cuh"
 #include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
 
@@ -505,50 +506,6 @@ cudaError_t split_w(const float* w, float* wt, int I, int O, int bn,
   split_w_kernel<<<dim3(i_pad / 32, o_pad / 32), dim3(32, 8), 0, s>>>(
       w, wt, I, O, i_pad, o_pad);
   return cudaGetLastError();
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled (libcuda's tensor-map encoder), found through
-// the runtime, as this library links no libcuda of its own; null where
-// it is missing.
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A TMA map of a row-major [rows, cols] matrix of f32 or bf16 (`type`,
-// `elem` bytes a value), `stride` values a row, read in boxes of box_rows
-// x box_cols; zeros past its edges.
-cudaError_t tensor_map(CUtensorMap* map, const void* base,
-                       CUtensorMapDataType type, int elem, int cols, int rows,
-                       int stride, int box_cols, int box_rows, bool swizzle) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)stride * elem};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult res = encode(
-      map, type, 2, const_cast<void*>(base), dims,
-      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int BN, int EPI>

@@ -1,8 +1,11 @@
-// bf16 `wgmma` with both operands in shared memory, for the port's bf16
-// (AMP) kernels (conv_epilogue.cu): the m64nNk16 shapes they use, and the
-// descriptor of an MN-major B tile. A K-major tile (rows of 128 bytes,
-// 64 bf16 values along K) uses `sw128_desc` (wgmma_tf32.cuh): the
-// 128-byte swizzle is the same for any element type.
+// bf16 `wgmma` for the port's bf16 (AMP) kernels (conv_epilogue.cu,
+// flash_attention_bf16.cu): the m64nNk16 shapes they use with both
+// operands in shared memory (B K-major or MN-major) or with A in
+// registers, and the descriptor of an MN-major B tile. A K-major tile
+// (rows of 128 bytes, 64 bf16 values along K) uses `sw128_desc`
+// (wgmma_tf32.cuh): the 128-byte swizzle is the same for any element
+// type; a k16 step along K starts 32 bytes later in the row (+2 in the
+// descriptor).
 #pragma once
 
 #include <stdint.h>
@@ -25,14 +28,15 @@ __device__ __forceinline__ uint64_t sw128_mn_desc(const void* tile,
 }
 
 // d (+)= A . B for one warpgroup: A [64, 16] bf16 K-major and B [16, N]
-// bf16 MN-major, each from its descriptor; f32 accumulators laid out as
-// the tf32 shapes' (Wgmma<N> in wgmma_tf32.cuh); scale_d == 0 overwrites
-// d.
-template <int BN>
+// bf16, each from its descriptor; B MN-major (TB = 1, the default) or
+// K-major (TB = 0: B's rows are N, K along them). f32 accumulators laid
+// out as the tf32 shapes' (Wgmma<N> in wgmma_tf32.cuh); scale_d == 0
+// overwrites d.
+template <int BN, int TB = 1>
 struct WgmmaBf16;
 
-template <>
-struct WgmmaBf16<128> {
+template <int TB>
+struct WgmmaBf16<128, TB> {
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -46,7 +50,7 @@ struct WgmmaBf16<128> {
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -63,12 +67,12 @@ struct WgmmaBf16<128> {
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
   }
 };
 
-template <>
-struct WgmmaBf16<64> {
+template <int TB>
+struct WgmmaBf16<64, TB> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
     asm volatile(
@@ -78,7 +82,7 @@ struct WgmmaBf16<64> {
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -87,7 +91,83 @@ struct WgmmaBf16<64> {
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
+  }
+};
+
+// d (+)= A . B for one warpgroup with A [64, 16] bf16 from registers and
+// B [16, N] bf16 MN-major from its descriptor. This thread's A: the rows
+// 16 w + g and 16 w + g + 8 of warp w (g = lane / 4, t = lane % 4), k 2t,
+// 2t + 1 in a[0] (row g) and a[1] (row g + 8), k 2t + 8, 2t + 9 in a[2]
+// and a[3], the lower k in the low half: mma.m16n8k16's A fragment. So
+// columns 16c .. 16c + 15 of an f32 accumulator of this layout, rounded
+// and packed in pairs ({d[8c], d[8c + 1]}, {d[8c + 2], d[8c + 3]},
+// {d[8c + 4], d[8c + 5]}, {d[8c + 6], d[8c + 7]}), are the A of one k16
+// step. Call wgmma_fence() after writing a and before the first product.
+template <int BN>
+struct WgmmaBf16Rs;
+
+template <>
+struct WgmmaBf16Rs<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16Rs<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
   }
 };
 

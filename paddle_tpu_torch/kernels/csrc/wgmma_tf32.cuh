@@ -1,7 +1,7 @@
 // `wgmma` and the TMA + mbarrier ring, shared by the port's Hopper kernels
-// (conv_epilogue.cu, flash_attention_fwd.cu): operand descriptors, the
-// tf32 `wgmma.mma_async` shapes they use, the fence / commit / wait
-// helpers, and the ring's barriers and copies.
+// (conv_epilogue.cu, flash_attention_fwd.cu, flash_attention_bf16.cu):
+// operand descriptors, the tf32 `wgmma.mma_async` shapes they use, the
+// fence / commit / wait helpers, and the ring's barriers and copies.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (its encoder comes from the runtime)
@@ -180,6 +180,33 @@ __device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the box at (c0, c1, c2) (innermost first) of a 3-D tensor map into
+// shared memory, counted on `bar` as it lands; past the tensor's edge,
+// zeros
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// a box of shared memory to (c0, c1, c2) of a 3-D tensor map (commit
+// with cp.async.bulk.commit_group); rows past the tensor's edge are not
+// written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
