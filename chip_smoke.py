@@ -149,11 +149,12 @@ Phases, each fatal on failure (nonzero exit, no result line):
     plain version's; a stale K/V stage planted in the plain version at
     the training shape must be refused; lse within 1e-4 of the plain
     version's; two launches at the training shape bitwise equal;
-    registers, spills and shared memory; in SASS the forward and dkv run
-    HGMMA (wgmma) fed by UTMALDG (TMA) and no HMMA, dq HMMA (mma.sync);
-    timed at B8 H8 T2048 D128 beside the plain versions, the bound at the
-    bf16 tensor-core rate (TFLOP/s and share of it), PR 10's times and
-    bf16 SDPA (forward; backward for the pair); the wide instances timed
+    registers, spills (none allowed) and shared memory; in SASS all three
+    run HGMMA (wgmma) fed by UTMALDG (TMA) and no HMMA; timed at B8 H8
+    T2048 D128 beside the plain versions, the bound at the bf16
+    tensor-core rate (TFLOP/s and share of it), the times of the mma.sync
+    kernels they replaced and bf16 SDPA (forward; backward for the pair,
+    beside dq + dkv); the wide instances timed
     at B2 H4 T1000 D256 beside their bound and bf16 SDPA;
     (b) bench.py's ``transformer`` (d1024 L8 H8 d_ff 4096 V16384, 8 x 2048
     tokens, Adam 1e-4) in f32: step 1 with the kernels against the plain
@@ -3021,14 +3022,16 @@ BF16_FLASH_CASES = [
 BF16_FLASH = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
               "flash_attention_bwd_dkv_bf16")
 BF16_FLASH_REPLACES = (229, 364, 386)
-# each bf16 flash kernel instance's tensor-core opcode in SASS: the
-# forward and dkv run wgmma fed by TMA (PR 11), dq mma.sync (PR 10)
-BF16_FLASH_SASS = {
-    f"flash_{k}_bf16_kernel<{d}>": "HMMA" if k == "bwd_dq" else "HGMMA"
-    for k in ("fwd", "bwd_dq", "bwd_dkv") for d in (64, 128)}
-# PR 10's times at B8 H8 T2048 D128 causal (mma.sync), in ms, on an NVIDIA
-# H100 80GB HBM3 at 700 W; no old kernel is kept to time it again
-BF16_FLASH_PREVIOUS_MS = (0.384, 0.471, 0.711)
+# the bf16 flash kernel instances that run wgmma fed by TMA: in SASS,
+# HGMMA and UTMALDG and no HMMA (mma.sync); ptxas reports no spills
+BF16_FLASH_SASS = tuple(f"flash_{k}_bf16_kernel<{d}>"
+                        for k in ("fwd", "bwd_dq", "bwd_dkv")
+                        for d in (64, 128))
+# the times of the mma.sync kernels these replaced, at B8 H8 T2048 D128
+# causal, in ms, on an NVIDIA H100 80GB HBM3 at 700 W (the forward and
+# dkv as last timed beside the mma.sync dq, dq as last timed beside the
+# wgmma forward and dkv); no old kernel is kept to time it again
+BF16_FLASH_PREVIOUS_MS = (0.384, 0.478, 0.711)
 # The bf16 gate: truth is the f32 plain version on the same bf16-valued
 # inputs. The kernel may lie at most 2x as far from it as the bf16 plain
 # version (which rounds as the Pallas kernels do) plus one bf16 ulp of
@@ -3151,16 +3154,14 @@ def bf16_flash_kernel_phase(gpu_name):
                                 args[0] if args else WIDE_D),
         match="bf16_kernel")
     sass = _sass_counts("flash_attention_bf16", "bf16_kernel")
-    # the forward and dkv: every product wgmma, operands by TMA; dq
-    # mma.sync
+    # every product wgmma, operands by TMA, nothing spilled
     assert sorted(sass) == sorted(BF16_FLASH_SASS), sorted(sass)
-    for key, op in BF16_FLASH_SASS.items():
-        c = sass[key]
-        if op == "HGMMA":
-            assert c["HGMMA"] > 0 and c["HMMA"] == 0 and c["UTMALDG"] > 0, (
-                key, c)
-        else:
-            assert c["HMMA"] > 0, (key, c)
+    for key in BF16_FLASH_SASS:
+        c, u = sass[key], usage[key]
+        assert c["HGMMA"] > 0 and c["HMMA"] == 0 and c["UTMALDG"] > 0, (
+            key, c)
+        assert not u.get("spill_store_bytes") and not u.get(
+            "spill_load_bytes"), (key, u)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     errs = {n: 0.0 for n in BF16_FLASH}
     cases = []
@@ -3275,9 +3276,9 @@ def bf16_flash_kernel_phase(gpu_name):
                     f"backward {library:.3f} for the pair ({bwd_backend})")
         print(f"{name}: {ms:.3f} ms at {_case_text(B, H, T, D, causal, None)}"
               f" ({flops / ms / 1e9:.1f} TFLOP/s, {bound / ms * 100:.1f}% "
-              f"of the bound; PR 10: {BF16_FLASH_PREVIOUS_MS[i]:.3f}), plain "
-              f"{plain_ms:.3f}, bound {bound:.3f} ({bound_by}, bf16 tensor "
-              f"cores), bf16 SDPA {lib_text}")
+              f"of the bound; mma.sync: {BF16_FLASH_PREVIOUS_MS[i]:.3f}), "
+              f"plain {plain_ms:.3f}, bound {bound:.3f} ({bound_by}, bf16 "
+              f"tensor cores), bf16 SDPA {lib_text}")
         records.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bf16.cu",
@@ -3290,6 +3291,11 @@ def bf16_flash_kernel_phase(gpu_name):
             "tflop_per_s": flops / ms / 1e9, "bound_share": bound / ms,
             "previous_ms": BF16_FLASH_PREVIOUS_MS[i],
             "cases": cases, "ptxas": usage, "sass": sass})
+    pair = records[1]["ms"] + records[2]["ms"]
+    print(f"bf16 flash backward: dq + dkv {pair:.3f} ms against bf16 SDPA's "
+          f"backward {sdpa_bwd:.3f} ({bwd_backend}), "
+          f"{pair / sdpa_bwd:.2f}x")
+    records[1]["pair_ms"] = records[2]["pair_ms"] = pair
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
 

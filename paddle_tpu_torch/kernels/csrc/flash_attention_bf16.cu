@@ -1,7 +1,7 @@
 // Flash attention in bf16 for Hopper (sm_90a): the forward, dq and dkv
 // kernels for bf16 q, k, v (the per-layer transformer under AMP), every
-// product on the tensor cores with bf16 operands and f32 accumulators:
-// the forward and dkv as `wgmma` fed by TMA, dq as `mma.sync.m16n8k16`.
+// product on the tensor cores with bf16 operands and f32 accumulators,
+// as `wgmma` fed by TMA.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/kernels/flash_attention.py
 // in the dtype the JAX package trains in (their "native dtype (bf16 under
@@ -35,8 +35,8 @@
 // 103 and 137 GFLOP) on ~0.1-0.2 GB: bound by operations, at the tensor
 // cores' bf16 rate (989 TFLOP/s), which only `wgmma` reaches.
 //
-// The forward and dkv (warp-specialised, one block per (bh, 128 rows it
-// owns): q rows for the forward, k rows for dkv):
+// The three kernels share one design (warp-specialised, one block per
+// (bh, 128 rows it owns): q rows for the forward and dq, k rows for dkv):
 // - A block is three warpgroups. The first is the producer: it gives its
 //   registers up (setmaxnreg 24) and one of its threads issues every TMA
 //   copy; the other two (setmaxnreg 240) each own 64 of the block's rows,
@@ -46,35 +46,47 @@
 //   64 bf16 values (128 bytes) by the tile's rows in the 128-byte swizzle,
 //   so a tile at a head's ragged end lands with zero rows and never reads
 //   the next head's; a D = 128 tile is two boxes. Every box starts on a
-//   1024-byte boundary. The owned tile (Q; K and V) is loaded once; the
-//   streamed pair (K and V: 128-key tiles; Q and dO: 64-query tiles, with
-//   their lse and Di copied beside them by the producer warp's cp.async)
-//   goes through a ring (three stages in the forward, two in dkv, where a
-//   third measured no faster), each stage with a `full` barrier that
+//   1024-byte boundary. The owned tiles (Q; K and V; Q and dO) are loaded
+//   once; the streamed pair (K and V: 128-key tiles in the forward, 64-key
+//   ones in dq; Q and dO: 64-query tiles, with their lse and Di copied
+//   beside them by the producer warp's cp.async) goes through a ring
+//   (three stages in the forward and dq, two in dkv, where a third
+//   measured no faster), each stage with a `full` barrier that
 //   TMA's complete_tx sets and an `empty` one each consumer warp arrives
 //   at. Tiles past the length or wholly above the diagonal are never
 //   loaded.
-// - Products whose operands both come from shared memory (S = Q K^T;
-//   S^T = K Q^T and dP^T = V dO^T in dkv) read both K-major, D being the
-//   reduction (sw128_desc). Products whose A is P or dS (O += P V; dV +=
-//   P^T dO, dK += dS^T Q) take A from registers: an f32 accumulator's
-//   columns 16c .. 16c + 15, rounded and packed in pairs, are the register
-//   A of one k16 step (WgmmaBf16Rs), so P and dS never leave registers,
-//   and read B MN-major (sw128_mn_desc) from the same boxes that serve as
-//   K-major operands: no transposed copy is made.
+// - Products whose operands both come from shared memory (S = Q K^T and,
+//   in dq, dP = dO V^T; S^T = K Q^T and dP^T = V dO^T in dkv) read both
+//   K-major, D being the reduction (sw128_desc). Products whose A is P or
+//   dS (O += P V; dQ += dS K; dV += P^T dO, dK += dS^T Q) take A from
+//   registers: an f32 accumulator's columns 16c .. 16c + 15, rounded and
+//   packed in pairs, are the register A of one k16 step (WgmmaBf16Rs), so
+//   P and dS never leave registers, and read B MN-major (sw128_mn_desc)
+//   from the same boxes that serve as K-major operands: no transposed copy
+//   is made.
 // - The accumulator has mma's C layout per warp (rows g and g + 8 of its
 //   16, each row in one quad of lanes), so a row's max and sum are the
 //   thread's own values and two __shfl_xor. Masks are applied only on
 //   tiles that cross the diagonal or a length. O is carried across tiles
-//   in the wgmma accumulator (O * alpha, then += P V), as the mma.sync
-//   design did.
+//   in the wgmma accumulator (O * alpha, then += P V).
 // - dkv keeps the transposed products: K and V are the M side, each
 //   streamed Q/dO tile is the N side of S^T and dP^T and the K side (read
 //   MN-major) of dV and dK, so every intermediate stays in registers: per
 //   consumer thread at D = 128, dK and dV 128 f32, S^T and dP^T 64, their
 //   packed bf16 32. lse and Di of a column come from shared memory.
+// - dq keeps its 128 rows' Q and dO in shared memory and their lse and Di
+//   in registers (each thread's rows g and g + 8); S and dP share one
+//   accumulator layout, so dS = P (dP - Di) forms in place and packs into
+//   dQ's register A as P does in the forward, and dQ's B is the K tile
+//   that served S, read MN-major. 64-key tiles keep a consumer thread at
+//   D = 128 to dQ 64 f32, S and dP 32 each, packed dS 16 (128-key tiles
+//   would need ~224 before addresses). dQ is carried across tiles in the
+//   wgmma accumulator, a consumer warpgroup skips the tiles wholly above
+//   its own diagonal (its empty arrival still made), and P = 0 on masked
+//   columns and on rows past Tq (their lse is taken as +inf) without an
+//   inf - inf.
 // - Outputs leave through shared memory: each consumer warpgroup writes
-//   its [64, D] tile (o; dk and dv), rounded once, into its own rows of
+//   its [64, D] tile (o; dq; dk and dv), rounded once, into its own rows of
 //   the owned tile's boxes, free once its last product has read them, in
 //   the swizzle TMA reads, and one of its threads stores the boxes with a
 //   TMA store (rows past T are not written). Stores straight from
@@ -86,21 +98,9 @@
 // setmaxnreg, which acts on whole warpgroups, hence a producer
 // warpgroup rather than a warp. Shared memory: the forward 229,432 bytes
 // at D = 128 (Q 32 KB, three stages of K and V, 64 KB each) and 114,744
-// at D = 64; dkv 132,136 (K and V 64 KB, two stages of Q and dO, 32 KB
-// each, and of lse and Di) and 66,600.
-//
-// dq (the mma.sync design; one block of 4 warps per (bh, 64 q rows)):
-// - Q and dO stay in shared memory; K/V stream through a two-stage
-//   cp.async ring of 32-row tiles (16-byte copies, rows past T
-//   zero-filled) at rows of D + 8 bf16 (16 bytes of padding), so the eight
-//   16-byte rows an `ldmatrix` reads start 4 banks apart. A warp owns 16
-//   rows; a warp whose rows a tile cannot reach skips its products.
-// - A operands come by `ldmatrix.x4`, B operands whose tile rows are the
-//   product's N (K in Q K^T, V in dO V^T) too; those whose tile rows are
-//   the reduction (K in dS K) by `ldmatrix.x4.trans`. Two neighbouring
-//   m16n8 f32 accumulators, rounded to bf16 and packed in pairs, are
-//   exactly the A fragment of an m16n8k16 product, so dS goes from
-//   registers to the tensor cores as it is.
+// at D = 64; dq 163,896 (Q and dO 64 KB, three stages of K and V, 32 KB
+// each) and 81,976; dkv 132,136 (K and V 64 KB, two stages of Q and dO,
+// 32 KB each, and of lse and Di) and 66,600.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -108,7 +108,7 @@
 #include <stdint.h>
 
 #include "flash_wide.cuh"
-#include "tf32x3.cuh"  // cp.async
+#include "tf32x3.cuh"  // cp.async (dkv's lse and Di)
 #include "tma.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -116,291 +116,14 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// --- dq: mma.sync behind a cp.async ring ----------------------------------
-
-constexpr int NWARPS = 4;
-constexpr int NTHREADS = 32 * NWARPS;
-constexpr int BM = 16 * NWARPS;  // q rows a block owns, 16 a warp
-constexpr int BN_BWD = 32;       // rows of a streamed K/V tile
-
-// Rows [row0, row0 + ROWS) of a [T, D] bf16 plane into shared memory at
-// row stride D + 8, 16 bytes a cp.async; rows past T are zero-filled.
-// Commit the group after.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst,
-                                          const bf16* __restrict__ src,
-                                          int row0, int T) {
-  constexpr int C = D / 8;  // 16-byte chunks a row
-  static_assert(ROWS * C % NTHREADS == 0, "tile must split evenly");
-#pragma unroll
-  for (int i = 0; i < ROWS * C / NTHREADS; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    const int r = idx / C;
-    const int c = (idx % C) * 8;
-    const bool in = row0 + r < T;
-    cp_async16(reinterpret_cast<float*>(dst + r * (D + 8) + c),
-               reinterpret_cast<const float*>(
-                   src + (in ? (size_t)(row0 + r) * D + c : 0)),
-               in);
-  }
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// d += a b: a the 16 x 16 bf16 A fragment, (b0, b1) the 16 x 8 B one
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 values rounded to bf16 (nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A fragment of rows r0 .. r0 + 15, columns k0 .. k0 + 15 of a tile
-// (row stride ST): the four 8 x 8 matrices (rows 0-7, 8-15) x (k 0-7,
-// 8-15) in the order a0-a1, a2-a3, a4-a5, a6-a7 hold them.
-template <int ST>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* s,
-                                       int r0, int k0, int lane) {
-  ldsm_x4(a, s + (r0 + (lane & 15)) * ST + k0 + (lane >> 4) * 8);
-}
-
-// B fragments of two 8-column n-tiles (n0, n0 + 8) for the k16 step k0,
-// from a tile whose rows are the product's N and columns its K:
-// {b[0], b[1]} for n0, {b[2], b[3]} for n0 + 8.
-template <int ST>
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* s,
-                                          int n0, int k0, int lane) {
-  ldsm_x4(b, s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * ST + k0 +
-                 ((lane >> 3) & 1) * 8);
-}
-
-// The same from a tile whose rows are the product's K and columns its N
-// (read transposed).
-template <int ST>
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* s,
-                                          int k0, int n0, int lane) {
-  ldsm_x4_t(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ST + n0 +
-                   (lane >> 4) * 8);
-}
-
-// acc[NT][4] = A(rows r0.., all D) . B(tile rows, all D)^T, zeroed first:
-// S = Q K^T, dP = dO V^T and their transposes
-template <int D, int NT>
-__device__ __forceinline__ void product_nk(float (&acc)[NT][4],
-                                           const bf16* a, const bf16* b,
-                                           int r0, int lane) {
-  constexpr int ST = D + 8;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    load_a<ST>(af, a, r0, kk * 16, lane);
-#pragma unroll
-    for (int j = 0; j < NT; j += 2) {
-      uint32_t bf[4];
-      load_b_nk<ST>(bf, b, j * 8, kk * 16, lane);
-      mma(acc[j], af, bf[0], bf[1]);
-      mma(acc[j + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// out[D/8][4] += round_bf16(c) . tile, c the f32 [16, 8 NT] accumulators
-// of a warp (P or dS), tile the [8 NT, D] rows they multiply (V, K, dO
-// or Q), read transposed
-template <int D, int NT>
-__device__ __forceinline__ void accumulate(float (&out)[D / 8][4],
-                                           const float (&c)[NT][4],
-                                           const bf16* tile, int lane) {
-  constexpr int ST = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    const uint32_t a[4] = {pack(c[2 * kk][0], c[2 * kk][1]),
-                           pack(c[2 * kk][2], c[2 * kk][3]),
-                           pack(c[2 * kk + 1][0], c[2 * kk + 1][1]),
-                           pack(c[2 * kk + 1][2], c[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t b[4];
-      load_b_kn<ST>(b, tile, kk * 16, n * 8, lane);
-      mma(out[n], a, b[0], b[1]);
-      mma(out[n + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// Rows row[0], row[1] (columns 2t, 2t + 1 of each 8-column n-tile) of a
-// [T, D] bf16 output from acc * scale, rounded once; rows past T are not
-// written.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* dst,
-                                           const float (&acc)[D / 8][4],
-                                           const int (&row)[2], int T,
-                                           const float (&scale)[2], int t) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (row[h] >= T) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)row[h] * D + n * 8 + 2 * t) =
-          pack(acc[n][2 * h] * scale[h], acc[n][2 * h + 1] * scale[h]);
-  }
-}
-
-// Shared memory of dq: the two owned [BM, D] tiles (Q and dO) and the two
-// streamed tensors' (K and V) two stages of [BN_BWD, D], bf16.
-template <int D>
-struct BwdSmem {
-  static constexpr int ST = D + 8;
-  static constexpr int OWN0 = 0;
-  static constexpr int OWN1 = OWN0 + BM * ST;
-  static constexpr int STR0 = OWN1 + BM * ST;
-  static constexpr int STR1 = STR0 + 2 * BN_BWD * ST;
-  static constexpr int END = STR1 + 2 * BN_BWD * ST;  // bf16 elements
-  static constexpr int DQ_BYTES = END * 2;
-};
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ di,
-                             const int* __restrict__ lens,
-                             bf16* __restrict__ dq, int Tq, int Tk,
-                             int causal, float sm_scale) {
-  using L = BwdSmem<D>;
-  constexpr int ST = L::ST;
-  constexpr int NT = BN_BWD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
-  const size_t qoff = (size_t)bh * Tq * D;
-  const size_t koff = (size_t)bh * Tk * D;
-
-  const int length = max(0, min(lens[bh], Tk));
-  int n_tiles = (length + BN_BWD - 1) / BN_BWD;
-  if (causal) {
-    const int last = min(q0 + BM, Tq);
-    n_tiles = min(n_tiles, (last + BN_BWD - 1) / BN_BWD);
-  }
-  if (n_tiles > 0) {
-    load_tile<D, BM>(smem + L::OWN0, q + qoff, q0, Tq);
-    load_tile<D, BM>(smem + L::OWN1, dout + qoff, q0, Tq);
-    load_tile<D, BN_BWD>(smem + L::STR0, k + koff, 0, Tk);
-    load_tile<D, BN_BWD>(smem + L::STR1, v + koff, 0, Tk);
-    cp_async_commit();
-  }
-
-  const int r0 = warp * 16;
-  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  float lse_r[2], di_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool in = row[h] < Tq;
-    lse_r[h] = in ? lse[(size_t)bh * Tq + row[h]] : INFINITY;
-    di_r[h] = in ? di[(size_t)bh * Tq + row[h]] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int i = 0; i < n_tiles; ++i) {
-    const int stage = i & 1;
-    if (i + 1 < n_tiles) {
-      const int nxt = (stage ^ 1) * BN_BWD * ST;
-      load_tile<D, BN_BWD>(smem + L::STR0 + nxt, k + koff, (i + 1) * BN_BWD,
-                           Tk);
-      load_tile<D, BN_BWD>(smem + L::STR1 + nxt, v + koff, (i + 1) * BN_BWD,
-                           Tk);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const int k0 = i * BN_BWD;
-    const bf16* ks = smem + L::STR0 + stage * BN_BWD * ST;
-    const bf16* vs = smem + L::STR1 + stage * BN_BWD * ST;
-    if (q0 + r0 < Tq && (!causal || k0 <= q0 + r0 + 15)) {
-      float s[NT][4], dp[NT][4];
-      product_nk<D, NT>(s, smem + L::OWN0, ks, r0, lane);   // Q K^T
-      product_nk<D, NT>(dp, smem + L::OWN1, vs, r0, lane);  // dO V^T
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {  // s becomes dS
-          const int h = e >> 1;
-          const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
-          const bool live = k_pos < length && row[h] < Tq &&
-                            (!causal || row[h] >= k_pos);
-          const float p = live ? expf(s[j][e] * sm_scale - lse_r[h]) : 0.f;
-          s[j][e] = p * (dp[j][e] - di_r[h]);
-        }
-      accumulate<D, NT>(acc, s, ks, lane);  // dq += bf16(dS) K
-    }
-    __syncthreads();
-  }
-  const float scale[2] = {sm_scale, sm_scale};
-  store_rows<D>(dq + qoff, acc, row, Tq, scale, t);
-}
-
-template <int D>
-cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
-                      const bf16* dout, const float* lse, const float* di,
-                      const int* lens, bf16* dq, int BH, int Tq, int Tk,
-                      int causal, float sm_scale, cudaStream_t stream) {
-  const int bytes = BwdSmem<D>::DQ_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_bf16_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tq + BM - 1) / BM);
-  flash_bwd_dq_bf16_kernel<D><<<grid, NTHREADS, bytes, stream>>>(
-      q, k, v, dout, lse, di, lens, dq, Tq, Tk, causal, sm_scale);
-  return cudaGetLastError();
-}
-
-// --- the forward and dkv: wgmma behind a TMA ring ---------------------------
+// --- wgmma behind a TMA ring ------------------------------------------------
 
 constexpr int WS_THREADS = 384;   // a producer warpgroup, two consumers
 constexpr int CONSUMER_WARPS = 8;
 constexpr int OWN = 128;          // rows a block owns, 64 a consumer
 constexpr int FWD_KEYS = 128;     // keys of a forward K/V tile
 constexpr int DKV_QUERIES = 64;   // queries of a dkv Q/dO tile
+constexpr int DQ_KEYS = 64;       // keys of a dq K/V tile
 constexpr int ROW_BYTES = 128;    // a box row: 64 bf16 values
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -417,6 +140,12 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// Two f32 values rounded to bf16 (nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // no read or write of the register A operands moves across this point
@@ -495,23 +224,70 @@ __device__ __forceinline__ uint64_t k_step(uint64_t desc, int kk, int box) {
   return desc + (uint64_t)((kk / 4) * (box >> 4) + 2 * (kk % 4));
 }
 
-// Shared memory of the forward at head dim D, in bytes: Q (OWN rows) as
-// NB = D / 64 boxes, then each stage's K and V boxes (FWD_KEYS rows),
-// then the barriers (Q's, and each stage's full and empty).
-template <int D>
-struct FwdRing {
+// Shared memory, in bytes, of a kernel at head dim D that owns OWNED
+// tiles of OWN rows (the forward: Q; dq: Q and dO) and streams K/V tiles
+// of KEYS keys through a ring of three stages: the owned tiles as NB = D
+// / 64 boxes each, then each stage's K and V boxes, then the barriers (the
+// owned tiles', and each stage's full and empty).
+template <int D, int K, int OWNED>
+struct KvRing {
+  static constexpr int KEYS = K;
   static constexpr int STAGES = 3;
   static constexpr int NB = D / 64;
   static constexpr int Q_BOX = OWN * ROW_BYTES;
-  static constexpr int KV_BOX = FWD_KEYS * ROW_BYTES;
-  static constexpr int RING = NB * Q_BOX;       // stage s at RING + s STAGE
-  static constexpr int V = NB * KV_BOX;         // V inside a stage
+  static constexpr int KV_BOX = KEYS * ROW_BYTES;
+  static constexpr int RING = OWNED * NB * Q_BOX;  // stage s: RING + s STAGE
+  static constexpr int V = NB * KV_BOX;            // V inside a stage
   static constexpr int STAGE = 2 * NB * KV_BOX;
   static constexpr int BARS = RING + STAGES * STAGE;
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8;
   static_assert(Q_BOX % 1024 == 0 && KV_BOX % 1024 == 0,
                 "boxes must keep the swizzle's alignment");
 };
+template <int D>
+using FwdRing = KvRing<D, FWD_KEYS, 1>;
+template <int D>
+using DqRing = KvRing<D, DQ_KEYS, 2>;
+
+// Thread 0 sets up a KvRing's barriers at `bars`: the owned tiles' (one
+// arrival with their bytes), each stage's full (the same) and empty (one
+// arrival a consumer warp); then the block meets.
+template <class L>
+__device__ __forceinline__ void init_ring(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    mbar_init(bars, 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(bars + 1 + s, 1);
+      mbar_init(bars + 1 + L::STAGES + s, CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer thread's part of a KvRing: K/V tiles 0 .. n_tiles - 1 of
+// head bh, tile i into stage i % STAGES once the consumers have emptied
+// it, counted on the stage's full barrier.
+template <class L>
+__device__ __forceinline__ void stream_kv(unsigned char* smem,
+                                          const CUtensorMap* kmap,
+                                          const CUtensorMap* vmap,
+                                          uint64_t* full, uint64_t* empty,
+                                          int n_tiles, int bh) {
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % L::STAGES;
+    if (i >= L::STAGES) mbar_wait(&empty[s], (i / L::STAGES - 1) & 1);
+    unsigned char* st = smem + L::RING + s * L::STAGE;
+    mbar_expect(&full[s], L::STAGE);
+#pragma unroll
+    for (int b = 0; b < L::NB; ++b) {
+      tma_load_3d(st + b * L::KV_BOX, kmap, 64 * b, i * L::KEYS, bh,
+                  &full[s]);
+      tma_load_3d(st + L::V + b * L::KV_BOX, vmap, 64 * b, i * L::KEYS, bh,
+                  &full[s]);
+    }
+  }
+}
 
 template <int D>
 __global__ void __launch_bounds__(WS_THREADS, 1)
@@ -535,15 +311,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   if (causal)  // the last tile any of the block's rows sees
     n_tiles = min(n_tiles, (min(q0 + OWN, Tq) + FWD_KEYS - 1) / FWD_KEYS);
 
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < L::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_ring<L>(q_full);
 
   if (threadIdx.x < 128) {  // the producer
     setmaxnreg_dec<24>();
@@ -552,20 +320,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 #pragma unroll
       for (int b = 0; b < L::NB; ++b)
         tma_load_3d(smem + b * L::Q_BOX, &qmap, 64 * b, q0, bh, q_full);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % L::STAGES;
-        if (i >= L::STAGES)
-          mbar_wait(&empty[s], (i / L::STAGES - 1) & 1);
-        unsigned char* st = smem + L::RING + s * L::STAGE;
-        mbar_expect(&full[s], L::STAGE);
-#pragma unroll
-        for (int b = 0; b < L::NB; ++b) {
-          tma_load_3d(st + b * L::KV_BOX, &kmap, 64 * b, i * FWD_KEYS, bh,
-                      &full[s]);
-          tma_load_3d(st + L::V + b * L::KV_BOX, &vmap, 64 * b, i * FWD_KEYS,
-                      bh, &full[s]);
-        }
-      }
+      stream_kv<L>(smem, &kmap, &vmap, full, empty, n_tiles, bh);
     }
     return;
   }
@@ -881,6 +636,137 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 }
 
 template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap domap,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ di,
+                             const __grid_constant__ CUtensorMap dqmap,
+                             const int* __restrict__ lens, int Tq, int Tk,
+                             int causal, float sm_scale) {
+  using L = DqRing<D>;
+  constexpr int NK = L::KEYS;
+  constexpr int DO = L::NB * L::Q_BOX;  // dO's boxes after Q's
+  extern __shared__ __align__(1024) unsigned char smem[];
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + L::STAGES;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * OWN;
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + NK - 1) / NK;
+  if (causal)  // the last tile any of the block's rows sees
+    n_tiles = min(n_tiles, (min(q0 + OWN, Tq) + NK - 1) / NK);
+
+  init_ring<L>(own_full);
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect(own_full, L::RING);
+#pragma unroll
+      for (int b = 0; b < L::NB; ++b) {
+        tma_load_3d(smem + b * L::Q_BOX, &qmap, 64 * b, q0, bh, own_full);
+        tma_load_3d(smem + DO + b * L::Q_BOX, &domap, 64 * b, q0, bh,
+                    own_full);
+      }
+      stream_kv<L>(smem, &kmap, &vmap, full, empty, n_tiles, bh);
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r_wg = q0 + 64 * cw;  // the warpgroup's first row
+  const int row[2] = {r_wg + 16 * warp + g, r_wg + 16 * warp + g + 8};
+  const float c = sm_scale * LOG2E;  // s * c is s * sm_scale in base 2
+  // p = 2^(s c - lse log2(e)); a row past Tq has lse = +inf, so p = 0
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < Tq;
+    lse2[h] = in ? lse[(size_t)bh * Tq + row[h]] * LOG2E : INFINITY;
+    di_r[h] = in ? di[(size_t)bh * Tq + row[h]] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+
+  if (n_tiles > 0) mbar_wait(own_full, 0);
+  const uint64_t dqa = sw128_desc(
+      reinterpret_cast<const float*>(smem + cw * 64 * ROW_BYTES));
+  const uint64_t doa = sw128_desc(
+      reinterpret_cast<const float*>(smem + DO + cw * 64 * ROW_BYTES));
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % L::STAGES;
+    mbar_wait(&full[s], (i / L::STAGES) & 1);
+    const int k0 = i * NK;
+    // a tile wholly above this warpgroup's diagonal, or rows all past
+    // Tq, add 0
+    if (r_wg < Tq && (!causal || k0 <= r_wg + 63)) {
+      const unsigned char* st = smem + L::RING + s * L::STAGE;
+      const uint64_t dk = sw128_desc(reinterpret_cast<const float*>(st));
+      const uint64_t dv =
+          sw128_desc(reinterpret_cast<const float*>(st + L::V));
+      float sc[NK / 2], dp[NK / 2];  // S, dP, then dS
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // S = Q K^T
+        WgmmaBf16<NK, 0>::mma(sc, k_step(dqa, kk, L::Q_BOX),
+                              k_step(dk, kk, L::KV_BOX), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // dP = dO V^T
+        WgmmaBf16<NK, 0>::mma(dp, k_step(doa, kk, L::Q_BOX),
+                              k_step(dv, kk, L::KV_BOX), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      const bool edge = k0 + NK > length || (causal && k0 + NK - 1 > r_wg);
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float p = ex2(fmaf(sc[4 * j + e], c, -lse2[h]));
+          if (edge) {
+            const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+            if (k_pos >= length || (causal && k_pos > row[h])) p = 0.f;
+          }
+          dp[4 * j + e] = p * (dp[4 * j + e] - di_r[h]);
+        }
+      uint32_t sa[NK / 16][4];  // bf16(dS)
+      pack_a<NK>(sa, dp);
+      const uint64_t km = sw128_mn_desc(st, L::KV_BOX);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk)  // dQ += dS K
+        WgmmaBf16Rs<D>::mma(acc, sa[kk], km + 128 * kk, 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_frags(sa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with it
+  }
+
+  // dq through this warpgroup's rows of Q's boxes, free after its last S
+  unsigned char* qt = smem + cw * 64 * ROW_BYTES;
+  const float scale[2] = {sm_scale, sm_scale};
+  stage_tile<D>(qt, L::Q_BOX, acc, scale, warp, g, t);
+  store_tile<D>(&dqmap, qt, L::Q_BOX, r_wg, bh, cw);
+}
+
+template <int D>
 cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
                        const int* lens, bf16* o, float* lse, int BH, int Tq,
                        int Tk, int causal, float sm_scale,
@@ -935,6 +821,35 @@ cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
   const dim3 grid(BH, (Tk + OWN - 1) / OWN);
   flash_bwd_dkv_bf16_kernel<D><<<grid, WS_THREADS, L::BYTES, stream>>>(
       qmap, kmap, vmap, domap, lse, di, dkmap, dvmap, lens, Tq, Tk, causal,
+      sm_scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
+                      const bf16* dout, const float* lse, const float* di,
+                      const int* lens, bf16* dq, int BH, int Tq, int Tk,
+                      int causal, float sm_scale, cudaStream_t stream) {
+  using L = DqRing<D>;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap qmap = {}, kmap = {}, vmap = {}, domap = {}, dqmap = {};
+  cudaError_t err = tensor_map_3d(&qmap, q, BF16, 2, D, Tq, BH, 64, OWN);
+  if (err == cudaSuccess)
+    err = tensor_map_3d(&domap, dout, BF16, 2, D, Tq, BH, 64, OWN);
+  if (err == cudaSuccess)
+    err = tensor_map_3d(&dqmap, dq, BF16, 2, D, Tq, BH, 64, 64);
+  if (err == cudaSuccess && Tk > 0)  // Tk = 0: no K/V, dq = 0
+    err = tensor_map_3d(&kmap, k, BF16, 2, D, Tk, BH, 64, DQ_KEYS);
+  if (err == cudaSuccess && Tk > 0)
+    err = tensor_map_3d(&vmap, v, BF16, 2, D, Tk, BH, 64, DQ_KEYS);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + OWN - 1) / OWN);
+  flash_bwd_dq_bf16_kernel<D><<<grid, WS_THREADS, L::BYTES, stream>>>(
+      qmap, kmap, vmap, domap, lse, di, dqmap, lens, Tq, Tk, causal,
       sm_scale);
   return cudaGetLastError();
 }
@@ -1005,7 +920,7 @@ extern "C" int paddle_flash_attention_bwd_dkv_bf16(
 // 2 dkv) at head dim D, in bytes; -1 for a D the kernels do not take.
 extern "C" int paddle_flash_attention_bf16_smem_bytes(int which, int D) {
   const int fwd[2] = {FwdRing<64>::BYTES, FwdRing<128>::BYTES};
-  const int dq[2] = {BwdSmem<64>::DQ_BYTES, BwdSmem<128>::DQ_BYTES};
+  const int dq[2] = {DqRing<64>::BYTES, DqRing<128>::BYTES};
   const int dkv[2] = {DkvRing<64>::BYTES, DkvRing<128>::BYTES};
   const int* table = which == 0 ? fwd : which == 1 ? dq : dkv;
   if (D == 64 || D == 128) return table[D == 128];

@@ -26,9 +26,9 @@ qkv back to the hidden dtype, as the JAX op does); the per-layer
 transformer under AMP hands them bf16 q/k/v, and the bf16 instances
 (``csrc/flash_attention_bf16.cu``: bf16 operands, f32 accumulators and
 softmax, P and dS rounded to bf16 before their products, outputs rounded
-once, as the Pallas kernels round) take them: the forward and dkv on
-``wgmma`` fed by TMA (a producer warpgroup and two consumer warpgroups,
-128 owned rows a block), dq on ``mma.sync.m16n8k16``. The f32 kernels
+once, as the Pallas kernels round) take them: all three on ``wgmma`` fed
+by TMA (a producer warpgroup and two consumer warpgroups, 128 owned rows
+a block). The f32 kernels
 run every product on the tensor cores as 3xTF32 (each operand split into
 two tf32 parts, three products summed in f32: f32 accuracy at up to 165
 TFLOP/s): the forward's S = QK^T on ``wgmma``
