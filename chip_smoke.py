@@ -7,6 +7,7 @@
     python3 chip_smoke.py --conv-only       # phases 1, 2 and 8 only
     python3 chip_smoke.py --paged-only      # phases 1, 2 and 4b only
     python3 chip_smoke.py --amp-only        # phases 1, 2 and 11 only
+    python3 chip_smoke.py --bf16-conv-only  # phases 1, 2 and 11a only
     python3 chip_smoke.py --per-layer-only  # phases 1, 2 and 12 only
     python3 chip_smoke.py --bf16-flash-only # phases 1, 2 and 12a only
 
@@ -117,10 +118,14 @@ Phases, each fatal on failure (nonzero exit, no result line):
     (a) the bf16 instances of conv1x1_stats, conv1x1_epilogue and
     scale_shift_act against their plain versions at every 1x1 shape of
     the ResNet-50 train step (batch 256) and served batch (16) and at
-    ragged shapes (outputs within one bf16 ulp, statistics within 1e-5
-    of each channel's summed magnitude, two launches bitwise equal),
-    timed beside the plain version, the bound (bf16 tensor-core rate or
-    bytes) and the library (bf16 torch.matmul, addcmul);
+    ragged shapes, those the persistent GEMM's walk must get right among
+    them (outputs within one bf16 ulp, statistics within 1e-5 of each
+    channel's summed magnitude, two launches bitwise equal); every
+    instance of the GEMM kernel on wgmma (HGMMA), TMA loads and stores
+    (UTMALDG, UTMASTG) and unspilled; timed beside the plain version, the
+    bound (bf16 tensor-core rate or bytes), the library (bf16
+    torch.matmul, addcmul; device time too) and the previous kernel's
+    recorded times;
     (b) ResNet-50 trained under AMP at batch 256: step-1 loss against the
     same step in f32 (3e-2) and the AMP plain path (1e-2), 33 bf16
     conv1x1_stats and scale_shift_act launches per step, a falling loss,
@@ -1136,12 +1141,12 @@ def _sass_counts(lib_name, match):
     """Opcode counts (cuobjdump -sass) of each kernel of library
     ``lib_name`` whose name contains ``match``: HGMMA is wgmma on the
     tensor cores, HMMA mma.sync, FFMA an f32 FMA on the CUDA cores,
-    UTMALDG a TMA load."""
+    UTMALDG a TMA load, UTMASTG a TMA store."""
     import re
 
     from paddle_tpu_torch.kernels import build
 
-    ops = ("HGMMA", "HMMA", "FFMA", "UTMALDG")
+    ops = ("HGMMA", "HMMA", "FFMA", "UTMALDG", "UTMASTG")
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(build.library_path(lib_name))],
@@ -2429,6 +2434,22 @@ def attention_rewrite_phase():
 AMP_RTOL = 3e-2
 AMP_PLAIN_RTOL = 1e-2
 BF16_KERNELS = tuple(f"{k}_bf16" for k in CONV_KERNELS)
+# The bf16 GEMM kernel before its persistent, warp-specialised rebuild
+# (one block a 128 x BN tile; PERF.md §6): ms at the heaviest shape,
+# summed over a ResNet-50 AMP step (stats) or served batch of 16
+# (epilogue) as called, and as device time.
+CONV_BF16_PREVIOUS_MS = {
+    "conv1x1_stats": {"ms": 0.308, "per_step_ms": 6.16,
+                      "per_step_device_ms": 5.47},
+    "conv1x1_epilogue": {"ms": 0.078, "per_step_ms": 1.63,
+                         "per_step_device_ms": 0.650},
+}
+# Shapes the persistent walk must get right, in both epilogues: more
+# items than the grid with a partial last row tile; fewer tiles than SMs
+# with a ragged K (the epilogue splits it); 64-wide tiles at O = 40 with
+# more items than the grid
+PERSISTENT_CASES = ((132 * 128 * 3 + 77, 64, 256), (900, 1000, 200),
+                    (50000, 128, 40))
 
 
 def _amp_counts(ke):
@@ -2507,9 +2528,11 @@ def amp_kernel_phase(gpu_name, train_shapes, infer_shapes):
 
     bf16, f32 = torch.bfloat16, torch.float32
     # ragged: I % 8 and O % 8 != 0 (the wrapper's padded rows), a partial
-    # K stage, tiles cut by R and O, both residual dtypes
+    # K stage, tiles cut by R and O, both residual dtypes; then the
+    # persistent walk's cases
     ragged = [(R, I, O, rd, act) for R, I, O in ((257, 30, 9), (1000, 72, 40),
                                                  (100, 136, 200))
+              + PERSISTENT_CASES
               for rd, act in ((None, None), (bf16, "relu"), (f32, "relu"))]
     train = sorted({(R, I, O, bf16 if res else None, act)
                     for R, I, O, res, act in train_shapes}, key=str)
@@ -2578,6 +2601,20 @@ def amp_kernel_phase(gpu_name, train_shapes, infer_shapes):
     usage = _kernel_usage("conv_epilogue", lambda name, args: smem(args[0]),
                           match="conv1x1_bf16_kernel")
     sass = _sass_counts("conv_epilogue", "conv1x1_bf16_kernel")
+    # every instance: products on wgmma, operands by TMA loads, outputs by
+    # TMA stores, nothing spilled
+    assert sass and sorted(sass) == sorted(usage), (sorted(sass),
+                                                    sorted(usage))
+    for key, c in sass.items():
+        u = usage[key]
+        assert c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0, (
+            key, c)
+        assert not u.get("spill_store_bytes") and not u.get(
+            "spill_load_bytes"), (key, u)
+    serialised = [line.strip() for line in build.log_path("conv_epilogue")
+                  .read_text().splitlines() if "C7515" in line]
+    print(f"ptxas conv_epilogue: {len(serialised)} wgmma serialisation "
+          f"warnings (C7515)" + "".join(f"\n  {x}" for x in serialised))
 
     def matmul_lib(x, w):
         with f32_accumulation():
@@ -2622,11 +2659,19 @@ def amp_kernel_phase(gpu_name, train_shapes, infer_shapes):
                    "residual": None if rd is None else str(rd)}
             if kind != "scale_shift_act":
                 row["device_ms"] = _device_ms(calls[0])
+                row["library_device_ms"] = _device_ms(calls[2])
+                row["grid"] = ke.tile_plan(
+                    R, I, O, kind == "conv1x1_epilogue", ke.K_TILE_BF16).grid
             timed[kind][(R, I, O, rd is not None, act)] = row
+            dev = lib_dev = ""
+            if kind != "scale_shift_act":
+                dev = f" (device {_ms_text(row['device_ms'], '.4f')})"
+                lib_dev = (f" (device "
+                           f"{_ms_text(row['library_device_ms'], '.4f')})")
             print(f"bf16 {kind} R{R} I{I} O{O} residual={rd} act={act} "
-                  f"x{count}: {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
-                  f", library {row['library_ms']:.4f}, bound {bound:.4f} "
-                  f"({by})")
+                  f"x{count}: {row['ms']:.4f} ms{dev}, plain "
+                  f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}"
+                  f"{lib_dev}, bound {bound:.4f} ({by})")
             del x, w, r, calls
     _reset_amp_counts(ke)  # comparison launches do not count
 
@@ -2642,7 +2687,7 @@ def amp_kernel_phase(gpu_name, train_shapes, infer_shapes):
         shape, top = max(rows.items(), key=lambda kv: kv[1]["bound_ms"])
         per_step = {k: sum(r[k] * r["count"] for r in rows.values())
                     for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                              "device_ms")
+                              "device_ms", "library_device_ms")
                     if all(r.get(k) is not None for r in rows.values())}
         rec = {
             "name": f"{kind}_bf16", "route": "cuda",
@@ -2663,6 +2708,8 @@ def amp_kernel_phase(gpu_name, train_shapes, infer_shapes):
             rec["stats_err_of_mass"] = stats_err
         if kind != "scale_shift_act":
             rec["ptxas"], rec["sass"] = usage, sass
+            rec["previous_ms"] = CONV_BF16_PREVIOUS_MS[kind]
+        was = rec.get("previous_ms")
         print(f"{kind}_bf16: heaviest shape {rec['shape']} {top['ms']:.4f} ms "
               f"vs bound {top['bound_ms']:.4f} ({top['bound_by']}), library "
               f"{top['library_ms']:.4f}; per "
@@ -2670,7 +2717,13 @@ def amp_kernel_phase(gpu_name, train_shapes, infer_shapes):
               f"{per_step['ms']:.3f} ms (plain {per_step['plain_ms']:.3f}, "
               f"library {per_step['library_ms']:.3f}, bound "
               f"{per_step['bound_ms']:.3f}; device time "
-              f"{_ms_text(per_step.get('device_ms'))})")
+              f"{_ms_text(per_step.get('device_ms'))}, library's "
+              f"{_ms_text(per_step.get('library_device_ms'))})"
+              + ("" if was is None else
+                 f"; one block a tile: {was['ms']:.3f} ms, "
+                 f"{was['per_step_ms']:.2f} a "
+                 f"{'batch' if kind == 'conv1x1_epilogue' else 'step'} "
+                 f"(device {was['per_step_device_ms']:.3f})"))
         records.append(rec)
     return records
 
@@ -3542,6 +3595,11 @@ def main():
                              "(mixed precision: the bf16 kernels, ResNet-50 "
                              "training and serving, the LM); prints no ok "
                              "line")
+    parser.add_argument("--bf16-conv-only", action="store_true",
+                        help="build the kernels and run only phase 11a (the "
+                             "bf16 conv-epilogue kernels against their plain "
+                             "versions at ResNet-50's shapes, timed); prints "
+                             "no ok line")
     parser.add_argument("--per-layer-only", action="store_true",
                         help="build the kernels and run only phase 12 (the "
                              "bf16 flash kernels and the per-layer LM in f32 "
@@ -3598,6 +3656,20 @@ def main():
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_amp.json").write_text(json.dumps(
             {"gpu": smi, "kernels": recs, "amp": amp}, indent=1))
+        print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                      for r in recs]}))
+        print(smi)
+        return
+    if args.bf16_conv_only:
+        import paddle_tpu_torch as pt
+
+        resnet = _build_resnet(pt, RESNET)
+        recs = amp_kernel_phase(gpu, _fused_shapes(resnet[0], RESNET["batch"]),
+                                _fused_shapes(resnet[2], RESNET["infer_batch"]))
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_bf16_conv.json").write_text(json.dumps(
+            {"gpu": smi, "kernels": recs}, indent=1))
         print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                       for r in recs]}))
         print(smi)

@@ -39,11 +39,19 @@ kernels take either:
   (``preferred_element_type=jnp.float32``). Half the bytes of the f32
   instance and the tensor cores' full bf16 rate: bound by bytes where
   I*O/(I+O) is below ~300 (ResNet-50's shapes with I or O <= 256), by
-  operations above.
+  operations above. At those shapes a 128 x BN tile is one to a few K
+  stages, so its epilogue, not its products, is what a tile costs beyond
+  its bytes. The kernel is persistent and warp-specialised: ``grid``
+  blocks of the plan (one an SM, or one a work item where there are
+  fewer) each walk work items (tile, K slice), a producer warpgroup
+  streams their stages through a TMA ring across item boundaries while
+  the consumers run an item's epilogue, and outputs leave by TMA stores.
 
 ``tile_plan`` sizes the grid from (R, I, O): 64-wide tiles when O <= 64,
 and, for the epilogue, K cut into slices where the output tiles fill less
-than one wave of the SMs (the slices are added in a fixed order).
+than one wave of the SMs (the slices are added in a fixed order); the bf16
+kernel's persistent ``grid`` and its walk order follow from the plan
+(``TilePlan.grid``).
 ``scale_shift_act`` is bound by bytes and moves four values a thread
 when O % 4 == 0. Every R, I and O is taken: ragged edges are handled in
 the kernels (a bf16 row whose stride is not a multiple of 16 bytes, which
@@ -73,6 +81,7 @@ K_TILE = 32           # K depth of one f32 ring stage (csrc: BK)
 K_TILE_BF16 = 64      # K depth of one bf16 ring stage (csrc: BK16)
 SMS = 132             # streaming multiprocessors of an H100 SXM
 MIN_SLICE_STEPS = 4   # a split-K slice runs at least 4 f32 stages (128 deep)
+BLOCKS_PER_SM_BF16 = 1  # the bf16 kernel's 384-thread blocks an SM
 
 
 class TilePlan(NamedTuple):
@@ -98,21 +107,42 @@ class TilePlan(NamedTuple):
         """The split-K partial products, or None without a split."""
         return (self.slices, R, O) if self.slices > 1 else None
 
+    @property
+    def work(self) -> int:
+        """Work items of the bf16 kernel's walk: (row tile, column tile,
+        K slice)."""
+        return self.tiles_r * self.tiles_o * self.slices
+
+    @property
+    def grid(self) -> int:
+        """Blocks of the bf16 kernel's persistent grid: one a work item,
+        at most BLOCKS_PER_SM_BF16 on each of the SMS SMs. Block b walks
+        the items b, b + grid, ... (column tiles fastest, then row tiles,
+        then slices), so the blocks at work at one moment share x's
+        rows."""
+        return max(1, min(self.work, SMS * BLOCKS_PER_SM_BF16))
+
 
 def tile_plan(R, I, O, split_k=False, k_tile=K_TILE):
     """The kernels' grid for an [R, I] x [I, O] product: 64-wide tiles
     when O <= 64 (no half tile of padding), else 128. With ``split_k``
     (the epilogue; the stats need none at ResNet's shapes), where the
     128-row tiles fill less than one wave of the SMS SMs, K is cut into
-    slices at least 128 deep (MIN_SLICE_STEPS f32 stages) until they do.
-    ``k_tile`` is a stage's depth: K_TILE (f32) or K_TILE_BF16."""
+    slices at least 128 deep (MIN_SLICE_STEPS f32 stages). ``k_tile`` is
+    a stage's depth: K_TILE (f32: one block a tile, so slices until the
+    tiles fill a wave) or K_TILE_BF16 (the persistent kernel: as many
+    slices as keep every item in one round of its grid, so no block runs
+    a second item while others idle)."""
     bn = 64 if O <= 64 else 128
     tiles_r, tiles_o = -(-R // ROW_TILE), -(-O // bn)
     k_steps = -(-I // k_tile)
     min_steps = MIN_SLICE_STEPS * K_TILE // k_tile
     slices = 1
     tiles = tiles_r * tiles_o
-    if split_k and 0 < tiles < SMS:
+    if split_k and 0 < tiles < SMS and k_tile == K_TILE_BF16:
+        slices = max(1, min(SMS * BLOCKS_PER_SM_BF16 // tiles,
+                            k_steps // min_steps))
+    elif split_k and 0 < tiles < SMS:
         slices = max(1, min(-(-SMS // tiles), k_steps // min_steps))
     slice_steps = -(-k_steps // slices) if k_steps else 0
     slices = -(-k_steps // slice_steps) if slice_steps else 1
@@ -171,13 +201,13 @@ _ARGTYPES = {
     # y, scale, shift, residual, out, R (long long), O, relu, stream
     "paddle_scale_shift_act_f32": [ctypes.c_void_p] * 5
     + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    # x, w, y, partial, stats, R, I, O, ldx, ldw, bn, stream
-    "paddle_conv1x1_stats_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    # x, w, y, partial, stats, R, I, O, ldx, ldw, bn, grid, stream
+    "paddle_conv1x1_stats_bf16": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
     # x, w, scale, shift, residual, out, slice_out, R, I, O, ldx, ldw,
-    # res_f32, relu, bn, slices, slice_steps, stream
+    # res_f32, relu, bn, slices, slice_steps, grid, stream
     "paddle_conv1x1_epilogue_bf16": [ctypes.c_void_p] * 7
-    + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 11 + [ctypes.c_void_p],
     # y, scale, shift, residual, out, R (long long), O, res_f32, relu,
     # stream
     "paddle_scale_shift_act_bf16": [ctypes.c_void_p] * 5
@@ -197,11 +227,12 @@ def _bind(fn_name):
         lib.paddle_cuda_error_string.argtypes = [ctypes.c_int]
         lib.paddle_cuda_error_string.restype = ctypes.c_char_p
         tiles = (lib.paddle_conv1x1_row_tile(), lib.paddle_conv1x1_k_tile(),
-                 lib.paddle_conv1x1_k_tile_bf16())
-        if tiles != (ROW_TILE, K_TILE, K_TILE_BF16):
-            raise RuntimeError(f"{_LIB} was built with tiles {tiles}, the "
-                               f"plan expects "
-                               f"{(ROW_TILE, K_TILE, K_TILE_BF16)}")
+                 lib.paddle_conv1x1_k_tile_bf16(),
+                 lib.paddle_conv1x1_blocks_per_sm_bf16())
+        want = (ROW_TILE, K_TILE, K_TILE_BF16, BLOCKS_PER_SM_BF16)
+        if tiles != want:
+            raise RuntimeError(f"{_LIB} was built with tiles and blocks an "
+                               f"SM {tiles}, the plan expects {want}")
     return lib, fn
 
 
@@ -299,7 +330,7 @@ def _launch_stats_bf16(x2, w):
     with torch.cuda.device(dev):
         err = fn(x2.data_ptr(), w.data_ptr(), y.data_ptr(),
                  partial.data_ptr(), stats.data_ptr(), R, I, O, ldx, ldw,
-                 plan.bn, _stream(dev))
+                 plan.bn, plan.grid, _stream(dev))
     _raise_on(lib, err, "conv1x1_stats")
     conv1x1_stats.bf16_launches += 1
     return y, stats
@@ -346,7 +377,7 @@ def _launch_epilogue_bf16(x2, w, scale, shift, residual, act):
                  R, I, O, ldx, ldw,
                  int(res is not None and res.dtype == torch.float32),
                  int(act == "relu"), plan.bn, plan.slices, plan.slice_steps,
-                 _stream(dev))
+                 plan.grid, _stream(dev))
     _raise_on(lib, err, "conv1x1_epilogue")
     conv1x1_epilogue.bf16_launches += 1
     return out

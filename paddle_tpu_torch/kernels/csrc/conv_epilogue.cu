@@ -77,15 +77,39 @@
 //   operands read from shared memory by descriptor, as TMA stores them in
 //   the 128-byte swizzle: x's tile K-major (rows of 64 values), W's tile
 //   MN-major as W [I, O] lies in memory (K rows of 64 values along N), so
-//   there is no pre-pass over W. 64-deep K stages in a ring of 4, filled by
-//   one thread's TMA copies on an mbarrier, as in the f32 kernel; each
-//   stage's 4 products go into fresh registers, added in f32 (the tensor
-//   cores' accumulation truncates). The epilogue, statistics and split K
-//   are the f32 kernel's, with bf16 stores.
+//   there is no pre-pass over W.
 // - Bound on the H100: 2*R*I*O FLOPs at 989 TFLOP/s on 2*(R*I + I*O + R*O)
 //   bytes (bf16 in and out) at 3.35 TB/s: the ridge is ~295 FLOP/byte,
 //   about I*O/(I+O) at large R, so ResNet-50's 1x1 shapes with I or O <= 256
 //   are bound by bytes and the 512 x 1024 and x 2048 ones by operations.
+//   Most of them are one or a few 64-deep K stages a 128 x BN tile (I = 64:
+//   one), so what a tile costs besides its bytes, its epilogue above all
+//   (the statistics' shuffles, the rounding, the stores), decides the time.
+// - The design about that: a persistent, warp-specialised kernel. The grid
+//   is one block an SM (the plan's `grid`: at most one a work item, a 128 x
+//   BN tile and K slice), each walking items blockIdx.x, + gridDim.x, ...,
+//   column tiles fastest (work_item). A block is a producer warpgroup
+//   (setmaxnreg 40; one thread issues every TMA copy) and two consumer
+//   warpgroups (setmaxnreg 232) of 64 rows each (ws_ring.cuh). The
+//   producer streams the (x box, W boxes) stages of every item through a
+//   full/empty mbarrier ring (4 stages at BN = 128, 7 at BN = 64) across
+//   item boundaries, so the next items' loads are in flight while the
+//   consumers run an item's epilogue. A residual is read in the
+//   accumulator's layout, a row's loads all started before the first is
+//   used (an L2 prefetch of its tile by the producer measured slower).
+// - Each 64-deep stage's 4 products go into fresh registers, added in f32
+//   (the tensor cores' accumulation truncates), as before: two launches
+//   give what the one-block-a-tile kernel gave, bit for bit.
+// - The epilogue leaves by TMA stores: each consumer warpgroup rounds its
+//   [64, BN] once into its staging tile, y by stmatrix, out by 4-byte
+//   stores (a row of packed values for stmatrix spills the affine
+//   epilogue at BN = 128), and one of its threads stores the boxes
+//   (cp.async.bulk.tensor); stores from registers measured slower. Where O % 8 != 0 the rows are not 16-byte
+//   aligned and the kernel stores from registers; a split K's raw f32
+//   slices too. The statistics keep their fixed order (the thread's pair,
+//   shuffles over 8 lanes, the 8 warps in order through shared memory,
+//   behind a named barrier of the 256 consumer threads); stats_reduce_kernel
+//   adds the row tiles after.
 // - scale_shift_act in bf16 (y and out bf16, residual bf16 or f32): the f32
 //   kernel's pass over four values a thread, 8-byte bf16 loads and stores.
 #include <cuda.h>  // CUtensorMap (its encoder comes from the runtime)
@@ -93,10 +117,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tf32x3.cuh"
 #include "tma.cuh"
 #include "wgmma_bf16.cuh"
 #include "wgmma_tf32.cuh"
+#include "ws_ring.cuh"
 
 namespace {
 
@@ -586,242 +613,406 @@ cudaError_t launch_apply(const TY* y, int slices, const float* scale,
 // --- the bf16 instances ----------------------------------------------------
 
 constexpr int BK16 = 64;  // bf16 K depth of one ring stage: rows of 128 bytes
+constexpr int BF16_BLOCKS_PER_SM = 1;  // 384 threads at 168 registers
+constexpr int OUT_BOX = 64 * 64 * 2;   // a [64 rows][64 columns] bf16 box
 
-// One bf16 ring stage, in bytes: x's tile [BM][BK16] K-major, then W's
-// tile as BN / 64 MN-major boxes of [BK16][64], each in the 128-byte
-// swizzle TMA writes (see sw128_desc, sw128_mn_desc). Every stage starts
-// on a 1024-byte boundary; the barriers follow the stages.
+// Shared memory of conv1x1_bf16_kernel at BN, in bytes: the ring's
+// stages (x's [BM][BK16] box K-major, then W's BN / 64 boxes of
+// [BK16][64], MN-major as W [I, O] lies, each in the 128-byte swizzle
+// TMA writes: see sw128_desc, sw128_mn_desc); then the output staging
+// tile, each consumer warpgroup's [64, BN] as BN / 64 boxes of [64][64]
+// in the same swizzle, which its TMA stores read; then the statistics'
+// per-warp column sums [8 warps][2][BN] f32 for two items, so that one
+// barrier an item keeps the next item's writers off this item's
+// readers; then the ring's barriers. Every box starts on a 1024-byte
+// boundary.
 template <int BN>
 struct RingBf16 {
-  static constexpr int STAGES = 4;
+  static constexpr int STAGES = BN == 128 ? 4 : 7;
+  static constexpr int NB = BN / 64;
   static constexpr int A = BM * BK16 * 2;
   static constexpr int B_BOX = 64 * BK16 * 2;  // one 64-wide N box
-  static constexpr int STAGE = A + BN / 64 * B_BOX;
-  static constexpr int BARRIERS = STAGES * STAGE;
-  static constexpr int BYTES = BARRIERS + 2 * STAGES * 8;
-  static_assert(STAGE % 1024 == 0, "stages must keep the swizzle's alignment");
-  // the epilogue's staged f32 tile and the stats' per-warp sums reuse it
-  static_assert(4 * (BM * (BN + 8) + 2 * NWARPS * BN) <= STAGES * STAGE,
-                "the epilogue must fit the ring");
+  static constexpr int STAGE = A + NB * B_BOX;
+  static constexpr int OUT = STAGES * STAGE;
+  static constexpr int RED = OUT + 2 * NB * OUT_BOX;
+  static constexpr int RED_TILE = CONSUMER_WARPS * 2 * BN;  // floats
+  static constexpr int BARS = RED + 2 * RED_TILE * 4;
+  static constexpr int BYTES = BARS + 2 * STAGES * 8;
+  static_assert(STAGE % 1024 == 0 && OUT % 1024 == 0,
+                "boxes must keep the swizzle's alignment");
+  static_assert(BYTES <= 232448, "more shared memory than a block has");
 };
 
-// The 128 x BN output tile blockIdx.x (column tiles fastest) over the K
-// steps of slice blockIdx.y, bf16 operands, f32 accumulation. kStats: y in
-// bf16 into out and this row tile's column sums (of the f32 accumulator)
-// into partial[tile, 2, O]. kAffine: act(y * scale + shift [+ residual])
-// into out in bf16, or, with slice_out (a split K), the raw f32 slice into
-// slice_out + slice * R * O.
-template <int BN, int EPI, typename TR>
-__global__ void __launch_bounds__(NTHREADS, BN == 128 ? 1 : 2)
-conv1x1_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
-                    const __grid_constant__ CUtensorMap wmap,
-                    const float* __restrict__ scale,
-                    const float* __restrict__ shift,
-                    const TR* __restrict__ residual, bf16* __restrict__ out,
-                    float* __restrict__ slice_out,
-                    float* __restrict__ partial, int R, int O, int k_steps,
-                    int slice_steps, int relu) {
-  using L = RingBf16<BN>;
-  constexpr int NACC = BN / 2;
-  extern __shared__ __align__(1024) float smem[];
-  char* ring = reinterpret_cast<char*>(smem);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + L::BARRIERS);
-  uint64_t* empty = full + L::STAGES;
-  const int tiles_o = (O + BN - 1) / BN;
-  const int tile_r = blockIdx.x / tiles_o;
-  const int row0 = tile_r * BM;
-  const int col0 = (blockIdx.x % tiles_o) * BN;
-  const int step0 = blockIdx.y * slice_steps;
-  const int nk = max(0, min(slice_steps, k_steps - step0));
+// Work item t of a block's walk (t = blockIdx.x, + gridDim.x, ...): the
+// 128 x BN output tile and K slice it covers. Column tiles run fastest,
+// then row tiles, then slices, so that the blocks at work at one moment
+// read the same rows of x, the second time from L2.
+struct Work {
+  int row0, col0, tile_r, slice, step0, nk;
+};
 
-  const int warp = threadIdx.x / 32;
-  const int g = (threadIdx.x % 32) >> 2;
-  const int t = threadIdx.x & 3;
-  const int r_in = 16 * warp + g;  // this thread's rows: r_in, r_in + 8
-  const int wg = threadIdx.x / 128;
+template <int BN>
+__device__ __forceinline__ Work work_item(int t, int tiles_o, int tiles,
+                                          int k_steps, int slice_steps) {
+  Work w;
+  w.slice = t / tiles;
+  const int rc = t - w.slice * tiles;
+  w.tile_r = rc / tiles_o;
+  w.row0 = w.tile_r * BM;
+  w.col0 = (rc - w.tile_r * tiles_o) * BN;
+  w.step0 = w.slice * slice_steps;
+  w.nk = max(0, min(slice_steps, k_steps - w.step0));
+  return w;
+}
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < L::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], NTHREADS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+// Consumer warpgroup cw's products of ring stage i (counted over the
+// kernel): its 64 rows of x's box times W's boxes, the four k16 steps
+// summed into fresh registers p, committed as one group for the caller
+// to wait for. Returns the stage's slot.
+template <class L, int BN>
+__device__ __forceinline__ int stage_products(float (&p)[BN / 2],
+                                              const unsigned char* ring,
+                                              uint64_t* full, int i, int cw) {
+  const int s = i % L::STAGES;
+  mbar_wait(&full[s], (i / L::STAGES) & 1);
+  const unsigned char* st = ring + s * L::STAGE;
+  // a k16 step is 32 bytes along x's rows (+2) and 16 of W's rows (+128)
+  const uint64_t da =
+      sw128_desc(reinterpret_cast<const float*>(st + cw * 64 * BK16 * 2));
+  const uint64_t db = sw128_mn_desc(st + L::A, L::B_BOX);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < BK16 / 16; ++k)
+    WgmmaBf16<BN>::mma(p, da + 2 * k, db + 128 * k, k);  // k == 0: fresh
+  wgmma_commit();
+  return s;
+}
 
-  // Stage i into slot i % STAGES: x's 128 x 64 box and W's 64 x 64 boxes,
-  // started by thread 0 and counted on the slot's full barrier.
-  auto produce = [&](int i) {
-    char* st = ring + (i % L::STAGES) * L::STAGE;
-    uint64_t* bar = &full[i % L::STAGES];
-    const int k0 = (step0 + i) * BK16;
-    mbar_expect(bar, L::STAGE);
-    tma_load(reinterpret_cast<float*>(st), &xmap, k0, row0, bar);
-#pragma unroll
-    for (int h = 0; h < BN / 64; ++h)
-      tma_load(reinterpret_cast<float*>(st + L::A + h * L::B_BOX), &wmap,
-               col0 + 64 * h, k0, bar);
-  };
-  if (threadIdx.x == 0)
-    for (int s = 0; s < L::STAGES - 1 && s < nk; ++s) produce(s);
+// A consumer warp is done with ring slot s.
+__device__ __forceinline__ void release(uint64_t* empty, int s, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[s]);
+}
 
-  float acc[NACC], part[NACC];
+template <int N>
+__device__ __forceinline__ void add_into(float (&acc)[N],
+                                         const float (&p)[N]) {
 #pragma unroll
-  for (int e = 0; e < NACC; ++e) acc[e] = part[e] = 0.f;
+  for (int e = 0; e < N; ++e) acc[e] += p[e];
+}
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int slot = kt % L::STAGES;
-    mbar_wait(&full[slot], (kt / L::STAGES) & 1);
-    const char* st = ring + slot * L::STAGE;
-    // this warpgroup's 64 rows of x, and W's boxes; a k16 step is 32
-    // bytes along x's rows (+2) and 16 of W's rows (+128)
-    const uint64_t da = sw128_desc(
-        reinterpret_cast<const float*>(st + wg * 64 * BK16 * 2));
-    const uint64_t db = sw128_mn_desc(st + L::A, L::B_BOX);
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < BK16 / 16; ++s)
-      WgmmaBf16<BN>::mma(part, da + 2 * s, db + 128 * s, s);  // s == 0: fresh
-    wgmma_commit();
+// Four 8 x 8 bf16 blocks from a warp's registers to shared memory: lane l
+// holds row l / 4, columns 2 (l % 4) and + 1 of each block, packed (mma's
+// C layout), and gives the address of row l % 8 of block l / 8.
+__device__ __forceinline__ void stmatrix_x4(void* row, uint32_t b0,
+                                            uint32_t b1, uint32_t b2,
+                                            uint32_t b3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(smem_u32(row)),
+      "r"(b0), "r"(b1), "r"(b2), "r"(b3)
+      : "memory");
+}
 
-    // while the products run: refill the slot stage kt - 1 used, once
-    // every thread has let it go
-    const int nxt = kt + L::STAGES - 1;
-    if (nxt < nk && threadIdx.x == 0) {
-      if (kt > 0) mbar_wait(&empty[nxt % L::STAGES], (kt - 1) / L::STAGES & 1);
-      produce(nxt);
-    }
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = pack(a, b);
+}
 
-    wgmma_wait_all();
-    fence_regs(part);
-#pragma unroll
-    for (int e = 0; e < NACC; ++e) acc[e] += part[e];
-    mbar_arrive(&empty[slot]);
-  }
-  __syncthreads();  // every warp is done with the ring
-
-  // as in conv1x1_tf32x3_kernel: the f32 tile through shared memory, the
-  // column sums by shuffles and then the 8 warps in order
-  constexpr int OST = BN + 8;
-  float* ot = smem;
-  if (EPI == kStats) {
-    float* red = smem + BM * OST;  // [NWARPS][2][BN]
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float a = acc[4 * j + e], b = acc[4 * j + 2 + e];
-        float s = a + b, q = fmaf(b, b, a * a);
-#pragma unroll
-        for (int m = 4; m < 32; m <<= 1) {
-          s += __shfl_xor_sync(0xffffffffu, s, m);
-          q += __shfl_xor_sync(0xffffffffu, q, m);
-        }
-        if (g == 0) {
-          red[(2 * warp) * BN + 8 * j + 2 * t + e] = s;
-          red[(2 * warp + 1) * BN + 8 * j + 2 * t + e] = q;
-        }
-      }
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      *reinterpret_cast<float2*>(ot + (r_in + 8 * h) * OST + 8 * j + 2 * t) =
-          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-  __syncthreads();
-
-  if (EPI == kStats) {
-    const float* red = smem + BM * OST;
-    for (int idx = threadIdx.x; idx < 2 * BN; idx += NTHREADS) {
-      const int stat = idx / BN, c = idx % BN;
-      if (col0 + c >= O) continue;
-      float total = 0.f;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) total += red[(2 * w + stat) * BN + c];
-      partial[((size_t)tile_r * 2 + stat) * O + col0 + c] = total;
-    }
-  }
-  const bool affine = EPI == kAffine && slice_out == nullptr;
-  float* raw = slice_out == nullptr ? nullptr
-                                    : slice_out + (size_t)blockIdx.y * R * O;
-  if ((O & 3) == 0) {  // four values at a time, inside a row
-#pragma unroll 4
-    for (int idx = threadIdx.x; idx < BM * BN / 4; idx += NTHREADS) {
-      const int r = idx / (BN / 4), c = (idx % (BN / 4)) * 4;
-      const int row = row0 + r, col = col0 + c;
-      if (row >= R || col >= O) continue;
-      float4 v = *reinterpret_cast<const float4*>(ot + r * OST + c);
-      const size_t at = (size_t)row * O + col;
-      if (raw != nullptr) {
-        store4(raw + at, v);
-        continue;
-      }
-      if (affine) {
-        const float4 sc = *reinterpret_cast<const float4*>(scale + col);
-        const float4 sh = *reinterpret_cast<const float4*>(shift + col);
-        v = make_float4(v.x * sc.x + sh.x, v.y * sc.y + sh.y,
-                        v.z * sc.z + sh.z, v.w * sc.w + sh.w);
-        if (residual != nullptr) {
-          const float4 res = load4(residual + at);
-          v.x += res.x; v.y += res.y; v.z += res.z; v.w += res.w;
-        }
-        if (relu)
-          v = make_float4(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f), fmaxf(v.z, 0.f),
-                          fmaxf(v.w, 0.f));
-      }
-      store4(out + at, v);
-    }
+// Values a, b of columns c, c + 1 of a row-major [R, O] row at p (= its
+// column c): both where O is even (8- or 4-byte aligned), else each as
+// far as O reaches.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b, int c,
+                                           int O) {
+  if ((O & 1) == 0) {
+    store2(p, a, b);
   } else {
-    for (int idx = threadIdx.x; idx < BM * BN; idx += NTHREADS) {
-      const int r = idx / BN, c = idx % BN;
-      const int row = row0 + r, col = col0 + c;
-      if (row >= R || col >= O) continue;
-      float v = ot[r * OST + c];
-      const size_t at = (size_t)row * O + col;
-      if (raw != nullptr) {
-        raw[at] = v;
-        continue;
-      }
-      if (affine) {
-        v = v * scale[col] + shift[col];
-        if (residual != nullptr) v += to_f32(residual[at]);
-        if (relu) v = fmaxf(v, 0.f);
-      }
-      store1(out + at, v);
-    }
+    store1(p, a);
+    if (c + 1 < O) store1(p + 1, b);
   }
 }
 
+// The bf16 GEMM, persistent and warp-specialised: gridDim.x blocks, each
+// walking the work items t = blockIdx.x, + gridDim.x, ... (work_item).
+// bf16 operands, f32 accumulation. kStats: y in bf16 into out and each
+// row tile's column sums (of the f32 accumulator) into partial[tile, 2,
+// O]. kAffine: act(y * scale + shift [+ residual]) into out in bf16, or,
+// with slice_out (a split K), the raw f32 slice into slice_out + slice *
+// R * O. tma_out: out's rows start 16 bytes apart (O % 8 == 0), so its
+// tiles leave by TMA stores (omap).
+template <int RES_F32>
+using Residual = typename std::conditional<RES_F32 != 0, float, bf16>::type;
+
+template <int BN, int EPI, int RES_F32>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+conv1x1_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap omap,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ shift,
+                    const Residual<RES_F32>* __restrict__ residual,
+                    bf16* __restrict__ out, float* __restrict__ slice_out,
+                    float* __restrict__ partial, int R, int O, int k_steps,
+                    int slice_steps, int slices, int relu, int tma_out) {
+  using L = RingBf16<BN>;
+  constexpr int NACC = BN / 2;
+  extern __shared__ __align__(1024) float smem_f32[];  // as the f32 kernel's
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f32);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* empty = full + L::STAGES;
+  const int tiles_o = (O + BN - 1) / BN;
+  const int tiles = (R + BM - 1) / BM * tiles_o;
+  const int work = tiles * slices;
+
+  init_ring<L::STAGES, 0>(full);
+
+  if (threadIdx.x < 128) {  // the producer: every stage of every item
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int i = 0;
+      for (int tt = blockIdx.x; tt < work; tt += gridDim.x) {
+        const Work w = work_item<BN>(tt, tiles_o, tiles, k_steps,
+                                     slice_steps);
+        for (int kt = 0; kt < w.nk; ++kt, ++i) {
+          const int s = ring_acquire<L::STAGES>(full, empty, i, L::STAGE);
+          unsigned char* st = smem + s * L::STAGE;
+          const int k0 = (w.step0 + kt) * BK16;
+          tma_load(reinterpret_cast<float*>(st), &xmap, k0, w.row0, &full[s]);
+#pragma unroll
+          for (int h = 0; h < L::NB; ++h)
+            tma_load(reinterpret_cast<float*>(st + L::A + h * L::B_BOX),
+                     &wmap, w.col0 + 64 * h, k0, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup: rows 64 cw..
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int cwarp = 4 * cw + warp;  // the consumer warps in row order
+  const int r_wg = 16 * warp + g;   // this thread's rows: r_wg, r_wg + 8
+  const bool issuer = threadIdx.x % 128 == 0;
+  unsigned char* staged = smem + L::OUT + cw * L::NB * OUT_BOX;
+  const bool affine = EPI == kAffine && slice_out == nullptr;
+
+  float acc[NACC], part[NACC];
+  int i = 0, par = 0;
+  for (int tt = blockIdx.x; tt < work; tt += gridDim.x, par ^= 1) {
+    const Work w = work_item<BN>(tt, tiles_o, tiles, k_steps, slice_steps);
+#pragma unroll
+    for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
+    // Each stage's four products go into fresh registers, added to acc
+    // in f32 in stage order (the tensor cores' accumulation truncates),
+    // and the stage is released once they have read it. (A second stage
+    // in flight, in a second set of fresh registers waited for with
+    // wgmma.wait_group 1, spills the affine epilogue at BN = 128.)
+    for (int kt = 0; kt < w.nk; ++kt, ++i) {
+      const int slot = stage_products<L, BN>(part, smem, full, i, cw);
+      wgmma_wait_all();
+      fence_regs(part);
+      add_into(acc, part);
+      release(empty, slot, lane);
+    }
+
+    // The epilogue, while the producer fills the ring with the next
+    // items' stages. The staging tile is free once this warpgroup's last
+    // TMA store has read it.
+    if (tma_out && issuer) bulk_wait_read();
+    if (EPI == kStats) {
+      // column sums: this thread's two rows, the 8 lanes (g) that share
+      // the column by shuffles, then the 8 warps in order (rows past R
+      // hold exact zeros), as in conv1x1_tf32x3_kernel
+      float* red = reinterpret_cast<float*>(smem + L::RED) + par * L::RED_TILE;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float a = acc[4 * j + e], b = acc[4 * j + 2 + e];
+          float s = a + b, q = fmaf(b, b, a * a);
+#pragma unroll
+          for (int m = 4; m < 32; m <<= 1) {
+            s += __shfl_xor_sync(0xffffffffu, s, m);
+            q += __shfl_xor_sync(0xffffffffu, q, m);
+          }
+          if (g == 0) {
+            red[(2 * cwarp) * BN + 8 * j + 2 * t + e] = s;
+            red[(2 * cwarp + 1) * BN + 8 * j + 2 * t + e] = q;
+          }
+        }
+      consumers_sync();  // also: both staging tiles are free
+      const int idx = threadIdx.x - 128;
+      if (idx < 2 * BN && w.col0 + idx % BN < O) {
+        const int stat = idx / BN, c = idx % BN;
+        float total = 0.f;
+#pragma unroll
+        for (int v = 0; v < CONSUMER_WARPS; ++v)
+          total += red[(2 * v + stat) * BN + c];
+        partial[((size_t)w.tile_r * 2 + stat) * O + w.col0 + c] = total;
+      }
+    } else if (tma_out) {
+      warpgroup_sync(cw);
+    }
+
+    // kStats: y; kAffine: act(y * scale + shift [+ residual]) in f32,
+    // rounded once; or a split K's raw f32 slice. The loads of this
+    // thread's scale and shift values, and row by row (h) of its residual
+    // values, are started before the first is used. y leaves registers as
+    // 8 x 8 blocks by stmatrix; out by 4-byte stores, as the affine's
+    // values leave no registers for a row of packed ones (it spilled).
+    float2 sc[BN / 8], sh[BN / 8];
+    if (affine) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = w.col0 + 8 * j + 2 * t;
+        sc[j] = sh[j] = make_float2(0.f, 0.f);
+        if (c >= O) continue;
+        if ((O & 1) == 0) {  // columns c and c + 1
+          sc[j] = load2(scale + c);
+          sh[j] = load2(shift + c);
+        } else {
+          sc[j] = make_float2(scale[c], c + 1 < O ? scale[c + 1] : 0.f);
+          sh[j] = make_float2(shift[c], c + 1 < O ? shift[c + 1] : 0.f);
+        }
+      }
+    }
+    float* raw = slice_out == nullptr
+                     ? nullptr
+                     : slice_out + (size_t)w.slice * R * O;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r_wg + 8 * h;
+      const int row = w.row0 + 64 * cw + r;
+      const size_t at_row = (size_t)row * O;
+      float2 res[BN / 8];
+      if (affine && residual != nullptr) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int c = w.col0 + 8 * j + 2 * t;
+          res[j] = make_float2(0.f, 0.f);
+          if (row >= R || c >= O) continue;
+          if ((O & 1) == 0) {
+            res[j] = load2(residual + at_row + c);
+          } else {
+            res[j].x = to_f32(residual[at_row + c]);
+            if (c + 1 < O) res[j].y = to_f32(residual[at_row + c + 1]);
+          }
+        }
+      }
+      uint32_t packed[BN / 8];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = w.col0 + 8 * j + 2 * t;
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        const bool in = row < R && c < O;
+        if (raw != nullptr) {
+          if (in) store_pair(raw + at_row + c, v0, v1, c, O);
+          continue;
+        }
+        if (affine) {
+          v0 = v0 * sc[j].x + sh[j].x;
+          v1 = v1 * sc[j].y + sh[j].y;
+          if (residual != nullptr) {
+            v0 += res[j].x;
+            v1 += res[j].y;
+          }
+          if (relu) {
+            v0 = fmaxf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f);
+          }
+        }
+        if (tma_out && EPI == kStats)
+          packed[j] = pack(v0, v1);
+        else if (tma_out)  // chunk j % 8 of row r at (j % 8) ^ (r % 8)
+          *reinterpret_cast<uint32_t*>(staged + (j / 8) * OUT_BOX + r * 128 +
+                                       (((j % 8) ^ (r % 8)) << 4) + 4 * t) =
+              pack(v0, v1);
+        else if (in)
+          store_pair(out + at_row + c, v0, v1, c, O);
+      }
+      if (tma_out && EPI == kStats) {
+        // blocks 8 j' .. 8 j' + 7 of this row half, four a stmatrix: lane
+        // l gives row l % 8 of block j' = 4q + l / 8; chunk j' % 8 of row
+        // r at (j' % 8) ^ (r % 8)
+        const int m = lane / 8, i8 = lane % 8;
+        const int rr = 16 * warp + 8 * h + i8;
+#pragma unroll
+        for (int q = 0; q < BN / 32; ++q) {
+          const int jj = 4 * q + m;
+          stmatrix_x4(staged + (jj / 8) * OUT_BOX + rr * 128 +
+                          (((jj % 8) ^ i8) << 4),
+                      packed[4 * q], packed[4 * q + 1], packed[4 * q + 2],
+                      packed[4 * q + 3]);
+        }
+      }
+    }
+    if (tma_out) {  // this warpgroup's rows, each box inside the tensor
+      fence_proxy_async();
+      warpgroup_sync(cw);
+      const int row_wg = w.row0 + 64 * cw;
+      if (issuer && row_wg < R) {
+#pragma unroll
+        for (int b = 0; b < L::NB; ++b)
+          if (w.col0 + 64 * b < O)
+            tma_store_2d(&omap, staged + b * OUT_BOX, w.col0 + 64 * b,
+                         row_wg);
+        bulk_commit();
+      }
+    }
+  }
+  if (tma_out && issuer) bulk_wait();
+}
+
 // x [R, I] bf16 (rows ldx values apart) and W [I, O] bf16 (rows ldw apart;
-// ldx and ldw multiples of 8, so rows start 16 bytes apart, as TMA needs).
+// ldx and ldw multiples of 8, so rows start 16 bytes apart, as TMA needs),
+// on a persistent grid of `grid` blocks.
 template <int BN, int EPI, typename TR>
 cudaError_t launch_gemm_bf16(const bf16* x, const bf16* w, const float* scale,
                              const float* shift, const TR* residual, bf16* out,
                              float* slice_out, float* partial, int R, int I,
                              int O, int ldx, int ldw, int slices,
-                             int slice_steps, int relu, cudaStream_t stream) {
+                             int slice_steps, int relu, int grid,
+                             cudaStream_t stream) {
   const int k_steps = pad_to(I, BK16) / BK16;
-  const dim3 grid((unsigned)((R + BM - 1) / BM * ((O + BN - 1) / BN)),
-                  slices);
-  CUtensorMap xmap = {}, wmap = {};
+  const long long work = (long long)((R + BM - 1) / BM) *
+                         ((O + BN - 1) / BN) * slices;
+  if (grid < 1 || work > 0x7fffffff) return cudaErrorInvalidValue;
+  CUtensorMap xmap = {}, wmap = {}, omap = {};
+  cudaError_t err = cudaSuccess;
   if (k_steps > 0) {
-    cudaError_t err =
-        tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, I, R, ldx,
-                   BK16, BM, true);
+    err = tensor_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, I, R, ldx,
+                     BK16, BM, true);
     if (err == cudaSuccess)
       err = tensor_map(&wmap, w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, O, I,
                        ldw, 64, BK16, true);
-    if (err != cudaSuccess) return err;
   }
-  auto kernel = conv1x1_bf16_kernel<BN, EPI, TR>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      RingBf16<BN>::BYTES);
+  // out's tiles leave by TMA stores where its rows start 16 bytes apart
+  const int tma_out = slice_out == nullptr && O % 8 == 0;
+  if (err == cudaSuccess && tma_out)
+    err = tensor_map(&omap, out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, O, R, O,
+                     64, 64, true);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NTHREADS, RingBf16<BN>::BYTES, stream>>>(
-      xmap, wmap, scale, shift, residual, out, slice_out, partial, R, O,
-      k_steps, slice_steps, relu);
+  auto kernel = conv1x1_bf16_kernel<BN, EPI, sizeof(TR) == 4>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             RingBf16<BN>::BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, WS_THREADS, RingBf16<BN>::BYTES, stream>>>(
+      xmap, wmap, omap, scale, shift, residual, out, slice_out, partial, R, O,
+      k_steps, slice_steps, slices, relu, tma_out);
   return cudaGetLastError();
 }
 
@@ -831,17 +1022,18 @@ cudaError_t launch_gemm_bf16_bn(int bn, const bf16* x, const bf16* w,
                                 const TR* residual, bf16* out,
                                 float* slice_out, float* partial, int R,
                                 int I, int O, int ldx, int ldw, int slices,
-                                int slice_steps, int relu,
+                                int slice_steps, int relu, int grid,
                                 cudaStream_t stream) {
   return bn == 64
              ? launch_gemm_bf16<64, EPI, TR>(x, w, scale, shift, residual, out,
                                              slice_out, partial, R, I, O, ldx,
                                              ldw, slices, slice_steps, relu,
-                                             stream)
+                                             grid, stream)
              : launch_gemm_bf16<128, EPI, TR>(x, w, scale, shift, residual,
                                               out, slice_out, partial, R, I,
                                               O, ldx, ldw, slices,
-                                              slice_steps, relu, stream);
+                                              slice_steps, relu, grid,
+                                              stream);
 }
 
 // out = act((x . w) * scale + shift [+ residual]) in bf16, residual of type
@@ -852,14 +1044,15 @@ cudaError_t epilogue_bf16(const bf16* x, const bf16* w, const float* scale,
                           const float* shift, const TR* residual, bf16* out,
                           float* slice_out, int R, int I, int O, int ldx,
                           int ldw, int relu, int bn, int slices,
-                          int slice_steps, cudaStream_t s) {
+                          int slice_steps, int grid, cudaStream_t s) {
   if (slices == 1)
     return launch_gemm_bf16_bn<kAffine, TR>(bn, x, w, scale, shift, residual,
                                             out, nullptr, nullptr, R, I, O,
-                                            ldx, ldw, 1, slice_steps, relu, s);
+                                            ldx, ldw, 1, slice_steps, relu,
+                                            grid, s);
   const cudaError_t err = launch_gemm_bf16_bn<kAffine, TR>(
       bn, x, w, nullptr, nullptr, nullptr, out, slice_out, nullptr, R, I, O,
-      ldx, ldw, slices, slice_steps, 0, s);
+      ldx, ldw, slices, slice_steps, 0, grid, s);
   if (err != cudaSuccess) return err;
   return launch_apply(static_cast<const float*>(slice_out), slices, scale,
                       shift, residual, out, R, O, relu, s);
@@ -869,10 +1062,14 @@ cudaError_t epilogue_bf16(const bf16* x, const bf16* w, const float* scale,
 }  // namespace
 
 // Constants the Python tile plan must agree with: rows per output tile,
-// K depth per ring stage, and a block's dynamic shared memory at BN.
+// K depth per ring stage, the bf16 kernel's blocks an SM, and a block's
+// dynamic shared memory at BN.
 extern "C" int paddle_conv1x1_row_tile() { return BM; }
 extern "C" int paddle_conv1x1_k_tile() { return BK; }
 extern "C" int paddle_conv1x1_k_tile_bf16() { return BK16; }
+extern "C" int paddle_conv1x1_blocks_per_sm_bf16() {
+  return BF16_BLOCKS_PER_SM;
+}
 extern "C" int paddle_conv1x1_smem_bytes(int bn) {
   return bn == 64 ? Ring<64>::BYTES : bn == 128 ? Ring<128>::BYTES : -1;
 }
@@ -944,11 +1141,13 @@ extern "C" int paddle_scale_shift_act_f32(const float* y, const float* scale,
 // The bf16 instances (AMP). x [R, I] and w [I, O] bf16 with rows ldx and
 // ldw values apart (multiples of 8); y / out [R, O] bf16; scale, shift,
 // partial, stats and slice_out f32; the residual bf16, or f32 when
-// res_f32. Pointers are 16-byte aligned (the wrapper makes them so).
+// res_f32. Pointers are 16-byte aligned (the wrapper makes them so). The
+// GEMM runs on a persistent grid of `grid` blocks (the caller's plan: at
+// most one a work item, and paddle_conv1x1_blocks_per_sm_bf16() an SM).
 extern "C" int paddle_conv1x1_stats_bf16(const void* x, const void* w,
                                          void* y, float* partial,
                                          float* stats, int R, int I, int O,
-                                         int ldx, int ldw, int bn,
+                                         int ldx, int ldw, int bn, int grid,
                                          void* stream) {
   if (R <= 0 || O <= 0) return (int)cudaSuccess;
   const int k_steps = pad_to(I, BK16) / BK16;
@@ -958,10 +1157,10 @@ extern "C" int paddle_conv1x1_stats_bf16(const void* x, const void* w,
   cudaError_t err = launch_gemm_bf16_bn<kStats, bf16>(
       bn, static_cast<const bf16*>(x), static_cast<const bf16*>(w), nullptr,
       nullptr, nullptr, static_cast<bf16*>(y), nullptr, partial, R, I, O, ldx,
-      ldw, 1, k_steps, 0, s);
+      ldw, 1, k_steps, 0, grid, s);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((O + RED_X - 1) / RED_X, 2);
-  stats_reduce_kernel<<<grid, dim3(RED_X, RED_Y), 0, s>>>(
+  const dim3 red_grid((O + RED_X - 1) / RED_X, 2);
+  stats_reduce_kernel<<<red_grid, dim3(RED_X, RED_Y), 0, s>>>(
       partial, stats, (R + BM - 1) / BM, O);
   return (int)cudaGetLastError();
 }
@@ -970,7 +1169,7 @@ extern "C" int paddle_conv1x1_epilogue_bf16(
     const void* x, const void* w, const float* scale, const float* shift,
     const void* residual, void* out, float* slice_out, int R, int I, int O,
     int ldx, int ldw, int res_f32, int relu, int bn, int slices,
-    int slice_steps, void* stream) {
+    int slice_steps, int grid, void* stream) {
   if (R <= 0 || O <= 0) return (int)cudaSuccess;
   if (!plan_ok(I, BK16, bn, slices, slice_steps) || ldx % 8 || ldw % 8 ||
       (slices > 1 && slice_out == nullptr))
@@ -983,11 +1182,11 @@ extern "C" int paddle_conv1x1_epilogue_bf16(
                    ? epilogue_bf16(xb, wb, scale, shift,
                                    static_cast<const float*>(residual), ob,
                                    slice_out, R, I, O, ldx, ldw, relu, bn,
-                                   slices, slice_steps, s)
+                                   slices, slice_steps, grid, s)
                    : epilogue_bf16(xb, wb, scale, shift,
                                    static_cast<const bf16*>(residual), ob,
                                    slice_out, R, I, O, ldx, ldw, relu, bn,
-                                   slices, slice_steps, s));
+                                   slices, slice_steps, grid, s));
 }
 
 extern "C" int paddle_scale_shift_act_bf16(const void* y, const float* scale,

@@ -111,6 +111,7 @@
 #include "tf32x3.cuh"  // cp.async (dkv's lse and Di)
 #include "tma.cuh"
 #include "wgmma_bf16.cuh"
+#include "ws_ring.cuh"
 
 namespace {
 
@@ -118,8 +119,6 @@ using bf16 = __nv_bfloat16;
 
 // --- wgmma behind a TMA ring ------------------------------------------------
 
-constexpr int WS_THREADS = 384;   // a producer warpgroup, two consumers
-constexpr int CONSUMER_WARPS = 8;
 constexpr int OWN = 128;          // rows a block owns, 64 a consumer
 constexpr int FWD_KEYS = 128;     // keys of a forward K/V tile
 constexpr int DKV_QUERIES = 64;   // queries of a dkv Q/dO tile
@@ -131,21 +130,6 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// Two f32 values rounded to bf16 (nearest even), lo in the low half.
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // no read or write of the register A operands moves across this point
@@ -193,11 +177,6 @@ __device__ __forceinline__ void stage_tile(unsigned char* tile, int box,
   }
 }
 
-// The 128 threads of consumer warpgroup w meet (named barrier 1 + w).
-__device__ __forceinline__ void warpgroup_sync(int w) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + w) : "memory");
-}
-
 // Warpgroup w's [64, D] output tile, staged by stage_tile at `tile`, to
 // rows row0 .. row0 + 63 of head bh: every thread's stores handed to the
 // async proxy, the warpgroup met, then one thread stores the D / 64 boxes
@@ -212,8 +191,8 @@ __device__ __forceinline__ void store_tile(const CUtensorMap* map,
 #pragma unroll
     for (int b = 0; b < D / 64; ++b)
       tma_store_3d(map, tile + b * box, 64 * b, row0, bh);
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    bulk_commit();
+    bulk_wait_read();
   }
 }
 
@@ -249,22 +228,6 @@ using FwdRing = KvRing<D, FWD_KEYS, 1>;
 template <int D>
 using DqRing = KvRing<D, DQ_KEYS, 2>;
 
-// Thread 0 sets up a KvRing's barriers at `bars`: the owned tiles' (one
-// arrival with their bytes), each stage's full (the same) and empty (one
-// arrival a consumer warp); then the block meets.
-template <class L>
-__device__ __forceinline__ void init_ring(uint64_t* bars) {
-  if (threadIdx.x == 0) {
-    mbar_init(bars, 1);
-    for (int s = 0; s < L::STAGES; ++s) {
-      mbar_init(bars + 1 + s, 1);
-      mbar_init(bars + 1 + L::STAGES + s, CONSUMER_WARPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
-
 // The producer thread's part of a KvRing: K/V tiles 0 .. n_tiles - 1 of
 // head bh, tile i into stage i % STAGES once the consumers have emptied
 // it, counted on the stage's full barrier.
@@ -275,10 +238,8 @@ __device__ __forceinline__ void stream_kv(unsigned char* smem,
                                           uint64_t* full, uint64_t* empty,
                                           int n_tiles, int bh) {
   for (int i = 0; i < n_tiles; ++i) {
-    const int s = i % L::STAGES;
-    if (i >= L::STAGES) mbar_wait(&empty[s], (i / L::STAGES - 1) & 1);
+    const int s = ring_acquire<L::STAGES>(full, empty, i, L::STAGE);
     unsigned char* st = smem + L::RING + s * L::STAGE;
-    mbar_expect(&full[s], L::STAGE);
 #pragma unroll
     for (int b = 0; b < L::NB; ++b) {
       tma_load_3d(st + b * L::KV_BOX, kmap, 64 * b, i * L::KEYS, bh,
@@ -311,7 +272,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   if (causal)  // the last tile any of the block's rows sees
     n_tiles = min(n_tiles, (min(q0 + OWN, Tq) + FWD_KEYS - 1) / FWD_KEYS);
 
-  init_ring<L>(q_full);
+  init_ring<L::STAGES>(q_full);
 
   if (threadIdx.x < 128) {  // the producer
     setmaxnreg_dec<24>();
@@ -661,7 +622,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   if (causal)  // the last tile any of the block's rows sees
     n_tiles = min(n_tiles, (min(q0 + OWN, Tq) + NK - 1) / NK);
 
-  init_ring<L>(own_full);
+  init_ring<L::STAGES>(own_full);
 
   if (threadIdx.x < 128) {  // the producer
     setmaxnreg_dec<24>();
