@@ -10,6 +10,7 @@
     python3 chip_smoke.py --bf16-conv-only  # phases 1, 2 and 11a only
     python3 chip_smoke.py --per-layer-only  # phases 1, 2 and 12 only
     python3 chip_smoke.py --bf16-flash-only # phases 1, 2 and 12a only
+    python3 chip_smoke.py --lstm-only       # phases 1, 2 and 13 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -176,6 +177,31 @@ Phases, each fatal on failure (nonzero exit, no result line):
     bf16 flash kernel in the profiled step); (c)
     ``transformer_wide`` (d2048 L8 H16 d_ff 8192) under AMP, the same
     gates (its f32 build runs step 1 only).
+
+13. The reference benchmark's recurrent rows and its decode row, each
+    part fatal on failure: bench.py's ``lstm`` (2 x LSTM text
+    classification: embedding, fc + ``dynamic_lstm`` twice, a max
+    ``sequence_pool``, a 2-way head; bs64, T 100, hidden 512, vocab
+    10000, Adam 1e-3) and ``lstm_varlen`` (the same over a ``lod_level=1``
+    feed, IMDB-like lengths padded to the batch's longest: T 200), built
+    in f32 and, with the same names from the same state, under AMP (the
+    ``lstm`` weights declared bf16). Gate 1: step 1's loss and every
+    gradient on the card against the port's own CPU run of the same
+    program, state and feed, in f32 and under AMP; Gate 2: the AMP step-1
+    loss within 3e-2 of f32's; Gate 3: the loss falls over bench.py's
+    timed steps (3 warm, 20 dispatches closed by one blocking fetch);
+    Gate 4 (lstm_varlen): Hidden exactly 0 at every padded position and
+    LastH equal to Hidden at length - 1. Prints lstm ms/batch and
+    ``lstm_vs_baseline`` (the reference's 184 ms/batch on one K40m over
+    the port's AMP ms/batch), lstm_varlen tokens/s, ms/batch, max_len and
+    padded_flop_waste, and for one step of each: the host's dispatch and
+    wall ms, the device ms and the kernel launches (torch.profiler,
+    ``chiprun_out/lstm*_profile.txt``). A ``dynamic_gru`` twin of the
+    lstm program runs step 1 under Gate 1. Then bench.py's ``decode``:
+    ``models.transformer_lm_generate`` at bs8, prefill 1024, 128 new
+    tokens, d1024 L8 H8, V16384, in f32 (tokens equal to the plain path's
+    on the card) and under AMP: tokens/s and the f32 flash forward's
+    launches (one a layer a run).
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -1530,6 +1556,7 @@ def _profile_step(run, path="train_profile.txt",
     (out / path).write_text("\n".join(
         f"{ms:.4f}\t{n}\t{key}" for ms, n, key in rows))
     return {"device_ms": total, "kernels_ms": sums, "launches": launches,
+            "kernel_launches": sum(n for _, n, _ in rows),
             "top": [[ms, n, key] for ms, n, key in rows[:25]]}
 
 
@@ -3363,8 +3390,14 @@ def bf16_flash_kernel_phase(gpu_name):
     wide = (lambda: fa.flash_forward(q, k, v, None, causal),
             lambda: fa.flash_dq(q, k, v, lse, di, do, None, causal),
             lambda: fa.flash_dkv(q, k, v, lse, di, do, None, causal))
-    for i, (name, run) in enumerate(zip(BF16_FLASH, wide)):
+    plain = (lambda: fa.flash_attention_reference(q, k, v, None, causal),
+             lambda: fa.flash_dq_reference(q, k, v, lse, di, do, None,
+                                           causal),
+             lambda: fa.flash_dkv_reference(q, k, v, lse, di, do, None,
+                                            causal))
+    for i, (name, run, ref) in enumerate(zip(BF16_FLASH, wide, plain)):
         ms = _cuda_ms(run, iters=10)
+        plain_ms = _cuda_ms(ref, iters=10)
         if i == 0:
             flops, nbytes = _attention_work(B, H, T, T, D, causal, None, 2)
         else:
@@ -3375,10 +3408,11 @@ def bf16_flash_kernel_phase(gpu_name):
         lib_text = (f"forward {library:.3f} ({backend})" if i == 0 else
                     f"backward {library:.3f} for the pair ({bwd_backend})")
         shape = _case_text(B, H, T, D, causal, None)
-        print(f"{name} (wide): {ms:.3f} ms at {shape}, bound {bound:.4f} "
-              f"({bound_by}, bf16 tensor cores), bf16 SDPA {lib_text}")
+        print(f"{name} (wide): {ms:.3f} ms at {shape}, plain "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ({bound_by}, bf16 "
+              f"tensor cores), bf16 SDPA {lib_text}")
         records[i]["wide_d256"] = {
-            "shape": shape, "ms": ms, "bound_ms": bound,
+            "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": bound_by, "library_ms": library,
             "library": f"F.scaled_dot_product_attention bf16 {lib_text}"}
     del q, k, v, do, o, lse, di
@@ -3556,6 +3590,497 @@ def per_layer_phases(gpu_name):
     return recs, {"transformer": base, "transformer_wide": wide}
 
 
+# --- 13. The reference benchmark's recurrent rows and its decode row --------
+# bench.py's bench_lstm_step and bench_lstm_varlen (2 x LSTM text
+# classification, the reference's RNN benchmark: bs64, hidden 512, vocab
+# 10000, Adam 1e-3) and bench_decode (greedy KV-cache decoding of the
+# stacked LM), built with the port's layers as bench.py builds them with
+# the JAX package's.
+LSTM_BASELINE_MS = 184.0  # the reference's 2xLSTM bs64 hidden 512, one
+#                           K40m, ms/batch (bench.py LSTM_BASELINE_MS)
+RECURRENT = dict(batch=64, seqlen=100, hidden=512, vocab=10000, lr=1e-3,
+                 mean_len=80, cap=200)
+DECODE = dict(batch=8, prefill=1024, new=128, vocab=16384, d_model=1024,
+              n_layers=8, num_heads=8)
+RNN_WARMUP, RNN_STEPS = 3, 20  # bench.py's _time_train_steps
+DECODE_WARMUP, DECODE_STEPS = 1, 3  # bench.py's bench_decode
+# Step 1 on the card against the same step on the CPU (Gate 1): the loss
+# (relative) and each parameter's gradient (|card - CPU| / |CPU|). f32:
+# the products sum in another order on each side (measured on the H100:
+# losses 8.6e-8 apart, gradients at most 8.9e-7). Under AMP each side
+# rounds its bf16 products, gates and bf16 gradient sums over 100-200
+# steps on its own, and a hidden state one bf16 ulp apart can move a
+# max-pool's argmax (measured: losses at most 3.9e-6 apart, gradients
+# 4.0e-2 lstm_varlen, 4.9e-2 lstm, 5.6e-2 the GRU twin, the same in every
+# call; the card's AMP gradients lie 0.11-0.12 from the f32 build's).
+RNN_LOSS_RTOL, RNN_GRAD_TOL = 1e-5, 1e-3
+RNN_AMP_LOSS_RTOL, RNN_AMP_GRAD_TOL = 1e-4, 1e-1
+RNN_GROUPS = ("gemm", "nvjet", "gemv", "elementwise", "reduce", "Cat")
+
+
+def _recurrent_program(pt, c, ragged, rnn="lstm"):
+    """bench.py's bench_lstm_step (``ragged`` False: T fixed) or
+    bench_lstm_varlen (True: a ``lod_level=1`` feed and its lengths), with
+    the port as ``pt``; ``rnn="gru"`` builds the ``dynamic_gru`` twin (3 x
+    hidden projections). Returns (main, startup, loss, params_grads,
+    [(Hidden, LastH) of each recurrent op])."""
+    from paddle_tpu_torch import layers
+
+    hidden = c["hidden"]
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        if ragged:
+            words = layers.data("words", shape=[1], dtype="int64",
+                                lod_level=1)
+        else:
+            words = layers.data("words", shape=[c["seqlen"]], dtype="int64")
+        label = layers.data("label", shape=[1], dtype="int64")
+        x = layers.embedding(words, size=[c["vocab"], hidden])
+        x.seq_len = getattr(words, "seq_len", None)
+        for _ in range(2):
+            size = (4 if rnn == "lstm" else 3) * hidden
+            proj = layers.fc(x, size=size, num_flatten_dims=2,
+                             bias_attr=False)
+            proj.seq_len = x.seq_len
+            if rnn == "lstm":
+                x, _ = layers.dynamic_lstm(proj, size)
+            else:
+                x = layers.dynamic_gru(proj, hidden)
+        pooled = layers.sequence_pool(x, "max")
+        logits = layers.fc(pooled, size=2)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+        params_grads = pt.optimizer.AdamOptimizer(
+            learning_rate=c["lr"]).minimize(loss, startup_program=startup)
+    seqs = [(op.outputs["Hidden"][0], op.outputs["LastH"][0])
+            for op in main.global_block.ops if op.type == rnn]
+    return main, startup, loss, params_grads, seqs
+
+
+def _recurrent_feed(c, ragged):
+    """bench.py's synthetic batch: fixed T, or IMDB-like ragged lengths
+    (geometric, mean 80, clipped to [8, 200]) padded to the batch's
+    longest."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    b, vocab = c["batch"], c["vocab"]
+    if not ragged:
+        return {"words": rng.randint(0, vocab, size=(b, c["seqlen"]))
+                .astype("int64"),
+                "label": rng.randint(0, 2, size=(b, 1)).astype("int64")}
+    lengths = np.clip(rng.geometric(1.0 / c["mean_len"], size=b), 8,
+                      c["cap"]).astype(np.int32)
+    T = int(lengths.max())
+    return {"words": rng.randint(0, vocab, size=(b, T)).astype("int64"),
+            "words@len": lengths,
+            "label": rng.randint(0, 2, size=(b, 1)).astype("int64")}
+
+
+def _on_device(feed, device):
+    import torch
+
+    return {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+
+
+def _padding_gate(hidden, last, lengths):
+    """Gate 4: Hidden is exactly 0 at every padded position, and LastH is
+    Hidden at length - 1 of each row."""
+    import torch
+
+    T = hidden.shape[1]
+    lengths = lengths.to(hidden.device).long()
+    pad = torch.arange(T, device=hidden.device)[None, :] >= lengths[:, None]
+    assert int(pad.sum()) > 0 and not hidden[pad].any(), \
+        "a padded position of Hidden is not 0"
+    rows = torch.arange(hidden.shape[0], device=hidden.device)
+    assert torch.equal(last, hidden[rows, lengths - 1]), \
+        "LastH is not Hidden at length - 1"
+
+
+def _card_vs_cpu(pt, built, state, dtypes, feed, f32_grads=None):
+    """Gate 1: step 1 of ``built`` on the card and on the CPU from the same
+    state (``state`` in ``dtypes``) and feed; under AMP (``f32_grads``,
+    the f32 build's step-1 gradients on the card from the same state)
+    also how far the card's AMP gradients lie from f32's, the yardstick
+    of bf16 rounding. Returns the card's fetches (loss, every gradient,
+    each recurrent op's Hidden and LastH) and the record."""
+    import torch
+
+    main, _, loss, params_grads, seqs = built
+    grads = [g.name for _, g in params_grads]
+    fetch = [loss.name] + grads + [n for pair in seqs for n in pair]
+    def scope_on(device):
+        scope = pt.Scope()
+        for n, t in state.items():
+            scope.set(n, t.to(device=device, dtype=dtypes.get(n, t.dtype)))
+        return scope
+
+    card = pt.Executor(pt.CUDAPlace()).run(
+        main, feed=_on_device(feed, "cuda"), fetch_list=fetch,
+        scope=scope_on("cuda"), return_numpy=False)
+    t0 = time.perf_counter()
+    cpu = pt.Executor(pt.CPUPlace()).run(
+        main, feed=feed, fetch_list=fetch, scope=scope_on("cpu"),
+        return_numpy=False)
+    cpu_s = time.perf_counter() - t0
+    lc, lh = float(card[0]), float(cpu[0])
+    n = len(grads)
+    card_grads = [g.cpu() for g in card[1:1 + n]]
+    worst = _grad_gap(grads, card_grads, cpu[1:1 + n])
+    amp = f32_grads is not None
+    loss_tol, grad_tol = ((RNN_AMP_LOSS_RTOL, RNN_AMP_GRAD_TOL) if amp
+                          else (RNN_LOSS_RTOL, RNN_GRAD_TOL))
+    rel = abs(lc - lh) / abs(lh)
+    bf16 = sum(g.dtype == torch.bfloat16 for g in card_grads)
+    rec = {"loss_card": lc, "loss_cpu": lh, "loss_rel": rel,
+           "loss_tol": loss_tol, "worst_grad_rel": worst,
+           "grad_tol": grad_tol, "cpu_step_s": cpu_s, "bf16_grads": bf16,
+           "grads": n}
+    if amp:
+        rec["vs_f32_grad_rel"] = _grad_gap(grads, card_grads, f32_grads)
+    return card, rec
+
+
+def _gate1_text(tag, r):
+    text = (f"{tag}: step-1 loss card {r['loss_card']:.6f} CPU "
+            f"{r['loss_cpu']:.6f} (rel {r['loss_rel']:.3e}, tol "
+            f"{r['loss_tol']}); worst gradient |card - CPU| / |CPU| "
+            f"{r['worst_grad_rel'][0]:.3e} ({r['worst_grad_rel'][1]}, tol "
+            f"{r['grad_tol']}); {r['grads']} gradients, {r['bf16_grads']} "
+            f"bf16; the CPU step took {r['cpu_step_s']:.1f} s")
+    if "vs_f32_grad_rel" in r:
+        gap, name = r["vs_f32_grad_rel"]
+        text += (f"; the card's AMP gradients lie {gap:.3e} ({name}) from "
+                 f"the f32 build's")
+    return text
+
+
+def _gate1(r):
+    assert r["loss_rel"] <= r["loss_tol"], r
+    assert r["worst_grad_rel"][0] <= r["grad_tol"], r
+
+
+def _bench_steps(exe, main, feed, loss, scope):
+    """bench.py's scaffold: the batch on the card, RNN_WARMUP steps, then
+    RNN_STEPS dispatches closed by one blocking fetch. Returns (seconds a
+    step, the timed steps' losses)."""
+    import torch
+
+    dev_feed = _on_device(feed, "cuda")
+    for _ in range(RNN_WARMUP):
+        exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope)
+    torch.cuda.synchronize()
+    outs = []
+    t0 = time.perf_counter()
+    for _ in range(RNN_STEPS):
+        out, = exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+        outs.append(out)
+    float(outs[-1])
+    sec = (time.perf_counter() - t0) / RNN_STEPS
+    return sec, [float(o) for o in outs]
+
+
+def _step_anatomy(exe, main, feed, loss, scope, path):
+    """One step's host time (the dispatch, until ``run`` returns; the
+    wall, until the card is done; medians of 3), then one step profiled:
+    device ms and kernel launches by group (``RNN_GROUPS``)."""
+    import numpy as np
+    import torch
+
+    dev_feed = _on_device(feed, "cuda")
+    dispatch, wall = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
+                return_numpy=False)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        dispatch.append(t1 - t0)
+        wall.append(time.perf_counter() - t0)
+    prof = _profile_step(
+        lambda: exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
+                        return_numpy=False), path, groups=RNN_GROUPS)
+    rec = {"host_dispatch_ms": float(np.median(dispatch)) * 1e3,
+           "wall_ms": float(np.median(wall)) * 1e3, "profile": prof}
+    if prof:
+        k = prof["kernels_ms"]
+        rec.update(device_ms=prof["device_ms"],
+                   launches=prof["kernel_launches"],
+                   gemm_ms=k["gemm"] + k["nvjet"] + k["gemv"],
+                   elementwise_ms=k["elementwise"])
+    return rec
+
+
+def _anatomy_text(tag, a):
+    dev = a.get("device_ms")
+    text = (f"{tag}: one step, host dispatch {a['host_dispatch_ms']:.1f} ms,"
+            f" wall {a['wall_ms']:.1f} ms, device {_ms_text(dev, '.1f')} ms")
+    if dev is not None:
+        text += (f" ({dev / a['wall_ms'] * 100:.1f}% of the wall; GEMM "
+                 f"{a['gemm_ms']:.1f} ms, elementwise "
+                 f"{a['elementwise_ms']:.1f} ms), {a['launches']} kernel "
+                 f"launches")
+    return text
+
+
+def recurrent_row(pt, c, ragged, time_f32):
+    """One recurrent row: the f32 program from its startup on the card
+    (Gate 1 in f32), then built under AMP with the same
+    names from the same state (Gate 1 under AMP, Gate 2: its step-1 loss
+    within AMP_RTOL of f32's); Gate 4 on a ragged feed; bench.py's timing
+    under AMP (and in f32 with ``time_f32``) with Gate 3 (the loss falls
+    over the timed steps) and one step's anatomy."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core import program as tprog
+
+    name = "lstm_varlen" if ragged else "lstm"
+    feed = _recurrent_feed(c, ragged)
+    T = feed["words"].shape[1]
+    true_tokens = int(feed["words@len"].sum()) if ragged else c["batch"] * T
+    waste = 1.0 - true_tokens / (c["batch"] * T)
+    start = tprog.Program._uid_counter
+    t0 = time.perf_counter()
+    built = _recurrent_program(pt, c, ragged)
+    exe = pt.Executor(pt.CUDAPlace())
+    scope = pt.Scope()
+    exe.run(built[1], scope=scope)
+    state = _snapshot(scope)
+    print(f"{name}: T {T}, {true_tokens} true tokens, padded_flop_waste "
+          f"{waste:.3f}; f32 program of {len(built[0].global_block.ops)} "
+          f"ops built and initialised in {time.perf_counter() - t0:.2f} s")
+    rec = {"T": T, "true_tokens": true_tokens, "padded_flop_waste": waste}
+    f32_card, rec["gate1_f32"] = _card_vs_cpu(pt, built, state, {}, feed)
+    f32_grads = [g.cpu() for g in f32_card[1:1 + len(built[3])]]
+    print(_gate1_text(f"{name} f32", rec["gate1_f32"]))
+    _gate1(rec["gate1_f32"])
+    l32 = rec["gate1_f32"]["loss_card"]
+    if ragged:
+        for h, last in zip(f32_card[-4::2], f32_card[-3::2]):
+            _padding_gate(h, last, torch.from_numpy(feed["words@len"]))
+    if time_f32:
+        _restore(scope, state)
+        sec, losses = _bench_steps(exe, built[0], feed, built[2], scope)
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+        rec["f32"] = {"ms_per_batch": sec * 1e3, "losses": losses,
+                      "anatomy": _step_anatomy(
+                          exe, built[0], feed, built[2], scope,
+                          f"{name}_f32_profile.txt")}
+        print(f"{name} f32: {sec * 1e3:.1f} ms/batch, losses "
+              f"{losses[0]:.5f} -> {losses[-1]:.5f} over {RNN_STEPS} steps")
+        print(_anatomy_text(f"{name} f32", rec["f32"]["anatomy"]))
+    del f32_card, scope
+    torch.cuda.empty_cache()
+
+    tprog.Program._uid_counter = start  # the AMP build's names are equal
+    with _Amp():
+        built = _recurrent_program(pt, c, ragged)
+        block = built[0].global_block
+        dtypes = {n: block.var(n).dtype for n in state if block.has_var(n)}
+        n_bf16 = sum(d == torch.bfloat16 for d in dtypes.values())
+        amp_card, rec["gate1_amp"] = _card_vs_cpu(pt, built, state, dtypes,
+                                                  feed, f32_grads)
+        print(_gate1_text(f"{name} AMP", rec["gate1_amp"])
+              + f"; {n_bf16} parameters declared bf16")
+        _gate1(rec["gate1_amp"])
+        la = rec["gate1_amp"]["loss_card"]
+        print(f"{name} AMP: step-1 loss {la:.6f}, f32 {l32:.6f} (rel "
+              f"{abs(la - l32) / abs(l32):.3e}, tol {AMP_RTOL})")
+        assert np.isfinite(la) and abs(la - l32) <= AMP_RTOL * abs(l32)
+        if ragged:
+            for h, last in zip(amp_card[-4::2], amp_card[-3::2]):
+                assert h.dtype == torch.bfloat16
+                _padding_gate(h, last, torch.from_numpy(feed["words@len"]))
+        del amp_card
+        scope = pt.Scope()
+        _restore(scope, state, dtypes)
+        sec, losses = _bench_steps(exe, built[0], feed, built[2], scope)
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+        anatomy = _step_anatomy(exe, built[0], feed, built[2], scope,
+                                f"{name}_amp_profile.txt")
+        kept = {str(scope.get(p.name).dtype) for p, _ in built[3]
+                if dtypes[p.name] == torch.bfloat16}
+        assert kept == {"torch.bfloat16"}, kept  # Adam keeps them bf16
+    rec["amp"] = {"ms_per_batch": sec * 1e3, "losses": losses,
+                  "tokens_per_s": true_tokens / sec, "params_bf16": n_bf16,
+                  "anatomy": anatomy}
+    print(f"{name} AMP: {sec * 1e3:.1f} ms/batch, {true_tokens / sec:.0f} "
+          f"tokens/s, losses {losses[0]:.5f} -> {losses[-1]:.5f} over "
+          f"{RNN_STEPS} steps")
+    print(_anatomy_text(f"{name} AMP", anatomy))
+    del scope, exe, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gru_twin(pt, c):
+    """The ``dynamic_gru`` twin of the lstm row: step 1 only, Gate 1 in
+    f32 and under AMP from the same state."""
+    import torch
+
+    from paddle_tpu_torch.core import program as tprog
+
+    feed = _recurrent_feed(c, ragged=False)
+    start = tprog.Program._uid_counter
+    built = _recurrent_program(pt, c, ragged=False, rnn="gru")
+    scope = pt.Scope()
+    pt.Executor(pt.CUDAPlace()).run(built[1], scope=scope)
+    state = _snapshot(scope)
+    del scope
+    rec = {}
+    card, rec["gate1_f32"] = _card_vs_cpu(pt, built, state, {}, feed)
+    f32_grads = [g.cpu() for g in card[1:1 + len(built[3])]]
+    del card
+    print(_gate1_text("gru twin f32", rec["gate1_f32"]))
+    _gate1(rec["gate1_f32"])
+    tprog.Program._uid_counter = start
+    with _Amp():
+        built = _recurrent_program(pt, c, ragged=False, rnn="gru")
+        block = built[0].global_block
+        dtypes = {n: block.var(n).dtype for n in state if block.has_var(n)}
+        _, rec["gate1_amp"] = _card_vs_cpu(pt, built, state, dtypes, feed,
+                                           f32_grads)
+    print(_gate1_text("gru twin AMP", rec["gate1_amp"]))
+    _gate1(rec["gate1_amp"])
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _generate_program(pt, c):
+    """bench.py's bench_decode program: the stacked LM's greedy KV-cache
+    decoding (``models.transformer_lm_generate``)."""
+    from paddle_tpu_torch import layers, models
+
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        prompt = layers.data("prompt", shape=[c["prefill"]], dtype="int64")
+        out_ids = models.transformer_lm_generate(
+            prompt, vocab_size=c["vocab"], d_model=c["d_model"],
+            n_layers=c["n_layers"], num_heads=c["num_heads"],
+            max_len=c["prefill"] + c["new"], max_new_tokens=c["new"])
+    return main, startup, out_ids
+
+
+def decode_row(pt):
+    """bench.py's bench_decode at bs8, prefill 1024, 128 new tokens, d1024
+    L8 H8, V16384, from the startup's seeded weights: one f32 run whose
+    tokens equal the plain path's on the card, then under AMP (as bench.py
+    runs it) tokens/s over DECODE_STEPS runs after DECODE_WARMUP. Each run
+    launches the f32 flash forward once a layer (the prefill; the stack
+    casts q, k and v to f32) and no other flash kernel."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core import program as tprog
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    c = DECODE
+    b, Tp, N, L = c["batch"], c["prefill"], c["new"], c["n_layers"]
+    rng = np.random.RandomState(0)
+    feed = _on_device({"prompt": rng.randint(0, c["vocab"], (b, Tp))
+                       .astype("int64")}, "cuda")
+
+    def check(toks):
+        assert toks.shape == (b, Tp + N)
+        assert torch.equal(toks[:, :Tp], feed["prompt"])
+        assert bool(((toks >= 0) & (toks < c["vocab"])).all())
+
+    start = tprog.Program._uid_counter
+    main, startup, out_ids = _generate_program(pt, c)
+    exe, scope = pt.Executor(pt.CUDAPlace()), pt.Scope()
+    exe.run(startup, scope=scope)
+    state = _snapshot(scope)
+    _reset_flash_counts(fa)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f32, = exe.run(main, feed=feed, fetch_list=[out_ids], scope=scope,
+                   return_numpy=False)
+    check(f32)
+    f32_s = time.perf_counter() - t0
+    assert _flash_counts(fa) == (L,) + (0,) * 5, _flash_counts(fa)
+    with _plain_flash(fa):
+        plain, = exe.run(main, feed=feed, fetch_list=[out_ids], scope=scope,
+                         return_numpy=False)
+    assert torch.equal(plain, f32), "greedy tokens differ from the plain path"
+    print(f"decode f32: one run {f32_s * 1e3:.0f} ms ({b * N / f32_s:.0f} "
+          f"tokens/s), {L} f32 flash forward launches, tokens equal the "
+          f"plain path's")
+
+    tprog.Program._uid_counter = start  # the AMP build's names are equal
+    with _Amp():
+        main, _, out_ids = _generate_program(pt, c)
+        scope = pt.Scope()
+        _restore(scope, state)
+        for _ in range(DECODE_WARMUP):
+            exe.run(main, feed=feed, fetch_list=[out_ids], scope=scope)
+        torch.cuda.synchronize()
+        _reset_flash_counts(fa)
+        t0 = time.perf_counter()
+        outs = [exe.run(main, feed=feed, fetch_list=[out_ids], scope=scope,
+                        return_numpy=False)[0]
+                for _ in range(DECODE_STEPS)]
+        toks = outs[-1].cpu()
+        sec = (time.perf_counter() - t0) / DECODE_STEPS
+    counts = _flash_counts(fa)
+    assert counts == (DECODE_STEPS * L,) + (0,) * 5, counts
+    check(toks.to(f32.device))
+    assert all(torch.equal(o, outs[-1]) for o in outs)
+    same = float((toks[:, Tp:] == f32[:, Tp:].cpu()).float().mean())
+    print(f"decode AMP: bs{b} prefill {Tp} decode {N} d{c['d_model']} L{L}:"
+          f" {b * N / sec:.0f} tokens/s ({sec * 1e3:.0f} ms a run, "
+          f"{DECODE_STEPS} runs after {DECODE_WARMUP}); f32 flash forward "
+          f"launches {counts[0]} ({L} a run); {same * 100:.1f}% of the new "
+          f"tokens equal the f32 run's")
+    del exe, scope, outs, state
+    torch.cuda.empty_cache()
+    return {"tokens_per_s": b * N / sec, "s_per_run": sec,
+            "flash_fwd_launches_per_run": counts[0] // DECODE_STEPS,
+            "f32_run_s": f32_s, "amp_tokens_equal_f32": same}
+
+
+def recurrent_phase():
+    """Phase 13: the lstm row (f32 and AMP), the lstm_varlen row (AMP),
+    the dynamic_gru twin (step 1) and the decode row."""
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    secs = {}
+
+    def part(name, fn, *args, **kw):
+        t1 = time.perf_counter()
+        result = fn(*args, **kw)
+        secs[name] = time.perf_counter() - t1
+        return result
+
+    lstm = part("lstm", recurrent_row, pt, RECURRENT, ragged=False,
+                time_f32=True)
+    ms = lstm["amp"]["ms_per_batch"]
+    print(f"lstm: {ms:.1f} ms/batch under AMP, lstm_vs_baseline "
+          f"{LSTM_BASELINE_MS / ms:.3f} (the reference's "
+          f"{LSTM_BASELINE_MS} ms/batch on one K40m); f32 "
+          f"{lstm['f32']['ms_per_batch']:.1f} ms/batch")
+    varlen = part("lstm_varlen", recurrent_row, pt, RECURRENT, ragged=True,
+                  time_f32=False)
+    a = varlen["amp"]
+    print(f"lstm_varlen: {a['tokens_per_s']:.0f} tokens/s, "
+          f"{a['ms_per_batch']:.1f} ms/batch, max_len {varlen['T']}, "
+          f"padded_flop_waste {varlen['padded_flop_waste']:.2f}")
+    gru = part("gru_twin", gru_twin, pt, RECURRENT)
+    decode = part("decode", decode_row, pt)
+    total = time.perf_counter() - t0
+    print(f"recurrent rows: phase 13 took {total:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    return {"lstm": dict(lstm, lstm_vs_baseline=LSTM_BASELINE_MS / ms,
+                         baseline_ms=LSTM_BASELINE_MS),
+            "lstm_varlen": varlen, "gru_twin": gru, "decode": decode,
+            "seconds": total, "part_seconds": secs}
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -3608,6 +4133,11 @@ def main():
                         help="build the kernels and run only phase 12a (the "
                              "bf16 flash kernels against their plain "
                              "versions, timed); prints no ok line")
+    parser.add_argument("--lstm-only", action="store_true",
+                        help="build the kernels and run only phase 13 (the "
+                             "recurrent rows lstm and lstm_varlen, the "
+                             "dynamic_gru twin and the decode row); prints "
+                             "no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -3684,6 +4214,14 @@ def main():
                                       for r in recs]}))
         print(smi)
         return
+    if args.lstm_only:
+        recurrent = recurrent_phase()
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_recurrent.json").write_text(json.dumps(
+            {"gpu": smi, "recurrent": recurrent}, indent=1))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -3742,6 +4280,8 @@ def main():
     amp_recs, amp = amp_phases(gpu)
     torch.cuda.empty_cache()
     per_layer_recs, per_layer = per_layer_phases(gpu)
+    torch.cuda.empty_cache()
+    recurrent = recurrent_phase()
     records = [kern] + bwd + conv + amp_recs + per_layer_recs
 
     out = ROOT / "chiprun_out"
@@ -3753,7 +4293,8 @@ def main():
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference,
          "attention_rewrite": attention, "amp": amp,
-         "per_layer": per_layer, "build_s": built, "rng": rng},
+         "per_layer": per_layer, "recurrent": recurrent, "build_s": built,
+         "rng": rng},
         indent=1))
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records]}))

@@ -11,11 +11,7 @@ import copy
 from ..initializer import ConstantInitializer, XavierInitializer
 from ..param_attr import ParamAttr
 from .layer_helper import LayerHelper
-
-
-def get_seq_len(var):
-    """The lengths Variable travelling with ``var`` (or None)."""
-    return getattr(var, "seq_len", None)
+from .sequence import get_seq_len
 
 
 def multi_head_attention(queries, keys=None, values=None, d_model=None,

@@ -7,6 +7,9 @@ Counterpart of ``paddle_tpu/models/transformer.py``:
   ``Executor``: per layer (``transformer_encoder_layer`` blocks, the
   model the JAX package's benchmark trains) or stacked (one
   ``pipelined_transformer_stack`` op);
+- ``transformer_lm_generate`` builds the stacked LM's KV-cache decoding
+  program (one ``transformer_stack_generate`` op) over the same named
+  weights;
 - :class:`TransformerLM` holds the stacked LM's weights for serving.
 
 The stacked form and :class:`TransformerLM` use the JAX package's
@@ -107,6 +110,77 @@ def transformer_lm(ids, vocab_size, d_model=256, n_layers=4, num_heads=8,
                               bias_attr=ln_bias, **kw)
     return layers.fc(x, size=vocab_size, num_flatten_dims=2,
                      param_attr=head_attr, bias_attr=False, **kw)
+
+
+def _shared_lm_params(helper, vocab_size, d_model, d_ff, max_len,
+                      n_layers, num_heads=None, num_kv_heads=None,
+                      use_rope=False):
+    """The weights-shared-by-name contract with transformer_lm
+    (pipeline_stack=True), in one place: rebuild tok_emb/pos_emb/
+    final_ln/lm_head/lm_stack.* so a generation program rejoins the
+    trained tensors. Returns the op-input dict (minus Prompt)."""
+    from ..initializer import ConstantInitializer
+
+    if num_heads and num_kv_heads and num_heads % num_kv_heads:
+        raise ValueError(f"num_heads {num_heads} not a multiple of "
+                         f"num_kv_heads {num_kv_heads}")
+    tok = helper.create_parameter(ParamAttr(name="tok_emb"),
+                                  shape=[vocab_size, d_model],
+                                  dtype="float32")
+    pos = None if use_rope else helper.create_parameter(
+        ParamAttr(name="pos_emb"), shape=[max_len, d_model],
+        dtype="float32")
+    ln_s = helper.create_parameter(
+        ParamAttr(name="final_ln.scale"), shape=[d_model], dtype="float32",
+        default_initializer=ConstantInitializer(1.0))
+    ln_b = helper.create_parameter(ParamAttr(name="final_ln.bias"),
+                                   shape=[d_model], dtype="float32",
+                                   is_bias=True)
+    head_w = helper.create_parameter(ParamAttr(name="lm_head.w"),
+                                     shape=[d_model, vocab_size],
+                                     dtype="float32")
+    ins = {"TokEmb": [tok], "FinalLnS": [ln_s],
+           "FinalLnB": [ln_b], "HeadW": [head_w]}
+    if pos is not None:
+        ins["PosEmb"] = [pos]
+    ins.update(layers.make_stack_params(
+        helper, "lm_stack", n_layers, d_model, d_ff, num_heads=num_heads,
+        num_kv_heads=num_kv_heads))
+    return ins
+
+
+def transformer_lm_generate(prompt, vocab_size, d_model=256, n_layers=4,
+                            num_heads=8, d_ff=None, num_kv_heads=None,
+                            use_rope=False, max_len=2048,
+                            max_new_tokens=32, temperature=0.0, top_k=0,
+                            main_program=None, startup_program=None):
+    """Generation program for a ``transformer_lm(pipeline_stack=True)``
+    model: KV-cache incremental decoding (one
+    ``transformer_stack_generate`` op: a flash-attention prefill, then
+    one decode step per new token), greedy by default, temperature/top-k
+    sampling through the RNG plane when ``temperature`` > 0.
+
+    Rebuilds the same named parameters (tok_emb, pos_emb, lm_stack.*,
+    final_ln.*, lm_head.w), so running this program in the training
+    scope serves the trained weights (do not run its startup program
+    there: it would re-initialize them). prompt: [b, Tp] int64 ->
+    [b, Tp + max_new_tokens]."""
+    kw = dict(main_program=main_program, startup_program=startup_program)
+    d_ff = d_ff or 4 * d_model
+    helper = LayerHelper("transformer_lm_generate", **kw)
+    ins = {"Prompt": [prompt]}
+    ins.update(_shared_lm_params(helper, vocab_size, d_model, d_ff,
+                                 max_len, n_layers, num_heads,
+                                 num_kv_heads, use_rope))
+    o = helper.simple_op("transformer_stack_generate", ins,
+                         {"num_heads": num_heads,
+                          "num_kv_heads": num_kv_heads,
+                          "use_rope": use_rope,
+                          "max_new_tokens": max_new_tokens,
+                          "temperature": float(temperature),
+                          "top_k": int(top_k)})
+    o.stop_gradient = True
+    return o
 
 
 def param_shapes(spec) -> Dict[str, tuple]:

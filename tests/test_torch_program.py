@@ -133,8 +133,10 @@ def test_unported_options_raise_and_name_their_slice():
                                       include_head=False)
         with pytest.raises(NotImplementedError, match="sparse"):
             tpt.layers.embedding(ids, size=[V, D_MODEL], is_sparse=True)
-        with pytest.raises(NotImplementedError, match="sequence"):
-            tpt.layers.data("seq", shape=[T], dtype="int64", lod_level=1)
+        # padded sequence feeds are ported now: a [b, T, ...] feed and
+        # its int32 lengths companion
+        seq = tpt.layers.data("seq", shape=[T], dtype="int64", lod_level=1)
+        assert seq.shape == (-1, -1, T) and seq.seq_len.name == "seq@len"
         emb = tpt.layers.embedding(ids, size=[V, D_MODEL])
         loss = tpt.layers.mean(emb)
         with pytest.raises(NotImplementedError, match="accumulat"):
