@@ -11,6 +11,7 @@
     python3 chip_smoke.py --per-layer-only  # phases 1, 2 and 12 only
     python3 chip_smoke.py --bf16-flash-only # phases 1, 2 and 12a only
     python3 chip_smoke.py --lstm-only       # phases 1, 2 and 13 only
+    python3 chip_smoke.py --zoo-only        # phases 1, 2 and 14 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -202,6 +203,42 @@ Phases, each fatal on failure (nonzero exit, no result line):
     tokens, d1024 L8 H8, V16384, in f32 (tokens equal to the plain path's
     on the card) and under AMP: tokens/s and the f32 flash forward's
     launches (one a layer a run).
+
+14. The reference benchmark's image-zoo rows, each part fatal on
+    failure, at full width and 224 x 224 x 3, weights from the port's
+    seeded startup: bench.py's ``zoo_alexnet``, ``zoo_googlenet`` and
+    ``zoo_vgg16`` (``bench_image_model``: 1000 classes, mean
+    ``softmax_with_cross_entropy``, Momentum(0.01, 0.9), bs128, a
+    RandomState(0) batch on the card, 2 warm steps and 8 timed dispatches
+    closed by one blocking fetch), built in f32 and, with the same names
+    from the same state, under AMP. Gate 1: step 1 at batch 4 on the card
+    against the port's CPU run (loss within 1e-5; each gradient within
+    1e-3 of its norm or, where the step is as sensitive as GoogLeNet's
+    and VGG-16's, a multiple of the CPU's own move when the images are
+    nudged one f32 ulp); Gate 2: the AMP step-1 loss within 3e-2 of f32's;
+    Gate 3: every timed loss finite. Prints images/s and ``vs_baseline``
+    (over the reference's 383.2 / 111.4 / 30.4 images/s) under AMP, f32
+    beside, and for one step of each the host's dispatch and wall ms, the
+    device ms and the kernel launches (torch.profiler,
+    ``chiprun_out/zoo_*_profile.txt``), peak memory and the share of the
+    bf16 or f32 peak. Then ``infer_googlenet`` and ``infer_vgg19``
+    (``bench_inference``: built with is_test=False, saved through the
+    inference transpiler, loaded, ``Executor.run`` at bs16, 3 warm and 30
+    timed batches) in f32 and under AMP, images/s and ``vs_baseline``
+    (over 600.94 / 96.75), and the same directory served by
+    ``InferenceEngine`` (the replayed batch's ms and its graph's device
+    ms). Gate 4: the replay against ``Executor.run``, the card against the
+    CPU on a batch of 2, the AMP logits against f32's. None of the port's
+    kernels runs in these rows (their convs have a bias and no batch
+    norm). Then MobileNet v1 (scale 1.0) saved under
+    ``--fused_conv_epilogue`` (13 ``conv1x1_bn_act`` ops) and served at
+    bs16 in f32 and under AMP: Gate 5: conv1x1_epilogue (its bf16
+    instance under AMP) at each of the 13 pointwise shapes against its
+    plain version, timed with CUDA events beside the plain version, the
+    bound and torch.matmul; one eager batch of the loaded program launches
+    it 13 times; the logits against the plain path; the InferenceEngine
+    replay (13 GEMM launches in a profiled replay), images/s and the
+    graph's device ms.
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -1673,9 +1710,11 @@ def _fused_shapes(program, batch):
     return shapes
 
 
-def _resnet_train_flops(program, batch):
-    """Model FLOPs of one train step: 2 per MAC of every conv, fused conv
-    and fc in the forward, times 3 for forward plus backward."""
+def _train_flops(program, batch):
+    """Model FLOPs of one train step of a conv/fc program: 2 per MAC of
+    every conv (grouped ones included: an HWIO filter holds the input
+    channels of one group), fused conv and fc in the forward, times 3 for
+    forward plus backward."""
     blk = program.global_block
     fwd = 0
     for op in blk.ops:
@@ -2050,7 +2089,7 @@ def resnet_training_phase(records, gpu_name, built):
     assert losses[-1] < losses[0], losses
     peak_mem = torch.cuda.max_memory_allocated()
     med = float(np.median(step_s[1:]))
-    flops = _resnet_train_flops(main, B)
+    flops = _train_flops(main, B)
     peak_flops = _peaks(gpu_name)[0]
     by_name = {r["name"]: r for r in records}
     by_name["conv1x1_stats"]["launches"] = launches[0] // 7
@@ -2835,7 +2874,7 @@ def resnet_amp_training_phase(records, gpu_name):
     assert f32_launches == (0, 0, 0), f32_launches
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     med = float(np.median(step_s[1:]))
-    flops = _resnet_train_flops(main, B)
+    flops = _train_flops(main, B)
     peak_bf16 = _peaks(gpu_name)[3]
     by_name = {r["name"]: r for r in records}
     by_name["conv1x1_stats_bf16"]["launches"] = launches[0] // 7
@@ -3761,31 +3800,33 @@ def _gate1(r):
     assert r["worst_grad_rel"][0] <= r["grad_tol"], r
 
 
-def _bench_steps(exe, main, feed, loss, scope):
-    """bench.py's scaffold: the batch on the card, RNN_WARMUP steps, then
-    RNN_STEPS dispatches closed by one blocking fetch. Returns (seconds a
+def _bench_steps(exe, main, feed, loss, scope, warmup=RNN_WARMUP,
+                 steps=RNN_STEPS):
+    """bench.py's scaffold: the batch on the card, ``warmup`` steps, then
+    ``steps`` dispatches closed by one blocking fetch. Returns (seconds a
     step, the timed steps' losses)."""
     import torch
 
     dev_feed = _on_device(feed, "cuda")
-    for _ in range(RNN_WARMUP):
+    for _ in range(warmup):
         exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope)
     torch.cuda.synchronize()
     outs = []
     t0 = time.perf_counter()
-    for _ in range(RNN_STEPS):
+    for _ in range(steps):
         out, = exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
                        return_numpy=False)
         outs.append(out)
     float(outs[-1])
-    sec = (time.perf_counter() - t0) / RNN_STEPS
+    sec = (time.perf_counter() - t0) / steps
     return sec, [float(o) for o in outs]
 
 
-def _step_anatomy(exe, main, feed, loss, scope, path):
+def _step_anatomy(exe, main, feed, loss, scope, path, groups=RNN_GROUPS):
     """One step's host time (the dispatch, until ``run`` returns; the
     wall, until the card is done; medians of 3), then one step profiled:
-    device ms and kernel launches by group (``RNN_GROUPS``)."""
+    device ms and kernel launches by group (``groups``; the GEMM and
+    elementwise sums read RNN_GROUPS' names)."""
     import numpy as np
     import torch
 
@@ -3802,15 +3843,16 @@ def _step_anatomy(exe, main, feed, loss, scope, path):
         wall.append(time.perf_counter() - t0)
     prof = _profile_step(
         lambda: exe.run(main, feed=dev_feed, fetch_list=[loss], scope=scope,
-                        return_numpy=False), path, groups=RNN_GROUPS)
+                        return_numpy=False), path, groups=groups)
     rec = {"host_dispatch_ms": float(np.median(dispatch)) * 1e3,
            "wall_ms": float(np.median(wall)) * 1e3, "profile": prof}
     if prof:
         k = prof["kernels_ms"]
         rec.update(device_ms=prof["device_ms"],
                    launches=prof["kernel_launches"],
-                   gemm_ms=k["gemm"] + k["nvjet"] + k["gemv"],
-                   elementwise_ms=k["elementwise"])
+                   gemm_ms=sum(k.get(g, 0.0) for g in ("gemm", "nvjet",
+                                                        "gemv")),
+                   elementwise_ms=k.get("elementwise", 0.0))
     return rec
 
 
@@ -4081,6 +4123,672 @@ def recurrent_phase():
             "seconds": total, "part_seconds": secs}
 
 
+# --- Phase 14: the image-zoo rows, and MobileNet served on the epilogue ------
+# bench.py's reference numbers: IMAGE_MODEL_BASELINES (images/s of one
+# training step at bs128: AlexNet and GoogLeNet on one K40m, VGG-16 on the
+# CPU with MKL-DNN) and INFER_BASELINES (images/s at bs16, MKL-DNN).
+ZOO_TRAIN_BASELINES = {"alexnet": 128 / 0.334, "googlenet": 128 / 1.149,
+                       "vgg16": 30.4}
+ZOO_INFER_BASELINES = {"googlenet": 600.94, "vgg19": 96.75}
+# bench_image_model: 224x224x3, 1000 classes, Momentum(0.01, 0.9), bs128,
+# 2 warm steps and 8 timed dispatches closed by one blocking fetch;
+# bench_inference: bs16, 3 warm and 30 timed batches. Gate 1 runs step 1
+# at batch 4 on the card and on the CPU; Gate 4 compares the card with
+# the CPU at batch 2.
+ZOO = dict(size=224, classes=1000, batch=128, gate_batch=4, lr=0.01,
+           momentum=0.9, infer_batch=16, cpu_batch=2, warmup=2, steps=8,
+           infer_warmup=3, infer_steps=30)
+MOBILENET_POINTWISE = 13  # conv1x1_bn_act ops of MobileNet v1, transpiled
+ZOO_GROUPS = ("xmma", "cudnn", "conv", "gemm", "nvjet", "gemv",
+              "elementwise", "reduce", "pool", "Cat")
+# Gate 1 holds the card's f32 step 1 to the CPU's: the loss within
+# RNN_LOSS_RTOL; full-f32 products on both sides (cuDNN's TF32 off),
+# summed in other orders. GoogLeNet's and VGG-16's step-1 gradients are
+# as sensitive to rounding as ResNet's are to its BN statistics: a
+# pre-activation a rounding away from zero turns its ReLU on or off and
+# can move a max-pool window's gradient to another element. Measured on
+# the H100 (batch 4, 224 x 224; median / largest / all together, of the
+# gradients' norms): the card lies 7.2e-4 / 4.8e-3 / 1.3e-3 from the CPU
+# for GoogLeNet and 2.2e-3 / 7.7e-3 / 1.3e-3 for VGG-16, and the CPU
+# alone, its images nudged one f32 ulp, moves 1.8e-3 / 3.6e-3 / 1.1e-3
+# and 1.0e-3 / 7.8e-3 / 8.8e-4; AlexNet's lie 1.2e-6 / 1.9e-6 and move
+# 8.6e-7 / 1.3e-6. One gradient's own move is a few routing changes, a
+# noisy yardstick (VGG-16's conv2d.w_1037 lay 4.3 times its own), so each
+# gradient is held within RNN_GRAD_TOL of its norm, SENS_FACTOR times its
+# own move under the nudge, or SENS_TOTAL times the largest move of any
+# gradient under it (of its norm), whichever is largest, and all of them
+# together within RNN_GRAD_TOL or SENS_TOTAL times the nudge's move.
+# Gate 4: the card against the CPU on a batch of 2 at LOGIT_RTOL of the
+# largest |logit|, the replay against the eager run at REPLAY_RTOL, the
+# AMP logits against the f32 ones at AMP_RTOL. Gate 5: MobileNet's logits
+# with the kernel against the plain path at LOGIT_RTOL (f32) or
+# AMP_PLAIN_RTOL (AMP); each kernel output against its plain version at
+# GEMM_TOL (f32) or one bf16 ulp (AMP), as phases 8 and 11a hold them.
+
+
+def _zoo_model(pt, name, images, is_test=False):
+    c = ZOO
+    if name == "alexnet":
+        return pt.models.alexnet(images, num_classes=c["classes"],
+                                 is_test=is_test)
+    if name == "googlenet":
+        return pt.models.googlenet(images, num_classes=c["classes"],
+                                   is_test=is_test)
+    if name == "mobilenet":
+        return pt.models.mobilenet(images, num_classes=c["classes"],
+                                   is_test=is_test)
+    depth = int(name[3:])  # vgg16, vgg19
+    return pt.models.vgg(images, num_classes=c["classes"], depth=depth,
+                         is_test=is_test)
+
+
+def _zoo_program(pt, name):
+    """bench.py's bench_image_model program: (main, startup, loss,
+    params_grads, []) (no sequence outputs, for _card_vs_cpu)."""
+    c = ZOO
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        images = pt.layers.data("images", shape=[c["size"], c["size"], 3])
+        label = pt.layers.data("label", shape=[1], dtype="int64")
+        logits = _zoo_model(pt, name, images)
+        loss = pt.layers.mean(pt.layers.softmax_with_cross_entropy(logits,
+                                                                   label))
+        params_grads = pt.optimizer.MomentumOptimizer(
+            learning_rate=c["lr"], momentum=c["momentum"]).minimize(
+                loss, startup_program=startup)
+    return main, startup, loss, params_grads, []
+
+
+def _zoo_feed():
+    """bench_image_model's batch: RandomState(0) images in [0, 1) and
+    labels."""
+    import numpy as np
+
+    c = ZOO
+    rng = np.random.RandomState(0)
+    return {"images": rng.rand(c["batch"], c["size"], c["size"], 3)
+            .astype("float32"),
+            "label": rng.randint(0, c["classes"], size=(c["batch"], 1))
+            .astype("int64")}
+
+
+def _all_kernel_counts():
+    """Every launch counter of the port's kernels, f32 and bf16."""
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    return _conv_counts(ke) + _amp_counts(ke) + _flash_counts(fa)
+
+
+def _zoo_timed(exe, built, feed, scope, state, dtypes, tag, gpu_name, bf16):
+    """bench_image_model's timing of one build from ``state``: Gate 3 on
+    the timed losses, images/s, peak memory, the share of the peak and one
+    step's anatomy."""
+    import numpy as np
+    import torch
+
+    c = ZOO
+    _restore(scope, state, dtypes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sec, losses = _bench_steps(exe, built[0], feed, built[2], scope,
+                               c["warmup"], c["steps"])
+    peak_mem = torch.cuda.max_memory_allocated()
+    assert np.isfinite(losses).all(), (tag, losses)  # Gate 3
+    anatomy = _step_anatomy(exe, built[0], feed, built[2], scope,
+                            f"zoo_{tag}_profile.txt", groups=ZOO_GROUPS)
+    flops = _train_flops(built[0], c["batch"])
+    peak = _peaks(gpu_name)[3 if bf16 else 0]
+    return {"ms_per_batch": sec * 1e3, "images_per_s": c["batch"] / sec,
+            "losses": losses, "peak_mem_bytes": peak_mem,
+            "tflop_per_step": flops / 1e12,
+            "peak_share": flops / sec / peak,
+            "peak": "bf16" if bf16 else "f32", "anatomy": anatomy}
+
+
+def _zoo_timed_text(tag, r):
+    return (f"{tag}: {r['ms_per_batch']:.1f} ms/batch, "
+            f"{r['images_per_s']:.1f} images/s, {r['tflop_per_step']:.2f} "
+            f"TFLOP/step = {r['peak_share'] * 100:.1f}% of the {r['peak']} "
+            f"peak, peak memory {r['peak_mem_bytes'] / 2**30:.2f} GiB, "
+            f"losses {r['losses'][0]:.5f} .. {r['losses'][-1]:.5f} (all "
+            f"finite)\n" + _anatomy_text(tag, r["anatomy"]))
+
+
+def _zoo_gate1(pt, built, state, feed):
+    """Gate 1: step 1 of ``built`` in f32 on the card and on the CPU from
+    ``state`` on ``feed``, and on the CPU with the images nudged one f32
+    ulp up (the step's own sensitivity); the record."""
+    import numpy as np
+    import torch
+
+    main, _, loss, params_grads, _ = built
+    grads = [g.name for _, g in params_grads]
+    fetch = [loss.name] + grads
+
+    def step(device, f):
+        scope = pt.Scope()
+        for n, t in state.items():
+            scope.set(n, t.to(device))
+        exe = pt.Executor(pt.CUDAPlace() if device == "cuda" else
+                          pt.CPUPlace())
+        out = exe.run(main, feed=_on_device(f, device), fetch_list=fetch,
+                      scope=scope, return_numpy=False)
+        return [o.detach().float().cpu() for o in out]
+
+    card = step("cuda", feed)
+    t0 = time.perf_counter()
+    cpu = step("cpu", feed)
+    cpu_s = time.perf_counter() - t0
+    nudged = dict(feed, images=np.nextafter(
+        feed["images"], np.float32(np.inf)).astype(np.float32))
+    cpu2 = step("cpu", nudged)
+    lc, lh = float(card[0]), float(cpu[0])
+    d_card, d_cpu, norms = [], [], []
+    for name, gc, gh, g2 in zip(grads, card[1:], cpu[1:], cpu2[1:]):
+        assert torch.isfinite(gc).all(), name
+        d_card.append(float((gc - gh).norm()))
+        d_cpu.append(float((g2 - gh).norm()))
+        norms.append(float(gh.norm()))
+    total = float(np.linalg.norm(d_card) / np.linalg.norm(norms))
+    total_nudge = float(np.linalg.norm(d_cpu) / np.linalg.norm(norms))
+    rel = np.array(d_card) / np.maximum(norms, 1e-30)
+    rel_nudge = np.array(d_cpu) / np.maximum(norms, 1e-30)
+    allowed = np.maximum.reduce([
+        np.full(len(grads), RNN_GRAD_TOL), SENS_FACTOR * rel_nudge,
+        np.full(len(grads), SENS_TOTAL * rel_nudge.max())])
+    i = int(np.argmax(rel / allowed))
+    worst = (float(rel[i] / allowed[i]), grads[i])
+    return {"loss_card": lc, "loss_cpu": lh, "loss_rel": abs(lc - lh) /
+            abs(lh), "loss_tol": RNN_LOSS_RTOL, "grads": len(grads),
+            "grad_rel_median": float(np.median(rel)),
+            "grad_rel_max": float(rel.max()), "grad_rel_total": total,
+            "nudge_rel_median": float(np.median(rel_nudge)),
+            "nudge_rel_max": float(rel_nudge.max()),
+            "nudge_rel_total": total_nudge, "worst_ratio": worst,
+            "cpu_step_s": cpu_s}
+
+
+def _zoo_gate1_text(tag, r):
+    return (f"{tag}: step-1 loss card {r['loss_card']:.6f} CPU "
+            f"{r['loss_cpu']:.6f} (rel {r['loss_rel']:.3e}, tol "
+            f"{r['loss_tol']}); gradients |card - CPU| / |CPU| median "
+            f"{r['grad_rel_median']:.3e} max {r['grad_rel_max']:.3e}, all "
+            f"together {r['grad_rel_total']:.3e}; the CPU's own move under "
+            f"a one-ulp image nudge median {r['nudge_rel_median']:.3e} max "
+            f"{r['nudge_rel_max']:.3e}, all together "
+            f"{r['nudge_rel_total']:.3e}; worst card-to-allowance ratio "
+            f"{r['worst_ratio'][0]:.3f} ({r['worst_ratio'][1]}) over "
+            f"{r['grads']} gradients; the CPU step took "
+            f"{r['cpu_step_s']:.1f} s")
+
+
+def _zoo_gate1_check(r):
+    assert r["loss_rel"] <= r["loss_tol"], r
+    assert r["worst_ratio"][0] <= 1.0, r
+    assert r["grad_rel_total"] <= max(SENS_TOTAL * r["nudge_rel_total"],
+                                      RNN_GRAD_TOL), r
+
+
+def zoo_training_row(pt, name, gpu_name):
+    """One training row: the f32 program from its startup on the card
+    (Gate 1: step 1 at batch 4 against the CPU), then built under AMP with
+    the same names from the same state (Gate 2: its step-1 loss within
+    AMP_RTOL of f32's); bench_image_model's timing under AMP (the row, as
+    bench.py runs it) and in f32, with Gate 3 and one step's anatomy
+    each."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core import program as tprog
+
+    c = ZOO
+    feed = _zoo_feed()
+    gate_feed = {k: v[:c["gate_batch"]] for k, v in feed.items()}
+    start = tprog.Program._uid_counter
+    t0 = time.perf_counter()
+    built = _zoo_program(pt, name)
+    exe = pt.Executor(pt.CUDAPlace())
+    scope = pt.Scope()
+    exe.run(built[1], scope=scope)
+    state = _snapshot(scope)
+    n_params = sum(scope.get(p.name).numel() for p, _ in built[3])
+    print(f"zoo {name}: f32 program of {len(built[0].global_block.ops)} ops, "
+          f"{n_params / 1e6:.1f} M parameters, built and initialised in "
+          f"{time.perf_counter() - t0:.2f} s")
+    rec = {"params": n_params}
+    rec["gate1_f32"] = _zoo_gate1(pt, built, state, gate_feed)
+    print(_zoo_gate1_text(f"zoo {name} f32 (batch {c['gate_batch']})",
+                          rec["gate1_f32"]))
+    _zoo_gate1_check(rec["gate1_f32"])
+    l32 = rec["gate1_f32"]["loss_card"]
+    rec["f32"] = _zoo_timed(exe, built, feed, scope, state, None,
+                            f"{name}_f32", gpu_name, bf16=False)
+    print(_zoo_timed_text(f"zoo {name} f32", rec["f32"]))
+    del scope
+    torch.cuda.empty_cache()
+
+    tprog.Program._uid_counter = start  # the AMP build's names are equal
+    with _Amp():
+        built = _zoo_program(pt, name)
+        block = built[0].global_block
+        dtypes = {n: block.var(n).dtype for n in state if block.has_var(n)}
+        n_bf16 = sum(d == torch.bfloat16 for d in dtypes.values())
+        scope = pt.Scope()
+        _restore(scope, state, dtypes)
+        la = float(exe.run(built[0], feed=_on_device(gate_feed, "cuda"),
+                           fetch_list=[built[2]], scope=scope)[0])
+        print(f"zoo {name} AMP (batch {c['gate_batch']}): step-1 loss "
+              f"{la:.6f}, f32 {l32:.6f} (rel {abs(la - l32) / abs(l32):.3e}, "
+              f"tol {AMP_RTOL}); {n_bf16} variables declared bf16")
+        assert np.isfinite(la) and abs(la - l32) <= AMP_RTOL * abs(l32)
+        rec["gate2"] = {"loss_amp": la, "loss_f32": l32, "tol": AMP_RTOL}
+        rec["amp"] = _zoo_timed(exe, built, feed, scope, state, dtypes,
+                                f"{name}_amp", gpu_name, bf16=True)
+    rec["amp"]["vs_baseline"] = (rec["amp"]["images_per_s"]
+                                 / ZOO_TRAIN_BASELINES[name])
+    rec["baseline_images_per_s"] = ZOO_TRAIN_BASELINES[name]
+    print(_zoo_timed_text(f"zoo {name} AMP", rec["amp"]))
+    print(f"zoo_{name}: {rec['amp']['images_per_s']:.1f} images/s under AMP, "
+          f"vs_baseline {rec['amp']['vs_baseline']:.3f} (the reference's "
+          f"{ZOO_TRAIN_BASELINES[name]:.1f} images/s); f32 "
+          f"{rec['f32']['images_per_s']:.1f} images/s")
+    del scope, state, exe
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _engine_replay(pt, model_dir, x, tag, kernel_names=()):
+    """InferenceEngine on ``model_dir`` with one CUDA graph at x's batch:
+    (the replay's logits, median ms of 10 replays after 2, the graph's
+    device ms, its profiled kernel counts)."""
+    import numpy as np
+    import torch
+
+    eng = pt.InferenceEngine(str(model_dir), place=pt.CUDAPlace(0),
+                             batch_buckets=(x.shape[0],))
+    eng.warmup()
+    replay = eng.run({"images": x})[0]
+    counted = (_count_kernels(lambda: eng.run({"images": x}), kernel_names)
+               if kernel_names else None)
+    rep_s = []
+    for i in range(12):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.run({"images": x})
+        torch.cuda.synchronize()
+        if i >= 2:
+            rep_s.append(time.perf_counter() - t1)
+    graph = eng._graphs[eng._signature({"images": x})][0]
+    device_ms = _device_ms(graph.replay)
+    profile = _profile_step(graph.replay, f"zoo_{tag}_serving_profile.txt",
+                            groups=("conv1x1_bf16_kernel",
+                                    "conv1x1_tf32x3_kernel") + ZOO_GROUPS)
+    eng.close()
+    del eng, graph
+    torch.cuda.empty_cache()
+    return replay, float(np.median(rep_s)) * 1e3, device_ms, counted, profile
+
+
+def zoo_serving_row(pt, name):
+    """One serving row, as bench_inference runs it: the model built with
+    is_test=False from its seeded startup on the card, saved through the
+    inference transpiler, loaded and run by Executor.run at bs16 (3 warm,
+    30 timed) in f32 and under AMP; the same directory served by
+    InferenceEngine (the replayed batch). Gate 4: the replay against
+    Executor.run, the card against the CPU on a batch of 2 (f32), the AMP
+    logits against the f32 ones."""
+    import collections
+    import shutil
+
+    import numpy as np
+    import torch
+
+    c = ZOO
+    B = c["infer_batch"]
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        images = pt.layers.data("images", shape=[c["size"], c["size"], 3])
+        logits = _zoo_model(pt, name, images)
+    exe = pt.Executor(pt.CUDAPlace())
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    model_dir = ROOT / "build" / f"zoo_{name}_inference"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    pt.io.save_inference_model(str(model_dir), ["images"], [logits], exe,
+                               main_program=main, scope=scope)
+    save_s = time.perf_counter() - t0
+    del scope
+    meta = pt.io.read_inference_model_meta(str(model_dir))
+    ops = collections.Counter(op["type"] for op in
+                              meta["program"]["blocks"][0]["ops"])
+    assert not ops["dropout"], ops
+    load_scope = pt.Scope()
+    prog, feeds, fetches = pt.io.load_inference_model(str(model_dir), exe,
+                                                      scope=load_scope)
+    x = np.random.RandomState(0).rand(B, c["size"], c["size"], 3).astype(
+        "float32")
+    dev = {feeds[0]: torch.from_numpy(x).cuda()}
+    rec = {"ops": dict(ops), "save_s": save_s,
+           "baseline_images_per_s": ZOO_INFER_BASELINES[name]}
+    out = {}
+    for amp in (False, True):
+        tag = "amp" if amp else "f32"
+        with _Amp() if amp else contextlib.nullcontext():
+            for _ in range(c["infer_warmup"]):
+                exe.run(prog, feed=dev, fetch_list=fetches, scope=load_scope)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(c["infer_steps"]):
+                o, = exe.run(prog, feed=dev, fetch_list=fetches,
+                             scope=load_scope, return_numpy=False)
+            eager = o.float().cpu().numpy()
+            sec = (time.perf_counter() - t0) / c["infer_steps"]
+            replay, rep_ms, dev_ms, _, profile = _engine_replay(
+                pt, model_dir, x, f"{name}_{tag}")
+        assert eager.shape == (B, c["classes"]) and np.isfinite(eager).all()
+        ref = float(np.abs(eager).max())
+        e_rep = float(np.abs(replay - eager).max())
+        assert e_rep <= REPLAY_RTOL * ref, (name, tag, e_rep, ref)  # Gate 4
+        out[tag] = eager
+        rec[tag] = {"ms_per_batch": sec * 1e3, "images_per_s": B / sec,
+                    "vs_baseline": B / sec / ZOO_INFER_BASELINES[name],
+                    "replay_ms": rep_ms, "replay_images_per_s":
+                    B / rep_ms * 1e3, "replay_device_ms": dev_ms,
+                    "replay_vs_eager_max_abs": e_rep,
+                    "replay_bitwise_eager": bool(np.array_equal(replay,
+                                                                eager)),
+                    "logits_max_abs": ref, "replay_profile": profile}
+        r = rec[tag]
+        print(f"infer_{name} {tag}: Executor.run {r['ms_per_batch']:.3f} "
+              f"ms/batch, {r['images_per_s']:.1f} images/s, vs_baseline "
+              f"{r['vs_baseline']:.3f} (the reference's "
+              f"{ZOO_INFER_BASELINES[name]} images/s); InferenceEngine "
+              f"replay {rep_ms:.3f} ms ({r['replay_images_per_s']:.1f} "
+              f"images/s), the graph {_ms_text(dev_ms)} ms of device time; "
+              f"replay vs Executor.run max abs {e_rep:.3e} (bitwise "
+              f"{r['replay_bitwise_eager']}; tol {REPLAY_RTOL} of max "
+              f"|logit| {ref:.3e})")
+    e_amp = float(np.abs(out["amp"] - out["f32"]).max())
+    ref = float(np.abs(out["f32"]).max())
+    assert e_amp <= AMP_RTOL * ref, (name, e_amp, ref)  # Gate 4
+    # the card against the CPU on a batch of 2 (f32)
+    n = c["cpu_batch"]
+    card2, = exe.run(prog, feed={feeds[0]: dev[feeds[0]][:n]},
+                     fetch_list=fetches, scope=load_scope)
+    cpu_exe = pt.Executor(pt.CPUPlace())
+    cpu_scope = pt.Scope()
+    cprog, cfeeds, cfetches = pt.io.load_inference_model(
+        str(model_dir), cpu_exe, scope=cpu_scope)
+    cpu2, = cpu_exe.run(cprog, feed={cfeeds[0]: x[:n]}, fetch_list=cfetches,
+                        scope=cpu_scope)
+    ref2 = float(np.abs(cpu2).max())
+    e_cpu = float(np.abs(card2 - cpu2).max())
+    assert e_cpu <= LOGIT_RTOL * ref2, (name, e_cpu, ref2)  # Gate 4
+    rec["gate4"] = {"amp_vs_f32_max_abs": e_amp, "f32_logits_max_abs": ref,
+                    "amp_tol": AMP_RTOL, "card_vs_cpu_max_abs": e_cpu,
+                    "cpu_logits_max_abs": ref2, "cpu_tol": LOGIT_RTOL}
+    print(f"infer_{name}: {sum(ops.values())} ops saved "
+          f"({dict(ops)}); AMP logits vs f32 max abs {e_amp:.3e} (tol "
+          f"{AMP_RTOL} of {ref:.3e}); the card vs the CPU on {n} images "
+          f"{e_cpu:.3e} (tol {LOGIT_RTOL} of {ref2:.3e})")
+    del load_scope, cpu_scope, dev
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mobilenet_kernel_rows(shapes, bf16, gpu_name):
+    """The conv-epilogue kernel at each of MobileNet's pointwise shapes
+    against its plain version (Gate 5), then timed with CUDA events in
+    turns with torch.matmul (kernel, library, library, kernel) beside the
+    plain version and the bound. Returns (rows, the largest error)."""
+    import torch
+
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+    from paddle_tpu_torch.ops.common import f32_accumulation
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    dt = torch.bfloat16 if bf16 else torch.float32
+    rows, worst = [], 0.0
+    for R, I, O, res, act in shapes:
+        assert not res and act == "relu", (R, I, O, res, act)
+        x = torch.randn(R, I, device="cuda", generator=gen).to(dt)
+        w = (torch.randn(I, O, device="cuda", generator=gen)
+             * I ** -0.5).to(dt)
+        scale = 1.0 + 0.2 * torch.randn(O, device="cuda", generator=gen)
+        shift = 0.1 * torch.randn(O, device="cuda", generator=gen)
+        got = ke.conv1x1_epilogue(x, w, scale, shift, None, act)
+        want = ke.conv1x1_epilogue_reference(x, w, scale, shift, None, act)
+        torch.cuda.synchronize()
+        if bf16:
+            err = _bf16_ulps(got, want)
+            assert got.dtype == dt and err <= 1.0, (R, I, O, err)
+        else:
+            err = _assert_close(got, want, GEMM_TOL,
+                                f"mobilenet conv1x1_epilogue {R}x{I}x{O}")
+
+        def lib():
+            with f32_accumulation():
+                return torch.matmul(x, w)
+
+        calls = (lambda: ke.conv1x1_epilogue(x, w, scale, shift, None, act),
+                 lambda: ke.conv1x1_epilogue_reference(x, w, scale, shift,
+                                                       None, act), lib)
+        turns = [_cuda_ms(calls[i], iters=20) for i in (0, 2, 2, 0)]
+        flops, nbytes = (_conv_work_bf16 if bf16 else _conv_work)(
+            "conv1x1_epilogue", R, I, O, False, act)
+        bound, by, bound_simt = _bound(flops, nbytes, gpu_name, bf16=bf16)
+        # back to back, the wrapper's host work can outlast its kernels:
+        # the device time from a profiler trace goes beside
+        row = {"shape": [R, I, O], "err": err,
+               "ms": (turns[0] + turns[3]) / 2,
+               "library_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+               "device_ms": _device_ms(calls[0]),
+               "library_device_ms": _device_ms(calls[2]),
+               "plain_ms": _cuda_ms(calls[1], iters=10), "bound_ms": bound,
+               "bound_by": by, "bound_ms_simt": bound_simt,
+               "plan": list(ke.tile_plan(R, I, O, True, ke.K_TILE_BF16)
+                            if bf16 else ke.tile_plan(R, I, O,
+                                                      split_k=True))}
+        rows.append(row)
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+        print(f"mobilenet {'bf16 ' if bf16 else ''}conv1x1_epilogue R{R} "
+              f"I{I} O{O} relu plan {tuple(row['plan'])}: "
+              f"{err:.3e}{' ulp (tol 1)' if bf16 else f' (tol {GEMM_TOL})'}"
+              f"; {row['ms']:.4f} ms (device "
+              f"{_ms_text(row['device_ms'], '.4f')}), plain "
+              f"{row['plain_ms']:.4f}, torch.matmul {row['library_ms']:.4f} "
+              f"(device {_ms_text(row['library_device_ms'], '.4f')}), bound "
+              f"{bound:.4f} ({by})")
+        del x, w, got, want, calls
+    _reset_conv_counts(ke)  # comparison launches do not count
+    _reset_amp_counts(ke)
+    return rows, worst
+
+
+def mobilenet_serving_phase(gpu_name):
+    """MobileNet v1 (scale 1.0) saved under --fused_conv_epilogue (13
+    conv1x1_bn_act ops) and served at bs16 in f32 and under AMP: the
+    kernel at each pointwise shape (Gate 5, timed), the main path (one
+    eager batch of the loaded program: 13 launches of conv1x1_epilogue,
+    or of its bf16 instance), the logits against the plain path (Gate 5)
+    and the InferenceEngine replay (13 GEMM launches in a profiled
+    replay, images/s). Returns (kernel records, the phase's record)."""
+    import collections
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+
+    c = ZOO
+    B = c["infer_batch"]
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        images = pt.layers.data("images", shape=[c["size"], c["size"], 3])
+        logits = _zoo_model(pt, "mobilenet", images)
+    exe = pt.Executor(pt.CUDAPlace())
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    model_dir = ROOT / "build" / "zoo_mobilenet_inference"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    pt.flags.FLAGS.fused_conv_epilogue = True
+    try:
+        pt.io.save_inference_model(str(model_dir), ["images"], [logits], exe,
+                                   main_program=main, scope=scope)
+    finally:
+        pt.flags.FLAGS.fused_conv_epilogue = False
+    del scope
+    meta = pt.io.read_inference_model_meta(str(model_dir))
+    ops = collections.Counter(op["type"] for op in
+                              meta["program"]["blocks"][0]["ops"])
+    assert ops["conv1x1_bn_act"] == MOBILENET_POINTWISE, ops
+    assert not ops["batch_norm"], ops
+    load_scope = pt.Scope()
+    prog, feeds, fetches = pt.io.load_inference_model(str(model_dir), exe,
+                                                      scope=load_scope)
+    shapes = _fused_shapes(prog, B)
+    assert len(shapes) == MOBILENET_POINTWISE, shapes
+    print(f"mobilenet: saved {sum(ops.values())} ops ({dict(ops)}); the "
+          f"pointwise shapes at batch {B}: "
+          f"{[(R, I, O) for R, I, O, _, _ in shapes]}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    x = torch.rand(B, c["size"], c["size"], 3, device="cuda", generator=gen)
+    feed = {feeds[0]: x}
+    records, rec = [], {"ops": dict(ops), "shapes": [list(s[:3])
+                                                     for s in shapes]}
+    f32_logits = None
+    for bf16 in (False, True):
+        tag = "amp" if bf16 else "f32"
+        name = "conv1x1_epilogue" + ("_bf16" if bf16 else "")
+        with _Amp() if bf16 else contextlib.nullcontext():
+            rows, worst = _mobilenet_kernel_rows(shapes, bf16, gpu_name)
+            # the main path: one eager batch of the loaded program
+            _reset_conv_counts(ke)
+            _reset_amp_counts(ke)
+            kern, = exe.run(prog, feed=feed, fetch_list=fetches,
+                            scope=load_scope, return_numpy=False)
+            counts = (_amp_counts(ke) if bf16 else _conv_counts(ke))
+            other = (_conv_counts(ke) if bf16 else _amp_counts(ke))
+            assert counts == (0, MOBILENET_POINTWISE, 0), (tag, counts)
+            assert other == (0, 0, 0), (tag, other)
+            plain, = _plain_step(exe, prog, feed, fetches, load_scope, ke)
+            kern, plain = kern.float().cpu().numpy(), plain.float().cpu(
+            ).numpy()
+            ref = float(np.abs(plain).max())
+            e_plain = float(np.abs(kern - plain).max())
+            tol = AMP_PLAIN_RTOL if bf16 else LOGIT_RTOL
+            assert kern.shape == (B, c["classes"]) and np.isfinite(kern).all()
+            assert e_plain <= tol * ref, (tag, e_plain, ref)  # Gate 5
+            kname = "conv1x1_bf16_kernel" if bf16 else "conv1x1_tf32x3_kernel"
+            replay, rep_ms, dev_ms, counted, profile = _engine_replay(
+                pt, model_dir, x.cpu().numpy(), f"mobilenet_{tag}",
+                (kname,))
+            assert counted is not None and counted[kname] == \
+                MOBILENET_POINTWISE, counted
+            e_rep = float(np.abs(replay - kern).max())
+            assert e_rep <= REPLAY_RTOL * ref, (tag, e_rep, ref)
+        if bf16:
+            e_f32 = float(np.abs(kern - f32_logits).max())
+            assert e_f32 <= AMP_RTOL * float(np.abs(f32_logits).max()), e_f32
+        else:
+            f32_logits, e_f32 = kern, 0.0
+        per = {k: sum(r[k] for r in rows) for k in
+               ("ms", "plain_ms", "library_ms", "bound_ms", "bound_ms_simt",
+                "device_ms", "library_device_ms")
+               if all(r[k] is not None for r in rows)}
+        top = max(rows, key=lambda r: r["bound_ms"])
+        records.append({
+            "name": f"{name}@mobilenet", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
+            "replaces": f"paddle_tpu/kernels/conv_epilogue.py:"
+                        f"{CONV_REPLACES['conv1x1_epilogue']}",
+            "launches": counts[1], "max_abs_err": worst,
+            "ms": per["ms"], "plain_ms": per["plain_ms"],
+            "bound_ms": per["bound_ms"], "bound_by": top["bound_by"],
+            "bound_ms_simt": per["bound_ms_simt"],
+            "library_ms": per["library_ms"],
+            "library": "torch.matmul" + (" in bf16 (f32 accumulation)"
+                                         if bf16 else "") + ", product only",
+            "shape": f"MobileNet v1's {MOBILENET_POINTWISE} pointwise convs "
+                     f"at batch {B}, summed a batch",
+            "per_shape": rows})
+        rec[tag] = {"launches_per_batch": counts[1],
+                    "logits_vs_plain_max_abs": e_plain,
+                    "logits_max_abs": ref, "plain_tol": tol,
+                    "replay_vs_eager_max_abs": e_rep,
+                    "amp_vs_f32_max_abs": e_f32,
+                    "replay_kernels": counted, "replay_ms": rep_ms,
+                    "replay_images_per_s": B / rep_ms * 1e3,
+                    "replay_device_ms": dev_ms, "replay_profile": profile,
+                    "kernel_ms_per_batch": per}
+        print(f"mobilenet {tag}: {counts[1]} {name} launches in one eager "
+              f"batch; logits vs the plain path max abs {e_plain:.3e} (tol "
+              f"{tol} of {ref:.3e}); replay vs eager {e_rep:.3e}; the "
+              f"profiled replay launched {counted}; replay {rep_ms:.3f} ms, "
+              f"{B / rep_ms * 1e3:.1f} images/s, the graph "
+              f"{_ms_text(dev_ms)} ms of device time; the kernel per batch "
+              f"{per['ms']:.4f} ms (device "
+              f"{_ms_text(per.get('device_ms'), '.4f')}; plain "
+              f"{per['plain_ms']:.4f}, torch.matmul {per['library_ms']:.4f}"
+              f", device {_ms_text(per.get('library_device_ms'), '.4f')}; "
+              f"bound {per['bound_ms']:.4f})")
+    del load_scope, feed
+    torch.cuda.empty_cache()
+    return records, rec
+
+
+def zoo_phase(gpu_name):
+    """Phase 14: bench.py's zoo_alexnet, zoo_googlenet and zoo_vgg16
+    training rows, its infer_googlenet and infer_vgg19 serving rows, and
+    MobileNet v1 served under --fused_conv_epilogue. Returns (kernel
+    records, the phase's record)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    secs = {}
+    before = _all_kernel_counts()
+    rec = {}
+    for name in ZOO_TRAIN_BASELINES:
+        t1 = time.perf_counter()
+        rec[f"zoo_{name}"] = zoo_training_row(pt, name, gpu_name)
+        secs[f"zoo_{name}"] = time.perf_counter() - t1
+    for name in ZOO_INFER_BASELINES:
+        t1 = time.perf_counter()
+        rec[f"infer_{name}"] = zoo_serving_row(pt, name)
+        secs[f"infer_{name}"] = time.perf_counter() - t1
+    # the zoo's convs have a bias and no batch norm: none of the port's
+    # kernels is on their path
+    assert _all_kernel_counts() == before, (before, _all_kernel_counts())
+    t1 = time.perf_counter()
+    records, rec["mobilenet"] = mobilenet_serving_phase(gpu_name)
+    secs["mobilenet"] = time.perf_counter() - t1
+    total = time.perf_counter() - t0
+    for name in ZOO_TRAIN_BASELINES:
+        r = rec[f"zoo_{name}"]
+        print(f"zoo_{name}: {r['amp']['images_per_s']:.1f} images/s, "
+              f"vs_baseline {r['amp']['vs_baseline']:.3f}")
+    for name in ZOO_INFER_BASELINES:
+        r = rec[f"infer_{name}"]
+        print(f"infer_{name}: {r['amp']['images_per_s']:.1f} images/s, "
+              f"vs_baseline {r['amp']['vs_baseline']:.3f} (f32 "
+              f"{r['f32']['images_per_s']:.1f}, "
+              f"{r['f32']['vs_baseline']:.3f})")
+    print(f"zoo: phase 14 took {total:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
+    rec.update(seconds=total, part_seconds=secs)
+    torch.cuda.empty_cache()
+    return records, rec
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -4138,6 +4846,10 @@ def main():
                              "recurrent rows lstm and lstm_varlen, the "
                              "dynamic_gru twin and the decode row); prints "
                              "no ok line")
+    parser.add_argument("--zoo-only", action="store_true",
+                        help="build the kernels and run only phase 14 (the "
+                             "image-zoo rows and MobileNet served on the "
+                             "conv epilogue); prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -4222,6 +4934,16 @@ def main():
             {"gpu": smi, "recurrent": recurrent}, indent=1))
         print(smi)
         return
+    if args.zoo_only:
+        recs, zoo = zoo_phase(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_zoo.json").write_text(json.dumps(
+            {"gpu": smi, "kernels": recs, "zoo": zoo}, indent=1))
+        print(json.dumps({"kernels": [{k: r[k] for k in keys}
+                                      for r in recs]}))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -4282,7 +5004,9 @@ def main():
     per_layer_recs, per_layer = per_layer_phases(gpu)
     torch.cuda.empty_cache()
     recurrent = recurrent_phase()
-    records = [kern] + bwd + conv + amp_recs + per_layer_recs
+    torch.cuda.empty_cache()
+    zoo_recs, zoo = zoo_phase(gpu)
+    records = [kern] + bwd + conv + amp_recs + per_layer_recs + zoo_recs
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -4293,7 +5017,8 @@ def main():
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference,
          "attention_rewrite": attention, "amp": amp,
-         "per_layer": per_layer, "recurrent": recurrent, "build_s": built,
+         "per_layer": per_layer, "recurrent": recurrent, "zoo": zoo,
+         "build_s": built,
          "rng": rng},
         indent=1))
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

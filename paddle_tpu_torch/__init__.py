@@ -44,7 +44,7 @@ from .ops.common import amp_enabled, set_amp  # noqa: E402
 from .core.program import (Program, default_main_program,  # noqa: E402
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
-from . import flags, io, layers, models, optimizer  # noqa: E402
+from . import flags, io, layers, models, nets, optimizer  # noqa: E402
 from . import initializer, transpiler  # noqa: E402
 from .serving import (BadRequestError, CacheExhaustedError,  # noqa: E402
                       DynamicBatcher, EngineClosedError, Future,
@@ -60,7 +60,7 @@ __all__ = [
     "amp_enabled", "set_amp",
     "default_main_program", "default_startup_program", "flags",
     "global_scope", "initializer", "io",
-    "layers", "models", "optimizer", "program_guard", "scope_from_numpy",
+    "layers", "models", "nets", "optimizer", "program_guard", "scope_from_numpy",
     "transpiler",
     "BadRequestError", "CacheExhaustedError", "DynamicBatcher",
     "EngineClosedError", "Future", "GenerationEngine", "InferenceEngine",

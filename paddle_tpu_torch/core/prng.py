@@ -56,24 +56,51 @@ _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
-def _rotl(x, r):
-    return ((x << r) | (x >> (32 - r))) & _M32
+def _wrap32(x, device):
+    """A uint32 value (int or int64 tensor) as int32 bits."""
+    t = torch.as_tensor(x, dtype=torch.int64, device=device) & _M32
+    return torch.where(t >= 2 ** 31, t - 2 ** 32, t).to(torch.int32)
+
+
+def _rotl_(x, r):
+    """x rotated left by r within 32 bits, in place, on int32 bits (``>>``
+    on int32 is arithmetic, so the bits it brings in are masked off)."""
+    low = (x >> (32 - r)).bitwise_and_((1 << r) - 1)
+    return x.bitwise_left_shift_(r).bitwise_or_(low)
+
+
+def _threefry_i32(k1, k2, x1, x2):
+    """Threefry-2x32 on int32 bits: additions wrap modulo 2^32, as uint32
+    additions do, and int32 tensors take half the memory traffic of the
+    int64 ones the public words are carried in. Constants enter as Python
+    scalars (the parity fits int32), never as new tensors, so a CUDA graph
+    can capture it."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1, x2 = x1 + ks[0], x2 + ks[1]
+    shape = torch.broadcast_shapes(x1.shape, x2.shape)
+    x1, x2 = x1.expand(shape).contiguous(), x2.expand(shape).contiguous()
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x1 += x2
+            _rotl_(x2, r).bitwise_xor_(x1)
+        x1 += ks[(i + 1) % 3]
+        x2 += ks[(i + 2) % 3] + (i + 1)
+    return x1, x2
+
+
+def _u64(x):
+    """int32 bits as the uint32 value, in int64."""
+    return x.to(torch.int64) & _M32
 
 
 def threefry2x32(k1, k2, x1, x2):
     """Threefry-2x32 (20 rounds) of the counter words (x1, x2) under the
     key (k1, k2): int64 tensors (or ints) holding uint32 values,
     broadcast together. Returns the two output words."""
-    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
-    x1 = (x1 + ks[0]) & _M32
-    x2 = (x2 + ks[1]) & _M32
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x1 = (x1 + x2) & _M32
-            x2 = _rotl(x2, r) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & _M32
-        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
-    return x1, x2
+    device = next((t.device for t in (k1, k2, x1, x2)
+                   if isinstance(t, torch.Tensor)), None)
+    y1, y2 = _threefry_i32(*(_wrap32(t, device) for t in (k1, k2, x1, x2)))
+    return _u64(y1), _u64(y2)
 
 
 def _u32(x, device=None):
@@ -107,11 +134,12 @@ def random_bits(key, n):
     counters run over the flattened shape, as jax's)."""
     k1, k2 = key
     shape = (n,) if isinstance(n, int) else tuple(n)
-    k1, k2 = k1[..., None], k2[..., None]
-    counts = torch.arange(math.prod(shape), dtype=torch.int64,
+    k1 = _wrap32(k1, k1.device)[..., None]
+    k2 = _wrap32(k2, k2.device)[..., None]
+    counts = torch.arange(math.prod(shape), dtype=torch.int32,
                           device=k1.device)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(counts), counts)
-    bits = b1 ^ b2
+    b1, b2 = _threefry_i32(k1, k2, torch.zeros_like(counts), counts)
+    bits = _u64(b1 ^ b2)
     return bits.reshape(bits.shape[:-1] + shape)
 
 
@@ -122,9 +150,9 @@ def _f32(x):
 
 def _fma(a, b, c):
     """a * b + c rounded once to f32 (the product is exact in f64)."""
-    if isinstance(a, torch.Tensor):
-        return (a.double() * b + c).float()
-    return (b.double() * a + c).float()
+    if not isinstance(a, torch.Tensor):
+        a, b = b, a
+    return a.to(torch.float64, copy=True).mul_(b).add_(c).float()
 
 
 def _bf16(x):
@@ -257,11 +285,9 @@ def erf_inv(x):
     w = -_xla_log1p(-(x * x))
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
-    p = torch.where(lt, torch.full_like(x, _ERFINV_LT5[0]),
-                    torch.full_like(x, _ERFINV_GE5[0]))
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(x.dtype)
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = _fma(p, w, torch.where(lt, torch.full_like(x, a),
-                                   torch.full_like(x, b)))
+        p = _fma(p, w, torch.where(lt, a, b).to(x.dtype))
     return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
 
 

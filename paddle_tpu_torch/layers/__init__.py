@@ -5,18 +5,19 @@ from .attention import (make_stack_params, multi_head_attention,
                         transformer_encoder_layer)
 from .io import data
 from .nn import (batch_norm, conv1x1_bn_act, conv2d, dropout, embedding,
-                 fc, layer_norm, pool2d, rms_norm,
+                 fc, layer_norm, lrn, pool2d, rms_norm,
                  softmax_with_cross_entropy)
 from .ops import elementwise_add, gelu, relu, softmax
 from .sequence import (dynamic_gru, dynamic_lstm, sequence_first_step,
                        sequence_last_step, sequence_pool, simple_rnn)
-from .tensor import (assign, create_global_var, fill_constant, matmul, mean,
-                     reshape, scale, split, transpose)
+from .tensor import (assign, concat, create_global_var, fill_constant,
+                     matmul, mean, reshape, scale, split, transpose)
 
 __all__ = [
-    "assign", "batch_norm", "conv1x1_bn_act", "conv2d", "create_global_var",
-    "data", "dropout", "dynamic_gru", "dynamic_lstm", "elementwise_add",
-    "embedding", "fc", "fill_constant", "gelu", "layer_norm",
+    "assign", "batch_norm", "concat", "conv1x1_bn_act", "conv2d",
+    "create_global_var", "data", "dropout", "dynamic_gru", "dynamic_lstm",
+    "elementwise_add", "embedding", "fc", "fill_constant", "gelu",
+    "layer_norm", "lrn",
     "make_stack_params", "matmul", "mean", "multi_head_attention",
     "pipelined_transformer_stack", "pool2d", "relu", "reshape", "rms_norm",
     "scale", "sequence_first_step", "sequence_last_step", "sequence_pool",

@@ -1,7 +1,7 @@
 """Core NN layers. Counterpart of ``paddle_tpu/layers/nn.py``, cut to
 what the training slices build: ``fc``, ``embedding`` (dense),
 ``conv2d``, ``pool2d``, ``batch_norm``, the fused ``conv1x1_bn_act``,
-``layer_norm``, ``rms_norm``, ``dropout`` and
+``layer_norm``, ``rms_norm``, ``dropout``, ``lrn`` and
 ``softmax_with_cross_entropy``."""
 from __future__ import annotations
 
@@ -292,4 +292,17 @@ def dropout(x, dropout_prob=0.5, is_test=False, main_program=None,
     outs, _ = helper.append_op("dropout", {"X": [x]}, ["Out", "Mask"],
                                {"dropout_prob": dropout_prob,
                                 "is_test": is_test})
+    return outs["Out"][0]
+
+
+def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, data_format="NCHW",
+        main_program=None, startup_program=None):
+    """Local response normalisation across the channels of ``n``
+    neighbours (``ops/nn_ops.py`` ``lrn``); outputs Out and MidOut, Out
+    returned."""
+    helper = LayerHelper("lrn", main_program=main_program,
+                         startup_program=startup_program)
+    outs, _ = helper.append_op("lrn", {"X": [input]}, ["Out", "MidOut"],
+                               {"n": n, "k": k, "alpha": alpha, "beta": beta,
+                                "data_format": data_format})
     return outs["Out"][0]

@@ -1,6 +1,6 @@
 """Tensor layers. Counterpart of ``paddle_tpu/layers/tensor.py``, cut to
-what the training slices, the per-layer transformer and primitive
-attention programs build."""
+what the training slices, the per-layer transformer, primitive
+attention and the image zoo's programs build."""
 from __future__ import annotations
 
 from ..core.types import dtype_name
@@ -42,6 +42,12 @@ def assign(input, output=None, main_program=None, startup_program=None):
         return h.simple_op("assign", {"X": [input]})
     h.append_op("assign", {"X": [input]}, {"Out": [output]}, {})
     return output
+
+
+def concat(input, axis=0, main_program=None, startup_program=None):
+    """The variables of ``input`` joined along ``axis``."""
+    h = _helper("concat", main_program, startup_program)
+    return h.simple_op("concat", {"X": list(input)}, {"axis": axis})
 
 
 def mean(x, main_program=None, startup_program=None):

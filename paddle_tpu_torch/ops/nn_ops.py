@@ -1,6 +1,7 @@
 """Neural-net structural ops. Counterpart of ``paddle_tpu/ops/nn_ops.py``,
-cut to ``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm``,
-``rms_norm`` and ``dropout``, the norms with their hand-written backwards
+cut to ``conv2d``, ``depthwise_conv2d``, ``pool2d``, ``batch_norm``,
+``layer_norm``, ``rms_norm``, ``lrn`` and ``dropout``, the first three
+norms with their hand-written backwards
 (the JAX package's grad_fns: they read the forward's saved statistics instead of keeping an x-hat of
 every activation alive for a generic vjp).
 
@@ -86,6 +87,15 @@ def conv2d(attrs, ins):
         return out(Output=y.permute(0, 2, 3, 1))
     return out(Output=_Conv2dF32.apply(x, w, strides, pads, dilations,
                                        groups))
+
+
+@register_op("depthwise_conv2d")
+def depthwise_conv2d(attrs, ins):
+    """``conv2d`` with one group a channel of the input."""
+    fmt = attrs.get("data_format", "NCHW")
+    x = single(ins, "Input")
+    return conv2d(dict(attrs, groups=x.shape[1 if fmt == "NCHW" else -1]),
+                  ins)
 
 
 # --- pool2d -------------------------------------------------------------------
@@ -446,6 +456,32 @@ def rms_norm(attrs, ins):
     if bias is not None:
         y = y + bias.reshape((1,) * begin + norm_shape)
     return {"Y": [y.to(x.dtype)], "InvRms": [inv.reshape(x.shape[:begin])]}
+
+
+# --- lrn ----------------------------------------------------------------------
+@register_op("lrn")
+def lrn(attrs, ins):
+    """Local response normalisation across channels: Out = x / MidOut **
+    beta with MidOut = k + alpha * (the sum of x^2 over the n channels
+    centred on each, zero past the edges), the n shifted slices added in
+    the JAX op's order, in x's dtype. The channel axis follows
+    ``data_format``. No grad_fn: the backward is autograd's, as the JAX
+    op's is the vjp of its forward."""
+    x = single(ins, "X")
+    n = attrs.get("n", 5)
+    k = attrs.get("k", 2.0)
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    axis = 3 if attrs.get("data_format", "NCHW") == "NHWC" else 1
+    nch = x.shape[axis]
+    half = n // 2
+    pad = [0, 0] * (x.ndim - 1 - axis) + [half, half]
+    sq = F.pad(x.square(), pad)
+    acc = sq.narrow(axis, 0, nch)
+    for i in range(1, n):
+        acc = acc + sq.narrow(axis, i, nch)
+    mid = k + alpha * acc
+    return out(Out=x / torch.pow(mid, beta), MidOut=mid)
 
 
 # --- dropout ------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py``, cut to the ops the
 training, image and inference slices run (``transpose`` and ``split``
-for the per-layer transformer's heads). The random init ops draw from
+for the per-layer transformer's heads, ``concat`` for GoogLeNet's
+inception blocks). The random init ops draw from
 their split of the executor's scope key (``core/prng.py``), bit-exact with
 the JAX executor's draws. Ops return new tensors and never write into their
 inputs (the executor relies on it: ``assign`` hands on the same tensor).
@@ -140,6 +141,19 @@ def split(attrs, ins):
         raise ValueError(f"split: dim {axis} of {tuple(x.shape)} does not "
                          f"divide into {num} equal parts")
     return {"Out": list(torch.split(x, x.shape[axis] // num, dim=axis))}
+
+
+@register_op("concat")
+def concat(attrs, ins):
+    """The X tensors joined along ``axis``, in their promoted dtype, as
+    ``jnp.concatenate`` promotes a mix (bf16 and f32 give f32). Its
+    gradient is the generic vjp: each input's slice of Out's gradient."""
+    xs = ins["X"]
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return out(Out=torch.cat([x.to(dtype) for x in xs],
+                             dim=attrs.get("axis", 0)))
 
 
 @register_op("slice")
