@@ -10,6 +10,7 @@
     python3 chip_smoke.py --bf16-conv-only  # phases 1, 2 and 11a only
     python3 chip_smoke.py --per-layer-only  # phases 1, 2 and 12 only
     python3 chip_smoke.py --bf16-flash-only # phases 1, 2 and 12a only
+    python3 chip_smoke.py --bf16-wide-times # phases 1, 2 and 12a's D256 times
     python3 chip_smoke.py --lstm-only       # phases 1, 2 and 13 only
     python3 chip_smoke.py --zoo-only        # phases 1, 2 and 14 only
 
@@ -149,20 +150,29 @@ Phases, each fatal on failure (nonzero exit, no result line):
     failure: (a) the bf16 instances of the flash forward, dq and dkv
     against their plain versions at both training shapes (B8 H8 and B8
     H16, T2048 D128 causal), B8 H16 T1024 D64, a ragged T = 1000 with
-    lengths and a fully masked row, a non-causal case and D 256: each of
+    lengths and a fully masked row, a non-causal case, and past D = 128
+    (the forward's and dq's wgmma instances at 192 and 256, dkv's wide
+    ones): D160, D192, D256 causal with a fully masked row, a non-causal
+    ragged D256, B8 H8 T2048 D256 causal, and D512 (all three on the
+    wide instances): each of
     o, dq, dk, dv at most 2x as far from the f32 plain version on the same
     bf16 values as the bf16 plain version is, plus one bf16 ulp of the
     largest |value|, and its error's Frobenius norm at most 1.5x the bf16
     plain version's; a stale K/V stage planted in the plain version at
     the training shape must be refused; lse within 1e-4 of the plain
-    version's; two launches at the training shape bitwise equal;
-    registers, spills (none allowed) and shared memory; in SASS all three
-    run HGMMA (wgmma) fed by UTMALDG (TMA) and no HMMA; timed at B8 H8
+    version's; two launches at the training shape and at B8 H8 T2048
+    D256 bitwise equal; registers, spills (none allowed) and shared
+    memory; in SASS every wgmma instance (all three at 64 and 128, the
+    forward and dq at 192 and 256) runs HGMMA fed by UTMALDG (TMA) and
+    no HMMA; timed at B8 H8
     T2048 D128 beside the plain versions, the bound at the bf16
     tensor-core rate (TFLOP/s and share of it), the times of the mma.sync
     kernels they replaced and bf16 SDPA (forward; backward for the pair,
-    beside dq + dkv); the wide instances timed
-    at B2 H4 T1000 D256 beside their bound and bf16 SDPA;
+    beside dq + dkv); at D256 (B2 H4 T1000 and B8 H8 T2048, causal) the
+    forward, dq and dkv timed beside their plain versions, their bound,
+    bf16 SDPA and the times of the wide f32-FMA instances that the
+    forward and dq ran there before (``--bf16-wide-times`` times just
+    these);
     (b) bench.py's ``transformer`` (d1024 L8 H8 d_ff 4096 V16384, 8 x 2048
     tokens, Adam 1e-4) in f32: step 1 with the kernels against the plain
     path (loss and every gradient within 1e-4), 8 f32 launches of each
@@ -177,7 +187,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
     (``chiprun_out/per_layer_*_profile.txt``: one launch a layer of each
     bf16 flash kernel in the profiled step); (c)
     ``transformer_wide`` (d2048 L8 H16 d_ff 8192) under AMP, the same
-    gates (its f32 build runs step 1 only).
+    gates (its f32 build runs step 1 only); (d) the same width with 8
+    heads of 256 (d2048 L8 H8 d_ff 8192), the same gates, its 8 forward
+    and 8 dq launches a step on their D256 wgmma instances and its 8 dkv
+    launches on the wide ones, printed beside (c), the same FLOPs at
+    head dim 128.
 
 13. The reference benchmark's recurrent rows and its decode row, each
     part fatal on failure: bench.py's ``lstm`` (2 x LSTM text
@@ -1354,10 +1368,14 @@ def _reset_launch_counts(fa):
 
 
 def _flash_counts(fa):
-    """(f32 fwd, dq, dkv launches, bf16 fwd, dq, dkv launches)."""
+    """(f32 fwd, dq, dkv launches, bf16 fwd, dq, dkv launches, and the
+    fwd, dq, dkv launches of either dtype on the wide instances)."""
     return _launch_counts(fa) + (fa.flash_attention.bf16_launches,
                                  fa.flash_backward.dq_bf16_launches,
-                                 fa.flash_backward.dkv_bf16_launches)
+                                 fa.flash_backward.dkv_bf16_launches,
+                                 fa.flash_attention.wide_launches,
+                                 fa.flash_backward.dq_wide_launches,
+                                 fa.flash_backward.dkv_wide_launches)
 
 
 def _reset_flash_counts(fa):
@@ -1365,6 +1383,9 @@ def _reset_flash_counts(fa):
     fa.flash_attention.bf16_launches = 0
     fa.flash_backward.dq_bf16_launches = 0
     fa.flash_backward.dkv_bf16_launches = 0
+    fa.flash_attention.wide_launches = 0
+    fa.flash_backward.dq_wide_launches = 0
+    fa.flash_backward.dkv_wide_launches = 0
 
 
 def _snapshot(scope):
@@ -1505,7 +1526,7 @@ def training_phase(records, gpu_name):
     losses, step_s, counts, peak_mem, profile = _timed_steps(
         exe, main, feed, loss, scope, fa, "train_profile.txt",
         ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
-    assert counts == (7 * L,) * 3 + (0,) * 3, counts
+    assert counts == (7 * L,) * 3 + (0,) * 6, counts
     launches = counts[:3]
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
@@ -3051,7 +3072,7 @@ def lm_amp_phase(gpu_name):
     print(f"training AMP: step-1 loss {l1:.6f}, the same step in f32 "
           f"{l32:.6f} (rel {abs(l1 - l32) / abs(l32):.3e}, tol {AMP_RTOL})")
     assert np.isfinite(l1) and abs(l1 - l32) <= AMP_RTOL * abs(l32), (l1, l32)
-    assert counts == (7 * L,) * 3 + (0,) * 3, counts
+    assert counts == (7 * L,) * 3 + (0,) * 6, counts
     assert set(dtypes.values()) == {"torch.float32"}, dtypes
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
@@ -3127,25 +3148,51 @@ def amp_phases(gpu_name):
 # instances.
 PER_LAYER = dict(TRAIN)
 PER_LAYER_WIDE = dict(TRAIN, d_model=2048, num_heads=16, d_ff=8192)
+# transformer_wide's width with 8 heads of 256 (Gemma 7B's head dim): the
+# same FLOPs a step as transformer_wide, at head dim 256 (the forward's
+# and dq's D256 wgmma instances, dkv's wide ones)
+PER_LAYER_D256 = dict(TRAIN, d_model=2048, num_heads=8, d_ff=8192)
+# B8 H8 T2048 D256 causal: the per-layer LM's attention at PER_LAYER_D256
+D256_TRAIN = (8, 8, 2048, 256, True, None)
 # (B, H, T, D, causal, lengths): both training shapes, the serving shape,
-# a ragged T = 1000 with lengths (a fully masked row), a non-causal case
-# and a head dim past 128 (the wide instances)
+# a ragged T = 1000 with lengths (a fully masked row), a non-causal case;
+# past D = 128 phase 3's D160 and D256 cases and D192 (causal, a fully
+# masked row), a non-causal ragged D256, the D256 training shape, and
+# D512 (all three kernels on the wide instances)
 BF16_FLASH_CASES = [
     (8, 8, 2048, 128, True, None),
     (8, 16, 2048, 128, True, None),
     (8, 16, 1024, 64, True, None),
     (4, 8, 1000, 128, True, [1000, 999, 513, 0]),
     (2, 4, 300, 128, False, [300, 17]),
+    (2, 4, 1000, 160, True, [1000, 0]),
+    (2, 4, 1000, 192, True, [1000, 0]),
     (2, 4, 1000, 256, True, [1000, 0]),
+    (2, 4, 300, 256, False, [300, 17]),
+    D256_TRAIN,
+    (2, 2, 300, 512, False, [300, 0]),
 ]
 BF16_FLASH = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
               "flash_attention_bwd_dkv_bf16")
 BF16_FLASH_REPLACES = (229, 364, 386)
-# the bf16 flash kernel instances that run wgmma fed by TMA: in SASS,
-# HGMMA and UTMALDG and no HMMA (mma.sync); ptxas reports no spills
+# the bf16 flash kernel instances that run wgmma fed by TMA (all three at
+# D 64 and 128, the forward and dq at 192 and 256): in SASS, HGMMA and
+# UTMALDG and no HMMA (mma.sync); ptxas reports no spills
 BF16_FLASH_SASS = tuple(f"flash_{k}_bf16_kernel<{d}>"
-                        for k in ("fwd", "bwd_dq", "bwd_dkv")
-                        for d in (64, 128))
+                        for k, ds in (("fwd", (64, 128, 192, 256)),
+                                      ("bwd_dq", (64, 128, 192, 256)),
+                                      ("bwd_dkv", (64, 128)))
+                        for d in ds)
+# the head-dim-256 shapes the bf16 trio is timed at: phase 3's and
+# D256_TRAIN
+BF16_WIDE_TIMED = (WIDE_TIMED, D256_TRAIN)
+# the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
+# the bf16 forward and dq ran at D256 before their wgmma instances, at
+# BF16_WIDE_TIMED's shapes, on an NVIDIA H100 80GB HBM3 at 700 W
+# (``--bf16-wide-times`` on the commit before them, once); no FMA
+# instance at D256 is kept to time again
+BF16_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.509, 0.816),
+                         D256_TRAIN: (8.634, 13.966)}
 # the times of the mma.sync kernels these replaced, at B8 H8 T2048 D128
 # causal, in ms, on an NVIDIA H100 80GB HBM3 at 700 W (the forward and
 # dkv as last timed beside the mma.sync dq, dq as last timed beside the
@@ -3251,13 +3298,87 @@ def _sdpa_fastest(F, q, k, v, do=None):
     return best
 
 
+def _bf16_wide_times(gpu_name, gen):
+    """The bf16 forward, dq and dkv at each of BF16_WIDE_TIMED's shapes
+    (D256, causal): each timed beside its plain version, its bound at the
+    bf16 tensor-core rate and bf16 SDPA (its fastest backend: the forward;
+    the backward for dq and dkv together). Returns {shape: [the three
+    kernels' rows]}. Only the flash wrappers' public entry points run, so
+    the same lines time an earlier commit's instances."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    out = {}
+    for B, H, T, D, causal, lengths in BF16_WIDE_TIMED:
+        assert lengths is None
+        q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
+                       .bfloat16() for _ in range(4))
+        o, lse = fa.flash_forward(q, k, v, None, causal)
+        di = fa._row_dot(do, o)
+        sdpa_fwd, backend = _sdpa_fastest(F, q, k, v)
+        sdpa_bwd, bwd_backend = _sdpa_fastest(F, q, k, v, do)
+        runs = (lambda: fa.flash_forward(q, k, v, None, causal),
+                lambda: fa.flash_dq(q, k, v, lse, di, do, None, causal),
+                lambda: fa.flash_dkv(q, k, v, lse, di, do, None, causal))
+        plain = (lambda: fa.flash_attention_reference(q, k, v, None, causal),
+                 lambda: fa.flash_dq_reference(q, k, v, lse, di, do, None,
+                                               causal),
+                 lambda: fa.flash_dkv_reference(q, k, v, lse, di, do, None,
+                                                causal))
+        shape = _case_text(B, H, T, D, causal, None)
+        rows = []
+        for i, (name, run, ref) in enumerate(zip(BF16_FLASH, runs, plain)):
+            ms = _cuda_ms(run, iters=10)
+            plain_ms = _cuda_ms(ref, iters=3, warmup=1)
+            if i == 0:
+                flops, nbytes = _attention_work(B, H, T, T, D, causal, None,
+                                                2)
+            else:
+                flops, nbytes = _backward_work("dq" if i == 1 else "dkv", B,
+                                               H, T, T, D, causal, None, 2)
+            bound, bound_by, bound_simt = _bound(flops, nbytes, gpu_name,
+                                                 bf16=True)
+            library = sdpa_fwd if i == 0 else sdpa_bwd
+            lib_text = (f"forward {library:.3f} ({backend})" if i == 0 else
+                        f"backward {library:.3f} for the pair "
+                        f"({bwd_backend})")
+            print(f"{name} at {shape}: {ms:.3f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s, {bound / ms * 100:.1f}% of the bound), plain "
+                  f"{plain_ms:.3f} ms, bound {bound:.4f} ({bound_by}, bf16 "
+                  f"tensor cores), bf16 SDPA {lib_text}")
+            rows.append({
+                "shape": shape, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "bound_ms_simt": bound_simt, "library_ms": library,
+                "library": f"F.scaled_dot_product_attention bf16 {lib_text}",
+                "tflop_per_s": flops / ms / 1e9, "bound_share": bound / ms})
+        print(f"bf16 flash backward at {shape}: dq + dkv "
+              f"{rows[1]['ms'] + rows[2]['ms']:.3f} ms against bf16 SDPA's "
+              f"backward {sdpa_bwd:.3f} ({bwd_backend})")
+        out[(B, H, T, D, causal, lengths)] = rows
+        del q, k, v, do, o, lse, di
+        torch.cuda.empty_cache()
+    return out
+
+
+def _worst(errs, name, got, plain):
+    """errs[name] raised to max |got - plain| where that is larger."""
+    errs[name] = max(errs[name],
+                     float((got.float() - plain.float()).abs().max()))
+
+
 def bf16_flash_kernel_phase(gpu_name):
     """Phase 12a: the bf16 flash forward, dq and dkv against their plain
     versions (the gate above) at every case, two launches of each bitwise
-    equal at the training shape; registers and tensor-core opcodes; then
-    timed at B8 H8 T2048 D128 causal beside the plain versions, the bound
-    at the bf16 tensor-core rate and bf16 SDPA (forward; backward for the
-    pair)."""
+    equal at the training shapes (D128 and D256); registers and
+    tensor-core opcodes; then timed at B8 H8 T2048 D128 causal beside the
+    plain versions, the bound at the bf16 tensor-core rate and bf16 SDPA
+    (forward; backward for the pair), and at D256 (_bf16_wide_times)
+    beside the times of the FMA instances they replaced there. Returns
+    the three kernels' records, then the records of the forward's and
+    dq's D256 instances."""
     import torch
     import torch.nn.functional as F
 
@@ -3282,7 +3403,10 @@ def bf16_flash_kernel_phase(gpu_name):
         assert not u.get("spill_store_bytes") and not u.get(
             "spill_load_bytes"), (key, u)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    errs = {n: 0.0 for n in BF16_FLASH}
+    # max |kernel - plain| of each kernel; the forward's and dq's D192 and
+    # D256 instances (128 < D <= 256) apart, for their own records
+    errs, errs_d256 = dict.fromkeys(BF16_FLASH, 0.0), dict.fromkeys(
+        BF16_FLASH[:2], 0.0)
     cases = []
     for B, H, T, D, causal, lengths in BF16_FLASH_CASES:
         q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
@@ -3290,6 +3414,7 @@ def bf16_flash_kernel_phase(gpu_name):
         lens = (None if lengths is None
                 else torch.tensor(lengths, device="cuda"))
         sm = 1.0 / D ** 0.5
+        wgmma_wide = 128 < D <= 256
         o, lse = fa.flash_forward(q, k, v, lens, causal, sm)
         torch.cuda.synchronize()
         po, plse = fa.flash_attention_reference(q, k, v, lens, causal, sm)
@@ -3308,8 +3433,7 @@ def bf16_flash_kernel_phase(gpu_name):
         fin = plse.isfinite()
         row["lse"] = float((lse - plse)[fin].abs().max())
         assert row["lse"] <= BF16_LSE_ATOL, row
-        errs[BF16_FLASH[0]] = max(errs[BF16_FLASH[0]],
-                                  float((o.float() - po.float()).abs().max()))
+        _worst(errs_d256 if wgmma_wide else errs, BF16_FLASH[0], o, po)
         del to
         # the backward on the plain forward's o and lse
         grads = fa.flash_backward(q, k, v, po, plse, do, lens, causal, sm)
@@ -3324,9 +3448,11 @@ def bf16_flash_kernel_phase(gpu_name):
         for name, a, b, t, f in zip(("dq", "dk", "dv"), grads, pg, tg, fg):
             assert a.dtype == torch.bfloat16, (name, a.dtype)
             row[name] = _bf16_gate(a, b, t, name)
-            key = BF16_FLASH[1] if name == "dq" else BF16_FLASH[2]
-            errs[key] = max(errs[key], float((a.float() - b.float())
-                                             .abs().max()))
+            if name == "dq":
+                _worst(errs_d256 if wgmma_wide else errs, BF16_FLASH[1], a,
+                       b)
+            else:
+                _worst(errs, BF16_FLASH[2], a, b)
             if first:
                 planted[name] = _bf16_errors(f, b, t)
         del pg, tg, fg
@@ -3341,12 +3467,13 @@ def bf16_flash_kernel_phase(gpu_name):
                       f"the plain version): {name} {_bf16_text(e)}; refused "
                       f"by max-abs {by_max}, by Frobenius {by_fro}")
             row["planted_stale_stage"] = planted
-            # the training shape: no atomics
+        if first or (B, H, T, D, causal, lengths) == D256_TRAIN:
+            # the training shapes: no atomics
             o2, _ = fa.flash_forward(q, k, v, lens, causal, sm)
             g2 = fa.flash_backward(q, k, v, po, plse, do, lens, causal, sm)
             assert torch.equal(o2, o) and all(
                 torch.equal(a, b) for a, b in zip(g2, grads)), \
-                "two launches differ"
+                f"two launches differ at {row['case']}"
             del o2, g2
         print(f"bf16 flash {row['case']}: max error from the f32 truth "
               f"(kernel/plain): " + "; ".join(
@@ -3356,7 +3483,7 @@ def bf16_flash_kernel_phase(gpu_name):
         del q, k, v, do, o, lse, po, plse, grads
         torch.cuda.empty_cache()
     print("bf16 flash kernels: two launches on the same inputs bitwise equal "
-          "at the training shape")
+          "at B8 H8 T2048 D128 and D256")
 
     B, H, T, D, causal, _ = BF16_FLASH_CASES[0]
     q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
@@ -3418,44 +3545,26 @@ def bf16_flash_kernel_phase(gpu_name):
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
 
-    # the wide bf16 instances (D > 128) at phase 3's D256 shape
-    B, H, T, D, causal, _ = WIDE_TIMED
-    q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
-                   .bfloat16() for _ in range(4))
-    o, lse = fa.flash_forward(q, k, v, None, causal)
-    di = fa._row_dot(do, o)
-    sdpa_fwd, backend = _sdpa_fastest(F, q, k, v)
-    sdpa_bwd, bwd_backend = _sdpa_fastest(F, q, k, v, do)
-    wide = (lambda: fa.flash_forward(q, k, v, None, causal),
-            lambda: fa.flash_dq(q, k, v, lse, di, do, None, causal),
-            lambda: fa.flash_dkv(q, k, v, lse, di, do, None, causal))
-    plain = (lambda: fa.flash_attention_reference(q, k, v, None, causal),
-             lambda: fa.flash_dq_reference(q, k, v, lse, di, do, None,
-                                           causal),
-             lambda: fa.flash_dkv_reference(q, k, v, lse, di, do, None,
-                                            causal))
-    for i, (name, run, ref) in enumerate(zip(BF16_FLASH, wide, plain)):
-        ms = _cuda_ms(run, iters=10)
-        plain_ms = _cuda_ms(ref, iters=10)
-        if i == 0:
-            flops, nbytes = _attention_work(B, H, T, T, D, causal, None, 2)
-        else:
-            flops, nbytes = _backward_work("dq" if i == 1 else "dkv", B, H,
-                                           T, T, D, causal, None, 2)
-        bound, bound_by, _ = _bound(flops, nbytes, gpu_name, bf16=True)
-        library = sdpa_fwd if i == 0 else sdpa_bwd
-        lib_text = (f"forward {library:.3f} ({backend})" if i == 0 else
-                    f"backward {library:.3f} for the pair ({bwd_backend})")
-        shape = _case_text(B, H, T, D, causal, None)
-        print(f"{name} (wide): {ms:.3f} ms at {shape}, plain "
-              f"{plain_ms:.3f} ms, bound {bound:.4f} ({bound_by}, bf16 "
-              f"tensor cores), bf16 SDPA {lib_text}")
-        records[i]["wide_d256"] = {
-            "shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library,
-            "library": f"F.scaled_dot_product_attention bf16 {lib_text}"}
-    del q, k, v, do, o, lse, di
-    torch.cuda.empty_cache()
+    # past D = 128: the forward's and dq's D256 instances on wgmma, dkv on
+    # the wide ones, beside the FMA instances' times they replaced
+    wide = _bf16_wide_times(gpu_name, gen)
+    records[2]["d256"] = [rows[2] for rows in wide.values()]
+    for i, name in enumerate(BF16_FLASH[:2]):
+        for shape, rows in wide.items():
+            was = BF16_WIDE_PREVIOUS_MS[shape][i]
+            rows[i]["previous_ms"] = was
+            print(f"{name} at {rows[i]['shape']}: {rows[i]['ms']:.3f} ms, "
+                  f"was {_ms_text(was)} on the wide FMA instance")
+        row = wide[D256_TRAIN][i]
+        records.append({
+            "name": f"{name}_d256", "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bf16.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:"
+                        f"{BF16_FLASH_REPLACES[i]}",
+            "launches": 0, "max_abs_err": errs_d256[name], **row,
+            "times": [rows[i] for rows in wide.values()],
+            "ptxas": {k: u for k, u in usage.items()
+                      if k.endswith(("<192>", "<256>"))}})
     return records
 
 
@@ -3480,7 +3589,15 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
     from paddle_tpu_torch.kernels import flash_attention as fa
 
     L, tokens = c["n_layers"], c["batch"] * c["seq"]
-    tag = f"d{c['d_model']} L{L} H{c['num_heads']}"
+    hd = c["d_model"] // c["num_heads"]
+    tag = f"d{c['d_model']} L{L} H{c['num_heads']} D{hd}"
+    # launches a step on the wide instances, (fwd, dq, dkv) of each dtype
+    wide_f32, wide_bf16 = (tuple(7 * L * fa._kernel_instance(hd, dt, k)[1]
+                                 for k in ("fwd", "dq", "dkv"))
+                           for dt in (torch.float32, torch.bfloat16))
+    # the profile's groups of the bf16 trio: dkv past D = 128 is a wide one
+    bf16_groups = PER_LAYER_GROUPS[:2] + (
+        "flash_bwd_dkv_wide" if wide_bf16[2] else PER_LAYER_GROUPS[2],)
     rng = np.random.RandomState(SEED)
     feed = {"ids": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
             .astype("int64"),
@@ -3517,13 +3634,13 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
         losses, step_s, counts, peak, profile = _timed_steps(
             exe, main, feed, loss, scope, fa, "per_layer_f32_profile.txt",
             PER_LAYER_GROUPS)
-        assert counts == (7 * L,) * 3 + (0,) * 3, counts
+        assert counts == (7 * L,) * 3 + (0,) * 3 + wide_f32, counts
         med = float(np.median(step_s[1:]))
         print(f"per-layer {tag} f32: losses {[round(x, 5) for x in losses]};"
               f" step median {med * 1e3:.1f} ms, {tokens / med:.0f} tokens/s,"
               f" {flops / med / peak_f32 * 100:.1f}% of the f32 peak, peak "
               f"memory {peak / 2**30:.2f} GiB; f32 flash launches per step "
-              f"{[n // 7 for n in counts[:3]]}, bf16 {counts[3:]}")
+              f"{[n // 7 for n in counts[:3]]}, bf16 {counts[3:6]}")
         out["f32"] = {"loss_kernels": lk, "loss_plain": lp,
                       "worst_grad_rel": worst, "losses": losses,
                       "step_ms": [x * 1e3 for x in step_s],
@@ -3573,13 +3690,28 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
         assert worst[0] <= AMP_GRAD_RTOL, worst
         assert planted[0] > AMP_GRAD_RTOL, (
             "the gradient gate let a stale K/V stage through", planted)
+        path = f"per_layer_amp_d{c['d_model']}_h{c['num_heads']}_profile.txt"
+        groups = bf16_groups + PER_LAYER_GROUPS[3:]
         losses, step_s, counts, peak, profile = _timed_steps(
-            exe, main, feed, loss, scope, fa,
-            f"per_layer_amp_d{c['d_model']}_profile.txt", PER_LAYER_GROUPS)
-    assert counts == (0,) * 3 + (7 * L,) * 3, counts
+            exe, main, feed, loss, scope, fa, path, groups)
+        # the profiled step launched what each timed step did, by the
+        # counters; a CUPTI trace now and then loses a kernel's record
+        # (seen once: 7 of the forward's 8), so a step whose trace shows
+        # fewer is profiled again, twice at most, before the check below
+        ran = tuple(a - b for a, b in zip(_flash_counts(fa), counts))
+        assert not profile or ran == tuple(n // 7 for n in counts), (
+            ran, counts)
+        for _ in range(2):
+            if not profile or [profile["launches"][g]
+                               for g in bf16_groups] == [L] * 3:
+                break
+            profile = _profile_step(
+                lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                scope=scope), path, groups=groups)
+    # every bf16 launch, and on the wide instances only those expected
+    assert counts == (0,) * 3 + (7 * L,) * 3 + wide_bf16, counts
     med = float(np.median(step_s[1:]))
     dev = profile["device_ms"] if profile else None
-    bf16_groups = PER_LAYER_GROUPS[:3]
     trio = (sum(profile["kernels_ms"][g] for g in bf16_groups)
             if profile else None)
     if profile:  # the profiled step ran each bf16 flash kernel once a layer
@@ -3596,7 +3728,8 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
           f"tokens/s, {flops / 1e12:.2f} TFLOP/step = "
           f"{flops / med / peak_bf16 * 100:.1f}% of the bf16 peak, peak "
           f"memory {peak / 2**30:.2f} GiB; bf16 flash launches per step "
-          f"{[n // 7 for n in counts[3:]]}, f32 {counts[:3]}; device "
+          f"{[n // 7 for n in counts[3:6]]} ({[n // 7 for n in counts[6:]]} "
+          f"on the wide instances), f32 {counts[:3]}; device "
           f"{_ms_text(dev, '.1f')} ms of the step's {med * 1e3:.1f} ms on the "
           f"host clock, the bf16 flash trio {_ms_text(trio, '.1f')} ms")
     out["amp"] = {"loss_step1": la, "loss_f32_step1": l32,
@@ -3608,7 +3741,8 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
                   "tflop_per_step": flops / 1e12,
                   "bf16_peak_share": flops / med / peak_bf16,
                   "peak_mem_bytes": peak, "launches_per_step": [
-                      n // 7 for n in counts[3:]],
+                      n // 7 for n in counts[3:6]],
+                  "wide_launches_per_step": [n // 7 for n in counts[6:]],
                   "device_ms": dev, "flash_bf16_ms": trio,
                   "profile": profile}
     del exe, scope, main
@@ -3618,15 +3752,36 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
 
 def per_layer_phases(gpu_name):
     """Phase 12: the bf16 flash kernels (a), then the per-layer LM at
-    bench.py's transformer in f32 and under AMP (b) and at
-    transformer_wide under AMP (c). Returns (the bf16 kernel records, the
-    record of each part)."""
+    bench.py's transformer in f32 and under AMP (b), at transformer_wide
+    under AMP (c) and at its width with 8 heads of 256 under AMP (d).
+    Returns (the bf16 kernel records, the record of each part)."""
+    seconds = [time.perf_counter()]
     recs = bf16_flash_kernel_phase(gpu_name)
+    seconds.append(time.perf_counter())
     base = per_layer_lm_phase(gpu_name, PER_LAYER, time_f32=True)
     for rec, n in zip(recs, base["amp"]["launches_per_step"]):
         rec["launches"] = n
+    seconds.append(time.perf_counter())
     wide = per_layer_lm_phase(gpu_name, PER_LAYER_WIDE, time_f32=False)
-    return recs, {"transformer": base, "transformer_wide": wide}
+    seconds.append(time.perf_counter())
+    d256 = per_layer_lm_phase(gpu_name, PER_LAYER_D256, time_f32=False)
+    seconds.append(time.perf_counter())
+    print("phase 12 seconds: " + ", ".join(
+        f"{part} {b - a:.1f}" for part, a, b in zip("abcd", seconds,
+                                                  seconds[1:])))
+    # the D256 records: the forward's and dq's launches a step in (d)
+    for rec, n in zip(recs[3:], d256["amp"]["launches_per_step"]):
+        rec["launches"] = n
+    a, b = wide["amp"], d256["amp"]
+    print("per-layer d2048 L8 AMP, the same FLOPs a step: " + "; ".join(
+        f"H{h} (D{2048 // h}) step {r['step_ms_median']:.1f} ms, "
+        f"{r['tokens_per_s']:.0f} tokens/s, "
+        f"{r['bf16_peak_share'] * 100:.1f}% of the bf16 peak, the flash "
+        f"trio {_ms_text(r['flash_bf16_ms'], '.1f')} ms of device time, "
+        f"peak memory {r['peak_mem_bytes'] / 2**30:.2f} GiB"
+        for h, r in ((16, a), (8, b))))
+    return recs, {"transformer": base, "transformer_wide": wide,
+                  "transformer_wide_d256": d256}
 
 
 # --- 13. The reference benchmark's recurrent rows and its decode row --------
@@ -4044,7 +4199,7 @@ def decode_row(pt):
                    return_numpy=False)
     check(f32)
     f32_s = time.perf_counter() - t0
-    assert _flash_counts(fa) == (L,) + (0,) * 5, _flash_counts(fa)
+    assert _flash_counts(fa) == (L,) + (0,) * 8, _flash_counts(fa)
     with _plain_flash(fa):
         plain, = exe.run(main, feed=feed, fetch_list=[out_ids], scope=scope,
                          return_numpy=False)
@@ -4069,7 +4224,7 @@ def decode_row(pt):
         toks = outs[-1].cpu()
         sec = (time.perf_counter() - t0) / DECODE_STEPS
     counts = _flash_counts(fa)
-    assert counts == (DECODE_STEPS * L,) + (0,) * 5, counts
+    assert counts == (DECODE_STEPS * L,) + (0,) * 8, counts
     check(toks.to(f32.device))
     assert all(torch.equal(o, outs[-1]) for o in outs)
     same = float((toks[:, Tp:] == f32[:, Tp:].cpu()).float().mean())
@@ -4841,6 +4996,12 @@ def main():
                         help="build the kernels and run only phase 12a (the "
                              "bf16 flash kernels against their plain "
                              "versions, timed); prints no ok line")
+    parser.add_argument("--bf16-wide-times", action="store_true",
+                        help="build the kernels and only time the bf16 "
+                             "flash forward, dq and dkv at head dim 256 "
+                             "(phase 12a's D256 times, no checks; it runs "
+                             "an earlier commit's instances too); prints "
+                             "no ok line")
     parser.add_argument("--lstm-only", action="store_true",
                         help="build the kernels and run only phase 13 (the "
                              "recurrent rows lstm and lstm_varlen, the "
@@ -4890,6 +5051,16 @@ def main():
             {"gpu": smi, "rng": rng, "kernels": recs}, indent=1))
         print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                       for r in recs]}))
+        print(smi)
+        return
+    if args.bf16_wide_times:
+        wide = _bf16_wide_times(
+            gpu, torch.Generator(device="cuda").manual_seed(SEED + 10))
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_bf16_wide_times.json").write_text(json.dumps(
+            {"gpu": smi, "times": {rows[0]["shape"]: rows
+                                   for rows in wide.values()}}, indent=1))
         print(smi)
         return
     if args.amp_only:

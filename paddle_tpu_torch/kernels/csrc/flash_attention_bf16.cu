@@ -22,18 +22,20 @@
 //        rounded once
 //
 // q, dO [BH, Tq, D]; k, v [BH, Tk, D] bf16; lse, Di [BH, Tq] f32; len
-// [BH] int32 -> o, dq [BH, Tq, D], dk, dv [BH, Tk, D] bf16. D is 64 or
-// 128: the wrapper zero-pads any other D <= 128 up to one of them. Past
-// 128 it pads D to a multiple of 64 and the wide instances run
-// (flash_wide.cuh, instantiated for bf16: f32 FMA on the CUDA cores). No
-// configuration of the repository reaches them. exp is taken as 2^x of
-// x * log2(e) folded into the scale (ex2.approx, relative error ~2^-22,
-// far below P's bf16 rounding).
+// [BH] int32 -> o, dq [BH, Tq, D], dk, dv [BH, Tk, D] bf16. The wrapper
+// zero-pads D up to a multiple of 64: the `wgmma` instances take 64 and
+// 128 (all three kernels) and 192 and 256 (the forward and dq); past
+// those the wide instances run (flash_wide.cuh, instantiated for bf16:
+// f32 FMA on the CUDA cores): dkv past 128, the forward and dq past 256.
+// exp is taken as 2^x of x * log2(e) folded into the scale (ex2.approx,
+// relative error ~2^-22, far below P's bf16 rounding).
 //
-// What bounds them: at the training shape (B8 H8 T2048 D128, causal) the
+// What bounds them: at the training shapes (B8 H8 T2048, causal) the
 // forward does 4*D FLOPs per visible (q, k) pair, dq 6*D and dkv 8*D (69,
-// 103 and 137 GFLOP) on ~0.1-0.2 GB: bound by operations, at the tensor
-// cores' bf16 rate (989 TFLOP/s), which only `wgmma` reaches.
+// 103 and 137 GFLOP at D128; 137 and 206 GFLOP for the forward and dq at
+// D256, the per-layer LM with 8 heads of 256) on ~0.1-0.4 GB: bound by
+// operations, at the tensor cores' bf16 rate (989 TFLOP/s), which only
+// `wgmma` reaches.
 //
 // The three kernels share one design (warp-specialised, one block per
 // (bh, 128 rows it owns): q rows for the forward and dq, k rows for dkv):
@@ -45,13 +47,13 @@
 // - TMA brings each operand from a 3-D tensor map (D, T, BH) in boxes of
 //   64 bf16 values (128 bytes) by the tile's rows in the 128-byte swizzle,
 //   so a tile at a head's ragged end lands with zero rows and never reads
-//   the next head's; a D = 128 tile is two boxes. Every box starts on a
+//   the next head's; a tile is D / 64 boxes. Every box starts on a
 //   1024-byte boundary. The owned tiles (Q; K and V; Q and dO) are loaded
-//   once; the streamed pair (K and V: 128-key tiles in the forward, 64-key
-//   ones in dq; Q and dO: 64-query tiles, with their lse and Di copied
-//   beside them by the producer warp's cp.async) goes through a ring
-//   (three stages in the forward and dq, two in dkv, where a third
-//   measured no faster), each stage with a `full` barrier that
+//   once; the streamed pair (K and V: tiles of fwd_keys(D) keys in the
+//   forward, dq_keys(D) in dq; Q and dO: 64-query tiles, with their lse
+//   and Di copied beside them by the producer warp's cp.async) goes
+//   through a ring (fwd_stages(D), dq_stages(D) stages; two in dkv, where a
+//   third measured no faster), each stage with a `full` barrier that
 //   TMA's complete_tx sets and an `empty` one each consumer warp arrives
 //   at. Tiles past the length or wholly above the diagonal are never
 //   loaded.
@@ -64,6 +66,13 @@
 //   P and dS never leave registers, and read B MN-major (sw128_mn_desc)
 //   from the same boxes that serve as K-major operands: no transposed copy
 //   is made.
+// - Past D = 128 (the forward and dq only) nothing changes but the
+//   widths: O and dQ are one m64n192k16 or m64n256k16 accumulator (N =
+//   256 is wgmma's largest, so no output is cut into D slices and S, P
+//   and dP are computed once a tile), and the K/V tiles narrow until the
+//   owned tiles and two or three stages fit the shared memory and a
+//   consumer's 240 registers (the forward at D = 256: O 128 f32 and S 32
+//   at 64 keys).
 // - The accumulator has mma's C layout per warp (rows g and g + 8 of its
 //   16, each row in one quad of lanes), so a row's max and sum are the
 //   thread's own values and two __shfl_xor. Masks are applied only on
@@ -80,7 +89,8 @@
 //   dQ's register A as P does in the forward, and dQ's B is the K tile
 //   that served S, read MN-major. 64-key tiles keep a consumer thread at
 //   D = 128 to dQ 64 f32, S and dP 32 each, packed dS 16 (128-key tiles
-//   would need ~224 before addresses). dQ is carried across tiles in the
+//   would need ~224 before addresses); at D = 256, 48-key tiles to dQ 128,
+//   S and dP 24 each, packed dS 12. dQ is carried across tiles in the
 //   wgmma accumulator, a consumer warpgroup skips the tiles wholly above
 //   its own diagonal (its empty arrival still made), and P = 0 on masked
 //   columns and on rows past Tq (their lse is taken as +inf) without an
@@ -98,9 +108,14 @@
 // setmaxnreg, which acts on whole warpgroups, hence a producer
 // warpgroup rather than a warp. Shared memory: the forward 229,432 bytes
 // at D = 128 (Q 32 KB, three stages of K and V, 64 KB each) and 114,744
-// at D = 64; dq 163,896 (Q and dO 64 KB, three stages of K and V, 32 KB
-// each) and 81,976; dkv 132,136 (K and V 64 KB, two stages of Q and dO,
-// 32 KB each, and of lse and Di) and 66,600.
+// at D = 64, 196,664 at D = 192 (Q 48 KB, three stages of 64-key K and
+// V, 48 KB each) and 196,648 at D = 256 (Q 64 KB, two stages of K and V,
+// 64 KB each); dq 163,896 (Q and dO 64 KB, three stages of K and V, 32
+// KB each), 81,976 at D = 64, 208,952 at D = 192 (Q and dO 96 KB, three
+// stages of 48-key K and V, 36 KB each) and 229,416 at D = 256 (Q and dO
+// 128 KB, two stages of 48-key K and V, 48 KB each); dkv 132,136 (K and
+// V 64 KB, two stages of Q and dO, 32 KB each, and of lse and Di) and
+// 66,600.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,10 +135,23 @@ using bf16 = __nv_bfloat16;
 // --- wgmma behind a TMA ring ------------------------------------------------
 
 constexpr int OWN = 128;          // rows a block owns, 64 a consumer
-constexpr int FWD_KEYS = 128;     // keys of a forward K/V tile
 constexpr int DKV_QUERIES = 64;   // queries of a dkv Q/dO tile
-constexpr int DQ_KEYS = 64;       // keys of a dq K/V tile
 constexpr int ROW_BYTES = 128;    // a box row: 64 bf16 values
+constexpr int SMEM_LIMIT = 232448;  // shared memory a block may opt in to
+
+// Keys of a K/V tile and stages of the K/V ring, by head dim, of the
+// forward (which owns Q) and of dq (which owns Q and dO): at D <= 128
+// 128-key tiles (the forward) or 64-key ones (dq) in three stages; past
+// it the owned tiles and a consumer's f32 accumulator (D / 2 registers)
+// grow, so tiles narrow to 64 keys (the forward) and 48 (dq), in three
+// stages at D = 192 and two at 256, what the shared memory and 240
+// registers hold (KvRing's static_assert). Measured against 80- and
+// 96-key forward tiles and 32- and 64-key dq tiles at B8 H8 T2048: as
+// fast at D = 192, 3-5% faster at 256 (PERF.md §6).
+constexpr int fwd_keys(int D) { return D <= 128 ? 128 : 64; }
+constexpr int dq_keys(int D) { return D <= 128 ? 64 : 48; }
+constexpr int fwd_stages(int D) { return D <= 192 ? 3 : 2; }
+constexpr int dq_stages(int D) { return D <= 192 ? 3 : 2; }
 constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float ex2(float x) {
@@ -205,13 +233,13 @@ __device__ __forceinline__ uint64_t k_step(uint64_t desc, int kk, int box) {
 
 // Shared memory, in bytes, of a kernel at head dim D that owns OWNED
 // tiles of OWN rows (the forward: Q; dq: Q and dO) and streams K/V tiles
-// of KEYS keys through a ring of three stages: the owned tiles as NB = D
-// / 64 boxes each, then each stage's K and V boxes, then the barriers (the
+// of K keys through a ring of S stages: the owned tiles as NB = D / 64
+// boxes each, then each stage's K and V boxes, then the barriers (the
 // owned tiles', and each stage's full and empty).
-template <int D, int K, int OWNED>
+template <int D, int K, int S, int OWNED>
 struct KvRing {
   static constexpr int KEYS = K;
-  static constexpr int STAGES = 3;
+  static constexpr int STAGES = S;
   static constexpr int NB = D / 64;
   static constexpr int Q_BOX = OWN * ROW_BYTES;
   static constexpr int KV_BOX = KEYS * ROW_BYTES;
@@ -222,11 +250,13 @@ struct KvRing {
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8;
   static_assert(Q_BOX % 1024 == 0 && KV_BOX % 1024 == 0,
                 "boxes must keep the swizzle's alignment");
+  static_assert(KEYS % 16 == 0, "a tile is whole k16 steps of P V, dS K");
+  static_assert(BYTES <= SMEM_LIMIT, "the ring does not fit");
 };
 template <int D>
-using FwdRing = KvRing<D, FWD_KEYS, 1>;
+using FwdRing = KvRing<D, fwd_keys(D), fwd_stages(D), 1>;
 template <int D>
-using DqRing = KvRing<D, DQ_KEYS, 2>;
+using DqRing = KvRing<D, dq_keys(D), dq_stages(D), 2>;
 
 // The producer thread's part of a KvRing: K/V tiles 0 .. n_tiles - 1 of
 // head bh, tile i into stage i % STAGES once the consumers have emptied
@@ -260,6 +290,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                           float* __restrict__ lse, int Tq, int Tk, int causal,
                           float sm_scale) {
   using L = FwdRing<D>;
+  constexpr int NK = L::KEYS;
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* full = q_full + 1;
@@ -268,9 +299,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * OWN;
   const int length = max(0, min(lens[bh], Tk));
-  int n_tiles = (length + FWD_KEYS - 1) / FWD_KEYS;
+  int n_tiles = (length + NK - 1) / NK;
   if (causal)  // the last tile any of the block's rows sees
-    n_tiles = min(n_tiles, (min(q0 + OWN, Tq) + FWD_KEYS - 1) / FWD_KEYS);
+    n_tiles = min(n_tiles, (min(q0 + OWN, Tq) + NK - 1) / NK);
 
   init_ring<L::STAGES>(q_full);
 
@@ -310,20 +341,20 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     const uint64_t dk = sw128_desc(reinterpret_cast<const float*>(st));
     const uint64_t dv = sw128_mn_desc(st + L::V, L::KV_BOX);
 
-    float sc[FWD_KEYS / 2];  // S = Q K^T
+    float sc[NK / 2];  // S = Q K^T
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      WgmmaBf16<FWD_KEYS, 0>::mma(sc, k_step(dq, kk, L::Q_BOX),
+      WgmmaBf16<NK, 0>::mma(sc, k_step(dq, kk, L::Q_BOX),
                                   k_step(dk, kk, L::KV_BOX), kk);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
 
-    const int k0 = i * FWD_KEYS;
-    if (k0 + FWD_KEYS > length || (causal && k0 + FWD_KEYS - 1 > r_wg)) {
+    const int k0 = i * NK;
+    if (k0 + NK > length || (causal && k0 + NK - 1 > r_wg)) {
 #pragma unroll
-      for (int j = 0; j < FWD_KEYS / 8; ++j)
+      for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
@@ -333,7 +364,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int e = 0; e < FWD_KEYS / 2; ++e)
+    for (int e = 0; e < NK / 2; ++e)
       mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
     float alpha[2], mc[2];
 #pragma unroll
@@ -349,7 +380,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     }
     float sum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int e = 0; e < FWD_KEYS / 2; ++e) {
+    for (int e = 0; e < NK / 2; ++e) {
       const float p = ex2(fmaf(sc[e], c, -mc[(e >> 1) & 1]));  // masked: 0
       sc[e] = p;
       sum[(e >> 1) & 1] += p;
@@ -363,11 +394,11 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
 
-    uint32_t pa[FWD_KEYS / 16][4];  // bf16(P), the A of O += P V
-    pack_a<FWD_KEYS>(pa, sc);
+    uint32_t pa[NK / 16][4];  // bf16(P), the A of O += P V
+    pack_a<NK>(pa, sc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < FWD_KEYS / 16; ++kk)
+    for (int kk = 0; kk < NK / 16; ++kk)
       WgmmaBf16Rs<D>::mma(acc, pa[kk], dv + 128 * kk, 1);
     wgmma_commit();
     wgmma_wait_all();
@@ -739,9 +770,9 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
   if (err == cudaSuccess)
     err = tensor_map_3d(&omap, o, BF16, 2, D, Tq, BH, 64, 64);
   if (err == cudaSuccess && Tk > 0)
-    err = tensor_map_3d(&kmap, k, BF16, 2, D, Tk, BH, 64, FWD_KEYS);
+    err = tensor_map_3d(&kmap, k, BF16, 2, D, Tk, BH, 64, L::KEYS);
   if (err == cudaSuccess && Tk > 0)
-    err = tensor_map_3d(&vmap, v, BF16, 2, D, Tk, BH, 64, FWD_KEYS);
+    err = tensor_map_3d(&vmap, v, BF16, 2, D, Tk, BH, 64, L::KEYS);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -800,9 +831,9 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
   if (err == cudaSuccess)
     err = tensor_map_3d(&dqmap, dq, BF16, 2, D, Tq, BH, 64, 64);
   if (err == cudaSuccess && Tk > 0)  // Tk = 0: no K/V, dq = 0
-    err = tensor_map_3d(&kmap, k, BF16, 2, D, Tk, BH, 64, DQ_KEYS);
+    err = tensor_map_3d(&kmap, k, BF16, 2, D, Tk, BH, 64, L::KEYS);
   if (err == cudaSuccess && Tk > 0)
-    err = tensor_map_3d(&vmap, v, BF16, 2, D, Tk, BH, 64, DQ_KEYS);
+    err = tensor_map_3d(&vmap, v, BF16, 2, D, Tk, BH, 64, L::KEYS);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dq_bf16_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -821,8 +852,9 @@ bool wide_d(int D) { return D > 128 && D % wide::DC == 0; }
 
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
-// a cudaError_t (0 = launched). D is 64, 128 or a multiple of 64 above 128
-// (the wide instances).
+// a cudaError_t (0 = launched). D is a multiple of 64: 64 and 128, and
+// for the forward and dq 192 and 256, launch the wgmma instances; the
+// rest past 128 the wide ones.
 extern "C" int paddle_flash_attention_fwd_bf16(
     const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* o,
     float* lse, int BH, int Tq, int Tk, int D, int causal, float sm_scale,
@@ -834,6 +866,12 @@ extern "C" int paddle_flash_attention_fwd_bf16(
                                sm_scale, s);
   if (D == 128)
     return (int)launch_fwd<128>(q, k, v, lens, o, lse, BH, Tq, Tk, causal,
+                                sm_scale, s);
+  if (D == 192)
+    return (int)launch_fwd<192>(q, k, v, lens, o, lse, BH, Tq, Tk, causal,
+                                sm_scale, s);
+  if (D == 256)
+    return (int)launch_fwd<256>(q, k, v, lens, o, lse, BH, Tq, Tk, causal,
                                 sm_scale, s);
   if (wide_d(D))
     return (int)launch_fwd_wide<bf16>(q, k, v, lens, o, lse, BH, Tq, Tk, D,
@@ -852,6 +890,12 @@ extern "C" int paddle_flash_attention_bwd_dq_bf16(
                               causal, sm_scale, s);
   if (D == 128)
     return (int)launch_dq<128>(q, k, v, dout, lse, di, lens, dq, BH, Tq, Tk,
+                               causal, sm_scale, s);
+  if (D == 192)
+    return (int)launch_dq<192>(q, k, v, dout, lse, di, lens, dq, BH, Tq, Tk,
+                               causal, sm_scale, s);
+  if (D == 256)
+    return (int)launch_dq<256>(q, k, v, dout, lse, di, lens, dq, BH, Tq, Tk,
                                causal, sm_scale, s);
   if (wide_d(D))
     return (int)launch_dq_wide<bf16>(q, k, v, dout, lse, di, lens, dq, BH,
@@ -880,11 +924,13 @@ extern "C" int paddle_flash_attention_bwd_dkv_bf16(
 // Dynamic shared memory of one block of kernel `which` (0 forward, 1 dq,
 // 2 dkv) at head dim D, in bytes; -1 for a D the kernels do not take.
 extern "C" int paddle_flash_attention_bf16_smem_bytes(int which, int D) {
-  const int fwd[2] = {FwdRing<64>::BYTES, FwdRing<128>::BYTES};
-  const int dq[2] = {DqRing<64>::BYTES, DqRing<128>::BYTES};
+  const int fwd[4] = {FwdRing<64>::BYTES, FwdRing<128>::BYTES,
+                      FwdRing<192>::BYTES, FwdRing<256>::BYTES};
+  const int dq[4] = {DqRing<64>::BYTES, DqRing<128>::BYTES,
+                     DqRing<192>::BYTES, DqRing<256>::BYTES};
   const int dkv[2] = {DkvRing<64>::BYTES, DkvRing<128>::BYTES};
-  const int* table = which == 0 ? fwd : which == 1 ? dq : dkv;
-  if (D == 64 || D == 128) return table[D == 128];
+  if (D > 0 && D % 64 == 0 && D <= (which < 2 ? 256 : 128))  // wgmma
+    return (which == 0 ? fwd : which == 1 ? dq : dkv)[D / 64 - 1];
   if (wide_d(D))
     return which == 0 ? wide::FWD_BYTES
                       : which == 1 ? wide::DQ_BYTES : wide::DKV_BYTES;

@@ -42,11 +42,15 @@ The tensor-core kernels are built for head dims 64 and 128; on a CUDA
 tensor the wrappers zero-pad any other head dim up to 128 to the next of
 them and slice the outputs back (``_at_kernel_head_dim``), with
 ``sm_scale`` from the true head dim. A head dim past 128 is zero-padded to
-a multiple of 64 and runs the wide instances (``csrc/flash_wide.cuh``):
-every product over D sums 64-column chunks staged through shared memory,
-and each output's D axis is cut into 128-wide slices on the grid's z axis,
-each block recomputing S for its own slice. Any batch*heads is taken (it
-is the grid's x axis).
+a multiple of 64. In bf16 the forward and dq run it on ``wgmma`` up to
+256 (their instances at 192 and 256: one accumulator as wide as D, K/V
+tiles narrowed to fit); past that, and in f32 and for the bf16 dkv past
+128, the wide instances run (``csrc/flash_wide.cuh``): every product over
+D sums 64-column chunks staged through shared memory, and each output's
+D axis is cut into 128-wide slices on the grid's z axis, each block
+recomputing S for its own slice (``_kernel_instance`` says which runs;
+``.wide_launches`` counters count them). Any batch*heads is taken (it is
+the grid's x axis).
 
 ``flash_attention`` is differentiable (``_FlashAttention``). Every
 wrapper dispatches on the tensor's device: a CPU tensor runs the plain
@@ -59,7 +63,10 @@ dtypes raises). ``flash_attention.launches``,
 ``flash_backward.dq_launches`` and ``flash_backward.dkv_launches`` count
 the f32 launches, ``flash_attention.bf16_launches``,
 ``flash_backward.dq_bf16_launches`` and
-``flash_backward.dkv_bf16_launches`` the bf16 ones.
+``flash_backward.dkv_bf16_launches`` the bf16 ones;
+``flash_attention.wide_launches``, ``flash_backward.dq_wide_launches``
+and ``flash_backward.dkv_wide_launches`` those of either dtype that ran a
+wide instance.
 """
 from __future__ import annotations
 
@@ -301,6 +308,25 @@ def _kernel_head_dim(D):
     return -(-D // _WIDE_D) * _WIDE_D
 
 
+# the largest padded head dim of each bf16 kernel's ``wgmma`` instances
+# (csrc/flash_attention_bf16.cu); past it, and in f32 past the last of
+# KERNEL_HEAD_DIMS, a kernel runs its wide instances
+_BF16_WGMMA_HEAD_DIM = {"fwd": 256, "dq": 256, "dkv": 128}
+
+
+def _kernel_instance(D, dtype, kind):
+    """(head dim, wide) of the instance of kernel ``kind`` ("fwd", "dq"
+    or "dkv") that takes head dim D in ``dtype``: D padded as
+    ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
+    that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
+    CUDA cores) rather than one on the tensor cores: in f32 past 128; in
+    bf16 the forward and dq past 256, dkv past 128."""
+    kd = _kernel_head_dim(D)
+    top = (_BF16_WGMMA_HEAD_DIM[kind] if dtype == torch.bfloat16
+           else KERNEL_HEAD_DIMS[-1])
+    return kd, kd > top
+
+
 def _max_t(D):
     """The longest sequence the grid's y axis holds at head dim D."""
     rows = _TILE_ROWS if D <= KERNEL_HEAD_DIMS[-1] else _WIDE_TILE_ROWS
@@ -369,9 +395,13 @@ def _raise_on(lib, err, what):
 
 def _launch(q, k, v, lengths, causal, sm_scale):
     _check_kernel_inputs(q, k, v)
-    return _at_kernel_head_dim(
-        lambda q, k, v: _launch_fwd(q, k, v, lengths, causal, sm_scale),
-        q, k, v)
+
+    def launch(q, k, v):
+        out = _launch_fwd(q, k, v, lengths, causal, sm_scale)
+        _count_launch("fwd", q)
+        return out
+
+    return _at_kernel_head_dim(launch, q, k, v)
 
 
 # each dtype's kernel instances: (forward library, backward library,
@@ -390,10 +420,22 @@ def _count(fn, counter):
     setattr(fn, counter, getattr(fn, counter) + 1)
 
 
+def _count_launch(kind, q):
+    """One more launch of kernel ``kind`` ("fwd", "dq" or "dkv") on its
+    dtype's counter and, where its instance at q's (padded) head dim is a
+    wide one, on ``flash_attention.wide_launches`` or
+    ``flash_backward.<kind>_wide_launches``."""
+    fn, prefix = ((flash_attention, "") if kind == "fwd"
+                  else (flash_backward, f"{kind}_"))
+    _count(fn, prefix + _INSTANCES[q.dtype][3])
+    if _kernel_instance(q.shape[-1], q.dtype, kind)[1]:
+        _count(fn, prefix + "wide_launches")
+
+
 def _launch_fwd(q, k, v, lengths, causal, sm_scale):
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    fwd_lib, _, suffix, counter = _INSTANCES[q.dtype]
+    fwd_lib, _, suffix, _ = _INSTANCES[q.dtype]
     lib, fn = _bind(fwd_lib, f"paddle_flash_attention_fwd_{suffix}", 6)
     dev = q.device
     lens_bh = _lens_bh(lengths, B, H, Tk, dev)
@@ -407,7 +449,6 @@ def _launch_fwd(q, k, v, lengths, causal, sm_scale):
                  B * H, Tq, Tk, D, int(bool(causal)), float(sm_scale),
                  stream)
     _raise_on(lib, err, "flash_attention_fwd")
-    _count(flash_attention, counter)
     return o, lse
 
 
@@ -449,7 +490,7 @@ def _launch_dq(q, k, v, lse, di, do, lengths, causal, sm_scale):
         dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
         _launch_bwd("dq", (dq,), q, k, v, lse, di, do, lengths, causal,
                     sm_scale)
-        _count(flash_backward, "dq_" + _INSTANCES[q.dtype][3])
+        _count_launch("dq", q)
         return dq
 
     return _at_kernel_head_dim(launch, q, k, v, do)
@@ -463,7 +504,7 @@ def _launch_dkv(q, k, v, lse, di, do, lengths, causal, sm_scale):
         dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
         _launch_bwd("dkv", (dk, dv), q, k, v, lse, di, do, lengths, causal,
                     sm_scale)
-        _count(flash_backward, "dkv_" + _INSTANCES[q.dtype][3])
+        _count_launch("dkv", q)
         return dk, dv
 
     return _at_kernel_head_dim(launch, q, k, v, do)
@@ -548,6 +589,8 @@ flash_backward.dq_launches = 0
 flash_backward.dkv_launches = 0
 flash_backward.dq_bf16_launches = 0
 flash_backward.dkv_bf16_launches = 0
+flash_backward.dq_wide_launches = 0
+flash_backward.dkv_wide_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -589,3 +632,4 @@ def flash_attention(q, k, v, lengths=None, causal=False, sm_scale=None):
 
 flash_attention.launches = 0
 flash_attention.bf16_launches = 0
+flash_attention.wide_launches = 0

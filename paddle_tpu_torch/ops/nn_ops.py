@@ -151,7 +151,10 @@ def pool2d(attrs, ins):
     xc = x.permute(0, 3, 1, 2) if fmt == "NHWC" else x  # NCHW view
     if attrs.get("global_pooling", False):
         if ptype == "max":
-            y = xc.amax(dim=(2, 3), keepdim=True)
+            # one window over the whole plane: its gradient goes to the
+            # first maximum, as JAX's reduce_window max sends it (amax
+            # would split it among tied maxima)
+            y = F.max_pool2d(xc, tuple(xc.shape[2:]))
         else:
             y = xc.sum(dim=(2, 3), keepdim=True) / (xc.shape[2]
                                                      * xc.shape[3])
