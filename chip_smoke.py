@@ -151,8 +151,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
     against their plain versions at both training shapes (B8 H8 and B8
     H16, T2048 D128 causal), B8 H16 T1024 D64, a ragged T = 1000 with
     lengths and a fully masked row, a non-causal case, and past D = 128
-    (the forward's and dq's wgmma instances at 192 and 256, dkv's wide
-    ones): D160, D192, D256 causal with a fully masked row, a non-causal
+    (the three kernels' wgmma instances at 192 and 256): D160, D192,
+    D256 causal with a fully masked row, a non-causal
     ragged D256, B8 H8 T2048 D256 causal, and D512 (all three on the
     wide instances): each of
     o, dq, dk, dv at most 2x as far from the f32 plain version on the same
@@ -162,17 +162,15 @@ Phases, each fatal on failure (nonzero exit, no result line):
     the training shape must be refused; lse within 1e-4 of the plain
     version's; two launches at the training shape and at B8 H8 T2048
     D256 bitwise equal; registers, spills (none allowed) and shared
-    memory; in SASS every wgmma instance (all three at 64 and 128, the
-    forward and dq at 192 and 256) runs HGMMA fed by UTMALDG (TMA) and
-    no HMMA; timed at B8 H8
+    memory; in SASS every wgmma instance (all three at 64, 128, 192 and
+    256) runs HGMMA fed by UTMALDG (TMA) and no HMMA; timed at B8 H8
     T2048 D128 beside the plain versions, the bound at the bf16
     tensor-core rate (TFLOP/s and share of it), the times of the mma.sync
     kernels they replaced and bf16 SDPA (forward; backward for the pair,
     beside dq + dkv); at D256 (B2 H4 T1000 and B8 H8 T2048, causal) the
     forward, dq and dkv timed beside their plain versions, their bound,
-    bf16 SDPA and the times of the wide f32-FMA instances that the
-    forward and dq ran there before (``--bf16-wide-times`` times just
-    these);
+    bf16 SDPA and the times of the wide f32-FMA instances that they
+    ran there before (``--bf16-wide-times`` times just these);
     (b) bench.py's ``transformer`` (d1024 L8 H8 d_ff 4096 V16384, 8 x 2048
     tokens, Adam 1e-4) in f32: step 1 with the kernels against the plain
     path (loss and every gradient within 1e-4), 8 f32 launches of each
@@ -188,9 +186,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
     bf16 flash kernel in the profiled step); (c)
     ``transformer_wide`` (d2048 L8 H16 d_ff 8192) under AMP, the same
     gates (its f32 build runs step 1 only); (d) the same width with 8
-    heads of 256 (d2048 L8 H8 d_ff 8192), the same gates, its 8 forward
-    and 8 dq launches a step on their D256 wgmma instances and its 8 dkv
-    launches on the wide ones, printed beside (c), the same FLOPs at
+    heads of 256 (d2048 L8 H8 d_ff 8192), the same gates, its 8
+    launches a step of each flash kernel on their D256 wgmma instances
+    and none on the wide ones, printed beside (c), the same FLOPs at
     head dim 128.
 
 13. The reference benchmark's recurrent rows and its decode row, each
@@ -3149,8 +3147,8 @@ def amp_phases(gpu_name):
 PER_LAYER = dict(TRAIN)
 PER_LAYER_WIDE = dict(TRAIN, d_model=2048, num_heads=16, d_ff=8192)
 # transformer_wide's width with 8 heads of 256 (Gemma 7B's head dim): the
-# same FLOPs a step as transformer_wide, at head dim 256 (the forward's
-# and dq's D256 wgmma instances, dkv's wide ones)
+# same FLOPs a step as transformer_wide, at head dim 256 (the three
+# kernels' D256 wgmma instances)
 PER_LAYER_D256 = dict(TRAIN, d_model=2048, num_heads=8, d_ff=8192)
 # B8 H8 T2048 D256 causal: the per-layer LM's attention at PER_LAYER_D256
 D256_TRAIN = (8, 8, 2048, 256, True, None)
@@ -3176,23 +3174,24 @@ BF16_FLASH = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
               "flash_attention_bwd_dkv_bf16")
 BF16_FLASH_REPLACES = (229, 364, 386)
 # the bf16 flash kernel instances that run wgmma fed by TMA (all three at
-# D 64 and 128, the forward and dq at 192 and 256): in SASS, HGMMA and
-# UTMALDG and no HMMA (mma.sync); ptxas reports no spills
+# D 64, 128, 192 and 256): in SASS, HGMMA and UTMALDG and no HMMA
+# (mma.sync); ptxas reports no spills
 BF16_FLASH_SASS = tuple(f"flash_{k}_bf16_kernel<{d}>"
-                        for k, ds in (("fwd", (64, 128, 192, 256)),
-                                      ("bwd_dq", (64, 128, 192, 256)),
-                                      ("bwd_dkv", (64, 128)))
-                        for d in ds)
-# the head-dim-256 shapes the bf16 trio is timed at: phase 3's and
-# D256_TRAIN
-BF16_WIDE_TIMED = (WIDE_TIMED, D256_TRAIN)
+                        for k in ("fwd", "bwd_dq", "bwd_dkv")
+                        for d in (64, 128, 192, 256))
+# phase 3's shape at head dim 512, where all three bf16 kernels run their
+# wide (FMA) instances and no SDPA backend may take the inputs
+WIDE_D512 = (2, 4, 1000, 512, True, None)
+# the shapes the bf16 trio is timed at past D = 128: phase 3's and
+# D256_TRAIN on the D256 wgmma instances, WIDE_D512 on the wide ones
+BF16_WIDE_TIMED = (WIDE_TIMED, D256_TRAIN, WIDE_D512)
 # the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
-# the bf16 forward and dq ran at D256 before their wgmma instances, at
-# BF16_WIDE_TIMED's shapes, on an NVIDIA H100 80GB HBM3 at 700 W
-# (``--bf16-wide-times`` on the commit before them, once); no FMA
+# the bf16 forward, dq and dkv ran at D256 before their wgmma instances,
+# at BF16_WIDE_TIMED's D256 shapes, on an NVIDIA H100 80GB HBM3 at 700 W
+# (``--bf16-wide-times`` on the commit before each, once); no FMA
 # instance at D256 is kept to time again
-BF16_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.509, 0.816),
-                         D256_TRAIN: (8.634, 13.966)}
+BF16_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.509, 0.816, 0.657),
+                         D256_TRAIN: (8.634, 13.966, 20.948)}
 # the times of the mma.sync kernels these replaced, at B8 H8 T2048 D128
 # causal, in ms, on an NVIDIA H100 80GB HBM3 at 700 W (the forward and
 # dkv as last timed beside the mma.sync dq, dq as last timed beside the
@@ -3264,10 +3263,11 @@ def _bf16_text(e):
             f"{e['fro_ratio']:.3f}x)")
 
 
-def _sdpa_fastest(F, q, k, v, do=None):
+def _sdpa_fastest(F, q, k, v, do=None, required=True):
     """(ms, backend) of the fastest SDPA backend that takes these inputs
     (is_causal): the forward, or with ``do`` its backward (forward and
-    backward minus the forward alone)."""
+    backward minus the forward alone). Where none takes them, raises, or
+    without ``required`` gives (None, None)."""
     import torch
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -3293,16 +3293,17 @@ def _sdpa_fastest(F, q, k, v, do=None):
             continue
         if best is None or ms < best[0]:
             best = (ms, name)
-    if best is None:
+    if best is None and required:
         raise RuntimeError("no SDPA backend ran these inputs")
-    return best
+    return best or (None, None)
 
 
 def _bf16_wide_times(gpu_name, gen):
     """The bf16 forward, dq and dkv at each of BF16_WIDE_TIMED's shapes
-    (D256, causal): each timed beside its plain version, its bound at the
-    bf16 tensor-core rate and bf16 SDPA (its fastest backend: the forward;
-    the backward for dq and dkv together). Returns {shape: [the three
+    (D256 and D512, causal): each timed beside its plain version, its
+    bound at the bf16 tensor-core rate and bf16 SDPA (its fastest
+    backend: the forward; the backward for dq and dkv together; none at
+    D512 where no backend takes the inputs). Returns {shape: [the three
     kernels' rows]}. Only the flash wrappers' public entry points run, so
     the same lines time an earlier commit's instances."""
     import torch
@@ -3317,8 +3318,9 @@ def _bf16_wide_times(gpu_name, gen):
                        .bfloat16() for _ in range(4))
         o, lse = fa.flash_forward(q, k, v, None, causal)
         di = fa._row_dot(do, o)
-        sdpa_fwd, backend = _sdpa_fastest(F, q, k, v)
-        sdpa_bwd, bwd_backend = _sdpa_fastest(F, q, k, v, do)
+        sdpa_fwd, backend = _sdpa_fastest(F, q, k, v, required=D <= 256)
+        sdpa_bwd, bwd_backend = _sdpa_fastest(F, q, k, v, do,
+                                              required=D <= 256)
         runs = (lambda: fa.flash_forward(q, k, v, None, causal),
                 lambda: fa.flash_dq(q, k, v, lse, di, do, None, causal),
                 lambda: fa.flash_dkv(q, k, v, lse, di, do, None, causal))
@@ -3341,8 +3343,9 @@ def _bf16_wide_times(gpu_name, gen):
             bound, bound_by, bound_simt = _bound(flops, nbytes, gpu_name,
                                                  bf16=True)
             library = sdpa_fwd if i == 0 else sdpa_bwd
-            lib_text = (f"forward {library:.3f} ({backend})" if i == 0 else
-                        f"backward {library:.3f} for the pair "
+            lib_text = ("no backend takes these inputs" if library is None
+                        else f"forward {library:.3f} ({backend})" if i == 0
+                        else f"backward {library:.3f} for the pair "
                         f"({bwd_backend})")
             print(f"{name} at {shape}: {ms:.3f} ms ({flops / ms / 1e9:.1f} "
                   f"TFLOP/s, {bound / ms * 100:.1f}% of the bound), plain "
@@ -3355,8 +3358,9 @@ def _bf16_wide_times(gpu_name, gen):
                 "library": f"F.scaled_dot_product_attention bf16 {lib_text}",
                 "tflop_per_s": flops / ms / 1e9, "bound_share": bound / ms})
         print(f"bf16 flash backward at {shape}: dq + dkv "
-              f"{rows[1]['ms'] + rows[2]['ms']:.3f} ms against bf16 SDPA's "
-              f"backward {sdpa_bwd:.3f} ({bwd_backend})")
+              f"{rows[1]['ms'] + rows[2]['ms']:.3f} ms; bf16 SDPA's backward "
+              + ("no backend takes these inputs" if sdpa_bwd is None
+                 else f"{sdpa_bwd:.3f} ({bwd_backend})"))
         out[(B, H, T, D, causal, lengths)] = rows
         del q, k, v, do, o, lse, di
         torch.cuda.empty_cache()
@@ -3377,8 +3381,8 @@ def bf16_flash_kernel_phase(gpu_name):
     plain versions, the bound at the bf16 tensor-core rate and bf16 SDPA
     (forward; backward for the pair), and at D256 (_bf16_wide_times)
     beside the times of the FMA instances they replaced there. Returns
-    the three kernels' records, then the records of the forward's and
-    dq's D256 instances."""
+    the three kernels' records, then the records of their D256
+    instances."""
     import torch
     import torch.nn.functional as F
 
@@ -3403,10 +3407,9 @@ def bf16_flash_kernel_phase(gpu_name):
         assert not u.get("spill_store_bytes") and not u.get(
             "spill_load_bytes"), (key, u)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
-    # max |kernel - plain| of each kernel; the forward's and dq's D192 and
-    # D256 instances (128 < D <= 256) apart, for their own records
-    errs, errs_d256 = dict.fromkeys(BF16_FLASH, 0.0), dict.fromkeys(
-        BF16_FLASH[:2], 0.0)
+    # max |kernel - plain| of each kernel; the D192 and D256 instances
+    # (128 < D <= 256) apart, for their own records
+    errs, errs_d256 = (dict.fromkeys(BF16_FLASH, 0.0) for _ in range(2))
     cases = []
     for B, H, T, D, causal, lengths in BF16_FLASH_CASES:
         q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
@@ -3448,11 +3451,8 @@ def bf16_flash_kernel_phase(gpu_name):
         for name, a, b, t, f in zip(("dq", "dk", "dv"), grads, pg, tg, fg):
             assert a.dtype == torch.bfloat16, (name, a.dtype)
             row[name] = _bf16_gate(a, b, t, name)
-            if name == "dq":
-                _worst(errs_d256 if wgmma_wide else errs, BF16_FLASH[1], a,
-                       b)
-            else:
-                _worst(errs, BF16_FLASH[2], a, b)
+            _worst(errs_d256 if wgmma_wide else errs,
+                   BF16_FLASH[1 if name == "dq" else 2], a, b)
             if first:
                 planted[name] = _bf16_errors(f, b, t)
         del pg, tg, fg
@@ -3545,16 +3545,18 @@ def bf16_flash_kernel_phase(gpu_name):
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
 
-    # past D = 128: the forward's and dq's D256 instances on wgmma, dkv on
-    # the wide ones, beside the FMA instances' times they replaced
+    # past D = 128: the D256 instances on wgmma, beside the FMA
+    # instances' times they replaced, and the wide instances at D512
     wide = _bf16_wide_times(gpu_name, gen)
-    records[2]["d256"] = [rows[2] for rows in wide.values()]
-    for i, name in enumerate(BF16_FLASH[:2]):
+    d512 = wide.pop(WIDE_D512)
+    for i, name in enumerate(BF16_FLASH):
+        records[i]["d512_wide"] = d512[i]
         for shape, rows in wide.items():
             was = BF16_WIDE_PREVIOUS_MS[shape][i]
             rows[i]["previous_ms"] = was
             print(f"{name} at {rows[i]['shape']}: {rows[i]['ms']:.3f} ms, "
-                  f"was {_ms_text(was)} on the wide FMA instance")
+                  f"was {_ms_text(was)} on the wide FMA instance "
+                  f"({was / rows[i]['ms']:.1f}x)")
         row = wide[D256_TRAIN][i]
         records.append({
             "name": f"{name}_d256", "route": "cuda",
@@ -3595,9 +3597,7 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
     wide_f32, wide_bf16 = (tuple(7 * L * fa._kernel_instance(hd, dt, k)[1]
                                  for k in ("fwd", "dq", "dkv"))
                            for dt in (torch.float32, torch.bfloat16))
-    # the profile's groups of the bf16 trio: dkv past D = 128 is a wide one
-    bf16_groups = PER_LAYER_GROUPS[:2] + (
-        "flash_bwd_dkv_wide" if wide_bf16[2] else PER_LAYER_GROUPS[2],)
+    bf16_groups = PER_LAYER_GROUPS[:3]  # the profile's bf16 trio
     rng = np.random.RandomState(SEED)
     feed = {"ids": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
             .astype("int64"),
@@ -3769,7 +3769,7 @@ def per_layer_phases(gpu_name):
     print("phase 12 seconds: " + ", ".join(
         f"{part} {b - a:.1f}" for part, a, b in zip("abcd", seconds,
                                                   seconds[1:])))
-    # the D256 records: the forward's and dq's launches a step in (d)
+    # the D256 records: each kernel's launches a step in (d)
     for rec, n in zip(recs[3:], d256["amp"]["launches_per_step"]):
         rec["launches"] = n
     a, b = wide["amp"], d256["amp"]

@@ -23,22 +23,23 @@
 //
 // q, dO [BH, Tq, D]; k, v [BH, Tk, D] bf16; lse, Di [BH, Tq] f32; len
 // [BH] int32 -> o, dq [BH, Tq, D], dk, dv [BH, Tk, D] bf16. The wrapper
-// zero-pads D up to a multiple of 64: the `wgmma` instances take 64 and
-// 128 (all three kernels) and 192 and 256 (the forward and dq); past
-// those the wide instances run (flash_wide.cuh, instantiated for bf16:
-// f32 FMA on the CUDA cores): dkv past 128, the forward and dq past 256.
+// zero-pads D up to a multiple of 64: the `wgmma` instances take 64, 128,
+// 192 and 256; past 256 the wide instances run (flash_wide.cuh,
+// instantiated for bf16: f32 FMA on the CUDA cores).
 // exp is taken as 2^x of x * log2(e) folded into the scale (ex2.approx,
 // relative error ~2^-22, far below P's bf16 rounding).
 //
 // What bounds them: at the training shapes (B8 H8 T2048, causal) the
 // forward does 4*D FLOPs per visible (q, k) pair, dq 6*D and dkv 8*D (69,
 // 103 and 137 GFLOP at D128; 137 and 206 GFLOP for the forward and dq at
-// D256, the per-layer LM with 8 heads of 256) on ~0.1-0.4 GB: bound by
+// D256, and 275 GFLOP for dkv there: the per-layer LM with 8 heads of
+// 256) on ~0.1-0.4 GB: bound by
 // operations, at the tensor cores' bf16 rate (989 TFLOP/s), which only
 // `wgmma` reaches.
 //
 // The three kernels share one design (warp-specialised, one block per
-// (bh, 128 rows it owns): q rows for the forward and dq, k rows for dkv):
+// (bh, 128 rows it owns): q rows for the forward and dq, k rows for dkv,
+// 64 of them past D = 128):
 // - A block is three warpgroups. The first is the producer: it gives its
 //   registers up (setmaxnreg 24) and one of its threads issues every TMA
 //   copy; the other two (setmaxnreg 240) each own 64 of the block's rows,
@@ -83,6 +84,18 @@
 //   MN-major) of dV and dK, so every intermediate stays in registers: per
 //   consumer thread at D = 128, dK and dV 128 f32, S^T and dP^T 64, their
 //   packed bf16 32. lse and Di of a column come from shared memory.
+//   Past D = 128 that split would need D / 2 + D / 2 + 64 registers and
+//   K, V and two stages of 128 keys and 64 queries 256 KB at D = 256, so
+//   there (dkv_split) a block owns 64 keys, shared by both consumers, and
+//   the work is cut twice: each consumer forms S^T and dP^T (m64n32) for
+//   32 of a tile's 64 queries over all of D, P^T and dS^T go rounded to
+//   bf16 through a K-major exchange tile in shared memory (a named
+//   barrier over the 256 consumer threads between), and each consumer
+//   accumulates dV += P^T dO and dK += dS^T Q, both operands from shared
+//   memory, for its own boxes of D: two of four at D = 256 (dK and dV 64
+//   f32 each, S^T and dP^T 16 each), two and one of three at D = 192
+//   (the boxes are TMA's 64-column ones, which an N = 96 operand would
+//   cut in half).
 // - dq keeps its 128 rows' Q and dO in shared memory and their lse and Di
 //   in registers (each thread's rows g and g + 8); S and dP share one
 //   accumulator layout, so dS = P (dP - Di) forms in place and packs into
@@ -106,7 +119,8 @@
 // Budget (ptxas, sm_90a): 168 registers a thread at launch (384 threads,
 // one block an SM), no spills; the consumers run at 240 after
 // setmaxnreg, which acts on whole warpgroups, hence a producer
-// warpgroup rather than a warp. Shared memory: the forward 229,432 bytes
+// warpgroup rather than a warp. Shared memory (each ring asserts its
+// bytes against the 232,448 a block may have): the forward 229,432 bytes
 // at D = 128 (Q 32 KB, three stages of K and V, 64 KB each) and 114,744
 // at D = 64, 196,664 at D = 192 (Q 48 KB, three stages of 64-key K and
 // V, 48 KB each) and 196,648 at D = 256 (Q 64 KB, two stages of K and V,
@@ -115,7 +129,10 @@
 // stages of 48-key K and V, 36 KB each) and 229,416 at D = 256 (Q and dO
 // 128 KB, two stages of 48-key K and V, 48 KB each); dkv 132,136 (K and
 // V 64 KB, two stages of Q and dO, 32 KB each, and of lse and Di) and
-// 66,600.
+// 66,600 at D = 64, 181,288 at D = 192 (64-key K and V 48 KB, two stages
+// of Q and dO, 48 KB each, two exchange buffers of P^T and dS^T, 32 KB)
+// and 230,440 at D = 256 (K and V 64 KB, two stages 64 KB each, the
+// exchange buffers 32 KB).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -206,19 +223,20 @@ __device__ __forceinline__ void stage_tile(unsigned char* tile, int box,
 }
 
 // Warpgroup w's [64, D] output tile, staged by stage_tile at `tile`, to
-// rows row0 .. row0 + 63 of head bh: every thread's stores handed to the
-// async proxy, the warpgroup met, then one thread stores the D / 64 boxes
-// and waits until TMA has read them.
+// rows row0 .. row0 + 63 and columns from 64 b0 on of head bh: every
+// thread's stores handed to the async proxy, the warpgroup met, then one
+// thread stores the D / 64 boxes and waits until TMA has read them.
 template <int D>
 __device__ __forceinline__ void store_tile(const CUtensorMap* map,
                                            const unsigned char* tile, int box,
-                                           int row0, int bh, int w) {
+                                           int row0, int bh, int w,
+                                           int b0 = 0) {
   fence_proxy_async();
   warpgroup_sync(w);
   if (threadIdx.x % 128 == 0) {
 #pragma unroll
     for (int b = 0; b < D / 64; ++b)
-      tma_store_3d(map, tile + b * box, 64 * b, row0, bh);
+      tma_store_3d(map, tile + b * box, 64 * (b0 + b), row0, bh);
     bulk_commit();
     bulk_wait_read();
   }
@@ -422,26 +440,288 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                        : INFINITY;
 }
 
-// Shared memory of dkv at head dim D, in bytes: K and V (OWN rows each)
+// Shared memory of dkv at head dim D, in bytes: K and V (KEYS rows each)
 // as NB = D / 64 boxes, then each stage's Q and dO boxes (DKV_QUERIES
-// rows), then each stage's lse and Di (f32), then the barriers (K/V's,
-// and each stage's full and empty).
+// rows), then, past D = 128, the exchange tiles (two buffers of bf16 P^T
+// and dS^T, [KEYS, DKV_QUERIES] each), then each stage's lse and Di
+// (f32), then the barriers (K/V's, and each stage's full and empty).
+// Up to D = 128 a block owns 128 keys, 64 a consumer warpgroup; past it
+// 64, shared by both (SPLIT, dkv_split), the first consumer's dK and dV
+// columns being H0 of D.
 template <int D>
 struct DkvRing {
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int KEYS = SPLIT ? 64 : OWN;
+  static constexpr int H0 = SPLIT ? 128 : D;
   static constexpr int STAGES = 2;
   static constexpr int NB = D / 64;
-  static constexpr int KV_BOX = OWN * ROW_BYTES;
+  static constexpr int KV_BOX = KEYS * ROW_BYTES;
   static constexpr int QD_BOX = DKV_QUERIES * ROW_BYTES;
   static constexpr int V = NB * KV_BOX;
   static constexpr int RING = 2 * NB * KV_BOX;  // stage s at RING + s STAGE
   static constexpr int DO = NB * QD_BOX;        // dO inside a stage
   static constexpr int STAGE = 2 * NB * QD_BOX;
-  static constexpr int STATS = RING + STAGES * STAGE;
+  static constexpr int XCH = RING + STAGES * STAGE;  // buffer b at + b XBUF
+  static constexpr int XCH_TILE = KEYS * ROW_BYTES;  // P^T, then dS^T
+  static constexpr int XBUF = 2 * XCH_TILE;
+  static constexpr int STATS = XCH + (SPLIT ? 2 * XBUF : 0);
   static constexpr int BARS = STATS + STAGES * 2 * DKV_QUERIES * 4;
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8;
-  static_assert(KV_BOX % 1024 == 0 && QD_BOX % 1024 == 0,
+  static_assert(KV_BOX % 1024 == 0 && QD_BOX % 1024 == 0 &&
+                    XCH_TILE % 1024 == 0,
                 "boxes must keep the swizzle's alignment");
+  static_assert(DKV_QUERIES * 2 == ROW_BYTES,
+                "an exchange tile's row is one box row of queries");
+  static_assert(BYTES <= SMEM_LIMIT, "the ring does not fit");
 };
+
+// What a dkv block's consumers share: its shared memory and barriers,
+// head, first key, K length, query tiles and the first one it sees.
+struct DkvBlock {
+  unsigned char* smem;
+  const float* stats;
+  uint64_t* kv_full;
+  uint64_t* full;
+  uint64_t* empty;
+  const CUtensorMap* dkmap;
+  const CUtensorMap* dvmap;
+  int bh, k0, length, n_q, first, Tq, causal;
+  float sm_scale;
+};
+
+// In place, this thread's entries of a warpgroup's [64 keys, N queries]
+// S^T and dP^T tiles (keys row[0] and row[1], queries q + 8j + 2t and +
+// 1, their lse and Di at lse_s and di_s): P^T = exp(s sm_scale - lse),
+// 0 where masked (checked only on an edge tile), and dS^T = P^T (dP^T -
+// Di), both f32.
+template <int N>
+__device__ __forceinline__ void dkv_p_ds(float (&sp)[N / 2],
+                                         float (&dp)[N / 2],
+                                         const float* lse_s,
+                                         const float* di_s,
+                                         const int (&row)[2], int q, int t,
+                                         float c, bool edge,
+                                         const DkvBlock& a) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 lz = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+    const float2 dz = *reinterpret_cast<const float2*>(di_s + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lse_c = (e & 1) ? lz.y : lz.x;
+      const float di_c = (e & 1) ? dz.y : dz.x;
+      float p = ex2(fmaf(sp[4 * j + e], c, -lse_c * LOG2E));
+      if (edge) {
+        const int q_pos = q + 8 * j + 2 * t + (e & 1);
+        const int k_pos = row[e >> 1];
+        if (k_pos >= a.length || q_pos >= a.Tq ||
+            (a.causal && q_pos < k_pos))
+          p = 0.f;
+      }
+      dp[4 * j + e] = p * (dp[4 * j + e] - di_c);
+      sp[4 * j + e] = p;
+    }
+  }
+}
+
+// dkv up to D = 128: each consumer warpgroup owns 64 of the block's 128
+// keys and all of D.
+template <int D>
+__device__ __forceinline__ void dkv_rows(const DkvBlock& a) {
+  using L = DkvRing<D>;
+  constexpr int NQ = DKV_QUERIES;
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int kw = a.k0 + 64 * cw;  // the warpgroup's first key
+  const int row[2] = {kw + 16 * warp + g, kw + 16 * warp + g + 8};
+  const float c = a.sm_scale * LOG2E;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+
+  if (a.first < a.n_q) mbar_wait(a.kv_full, 0);
+  const uint64_t dka = sw128_desc(
+      reinterpret_cast<const float*>(a.smem + cw * 64 * ROW_BYTES));
+  const uint64_t dva = sw128_desc(
+      reinterpret_cast<const float*>(a.smem + L::V + cw * 64 * ROW_BYTES));
+  for (int qb = a.first; qb < a.n_q; ++qb) {
+    const int i = qb - a.first;
+    const int s = i % L::STAGES;
+    mbar_wait(&a.full[s], (i / L::STAGES) & 1);
+    const int q0 = qb * NQ;
+    // keys past the length, or after every query of the tile, add 0
+    if (kw < a.length && (!a.causal || q0 + NQ - 1 >= kw)) {
+      const unsigned char* qs = a.smem + L::RING + s * L::STAGE;
+      const unsigned char* dos = qs + L::DO;
+      const float* lse_s = a.stats + s * 2 * NQ;
+      const float* di_s = lse_s + NQ;
+      const uint64_t dqk = sw128_desc(reinterpret_cast<const float*>(qs));
+      const uint64_t ddk = sw128_desc(reinterpret_cast<const float*>(dos));
+      float sp[NQ / 2], dp[NQ / 2];  // S^T, dP^T, then P^T, dS^T
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
+        WgmmaBf16<NQ, 0>::mma(sp, k_step(dka, kk, L::KV_BOX),
+                              k_step(dqk, kk, L::QD_BOX), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V dO^T
+        WgmmaBf16<NQ, 0>::mma(dp, k_step(dva, kk, L::KV_BOX),
+                              k_step(ddk, kk, L::QD_BOX), kk);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sp);
+      fence_regs(dp);
+
+      const bool edge = kw + 64 > a.length || q0 + NQ > a.Tq ||
+                        (a.causal && q0 < kw + 63);
+      dkv_p_ds<NQ>(sp, dp, lse_s, di_s, row, q0, t, c, edge, a);
+      uint32_t pa[NQ / 16][4], sa[NQ / 16][4];  // bf16(P^T), bf16(dS^T)
+      pack_a<NQ>(pa, sp);
+      pack_a<NQ>(sa, dp);
+      const uint64_t dom = sw128_mn_desc(dos, L::QD_BOX);
+      const uint64_t qm = sw128_mn_desc(qs, L::QD_BOX);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NQ / 16; ++kk)  // dV += P^T dO
+        WgmmaBf16Rs<D>::mma(dv_acc, pa[kk], dom + 128 * kk, 1);
+#pragma unroll
+      for (int kk = 0; kk < NQ / 16; ++kk)  // dK += dS^T Q
+        WgmmaBf16Rs<D>::mma(dk_acc, sa[kk], qm + 128 * kk, 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_frags(pa);
+      fence_frags(sa);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&a.empty[s]);
+  }
+  const float scale[2] = {a.sm_scale, a.sm_scale};
+  const float one[2] = {1.f, 1.f};
+  // dk and dv through this warpgroup's rows of K's and V's boxes
+  unsigned char* kt = a.smem + cw * 64 * ROW_BYTES;
+  unsigned char* vt = kt + L::V;
+  stage_tile<D>(kt, L::KV_BOX, dk_acc, scale, warp, g, t);
+  stage_tile<D>(vt, L::KV_BOX, dv_acc, one, warp, g, t);
+  store_tile<D>(a.dkmap, kt, L::KV_BOX, kw, a.bh, cw);
+  store_tile<D>(a.dvmap, vt, L::KV_BOX, kw, a.bh, cw);
+}
+
+// dkv past D = 128: both consumer warpgroups own the block's 64 keys.
+// Consumer cw forms S^T and dP^T for queries 32 cw .. 32 cw + 31 of each
+// tile over the whole of D (m64n32), rounds P^T and dS^T to bf16 into
+// its columns of the tile's exchange buffer (K-major, [64 keys, 64
+// queries] in the 128-byte swizzle), meets the other consumer, then adds
+// P^T dO and dS^T Q over all 64 queries to its DN columns of dV and dK
+// from box b0 on, A from the exchange tiles and B MN-major from the
+// stage's boxes. The two buffers alternate by tile: a consumer writes
+// buffer i % 2 only after both have met at tile i - 1, that is after the
+// other's products of tile i - 2 (which read it) have completed.
+template <int D, int DN>
+__device__ __forceinline__ void dkv_split(const DkvBlock& a, int b0) {
+  using L = DkvRing<D>;
+  constexpr int NQ = DKV_QUERIES;
+  constexpr int NH = NQ / 2;  // a consumer's queries of S^T and dP^T
+  const int cw = threadIdx.x / 128 - 1;
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row[2] = {a.k0 + 16 * warp + g, a.k0 + 16 * warp + g + 8};
+  const float c = a.sm_scale * LOG2E;
+  float dk_acc[DN / 2], dv_acc[DN / 2];
+#pragma unroll
+  for (int e = 0; e < DN / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+
+  if (a.first < a.n_q) mbar_wait(a.kv_full, 0);
+  const uint64_t dka = sw128_desc(reinterpret_cast<const float*>(a.smem));
+  const uint64_t dva =
+      sw128_desc(reinterpret_cast<const float*>(a.smem + L::V));
+  for (int qb = a.first; qb < a.n_q; ++qb) {
+    const int i = qb - a.first;
+    const int s = i % L::STAGES;
+    mbar_wait(&a.full[s], (i / L::STAGES) & 1);
+    const unsigned char* qs = a.smem + L::RING + s * L::STAGE;
+    const unsigned char* dos = qs + L::DO;
+    const float* lse_s = a.stats + s * 2 * NQ + NH * cw;
+    const float* di_s = lse_s + NQ;
+    const uint64_t dqk = sw128_desc(
+        reinterpret_cast<const float*>(qs + NH * cw * ROW_BYTES));
+    const uint64_t ddk = sw128_desc(
+        reinterpret_cast<const float*>(dos + NH * cw * ROW_BYTES));
+    float sp[NH / 2], dp[NH / 2];  // S^T, dP^T, then P^T, dS^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
+      WgmmaBf16<NH, 0>::mma(sp, k_step(dka, kk, L::KV_BOX),
+                            k_step(dqk, kk, L::QD_BOX), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V dO^T
+      WgmmaBf16<NH, 0>::mma(dp, k_step(dva, kk, L::KV_BOX),
+                            k_step(ddk, kk, L::QD_BOX), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sp);
+    fence_regs(dp);
+
+    const int qc = qb * NQ + NH * cw;  // this consumer's first query
+    const bool edge = a.k0 + 64 > a.length || qc + NH > a.Tq ||
+                      (a.causal && qc < a.k0 + 63);
+    dkv_p_ds<NH>(sp, dp, lse_s, di_s, row, qc, t, c, edge, a);
+    // bf16 P^T and dS^T: this thread's keys 16 w + g (+ 8), queries 32 cw
+    // + 8j + 2t (+ 1), chunk 4 cw + j of a 128-byte row, swizzled
+    unsigned char* xp = a.smem + L::XCH + (i % 2) * L::XBUF;
+    unsigned char* xs = xp + L::XCH_TILE;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * warp + g + 8 * h;
+#pragma unroll
+      for (int j = 0; j < NH / 8; ++j) {
+        const int at = r * ROW_BYTES +
+                       ((((NH / 8) * cw + j) ^ (r % 8)) << 4) + 4 * t;
+        *reinterpret_cast<uint32_t*>(xp + at) =
+            pack(sp[4 * j + 2 * h], sp[4 * j + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(xs + at) =
+            pack(dp[4 * j + 2 * h], dp[4 * j + 2 * h + 1]);
+      }
+    }
+    fence_proxy_async();
+    consumers_sync();
+
+    // a k16 step of the exchange tiles is 32 bytes along the row (+2)
+    const uint64_t pa = sw128_desc(reinterpret_cast<const float*>(xp));
+    const uint64_t sa = sw128_desc(reinterpret_cast<const float*>(xs));
+    const uint64_t dom = sw128_mn_desc(dos + b0 * L::QD_BOX, L::QD_BOX);
+    const uint64_t qm = sw128_mn_desc(qs + b0 * L::QD_BOX, L::QD_BOX);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NQ / 16; ++kk)  // dV += P^T dO
+      WgmmaBf16<DN, 1>::mma(dv_acc, pa + 2 * kk, dom + 128 * kk, 1);
+#pragma unroll
+    for (int kk = 0; kk < NQ / 16; ++kk)  // dK += dS^T Q
+      WgmmaBf16<DN, 1>::mma(dk_acc, sa + 2 * kk, qm + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&a.empty[s]);
+  }
+  // dk and dv through this consumer's boxes of K and V, which no product
+  // reads after the last tile's meeting
+  const float scale[2] = {a.sm_scale, a.sm_scale};
+  const float one[2] = {1.f, 1.f};
+  unsigned char* kt = a.smem + b0 * L::KV_BOX;
+  unsigned char* vt = kt + L::V;
+  stage_tile<DN>(kt, L::KV_BOX, dk_acc, scale, warp, g, t);
+  stage_tile<DN>(vt, L::KV_BOX, dv_acc, one, warp, g, t);
+  store_tile<DN>(a.dkmap, kt, L::KV_BOX, a.k0, a.bh, cw, b0);
+  store_tile<DN>(a.dvmap, vt, L::KV_BOX, a.k0, a.bh, cw, b0);
+}
 
 template <int D>
 __global__ void __launch_bounds__(WS_THREADS, 1)
@@ -466,7 +746,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   // batch*head on grid x, k tiles on y: the low k tiles, which causal
   // queries see most, come first
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * OWN;
+  const int k0 = blockIdx.y * L::KEYS;
   const int length = max(0, min(lens[bh], Tk));
   const int n_q = (Tq + NQ - 1) / NQ;
   // a k tile wholly past the length is seen by no query: dk = dv = 0
@@ -526,105 +806,19 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
   setmaxnreg_inc<240>();
 
-  const int cw = threadIdx.x / 128 - 1;
-  const int warp = threadIdx.x / 32 % 4;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int kw = k0 + 64 * cw;  // the warpgroup's first key
-  const int row[2] = {kw + 16 * warp + g, kw + 16 * warp + g + 8};
-  const float c = sm_scale * LOG2E;
-  float dk_acc[D / 2], dv_acc[D / 2];
-#pragma unroll
-  for (int e = 0; e < D / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
-
-  if (first < n_q) mbar_wait(kv_full, 0);
-  const uint64_t dka = sw128_desc(
-      reinterpret_cast<const float*>(smem + cw * 64 * ROW_BYTES));
-  const uint64_t dva = sw128_desc(
-      reinterpret_cast<const float*>(smem + L::V + cw * 64 * ROW_BYTES));
-  for (int qb = first; qb < n_q; ++qb) {
-    const int i = qb - first;
-    const int s = i % L::STAGES;
-    mbar_wait(&full[s], (i / L::STAGES) & 1);
-    const int q0 = qb * NQ;
-    // keys past the length, or after every query of the tile, add 0
-    if (kw < length && (!causal || q0 + NQ - 1 >= kw)) {
-      const unsigned char* qs = smem + L::RING + s * L::STAGE;
-      const unsigned char* dos = qs + L::DO;
-      const float* lse_s = stats + s * 2 * NQ;
-      const float* di_s = lse_s + NQ;
-      const uint64_t dqk = sw128_desc(reinterpret_cast<const float*>(qs));
-      const uint64_t ddk = sw128_desc(reinterpret_cast<const float*>(dos));
-      float sp[NQ / 2], dp[NQ / 2];  // S^T, dP^T, then P^T, dS^T
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T
-        WgmmaBf16<NQ, 0>::mma(sp, k_step(dka, kk, L::KV_BOX),
-                              k_step(dqk, kk, L::QD_BOX), kk);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V dO^T
-        WgmmaBf16<NQ, 0>::mma(dp, k_step(dva, kk, L::KV_BOX),
-                              k_step(ddk, kk, L::QD_BOX), kk);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(sp);
-      fence_regs(dp);
-
-      const bool edge = kw + 64 > length || q0 + NQ > Tq ||
-                        (causal && q0 < kw + 63);
-#pragma unroll
-      for (int j = 0; j < NQ / 8; ++j) {
-        const float2 lz = *reinterpret_cast<const float2*>(lse_s + 8 * j +
-                                                           2 * t);
-        const float2 dz = *reinterpret_cast<const float2*>(di_s + 8 * j +
-                                                           2 * t);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float lse_c = (e & 1) ? lz.y : lz.x;
-          const float di_c = (e & 1) ? dz.y : dz.x;
-          float p = ex2(fmaf(sp[4 * j + e], c, -lse_c * LOG2E));
-          if (edge) {
-            const int q_pos = q0 + 8 * j + 2 * t + (e & 1);
-            const int k_pos = row[e >> 1];
-            if (k_pos >= length || q_pos >= Tq || (causal && q_pos < k_pos))
-              p = 0.f;
-          }
-          dp[4 * j + e] = p * (dp[4 * j + e] - di_c);
-          sp[4 * j + e] = p;
-        }
-      }
-      uint32_t pa[NQ / 16][4], sa[NQ / 16][4];  // bf16(P^T), bf16(dS^T)
-      pack_a<NQ>(pa, sp);
-      pack_a<NQ>(sa, dp);
-      const uint64_t dom = sw128_mn_desc(dos, L::QD_BOX);
-      const uint64_t qm = sw128_mn_desc(qs, L::QD_BOX);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < NQ / 16; ++kk)  // dV += P^T dO
-        WgmmaBf16Rs<D>::mma(dv_acc, pa[kk], dom + 128 * kk, 1);
-#pragma unroll
-      for (int kk = 0; kk < NQ / 16; ++kk)  // dK += dS^T Q
-        WgmmaBf16Rs<D>::mma(dk_acc, sa[kk], qm + 128 * kk, 1);
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(dv_acc);
-      fence_regs(dk_acc);
-      fence_frags(pa);
-      fence_frags(sa);
-    }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[s]);
+  const DkvBlock blk{smem, stats, kv_full, full,  empty, &dkmap,
+                     &dvmap, bh, k0, length, n_q, first, Tq, causal,
+                     sm_scale};
+  if constexpr (!L::SPLIT) {
+    dkv_rows<D>(blk);
+  } else if constexpr (2 * L::H0 == D) {  // D = 256: one half each
+    dkv_split<D, L::H0>(blk, (threadIdx.x / 128 - 1) * L::H0 / 64);
+  } else {  // D = 192: boxes 0-1 and box 2
+    if (threadIdx.x < 256)
+      dkv_split<D, L::H0>(blk, 0);
+    else
+      dkv_split<D, D - L::H0>(blk, L::H0 / 64);
   }
-  const float scale[2] = {sm_scale, sm_scale};
-  const float one[2] = {1.f, 1.f};
-  // dk and dv through this warpgroup's rows of K's and V's boxes
-  unsigned char* kt = smem + cw * 64 * ROW_BYTES;
-  unsigned char* vt = kt + L::V;
-  stage_tile<D>(kt, L::KV_BOX, dk_acc, scale, warp, g, t);
-  stage_tile<D>(vt, L::KV_BOX, dv_acc, one, warp, g, t);
-  store_tile<D>(&dkmap, kt, L::KV_BOX, kw, bh, cw);
-  store_tile<D>(&dvmap, vt, L::KV_BOX, kw, bh, cw);
 }
 
 template <int D>
@@ -794,9 +988,9 @@ cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
   constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qmap = {}, kmap = {}, vmap = {}, domap = {};  // Tq = 0: none
   CUtensorMap dkmap = {}, dvmap = {};
-  cudaError_t err = tensor_map_3d(&kmap, k, BF16, 2, D, Tk, BH, 64, OWN);
+  cudaError_t err = tensor_map_3d(&kmap, k, BF16, 2, D, Tk, BH, 64, L::KEYS);
   if (err == cudaSuccess)
-    err = tensor_map_3d(&vmap, v, BF16, 2, D, Tk, BH, 64, OWN);
+    err = tensor_map_3d(&vmap, v, BF16, 2, D, Tk, BH, 64, L::KEYS);
   if (err == cudaSuccess)
     err = tensor_map_3d(&dkmap, dk, BF16, 2, D, Tk, BH, 64, 64);
   if (err == cudaSuccess)
@@ -810,7 +1004,7 @@ cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tk + OWN - 1) / OWN);
+  const dim3 grid(BH, (Tk + L::KEYS - 1) / L::KEYS);
   flash_bwd_dkv_bf16_kernel<D><<<grid, WS_THREADS, L::BYTES, stream>>>(
       qmap, kmap, vmap, domap, lse, di, dkmap, dvmap, lens, Tq, Tk, causal,
       sm_scale);
@@ -852,9 +1046,8 @@ bool wide_d(int D) { return D > 128 && D % wide::DC == 0; }
 
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
-// a cudaError_t (0 = launched). D is a multiple of 64: 64 and 128, and
-// for the forward and dq 192 and 256, launch the wgmma instances; the
-// rest past 128 the wide ones.
+// a cudaError_t (0 = launched). D is a multiple of 64: 64, 128, 192 and
+// 256 launch the wgmma instances; the rest past 256 the wide ones.
 extern "C" int paddle_flash_attention_fwd_bf16(
     const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* o,
     float* lse, int BH, int Tq, int Tk, int D, int causal, float sm_scale,
@@ -915,6 +1108,12 @@ extern "C" int paddle_flash_attention_bwd_dkv_bf16(
   if (D == 128)
     return (int)launch_dkv<128>(q, k, v, dout, lse, di, lens, dk, dv, BH, Tq,
                                 Tk, causal, sm_scale, s);
+  if (D == 192)
+    return (int)launch_dkv<192>(q, k, v, dout, lse, di, lens, dk, dv, BH, Tq,
+                                Tk, causal, sm_scale, s);
+  if (D == 256)
+    return (int)launch_dkv<256>(q, k, v, dout, lse, di, lens, dk, dv, BH, Tq,
+                                Tk, causal, sm_scale, s);
   if (wide_d(D))
     return (int)launch_dkv_wide<bf16>(q, k, v, dout, lse, di, lens, dk, dv,
                                       BH, Tq, Tk, D, causal, sm_scale, s);
@@ -928,8 +1127,9 @@ extern "C" int paddle_flash_attention_bf16_smem_bytes(int which, int D) {
                       FwdRing<192>::BYTES, FwdRing<256>::BYTES};
   const int dq[4] = {DqRing<64>::BYTES, DqRing<128>::BYTES,
                      DqRing<192>::BYTES, DqRing<256>::BYTES};
-  const int dkv[2] = {DkvRing<64>::BYTES, DkvRing<128>::BYTES};
-  if (D > 0 && D % 64 == 0 && D <= (which < 2 ? 256 : 128))  // wgmma
+  const int dkv[4] = {DkvRing<64>::BYTES, DkvRing<128>::BYTES,
+                      DkvRing<192>::BYTES, DkvRing<256>::BYTES};
+  if (D > 0 && D % 64 == 0 && D <= 256)  // wgmma
     return (which == 0 ? fwd : which == 1 ? dq : dkv)[D / 64 - 1];
   if (wide_d(D))
     return which == 0 ? wide::FWD_BYTES

@@ -28,7 +28,7 @@ transformer under AMP hands them bf16 q/k/v, and the bf16 instances
 softmax, P and dS rounded to bf16 before their products, outputs rounded
 once, as the Pallas kernels round) take them: all three on ``wgmma`` fed
 by TMA (a producer warpgroup and two consumer warpgroups, 128 owned rows
-a block). The f32 kernels
+a block; dkv past head dim 128, 64). The f32 kernels
 run every product on the tensor cores as 3xTF32 (each operand split into
 two tf32 parts, three products summed in f32: f32 accuracy at up to 165
 TFLOP/s): the forward's S = QK^T on ``wgmma``
@@ -42,12 +42,15 @@ The tensor-core kernels are built for head dims 64 and 128; on a CUDA
 tensor the wrappers zero-pad any other head dim up to 128 to the next of
 them and slice the outputs back (``_at_kernel_head_dim``), with
 ``sm_scale`` from the true head dim. A head dim past 128 is zero-padded to
-a multiple of 64. In bf16 the forward and dq run it on ``wgmma`` up to
-256 (their instances at 192 and 256: one accumulator as wide as D, K/V
-tiles narrowed to fit); past that, and in f32 and for the bf16 dkv past
-128, the wide instances run (``csrc/flash_wide.cuh``): every product over
-D sums 64-column chunks staged through shared memory, and each output's
-D axis is cut into 128-wide slices on the grid's z axis, each block
+a multiple of 64. In bf16 all three kernels run it on ``wgmma`` up to
+256 (their instances at 192 and 256: the forward and dq with one
+accumulator as wide as D and K/V tiles narrowed to fit; dkv with 64
+owned keys shared by both consumer warpgroups, each forming P^T and dS^T
+for half the queries and accumulating dK and dV for its boxes of D);
+past that, and in f32 past 128, the wide instances run
+(``csrc/flash_wide.cuh``): every product over D sums 64-column chunks
+staged through shared memory, and each output's D axis is cut into
+128-wide slices on the grid's z axis, each block
 recomputing S for its own slice (``_kernel_instance`` says which runs;
 ``.wide_launches`` counters count them). Any batch*heads is taken (it is
 the grid's x axis).
@@ -291,7 +294,8 @@ def _aligned(t):
 # instances)
 KERNEL_HEAD_DIMS = (64, 128)
 _WIDE_D = 64
-# rows of a q/k tile: the tiles lie on the grid's y axis (limit 65535)
+# rows of a q/k tile: the tiles lie on the grid's y axis (limit 65535);
+# past D = 128 the wide dkv and the bf16 dkv own 64 keys a block
 _TILE_ROWS = 128
 _WIDE_TILE_ROWS = 64
 
@@ -311,7 +315,7 @@ def _kernel_head_dim(D):
 # the largest padded head dim of each bf16 kernel's ``wgmma`` instances
 # (csrc/flash_attention_bf16.cu); past it, and in f32 past the last of
 # KERNEL_HEAD_DIMS, a kernel runs its wide instances
-_BF16_WGMMA_HEAD_DIM = {"fwd": 256, "dq": 256, "dkv": 128}
+_BF16_WGMMA_HEAD_DIM = {"fwd": 256, "dq": 256, "dkv": 256}
 
 
 def _kernel_instance(D, dtype, kind):
@@ -319,8 +323,8 @@ def _kernel_instance(D, dtype, kind):
     or "dkv") that takes head dim D in ``dtype``: D padded as
     ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
     that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
-    CUDA cores) rather than one on the tensor cores: in f32 past 128; in
-    bf16 the forward and dq past 256, dkv past 128."""
+    CUDA cores) rather than one on the tensor cores: in f32 past 128, in
+    bf16 past 256."""
     kd = _kernel_head_dim(D)
     top = (_BF16_WGMMA_HEAD_DIM[kind] if dtype == torch.bfloat16
            else KERNEL_HEAD_DIMS[-1])

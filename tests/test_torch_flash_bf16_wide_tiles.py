@@ -12,8 +12,10 @@ kernels in interpret mode at those tiles meet the gate the CUDA kernels
 are held to on the card (``chip_smoke.py``'s bf16 gate, the copy in
 ``tests/test_torch_flash_bf16_tiles.py``), at D160, D192 and D256,
 causal and ragged with a fully masked row, inputs from a numpy seed; a
-stale K/V stage planted at those tiles fails it. dkv past 128, and every
-kernel past 256, stay on the wide instances
+stale K/V stage planted at those tiles fails it. dkv runs its own
+``wgmma`` instances at 192 and 256 (64 owned keys a block; its tiles are
+checked in ``tests/test_torch_flash_bf16_dkv_wide_tiles.py``), and every
+kernel past 256 stays on the wide instances
 (``tests/test_torch_flash_wide_head.py`` emulates them). Then the route
 itself: which head dim and instance each kernel takes by dtype, the
 launch wiring with the kernel entries swapped for their plain versions
@@ -106,14 +108,14 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("D,dtype,kind,instance", [
     (160, BF16, "fwd", (192, False)), (160, BF16, "dq", (192, False)),
     (192, BF16, "fwd", (192, False)), (256, BF16, "dq", (256, False)),
-    (200, BF16, "fwd", (256, False)), (160, BF16, "dkv", (192, True)),
-    (256, BF16, "dkv", (256, True)), (320, BF16, "fwd", (320, True)),
+    (200, BF16, "fwd", (256, False)), (160, BF16, "dkv", (192, False)),
+    (256, BF16, "dkv", (256, False)), (320, BF16, "fwd", (320, True)),
     (320, BF16, "dq", (320, True)), (96, BF16, "dkv", (128, False)),
     (160, F32, "fwd", (192, True)), (256, F32, "dq", (256, True)),
     (96, F32, "fwd", (128, False)), (64, F32, "dkv", (64, False)),
 ])
 def test_kernel_instance_by_dtype(D, dtype, kind, instance):
-    """bf16 pads 160 to 192 and 256 to 256 on wgmma (the forward and dq),
+    """bf16 pads 160 to 192 and 256 to 256 on wgmma (all three kernels),
     320 stays 320 on the wide route; f32 keeps its mapping (the wide
     route past 128), and the padded head dim is the same in both."""
     assert tfa._kernel_instance(D, dtype, kind) == instance
@@ -165,8 +167,8 @@ class _PlainKernels:
                 tfa.flash_backward.dkv_wide_launches)
 
 
-@pytest.mark.parametrize("D,padded,wide", [(160, 192, (0, 0, 1)),
-                                           (256, 256, (0, 0, 1)),
+@pytest.mark.parametrize("D,padded,wide", [(160, 192, (0, 0, 0)),
+                                           (256, 256, (0, 0, 0)),
                                            (320, 320, (1, 1, 1))])
 def test_bf16_route_pads_counts_and_slices_back(D, padded, wide,
                                                 monkeypatch):
@@ -201,8 +203,9 @@ def _meta(B, H, T, D, dtype):
 
 @pytest.mark.parametrize("D", [160, 192, 256, 320])
 def test_kernel_checks_take_bf16_wide_heads(D):
-    """bf16 q/k/v/o/dO past head dim 128 pass the checks; the backward's
-    wide dkv (64-row tiles on the grid's y axis) bounds T at 65535 x 64."""
+    """bf16 q/k/v/o/dO past head dim 128 pass the checks; dkv's 64-key
+    blocks (wgmma up to 256, wide past it) on the grid's y axis bound T at
+    65535 x 64."""
     q, k, v, do = _meta(2, 4, 16, D, BF16)
     tfa._check_kernel_inputs(q, k, v)
     tfa._check_kernel_inputs(q, k, v, q, do)
