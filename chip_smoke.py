@@ -6,6 +6,8 @@
     python3 chip_smoke.py --backward-only   # phases 1, 2 and 5 only
     python3 chip_smoke.py --conv-only       # phases 1, 2 and 8 only
     python3 chip_smoke.py --paged-only      # phases 1, 2 and 4b only
+    python3 chip_smoke.py --stacked-d256-only  # phases 1, 2 and 6b only
+    python3 chip_smoke.py --f32-wide-times  # phases 1, 2 and the f32 D256 times
     python3 chip_smoke.py --amp-only        # phases 1, 2 and 11 only
     python3 chip_smoke.py --bf16-conv-only  # phases 1, 2 and 11a only
     python3 chip_smoke.py --per-layer-only  # phases 1, 2 and 12 only
@@ -28,14 +30,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
    H8 T2048 D128 causal); at head dims the kernels take zero-padded (16,
    32, 96) and at 70400 batch*heads (past a grid's y limit), the forward
    and both backward kernels, each with a fully masked row; head dims
-   past 128 (the wide instance: D160 and D256 causal with a fully masked
-   row, one D512 case). Two launches at the training shape, and two at
-   B2 H4 T1000 D256, must be bitwise equal. Prints the forward's
-   registers, spills, shared memory and tensor-core opcodes (SASS), then
-   times it at the serving, training and D256 shapes in turns with
-   ``F.scaled_dot_product_attention``'s f32 forward (its backend pinned
-   and recorded: kernel, library, library, kernel), with profiler device
-   time beside event time, the plain version and the roofline bound.
+   past 128: D160, D192 and D256 causal with a fully masked row and B8
+   H8 T2048 D256 causal (the instances at 192 and 256 on the tensor
+   cores), D320 and D512 (the wide instance). Two launches at the
+   training shape, at B2 H4 T1000 D256 and at B8 H8 T2048 D256 must be
+   bitwise equal. Prints the forward's registers, spills (none allowed),
+   shared memory and tensor-core opcodes (SASS: HGMMA and HMMA in the
+   instances at 192 and 256), then times it at the serving, training and
+   both D256 shapes in turns with ``F.scaled_dot_product_attention``'s
+   f32 forward (its backend pinned and recorded: kernel, library,
+   library, kernel), with profiler device time beside event time, the
+   plain version, the roofline bound and, at D256, the wide FMA
+   instance's earlier time (``--f32-wide-times`` times just the f32 trio
+   at D256).
 4. Serving: the d1024/L8/H16/V16384 transformer LM (random weights from a
    seed, carried in through ``load_jax_params``) serves requests with
    700-1024-token prompts through ``GenerationEngine(kv_cache="dense")``
@@ -58,13 +65,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
    eager), TTFT p50, the KV pool's bytes and the step's byte floor.
 5. Backward kernels: the flash dq and dkv kernels against their plain
    versions at the training shape (B8 H8 T2048 D128 causal), the serving
-   shape, a ragged case with a fully masked row and the wide-head cases
-   of phase 3; two launches of each at the training shape and at B2 H4
-   T1000 D256 must be bitwise equal (no atomics). Prints each
-   kernel's registers, spills and shared memory, then times them beside
-   their plain versions and their bounds, and the pair in turns with the
-   backward of ``F.scaled_dot_product_attention`` (its backend pinned
-   and recorded): pair, SDPA, SDPA, pair.
+   shape, a ragged case with a fully masked row and the head dims past
+   128 of phase 3 (dq on the tensor cores at 192 and 256, dkv on the
+   wide instance past 128); two launches of each at the training shape,
+   at B2 H4 T1000 D256 and at B8 H8 T2048 D256 must be bitwise equal (no
+   atomics). Prints each kernel's registers, spills (none allowed) and
+   shared memory and dq's tensor-core opcodes at 192 and 256 (HMMA),
+   then times them beside their plain versions and their bounds, and the
+   pair in turns with the backward of ``F.scaled_dot_product_attention``
+   (its backend pinned and recorded): pair, SDPA, SDPA, pair; at both
+   D256 shapes dq in turns with SDPA's backward, dkv once, beside the
+   wide FMA instances' earlier times.
 6. Training: the d1024/L8/H8/V16384 LM (d_ff 4096, batch 8 x 2048
    tokens, f32, Adam lr 1e-4) built with the port's ``layers`` and
    ``models.transformer_lm(pipeline_stack=True)``, trained through
@@ -73,6 +84,24 @@ Phases, each fatal on failure (nonzero exit, no result line):
    parameter gradient against the plain path on the card, that each step
    launched the forward, dq and dkv kernels once per layer, and that the
    loss is finite and falls over the timed steps on one fixed batch.
+6b. The stacked LM at head dim 256: phase 6's model at d2048 L8 H8 d_ff
+   8192 (transformer_wide's width with 8 heads of 256, as 12d), the same
+   batch and optimizer. In f32: step 1 with the kernels against the plain
+   path (loss and every gradient, as phase 6), 8 launches a step of the
+   flash forward and dq on their D256 tensor-core instances and none on
+   the wide ones, 8 of dkv on its wide instance, falling losses, step ms,
+   tokens/s, the share of the f32 peak, peak memory and device time by
+   kernel (``chiprun_out/stacked_d256_f32_profile.txt``). Built again
+   under AMP with the same names from the same startup state: step-1 loss
+   within 3e-2 of f32's and 1e-2 of the AMP plain path's, every gradient
+   within 1.5e-2 of the AMP plain path's, the same f32 launches (the stack
+   casts q/k/v to f32), the same prints
+   (``stacked_d256_amp_profile.txt``). Then the same width served
+   through ``GenerationEngine(kv_cache="dense")`` and ``Server``: 8
+   requests of 700-1024 prompt tokens, 32 new tokens each; every result
+   checked, the prefill's attention on the forward's D256 instance
+   (launches == layers x prefills, none wide), request 0's tokens equal to
+   the plain path's on the card.
 7. TF32: the port's conv2d (3x3 s2 p1, NHWC, 64 -> 64) on the card, with
    cuDNN's TF32 at PyTorch's default (on), against the same op in f64 on
    the CPU: output, dX and dW within 1e-5 of the largest reference value.
@@ -404,20 +433,42 @@ PAD_CASES = [
     (4400, 16, 24, 16, True, [24 - b % 25 for b in range(4400)]),
 ]
 
-# head dims past 128, run by the wide instances (D zero-padded to a
-# multiple of 64, outputs in 128-column slices on the grid's z axis):
-# causal with a fully masked row at D160 and D256, and one D = 512 case.
-# Phase 3 holds the forward, phase 5 dq and dkv against their plain
-# versions; both check two launches bitwise equal and time D256 (WIDE_TIMED)
+# head dims past 128 (D zero-padded to a multiple of 64). In f32 the
+# forward and dq run their tensor-core instances at 192 and 256 (D160 and
+# D192 pad to 192), dkv its wide instance (outputs in 128-column slices on
+# the grid's z axis); past 256 all three run the wide ones. Causal with a
+# fully masked row at D160, D192 and D256, the stacked LM's attention at
+# head dim 256 (D256_TRAIN), and the wide route at D320 and D512. Phase 3
+# holds the forward, phase 5 dq and dkv against their plain versions; both
+# check two launches bitwise equal at WIDE_TIMED and D256_TRAIN and time
+# them there
+WIDE_TIMED = (2, 4, 1000, 256, True, None)
+# B8 H8 T2048 D256 causal: the attention of the LMs at d2048 H8 (phase 6b,
+# 12d)
+D256_TRAIN = (8, 8, 2048, 256, True, None)
 WIDE_CASES = [
     (2, 4, 1000, 160, True, [1000, 0]),
+    (2, 4, 1000, 192, True, [1000, 0]),
     (2, 4, 1000, 256, True, [1000, 0]),
+    D256_TRAIN,
+    (2, 4, 1000, 320, True, [1000, 0]),
     (2, 2, 300, 512, False, [300, 0]),
 ]
-WIDE_TIMED = (2, 4, 1000, 256, True, None)
-# a head dim of the wide instances, to look up their shared memory (the
-# same at every D)
-WIDE_D = 256
+# a head dim of the f32 wide instances, to look up their shared memory
+# (the same at every D)
+WIDE_D = 320
+# the f32 instances at 192 and 256 on the tensor cores: in SASS, HMMA
+# (P V, dS K and dq's S, dP on mma.sync) and, for the forward, HGMMA
+# (S on wgmma)
+F32_SPLIT_SASS = tuple(f"flash_{k}_tf32x3_split_kernel<{d}>"
+                       for k in ("fwd", "bwd_dq") for d in (192, 256))
+# the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
+# the f32 forward, dq and dkv ran at WIDE_TIMED and D256_TRAIN before the
+# forward and dq took their tensor-core instances there, on an NVIDIA H100
+# 80GB HBM3 at 700 W (``--f32-wide-times`` on the commit before, once);
+# dkv still runs the wide instance there
+F32_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.514, 0.833, 0.647),
+                        D256_TRAIN: (8.264, 13.977, 19.722)}
 
 
 def _case_text(B, H, T, D, causal, lengths):
@@ -442,7 +493,7 @@ def kernel_phase(gpu_name):
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
-    errs, bwd_errs = [], []
+    errs, bwd_errs, errs_d256 = [], [], []
     for case in FWD_CASES + PAD_CASES + WIDE_CASES:
         B, H, T, D, causal, lengths = case
         q, k, v = (randn(B, H, T, D) for _ in range(3))
@@ -454,6 +505,8 @@ def kernel_phase(gpu_name):
         torch.cuda.synchronize()
         err = max(_max_err(o, ro), _max_err(lse, rlse))
         errs.append(err)
+        if 128 < D <= 256:  # the tensor-core instances at 192 and 256
+            errs_d256.append(err)
         text = f"{_case_text(*case)}: max_abs_err o/lse {err:.3e}"
         masked = [b for b, n in enumerate(lengths or ()) if n == 0]
         assert not o[masked].any(), "a fully masked row got an output"
@@ -483,15 +536,16 @@ def kernel_phase(gpu_name):
     print(f"flash_attention_fwd B{B} H{H} T{T} D{D} causal: two launches "
           f"are bitwise equal")
     del q, k, v, first, second
-    B, H, T, D, causal, _ = WIDE_TIMED
-    q, k, v = (randn(B, H, T, D) for _ in range(3))
-    first, second = (fa.flash_forward(q, k, v, None, True) for _ in range(2))
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(first, second)), (
-        "two wide flash forward launches on the same inputs differ")
-    print(f"flash_attention_fwd (wide) B{B} H{H} T{T} D{D} causal: two "
-          f"launches are bitwise equal")
-    del q, k, v, first, second
+    for B, H, T, D, causal, _ in (WIDE_TIMED, D256_TRAIN):
+        q, k, v = (randn(B, H, T, D) for _ in range(3))
+        first, second = (fa.flash_forward(q, k, v, None, True)
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+            f"two flash forward launches at D{D} on the same inputs differ")
+        print(f"flash_attention_fwd B{B} H{H} T{T} D{D} causal: two "
+              f"launches are bitwise equal")
+        del q, k, v, first, second
     usage = _forward_kernel_usage()
     assert not any(u.get("spill_store_bytes") or u.get("spill_load_bytes")
                    for u in usage.values()), f"the forward spills: {usage}"
@@ -502,10 +556,19 @@ def kernel_phase(gpu_name):
             continue
         assert counts["HMMA"] + counts["HGMMA"] > 0, (
             f"{key} runs no product on the tensor cores: {counts}")
+    for key in F32_SPLIT_SASS[:2]:  # S on wgmma, P V on mma.sync
+        assert sass[key]["HGMMA"] > 0 and sass[key]["HMMA"] > 0, (
+            key, sass.get(key))
 
     timed = {name: _time_forward(F, fa, randn, gpu_name, *FWD_CASES[i])
              for name, i in (("serving", 0), ("training", 3))}
-    timed["wide"] = _time_forward(F, fa, randn, gpu_name, *WIDE_TIMED)
+    for name, shape in (("wide", WIDE_TIMED), ("d256_train", D256_TRAIN)):
+        timed[name] = _time_forward(F, fa, randn, gpu_name, *shape)
+        timed[name]["previous_ms"] = was = F32_WIDE_PREVIOUS_MS[shape][0]
+        print(f"flash_attention_fwd at {timed[name]['shape']}: "
+              f"{timed[name]['ms']:.3f} ms, "
+              f"{timed[name]['bound_ms'] / timed[name]['ms'] * 100:.1f}% of "
+              f"the bound; was {_ms_text(was)} on the wide FMA instance")
     serve = timed["serving"]
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -520,7 +583,8 @@ def kernel_phase(gpu_name):
         "shape": serve["shape"], "gflop": serve["gflop"],
         "mbytes": serve["mbytes"], "training_shape": timed["training"],
         "serving_shape": serve, "wide_shape": timed["wide"],
-        "ptxas": usage, "sass": sass,
+        "d256_train_shape": timed["d256_train"],
+        "max_abs_err_d256": max(errs_d256), "ptxas": usage, "sass": sass,
     }
 
 
@@ -587,7 +651,6 @@ def serving_phase(record, gpu_name):
     from paddle_tpu_torch import init_params
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.models.transformer import TransformerLM
-    from paddle_tpu_torch.ops import pipeline_ops
     from paddle_tpu_torch.serving import GenerationEngine, LMSpec, Server
 
     peak_bw = _peaks(gpu_name)[1]
@@ -636,25 +699,10 @@ def serving_phase(record, gpu_name):
     assert prefills > 0 and launches == spec.n_layers * prefills, (
         launches, prefills)
 
-    # the served tokens against the plain path on the card: one-shot
-    # decode of request 0 with the flash kernel swapped for its plain
-    # version (greedy, so the tokens must be equal)
+    # the served tokens against the plain path on the card (greedy, so
+    # the tokens must be equal)
     n_check = 8
-    p0 = torch.from_numpy(prompts[0][None]).cuda()
-
-    def plain(q, k, v, causal=False):
-        return fa.flash_attention_reference(q, k, v, causal=causal)[0]
-
-    kernel = pipeline_ops.flash_attention
-    pipeline_ops.flash_attention = plain
-    try:
-        with torch.no_grad():
-            ref = pipeline_ops.transformer_stack_generate(
-                {"num_heads": spec.num_heads, "max_new_tokens": n_check},
-                dict(model.shared_lm_inputs(), Prompt=[p0]))["Out"][0]
-    finally:
-        pipeline_ops.flash_attention = kernel
-    ref = ref[0, prompts[0].size:].cpu().numpy()
+    ref = _plain_tokens(model, spec, prompts[0], n_check)
     served = results[0][prompts[0].size:prompts[0].size + n_check]
     assert np.array_equal(served, ref), (served, ref)
     print(f"serving: request 0's first {n_check} tokens equal the plain "
@@ -693,6 +741,31 @@ def serving_phase(record, gpu_name):
           f"{launches}")
     record["launches"] = launches
     return serving
+
+
+def _plain_tokens(model, spec, prompt, n):
+    """The first ``n`` greedy tokens after ``prompt`` (numpy int64), one
+    shot on the card with the flash kernel swapped for its plain
+    version."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops import pipeline_ops
+
+    def plain(q, k, v, causal=False):
+        return fa.flash_attention_reference(q, k, v, causal=causal)[0]
+
+    kernel = pipeline_ops.flash_attention
+    pipeline_ops.flash_attention = plain
+    try:
+        with torch.no_grad():
+            ref = pipeline_ops.transformer_stack_generate(
+                {"num_heads": spec.num_heads, "max_new_tokens": n},
+                dict(model.shared_lm_inputs(),
+                     Prompt=[torch.from_numpy(prompt[None]).cuda()]))["Out"][0]
+    finally:
+        pipeline_ops.flash_attention = kernel
+    return ref[0, prompt.size:].cpu().numpy()
 
 
 # The paged serving configuration: phase 4's LM at full width, 8 slots,
@@ -1001,6 +1074,7 @@ def backward_kernel_phase(gpu_name):
         return torch.randn(*shape, device="cuda", generator=gen)
 
     errs = {"dq": [], "dkv": []}
+    errs_d256 = {"dq": [], "dkv": []}  # 128 < D <= 256
     for B, H, T, D, causal, lengths in BWD_CASES + WIDE_CASES:
         q, k, v, do = (randn(B, H, T, D) for _ in range(4))
         lens = None if lengths is None else torch.tensor(lengths,
@@ -1017,6 +1091,8 @@ def backward_kernel_phase(gpu_name):
                "dkv": max(_max_err(dk, rk), _max_err(dv, rv))}
         for name, err in got.items():
             errs[name].append(err)
+            if 128 < D <= 256:
+                errs_d256[name].append(err)
         if lengths is not None and 0 in lengths:
             row = lengths.index(0)
             assert not dq[row].any() and not dk[row].any() \
@@ -1046,8 +1122,15 @@ def backward_kernel_phase(gpu_name):
         del first, second
     print(f"flash_attention_bwd B{B} H{H} T{T} D{D} causal: two launches of "
           f"each kernel are bitwise equal")
-    wide = _time_wide_backward(F, fa, randn, gpu_name, *WIDE_TIMED)
+    wide = {name: _time_wide_backward(F, fa, randn, gpu_name, *shape)
+            for name, shape in (("wide", WIDE_TIMED),
+                                ("d256_train", D256_TRAIN))}
     usage = _backward_kernel_usage()
+    assert not any(u.get("spill_store_bytes") or u.get("spill_load_bytes")
+                   for u in usage.values()), f"the backward spills: {usage}"
+    sass = _sass_counts("flash_attention_bwd", "flash_bwd")
+    for key in F32_SPLIT_SASS[2:]:  # every product on mma.sync
+        assert sass[key]["HMMA"] > 0, (key, sass.get(key))
     ms = {name: _cuda_ms(fn, iters=10) for name, fn in kernels.items()}
     plain_ms = {
         "dq": _cuda_ms(lambda: fa.flash_dq_reference(q, k, v, lse, di, do,
@@ -1097,16 +1180,20 @@ def backward_kernel_phase(gpu_name):
             "pair_turns_ms": pair_turns, "library_turns_ms": lib_turns,
             "shape": f"B{B} H{H} T{T} D{D} causal f32",
             "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "fwd_ms_training_shape": fwd_ms, "ptxas": usage,
-            "wide_shape": wide[name],
+            "fwd_ms_training_shape": fwd_ms, "ptxas": usage, "sass": sass,
+            "wide_shape": wide["wide"][name],
+            "d256_train_shape": wide["d256_train"][name],
+            "max_abs_err_d256": max(errs_d256[name]),
         })
     return records
 
 
 def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
-    """The wide dq and dkv instances at one shape: two launches of each
-    bitwise equal, then each timed beside its plain version and its bound,
-    and SDPA's backward (its backend pinned) for the pair."""
+    """dq and dkv past head dim 128 at one shape: two launches of each
+    bitwise equal; dq timed in turns with SDPA's f32 backward (its backend
+    pinned: dq, library, library, dq), dkv once, each beside its plain
+    version, its bound and the wide FMA instance's earlier time
+    (F32_WIDE_PREVIOUS_MS)."""
     import torch
 
     assert lengths is None and causal
@@ -1124,28 +1211,92 @@ def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
         first, second = fn(), fn()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, second)), (
-            f"two wide {name} launches on the same inputs differ")
+            f"two {name} launches at D{D} on the same inputs differ")
         del first, second
-    library_ms, backend = _sdpa_backward_ms(F, q, k, v, do)
+    turns, lib_turns = [_cuda_ms(kernels["dq"], iters=10)], []
+    for _ in range(2):
+        lib, backend = _sdpa_backward_ms(F, q, k, v, do)
+        lib_turns.append(lib)
+    turns.append(_cuda_ms(kernels["dq"], iters=10))
+    library_ms = sum(lib_turns) / 2
+    times = {"dq": sum(turns) / 2, "dkv": _cuda_ms(kernels["dkv"], iters=10)}
     shape = f"B{B} H{H} T{T} D{D} causal f32"
     out = {}
-    for name, fn in kernels.items():
-        ms = _cuda_ms(fn, iters=10)
+    for i, (name, ms) in enumerate(times.items()):
         plain_ms = _cuda_ms(plain[name], iters=5)
         flops, nbytes = _backward_work(name, B, H, T, T, D, True, None)
         bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name)
+        was = F32_WIDE_PREVIOUS_MS.get((B, H, T, D, causal, lengths),
+                                       (None,) * 3)[1 + i]
+        wide = fa._kernel_instance(D, torch.float32, name)[1]
         out[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_ms_simt": bound_simt,
                      "library_ms": library_ms,
                      "library": f"sdpa backward, {backend}",
-                     "gflop": flops / 1e9, "mbytes": nbytes / 1e6}
-        print(f"flash_attention_bwd_{name} (wide) {shape}: two launches "
-              f"bitwise equal; {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms ({bound_by}; {bound_simt:.4f} at the "
-              f"CUDA cores' f32 rate)")
-    print(f"flash_attention_bwd (wide) {shape}: SDPA backward ({backend}) "
-          f"{library_ms:.3f} ms for the pair")
+                     "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+                     "tflop_per_s": flops / ms / 1e9,
+                     "bound_share": bound_ms / ms, "wide": wide,
+                     "previous_ms": was}
+        if name == "dq":
+            out[name]["turns_ms"] = turns
+            out[name]["library_turns_ms"] = lib_turns
+        print(f"flash_attention_bwd_{name} ({'wide' if wide else 'tensor cores'})"
+              f" {shape}: two launches bitwise equal; {ms:.3f} ms"
+              + (f" (in turns {[round(x, 4) for x in turns]})"
+                 if name == "dq" else "")
+              + f", {flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{bound_ms / ms * 100:.1f}% of the bound {bound_ms:.4f} ms "
+              f"({bound_by}; {bound_simt:.4f} at the CUDA cores' f32 rate); "
+              f"plain {plain_ms:.3f} ms; was {_ms_text(was)} on the wide FMA "
+              f"instance")
+    print(f"flash_attention_bwd {shape}: SDPA backward ({backend}) "
+          f"{[round(x, 4) for x in lib_turns]} ms for the pair; dq + dkv "
+          f"{times['dq'] + times['dkv']:.3f} ms")
+    return out
+
+
+def _f32_wide_times(gpu_name):
+    """The f32 forward, dq and dkv at WIDE_TIMED and D256_TRAIN, each timed
+    with CUDA events beside its bound (3xTF32 rate); no checks. Only the
+    flash wrappers' public entry points run, so the same lines time an
+    earlier commit's instances. Returns {shape: [the three kernels'
+    rows]}."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    out = {}
+    for B, H, T, D, causal, lengths in (WIDE_TIMED, D256_TRAIN):
+        q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
+                       for _ in range(4))
+        o, lse = fa.flash_forward(q, k, v, None, causal)
+        di = fa._row_dot(do, o)
+        runs = (("fwd", lambda: fa.flash_forward(q, k, v, None, causal)),
+                ("dq", lambda: fa.flash_dq(q, k, v, lse, di, do, None,
+                                           causal)),
+                ("dkv", lambda: fa.flash_dkv(q, k, v, lse, di, do, None,
+                                             causal)))
+        shape = _case_text(B, H, T, D, causal, lengths)
+        rows = []
+        for name, run in runs:
+            ms = _cuda_ms(run, iters=10)
+            if name == "fwd":
+                flops, nbytes = _attention_work(B, H, T, T, D, causal, None)
+            else:
+                flops, nbytes = _backward_work(name, B, H, T, T, D, causal,
+                                               None)
+            bound, bound_by, _ = _bound(flops, nbytes, gpu_name)
+            print(f"f32 flash {name} at {shape}: {ms:.3f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s, "
+                  f"{bound / ms * 100:.1f}% of the bound {bound:.4f} ms, "
+                  f"{bound_by})")
+            rows.append({"kernel": name, "shape": shape, "ms": ms,
+                         "bound_ms": bound, "bound_by": bound_by})
+        out[shape] = rows
+        del q, k, v, do, o, lse, di
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1560,6 +1711,244 @@ def training_phase(records, gpu_name):
                    "worst_grad_rel": worst[0], "worst_grad": worst[1]},
         "profile": profile,
     }
+
+
+# Phase 6b: phase 6's stacked LM at transformer_wide's width with 8 heads
+# of 256 (d2048 L8 H8, d_ff 8192, as phase 12d; Gemma 7B's head dim):
+# every attention runs the f32 flash forward and dq on their D256
+# tensor-core instances and dkv on its wide one, in f32 and under AMP (the
+# stack casts q/k/v back to f32, as the JAX op does). Nothing cut. Then
+# the same width served densely: 8 requests of 700-1024 prompt tokens, 32
+# new tokens each.
+STACKED_D256 = dict(TRAIN, d_model=2048, num_heads=8, d_ff=8192)
+STACKED_D256_SERVE = dict(requests=8, new_tokens=32)
+STACKED_D256_GROUPS = ("flash_fwd_tf32x3_split", "flash_bwd_dq_tf32x3_split",
+                       "flash_bwd_dkv_wide", "flash_", "nvjet", "gemm",
+                       "elementwise", "reduce")
+
+
+def _stacked_d256_timed(exe, main, feed, loss, scope, fa, tag, c, peak):
+    """The main path of phase 6b in one precision: 1 warm + 6 timed steps
+    (counts to 0 before, read after: 8 launches a step of each f32 flash
+    kernel, the forward and dq on their D256 tensor-core instances and dkv
+    on its wide one, no bf16 launch), falling losses; step ms, tokens/s,
+    the share of ``peak``, peak memory and device ms by kernel
+    (``chiprun_out/stacked_d256_<tag>_profile.txt``)."""
+    import numpy as np
+
+    L, tokens = c["n_layers"], c["batch"] * c["seq"]
+    losses, step_s, counts, peak_mem, profile = _timed_steps(
+        exe, main, feed, loss, scope, fa, f"stacked_d256_{tag}_profile.txt",
+        STACKED_D256_GROUPS)
+    assert counts == (7 * L,) * 3 + (0,) * 3 + (0, 0, 7 * L), counts
+    med = float(np.median(step_s[1:]))
+    flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
+                                    c["vocab"], c["d_ff"])
+    launches = [n // 7 for n in counts[:3]]
+    print(f"stacked d2048 H8 {tag}: losses {[round(x, 5) for x in losses]}; "
+          f"step median {med * 1e3:.1f} ms over 6 steps "
+          f"({[round(x * 1e3, 1) for x in step_s]} ms), {tokens / med:.0f} "
+          f"tokens/s, {flops / 1e12:.2f} TFLOP/step = "
+          f"{flops / med / peak * 100:.1f}% of the "
+          f"{'f32' if tag == 'f32' else 'bf16'} peak, peak memory "
+          f"{peak_mem / 2**30:.2f} GiB; f32 flash launches per step "
+          f"fwd/dq/dkv {launches} (fwd and dq on their D256 tensor-core "
+          f"instances, dkv {counts[8] // 7} on the wide one); device "
+          + (f"{profile['device_ms']:.1f} ms: " + ", ".join(
+              f"{g} {profile['kernels_ms'][g]:.2f} ms "
+              f"({profile['launches'][g]} launches)"
+              for g in STACKED_D256_GROUPS[:3]) if profile else
+             "not measured"))
+    return {"losses": losses, "step_ms": [x * 1e3 for x in step_s],
+            "step_ms_median": med * 1e3, "tokens_per_s": tokens / med,
+            "tflop_per_step": flops / 1e12, "peak_share": flops / med / peak,
+            "peak_mem_bytes": peak_mem, "launches_per_step": launches,
+            "dkv_wide_launches_per_step": counts[8] // 7,
+            "profile": profile}
+
+
+def stacked_d256_phase(gpu_name):
+    """Phase 6b: the stacked LM at d2048 L8 H8 (head dim 256) trained in
+    f32 (step 1 with the kernels against the plain path: loss LOSS_RTOL,
+    every gradient GRAD_RTOL) and, built again under AMP with the same
+    names from the same startup state, under AMP (step-1 loss within
+    AMP_RTOL of f32's and AMP_PLAIN_RTOL of the AMP plain path's, every
+    gradient within AMP_GRAD_RTOL of it); each timed
+    (_stacked_d256_timed); then the same width served densely through
+    ``Server`` (stacked_d256_serving). Returns the phase's record."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import program as tprog
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    c = STACKED_D256
+    peaks = _peaks(gpu_name)
+    rng = np.random.RandomState(SEED)
+    feed = {"ids": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+            .astype("int64"),
+            "tgt": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+            .astype("int64")}
+    start = tprog.Program._uid_counter
+    t0 = time.perf_counter()
+    main, startup, loss, params_grads = _build_training_program(pt, c)
+    scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace())
+    exe.run(startup, scope=scope)
+    state = _snapshot(scope)
+    n_params = sum(scope.get(p.name).numel() for p, _ in params_grads)
+    print(f"stacked d2048 H8: f32 program of {len(main.global_block.ops)} "
+          f"ops, {len(params_grads)} parameters ({n_params / 1e6:.1f} M), "
+          f"built and initialised in {time.perf_counter() - t0:.2f} s")
+    fetch = [loss.name] + [g.name for _, g in params_grads]
+    kern = _step_fetches(exe, main, feed, fetch, scope, state)
+    with _plain_flash(fa):
+        plain = _step_fetches(exe, main, feed, fetch, scope, state)
+    lk, lp = float(kern[0]), float(plain[0])
+    worst = _grad_gap(fetch[1:], kern[1:], plain[1:])
+    print(f"stacked d2048 H8 f32: step-1 loss kernels {lk:.6f} plain "
+          f"{lp:.6f}; worst gradient |kernel - plain| / |plain| "
+          f"{worst[0]:.3e} ({worst[1]}) (tol {GRAD_RTOL})")
+    assert np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), (lk, lp)
+    assert worst[0] <= GRAD_RTOL, worst
+    del plain
+    out = {"config": c, "params": n_params,
+           "f32_step1": {"loss_kernels": lk, "loss_plain": lp,
+                         "worst_grad_rel": worst}}
+    out["f32"] = _stacked_d256_timed(exe, main, feed, loss, scope, fa, "f32",
+                                     c, peaks[0])
+    l32 = float(kern[0])
+    del kern, exe, scope, main, startup, params_grads
+    torch.cuda.empty_cache()
+
+    tprog.Program._uid_counter = start  # the AMP build's names are equal
+    with _Amp():
+        main, _, loss, params_grads = _build_training_program(pt, c)
+        block = main.global_block
+        dtypes = {n: block.var(n).dtype for n in state if block.has_var(n)}
+        scope, exe = pt.Scope(), pt.Executor(pt.CUDAPlace())
+        _restore(scope, state, dtypes)
+        assert [g.name for _, g in params_grads] == fetch[1:]
+        ka = _step_fetches(exe, main, feed, fetch, scope, state, dtypes)
+        with _plain_flash(fa):
+            pa = _step_fetches(exe, main, feed, fetch, scope, state, dtypes)
+        del state
+        la, lpa = float(ka[0]), float(pa[0])
+        worst = _grad_gap(fetch[1:], ka[1:], pa[1:])
+        del ka, pa
+        print(f"stacked d2048 H8 AMP: step-1 loss {la:.6f}, the f32 build "
+              f"{l32:.6f} (rel {abs(la - l32) / abs(l32):.3e}, tol "
+              f"{AMP_RTOL}), the AMP plain path {lpa:.6f} (rel "
+              f"{abs(la - lpa) / abs(lpa):.3e}, tol {AMP_PLAIN_RTOL}); worst "
+              f"gradient |kernels - plain| / |plain| {worst[0]:.3e} "
+              f"({worst[1]}) (tol {AMP_GRAD_RTOL})")
+        assert np.isfinite(la) and abs(la - l32) <= AMP_RTOL * abs(l32)
+        assert abs(la - lpa) <= AMP_PLAIN_RTOL * abs(lpa), (la, lpa)
+        assert worst[0] <= AMP_GRAD_RTOL, worst
+        out["amp_step1"] = {"loss": la, "loss_f32": l32, "loss_plain": lpa,
+                            "worst_grad_rel": worst}
+        out["amp"] = _stacked_d256_timed(exe, main, feed, loss, scope, fa,
+                                         "amp", c, peaks[3])
+    del exe, scope, main
+    torch.cuda.empty_cache()
+    out["serving"] = stacked_d256_serving()
+    return out
+
+
+def d256_records(kern, bwd, stacked):
+    """The f32 instances that phase 6b's main path runs at head dim 256:
+    the forward and dq on the tensor cores, dkv on the wide route, each
+    timed at D256_TRAIN (phases 3 and 5) with its launches a step in 6b's
+    f32 run."""
+    launches = stacked["f32"]["launches_per_step"]
+    rows = (("flash_attention_fwd_d256", "flash_attention_fwd.cu", 229,
+             kern["d256_train_shape"], kern["max_abs_err_d256"]),
+            ("flash_attention_bwd_dq_d256", "flash_attention_bwd.cu", 364,
+             bwd[0]["d256_train_shape"], bwd[0]["max_abs_err_d256"]),
+            ("flash_attention_bwd_dkv_d256", "flash_wide.cuh", 386,
+             bwd[1]["d256_train_shape"], bwd[1]["max_abs_err_d256"]))
+    return [{"name": name, "route": "cuda",
+             "source": f"paddle_tpu_torch/kernels/csrc/{source}",
+             "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
+             "launches": n, "max_abs_err": err, **row}
+            for (name, source, line, row, err), n in zip(rows, launches)]
+
+
+def stacked_d256_serving():
+    """Phase 6b's serving half: the stacked LM at d2048 L8 H8 V16384
+    (weights from the seed through ``load_jax_params``) served by
+    ``GenerationEngine(kv_cache="dense")`` and ``Server``: every result
+    checked, zero dispatch errors, each prefill's attention on the f32
+    forward's D256 tensor-core instance (launches == layers x prefills,
+    none wide), request 0's tokens equal to the plain path's on the
+    card."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import init_params
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    from paddle_tpu_torch.serving import GenerationEngine, LMSpec, Server
+
+    c = STACKED_D256
+    spec = LMSpec(vocab_size=c["vocab"], d_model=c["d_model"],
+                  n_layers=c["n_layers"], num_heads=c["num_heads"],
+                  d_ff=c["d_ff"], max_len=c["max_len"])
+    model = TransformerLM(spec, device="cuda")
+    model.load_jax_params(init_params(spec, SEED))
+    eng = GenerationEngine(spec, model, slots=8, kv_cache="dense",
+                           device="cuda")
+    eng.warmup()
+    torch.cuda.synchronize()
+    rng = np.random.RandomState(SEED + 6)
+    n_req, new = STACKED_D256_SERVE["requests"], STACKED_D256_SERVE[
+        "new_tokens"]
+    prompts = [rng.randint(0, spec.vocab_size, rng.randint(700, 1025))
+               .astype(np.int64) for _ in range(n_req)]
+    _reset_flash_counts(fa)  # the main path's launches only
+    srv = Server([eng]).start()
+    try:
+        t0 = time.perf_counter()
+        futs = [srv.submit({"prompt": p}, max_new_tokens=new)
+                for p in prompts]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    counts = _flash_counts(fa)
+    snap = srv.metrics_snapshot()
+    counters = snap["counters"]
+    prefills = counters["prefills"]
+    for p, r in zip(prompts, results):
+        assert r.shape == (p.size + new,), (r.shape, p.size, new)
+        assert np.array_equal(r[:p.size], p)
+        assert ((r >= 0) & (r < spec.vocab_size)).all()
+    assert counters.get("dispatch_errors", 0) == 0, counters
+    assert counters["completed"] == n_req, counters
+    launches = spec.n_layers * prefills
+    assert prefills > 0 and counts == (launches,) + (0,) * 8, (counts,
+                                                                prefills)
+
+    # request 0 against the plain path (greedy: the tokens must be equal)
+    ref = _plain_tokens(model, spec, prompts[0], new)
+    served = results[0][prompts[0].size:]
+    assert np.array_equal(served, ref), (served, ref)
+    lat = snap["latency"]
+    print(f"stacked d2048 H8 serving: {n_req} requests, "
+          f"{sum(p.size for p in prompts)} prompt tokens, {n_req * new} "
+          f"generated in {wall:.3f} s = {n_req * new / wall:.1f} tok/s; "
+          f"{prefills} prefills (mean {lat['prefill_ms']['mean']:.2f} ms), "
+          f"decode step mean {lat['decode_step_ms']['mean']:.2f} ms; f32 "
+          f"flash forward launches {counts[0]} on the D256 tensor-core "
+          f"instance, {counts[6]} wide; request 0's {new} tokens equal the "
+          f"plain path's on the card")
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"requests": n_req, "new_tokens": new, "wall_s": wall,
+            "tokens_per_s": n_req * new / wall, "prefills": prefills,
+            "flash_launches": counts[0],
+            "prefill_ms_mean": lat["prefill_ms"]["mean"],
+            "decode_step_ms_mean": lat["decode_step_ms"]["mean"]}
 
 
 def _profile_step(run, path="train_profile.txt",
@@ -3150,8 +3539,6 @@ PER_LAYER_WIDE = dict(TRAIN, d_model=2048, num_heads=16, d_ff=8192)
 # same FLOPs a step as transformer_wide, at head dim 256 (the three
 # kernels' D256 wgmma instances)
 PER_LAYER_D256 = dict(TRAIN, d_model=2048, num_heads=8, d_ff=8192)
-# B8 H8 T2048 D256 causal: the per-layer LM's attention at PER_LAYER_D256
-D256_TRAIN = (8, 8, 2048, 256, True, None)
 # (B, H, T, D, causal, lengths): both training shapes, the serving shape,
 # a ragged T = 1000 with lengths (a fully masked row), a non-causal case;
 # past D = 128 phase 3's D160 and D256 cases and D192 (causal, a fully
@@ -5002,6 +5389,15 @@ def main():
                              "(phase 12a's D256 times, no checks; it runs "
                              "an earlier commit's instances too); prints "
                              "no ok line")
+    parser.add_argument("--stacked-d256-only", action="store_true",
+                        help="build the kernels and run only phase 6b (the "
+                             "stacked LM at head dim 256 trained in f32 and "
+                             "under AMP, and served); prints no ok line")
+    parser.add_argument("--f32-wide-times", action="store_true",
+                        help="build the kernels and only time the f32 "
+                             "flash forward, dq and dkv at head dim 256 "
+                             "(no checks; it runs an earlier commit's "
+                             "instances too); prints no ok line")
     parser.add_argument("--lstm-only", action="store_true",
                         help="build the kernels and run only phase 13 (the "
                              "recurrent rows lstm and lstm_varlen, the "
@@ -5061,6 +5457,22 @@ def main():
         (out / "chip_smoke_bf16_wide_times.json").write_text(json.dumps(
             {"gpu": smi, "times": {rows[0]["shape"]: rows
                                    for rows in wide.values()}}, indent=1))
+        print(smi)
+        return
+    if args.f32_wide_times:
+        times = _f32_wide_times(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_f32_wide_times.json").write_text(json.dumps(
+            {"gpu": smi, "times": times}, indent=1))
+        print(smi)
+        return
+    if args.stacked_d256_only:
+        stacked = stacked_d256_phase(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_stacked_d256.json").write_text(json.dumps(
+            {"gpu": smi, "stacked_d256": stacked}, indent=1))
         print(smi)
         return
     if args.amp_only:
@@ -5155,6 +5567,8 @@ def main():
     bwd = backward_kernel_phase(gpu)
     training = training_phase(bwd, gpu)
     torch.cuda.empty_cache()  # the LM phases' models are gone
+    stacked_d256 = stacked_d256_phase(gpu)
+    torch.cuda.empty_cache()
 
     import paddle_tpu_torch as pt
 
@@ -5177,14 +5591,15 @@ def main():
     recurrent = recurrent_phase()
     torch.cuda.empty_cache()
     zoo_recs, zoo = zoo_phase(gpu)
-    records = [kern] + bwd + conv + amp_recs + per_layer_recs + zoo_recs
+    records = ([kern] + bwd + d256_records(kern, bwd, stacked_d256) + conv
+               + amp_recs + per_layer_recs + zoo_recs)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "kernels": records, "serving": serving, "paged_serving": paged,
-         "training": training,
+         "training": training, "stacked_d256": stacked_d256,
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference,
          "attention_rewrite": attention, "amp": amp,

@@ -20,7 +20,9 @@
 // int32 -> dq [BH, Tq, D], dk/dv [BH, Tk, D]. D is 64 or 128: the
 // wrapper zero-pads any other D <= 128 up to one of them (zero columns
 // change no score and give zero gradient columns). Past 128 it pads D to
-// a multiple of 64 and the wide instances run
+// a multiple of 64: dq runs its split instance at 192 and 256
+// (flash_bwd_dq_tf32x3_split_kernel, below: dq split by D across the
+// warpgroups); dq past 256 and dkv past 128 run the wide instances
 // (flash_bwd_{dq,dkv}_wide_kernel<float>, flash_wide.cuh). Queries count
 // from position 0 for both Tq and Tk, as in the forward.
 //
@@ -127,25 +129,26 @@ __device__ __forceinline__ void load_tile(float* dst,
   load_rows<D, Smem<D>::ST, ROWS, NTHREADS>(dst, src, row0, T);
 }
 
-// s = A0 B0^T, dp = A1 B1^T over D for a warp's 16 rows r0.. of the
-// owned tiles (a0, a1) against a streamed 32-row tile pair (b0, b1)
-template <int D>
-__device__ __forceinline__ void two_products(float (&s)[NT][4],
-                                             float (&dp)[NT][4],
+// s = A0 B0^T, dp = A1 B1^T over D's 8-column steps kk0 .. kk1 - 1 for a
+// warp's 16 rows r0.. of the owned tiles (a0, a1, row stride ST) against
+// a streamed tile pair (b0, b1) of 8 NT rows
+template <int ST, int NT_>
+__device__ __forceinline__ void two_products(float (&s)[NT_][4],
+                                             float (&dp)[NT_][4],
                                              const float* a0, const float* a1,
                                              const float* b0, const float* b1,
-                                             int r0, int g, int t) {
-  constexpr int ST = Smem<D>::ST;
+                                             int r0, int kk0, int kk1, int g,
+                                             int t) {
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < NT_; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < D / 8; ++kk) {
+  for (int kk = kk0; kk < kk1; ++kk) {
     const FragA x0 = load_a<ST>(a0, r0, kk * 8, g, t);
     const FragA x1 = load_a<ST>(a1, r0, kk * 8, g, t);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+    for (int j = 0; j < NT_; ++j) {
       mma3(s[j], x0, load_b_t<ST>(b0, j * 8, kk * 8, g, t));
       mma3(dp[j], x1, load_b_t<ST>(b1, j * 8, kk * 8, g, t));
     }
@@ -229,7 +232,7 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
     // a warp whose rows are past Tq, or wholly above the tile, adds 0
     if (q0 + r0 < Tq && (!causal || k0 <= q0 + r0 + 15)) {
       float s[NT][4], dp[NT][4];
-      two_products<D>(s, dp, qs, dos, ks, vs, r0, g, t);
+      two_products<ST>(s, dp, qs, dos, ks, vs, r0, 0, D / 8, g, t);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -339,7 +342,7 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
     // tile, adds 0
     if (k0 + r0 < length && (!causal || k0 + r0 < q0 + BSTREAM)) {
       float p[NT][4], ds[NT][4];  // S^T, dP^T, then P^T, dS^T
-      two_products<D>(p, ds, ks, vs, qs, dos, r0, g, t);
+      two_products<ST>(p, ds, ks, vs, qs, dos, r0, 0, D / 8, g, t);
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -407,12 +410,196 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// --- dq at head dims 192 and 256: dq, S and dP split by D ------------------
+//
+// At D256 the design above needs 128 registers of dq a thread (a warp's
+// 16 rows) beside S, dP, the fragments and the fresh sums, and Q and dO
+// for 128 rows at stride D + 4 take 266,240 bytes. So a block owns 64 q
+// rows and each warpgroup half of D of all 64 rows' dq: warp w's rows
+// 16 (w % 4) .., its columns D/2 (w / 4) .. (64 registers at D256). Warp
+// w forms S and dP over its half of D and adds warp w ^ 4's partial ones
+// (the same rows), exchanged through shared memory: both then hold the
+// same bits (a + b == b + a), so P and dS agree. Forming S and dP over
+// all of D in both warps instead costs 10 D FLOPs a pair for dq's 6 D and
+// ran 1.31x slower on an H100 (PERF.md §6). dS K runs on the warp's
+// half of K's columns, each tile's a fresh sum added to dq in f32. Shared
+// memory at D256: Q and dO 133,120 bytes + 2 stages x 16-key K and V
+// 33,280 + the exchange 16,384 = 216,064 (166,912 at D192).
+namespace dsplit {
+
+constexpr int BOWN = 64;     // q rows a block owns: both warpgroups all
+constexpr int BSTREAM = 16;  // keys of a streamed K/V tile
+constexpr int NT = BSTREAM / 8;
+
+template <int D>
+struct Smem {
+  static constexpr int ST = D + 4;
+  static constexpr int OWN0 = 0;
+  static constexpr int OWN1 = OWN0 + BOWN * ST;
+  static constexpr int STR0 = OWN1 + BOWN * ST;
+  static constexpr int STR1 = STR0 + 2 * BSTREAM * ST;
+  static constexpr int X = STR1 + 2 * BSTREAM * ST;  // S, dP partials
+  static constexpr int DQ_BYTES = (X + NWARPS * 2 * NT * 4 * 32) * 4;
+  static_assert(DQ_BYTES <= 232448, "past a block's shared memory");
+};
+
+}  // namespace dsplit
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_tf32x3_split_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ di,
+                                 const int* __restrict__ lens,
+                                 float* __restrict__ dq, int Tq, int Tk,
+                                 int causal, float sm_scale) {
+  using L = dsplit::Smem<D>;
+  constexpr int ST = L::ST, BQ2 = dsplit::BOWN, BK2 = dsplit::BSTREAM;
+  constexpr int NT2 = dsplit::NT, HALF = D / 2;
+  extern __shared__ __align__(16) float smem[];
+  const float* qs = smem + L::OWN0;
+  const float* dos = smem + L::OWN1;
+
+  const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;  // the warpgroup: dq columns HALF wg ..
+  const int g = (threadIdx.x % 32) >> 2;
+  const int t = threadIdx.x & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ2;
+  const size_t qoff = (size_t)bh * Tq * D;
+  const size_t koff = (size_t)bh * Tk * D;
+
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + BK2 - 1) / BK2;
+  if (causal) {
+    const int last = min(q0 + BQ2, Tq);  // exclusive bound on q_pos
+    n_tiles = min(n_tiles, (last + BK2 - 1) / BK2);
+  }
+
+  if (n_tiles > 0) {
+    load_rows<D, ST, BQ2, NTHREADS>(smem + L::OWN0, q + qoff, q0, Tq);
+    load_rows<D, ST, BQ2, NTHREADS>(smem + L::OWN1, dout + qoff, q0, Tq);
+    load_rows<D, ST, BK2, NTHREADS>(smem + L::STR0, k + koff, 0, Tk);
+    load_rows<D, ST, BK2, NTHREADS>(smem + L::STR1, v + koff, 0, Tk);
+    cp_async_commit();
+  }
+
+  const int r0 = (warp % 4) * 16;  // the warp's rows in the q tile
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};  // this thread's rows
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < Tq;
+    lse_r[h] = in ? lse[(size_t)bh * Tq + row[h]] : INFINITY;
+    di_r[h] = in ? di[(size_t)bh * Tq + row[h]] : 0.f;
+  }
+
+  float acc[HALF / 8][4];
+#pragma unroll
+  for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i & 1;
+    if (i + 1 < n_tiles) {  // the next tile's copy overlaps this one
+      const int nxt = (stage ^ 1) * BK2 * ST;
+      load_rows<D, ST, BK2, NTHREADS>(smem + L::STR0 + nxt, k + koff,
+                                      (i + 1) * BK2, Tk);
+      load_rows<D, ST, BK2, NTHREADS>(smem + L::STR1 + nxt, v + koff,
+                                      (i + 1) * BK2, Tk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and the owned tiles) have landed
+    __syncthreads();
+
+    const int k0 = i * BK2;
+    const float* ks = smem + L::STR0 + stage * BK2 * ST;
+    const float* vs = smem + L::STR1 + stage * BK2 * ST;
+    // a warp whose rows are past Tq, or wholly above the tile, adds 0
+    const bool live = q0 + r0 < Tq && (!causal || k0 <= q0 + r0 + 15);
+    // S and dP over this warpgroup's half of D, the other half's from
+    // warp ^ 4 (the same rows and liveness)
+    float s[NT2][4], dp[NT2][4];
+    two_products<ST>(s, dp, qs, dos, ks, vs, r0, wg * D / 16,
+                     live ? (wg + 1) * D / 16 : wg * D / 16, g, t);
+    {
+      float* x = smem + L::X;
+      const int lane = threadIdx.x % 32;
+#pragma unroll
+      for (int j = 0; j < NT2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[(warp * 2 * NT2 * 4 + 4 * j + e) * 32 + lane] = s[j][e];
+          x[(warp * 2 * NT2 * 4 + NT2 * 4 + 4 * j + e) * 32 + lane] =
+              dp[j][e];
+        }
+      __syncthreads();
+      const int p = (warp ^ 4) * 2 * NT2 * 4;
+#pragma unroll
+      for (int j = 0; j < NT2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] += x[(p + 4 * j + e) * 32 + lane];
+          dp[j][e] += x[(p + NT2 * 4 + 4 * j + e) * 32 + lane];
+        }
+    }
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NT2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // s becomes dS
+          const int h = e >> 1;
+          const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+          const bool vis = k_pos < length && row[h] < Tq &&
+                           (!causal || row[h] >= k_pos);
+          const float p = vis ? expf(s[j][e] * sm_scale - lse_r[h]) : 0.f;
+          s[j][e] = p * (dp[j][e] - di_r[h]);
+        }
+      accumulate<ST>(acc, s, ks + wg * HALF, g, t);  // dq += dS K
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  float* dqp = dq + qoff + wg * HALF;
+#pragma unroll
+  for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < Tq)
+        *reinterpret_cast<float2*>(dqp + (size_t)row[h] * D + n * 8 + 2 * t) =
+            make_float2(acc[n][2 * h] * sm_scale,
+                        acc[n][2 * h + 1] * sm_scale);
+}
+
+template <int D>
+cudaError_t launch_dq_split(const float* q, const float* k, const float* v,
+                            const float* dout, const float* lse,
+                            const float* di, const int* lens, float* dq,
+                            int BH, int Tq, int Tk, int causal,
+                            float sm_scale, cudaStream_t stream) {
+  const int smem_bytes = dsplit::Smem<D>::DQ_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tf32x3_split_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + dsplit::BOWN - 1) / dsplit::BOWN);
+  flash_bwd_dq_tf32x3_split_kernel<D>
+      <<<grid, NTHREADS, smem_bytes, stream>>>(
+          q, k, v, dout, lse, di, lens, dq, Tq, Tk, causal, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
 // a cudaError_t (0 = launched). D is 64, 128 or a multiple of 64 above 128
-// (the wide instances).
+// (dq: the split instances at 192 and 256; the wide ones past that, and
+// dkv's past 128).
 extern "C" int paddle_flash_attention_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* di, const int* lens, float* dq, int BH,
@@ -426,6 +613,12 @@ extern "C" int paddle_flash_attention_bwd_dq_f32(
     case 128:
       return (int)launch_dq<128>(q, k, v, dout, lse, di, lens, dq, BH, Tq, Tk,
                                  causal, sm_scale, s);
+    case 192:
+      return (int)launch_dq_split<192>(q, k, v, dout, lse, di, lens, dq, BH,
+                                       Tq, Tk, causal, sm_scale, s);
+    case 256:
+      return (int)launch_dq_split<256>(q, k, v, dout, lse, di, lens, dq, BH,
+                                       Tq, Tk, causal, sm_scale, s);
     default:
       if (D > 128 && D % wide::DC == 0)
         return (int)launch_dq_wide<float>(q, k, v, dout, lse, di, lens, dq,
@@ -464,6 +657,10 @@ extern "C" int paddle_flash_attention_bwd_smem_bytes(int dkv, int D) {
       return dkv ? Smem<64>::DKV_BYTES : Smem<64>::DQ_BYTES;
     case 128:
       return dkv ? Smem<128>::DKV_BYTES : Smem<128>::DQ_BYTES;
+    case 192:
+      return dkv ? wide::DKV_BYTES : dsplit::Smem<192>::DQ_BYTES;
+    case 256:
+      return dkv ? wide::DKV_BYTES : dsplit::Smem<256>::DQ_BYTES;
     default:
       if (D > 128 && D % wide::DC == 0)
         return dkv ? wide::DKV_BYTES : wide::DQ_BYTES;

@@ -13,9 +13,11 @@
 // q [BH, Tq, D], k/v [BH, Tk, D], len [BH] int32 -> o [BH, Tq, D],
 // lse [BH, Tq] f32. D is 64 or 128: the wrapper zero-pads any other
 // D <= 128 up to one of them (zero columns change no score and give zero
-// output columns). Past 128 it pads D to a multiple of 64 and the wide
-// instance runs (flash_fwd_wide_kernel<float>, flash_wide.cuh). The
-// denominator is max(l, 1e-30).
+// output columns). Past 128 it pads D to a multiple of 64: at 192 and 256
+// the split instance below runs (flash_fwd_tf32x3_split_kernel: O split
+// by D across the warpgroups), past 256 the wide one
+// (flash_fwd_wide_kernel<float>, flash_wide.cuh). The denominator is
+// max(l, 1e-30).
 //
 // Layout on the card, and why it differs from the TPU kernel:
 // - One block of two warpgroups (8 warps) per (bh, 128-row q tile); bh on
@@ -349,12 +351,273 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// --- head dims 192 and 256: O and S split by D across the warpgroups -----
+//
+// The D128 design does not fit at D256: Q's hi and lo for 128 rows would
+// take 262,144 bytes of shared memory, and O for a warp's 16 rows 128
+// registers a thread beside the fresh sums, P's fragments and the K
+// chunks in flight. So a block owns 64 q rows, and each warpgroup owns
+// half of D of all 64 rows' O: warp w's 16 rows are rows 16 (w % 4) ..,
+// its columns D/2 (w / 4) .. (64 registers of O at D256, the D128
+// budget). Each warpgroup forms S = Q K^T for all 64 rows over its own
+// half of D (wgmma.m64n16k8, Q's and K's hi/lo in the 128-byte swizzle
+// as above), and the two halves meet through shared memory: warp w adds
+// warp w ^ 4's partial S (the same rows, the same fragment layout) to its
+// own, and since a + b == b + a both hold the same bits, so the row max
+// and the denominator agree too. The exchange goes through the tile's K
+// stage, free once both warpgroups' products have read it: two more
+// barriers a tile. Forming all of S in both warpgroups instead, with no
+// exchange, costs 1.5x the forward's 4 D FLOPs a pair and ran 1.23x
+// slower on an H100 (PERF.md §6). P V runs as above on the
+// warpgroup's half of V's columns, each tile's P V a fresh sum added to
+// O in f32. Shared memory at D256: Q hi/lo 131,072 bytes + 2 stages x
+// (16-key K hi/lo 32,768 + V 16,640) = 229,888 of the 232,448 a block may
+// have: the ring narrows to 16 keys a stage (32 would leave room for one
+// stage only). At D192 the same tiles take 172,544 bytes.
+namespace dsplit {
+
+constexpr int BQ = 64;  // q rows a block owns: every warpgroup all of them
+constexpr int BK = 16;  // keys a ring stage holds
+constexpr int NT = BK / 8;
+constexpr int STAGES = 2;
+
+template <int D>
+struct Tile {
+  static constexpr int NA = D / 32;
+  static constexpr int Q_ATOM = BQ * 128;
+  static constexpr int K_ATOM = BK * 128;
+  static constexpr int QHI = 0;
+  static constexpr int QLO = QHI + NA * Q_ATOM;
+  static constexpr int K = QLO + NA * Q_ATOM;  // stage s: hi, then lo
+  static constexpr int K_STAGE = 2 * NA * K_ATOM;
+  static constexpr int VST = D + 4;
+  static constexpr int V = K + STAGES * K_STAGE;
+  static constexpr int V_STAGE = BK * VST * 4;
+  static constexpr int BYTES = V + STAGES * V_STAGE;
+  static constexpr int KV4 = BK * D / 4 / NTHREADS;
+  static constexpr int Q4 = BQ * D / 4 / NTHREADS;
+  static_assert(BK * D / 4 % NTHREADS == 0 && BQ * D / 4 % NTHREADS == 0,
+                "tiles must split evenly");
+  static_assert(BYTES <= 232448, "past a block's shared memory");
+};
+
+}  // namespace dsplit
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_tf32x3_split_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const int* __restrict__ lens,
+                              float* __restrict__ o, float* __restrict__ lse,
+                              int Tq, int Tk, int causal, float sm_scale) {
+  using L = dsplit::Tile<D>;
+  constexpr int BQ2 = dsplit::BQ, BK2 = dsplit::BK, NT2 = dsplit::NT;
+  constexpr int HALF = D / 2;
+  extern __shared__ __align__(1024) char smem[];
+
+  const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;  // the warpgroup: O columns HALF wg ..
+  const int g = (threadIdx.x % 32) >> 2;
+  const int t = threadIdx.x & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ2;
+  const size_t qoff = (size_t)bh * Tq * D;
+  const size_t koff = (size_t)bh * Tk * D;
+
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + BK2 - 1) / BK2;
+  if (causal) {
+    const int last = min(q0 + BQ2, Tq);  // exclusive bound on q_pos
+    n_tiles = min(n_tiles, (last + BK2 - 1) / BK2);
+  }
+
+  float4 kreg[L::KV4];
+  auto fetch_k = [&](int i) {
+#pragma unroll
+    for (int j = 0; j < L::KV4; ++j) {
+      int r, c4;
+      chunk_of<D>(j, r, c4);
+      kreg[j] = fetch<D>(k + koff, i * BK2, Tk, r, c4);
+    }
+  };
+  auto store_k = [&](int i) {
+    char* hi = smem + L::K + (i % dsplit::STAGES) * L::K_STAGE;
+#pragma unroll
+    for (int j = 0; j < L::KV4; ++j) {
+      int r, c4;
+      chunk_of<D>(j, r, c4);
+      store_split(hi, hi + L::NA * L::K_ATOM, sw_offset(r, c4, L::K_ATOM),
+                  kreg[j]);
+    }
+  };
+  auto load_v = [&](int i) {
+    load_rows<D, L::VST, BK2, NTHREADS>(
+        reinterpret_cast<float*>(smem + L::V +
+                                 (i % dsplit::STAGES) * L::V_STAGE),
+        v + koff, i * BK2, Tk);
+  };
+  if (n_tiles > 0) {
+#pragma unroll 4
+    for (int j = 0; j < L::Q4; ++j) {
+      int r, c4;
+      chunk_of<D>(j, r, c4);
+      const float4 x = fetch<D>(q + qoff, q0, Tq, r, c4);
+      store_split(smem + L::QHI, smem + L::QLO, sw_offset(r, c4, L::Q_ATOM),
+                  x);
+    }
+    fetch_k(0);
+    store_k(0);
+    load_v(0);
+    cp_async_commit();
+  }
+
+  const int r0 = (warp % 4) * 16;  // the warp's rows in the q tile
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};  // this thread's rows
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[HALF / 8][4];
+#pragma unroll
+  for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // descriptors of Q's 64 rows (hi, lo), atom 0
+  const uint64_t dq_hi =
+      sw128_desc(reinterpret_cast<const float*>(smem + L::QHI));
+  const uint64_t dq_lo = dq_hi + ((L::QLO - L::QHI) >> 4);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    const bool more = i + 1 < n_tiles;
+    if (more) {  // the next tile's copies overlap this tile's products
+      fetch_k(i + 1);
+      load_v(i + 1);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // this tile's V has landed
+    fence_proxy_async();  // this thread's K (and Q) stores, for wgmma
+    __syncthreads();
+
+    const int k0 = i * BK2;
+    const float* vs = reinterpret_cast<const float*>(
+        smem + L::V + (i % dsplit::STAGES) * L::V_STAGE);
+    float s[NT2][4];
+    float(&sd)[8] = *reinterpret_cast<float(*)[8]>(&s[0][0]);
+    const uint64_t dk_hi = sw128_desc(reinterpret_cast<const float*>(
+        smem + L::K + (i % dsplit::STAGES) * L::K_STAGE));
+    const uint64_t dk_lo = dk_hi + ((L::NA * L::K_ATOM) >> 4);
+    // this warpgroup's half of D: k-steps of 8, whole 32-column atoms
+    constexpr int KSTEPS = D / 16;
+    const int atom0 = wg * KSTEPS / 4;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const uint64_t qa =
+          (atom0 + kk / 4) * (L::Q_ATOM >> 4) + (kk % 4) * 2;
+      const uint64_t ka =
+          (atom0 + kk / 4) * (L::K_ATOM >> 4) + (kk % 4) * 2;
+      wgmma_m64n16_ss(sd, dq_lo + qa, dk_hi + ka, kk > 0);  // 0: fresh
+      wgmma_m64n16_ss(sd, dq_hi + qa, dk_lo + ka, 1);
+      wgmma_m64n16_ss(sd, dq_hi + qa, dk_hi + ka, 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sd);
+    {  // the other half's S from warp ^ 4, through this stage's K tiles
+      float* x = reinterpret_cast<float*>(
+          smem + L::K + (i % dsplit::STAGES) * L::K_STAGE);
+      const int lane = threadIdx.x % 32;
+      __syncthreads();  // both warpgroups' products have read the stage
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[(warp * 8 + e) * 32 + lane] = sd[e];
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < 8; ++e) sd[e] += x[((warp ^ 4) * 8 + e) * 32 + lane];
+    }
+
+    // a warp whose rows are wholly above the tile adds 0
+    if (!causal || k0 <= q0 + r0 + 15) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NT2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+          const bool live = k_pos < length && (!causal || row[h] >= k_pos);
+          s[j][e] = live ? s[j][e] * sm_scale : -INFINITY;
+          mx[h] = fmaxf(mx[h], s[j][e]);
+        }
+      float m_safe[2], alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[h] = m[h] == -INFINITY ? 0.f : expf(m[h] - m_safe[h]);
+        m[h] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[j][e] - m_safe[e >> 1]);  // masked: 0
+          s[j][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l[h] = l[h] * alpha[h] + sum[h];
+      }
+#pragma unroll
+      for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      accumulate<L::VST>(acc, s, vs + wg * HALF, g, t);  // O += P V
+    }
+    if (more) store_k(i + 1);  // into the stage tile i - 1 used
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  float* op = o + qoff + wg * HALF;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= Tq) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < HALF / 8; ++n)
+      *reinterpret_cast<float2*>(op + (size_t)row[h] * D + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+    if (wg == 0 && t == 0)
+      lse[(size_t)bh * Tq + row[h]] =
+          l[h] > 0.f ? m[h] + logf(fmaxf(l[h], 1e-30f)) : INFINITY;
+  }
+}
+
+template <int D>
+cudaError_t launch_split(const float* q, const float* k, const float* v,
+                         const int* lens, float* o, float* lse, int BH,
+                         int Tq, int Tk, int causal, float sm_scale,
+                         cudaStream_t stream) {
+  const int smem_bytes = dsplit::Tile<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32x3_split_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + dsplit::BQ - 1) / dsplit::BQ);
+  flash_fwd_tf32x3_split_kernel<D><<<grid, NTHREADS, smem_bytes, stream>>>(
+      q, k, v, lens, o, lse, Tq, Tk, causal, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; returns a
-// cudaError_t (0 = launched). D is 64, 128 or a multiple of 64 above 128
-// (the wide instance).
+// cudaError_t (0 = launched). D is 64, 128, 192, 256 or a multiple of 64
+// above 256 (the wide instance).
 extern "C" int paddle_flash_attention_fwd_f32(
     const float* q, const float* k, const float* v, const int* lens,
     float* o, float* lse, int BH, int Tq, int Tk, int D, int causal,
@@ -368,6 +631,12 @@ extern "C" int paddle_flash_attention_fwd_f32(
     case 128:
       return (int)launch<128>(q, k, v, lens, o, lse, BH, Tq, Tk, causal,
                               sm_scale, s);
+    case 192:
+      return (int)launch_split<192>(q, k, v, lens, o, lse, BH, Tq, Tk,
+                                    causal, sm_scale, s);
+    case 256:
+      return (int)launch_split<256>(q, k, v, lens, o, lse, BH, Tq, Tk,
+                                    causal, sm_scale, s);
     default:
       if (D > 128 && D % wide::DC == 0)
         return (int)launch_fwd_wide<float>(q, k, v, lens, o, lse, BH, Tq, Tk,
@@ -384,6 +653,10 @@ extern "C" int paddle_flash_attention_fwd_smem_bytes(int D) {
       return Tile<64>::BYTES;
     case 128:
       return Tile<128>::BYTES;
+    case 192:
+      return dsplit::Tile<192>::BYTES;
+    case 256:
+      return dsplit::Tile<256>::BYTES;
     default:
       return D > 128 && D % wide::DC == 0 ? wide::FWD_BYTES : -1;
   }

@@ -113,6 +113,21 @@ __device__ __forceinline__ void wgmma_m64n32_ss(float (&d)[16],
     : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// the same with B [8, 16]: d holds 2 groups
+__device__ __forceinline__ void wgmma_m64n16_ss(float (&d)[8],
+                                                uint64_t desc_a,
+                                                uint64_t desc_b,
+                                                int scale_d) {
+  asm volatile(
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+    "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+    "%0, %1, %2, %3, %4, %5, %6, %7"
+    "}, %8, %9, p, 1, 1;\n}\n"
+    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+    : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // generic-proxy writes to shared memory (st.shared) become visible to the
 // async proxy that wgmma reads through; then a barrier
 __device__ __forceinline__ void fence_proxy_async() {

@@ -46,8 +46,12 @@ a multiple of 64. In bf16 all three kernels run it on ``wgmma`` up to
 256 (their instances at 192 and 256: the forward and dq with one
 accumulator as wide as D and K/V tiles narrowed to fit; dkv with 64
 owned keys shared by both consumer warpgroups, each forming P^T and dS^T
-for half the queries and accumulating dK and dV for its boxes of D);
-past that, and in f32 past 128, the wide instances run
+for half the queries and accumulating dK and dV for its boxes of D). In
+f32 the forward and dq run 192 and 256 on the tensor cores as 3xTF32:
+64 q rows a block, 16-key tiles, each warpgroup owning half of D of the
+output and forming S (and dP) over that half, the partial products
+exchanged through shared memory. Past 256, and the f32
+dkv past 128, the wide instances run
 (``csrc/flash_wide.cuh``): every product over D sums 64-column chunks
 staged through shared memory, and each output's D axis is cut into
 128-wide slices on the grid's z axis, each block
@@ -290,12 +294,14 @@ def _aligned(t):
 
 
 # the head dims the tensor-core kernels are built for; the wrappers pad
-# up to them, and past the last one to a multiple of _WIDE_D (the wide
+# up to them, and past the last one to a multiple of _WIDE_D (192 and 256
+# on the tensor cores where _TENSOR_CORE_HEAD_DIM says so, else the wide
 # instances)
 KERNEL_HEAD_DIMS = (64, 128)
 _WIDE_D = 64
 # rows of a q/k tile: the tiles lie on the grid's y axis (limit 65535);
-# past D = 128 the wide dkv and the bf16 dkv own 64 keys a block
+# past D = 128 the f32 forward and dq own 64 q rows a block, the wide
+# instances and the bf16 dkv 64 rows
 _TILE_ROWS = 128
 _WIDE_TILE_ROWS = 64
 
@@ -312,10 +318,16 @@ def _kernel_head_dim(D):
     return -(-D // _WIDE_D) * _WIDE_D
 
 
-# the largest padded head dim of each bf16 kernel's ``wgmma`` instances
-# (csrc/flash_attention_bf16.cu); past it, and in f32 past the last of
-# KERNEL_HEAD_DIMS, a kernel runs its wide instances
-_BF16_WGMMA_HEAD_DIM = {"fwd": 256, "dq": 256, "dkv": 256}
+# the largest padded head dim of each kernel's tensor-core instances, by
+# dtype: in f32 the forward and dq run 192 and 256 as 3xTF32 with D split
+# across the warpgroups (csrc/flash_attention_{fwd,bwd}.cu), dkv stops at
+# 128; in bf16 all three run 192 and 256 on ``wgmma``
+# (csrc/flash_attention_bf16.cu). Past it a kernel runs its wide
+# instances.
+_TENSOR_CORE_HEAD_DIM = {
+    torch.float32: {"fwd": 256, "dq": 256, "dkv": 128},
+    torch.bfloat16: {"fwd": 256, "dq": 256, "dkv": 256},
+}
 
 
 def _kernel_instance(D, dtype, kind):
@@ -323,16 +335,16 @@ def _kernel_instance(D, dtype, kind):
     or "dkv") that takes head dim D in ``dtype``: D padded as
     ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
     that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
-    CUDA cores) rather than one on the tensor cores: in f32 past 128, in
-    bf16 past 256."""
+    CUDA cores) rather than one on the tensor cores: past 256, and in
+    f32 dkv past 128."""
     kd = _kernel_head_dim(D)
-    top = (_BF16_WGMMA_HEAD_DIM[kind] if dtype == torch.bfloat16
-           else KERNEL_HEAD_DIMS[-1])
-    return kd, kd > top
+    return kd, kd > _TENSOR_CORE_HEAD_DIM[dtype][kind]
 
 
 def _max_t(D):
-    """The longest sequence the grid's y axis holds at head dim D."""
+    """The longest sequence the grid's y axis holds at head dim D (past
+    128 the f32 forward and dq, the wide instances and the bf16 dkv own
+    64 rows a block)."""
     rows = _TILE_ROWS if D <= KERNEL_HEAD_DIMS[-1] else _WIDE_TILE_ROWS
     return 65535 * rows
 

@@ -1,18 +1,21 @@
 """Head dims past 128 on the port's CUDA route: the flash kernels' wide
 instances.
 
-On a CUDA tensor a head dim D > 128 is zero-padded to a multiple of 64 and
-runs the wide instances (``csrc/flash_wide.cuh``): every product that sums
-over D (S = QK^T, dP = dO V^T) accumulates 64-column chunks, and each
-output's D axis is cut into 128-wide slices on the grid's z axis, each
-block recomputing S for its own slice. Here that decomposition is emulated
-on the CPU (64-row tiles, chunk sums in order, an online softmax per slice,
-the dkv loop starting at the causal bound) and held against the JAX
-package's Pallas forward and backward kernels in interpret mode at D = 160
-and 256, causal and ragged with a fully masked row; the slices' lse must
-agree bitwise. The launch wiring is checked with the kernel entries
-swapped for their plain versions, and the input checks on meta tensors.
-Inputs come from a numpy seed; f32 throughout, atol = rtol = 1e-5.
+On a CUDA tensor a head dim D > 128 is zero-padded to a multiple of 64.
+Past 256 (and in f32 for dkv past 128) it runs the wide instances
+(``csrc/flash_wide.cuh``): every product that sums over D (S = QK^T,
+dP = dO V^T) accumulates 64-column chunks, and each output's D axis is
+cut into 128-wide slices on the grid's z axis, each block recomputing S
+for its own slice. Here that decomposition is emulated on the CPU (64-row
+tiles, chunk sums in order, an online softmax per slice, the dkv loop
+starting at the causal bound) and held against the JAX package's Pallas
+forward and backward kernels in interpret mode at D = 320 (a last slice
+64 wide) and 512, causal and ragged with a fully masked row; the slices'
+lse must agree bitwise. (The f32 forward and dq at 129-256 run on the
+tensor cores: ``tests/test_torch_flash_f32_wide_tiles.py``.) The launch
+wiring is checked with the kernel entries swapped for their plain
+versions, and the input checks on meta tensors. Inputs come from a numpy
+seed; f32 throughout, atol = rtol = 1e-5.
 """
 import math
 
@@ -27,7 +30,8 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-5)
-WIDE_DIMS = [160, 256]
+WIDE_DIMS = [320, 512]  # wide in f32 for all three kernels
+ROUTE_DIMS = [160, 256]  # padded to 192 and 256
 BT, DC, DS = 64, 64, 128  # tile rows, D chunk, D slice (flash_wide.cuh)
 # (B, H, T, causal, lengths); T = 80 leaves a ragged second 64-row tile,
 # and a length of 0 is a fully masked row
@@ -177,8 +181,8 @@ def test_wide_forward_matches_pallas_forward_interpret(case, D):
     want_o, want_lse = _jax_forward(q, k, v, lens, causal, sm)
     o, lse, slice_lse = _wide_forward(
         *(torch.from_numpy(a) for a in (q, k, v)), lens, causal, sm)
-    assert len(slice_lse) == 2 and all(torch.equal(x, slice_lse[0])
-                                       for x in slice_lse)
+    assert len(slice_lse) == -(-D // DS) and all(
+        torch.equal(x, slice_lse[0]) for x in slice_lse)
     np.testing.assert_allclose(o.numpy(), want_o, **TOL)
     fin = np.isfinite(want_lse)
     assert np.array_equal(np.isfinite(lse.numpy()), fin)
@@ -221,15 +225,15 @@ def test_kernel_checks_take_head_dims_past_128(D):
 
 
 def test_wide_kernel_checks_refuse_sequences_past_the_grid():
-    """The wide instances' tiles are 64 rows: 65535 of them on the grid's
-    y axis at most."""
+    """Past 128 the tiles are 64 rows (the wide instances' and the f32
+    forward's and dq's): 65535 of them on the grid's y axis at most."""
     q, k, v, _ = _meta(1, 1, 65535 * 64 + 1, 192)
     with pytest.raises(ValueError, match="grid's y limit"):
         tfa._check_kernel_inputs(q, k, v)
     tfa._check_kernel_inputs(*(t[:, :, :65535 * 64] for t in (q, k, v)))
 
 
-@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("D", ROUTE_DIMS)
 def test_cuda_route_pads_wide_head_dims_and_slices_back(D, monkeypatch):
     """flash_forward, flash_backward, flash_dq and flash_dkv on the CUDA
     route hand the kernel D padded to a multiple of 64, count the backward
