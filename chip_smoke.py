@@ -66,16 +66,17 @@ Phases, each fatal on failure (nonzero exit, no result line):
 5. Backward kernels: the flash dq and dkv kernels against their plain
    versions at the training shape (B8 H8 T2048 D128 causal), the serving
    shape, a ragged case with a fully masked row and the head dims past
-   128 of phase 3 (dq on the tensor cores at 192 and 256, dkv on the
-   wide instance past 128); two launches of each at the training shape,
+   128 of phase 3 (both on the tensor cores at 192 and 256, on the wide
+   instances past 256); two launches of each at the training shape,
    at B2 H4 T1000 D256 and at B8 H8 T2048 D256 must be bitwise equal (no
    atomics). Prints each kernel's registers, spills (none allowed) and
-   shared memory and dq's tensor-core opcodes at 192 and 256 (HMMA),
-   then times them beside their plain versions and their bounds, and the
-   pair in turns with the backward of ``F.scaled_dot_product_attention``
-   (its backend pinned and recorded): pair, SDPA, SDPA, pair; at both
-   D256 shapes dq in turns with SDPA's backward, dkv once, beside the
-   wide FMA instances' earlier times.
+   shared memory and both kernels' tensor-core opcodes at 192 and 256
+   (HMMA), then times them beside their plain versions and their bounds,
+   and the pair in turns with the backward of
+   ``F.scaled_dot_product_attention`` (its backend pinned and recorded):
+   pair, SDPA, SDPA, pair; at both D256 shapes dq, dkv and the pair in
+   turns with SDPA's backward, beside the wide FMA instances' earlier
+   times.
 6. Training: the d1024/L8/H8/V16384 LM (d_ff 4096, batch 8 x 2048
    tokens, f32, Adam lr 1e-4) built with the port's ``layers`` and
    ``models.transformer_lm(pipeline_stack=True)``, trained through
@@ -88,8 +89,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    8192 (transformer_wide's width with 8 heads of 256, as 12d), the same
    batch and optimizer. In f32: step 1 with the kernels against the plain
    path (loss and every gradient, as phase 6), 8 launches a step of the
-   flash forward and dq on their D256 tensor-core instances and none on
-   the wide ones, 8 of dkv on its wide instance, falling losses, step ms,
+   flash forward, dq and dkv on their D256 tensor-core instances and none
+   on the wide ones, falling losses, step ms,
    tokens/s, the share of the f32 peak, peak memory and device time by
    kernel (``chiprun_out/stacked_d256_f32_profile.txt``). Built again
    under AMP with the same names from the same startup state: step-1 loss
@@ -434,9 +435,9 @@ PAD_CASES = [
 ]
 
 # head dims past 128 (D zero-padded to a multiple of 64). In f32 the
-# forward and dq run their tensor-core instances at 192 and 256 (D160 and
-# D192 pad to 192), dkv its wide instance (outputs in 128-column slices on
-# the grid's z axis); past 256 all three run the wide ones. Causal with a
+# forward, dq and dkv run their tensor-core instances at 192 and 256 (D160
+# and D192 pad to 192); past 256 all three run the wide ones (outputs in
+# 128-column slices on the grid's z axis). Causal with a
 # fully masked row at D160, D192 and D256, the stacked LM's attention at
 # head dim 256 (D256_TRAIN), and the wide route at D320 and D512. Phase 3
 # holds the forward, phase 5 dq and dkv against their plain versions; both
@@ -458,17 +459,18 @@ WIDE_CASES = [
 # (the same at every D)
 WIDE_D = 320
 # the f32 instances at 192 and 256 on the tensor cores: in SASS, HMMA
-# (P V, dS K and dq's S, dP on mma.sync) and, for the forward, HGMMA
-# (S on wgmma)
+# (P V, dS K, dS^T Q, P^T dO and the backward's S, dP on mma.sync) and,
+# for the forward, HGMMA (S on wgmma)
 F32_SPLIT_SASS = tuple(f"flash_{k}_tf32x3_split_kernel<{d}>"
-                       for k in ("fwd", "bwd_dq") for d in (192, 256))
+                       for k in ("fwd", "bwd_dq", "bwd_dkv")
+                       for d in (192, 256))
 # the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
-# the f32 forward, dq and dkv ran at WIDE_TIMED and D256_TRAIN before the
-# forward and dq took their tensor-core instances there, on an NVIDIA H100
-# 80GB HBM3 at 700 W (``--f32-wide-times`` on the commit before, once);
-# dkv still runs the wide instance there
-F32_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.514, 0.833, 0.647),
-                        D256_TRAIN: (8.264, 13.977, 19.722)}
+# the f32 forward, dq and dkv ran at WIDE_TIMED and D256_TRAIN before
+# they took their tensor-core instances there, on an NVIDIA H100 80GB
+# HBM3 at 700 W (``--f32-wide-times`` once on the commit before each: the
+# forward's and dq's before their split instances, dkv's before its)
+F32_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.514, 0.833, 0.705),
+                        D256_TRAIN: (8.264, 13.977, 19.210)}
 
 
 def _case_text(B, H, T, D, causal, lengths):
@@ -1190,10 +1192,10 @@ def backward_kernel_phase(gpu_name):
 
 def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
     """dq and dkv past head dim 128 at one shape: two launches of each
-    bitwise equal; dq timed in turns with SDPA's f32 backward (its backend
-    pinned: dq, library, library, dq), dkv once, each beside its plain
-    version, its bound and the wide FMA instance's earlier time
-    (F32_WIDE_PREVIOUS_MS)."""
+    bitwise equal; dq, dkv and the pair timed in turns with SDPA's f32
+    backward (its backend pinned: kernels, library, library, kernels),
+    each kernel beside its plain version, its bound and the wide FMA
+    instance's earlier time (F32_WIDE_PREVIOUS_MS)."""
     import torch
 
     assert lengths is None and causal
@@ -1213,16 +1215,27 @@ def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
         assert all(torch.equal(a, b) for a, b in zip(first, second)), (
             f"two {name} launches at D{D} on the same inputs differ")
         del first, second
-    turns, lib_turns = [_cuda_ms(kernels["dq"], iters=10)], []
-    for _ in range(2):
-        lib, backend = _sdpa_backward_ms(F, q, k, v, do)
-        lib_turns.append(lib)
-    turns.append(_cuda_ms(kernels["dq"], iters=10))
+
+    def pair():
+        kernels["dq"]()
+        kernels["dkv"]()
+
+    runs = dict(kernels, pair=pair)
+    turns = {name: [] for name in runs}
+    lib_turns = []
+    for turn in range(2):
+        for name, fn in runs.items():
+            turns[name].append(_cuda_ms(fn, iters=10))
+        if not turn:
+            for _ in range(2):
+                lib, backend = _sdpa_backward_ms(F, q, k, v, do)
+                lib_turns.append(lib)
     library_ms = sum(lib_turns) / 2
-    times = {"dq": sum(turns) / 2, "dkv": _cuda_ms(kernels["dkv"], iters=10)}
+    times = {name: sum(t) / 2 for name, t in turns.items()}
     shape = f"B{B} H{H} T{T} D{D} causal f32"
     out = {}
-    for i, (name, ms) in enumerate(times.items()):
+    for i, name in enumerate(kernels):
+        ms = times[name]
         plain_ms = _cuda_ms(plain[name], iters=5)
         flops, nbytes = _backward_work(name, B, H, T, T, D, True, None)
         bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name)
@@ -1237,22 +1250,21 @@ def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                      "tflop_per_s": flops / ms / 1e9,
                      "bound_share": bound_ms / ms, "wide": wide,
-                     "previous_ms": was}
-        if name == "dq":
-            out[name]["turns_ms"] = turns
-            out[name]["library_turns_ms"] = lib_turns
+                     "previous_ms": was, "turns_ms": turns[name],
+                     "pair_turns_ms": turns["pair"],
+                     "library_turns_ms": lib_turns}
         print(f"flash_attention_bwd_{name} ({'wide' if wide else 'tensor cores'})"
               f" {shape}: two launches bitwise equal; {ms:.3f} ms"
-              + (f" (in turns {[round(x, 4) for x in turns]})"
-                 if name == "dq" else "")
-              + f", {flops / ms / 1e9:.1f} TFLOP/s, "
+              f" (in turns {[round(x, 4) for x in turns[name]]})"
+              f", {flops / ms / 1e9:.1f} TFLOP/s, "
               f"{bound_ms / ms * 100:.1f}% of the bound {bound_ms:.4f} ms "
               f"({bound_by}; {bound_simt:.4f} at the CUDA cores' f32 rate); "
               f"plain {plain_ms:.3f} ms; was {_ms_text(was)} on the wide FMA "
               f"instance")
-    print(f"flash_attention_bwd {shape}: SDPA backward ({backend}) "
-          f"{[round(x, 4) for x in lib_turns]} ms for the pair; dq + dkv "
-          f"{times['dq'] + times['dkv']:.3f} ms")
+    print(f"flash_attention_bwd {shape}: in turns, dq + dkv "
+          f"{[round(x, 4) for x in turns['pair']]} ms and SDPA backward "
+          f"({backend}) {[round(x, 4) for x in lib_turns]} ms: pair / SDPA "
+          f"{times['pair'] / library_ms:.3f}")
     return out
 
 
@@ -1715,23 +1727,23 @@ def training_phase(records, gpu_name):
 
 # Phase 6b: phase 6's stacked LM at transformer_wide's width with 8 heads
 # of 256 (d2048 L8 H8, d_ff 8192, as phase 12d; Gemma 7B's head dim):
-# every attention runs the f32 flash forward and dq on their D256
-# tensor-core instances and dkv on its wide one, in f32 and under AMP (the
+# every attention runs the f32 flash forward, dq and dkv on their D256
+# tensor-core instances, in f32 and under AMP (the
 # stack casts q/k/v back to f32, as the JAX op does). Nothing cut. Then
 # the same width served densely: 8 requests of 700-1024 prompt tokens, 32
 # new tokens each.
 STACKED_D256 = dict(TRAIN, d_model=2048, num_heads=8, d_ff=8192)
 STACKED_D256_SERVE = dict(requests=8, new_tokens=32)
 STACKED_D256_GROUPS = ("flash_fwd_tf32x3_split", "flash_bwd_dq_tf32x3_split",
-                       "flash_bwd_dkv_wide", "flash_", "nvjet", "gemm",
-                       "elementwise", "reduce")
+                       "flash_bwd_dkv_tf32x3_split", "flash_", "nvjet",
+                       "gemm", "elementwise", "reduce")
 
 
 def _stacked_d256_timed(exe, main, feed, loss, scope, fa, tag, c, peak):
     """The main path of phase 6b in one precision: 1 warm + 6 timed steps
     (counts to 0 before, read after: 8 launches a step of each f32 flash
-    kernel, the forward and dq on their D256 tensor-core instances and dkv
-    on its wide one, no bf16 launch), falling losses; step ms, tokens/s,
+    kernel, all on their D256 tensor-core instances, none on the wide
+    ones, no bf16 launch), falling losses; step ms, tokens/s,
     the share of ``peak``, peak memory and device ms by kernel
     (``chiprun_out/stacked_d256_<tag>_profile.txt``)."""
     import numpy as np
@@ -1740,7 +1752,7 @@ def _stacked_d256_timed(exe, main, feed, loss, scope, fa, tag, c, peak):
     losses, step_s, counts, peak_mem, profile = _timed_steps(
         exe, main, feed, loss, scope, fa, f"stacked_d256_{tag}_profile.txt",
         STACKED_D256_GROUPS)
-    assert counts == (7 * L,) * 3 + (0,) * 3 + (0, 0, 7 * L), counts
+    assert counts == (7 * L,) * 3 + (0,) * 3 + (0, 0, 0), counts
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
                                     c["vocab"], c["d_ff"])
@@ -1752,8 +1764,8 @@ def _stacked_d256_timed(exe, main, feed, loss, scope, fa, tag, c, peak):
           f"{flops / med / peak * 100:.1f}% of the "
           f"{'f32' if tag == 'f32' else 'bf16'} peak, peak memory "
           f"{peak_mem / 2**30:.2f} GiB; f32 flash launches per step "
-          f"fwd/dq/dkv {launches} (fwd and dq on their D256 tensor-core "
-          f"instances, dkv {counts[8] // 7} on the wide one); device "
+          f"fwd/dq/dkv {launches} (on their D256 tensor-core instances, "
+          f"{[n // 7 for n in counts[6:]]} on the wide ones); device "
           + (f"{profile['device_ms']:.1f} ms: " + ", ".join(
               f"{g} {profile['kernels_ms'][g]:.2f} ms "
               f"({profile['launches'][g]} launches)"
@@ -1856,16 +1868,15 @@ def stacked_d256_phase(gpu_name):
 
 
 def d256_records(kern, bwd, stacked):
-    """The f32 instances that phase 6b's main path runs at head dim 256:
-    the forward and dq on the tensor cores, dkv on the wide route, each
-    timed at D256_TRAIN (phases 3 and 5) with its launches a step in 6b's
-    f32 run."""
+    """The f32 instances that phase 6b's main path runs at head dim 256,
+    all three on the tensor cores, each timed at D256_TRAIN (phases 3 and
+    5) with its launches a step in 6b's f32 run."""
     launches = stacked["f32"]["launches_per_step"]
     rows = (("flash_attention_fwd_d256", "flash_attention_fwd.cu", 229,
              kern["d256_train_shape"], kern["max_abs_err_d256"]),
             ("flash_attention_bwd_dq_d256", "flash_attention_bwd.cu", 364,
              bwd[0]["d256_train_shape"], bwd[0]["max_abs_err_d256"]),
-            ("flash_attention_bwd_dkv_d256", "flash_wide.cuh", 386,
+            ("flash_attention_bwd_dkv_d256", "flash_attention_bwd.cu", 386,
              bwd[1]["d256_train_shape"], bwd[1]["max_abs_err_d256"]))
     return [{"name": name, "route": "cuda",
              "source": f"paddle_tpu_torch/kernels/csrc/{source}",
@@ -4006,7 +4017,14 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
           f"and initialised in {time.perf_counter() - t0:.2f} s")
     out = {"config": c, "params": n_params}
     fetch = [loss.name] + [g.name for _, g in params_grads]
+    _reset_flash_counts(fa)
     kern = _step_fetches(exe, main, feed, fetch, scope, state)
+    counts = _flash_counts(fa)  # one f32 launch a layer of each kernel
+    assert counts == (L,) * 3 + (0,) * 3 + tuple(
+        n // 7 for n in wide_f32), counts
+    print(f"per-layer {tag} f32 step 1: f32 flash launches fwd/dq/dkv "
+          f"{list(counts[:3])}, {list(counts[6:])} of them on the wide "
+          f"instances")
     if time_f32:
         with _plain_flash(fa):
             plain = _step_fetches(exe, main, feed, fetch, scope, state)

@@ -20,9 +20,10 @@
 // int32 -> dq [BH, Tq, D], dk/dv [BH, Tk, D]. D is 64 or 128: the
 // wrapper zero-pads any other D <= 128 up to one of them (zero columns
 // change no score and give zero gradient columns). Past 128 it pads D to
-// a multiple of 64: dq runs its split instance at 192 and 256
-// (flash_bwd_dq_tf32x3_split_kernel, below: dq split by D across the
-// warpgroups); dq past 256 and dkv past 128 run the wide instances
+// a multiple of 64: both kernels run their split instances at 192 and
+// 256 (flash_bwd_{dq,dkv}_tf32x3_split_kernel, below: the output split
+// by D across the warpgroups, the products over D exchanged between
+// them); past 256 they run the wide instances
 // (flash_bwd_{dq,dkv}_wide_kernel<float>, flash_wide.cuh). Queries count
 // from position 0 for both Tq and Tk, as in the forward.
 //
@@ -427,10 +428,15 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 // 33,280 + the exchange 16,384 = 216,064 (166,912 at D192).
 namespace dsplit {
 
-constexpr int BOWN = 64;     // q rows a block owns: both warpgroups all
-constexpr int BSTREAM = 16;  // keys of a streamed K/V tile
+// rows a block owns, q (dq) or k (dkv): both warpgroups all of them
+constexpr int BOWN = 64;
+constexpr int BSTREAM = 16;  // rows of a streamed tile: keys (dq), q (dkv)
 constexpr int NT = BSTREAM / 8;
 
+// Shared memory, in floats: the two owned [BOWN, D] tiles (Q and dO for
+// dq, K and V for dkv), two stages of the streamed pair, the exchange of
+// the S and dP partials (S^T, dP^T for dkv), then, for dkv only, two
+// stages of lse and of Di.
 template <int D>
 struct Smem {
   static constexpr int ST = D + 4;
@@ -438,10 +444,37 @@ struct Smem {
   static constexpr int OWN1 = OWN0 + BOWN * ST;
   static constexpr int STR0 = OWN1 + BOWN * ST;
   static constexpr int STR1 = STR0 + 2 * BSTREAM * ST;
-  static constexpr int X = STR1 + 2 * BSTREAM * ST;  // S, dP partials
-  static constexpr int DQ_BYTES = (X + NWARPS * 2 * NT * 4 * 32) * 4;
-  static_assert(DQ_BYTES <= 232448, "past a block's shared memory");
+  static constexpr int X = STR1 + 2 * BSTREAM * ST;
+  static constexpr int LSE = X + NWARPS * 2 * NT * 4 * 32;
+  static constexpr int DI = LSE + 2 * BSTREAM;
+  static constexpr int DQ_BYTES = LSE * 4;
+  static constexpr int DKV_BYTES = (DI + 2 * BSTREAM) * 4;
+  static_assert(DKV_BYTES <= 232448, "past a block's shared memory");
 };
+
+// The warps' S and dP partials (s, dp) through the exchange x: each
+// adds the partial of warp ^ 4, which holds the same rows in the same
+// fragment layout, so both end with the same bits (a + b == b + a).
+// Every warp of the block calls it: it meets them at a barrier.
+__device__ __forceinline__ void exchange(float (&s)[NT][4], float (&dp)[NT][4],
+                                         float* x, int warp, int lane) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[(warp * 2 * NT * 4 + 4 * j + e) * 32 + lane] = s[j][e];
+      x[(warp * 2 * NT * 4 + NT * 4 + 4 * j + e) * 32 + lane] = dp[j][e];
+    }
+  __syncthreads();
+  const int p = (warp ^ 4) * 2 * NT * 4;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] += x[(p + 4 * j + e) * 32 + lane];
+      dp[j][e] += x[(p + NT * 4 + 4 * j + e) * 32 + lane];
+    }
+}
 
 }  // namespace dsplit
 
@@ -526,27 +559,7 @@ flash_bwd_dq_tf32x3_split_kernel(const float* __restrict__ q,
     float s[NT2][4], dp[NT2][4];
     two_products<ST>(s, dp, qs, dos, ks, vs, r0, wg * D / 16,
                      live ? (wg + 1) * D / 16 : wg * D / 16, g, t);
-    {
-      float* x = smem + L::X;
-      const int lane = threadIdx.x % 32;
-#pragma unroll
-      for (int j = 0; j < NT2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          x[(warp * 2 * NT2 * 4 + 4 * j + e) * 32 + lane] = s[j][e];
-          x[(warp * 2 * NT2 * 4 + NT2 * 4 + 4 * j + e) * 32 + lane] =
-              dp[j][e];
-        }
-      __syncthreads();
-      const int p = (warp ^ 4) * 2 * NT2 * 4;
-#pragma unroll
-      for (int j = 0; j < NT2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] += x[(p + 4 * j + e) * 32 + lane];
-          dp[j][e] += x[(p + NT2 * 4 + 4 * j + e) * 32 + lane];
-        }
-    }
+    dsplit::exchange(s, dp, smem + L::X, warp, threadIdx.x % 32);
     if (live) {
 #pragma unroll
       for (int j = 0; j < NT2; ++j)
@@ -593,13 +606,170 @@ cudaError_t launch_dq_split(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// --- dkv at head dims 192 and 256: dK, dV, S^T and dP^T split by D --------
+//
+// The dq split above with the roles of q and k swapped. At D256 the
+// D <= 128 design needs 256 registers of dK and dV a thread, and K and V
+// for 128 rows take 266,240 bytes. So a block owns 64 keys (K and V at
+// stride D + 4: 133,120 bytes at D256) and walks 16-query tiles of Q and
+// dO through a two-stage cp.async ring (66,560 bytes, and each stage's
+// lse and Di by 4-byte copies, 256) from the first tile that can see its
+// keys. Warp w owns keys 16 (w % 4) .. and columns D/2 (w / 4) .. of dK
+// and dV: 64 + 64 accumulator registers at D256, the D <= 128 instance's
+// budget. It forms S^T = K Q^T and dP^T = V dO^T over its half of D and
+// adds warp w ^ 4's partials (the same keys) through the 16,384-byte
+// exchange, so both warps hold the same bits and P^T and dS^T agree.
+// dV += P^T dO and dK += dS^T Q then run on the warp's half of dO's and
+// Q's columns, each tile's a fresh sum added in f32. A warp whose keys
+// are past the length or below every query of the tile skips its
+// products but still writes zeros to the exchange and meets every
+// barrier. Shared memory: 216,320 bytes at D256 (167,168 at D192).
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_tf32x3_split_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ di,
+                                  const int* __restrict__ lens,
+                                  float* __restrict__ dk,
+                                  float* __restrict__ dv, int Tq, int Tk,
+                                  int causal, float sm_scale) {
+  using L = dsplit::Smem<D>;
+  constexpr int ST = L::ST, BK2 = dsplit::BOWN, BQ2 = dsplit::BSTREAM;
+  constexpr int NT2 = dsplit::NT, HALF = D / 2;
+  extern __shared__ __align__(16) float smem[];
+  const float* ks = smem + L::OWN0;
+  const float* vs = smem + L::OWN1;
+
+  const int warp = threadIdx.x / 32;
+  const int wg = warp / 4;  // the warpgroup: dK, dV columns HALF wg ..
+  const int g = (threadIdx.x % 32) >> 2;
+  const int t = threadIdx.x & 3;
+  // batch*head on grid x, k tiles on y: the low k tiles, which causal
+  // queries see most, come first
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK2;
+  const size_t qoff = (size_t)bh * Tq * D;
+  const size_t koff = (size_t)bh * Tk * D;
+
+  const int length = max(0, min(lens[bh], Tk));
+  const int n_q_tiles = (Tq + BQ2 - 1) / BQ2;
+  // a k tile wholly past the length is seen by no query: dk = dv = 0
+  const int first = k0 >= length ? n_q_tiles : (causal ? k0 / BQ2 : 0);
+
+  // Q, dO, lse and Di of q tile qb into ring stage `stage`
+  auto load_q_tile = [&](int qb, int stage) {
+    const int q0 = qb * BQ2;
+    load_rows<D, ST, BQ2, NTHREADS>(smem + L::STR0 + stage * BQ2 * ST,
+                                    q + qoff, q0, Tq);
+    load_rows<D, ST, BQ2, NTHREADS>(smem + L::STR1 + stage * BQ2 * ST,
+                                    dout + qoff, q0, Tq);
+    if (threadIdx.x < 2 * BQ2) {
+      const int c = threadIdx.x % BQ2;
+      const bool is_lse = threadIdx.x < BQ2;
+      const bool in = q0 + c < Tq;
+      cp_async4(smem + (is_lse ? L::LSE : L::DI) + stage * BQ2 + c,
+                (is_lse ? lse : di) + (size_t)bh * Tq + (in ? q0 + c : 0), in);
+    }
+  };
+
+  if (first < n_q_tiles) {
+    load_rows<D, ST, BK2, NTHREADS>(smem + L::OWN0, k + koff, k0, Tk);
+    load_rows<D, ST, BK2, NTHREADS>(smem + L::OWN1, v + koff, k0, Tk);
+    load_q_tile(first, 0);
+    cp_async_commit();
+  }
+
+  const int r0 = (warp % 4) * 16;  // the warp's rows in the k tile
+  const int row[2] = {k0 + r0 + g, k0 + r0 + g + 8};  // this thread's rows
+  float dk_acc[HALF / 8][4], dv_acc[HALF / 8][4];
+#pragma unroll
+  for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int qb = first; qb < n_q_tiles; ++qb) {
+    const int stage = (qb - first) & 1;
+    if (qb + 1 < n_q_tiles) load_q_tile(qb + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and the owned tiles) have landed
+    __syncthreads();
+
+    const int q0 = qb * BQ2;
+    const float* qs = smem + L::STR0 + stage * BQ2 * ST;
+    const float* dos = smem + L::STR1 + stage * BQ2 * ST;
+    const float* lse_s = smem + L::LSE + stage * BQ2;
+    const float* di_s = smem + L::DI + stage * BQ2;
+    // a warp whose rows are past the length, or below every query of the
+    // tile, adds 0
+    const bool live = k0 + r0 < length && (!causal || k0 + r0 < q0 + BQ2);
+    // S^T and dP^T over this warpgroup's half of D, the other half's
+    // from warp ^ 4 (the same keys and liveness)
+    float p[NT2][4], ds[NT2][4];
+    two_products<ST>(p, ds, ks, vs, qs, dos, r0, wg * D / 16,
+                     live ? (wg + 1) * D / 16 : wg * D / 16, g, t);
+    dsplit::exchange(p, ds, smem + L::X, warp, threadIdx.x % 32);
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < NT2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // S^T, dP^T become P^T, dS^T
+          const int c = j * 8 + 2 * t + (e & 1);
+          const int q_pos = q0 + c;
+          const int k_pos = row[e >> 1];
+          const bool vis = k_pos < length && q_pos < Tq &&
+                           (!causal || q_pos >= k_pos);
+          const float pe = vis ? expf(p[j][e] * sm_scale - lse_s[c]) : 0.f;
+          ds[j][e] = pe * (ds[j][e] - di_s[c]);
+          p[j][e] = pe;
+        }
+      accumulate<ST>(dv_acc, p, dos + wg * HALF, g, t);  // dv += P^T dO
+      accumulate<ST>(dk_acc, ds, qs + wg * HALF, g, t);  // dk += dS^T Q
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  float* dkp = dk + koff + wg * HALF;
+  float* dvp = dv + koff + wg * HALF;
+#pragma unroll
+  for (int n = 0; n < HALF / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < Tk) {
+        const size_t at = (size_t)row[h] * D + n * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dkp + at) = make_float2(
+            dk_acc[n][2 * h] * sm_scale, dk_acc[n][2 * h + 1] * sm_scale);
+        *reinterpret_cast<float2*>(dvp + at) =
+            make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      }
+}
+
+template <int D>
+cudaError_t launch_dkv_split(const float* q, const float* k, const float* v,
+                             const float* dout, const float* lse,
+                             const float* di, const int* lens, float* dk,
+                             float* dv, int BH, int Tq, int Tk, int causal,
+                             float sm_scale, cudaStream_t stream) {
+  const int smem_bytes = dsplit::Smem<D>::DKV_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tf32x3_split_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tk + dsplit::BOWN - 1) / dsplit::BOWN);
+  flash_bwd_dkv_tf32x3_split_kernel<D>
+      <<<grid, NTHREADS, smem_bytes, stream>>>(
+          q, k, v, dout, lse, di, lens, dk, dv, Tq, Tk, causal, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
 // a cudaError_t (0 = launched). D is 64, 128 or a multiple of 64 above 128
-// (dq: the split instances at 192 and 256; the wide ones past that, and
-// dkv's past 128).
+// (the split instances at 192 and 256, the wide ones past that).
 extern "C" int paddle_flash_attention_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* di, const int* lens, float* dq, int BH,
@@ -640,6 +810,12 @@ extern "C" int paddle_flash_attention_bwd_dkv_f32(
     case 128:
       return (int)launch_dkv<128>(q, k, v, dout, lse, di, lens, dk, dv, BH,
                                   Tq, Tk, causal, sm_scale, s);
+    case 192:
+      return (int)launch_dkv_split<192>(q, k, v, dout, lse, di, lens, dk, dv,
+                                        BH, Tq, Tk, causal, sm_scale, s);
+    case 256:
+      return (int)launch_dkv_split<256>(q, k, v, dout, lse, di, lens, dk, dv,
+                                        BH, Tq, Tk, causal, sm_scale, s);
     default:
       if (D > 128 && D % wide::DC == 0)
         return (int)launch_dkv_wide<float>(q, k, v, dout, lse, di, lens, dk,
@@ -658,9 +834,9 @@ extern "C" int paddle_flash_attention_bwd_smem_bytes(int dkv, int D) {
     case 128:
       return dkv ? Smem<128>::DKV_BYTES : Smem<128>::DQ_BYTES;
     case 192:
-      return dkv ? wide::DKV_BYTES : dsplit::Smem<192>::DQ_BYTES;
+      return dkv ? dsplit::Smem<192>::DKV_BYTES : dsplit::Smem<192>::DQ_BYTES;
     case 256:
-      return dkv ? wide::DKV_BYTES : dsplit::Smem<256>::DQ_BYTES;
+      return dkv ? dsplit::Smem<256>::DKV_BYTES : dsplit::Smem<256>::DQ_BYTES;
     default:
       if (D > 128 && D % wide::DC == 0)
         return dkv ? wide::DKV_BYTES : wide::DQ_BYTES;

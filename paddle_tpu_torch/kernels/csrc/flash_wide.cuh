@@ -1,4 +1,8 @@
-// Tiles shared by the flash kernels' wide-head-dim instances (D > 128).
+// Tiles shared by the flash kernels' wide-head-dim instances.
+//
+// Which kernels take them: the f32 forward, dq and dkv past D = 256, and
+// the bf16 ones past 256. Every kernel at 129 <= D <= 256 runs its
+// tensor-core instance at 192 or 256 (flash_attention_{fwd,bwd,bf16}.cu).
 //
 // The 64/128 instances keep a whole Q (or K/V) tile and its output
 // accumulator in shared memory and registers; past D = 128 neither fits

@@ -47,12 +47,12 @@ a multiple of 64. In bf16 all three kernels run it on ``wgmma`` up to
 accumulator as wide as D and K/V tiles narrowed to fit; dkv with 64
 owned keys shared by both consumer warpgroups, each forming P^T and dS^T
 for half the queries and accumulating dK and dV for its boxes of D). In
-f32 the forward and dq run 192 and 256 on the tensor cores as 3xTF32:
-64 q rows a block, 16-key tiles, each warpgroup owning half of D of the
-output and forming S (and dP) over that half, the partial products
-exchanged through shared memory. Past 256, and the f32
-dkv past 128, the wide instances run
-(``csrc/flash_wide.cuh``): every product over D sums 64-column chunks
+f32 all three run 192 and 256 on the tensor cores as 3xTF32: the
+forward and dq with 64 q rows a block and 16-key tiles, dkv with 64 keys
+a block and 16-query tiles; each warpgroup owns half of D of the output
+and forms S (and dP; S^T and dP^T in dkv) over that half, the partial
+products exchanged through shared memory. Past 256 the wide instances
+run (``csrc/flash_wide.cuh``): every product over D sums 64-column chunks
 staged through shared memory, and each output's D axis is cut into
 128-wide slices on the grid's z axis, each block
 recomputing S for its own slice (``_kernel_instance`` says which runs;
@@ -300,8 +300,7 @@ def _aligned(t):
 KERNEL_HEAD_DIMS = (64, 128)
 _WIDE_D = 64
 # rows of a q/k tile: the tiles lie on the grid's y axis (limit 65535);
-# past D = 128 the f32 forward and dq own 64 q rows a block, the wide
-# instances and the bf16 dkv 64 rows
+# past D = 128 every instance owns 64 rows a block
 _TILE_ROWS = 128
 _WIDE_TILE_ROWS = 64
 
@@ -319,13 +318,12 @@ def _kernel_head_dim(D):
 
 
 # the largest padded head dim of each kernel's tensor-core instances, by
-# dtype: in f32 the forward and dq run 192 and 256 as 3xTF32 with D split
-# across the warpgroups (csrc/flash_attention_{fwd,bwd}.cu), dkv stops at
-# 128; in bf16 all three run 192 and 256 on ``wgmma``
-# (csrc/flash_attention_bf16.cu). Past it a kernel runs its wide
-# instances.
+# dtype: in f32 all three run 192 and 256 as 3xTF32 with D split across
+# the warpgroups (csrc/flash_attention_{fwd,bwd}.cu); in bf16 all three
+# run 192 and 256 on ``wgmma`` (csrc/flash_attention_bf16.cu). Past it a
+# kernel runs its wide instances.
 _TENSOR_CORE_HEAD_DIM = {
-    torch.float32: {"fwd": 256, "dq": 256, "dkv": 128},
+    torch.float32: {"fwd": 256, "dq": 256, "dkv": 256},
     torch.bfloat16: {"fwd": 256, "dq": 256, "dkv": 256},
 }
 
@@ -335,16 +333,14 @@ def _kernel_instance(D, dtype, kind):
     or "dkv") that takes head dim D in ``dtype``: D padded as
     ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
     that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
-    CUDA cores) rather than one on the tensor cores: past 256, and in
-    f32 dkv past 128."""
+    CUDA cores) rather than one on the tensor cores: past 256."""
     kd = _kernel_head_dim(D)
     return kd, kd > _TENSOR_CORE_HEAD_DIM[dtype][kind]
 
 
 def _max_t(D):
     """The longest sequence the grid's y axis holds at head dim D (past
-    128 the f32 forward and dq, the wide instances and the bf16 dkv own
-    64 rows a block)."""
+    128 every instance owns 64 rows a block)."""
     rows = _TILE_ROWS if D <= KERNEL_HEAD_DIMS[-1] else _WIDE_TILE_ROWS
     return 65535 * rows
 

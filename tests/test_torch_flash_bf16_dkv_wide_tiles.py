@@ -96,10 +96,10 @@ BF16, F32 = torch.bfloat16, torch.float32
 ])
 def test_dkv_instance_by_head_dim(D, instance):
     """bf16 dkv runs wgmma up to a padded 256 and the wide instances past
-    it, as the forward and dq do; f32 dkv stays wide past 128. The grid's
-    y axis holds 65535 blocks of 64 keys past 128."""
+    it, as the forward and dq do; f32 dkv is wide only past 256 too. The
+    grid's y axis holds 65535 blocks of 64 keys past 128."""
     assert tfa._kernel_instance(D, BF16, "dkv") == instance
-    assert tfa._kernel_instance(D, F32, "dkv") == (instance[0], True)
+    assert tfa._kernel_instance(D, F32, "dkv") == instance
     assert tfa._max_t(instance[0]) == 65535 * DKV_KEYS
 
 

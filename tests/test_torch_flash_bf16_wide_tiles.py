@@ -113,13 +113,13 @@ BF16, F32 = torch.bfloat16, torch.float32
     (320, BF16, "dq", (320, True)), (96, BF16, "dkv", (128, False)),
     (160, F32, "fwd", (192, False)), (256, F32, "dq", (256, False)),
     (96, F32, "fwd", (128, False)), (64, F32, "dkv", (64, False)),
-    (256, F32, "dkv", (256, True)), (320, F32, "fwd", (320, True)),
+    (256, F32, "dkv", (256, False)), (320, F32, "fwd", (320, True)),
 ])
 def test_kernel_instance_by_dtype(D, dtype, kind, instance):
     """bf16 pads 160 to 192 and 256 to 256 on wgmma (all three kernels),
-    320 stays 320 on the wide route; f32 runs its forward and dq on the
-    tensor cores at 192 and 256 too, dkv past 128 and everything past 256
-    on the wide route, and the padded head dim is the same in both."""
+    320 stays 320 on the wide route; f32 runs its forward, dq and dkv on
+    the tensor cores at 192 and 256 too, everything past 256 on the wide
+    route, and the padded head dim is the same in both."""
     assert tfa._kernel_instance(D, dtype, kind) == instance
     assert tfa._kernel_head_dim(D) == instance[0]
 

@@ -13,11 +13,13 @@ Here that tiling is emulated (the tile sizes read from the sources) and
 held against the JAX package's Pallas forward and backward in interpret
 mode at D160, D192 and D256, causal and ragged with a fully masked row,
 inputs from a numpy seed, f32, atol = rtol = 1e-5; both halves' row max,
-denominator and lse must agree bitwise. dkv stays on the wide instances past 128 in f32
-(``tests/test_torch_flash_wide_head.py`` emulates them). Then the route:
-the instance each f32 kernel takes, and the launch wiring with the kernel
-entries swapped for their plain versions (padded D handed over, outputs
-sliced back, the f32 and wide launch counters).
+denominator and lse must agree bitwise. dkv runs its own split instance
+at 192 and 256 (``tests/test_torch_flash_f32_dkv_split_tiles.py``
+emulates it), and every kernel past 256 the wide ones
+(``tests/test_torch_flash_wide_head.py``). Then the route: the instance
+each f32 kernel takes, and the launch wiring with the kernel entries
+swapped for their plain versions (padded D handed over, outputs sliced
+back, the f32 and wide launch counters).
 """
 import math
 import re
@@ -225,13 +227,13 @@ F32 = torch.float32
     (129, "fwd", (192, False)), (160, "dq", (192, False)),
     (192, "fwd", (192, False)), (193, "dq", (256, False)),
     (256, "fwd", (256, False)), (256, "dq", (256, False)),
-    (160, "dkv", (192, True)), (256, "dkv", (256, True)),
+    (160, "dkv", (192, False)), (256, "dkv", (256, False)),
     (257, "fwd", (320, True)), (320, "dq", (320, True)),
     (128, "dkv", (128, False)),
 ])
 def test_f32_kernel_instance(D, kind, instance):
-    """f32's forward and dq take the tensor-core instances at a padded 192
-    and 256; dkv past 128 and every kernel past 256 the wide ones."""
+    """f32's forward, dq and dkv take the tensor-core instances at a
+    padded 192 and 256, and every kernel past 256 the wide ones."""
     assert tfa._kernel_instance(D, F32, kind) == instance
 
 
@@ -280,14 +282,14 @@ class _PlainKernels:
                 tfa.flash_backward.dkv_wide_launches)
 
 
-@pytest.mark.parametrize("D,padded,wide", [(160, 192, (0, 0, 1)),
-                                           (256, 256, (0, 0, 1)),
+@pytest.mark.parametrize("D,padded,wide", [(160, 192, (0, 0, 0)),
+                                           (256, 256, (0, 0, 0)),
                                            (320, 320, (1, 1, 1))])
 def test_f32_route_pads_counts_and_slices_back(D, padded, wide,
                                                monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each f32
     kernel the head dim padded to its instance, count one launch of each
-    and the wide ones apart (dkv only, up to 256), and give back the
+    and the wide ones apart (none up to 256), and give back the
     unpadded plain version's results (sm_scale from the true D)."""
     rng = np.random.RandomState(D)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(np.float32))

@@ -2,7 +2,7 @@
 instances.
 
 On a CUDA tensor a head dim D > 128 is zero-padded to a multiple of 64.
-Past 256 (and in f32 for dkv past 128) it runs the wide instances
+Past 256 it runs the wide instances
 (``csrc/flash_wide.cuh``): every product that sums over D (S = QK^T,
 dP = dO V^T) accumulates 64-column chunks, and each output's D axis is
 cut into 128-wide slices on the grid's z axis, each block recomputing S
@@ -11,8 +11,9 @@ tiles, chunk sums in order, an online softmax per slice, the dkv loop
 starting at the causal bound) and held against the JAX package's Pallas
 forward and backward kernels in interpret mode at D = 320 (a last slice
 64 wide) and 512, causal and ragged with a fully masked row; the slices'
-lse must agree bitwise. (The f32 forward and dq at 129-256 run on the
-tensor cores: ``tests/test_torch_flash_f32_wide_tiles.py``.) The launch
+lse must agree bitwise. (The f32 kernels at 129-256 run on the tensor
+cores: ``tests/test_torch_flash_f32_wide_tiles.py`` and
+``tests/test_torch_flash_f32_dkv_split_tiles.py``.) The launch
 wiring is checked with the kernel entries swapped for their plain
 versions, and the input checks on meta tensors. Inputs come from a numpy
 seed; f32 throughout, atol = rtol = 1e-5.

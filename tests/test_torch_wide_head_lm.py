@@ -2,8 +2,8 @@
 
 ``transformer_lm(pipeline_stack=False)`` (the model the JAX package's
 benchmark trains) at d_model 512 with 2 heads: head dim 256, the width
-at which the port's bf16 flash forward and dq run their D256 ``wgmma``
-instances on the card and dkv its wide one. Here, on the CPU, the flash
+at which the port's bf16 flash forward, dq and dkv run their D256
+``wgmma`` instances on the card. Here, on the CPU, the flash
 wrappers run their plain versions. L 2, T 80 (a ragged 64-row tile past
 the first), batch 2. Each package starts from its own startup program
 (bit-exact draws); step one's loss and every parameter gradient equal
