@@ -23,9 +23,11 @@
 //
 // q, dO [BH, Tq, D]; k, v [BH, Tk, D] bf16; lse, Di [BH, Tq] f32; len
 // [BH] int32 -> o, dq [BH, Tq, D], dk, dv [BH, Tk, D] bf16. The wrapper
-// zero-pads D up to a multiple of 64: the `wgmma` instances take 64, 128,
-// 192 and 256; past 256 the wide instances run (flash_wide.cuh,
-// instantiated for bf16: f32 FMA on the CUDA cores).
+// zero-pads D up to 64, 128 or a multiple of 64, and past 256 up to 384 or
+// 512: the `wgmma` instances take 64, 128, 192 and 256, and those of the
+// forward and dq 384 and 512 too; past them (and dkv past 256) the wide
+// instances run (flash_wide.cuh, instantiated for bf16: f32 FMA on the
+// CUDA cores).
 // exp is taken as 2^x of x * log2(e) folded into the scale (ex2.approx,
 // relative error ~2^-22, far below P's bf16 rounding).
 //
@@ -33,7 +35,8 @@
 // forward does 4*D FLOPs per visible (q, k) pair, dq 6*D and dkv 8*D (69,
 // 103 and 137 GFLOP at D128; 137 and 206 GFLOP for the forward and dq at
 // D256, and 275 GFLOP for dkv there: the per-layer LM with 8 heads of
-// 256) on ~0.1-0.4 GB: bound by
+// 256; the same 137 and 206 at B8 H4 T2048 D512, 4 heads of 512) on
+// ~0.1-0.4 GB: bound by
 // operations, at the tensor cores' bf16 rate (989 TFLOP/s), which only
 // `wgmma` reaches.
 //
@@ -114,6 +117,13 @@
 //   the swizzle TMA reads, and one of its threads stores the boxes with a
 //   TMA store (rows past T are not written). Stores straight from
 //   registers, 4 bytes a lane over 8 rows, took 7% of the forward.
+// - Past D = 256 (the forward and dq; fwd_split, dq_split below) a block
+//   owns 64 q rows, shared by both consumers, and each consumer owns half
+//   of D of the output (128 f32 registers at D = 512): it forms S (and
+//   dP) over its half of D, the two f32 partials are exchanged through
+//   shared memory and summed, and each adds P V (dS K) for its half. K/V
+//   tiles are 32 keys in the forward and 16 in dq, so Q (and dO) for 64
+//   rows, two to four stages and the exchange fit.
 // - No atomics: each output element is summed by one thread in a fixed
 //   order, so two launches on the same inputs agree bitwise.
 // Budget (ptxas, sm_90a): 168 registers a thread at launch (384 threads,
@@ -132,12 +142,20 @@
 // 66,600 at D = 64, 181,288 at D = 192 (64-key K and V 48 KB, two stages
 // of Q and dO, 48 KB each, two exchange buffers of P^T and dS^T, 32 KB)
 // and 230,440 at D = 256 (K and V 64 KB, two stages 64 KB each, the
-// exchange buffers 32 KB).
+// exchange buffers 32 KB). Past D = 256: the forward 229,432 at D = 384
+// (Q 48 KB, three stages of 32-key K and V, 48 KB each, two exchange
+// buffers of S partials, 32 KB) and 229,416 at D = 512 (Q 64 KB, two
+// stages of 64 KB); dq 229,448 at D = 384 (Q and dO 96 KB, four stages
+// of 16-key K and V, 24 KB each, the exchange buffers of S and dP
+// partials 32 KB) and 229,416 at D = 512 (Q and dO 128 KB, two stages of
+// 32 KB).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "flash_wide.cuh"
 #include "tf32x3.cuh"  // cp.async (dkv's lse and Di)
@@ -199,6 +217,86 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4],
                                                d[8 * c + 2 * e + 1]);
 }
 
+// One K/V tile of the forward's online softmax, in place: this thread's
+// entries of S (rows row[0], row[1]; keys k0 + 8j + 2t and + 1) masked
+// past `length` and, causal, above the diagonal (looked at only on an
+// `edge` tile), the running max m (unscaled) and denominator l updated,
+// S replaced by P = 2^(s c - m c) in f32; alpha gets the factor each
+// row's accumulator is to be scaled by.
+template <int NK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[NK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             const int (&row)[2], int k0,
+                                             int length, int causal,
+                                             bool edge, int t, float c) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+        if (k_pos >= length || (causal && k_pos > row[e >> 1]))
+          sc[4 * j + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int e = 0; e < NK / 2; ++e)
+    mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+  float mc[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    // a row masked so far keeps m = -inf; exp sees a finite offset
+    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+    alpha[h] = m[h] == -INFINITY ? 0.f : ex2((m[h] - m_safe) * c);
+    m[h] = m_new;
+    mc[h] = m_safe * c;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < NK / 2; ++e) {
+    const float p = ex2(fmaf(sc[e], c, -mc[(e >> 1) & 1]));  // masked: 0
+    sc[e] = p;
+    sum[(e >> 1) & 1] += p;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    l[h] = l[h] * alpha[h] + sum[h];
+  }
+}
+
+// One K/V tile of dq, in place: this thread's entries of dP replaced by
+// dS = P (dP - Di), P = 2^(s c - lse log2 e) from S, 0 past `length` and,
+// causal, above the diagonal (looked at only on an `edge` tile); rows
+// past Tq have lse2 = +inf, so P = 0 there without an inf - inf.
+template <int NK>
+__device__ __forceinline__ void ds_tile(const float (&sc)[NK / 2],
+                                        float (&dp)[NK / 2],
+                                        const float (&lse2)[2],
+                                        const float (&di_r)[2],
+                                        const int (&row)[2], int k0,
+                                        int length, int causal, bool edge,
+                                        int t, float c) {
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      float p = ex2(fmaf(sc[4 * j + e], c, -lse2[h]));
+      if (edge) {
+        const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
+        if (k_pos >= length || (causal && k_pos > row[h])) p = 0.f;
+      }
+      dp[4 * j + e] = p * (dp[4 * j + e] - di_r[h]);
+    }
+}
+
 // This thread's rows (16 w + g and + 8 of the warpgroup's 64: columns 8j
 // + 2t, + 1 of each 8-column group j) of a warpgroup's [64, D] f32
 // accumulator times scale, rounded once, into a [64, D] bf16 tile in
@@ -256,6 +354,7 @@ __device__ __forceinline__ uint64_t k_step(uint64_t desc, int kk, int box) {
 // owned tiles', and each stage's full and empty).
 template <int D, int K, int S, int OWNED>
 struct KvRing {
+  static constexpr int ROWS = OWN;  // q rows a block owns
   static constexpr int KEYS = K;
   static constexpr int STAGES = S;
   static constexpr int NB = D / 64;
@@ -298,18 +397,15 @@ __device__ __forceinline__ void stream_kv(unsigned char* smem,
   }
 }
 
+// The forward up to D = 256: each consumer warpgroup owns 64 of the
+// block's 128 q rows and all of D.
 template <int D>
-__global__ void __launch_bounds__(WS_THREADS, 1)
-    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
-                          const __grid_constant__ CUtensorMap kmap,
-                          const __grid_constant__ CUtensorMap vmap,
-                          const __grid_constant__ CUtensorMap omap,
-                          const int* __restrict__ lens,
-                          float* __restrict__ lse, int Tq, int Tk, int causal,
-                          float sm_scale) {
+__device__ __forceinline__ void fwd_rows(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* omap, const int* lens,
+    float* lse, int Tq, int Tk, int causal, float sm_scale) {
   using L = FwdRing<D>;
   constexpr int NK = L::KEYS;
-  extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + L::STAGES;
@@ -329,8 +425,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       mbar_expect(q_full, L::RING);
 #pragma unroll
       for (int b = 0; b < L::NB; ++b)
-        tma_load_3d(smem + b * L::Q_BOX, &qmap, 64 * b, q0, bh, q_full);
-      stream_kv<L>(smem, &kmap, &vmap, full, empty, n_tiles, bh);
+        tma_load_3d(smem + b * L::Q_BOX, qmap, 64 * b, q0, bh, q_full);
+      stream_kv<L>(smem, kmap, vmap, full, empty, n_tiles, bh);
     }
     return;
   }
@@ -370,45 +466,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     fence_regs(sc);
 
     const int k0 = i * NK;
-    if (k0 + NK > length || (causal && k0 + NK - 1 > r_wg)) {
-#pragma unroll
-      for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
-          if (k_pos >= length || (causal && k_pos > row[e >> 1]))
-            sc[4 * j + e] = -INFINITY;
-        }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int e = 0; e < NK / 2; ++e)
-      mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
-    float alpha[2], mc[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float m_new = fmaxf(m[h], mx[h]);
-      // a row masked so far keeps m = -inf; exp sees a finite offset
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      alpha[h] = m[h] == -INFINITY ? 0.f : ex2((m[h] - m_safe) * c);
-      m[h] = m_new;
-      mc[h] = m_safe * c;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int e = 0; e < NK / 2; ++e) {
-      const float p = ex2(fmaf(sc[e], c, -mc[(e >> 1) & 1]));  // masked: 0
-      sc[e] = p;
-      sum[(e >> 1) & 1] += p;
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-      l[h] = l[h] * alpha[h] + sum[h];
-    }
+    float alpha[2];
+    softmax_tile<NK>(sc, m, l, alpha, row, k0, length, causal,
+                     k0 + NK > length || (causal && k0 + NK - 1 > r_wg), t,
+                     c);
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
 
@@ -430,7 +491,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   unsigned char* ot = smem + cw * 64 * ROW_BYTES;
   const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
   stage_tile<D>(ot, L::Q_BOX, acc, inv, warp, g, t);
-  store_tile<D>(&omap, ot, L::Q_BOX, r_wg, bh, cw);
+  store_tile<D>(omap, ot, L::Q_BOX, r_wg, bh, cw);
   if (t == 0)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -821,21 +882,17 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
+// dq up to D = 256: each consumer warpgroup owns 64 of the block's 128
+// q rows and all of D.
 template <int D>
-__global__ void __launch_bounds__(WS_THREADS, 1)
-    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
-                             const __grid_constant__ CUtensorMap kmap,
-                             const __grid_constant__ CUtensorMap vmap,
-                             const __grid_constant__ CUtensorMap domap,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ di,
-                             const __grid_constant__ CUtensorMap dqmap,
-                             const int* __restrict__ lens, int Tq, int Tk,
-                             int causal, float sm_scale) {
+__device__ __forceinline__ void dq_rows(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* di, const CUtensorMap* dqmap, const int* lens, int Tq,
+    int Tk, int causal, float sm_scale) {
   using L = DqRing<D>;
   constexpr int NK = L::KEYS;
   constexpr int DO = L::NB * L::Q_BOX;  // dO's boxes after Q's
-  extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* full = own_full + 1;
   uint64_t* empty = full + L::STAGES;
@@ -855,11 +912,11 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       mbar_expect(own_full, L::RING);
 #pragma unroll
       for (int b = 0; b < L::NB; ++b) {
-        tma_load_3d(smem + b * L::Q_BOX, &qmap, 64 * b, q0, bh, own_full);
-        tma_load_3d(smem + DO + b * L::Q_BOX, &domap, 64 * b, q0, bh,
+        tma_load_3d(smem + b * L::Q_BOX, qmap, 64 * b, q0, bh, own_full);
+        tma_load_3d(smem + DO + b * L::Q_BOX, domap, 64 * b, q0, bh,
                     own_full);
       }
-      stream_kv<L>(smem, &kmap, &vmap, full, empty, n_tiles, bh);
+      stream_kv<L>(smem, kmap, vmap, full, empty, n_tiles, bh);
     }
     return;
   }
@@ -916,19 +973,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       fence_regs(sc);
       fence_regs(dp);
 
-      const bool edge = k0 + NK > length || (causal && k0 + NK - 1 > r_wg);
-#pragma unroll
-      for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          float p = ex2(fmaf(sc[4 * j + e], c, -lse2[h]));
-          if (edge) {
-            const int k_pos = k0 + 8 * j + 2 * t + (e & 1);
-            if (k_pos >= length || (causal && k_pos > row[h])) p = 0.f;
-          }
-          dp[4 * j + e] = p * (dp[4 * j + e] - di_r[h]);
-        }
+      ds_tile<NK>(sc, dp, lse2, di_r, row, k0, length, causal,
+                  k0 + NK > length || (causal && k0 + NK - 1 > r_wg), t, c);
       uint32_t sa[NK / 16][4];  // bf16(dS)
       pack_a<NK>(sa, dp);
       const uint64_t km = sw128_mn_desc(st, L::KV_BOX);
@@ -949,7 +995,358 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   unsigned char* qt = smem + cw * 64 * ROW_BYTES;
   const float scale[2] = {sm_scale, sm_scale};
   stage_tile<D>(qt, L::Q_BOX, acc, scale, warp, g, t);
-  store_tile<D>(&dqmap, qt, L::Q_BOX, r_wg, bh, cw);
+  store_tile<D>(dqmap, qt, L::Q_BOX, r_wg, bh, cw);
+}
+
+// --- past D = 256: the forward and dq with D split between the consumers
+
+// Past D = 256 (the forward and dq at 384 and 512) an f32 accumulator as
+// wide as D would take a consumer D / 2 registers, and Q (and dO) for 128
+// rows half the shared memory or more. So a block owns 64 q rows, shared
+// by both consumer warpgroups, and D is cut in two: consumer cw owns
+// boxes NBH cw .. NBH cw + NBH - 1 of D (DH = D / 2 columns) of the
+// output, and forms S (and, in dq, dP) over those columns only, as an f32
+// partial. Each writes its partials into its half of an exchange buffer,
+// the consumers meet (consumers_sync), and each adds the other's partials
+// to its own: a thread of either consumer holds the same entries (rows 16
+// w + g and + 8, the same columns) of both, and f32 addition commutes, so
+// both hold S = S_0 + S_1 bit for bit, and with it the same row max, lse,
+// P (and dS). Then each adds P V (dS K) for its own columns of V (K), A
+// from registers as below D = 256. Two exchange buffers alternate by
+// tile: a consumer writes buffer i % 2 only after both have met at tile
+// i - 1, that is after the other has read it at tile i - 2.
+constexpr int SPLIT_OWN = 64;  // q rows a block owns past D = 256
+// Keys of a K/V tile and stages of the ring: the forward 32-key tiles
+// (S partials 16 f32 a thread), dq 16-key tiles (S and dP partials 8
+// each), as many stages as fit beside the owned tiles and the exchange.
+constexpr int split_fwd_stages(int D) { return D <= 384 ? 3 : 2; }
+constexpr int split_dq_stages(int D) { return D <= 384 ? 4 : 2; }
+
+// Shared memory, in bytes, of a split kernel at head dim D: the OWNED
+// tiles of 64 rows (Q; Q and dO) as NB = D / 64 boxes each, each stage's
+// K and V boxes of K keys, the two exchange buffers (each consumer's
+// PARTS partials of [64, K] f32), then the barriers.
+template <int D, int K, int S, int OWNED, int PARTS>
+struct SplitRing {
+  static constexpr int ROWS = SPLIT_OWN;  // q rows a block owns
+  static constexpr int KEYS = K;
+  static constexpr int STAGES = S;
+  static constexpr int NB = D / 64;
+  static constexpr int NBH = NB / 2;  // a consumer's boxes of D
+  static constexpr int DH = D / 2;
+  static constexpr int Q_BOX = SPLIT_OWN * ROW_BYTES;
+  static constexpr int KV_BOX = KEYS * ROW_BYTES;
+  static constexpr int RING = OWNED * NB * Q_BOX;  // stage s: RING + s STAGE
+  static constexpr int V = NB * KV_BOX;            // V inside a stage
+  static constexpr int STAGE = 2 * NB * KV_BOX;
+  static constexpr int XCH = RING + STAGES * STAGE;  // buffer b at + b XBUF
+  static constexpr int XHALF = PARTS * SPLIT_OWN * KEYS * 4;  // a consumer's
+  static constexpr int XBUF = 2 * XHALF;
+  static constexpr int BARS = XCH + 2 * XBUF;
+  static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8;
+  static_assert(NB % 2 == 0, "each consumer owns whole boxes of D");
+  static_assert(Q_BOX % 1024 == 0 && KV_BOX % 1024 == 0,
+                "boxes must keep the swizzle's alignment");
+  static_assert(KEYS % 16 == 0, "a tile is whole k16 steps of P V, dS K");
+  static_assert(BYTES <= SMEM_LIMIT, "the ring does not fit");
+};
+template <int D>
+using FwdSplit = SplitRing<D, 32, split_fwd_stages(D), 1, 1>;
+template <int D>
+using DqSplit = SplitRing<D, 16, split_dq_stages(D), 2, 2>;
+
+// This thread's N f32 partial entries into float4 slots j0 .. j0 + N / 4 -
+// 1 of its consumer's half `mine` of an exchange buffer (slot j of thread
+// tid at float4 j * 128 + tid: a quarter warp's stores fill 128 bytes).
+template <int N>
+__device__ __forceinline__ void xch_put(float4* mine, const float (&p)[N],
+                                        int j0) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    mine[(j0 + j) * 128] =
+        make_float4(p[4 * j], p[4 * j + 1], p[4 * j + 2], p[4 * j + 3]);
+}
+// ... and, after the consumers have met, the other's entries added.
+template <int N>
+__device__ __forceinline__ void xch_add(const float4* theirs, float (&p)[N],
+                                        int j0) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 o = theirs[(j0 + j) * 128];
+    p[4 * j] += o.x;
+    p[4 * j + 1] += o.y;
+    p[4 * j + 2] += o.z;
+    p[4 * j + 3] += o.w;
+  }
+}
+
+// The forward past D = 256 (FwdSplit): 64 q rows a block, each consumer
+// owning DH columns of O.
+template <int D>
+__device__ __forceinline__ void fwd_split(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* omap, const int* lens,
+    float* lse, int Tq, int Tk, int causal, float sm_scale) {
+  using L = FwdSplit<D>;
+  constexpr int NK = L::KEYS;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + L::STAGES;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * SPLIT_OWN;
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + NK - 1) / NK;
+  if (causal)  // the last tile any of the block's rows sees
+    n_tiles = min(n_tiles, (min(q0 + SPLIT_OWN, Tq) + NK - 1) / NK);
+
+  init_ring<L::STAGES>(q_full);
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect(q_full, L::RING);
+#pragma unroll
+      for (int b = 0; b < L::NB; ++b)
+        tma_load_3d(smem + b * L::Q_BOX, qmap, 64 * b, q0, bh, q_full);
+      stream_kv<L>(smem, kmap, vmap, full, empty, n_tiles, bh);
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b0 = cw * L::NBH;  // this consumer's first box of D
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const float c = sm_scale * LOG2E;  // s * c is s * sm_scale in base 2
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m unscaled
+  float acc[L::DH / 2];
+#pragma unroll
+  for (int e = 0; e < L::DH / 2; ++e) acc[e] = 0.f;
+
+  if (n_tiles > 0) mbar_wait(q_full, 0);
+  const uint64_t dq = sw128_desc(
+      reinterpret_cast<const float*>(smem + b0 * L::Q_BOX));
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % L::STAGES;
+    mbar_wait(&full[s], (i / L::STAGES) & 1);
+    const unsigned char* st = smem + L::RING + s * L::STAGE;
+    const uint64_t dk =
+        sw128_desc(reinterpret_cast<const float*>(st + b0 * L::KV_BOX));
+    const uint64_t dv = sw128_mn_desc(st + L::V + b0 * L::KV_BOX, L::KV_BOX);
+
+    float sc[NK / 2];  // this consumer's partial of S = Q K^T, then S
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::DH / 16; ++kk)
+      WgmmaBf16<NK, 0>::mma(sc, k_step(dq, kk, L::Q_BOX),
+                            k_step(dk, kk, L::KV_BOX), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    float4* x =
+        reinterpret_cast<float4*>(smem + L::XCH + (i % 2) * L::XBUF) + tid;
+    xch_put<NK / 2>(x + cw * (L::XHALF / 16), sc, 0);
+    consumers_sync();
+    xch_add<NK / 2>(x + (1 - cw) * (L::XHALF / 16), sc, 0);
+
+    const int k0 = i * NK;
+    float alpha[2];
+    softmax_tile<NK>(sc, m, l, alpha, row, k0, length, causal,
+                     k0 + NK > length || (causal && k0 + NK - 1 > q0), t, c);
+#pragma unroll
+    for (int e = 0; e < L::DH / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+
+    uint32_t pa[NK / 16][4];  // bf16(P), the A of O += P V
+    pack_a<NK>(pa, sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)
+      WgmmaBf16Rs<L::DH>::mma(acc, pa[kk], dv + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_frags(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with it
+  }
+
+  // o through this consumer's boxes of Q, which only its own S read
+  unsigned char* ot = smem + b0 * L::Q_BOX;
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  stage_tile<L::DH>(ot, L::Q_BOX, acc, inv, warp, g, t);
+  store_tile<L::DH>(omap, ot, L::Q_BOX, q0, bh, cw, b0);
+  if (cw == 0 && t == 0)  // both consumers hold the same m and l
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < Tq)
+        lse[(size_t)bh * Tq + row[h]] =
+            l[h] > 0.f ? m[h] * sm_scale + logf(fmaxf(l[h], 1e-30f))
+                       : INFINITY;
+}
+
+// dq past D = 256 (DqSplit): 64 q rows a block, Q and dO resident, each
+// consumer owning DH columns of dQ.
+template <int D>
+__device__ __forceinline__ void dq_split(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* di, const CUtensorMap* dqmap, const int* lens, int Tq,
+    int Tk, int causal, float sm_scale) {
+  using L = DqSplit<D>;
+  constexpr int NK = L::KEYS;
+  constexpr int DO = L::NB * L::Q_BOX;  // dO's boxes after Q's
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + L::STAGES;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * SPLIT_OWN;
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + NK - 1) / NK;
+  if (causal)  // the last tile any of the block's rows sees
+    n_tiles = min(n_tiles, (min(q0 + SPLIT_OWN, Tq) + NK - 1) / NK);
+
+  init_ring<L::STAGES>(own_full);
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      mbar_expect(own_full, L::RING);
+#pragma unroll
+      for (int b = 0; b < L::NB; ++b) {
+        tma_load_3d(smem + b * L::Q_BOX, qmap, 64 * b, q0, bh, own_full);
+        tma_load_3d(smem + DO + b * L::Q_BOX, domap, 64 * b, q0, bh,
+                    own_full);
+      }
+      stream_kv<L>(smem, kmap, vmap, full, empty, n_tiles, bh);
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b0 = cw * L::NBH;  // this consumer's first box of D
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const float c = sm_scale * LOG2E;  // s * c is s * sm_scale in base 2
+  // p = 2^(s c - lse log2(e)); a row past Tq has lse = +inf, so p = 0
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < Tq;
+    lse2[h] = in ? lse[(size_t)bh * Tq + row[h]] * LOG2E : INFINITY;
+    di_r[h] = in ? di[(size_t)bh * Tq + row[h]] : 0.f;
+  }
+  float acc[L::DH / 2];
+#pragma unroll
+  for (int e = 0; e < L::DH / 2; ++e) acc[e] = 0.f;
+
+  if (n_tiles > 0) mbar_wait(own_full, 0);
+  const uint64_t dqa = sw128_desc(
+      reinterpret_cast<const float*>(smem + b0 * L::Q_BOX));
+  const uint64_t doa = sw128_desc(
+      reinterpret_cast<const float*>(smem + DO + b0 * L::Q_BOX));
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % L::STAGES;
+    mbar_wait(&full[s], (i / L::STAGES) & 1);
+    const int k0 = i * NK;
+    const unsigned char* st = smem + L::RING + s * L::STAGE;
+    const uint64_t dk =
+        sw128_desc(reinterpret_cast<const float*>(st + b0 * L::KV_BOX));
+    const uint64_t dv = sw128_desc(
+        reinterpret_cast<const float*>(st + L::V + b0 * L::KV_BOX));
+    float sc[NK / 2], dp[NK / 2];  // partials of S and dP, then S, dS
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::DH / 16; ++kk)  // S = Q K^T
+      WgmmaBf16<NK, 0>::mma(sc, k_step(dqa, kk, L::Q_BOX),
+                            k_step(dk, kk, L::KV_BOX), kk);
+#pragma unroll
+    for (int kk = 0; kk < L::DH / 16; ++kk)  // dP = dO V^T
+      WgmmaBf16<NK, 0>::mma(dp, k_step(doa, kk, L::Q_BOX),
+                            k_step(dv, kk, L::KV_BOX), kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+    float4* x =
+        reinterpret_cast<float4*>(smem + L::XCH + (i % 2) * L::XBUF) + tid;
+    xch_put<NK / 2>(x + cw * (L::XHALF / 16), sc, 0);
+    xch_put<NK / 2>(x + cw * (L::XHALF / 16), dp, NK / 8);
+    consumers_sync();
+    xch_add<NK / 2>(x + (1 - cw) * (L::XHALF / 16), sc, 0);
+    xch_add<NK / 2>(x + (1 - cw) * (L::XHALF / 16), dp, NK / 8);
+
+    ds_tile<NK>(sc, dp, lse2, di_r, row, k0, length, causal,
+                k0 + NK > length || (causal && k0 + NK - 1 > q0), t, c);
+    uint32_t sa[NK / 16][4];  // bf16(dS)
+    pack_a<NK>(sa, dp);
+    const uint64_t km = sw128_mn_desc(st + b0 * L::KV_BOX, L::KV_BOX);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK / 16; ++kk)  // dQ += dS K
+      WgmmaBf16Rs<L::DH>::mma(acc, sa[kk], km + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_frags(sa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp is done with it
+  }
+
+  // dq through this consumer's boxes of Q, which only its own S read
+  unsigned char* qt = smem + b0 * L::Q_BOX;
+  const float scale[2] = {sm_scale, sm_scale};
+  stage_tile<L::DH>(qt, L::Q_BOX, acc, scale, warp, g, t);
+  store_tile<L::DH>(dqmap, qt, L::Q_BOX, q0, bh, cw, b0);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap omap,
+                          const int* __restrict__ lens,
+                          float* __restrict__ lse, int Tq, int Tk, int causal,
+                          float sm_scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if constexpr (D > 256)
+    fwd_split<D>(smem, &qmap, &kmap, &vmap, &omap, lens, lse, Tq, Tk, causal,
+                 sm_scale);
+  else
+    fwd_rows<D>(smem, &qmap, &kmap, &vmap, &omap, lens, lse, Tq, Tk, causal,
+                sm_scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap domap,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ di,
+                             const __grid_constant__ CUtensorMap dqmap,
+                             const int* __restrict__ lens, int Tq, int Tk,
+                             int causal, float sm_scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if constexpr (D > 256)
+    dq_split<D>(smem, &qmap, &kmap, &vmap, &domap, lse, di, &dqmap, lens, Tq,
+                Tk, causal, sm_scale);
+  else
+    dq_rows<D>(smem, &qmap, &kmap, &vmap, &domap, lse, di, &dqmap, lens, Tq,
+               Tk, causal, sm_scale);
 }
 
 template <int D>
@@ -957,10 +1354,11 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
                        const int* lens, bf16* o, float* lse, int BH, int Tq,
                        int Tk, int causal, float sm_scale,
                        cudaStream_t stream) {
-  using L = FwdRing<D>;
+  using L = std::conditional_t<(D > 256), FwdSplit<D>, FwdRing<D>>;
   constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qmap = {}, kmap = {}, vmap = {}, omap = {};  // Tk = 0: no K/V
-  cudaError_t err = tensor_map_3d(&qmap, q, BF16, 2, D, Tq, BH, 64, OWN);
+  cudaError_t err =
+      tensor_map_3d(&qmap, q, BF16, 2, D, Tq, BH, 64, L::ROWS);
   if (err == cudaSuccess)
     err = tensor_map_3d(&omap, o, BF16, 2, D, Tq, BH, 64, 64);
   if (err == cudaSuccess && Tk > 0)
@@ -972,7 +1370,7 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tq + OWN - 1) / OWN);
+  const dim3 grid(BH, (Tq + L::ROWS - 1) / L::ROWS);
   flash_fwd_bf16_kernel<D><<<grid, WS_THREADS, L::BYTES, stream>>>(
       qmap, kmap, vmap, omap, lens, lse, Tq, Tk, causal, sm_scale);
   return cudaGetLastError();
@@ -1016,12 +1414,13 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
                       const bf16* dout, const float* lse, const float* di,
                       const int* lens, bf16* dq, int BH, int Tq, int Tk,
                       int causal, float sm_scale, cudaStream_t stream) {
-  using L = DqRing<D>;
+  using L = std::conditional_t<(D > 256), DqSplit<D>, DqRing<D>>;
   constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qmap = {}, kmap = {}, vmap = {}, domap = {}, dqmap = {};
-  cudaError_t err = tensor_map_3d(&qmap, q, BF16, 2, D, Tq, BH, 64, OWN);
+  cudaError_t err =
+      tensor_map_3d(&qmap, q, BF16, 2, D, Tq, BH, 64, L::ROWS);
   if (err == cudaSuccess)
-    err = tensor_map_3d(&domap, dout, BF16, 2, D, Tq, BH, 64, OWN);
+    err = tensor_map_3d(&domap, dout, BF16, 2, D, Tq, BH, 64, L::ROWS);
   if (err == cudaSuccess)
     err = tensor_map_3d(&dqmap, dq, BF16, 2, D, Tq, BH, 64, 64);
   if (err == cudaSuccess && Tk > 0)  // Tk = 0: no K/V, dq = 0
@@ -1033,7 +1432,7 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tq + OWN - 1) / OWN);
+  const dim3 grid(BH, (Tq + L::ROWS - 1) / L::ROWS);
   flash_bwd_dq_bf16_kernel<D><<<grid, WS_THREADS, L::BYTES, stream>>>(
       qmap, kmap, vmap, domap, lse, di, dqmap, lens, Tq, Tk, causal,
       sm_scale);
@@ -1047,7 +1446,8 @@ bool wide_d(int D) { return D > 128 && D % wide::DC == 0; }
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
 // a cudaError_t (0 = launched). D is a multiple of 64: 64, 128, 192 and
-// 256 launch the wgmma instances; the rest past 256 the wide ones.
+// 256 launch the wgmma instances, and 384 and 512 those of the forward
+// and dq; every other D past 256 (and dkv's past 256) the wide ones.
 extern "C" int paddle_flash_attention_fwd_bf16(
     const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* o,
     float* lse, int BH, int Tq, int Tk, int D, int causal, float sm_scale,
@@ -1065,6 +1465,12 @@ extern "C" int paddle_flash_attention_fwd_bf16(
                                 sm_scale, s);
   if (D == 256)
     return (int)launch_fwd<256>(q, k, v, lens, o, lse, BH, Tq, Tk, causal,
+                                sm_scale, s);
+  if (D == 384)
+    return (int)launch_fwd<384>(q, k, v, lens, o, lse, BH, Tq, Tk, causal,
+                                sm_scale, s);
+  if (D == 512)
+    return (int)launch_fwd<512>(q, k, v, lens, o, lse, BH, Tq, Tk, causal,
                                 sm_scale, s);
   if (wide_d(D))
     return (int)launch_fwd_wide<bf16>(q, k, v, lens, o, lse, BH, Tq, Tk, D,
@@ -1089,6 +1495,12 @@ extern "C" int paddle_flash_attention_bwd_dq_bf16(
                                causal, sm_scale, s);
   if (D == 256)
     return (int)launch_dq<256>(q, k, v, dout, lse, di, lens, dq, BH, Tq, Tk,
+                               causal, sm_scale, s);
+  if (D == 384)
+    return (int)launch_dq<384>(q, k, v, dout, lse, di, lens, dq, BH, Tq, Tk,
+                               causal, sm_scale, s);
+  if (D == 512)
+    return (int)launch_dq<512>(q, k, v, dout, lse, di, lens, dq, BH, Tq, Tk,
                                causal, sm_scale, s);
   if (wide_d(D))
     return (int)launch_dq_wide<bf16>(q, k, v, dout, lse, di, lens, dq, BH,
@@ -1131,6 +1543,11 @@ extern "C" int paddle_flash_attention_bf16_smem_bytes(int which, int D) {
                       DkvRing<192>::BYTES, DkvRing<256>::BYTES};
   if (D > 0 && D % 64 == 0 && D <= 256)  // wgmma
     return (which == 0 ? fwd : which == 1 ? dq : dkv)[D / 64 - 1];
+  if ((D == 384 || D == 512) && which < 2)  // wgmma, D split
+    return which == 0 ? (D == 384 ? FwdSplit<384>::BYTES
+                                  : FwdSplit<512>::BYTES)
+                      : (D == 384 ? DqSplit<384>::BYTES
+                                  : DqSplit<512>::BYTES);
   if (wide_d(D))
     return which == 0 ? wide::FWD_BYTES
                       : which == 1 ? wide::DQ_BYTES : wide::DKV_BYTES;

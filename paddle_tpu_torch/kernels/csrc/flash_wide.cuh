@@ -1,8 +1,10 @@
 // Tiles shared by the flash kernels' wide-head-dim instances.
 //
-// Which kernels take them: the f32 forward, dq and dkv past D = 256, and
-// the bf16 ones past 256. Every kernel at 129 <= D <= 256 runs its
-// tensor-core instance at 192 or 256 (flash_attention_{fwd,bwd,bf16}.cu).
+// Which kernels take them: the f32 forward, dq and dkv and the bf16 dkv
+// past D = 256, and the bf16 forward and dq past 512. Every kernel at 129
+// <= D <= 256 runs its tensor-core instance at 192 or 256, and the bf16
+// forward and dq at 257 <= D <= 512 theirs at 384 or 512
+// (flash_attention_{fwd,bwd,bf16}.cu).
 //
 // The 64/128 instances keep a whole Q (or K/V) tile and its output
 // accumulator in shared memory and registers; past D = 128 neither fits
@@ -15,8 +17,8 @@
 //   axis. Each block recomputes S (and P, dP) for its own slice, in the
 //   same order in every slice, so the row max, lse and P agree bitwise
 //   across slices.
-// The wrapper zero-pads D to a multiple of 64 (zero columns change no
-// score and give zero output columns). The kernels are templates on the
+// The wrapper zero-pads D to a multiple of 64, and one in 257-512 to 384
+// or 512 (zero columns change no score and give zero output columns). The kernels are templates on the
 // element type T of q, k, v, o and the gradients: float (the f32
 // instances, flash_attention_{fwd,bwd}.cu) or __nv_bfloat16 (the bf16
 // ones, flash_attention_bf16.cu). Tiles are widened to f32 as they land

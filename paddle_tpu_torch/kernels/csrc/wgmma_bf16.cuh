@@ -1,6 +1,6 @@
 // bf16 `wgmma` for the port's bf16 (AMP) kernels (conv_epilogue.cu,
 // flash_attention_bf16.cu): the m64nNk16 shapes they use with both
-// operands in shared memory (B K-major or MN-major; N 32, 48, 64, 128) or
+// operands in shared memory (B K-major or MN-major; N 16, 32, 48, 64, 128) or
 // with A in registers (N 64, 128, 192, 256), and the descriptor of an
 // MN-major B tile. A K-major tile
 // (rows of 128 bytes, 64 bf16 values along K) uses `sw128_desc`
@@ -131,6 +131,21 @@ struct WgmmaBf16<32, TB> {
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaBf16<16, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TB));
   }
 };

@@ -42,19 +42,25 @@ The tensor-core kernels are built for head dims 64 and 128; on a CUDA
 tensor the wrappers zero-pad any other head dim up to 128 to the next of
 them and slice the outputs back (``_at_kernel_head_dim``), with
 ``sm_scale`` from the true head dim. A head dim past 128 is zero-padded to
-a multiple of 64. In bf16 all three kernels run it on ``wgmma`` up to
+a multiple of 64, and one in 257-512 to 384 or 512, in every dtype and
+for every kernel. In bf16 all three kernels run it on ``wgmma`` up to
 256 (their instances at 192 and 256: the forward and dq with one
 accumulator as wide as D and K/V tiles narrowed to fit; dkv with 64
 owned keys shared by both consumer warpgroups, each forming P^T and dS^T
-for half the queries and accumulating dK and dV for its boxes of D). In
+for half the queries and accumulating dK and dV for its boxes of D), and
+the forward and dq at 384 and 512 too (64 q rows a block, each consumer
+warpgroup owning half of D of the output and forming S, and dP, over
+that half; the f32 partials exchanged through shared memory and summed;
+32-key tiles in the forward, 16-key ones in dq). In
 f32 all three run 192 and 256 on the tensor cores as 3xTF32: the
 forward and dq with 64 q rows a block and 16-key tiles, dkv with 64 keys
 a block and 16-query tiles; each warpgroup owns half of D of the output
 and forms S (and dP; S^T and dP^T in dkv) over that half, the partial
-products exchanged through shared memory. Past 256 the wide instances
-run (``csrc/flash_wide.cuh``): every product over D sums 64-column chunks
-staged through shared memory, and each output's D axis is cut into
-128-wide slices on the grid's z axis, each block
+products exchanged through shared memory. Past those the wide instances
+run (``csrc/flash_wide.cuh``: bf16 dkv and every f32 kernel past 256,
+the bf16 forward and dq past 512): every product over D sums 64-column
+chunks staged through shared memory, and each output's D axis is cut
+into 128-wide slices on the grid's z axis, each block
 recomputing S for its own slice (``_kernel_instance`` says which runs;
 ``.wide_launches`` counters count them). Any batch*heads is taken (it is
 the grid's x axis).
@@ -296,9 +302,13 @@ def _aligned(t):
 # the head dims the tensor-core kernels are built for; the wrappers pad
 # up to them, and past the last one to a multiple of _WIDE_D (192 and 256
 # on the tensor cores where _TENSOR_CORE_HEAD_DIM says so, else the wide
-# instances)
+# instances), in 257-512 to one of _SPLIT_HEAD_DIMS: the bf16 forward's
+# and dq's instances there, which split D into two halves of whole
+# 64-column boxes between their consumer warpgroups (every other kernel
+# takes them on its wide instances)
 KERNEL_HEAD_DIMS = (64, 128)
 _WIDE_D = 64
+_SPLIT_HEAD_DIMS = (384, 512)
 # rows of a q/k tile: the tiles lie on the grid's y axis (limit 65535);
 # past D = 128 every instance owns 64 rows a block
 _TILE_ROWS = 128
@@ -308,23 +318,29 @@ _WIDE_TILE_ROWS = 64
 def _kernel_head_dim(D):
     """The head dim of the kernel instance that takes D: the smallest of
     ``KERNEL_HEAD_DIMS`` that is >= D, else D rounded up to a multiple of
-    64 (the wide instances)."""
+    64 and, past 256, up to the smallest of ``_SPLIT_HEAD_DIMS`` that
+    holds it (the same for every dtype and kernel: ``flash_backward``
+    pads once for dq and dkv)."""
     if D < 1:
         raise ValueError(f"flash kernels take head_dim >= 1, got {D}")
     for kd in KERNEL_HEAD_DIMS:
         if D <= kd:
             return kd
-    return -(-D // _WIDE_D) * _WIDE_D
+    kd = -(-D // _WIDE_D) * _WIDE_D
+    if kd > 256:
+        return next((sd for sd in _SPLIT_HEAD_DIMS if kd <= sd), kd)
+    return kd
 
 
 # the largest padded head dim of each kernel's tensor-core instances, by
 # dtype: in f32 all three run 192 and 256 as 3xTF32 with D split across
 # the warpgroups (csrc/flash_attention_{fwd,bwd}.cu); in bf16 all three
-# run 192 and 256 on ``wgmma`` (csrc/flash_attention_bf16.cu). Past it a
-# kernel runs its wide instances.
+# run 192 and 256 on ``wgmma`` (csrc/flash_attention_bf16.cu), and the
+# forward and dq 384 and 512 too. Past it a kernel runs its wide
+# instances.
 _TENSOR_CORE_HEAD_DIM = {
     torch.float32: {"fwd": 256, "dq": 256, "dkv": 256},
-    torch.bfloat16: {"fwd": 256, "dq": 256, "dkv": 256},
+    torch.bfloat16: {"fwd": 512, "dq": 512, "dkv": 256},
 }
 
 
@@ -333,7 +349,8 @@ def _kernel_instance(D, dtype, kind):
     or "dkv") that takes head dim D in ``dtype``: D padded as
     ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
     that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
-    CUDA cores) rather than one on the tensor cores: past 256."""
+    CUDA cores) rather than one on the tensor cores: past 256, and for
+    the bf16 forward and dq past 512."""
     kd = _kernel_head_dim(D)
     return kd, kd > _TENSOR_CORE_HEAD_DIM[dtype][kind]
 

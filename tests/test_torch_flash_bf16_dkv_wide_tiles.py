@@ -91,21 +91,23 @@ BF16, F32 = torch.bfloat16, torch.float32
 
 @pytest.mark.parametrize("D,instance", [
     (129, (192, False)), (160, (192, False)), (192, (192, False)),
-    (193, (256, False)), (256, (256, False)), (257, (320, True)),
+    (193, (256, False)), (256, (256, False)), (257, (384, True)),
     (512, (512, True)),
 ])
 def test_dkv_instance_by_head_dim(D, instance):
     """bf16 dkv runs wgmma up to a padded 256 and the wide instances past
-    it, as the forward and dq do; f32 dkv is wide only past 256 too. The
-    grid's y axis holds 65535 blocks of 64 keys past 128."""
+    it (at 257-512 padded to 384 or 512, where the forward and dq run
+    wgmma); f32 dkv is wide only past 256 too. The grid's y axis holds
+    65535 blocks of 64 keys past 128."""
     assert tfa._kernel_instance(D, BF16, "dkv") == instance
     assert tfa._kernel_instance(D, F32, "dkv") == instance
     assert tfa._max_t(instance[0]) == 65535 * DKV_KEYS
 
 
-@pytest.mark.parametrize("D,padded,wide", [(160, 192, 0), (192, 192, 0),
-                                           (256, 256, 0), (320, 320, 1),
-                                           (512, 512, 1)])
+# the D320 case keeps the id it was written with, when D320 padded to 320
+@pytest.mark.parametrize("D,padded,wide", [
+    (160, 192, 0), (192, 192, 0), (256, 256, 0),
+    pytest.param(320, 384, 1, id="320-320-1"), (512, 512, 1)])
 def test_bf16_dkv_route_pads_counts_and_slices_back(D, padded, wide,
                                                     monkeypatch):
     """flash_dkv on the CUDA route hands the kernel the bf16 head dim

@@ -14,9 +14,11 @@ are held to on the card (``chip_smoke.py``'s bf16 gate, the copy in
 causal and ragged with a fully masked row, inputs from a numpy seed; a
 stale K/V stage planted at those tiles fails it. dkv runs its own
 ``wgmma`` instances at 192 and 256 (64 owned keys a block; its tiles are
-checked in ``tests/test_torch_flash_bf16_dkv_wide_tiles.py``), and every
-kernel past 256 stays on the wide instances
-(``tests/test_torch_flash_wide_head.py`` emulates them). Then the route
+checked in ``tests/test_torch_flash_bf16_dkv_wide_tiles.py``). Past 256
+the forward and dq run their ``wgmma`` instances at 384 and 512
+(``tests/test_torch_flash_bf16_d512_tiles.py``), and dkv stays on the
+wide instances (``tests/test_torch_flash_wide_head.py`` emulates them),
+as do the forward and dq past 512. Then the route
 itself: which head dim and instance each kernel takes by dtype, the
 launch wiring with the kernel entries swapped for their plain versions
 (padded D handed over, outputs sliced back, the launch counters), and
@@ -109,17 +111,18 @@ BF16, F32 = torch.bfloat16, torch.float32
     (160, BF16, "fwd", (192, False)), (160, BF16, "dq", (192, False)),
     (192, BF16, "fwd", (192, False)), (256, BF16, "dq", (256, False)),
     (200, BF16, "fwd", (256, False)), (160, BF16, "dkv", (192, False)),
-    (256, BF16, "dkv", (256, False)), (320, BF16, "fwd", (320, True)),
-    (320, BF16, "dq", (320, True)), (96, BF16, "dkv", (128, False)),
+    (256, BF16, "dkv", (256, False)), (320, BF16, "fwd", (384, False)),
+    (320, BF16, "dq", (384, False)), (96, BF16, "dkv", (128, False)),
     (160, F32, "fwd", (192, False)), (256, F32, "dq", (256, False)),
     (96, F32, "fwd", (128, False)), (64, F32, "dkv", (64, False)),
-    (256, F32, "dkv", (256, False)), (320, F32, "fwd", (320, True)),
+    (256, F32, "dkv", (256, False)), (320, F32, "fwd", (384, True)),
 ])
 def test_kernel_instance_by_dtype(D, dtype, kind, instance):
     """bf16 pads 160 to 192 and 256 to 256 on wgmma (all three kernels),
-    320 stays 320 on the wide route; f32 runs its forward, dq and dkv on
-    the tensor cores at 192 and 256 too, everything past 256 on the wide
-    route, and the padded head dim is the same in both."""
+    and 320 to 384, where its forward and dq run wgmma too; f32 runs its
+    forward, dq and dkv on the tensor cores at 192 and 256, everything
+    past 256 on the wide route, and the padded head dim is the same in
+    both."""
     assert tfa._kernel_instance(D, dtype, kind) == instance
     assert tfa._kernel_head_dim(D) == instance[0]
 
@@ -169,15 +172,17 @@ class _PlainKernels:
                 tfa.flash_backward.dkv_wide_launches)
 
 
-@pytest.mark.parametrize("D,padded,wide", [(160, 192, (0, 0, 0)),
-                                           (256, 256, (0, 0, 0)),
-                                           (320, 320, (1, 1, 1))])
+# the D320 case keeps the id it was written with, when D320 padded to 320
+@pytest.mark.parametrize("D,padded,wide", [
+    (160, 192, (0, 0, 0)), (256, 256, (0, 0, 0)),
+    pytest.param(320, 384, (0, 0, 1), id="320-320-wide2")])
 def test_bf16_route_pads_counts_and_slices_back(D, padded, wide,
                                                 monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each kernel
     the bf16 head dim padded to its instance, count one bf16 launch of
-    each and the wide ones apart, and give back the unpadded plain
-    version's results (sm_scale from the true D)."""
+    each and the wide ones apart (at D320, padded to 384, only dkv's),
+    and give back the unpadded plain version's results (sm_scale from the
+    true D)."""
     rng = np.random.RandomState(D)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(
         np.float32)).bfloat16() for _ in range(4))

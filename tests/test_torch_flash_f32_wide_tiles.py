@@ -228,12 +228,13 @@ F32 = torch.float32
     (192, "fwd", (192, False)), (193, "dq", (256, False)),
     (256, "fwd", (256, False)), (256, "dq", (256, False)),
     (160, "dkv", (192, False)), (256, "dkv", (256, False)),
-    (257, "fwd", (320, True)), (320, "dq", (320, True)),
+    (257, "fwd", (384, True)), (320, "dq", (384, True)),
     (128, "dkv", (128, False)),
 ])
 def test_f32_kernel_instance(D, kind, instance):
     """f32's forward, dq and dkv take the tensor-core instances at a
-    padded 192 and 256, and every kernel past 256 the wide ones."""
+    padded 192 and 256, and every kernel past 256 the wide ones (at a
+    head dim in 257-512 padded to 384 or 512, as in bf16)."""
     assert tfa._kernel_instance(D, F32, kind) == instance
 
 
@@ -282,9 +283,10 @@ class _PlainKernels:
                 tfa.flash_backward.dkv_wide_launches)
 
 
-@pytest.mark.parametrize("D,padded,wide", [(160, 192, (0, 0, 0)),
-                                           (256, 256, (0, 0, 0)),
-                                           (320, 320, (1, 1, 1))])
+# the D320 case keeps the id it was written with, when D320 padded to 320
+@pytest.mark.parametrize("D,padded,wide", [
+    (160, 192, (0, 0, 0)), (256, 256, (0, 0, 0)),
+    pytest.param(320, 384, (1, 1, 1), id="320-320-wide2")])
 def test_f32_route_pads_counts_and_slices_back(D, padded, wide,
                                                monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each f32

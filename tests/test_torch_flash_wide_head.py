@@ -1,19 +1,23 @@
 """Head dims past 128 on the port's CUDA route: the flash kernels' wide
 instances.
 
-On a CUDA tensor a head dim D > 128 is zero-padded to a multiple of 64.
-Past 256 it runs the wide instances
+On a CUDA tensor a head dim D > 128 is zero-padded to a multiple of 64,
+and one in 257-512 to 384 or 512. Past 256 every f32 kernel and the bf16
+dkv run the wide instances, and the bf16 forward and dq past 512
 (``csrc/flash_wide.cuh``): every product that sums over D (S = QK^T,
 dP = dO V^T) accumulates 64-column chunks, and each output's D axis is
 cut into 128-wide slices on the grid's z axis, each block recomputing S
 for its own slice. Here that decomposition is emulated on the CPU (64-row
 tiles, chunk sums in order, an online softmax per slice, the dkv loop
 starting at the causal bound) and held against the JAX package's Pallas
-forward and backward kernels in interpret mode at D = 320 (a last slice
-64 wide) and 512, causal and ragged with a fully masked row; the slices'
-lse must agree bitwise. (The f32 kernels at 129-256 run on the tensor
-cores: ``tests/test_torch_flash_f32_wide_tiles.py`` and
-``tests/test_torch_flash_f32_dkv_split_tiles.py``.) The launch
+forward and backward kernels in interpret mode at D = 320 (padded to
+384) and 512, causal and ragged with a fully masked row; the slices'
+lse must agree bitwise (a last slice 64 wide, at D = 576, is emulated in
+``tests/test_torch_flash_bf16_d512_tiles.py``). (The f32 kernels at
+129-256 run on the tensor cores: ``tests/test_torch_flash_f32_wide_tiles.py``
+and ``tests/test_torch_flash_f32_dkv_split_tiles.py``; the bf16 forward
+and dq at 257-512: ``tests/test_torch_flash_bf16_d512_tiles.py``.) The
+launch
 wiring is checked with the kernel entries swapped for their plain
 versions, and the input checks on meta tensors. Inputs come from a numpy
 seed; f32 throughout, atol = rtol = 1e-5.
@@ -31,7 +35,7 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-5)
-WIDE_DIMS = [320, 512]  # wide in f32 for all three kernels
+WIDE_DIMS = [320, 512]  # wide in f32 for all three kernels (320 at 384)
 ROUTE_DIMS = [160, 256]  # padded to 192 and 256
 BT, DC, DS = 64, 64, 128  # tile rows, D chunk, D slice (flash_wide.cuh)
 # (B, H, T, causal, lengths); T = 80 leaves a ragged second 64-row tile,
