@@ -185,8 +185,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
     (the three kernels' wgmma instances at 192 and 256): D160, D192,
     D256 causal with a fully masked row, a non-causal
     ragged D256, B8 H8 T2048 D256 causal; past 256 D384 causal with a
-    fully masked row and a non-causal ragged D512 (the forward and dq on
-    their split wgmma instances at 384 and 512, dkv on the wide one) and
+    fully masked row, a non-causal ragged D512 and B8 H4 T2048 D512
+    causal (all three on their split wgmma instances at 384 and 512) and
     D576 (all three on the wide instances): each of
     o, dq, dk, dv at most 2x as far from the f32 plain version on the same
     bf16 values as the bf16 plain version is, plus one bf16 ulp of the
@@ -194,9 +194,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
     plain version's; a stale K/V stage planted in the plain version at
     the training shape must be refused; lse within 1e-4 of the plain
     version's; two launches at the training shape, at B8 H8 T2048
-    D256 and at D384 bitwise equal; registers, spills (none allowed) and
-    shared memory; in SASS every wgmma instance (all three at 64, 128,
-    192 and 256, the forward and dq at 384 and 512) runs HGMMA fed by
+    D256, at B8 H4 T2048 D512 and at D384 bitwise equal; registers,
+    spills (none allowed) and shared memory; in SASS every wgmma instance
+    (all three at 64, 128, 192, 256, 384 and 512) runs HGMMA fed by
     UTMALDG (TMA) and no HMMA; timed at B8 H8
     T2048 D128 beside the plain versions, the bound at the bf16
     tensor-core rate (TFLOP/s and share of it), the times of the mma.sync
@@ -205,7 +205,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
     forward, dq and dkv timed beside their plain versions, their bound,
     bf16 SDPA and the times of the wide f32-FMA instances that they
     ran there before, and the same past 256 (B2 H4 T1000 D384 and D512,
-    B8 H4 T2048 D512, causal) beside SDPA's memory-efficient backend
+    B8 H4 T2048 D512, causal) beside SDPA's memory-efficient backend, and
+    at B2 H4 T1000 D576 (the wide instances, past 512)
     (``--bf16-wide-times`` times just these);
     (b) bench.py's ``transformer`` (d1024 L8 H8 d_ff 4096 V16384, 8 x 2048
     tokens, Adam 1e-4) in f32: step 1 with the kernels against the plain
@@ -226,9 +227,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
     launches a step of each flash kernel on their D256 wgmma instances
     and none on the wide ones, printed beside (c), the same FLOPs at
     head dim 128; (e) the same width with 4 heads of 512 (d2048 L8 H4
-    d_ff 8192), the same gates, 8 launches a step of the forward and dq
-    on their D512 wgmma instances and none on the wide ones, and 8 of
-    dkv on its wide instance (``--per-layer-d512-only`` runs just (e)).
+    d_ff 8192), the same gates, 8 launches a step of each flash kernel
+    on its D512 wgmma instance and none on the wide ones (dkv as two
+    halves, dK and dV, on the grid's z axis), printed with step ms,
+    tokens/s and a profiled step's device time by kernel
+    (``--per-layer-d512-only`` runs just (e)).
 
 13. The reference benchmark's recurrent rows and its decode row, each
     part fatal on failure: bench.py's ``lstm`` (2 x LSTM text
@@ -454,8 +457,9 @@ PAD_CASES = [
 # them there
 WIDE_TIMED = (2, 4, 1000, 256, True, None)
 # B8 H8 T2048 D256 causal: the attention of the LMs at d2048 H8 (phase 6b,
-# 12d)
+# 12d); B8 H4 T2048 D512 causal: the per-layer LM's at d2048 H4 (12e)
 D256_TRAIN = (8, 8, 2048, 256, True, None)
+D512_TRAIN = (8, 4, 2048, 512, True, None)
 WIDE_CASES = [
     (2, 4, 1000, 160, True, [1000, 0]),
     (2, 4, 1000, 192, True, [1000, 0]),
@@ -3623,16 +3627,15 @@ PER_LAYER_WIDE = dict(TRAIN, d_model=2048, num_heads=16, d_ff=8192)
 PER_LAYER_D256 = dict(TRAIN, d_model=2048, num_heads=8, d_ff=8192)
 # transformer_wide's width with 4 heads of 512: head dim 512, past what
 # any configuration the reference ships reaches (its Pallas kernel takes
-# any head dim), the bf16 forward's and dq's D512 wgmma instances and the
-# wide dkv
+# any head dim): the three kernels' D512 wgmma instances
 PER_LAYER_D512 = dict(TRAIN, d_model=2048, num_heads=4, d_ff=8192)
 # (B, H, T, D, causal, lengths): both training shapes, the serving shape,
 # a ragged T = 1000 with lengths (a fully masked row), a non-causal case;
 # past D = 128 phase 3's D160 and D256 cases and D192 (causal, a fully
 # masked row), a non-causal ragged D256, the D256 training shape; past
-# 256 D384 (causal, a fully masked row) and D512 (the forward and dq on
-# their split wgmma instances, dkv wide), and D576 (all three kernels on
-# the wide instances)
+# 256 D384 (causal, a fully masked row), D512 and the D512 training shape
+# (all three kernels on their split wgmma instances), and D576 (all three
+# on the wide instances)
 BF16_FLASH_CASES = [
     (8, 8, 2048, 128, True, None),
     (8, 16, 2048, 128, True, None),
@@ -3646,37 +3649,44 @@ BF16_FLASH_CASES = [
     D256_TRAIN,
     (2, 4, 1000, 384, True, [1000, 0]),
     (2, 2, 300, 512, False, [300, 0]),
+    D512_TRAIN,
     (2, 2, 300, 576, False, [300, 0]),
 ]
+# the cases whose two launches must agree bitwise: the training shapes at
+# D128, D256 and D512 and the D384 case
+BF16_BITWISE_CASES = (BF16_FLASH_CASES[0], D256_TRAIN, D512_TRAIN,
+                      BF16_FLASH_CASES[-4])
 BF16_FLASH = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
               "flash_attention_bwd_dkv_bf16")
 BF16_FLASH_REPLACES = (229, 364, 386)
 # the bf16 flash kernel instances that run wgmma fed by TMA (all three at
-# D 64, 128, 192 and 256, the forward and dq at 384 and 512 too): in SASS,
-# HGMMA and UTMALDG and no HMMA (mma.sync); ptxas reports no spills
+# D 64, 128, 192, 256, 384 and 512): in SASS, HGMMA and UTMALDG and no
+# HMMA (mma.sync); ptxas reports no spills
 BF16_FLASH_SASS = tuple(f"flash_{k}_bf16_kernel<{d}>"
                         for k in ("fwd", "bwd_dq", "bwd_dkv")
-                        for d in (64, 128, 192, 256)) + tuple(
-    f"flash_{k}_bf16_kernel<{d}>" for k in ("fwd", "bwd_dq")
-    for d in (384, 512))
-# phase 3's shape at head dims 384 and 512 (the forward and dq on their
-# split wgmma instances, dkv wide; only SDPA's memory-efficient backend
-# takes these inputs), and the attention of the per-layer LM at d2048 H4
-# (12e): B8 H4 T2048 D512 causal
+                        for d in (64, 128, 192, 256, 384, 512))
+# phase 3's shape at head dims 384 and 512 (all three kernels on their
+# split wgmma instances; only SDPA's memory-efficient backend takes these
+# inputs), and the attention of the per-layer LM at d2048 H4 (12e): B8 H4
+# T2048 D512 causal; past 512 phase 3's shape at D576, where all three
+# run the wide instances
 WIDE_D384 = (2, 4, 1000, 384, True, None)
 WIDE_D512 = (2, 4, 1000, 512, True, None)
-D512_TRAIN = (8, 4, 2048, 512, True, None)
+WIDE_D576 = (2, 4, 1000, 576, True, None)
 # the shapes the bf16 trio is timed at past D = 128: phase 3's and
-# D256_TRAIN on the D256 wgmma instances, the rest past 256
-BF16_WIDE_TIMED = (WIDE_TIMED, D256_TRAIN, WIDE_D384, WIDE_D512, D512_TRAIN)
-BF16_D512_TIMED = BF16_WIDE_TIMED[2:]
+# D256_TRAIN on the D256 wgmma instances, the D384 and D512 ones on the
+# split instances, D576 on the wide ones
+BF16_WIDE_TIMED = (WIDE_TIMED, D256_TRAIN, WIDE_D384, WIDE_D512, D512_TRAIN,
+                   WIDE_D576)
+BF16_D512_TIMED = BF16_WIDE_TIMED[2:5]
 # the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
 # the bf16 forward, dq and dkv ran before their wgmma instances, at
-# BF16_WIDE_TIMED's shapes, on an NVIDIA H100 80GB HBM3 at 700 W
-# (``--bf16-wide-times`` once on the commit before each: the D256 shapes
-# before the forward's and dq's, then dkv's, wgmma instances there, the
-# rest before the forward's and dq's at 384 and 512; dkv still runs them
-# there); no FMA instance that was replaced is kept to time again
+# BF16_WIDE_TIMED's shapes up to 512, on an NVIDIA H100 80GB HBM3 at 700
+# W (``--bf16-wide-times`` once on the commit before each: the D256
+# shapes before the forward's and dq's, then dkv's, wgmma instances
+# there, the rest before the forward's and dq's at 384 and 512, and dkv's
+# there); no FMA instance that was replaced is kept to time again, and
+# past 512 the wide instances still run
 BF16_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.509, 0.816, 0.657),
                          D256_TRAIN: (8.634, 13.966, 20.948),
                          WIDE_D384: (0.839, 1.404, 1.648),
@@ -3790,10 +3800,11 @@ def _sdpa_fastest(F, q, k, v, do=None, required=True):
 
 def _bf16_wide_times(gpu_name, gen):
     """The bf16 forward, dq and dkv at each of BF16_WIDE_TIMED's shapes
-    (D256 and D512, causal): each timed beside its plain version, its
-    bound at the bf16 tensor-core rate and bf16 SDPA (its fastest
-    backend: the forward; the backward for dq and dkv together; none at
-    D512 where no backend takes the inputs). Returns {shape: [the three
+    (D256, D384, D512 and D576, causal): each timed beside its plain
+    version, its bound at the bf16 tensor-core rate and bf16 SDPA (its
+    fastest backend: the forward; the backward for dq and dkv together;
+    past 256 only the memory-efficient one takes the inputs, and past 512
+    perhaps none). Returns {shape: [the three
     kernels' rows]}. Only the flash wrappers' public entry points run, so
     the same lines time an earlier commit's instances."""
     import torch
@@ -3866,13 +3877,13 @@ def _worst(errs, name, got, plain):
 def bf16_flash_kernel_phase(gpu_name):
     """Phase 12a: the bf16 flash forward, dq and dkv against their plain
     versions (the gate above) at every case, two launches of each bitwise
-    equal at the training shapes (D128 and D256); registers and
-    tensor-core opcodes; then timed at B8 H8 T2048 D128 causal beside the
-    plain versions, the bound at the bf16 tensor-core rate and bf16 SDPA
-    (forward; backward for the pair), and at D256 (_bf16_wide_times)
-    beside the times of the FMA instances they replaced there. Returns
-    the three kernels' records, then the records of their D256
-    instances."""
+    equal at BF16_BITWISE_CASES; registers and tensor-core opcodes; then
+    timed at B8 H8 T2048 D128 causal beside the plain versions, the bound
+    at the bf16 tensor-core rate and bf16 SDPA (forward; backward for the
+    pair), and past D = 128 (_bf16_wide_times) beside the times of the
+    FMA instances they replaced there. Returns the three kernels'
+    records, then the records of their D256 and D512 instances and of
+    the wide dkv (past 512)."""
     import torch
     import torch.nn.functional as F
 
@@ -3965,9 +3976,8 @@ def bf16_flash_kernel_phase(gpu_name):
                       f"the plain version): {name} {_bf16_text(e)}; refused "
                       f"by max-abs {by_max}, by Frobenius {by_fro}")
             row["planted_stale_stage"] = planted
-        if first or (B, H, T, D, causal, lengths) in (D256_TRAIN,
-                                                       BF16_FLASH_CASES[-3]):
-            # the training shapes and D384: no atomics
+        if (B, H, T, D, causal, lengths) in BF16_BITWISE_CASES:
+            # no atomics
             o2, _ = fa.flash_forward(q, k, v, lens, causal, sm)
             g2 = fa.flash_backward(q, k, v, po, plse, do, lens, causal, sm)
             assert torch.equal(o2, o) and all(
@@ -3982,8 +3992,7 @@ def bf16_flash_kernel_phase(gpu_name):
         del q, k, v, do, o, lse, po, plse, grads
         torch.cuda.empty_cache()
     print("bf16 flash kernels: two launches on the same inputs bitwise equal "
-          "at B8 H8 T2048 D128 and D256 and at "
-          + _case_text(*BF16_FLASH_CASES[-3]))
+          "at " + ", ".join(_case_text(*c) for c in BF16_BITWISE_CASES))
 
     B, H, T, D, causal, _ = BF16_FLASH_CASES[0]
     q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
@@ -4045,20 +4054,21 @@ def bf16_flash_kernel_phase(gpu_name):
     del q, k, v, do, o, lse, di
     torch.cuda.empty_cache()
 
-    # past D = 128: the D256 instances on wgmma, the forward and dq at 384
-    # and 512 on their split wgmma instances, dkv there on the wide ones,
-    # each beside the FMA instances' times (the D384 and D512 shapes' on
-    # the commit before the split instances)
+    # past D = 128: the D256 instances on wgmma, the D384 and D512 ones on
+    # their split wgmma instances, each beside the FMA instances' times
+    # (the D384 and D512 shapes' on the commits before the split
+    # instances), and past 512 the wide ones
     wide = _bf16_wide_times(gpu_name, gen)
     for i, name in enumerate(BF16_FLASH):
         for shape, rows in wide.items():
+            if shape not in BF16_WIDE_PREVIOUS_MS:
+                continue
             was = BF16_WIDE_PREVIOUS_MS[shape][i]
             rows[i]["previous_ms"] = was
             print(f"{name} at {rows[i]['shape']}: {rows[i]['ms']:.3f} ms, "
                   f"was {_ms_text(was)} on the wide FMA instance"
                   + (f" ({was / rows[i]['ms']:.1f}x)" if was else ""))
-    d256 = {shape: rows for shape, rows in wide.items()
-            if shape not in BF16_D512_TIMED}
+    d256 = {shape: wide[shape] for shape in BF16_WIDE_TIMED[:2]}
     d512 = {shape: wide[shape] for shape in BF16_D512_TIMED}
 
     def record(i, suffix, errors, times, instances):
@@ -4077,14 +4087,14 @@ def bf16_flash_kernel_phase(gpu_name):
     for i in range(3):  # each timed at D256_TRAIN
         records.append(record(i, "d256", errs_d256, list(d256.values()),
                               ("<192>", "<256>")))
-    for i in range(2):  # the forward and dq timed at D512_TRAIN
+    for i in range(3):  # each timed at D512_TRAIN
         records.append(record(i, "d512", errs_d512, list(d512.values()),
                               ("<384>", "<512>")))
-    # the wide dkv, on the path of the per-layer LM at head dim 512
-    records.append(record(2, "wide", errs_wide, list(d512.values()), ()))
-    print("bf16 flash past D = 512 (all three wide; D384/D512 dkv wide): "
-          "max |kernel - plain| " + ", ".join(
-              f"{n} {errs_wide[n]:.3e}" for n in BF16_FLASH))
+    # the wide dkv, on the path of the per-layer LM at head dim 512 before
+    # its D384/D512 instances, now only past 512: timed at D576
+    records.append(record(2, "wide", errs_wide, [wide[WIDE_D576]], ()))
+    print("bf16 flash past D = 512 (all three wide): max |kernel - plain| "
+          + ", ".join(f"{n} {errs_wide[n]:.3e}" for n in BF16_FLASH))
     return records
 
 
@@ -4319,30 +4329,36 @@ def per_layer_phases(gpu_name):
 
 def per_layer_d512_phase(gpu_name, recs=None):
     """Phase 12e: the per-layer LM at d2048 L8 H4 (head dim 512) under AMP
-    (per_layer_lm_phase): 8 launches a step of the bf16 forward and dq,
-    on their D512 wgmma instances (none wide), and 8 of the wide dkv.
-    With phase 12a's records ``recs``, sets their launches: the D512
-    forward's and dq's, and the wide dkv's, a step."""
+    (per_layer_lm_phase): 8 launches a step of each bf16 flash kernel, on
+    its D512 wgmma instance, and none wide. With phase 12a's records
+    ``recs``, sets the D512 instances' launches a step (the wide dkv's
+    stay 0)."""
     c = PER_LAYER_D512
     out = per_layer_lm_phase(gpu_name, c, time_f32=False)
     amp = out["amp"]
     L = c["n_layers"]
     assert amp["launches_per_step"] == [L] * 3, amp["launches_per_step"]
-    assert amp["wide_launches_per_step"] == [0, 0, L], \
+    assert amp["wide_launches_per_step"] == [0, 0, 0], \
         amp["wide_launches_per_step"]
     print(f"per-layer d{c['d_model']} L{L} H{c['num_heads']} (D"
           f"{c['d_model'] // c['num_heads']}) AMP: bf16 flash launches a step "
           f"{amp['launches_per_step']}, on the wide instances "
-          f"{amp['wide_launches_per_step']} (the forward and dq on their "
-          f"D512 wgmma instances, dkv wide)")
+          f"{amp['wide_launches_per_step']} (all three on their D512 wgmma "
+          f"instances)")
+    prof = amp["profile"]
+    print(f"per-layer d{c['d_model']} L{L} H{c['num_heads']} AMP: step "
+          f"{amp['step_ms_median']:.1f} ms, {amp['tokens_per_s']:.0f} "
+          f"tokens/s; one profiled step's device time "
+          + (f"{prof['device_ms']:.1f} ms by kernel: " + ", ".join(
+              f"{g} {ms:.2f} ms ({prof['launches'][g]} launches)"
+              for g, ms in prof["kernels_ms"].items()) if prof
+             else "not measured"))
     if recs is not None:
         by_name = {r["name"]: r for r in recs}
-        by_name[BF16_FLASH[0] + "_d512"]["launches"] = \
-            amp["launches_per_step"][0] - amp["wide_launches_per_step"][0]
-        by_name[BF16_FLASH[1] + "_d512"]["launches"] = \
-            amp["launches_per_step"][1] - amp["wide_launches_per_step"][1]
-        by_name[BF16_FLASH[2] + "_wide"]["launches"] = \
-            amp["wide_launches_per_step"][2]
+        for i, name in enumerate(BF16_FLASH):
+            by_name[name + "_d512"]["launches"] = (
+                amp["launches_per_step"][i]
+                - amp["wide_launches_per_step"][i])
     return out
 
 

@@ -24,10 +24,9 @@
 // q, dO [BH, Tq, D]; k, v [BH, Tk, D] bf16; lse, Di [BH, Tq] f32; len
 // [BH] int32 -> o, dq [BH, Tq, D], dk, dv [BH, Tk, D] bf16. The wrapper
 // zero-pads D up to 64, 128 or a multiple of 64, and past 256 up to 384 or
-// 512: the `wgmma` instances take 64, 128, 192 and 256, and those of the
-// forward and dq 384 and 512 too; past them (and dkv past 256) the wide
-// instances run (flash_wide.cuh, instantiated for bf16: f32 FMA on the
-// CUDA cores).
+// 512: the `wgmma` instances take 64, 128, 192, 256, 384 and 512; past
+// them the wide instances run (flash_wide.cuh, instantiated for bf16: f32
+// FMA on the CUDA cores).
 // exp is taken as 2^x of x * log2(e) folded into the scale (ex2.approx,
 // relative error ~2^-22, far below P's bf16 rounding).
 //
@@ -35,7 +34,7 @@
 // forward does 4*D FLOPs per visible (q, k) pair, dq 6*D and dkv 8*D (69,
 // 103 and 137 GFLOP at D128; 137 and 206 GFLOP for the forward and dq at
 // D256, and 275 GFLOP for dkv there: the per-layer LM with 8 heads of
-// 256; the same 137 and 206 at B8 H4 T2048 D512, 4 heads of 512) on
+// 256; the same 137, 206 and 275 at B8 H4 T2048 D512, 4 heads of 512) on
 // ~0.1-0.4 GB: bound by
 // operations, at the tensor cores' bf16 rate (989 TFLOP/s), which only
 // `wgmma` reaches.
@@ -117,13 +116,17 @@
 //   the swizzle TMA reads, and one of its threads stores the boxes with a
 //   TMA store (rows past T are not written). Stores straight from
 //   registers, 4 bytes a lane over 8 rows, took 7% of the forward.
-// - Past D = 256 (the forward and dq; fwd_split, dq_split below) a block
-//   owns 64 q rows, shared by both consumers, and each consumer owns half
-//   of D of the output (128 f32 registers at D = 512): it forms S (and
-//   dP) over its half of D, the two f32 partials are exchanged through
-//   shared memory and summed, and each adds P V (dS K) for its half. K/V
-//   tiles are 32 keys in the forward and 16 in dq, so Q (and dO) for 64
-//   rows, two to four stages and the exchange fit.
+// - Past D = 256 (fwd_split, dq_split below) a block owns 64 q rows,
+//   shared by both consumers, and each consumer owns half of D of the
+//   output (128 f32 registers at D = 512): it forms S (and dP) over its
+//   half of D, the two f32 partials are exchanged through shared memory
+//   and summed, and each adds P V (dS K) for its half. K/V tiles are 32
+//   keys in the forward and 16 in dq, so Q (and dO) for 64 rows, two to
+//   four stages and the exchange fit. dkv there (dkv_half) is the same
+//   with q and k swapped, as two halves on the grid's z axis, since
+//   dK and dV together would take a consumer 256 registers at D = 512: a
+//   block owns 64 keys and computes dK (dq's products over 16-query Q/dO
+//   tiles) or dV (the forward's S^T and P^T dO over 32-query tiles).
 // - No atomics: each output element is summed by one thread in a fixed
 //   order, so two launches on the same inputs agree bitwise.
 // Budget (ptxas, sm_90a): 168 registers a thread at launch (384 threads,
@@ -148,7 +151,13 @@
 // stages of 64 KB); dq 229,448 at D = 384 (Q and dO 96 KB, four stages
 // of 16-key K and V, 24 KB each, the exchange buffers of S and dP
 // partials 32 KB) and 229,416 at D = 512 (Q and dO 128 KB, two stages of
-// 32 KB).
+// 32 KB); dkv's dK half 229,960 at D = 384 (K and V 96 KB, four stages of
+// 16-query Q and dO, 24 KB each, with their lse and Di, the exchange
+// buffers of S^T and dP^T partials 32 KB) and 229,672 at D = 512 (K and V
+// 128 KB, two stages of 32 KB), its dV half 229,816 at D = 384 (K 48 KB,
+// three stages of 32-query Q and dO, 48 KB each, with their lse, the
+// exchange buffers of S^T partials 32 KB) and 229,672 at D = 512 (K 64
+// KB, two stages of 64 KB); a dkv launch asks for the larger half's.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -551,26 +560,19 @@ struct DkvBlock {
 };
 
 // In place, this thread's entries of a warpgroup's [64 keys, N queries]
-// S^T and dP^T tiles (keys row[0] and row[1], queries q + 8j + 2t and +
-// 1, their lse and Di at lse_s and di_s): P^T = exp(s sm_scale - lse),
-// 0 where masked (checked only on an edge tile), and dS^T = P^T (dP^T -
-// Di), both f32.
+// S^T tile (keys row[0] and row[1], queries q + 8j + 2t and + 1, their
+// lse at lse_s): P^T = exp(s sm_scale - lse) in f32, 0 where masked
+// (checked only on an edge tile).
 template <int N>
-__device__ __forceinline__ void dkv_p_ds(float (&sp)[N / 2],
-                                         float (&dp)[N / 2],
-                                         const float* lse_s,
-                                         const float* di_s,
-                                         const int (&row)[2], int q, int t,
-                                         float c, bool edge,
-                                         const DkvBlock& a) {
+__device__ __forceinline__ void dkv_p(float (&sp)[N / 2], const float* lse_s,
+                                      const int (&row)[2], int q, int t,
+                                      float c, bool edge, const DkvBlock& a) {
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
     const float2 lz = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
-    const float2 dz = *reinterpret_cast<const float2*>(di_s + 8 * j + 2 * t);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const float lse_c = (e & 1) ? lz.y : lz.x;
-      const float di_c = (e & 1) ? dz.y : dz.x;
       float p = ex2(fmaf(sp[4 * j + e], c, -lse_c * LOG2E));
       if (edge) {
         const int q_pos = q + 8 * j + 2 * t + (e & 1);
@@ -579,8 +581,29 @@ __device__ __forceinline__ void dkv_p_ds(float (&sp)[N / 2],
             (a.causal && q_pos < k_pos))
           p = 0.f;
       }
-      dp[4 * j + e] = p * (dp[4 * j + e] - di_c);
       sp[4 * j + e] = p;
+    }
+  }
+}
+
+// ... and the dP^T tile beside it (Di at di_s): dS^T = P^T (dP^T - Di),
+// f32.
+template <int N>
+__device__ __forceinline__ void dkv_p_ds(float (&sp)[N / 2],
+                                         float (&dp)[N / 2],
+                                         const float* lse_s,
+                                         const float* di_s,
+                                         const int (&row)[2], int q, int t,
+                                         float c, bool edge,
+                                         const DkvBlock& a) {
+  dkv_p<N>(sp, lse_s, row, q, t, c, edge, a);
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 dz = *reinterpret_cast<const float2*>(di_s + 8 * j + 2 * t);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float di_c = (e & 1) ? dz.y : dz.x;
+      dp[4 * j + e] = sp[4 * j + e] * (dp[4 * j + e] - di_c);
     }
   }
 }
@@ -784,21 +807,16 @@ __device__ __forceinline__ void dkv_split(const DkvBlock& a, int b0) {
   store_tile<DN>(a.dvmap, vt, L::KV_BOX, a.k0, a.bh, cw, b0);
 }
 
+// A dkv block up to D = 256 (DkvRing): the producer warp and the
+// consumers of dkv_rows or dkv_split.
 template <int D>
-__global__ void __launch_bounds__(WS_THREADS, 1)
-    flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
-                              const __grid_constant__ CUtensorMap kmap,
-                              const __grid_constant__ CUtensorMap vmap,
-                              const __grid_constant__ CUtensorMap domap,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ di,
-                              const __grid_constant__ CUtensorMap dkmap,
-                              const __grid_constant__ CUtensorMap dvmap,
-                              const int* __restrict__ lens, int Tq, int Tk,
-                              int causal, float sm_scale) {
+__device__ __forceinline__ void dkv_block(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* di, const CUtensorMap* dkmap, const CUtensorMap* dvmap,
+    const int* lens, int Tq, int Tk, int causal, float sm_scale) {
   using L = DkvRing<D>;
   constexpr int NQ = DKV_QUERIES;
-  extern __shared__ __align__(1024) unsigned char smem[];
   float* stats = reinterpret_cast<float*>(smem + L::STATS);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* full = kv_full + 1;
@@ -831,8 +849,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         mbar_expect(kv_full, L::RING);
 #pragma unroll
         for (int b = 0; b < L::NB; ++b) {
-          tma_load_3d(smem + b * L::KV_BOX, &kmap, 64 * b, k0, bh, kv_full);
-          tma_load_3d(smem + L::V + b * L::KV_BOX, &vmap, 64 * b, k0, bh,
+          tma_load_3d(smem + b * L::KV_BOX, kmap, 64 * b, k0, bh, kv_full);
+          tma_load_3d(smem + L::V + b * L::KV_BOX, vmap, 64 * b, k0, bh,
                       kv_full);
         }
       }
@@ -855,9 +873,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           mbar_expect(&full[s], L::STAGE);
 #pragma unroll
           for (int b = 0; b < L::NB; ++b) {
-            tma_load_3d(qs + b * L::QD_BOX, &qmap, 64 * b, qb * NQ, bh,
+            tma_load_3d(qs + b * L::QD_BOX, qmap, 64 * b, qb * NQ, bh,
                         &full[s]);
-            tma_load_3d(qs + L::DO + b * L::QD_BOX, &domap, 64 * b, qb * NQ,
+            tma_load_3d(qs + L::DO + b * L::QD_BOX, domap, 64 * b, qb * NQ,
                         bh, &full[s]);
           }
         }
@@ -867,9 +885,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
   setmaxnreg_inc<240>();
 
-  const DkvBlock blk{smem, stats, kv_full, full,  empty, &dkmap,
-                     &dvmap, bh, k0, length, n_q, first, Tq, causal,
-                     sm_scale};
+  const DkvBlock blk{smem, stats, kv_full, full, empty, dkmap, dvmap, bh,
+                     k0, length, n_q, first, Tq, causal, sm_scale};
   if constexpr (!L::SPLIT) {
     dkv_rows<D>(blk);
   } else if constexpr (2 * L::H0 == D) {  // D = 256: one half each
@@ -1023,26 +1040,31 @@ constexpr int split_fwd_stages(int D) { return D <= 384 ? 3 : 2; }
 constexpr int split_dq_stages(int D) { return D <= 384 ? 4 : 2; }
 
 // Shared memory, in bytes, of a split kernel at head dim D: the OWNED
-// tiles of 64 rows (Q; Q and dO) as NB = D / 64 boxes each, each stage's
-// K and V boxes of K keys, the two exchange buffers (each consumer's
-// PARTS partials of [64, K] f32), then the barriers.
-template <int D, int K, int S, int OWNED, int PARTS>
+// tiles of 64 rows (Q; Q and dO; in dkv K, or K and V) as NB = D / 64
+// boxes each, each stage's streamed pair (K and V; in dkv Q and dO) of K
+// rows, the two exchange buffers (each consumer's PARTS partials of [64,
+// K] f32), each stage's STATS f32 values a streamed row (dkv's lse, and
+// Di), then the barriers.
+template <int D, int K, int S, int OWNED, int PARTS, int STATS = 0>
 struct SplitRing {
-  static constexpr int ROWS = SPLIT_OWN;  // q rows a block owns
-  static constexpr int KEYS = K;
+  static constexpr int ROWS = SPLIT_OWN;  // rows a block owns
+  static constexpr int KEYS = K;          // rows of a streamed tile
   static constexpr int STAGES = S;
+  static constexpr int OWNED_TILES = OWNED;
+  static constexpr int NSTAT = STATS;
   static constexpr int NB = D / 64;
   static constexpr int NBH = NB / 2;  // a consumer's boxes of D
   static constexpr int DH = D / 2;
   static constexpr int Q_BOX = SPLIT_OWN * ROW_BYTES;
   static constexpr int KV_BOX = KEYS * ROW_BYTES;
-  static constexpr int RING = OWNED * NB * Q_BOX;  // stage s: RING + s STAGE
-  static constexpr int V = NB * KV_BOX;            // V inside a stage
+  static constexpr int RING = OWNED_TILES * NB * Q_BOX;  // + s STAGE: stage s
+  static constexpr int V = NB * KV_BOX;  // V (dkv: dO) inside a stage
   static constexpr int STAGE = 2 * NB * KV_BOX;
   static constexpr int XCH = RING + STAGES * STAGE;  // buffer b at + b XBUF
   static constexpr int XHALF = PARTS * SPLIT_OWN * KEYS * 4;  // a consumer's
   static constexpr int XBUF = 2 * XHALF;
-  static constexpr int BARS = XCH + 2 * XBUF;
+  static constexpr int STAT = XCH + 2 * XBUF;  // stage s: + s STATS KEYS 4
+  static constexpr int BARS = STAT + STAGES * NSTAT * KEYS * 4;
   static constexpr int BYTES = BARS + (1 + 2 * STAGES) * 8;
   static_assert(NB % 2 == 0, "each consumer owns whole boxes of D");
   static_assert(Q_BOX % 1024 == 0 && KV_BOX % 1024 == 0,
@@ -1311,6 +1333,254 @@ __device__ __forceinline__ void dq_split(
   store_tile<L::DH>(dqmap, qt, L::Q_BOX, q0, bh, cw, b0);
 }
 
+// --- past D = 256: dkv as two halves, dK and dV, with D split ------------
+
+// Past D = 256 (dkv at 384 and 512) dK and dV of 64 keys in f32 are D
+// values a key each, the SM's whole register file at D = 512, and K, V
+// and one stage of 64-query Q/dO tiles 256 KB there. So a block owns 64
+// keys and computes one of the two outputs, the grid's z axis: z = 0 dK
+// (DkHalf), z = 1 dV (DvHalf). Each is the split layout above with the
+// roles of q and k swapped: the owned tiles are the keys' (K and V; K),
+// the streamed pair is a Q/dO tile (16 queries; 32) with its lse and Di
+// (lse) copied beside it by the producer warp's cp.async, and consumer
+// cw owns boxes NBH cw .. NBH cw + NBH - 1 of the output (128 f32
+// registers at D = 512), and holds its half of K as the register A of S^T
+// (64 registers at D = 512, read from shared memory once: 5% faster at B8
+// H4 T2048 D512 than K read by every S^T product, PERF.md §6):
+// - dK (dq_split transposed): S^T = K Q^T and dP^T = V dO^T over the
+//   consumer's half of D, the f32 partials exchanged and summed, dS^T =
+//   P^T (dP^T - Di) rounded to bf16 into the register A, dK += dS^T Q;
+// - dV (fwd_split transposed, without the online softmax): S^T's
+//   partials exchanged and summed, P^T = exp(S^T sm_scale - lse) rounded
+//   into the register A, dV += P^T dO.
+// S^T is formed in both: 10 D FLOPs a visible (q, k) pair against dkv's
+// 8 D, on blocks that each hold half of the work.
+template <int D>
+using DkHalf = SplitRing<D, 16, split_dq_stages(D), 2, 2, 2>;
+template <int D>
+using DvHalf = SplitRing<D, 32, split_fwd_stages(D), 1, 1, 1>;
+constexpr int HALF_BOX_ROWS = 16;  // rows of a Q/dO box, both halves
+
+// This thread's register A (WgmmaBf16Rs) of N / 16 k16 steps of a
+// warpgroup's [64, N] bf16 tile in shared memory, K-major in boxes of 64
+// columns `box` bytes apart in the 128-byte swizzle (as TMA lays it):
+// rows 16 w + g and + 8, columns 16 kk + 2t, + 1 and 16 kk + 2t + 8, + 9.
+template <int N>
+__device__ __forceinline__ void load_a(uint32_t (&a)[N / 16][4],
+                                       const unsigned char* tile, int box,
+                                       int warp, int g, int t) {
+  const int r = 16 * warp + g;
+  const unsigned char* row = tile + r * ROW_BYTES + 4 * t;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const unsigned char* lo = row + (kk / 4) * box +
+                              (((2 * (kk % 4)) ^ (r % 8)) << 4);
+    const unsigned char* hi = row + (kk / 4) * box +
+                              (((2 * (kk % 4) + 1) ^ (r % 8)) << 4);
+    a[kk][0] = *reinterpret_cast<const uint32_t*>(lo);
+    a[kk][1] = *reinterpret_cast<const uint32_t*>(lo + 8 * ROW_BYTES);
+    a[kk][2] = *reinterpret_cast<const uint32_t*>(hi);
+    a[kk][3] = *reinterpret_cast<const uint32_t*>(hi + 8 * ROW_BYTES);
+  }
+}
+
+// The producer warp of a dkv half L: the block's 64 keys of K (and, in
+// dK, V) once, then Q/dO tiles first .. n_q - 1 of L::KEYS queries (in
+// boxes of HALF_BOX_ROWS rows, which stack into the swizzle of one box as
+// tall as the tile), tile i into stage i % STAGES once the consumers have
+// emptied it, with its lse (and Di) copied beside it (zeros past Tq).
+template <class L>
+__device__ __forceinline__ void stream_qdo(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* di, uint64_t* own_full, uint64_t* full, uint64_t* empty,
+    int bh, int k0, int first, int n_q, int Tq) {
+  constexpr int NQ = L::KEYS;
+  const int lane = threadIdx.x;
+  float* stats = reinterpret_cast<float*>(smem + L::STAT);
+  if (lane == 0) {
+    mbar_expect(own_full, L::RING);
+#pragma unroll
+    for (int b = 0; b < L::NB; ++b) {
+      tma_load_3d(smem + b * L::Q_BOX, kmap, 64 * b, k0, bh, own_full);
+      if constexpr (L::OWNED_TILES == 2)
+        tma_load_3d(smem + (L::NB + b) * L::Q_BOX, vmap, 64 * b, k0, bh,
+                    own_full);
+    }
+  }
+  for (int qb = first; qb < n_q; ++qb) {
+    const int i = qb - first;
+    const int s = i % L::STAGES;
+    if (i >= L::STAGES) mbar_wait(&empty[s], (i / L::STAGES - 1) & 1);
+    float* st = stats + s * L::NSTAT * NQ;
+#pragma unroll
+    for (int c = lane; c < NQ; c += 32) {
+      const int qr = qb * NQ + c;
+      const size_t at = (size_t)bh * Tq + (qr < Tq ? qr : 0);
+      cp_async4(st + c, lse + at, qr < Tq);
+      if constexpr (L::NSTAT == 2) cp_async4(st + NQ + c, di + at, qr < Tq);
+    }
+    cp_async_arrive(&full[s]);
+    if (lane == 0) {
+      unsigned char* qs = smem + L::RING + s * L::STAGE;
+      mbar_expect(&full[s], L::STAGE);
+#pragma unroll
+      for (int b = 0; b < L::NB; ++b)
+#pragma unroll
+        for (int r = 0; r < NQ; r += HALF_BOX_ROWS) {
+          tma_load_3d(qs + b * L::KV_BOX + r * ROW_BYTES, qmap, 64 * b,
+                      qb * NQ + r, bh, &full[s]);
+          tma_load_3d(qs + L::V + b * L::KV_BOX + r * ROW_BYTES, domap,
+                      64 * b, qb * NQ + r, bh, &full[s]);
+        }
+    }
+  }
+}
+
+// The consumers of a dkv half past D = 256 (DK: DkHalf, else DvHalf):
+// both own the block's 64 keys, each DH columns of dK (dV).
+template <int D, bool DK>
+__device__ __forceinline__ void dkv_half_consumers(const DkvBlock& a) {
+  using L = std::conditional_t<DK, DkHalf<D>, DvHalf<D>>;
+  constexpr int NQ = L::KEYS;
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b0 = cw * L::NBH;  // this consumer's first box of D
+  const int row[2] = {a.k0 + 16 * warp + g, a.k0 + 16 * warp + g + 8};
+  const float c = a.sm_scale * LOG2E;
+  float acc[L::DH / 2];
+#pragma unroll
+  for (int e = 0; e < L::DH / 2; ++e) acc[e] = 0.f;
+
+  if (a.first < a.n_q) mbar_wait(a.kv_full, 0);
+  uint32_t ka[L::DH / 16][4];  // this consumer's half of K, S^T's A
+  load_a<L::DH>(ka, a.smem + b0 * L::Q_BOX, L::Q_BOX, warp, g, t);
+  for (int qb = a.first; qb < a.n_q; ++qb) {
+    const int i = qb - a.first;
+    const int s = i % L::STAGES;
+    mbar_wait(&a.full[s], (i / L::STAGES) & 1);
+    const unsigned char* qs = a.smem + L::RING + s * L::STAGE;
+    const unsigned char* dos = qs + L::V;
+    const uint64_t dqk =
+        sw128_desc(reinterpret_cast<const float*>(qs + b0 * L::KV_BOX));
+    // partials of S^T (and dP^T), then P^T (and dS^T)
+    float sp[NQ / 2], dp[DK ? NQ / 2 : 1];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < L::DH / 16; ++kk)  // S^T = K Q^T
+      WgmmaBf16Rs<NQ, 0>::mma(sp, ka[kk], k_step(dqk, kk, L::KV_BOX), kk);
+    if constexpr (DK) {  // V's half, resident after K's boxes
+      const uint64_t dva = sw128_desc(reinterpret_cast<const float*>(
+          a.smem + (L::NB + b0) * L::Q_BOX));
+      const uint64_t ddk =
+          sw128_desc(reinterpret_cast<const float*>(dos + b0 * L::KV_BOX));
+#pragma unroll
+      for (int kk = 0; kk < L::DH / 16; ++kk)  // dP^T = V dO^T
+        WgmmaBf16<NQ, 0>::mma(dp, k_step(dva, kk, L::Q_BOX),
+                              k_step(ddk, kk, L::KV_BOX), kk);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sp);
+    fence_regs(dp);
+    fence_frags(ka);
+    float4* x =
+        reinterpret_cast<float4*>(a.smem + L::XCH + (i % 2) * L::XBUF) + tid;
+    float4* mine = x + cw * (L::XHALF / 16);
+    float4* theirs = x + (1 - cw) * (L::XHALF / 16);
+    xch_put<NQ / 2>(mine, sp, 0);
+    if constexpr (DK) xch_put<NQ / 2>(mine, dp, NQ / 8);
+    consumers_sync();
+    xch_add<NQ / 2>(theirs, sp, 0);
+    if constexpr (DK) xch_add<NQ / 2>(theirs, dp, NQ / 8);
+
+    const int q0 = qb * NQ;
+    const float* lse_s = a.stats + s * L::NSTAT * NQ;
+    const bool edge = a.k0 + 64 > a.length || q0 + NQ > a.Tq ||
+                      (a.causal && q0 < a.k0 + 63);
+    uint32_t pa[NQ / 16][4];  // bf16(dS^T) or bf16(P^T), the A of the output
+    if constexpr (DK) {
+      dkv_p_ds<NQ>(sp, dp, lse_s, lse_s + NQ, row, q0, t, c, edge, a);
+      pack_a<NQ>(pa, dp);
+    } else {
+      dkv_p<NQ>(sp, lse_s, row, q0, t, c, edge, a);
+      pack_a<NQ>(pa, sp);
+    }
+    // dK += dS^T Q, dV += P^T dO
+    const uint64_t bm =
+        sw128_mn_desc((DK ? qs : dos) + b0 * L::KV_BOX, L::KV_BOX);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NQ / 16; ++kk)
+      WgmmaBf16Rs<L::DH>::mma(acc, pa[kk], bm + 128 * kk, 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_frags(pa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&a.empty[s]);  // this warp is done with it
+  }
+
+  // dk (dv) through this consumer's boxes of K, which only its own
+  // load_a read
+  unsigned char* out = a.smem + b0 * L::Q_BOX;
+  const float scale[2] = {DK ? a.sm_scale : 1.f, DK ? a.sm_scale : 1.f};
+  stage_tile<L::DH>(out, L::Q_BOX, acc, scale, warp, g, t);
+  store_tile<L::DH>(DK ? a.dkmap : a.dvmap, out, L::Q_BOX, a.k0, a.bh, cw,
+                    b0);
+}
+
+// A dkv block past D = 256: half DK (dK, else dV) of the 64 keys from
+// blockIdx.y * 64 on, its query tiles from the causal bound.
+template <int D, bool DK>
+__device__ __forceinline__ void dkv_half(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* domap, const float* lse,
+    const float* di, const CUtensorMap* dkmap, const CUtensorMap* dvmap,
+    const int* lens, int Tq, int Tk, int causal, float sm_scale) {
+  using L = std::conditional_t<DK, DkHalf<D>, DvHalf<D>>;
+  constexpr int NQ = L::KEYS;
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + L::STAGES;
+
+  // the low k tiles, which causal queries see most, come first
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * L::ROWS;
+  const int length = max(0, min(lens[bh], Tk));
+  const int n_q = (Tq + NQ - 1) / NQ;
+  // a k tile wholly past the length is seen by no query: its output is 0
+  const int first = k0 >= length ? n_q : (causal ? k0 / NQ : 0);
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA's arrival, the warp's copies
+      mbar_init(&empty[s], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // the producer: warp 0
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32 && first < n_q)
+      stream_qdo<L>(smem, qmap, kmap, vmap, domap, lse, di, own_full, full,
+                    empty, bh, k0, first, n_q, Tq);
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const float* stats = reinterpret_cast<const float*>(smem + L::STAT);
+  const DkvBlock blk{smem, stats, own_full, full, empty, dkmap, dvmap, bh,
+                     k0, length, n_q, first, Tq, causal, sm_scale};
+  dkv_half_consumers<D, DK>(blk);
+}
+
 template <int D>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -1350,6 +1620,32 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 }
 
 template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const __grid_constant__ CUtensorMap domap,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ di,
+                              const __grid_constant__ CUtensorMap dkmap,
+                              const __grid_constant__ CUtensorMap dvmap,
+                              const int* __restrict__ lens, int Tq, int Tk,
+                              int causal, float sm_scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  if constexpr (D > 256) {
+    if (blockIdx.z == 0)
+      dkv_half<D, true>(smem, &qmap, &kmap, &vmap, &domap, lse, di, &dkmap,
+                        &dvmap, lens, Tq, Tk, causal, sm_scale);
+    else
+      dkv_half<D, false>(smem, &qmap, &kmap, &vmap, &domap, lse, di, &dkmap,
+                         &dvmap, lens, Tq, Tk, causal, sm_scale);
+  } else {
+    dkv_block<D>(smem, &qmap, &kmap, &vmap, &domap, lse, di, &dkmap, &dvmap,
+                 lens, Tq, Tk, causal, sm_scale);
+  }
+}
+
+template <int D>
 cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
                        const int* lens, bf16* o, float* lse, int BH, int Tq,
                        int Tk, int causal, float sm_scale,
@@ -1376,13 +1672,33 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
+// A dkv launch at head dim D: keys a block, rows of a Q/dO box, shared
+// memory and blocks on the grid's z axis; up to D = 256 DkvRing's, past
+// it the dK and dV halves'.
+template <int D, bool SPLIT = (D > 256)>
+struct DkvGrid {
+  static constexpr int KEYS = DkvRing<D>::KEYS;
+  static constexpr int Q_ROWS = DKV_QUERIES;
+  static constexpr int BYTES = DkvRing<D>::BYTES;
+  static constexpr int HALVES = 1;
+};
+template <int D>
+struct DkvGrid<D, true> {
+  static constexpr int KEYS = SPLIT_OWN;
+  static constexpr int Q_ROWS = HALF_BOX_ROWS;
+  static constexpr int BYTES = DkHalf<D>::BYTES > DvHalf<D>::BYTES
+                                   ? DkHalf<D>::BYTES
+                                   : DvHalf<D>::BYTES;
+  static constexpr int HALVES = 2;
+};
+
 template <int D>
 cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
                        const bf16* dout, const float* lse, const float* di,
                        const int* lens, bf16* dk, bf16* dv, int BH, int Tq,
                        int Tk, int causal, float sm_scale,
                        cudaStream_t stream) {
-  using L = DkvRing<D>;
+  using L = DkvGrid<D>;
   constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap qmap = {}, kmap = {}, vmap = {}, domap = {};  // Tq = 0: none
   CUtensorMap dkmap = {}, dvmap = {};
@@ -1394,15 +1710,15 @@ cudaError_t launch_dkv(const bf16* q, const bf16* k, const bf16* v,
   if (err == cudaSuccess)
     err = tensor_map_3d(&dvmap, dv, BF16, 2, D, Tk, BH, 64, 64);
   if (err == cudaSuccess && Tq > 0)
-    err = tensor_map_3d(&qmap, q, BF16, 2, D, Tq, BH, 64, DKV_QUERIES);
+    err = tensor_map_3d(&qmap, q, BF16, 2, D, Tq, BH, 64, L::Q_ROWS);
   if (err == cudaSuccess && Tq > 0)
-    err = tensor_map_3d(&domap, dout, BF16, 2, D, Tq, BH, 64, DKV_QUERIES);
+    err = tensor_map_3d(&domap, dout, BF16, 2, D, Tq, BH, 64, L::Q_ROWS);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dkv_bf16_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              L::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tk + L::KEYS - 1) / L::KEYS);
+  const dim3 grid(BH, (Tk + L::KEYS - 1) / L::KEYS, L::HALVES);
   flash_bwd_dkv_bf16_kernel<D><<<grid, WS_THREADS, L::BYTES, stream>>>(
       qmap, kmap, vmap, domap, lse, di, dkmap, dvmap, lens, Tq, Tk, causal,
       sm_scale);
@@ -1445,9 +1761,9 @@ bool wide_d(int D) { return D > 128 && D % wide::DC == 0; }
 
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
-// a cudaError_t (0 = launched). D is a multiple of 64: 64, 128, 192 and
-// 256 launch the wgmma instances, and 384 and 512 those of the forward
-// and dq; every other D past 256 (and dkv's past 256) the wide ones.
+// a cudaError_t (0 = launched). D is a multiple of 64: 64, 128, 192, 256,
+// 384 and 512 launch the wgmma instances, every other D past 256 the wide
+// ones.
 extern "C" int paddle_flash_attention_fwd_bf16(
     const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* o,
     float* lse, int BH, int Tq, int Tk, int D, int causal, float sm_scale,
@@ -1526,6 +1842,12 @@ extern "C" int paddle_flash_attention_bwd_dkv_bf16(
   if (D == 256)
     return (int)launch_dkv<256>(q, k, v, dout, lse, di, lens, dk, dv, BH, Tq,
                                 Tk, causal, sm_scale, s);
+  if (D == 384)
+    return (int)launch_dkv<384>(q, k, v, dout, lse, di, lens, dk, dv, BH, Tq,
+                                Tk, causal, sm_scale, s);
+  if (D == 512)
+    return (int)launch_dkv<512>(q, k, v, dout, lse, di, lens, dk, dv, BH, Tq,
+                                Tk, causal, sm_scale, s);
   if (wide_d(D))
     return (int)launch_dkv_wide<bf16>(q, k, v, dout, lse, di, lens, dk, dv,
                                       BH, Tq, Tk, D, causal, sm_scale, s);
@@ -1543,11 +1865,13 @@ extern "C" int paddle_flash_attention_bf16_smem_bytes(int which, int D) {
                       DkvRing<192>::BYTES, DkvRing<256>::BYTES};
   if (D > 0 && D % 64 == 0 && D <= 256)  // wgmma
     return (which == 0 ? fwd : which == 1 ? dq : dkv)[D / 64 - 1];
-  if ((D == 384 || D == 512) && which < 2)  // wgmma, D split
-    return which == 0 ? (D == 384 ? FwdSplit<384>::BYTES
-                                  : FwdSplit<512>::BYTES)
-                      : (D == 384 ? DqSplit<384>::BYTES
-                                  : DqSplit<512>::BYTES);
+  if (D == 384 || D == 512)  // wgmma, D split
+    return which == 0   ? (D == 384 ? FwdSplit<384>::BYTES
+                                    : FwdSplit<512>::BYTES)
+           : which == 1 ? (D == 384 ? DqSplit<384>::BYTES
+                                    : DqSplit<512>::BYTES)
+                        : (D == 384 ? DkvGrid<384>::BYTES
+                                    : DkvGrid<512>::BYTES);
   if (wide_d(D))
     return which == 0 ? wide::FWD_BYTES
                       : which == 1 ? wide::DQ_BYTES : wide::DKV_BYTES;

@@ -1,7 +1,7 @@
 // bf16 `wgmma` for the port's bf16 (AMP) kernels (conv_epilogue.cu,
 // flash_attention_bf16.cu): the m64nNk16 shapes they use with both
 // operands in shared memory (B K-major or MN-major; N 16, 32, 48, 64, 128) or
-// with A in registers (N 64, 128, 192, 256), and the descriptor of an
+// with A in registers (N 16, 32, 64, 128, 192, 256), and the descriptor of an
 // MN-major B tile. A K-major tile
 // (rows of 128 bytes, 64 bf16 values along K) uses `sw128_desc`
 // (wgmma_tf32.cuh): the 128-byte swizzle is the same for any element
@@ -151,7 +151,8 @@ struct WgmmaBf16<16, TB> {
 };
 
 // d (+)= A . B for one warpgroup with A [64, 16] bf16 from registers and
-// B [16, N] bf16 MN-major from its descriptor. This thread's A: the rows
+// B [16, N] bf16 from its descriptor, MN-major (TB = 1, the default; N
+// 64, 128, 192, 256) or K-major (TB = 0; N 16, 32). This thread's A: the rows
 // 16 w + g and 16 w + g + 8 of warp w (g = lane / 4, t = lane % 4), k 2t,
 // 2t + 1 in a[0] (row g) and a[1] (row g + 8), k 2t + 8, 2t + 9 in a[2]
 // and a[3], the lower k in the low half: mma.m16n8k16's A fragment. So
@@ -159,8 +160,45 @@ struct WgmmaBf16<16, TB> {
 // and packed in pairs ({d[8c], d[8c + 1]}, {d[8c + 2], d[8c + 3]},
 // {d[8c + 4], d[8c + 5]}, {d[8c + 6], d[8c + 7]}), are the A of one k16
 // step. Call wgmma_fence() after writing a and before the first product.
-template <int BN>
+template <int BN, int TB = 1>
 struct WgmmaBf16Rs;
+
+template <int TB>
+struct WgmmaBf16Rs<32, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaBf16Rs<16, TB> {
+  static __device__ __forceinline__ void mma(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TB));
+  }
+};
 
 template <>
 struct WgmmaBf16Rs<128> {

@@ -48,17 +48,20 @@ for every kernel. In bf16 all three kernels run it on ``wgmma`` up to
 accumulator as wide as D and K/V tiles narrowed to fit; dkv with 64
 owned keys shared by both consumer warpgroups, each forming P^T and dS^T
 for half the queries and accumulating dK and dV for its boxes of D), and
-the forward and dq at 384 and 512 too (64 q rows a block, each consumer
-warpgroup owning half of D of the output and forming S, and dP, over
-that half; the f32 partials exchanged through shared memory and summed;
-32-key tiles in the forward, 16-key ones in dq). In
+all three at 384 and 512 too (the forward and dq with 64 q rows a
+block, each consumer warpgroup owning half of D of the output and
+forming S, and dP, over that half; the f32 partials exchanged through
+shared memory and summed; 32-key tiles in the forward, 16-key ones in
+dq; dkv with 64 keys a block, as two halves on the grid's z axis: dK
+over 16-query Q/dO tiles, dV over 32-query ones, each consumer forming
+S^T, and dP^T, over its half of D). In
 f32 all three run 192 and 256 on the tensor cores as 3xTF32: the
 forward and dq with 64 q rows a block and 16-key tiles, dkv with 64 keys
 a block and 16-query tiles; each warpgroup owns half of D of the output
 and forms S (and dP; S^T and dP^T in dkv) over that half, the partial
 products exchanged through shared memory. Past those the wide instances
-run (``csrc/flash_wide.cuh``: bf16 dkv and every f32 kernel past 256,
-the bf16 forward and dq past 512): every product over D sums 64-column
+run (``csrc/flash_wide.cuh``: every f32 kernel past 256, every bf16 one
+past 512): every product over D sums 64-column
 chunks staged through shared memory, and each output's D axis is cut
 into 128-wide slices on the grid's z axis, each block
 recomputing S for its own slice (``_kernel_instance`` says which runs;
@@ -302,10 +305,10 @@ def _aligned(t):
 # the head dims the tensor-core kernels are built for; the wrappers pad
 # up to them, and past the last one to a multiple of _WIDE_D (192 and 256
 # on the tensor cores where _TENSOR_CORE_HEAD_DIM says so, else the wide
-# instances), in 257-512 to one of _SPLIT_HEAD_DIMS: the bf16 forward's
-# and dq's instances there, which split D into two halves of whole
-# 64-column boxes between their consumer warpgroups (every other kernel
-# takes them on its wide instances)
+# instances), in 257-512 to one of _SPLIT_HEAD_DIMS: the bf16 kernels'
+# instances there, which split D into two halves of whole 64-column boxes
+# between their consumer warpgroups (the f32 kernels take them on their
+# wide instances)
 KERNEL_HEAD_DIMS = (64, 128)
 _WIDE_D = 64
 _SPLIT_HEAD_DIMS = (384, 512)
@@ -335,12 +338,11 @@ def _kernel_head_dim(D):
 # the largest padded head dim of each kernel's tensor-core instances, by
 # dtype: in f32 all three run 192 and 256 as 3xTF32 with D split across
 # the warpgroups (csrc/flash_attention_{fwd,bwd}.cu); in bf16 all three
-# run 192 and 256 on ``wgmma`` (csrc/flash_attention_bf16.cu), and the
-# forward and dq 384 and 512 too. Past it a kernel runs its wide
-# instances.
+# run 192, 256, 384 and 512 on ``wgmma`` (csrc/flash_attention_bf16.cu).
+# Past it a kernel runs its wide instances.
 _TENSOR_CORE_HEAD_DIM = {
     torch.float32: {"fwd": 256, "dq": 256, "dkv": 256},
-    torch.bfloat16: {"fwd": 512, "dq": 512, "dkv": 256},
+    torch.bfloat16: {"fwd": 512, "dq": 512, "dkv": 512},
 }
 
 
@@ -349,8 +351,8 @@ def _kernel_instance(D, dtype, kind):
     or "dkv") that takes head dim D in ``dtype``: D padded as
     ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
     that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
-    CUDA cores) rather than one on the tensor cores: past 256, and for
-    the bf16 forward and dq past 512."""
+    CUDA cores) rather than one on the tensor cores: in f32 past 256, in
+    bf16 past 512."""
     kd = _kernel_head_dim(D)
     return kd, kd > _TENSOR_CORE_HEAD_DIM[dtype][kind]
 

@@ -23,7 +23,7 @@ output at most 2x as far from the f32 truth plus one bf16 ulp of max
 |truth|, its error's Frobenius norm within 1.05x. Two planted faults
 fail that gate: a stale K/V stage, and a stale exchange (the other
 half's partial of the tile before). Then the route: the instance each
-kernel takes past 256 (bf16 dkv and every f32 kernel stay wide), the
+kernel takes past 256 (every f32 kernel stays wide), the
 launch wiring with the kernel entries swapped for their plain versions,
 the shared memory of the split instances, and the wide instances' 64-wide
 last output slice at D576 (bf16 past 512) against Pallas.
@@ -289,15 +289,15 @@ BF16, F32 = torch.bfloat16, torch.float32
     (384, BF16, "fwd", (384, False)), (384, BF16, "dq", (384, False)),
     (385, BF16, "fwd", (512, False)), (448, BF16, "dq", (512, False)),
     (512, BF16, "fwd", (512, False)), (512, BF16, "dq", (512, False)),
-    (384, BF16, "dkv", (384, True)), (512, BF16, "dkv", (512, True)),
+    (384, BF16, "dkv", (384, False)), (512, BF16, "dkv", (512, False)),
     (513, BF16, "fwd", (576, True)), (576, BF16, "dq", (576, True)),
     (384, F32, "fwd", (384, True)), (512, F32, "dq", (512, True)),
     (320, F32, "dkv", (384, True)), (640, F32, "fwd", (640, True)),
 ])
 def test_split_instance_by_head_dim(D, dtype, kind, instance):
-    """bf16 forward and dq run wgmma at a padded 384 and 512; bf16 dkv
-    and every f32 kernel take the wide instances there (the same padded
-    head dim); past 512 every kernel runs wide at a multiple of 64. The
+    """Every bf16 kernel runs wgmma at a padded 384 and 512; every f32
+    kernel takes the wide instances there (the same padded head dim);
+    past 512 every kernel runs wide at a multiple of 64. The
     grid's y axis holds 65535 blocks of 64 q rows."""
     assert tfa._kernel_instance(D, dtype, kind) == instance
     assert tfa._kernel_head_dim(D) == instance[0]
@@ -305,14 +305,14 @@ def test_split_instance_by_head_dim(D, dtype, kind, instance):
 
 
 @pytest.mark.parametrize("D,padded,wide", [
-    (300, 384, (0, 0, 1)), (384, 384, (0, 0, 1)), (448, 512, (0, 0, 1)),
-    (512, 512, (0, 0, 1)), (576, 576, (1, 1, 1))])
+    (300, 384, (0, 0, 0)), (384, 384, (0, 0, 0)), (448, 512, (0, 0, 0)),
+    (512, 512, (0, 0, 0)), (576, 576, (1, 1, 1))])
 def test_bf16_split_route_pads_counts_and_slices_back(D, padded, wide,
                                                       monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each kernel
     the bf16 head dim padded to 384 or 512 (a multiple of 64 past 512),
-    count one bf16 launch of each, a wide one only for dkv up to 512 and
-    for all three past it, and give back the plain version's results on
+    count one bf16 launch of each, a wide one of each only past 512, and
+    give back the plain version's results on
     the zero-padded inputs, sliced back (sm_scale from the true D; the
     zero columns change S's f32 sums only in their order)."""
     rng = np.random.RandomState(D + 2)

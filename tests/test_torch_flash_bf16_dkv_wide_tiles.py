@@ -15,7 +15,8 @@ seed; a stale Q/dO stage planted at the query tile fails it. Then the
 route: dkv's instance by head dim, and the launch wiring with the kernel
 entry swapped for its plain version (padded D handed over, outputs
 sliced back, ``dkv_bf16_launches`` counted, ``dkv_wide_launches`` only
-past 256).
+past 512; D257-512 runs the instances of
+``tests/test_torch_flash_bf16_dkv_d512_tiles.py``).
 """
 import math
 
@@ -89,30 +90,34 @@ def test_dkv_tiles_meet_the_card_gate(case):
 BF16, F32 = torch.bfloat16, torch.float32
 
 
+# instance: (the bf16 instance, the f32 one)
 @pytest.mark.parametrize("D,instance", [
-    (129, (192, False)), (160, (192, False)), (192, (192, False)),
-    (193, (256, False)), (256, (256, False)), (257, (384, True)),
-    (512, (512, True)),
+    (129, ((192, False),) * 2), (160, ((192, False),) * 2),
+    (192, ((192, False),) * 2), (193, ((256, False),) * 2),
+    (256, ((256, False),) * 2), (257, ((384, False), (384, True))),
+    (512, ((512, False), (512, True))),
 ])
 def test_dkv_instance_by_head_dim(D, instance):
-    """bf16 dkv runs wgmma up to a padded 256 and the wide instances past
-    it (at 257-512 padded to 384 or 512, where the forward and dq run
-    wgmma); f32 dkv is wide only past 256 too. The grid's y axis holds
-    65535 blocks of 64 keys past 128."""
-    assert tfa._kernel_instance(D, BF16, "dkv") == instance
-    assert tfa._kernel_instance(D, F32, "dkv") == instance
-    assert tfa._max_t(instance[0]) == 65535 * DKV_KEYS
+    """bf16 dkv runs wgmma up to a padded 512 (at 257-512 padded to 384
+    or 512, as the forward and dq); f32 dkv is wide past 256, at the
+    same padded head dim. The grid's y axis holds 65535 blocks of 64 keys
+    past 128."""
+    assert tfa._kernel_instance(D, BF16, "dkv") == instance[0]
+    assert tfa._kernel_instance(D, F32, "dkv") == instance[1]
+    assert tfa._max_t(instance[0][0]) == 65535 * DKV_KEYS
 
 
-# the D320 case keeps the id it was written with, when D320 padded to 320
+# the D320 and D512 cases keep the ids they were written with, when D320
+# padded to 320 and both ran the wide instance
 @pytest.mark.parametrize("D,padded,wide", [
     (160, 192, 0), (192, 192, 0), (256, 256, 0),
-    pytest.param(320, 384, 1, id="320-320-1"), (512, 512, 1)])
+    pytest.param(320, 384, 0, id="320-320-1"),
+    pytest.param(512, 512, 0, id="512-512-1")])
 def test_bf16_dkv_route_pads_counts_and_slices_back(D, padded, wide,
                                                     monkeypatch):
     """flash_dkv on the CUDA route hands the kernel the bf16 head dim
-    padded to its instance, counts one bf16 launch, a wide one only past
-    256, and gives back the unpadded plain version's dk and dv (sm_scale
+    padded to its instance, counts one bf16 launch and no wide one up to
+    512, and gives back the unpadded plain version's dk and dv (sm_scale
     from the true D)."""
     rng = np.random.RandomState(D + 1)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(

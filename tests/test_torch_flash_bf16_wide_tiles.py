@@ -16,9 +16,10 @@ stale K/V stage planted at those tiles fails it. dkv runs its own
 ``wgmma`` instances at 192 and 256 (64 owned keys a block; its tiles are
 checked in ``tests/test_torch_flash_bf16_dkv_wide_tiles.py``). Past 256
 the forward and dq run their ``wgmma`` instances at 384 and 512
-(``tests/test_torch_flash_bf16_d512_tiles.py``), and dkv stays on the
-wide instances (``tests/test_torch_flash_wide_head.py`` emulates them),
-as do the forward and dq past 512. Then the route
+(``tests/test_torch_flash_bf16_d512_tiles.py``), and dkv its own there
+(``tests/test_torch_flash_bf16_dkv_d512_tiles.py``); past 512 all three
+run the wide instances (``tests/test_torch_flash_wide_head.py`` emulates
+them). Then the route
 itself: which head dim and instance each kernel takes by dtype, the
 launch wiring with the kernel entries swapped for their plain versions
 (padded D handed over, outputs sliced back, the launch counters), and
@@ -119,7 +120,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 ])
 def test_kernel_instance_by_dtype(D, dtype, kind, instance):
     """bf16 pads 160 to 192 and 256 to 256 on wgmma (all three kernels),
-    and 320 to 384, where its forward and dq run wgmma too; f32 runs its
+    and 320 to 384, where all three run wgmma too; f32 runs its
     forward, dq and dkv on the tensor cores at 192 and 256, everything
     past 256 on the wide route, and the padded head dim is the same in
     both."""
@@ -175,12 +176,12 @@ class _PlainKernels:
 # the D320 case keeps the id it was written with, when D320 padded to 320
 @pytest.mark.parametrize("D,padded,wide", [
     (160, 192, (0, 0, 0)), (256, 256, (0, 0, 0)),
-    pytest.param(320, 384, (0, 0, 1), id="320-320-wide2")])
+    pytest.param(320, 384, (0, 0, 0), id="320-320-wide2")])
 def test_bf16_route_pads_counts_and_slices_back(D, padded, wide,
                                                 monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each kernel
     the bf16 head dim padded to its instance, count one bf16 launch of
-    each and the wide ones apart (at D320, padded to 384, only dkv's),
+    each and no wide one (at D320, padded to 384, all three on wgmma),
     and give back the unpadded plain version's results (sm_scale from the
     true D)."""
     rng = np.random.RandomState(D)

@@ -2,8 +2,8 @@
 instances.
 
 On a CUDA tensor a head dim D > 128 is zero-padded to a multiple of 64,
-and one in 257-512 to 384 or 512. Past 256 every f32 kernel and the bf16
-dkv run the wide instances, and the bf16 forward and dq past 512
+and one in 257-512 to 384 or 512. Past 256 every f32 kernel runs the
+wide instances, and every bf16 kernel past 512
 (``csrc/flash_wide.cuh``): every product that sums over D (S = QK^T,
 dP = dO V^T) accumulates 64-column chunks, and each output's D axis is
 cut into 128-wide slices on the grid's z axis, each block recomputing S
@@ -16,7 +16,8 @@ lse must agree bitwise (a last slice 64 wide, at D = 576, is emulated in
 ``tests/test_torch_flash_bf16_d512_tiles.py``). (The f32 kernels at
 129-256 run on the tensor cores: ``tests/test_torch_flash_f32_wide_tiles.py``
 and ``tests/test_torch_flash_f32_dkv_split_tiles.py``; the bf16 forward
-and dq at 257-512: ``tests/test_torch_flash_bf16_d512_tiles.py``.) The
+and dq at 257-512: ``tests/test_torch_flash_bf16_d512_tiles.py``, dkv
+there: ``tests/test_torch_flash_bf16_dkv_d512_tiles.py``.) The
 launch
 wiring is checked with the kernel entries swapped for their plain
 versions, and the input checks on meta tensors. Inputs come from a numpy

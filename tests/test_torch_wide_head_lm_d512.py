@@ -2,9 +2,9 @@
 
 ``transformer_lm(pipeline_stack=False)`` (the model the JAX package's
 benchmark trains) at d_model 512 with 1 head: head dim 512, the width at
-which the port's bf16 flash forward and dq run their D512 ``wgmma``
-instances on the card (D split between the consumer warpgroups) and dkv
-its wide one. Here, on the CPU, the flash wrappers run their plain
+which the port's bf16 flash forward, dq and dkv run their D512
+``wgmma`` instances on the card (D split between the consumer
+warpgroups). Here, on the CPU, the flash wrappers run their plain
 versions. L 2, T 80 (a ragged 64-row tile past the first), batch 2. Each
 package starts from its own startup program (bit-exact draws); step
 one's loss and every parameter gradient equal the JAX ``Executor``'s:
