@@ -7,6 +7,7 @@
     python3 chip_smoke.py --conv-only       # phases 1, 2 and 8 only
     python3 chip_smoke.py --paged-only      # phases 1, 2 and 4b only
     python3 chip_smoke.py --stacked-d256-only  # phases 1, 2 and 6b only
+    python3 chip_smoke.py --stacked-d512-only  # phases 1, 2 and 6c only
     python3 chip_smoke.py --f32-wide-times  # phases 1, 2 and the f32 D256 and D512 times
     python3 chip_smoke.py --amp-only        # phases 1, 2 and 11 only
     python3 chip_smoke.py --bf16-conv-only  # phases 1, 2 and 11a only
@@ -33,17 +34,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    and both backward kernels, each with a fully masked row; head dims
    past 128: D160, D192 and D256 causal with a fully masked row and B8
    H8 T2048 D256 causal (the instances at 192 and 256 on the tensor
-   cores), D320 and D512 (the wide instance). Two launches at the
-   training shape, at B2 H4 T1000 D256 and at B8 H8 T2048 D256 must be
-   bitwise equal. Prints the forward's registers, spills (none allowed),
-   shared memory and tensor-core opcodes (SASS: HGMMA and HMMA in the
-   instances at 192 and 256), then times it at the serving, training and
-   both D256 shapes in turns with ``F.scaled_dot_product_attention``'s
-   f32 forward (its backend pinned and recorded: kernel, library,
-   library, kernel), with profiler device time beside event time, the
-   plain version, the roofline bound and, at D256, the wide FMA
-   instance's earlier time (``--f32-wide-times`` times just the f32 trio
-   at D256).
+   cores), D320 causal with a fully masked row, a non-causal ragged
+   D512, B2 H4 T1000 D512 and B8 H4 T2048 D512 causal (the quarter
+   instances at 384 and 512 on the tensor cores), and D576 (the wide
+   instance). Two launches at the training shape, at B2 H4 T1000 D256
+   and D512, at B8 H8 T2048 D256 and at B8 H4 T2048 D512 must be bitwise
+   equal. Prints the forward's registers, spills (none allowed), shared
+   memory and tensor-core opcodes (SASS: HGMMA and HMMA in the instances
+   at 192 and 256, HMMA in those at 384 and 512), then times it at the
+   serving, training, both D256 and both D512 shapes in turns with
+   ``F.scaled_dot_product_attention``'s f32 forward (its backend pinned
+   and recorded: kernel, library, library, kernel), with profiler device
+   time beside event time, the plain version, the roofline bound and,
+   past 128, the wide FMA instance's earlier time (``--f32-wide-times``
+   times just the f32 trio at D256 and D512).
 4. Serving: the d1024/L8/H16/V16384 transformer LM (random weights from a
    seed, carried in through ``load_jax_params``) serves requests with
    700-1024-token prompts through ``GenerationEngine(kv_cache="dense")``
@@ -67,17 +71,18 @@ Phases, each fatal on failure (nonzero exit, no result line):
 5. Backward kernels: the flash dq and dkv kernels against their plain
    versions at the training shape (B8 H8 T2048 D128 causal), the serving
    shape, a ragged case with a fully masked row and the head dims past
-   128 of phase 3 (both on the tensor cores at 192 and 256, on the wide
-   instances past 256); two launches of each at the training shape,
-   at B2 H4 T1000 D256 and at B8 H8 T2048 D256 must be bitwise equal (no
-   atomics). Prints each kernel's registers, spills (none allowed) and
-   shared memory and both kernels' tensor-core opcodes at 192 and 256
-   (HMMA), then times them beside their plain versions and their bounds,
-   and the pair in turns with the backward of
-   ``F.scaled_dot_product_attention`` (its backend pinned and recorded):
-   pair, SDPA, SDPA, pair; at both D256 shapes dq, dkv and the pair in
-   turns with SDPA's backward, beside the wide FMA instances' earlier
-   times.
+   128 of phase 3 (both on the tensor cores at 192 and 256; at 384 and
+   512 dq on its quarter instance and dkv on the wide one; both wide past
+   512); two launches of each at the training shape, at B2 H4 T1000
+   D256 and D512, at B8 H8 T2048 D256 and at B8 H4 T2048 D512 must be
+   bitwise equal (no atomics). Prints each kernel's registers, spills
+   (none allowed) and shared memory and the tensor-core opcodes (HMMA) of
+   both kernels at 192 and 256 and of dq at 384 and 512, then times them
+   beside their plain versions and their bounds, and the pair in turns
+   with the backward of ``F.scaled_dot_product_attention`` (its backend
+   pinned and recorded): pair, SDPA, SDPA, pair; at both D256 and both
+   D512 shapes dq, dkv and the pair in turns with SDPA's backward, beside
+   the wide FMA instances' earlier times.
 6. Training: the d1024/L8/H8/V16384 LM (d_ff 4096, batch 8 x 2048
    tokens, f32, Adam lr 1e-4) built with the port's ``layers`` and
    ``models.transformer_lm(pipeline_stack=True)``, trained through
@@ -104,6 +109,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    checked, the prefill's attention on the forward's D256 instance
    (launches == layers x prefills, none wide), request 0's tokens equal to
    the plain path's on the card.
+6c. The stacked LM at head dim 512: 6b with 4 heads of 512 (d2048 L8 H4
+   d_ff 8192, as 12e), nothing cut, the same gates in f32 and under AMP;
+   8 launches a step of the f32 flash forward and dq on their D512
+   quarter instances (none wide) and of dkv on its wide one, the same
+   prints (``stacked_d512_{f32,amp}_profile.txt``), then the same width
+   served densely as in 6b (the prefill's attention on the forward's
+   D512 quarter instance at ragged lengths).
 7. TF32: the port's conv2d (3x3 s2 p1, NHWC, 64 -> 64) on the card, with
    cuDNN's TF32 at PyTorch's default (on), against the same op in f64 on
    the CPU: output, dX and dW within 1e-5 of the largest reference value.
@@ -229,9 +241,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
     head dim 128; (e) the same width with 4 heads of 512 (d2048 L8 H4
     d_ff 8192), the same gates, 8 launches a step of each flash kernel
     on its D512 wgmma instance and none on the wide ones (dkv as two
-    halves, dK and dV, on the grid's z axis), printed with step ms,
-    tokens/s and a profiled step's device time by kernel
-    (``--per-layer-d512-only`` runs just (e)).
+    halves, dK and dV, on the grid's z axis), its f32 build's step 1
+    with the f32 forward and dq on their D512 quarter instances and dkv
+    on its wide one, printed with step ms, tokens/s and a profiled
+    step's device time by kernel (``--per-layer-d512-only`` runs just
+    (e)).
 
 13. The reference benchmark's recurrent rows and its decode row, each
     part fatal on failure: bench.py's ``lstm`` (2 x LSTM text
@@ -446,20 +460,27 @@ PAD_CASES = [
     (4400, 16, 24, 16, True, [24 - b % 25 for b in range(4400)]),
 ]
 
-# head dims past 128 (D zero-padded to a multiple of 64). In f32 the
-# forward, dq and dkv run their tensor-core instances at 192 and 256 (D160
-# and D192 pad to 192); past 256 all three run the wide ones (outputs in
-# 128-column slices on the grid's z axis). Causal with a
-# fully masked row at D160, D192 and D256, the stacked LM's attention at
-# head dim 256 (D256_TRAIN), and the wide route at D320 and D512. Phase 3
-# holds the forward, phase 5 dq and dkv against their plain versions; both
-# check two launches bitwise equal at WIDE_TIMED and D256_TRAIN and time
-# them there
+# head dims past 128 (D zero-padded to a multiple of 64, and in 257-512
+# to 384 or 512). In f32 the forward, dq and dkv run their tensor-core
+# instances at 192 and 256 (D160 and D192 pad to 192); at 384 and 512 the
+# forward and dq run their quarter instances on the tensor cores and dkv
+# its wide one; past 512 all three run the wide ones (outputs in
+# 128-column slices on the grid's z axis). Causal with a fully masked row
+# at D160, D192, D256 and D320, the stacked LM's attention at head dims
+# 256 (D256_TRAIN) and 512 (D512_TRAIN), a non-causal ragged D512 with a
+# fully masked row, WIDE_D512, and D576 on the wide route. Phase 3 holds
+# the forward, phase 5 dq and dkv against their plain versions; both
+# check two launches bitwise equal at WIDE_TIMED, D256_TRAIN, WIDE_D512
+# and D512_TRAIN and time them there
 WIDE_TIMED = (2, 4, 1000, 256, True, None)
 # B8 H8 T2048 D256 causal: the attention of the LMs at d2048 H8 (phase 6b,
-# 12d); B8 H4 T2048 D512 causal: the per-layer LM's at d2048 H4 (12e)
+# 12d); B8 H4 T2048 D512 causal: the LMs' at d2048 H4 (6c, 12e)
 D256_TRAIN = (8, 8, 2048, 256, True, None)
 D512_TRAIN = (8, 4, 2048, 512, True, None)
+# WIDE_TIMED's shape at head dims 384, 512 and 576
+WIDE_D384 = (2, 4, 1000, 384, True, None)
+WIDE_D512 = (2, 4, 1000, 512, True, None)
+WIDE_D576 = (2, 4, 1000, 576, True, None)
 WIDE_CASES = [
     (2, 4, 1000, 160, True, [1000, 0]),
     (2, 4, 1000, 192, True, [1000, 0]),
@@ -467,23 +488,35 @@ WIDE_CASES = [
     D256_TRAIN,
     (2, 4, 1000, 320, True, [1000, 0]),
     (2, 2, 300, 512, False, [300, 0]),
+    WIDE_D512,
+    D512_TRAIN,
+    (2, 2, 300, 576, False, [300, 0]),
 ]
 # a head dim of the f32 wide instances, to look up their shared memory
 # (the same at every D)
-WIDE_D = 320
+WIDE_D = 576
 # the f32 instances at 192 and 256 on the tensor cores: in SASS, HMMA
 # (P V, dS K, dS^T Q, P^T dO and the backward's S, dP on mma.sync) and,
 # for the forward, HGMMA (S on wgmma)
 F32_SPLIT_SASS = tuple(f"flash_{k}_tf32x3_split_kernel<{d}>"
                        for k in ("fwd", "bwd_dq", "bwd_dkv")
                        for d in (192, 256))
+# the f32 forward's and dq's quarter instances at 384 and 512: every
+# product on mma.sync (HMMA)
+F32_QUARTER_SASS = tuple(f"flash_{k}_tf32x3_quarter_kernel<{d}>"
+                         for k in ("fwd", "bwd_dq") for d in (384, 512))
 # the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
 # the f32 forward, dq and dkv ran at WIDE_TIMED and D256_TRAIN before
-# they took their tensor-core instances there, on an NVIDIA H100 80GB
-# HBM3 at 700 W (``--f32-wide-times`` once on the commit before each: the
-# forward's and dq's before their split instances, dkv's before its)
+# they took their tensor-core instances there, and that the forward and
+# dq ran at WIDE_D512 and D512_TRAIN before their quarter instances (dkv
+# runs its wide one there still), on an NVIDIA H100 80GB HBM3 at 700 W
+# (``--f32-wide-times`` once on the commit before each: the forward's and
+# dq's before their split instances, dkv's before its, the D512 shapes
+# before the quarter instances)
 F32_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.514, 0.833, 0.705),
-                        D256_TRAIN: (8.264, 13.977, 19.210)}
+                        D256_TRAIN: (8.264, 13.977, 19.210),
+                        WIDE_D512: (1.288, 2.266, 2.282),
+                        D512_TRAIN: (13.480, 25.622, 35.201)}
 
 
 def _case_text(B, H, T, D, causal, lengths):
@@ -508,7 +541,7 @@ def kernel_phase(gpu_name):
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
-    errs, bwd_errs, errs_d256 = [], [], []
+    errs, bwd_errs, errs_d256, errs_d512 = [], [], [], []
     for case in FWD_CASES + PAD_CASES + WIDE_CASES:
         B, H, T, D, causal, lengths = case
         q, k, v = (randn(B, H, T, D) for _ in range(3))
@@ -522,6 +555,8 @@ def kernel_phase(gpu_name):
         errs.append(err)
         if 128 < D <= 256:  # the tensor-core instances at 192 and 256
             errs_d256.append(err)
+        elif 256 < D <= 512:  # the quarter instances at 384 and 512
+            errs_d512.append(err)
         text = f"{_case_text(*case)}: max_abs_err o/lse {err:.3e}"
         masked = [b for b, n in enumerate(lengths or ()) if n == 0]
         assert not o[masked].any(), "a fully masked row got an output"
@@ -551,7 +586,8 @@ def kernel_phase(gpu_name):
     print(f"flash_attention_fwd B{B} H{H} T{T} D{D} causal: two launches "
           f"are bitwise equal")
     del q, k, v, first, second
-    for B, H, T, D, causal, _ in (WIDE_TIMED, D256_TRAIN):
+    for B, H, T, D, causal, _ in (WIDE_TIMED, D256_TRAIN, WIDE_D512,
+                                  D512_TRAIN):
         q, k, v = (randn(B, H, T, D) for _ in range(3))
         first, second = (fa.flash_forward(q, k, v, None, True)
                          for _ in range(2))
@@ -574,10 +610,13 @@ def kernel_phase(gpu_name):
     for key in F32_SPLIT_SASS[:2]:  # S on wgmma, P V on mma.sync
         assert sass[key]["HGMMA"] > 0 and sass[key]["HMMA"] > 0, (
             key, sass.get(key))
+    for key in F32_QUARTER_SASS[:2]:  # S and P V on mma.sync
+        assert sass[key]["HMMA"] > 0, (key, sass.get(key))
 
     timed = {name: _time_forward(F, fa, randn, gpu_name, *FWD_CASES[i])
              for name, i in (("serving", 0), ("training", 3))}
-    for name, shape in (("wide", WIDE_TIMED), ("d256_train", D256_TRAIN)):
+    for name, shape in (("wide", WIDE_TIMED), ("d256_train", D256_TRAIN),
+                        ("d512", WIDE_D512), ("d512_train", D512_TRAIN)):
         timed[name] = _time_forward(F, fa, randn, gpu_name, *shape)
         timed[name]["previous_ms"] = was = F32_WIDE_PREVIOUS_MS[shape][0]
         print(f"flash_attention_fwd at {timed[name]['shape']}: "
@@ -599,7 +638,9 @@ def kernel_phase(gpu_name):
         "mbytes": serve["mbytes"], "training_shape": timed["training"],
         "serving_shape": serve, "wide_shape": timed["wide"],
         "d256_train_shape": timed["d256_train"],
-        "max_abs_err_d256": max(errs_d256), "ptxas": usage, "sass": sass,
+        "d512_shape": timed["d512"], "d512_train_shape": timed["d512_train"],
+        "max_abs_err_d256": max(errs_d256),
+        "max_abs_err_d512": max(errs_d512), "ptxas": usage, "sass": sass,
     }
 
 
@@ -1090,6 +1131,7 @@ def backward_kernel_phase(gpu_name):
 
     errs = {"dq": [], "dkv": []}
     errs_d256 = {"dq": [], "dkv": []}  # 128 < D <= 256
+    errs_d512 = {"dq": [], "dkv": []}  # 256 < D <= 512
     for B, H, T, D, causal, lengths in BWD_CASES + WIDE_CASES:
         q, k, v, do = (randn(B, H, T, D) for _ in range(4))
         lens = None if lengths is None else torch.tensor(lengths,
@@ -1108,6 +1150,8 @@ def backward_kernel_phase(gpu_name):
             errs[name].append(err)
             if 128 < D <= 256:
                 errs_d256[name].append(err)
+            elif 256 < D <= 512:
+                errs_d512[name].append(err)
         if lengths is not None and 0 in lengths:
             row = lengths.index(0)
             assert not dq[row].any() and not dk[row].any() \
@@ -1139,13 +1183,15 @@ def backward_kernel_phase(gpu_name):
           f"each kernel are bitwise equal")
     wide = {name: _time_wide_backward(F, fa, randn, gpu_name, *shape)
             for name, shape in (("wide", WIDE_TIMED),
-                                ("d256_train", D256_TRAIN))}
+                                ("d256_train", D256_TRAIN),
+                                ("d512", WIDE_D512),
+                                ("d512_train", D512_TRAIN))}
     usage = _backward_kernel_usage()
     assert not any(u.get("spill_store_bytes") or u.get("spill_load_bytes")
                    for u in usage.values()), f"the backward spills: {usage}"
     sass = _sass_counts("flash_attention_bwd", "flash_bwd")
-    for key in F32_SPLIT_SASS[2:]:  # every product on mma.sync
-        assert sass[key]["HMMA"] > 0, (key, sass.get(key))
+    for key in F32_SPLIT_SASS[2:] + F32_QUARTER_SASS[2:]:
+        assert sass[key]["HMMA"] > 0, (key, sass.get(key))  # on mma.sync
     ms = {name: _cuda_ms(fn, iters=10) for name, fn in kernels.items()}
     plain_ms = {
         "dq": _cuda_ms(lambda: fa.flash_dq_reference(q, k, v, lse, di, do,
@@ -1198,7 +1244,10 @@ def backward_kernel_phase(gpu_name):
             "fwd_ms_training_shape": fwd_ms, "ptxas": usage, "sass": sass,
             "wide_shape": wide["wide"][name],
             "d256_train_shape": wide["d256_train"][name],
+            "d512_shape": wide["d512"][name],
+            "d512_train_shape": wide["d512_train"][name],
             "max_abs_err_d256": max(errs_d256[name]),
+            "max_abs_err_d512": max(errs_d512[name]),
         })
     return records
 
@@ -1272,8 +1321,9 @@ def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
               f", {flops / ms / 1e9:.1f} TFLOP/s, "
               f"{bound_ms / ms * 100:.1f}% of the bound {bound_ms:.4f} ms "
               f"({bound_by}; {bound_simt:.4f} at the CUDA cores' f32 rate); "
-              f"plain {plain_ms:.3f} ms; was {_ms_text(was)} on the wide FMA "
-              f"instance")
+              f"plain {plain_ms:.3f} ms; "
+              + (f"on the parent {_ms_text(was)}" if wide else
+                 f"was {_ms_text(was)} on the wide FMA instance"))
     print(f"flash_attention_bwd {shape}: in turns, dq + dkv "
           f"{[round(x, 4) for x in turns['pair']]} ms and SDPA backward "
           f"({backend}) {[round(x, 4) for x in lib_turns]} ms: pair / SDPA "
@@ -1809,61 +1859,99 @@ def training_phase(records, gpu_name):
 # the same width served densely: 8 requests of 700-1024 prompt tokens, 32
 # new tokens each.
 STACKED_D256 = dict(TRAIN, d_model=2048, num_heads=8, d_ff=8192)
-STACKED_D256_SERVE = dict(requests=8, new_tokens=32)
+STACKED_SERVE = dict(requests=8, new_tokens=32)
 STACKED_D256_GROUPS = ("flash_fwd_tf32x3_split", "flash_bwd_dq_tf32x3_split",
                        "flash_bwd_dkv_tf32x3_split", "flash_", "nvjet",
                        "gemm", "elementwise", "reduce")
+# Phase 6c: the same width with 4 heads of 512 (d2048 L8 H4, d_ff 8192,
+# as phase 12e): the f32 flash forward and dq on their D512 quarter
+# instances, dkv on its wide one, in f32 and under AMP. Nothing cut.
+STACKED_D512 = dict(TRAIN, d_model=2048, num_heads=4, d_ff=8192)
+STACKED_D512_GROUPS = ("flash_fwd_tf32x3_quarter",
+                       "flash_bwd_dq_tf32x3_quarter", "flash_bwd_dkv_wide",
+                       "flash_", "nvjet", "gemm", "elementwise", "reduce")
+F32_KINDS = ("fwd", "dq", "dkv")
 
 
-def _stacked_d256_timed(exe, main, feed, loss, scope, fa, tag, c, peak):
-    """The main path of phase 6b in one precision: 1 warm + 6 timed steps
-    (counts to 0 before, read after: 8 launches a step of each f32 flash
-    kernel, all on their D256 tensor-core instances, none on the wide
-    ones, no bf16 launch), falling losses; step ms, tokens/s,
-    the share of ``peak``, peak memory and device ms by kernel
-    (``chiprun_out/stacked_d256_<tag>_profile.txt``)."""
+def _stacked_tag(c):
+    return f"d{c['d_model']} H{c['num_heads']}"
+
+
+def _stacked_timed(exe, main, feed, loss, scope, fa, tag, c, peak, groups):
+    """The main path of phase 6b or 6c in one precision: 1 warm + 6 timed
+    steps (counts to 0 before, read after: 8 launches a step of each f32
+    flash kernel, on the wide instances those that ``_kernel_instance``
+    routes there at c's head dim, no bf16 launch), falling losses; step
+    ms, tokens/s, the share of ``peak``, peak memory and device ms by
+    kernel ``groups`` (the trio first;
+    ``chiprun_out/stacked_d<head dim>_<tag>_profile.txt``)."""
     import numpy as np
+    import torch
 
     L, tokens = c["n_layers"], c["batch"] * c["seq"]
+    hd = c["d_model"] // c["num_heads"]
+    wide = tuple(7 * L * fa._kernel_instance(hd, torch.float32, kind)[1]
+                 for kind in F32_KINDS)
     losses, step_s, counts, peak_mem, profile = _timed_steps(
-        exe, main, feed, loss, scope, fa, f"stacked_d256_{tag}_profile.txt",
-        STACKED_D256_GROUPS)
-    assert counts == (7 * L,) * 3 + (0,) * 3 + (0, 0, 0), counts
+        exe, main, feed, loss, scope, fa, f"stacked_d{hd}_{tag}_profile.txt",
+        groups)
+    assert counts == (7 * L,) * 3 + (0,) * 3 + wide, counts
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
                                     c["vocab"], c["d_ff"])
     launches = [n // 7 for n in counts[:3]]
-    print(f"stacked d2048 H8 {tag}: losses {[round(x, 5) for x in losses]}; "
+    print(f"stacked {_stacked_tag(c)} {tag}: losses "
+          f"{[round(x, 5) for x in losses]}; "
           f"step median {med * 1e3:.1f} ms over 6 steps "
           f"({[round(x * 1e3, 1) for x in step_s]} ms), {tokens / med:.0f} "
           f"tokens/s, {flops / 1e12:.2f} TFLOP/step = "
           f"{flops / med / peak * 100:.1f}% of the "
           f"{'f32' if tag == 'f32' else 'bf16'} peak, peak memory "
           f"{peak_mem / 2**30:.2f} GiB; f32 flash launches per step "
-          f"fwd/dq/dkv {launches} (on their D256 tensor-core instances, "
-          f"{[n // 7 for n in counts[6:]]} on the wide ones); device "
+          f"fwd/dq/dkv {launches} ({[n // 7 for n in counts[6:]]} on the "
+          f"wide instances); device "
           + (f"{profile['device_ms']:.1f} ms: " + ", ".join(
               f"{g} {profile['kernels_ms'][g]:.2f} ms "
               f"({profile['launches'][g]} launches)"
-              for g in STACKED_D256_GROUPS[:3]) if profile else
+              for g in groups[:3]) if profile else
              "not measured"))
     return {"losses": losses, "step_ms": [x * 1e3 for x in step_s],
             "step_ms_median": med * 1e3, "tokens_per_s": tokens / med,
             "tflop_per_step": flops / 1e12, "peak_share": flops / med / peak,
             "peak_mem_bytes": peak_mem, "launches_per_step": launches,
-            "dkv_wide_launches_per_step": counts[8] // 7,
+            "wide_launches_per_step": [n // 7 for n in counts[6:]],
             "profile": profile}
 
 
 def stacked_d256_phase(gpu_name):
-    """Phase 6b: the stacked LM at d2048 L8 H8 (head dim 256) trained in
+    """Phase 6b: the stacked LM at d2048 L8 H8 (head dim 256), every f32
+    flash kernel on its D256 tensor-core instance (stacked_phase)."""
+    return stacked_phase(gpu_name, STACKED_D256, STACKED_D256_GROUPS)
+
+
+def stacked_d512_phase(gpu_name):
+    """Phase 6c: the stacked LM at d2048 L8 H4 (head dim 512)
+    (stacked_phase): a step in either precision launches the f32 flash
+    forward and dq 8 times each on their D512 quarter instances and dkv 8
+    times on its wide one."""
+    c = STACKED_D512
+    out = stacked_phase(gpu_name, c, STACKED_D512_GROUPS)
+    L = c["n_layers"]
+    for tag in ("f32", "amp"):
+        assert out[tag]["launches_per_step"] == [L] * 3, out[tag]
+        assert out[tag]["wide_launches_per_step"] == [0, 0, L], out[tag]
+    return out
+
+
+def stacked_phase(gpu_name, c, groups):
+    """Phase 6b or 6c: the stacked LM at configuration ``c`` trained in
     f32 (step 1 with the kernels against the plain path: loss LOSS_RTOL,
     every gradient GRAD_RTOL) and, built again under AMP with the same
     names from the same startup state, under AMP (step-1 loss within
     AMP_RTOL of f32's and AMP_PLAIN_RTOL of the AMP plain path's, every
-    gradient within AMP_GRAD_RTOL of it); each timed
-    (_stacked_d256_timed); then the same width served densely through
-    ``Server`` (stacked_d256_serving). Returns the phase's record."""
+    gradient within AMP_GRAD_RTOL of it); each timed (_stacked_timed,
+    device time by ``groups``); then the same width served densely
+    through ``Server`` (stacked_serving). Returns the phase's record."""
     import numpy as np
     import torch
 
@@ -1871,7 +1959,7 @@ def stacked_d256_phase(gpu_name):
     from paddle_tpu_torch.core import program as tprog
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    c = STACKED_D256
+    name = f"stacked {_stacked_tag(c)}"
     peaks = _peaks(gpu_name)
     rng = np.random.RandomState(SEED)
     feed = {"ids": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
@@ -1885,7 +1973,7 @@ def stacked_d256_phase(gpu_name):
     exe.run(startup, scope=scope)
     state = _snapshot(scope)
     n_params = sum(scope.get(p.name).numel() for p, _ in params_grads)
-    print(f"stacked d2048 H8: f32 program of {len(main.global_block.ops)} "
+    print(f"{name}: f32 program of {len(main.global_block.ops)} "
           f"ops, {len(params_grads)} parameters ({n_params / 1e6:.1f} M), "
           f"built and initialised in {time.perf_counter() - t0:.2f} s")
     fetch = [loss.name] + [g.name for _, g in params_grads]
@@ -1894,7 +1982,7 @@ def stacked_d256_phase(gpu_name):
         plain = _step_fetches(exe, main, feed, fetch, scope, state)
     lk, lp = float(kern[0]), float(plain[0])
     worst = _grad_gap(fetch[1:], kern[1:], plain[1:])
-    print(f"stacked d2048 H8 f32: step-1 loss kernels {lk:.6f} plain "
+    print(f"{name} f32: step-1 loss kernels {lk:.6f} plain "
           f"{lp:.6f}; worst gradient |kernel - plain| / |plain| "
           f"{worst[0]:.3e} ({worst[1]}) (tol {GRAD_RTOL})")
     assert np.isfinite(lk) and abs(lk - lp) <= LOSS_RTOL * abs(lp), (lk, lp)
@@ -1903,8 +1991,8 @@ def stacked_d256_phase(gpu_name):
     out = {"config": c, "params": n_params,
            "f32_step1": {"loss_kernels": lk, "loss_plain": lp,
                          "worst_grad_rel": worst}}
-    out["f32"] = _stacked_d256_timed(exe, main, feed, loss, scope, fa, "f32",
-                                     c, peaks[0])
+    out["f32"] = _stacked_timed(exe, main, feed, loss, scope, fa, "f32", c,
+                                peaks[0], groups)
     l32 = float(kern[0])
     del kern, exe, scope, main, startup, params_grads
     torch.cuda.empty_cache()
@@ -1924,7 +2012,7 @@ def stacked_d256_phase(gpu_name):
         la, lpa = float(ka[0]), float(pa[0])
         worst = _grad_gap(fetch[1:], ka[1:], pa[1:])
         del ka, pa
-        print(f"stacked d2048 H8 AMP: step-1 loss {la:.6f}, the f32 build "
+        print(f"{name} AMP: step-1 loss {la:.6f}, the f32 build "
               f"{l32:.6f} (rel {abs(la - l32) / abs(l32):.3e}, tol "
               f"{AMP_RTOL}), the AMP plain path {lpa:.6f} (rel "
               f"{abs(la - lpa) / abs(lpa):.3e}, tol {AMP_PLAIN_RTOL}); worst "
@@ -1935,40 +2023,53 @@ def stacked_d256_phase(gpu_name):
         assert worst[0] <= AMP_GRAD_RTOL, worst
         out["amp_step1"] = {"loss": la, "loss_f32": l32, "loss_plain": lpa,
                             "worst_grad_rel": worst}
-        out["amp"] = _stacked_d256_timed(exe, main, feed, loss, scope, fa,
-                                         "amp", c, peaks[3])
+        out["amp"] = _stacked_timed(exe, main, feed, loss, scope, fa, "amp",
+                                    c, peaks[3], groups)
     del exe, scope, main
     torch.cuda.empty_cache()
-    out["serving"] = stacked_d256_serving()
+    out["serving"] = stacked_serving(c)
     return out
 
 
-def d256_records(kern, bwd, stacked):
-    """The f32 instances that phase 6b's main path runs at head dim 256,
-    all three on the tensor cores, each timed at D256_TRAIN (phases 3 and
-    5) with its launches a step in 6b's f32 run."""
+def stacked_records(kern, bwd, stacked, hd):
+    """The f32 instances that phase 6b's (``hd`` 256: all three on the
+    tensor cores) or 6c's (``hd`` 512: the forward and dq on their
+    quarter instances, dkv on its wide one) main path runs, each timed at
+    D256_TRAIN or D512_TRAIN (phases 3 and 5) with its launches a step in
+    the phase's f32 run."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
     launches = stacked["f32"]["launches_per_step"]
-    rows = (("flash_attention_fwd_d256", "flash_attention_fwd.cu", 229,
-             kern["d256_train_shape"], kern["max_abs_err_d256"]),
-            ("flash_attention_bwd_dq_d256", "flash_attention_bwd.cu", 364,
-             bwd[0]["d256_train_shape"], bwd[0]["max_abs_err_d256"]),
-            ("flash_attention_bwd_dkv_d256", "flash_attention_bwd.cu", 386,
-             bwd[1]["d256_train_shape"], bwd[1]["max_abs_err_d256"]))
-    return [{"name": name, "route": "cuda",
-             "source": f"paddle_tpu_torch/kernels/csrc/{source}",
-             "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
-             "launches": n, "max_abs_err": err, **row}
-            for (name, source, line, row, err), n in zip(rows, launches)]
+    shape, err = f"d{hd}_train_shape", f"max_abs_err_d{hd}"
+    rows = (("fwd", "flash_attention_fwd", "flash_attention_fwd.cu", 229,
+             kern),
+            ("dq", "flash_attention_bwd_dq", "flash_attention_bwd.cu", 364,
+             bwd[0]),
+            ("dkv", "flash_attention_bwd_dkv", "flash_attention_bwd.cu", 386,
+             bwd[1]))
+    out = []
+    for (kind, name, source, line, rec), n in zip(rows, launches):
+        wide = fa._kernel_instance(hd, torch.float32, kind)[1]
+        out.append({
+            "name": f"{name}_d{hd}" + ("_wide" if wide else ""),
+            "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/"
+                      + ("flash_wide.cuh" if wide else source),
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
+            "launches": n, "max_abs_err": rec[err], **rec[shape]})
+    return out
 
 
-def stacked_d256_serving():
-    """Phase 6b's serving half: the stacked LM at d2048 L8 H8 V16384
-    (weights from the seed through ``load_jax_params``) served by
+def stacked_serving(c):
+    """Phase 6b's or 6c's serving half: the stacked LM at configuration
+    ``c`` (weights from the seed through ``load_jax_params``) served by
     ``GenerationEngine(kv_cache="dense")`` and ``Server``: every result
     checked, zero dispatch errors, each prefill's attention on the f32
-    forward's D256 tensor-core instance (launches == layers x prefills,
-    none wide), request 0's tokens equal to the plain path's on the
-    card."""
+    forward's tensor-core instance at c's head dim (launches == layers x
+    prefills, none wide), request 0's tokens equal to the plain path's on
+    the card."""
     import numpy as np
     import torch
 
@@ -1977,7 +2078,6 @@ def stacked_d256_serving():
     from paddle_tpu_torch.models.transformer import TransformerLM
     from paddle_tpu_torch.serving import GenerationEngine, LMSpec, Server
 
-    c = STACKED_D256
     spec = LMSpec(vocab_size=c["vocab"], d_model=c["d_model"],
                   n_layers=c["n_layers"], num_heads=c["num_heads"],
                   d_ff=c["d_ff"], max_len=c["max_len"])
@@ -1988,8 +2088,7 @@ def stacked_d256_serving():
     eng.warmup()
     torch.cuda.synchronize()
     rng = np.random.RandomState(SEED + 6)
-    n_req, new = STACKED_D256_SERVE["requests"], STACKED_D256_SERVE[
-        "new_tokens"]
+    n_req, new = STACKED_SERVE["requests"], STACKED_SERVE["new_tokens"]
     prompts = [rng.randint(0, spec.vocab_size, rng.randint(700, 1025))
                .astype(np.int64) for _ in range(n_req)]
     _reset_flash_counts(fa)  # the main path's launches only
@@ -2021,14 +2120,15 @@ def stacked_d256_serving():
     served = results[0][prompts[0].size:]
     assert np.array_equal(served, ref), (served, ref)
     lat = snap["latency"]
-    print(f"stacked d2048 H8 serving: {n_req} requests, "
+    print(f"stacked {_stacked_tag(c)} serving: {n_req} requests, "
           f"{sum(p.size for p in prompts)} prompt tokens, {n_req * new} "
           f"generated in {wall:.3f} s = {n_req * new / wall:.1f} tok/s; "
           f"{prefills} prefills (mean {lat['prefill_ms']['mean']:.2f} ms), "
           f"decode step mean {lat['decode_step_ms']['mean']:.2f} ms; f32 "
-          f"flash forward launches {counts[0]} on the D256 tensor-core "
-          f"instance, {counts[6]} wide; request 0's {new} tokens equal the "
-          f"plain path's on the card")
+          f"flash forward launches {counts[0]} on the "
+          f"D{spec.d_model // spec.num_heads} tensor-core instance, "
+          f"{counts[6]} wide; request 0's {new} tokens equal the plain "
+          f"path's on the card")
     del eng, model
     torch.cuda.empty_cache()
     return {"requests": n_req, "new_tokens": new, "wall_s": wall,
@@ -3665,14 +3765,11 @@ BF16_FLASH_REPLACES = (229, 364, 386)
 BF16_FLASH_SASS = tuple(f"flash_{k}_bf16_kernel<{d}>"
                         for k in ("fwd", "bwd_dq", "bwd_dkv")
                         for d in (64, 128, 192, 256, 384, 512))
-# phase 3's shape at head dims 384 and 512 (all three kernels on their
-# split wgmma instances; only SDPA's memory-efficient backend takes these
-# inputs), and the attention of the per-layer LM at d2048 H4 (12e): B8 H4
-# T2048 D512 causal; past 512 phase 3's shape at D576, where all three
-# run the wide instances
-WIDE_D384 = (2, 4, 1000, 384, True, None)
-WIDE_D512 = (2, 4, 1000, 512, True, None)
-WIDE_D576 = (2, 4, 1000, 576, True, None)
+# phase 3's shape at head dims 384 and 512 (WIDE_D384, WIDE_D512: all
+# three bf16 kernels on their split wgmma instances; only SDPA's
+# memory-efficient backend takes these inputs), and the attention of the
+# per-layer LM at d2048 H4 (12e): B8 H4 T2048 D512 causal; past 512 phase
+# 3's shape at D576 (WIDE_D576), where all three run the wide instances
 # the shapes the bf16 trio is timed at past D = 128: phase 3's and
 # D256_TRAIN on the D256 wgmma instances, the D384 and D512 ones on the
 # split instances, D576 on the wide ones
@@ -4159,6 +4256,7 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
     print(f"per-layer {tag} f32 step 1: f32 flash launches fwd/dq/dkv "
           f"{list(counts[:3])}, {list(counts[6:])} of them on the wide "
           f"instances")
+    out["f32_step1_launches"] = list(counts)
     if time_f32:
         with _plain_flash(fa):
             plain = _step_fetches(exe, main, feed, fetch, scope, state)
@@ -4337,6 +4435,10 @@ def per_layer_d512_phase(gpu_name, recs=None):
     out = per_layer_lm_phase(gpu_name, c, time_f32=False)
     amp = out["amp"]
     L = c["n_layers"]
+    # its f32 step 1: the forward and dq on their quarter instances, dkv
+    # on its wide one
+    f32 = out["f32_step1_launches"]
+    assert f32[:3] == [L] * 3 and f32[6:] == [0, 0, L], f32
     assert amp["launches_per_step"] == [L] * 3, amp["launches_per_step"]
     assert amp["wide_launches_per_step"] == [0, 0, 0], \
         amp["wide_launches_per_step"]
@@ -5590,6 +5692,10 @@ def main():
                         help="build the kernels and run only phase 6b (the "
                              "stacked LM at head dim 256 trained in f32 and "
                              "under AMP, and served); prints no ok line")
+    parser.add_argument("--stacked-d512-only", action="store_true",
+                        help="build the kernels and run only phase 6c (the "
+                             "stacked LM at head dim 512 trained in f32 and "
+                             "under AMP, and served); prints no ok line")
     parser.add_argument("--f32-wide-times", action="store_true",
                         help="build the kernels and only time the f32 "
                              "flash forward, dq and dkv at head dims 256 "
@@ -5679,6 +5785,14 @@ def main():
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_stacked_d256.json").write_text(json.dumps(
             {"gpu": smi, "stacked_d256": stacked}, indent=1))
+        print(smi)
+        return
+    if args.stacked_d512_only:
+        stacked = stacked_d512_phase(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_stacked_d512.json").write_text(json.dumps(
+            {"gpu": smi, "stacked_d512": stacked}, indent=1))
         print(smi)
         return
     if args.amp_only:
@@ -5775,6 +5889,8 @@ def main():
     torch.cuda.empty_cache()  # the LM phases' models are gone
     stacked_d256 = stacked_d256_phase(gpu)
     torch.cuda.empty_cache()
+    stacked_d512 = stacked_d512_phase(gpu)
+    torch.cuda.empty_cache()
 
     import paddle_tpu_torch as pt
 
@@ -5797,7 +5913,8 @@ def main():
     recurrent = recurrent_phase()
     torch.cuda.empty_cache()
     zoo_recs, zoo = zoo_phase(gpu)
-    records = ([kern] + bwd + d256_records(kern, bwd, stacked_d256) + conv
+    records = ([kern] + bwd + stacked_records(kern, bwd, stacked_d256, 256)
+               + stacked_records(kern, bwd, stacked_d512, 512) + conv
                + amp_recs + per_layer_recs + zoo_recs)
 
     out = ROOT / "chiprun_out"
@@ -5806,6 +5923,7 @@ def main():
         {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "kernels": records, "serving": serving, "paged_serving": paged,
          "training": training, "stacked_d256": stacked_d256,
+         "stacked_d512": stacked_d512,
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference,
          "attention_rewrite": attention, "amp": amp,

@@ -20,10 +20,13 @@
 // int32 -> dq [BH, Tq, D], dk/dv [BH, Tk, D]. D is 64 or 128: the
 // wrapper zero-pads any other D <= 128 up to one of them (zero columns
 // change no score and give zero gradient columns). Past 128 it pads D to
-// a multiple of 64: both kernels run their split instances at 192 and
-// 256 (flash_bwd_{dq,dkv}_tf32x3_split_kernel, below: the output split
-// by D across the warpgroups, the products over D exchanged between
-// them); past 256 they run the wide instances
+// a multiple of 64, and one in 257-512 to 384 or 512: both kernels run
+// their split instances at 192 and 256
+// (flash_bwd_{dq,dkv}_tf32x3_split_kernel, below: the output split by D
+// across the warpgroups, the products over D exchanged between them); dq
+// runs its quarter instance at 384 and 512
+// (flash_bwd_dq_tf32x3_quarter_kernel: 32 q rows a block, dq split four
+// ways by D); past those they run the wide instances
 // (flash_bwd_{dq,dkv}_wide_kernel<float>, flash_wide.cuh). Queries count
 // from position 0 for both Tq and Tk, as in the forward.
 //
@@ -764,12 +767,235 @@ cudaError_t launch_dkv_split(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// --- dq at head dims 384 and 512: 32 q rows a block, dq split four ways --
+//
+// The dq split above does not fit at D512: Q and dO for 64 rows take
+// 264,192 bytes, and dq for a warp's 16 rows over half of D 128
+// registers a thread. So, as the forward's quarter instance, a block owns
+// 32 q rows as two row tiles of 16, and its 8 warps are 2 row tiles x 4
+// parts of D: warp w owns rows 16 (w % 2) .. and columns D/4 (w / 2) ..
+// of dq (64 registers at D512). Q and dO stay in shared memory (132,096
+// bytes at D512), which leaves room for K/V stages of 8 keys. Each warp
+// forms S and dP for its rows over its quarter of D; the four partials of
+// each meet in the exchange and every warp of the row tile sums them in
+// part order, so all four hold the same bits and agree on P and dS. A
+// warp reads each k-step's Q and dO fragments and the K and V ones by
+// ldmatrix (three instructions for what takes 12 loads), and sums S and
+// dP in two accumulators each by k-step parity, so that the dependent
+// mma chains are half as long: 1.10x faster together on an H100 (PERF.md
+// §6; the forward's S gained nothing from either). dS K then runs on
+// the warp's quarter of K's columns, each tile's a fresh sum added to dq
+// in f32. Shared memory at D512: Q and dO 132,096 bytes + 2
+// stages x 8-key K and V 66,048 + the exchange 8,192 = 206,336 (157,184
+// at D384). Holding each warp's dO fragments in registers instead, with
+// 16-key stages, took the kernel to 255 registers with spills and ran no
+// faster on an H100 (PERF.md §6). Two barriers a tile; the grid as the
+// forward's: (bh, 64-row pairs, 2).
+namespace qsplit {
+
+constexpr int BOWN = 32;            // q rows a block owns
+constexpr int RT = BOWN / 16;       // row tiles of 16 rows
+constexpr int PARTS = NWARPS / RT;  // parts of D: a warp each per row tile
+constexpr int BSTREAM = 8;          // keys of a streamed tile
+constexpr int NT = BSTREAM / 8;
+static_assert(NT == 1, "one ldmatrix holds a k-step of K and of V");
+
+// Shared memory, in floats: Q and dO [BOWN, D] at row stride D + 4, two
+// stages of K, two of V, then the exchange of the S and dP partials (2 x
+// NT x 4 values a lane per warp).
+template <int D>
+struct Smem {
+  static constexpr int DP = D / PARTS;  // a warp's columns of D
+  static constexpr int ST = D + 4;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + BOWN * ST;
+  static constexpr int K = DO + BOWN * ST;
+  static constexpr int V = K + 2 * BSTREAM * ST;
+  static constexpr int X = V + 2 * BSTREAM * ST;
+  static constexpr int DQ_BYTES = (X + NWARPS * 2 * NT * 4 * 32) * 4;
+  static_assert(DP % 16 == 0, "accumulate takes n-tiles in groups of 2");
+  static_assert(DQ_BYTES <= 232448, "past a block's shared memory");
+};
+
+}  // namespace qsplit
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_tf32x3_quarter_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   const float* __restrict__ dout,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ di,
+                                   const int* __restrict__ lens,
+                                   float* __restrict__ dq, int Tq, int Tk,
+                                   int causal, float sm_scale) {
+  using L = qsplit::Smem<D>;
+  constexpr int ST = L::ST, DP = L::DP, BQ4 = qsplit::BOWN;
+  constexpr int BK4 = qsplit::BSTREAM, NT4 = qsplit::NT;
+  constexpr int RT = qsplit::RT, PARTS = qsplit::PARTS;
+  constexpr int SLOT = 2 * NT4 * 4;  // a lane's exchange values per warp
+  extern __shared__ __align__(16) float smem[];
+  const float* qs = smem + L::Q;
+  const float* dos = smem + L::DO;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rt = warp % RT;    // the row tile: rows 16 rt ..
+  const int part = warp / RT;  // the part of D: columns DP part ..
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 =
+      (gridDim.y - 1 - blockIdx.y) * 2 * BQ4 + (1 - blockIdx.z) * BQ4;
+  if (q0 >= Tq) return;  // the upper half of the last pair
+  const size_t qoff = (size_t)bh * Tq * D;
+  const size_t koff = (size_t)bh * Tk * D;
+
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + BK4 - 1) / BK4;
+  if (causal) {
+    const int last = min(q0 + BQ4, Tq);  // exclusive bound on q_pos
+    n_tiles = min(n_tiles, (last + BK4 - 1) / BK4);
+  }
+
+  auto load_kv = [&](int i) {
+    const int s = (i & 1) * BK4 * ST;
+    load_rows<D, ST, BK4, NTHREADS>(smem + L::K + s, k + koff, i * BK4, Tk);
+    load_rows<D, ST, BK4, NTHREADS>(smem + L::V + s, v + koff, i * BK4, Tk);
+  };
+  if (n_tiles > 0) {
+    load_rows<D, ST, BQ4, NTHREADS>(smem + L::Q, q + qoff, q0, Tq);
+    load_rows<D, ST, BQ4, NTHREADS>(smem + L::DO, dout + qoff, q0, Tq);
+    load_kv(0);
+    cp_async_commit();
+  }
+
+  const int r0 = rt * 16;  // the warp's rows in the q tile
+  const int c0 = part * DP;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};  // this thread's rows
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < Tq;
+    lse_r[h] = in ? lse[(size_t)bh * Tq + row[h]] : INFINITY;
+    di_r[h] = in ? di[(size_t)bh * Tq + row[h]] : 0.f;
+  }
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float* x = smem + L::X;
+  // this lane's ldmatrix rows: of Q's and dO's A fragments (the tiles at
+  // rows r0, r0 + 8 and columns 0, 4 of a k-step), and of K's (lanes
+  // 0-15) or V's (16-31) B fragment (columns 0, 4 of a k-step)
+  const int a_row =
+      (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ST + c0 + 4 * (lane >> 4);
+  const int b_row = (lane & 7) * ST + c0 + 4 * ((lane >> 3) & 1);
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();  // this thread's copies of tile i have landed
+    __syncthreads();     // everyone's, and every warp is done with i - 1
+    if (i + 1 < n_tiles) {  // into the stage tile i - 1 used
+      load_kv(i + 1);
+      cp_async_commit();
+    }
+    const int k0 = i * BK4;
+    const float* ks = smem + L::K + (i & 1) * BK4 * ST;
+    const float* vs = smem + L::V + (i & 1) * BK4 * ST;
+    // a row tile past Tq, or wholly above the tile, adds 0: all PARTS of
+    // its warps skip alike, and no other row tile reads their partials
+    const bool live = q0 + r0 < Tq && (!causal || k0 <= q0 + r0 + 15);
+    float s[NT4][4], dp[NT4][4];
+    if (live) {  // S and dP over this warp's columns, into its slot
+      // each in two accumulators by k-step parity, then summed
+      float s2[2][4] = {}, dp2[2][4] = {};
+      const float* kv_row = (lane >> 4 ? vs : ks) + b_row;
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        uint32_t qa[4], oa[4], kv[4];
+        ldsm_x4(qa, qs + a_row + kk * 8);
+        ldsm_x4(oa, dos + a_row + kk * 8);
+        ldsm_x4(kv, kv_row + kk * 8);
+        mma3(s2[kk & 1], frag_a(qa), frag_b(kv[0], kv[1]));
+        mma3(dp2[kk & 1], frag_a(oa), frag_b(kv[2], kv[3]));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[0][e] = s2[0][e] + s2[1][e];
+        dp[0][e] = dp2[0][e] + dp2[1][e];
+      }
+#pragma unroll
+      for (int j = 0; j < NT4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[(warp * SLOT + 4 * j + e) * 32 + lane] = s[j][e];
+          x[(warp * SLOT + NT4 * 4 + 4 * j + e) * 32 + lane] = dp[j][e];
+        }
+    }
+    __syncthreads();  // every partial is in
+    if (!live) continue;
+    // S and dP = the row tile's partials summed in part order: the same
+    // bits in each of its warps; s becomes dS
+#pragma unroll
+    for (int j = 0; j < NT4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sv = x[(rt * SLOT + 4 * j + e) * 32 + lane];
+        float dv = x[(rt * SLOT + NT4 * 4 + 4 * j + e) * 32 + lane];
+#pragma unroll
+        for (int p = 1; p < PARTS; ++p) {
+          const int w = p * RT + rt;
+          sv += x[(w * SLOT + 4 * j + e) * 32 + lane];
+          dv += x[(w * SLOT + NT4 * 4 + 4 * j + e) * 32 + lane];
+        }
+        const int h = e >> 1;
+        const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+        const bool vis = k_pos < length && row[h] < Tq &&
+                         (!causal || row[h] >= k_pos);
+        const float pe = vis ? expf(sv * sm_scale - lse_r[h]) : 0.f;
+        s[j][e] = pe * (dv - di_r[h]);
+      }
+    accumulate<ST, 2>(acc, s, ks + c0, g, t);  // dq += dS K
+  }
+
+  float* dqp = dq + qoff + c0;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < Tq)
+        *reinterpret_cast<float2*>(dqp + (size_t)row[h] * D + n * 8 + 2 * t) =
+            make_float2(acc[n][2 * h] * sm_scale,
+                        acc[n][2 * h + 1] * sm_scale);
+}
+
+template <int D>
+cudaError_t launch_dq_quarter(const float* q, const float* k, const float* v,
+                              const float* dout, const float* lse,
+                              const float* di, const int* lens, float* dq,
+                              int BH, int Tq, int Tk, int causal,
+                              float sm_scale, cudaStream_t stream) {
+  const int smem_bytes = qsplit::Smem<D>::DQ_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tf32x3_quarter_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + 2 * qsplit::BOWN - 1) / (2 * qsplit::BOWN), 2);
+  flash_bwd_dq_tf32x3_quarter_kernel<D>
+      <<<grid, NTHREADS, smem_bytes, stream>>>(
+          q, k, v, dout, lse, di, lens, dq, Tq, Tk, causal, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
 // a cudaError_t (0 = launched). D is 64, 128 or a multiple of 64 above 128
-// (the split instances at 192 and 256, the wide ones past that).
+// (the split instances at 192 and 256, dq's quarter instance at 384 and
+// 512, the wide ones past those).
 extern "C" int paddle_flash_attention_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* di, const int* lens, float* dq, int BH,
@@ -789,6 +1015,12 @@ extern "C" int paddle_flash_attention_bwd_dq_f32(
     case 256:
       return (int)launch_dq_split<256>(q, k, v, dout, lse, di, lens, dq, BH,
                                        Tq, Tk, causal, sm_scale, s);
+    case 384:
+      return (int)launch_dq_quarter<384>(q, k, v, dout, lse, di, lens, dq,
+                                         BH, Tq, Tk, causal, sm_scale, s);
+    case 512:
+      return (int)launch_dq_quarter<512>(q, k, v, dout, lse, di, lens, dq,
+                                         BH, Tq, Tk, causal, sm_scale, s);
     default:
       if (D > 128 && D % wide::DC == 0)
         return (int)launch_dq_wide<float>(q, k, v, dout, lse, di, lens, dq,
@@ -837,6 +1069,10 @@ extern "C" int paddle_flash_attention_bwd_smem_bytes(int dkv, int D) {
       return dkv ? dsplit::Smem<192>::DKV_BYTES : dsplit::Smem<192>::DQ_BYTES;
     case 256:
       return dkv ? dsplit::Smem<256>::DKV_BYTES : dsplit::Smem<256>::DQ_BYTES;
+    case 384:
+      return dkv ? wide::DKV_BYTES : qsplit::Smem<384>::DQ_BYTES;
+    case 512:
+      return dkv ? wide::DKV_BYTES : qsplit::Smem<512>::DQ_BYTES;
     default:
       if (D > 128 && D % wide::DC == 0)
         return dkv ? wide::DKV_BYTES : wide::DQ_BYTES;

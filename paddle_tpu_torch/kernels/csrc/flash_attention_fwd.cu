@@ -13,9 +13,11 @@
 // q [BH, Tq, D], k/v [BH, Tk, D], len [BH] int32 -> o [BH, Tq, D],
 // lse [BH, Tq] f32. D is 64 or 128: the wrapper zero-pads any other
 // D <= 128 up to one of them (zero columns change no score and give zero
-// output columns). Past 128 it pads D to a multiple of 64: at 192 and 256
-// the split instance below runs (flash_fwd_tf32x3_split_kernel: O split
-// by D across the warpgroups), past 256 the wide one
+// output columns). Past 128 it pads D to a multiple of 64, and one in
+// 257-512 to 384 or 512: at 192 and 256 the split instance below runs
+// (flash_fwd_tf32x3_split_kernel: O split by D across the warpgroups), at
+// 384 and 512 the quarter one (flash_fwd_tf32x3_quarter_kernel: 32 q rows
+// a block, O split four ways by D), past 512 the wide one
 // (flash_fwd_wide_kernel<float>, flash_wide.cuh). The denominator is
 // max(l, 1e-30).
 //
@@ -152,6 +154,63 @@ __device__ __forceinline__ float4 fetch(const float* __restrict__ src,
                       : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
+// The online softmax over one key tile of a warp's 16 rows: S's fragment
+// s (mma.m16n8k8's C fragment per warp: rows g and g + 8, each in one
+// quad of lanes, this thread's columns 2t and 2t + 1 of each 8-key
+// n-tile) masked where k_pos >= length or, under causal masking, k_pos >
+// the row, and scaled; the rows' running max m and denominator l updated
+// (a row's max and sum are the thread's own values and two __shfl_xor);
+// O's accumulators rescaled by exp(m_old - m_new). s becomes P.
+template <int NT, int ND>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&m)[2],
+                                             float (&l)[2],
+                                             float (&acc)[ND][4],
+                                             const int (&row)[2], int k0,
+                                             int length, int causal,
+                                             float sm_scale, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int h = e >> 1;
+      const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+      const bool vis = k_pos < length && (!causal || row[h] >= k_pos);
+      s[j][e] = vis ? s[j][e] * sm_scale : -INFINITY;
+      mx[h] = fmaxf(mx[h], s[j][e]);
+    }
+  float m_safe[2], alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h]);
+    // a row masked so far keeps m = -inf; exp sees a finite offset
+    m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[h] = m[h] == -INFINITY ? 0.f : expf(m[h] - m_safe[h]);
+    m[h] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = expf(s[j][e] - m_safe[e >> 1]);  // masked: 0
+      s[j][e] = p;
+      sum[e >> 1] += p;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    l[h] = l[h] * alpha[h] + sum[h];
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+}
+
 // one block of 8 warps per SM at either D (shared memory at D = 128; the
 // register budget at D = 64)
 template <int D>
@@ -270,50 +329,9 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
       wgmma_wait_all();
       fence_regs(sd);
 
-      // S's fragment per warp is mma.m16n8k8's C fragment: the online
-      // softmax over this tile, row h of the thread in a quad
+      // a warp whose rows are wholly above the tile adds 0
       if (!causal || k0 <= q0 + r0 + 15) {
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int h = e >> 1;
-            const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
-            const bool live = k_pos < length && (!causal || row[h] >= k_pos);
-            s[j][e] = live ? s[j][e] * sm_scale : -INFINITY;
-            mx[h] = fmaxf(mx[h], s[j][e]);
-          }
-        float m_safe[2], alpha[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-          mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-          const float m_new = fmaxf(m[h], mx[h]);
-          // a row masked so far keeps m = -inf; exp sees a finite offset
-          m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
-          alpha[h] = m[h] == -INFINITY ? 0.f : expf(m[h] - m_safe[h]);
-          m[h] = m_new;
-        }
-        float sum[2] = {0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = expf(s[j][e] - m_safe[e >> 1]);  // masked: 0
-            s[j][e] = p;
-            sum[e >> 1] += p;
-          }
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-          sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-          l[h] = l[h] * alpha[h] + sum[h];
-        }
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+        softmax_tile(s, m, l, acc, row, k0, length, causal, sm_scale, t);
         accumulate<L::VST>(acc, s, vs, g, t);  // O += P V
       }
     }
@@ -535,46 +553,7 @@ flash_fwd_tf32x3_split_kernel(const float* __restrict__ q,
 
     // a warp whose rows are wholly above the tile adds 0
     if (!causal || k0 <= q0 + r0 + 15) {
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NT2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
-          const bool live = k_pos < length && (!causal || row[h] >= k_pos);
-          s[j][e] = live ? s[j][e] * sm_scale : -INFINITY;
-          mx[h] = fmaxf(mx[h], s[j][e]);
-        }
-      float m_safe[2], alpha[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(m[h], mx[h]);
-        m_safe[h] = m_new == -INFINITY ? 0.f : m_new;
-        alpha[h] = m[h] == -INFINITY ? 0.f : expf(m[h] - m_safe[h]);
-        m[h] = m_new;
-      }
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < NT2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(s[j][e] - m_safe[e >> 1]);  // masked: 0
-          s[j][e] = p;
-          sum[e >> 1] += p;
-        }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-        l[h] = l[h] * alpha[h] + sum[h];
-      }
-#pragma unroll
-      for (int n = 0; n < HALF / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      softmax_tile(s, m, l, acc, row, k0, length, causal, sm_scale, t);
       accumulate<L::VST>(acc, s, vs + wg * HALF, g, t);  // O += P V
     }
     if (more) store_k(i + 1);  // into the stage tile i - 1 used
@@ -612,12 +591,205 @@ cudaError_t launch_split(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// --- head dims 384 and 512: 32 q rows a block, O and S split four ways ---
+//
+// The split layout above does not fit at D512: Q's hi and lo for 64 rows
+// take 262,144 bytes of shared memory, and O for a warp's 16 rows over
+// half of D 128 registers a thread. So a block owns 32 q rows, as two
+// row tiles of 16, and its 8 warps are 2 row tiles x 4 parts of D: warp
+// w owns rows 16 (w % 2) .. and columns D/4 (w / 2) .. of O (64
+// registers at D512, the D256 budget). S moves to `mma.sync` (tf32
+// wgmma takes 64 rows and both operands' hi/lo from shared memory, which
+// do not fit beside a K/V ring), from Q and K raw in shared memory, each
+// fragment split into hi/lo as it is read. Each warp forms S for its 16
+// rows over its quarter of D, the four partials of a row tile meet in
+// shared memory (the exchange), and every warp of the row tile sums them
+// in part order, so all four hold the same bits and the row max,
+// denominator and lse agree. P V runs as in the split layout on the
+// warp's quarter of V's columns, each tile's P V a fresh sum added to O
+// in f32. Shared memory at D512: Q 66,048 bytes, 2 stages x 16 keys of
+// raw K and V 132,096 (row stride D + 4 floats) and the 8,192-byte
+// exchange = 206,336 (157,184 at D384). Holding each warp's Q fragments
+// in registers instead (64 more a thread) took the kernel to 255
+// registers with spills and ran 1.2x slower on an H100 (PERF.md §6). The
+// load of the next tile is issued after the barrier that opens a tile,
+// so two barriers a tile. The grid is (bh, 64-row pairs, 2): z picks a
+// pair's upper (heavier under causal masking, z = 0) or lower 32 rows,
+// so the grid's y axis holds as many rows as at 192 and 256.
+namespace qsplit {
+
+constexpr int BQ = 32;              // q rows a block owns
+constexpr int RT = BQ / 16;         // row tiles of 16 rows
+constexpr int PARTS = NWARPS / RT;  // parts of D: a warp each per row tile
+constexpr int BK = 16;              // keys a ring stage holds
+constexpr int NT = BK / 8;
+constexpr int STAGES = 2;
+
+// Shared memory, in floats: each stage's raw K, then each stage's raw V
+// (row stride D + 4: the fragment reads hit 32 distinct banks), the
+// exchange of S partials (one slot of NT x 4 values a lane per warp),
+// then Q [BQ, D] at the same stride.
+template <int D>
+struct Tile {
+  static constexpr int DP = D / PARTS;  // a warp's columns of D
+  static constexpr int ST = D + 4;
+  static constexpr int K = 0;
+  static constexpr int V = K + STAGES * BK * ST;
+  static constexpr int X = V + STAGES * BK * ST;
+  static constexpr int Q = X + NWARPS * NT * 4 * 32;
+  static constexpr int BYTES = (Q + BQ * ST) * 4;
+  static_assert(DP % 16 == 0, "accumulate takes n-tiles in groups of 2");
+  static_assert(BYTES <= 232448, "past a block's shared memory");
+};
+
+}  // namespace qsplit
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_tf32x3_quarter_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const int* __restrict__ lens,
+                                float* __restrict__ o,
+                                float* __restrict__ lse, int Tq, int Tk,
+                                int causal, float sm_scale) {
+  using L = qsplit::Tile<D>;
+  constexpr int BQ4 = qsplit::BQ, BK4 = qsplit::BK, NT4 = qsplit::NT;
+  constexpr int RT = qsplit::RT, PARTS = qsplit::PARTS;
+  constexpr int ST = L::ST, DP = L::DP;
+  extern __shared__ __align__(1024) char smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rt = warp % RT;    // the row tile: rows 16 rt ..
+  const int part = warp / RT;  // the part of D: columns DP part ..
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 =
+      (gridDim.y - 1 - blockIdx.y) * 2 * BQ4 + (1 - blockIdx.z) * BQ4;
+  if (q0 >= Tq) return;  // the upper half of the last pair
+  const size_t qoff = (size_t)bh * Tq * D;
+  const size_t koff = (size_t)bh * Tk * D;
+
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + BK4 - 1) / BK4;
+  if (causal) {
+    const int last = min(q0 + BQ4, Tq);  // exclusive bound on q_pos
+    n_tiles = min(n_tiles, (last + BK4 - 1) / BK4);
+  }
+
+  auto load_kv = [&](int i) {
+    const int s = (i % qsplit::STAGES) * BK4 * ST;
+    load_rows<D, ST, BK4, NTHREADS>(sm + L::K + s, k + koff, i * BK4, Tk);
+    load_rows<D, ST, BK4, NTHREADS>(sm + L::V + s, v + koff, i * BK4, Tk);
+  };
+  if (n_tiles > 0) {
+    load_rows<D, ST, BQ4, NTHREADS>(sm + L::Q, q + qoff, q0, Tq);
+    load_kv(0);
+    cp_async_commit();
+  }
+
+  const int r0 = rt * 16;  // the warp's rows in the q tile
+  const int c0 = part * DP;
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};  // this thread's rows
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float* x = sm + L::X;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();  // this thread's copies of tile i have landed
+    __syncthreads();     // everyone's, and every warp is done with i - 1
+    if (i + 1 < n_tiles) {  // into the stage tile i - 1 used
+      load_kv(i + 1);
+      cp_async_commit();
+    }
+    const int k0 = i * BK4;
+    const float* ks = sm + L::K + (i % qsplit::STAGES) * BK4 * ST;
+    const float* vs = sm + L::V + (i % qsplit::STAGES) * BK4 * ST;
+    // a row tile past Tq, or wholly above the tile, adds 0: all PARTS of
+    // its warps skip alike, and no other row tile reads their partials
+    const bool live = q0 + r0 < Tq && (!causal || k0 <= q0 + r0 + 15);
+    float s[NT4][4];
+    if (live) {  // S over this warp's columns, into its exchange slot
+#pragma unroll
+      for (int j = 0; j < NT4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        const FragA a = load_a<ST>(sm + L::Q, r0, c0 + kk * 8, g, t);
+#pragma unroll
+        for (int j = 0; j < NT4; ++j)
+          mma3(s[j], a, load_b_t<ST>(ks, j * 8, c0 + kk * 8, g, t));
+      }
+#pragma unroll
+      for (int j = 0; j < NT4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[(warp * NT4 * 4 + 4 * j + e) * 32 + lane] = s[j][e];
+    }
+    __syncthreads();  // every partial is in
+    if (!live) continue;
+    // S = the row tile's partials summed in part order: the same bits in
+    // each of its warps
+#pragma unroll
+    for (int j = 0; j < NT4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sum = x[(rt * NT4 * 4 + 4 * j + e) * 32 + lane];
+#pragma unroll
+        for (int p = 1; p < PARTS; ++p)
+          sum += x[((p * RT + rt) * NT4 * 4 + 4 * j + e) * 32 + lane];
+        s[j][e] = sum;
+      }
+    softmax_tile(s, m, l, acc, row, k0, length, causal, sm_scale, t);
+    accumulate<ST, 2>(acc, s, vs + c0, g, t);  // O += P V
+  }
+
+  float* op = o + qoff + c0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= Tq) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      *reinterpret_cast<float2*>(op + (size_t)row[h] * D + n * 8 + 2 * t) =
+          make_float2(acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+    if (part == 0 && t == 0)
+      lse[(size_t)bh * Tq + row[h]] =
+          l[h] > 0.f ? m[h] + logf(fmaxf(l[h], 1e-30f)) : INFINITY;
+  }
+}
+
+template <int D>
+cudaError_t launch_quarter(const float* q, const float* k, const float* v,
+                           const int* lens, float* o, float* lse, int BH,
+                           int Tq, int Tk, int causal, float sm_scale,
+                           cudaStream_t stream) {
+  const int smem_bytes = qsplit::Tile<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32x3_quarter_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + 2 * qsplit::BQ - 1) / (2 * qsplit::BQ), 2);
+  flash_fwd_tf32x3_quarter_kernel<D>
+      <<<grid, NTHREADS, smem_bytes, stream>>>(q, k, v, lens, o, lse, Tq, Tk,
+                                               causal, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; returns a
-// cudaError_t (0 = launched). D is 64, 128, 192, 256 or a multiple of 64
-// above 256 (the wide instance).
+// cudaError_t (0 = launched). D is 64, 128, 192, 256, 384, 512 or a
+// multiple of 64 above 512 (the wide instance).
 extern "C" int paddle_flash_attention_fwd_f32(
     const float* q, const float* k, const float* v, const int* lens,
     float* o, float* lse, int BH, int Tq, int Tk, int D, int causal,
@@ -637,6 +809,12 @@ extern "C" int paddle_flash_attention_fwd_f32(
     case 256:
       return (int)launch_split<256>(q, k, v, lens, o, lse, BH, Tq, Tk,
                                     causal, sm_scale, s);
+    case 384:
+      return (int)launch_quarter<384>(q, k, v, lens, o, lse, BH, Tq, Tk,
+                                      causal, sm_scale, s);
+    case 512:
+      return (int)launch_quarter<512>(q, k, v, lens, o, lse, BH, Tq, Tk,
+                                      causal, sm_scale, s);
     default:
       if (D > 128 && D % wide::DC == 0)
         return (int)launch_fwd_wide<float>(q, k, v, lens, o, lse, BH, Tq, Tk,
@@ -657,6 +835,10 @@ extern "C" int paddle_flash_attention_fwd_smem_bytes(int D) {
       return dsplit::Tile<192>::BYTES;
     case 256:
       return dsplit::Tile<256>::BYTES;
+    case 384:
+      return qsplit::Tile<384>::BYTES;
+    case 512:
+      return qsplit::Tile<512>::BYTES;
     default:
       return D > 128 && D % wide::DC == 0 ? wide::FWD_BYTES : -1;
   }

@@ -107,17 +107,46 @@ __device__ __forceinline__ FragA a_from_c(const float (&c)[4]) {
   return f;
 }
 
+// Four 8 x 4 f32 tiles of shared memory into registers, one ldmatrix of
+// four 8 x 8 b16 tiles: lanes 8m .. 8m + 7 give the row addresses
+// (16-byte aligned) of tile m, and register m of lane 4 g + t holds its
+// element (g, t). So tiles at (rows r, r + 8) x (columns c, c + 4) give an
+// A fragment in load_a's order, and tiles at (rows n, columns c, c + 4)
+// a B fragment in load_b_t's.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(row)));
+}
+
+// the A fragment of four values in load_a's order (ldsm_x4)
+__device__ __forceinline__ FragA frag_a(const uint32_t (&x)[4]) {
+  FragA f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(__uint_as_float(x[e]), f.hi[e], f.lo[e]);
+  return f;
+}
+
+// the B fragment of two values in load_b_t's order (ldsm_x4)
+__device__ __forceinline__ FragB frag_b(uint32_t x0, uint32_t x1) {
+  FragB f;
+  split(__uint_as_float(x0), f.hi[0], f.lo[0]);
+  split(__uint_as_float(x1), f.hi[1], f.lo[1]);
+  return f;
+}
+
 // acc[n] += A(c) * tile[perm rows, 8n .. 8n+8] (tile row stride ST), the
 // NT k-steps of c summed in a fresh accumulator and then added in f32.
 // The tensor cores' f32 accumulation does not round to nearest, so one
 // mma chain through all of T drifts: at T = 2048 it moved dv by 2.5e-5 of
 // its size. The fresh accumulators go GROUP n-tiles at a time, so that
-// GROUP mma chains are in flight at once without 4 * ND more registers.
-template <int ST, int ND, int NT>
+// GROUP mma chains are in flight at once without 4 * ND more registers
+// (4 * GROUP registers; a kernel at the register limit takes 2).
+template <int ST, int GROUP = 4, int ND, int NT>
 __device__ __forceinline__ void accumulate(float (&acc)[ND][4],
                                            const float (&c)[NT][4],
                                            const float* tile, int g, int t) {
-  constexpr int GROUP = 4;
   static_assert(ND % GROUP == 0, "n-tiles must group evenly");
   FragA a[NT];
 #pragma unroll

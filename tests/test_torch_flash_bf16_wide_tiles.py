@@ -116,14 +116,14 @@ BF16, F32 = torch.bfloat16, torch.float32
     (320, BF16, "dq", (384, False)), (96, BF16, "dkv", (128, False)),
     (160, F32, "fwd", (192, False)), (256, F32, "dq", (256, False)),
     (96, F32, "fwd", (128, False)), (64, F32, "dkv", (64, False)),
-    (256, F32, "dkv", (256, False)), (320, F32, "fwd", (384, True)),
+    (256, F32, "dkv", (256, False)), (320, F32, "fwd", (384, False)),
 ])
 def test_kernel_instance_by_dtype(D, dtype, kind, instance):
     """bf16 pads 160 to 192 and 256 to 256 on wgmma (all three kernels),
     and 320 to 384, where all three run wgmma too; f32 runs its
-    forward, dq and dkv on the tensor cores at 192 and 256, everything
-    past 256 on the wide route, and the padded head dim is the same in
-    both."""
+    forward, dq and dkv on the tensor cores at 192 and 256, its forward
+    and dq at 384 too (dkv there on the wide route), and the padded head
+    dim is the same in both."""
     assert tfa._kernel_instance(D, dtype, kind) == instance
     assert tfa._kernel_head_dim(D) == instance[0]
 
