@@ -71,13 +71,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
 5. Backward kernels: the flash dq and dkv kernels against their plain
    versions at the training shape (B8 H8 T2048 D128 causal), the serving
    shape, a ragged case with a fully masked row and the head dims past
-   128 of phase 3 (both on the tensor cores at 192 and 256; at 384 and
-   512 dq on its quarter instance and dkv on the wide one; both wide past
-   512); two launches of each at the training shape, at B2 H4 T1000
-   D256 and D512, at B8 H8 T2048 D256 and at B8 H4 T2048 D512 must be
-   bitwise equal (no atomics). Prints each kernel's registers, spills
+   128 of phase 3 (both on the tensor cores at 192 and 256 and on their
+   quarter instances at 384 and 512; both wide past 512); two launches
+   of each at the training shape, at B2 H4 T1000 D256 and D512, at B8 H8
+   T2048 D256 and at B8 H4 T2048 D512 must be bitwise equal (no
+   atomics). Prints each kernel's registers, spills
    (none allowed) and shared memory and the tensor-core opcodes (HMMA) of
-   both kernels at 192 and 256 and of dq at 384 and 512, then times them
+   both kernels at 192, 256, 384 and 512, then times them
    beside their plain versions and their bounds, and the pair in turns
    with the backward of ``F.scaled_dot_product_attention`` (its backend
    pinned and recorded): pair, SDPA, SDPA, pair; at both D256 and both
@@ -111,9 +111,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
    the plain path's on the card.
 6c. The stacked LM at head dim 512: 6b with 4 heads of 512 (d2048 L8 H4
    d_ff 8192, as 12e), nothing cut, the same gates in f32 and under AMP;
-   8 launches a step of the f32 flash forward and dq on their D512
-   quarter instances (none wide) and of dkv on its wide one, the same
-   prints (``stacked_d512_{f32,amp}_profile.txt``), then the same width
+   8 launches a step of the f32 flash forward, dq and dkv on their D512
+   quarter instances (none wide), the same prints
+   (``stacked_d512_{f32,amp}_profile.txt``), then the same width
    served densely as in 6b (the prefill's attention on the forward's
    D512 quarter instance at ragged lengths).
 7. TF32: the port's conv2d (3x3 s2 p1, NHWC, 64 -> 64) on the card, with
@@ -242,8 +242,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
     d_ff 8192), the same gates, 8 launches a step of each flash kernel
     on its D512 wgmma instance and none on the wide ones (dkv as two
     halves, dK and dV, on the grid's z axis), its f32 build's step 1
-    with the f32 forward and dq on their D512 quarter instances and dkv
-    on its wide one, printed with step ms, tokens/s and a profiled
+    with the f32 forward, dq and dkv on their D512 quarter instances
+    (none wide), printed with step ms, tokens/s and a profiled
     step's device time by kernel (``--per-layer-d512-only`` runs just
     (e)).
 
@@ -462,9 +462,8 @@ PAD_CASES = [
 
 # head dims past 128 (D zero-padded to a multiple of 64, and in 257-512
 # to 384 or 512). In f32 the forward, dq and dkv run their tensor-core
-# instances at 192 and 256 (D160 and D192 pad to 192); at 384 and 512 the
-# forward and dq run their quarter instances on the tensor cores and dkv
-# its wide one; past 512 all three run the wide ones (outputs in
+# instances at 192 and 256 (D160 and D192 pad to 192) and their quarter
+# instances at 384 and 512; past 512 all three run the wide ones (outputs in
 # 128-column slices on the grid's z axis). Causal with a fully masked row
 # at D160, D192, D256 and D320, the stacked LM's attention at head dims
 # 256 (D256_TRAIN) and 512 (D512_TRAIN), a non-causal ragged D512 with a
@@ -501,18 +500,19 @@ WIDE_D = 576
 F32_SPLIT_SASS = tuple(f"flash_{k}_tf32x3_split_kernel<{d}>"
                        for k in ("fwd", "bwd_dq", "bwd_dkv")
                        for d in (192, 256))
-# the f32 forward's and dq's quarter instances at 384 and 512: every
-# product on mma.sync (HMMA)
+# the f32 forward's, dq's and dkv's quarter instances at 384 and 512:
+# every product on mma.sync (HMMA)
 F32_QUARTER_SASS = tuple(f"flash_{k}_tf32x3_quarter_kernel<{d}>"
-                         for k in ("fwd", "bwd_dq") for d in (384, 512))
+                         for k in ("fwd", "bwd_dq", "bwd_dkv")
+                         for d in (384, 512))
 # the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
 # the f32 forward, dq and dkv ran at WIDE_TIMED and D256_TRAIN before
-# they took their tensor-core instances there, and that the forward and
-# dq ran at WIDE_D512 and D512_TRAIN before their quarter instances (dkv
-# runs its wide one there still), on an NVIDIA H100 80GB HBM3 at 700 W
-# (``--f32-wide-times`` once on the commit before each: the forward's and
-# dq's before their split instances, dkv's before its, the D512 shapes
-# before the quarter instances)
+# they took their tensor-core instances there, and at WIDE_D512 and
+# D512_TRAIN before their quarter instances, on an NVIDIA H100 80GB HBM3
+# at 700 W (``--f32-wide-times`` once on the commit before each: the
+# forward's and dq's before their split instances, dkv's before its, the
+# forward's and dq's D512 times before their quarter instances, dkv's
+# D512 times on that same commit)
 F32_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.514, 0.833, 0.705),
                         D256_TRAIN: (8.264, 13.977, 19.210),
                         WIDE_D512: (1.288, 2.266, 2.282),
@@ -1132,6 +1132,7 @@ def backward_kernel_phase(gpu_name):
     errs = {"dq": [], "dkv": []}
     errs_d256 = {"dq": [], "dkv": []}  # 128 < D <= 256
     errs_d512 = {"dq": [], "dkv": []}  # 256 < D <= 512
+    errs_wide = {"dq": [], "dkv": []}  # D > 512: the wide instances
     for B, H, T, D, causal, lengths in BWD_CASES + WIDE_CASES:
         q, k, v, do = (randn(B, H, T, D) for _ in range(4))
         lens = None if lengths is None else torch.tensor(lengths,
@@ -1152,6 +1153,8 @@ def backward_kernel_phase(gpu_name):
                 errs_d256[name].append(err)
             elif 256 < D <= 512:
                 errs_d512[name].append(err)
+            elif D > 512:
+                errs_wide[name].append(err)
         if lengths is not None and 0 in lengths:
             row = lengths.index(0)
             assert not dq[row].any() and not dk[row].any() \
@@ -1185,7 +1188,8 @@ def backward_kernel_phase(gpu_name):
             for name, shape in (("wide", WIDE_TIMED),
                                 ("d256_train", D256_TRAIN),
                                 ("d512", WIDE_D512),
-                                ("d512_train", D512_TRAIN))}
+                                ("d512_train", D512_TRAIN),
+                                ("d576", WIDE_D576))}
     usage = _backward_kernel_usage()
     assert not any(u.get("spill_store_bytes") or u.get("spill_load_bytes")
                    for u in usage.values()), f"the backward spills: {usage}"
@@ -1246,10 +1250,23 @@ def backward_kernel_phase(gpu_name):
             "d256_train_shape": wide["d256_train"][name],
             "d512_shape": wide["d512"][name],
             "d512_train_shape": wide["d512_train"][name],
+            "d576_shape": wide["d576"][name],
             "max_abs_err_d256": max(errs_d256[name]),
             "max_abs_err_d512": max(errs_d512[name]),
+            "max_abs_err_wide": max(errs_wide[name]),
         })
     return records
+
+
+def wide_backward_records(bwd):
+    """The f32 dq and dkv wide instances (flash_wide.cuh), on no main path
+    since every f32 kernel runs on the tensor cores up to head dim 512:
+    each timed at WIDE_D576 (phase 5) with 0 launches."""
+    return [{"name": f"{rec['name']}_wide", "route": "cuda",
+             "source": "paddle_tpu_torch/kernels/csrc/flash_wide.cuh",
+             "replaces": rec["replaces"], "launches": 0,
+             "max_abs_err": rec["max_abs_err_wide"], **rec["d576_shape"]}
+            for rec in bwd]
 
 
 def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
@@ -1321,9 +1338,9 @@ def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
               f", {flops / ms / 1e9:.1f} TFLOP/s, "
               f"{bound_ms / ms * 100:.1f}% of the bound {bound_ms:.4f} ms "
               f"({bound_by}; {bound_simt:.4f} at the CUDA cores' f32 rate); "
-              f"plain {plain_ms:.3f} ms; "
-              + (f"on the parent {_ms_text(was)}" if wide else
-                 f"was {_ms_text(was)} on the wide FMA instance"))
+              f"plain {plain_ms:.3f} ms"
+              + ("" if was is None else f"; was {was:.3f} on the wide FMA "
+                 "instance"))
     print(f"flash_attention_bwd {shape}: in turns, dq + dkv "
           f"{[round(x, 4) for x in turns['pair']]} ms and SDPA backward "
           f"({backend}) {[round(x, 4) for x in lib_turns]} ms: pair / SDPA "
@@ -1864,11 +1881,12 @@ STACKED_D256_GROUPS = ("flash_fwd_tf32x3_split", "flash_bwd_dq_tf32x3_split",
                        "flash_bwd_dkv_tf32x3_split", "flash_", "nvjet",
                        "gemm", "elementwise", "reduce")
 # Phase 6c: the same width with 4 heads of 512 (d2048 L8 H4, d_ff 8192,
-# as phase 12e): the f32 flash forward and dq on their D512 quarter
-# instances, dkv on its wide one, in f32 and under AMP. Nothing cut.
+# as phase 12e): the f32 flash forward, dq and dkv on their D512 quarter
+# instances, in f32 and under AMP. Nothing cut.
 STACKED_D512 = dict(TRAIN, d_model=2048, num_heads=4, d_ff=8192)
 STACKED_D512_GROUPS = ("flash_fwd_tf32x3_quarter",
-                       "flash_bwd_dq_tf32x3_quarter", "flash_bwd_dkv_wide",
+                       "flash_bwd_dq_tf32x3_quarter",
+                       "flash_bwd_dkv_tf32x3_quarter",
                        "flash_", "nvjet", "gemm", "elementwise", "reduce")
 F32_KINDS = ("fwd", "dq", "dkv")
 
@@ -1932,14 +1950,14 @@ def stacked_d256_phase(gpu_name):
 def stacked_d512_phase(gpu_name):
     """Phase 6c: the stacked LM at d2048 L8 H4 (head dim 512)
     (stacked_phase): a step in either precision launches the f32 flash
-    forward and dq 8 times each on their D512 quarter instances and dkv 8
-    times on its wide one."""
+    forward, dq and dkv 8 times each on their D512 quarter instances and
+    none on the wide ones."""
     c = STACKED_D512
     out = stacked_phase(gpu_name, c, STACKED_D512_GROUPS)
     L = c["n_layers"]
     for tag in ("f32", "amp"):
         assert out[tag]["launches_per_step"] == [L] * 3, out[tag]
-        assert out[tag]["wide_launches_per_step"] == [0, 0, L], out[tag]
+        assert out[tag]["wide_launches_per_step"] == [0, 0, 0], out[tag]
     return out
 
 
@@ -2032,9 +2050,9 @@ def stacked_phase(gpu_name, c, groups):
 
 
 def stacked_records(kern, bwd, stacked, hd):
-    """The f32 instances that phase 6b's (``hd`` 256: all three on the
-    tensor cores) or 6c's (``hd`` 512: the forward and dq on their
-    quarter instances, dkv on its wide one) main path runs, each timed at
+    """The f32 instances that phase 6b's (``hd`` 256: the split
+    instances) or 6c's (``hd`` 512: the quarter instances) main path runs,
+    all three on the tensor cores, each timed at
     D256_TRAIN or D512_TRAIN (phases 3 and 5) with its launches a step in
     the phase's f32 run."""
     import torch
@@ -4435,10 +4453,9 @@ def per_layer_d512_phase(gpu_name, recs=None):
     out = per_layer_lm_phase(gpu_name, c, time_f32=False)
     amp = out["amp"]
     L = c["n_layers"]
-    # its f32 step 1: the forward and dq on their quarter instances, dkv
-    # on its wide one
+    # its f32 step 1: the forward, dq and dkv on their quarter instances
     f32 = out["f32_step1_launches"]
-    assert f32[:3] == [L] * 3 and f32[6:] == [0, 0, L], f32
+    assert f32[:3] == [L] * 3 and f32[6:] == [0, 0, 0], f32
     assert amp["launches_per_step"] == [L] * 3, amp["launches_per_step"]
     assert amp["wide_launches_per_step"] == [0, 0, 0], \
         amp["wide_launches_per_step"]
@@ -5914,7 +5931,8 @@ def main():
     torch.cuda.empty_cache()
     zoo_recs, zoo = zoo_phase(gpu)
     records = ([kern] + bwd + stacked_records(kern, bwd, stacked_d256, 256)
-               + stacked_records(kern, bwd, stacked_d512, 512) + conv
+               + stacked_records(kern, bwd, stacked_d512, 512)
+               + wide_backward_records(bwd) + conv
                + amp_recs + per_layer_recs + zoo_recs)
 
     out = ROOT / "chiprun_out"

@@ -23,12 +23,12 @@
 // a multiple of 64, and one in 257-512 to 384 or 512: both kernels run
 // their split instances at 192 and 256
 // (flash_bwd_{dq,dkv}_tf32x3_split_kernel, below: the output split by D
-// across the warpgroups, the products over D exchanged between them); dq
-// runs its quarter instance at 384 and 512
-// (flash_bwd_dq_tf32x3_quarter_kernel: 32 q rows a block, dq split four
-// ways by D); past those they run the wide instances
-// (flash_bwd_{dq,dkv}_wide_kernel<float>, flash_wide.cuh). Queries count
-// from position 0 for both Tq and Tk, as in the forward.
+// across the warpgroups, the products over D exchanged between them) and
+// their quarter instances at 384 and 512
+// (flash_bwd_{dq,dkv}_tf32x3_quarter_kernel: 32 q rows, or 32 keys, a
+// block, the output split four ways by D); past those they run the wide
+// instances (flash_bwd_{dq,dkv}_wide_kernel<float>, flash_wide.cuh).
+// Queries count from position 0 for both Tq and Tk, as in the forward.
 //
 // Layout on the card, and why it differs from the TPU kernels:
 // - dq: one block of 8 warps per (bh, 128-row q tile). Each warp owns 16
@@ -793,28 +793,35 @@ cudaError_t launch_dkv_split(const float* q, const float* k, const float* v,
 // forward's: (bh, 64-row pairs, 2).
 namespace qsplit {
 
-constexpr int BOWN = 32;            // q rows a block owns
+// rows a block owns, q (dq) or k (dkv): two row tiles of 16
+constexpr int BOWN = 32;
 constexpr int RT = BOWN / 16;       // row tiles of 16 rows
 constexpr int PARTS = NWARPS / RT;  // parts of D: a warp each per row tile
-constexpr int BSTREAM = 8;          // keys of a streamed tile
+constexpr int BSTREAM = 8;  // rows of a streamed tile: keys (dq), q (dkv)
 constexpr int NT = BSTREAM / 8;
-static_assert(NT == 1, "one ldmatrix holds a k-step of K and of V");
+static_assert(NT == 1, "one ldmatrix holds a k-step of both streamed tiles");
 
-// Shared memory, in floats: Q and dO [BOWN, D] at row stride D + 4, two
-// stages of K, two of V, then the exchange of the S and dP partials (2 x
-// NT x 4 values a lane per warp).
+// Shared memory, in floats: the two owned [BOWN, D] tiles (Q and dO for
+// dq, K and V for dkv) at row stride D + 4, two stages of each streamed
+// tile (K and V for dq, Q and dO for dkv), the exchange of the S and dP
+// partials (S^T, dP^T for dkv; 2 x NT x 4 values a lane per warp), then,
+// for dkv only, two stages of lse and of Di.
 template <int D>
 struct Smem {
   static constexpr int DP = D / PARTS;  // a warp's columns of D
   static constexpr int ST = D + 4;
-  static constexpr int Q = 0;
-  static constexpr int DO = Q + BOWN * ST;
-  static constexpr int K = DO + BOWN * ST;
-  static constexpr int V = K + 2 * BSTREAM * ST;
-  static constexpr int X = V + 2 * BSTREAM * ST;
-  static constexpr int DQ_BYTES = (X + NWARPS * 2 * NT * 4 * 32) * 4;
-  static_assert(DP % 16 == 0, "accumulate takes n-tiles in groups of 2");
-  static_assert(DQ_BYTES <= 232448, "past a block's shared memory");
+  static constexpr int OWN0 = 0;
+  static constexpr int OWN1 = OWN0 + BOWN * ST;
+  static constexpr int STR0 = OWN1 + BOWN * ST;
+  static constexpr int STR1 = STR0 + 2 * BSTREAM * ST;
+  static constexpr int X = STR1 + 2 * BSTREAM * ST;
+  static constexpr int LSE = X + NWARPS * 2 * NT * 4 * 32;
+  static constexpr int DI = LSE + 2 * BSTREAM;
+  static constexpr int DQ_BYTES = LSE * 4;
+  static constexpr int DKV_BYTES = (DI + 2 * BSTREAM) * 4;
+  // accumulate takes n-tiles in groups of 2 (dq) and 4 (dkv)
+  static_assert(DP % 32 == 0, "a part's n-tiles must group by 4");
+  static_assert(DKV_BYTES <= 232448, "past a block's shared memory");
 };
 
 }  // namespace qsplit
@@ -836,8 +843,8 @@ flash_bwd_dq_tf32x3_quarter_kernel(const float* __restrict__ q,
   constexpr int RT = qsplit::RT, PARTS = qsplit::PARTS;
   constexpr int SLOT = 2 * NT4 * 4;  // a lane's exchange values per warp
   extern __shared__ __align__(16) float smem[];
-  const float* qs = smem + L::Q;
-  const float* dos = smem + L::DO;
+  const float* qs = smem + L::OWN0;
+  const float* dos = smem + L::OWN1;
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -861,12 +868,12 @@ flash_bwd_dq_tf32x3_quarter_kernel(const float* __restrict__ q,
 
   auto load_kv = [&](int i) {
     const int s = (i & 1) * BK4 * ST;
-    load_rows<D, ST, BK4, NTHREADS>(smem + L::K + s, k + koff, i * BK4, Tk);
-    load_rows<D, ST, BK4, NTHREADS>(smem + L::V + s, v + koff, i * BK4, Tk);
+    load_rows<D, ST, BK4, NTHREADS>(smem + L::STR0 + s, k + koff, i * BK4, Tk);
+    load_rows<D, ST, BK4, NTHREADS>(smem + L::STR1 + s, v + koff, i * BK4, Tk);
   };
   if (n_tiles > 0) {
-    load_rows<D, ST, BQ4, NTHREADS>(smem + L::Q, q + qoff, q0, Tq);
-    load_rows<D, ST, BQ4, NTHREADS>(smem + L::DO, dout + qoff, q0, Tq);
+    load_rows<D, ST, BQ4, NTHREADS>(smem + L::OWN0, q + qoff, q0, Tq);
+    load_rows<D, ST, BQ4, NTHREADS>(smem + L::OWN1, dout + qoff, q0, Tq);
     load_kv(0);
     cp_async_commit();
   }
@@ -902,8 +909,8 @@ flash_bwd_dq_tf32x3_quarter_kernel(const float* __restrict__ q,
       cp_async_commit();
     }
     const int k0 = i * BK4;
-    const float* ks = smem + L::K + (i & 1) * BK4 * ST;
-    const float* vs = smem + L::V + (i & 1) * BK4 * ST;
+    const float* ks = smem + L::STR0 + (i & 1) * BK4 * ST;
+    const float* vs = smem + L::STR1 + (i & 1) * BK4 * ST;
     // a row tile past Tq, or wholly above the tile, adds 0: all PARTS of
     // its warps skip alike, and no other row tile reads their partials
     const bool live = q0 + r0 < Tq && (!causal || k0 <= q0 + r0 + 15);
@@ -989,12 +996,224 @@ cudaError_t launch_dq_quarter(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// --- dkv at head dims 384 and 512: 32 keys a block, dK and dV split four
+// ways --------------------------------------------------------------------
+//
+// The dq quarter instance above with the roles of q and k swapped (the
+// layout of namespace qsplit, which both take). The dkv split does not
+// fit at D512: K and V for 64 keys take 264,192 bytes,
+// and dK and dV for a warp's 16 keys over half of D 256 registers a
+// thread. So a block owns 32 keys as two key tiles of 16, and its 8 warps
+// are 2 key tiles x 4 parts of D: warp w owns keys 16 (w % 2) .. and
+// columns D/4 (w / 2) .. of dK and dV (64 + 64 accumulator registers at
+// D512, the dkv split's budget at D256). K and V stay in shared memory
+// (132,096 bytes at D512), which leaves room for two stages of 8 queries
+// of Q and dO (66,048), each stage's lse and Di by 4-byte copies. Each
+// warp forms S^T = K Q^T and dP^T = V dO^T for its keys over its quarter
+// of D, the fragments by ldmatrix and each product in two accumulators by
+// k-step parity, as dq does; the four partials of each meet in the
+// exchange (8,192 bytes) and every warp of the key tile sums them in part
+// order, so all four hold the same bits and agree on P^T and dS^T. dV +=
+// P^T dO and dK += dS^T Q then run on the warp's quarter of dO's and Q's
+// columns, each tile's a fresh sum added in f32, 4 n-tiles at a time: 255
+// registers at D512 and no spills. A key tile past the length or below
+// every query of the tile skips its products; its warps still meet every
+// barrier. Shared memory at D512: 206,464 bytes (157,312 at D384). Two
+// barriers a tile; the grid (bh, 64-key pairs, 2), the low keys, which
+// causal queries see most, first. On an H100 (PERF.md §6) 2 or 1 n-tiles
+// at a time ran 1-2% slower; 16 keys a block as 8 parts of D 1.32x
+// slower, and dK and dV as two halves, each forming only the products it
+// needs (64 accumulators, 5 products where 4 do), 1.44x slower.
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_tf32x3_quarter_kernel(const float* __restrict__ q,
+                                    const float* __restrict__ k,
+                                    const float* __restrict__ v,
+                                    const float* __restrict__ dout,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ di,
+                                    const int* __restrict__ lens,
+                                    float* __restrict__ dk,
+                                    float* __restrict__ dv, int Tq, int Tk,
+                                    int causal, float sm_scale) {
+  using L = qsplit::Smem<D>;
+  constexpr int ST = L::ST, DP = L::DP, BK4 = qsplit::BOWN;
+  constexpr int BQ4 = qsplit::BSTREAM, NT4 = qsplit::NT;
+  constexpr int RT = qsplit::RT, PARTS = qsplit::PARTS;
+  constexpr int SLOT = 2 * NT4 * 4;  // a lane's exchange values per warp
+  extern __shared__ __align__(16) float smem[];
+  const float* ks = smem + L::OWN0;
+  const float* vs = smem + L::OWN1;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rt = warp % RT;    // the key tile: keys 16 rt ..
+  const int part = warp / RT;  // the part of D: columns DP part ..
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * 2 * BK4 + blockIdx.z * BK4;
+  if (k0 >= Tk) return;  // the upper half of the last pair
+  const size_t qoff = (size_t)bh * Tq * D;
+  const size_t koff = (size_t)bh * Tk * D;
+
+  const int length = max(0, min(lens[bh], Tk));
+  const int n_q_tiles = (Tq + BQ4 - 1) / BQ4;
+  // a block wholly past the length is seen by no query: dk = dv = 0
+  const int first = k0 >= length ? n_q_tiles : (causal ? k0 / BQ4 : 0);
+
+  // Q, dO, lse and Di of q tile qb into its ring stage
+  auto load_q_tile = [&](int qb) {
+    const int q0 = qb * BQ4;
+    const int s = (qb - first) & 1;
+    load_rows<D, ST, BQ4, NTHREADS>(smem + L::STR0 + s * BQ4 * ST,
+                                    q + qoff, q0, Tq);
+    load_rows<D, ST, BQ4, NTHREADS>(smem + L::STR1 + s * BQ4 * ST,
+                                    dout + qoff, q0, Tq);
+    if (threadIdx.x < 2 * BQ4) {
+      const int c = threadIdx.x % BQ4;
+      const bool is_lse = threadIdx.x < BQ4;
+      const bool in = q0 + c < Tq;
+      cp_async4(smem + (is_lse ? L::LSE : L::DI) + s * BQ4 + c,
+                (is_lse ? lse : di) + (size_t)bh * Tq + (in ? q0 + c : 0), in);
+    }
+  };
+  if (first < n_q_tiles) {
+    load_rows<D, ST, BK4, NTHREADS>(smem + L::OWN0, k + koff, k0, Tk);
+    load_rows<D, ST, BK4, NTHREADS>(smem + L::OWN1, v + koff, k0, Tk);
+    load_q_tile(first);
+    cp_async_commit();
+  }
+
+  const int r0 = rt * 16;  // the warp's keys in the block
+  const int c0 = part * DP;
+  const int row[2] = {k0 + r0 + g, k0 + r0 + g + 8};  // this thread's keys
+  float dk_acc[DP / 8][4], dv_acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  float* x = smem + L::X;
+  // this lane's ldmatrix rows: of K's and V's A fragments (the tiles at
+  // rows r0, r0 + 8 and columns 0, 4 of a k-step), and of Q's (lanes
+  // 0-15) or dO's (16-31) B fragment (columns 0, 4 of a k-step)
+  const int a_row =
+      (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ST + c0 + 4 * (lane >> 4);
+  const int b_row = (lane & 7) * ST + c0 + 4 * ((lane >> 3) & 1);
+
+  for (int qb = first; qb < n_q_tiles; ++qb) {
+    cp_async_wait<0>();  // this thread's copies of tile qb have landed
+    __syncthreads();     // everyone's, and every warp is done with qb - 1
+    if (qb + 1 < n_q_tiles) {  // into the stage tile qb - 1 used
+      load_q_tile(qb + 1);
+      cp_async_commit();
+    }
+    const int s = (qb - first) & 1;
+    const int q0 = qb * BQ4;
+    const float* qs = smem + L::STR0 + s * BQ4 * ST;
+    const float* dos = smem + L::STR1 + s * BQ4 * ST;
+    const float* lse_s = smem + L::LSE + s * BQ4;
+    const float* di_s = smem + L::DI + s * BQ4;
+    // a key tile past the length, or below every query of the tile, adds
+    // 0: all PARTS of its warps skip alike, and no other key tile reads
+    // their partials
+    const bool live = k0 + r0 < length && (!causal || k0 + r0 < q0 + BQ4);
+    float p[NT4][4], ds[NT4][4];  // S^T, dP^T, then P^T, dS^T
+    if (live) {  // S^T and dP^T over this warp's columns, into its slot
+      // each in two accumulators by k-step parity, then summed
+      float s2[2][4] = {}, dp2[2][4] = {};
+      const float* qo_row = (lane >> 4 ? dos : qs) + b_row;
+#pragma unroll
+      for (int kk = 0; kk < DP / 8; ++kk) {
+        uint32_t ka[4], va[4], qo[4];
+        ldsm_x4(ka, ks + a_row + kk * 8);
+        ldsm_x4(va, vs + a_row + kk * 8);
+        ldsm_x4(qo, qo_row + kk * 8);
+        mma3(s2[kk & 1], frag_a(ka), frag_b(qo[0], qo[1]));
+        mma3(dp2[kk & 1], frag_a(va), frag_b(qo[2], qo[3]));
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[0][e] = s2[0][e] + s2[1][e];
+        ds[0][e] = dp2[0][e] + dp2[1][e];
+      }
+#pragma unroll
+      for (int j = 0; j < NT4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          x[(warp * SLOT + 4 * j + e) * 32 + lane] = p[j][e];
+          x[(warp * SLOT + NT4 * 4 + 4 * j + e) * 32 + lane] = ds[j][e];
+        }
+    }
+    __syncthreads();  // every partial is in
+    if (!live) continue;
+    // S^T and dP^T = the key tile's partials summed in part order: the
+    // same bits in each of its warps; they become P^T and dS^T
+#pragma unroll
+    for (int j = 0; j < NT4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sv = x[(rt * SLOT + 4 * j + e) * 32 + lane];
+        float dpv = x[(rt * SLOT + NT4 * 4 + 4 * j + e) * 32 + lane];
+#pragma unroll
+        for (int pp = 1; pp < PARTS; ++pp) {
+          const int w = pp * RT + rt;
+          sv += x[(w * SLOT + 4 * j + e) * 32 + lane];
+          dpv += x[(w * SLOT + NT4 * 4 + 4 * j + e) * 32 + lane];
+        }
+        const int c = j * 8 + 2 * t + (e & 1);
+        const int q_pos = q0 + c;
+        const int k_pos = row[e >> 1];
+        const bool vis = k_pos < length && q_pos < Tq &&
+                         (!causal || q_pos >= k_pos);
+        const float pe = vis ? expf(sv * sm_scale - lse_s[c]) : 0.f;
+        ds[j][e] = pe * (dpv - di_s[c]);
+        p[j][e] = pe;
+      }
+    accumulate<ST>(dv_acc, p, dos + c0, g, t);  // dv += P^T dO
+    accumulate<ST>(dk_acc, ds, qs + c0, g, t);  // dk += dS^T Q
+  }
+
+  float* dkp = dk + koff + c0;
+  float* dvp = dv + koff + c0;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < Tk) {
+        const size_t at = (size_t)row[h] * D + n * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dkp + at) = make_float2(
+            dk_acc[n][2 * h] * sm_scale, dk_acc[n][2 * h + 1] * sm_scale);
+        *reinterpret_cast<float2*>(dvp + at) =
+            make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      }
+}
+
+template <int D>
+cudaError_t launch_dkv_quarter(const float* q, const float* k,
+                               const float* v, const float* dout,
+                               const float* lse, const float* di,
+                               const int* lens, float* dk, float* dv, int BH,
+                               int Tq, int Tk, int causal, float sm_scale,
+                               cudaStream_t stream) {
+  const int smem_bytes = qsplit::Smem<D>::DKV_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tf32x3_quarter_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tk + 2 * qsplit::BOWN - 1) / (2 * qsplit::BOWN), 2);
+  flash_bwd_dkv_tf32x3_quarter_kernel<D>
+      <<<grid, NTHREADS, smem_bytes, stream>>>(
+          q, k, v, dout, lse, di, lens, dk, dv, Tq, Tk, causal, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
 // a cudaError_t (0 = launched). D is 64, 128 or a multiple of 64 above 128
-// (the split instances at 192 and 256, dq's quarter instance at 384 and
+// (the split instances at 192 and 256, the quarter instances at 384 and
 // 512, the wide ones past those).
 extern "C" int paddle_flash_attention_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* dout,
@@ -1048,6 +1267,12 @@ extern "C" int paddle_flash_attention_bwd_dkv_f32(
     case 256:
       return (int)launch_dkv_split<256>(q, k, v, dout, lse, di, lens, dk, dv,
                                         BH, Tq, Tk, causal, sm_scale, s);
+    case 384:
+      return (int)launch_dkv_quarter<384>(q, k, v, dout, lse, di, lens, dk,
+                                          dv, BH, Tq, Tk, causal, sm_scale, s);
+    case 512:
+      return (int)launch_dkv_quarter<512>(q, k, v, dout, lse, di, lens, dk,
+                                          dv, BH, Tq, Tk, causal, sm_scale, s);
     default:
       if (D > 128 && D % wide::DC == 0)
         return (int)launch_dkv_wide<float>(q, k, v, dout, lse, di, lens, dk,
@@ -1070,9 +1295,9 @@ extern "C" int paddle_flash_attention_bwd_smem_bytes(int dkv, int D) {
     case 256:
       return dkv ? dsplit::Smem<256>::DKV_BYTES : dsplit::Smem<256>::DQ_BYTES;
     case 384:
-      return dkv ? wide::DKV_BYTES : qsplit::Smem<384>::DQ_BYTES;
+      return dkv ? qsplit::Smem<384>::DKV_BYTES : qsplit::Smem<384>::DQ_BYTES;
     case 512:
-      return dkv ? wide::DKV_BYTES : qsplit::Smem<512>::DQ_BYTES;
+      return dkv ? qsplit::Smem<512>::DKV_BYTES : qsplit::Smem<512>::DQ_BYTES;
     default:
       if (D > 128 && D % wide::DC == 0)
         return dkv ? wide::DKV_BYTES : wide::DQ_BYTES;

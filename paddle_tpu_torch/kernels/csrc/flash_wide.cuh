@@ -1,9 +1,8 @@
 // Tiles shared by the flash kernels' wide-head-dim instances.
 //
-// Which kernels take them: the f32 forward, dq and dkv past D = 256, and
-// the bf16 ones past 512. Every kernel at 129 <= D <= 256 runs its
-// tensor-core instance at 192 or 256, and every bf16 kernel at 257 <= D
-// <= 512 its instance at 384 or 512 (flash_attention_{fwd,bwd,bf16}.cu).
+// Which kernels take them: every kernel of either dtype past D = 512.
+// Every kernel at 129 <= D <= 512 runs its tensor-core instance at 192,
+// 256, 384 or 512 (flash_attention_{fwd,bwd,bf16}.cu).
 //
 // The 64/128 instances keep a whole Q (or K/V) tile and its output
 // accumulator in shared memory and registers; past D = 128 neither fits

@@ -59,15 +59,15 @@ f32 all three run 192 and 256 on the tensor cores as 3xTF32: the
 forward and dq with 64 q rows a block and 16-key tiles, dkv with 64 keys
 a block and 16-query tiles; each warpgroup owns half of D of the output
 and forms S (and dP; S^T and dP^T in dkv) over that half, the partial
-products exchanged through shared memory. The f32 forward and dq run
-384 and 512 on the tensor cores too: 32 q rows a block as two row tiles
-of 16, each of the 8 warps owning a quarter of D of its row tile's
-output and forming S (and dP) over that quarter on ``mma.sync``, the
-four partials exchanged through shared memory and summed in a fixed
-order; 16-key K/V tiles in the forward, 8-key ones in dq. Past those
-the wide instances run (``csrc/flash_wide.cuh``: the f32 forward and dq
-past 512, f32 dkv past 256, every bf16 kernel past 512): every product
-over D sums 64-column
+products exchanged through shared memory. All three f32 kernels run
+384 and 512 on the tensor cores too: 32 q rows (dkv: 32 keys) a block as
+two row tiles of 16, each of the 8 warps owning a quarter of D of its
+row tile's output and forming S (and dP; S^T and dP^T in dkv) over that
+quarter on ``mma.sync``, the four partials exchanged through shared
+memory and summed in a fixed order; 16-key K/V tiles in the forward,
+8-key ones in dq, 8-query Q/dO tiles in dkv. Past 512 every kernel of
+either dtype runs its wide instance (``csrc/flash_wide.cuh``): every
+product over D sums 64-column
 chunks staged through shared memory, and each output's D axis is cut
 into 128-wide slices on the grid's z axis, each block
 recomputing S for its own slice (``_kernel_instance`` says which runs;
@@ -310,17 +310,16 @@ def _aligned(t):
 
 # the head dims the tensor-core kernels are built for; the wrappers pad
 # up to them, and past the last one to a multiple of _WIDE_D (192 and 256
-# on the tensor cores where _TENSOR_CORE_HEAD_DIM says so, else the wide
-# instances), in 257-512 to one of _SPLIT_HEAD_DIMS: the bf16 kernels'
-# instances there split D into two halves of whole 64-column boxes
-# between their consumer warpgroups, the f32 forward's and dq's into four
-# quarters between their warps (f32 dkv takes them on its wide instance)
+# on the tensor cores, past 512 the wide instances), in 257-512 to one of
+# _SPLIT_HEAD_DIMS: the bf16 kernels' instances there split D into two
+# halves of whole 64-column boxes between their consumer warpgroups, the
+# f32 ones into four quarters between their warps
 KERNEL_HEAD_DIMS = (64, 128)
 _WIDE_D = 64
 _SPLIT_HEAD_DIMS = (384, 512)
 # rows of a q/k tile: the tiles lie on the grid's y axis (limit 65535);
-# past D = 128 every instance owns 64 rows a block, or, the f32 forward
-# and dq at 384 and 512, a pair of 32-row blocks on the grid's z axis
+# past D = 128 every instance owns 64 rows a block, or, the f32 ones at
+# 384 and 512, a pair of 32-row blocks on the grid's z axis
 _TILE_ROWS = 128
 _WIDE_TILE_ROWS = 64
 
@@ -344,13 +343,12 @@ def _kernel_head_dim(D):
 
 # the largest padded head dim of each kernel's tensor-core instances, by
 # dtype: in f32 all three run 192 and 256 as 3xTF32 with D split across
-# the warpgroups, and the forward and dq 384 and 512 with D split four
-# ways across the warps (csrc/flash_attention_{fwd,bwd}.cu); in bf16 all
-# three run 192, 256, 384 and 512 on ``wgmma``
-# (csrc/flash_attention_bf16.cu). Past it a kernel runs its wide
-# instances.
+# the warpgroups, and 384 and 512 with D split four ways across the warps
+# (csrc/flash_attention_{fwd,bwd}.cu); in bf16 all three run 192, 256,
+# 384 and 512 on ``wgmma`` (csrc/flash_attention_bf16.cu). Past it a
+# kernel runs its wide instances.
 _TENSOR_CORE_HEAD_DIM = {
-    torch.float32: {"fwd": 512, "dq": 512, "dkv": 256},
+    torch.float32: {"fwd": 512, "dq": 512, "dkv": 512},
     torch.bfloat16: {"fwd": 512, "dq": 512, "dkv": 512},
 }
 
@@ -360,8 +358,8 @@ def _kernel_instance(D, dtype, kind):
     or "dkv") that takes head dim D in ``dtype``: D padded as
     ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
     that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
-    CUDA cores) rather than one on the tensor cores: in f32 dkv past 256,
-    everything else past 512."""
+    CUDA cores) rather than one on the tensor cores: in either dtype,
+    every kernel past 512."""
     kd = _kernel_head_dim(D)
     return kd, kd > _TENSOR_CORE_HEAD_DIM[dtype][kind]
 

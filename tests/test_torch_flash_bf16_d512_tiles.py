@@ -292,13 +292,13 @@ BF16, F32 = torch.bfloat16, torch.float32
     (384, BF16, "dkv", (384, False)), (512, BF16, "dkv", (512, False)),
     (513, BF16, "fwd", (576, True)), (576, BF16, "dq", (576, True)),
     (384, F32, "fwd", (384, False)), (512, F32, "dq", (512, False)),
-    (320, F32, "dkv", (384, True)), (640, F32, "fwd", (640, True)),
+    (320, F32, "dkv", (384, False)), (640, F32, "fwd", (640, True)),
 ])
 def test_split_instance_by_head_dim(D, dtype, kind, instance):
     """Every bf16 kernel runs wgmma at a padded 384 and 512; the f32
-    forward and dq take their quarter instances on the tensor cores there
-    and f32 dkv its wide one (the same padded head dim); past 512 every
-    kernel runs wide at a multiple of 64. The
+    forward, dq and dkv take their quarter instances on the tensor cores
+    there (the same padded head dim); past 512 every kernel runs wide at
+    a multiple of 64. The
     grid's y axis holds 65535 blocks of 64 q rows."""
     assert tfa._kernel_instance(D, dtype, kind) == instance
     assert tfa._kernel_head_dim(D) == instance[0]

@@ -94,14 +94,14 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("D,instance", [
     (129, ((192, False),) * 2), (160, ((192, False),) * 2),
     (192, ((192, False),) * 2), (193, ((256, False),) * 2),
-    (256, ((256, False),) * 2), (257, ((384, False), (384, True))),
-    (512, ((512, False), (512, True))),
+    (256, ((256, False),) * 2), (257, ((384, False),) * 2),
+    (512, ((512, False),) * 2),
 ])
 def test_dkv_instance_by_head_dim(D, instance):
     """bf16 dkv runs wgmma up to a padded 512 (at 257-512 padded to 384
-    or 512, as the forward and dq); f32 dkv is wide past 256, at the
-    same padded head dim. The grid's y axis holds 65535 blocks of 64 keys
-    past 128."""
+    or 512, as the forward and dq), and so does f32 dkv, on its 3xTF32
+    instances. The grid's y axis holds 65535 blocks of 64 keys past
+    128."""
     assert tfa._kernel_instance(D, BF16, "dkv") == instance[0]
     assert tfa._kernel_instance(D, F32, "dkv") == instance[1]
     assert tfa._max_t(instance[0][0]) == 65535 * DKV_KEYS

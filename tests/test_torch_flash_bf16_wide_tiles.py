@@ -121,9 +121,8 @@ BF16, F32 = torch.bfloat16, torch.float32
 def test_kernel_instance_by_dtype(D, dtype, kind, instance):
     """bf16 pads 160 to 192 and 256 to 256 on wgmma (all three kernels),
     and 320 to 384, where all three run wgmma too; f32 runs its
-    forward, dq and dkv on the tensor cores at 192 and 256, its forward
-    and dq at 384 too (dkv there on the wide route), and the padded head
-    dim is the same in both."""
+    forward, dq and dkv on the tensor cores at 192, 256 and 384, and the
+    padded head dim is the same in both."""
     assert tfa._kernel_instance(D, dtype, kind) == instance
     assert tfa._kernel_head_dim(D) == instance[0]
 

@@ -15,9 +15,9 @@ mode at D160, D192 and D256, causal and ragged with a fully masked row,
 inputs from a numpy seed, f32, atol = rtol = 1e-5; both halves' row max,
 denominator and lse must agree bitwise. dkv runs its own split instance
 at 192 and 256 (``tests/test_torch_flash_f32_dkv_split_tiles.py``
-emulates it) and the wide one past 256; the forward and dq run their
-quarter instances at 384 and 512
-(``tests/test_torch_flash_f32_d512_tiles.py``) and the wide ones past
+emulates it); all three run their quarter instances at 384 and 512
+(``tests/test_torch_flash_f32_d512_tiles.py``, and for dkv
+``tests/test_torch_flash_f32_dkv_d512_tiles.py``) and the wide ones past
 512 (``tests/test_torch_flash_wide_head.py``). Then the route: the
 instance each f32 kernel takes, and the launch wiring with the kernel
 entries swapped for their plain versions (padded D handed over, outputs
@@ -232,16 +232,15 @@ F32 = torch.float32
     (160, "dkv", (192, False)), (256, "dkv", (256, False)),
     (257, "fwd", (384, False)), (320, "dq", (384, False)),
     (128, "dkv", (128, False)), (512, "fwd", (512, False)),
-    (448, "dq", (512, False)), (320, "dkv", (384, True)),
-    (512, "dkv", (512, True)), (576, "fwd", (576, True)),
-    (576, "dq", (576, True)),
+    (448, "dq", (512, False)), (320, "dkv", (384, False)),
+    (512, "dkv", (512, False)), (576, "fwd", (576, True)),
+    (576, "dq", (576, True)), (576, "dkv", (576, True)),
 ])
 def test_f32_kernel_instance(D, kind, instance):
     """f32's forward, dq and dkv take the tensor-core instances at a
-    padded 192 and 256; past 256 (a head dim in 257-512 padded to 384 or
-    512, as in bf16) the forward and dq take their quarter instances on
-    the tensor cores and dkv the wide one; past 512 every kernel the wide
-    ones."""
+    padded 192 and 256, and past 256 (a head dim in 257-512 padded to 384
+    or 512, as in bf16) their quarter instances on the tensor cores; past
+    512 every kernel the wide ones."""
     assert tfa._kernel_instance(D, F32, kind) == instance
 
 
@@ -293,13 +292,13 @@ class _PlainKernels:
 # the D320 case keeps the id it was written with, when D320 padded to 320
 @pytest.mark.parametrize("D,padded,wide", [
     (160, 192, (0, 0, 0)), (256, 256, (0, 0, 0)),
-    pytest.param(320, 384, (0, 0, 1), id="320-320-wide2"),
-    (512, 512, (0, 0, 1)), (576, 576, (1, 1, 1))])
+    pytest.param(320, 384, (0, 0, 0), id="320-320-wide2"),
+    (512, 512, (0, 0, 0)), (576, 576, (1, 1, 1))])
 def test_f32_route_pads_counts_and_slices_back(D, padded, wide,
                                                monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each f32
     kernel the head dim padded to its instance, count one launch of each
-    and the wide ones apart (none up to 256; up to 512 dkv's only), and
+    and the wide ones apart (none up to 512, all three past it), and
     give back the unpadded plain version's results (sm_scale from the
     true D)."""
     rng = np.random.RandomState(D)

@@ -2,10 +2,10 @@
 instances.
 
 On a CUDA tensor a head dim D > 128 is zero-padded to a multiple of 64,
-and one in 257-512 to 384 or 512. Past 256 every f32 kernel runs the
-wide instances, and every bf16 kernel past 512
-(``csrc/flash_wide.cuh``): every product that sums over D (S = QK^T,
-dP = dO V^T) accumulates 64-column chunks, and each output's D axis is
+and one in 257-512 to 384 or 512. Past 512 every kernel of either dtype
+runs the wide instances (``csrc/flash_wide.cuh``): every product that
+sums over D (S = QK^T, dP = dO V^T) accumulates 64-column chunks, and
+each output's D axis is
 cut into 128-wide slices on the grid's z axis, each block recomputing S
 for its own slice. Here that decomposition is emulated on the CPU (64-row
 tiles, chunk sums in order, an online softmax per slice, the dkv loop
@@ -14,8 +14,10 @@ forward and backward kernels in interpret mode at D = 320 (padded to
 384) and 512, causal and ragged with a fully masked row; the slices'
 lse must agree bitwise (a last slice 64 wide, at D = 576, is emulated in
 ``tests/test_torch_flash_bf16_d512_tiles.py``). (The f32 kernels at
-129-256 run on the tensor cores: ``tests/test_torch_flash_f32_wide_tiles.py``
-and ``tests/test_torch_flash_f32_dkv_split_tiles.py``; the bf16 forward
+129-512 run on the tensor cores: ``tests/test_torch_flash_f32_wide_tiles.py``,
+``tests/test_torch_flash_f32_dkv_split_tiles.py``,
+``tests/test_torch_flash_f32_d512_tiles.py`` and
+``tests/test_torch_flash_f32_dkv_d512_tiles.py``; the bf16 forward
 and dq at 257-512: ``tests/test_torch_flash_bf16_d512_tiles.py``, dkv
 there: ``tests/test_torch_flash_bf16_dkv_d512_tiles.py``.) The
 launch
@@ -36,7 +38,7 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 
 torch.set_num_threads(1)
 TOL = dict(atol=1e-5, rtol=1e-5)
-WIDE_DIMS = [320, 512]  # wide in f32 for all three kernels (320 at 384)
+WIDE_DIMS = [320, 512]  # the decomposition at 384 and 512 (320 at 384)
 ROUTE_DIMS = [160, 256]  # padded to 192 and 256
 BT, DC, DS = 64, 64, 128  # tile rows, D chunk, D slice (flash_wide.cuh)
 # (B, H, T, causal, lengths); T = 80 leaves a ragged second 64-row tile,

@@ -2,8 +2,8 @@
 
 ``transformer_lm(pipeline_stack=True)`` (the stacked LM that the port
 trains and serves densely) at d_model 1024 with 2 heads: head dim 512,
-the width at which the port's f32 flash forward and dq run their D512
-tensor-core instances on the card (its dkv the wide one). The stack hands
+the width at which the port's f32 flash forward, dq and dkv run their
+D512 tensor-core instances on the card. The stack hands
 the flash kernels f32 q/k/v under AMP too (``_attn_proj`` casts the qkv
 product back to the hidden dtype, as the JAX op does). Here, on the CPU,
 the flash wrappers run their plain versions. L 2, T 80 (a ragged 32-row
