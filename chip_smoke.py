@@ -8,7 +8,8 @@
     python3 chip_smoke.py --paged-only      # phases 1, 2 and 4b only
     python3 chip_smoke.py --stacked-d256-only  # phases 1, 2 and 6b only
     python3 chip_smoke.py --stacked-d512-only  # phases 1, 2 and 6c only
-    python3 chip_smoke.py --f32-wide-times  # phases 1, 2 and the f32 D256 and D512 times
+    python3 chip_smoke.py --stacked-d1024-only  # phases 1, 2 and 6d only
+    python3 chip_smoke.py --f32-wide-times  # phases 1, 2 and the f32 D256-D1024 times
     python3 chip_smoke.py --amp-only        # phases 1, 2 and 11 only
     python3 chip_smoke.py --bf16-conv-only  # phases 1, 2 and 11a only
     python3 chip_smoke.py --per-layer-only  # phases 1, 2 and 12 only
@@ -36,18 +37,22 @@ Phases, each fatal on failure (nonzero exit, no result line):
    H8 T2048 D256 causal (the instances at 192 and 256 on the tensor
    cores), D320 causal with a fully masked row, a non-causal ragged
    D512, B2 H4 T1000 D512 and B8 H4 T2048 D512 causal (the quarter
-   instances at 384 and 512 on the tensor cores), and D576 (the wide
-   instance). Two launches at the training shape, at B2 H4 T1000 D256
-   and D512, at B8 H8 T2048 D256 and at B8 H4 T2048 D512 must be bitwise
-   equal. Prints the forward's registers, spills (none allowed), shared
-   memory and tensor-core opcodes (SASS: HGMMA and HMMA in the instances
-   at 192 and 256, HMMA in those at 384 and 512), then times it at the
-   serving, training, both D256 and both D512 shapes in turns with
-   ``F.scaled_dot_product_attention``'s f32 forward (its backend pinned
-   and recorded: kernel, library, library, kernel), with profiler device
-   time beside event time, the plain version, the roofline bound and,
-   past 128, the wide FMA instance's earlier time (``--f32-wide-times``
-   times just the f32 trio at D256 and D512).
+   instances at 384 and 512 on the tensor cores), and past 512 D576,
+   D1024 and D1152, each causal with a fully masked row and non-causal
+   ragged (the slice instance: O in 640-column slices on the grid's z
+   axis, Q streamed past 1024). Two launches at the training shape, at
+   B2 H4 T1000 D256, D512 and D576, at B8 H8 T2048 D256, at B8 H4 T2048
+   D512 and at B8 H2 T2048 D1024 must be bitwise equal. Prints the
+   forward's registers, spills (none allowed), shared memory and
+   tensor-core opcodes (SASS: HGMMA and HMMA in the instances at 192 and
+   256, HMMA in those at 384 and 512 and in the slice instances; no wide
+   forward left in either library), then times it at the serving,
+   training, both D256, both D512, the D576 and the D1024 shapes in turns
+   with ``F.scaled_dot_product_attention``'s f32 forward (its backend
+   pinned and recorded: kernel, library, library, kernel), with profiler
+   device time beside event time, the plain version, the roofline bound
+   and, past 128, the wide FMA instance's earlier time
+   (``--f32-wide-times`` times just the f32 trio at D256 to D1024).
 4. Serving: the d1024/L8/H16/V16384 transformer LM (random weights from a
    seed, carried in through ``load_jax_params``) serves requests with
    700-1024-token prompts through ``GenerationEngine(kv_cache="dense")``
@@ -72,7 +77,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    versions at the training shape (B8 H8 T2048 D128 causal), the serving
    shape, a ragged case with a fully masked row and the head dims past
    128 of phase 3 (both on the tensor cores at 192 and 256 and on their
-   quarter instances at 384 and 512; both wide past 512); two launches
+   quarter instances at 384 and 512; both wide past 512, padded to a
+   multiple of 128); two launches
    of each at the training shape, at B2 H4 T1000 D256 and D512, at B8 H8
    T2048 D256 and at B8 H4 T2048 D512 must be bitwise equal (no
    atomics). Prints each kernel's registers, spills
@@ -116,6 +122,11 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (``stacked_d512_{f32,amp}_profile.txt``), then the same width
    served densely as in 6b (the prefill's attention on the forward's
    D512 quarter instance at ragged lengths).
+6d. The stacked LM at head dim 1024: the same width with 2 heads of
+   1024 (d2048 L8 H2 d_ff 8192) served densely as in 6b: 8 requests,
+   every prefill's attention one launch a layer of the f32 forward's
+   slice instance (none of a wide one), request 0's tokens equal to the
+   plain path's on the card.
 7. TF32: the port's conv2d (3x3 s2 p1, NHWC, 64 -> 64) on the card, with
    cuDNN's TF32 at PyTorch's default (on), against the same op in f64 on
    the CPU: output, dX and dW within 1e-5 of the largest reference value.
@@ -199,17 +210,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
     ragged D256, B8 H8 T2048 D256 causal; past 256 D384 causal with a
     fully masked row, a non-causal ragged D512 and B8 H4 T2048 D512
     causal (all three on their split wgmma instances at 384 and 512) and
-    D576 (all three on the wide instances): each of
+    phase 3's cases past 512 (the forward on its slice instance, dq and
+    dkv on the wide ones): each of
     o, dq, dk, dv at most 2x as far from the f32 plain version on the same
     bf16 values as the bf16 plain version is, plus one bf16 ulp of the
     largest |value|, and its error's Frobenius norm at most 1.5x the bf16
     plain version's; a stale K/V stage planted in the plain version at
     the training shape must be refused; lse within 1e-4 of the plain
     version's; two launches at the training shape, at B8 H8 T2048
-    D256, at B8 H4 T2048 D512 and at D384 bitwise equal; registers,
+    D256, at B8 H4 T2048 D512 and at D384 bitwise equal, and of the
+    forward at B2 H4 T1000 D576 and B8 H2 T2048 D1024; registers,
     spills (none allowed) and shared memory; in SASS every wgmma instance
-    (all three at 64, 128, 192, 256, 384 and 512) runs HGMMA fed by
-    UTMALDG (TMA) and no HMMA; timed at B8 H8
+    (all three at 64, 128, 192, 256, 384 and 512, the forward's slice
+    instances) runs HGMMA fed by UTMALDG (TMA) and no HMMA, and no wide
+    forward is left; timed at B8 H8
     T2048 D128 beside the plain versions, the bound at the bf16
     tensor-core rate (TFLOP/s and share of it), the times of the mma.sync
     kernels they replaced and bf16 SDPA (forward; backward for the pair,
@@ -218,8 +232,9 @@ Phases, each fatal on failure (nonzero exit, no result line):
     bf16 SDPA and the times of the wide f32-FMA instances that they
     ran there before, and the same past 256 (B2 H4 T1000 D384 and D512,
     B8 H4 T2048 D512, causal) beside SDPA's memory-efficient backend, and
-    at B2 H4 T1000 D576 (the wide instances, past 512)
-    (``--bf16-wide-times`` times just these);
+    at B2 H4 T1000 D576 and B8 H2 T2048 D1024 (the forward's slice
+    instance, the wide dq and dkv) (``--bf16-wide-times`` times just
+    these), the forward there also in turns with bf16 SDPA;
     (b) bench.py's ``transformer`` (d1024 L8 H8 d_ff 4096 V16384, 8 x 2048
     tokens, Adam 1e-4) in f32: step 1 with the kernels against the plain
     path (loss and every gradient within 1e-4), 8 f32 launches of each
@@ -460,17 +475,21 @@ PAD_CASES = [
     (4400, 16, 24, 16, True, [24 - b % 25 for b in range(4400)]),
 ]
 
-# head dims past 128 (D zero-padded to a multiple of 64, and in 257-512
-# to 384 or 512). In f32 the forward, dq and dkv run their tensor-core
-# instances at 192 and 256 (D160 and D192 pad to 192) and their quarter
-# instances at 384 and 512; past 512 all three run the wide ones (outputs in
-# 128-column slices on the grid's z axis). Causal with a fully masked row
-# at D160, D192, D256 and D320, the stacked LM's attention at head dims
-# 256 (D256_TRAIN) and 512 (D512_TRAIN), a non-causal ragged D512 with a
-# fully masked row, WIDE_D512, and D576 on the wide route. Phase 3 holds
+# head dims past 128 (D zero-padded to a multiple of 64, in 257-512 to
+# 384 or 512, and past 512 to a multiple of 128). In f32 the forward, dq
+# and dkv run their tensor-core instances at 192 and 256 (D160 and D192
+# pad to 192) and their quarter instances at 384 and 512; past 512 the
+# forward runs its slice instance on the tensor cores (O in 640-column
+# slices on the grid's z axis) and dq and dkv the wide ones (outputs in
+# 128-column slices). Causal with a fully masked row at D160, D192, D256
+# and D320, the stacked LM's attention at head dims 256 (D256_TRAIN) and
+# 512 (D512_TRAIN), a non-causal ragged D512 with a fully masked row,
+# WIDE_D512, and past 512 D576, D1024 and D1152 (Q streamed past 1024),
+# each causal with a fully masked row and non-causal ragged. Phase 3 holds
 # the forward, phase 5 dq and dkv against their plain versions; both
 # check two launches bitwise equal at WIDE_TIMED, D256_TRAIN, WIDE_D512
-# and D512_TRAIN and time them there
+# and D512_TRAIN and time them there, and the forward at WIDE_D576 and
+# D1024_TRAIN too
 WIDE_TIMED = (2, 4, 1000, 256, True, None)
 # B8 H8 T2048 D256 causal: the attention of the LMs at d2048 H8 (phase 6b,
 # 12d); B8 H4 T2048 D512 causal: the LMs' at d2048 H4 (6c, 12e)
@@ -480,6 +499,18 @@ D512_TRAIN = (8, 4, 2048, 512, True, None)
 WIDE_D384 = (2, 4, 1000, 384, True, None)
 WIDE_D512 = (2, 4, 1000, 512, True, None)
 WIDE_D576 = (2, 4, 1000, 576, True, None)
+# B8 H2 T2048 D1024 causal: the same work as D512_TRAIN at head dim 1024
+# (the stacked LM at d2048 H2, phase 6d)
+D1024_TRAIN = (8, 2, 2048, 1024, True, None)
+# past 512: the forward's slice instances at Dp 640, 1024 and 1152
+SLICE_CASES = [
+    (2, 4, 1000, 576, True, [1000, 0]),
+    (2, 2, 300, 576, False, [300, 0]),
+    (2, 2, 1000, 1024, True, [1000, 0]),
+    (2, 2, 300, 1000, False, [300, 117]),
+    (2, 2, 600, 1152, True, [600, 0]),
+    (2, 2, 300, 1100, False, [300, 77]),
+]
 WIDE_CASES = [
     (2, 4, 1000, 160, True, [1000, 0]),
     (2, 4, 1000, 192, True, [1000, 0]),
@@ -489,8 +520,7 @@ WIDE_CASES = [
     (2, 2, 300, 512, False, [300, 0]),
     WIDE_D512,
     D512_TRAIN,
-    (2, 2, 300, 576, False, [300, 0]),
-]
+] + SLICE_CASES
 # a head dim of the f32 wide instances, to look up their shared memory
 # (the same at every D)
 WIDE_D = 576
@@ -505,6 +535,13 @@ F32_SPLIT_SASS = tuple(f"flash_{k}_tf32x3_split_kernel<{d}>"
 F32_QUARTER_SASS = tuple(f"flash_{k}_tf32x3_quarter_kernel<{d}>"
                          for k in ("fwd", "bwd_dq", "bwd_dkv")
                          for d in (384, 512))
+# the f32 forward's slice instances past 512 (<1>: Q resident up to Dp
+# 1024, <0>: streamed past it): every product on mma.sync (HMMA)
+F32_SLICE_SASS = ("flash_fwd_tf32x3_slice_kernel<1>",
+                  "flash_fwd_tf32x3_slice_kernel<0>")
+# a padded head dim each slice instance takes (<1>, <0>), to look up its
+# shared memory
+SLICE_DP = {1: 1024, 0: 1152}
 # the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
 # the f32 forward, dq and dkv ran at WIDE_TIMED and D256_TRAIN before
 # they took their tensor-core instances there, and at WIDE_D512 and
@@ -512,11 +549,15 @@ F32_QUARTER_SASS = tuple(f"flash_{k}_tf32x3_quarter_kernel<{d}>"
 # at 700 W (``--f32-wide-times`` once on the commit before each: the
 # forward's and dq's before their split instances, dkv's before its, the
 # forward's and dq's D512 times before their quarter instances, dkv's
-# D512 times on that same commit)
+# D512 times on that same commit), and the forward's at WIDE_D576 and
+# D1024_TRAIN before its slice instance (the mean of two turns on the
+# commit before it; dq and dkv still run wide there)
 F32_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.514, 0.833, 0.705),
                         D256_TRAIN: (8.264, 13.977, 19.210),
                         WIDE_D512: (1.288, 2.266, 2.282),
-                        D512_TRAIN: (13.480, 25.622, 35.201)}
+                        D512_TRAIN: (13.480, 25.622, 35.201),
+                        WIDE_D576: (1.592, None, None),
+                        D1024_TRAIN: (25.506, None, None)}
 
 
 def _case_text(B, H, T, D, causal, lengths):
@@ -541,7 +582,7 @@ def kernel_phase(gpu_name):
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
 
-    errs, bwd_errs, errs_d256, errs_d512 = [], [], [], []
+    errs, bwd_errs, errs_d256, errs_d512, errs_slice = [], [], [], [], []
     for case in FWD_CASES + PAD_CASES + WIDE_CASES:
         B, H, T, D, causal, lengths = case
         q, k, v = (randn(B, H, T, D) for _ in range(3))
@@ -557,6 +598,8 @@ def kernel_phase(gpu_name):
             errs_d256.append(err)
         elif 256 < D <= 512:  # the quarter instances at 384 and 512
             errs_d512.append(err)
+        elif D > 512:  # the slice instances
+            errs_slice.append(err)
         text = f"{_case_text(*case)}: max_abs_err o/lse {err:.3e}"
         masked = [b for b, n in enumerate(lengths or ()) if n == 0]
         assert not o[masked].any(), "a fully masked row got an output"
@@ -587,7 +630,7 @@ def kernel_phase(gpu_name):
           f"are bitwise equal")
     del q, k, v, first, second
     for B, H, T, D, causal, _ in (WIDE_TIMED, D256_TRAIN, WIDE_D512,
-                                  D512_TRAIN):
+                                  D512_TRAIN, WIDE_D576, D1024_TRAIN):
         q, k, v = (randn(B, H, T, D) for _ in range(3))
         first, second = (fa.flash_forward(q, k, v, None, True)
                          for _ in range(2))
@@ -601,28 +644,28 @@ def kernel_phase(gpu_name):
     assert not any(u.get("spill_store_bytes") or u.get("spill_load_bytes")
                    for u in usage.values()), f"the forward spills: {usage}"
     sass = _sass_counts("flash_attention_fwd", "flash_fwd")
+    _assert_no_wide_forward()
     for key, counts in sass.items():
-        if "wide" in key:  # the wide instance's products are f32 FMA
-            assert counts["FFMA"] > 0, f"{key} has no FFMA: {counts}"
-            continue
         assert counts["HMMA"] + counts["HGMMA"] > 0, (
             f"{key} runs no product on the tensor cores: {counts}")
     for key in F32_SPLIT_SASS[:2]:  # S on wgmma, P V on mma.sync
         assert sass[key]["HGMMA"] > 0 and sass[key]["HMMA"] > 0, (
             key, sass.get(key))
-    for key in F32_QUARTER_SASS[:2]:  # S and P V on mma.sync
+    for key in F32_QUARTER_SASS[:2] + F32_SLICE_SASS:  # all on mma.sync
         assert sass[key]["HMMA"] > 0, (key, sass.get(key))
 
     timed = {name: _time_forward(F, fa, randn, gpu_name, *FWD_CASES[i])
              for name, i in (("serving", 0), ("training", 3))}
     for name, shape in (("wide", WIDE_TIMED), ("d256_train", D256_TRAIN),
-                        ("d512", WIDE_D512), ("d512_train", D512_TRAIN)):
+                        ("d512", WIDE_D512), ("d512_train", D512_TRAIN),
+                        ("d576", WIDE_D576), ("d1024_train", D1024_TRAIN)):
         timed[name] = _time_forward(F, fa, randn, gpu_name, *shape)
         timed[name]["previous_ms"] = was = F32_WIDE_PREVIOUS_MS[shape][0]
         print(f"flash_attention_fwd at {timed[name]['shape']}: "
               f"{timed[name]['ms']:.3f} ms, "
               f"{timed[name]['bound_ms'] / timed[name]['ms'] * 100:.1f}% of "
-              f"the bound; was {_ms_text(was)} on the wide FMA instance")
+              f"the bound; was {_ms_text(was)} on the wide FMA instance"
+              + (f" ({was / timed[name]['ms']:.2f}x)" if was else ""))
     serve = timed["serving"]
     return {
         "name": "flash_attention_fwd", "route": "cuda",
@@ -639,21 +682,54 @@ def kernel_phase(gpu_name):
         "serving_shape": serve, "wide_shape": timed["wide"],
         "d256_train_shape": timed["d256_train"],
         "d512_shape": timed["d512"], "d512_train_shape": timed["d512_train"],
+        "d576_shape": timed["d576"],
+        "d1024_train_shape": timed["d1024_train"],
         "max_abs_err_d256": max(errs_d256),
-        "max_abs_err_d512": max(errs_d512), "ptxas": usage, "sass": sass,
+        "max_abs_err_d512": max(errs_d512),
+        "max_abs_err_slice": max(errs_slice), "ptxas": usage, "sass": sass,
     }
 
 
-def _time_forward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
-    """The forward kernel at one shape in turns with SDPA's f32 forward
-    (its backend pinned: kernel, library, library, kernel), each with its
-    device time from a profiler trace, beside the plain version and the
-    bound."""
+def _assert_no_wide_forward():
+    """No wide forward instance is left in the flash libraries' binaries:
+    past head dim 512 the forward of either dtype has only its slice
+    instance on the tensor cores, so no path can launch a wide one."""
+    for lib in ("flash_attention_fwd", "flash_attention_bf16"):
+        left = _sass_counts(lib, "flash_fwd_wide")
+        assert not left, f"{lib} still holds a wide forward: {sorted(left)}"
+    print("flash forward: no wide instance in flash_attention_fwd or "
+          "flash_attention_bf16 (SASS)")
+
+
+def slice_record(rec, dtype, launches):
+    """The forward's slice instance past head dim 512 (``dtype`` "f32":
+    phase 3's record ``rec``, on phase 6d's main path with ``launches``
+    a run; "bf16": phase 12a's, on no main path), timed at D1024_TRAIN
+    in turns with SDPA."""
+    return {"name": "flash_attention_fwd_slice" + (
+                "" if dtype == "f32" else "_bf16"),
+            "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/" + (
+                "flash_attention_fwd.cu" if dtype == "f32"
+                else "flash_attention_bf16.cu"),
+            "replaces": "paddle_tpu/kernels/flash_attention.py:229",
+            "launches": launches, "max_abs_err": rec["max_abs_err_slice"],
+            **rec["d1024_train_shape"], "d576_shape": rec["d576_shape"],
+            "ptxas": {k: u for k, u in rec["ptxas"].items() if "slice" in k}}
+
+
+def _time_forward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths,
+                  dtype=None):
+    """The forward kernel at one shape in turns with SDPA's forward in
+    the same dtype (f32, or ``dtype``; its backend pinned: kernel,
+    library, library, kernel), each with its device time from a profiler
+    trace, beside the plain version and the bound."""
     import torch
     from torch.nn.attention import sdpa_kernel
 
     assert lengths is None and causal
-    q, k, v = (randn(B, H, T, D) for _ in range(3))
+    dtype = dtype or torch.float32
+    q, k, v = (randn(B, H, T, D).to(dtype) for _ in range(3))
 
     def kernel():
         return fa.flash_forward(q, k, v, None, True)
@@ -670,10 +746,13 @@ def _time_forward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
     device = _device_ms(kernel)
     plain_ms = _cuda_ms(
         lambda: fa.flash_attention_reference(q, k, v, None, True), iters=5)
-    flops, nbytes = _attention_work(B, H, T, T, D, True, None)
-    bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name)
+    bf16 = dtype == torch.bfloat16
+    flops, nbytes = _attention_work(B, H, T, T, D, True, None,
+                                    2 if bf16 else 4)
+    bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name,
+                                            bf16=bf16)
     ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    shape = f"B{B} H{H} T{T} D{D} causal f32"
+    shape = f"B{B} H{H} T{T} D{D} causal {'bf16' if bf16 else 'f32'}"
     print(f"flash_attention_fwd timing {shape}: kernel "
           f"{[round(x, 4) for x in turns[::3]]} ms (device "
           f"{_ms_text(device, '.4f')}), SDPA forward ({backend.name}) "
@@ -695,9 +774,11 @@ def _forward_kernel_usage():
 
     lib = build.load("flash_attention_fwd")
     smem = lib.paddle_flash_attention_fwd_smem_bytes
-    return _kernel_usage("flash_attention_fwd",
-                         lambda name, args: smem(args[0] if args else WIDE_D),
-                         match="flash_fwd")
+    return _kernel_usage(
+        "flash_attention_fwd",
+        lambda name, args: smem(SLICE_DP[args[0]] if "slice" in name
+                                else args[0]),
+        match="flash_fwd")
 
 
 def serving_phase(record, gpu_name):
@@ -1349,9 +1430,10 @@ def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
 
 
 def _f32_wide_times(gpu_name):
-    """The f32 forward, dq and dkv at WIDE_TIMED and D256_TRAIN (the
-    tensor-core instances) and at WIDE_D512 and D512_TRAIN (the wide
-    ones), each timed with CUDA events beside its plain version, its
+    """The f32 forward, dq and dkv at WIDE_TIMED and D256_TRAIN, at
+    WIDE_D512 and D512_TRAIN (the tensor-core instances), and at WIDE_D576
+    and D1024_TRAIN (the forward's slice instance, the wide dq and dkv),
+    each timed with CUDA events beside its plain version, its
     bound (3xTF32 rate) and f32 SDPA's fastest backend (the forward; the backward for dq and dkv
     together); no checks. Only the flash wrappers' public entry points
     run, so the same lines time an earlier commit's instances. Returns
@@ -1364,7 +1446,7 @@ def _f32_wide_times(gpu_name):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     out = {}
     for B, H, T, D, causal, lengths in (WIDE_TIMED, D256_TRAIN, WIDE_D512,
-                                        D512_TRAIN):
+                                        D512_TRAIN, WIDE_D576, D1024_TRAIN):
         q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
                        for _ in range(4))
         o, lse = fa.flash_forward(q, k, v, None, causal)
@@ -1464,6 +1546,23 @@ def _kernel_usage(lib_name, dynamic_smem, match):
               f"{u.get('spill_load_bytes')} loaded, "
               f"{u['dynamic_smem_bytes']} bytes of dynamic shared memory")
     return usage
+
+
+def _slice_kernel_usage():
+    """Registers, spills and shared memory of the forward's slice
+    instances past head dim 512, both dtypes (none on a commit before
+    them)."""
+    from paddle_tpu_torch.kernels import build
+
+    fwd = build.load("flash_attention_fwd")
+    bf16 = build.load("flash_attention_bf16")
+    return {
+        **_kernel_usage("flash_attention_fwd", lambda name, args:
+                        fwd.paddle_flash_attention_fwd_smem_bytes(
+                            SLICE_DP[args[0]]), match="slice"),
+        **_kernel_usage("flash_attention_bf16", lambda name, args:
+                        bf16.paddle_flash_attention_bf16_smem_bytes(
+                            0, SLICE_DP[args[0]]), match="slice")}
 
 
 def _backward_kernel_usage():
@@ -1672,12 +1771,12 @@ def _reset_launch_counts(fa):
 
 
 def _flash_counts(fa):
-    """(f32 fwd, dq, dkv launches, bf16 fwd, dq, dkv launches, and the
-    fwd, dq, dkv launches of either dtype on the wide instances)."""
+    """(f32 fwd, dq, dkv launches, bf16 fwd, dq, dkv launches, and the dq,
+    dkv launches of either dtype on the wide instances: the forward has
+    none left)."""
     return _launch_counts(fa) + (fa.flash_attention.bf16_launches,
                                  fa.flash_backward.dq_bf16_launches,
                                  fa.flash_backward.dkv_bf16_launches,
-                                 fa.flash_attention.wide_launches,
                                  fa.flash_backward.dq_wide_launches,
                                  fa.flash_backward.dkv_wide_launches)
 
@@ -1687,7 +1786,6 @@ def _reset_flash_counts(fa):
     fa.flash_attention.bf16_launches = 0
     fa.flash_backward.dq_bf16_launches = 0
     fa.flash_backward.dkv_bf16_launches = 0
-    fa.flash_attention.wide_launches = 0
     fa.flash_backward.dq_wide_launches = 0
     fa.flash_backward.dkv_wide_launches = 0
 
@@ -1830,7 +1928,7 @@ def training_phase(records, gpu_name):
     losses, step_s, counts, peak_mem, profile = _timed_steps(
         exe, main, feed, loss, scope, fa, "train_profile.txt",
         ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
-    assert counts == (7 * L,) * 3 + (0,) * 6, counts
+    assert counts == (7 * L,) * 3 + (0,) * 5, counts
     launches = counts[:3]
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
@@ -1888,7 +1986,12 @@ STACKED_D512_GROUPS = ("flash_fwd_tf32x3_quarter",
                        "flash_bwd_dq_tf32x3_quarter",
                        "flash_bwd_dkv_tf32x3_quarter",
                        "flash_", "nvjet", "gemm", "elementwise", "reduce")
-F32_KINDS = ("fwd", "dq", "dkv")
+# Phase 6d: the same width with 2 heads of 1024 (d2048 L8 H2, d_ff 8192)
+# served densely as in 6b: every prefill's attention on the f32 forward's
+# slice instance past head dim 512 (phase 3's D1024_TRAIN).
+STACKED_D1024 = dict(TRAIN, d_model=2048, num_heads=2, d_ff=8192)
+# the flash kernels that still have wide instances (past head dim 512)
+WIDE_KINDS = ("dq", "dkv")
 
 
 def _stacked_tag(c):
@@ -1909,7 +2012,7 @@ def _stacked_timed(exe, main, feed, loss, scope, fa, tag, c, peak, groups):
     L, tokens = c["n_layers"], c["batch"] * c["seq"]
     hd = c["d_model"] // c["num_heads"]
     wide = tuple(7 * L * fa._kernel_instance(hd, torch.float32, kind)[1]
-                 for kind in F32_KINDS)
+                 for kind in WIDE_KINDS)
     losses, step_s, counts, peak_mem, profile = _timed_steps(
         exe, main, feed, loss, scope, fa, f"stacked_d{hd}_{tag}_profile.txt",
         groups)
@@ -1926,8 +2029,8 @@ def _stacked_timed(exe, main, feed, loss, scope, fa, tag, c, peak, groups):
           f"{flops / med / peak * 100:.1f}% of the "
           f"{'f32' if tag == 'f32' else 'bf16'} peak, peak memory "
           f"{peak_mem / 2**30:.2f} GiB; f32 flash launches per step "
-          f"fwd/dq/dkv {launches} ({[n // 7 for n in counts[6:]]} on the "
-          f"wide instances); device "
+          f"fwd/dq/dkv {launches} (dq/dkv {[n // 7 for n in counts[6:]]} on "
+          f"the wide instances); device "
           + (f"{profile['device_ms']:.1f} ms: " + ", ".join(
               f"{g} {profile['kernels_ms'][g]:.2f} ms "
               f"({profile['launches'][g]} launches)"
@@ -1957,7 +2060,7 @@ def stacked_d512_phase(gpu_name):
     L = c["n_layers"]
     for tag in ("f32", "amp"):
         assert out[tag]["launches_per_step"] == [L] * 3, out[tag]
-        assert out[tag]["wide_launches_per_step"] == [0, 0, 0], out[tag]
+        assert out[tag]["wide_launches_per_step"] == [0, 0], out[tag]
     return out
 
 
@@ -2049,6 +2152,20 @@ def stacked_phase(gpu_name, c, groups):
     return out
 
 
+def stacked_d1024_phase():
+    """Phase 6d: the stacked LM at d2048 L8 H2 (head dim 1024) served
+    (stacked_serving): each prefill's attention one launch a layer of the
+    f32 forward's slice instance, none of a wide one."""
+    import torch
+
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    c = STACKED_D1024
+    hd = c["d_model"] // c["num_heads"]
+    assert fa._kernel_instance(hd, torch.float32, "fwd") == (hd, False)
+    return stacked_serving(c)
+
+
 def stacked_records(kern, bwd, stacked, hd):
     """The f32 instances that phase 6b's (``hd`` 256: the split
     instances) or 6c's (``hd`` 512: the quarter instances) main path runs,
@@ -2130,7 +2247,7 @@ def stacked_serving(c):
     assert counters.get("dispatch_errors", 0) == 0, counters
     assert counters["completed"] == n_req, counters
     launches = spec.n_layers * prefills
-    assert prefills > 0 and counts == (launches,) + (0,) * 8, (counts,
+    assert prefills > 0 and counts == (launches,) + (0,) * 7, (counts,
                                                                 prefills)
 
     # request 0 against the plain path (greedy: the tokens must be equal)
@@ -2144,9 +2261,9 @@ def stacked_serving(c):
           f"{prefills} prefills (mean {lat['prefill_ms']['mean']:.2f} ms), "
           f"decode step mean {lat['decode_step_ms']['mean']:.2f} ms; f32 "
           f"flash forward launches {counts[0]} on the "
-          f"D{spec.d_model // spec.num_heads} tensor-core instance, "
-          f"{counts[6]} wide; request 0's {new} tokens equal the plain "
-          f"path's on the card")
+          f"D{spec.d_model // spec.num_heads} tensor-core instance (the "
+          f"forward has no wide instance left); request 0's {new} tokens "
+          f"equal the plain path's on the card")
     del eng, model
     torch.cuda.empty_cache()
     return {"requests": n_req, "new_tokens": new, "wall_s": wall,
@@ -3663,7 +3780,7 @@ def lm_amp_phase(gpu_name):
     print(f"training AMP: step-1 loss {l1:.6f}, the same step in f32 "
           f"{l32:.6f} (rel {abs(l1 - l32) / abs(l32):.3e}, tol {AMP_RTOL})")
     assert np.isfinite(l1) and abs(l1 - l32) <= AMP_RTOL * abs(l32), (l1, l32)
-    assert counts == (7 * L,) * 3 + (0,) * 6, counts
+    assert counts == (7 * L,) * 3 + (0,) * 5, counts
     assert set(dtypes.values()) == {"torch.float32"}, dtypes
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
@@ -3752,8 +3869,8 @@ PER_LAYER_D512 = dict(TRAIN, d_model=2048, num_heads=4, d_ff=8192)
 # past D = 128 phase 3's D160 and D256 cases and D192 (causal, a fully
 # masked row), a non-causal ragged D256, the D256 training shape; past
 # 256 D384 (causal, a fully masked row), D512 and the D512 training shape
-# (all three kernels on their split wgmma instances), and D576 (all three
-# on the wide instances)
+# (all three kernels on their split wgmma instances), and past 512 phase
+# 3's SLICE_CASES (the forward on its slice instance, dq and dkv wide)
 BF16_FLASH_CASES = [
     (8, 8, 2048, 128, True, None),
     (8, 16, 2048, 128, True, None),
@@ -3768,21 +3885,23 @@ BF16_FLASH_CASES = [
     (2, 4, 1000, 384, True, [1000, 0]),
     (2, 2, 300, 512, False, [300, 0]),
     D512_TRAIN,
-    (2, 2, 300, 576, False, [300, 0]),
-]
+] + SLICE_CASES
 # the cases whose two launches must agree bitwise: the training shapes at
-# D128, D256 and D512 and the D384 case
+# D128, D256 and D512 and the D384 case (and the forward's at WIDE_D576
+# and D1024_TRAIN)
 BF16_BITWISE_CASES = (BF16_FLASH_CASES[0], D256_TRAIN, D512_TRAIN,
-                      BF16_FLASH_CASES[-4])
+                      BF16_FLASH_CASES[10])
 BF16_FLASH = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
               "flash_attention_bwd_dkv_bf16")
 BF16_FLASH_REPLACES = (229, 364, 386)
 # the bf16 flash kernel instances that run wgmma fed by TMA (all three at
-# D 64, 128, 192, 256, 384 and 512): in SASS, HGMMA and UTMALDG and no
-# HMMA (mma.sync); ptxas reports no spills
+# D 64, 128, 192, 256, 384 and 512, and the forward's slice instances
+# past 512): in SASS, HGMMA and UTMALDG and no HMMA (mma.sync); ptxas
+# reports no spills
 BF16_FLASH_SASS = tuple(f"flash_{k}_bf16_kernel<{d}>"
                         for k in ("fwd", "bwd_dq", "bwd_dkv")
-                        for d in (64, 128, 192, 256, 384, 512))
+                        for d in (64, 128, 192, 256, 384, 512)) + (
+    "flash_fwd_slice_bf16_kernel<1>", "flash_fwd_slice_bf16_kernel<0>")
 # phase 3's shape at head dims 384 and 512 (WIDE_D384, WIDE_D512: all
 # three bf16 kernels on their split wgmma instances; only SDPA's
 # memory-efficient backend takes these inputs), and the attention of the
@@ -3790,9 +3909,10 @@ BF16_FLASH_SASS = tuple(f"flash_{k}_bf16_kernel<{d}>"
 # 3's shape at D576 (WIDE_D576), where all three run the wide instances
 # the shapes the bf16 trio is timed at past D = 128: phase 3's and
 # D256_TRAIN on the D256 wgmma instances, the D384 and D512 ones on the
-# split instances, D576 on the wide ones
+# split instances, D576 and D1024_TRAIN on the forward's slice instance
+# and the wide dq and dkv
 BF16_WIDE_TIMED = (WIDE_TIMED, D256_TRAIN, WIDE_D384, WIDE_D512, D512_TRAIN,
-                   WIDE_D576)
+                   WIDE_D576, D1024_TRAIN)
 BF16_D512_TIMED = BF16_WIDE_TIMED[2:5]
 # the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
 # the bf16 forward, dq and dkv ran before their wgmma instances, at
@@ -3800,13 +3920,16 @@ BF16_D512_TIMED = BF16_WIDE_TIMED[2:5]
 # W (``--bf16-wide-times`` once on the commit before each: the D256
 # shapes before the forward's and dq's, then dkv's, wgmma instances
 # there, the rest before the forward's and dq's at 384 and 512, and dkv's
-# there); no FMA instance that was replaced is kept to time again, and
-# past 512 the wide instances still run
+# there, and the forward's at WIDE_D576 and D1024_TRAIN before its slice
+# instance, the mean of two turns); no FMA instance that was replaced is
+# kept to time again, and past 512 the wide dq and dkv still run
 BF16_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.509, 0.816, 0.657),
                          D256_TRAIN: (8.634, 13.966, 20.948),
                          WIDE_D384: (0.839, 1.404, 1.648),
                          WIDE_D512: (1.229, 2.209, 2.256),
-                         D512_TRAIN: (14.616, 26.316, 38.035)}
+                         D512_TRAIN: (14.616, 26.316, 38.035),
+                         WIDE_D576: (1.620, None, None),
+                         D1024_TRAIN: (27.091, None, None)}
 # the times of the mma.sync kernels these replaced, at B8 H8 T2048 D128
 # causal, in ms, on an NVIDIA H100 80GB HBM3 at 700 W (the forward and
 # dkv as last timed beside the mma.sync dq, dq as last timed beside the
@@ -3915,7 +4038,7 @@ def _sdpa_fastest(F, q, k, v, do=None, required=True):
 
 def _bf16_wide_times(gpu_name, gen):
     """The bf16 forward, dq and dkv at each of BF16_WIDE_TIMED's shapes
-    (D256, D384, D512 and D576, causal): each timed beside its plain
+    (D256, D384, D512, D576 and D1024, causal): each timed beside its plain
     version, its bound at the bf16 tensor-core rate and bf16 SDPA (its
     fastest backend: the forward; the backward for dq and dkv together;
     past 256 only the memory-efficient one takes the inputs, and past 512
@@ -4011,9 +4134,11 @@ def bf16_flash_kernel_phase(gpu_name):
         "flash_attention_bf16",
         lambda name, args: smem(0 if "fwd" in name else
                                 1 if "dq" in name else 2,
-                                args[0] if args else WIDE_D),
+                                SLICE_DP[args[0]] if "slice" in name
+                                else args[0] if args else WIDE_D),
         match="bf16_kernel")
     sass = _sass_counts("flash_attention_bf16", "bf16_kernel")
+    _assert_no_wide_forward()
     # every product wgmma, operands by TMA, nothing spilled
     assert sorted(sass) == sorted(BF16_FLASH_SASS), sorted(sass)
     for key in BF16_FLASH_SASS:
@@ -4024,16 +4149,17 @@ def bf16_flash_kernel_phase(gpu_name):
             "spill_load_bytes"), (key, u)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     # max |kernel - plain| of each kernel, by the instance it ran: up to
-    # D128, the wgmma instances at D192 and D256, those at D384 and D512
-    # (the forward and dq), the wide ones (dkv past 256, all past 512)
-    errs, errs_d256, errs_d512, errs_wide = (
-        dict.fromkeys(BF16_FLASH, 0.0) for _ in range(4))
+    # D128, the wgmma instances at D192 and D256, those at D384 and D512,
+    # the forward's slice instance past 512, the wide dq and dkv there
+    errs, errs_d256, errs_d512, errs_slice, errs_wide = (
+        dict.fromkeys(BF16_FLASH, 0.0) for _ in range(5))
 
     def bucket(D, i):
         kd, is_wide = fa._kernel_instance(D, torch.bfloat16,
                                           ("fwd", "dq", "dkv")[i])
         return (errs_wide if is_wide else errs if kd <= 128
-                else errs_d256 if kd <= 256 else errs_d512)
+                else errs_d256 if kd <= 256 else errs_d512 if kd <= 512
+                else errs_slice)
 
     cases = []
     for B, H, T, D, causal, lengths in BF16_FLASH_CASES:
@@ -4108,6 +4234,17 @@ def bf16_flash_kernel_phase(gpu_name):
         torch.cuda.empty_cache()
     print("bf16 flash kernels: two launches on the same inputs bitwise equal "
           "at " + ", ".join(_case_text(*c) for c in BF16_BITWISE_CASES))
+    for B, H, T, D, causal, _ in (WIDE_D576, D1024_TRAIN):  # the forward
+        q, k, v = (torch.randn(B, H, T, D, device="cuda", generator=gen)
+                   .bfloat16() for _ in range(3))
+        first, second = (fa.flash_forward(q, k, v, None, True)
+                         for _ in range(2))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), (
+            f"two bf16 flash forward launches at D{D} differ")
+        print(f"flash_attention_fwd_bf16 B{B} H{H} T{T} D{D} causal: two "
+              f"launches are bitwise equal")
+        del q, k, v, first, second
 
     B, H, T, D, causal, _ = BF16_FLASH_CASES[0]
     q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
@@ -4176,9 +4313,9 @@ def bf16_flash_kernel_phase(gpu_name):
     wide = _bf16_wide_times(gpu_name, gen)
     for i, name in enumerate(BF16_FLASH):
         for shape, rows in wide.items():
-            if shape not in BF16_WIDE_PREVIOUS_MS:
-                continue
             was = BF16_WIDE_PREVIOUS_MS[shape][i]
+            if was is None and shape in (WIDE_D576, D1024_TRAIN):
+                continue  # still wide there (dq, dkv), or not measured
             rows[i]["previous_ms"] = was
             print(f"{name} at {rows[i]['shape']}: {rows[i]['ms']:.3f} ms, "
                   f"was {_ms_text(was)} on the wide FMA instance"
@@ -4208,8 +4345,28 @@ def bf16_flash_kernel_phase(gpu_name):
     # the wide dkv, on the path of the per-layer LM at head dim 512 before
     # its D384/D512 instances, now only past 512: timed at D576
     records.append(record(2, "wide", errs_wide, [wide[WIDE_D576]], ()))
-    print("bf16 flash past D = 512 (all three wide): max |kernel - plain| "
-          + ", ".join(f"{n} {errs_wide[n]:.3e}" for n in BF16_FLASH))
+    print("bf16 flash past D = 512: max |kernel - plain| of the forward's "
+          f"slice instance {errs_slice[BF16_FLASH[0]]:.3e}, of the wide dq "
+          f"{errs_wide[BF16_FLASH[1]]:.3e} and dkv "
+          f"{errs_wide[BF16_FLASH[2]]:.3e}")
+    # the forward's slice instance, timed in turns with SDPA
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+
+    slice_times = {}
+    for name, shape in (("d576_shape", WIDE_D576),
+                        ("d1024_train_shape", D1024_TRAIN)):
+        t = _time_forward(F, fa, randn, gpu_name, *shape,
+                          dtype=torch.bfloat16)
+        t["previous_ms"] = was = BF16_WIDE_PREVIOUS_MS[shape][0]
+        print(f"flash_attention_fwd_bf16 at {t['shape']}: {t['ms']:.3f} ms, "
+              f"{t['bound_ms'] / t['ms'] * 100:.1f}% of the bound; was "
+              f"{_ms_text(was)} on the wide FMA instance"
+              + (f" ({was / t['ms']:.1f}x)" if was else ""))
+        slice_times[name] = t
+    records.append(slice_record(
+        dict(slice_times, max_abs_err_slice=errs_slice[BF16_FLASH[0]],
+             ptxas=usage), "bf16", 0))
     return records
 
 
@@ -4236,15 +4393,16 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
     L, tokens = c["n_layers"], c["batch"] * c["seq"]
     hd = c["d_model"] // c["num_heads"]
     tag = f"d{c['d_model']} L{L} H{c['num_heads']} D{hd}"
-    # launches a step on the wide instances, (fwd, dq, dkv) of each dtype
+    # launches a step on the wide instances, (dq, dkv) of each dtype
     wide_f32, wide_bf16 = (tuple(7 * L * fa._kernel_instance(hd, dt, k)[1]
-                                 for k in ("fwd", "dq", "dkv"))
+                                 for k in WIDE_KINDS)
                            for dt in (torch.float32, torch.bfloat16))
     # the profile's bf16 trio: a kernel on its wide instance by that name
     bf16_groups = tuple(
-        f"flash_{k}_wide" if w else g
-        for k, w, g in zip(("fwd", "bwd_dq", "bwd_dkv"), wide_bf16,
-                           PER_LAYER_GROUPS))
+        f"flash_{k}_wide" if fa._kernel_instance(hd, torch.bfloat16,
+                                                  kind)[1] else g
+        for k, kind, g in zip(("fwd", "bwd_dq", "bwd_dkv"),
+                              ("fwd", "dq", "dkv"), PER_LAYER_GROUPS))
     rng = np.random.RandomState(SEED)
     feed = {"ids": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
             .astype("int64"),
@@ -4455,9 +4613,9 @@ def per_layer_d512_phase(gpu_name, recs=None):
     L = c["n_layers"]
     # its f32 step 1: the forward, dq and dkv on their quarter instances
     f32 = out["f32_step1_launches"]
-    assert f32[:3] == [L] * 3 and f32[6:] == [0, 0, 0], f32
+    assert f32[:3] == [L] * 3 and f32[6:] == [0, 0], f32
     assert amp["launches_per_step"] == [L] * 3, amp["launches_per_step"]
-    assert amp["wide_launches_per_step"] == [0, 0, 0], \
+    assert amp["wide_launches_per_step"] == [0, 0], \
         amp["wide_launches_per_step"]
     print(f"per-layer d{c['d_model']} L{L} H{c['num_heads']} (D"
           f"{c['d_model'] // c['num_heads']}) AMP: bf16 flash launches a step "
@@ -4477,7 +4635,7 @@ def per_layer_d512_phase(gpu_name, recs=None):
         for i, name in enumerate(BF16_FLASH):
             by_name[name + "_d512"]["launches"] = (
                 amp["launches_per_step"][i]
-                - amp["wide_launches_per_step"][i])
+                - ([0] + amp["wide_launches_per_step"])[i])
     return out
 
 
@@ -4896,7 +5054,7 @@ def decode_row(pt):
                    return_numpy=False)
     check(f32)
     f32_s = time.perf_counter() - t0
-    assert _flash_counts(fa) == (L,) + (0,) * 8, _flash_counts(fa)
+    assert _flash_counts(fa) == (L,) + (0,) * 7, _flash_counts(fa)
     with _plain_flash(fa):
         plain, = exe.run(main, feed=feed, fetch_list=[out_ids], scope=scope,
                          return_numpy=False)
@@ -4921,7 +5079,7 @@ def decode_row(pt):
         toks = outs[-1].cpu()
         sec = (time.perf_counter() - t0) / DECODE_STEPS
     counts = _flash_counts(fa)
-    assert counts == (DECODE_STEPS * L,) + (0,) * 8, counts
+    assert counts == (DECODE_STEPS * L,) + (0,) * 7, counts
     check(toks.to(f32.device))
     assert all(torch.equal(o, outs[-1]) for o in outs)
     same = float((toks[:, Tp:] == f32[:, Tp:].cpu()).float().mean())
@@ -5702,9 +5860,9 @@ def main():
     parser.add_argument("--bf16-wide-times", action="store_true",
                         help="build the kernels and only time the bf16 "
                              "flash forward, dq and dkv past head dim 128 "
-                             "(phase 12a's times at D256, D384 and D512, no "
-                             "checks; it runs an earlier commit's "
-                             "instances too); prints no ok line")
+                             "(phase 12a's times at D256, D384, D512, D576 "
+                             "and D1024, no checks; it runs an earlier "
+                             "commit's instances too); prints no ok line")
     parser.add_argument("--stacked-d256-only", action="store_true",
                         help="build the kernels and run only phase 6b (the "
                              "stacked LM at head dim 256 trained in f32 and "
@@ -5713,12 +5871,16 @@ def main():
                         help="build the kernels and run only phase 6c (the "
                              "stacked LM at head dim 512 trained in f32 and "
                              "under AMP, and served); prints no ok line")
+    parser.add_argument("--stacked-d1024-only", action="store_true",
+                        help="build the kernels and run only phase 6d (the "
+                             "stacked LM at head dim 1024 served); prints "
+                             "no ok line")
     parser.add_argument("--f32-wide-times", action="store_true",
                         help="build the kernels and only time the f32 "
-                             "flash forward, dq and dkv at head dims 256 "
-                             "and 512 beside f32 SDPA (no checks; it runs "
-                             "an earlier commit's instances too); prints "
-                             "no ok line")
+                             "flash forward, dq and dkv at head dims 256, "
+                             "512, 576 and 1024 beside f32 SDPA (no checks; "
+                             "it runs an earlier commit's instances too); "
+                             "prints no ok line")
     parser.add_argument("--lstm-only", action="store_true",
                         help="build the kernels and run only phase 13 (the "
                              "recurrent rows lstm and lstm_varlen, the "
@@ -5785,7 +5947,8 @@ def main():
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_bf16_wide_times.json").write_text(json.dumps(
             {"gpu": smi, "times": {rows[0]["shape"]: rows
-                                   for rows in wide.values()}}, indent=1))
+                                   for rows in wide.values()},
+             "ptxas": _slice_kernel_usage()}, indent=1))
         print(smi)
         return
     if args.f32_wide_times:
@@ -5793,7 +5956,8 @@ def main():
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_f32_wide_times.json").write_text(json.dumps(
-            {"gpu": smi, "times": times}, indent=1))
+            {"gpu": smi, "times": times, "ptxas": _slice_kernel_usage()},
+            indent=1))
         print(smi)
         return
     if args.stacked_d256_only:
@@ -5802,6 +5966,14 @@ def main():
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_stacked_d256.json").write_text(json.dumps(
             {"gpu": smi, "stacked_d256": stacked}, indent=1))
+        print(smi)
+        return
+    if args.stacked_d1024_only:
+        served = stacked_d1024_phase()
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_stacked_d1024.json").write_text(json.dumps(
+            {"gpu": smi, "stacked_d1024": served}, indent=1))
         print(smi)
         return
     if args.stacked_d512_only:
@@ -5908,6 +6080,8 @@ def main():
     torch.cuda.empty_cache()
     stacked_d512 = stacked_d512_phase(gpu)
     torch.cuda.empty_cache()
+    stacked_d1024 = stacked_d1024_phase()
+    torch.cuda.empty_cache()
 
     import paddle_tpu_torch as pt
 
@@ -5930,7 +6104,9 @@ def main():
     recurrent = recurrent_phase()
     torch.cuda.empty_cache()
     zoo_recs, zoo = zoo_phase(gpu)
-    records = ([kern] + bwd + stacked_records(kern, bwd, stacked_d256, 256)
+    records = ([kern, slice_record(kern, "f32",
+                                   stacked_d1024["flash_launches"])]
+               + bwd + stacked_records(kern, bwd, stacked_d256, 256)
                + stacked_records(kern, bwd, stacked_d512, 512)
                + wide_backward_records(bwd) + conv
                + amp_recs + per_layer_recs + zoo_recs)
@@ -5941,7 +6117,7 @@ def main():
         {"gpu": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "kernels": records, "serving": serving, "paged_serving": paged,
          "training": training, "stacked_d256": stacked_d256,
-         "stacked_d512": stacked_d512,
+         "stacked_d512": stacked_d512, "stacked_d1024": stacked_d1024,
          "tf32_check": tf32, "resnet_training": resnet_training,
          "resnet_inference": resnet_inference,
          "attention_rewrite": attention, "amp": amp,

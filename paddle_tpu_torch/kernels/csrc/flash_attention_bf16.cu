@@ -1581,6 +1581,266 @@ __device__ __forceinline__ void dkv_half(
   dkv_half_consumers<D, DK>(blk);
 }
 
+// --- past D = 512: the forward with O cut into slices of D --------------
+//
+// Past D = 512 neither fwd_split's O (D / 2 f32 registers a consumer) nor
+// its whole-D K/V tiles fit. The wrapper pads D to a multiple of 128 (Dp),
+// and O is cut into slices of up to SLICE columns on the grid's z axis:
+// block z owns columns SLICE z .. of O for 64 q rows, each consumer half of
+// them (HB boxes of 64 columns, at most 4: 128 f32 registers, as
+// fwd_split's at D = 512). Every block forms S over all of Dp: consumer cw
+// sums its partial over boxes NBH cw .. NBH cw + NBH - 1 of Dp (NBH =
+// Dp / 128), the partials meet as in fwd_split (exchange, sum), then each
+// adds P V for its HB boxes of the slice's V. Every slice forms S, the
+// row max, the denominator and P from the same boxes in the same order, so
+// every slice holds the same bits and slice 0 alone writes lse. S is
+// formed ceil(Dp / SLICE) times: twice at Dp = 640 and 1024.
+// The boxes stream through one ring of uniform stages, in the order the
+// consumers take them: for each 32-key tile, NBH stages of K boxes (one
+// box a consumer: box j and NBH + j), then HB stages of V boxes (box
+// SLICE z / 64 + k and + HB + k). The loop over Dp's boxes runs at run
+// time, so any Dp past 512 is taken. Q (64 rows, Dp / 64 boxes) stays
+// resident up to SLICE_Q_MAX (128 KB at Dp = 1024); past it each K stage
+// also brings the two Q boxes its products read (QRES false), so nothing
+// in shared memory grows with Dp. A stage's products stay in flight
+// while the next stage's are issued; a stage is released once they are
+// done (wgmma.wait_group 1). The output leaves through the ring once
+// both consumers have read their last stage. Shared memory: 229,512 bytes at
+// Dp = 1024 (Q 128 KB, eight stages of 8 KB, the exchange 32 KB) and past
+// it (eight stages of 24 KB with their Q boxes), 180,360 at Dp = 640.
+constexpr int SLICE = 512;        // columns of O a block owns at most
+constexpr int SLICE_KEYS = 32;    // keys of a K/V tile
+constexpr int SLICE_STAGES = 8;   // stages of the ring
+constexpr int SLICE_Q_MAX = 1024;  // the widest Dp whose Q stays resident
+
+// Shared memory, in bytes, of the slice forward at padded head dim Dp: Q's
+// Dp / 64 boxes (QRES), the ring's stages (two K or V boxes, and with
+// QRES false two Q boxes), the two exchange buffers of both consumers' S
+// partials, then the barriers (Q's, and each stage's full and empty).
+template <bool QRES>
+struct SliceRing {
+  static constexpr int KEYS = SLICE_KEYS;
+  static constexpr int STAGES = SLICE_STAGES;
+  static constexpr int Q_BOX = SPLIT_OWN * ROW_BYTES;
+  static constexpr int KV_BOX = KEYS * ROW_BYTES;
+  static constexpr int QS = 2 * KV_BOX;  // a stage's Q boxes (QRES false)
+  static constexpr int STAGE = QS + (QRES ? 0 : 2 * Q_BOX);
+  static constexpr int XHALF = SPLIT_OWN * KEYS * 4;  // a consumer's partial
+  static constexpr int XBUF = 2 * XHALF;
+  __host__ __device__ static constexpr int ring(int Dp) {
+    return QRES ? Dp / 64 * Q_BOX : 0;
+  }
+  __host__ __device__ static constexpr int xch(int Dp) {
+    return ring(Dp) + STAGES * STAGE;
+  }
+  __host__ __device__ static constexpr int bars(int Dp) {
+    return xch(Dp) + 2 * XBUF;
+  }
+  __host__ __device__ static constexpr int bytes(int Dp) {
+    return bars(Dp) + (1 + 2 * STAGES) * 8;
+  }
+  static_assert(Q_BOX % 1024 == 0 && KV_BOX % 1024 == 0,
+                "boxes must keep the swizzle's alignment");
+  static_assert(STAGES * STAGE >= 2 * (SLICE / 2) * SPLIT_OWN * 2,
+                "the ring holds both consumers' output tiles");
+};
+static_assert(SliceRing<true>::bytes(SLICE_Q_MAX) <= SMEM_LIMIT &&
+                  SliceRing<false>::bytes(0) <= SMEM_LIMIT,
+              "the ring does not fit");
+
+// One consumer warp is done with ring stage u: its empty arrival.
+__device__ __forceinline__ void release_stage(uint64_t* empty, int u,
+                                              int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[u % SLICE_STAGES]);
+}
+
+// The slice forward's block (SliceRing<QRES>) at slice z = blockIdx.z,
+// each consumer owning HB boxes of its O.
+template <bool QRES, int HB>
+__device__ __forceinline__ void fwd_slice(
+    unsigned char* smem, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* omap, const int* lens,
+    float* lse, int Tq, int Tk, int Dp, int causal, float sm_scale) {
+  using L = SliceRing<QRES>;
+  constexpr int NK = L::KEYS;
+  constexpr int STAGES = L::STAGES;
+  const int NBH = Dp / 128;  // a consumer's boxes of S's sum
+  const int sb0 = blockIdx.z * (SLICE / 64);  // the slice's first box
+  unsigned char* ring = smem + L::ring(Dp);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::bars(Dp));
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * SPLIT_OWN;
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + NK - 1) / NK;
+  if (causal)  // the last tile any of the block's rows sees
+    n_tiles = min(n_tiles, (min(q0 + SPLIT_OWN, Tq) + NK - 1) / NK);
+
+  init_ring<STAGES>(q_full);
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      if (QRES) {
+        mbar_expect(q_full, Dp / 64 * L::Q_BOX);
+        for (int b = 0; b < Dp / 64; ++b)
+          tma_load_3d(smem + b * L::Q_BOX, qmap, 64 * b, q0, bh, q_full);
+      }
+      int u = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        for (int j = 0; j < NBH; ++j, ++u) {  // K (and Q) box j, NBH + j
+          const int s = ring_acquire<STAGES>(full, empty, u, L::STAGE);
+          unsigned char* st = ring + s * L::STAGE;
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            tma_load_3d(st + c * L::KV_BOX, kmap, 64 * (c * NBH + j), i * NK,
+                        bh, &full[s]);
+            if (!QRES)
+              tma_load_3d(st + L::QS + c * L::Q_BOX, qmap,
+                          64 * (c * NBH + j), q0, bh, &full[s]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < HB; ++k, ++u) {  // V box sb0 + k, + HB + k
+          const int s = ring_acquire<STAGES>(full, empty, u, L::QS);
+          unsigned char* st = ring + s * L::STAGE;
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            tma_load_3d(st + c * L::KV_BOX, vmap, 64 * (sb0 + c * HB + k),
+                        i * NK, bh, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  const float c = sm_scale * LOG2E;  // s * c is s * sm_scale in base 2
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};  // m unscaled
+  float acc[HB * 32];  // box k of this consumer's O: acc[32 k ..]
+#pragma unroll
+  for (int e = 0; e < HB * 32; ++e) acc[e] = 0.f;
+
+  if (QRES && n_tiles > 0) mbar_wait(q_full, 0);
+  int u = 0;  // the ring's stages taken so far
+  for (int i = 0; i < n_tiles; ++i) {
+    float sc[NK / 2];  // this consumer's partial of S = Q K^T, then S
+    for (int j = 0; j < NBH; ++j, ++u) {
+      const int s = u % STAGES;
+      mbar_wait(&full[s], (u / STAGES) & 1);
+      const unsigned char* st = ring + s * L::STAGE;
+      const uint64_t dq = sw128_desc(reinterpret_cast<const float*>(
+          QRES ? smem + (cw * NBH + j) * L::Q_BOX : st + L::QS +
+                                                     cw * L::Q_BOX));
+      const uint64_t dk =
+          sw128_desc(reinterpret_cast<const float*>(st + cw * L::KV_BOX));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaBf16<NK, 0>::mma(sc, dq + 2 * kk, dk + 2 * kk, j + kk);
+      wgmma_commit();
+      if (j > 0) {
+        wgmma_wait_one();  // the stage before is read
+        release_stage(empty, u - 1, lane);
+      }
+    }
+    wgmma_wait_all();
+    fence_regs(sc);
+    release_stage(empty, u - 1, lane);
+    float4* x =
+        reinterpret_cast<float4*>(smem + L::xch(Dp) + (i % 2) * L::XBUF) + tid;
+    xch_put<NK / 2>(x + cw * (L::XHALF / 16), sc, 0);
+    consumers_sync();
+    xch_add<NK / 2>(x + (1 - cw) * (L::XHALF / 16), sc, 0);
+
+    const int k0 = i * NK;
+    float alpha[2];
+    softmax_tile<NK>(sc, m, l, alpha, row, k0, length, causal,
+                     k0 + NK > length || (causal && k0 + NK - 1 > q0), t, c);
+#pragma unroll
+    for (int e = 0; e < HB * 32; ++e) acc[e] *= alpha[(e >> 1) & 1];
+
+    uint32_t pa[NK / 16][4];  // bf16(P), the A of O += P V
+    pack_a<NK>(pa, sc);
+#pragma unroll
+    for (int k = 0; k < HB; ++k, ++u) {
+      const int s = u % STAGES;
+      mbar_wait(&full[s], (u / STAGES) & 1);
+      const uint64_t dv =
+          sw128_mn_desc(ring + s * L::STAGE + cw * L::KV_BOX, L::KV_BOX);
+      float(&ak)[32] = *reinterpret_cast<float(*)[32]>(acc + 32 * k);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NK / 16; ++kk)
+        WgmmaBf16Rs<64>::mma(ak, pa[kk], dv + 128 * kk, 1);
+      wgmma_commit();
+      if (k > 0) {
+        wgmma_wait_one();  // the stage before is read
+        release_stage(empty, u - 1, lane);
+      }
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    release_stage(empty, u - 1, lane);
+    fence_frags(pa);
+  }
+
+  // o through the ring, free once both consumers have read their last stage
+  consumers_sync();
+  unsigned char* ot = ring + cw * HB * L::Q_BOX;
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  stage_tile<HB * 64>(ot, L::Q_BOX, acc, inv, warp, g, t);
+  store_tile<HB * 64>(omap, ot, L::Q_BOX, q0, bh, cw, sb0 + cw * HB);
+  if (blockIdx.z == 0 && cw == 0 && t == 0)  // every slice holds these
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (row[h] < Tq)
+        lse[(size_t)bh * Tq + row[h]] =
+            l[h] > 0.f ? m[h] * sm_scale + logf(fmaxf(l[h], 1e-30f))
+                       : INFINITY;
+}
+
+// The slice forward past D = 512: block z takes slice z of O, its
+// consumers HB = min(SLICE, Dp - SLICE z) / 128 boxes each.
+template <bool QRES>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_fwd_slice_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                                const __grid_constant__ CUtensorMap kmap,
+                                const __grid_constant__ CUtensorMap vmap,
+                                const __grid_constant__ CUtensorMap omap,
+                                const int* __restrict__ lens,
+                                float* __restrict__ lse, int Tq, int Tk,
+                                int Dp, int causal, float sm_scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  switch (min(SLICE, Dp - SLICE * (int)blockIdx.z) / 128) {
+    case 4:
+      fwd_slice<QRES, 4>(smem, &qmap, &kmap, &vmap, &omap, lens, lse, Tq, Tk,
+                         Dp, causal, sm_scale);
+      break;
+    case 3:
+      fwd_slice<QRES, 3>(smem, &qmap, &kmap, &vmap, &omap, lens, lse, Tq, Tk,
+                         Dp, causal, sm_scale);
+      break;
+    case 2:
+      fwd_slice<QRES, 2>(smem, &qmap, &kmap, &vmap, &omap, lens, lse, Tq, Tk,
+                         Dp, causal, sm_scale);
+      break;
+    default:
+      fwd_slice<QRES, 1>(smem, &qmap, &kmap, &vmap, &omap, lens, lse, Tq, Tk,
+                         Dp, causal, sm_scale);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
@@ -1672,6 +1932,40 @@ cudaError_t launch_fwd(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
+// The slice forward at padded head dim Dp (a multiple of 128 past 512):
+// Q resident up to SLICE_Q_MAX, streamed past it; one block per (bh, 64 q
+// rows, slice of O).
+template <bool QRES>
+cudaError_t launch_fwd_slice(const bf16* q, const bf16* k, const bf16* v,
+                             const int* lens, bf16* o, float* lse, int BH,
+                             int Tq, int Tk, int Dp, int causal,
+                             float sm_scale, cudaStream_t stream) {
+  using L = SliceRing<QRES>;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap qmap = {}, kmap = {}, vmap = {}, omap = {};  // Tk = 0: no K/V
+  cudaError_t err =
+      tensor_map_3d(&qmap, q, BF16, 2, Dp, Tq, BH, 64, SPLIT_OWN);
+  if (err == cudaSuccess)
+    err = tensor_map_3d(&omap, o, BF16, 2, Dp, Tq, BH, 64, 64);
+  if (err == cudaSuccess && Tk > 0)
+    err = tensor_map_3d(&kmap, k, BF16, 2, Dp, Tk, BH, 64, L::KEYS);
+  if (err == cudaSuccess && Tk > 0)
+    err = tensor_map_3d(&vmap, v, BF16, 2, Dp, Tk, BH, 64, L::KEYS);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_fwd_slice_bf16_kernel<QRES>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::bytes(Dp));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + SPLIT_OWN - 1) / SPLIT_OWN,
+                  (Dp + SLICE - 1) / SLICE);
+  flash_fwd_slice_bf16_kernel<QRES><<<grid, WS_THREADS, L::bytes(Dp),
+                                      stream>>>(
+      qmap, kmap, vmap, omap, lens, lse, Tq, Tk, Dp, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+bool slice_d(int D) { return D > 512 && D % 128 == 0; }
+
 // A dkv launch at head dim D: keys a block, rows of a Q/dO box, shared
 // memory and blocks on the grid's z axis; up to D = 256 DkvRing's, past
 // it the dK and dV halves'.
@@ -1762,8 +2056,9 @@ bool wide_d(int D) { return D > 128 && D % wide::DC == 0; }
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
 // a cudaError_t (0 = launched). D is a multiple of 64: 64, 128, 192, 256,
-// 384 and 512 launch the wgmma instances, every other D past 256 the wide
-// ones.
+// 384 and 512 launch the wgmma instances; past 512 the forward takes a
+// multiple of 128 (the slice forward), dq and dkv any multiple of 64 (the
+// wide instances).
 extern "C" int paddle_flash_attention_fwd_bf16(
     const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* o,
     float* lse, int BH, int Tq, int Tk, int D, int causal, float sm_scale,
@@ -1788,9 +2083,12 @@ extern "C" int paddle_flash_attention_fwd_bf16(
   if (D == 512)
     return (int)launch_fwd<512>(q, k, v, lens, o, lse, BH, Tq, Tk, causal,
                                 sm_scale, s);
-  if (wide_d(D))
-    return (int)launch_fwd_wide<bf16>(q, k, v, lens, o, lse, BH, Tq, Tk, D,
-                                      causal, sm_scale, s);
+  if (slice_d(D))
+    return D <= SLICE_Q_MAX
+               ? (int)launch_fwd_slice<true>(q, k, v, lens, o, lse, BH, Tq,
+                                             Tk, D, causal, sm_scale, s)
+               : (int)launch_fwd_slice<false>(q, k, v, lens, o, lse, BH, Tq,
+                                              Tk, D, causal, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1872,9 +2170,12 @@ extern "C" int paddle_flash_attention_bf16_smem_bytes(int which, int D) {
                                     : DqSplit<512>::BYTES)
                         : (D == 384 ? DkvGrid<384>::BYTES
                                     : DkvGrid<512>::BYTES);
+  if (which == 0)  // the slice forward past 512
+    return !slice_d(D)          ? -1
+           : D <= SLICE_Q_MAX ? SliceRing<true>::bytes(D)
+                              : SliceRing<false>::bytes(D);
   if (wide_d(D))
-    return which == 0 ? wide::FWD_BYTES
-                      : which == 1 ? wide::DQ_BYTES : wide::DKV_BYTES;
+    return which == 1 ? wide::DQ_BYTES : wide::DKV_BYTES;
   return -1;
 }
 

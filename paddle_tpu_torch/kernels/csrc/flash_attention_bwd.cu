@@ -20,7 +20,8 @@
 // int32 -> dq [BH, Tq, D], dk/dv [BH, Tk, D]. D is 64 or 128: the
 // wrapper zero-pads any other D <= 128 up to one of them (zero columns
 // change no score and give zero gradient columns). Past 128 it pads D to
-// a multiple of 64, and one in 257-512 to 384 or 512: both kernels run
+// a multiple of 64, one in 257-512 to 384 or 512, and one past 512 to a
+// multiple of 128 (as for the forward's slice instance): both kernels run
 // their split instances at 192 and 256
 // (flash_bwd_{dq,dkv}_tf32x3_split_kernel, below: the output split by D
 // across the warpgroups, the products over D exchanged between them) and

@@ -17,9 +17,10 @@
 // 257-512 to 384 or 512: at 192 and 256 the split instance below runs
 // (flash_fwd_tf32x3_split_kernel: O split by D across the warpgroups), at
 // 384 and 512 the quarter one (flash_fwd_tf32x3_quarter_kernel: 32 q rows
-// a block, O split four ways by D), past 512 the wide one
-// (flash_fwd_wide_kernel<float>, flash_wide.cuh). The denominator is
-// max(l, 1e-30).
+// a block, O split four ways by D); past 512 it pads D to a multiple of
+// 128 and the slice one runs (flash_fwd_tf32x3_slice_kernel: the quarter
+// layout with O cut into slices on the grid's z axis, K, V and past 1024
+// Q streamed in 128-column steps). The denominator is max(l, 1e-30).
 //
 // Layout on the card, and why it differs from the TPU kernel:
 // - One block of two warpgroups (8 warps) per (bh, 128-row q tile); bh on
@@ -82,7 +83,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_wide.cuh"
 #include "mma_tf32x3.cuh"
 #include "wgmma_tf32.cuh"
 
@@ -784,12 +784,328 @@ cudaError_t launch_quarter(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// --- past D = 512: the quarter layout with O cut into slices of D -------
+//
+// Past D = 512 the quarter layout's Q (32 rows at stride D + 4) and two
+// whole-D K/V stages do not fit, and its O would take a warp D / 8
+// registers. The wrapper pads D to a multiple of 128 (Dp), and O is cut
+// into slices of up to SLICE columns: blockIdx.z / 2 is the slice, z % 2
+// the pair's upper or lower 32 rows, as above. Warp w owns row tile w % 2
+// and part w / 2 of O's slice: column chunks of 32 (4 n-tiles) 4 c + part
+// of it, 32 columns of every 128 (20 n-tiles, 80 registers, at a slice of
+// 640: one slice at Dp = 640, where S would be formed twice in slices of
+// 512). Every block forms S over all of Dp with the same parts: warp
+// part p sums, over each 128 columns of Dp in order, its 32 columns 32 p
+// .. of them, as four chains (one a k-step of 8 columns, summed in pairs
+// after), and the four partials of a row tile meet in the exchange and
+// are summed in part order, as above. So every slice forms the same S, row
+// max, denominator and P bit for bit, and slice 0 alone writes lse. K
+// and V stream through one ring of uniform steps (16 keys x 128 columns
+// at a row stride of 132 floats: the fragment reads hit 32 distinct
+// banks), in the order the block takes them: for each 16-key tile, Dp /
+// 128 K steps, then NV = slice / 128 V steps, each a cp.async group that
+// every thread issues SLOTS - 2 steps ahead; a barrier opens each batch
+// of two steps. The loop over Dp's steps runs at run time, so any Dp
+// past 512 is taken. Q stays resident at
+// stride Dp + 4 up to SLICE_Q_MAX (132 KB at Dp = 1024); past it each K
+// step also brings Q's 32 rows of its 128 columns (QRES false). Shared
+// memory: 207,360 bytes at Dp = 1024 (Q 131,584, eight slots of 8,448,
+// the exchange 8,192), 158,208 at Dp = 640, 210,944 past 1024 (slots of
+// 25,344 with their Q rows).
+namespace wsplit {
+
+constexpr int SLICE = 640;  // columns of O a block owns at most
+constexpr int CH = 128;     // columns of a streamed step: 32 a part
+constexpr int CST = CH + 4;  // a step's row stride, in floats
+constexpr int SLOTS = 8;    // steps of the ring
+constexpr int SLICE_Q_MAX = 1024;  // the widest Dp whose Q stays resident
+
+// Shared memory, in floats: the ring's slots (a step's 16 K or V rows,
+// and with QRES false Q's 32 rows), the exchange (as qsplit's), then
+// with QRES Q [32, Dp] at stride Dp + 4.
+template <bool QRES>
+struct Ring {
+  static constexpr int KV = qsplit::BK * CST;  // a slot's K or V rows
+  static constexpr int SLOT = KV + (QRES ? 0 : qsplit::BQ * CST);
+  static constexpr int X = SLOTS * SLOT;
+  static constexpr int Q = X + NWARPS * qsplit::NT * 4 * 32;
+  __host__ __device__ static constexpr int bytes(int Dp) {
+    return (Q + (QRES ? qsplit::BQ * (Dp + 4) : 0)) * 4;
+  }
+};
+static_assert(Ring<true>::bytes(SLICE_Q_MAX) <= 232448 &&
+                  Ring<false>::bytes(0) <= 232448,
+              "past a block's shared memory");
+
+// Rows [row0, row0 + ROWS) x columns [c0, c0 + CH) of a [T, Dp] plane into
+// a slot at row stride CST, 16 bytes a copy; rows past T zero-filled.
+template <int ROWS>
+__device__ __forceinline__ void load_step(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int T, int Dp, int c0) {
+  static_assert(ROWS * CH / 4 % NTHREADS == 0, "step must split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / 4 / NTHREADS; ++i) {
+    const int idx = threadIdx.x + i * NTHREADS;
+    const int r = idx / (CH / 4);
+    const int c = (idx % (CH / 4)) * 4;
+    const bool in = row0 + r < T;
+    cp_async16(dst + r * CST + c,
+               src + (in ? (size_t)(row0 + r) * Dp + c0 + c : 0), in);
+  }
+}
+
+// load_a at a row stride `st` known at run time (Q resident at Dp + 4)
+__device__ __forceinline__ FragA load_a_at(const float* s, int st, int r0,
+                                           int c0, int g, int t) {
+  const float* p = s + (r0 + g) * st + c0 + t;
+  FragA f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * st], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * st + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+}  // namespace wsplit
+
+// The slice forward's block at slice blockIdx.z / 2, its O slice NV steps
+// of 128 columns wide.
+template <bool QRES, int NV>
+__device__ __forceinline__ void fwd_slice(char* smem, const float* q,
+                                          const float* k, const float* v,
+                                          const int* lens, float* o,
+                                          float* lse, int Tq, int Tk, int Dp,
+                                          int causal, float sm_scale) {
+  using namespace wsplit;
+  using L = Ring<QRES>;
+  constexpr int BQ4 = qsplit::BQ, BK4 = qsplit::BK, NT4 = qsplit::NT;
+  constexpr int RT = qsplit::RT, PARTS = qsplit::PARTS;
+  float* sm = reinterpret_cast<float*>(smem);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int rt = warp % RT;    // the row tile: rows 16 rt ..
+  const int part = warp / RT;  // the part: 32 columns of every 128
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int s0 = blockIdx.z / 2 * SLICE;  // the slice's first column
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 2 * BQ4 +
+                 (1 - (int)blockIdx.z % 2) * BQ4;
+  if (q0 >= Tq) return;  // the upper half of the last pair
+  const size_t qoff = (size_t)bh * Tq * Dp;
+  const size_t koff = (size_t)bh * Tk * Dp;
+
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + BK4 - 1) / BK4;
+  if (causal) {
+    const int last = min(q0 + BQ4, Tq);  // exclusive bound on q_pos
+    n_tiles = min(n_tiles, (last + BK4 - 1) / BK4);
+  }
+  const int NS = Dp / CH;       // K steps a tile
+  const int n_units = n_tiles * (NS + NV);
+  const int QST = Dp + 4;       // Q's row stride (QRES)
+
+  // step u of the block: K step u % (NS + NV) of tile u / (NS + NV), or
+  // past NS its V step, into slot u % SLOTS
+  auto issue = [&](int u) {
+    const int i = u / (NS + NV), r = u % (NS + NV);
+    float* slot = sm + (u % SLOTS) * L::SLOT;
+    if (r < NS) {
+      load_step<BK4>(slot, k + koff, i * BK4, Tk, Dp, r * CH);
+      if (!QRES)
+        load_step<BQ4>(slot + L::KV, q + qoff, q0, Tq, Dp, r * CH);
+    } else {
+      load_step<BK4>(slot, v + koff, i * BK4, Tk, Dp, s0 + (r - NS) * CH);
+    }
+  };
+  if (QRES && n_units > 0)  // Q, in the first group
+    for (int idx = threadIdx.x; idx < BQ4 * Dp / 4; idx += NTHREADS) {
+      const int r = idx / (Dp / 4), c = (idx % (Dp / 4)) * 4;
+      const bool in = q0 + r < Tq;
+      cp_async16(sm + L::Q + r * QST + c,
+                 q + qoff + (in ? (size_t)(q0 + r) * Dp + c : 0), in);
+    }
+  constexpr int LOOK = SLOTS - 2;  // steps in flight ahead of a batch
+#pragma unroll
+  for (int u = 0; u < LOOK; ++u) {
+    if (u < n_units) issue(u);
+    cp_async_commit();
+  }
+  // steps u .. u + b - 1 (b <= 2) have landed for every thread, every warp
+  // is done with the steps before, and b more go into the slots those
+  // left: one barrier a batch of two steps
+  auto take = [&](int u, int b) {
+    cp_async_wait<LOOK - 2>();
+    __syncthreads();
+    for (int y = 0; y < b; ++y) {
+      if (u + LOOK + y < n_units) issue(u + LOOK + y);
+      cp_async_commit();
+    }
+  };
+
+  const int r0 = rt * 16;  // the warp's rows in the q tile
+  const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};  // this thread's rows
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[4 * NV][4];  // step k's n-tiles: acc[4 k ..]
+#pragma unroll
+  for (int n = 0; n < 4 * NV; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float* x = sm + L::X;
+
+  int u = 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = i * BK4;
+    // a row tile past Tq, or wholly above the tile, adds 0: all PARTS of
+    // its warps skip alike, and no other row tile reads their partials
+    const bool live = q0 + r0 < Tq && (!causal || k0 <= q0 + r0 + 15);
+    // this warp's S partial as four chains, one a k-step of a step's 32
+    // columns, so that four products are in flight; summed in pairs after
+    float sk[4][NT4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int j = 0; j < NT4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sk[c][j][e] = 0.f;
+    for (int j = 0; j < NS; j += 2) {  // S over this warp's columns
+      const int b = min(2, NS - j);
+      take(u, b);
+      for (int h = 0; live && h < b; ++h) {
+        const float* slot = sm + ((u + h) % SLOTS) * L::SLOT;
+        const float* qs = QRES ? sm + L::Q + (j + h) * CH : slot + L::KV;
+        const int qst = QRES ? QST : CST;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const FragA a =
+              load_a_at(qs, qst, r0, part * 32 + kk * 8, g, t);
+#pragma unroll
+          for (int jn = 0; jn < NT4; ++jn)
+            mma3(sk[kk][jn], a,
+                 load_b_t<CST>(slot, jn * 8, part * 32 + kk * 8, g, t));
+        }
+      }
+      u += b;
+    }
+    float s[NT4][4];
+#pragma unroll
+    for (int j = 0; j < NT4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = (sk[0][j][e] + sk[1][j][e]) + (sk[2][j][e] + sk[3][j][e]);
+        if (live) x[(warp * NT4 * 4 + 4 * j + e) * 32 + lane] = s[j][e];
+      }
+    __syncthreads();  // every partial is in
+    if (live) {
+      // S = the row tile's partials summed in part order: the same bits
+      // in each of its warps and in every slice
+#pragma unroll
+      for (int j = 0; j < NT4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sum = x[(rt * NT4 * 4 + 4 * j + e) * 32 + lane];
+#pragma unroll
+          for (int p = 1; p < PARTS; ++p)
+            sum += x[((p * RT + rt) * NT4 * 4 + 4 * j + e) * 32 + lane];
+          s[j][e] = sum;
+        }
+      softmax_tile(s, m, l, acc, row, k0, length, causal, sm_scale, t);
+    }
+#pragma unroll
+    for (int kv = 0; kv < NV; kv += 2) {  // O += P V, 128 columns a step
+      const int b = NV - kv < 2 ? NV - kv : 2;
+      take(u, b);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (live && h < b)
+          accumulate<CST, 4>(
+              *reinterpret_cast<float(*)[4][4]>(acc[4 * (kv + h)]), s,
+              sm + ((u + h) % SLOTS) * L::SLOT + part * 32, g, t);
+      u += b;
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  float* op = o + qoff + s0 + part * 32;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= Tq) continue;
+    const float denom = fmaxf(l[h], 1e-30f);
+#pragma unroll
+    for (int n = 0; n < 4 * NV; ++n)
+      *reinterpret_cast<float2*>(op + (size_t)row[h] * Dp + (n / 4) * CH +
+                                 (n % 4) * 8 + 2 * t) =
+          make_float2(acc[n][2 * h] / denom, acc[n][2 * h + 1] / denom);
+    if (blockIdx.z < 2 && part == 0 && t == 0)  // every slice holds these
+      lse[(size_t)bh * Tq + row[h]] =
+          l[h] > 0.f ? m[h] + logf(fmaxf(l[h], 1e-30f)) : INFINITY;
+  }
+}
+
+// The slice forward past D = 512: slice z / 2 of O, NV = min(SLICE, Dp -
+// SLICE z / 2) / 128 steps wide.
+template <bool QRES>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_tf32x3_slice_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const int* __restrict__ lens,
+                              float* __restrict__ o, float* __restrict__ lse,
+                              int Tq, int Tk, int Dp, int causal,
+                              float sm_scale) {
+  extern __shared__ __align__(1024) char smem[];
+  switch (min(wsplit::SLICE, Dp - wsplit::SLICE * (int)(blockIdx.z / 2)) /
+          wsplit::CH) {
+    case 5:
+      fwd_slice<QRES, 5>(smem, q, k, v, lens, o, lse, Tq, Tk, Dp, causal,
+                         sm_scale);
+      break;
+    case 4:
+      fwd_slice<QRES, 4>(smem, q, k, v, lens, o, lse, Tq, Tk, Dp, causal,
+                         sm_scale);
+      break;
+    case 3:
+      fwd_slice<QRES, 3>(smem, q, k, v, lens, o, lse, Tq, Tk, Dp, causal,
+                         sm_scale);
+      break;
+    case 2:
+      fwd_slice<QRES, 2>(smem, q, k, v, lens, o, lse, Tq, Tk, Dp, causal,
+                         sm_scale);
+      break;
+    default:
+      fwd_slice<QRES, 1>(smem, q, k, v, lens, o, lse, Tq, Tk, Dp, causal,
+                         sm_scale);
+  }
+}
+
+template <bool QRES>
+cudaError_t launch_slice(const float* q, const float* k, const float* v,
+                         const int* lens, float* o, float* lse, int BH,
+                         int Tq, int Tk, int Dp, int causal, float sm_scale,
+                         cudaStream_t stream) {
+  const int smem_bytes = wsplit::Ring<QRES>::bytes(Dp);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32x3_slice_kernel<QRES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + 2 * qsplit::BQ - 1) / (2 * qsplit::BQ),
+                  2 * ((Dp + wsplit::SLICE - 1) / wsplit::SLICE));
+  flash_fwd_tf32x3_slice_kernel<QRES>
+      <<<grid, NTHREADS, smem_bytes, stream>>>(q, k, v, lens, o, lse, Tq, Tk,
+                                               Dp, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+bool slice_d(int D) { return D > 512 && D % wsplit::CH == 0; }
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; returns a
 // cudaError_t (0 = launched). D is 64, 128, 192, 256, 384, 512 or a
-// multiple of 64 above 512 (the wide instance).
+// multiple of 128 above 512 (the slice instance).
 extern "C" int paddle_flash_attention_fwd_f32(
     const float* q, const float* k, const float* v, const int* lens,
     float* o, float* lse, int BH, int Tq, int Tk, int D, int causal,
@@ -816,10 +1132,12 @@ extern "C" int paddle_flash_attention_fwd_f32(
       return (int)launch_quarter<512>(q, k, v, lens, o, lse, BH, Tq, Tk,
                                       causal, sm_scale, s);
     default:
-      if (D > 128 && D % wide::DC == 0)
-        return (int)launch_fwd_wide<float>(q, k, v, lens, o, lse, BH, Tq, Tk,
-                                           D, causal, sm_scale, s);
-      return (int)cudaErrorInvalidValue;
+      if (!slice_d(D)) return (int)cudaErrorInvalidValue;
+      return D <= wsplit::SLICE_Q_MAX
+                 ? (int)launch_slice<true>(q, k, v, lens, o, lse, BH, Tq, Tk,
+                                           D, causal, sm_scale, s)
+                 : (int)launch_slice<false>(q, k, v, lens, o, lse, BH, Tq,
+                                            Tk, D, causal, sm_scale, s);
   }
 }
 
@@ -839,8 +1157,10 @@ extern "C" int paddle_flash_attention_fwd_smem_bytes(int D) {
       return qsplit::Tile<384>::BYTES;
     case 512:
       return qsplit::Tile<512>::BYTES;
-    default:
-      return D > 128 && D % wide::DC == 0 ? wide::FWD_BYTES : -1;
+    default:  // the slice forward past 512
+      return !slice_d(D)                  ? -1
+             : D <= wsplit::SLICE_Q_MAX ? wsplit::Ring<true>::bytes(D)
+                                        : wsplit::Ring<false>::bytes(D);
   }
 }
 

@@ -1,32 +1,32 @@
-// Tiles shared by the flash kernels' wide-head-dim instances.
+// Tiles shared by the flash backward kernels' wide-head-dim instances.
 //
-// Which kernels take them: every kernel of either dtype past D = 512.
-// Every kernel at 129 <= D <= 512 runs its tensor-core instance at 192,
-// 256, 384 or 512 (flash_attention_{fwd,bwd,bf16}.cu).
+// Which kernels take them: dq and dkv of either dtype past D = 512. Every
+// kernel at 129 <= D <= 512 runs its tensor-core instance at 192, 256, 384
+// or 512 (flash_attention_{fwd,bwd,bf16}.cu), and the forward past 512
+// its slice instance on the tensor cores.
 //
 // The 64/128 instances keep a whole Q (or K/V) tile and its output
 // accumulator in shared memory and registers; past D = 128 neither fits
-// (O alone would take 128+ registers a thread). The wide instances
+// (dq alone would take 128+ registers a thread). The wide instances
 // therefore split the work two ways:
 // - every product that sums over D (S = Q K^T, dP = dO V^T) accumulates
 //   over 64-column chunks of D staged through shared memory, so the
 //   staging does not grow with D;
 // - every output's D axis is cut into 128-wide slices on the grid's z
 //   axis. Each block recomputes S (and P, dP) for its own slice, in the
-//   same order in every slice, so the row max, lse and P agree bitwise
-//   across slices.
-// The wrapper zero-pads D to a multiple of 64, and one in 257-512 to 384
-// or 512 (zero columns change no score and give zero output columns). The kernels are templates on the
-// element type T of q, k, v, o and the gradients: float (the f32
-// instances, flash_attention_{fwd,bwd}.cu) or __nv_bfloat16 (the bf16
+//   same order in every slice.
+// The wrapper zero-pads D past 512 to a multiple of 128 (zero columns
+// change no score and give zero output columns). The kernels are
+// templates on the
+// element type T of q, k, v and the gradients: float (the f32
+// instances, flash_attention_bwd.cu) or __nv_bfloat16 (the bf16
 // ones, flash_attention_bf16.cu). Tiles are widened to f32 as they land
 // in shared memory, and products run as f32 FMA on the CUDA cores; in
-// bf16, P (and dS) are rounded to bf16 before the products that take
+// bf16, P and dS are rounded to bf16 before the products that take
 // them, and outputs once as they are stored, the Pallas kernels'
 // rounding. Products: a simple tiling, 256 threads over a 64 x 64 tile
-// of S, each thread 4 rows (ty * 4 + i) by 4 strided columns (tx + 16 j),
-// so a row's 64 values lie in one group of 16 lanes and its max and sum
-// are four __shfl_xor. Output slices are 64 rows x 128 columns, each thread the
+// of S, each thread 4 rows (ty * 4 + i) by 4 strided columns (tx + 16 j).
+// Output slices are 64 rows x 128 columns, each thread the
 // same 4 rows by 8 strided columns (tx + 16 jj): coalesced stores.
 // No atomics: every output element is summed by one thread in a fixed
 // order, so two launches agree bitwise.
@@ -181,127 +181,16 @@ __device__ __forceinline__ void store_slice(T* dst, const float (&acc)[4][8],
   }
 }
 
-// Max and sum over a row's 16 lanes (one half warp).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 inline dim3 grid(int BH, int T, int Dp) {
   return dim3(BH, (T + BT - 1) / BT, (Dp + DS - 1) / DS);
 }
 
-constexpr int FWD_BYTES = 3 * CHUNK * 4;
 constexpr int DQ_BYTES = 5 * CHUNK * 4;
 constexpr int DKV_BYTES = 6 * CHUNK * 4;
 
 }  // namespace wide
 
 namespace {
-
-// The forward: one block of 256 threads per (bh, 64-row q tile,
-// 128-column slice of D). It walks 64-key tiles up to the causal bound
-// and the row's K length; S sums over D in 64-column chunks, the online
-// softmax keeps its max, denominator and output in f32, and O's slice
-// accumulates P V over the tile's V slice. Every slice computes the same
-// S, max and sum in the same order, so slice 0 alone writes lse. Shared
-// memory: the Q and K chunk tiles, then P; the V slice reuses the chunk
-// tiles' space once S is formed.
-template <typename T>
-__global__ void __launch_bounds__(wide::NT)
-    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
-                          const int* __restrict__ lens, T* __restrict__ o,
-                          float* __restrict__ lse, int Tq, int Tk, int Dp,
-                          int causal, float sm_scale) {
-  using namespace wide;
-  extern __shared__ __align__(16) float wide_smem[];
-  float* qs = wide_smem;
-  float* ks = qs + CHUNK;
-  float* ps = ks + CHUNK;
-  float* vs = wide_smem;  // the V slice over the chunk tiles
-  const int bh = blockIdx.x, q0 = blockIdx.y * BT, s0 = blockIdx.z * DS;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const T* qb = q + (size_t)bh * Tq * Dp;
-  const T* kb = k + (size_t)bh * Tk * Dp;
-  const T* vb = v + (size_t)bh * Tk * Dp;
-  const int klen = min(max(lens[bh], 0), Tk);
-  const int kend = causal ? min(klen, q0 + BT) : klen;
-
-  float m[4], l[4], acc[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] = 0.f;
-  }
-  for (int k0 = 0; k0 < kend; k0 += BT) {
-    float s[4][4] = {};
-    for (int d0 = 0; d0 < Dp; d0 += DC) {
-      __syncthreads();  // the last tile's readers of these tiles are done
-      load_chunk(qs, qb, q0, Tq, Dp, d0);
-      load_chunk(ks, kb, k0, Tk, Dp, d0);
-      __syncthreads();
-      chunk_product(s, qs, ks, ty, tx);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < klen && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] * sm_scale : -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float mnew = fmaxf(m[i], row_max(mt));
-      const bool live = mnew != -INFINITY;
-      const float alpha = live ? expf(m[i] - mnew) : 1.f;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = live ? expf(s[i][j] - mnew) : 0.f;
-        ps[(ty * 4 + i) * LD + tx + 16 * j] = Elem<T>::round(p);
-        sum += p;
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = mnew;
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();  // S's chunk tiles are free, P is complete
-    load_slice(vs, vb, k0, Tk, Dp, s0);
-    __syncthreads();
-    slice_product(acc, ps, vs, ty, tx);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) acc[i][jj] *= inv;
-  }
-  store_slice(o + (size_t)bh * Tq * Dp, acc, 1.f, q0, Tq, Dp, s0, ty, tx);
-  if (blockIdx.z == 0 && tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      if (row < Tq)
-        lse[(size_t)bh * Tq + row] =
-            l[i] > 0.f ? m[i] + logf(fmaxf(l[i], 1e-30f)) : INFINITY;
-    }
-  }
-}
 
 // The backward. dq: one block per (bh, 64-row q tile, 128-column slice
 // of D) walks the 64-key tiles up to the causal bound and the row's K
@@ -445,21 +334,6 @@ __global__ void __launch_bounds__(wide::NT)
 }
 
 // The launches, on ``stream``; each returns the launch's error.
-template <typename T>
-cudaError_t launch_fwd_wide(const T* q, const T* k, const T* v,
-                            const int* lens, T* o, float* lse, int BH, int Tq,
-                            int Tk, int Dp, int causal, float sm_scale,
-                            cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      wide::FWD_BYTES);
-  if (err != cudaSuccess) return err;
-  flash_fwd_wide_kernel<T><<<wide::grid(BH, Tq, Dp), wide::NT,
-                             wide::FWD_BYTES, stream>>>(
-      q, k, v, lens, o, lse, Tq, Tk, Dp, causal, sm_scale);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch_dq_wide(const T* q, const T* k, const T* v, const T* dout,
                            const float* lse, const float* di, const int* lens,

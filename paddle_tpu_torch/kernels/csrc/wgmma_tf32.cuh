@@ -143,6 +143,10 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// until at most the last committed group is still in flight
+__device__ __forceinline__ void wgmma_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // no read or write of r moves across this point
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {

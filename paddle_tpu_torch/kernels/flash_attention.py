@@ -42,8 +42,9 @@ The tensor-core kernels are built for head dims 64 and 128; on a CUDA
 tensor the wrappers zero-pad any other head dim up to 128 to the next of
 them and slice the outputs back (``_at_kernel_head_dim``), with
 ``sm_scale`` from the true head dim. A head dim past 128 is zero-padded to
-a multiple of 64, and one in 257-512 to 384 or 512, in every dtype and
-for every kernel. In bf16 all three kernels run it on ``wgmma`` up to
+a multiple of 64, one in 257-512 to 384 or 512, and one past 512 to a
+multiple of 128, in every dtype and for every kernel. In bf16 all three
+kernels run it on ``wgmma`` up to
 256 (their instances at 192 and 256: the forward and dq with one
 accumulator as wide as D and K/V tiles narrowed to fit; dkv with 64
 owned keys shared by both consumer warpgroups, each forming P^T and dS^T
@@ -65,14 +66,20 @@ two row tiles of 16, each of the 8 warps owning a quarter of D of its
 row tile's output and forming S (and dP; S^T and dP^T in dkv) over that
 quarter on ``mma.sync``, the four partials exchanged through shared
 memory and summed in a fixed order; 16-key K/V tiles in the forward,
-8-key ones in dq, 8-query Q/dO tiles in dkv. Past 512 every kernel of
-either dtype runs its wide instance (``csrc/flash_wide.cuh``): every
-product over D sums 64-column
-chunks staged through shared memory, and each output's D axis is cut
-into 128-wide slices on the grid's z axis, each block
+8-key ones in dq, 8-query Q/dO tiles in dkv. Past 512 the forward of
+either dtype runs its slice instance on the tensor cores
+(``flash_fwd_slice_bf16_kernel``, ``flash_fwd_tf32x3_slice_kernel``): O
+is cut into slices of up to 512 columns (640 in f32) on the grid's z
+axis, and every block forms S over all of D, split as at 512 (two halves
+of D's 64-column boxes in bf16, four parts of every 128 columns in f32),
+K and V streamed through the ring in boxes of D, Q resident up to D 1024
+and streamed with K past it, so any head dim is taken. dq and dkv past 512
+run their wide instances (``csrc/flash_wide.cuh``): every product over
+D sums 64-column chunks staged through shared memory, and each output's
+D axis is cut into 128-wide slices on the grid's z axis, each block
 recomputing S for its own slice (``_kernel_instance`` says which runs;
-``.wide_launches`` counters count them). Any batch*heads is taken (it is
-the grid's x axis).
+``.dq_wide_launches``, ``.dkv_wide_launches`` count them). Any
+batch*heads is taken (it is the grid's x axis).
 
 ``flash_attention`` is differentiable (``_FlashAttention``). Every
 wrapper dispatches on the tensor's device: a CPU tensor runs the plain
@@ -86,8 +93,8 @@ dtypes raises). ``flash_attention.launches``,
 the f32 launches, ``flash_attention.bf16_launches``,
 ``flash_backward.dq_bf16_launches`` and
 ``flash_backward.dkv_bf16_launches`` the bf16 ones;
-``flash_attention.wide_launches``, ``flash_backward.dq_wide_launches``
-and ``flash_backward.dkv_wide_launches`` those of either dtype that ran a
+``flash_backward.dq_wide_launches`` and
+``flash_backward.dkv_wide_launches`` those of either dtype that ran a
 wide instance.
 """
 from __future__ import annotations
@@ -309,14 +316,16 @@ def _aligned(t):
 
 
 # the head dims the tensor-core kernels are built for; the wrappers pad
-# up to them, and past the last one to a multiple of _WIDE_D (192 and 256
-# on the tensor cores, past 512 the wide instances), in 257-512 to one of
-# _SPLIT_HEAD_DIMS: the bf16 kernels' instances there split D into two
-# halves of whole 64-column boxes between their consumer warpgroups, the
-# f32 ones into four quarters between their warps
+# up to them, and past the last one to a multiple of _WIDE_D (192 and 256),
+# in 257-512 to one of _SPLIT_HEAD_DIMS: the bf16 kernels' instances there
+# split D into two halves of whole 64-column boxes between their consumer
+# warpgroups, the f32 ones into four quarters between their warps; past 512
+# to a multiple of _SLICE_D, so that the forward's slices of D split into
+# halves (bf16) and quarters (f32) of whole 64- and 32-column boxes
 KERNEL_HEAD_DIMS = (64, 128)
 _WIDE_D = 64
 _SPLIT_HEAD_DIMS = (384, 512)
+_SLICE_D = 128
 # rows of a q/k tile: the tiles lie on the grid's y axis (limit 65535);
 # past D = 128 every instance owns 64 rows a block, or, the f32 ones at
 # 384 and 512, a pair of 32-row blocks on the grid's z axis
@@ -328,16 +337,18 @@ def _kernel_head_dim(D):
     """The head dim of the kernel instance that takes D: the smallest of
     ``KERNEL_HEAD_DIMS`` that is >= D, else D rounded up to a multiple of
     64 and, past 256, up to the smallest of ``_SPLIT_HEAD_DIMS`` that
-    holds it (the same for every dtype and kernel: ``flash_backward``
-    pads once for dq and dkv)."""
+    holds it, and past 512 up to a multiple of 128 (the same for every
+    dtype and kernel: ``flash_backward`` pads once for dq and dkv)."""
     if D < 1:
         raise ValueError(f"flash kernels take head_dim >= 1, got {D}")
     for kd in KERNEL_HEAD_DIMS:
         if D <= kd:
             return kd
+    if D > _SPLIT_HEAD_DIMS[-1]:
+        return -(-D // _SLICE_D) * _SLICE_D
     kd = -(-D // _WIDE_D) * _WIDE_D
     if kd > 256:
-        return next((sd for sd in _SPLIT_HEAD_DIMS if kd <= sd), kd)
+        return next(sd for sd in _SPLIT_HEAD_DIMS if kd <= sd)
     return kd
 
 
@@ -345,11 +356,12 @@ def _kernel_head_dim(D):
 # dtype: in f32 all three run 192 and 256 as 3xTF32 with D split across
 # the warpgroups, and 384 and 512 with D split four ways across the warps
 # (csrc/flash_attention_{fwd,bwd}.cu); in bf16 all three run 192, 256,
-# 384 and 512 on ``wgmma`` (csrc/flash_attention_bf16.cu). Past it a
-# kernel runs its wide instances.
+# 384 and 512 on ``wgmma`` (csrc/flash_attention_bf16.cu). Past 512 the
+# forward of either dtype runs its slice instance on the tensor cores, at
+# any head dim; dq and dkv run their wide instances.
 _TENSOR_CORE_HEAD_DIM = {
-    torch.float32: {"fwd": 512, "dq": 512, "dkv": 512},
-    torch.bfloat16: {"fwd": 512, "dq": 512, "dkv": 512},
+    torch.float32: {"fwd": math.inf, "dq": 512, "dkv": 512},
+    torch.bfloat16: {"fwd": math.inf, "dq": 512, "dkv": 512},
 }
 
 
@@ -358,8 +370,8 @@ def _kernel_instance(D, dtype, kind):
     or "dkv") that takes head dim D in ``dtype``: D padded as
     ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
     that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
-    CUDA cores) rather than one on the tensor cores: in either dtype,
-    every kernel past 512."""
+    CUDA cores) rather than one on the tensor cores: in either dtype, dq
+    and dkv past 512; the forward never."""
     kd = _kernel_head_dim(D)
     return kd, kd > _TENSOR_CORE_HEAD_DIM[dtype][kind]
 
@@ -462,7 +474,7 @@ def _count(fn, counter):
 def _count_launch(kind, q):
     """One more launch of kernel ``kind`` ("fwd", "dq" or "dkv") on its
     dtype's counter and, where its instance at q's (padded) head dim is a
-    wide one, on ``flash_attention.wide_launches`` or
+    wide one (dq and dkv past 512), on
     ``flash_backward.<kind>_wide_launches``."""
     fn, prefix = ((flash_attention, "") if kind == "fwd"
                   else (flash_backward, f"{kind}_"))
@@ -671,4 +683,3 @@ def flash_attention(q, k, v, lengths=None, causal=False, sm_scale=None):
 
 flash_attention.launches = 0
 flash_attention.bf16_launches = 0
-flash_attention.wide_launches = 0

@@ -23,10 +23,11 @@ output at most 2x as far from the f32 truth plus one bf16 ulp of max
 |truth|, its error's Frobenius norm within 1.05x. Two planted faults
 fail that gate: a stale K/V stage, and a stale exchange (the other
 half's partial of the tile before). Then the route: the instance each
-kernel takes past 256 (every f32 kernel stays wide), the
+kernel takes past 256, the
 launch wiring with the kernel entries swapped for their plain versions,
-the shared memory of the split instances, and the wide instances' 64-wide
-last output slice at D576 (bf16 past 512) against Pallas.
+the shared memory of the split instances, and the wide dq and dkv at D576
+(bf16 past 512, padded to 640: five 128-column output slices) against
+Pallas.
 """
 import math
 import re
@@ -43,8 +44,7 @@ from paddle_tpu_torch.kernels import flash_attention as tfa
 from test_torch_flash_bf16_tiles import _errors, _passes, _stale_stage, _torch
 from test_torch_flash_bf16_wide_tiles import _PlainKernels
 from test_torch_flash_wide_head import (DS, TOL, _inputs, _jax_backward,
-                                        _jax_forward, _wide_backward,
-                                        _wide_forward)
+                                        _wide_backward)
 
 torch.set_num_threads(1)
 SOURCE = (Path(tfa.__file__).resolve().parent / "csrc" /
@@ -290,15 +290,15 @@ BF16, F32 = torch.bfloat16, torch.float32
     (385, BF16, "fwd", (512, False)), (448, BF16, "dq", (512, False)),
     (512, BF16, "fwd", (512, False)), (512, BF16, "dq", (512, False)),
     (384, BF16, "dkv", (384, False)), (512, BF16, "dkv", (512, False)),
-    (513, BF16, "fwd", (576, True)), (576, BF16, "dq", (576, True)),
+    (513, BF16, "fwd", (640, False)), (576, BF16, "dq", (640, True)),
     (384, F32, "fwd", (384, False)), (512, F32, "dq", (512, False)),
-    (320, F32, "dkv", (384, False)), (640, F32, "fwd", (640, True)),
+    (320, F32, "dkv", (384, False)), (640, F32, "fwd", (640, False)),
 ])
 def test_split_instance_by_head_dim(D, dtype, kind, instance):
     """Every bf16 kernel runs wgmma at a padded 384 and 512; the f32
     forward, dq and dkv take their quarter instances on the tensor cores
-    there (the same padded head dim); past 512 every kernel runs wide at
-    a multiple of 64. The
+    there (the same padded head dim); past 512, padded to a multiple of
+    128, the forward runs its slice instance and dq and dkv run wide. The
     grid's y axis holds 65535 blocks of 64 q rows."""
     assert tfa._kernel_instance(D, dtype, kind) == instance
     assert tfa._kernel_head_dim(D) == instance[0]
@@ -306,13 +306,14 @@ def test_split_instance_by_head_dim(D, dtype, kind, instance):
 
 
 @pytest.mark.parametrize("D,padded,wide", [
-    (300, 384, (0, 0, 0)), (384, 384, (0, 0, 0)), (448, 512, (0, 0, 0)),
-    (512, 512, (0, 0, 0)), (576, 576, (1, 1, 1))])
+    (300, 384, (0, 0)), (384, 384, (0, 0)), (448, 512, (0, 0)),
+    (512, 512, (0, 0)), pytest.param(576, 640, (1, 1), id="576-576-wide4")])
 def test_bf16_split_route_pads_counts_and_slices_back(D, padded, wide,
                                                       monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each kernel
-    the bf16 head dim padded to 384 or 512 (a multiple of 64 past 512),
-    count one bf16 launch of each, a wide one of each only past 512, and
+    the bf16 head dim padded to 384 or 512 (a multiple of 128 past 512),
+    count one bf16 launch of each, a wide one of dq and dkv only past 512,
+    and
     give back the plain version's results on
     the zero-padded inputs, sliced back (sm_scale from the true D; the
     zero columns change S's f32 sums only in their order)."""
@@ -362,25 +363,18 @@ def test_split_rings_fit_the_shared_memory(ring, D, want):
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "ragged"])
 def test_wide_instances_past_512_match_pallas(causal):
-    """Past 512 every bf16 kernel runs the wide instances: at D576 their
-    output's last 128-column slice on the grid's z axis is 64 wide (the
-    D320 of ``tests/test_torch_flash_wide_head.py`` now pads to 384).
-    The emulation holds against the Pallas forward and backward in
-    interpret mode (f32, that file's tolerances), and every slice's lse
-    agrees bitwise."""
+    """Past 512 bf16 dq and dkv run the wide instances: at D576, padded to
+    640, their outputs' D axis is five 128-column slices on the grid's z
+    axis (the D320 of ``tests/test_torch_flash_wide_head.py`` now pads to
+    384). The emulation holds against the Pallas backward in interpret
+    mode (f32, that file's tolerances). The forward there runs its slice
+    instance (``tests/test_torch_flash_fwd_past512_tiles.py``)."""
     D = 576
     B, H, T, lens = (2, 2, 80, None) if causal else (3, 1, 80, [80, 37, 0])
-    assert tfa._kernel_head_dim(D) % DS == 64
+    assert tfa._kernel_head_dim(D) == 5 * DS
+    assert tfa._kernel_instance(D, BF16, "fwd") == (5 * DS, False)
     q, k, v, g = _inputs(B, H, T, D, seed=D)
     sm = 1.0 / math.sqrt(D)
-    want_o, want_lse = _jax_forward(q, k, v, lens, causal, sm)
-    o, lse, slice_lse = _wide_forward(
-        *(torch.from_numpy(a) for a in (q, k, v)), lens, causal, sm)
-    assert len(slice_lse) == 5 and all(torch.equal(x, slice_lse[0])
-                                       for x in slice_lse)
-    np.testing.assert_allclose(o.numpy(), want_o, **TOL)
-    fin = np.isfinite(want_lse)
-    np.testing.assert_allclose(lse.numpy()[fin], want_lse[fin], **TOL)
     jo, jlse, want = _jax_backward(q, k, v, g, lens, causal, sm)
     got = _wide_backward(*(torch.from_numpy(a) for a in (q, k, v, jo, jlse,
                                                           g)),

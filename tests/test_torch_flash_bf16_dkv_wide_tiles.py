@@ -130,7 +130,7 @@ def test_bf16_dkv_route_pads_counts_and_slices_back(D, padded, wide,
     kernels = _PlainKernels(monkeypatch)
     got = tfa.flash_dkv(q, k, v, lse, di, g, lens, True)
     assert kernels.head_dims == [("dkv", padded)]
-    assert kernels.counts() == (0, 0, 1, 0, 0, wide)
+    assert kernels.counts() == (0, 0, 1, 0, wide)
     for name, a, b in zip(("dk", "dv"), got, want):
         assert a.dtype == BF16 and a.shape == (2, 2, 40, D), name
         torch.testing.assert_close(a, b, atol=0, rtol=0, msg=name)

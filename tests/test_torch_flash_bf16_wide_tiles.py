@@ -17,9 +17,10 @@ stale K/V stage planted at those tiles fails it. dkv runs its own
 checked in ``tests/test_torch_flash_bf16_dkv_wide_tiles.py``). Past 256
 the forward and dq run their ``wgmma`` instances at 384 and 512
 (``tests/test_torch_flash_bf16_d512_tiles.py``), and dkv its own there
-(``tests/test_torch_flash_bf16_dkv_d512_tiles.py``); past 512 all three
-run the wide instances (``tests/test_torch_flash_wide_head.py`` emulates
-them). Then the route
+(``tests/test_torch_flash_bf16_dkv_d512_tiles.py``); past 512 the forward
+runs its slice instance (``tests/test_torch_flash_fwd_past512_tiles.py``)
+and dq and dkv the wide ones (``tests/test_torch_flash_wide_head.py``
+emulates them). Then the route
 itself: which head dim and instance each kernel takes by dtype, the
 launch wiring with the kernel entries swapped for their plain versions
 (padded D handed over, outputs sliced back, the launch counters), and
@@ -137,8 +138,7 @@ class _PlainKernels:
         monkeypatch.setattr(tfa, "_launch_fwd", self.forward)
         monkeypatch.setattr(tfa, "_launch_bwd", self.backward)
         monkeypatch.setattr(tfa, "_plain_device", lambda t: False)
-        for fn, names in ((tfa.flash_attention, ("bf16_launches",
-                                                 "wide_launches")),
+        for fn, names in ((tfa.flash_attention, ("bf16_launches",)),
                           (tfa.flash_backward, (
                               "dq_bf16_launches", "dkv_bf16_launches",
                               "dq_wide_launches", "dkv_wide_launches"))):
@@ -167,15 +167,14 @@ class _PlainKernels:
         return (tfa.flash_attention.bf16_launches,
                 tfa.flash_backward.dq_bf16_launches,
                 tfa.flash_backward.dkv_bf16_launches,
-                tfa.flash_attention.wide_launches,
                 tfa.flash_backward.dq_wide_launches,
                 tfa.flash_backward.dkv_wide_launches)
 
 
 # the D320 case keeps the id it was written with, when D320 padded to 320
 @pytest.mark.parametrize("D,padded,wide", [
-    (160, 192, (0, 0, 0)), (256, 256, (0, 0, 0)),
-    pytest.param(320, 384, (0, 0, 0), id="320-320-wide2")])
+    (160, 192, (0, 0)), (256, 256, (0, 0)),
+    pytest.param(320, 384, (0, 0), id="320-320-wide2")])
 def test_bf16_route_pads_counts_and_slices_back(D, padded, wide,
                                                 monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each kernel

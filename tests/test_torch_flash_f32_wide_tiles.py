@@ -17,8 +17,10 @@ denominator and lse must agree bitwise. dkv runs its own split instance
 at 192 and 256 (``tests/test_torch_flash_f32_dkv_split_tiles.py``
 emulates it); all three run their quarter instances at 384 and 512
 (``tests/test_torch_flash_f32_d512_tiles.py``, and for dkv
-``tests/test_torch_flash_f32_dkv_d512_tiles.py``) and the wide ones past
-512 (``tests/test_torch_flash_wide_head.py``). Then the route: the
+``tests/test_torch_flash_f32_dkv_d512_tiles.py``); past 512 the forward
+runs its slice instance (``tests/test_torch_flash_fwd_past512_tiles.py``)
+and dq and dkv the wide ones (``tests/test_torch_flash_wide_head.py``).
+Then the route: the
 instance each f32 kernel takes, and the launch wiring with the kernel
 entries swapped for their plain versions (padded D handed over, outputs
 sliced back, the f32 and wide launch counters).
@@ -233,14 +235,15 @@ F32 = torch.float32
     (257, "fwd", (384, False)), (320, "dq", (384, False)),
     (128, "dkv", (128, False)), (512, "fwd", (512, False)),
     (448, "dq", (512, False)), (320, "dkv", (384, False)),
-    (512, "dkv", (512, False)), (576, "fwd", (576, True)),
-    (576, "dq", (576, True)), (576, "dkv", (576, True)),
+    (512, "dkv", (512, False)), (576, "fwd", (640, False)),
+    (576, "dq", (640, True)), (576, "dkv", (640, True)),
 ])
 def test_f32_kernel_instance(D, kind, instance):
     """f32's forward, dq and dkv take the tensor-core instances at a
     padded 192 and 256, and past 256 (a head dim in 257-512 padded to 384
     or 512, as in bf16) their quarter instances on the tensor cores; past
-    512 every kernel the wide ones."""
+    512 (padded to a multiple of 128) the forward its slice instance on
+    the tensor cores, dq and dkv the wide ones."""
     assert tfa._kernel_instance(D, F32, kind) == instance
 
 
@@ -254,8 +257,7 @@ class _PlainKernels:
         monkeypatch.setattr(tfa, "_launch_fwd", self.forward)
         monkeypatch.setattr(tfa, "_launch_bwd", self.backward)
         monkeypatch.setattr(tfa, "_plain_device", lambda t: False)
-        for fn, names in ((tfa.flash_attention, ("launches",
-                                                 "wide_launches")),
+        for fn, names in ((tfa.flash_attention, ("launches",)),
                           (tfa.flash_backward, (
                               "dq_launches", "dkv_launches",
                               "dq_wide_launches", "dkv_wide_launches"))):
@@ -284,21 +286,20 @@ class _PlainKernels:
         return (tfa.flash_attention.launches,
                 tfa.flash_backward.dq_launches,
                 tfa.flash_backward.dkv_launches,
-                tfa.flash_attention.wide_launches,
                 tfa.flash_backward.dq_wide_launches,
                 tfa.flash_backward.dkv_wide_launches)
 
 
 # the D320 case keeps the id it was written with, when D320 padded to 320
 @pytest.mark.parametrize("D,padded,wide", [
-    (160, 192, (0, 0, 0)), (256, 256, (0, 0, 0)),
-    pytest.param(320, 384, (0, 0, 0), id="320-320-wide2"),
-    (512, 512, (0, 0, 0)), (576, 576, (1, 1, 1))])
+    (160, 192, (0, 0)), (256, 256, (0, 0)),
+    pytest.param(320, 384, (0, 0), id="320-320-wide2"),
+    (512, 512, (0, 0)), pytest.param(576, 640, (1, 1), id="576-576-wide4")])
 def test_f32_route_pads_counts_and_slices_back(D, padded, wide,
                                                monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each f32
     kernel the head dim padded to its instance, count one launch of each
-    and the wide ones apart (none up to 512, all three past it), and
+    and the wide ones apart (none up to 512, dq and dkv past it), and
     give back the unpadded plain version's results (sm_scale from the
     true D)."""
     rng = np.random.RandomState(D)

@@ -1,19 +1,20 @@
-"""Head dims past 128 on the port's CUDA route: the flash kernels' wide
+"""Head dims past 128 on the port's CUDA route: the flash backward's wide
 instances.
 
 On a CUDA tensor a head dim D > 128 is zero-padded to a multiple of 64,
-and one in 257-512 to 384 or 512. Past 512 every kernel of either dtype
-runs the wide instances (``csrc/flash_wide.cuh``): every product that
-sums over D (S = QK^T, dP = dO V^T) accumulates 64-column chunks, and
-each output's D axis is
+one in 257-512 to 384 or 512, and one past 512 to a multiple of 128.
+Past 512 dq and dkv of either dtype run the wide instances
+(``csrc/flash_wide.cuh``): every product that sums over D (S = QK^T,
+dP = dO V^T) accumulates 64-column chunks, and each output's D axis is
 cut into 128-wide slices on the grid's z axis, each block recomputing S
 for its own slice. Here that decomposition is emulated on the CPU (64-row
-tiles, chunk sums in order, an online softmax per slice, the dkv loop
-starting at the causal bound) and held against the JAX package's Pallas
-forward and backward kernels in interpret mode at D = 320 (padded to
-384) and 512, causal and ragged with a fully masked row; the slices'
-lse must agree bitwise (a last slice 64 wide, at D = 576, is emulated in
-``tests/test_torch_flash_bf16_d512_tiles.py``). (The f32 kernels at
+tiles, chunk sums in order, the dkv loop starting at the causal bound)
+and held against the JAX package's Pallas backward kernels in interpret
+mode at D = 320 (padded to 384) and 512, causal and ragged with a fully
+masked row (D = 576, padded to 640, is emulated in
+``tests/test_torch_flash_bf16_d512_tiles.py``; the forward past 512 runs
+its slice instance on the tensor cores:
+``tests/test_torch_flash_fwd_past512_tiles.py``). (The f32 kernels at
 129-512 run on the tensor cores: ``tests/test_torch_flash_f32_wide_tiles.py``,
 ``tests/test_torch_flash_f32_dkv_split_tiles.py``,
 ``tests/test_torch_flash_f32_d512_tiles.py`` and
@@ -101,43 +102,6 @@ def _klen(lens, B, H, Tk):
     return lens.clamp(0, Tk).repeat_interleave(H)
 
 
-def _wide_forward(q, k, v, lens, causal, sm):
-    """(o, lse) as the wide forward computes them, and each slice's lse."""
-    B, H, T, D = q.shape
-    Dp = tfa._kernel_head_dim(D)
-    q3, k3, v3 = (_flat(x, Dp) for x in (q, k, v))
-    klen = _klen(lens, B, H, T)
-    o = torch.zeros(B * H, T, Dp)
-    slice_lse = []
-    for s0 in range(0, Dp, DS):  # grid z: every slice recomputes S
-        lse = torch.empty(B * H, T)
-        for q0 in range(0, T, BT):
-            rows = torch.arange(q0, min(q0 + BT, T))
-            m = torch.full((B * H, rows.numel()), -math.inf)
-            l = torch.zeros_like(m)
-            acc = torch.zeros(B * H, rows.numel(), min(DS, Dp - s0))
-            kend = min(T, q0 + BT) if causal else T
-            for k0 in range(0, kend, BT):
-                cols = torch.arange(k0, min(k0 + BT, T))
-                s = _chunked(q3[:, rows], k3[:, cols]) * sm
-                s = s.masked_fill(~_visible(rows, cols, klen, causal),
-                                  -math.inf)
-                mnew = torch.maximum(m, s.amax(-1))
-                live = torch.isfinite(mnew)
-                alpha = torch.where(live, torch.exp(m - mnew), 1.0)
-                p = torch.where(live[..., None],
-                                torch.exp(s - mnew[..., None]), 0.0)
-                l = l * alpha + p.sum(-1)
-                m = mnew
-                acc = acc * alpha[..., None] + p @ v3[:, cols, s0:s0 + DS]
-            o[:, rows, s0:s0 + DS] = acc / l.clamp(min=1e-30)[..., None]
-            lse[:, rows] = torch.where(
-                l > 0, m + torch.log(l.clamp(min=1e-30)), math.inf)
-        slice_lse.append(lse)
-    return (o[..., :D].reshape(B, H, T, D), slice_lse[0].reshape(B, H, T),
-            slice_lse)
-
-
 def _p_ds(q3, k3, v3, do3, lse3, di3, rows, cols, klen, causal, sm):
     """P and dS of one (q tile, k tile) pair, S and dP chunk-summed."""
     s = _chunked(q3[:, rows], k3[:, cols]) * sm
@@ -178,26 +142,6 @@ def _wide_backward(q, k, v, o, lse, do, lens, causal, sm):
                 dk[:, cols, sl] += ds.transpose(1, 2) @ q3[:, rows, sl]
     return tuple((x[..., :D] * scale).reshape(B, H, T, D)
                  for x, scale in ((dq, sm), (dk, sm), (dv, 1.0)))
-
-
-@pytest.mark.parametrize("D", WIDE_DIMS)
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_wide_forward_matches_pallas_forward_interpret(case, D):
-    B, H, T, causal, lens = CASES[case]
-    q, k, v, _ = _inputs(B, H, T, D, seed=D)
-    sm = 1.0 / math.sqrt(D)  # the true head dim's scale
-    want_o, want_lse = _jax_forward(q, k, v, lens, causal, sm)
-    o, lse, slice_lse = _wide_forward(
-        *(torch.from_numpy(a) for a in (q, k, v)), lens, causal, sm)
-    assert len(slice_lse) == -(-D // DS) and all(
-        torch.equal(x, slice_lse[0]) for x in slice_lse)
-    np.testing.assert_allclose(o.numpy(), want_o, **TOL)
-    fin = np.isfinite(want_lse)
-    assert np.array_equal(np.isfinite(lse.numpy()), fin)
-    np.testing.assert_allclose(lse.numpy()[fin], want_lse[fin], **TOL)
-    if lens is not None:
-        masked = [b for b, n in enumerate(lens) if n == 0]
-        assert masked and not o[masked].any()
 
 
 @pytest.mark.parametrize("D", WIDE_DIMS)
