@@ -77,18 +77,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
    versions at the training shape (B8 H8 T2048 D128 causal), the serving
    shape, a ragged case with a fully masked row and the head dims past
    128 of phase 3 (both on the tensor cores at 192 and 256 and on their
-   quarter instances at 384 and 512; both wide past 512, padded to a
-   multiple of 128); two launches
-   of each at the training shape, at B2 H4 T1000 D256 and D512, at B8 H8
-   T2048 D256 and at B8 H4 T2048 D512 must be bitwise equal (no
-   atomics). Prints each kernel's registers, spills
+   quarter instances at 384 and 512; past 512, padded to a multiple of
+   128, both on their slice instances, and D1200 with the owned rows
+   streamed); two launches
+   of each at the training shape, at B2 H4 T1000 D256, D512 and D576, at
+   B8 H8 T2048 D256, at B8 H4 T2048 D512 and at B8 H2 T2048 D1024 must be
+   bitwise equal (no atomics). Prints each kernel's registers, spills
    (none allowed) and shared memory and the tensor-core opcodes (HMMA) of
-   both kernels at 192, 256, 384 and 512, then times them
+   both kernels at 192, 256, 384 and 512 and of their slice instances (no
+   f32 wide instance left), then times them
    beside their plain versions and their bounds, and the pair in turns
    with the backward of ``F.scaled_dot_product_attention`` (its backend
-   pinned and recorded): pair, SDPA, SDPA, pair; at both D256 and both
-   D512 shapes dq, dkv and the pair in turns with SDPA's backward, beside
-   the wide FMA instances' earlier times.
+   pinned and recorded): pair, SDPA, SDPA, pair; at both D256, both D512,
+   the D576 and the D1024 shapes dq, dkv and the pair in turns with SDPA's
+   backward, beside the wide FMA instances' earlier times.
 6. Training: the d1024/L8/H8/V16384 LM (d_ff 4096, batch 8 x 2048
    tokens, f32, Adam lr 1e-4) built with the port's ``layers`` and
    ``models.transformer_lm(pipeline_stack=True)``, trained through
@@ -122,11 +124,13 @@ Phases, each fatal on failure (nonzero exit, no result line):
    (``stacked_d512_{f32,amp}_profile.txt``), then the same width
    served densely as in 6b (the prefill's attention on the forward's
    D512 quarter instance at ragged lengths).
-6d. The stacked LM at head dim 1024: the same width with 2 heads of
-   1024 (d2048 L8 H2 d_ff 8192) served densely as in 6b: 8 requests,
-   every prefill's attention one launch a layer of the f32 forward's
-   slice instance (none of a wide one), request 0's tokens equal to the
-   plain path's on the card.
+6d. The stacked LM at head dim 1024: 6c with 2 heads of 1024 (d2048 L8
+   H2 d_ff 8192), nothing cut, the same gates in f32 and under AMP; 8
+   launches a step of the f32 flash forward, dq and dkv on their slice
+   instances (none wide), the same prints
+   (``stacked_d1024_{f32,amp}_profile.txt``), then the same width served
+   densely as in 6b (every prefill's attention one launch a layer of the
+   forward's slice instance).
 7. TF32: the port's conv2d (3x3 s2 p1, NHWC, 64 -> 64) on the card, with
    cuDNN's TF32 at PyTorch's default (on), against the same op in f64 on
    the CPU: output, dX and dW within 1e-5 of the largest reference value.
@@ -478,18 +482,18 @@ PAD_CASES = [
 # head dims past 128 (D zero-padded to a multiple of 64, in 257-512 to
 # 384 or 512, and past 512 to a multiple of 128). In f32 the forward, dq
 # and dkv run their tensor-core instances at 192 and 256 (D160 and D192
-# pad to 192) and their quarter instances at 384 and 512; past 512 the
-# forward runs its slice instance on the tensor cores (O in 640-column
-# slices on the grid's z axis) and dq and dkv the wide ones (outputs in
-# 128-column slices). Causal with a fully masked row at D160, D192, D256
+# pad to 192) and their quarter instances at 384 and 512; past 512 their
+# slice instances on the tensor cores (the forward's O in 640-column
+# slices on the grid's z axis, dq's and dkv's outputs in 1024-column
+# ones). Causal with a fully masked row at D160, D192, D256
 # and D320, the stacked LM's attention at head dims 256 (D256_TRAIN) and
 # 512 (D512_TRAIN), a non-causal ragged D512 with a fully masked row,
 # WIDE_D512, and past 512 D576, D1024 and D1152 (Q streamed past 1024),
-# each causal with a fully masked row and non-causal ragged. Phase 3 holds
+# each causal with a fully masked row and non-causal ragged, and for dq
+# and dkv D1200 (their owned rows streamed past 1152). Phase 3 holds
 # the forward, phase 5 dq and dkv against their plain versions; both
-# check two launches bitwise equal at WIDE_TIMED, D256_TRAIN, WIDE_D512
-# and D512_TRAIN and time them there, and the forward at WIDE_D576 and
-# D1024_TRAIN too
+# check two launches bitwise equal at WIDE_TIMED, D256_TRAIN, WIDE_D512,
+# D512_TRAIN, WIDE_D576 and D1024_TRAIN and time them there
 WIDE_TIMED = (2, 4, 1000, 256, True, None)
 # B8 H8 T2048 D256 causal: the attention of the LMs at d2048 H8 (phase 6b,
 # 12d); B8 H4 T2048 D512 causal: the LMs' at d2048 H4 (6c, 12e)
@@ -511,6 +515,9 @@ SLICE_CASES = [
     (2, 2, 600, 1152, True, [600, 0]),
     (2, 2, 300, 1100, False, [300, 77]),
 ]
+# past the backward slice instances' resident owned rows (Dp 1152): Q and
+# dO (dq), K and V (dkv) streamed with each step
+BWD_STREAMED_CASES = [(2, 2, 300, 1200, True, [300, 0])]
 WIDE_CASES = [
     (2, 4, 1000, 160, True, [1000, 0]),
     (2, 4, 1000, 192, True, [1000, 0]),
@@ -520,8 +527,8 @@ WIDE_CASES = [
     (2, 2, 300, 512, False, [300, 0]),
     WIDE_D512,
     D512_TRAIN,
-] + SLICE_CASES
-# a head dim of the f32 wide instances, to look up their shared memory
+] + SLICE_CASES + BWD_STREAMED_CASES
+# a head dim of the bf16 wide instances, to look up their shared memory
 # (the same at every D)
 WIDE_D = 576
 # the f32 instances at 192 and 256 on the tensor cores: in SASS, HMMA
@@ -539,9 +546,15 @@ F32_QUARTER_SASS = tuple(f"flash_{k}_tf32x3_quarter_kernel<{d}>"
 # 1024, <0>: streamed past it): every product on mma.sync (HMMA)
 F32_SLICE_SASS = ("flash_fwd_tf32x3_slice_kernel<1>",
                   "flash_fwd_tf32x3_slice_kernel<0>")
+# the f32 dq's and dkv's slice instances past 512 (<1>: the owned rows
+# resident up to Dp 1152, <0>: streamed past it): every product on
+# mma.sync (HMMA)
+F32_SLICE_BWD_SASS = tuple(f"flash_bwd_{k}_tf32x3_slice_kernel<{r}>"
+                           for k in ("dq", "dkv") for r in (1, 0))
 # a padded head dim each slice instance takes (<1>, <0>), to look up its
-# shared memory
+# shared memory: the forward's, and dq's and dkv's
 SLICE_DP = {1: 1024, 0: 1152}
+BWD_SLICE_DP = {1: 1024, 0: 1280}
 # the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
 # the f32 forward, dq and dkv ran at WIDE_TIMED and D256_TRAIN before
 # they took their tensor-core instances there, and at WIDE_D512 and
@@ -549,15 +562,15 @@ SLICE_DP = {1: 1024, 0: 1152}
 # at 700 W (``--f32-wide-times`` once on the commit before each: the
 # forward's and dq's before their split instances, dkv's before its, the
 # forward's and dq's D512 times before their quarter instances, dkv's
-# D512 times on that same commit), and the forward's at WIDE_D576 and
-# D1024_TRAIN before its slice instance (the mean of two turns on the
-# commit before it; dq and dkv still run wide there)
+# D512 times on that same commit), and the trio's at WIDE_D576 and
+# D1024_TRAIN before their slice instances (the mean of two turns on the
+# commit before each: the forward's, then dq's and dkv's)
 F32_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.514, 0.833, 0.705),
                         D256_TRAIN: (8.264, 13.977, 19.210),
                         WIDE_D512: (1.288, 2.266, 2.282),
                         D512_TRAIN: (13.480, 25.622, 35.201),
-                        WIDE_D576: (1.592, None, None),
-                        D1024_TRAIN: (25.506, None, None)}
+                        WIDE_D576: (1.592, 3.250, 4.108),
+                        D1024_TRAIN: (25.506, 48.852, 65.636)}
 
 
 def _case_text(B, H, T, D, causal, lengths):
@@ -704,7 +717,7 @@ def _assert_no_wide_forward():
 def slice_record(rec, dtype, launches):
     """The forward's slice instance past head dim 512 (``dtype`` "f32":
     phase 3's record ``rec``, on phase 6d's main path with ``launches``
-    a run; "bf16": phase 12a's, on no main path), timed at D1024_TRAIN
+    a step; "bf16": phase 12a's, on no main path), timed at D1024_TRAIN
     in turns with SDPA."""
     return {"name": "flash_attention_fwd_slice" + (
                 "" if dtype == "f32" else "_bf16"),
@@ -1213,7 +1226,7 @@ def backward_kernel_phase(gpu_name):
     errs = {"dq": [], "dkv": []}
     errs_d256 = {"dq": [], "dkv": []}  # 128 < D <= 256
     errs_d512 = {"dq": [], "dkv": []}  # 256 < D <= 512
-    errs_wide = {"dq": [], "dkv": []}  # D > 512: the wide instances
+    errs_slice = {"dq": [], "dkv": []}  # D > 512: the slice instances
     for B, H, T, D, causal, lengths in BWD_CASES + WIDE_CASES:
         q, k, v, do = (randn(B, H, T, D) for _ in range(4))
         lens = None if lengths is None else torch.tensor(lengths,
@@ -1235,7 +1248,7 @@ def backward_kernel_phase(gpu_name):
             elif 256 < D <= 512:
                 errs_d512[name].append(err)
             elif D > 512:
-                errs_wide[name].append(err)
+                errs_slice[name].append(err)
         if lengths is not None and 0 in lengths:
             row = lengths.index(0)
             assert not dq[row].any() and not dk[row].any() \
@@ -1270,13 +1283,16 @@ def backward_kernel_phase(gpu_name):
                                 ("d256_train", D256_TRAIN),
                                 ("d512", WIDE_D512),
                                 ("d512_train", D512_TRAIN),
-                                ("d576", WIDE_D576))}
+                                ("d576", WIDE_D576),
+                                ("d1024_train", D1024_TRAIN))}
     usage = _backward_kernel_usage()
     assert not any(u.get("spill_store_bytes") or u.get("spill_load_bytes")
                    for u in usage.values()), f"the backward spills: {usage}"
     sass = _sass_counts("flash_attention_bwd", "flash_bwd")
-    for key in F32_SPLIT_SASS[2:] + F32_QUARTER_SASS[2:]:
+    for key in (F32_SPLIT_SASS[2:] + F32_QUARTER_SASS[2:]
+                + F32_SLICE_BWD_SASS):
         assert sass[key]["HMMA"] > 0, (key, sass.get(key))  # on mma.sync
+    assert not any("wide" in key for key in sass), sorted(sass)
     ms = {name: _cuda_ms(fn, iters=10) for name, fn in kernels.items()}
     plain_ms = {
         "dq": _cuda_ms(lambda: fa.flash_dq_reference(q, k, v, lse, di, do,
@@ -1332,22 +1348,12 @@ def backward_kernel_phase(gpu_name):
             "d512_shape": wide["d512"][name],
             "d512_train_shape": wide["d512_train"][name],
             "d576_shape": wide["d576"][name],
+            "d1024_train_shape": wide["d1024_train"][name],
             "max_abs_err_d256": max(errs_d256[name]),
             "max_abs_err_d512": max(errs_d512[name]),
-            "max_abs_err_wide": max(errs_wide[name]),
+            "max_abs_err_d1024": max(errs_slice[name]),
         })
     return records
-
-
-def wide_backward_records(bwd):
-    """The f32 dq and dkv wide instances (flash_wide.cuh), on no main path
-    since every f32 kernel runs on the tensor cores up to head dim 512:
-    each timed at WIDE_D576 (phase 5) with 0 launches."""
-    return [{"name": f"{rec['name']}_wide", "route": "cuda",
-             "source": "paddle_tpu_torch/kernels/csrc/flash_wide.cuh",
-             "replaces": rec["replaces"], "launches": 0,
-             "max_abs_err": rec["max_abs_err_wide"], **rec["d576_shape"]}
-            for rec in bwd]
 
 
 def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
@@ -1572,7 +1578,8 @@ def _backward_kernel_usage():
     smem = lib.paddle_flash_attention_bwd_smem_bytes
     return _kernel_usage(
         "flash_attention_bwd",
-        lambda name, args: smem("dkv" in name, args[0] if args else WIDE_D),
+        lambda name, args: smem("dkv" in name, BWD_SLICE_DP[args[0]]
+                                if "slice" in name else args[0]),
         match="flash_bwd")
 
 
@@ -1986,11 +1993,16 @@ STACKED_D512_GROUPS = ("flash_fwd_tf32x3_quarter",
                        "flash_bwd_dq_tf32x3_quarter",
                        "flash_bwd_dkv_tf32x3_quarter",
                        "flash_", "nvjet", "gemm", "elementwise", "reduce")
-# Phase 6d: the same width with 2 heads of 1024 (d2048 L8 H2, d_ff 8192)
-# served densely as in 6b: every prefill's attention on the f32 forward's
-# slice instance past head dim 512 (phase 3's D1024_TRAIN).
+# Phase 6d: the same width with 2 heads of 1024 (d2048 L8 H2, d_ff 8192),
+# trained and served as 6c: the f32 flash forward, dq and dkv on their
+# slice instances past head dim 512 (phases 3 and 5's D1024_TRAIN).
+# Nothing cut.
 STACKED_D1024 = dict(TRAIN, d_model=2048, num_heads=2, d_ff=8192)
-# the flash kernels that still have wide instances (past head dim 512)
+STACKED_D1024_GROUPS = ("flash_fwd_tf32x3_slice",
+                        "flash_bwd_dq_tf32x3_slice",
+                        "flash_bwd_dkv_tf32x3_slice",
+                        "flash_", "nvjet", "gemm", "elementwise", "reduce")
+# the flash kernels that have wide instances past head dim 512 (bf16's)
 WIDE_KINDS = ("dq", "dkv")
 
 
@@ -1999,7 +2011,7 @@ def _stacked_tag(c):
 
 
 def _stacked_timed(exe, main, feed, loss, scope, fa, tag, c, peak, groups):
-    """The main path of phase 6b or 6c in one precision: 1 warm + 6 timed
+    """The main path of phase 6b, 6c or 6d in one precision: 1 warm + 6 timed
     steps (counts to 0 before, read after: 8 launches a step of each f32
     flash kernel, on the wide instances those that ``_kernel_instance``
     routes there at c's head dim, no bf16 launch), falling losses; step
@@ -2055,8 +2067,23 @@ def stacked_d512_phase(gpu_name):
     (stacked_phase): a step in either precision launches the f32 flash
     forward, dq and dkv 8 times each on their D512 quarter instances and
     none on the wide ones."""
-    c = STACKED_D512
-    out = stacked_phase(gpu_name, c, STACKED_D512_GROUPS)
+    return _stacked_on_tensor_cores(gpu_name, STACKED_D512,
+                                    STACKED_D512_GROUPS)
+
+
+def stacked_d1024_phase(gpu_name):
+    """Phase 6d: the stacked LM at d2048 L8 H2 (head dim 1024)
+    (stacked_phase): a step in either precision launches the f32 flash
+    forward, dq and dkv 8 times each on their slice instances and none on
+    a wide one; each prefill of its serving half one forward a layer."""
+    return _stacked_on_tensor_cores(gpu_name, STACKED_D1024,
+                                    STACKED_D1024_GROUPS)
+
+
+def _stacked_on_tensor_cores(gpu_name, c, groups):
+    """stacked_phase at ``c``, every f32 flash launch of a step in either
+    precision on a tensor-core instance: L of each kernel, none wide."""
+    out = stacked_phase(gpu_name, c, groups)
     L = c["n_layers"]
     for tag in ("f32", "amp"):
         assert out[tag]["launches_per_step"] == [L] * 3, out[tag]
@@ -2065,7 +2092,7 @@ def stacked_d512_phase(gpu_name):
 
 
 def stacked_phase(gpu_name, c, groups):
-    """Phase 6b or 6c: the stacked LM at configuration ``c`` trained in
+    """Phase 6b, 6c or 6d: the stacked LM at configuration ``c`` trained in
     f32 (step 1 with the kernels against the plain path: loss LOSS_RTOL,
     every gradient GRAD_RTOL) and, built again under AMP with the same
     names from the same startup state, under AMP (step-1 loss within
@@ -2152,25 +2179,12 @@ def stacked_phase(gpu_name, c, groups):
     return out
 
 
-def stacked_d1024_phase():
-    """Phase 6d: the stacked LM at d2048 L8 H2 (head dim 1024) served
-    (stacked_serving): each prefill's attention one launch a layer of the
-    f32 forward's slice instance, none of a wide one."""
-    import torch
-
-    from paddle_tpu_torch.kernels import flash_attention as fa
-
-    c = STACKED_D1024
-    hd = c["d_model"] // c["num_heads"]
-    assert fa._kernel_instance(hd, torch.float32, "fwd") == (hd, False)
-    return stacked_serving(c)
-
-
 def stacked_records(kern, bwd, stacked, hd):
     """The f32 instances that phase 6b's (``hd`` 256: the split
-    instances) or 6c's (``hd`` 512: the quarter instances) main path runs,
-    all three on the tensor cores, each timed at
-    D256_TRAIN or D512_TRAIN (phases 3 and 5) with its launches a step in
+    instances), 6c's (``hd`` 512: the quarter instances) or 6d's (``hd``
+    1024: the slice instances; the forward's row is slice_record's) main
+    path runs, all three on the tensor cores, each timed at D256_TRAIN,
+    D512_TRAIN or D1024_TRAIN (phases 3 and 5) with its launches a step in
     the phase's f32 run."""
     import torch
 
@@ -2186,6 +2200,8 @@ def stacked_records(kern, bwd, stacked, hd):
              bwd[1]))
     out = []
     for (kind, name, source, line, rec), n in zip(rows, launches):
+        if hd > 512 and kind == "fwd":
+            continue
         wide = fa._kernel_instance(hd, torch.float32, kind)[1]
         out.append({
             "name": f"{name}_d{hd}" + ("_wide" if wide else ""),
@@ -2198,7 +2214,7 @@ def stacked_records(kern, bwd, stacked, hd):
 
 
 def stacked_serving(c):
-    """Phase 6b's or 6c's serving half: the stacked LM at configuration
+    """Phase 6b's, 6c's or 6d's serving half: the stacked LM at configuration
     ``c`` (weights from the seed through ``load_jax_params``) served by
     ``GenerationEngine(kv_cache="dense")`` and ``Server``: every result
     checked, zero dispatch errors, each prefill's attention on the f32
@@ -4342,8 +4358,9 @@ def bf16_flash_kernel_phase(gpu_name):
     for i in range(3):  # each timed at D512_TRAIN
         records.append(record(i, "d512", errs_d512, list(d512.values()),
                               ("<384>", "<512>")))
-    # the wide dkv, on the path of the per-layer LM at head dim 512 before
-    # its D384/D512 instances, now only past 512: timed at D576
+    # the wide dq and dkv, on the path of the per-layer LM at head dim 512
+    # before their D384/D512 instances, now only past 512: timed at D576
+    records.append(record(1, "wide", errs_wide, [wide[WIDE_D576]], ()))
     records.append(record(2, "wide", errs_wide, [wide[WIDE_D576]], ()))
     print("bf16 flash past D = 512: max |kernel - plain| of the forward's "
           f"slice instance {errs_slice[BF16_FLASH[0]]:.3e}, of the wide dq "
@@ -5873,8 +5890,8 @@ def main():
                              "under AMP, and served); prints no ok line")
     parser.add_argument("--stacked-d1024-only", action="store_true",
                         help="build the kernels and run only phase 6d (the "
-                             "stacked LM at head dim 1024 served); prints "
-                             "no ok line")
+                             "stacked LM at head dim 1024 trained in f32 and "
+                             "under AMP, and served); prints no ok line")
     parser.add_argument("--f32-wide-times", action="store_true",
                         help="build the kernels and only time the f32 "
                              "flash forward, dq and dkv at head dims 256, "
@@ -5969,11 +5986,11 @@ def main():
         print(smi)
         return
     if args.stacked_d1024_only:
-        served = stacked_d1024_phase()
+        stacked = stacked_d1024_phase(gpu)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_stacked_d1024.json").write_text(json.dumps(
-            {"gpu": smi, "stacked_d1024": served}, indent=1))
+            {"gpu": smi, "stacked_d1024": stacked}, indent=1))
         print(smi)
         return
     if args.stacked_d512_only:
@@ -6080,7 +6097,7 @@ def main():
     torch.cuda.empty_cache()
     stacked_d512 = stacked_d512_phase(gpu)
     torch.cuda.empty_cache()
-    stacked_d1024 = stacked_d1024_phase()
+    stacked_d1024 = stacked_d1024_phase(gpu)
     torch.cuda.empty_cache()
 
     import paddle_tpu_torch as pt
@@ -6104,11 +6121,12 @@ def main():
     recurrent = recurrent_phase()
     torch.cuda.empty_cache()
     zoo_recs, zoo = zoo_phase(gpu)
-    records = ([kern, slice_record(kern, "f32",
-                                   stacked_d1024["flash_launches"])]
+    records = ([kern, slice_record(
+                   kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
                + stacked_records(kern, bwd, stacked_d512, 512)
-               + wide_backward_records(bwd) + conv
+               + stacked_records(kern, bwd, stacked_d1024, 1024)
+               + conv
                + amp_recs + per_layer_recs + zoo_recs)
 
     out = ROOT / "chiprun_out"

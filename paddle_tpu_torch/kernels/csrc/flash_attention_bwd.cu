@@ -27,8 +27,10 @@
 // across the warpgroups, the products over D exchanged between them) and
 // their quarter instances at 384 and 512
 // (flash_bwd_{dq,dkv}_tf32x3_quarter_kernel: 32 q rows, or 32 keys, a
-// block, the output split four ways by D); past those they run the wide
-// instances (flash_bwd_{dq,dkv}_wide_kernel<float>, flash_wide.cuh).
+// block, the output split four ways by D); past those their slice
+// instances (flash_bwd_{dq,dkv}_tf32x3_slice_kernel: 16 q rows, or 16
+// keys, a block, the output split eight ways by D in slices of up to 1024
+// columns on the grid's z axis, any multiple of 128).
 // Queries count from position 0 for both Tq and Tk, as in the forward.
 //
 // Layout on the card, and why it differs from the TPU kernels:
@@ -97,7 +99,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "flash_wide.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -1209,13 +1210,515 @@ cudaError_t launch_dkv_quarter(const float* q, const float* k,
   return cudaGetLastError();
 }
 
+
+// --- past D = 512: dq, and dK and dV, in slices of D ----------------------
+//
+// Past D = 512 the quarter layout does not fit: Q and dO for 32 rows take
+// 263,168 bytes at Dp = 1024, and a warp's quarter of dq D / 8 registers
+// (dK and dV D / 4). The wrapper pads D to a multiple of 128 (Dp), and the
+// outputs are cut into slices of up to SLICE columns on the grid's z axis.
+// A block owns 16 rows, q rows (dq) or keys (dkv), and its 8 warps are 8
+// parts of D: warp w owns columns 16 w .. of every 128 of the slice (dq
+// 64 registers at a slice of 1024, dK and dV 128: one slice up to Dp =
+// 1024, so nothing is formed twice there). Every block forms S and dP (S^T
+// and dP^T in dkv) over all of Dp with the same parts: warp w sums, over
+// each 128 columns of Dp in order, the products over its 16 columns of
+// them, as two chains (one an 8-column k-step, the fragments by
+// ldmatrix), summed after; the eight partials meet in the exchange and
+// every warp sums them in part order. So every warp, and every slice,
+// holds the same S and dP, P and dS, bit for bit. The owned rows (Q and
+// dO; K and V) stay resident at row stride Dp + 4 up to RES_MAX (131,584
+// bytes at Dp = 1024); past it each step also brings the owned rows of
+// its 128 columns (RES false). The streamed rows come through one ring of
+// uniform steps of 16 rows x 128 columns at row stride 132 (the fragment
+// reads hit 32 distinct banks), in the order the block takes them, each a
+// cp.async group that every thread issues SLOTS - BATCH steps ahead,
+// BATCH steps a barrier:
+// - dq (flash_bwd_dq_tf32x3_slice_kernel): for each 16-key tile, the K
+//   and the V step of each 128 columns of Dp (S and dP), then the K steps
+//   of the slice (dq += dS K, each tile's a fresh sum added in f32);
+// - dkv (flash_bwd_dkv_tf32x3_slice_kernel): for each tile of 8 queries,
+//   the steps of Dp, each Q's and dO's 8 rows (S^T and dP^T), then those
+//   of the slice (dV += P^T dO, dK += dS^T Q); lse and Di of the tile's
+//   queries come from global memory into registers.
+// The slice's steps are copied again, from L2, after Dp's. The ring is
+// `Pipe` and the owned rows `load_owned` (mma_tf32x3.cuh), as in the
+// forward's slice instance. The loop over Dp's steps runs at run time,
+// so any Dp past 512 is taken. Shared memory at Dp = 1024: dq 215,552
+// bytes (Q and dO 131,584, eight slots of 8,448, the exchange 16,384),
+// dkv 207,360 (K and V, the slots, the exchange 8,192); at Dp = 1152
+// 231,936 and 223,744; past it 151,552 and 210,944 (slots of 16,896 with
+// Q's or dO's 16 rows, 25,344 with K's and V's). The grid is (bh, 64-row
+// groups, 4 x slices): z % 4 picks the group's 16 rows (dq: its upper
+// rows first, the heavier under causal masking), so the grid's y axis
+// holds as many rows as at 512.
+namespace bslice {
+
+constexpr int OWN = 16;    // rows a block owns: q rows (dq), keys (dkv)
+constexpr int ROWS = 16;   // rows of a step: keys, or 8 queries of Q and dO
+constexpr int CH = 128;    // columns of a step: 16 a part
+constexpr int CST = CH + 4;  // a step's row stride, in floats
+constexpr int SLICE = 1024;  // columns of the output a block owns at most
+constexpr int NVMAX = SLICE / CH;  // steps of a slice
+constexpr int SLOTS = 8;   // steps of the ring
+constexpr int BATCH = 4;   // steps a barrier
+constexpr int GROUP = 4;   // blocks of 16 rows a grid y index holds (on z)
+constexpr int RES_MAX = 1152;  // the widest Dp whose owned rows stay resident
+
+// Shared memory, in floats: the ring's slots (a step's 16 streamed rows,
+// and with RES false the owned rows of its columns: Q's or dO's 16 for dq,
+// K's and V's 16 each for dkv), the exchange of the S and dP partials (2 x
+// NT x 4 values a lane per warp), then with RES the two owned tiles [16,
+// Dp] at stride Dp + 4.
+template <bool DKV, bool RES>
+struct Ring {
+  static constexpr int NT = DKV ? 1 : 2;  // 8-row MMA tiles a streamed tile
+  static constexpr int OWNS = RES ? 0 : (DKV ? 2 : 1) * OWN;
+  static constexpr int SLOT = (ROWS + OWNS) * CST;
+  static constexpr int X = SLOTS * SLOT;
+  static constexpr int OWN0 = X + NWARPS * 2 * NT * 4 * 32;
+  __host__ __device__ static constexpr int bytes(int Dp) {
+    return (OWN0 + (RES ? 2 * OWN * (Dp + 4) : 0)) * 4;
+  }
+};
+static_assert(Ring<false, true>::bytes(RES_MAX) <= 232448 &&
+                  Ring<true, true>::bytes(RES_MAX) <= 232448 &&
+                  Ring<false, false>::bytes(0) <= 232448 &&
+                  Ring<true, false>::bytes(0) <= 232448,
+              "past a block's shared memory");
+
+bool slice_d(int D) { return D > 512 && D % CH == 0; }
+
+// This lane's ldmatrix rows in dkv (ldsm_x4: tiles at rows 0, 8 and
+// columns 0, 4 of a k-step): row a_row(), column a_col() of an owned
+// tile's A fragment in load_a's order, and the offset b_off() in a step
+// of two B fragments in load_b_t's order, from its rows 0-7 (Q: r[0],
+// r[1]) and 8-15 (dO: r[2], r[3]). In dq they ran 1.5% slower than
+// load_a_at and load_b_t on an H100 (PERF.md §6).
+__device__ __forceinline__ int a_row(int lane) {
+  return (lane & 7) + 8 * ((lane >> 3) & 1);
+}
+__device__ __forceinline__ int a_col(int lane) { return 4 * (lane >> 4); }
+__device__ __forceinline__ int b_off(int lane) {
+  return ((lane & 7) + 8 * (lane >> 4)) * CST + 4 * ((lane >> 3) & 1);
+}
+
+// Every warp's S and dP partials (s, dp) through the exchange x, each
+// summed over the eight parts in part order: the same bits in every warp
+// and every slice. Every warp calls it: it meets them at a barrier.
+template <int NTS>
+__device__ __forceinline__ void sum_parts(float (&s)[NTS][4],
+                                          float (&dp)[NTS][4], float* x,
+                                          int warp, int lane) {
+  constexpr int SL = 2 * NTS * 4;  // a lane's exchange values per warp
+#pragma unroll
+  for (int j = 0; j < NTS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[(warp * SL + 4 * j + e) * 32 + lane] = s[j][e];
+      x[(warp * SL + NTS * 4 + 4 * j + e) * 32 + lane] = dp[j][e];
+    }
+  __syncthreads();  // every partial is in
+#pragma unroll
+  for (int j = 0; j < NTS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sv = x[(4 * j + e) * 32 + lane];
+      float dv = x[(NTS * 4 + 4 * j + e) * 32 + lane];
+#pragma unroll
+      for (int p = 1; p < NWARPS; ++p) {
+        sv += x[(p * SL + 4 * j + e) * 32 + lane];
+        dv += x[(p * SL + NTS * 4 + 4 * j + e) * 32 + lane];
+      }
+      s[j][e] = sv;
+      dp[j][e] = dv;
+    }
+}
+
+}  // namespace bslice
+
+template <bool RES>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dq_tf32x3_slice_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ di,
+                                 const int* __restrict__ lens,
+                                 float* __restrict__ dq, int Tq, int Tk,
+                                 int Dp, int causal, float sm_scale) {
+  using namespace bslice;
+  using L = Ring<false, RES>;
+  constexpr int NT5 = L::NT;
+  extern __shared__ __align__(16) float smem[];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int s0 = blockIdx.z / GROUP * SLICE;  // the slice's first column
+  const int nv = min(SLICE, Dp - s0) / CH;    // its steps
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * GROUP * OWN +
+                 (GROUP - 1 - (int)blockIdx.z % GROUP) * OWN;
+  if (q0 >= Tq) return;  // past the last rows
+  const size_t qoff = (size_t)bh * Tq * Dp;
+  const size_t koff = (size_t)bh * Tk * Dp;
+
+  const int length = max(0, min(lens[bh], Tk));
+  int n_tiles = (length + ROWS - 1) / ROWS;
+  if (causal) {
+    const int last = min(q0 + OWN, Tq);  // exclusive bound on q_pos
+    n_tiles = min(n_tiles, (last + ROWS - 1) / ROWS);
+  }
+  const int NS = Dp / CH;       // steps of Dp
+  const int upt = 2 * NS + nv;  // a tile's: K and V of Dp, K of the slice
+  const int OST = Dp + 4;       // the owned rows' stride (RES)
+  float* own_q = smem + L::OWN0;
+  float* own_do = own_q + OWN * OST;
+
+  // step u of the block: tile u / upt's K (r even) or V (r odd) rows of
+  // Dp's columns r / 2 (with RES false Q's or dO's rows of them), past 2 NS
+  // its K rows of the slice's step r - 2 NS
+  auto issue = [&](int u) {
+    const int i = u / upt, r = u % upt;
+    float* slot = smem + (u % SLOTS) * L::SLOT;
+    if (r < 2 * NS) {
+      load_step<ROWS, CH, CST, NTHREADS>(slot, (r & 1 ? v : k) + koff,
+                                         i * ROWS, Tk, Dp, r / 2 * CH);
+      if (!RES)
+        load_step<OWN, CH, CST, NTHREADS>(slot + ROWS * CST,
+                                          (r & 1 ? dout : q) + qoff, q0, Tq,
+                                          Dp, r / 2 * CH);
+    } else {
+      load_step<ROWS, CH, CST, NTHREADS>(slot, k + koff, i * ROWS, Tk, Dp,
+                                         s0 + (r - 2 * NS) * CH);
+    }
+  };
+  const Pipe<SLOTS, BATCH, decltype(issue)> pipe{issue, n_tiles * upt};
+  if (RES && n_tiles > 0) {  // Q and dO, in the first group
+    load_owned<OWN, NTHREADS>(own_q, q + qoff, q0, Tq, Dp);
+    load_owned<OWN, NTHREADS>(own_do, dout + qoff, q0, Tq, Dp);
+  }
+  pipe.start();
+
+  const int row[2] = {q0 + g, q0 + g + 8};  // this thread's rows
+  float lse_r[2], di_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool in = row[h] < Tq;
+    lse_r[h] = in ? lse[(size_t)bh * Tq + row[h]] : INFINITY;
+    di_r[h] = in ? di[(size_t)bh * Tq + row[h]] : 0.f;
+  }
+  float acc[2 * NVMAX][4];  // the slice's step kv: acc[2 kv], acc[2 kv + 1]
+#pragma unroll
+  for (int n = 0; n < 2 * NVMAX; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const int c0 = warp * 16;  // the warp's columns of each step
+
+  int u = 0;  // the block's next step
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k0 = i * ROWS;
+    // S and dP over this warp's columns, each as two chains (one a k-step
+    // of its 16 columns of a step), summed after
+    float s2[2][NT5][4], dp2[2][NT5][4];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int j = 0; j < NT5; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s2[c][j][e] = dp2[c][j][e] = 0.f;
+    for (int j = 0; j < NS; j += BATCH / 2) {  // K and V steps in pairs
+      const int b = min(BATCH, 2 * (NS - j));
+      pipe.take(u, b);
+#pragma unroll
+      for (int h = 0; h < BATCH / 2; ++h) {
+        if (2 * h >= b) continue;
+        const float* ks = smem + ((u + 2 * h) % SLOTS) * L::SLOT;
+        const float* vs = smem + ((u + 2 * h + 1) % SLOTS) * L::SLOT;
+        const float* qs = RES ? own_q + (j + h) * CH : ks + ROWS * CST;
+        const float* dos = RES ? own_do + (j + h) * CH : vs + ROWS * CST;
+        const int ost = RES ? OST : CST;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const FragA qa = load_a_at(qs, ost, 0, c0 + kk * 8, g, t);
+          const FragA oa = load_a_at(dos, ost, 0, c0 + kk * 8, g, t);
+#pragma unroll
+          for (int jn = 0; jn < NT5; ++jn) {
+            mma3(s2[kk][jn], qa,
+                 load_b_t<CST>(ks, jn * 8, c0 + kk * 8, g, t));
+            mma3(dp2[kk][jn], oa,
+                 load_b_t<CST>(vs, jn * 8, c0 + kk * 8, g, t));
+          }
+        }
+      }
+      u += b;
+    }
+    float s[NT5][4], dp[NT5][4];
+#pragma unroll
+    for (int j = 0; j < NT5; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = s2[0][j][e] + s2[1][j][e];
+        dp[j][e] = dp2[0][j][e] + dp2[1][j][e];
+      }
+    sum_parts(s, dp, smem + L::X, warp, lane);
+#pragma unroll
+    for (int j = 0; j < NT5; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // s becomes dS
+        const int h = e >> 1;
+        const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+        const bool vis = k_pos < length && row[h] < Tq &&
+                         (!causal || row[h] >= k_pos);
+        const float p = vis ? expf(s[j][e] * sm_scale - lse_r[h]) : 0.f;
+        s[j][e] = p * (dp[j][e] - di_r[h]);
+      }
+#pragma unroll
+    for (int kv = 0; kv < NVMAX; kv += BATCH) {  // dq += dS K, step by step
+      if (kv < nv) {
+        const int b = min(BATCH, nv - kv);
+        pipe.take(u, b);
+#pragma unroll
+        for (int h = 0; h < BATCH; ++h)
+          if (h < b)
+            accumulate<CST, 2>(
+                *reinterpret_cast<float(*)[2][4]>(acc[2 * (kv + h)]), s,
+                smem + ((u + h) % SLOTS) * L::SLOT + c0, g, t);
+        u += b;
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  float* dqp = dq + qoff + s0 + c0;
+#pragma unroll
+  for (int n = 0; n < 2 * NVMAX; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (n / 2 < nv && row[h] < Tq)
+        *reinterpret_cast<float2*>(dqp + (size_t)row[h] * Dp + (n / 2) * CH +
+                                   (n % 2) * 8 + 2 * t) =
+            make_float2(acc[n][2 * h] * sm_scale,
+                        acc[n][2 * h + 1] * sm_scale);
+}
+
+template <bool RES>
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_bwd_dkv_tf32x3_slice_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ di,
+                                  const int* __restrict__ lens,
+                                  float* __restrict__ dk,
+                                  float* __restrict__ dv, int Tq, int Tk,
+                                  int Dp, int causal, float sm_scale) {
+  using namespace bslice;
+  using L = Ring<true, RES>;
+  constexpr int BQ5 = ROWS / 2;  // queries a tile
+  extern __shared__ __align__(16) float smem[];
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int s0 = blockIdx.z / GROUP * SLICE;  // the slice's first column
+  const int nv = min(SLICE, Dp - s0) / CH;    // its steps
+  // the low keys, which causal queries see most, first
+  const int k0 = blockIdx.y * GROUP * OWN + (int)blockIdx.z % GROUP * OWN;
+  if (k0 >= Tk) return;  // past the last keys
+  const size_t qoff = (size_t)bh * Tq * Dp;
+  const size_t koff = (size_t)bh * Tk * Dp;
+
+  const int length = max(0, min(lens[bh], Tk));
+  const int n_q_tiles = (Tq + BQ5 - 1) / BQ5;
+  // a block wholly past the length is seen by no query: dk = dv = 0
+  const int first = k0 >= length ? n_q_tiles : (causal ? k0 / BQ5 : 0);
+  const int NS = Dp / CH;   // steps of Dp
+  const int upt = NS + nv;  // a tile's: Q and dO of Dp, of the slice
+  const int OST = Dp + 4;   // the owned rows' stride (RES)
+  float* own_k = smem + L::OWN0;
+  float* own_v = own_k + OWN * OST;
+
+  // step u of the block: Q's and dO's rows of q tile first + u / upt at
+  // Dp's columns r (r < NS; with RES false K's and V's rows of them too)
+  // or at the slice's step r - NS
+  auto issue = [&](int u) {
+    const int qb = first + u / upt, r = u % upt;
+    float* slot = smem + (u % SLOTS) * L::SLOT;
+    const int c = r < NS ? r * CH : s0 + (r - NS) * CH;
+    load_step<BQ5, CH, CST, NTHREADS>(slot, q + qoff, qb * BQ5, Tq, Dp, c);
+    load_step<BQ5, CH, CST, NTHREADS>(slot + BQ5 * CST, dout + qoff,
+                                      qb * BQ5, Tq, Dp, c);
+    if (!RES && r < NS) {
+      load_step<OWN, CH, CST, NTHREADS>(slot + ROWS * CST, k + koff, k0, Tk,
+                                        Dp, c);
+      load_step<OWN, CH, CST, NTHREADS>(slot + (ROWS + OWN) * CST, v + koff,
+                                        k0, Tk, Dp, c);
+    }
+  };
+  const Pipe<SLOTS, BATCH, decltype(issue)> pipe{issue,
+                                                 (n_q_tiles - first) * upt};
+  if (RES && first < n_q_tiles) {  // K and V, in the first group
+    load_owned<OWN, NTHREADS>(own_k, k + koff, k0, Tk, Dp);
+    load_owned<OWN, NTHREADS>(own_v, v + koff, k0, Tk, Dp);
+  }
+  pipe.start();
+
+  const int row[2] = {k0 + g, k0 + g + 8};  // this thread's keys
+  float dk_acc[2 * NVMAX][4], dv_acc[2 * NVMAX][4];
+#pragma unroll
+  for (int n = 0; n < 2 * NVMAX; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const int c0 = warp * 16;  // the warp's columns of each step
+  const int a_off = a_row(lane) * (RES ? OST : CST) + a_col(lane) + c0;
+  const int bo = b_off(lane) + c0;
+
+  int u = 0;
+  for (int qb = first; qb < n_q_tiles; ++qb) {
+    const int q0 = qb * BQ5;
+    // lse and Di of this thread's queries (columns 2t, 2t + 1 of the
+    // tile), read while S^T forms
+    float lse_c[2], di_c[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int q_pos = q0 + 2 * t + e;
+      const bool in = q_pos < Tq;
+      lse_c[e] = in ? lse[(size_t)bh * Tq + q_pos] : INFINITY;
+      di_c[e] = in ? di[(size_t)bh * Tq + q_pos] : 0.f;
+    }
+    // S^T and dP^T over this warp's columns, each as two chains
+    float s2[2][4] = {}, dp2[2][4] = {};
+    for (int j = 0; j < NS; j += BATCH) {
+      const int b = min(BATCH, NS - j);
+      pipe.take(u, b);
+#pragma unroll
+      for (int h = 0; h < BATCH; ++h) {
+        if (h >= b) continue;
+        const float* slot = smem + ((u + h) % SLOTS) * L::SLOT;
+        const float* ks = RES ? own_k + (j + h) * CH : slot + ROWS * CST;
+        const float* vs = RES ? own_v + (j + h) * CH : ks + OWN * CST;
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          uint32_t ka[4], va[4], qo[4];
+          ldsm_x4(ka, ks + a_off + kk * 8);
+          ldsm_x4(va, vs + a_off + kk * 8);
+          ldsm_x4(qo, slot + bo + kk * 8);  // Q's rows, then dO's
+          mma3(s2[kk], frag_a(ka), frag_b(qo[0], qo[1]));
+          mma3(dp2[kk], frag_a(va), frag_b(qo[2], qo[3]));
+        }
+      }
+      u += b;
+    }
+    float p[1][4], ds[1][4];  // S^T, dP^T, then P^T, dS^T
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[0][e] = s2[0][e] + s2[1][e];
+      ds[0][e] = dp2[0][e] + dp2[1][e];
+    }
+    sum_parts(p, ds, smem + L::X, warp, lane);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int q_pos = q0 + 2 * t + (e & 1);
+      const int k_pos = row[e >> 1];
+      const bool vis = k_pos < length && q_pos < Tq &&
+                       (!causal || q_pos >= k_pos);
+      const float pe = vis ? expf(p[0][e] * sm_scale - lse_c[e & 1]) : 0.f;
+      ds[0][e] = pe * (ds[0][e] - di_c[e & 1]);
+      p[0][e] = pe;
+    }
+#pragma unroll
+    for (int kv = 0; kv < NVMAX; kv += BATCH) {  // the slice, step by step
+      if (kv < nv) {
+        const int b = min(BATCH, nv - kv);
+        pipe.take(u, b);
+#pragma unroll
+        for (int h = 0; h < BATCH; ++h)
+          if (h < b) {
+            const float* slot = smem + ((u + h) % SLOTS) * L::SLOT + c0;
+            accumulate<CST, 2>(  // dv += P^T dO
+                *reinterpret_cast<float(*)[2][4]>(dv_acc[2 * (kv + h)]), p,
+                slot + BQ5 * CST, g, t);
+            accumulate<CST, 2>(  // dk += dS^T Q
+                *reinterpret_cast<float(*)[2][4]>(dk_acc[2 * (kv + h)]), ds,
+                slot, g, t);
+          }
+        u += b;
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  float* dkp = dk + koff + s0 + c0;
+  float* dvp = dv + koff + s0 + c0;
+#pragma unroll
+  for (int n = 0; n < 2 * NVMAX; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (n / 2 < nv && row[h] < Tk) {
+        const size_t at =
+            (size_t)row[h] * Dp + (n / 2) * CH + (n % 2) * 8 + 2 * t;
+        *reinterpret_cast<float2*>(dkp + at) = make_float2(
+            dk_acc[n][2 * h] * sm_scale, dk_acc[n][2 * h + 1] * sm_scale);
+        *reinterpret_cast<float2*>(dvp + at) =
+            make_float2(dv_acc[n][2 * h], dv_acc[n][2 * h + 1]);
+      }
+}
+
+template <bool RES>
+cudaError_t launch_dq_slice(const float* q, const float* k, const float* v,
+                            const float* dout, const float* lse,
+                            const float* di, const int* lens, float* dq,
+                            int BH, int Tq, int Tk, int Dp, int causal,
+                            float sm_scale, cudaStream_t stream) {
+  using namespace bslice;
+  const int smem_bytes = Ring<false, RES>::bytes(Dp);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tf32x3_slice_kernel<RES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + GROUP * OWN - 1) / (GROUP * OWN),
+                  GROUP * ((Dp + SLICE - 1) / SLICE));
+  flash_bwd_dq_tf32x3_slice_kernel<RES>
+      <<<grid, NTHREADS, smem_bytes, stream>>>(
+          q, k, v, dout, lse, di, lens, dq, Tq, Tk, Dp, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+template <bool RES>
+cudaError_t launch_dkv_slice(const float* q, const float* k, const float* v,
+                             const float* dout, const float* lse,
+                             const float* di, const int* lens, float* dk,
+                             float* dv, int BH, int Tq, int Tk, int Dp,
+                             int causal, float sm_scale,
+                             cudaStream_t stream) {
+  using namespace bslice;
+  const int smem_bytes = Ring<true, RES>::bytes(Dp);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tf32x3_slice_kernel<RES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tk + GROUP * OWN - 1) / (GROUP * OWN),
+                  GROUP * ((Dp + SLICE - 1) / SLICE));
+  flash_bwd_dkv_tf32x3_slice_kernel<RES>
+      <<<grid, NTHREADS, smem_bytes, stream>>>(
+          q, k, v, dout, lse, di, lens, dk, dv, Tq, Tk, Dp, causal, sm_scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
-// a cudaError_t (0 = launched). D is 64, 128 or a multiple of 64 above 128
-// (the split instances at 192 and 256, the quarter instances at 384 and
-// 512, the wide ones past those).
+// a cudaError_t (0 = launched). D is 64, 128, 192, 256, 384, 512 (the
+// split instances at 192 and 256, the quarter instances at 384 and 512) or
+// a multiple of 128 above 512 (the slice instances).
 extern "C" int paddle_flash_attention_bwd_dq_f32(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* di, const int* lens, float* dq, int BH,
@@ -1242,10 +1745,14 @@ extern "C" int paddle_flash_attention_bwd_dq_f32(
       return (int)launch_dq_quarter<512>(q, k, v, dout, lse, di, lens, dq,
                                          BH, Tq, Tk, causal, sm_scale, s);
     default:
-      if (D > 128 && D % wide::DC == 0)
-        return (int)launch_dq_wide<float>(q, k, v, dout, lse, di, lens, dq,
-                                          BH, Tq, Tk, D, causal, sm_scale, s);
-      return (int)cudaErrorInvalidValue;
+      if (!bslice::slice_d(D)) return (int)cudaErrorInvalidValue;
+      return D <= bslice::RES_MAX
+                 ? (int)launch_dq_slice<true>(q, k, v, dout, lse, di, lens, dq,
+                                              BH, Tq, Tk, D, causal, sm_scale,
+                                              s)
+                 : (int)launch_dq_slice<false>(q, k, v, dout, lse, di, lens,
+                                               dq, BH, Tq, Tk, D, causal,
+                                               sm_scale, s);
   }
 }
 
@@ -1275,11 +1782,14 @@ extern "C" int paddle_flash_attention_bwd_dkv_f32(
       return (int)launch_dkv_quarter<512>(q, k, v, dout, lse, di, lens, dk,
                                           dv, BH, Tq, Tk, causal, sm_scale, s);
     default:
-      if (D > 128 && D % wide::DC == 0)
-        return (int)launch_dkv_wide<float>(q, k, v, dout, lse, di, lens, dk,
-                                           dv, BH, Tq, Tk, D, causal,
-                                           sm_scale, s);
-      return (int)cudaErrorInvalidValue;
+      if (!bslice::slice_d(D)) return (int)cudaErrorInvalidValue;
+      return D <= bslice::RES_MAX
+                 ? (int)launch_dkv_slice<true>(q, k, v, dout, lse, di, lens,
+                                               dk, dv, BH, Tq, Tk, D, causal,
+                                               sm_scale, s)
+                 : (int)launch_dkv_slice<false>(q, k, v, dout, lse, di, lens,
+                                                dk, dv, BH, Tq, Tk, D, causal,
+                                                sm_scale, s);
   }
 }
 
@@ -1299,10 +1809,13 @@ extern "C" int paddle_flash_attention_bwd_smem_bytes(int dkv, int D) {
       return dkv ? qsplit::Smem<384>::DKV_BYTES : qsplit::Smem<384>::DQ_BYTES;
     case 512:
       return dkv ? qsplit::Smem<512>::DKV_BYTES : qsplit::Smem<512>::DQ_BYTES;
-    default:
-      if (D > 128 && D % wide::DC == 0)
-        return dkv ? wide::DKV_BYTES : wide::DQ_BYTES;
-      return -1;
+    default:  // the slice instances past 512
+      if (!bslice::slice_d(D)) return -1;
+      if (D <= bslice::RES_MAX)
+        return dkv ? bslice::Ring<true, true>::bytes(D)
+                   : bslice::Ring<false, true>::bytes(D);
+      return dkv ? bslice::Ring<true, false>::bytes(D)
+                 : bslice::Ring<false, false>::bytes(D);
   }
 }
 

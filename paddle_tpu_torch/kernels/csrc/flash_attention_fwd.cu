@@ -805,7 +805,7 @@ cudaError_t launch_quarter(const float* q, const float* k, const float* v,
 // banks), in the order the block takes them: for each 16-key tile, Dp /
 // 128 K steps, then NV = slice / 128 V steps, each a cp.async group that
 // every thread issues SLOTS - 2 steps ahead; a barrier opens each batch
-// of two steps. The loop over Dp's steps runs at run time, so any Dp
+// of two steps (`Pipe`, mma_tf32x3.cuh). The loop over Dp's steps runs at run time, so any Dp
 // past 512 is taken. Q stays resident at
 // stride Dp + 4 up to SLICE_Q_MAX (132 KB at Dp = 1024); past it each K
 // step also brings Q's 32 rows of its 128 columns (QRES false). Shared
@@ -836,36 +836,6 @@ struct Ring {
 static_assert(Ring<true>::bytes(SLICE_Q_MAX) <= 232448 &&
                   Ring<false>::bytes(0) <= 232448,
               "past a block's shared memory");
-
-// Rows [row0, row0 + ROWS) x columns [c0, c0 + CH) of a [T, Dp] plane into
-// a slot at row stride CST, 16 bytes a copy; rows past T zero-filled.
-template <int ROWS>
-__device__ __forceinline__ void load_step(float* dst,
-                                          const float* __restrict__ src,
-                                          int row0, int T, int Dp, int c0) {
-  static_assert(ROWS * CH / 4 % NTHREADS == 0, "step must split evenly");
-#pragma unroll
-  for (int i = 0; i < ROWS * CH / 4 / NTHREADS; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    const int r = idx / (CH / 4);
-    const int c = (idx % (CH / 4)) * 4;
-    const bool in = row0 + r < T;
-    cp_async16(dst + r * CST + c,
-               src + (in ? (size_t)(row0 + r) * Dp + c0 + c : 0), in);
-  }
-}
-
-// load_a at a row stride `st` known at run time (Q resident at Dp + 4)
-__device__ __forceinline__ FragA load_a_at(const float* s, int st, int r0,
-                                           int c0, int g, int t) {
-  const float* p = s + (r0 + g) * st + c0 + t;
-  FragA f;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[8 * st], f.hi[1], f.lo[1]);
-  split(p[4], f.hi[2], f.lo[2]);
-  split(p[8 * st + 4], f.hi[3], f.lo[3]);
-  return f;
-}
 
 }  // namespace wsplit
 
@@ -913,37 +883,21 @@ __device__ __forceinline__ void fwd_slice(char* smem, const float* q,
     const int i = u / (NS + NV), r = u % (NS + NV);
     float* slot = sm + (u % SLOTS) * L::SLOT;
     if (r < NS) {
-      load_step<BK4>(slot, k + koff, i * BK4, Tk, Dp, r * CH);
+      load_step<BK4, CH, CST, NTHREADS>(slot, k + koff, i * BK4, Tk, Dp,
+                                        r * CH);
       if (!QRES)
-        load_step<BQ4>(slot + L::KV, q + qoff, q0, Tq, Dp, r * CH);
+        load_step<BQ4, CH, CST, NTHREADS>(slot + L::KV, q + qoff, q0, Tq,
+                                          Dp, r * CH);
     } else {
-      load_step<BK4>(slot, v + koff, i * BK4, Tk, Dp, s0 + (r - NS) * CH);
+      load_step<BK4, CH, CST, NTHREADS>(slot, v + koff, i * BK4, Tk, Dp,
+                                        s0 + (r - NS) * CH);
     }
   };
+  // one barrier a batch of two steps
+  const Pipe<SLOTS, 2, decltype(issue)> pipe{issue, n_units};
   if (QRES && n_units > 0)  // Q, in the first group
-    for (int idx = threadIdx.x; idx < BQ4 * Dp / 4; idx += NTHREADS) {
-      const int r = idx / (Dp / 4), c = (idx % (Dp / 4)) * 4;
-      const bool in = q0 + r < Tq;
-      cp_async16(sm + L::Q + r * QST + c,
-                 q + qoff + (in ? (size_t)(q0 + r) * Dp + c : 0), in);
-    }
-  constexpr int LOOK = SLOTS - 2;  // steps in flight ahead of a batch
-#pragma unroll
-  for (int u = 0; u < LOOK; ++u) {
-    if (u < n_units) issue(u);
-    cp_async_commit();
-  }
-  // steps u .. u + b - 1 (b <= 2) have landed for every thread, every warp
-  // is done with the steps before, and b more go into the slots those
-  // left: one barrier a batch of two steps
-  auto take = [&](int u, int b) {
-    cp_async_wait<LOOK - 2>();
-    __syncthreads();
-    for (int y = 0; y < b; ++y) {
-      if (u + LOOK + y < n_units) issue(u + LOOK + y);
-      cp_async_commit();
-    }
-  };
+    load_owned<BQ4, NTHREADS>(sm + L::Q, q + qoff, q0, Tq, Dp);
+  pipe.start();
 
   const int r0 = rt * 16;  // the warp's rows in the q tile
   const int row[2] = {q0 + r0 + g, q0 + r0 + g + 8};  // this thread's rows
@@ -972,7 +926,7 @@ __device__ __forceinline__ void fwd_slice(char* smem, const float* q,
         for (int e = 0; e < 4; ++e) sk[c][j][e] = 0.f;
     for (int j = 0; j < NS; j += 2) {  // S over this warp's columns
       const int b = min(2, NS - j);
-      take(u, b);
+      pipe.take(u, b);
       for (int h = 0; live && h < b; ++h) {
         const float* slot = sm + ((u + h) % SLOTS) * L::SLOT;
         const float* qs = QRES ? sm + L::Q + (j + h) * CH : slot + L::KV;
@@ -1016,7 +970,7 @@ __device__ __forceinline__ void fwd_slice(char* smem, const float* q,
 #pragma unroll
     for (int kv = 0; kv < NV; kv += 2) {  // O += P V, 128 columns a step
       const int b = NV - kv < 2 ? NV - kv : 2;
-      take(u, b);
+      pipe.take(u, b);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         if (live && h < b)

@@ -1,9 +1,12 @@
-// Tiles shared by the flash backward kernels' wide-head-dim instances.
+// Tiles shared by the bf16 flash backward kernels' wide-head-dim
+// instances.
 //
-// Which kernels take them: dq and dkv of either dtype past D = 512. Every
-// kernel at 129 <= D <= 512 runs its tensor-core instance at 192, 256, 384
-// or 512 (flash_attention_{fwd,bwd,bf16}.cu), and the forward past 512
-// its slice instance on the tensor cores.
+// Which kernels take them: bf16 dq and dkv past D = 512
+// (flash_attention_bf16.cu). Every kernel at 129 <= D <= 512 runs its
+// tensor-core instance at 192, 256, 384 or 512
+// (flash_attention_{fwd,bwd,bf16}.cu), and past 512 the forward of either
+// dtype and the f32 dq and dkv run their slice instances on the tensor
+// cores.
 //
 // The 64/128 instances keep a whole Q (or K/V) tile and its output
 // accumulator in shared memory and registers; past D = 128 neither fits
@@ -17,19 +20,17 @@
 //   same order in every slice.
 // The wrapper zero-pads D past 512 to a multiple of 128 (zero columns
 // change no score and give zero output columns). The kernels are
-// templates on the
-// element type T of q, k, v and the gradients: float (the f32
-// instances, flash_attention_bwd.cu) or __nv_bfloat16 (the bf16
-// ones, flash_attention_bf16.cu). Tiles are widened to f32 as they land
-// in shared memory, and products run as f32 FMA on the CUDA cores; in
-// bf16, P and dS are rounded to bf16 before the products that take
-// them, and outputs once as they are stored, the Pallas kernels'
-// rounding. Products: a simple tiling, 256 threads over a 64 x 64 tile
-// of S, each thread 4 rows (ty * 4 + i) by 4 strided columns (tx + 16 j).
-// Output slices are 64 rows x 128 columns, each thread the
-// same 4 rows by 8 strided columns (tx + 16 jj): coalesced stores.
-// No atomics: every output element is summed by one thread in a fixed
-// order, so two launches agree bitwise.
+// templates on the element type T of q, k, v and the gradients,
+// instantiated for __nv_bfloat16 (Elem gives its widening, rounding and
+// store). Tiles are widened to f32 as they land in shared memory, and
+// products run as f32 FMA on the CUDA cores; P and dS are rounded to bf16
+// before the products that take them, and outputs once as they are
+// stored, the Pallas kernels' rounding. Products: a simple tiling, 256
+// threads over a 64 x 64 tile of S, each thread 4 rows (ty * 4 + i) by 4
+// strided columns (tx + 16 j). Output slices are 64 rows x 128 columns,
+// each thread the same 4 rows by 8 strided columns (tx + 16 jj):
+// coalesced stores. No atomics: every output element is summed by one
+// thread in a fixed order, so two launches agree bitwise.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -46,18 +47,10 @@ constexpr int LD = DC + 1;      // chunk row stride: no bank conflicts
 constexpr int CHUNK = BT * LD;  // floats of a chunk tile
 constexpr int SLICE = BT * DS;  // floats of a slice tile
 
-// The element types: VEC of them in 16 bytes, widened to f32 as loaded,
+// The element type: VEC of it in 16 bytes, widened to f32 as loaded,
 // ``round`` an f32 value to the type (and back), ``store`` it.
 template <typename T>
 struct Elem;
-
-template <>
-struct Elem<float> {
-  static constexpr int VEC = 4;
-  static __device__ __forceinline__ float f32(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-};
 
 template <>
 struct Elem<__nv_bfloat16> {

@@ -1,8 +1,8 @@
 // 3xTF32 products on `mma.sync.m16n8k8` fragments, shared by the flash
 // forward and backward kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): cp.async row tiles, the fragment reads of a
-// shared tile, the hi/lo products, and the reuse of an f32 C fragment as
-// an A operand.
+// flash_attention_bwd.cu): cp.async row tiles and the slice instances'
+// ring, the fragment reads of a shared tile, the hi/lo products, and the
+// reuse of an f32 C fragment as an A operand.
 //
 // Fragment layout (PTX ISA, mma.m16n8k8 with .tf32): lane = 4 g + t.
 // A (16 x 8, row-major) holds rows g and g + 8 at columns t and t + 4; B
@@ -35,6 +35,70 @@ __device__ __forceinline__ void load_rows(float* dst,
                in);
   }
 }
+
+// Rows [row0, row0 + ROWS) x columns [c0, c0 + CH) of a [T, Dp] plane into
+// shared memory at row stride CST, 16 bytes a copy over NTHREADS threads;
+// rows past T are zero-filled: a step of the rings of the slice instances
+// past D = 512. Commit the group after.
+template <int ROWS, int CH, int CST, int NTHREADS>
+__device__ __forceinline__ void load_step(float* dst,
+                                          const float* __restrict__ src,
+                                          int row0, int T, int Dp, int c0) {
+  static_assert(ROWS * CH / 4 % NTHREADS == 0, "step must split evenly");
+#pragma unroll
+  for (int i = 0; i < ROWS * CH / 4 / NTHREADS; ++i) {
+    const int idx = threadIdx.x + i * NTHREADS;
+    const int r = idx / (CH / 4);
+    const int c = (idx % (CH / 4)) * 4;
+    const bool in = row0 + r < T;
+    cp_async16(dst + r * CST + c,
+               src + (in ? (size_t)(row0 + r) * Dp + c0 + c : 0), in);
+  }
+}
+
+// Rows [row0, row0 + ROWS) of a [T, Dp] plane into shared memory at row
+// stride Dp + 4 over NTHREADS threads; rows past T are zero-filled: the
+// rows a block of the slice instances keeps resident. Commit the group
+// after.
+template <int ROWS, int NTHREADS>
+__device__ __forceinline__ void load_owned(float* dst,
+                                           const float* __restrict__ src,
+                                           int row0, int T, int Dp) {
+  for (int idx = threadIdx.x; idx < ROWS * Dp / 4; idx += NTHREADS) {
+    const int r = idx / (Dp / 4), c = (idx % (Dp / 4)) * 4;
+    const bool in = row0 + r < T;
+    cp_async16(dst + r * (Dp + 4) + c,
+               src + (in ? (size_t)(row0 + r) * Dp + c : 0), in);
+  }
+}
+
+// The ring of the slice instances over a block's n_units steps (issue(u)
+// copies step u into slot u % SLOTS): start() issues the first LOOK steps,
+// a group each; take(u, b) waits until steps u .. u + b - 1 (b <= BATCH)
+// have landed for every thread and every warp is done with the steps
+// before, then issues b more into the slots those left: one barrier a
+// batch of BATCH steps.
+template <int SLOTS, int BATCH, typename Issue>
+struct Pipe {
+  static constexpr int LOOK = SLOTS - BATCH;  // steps in flight ahead
+  const Issue& issue;
+  int n_units;
+  __device__ __forceinline__ void start() const {
+#pragma unroll
+    for (int u = 0; u < LOOK; ++u) {
+      if (u < n_units) issue(u);
+      cp_async_commit();
+    }
+  }
+  __device__ __forceinline__ void take(int u, int b) const {
+    cp_async_wait<LOOK - BATCH>();
+    __syncthreads();
+    for (int y = 0; y < b; ++y) {
+      if (u + LOOK + y < n_units) issue(u + LOOK + y);
+      cp_async_commit();
+    }
+  }
+};
 
 struct FragA {  // 16 x 8, row-major: rows g, g+8; columns t, t+4
   uint32_t hi[4], lo[4];
@@ -69,6 +133,19 @@ __device__ __forceinline__ FragA load_a(const float* s, int r0, int c0,
   split(p[8 * ST], f.hi[1], f.lo[1]);
   split(p[4], f.hi[2], f.lo[2]);
   split(p[8 * ST + 4], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// load_a at a row stride `st` known at run time (a tile resident at row
+// stride Dp + 4)
+__device__ __forceinline__ FragA load_a_at(const float* s, int st, int r0,
+                                           int c0, int g, int t) {
+  const float* p = s + (r0 + g) * st + c0 + t;
+  FragA f;
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8 * st], f.hi[1], f.lo[1]);
+  split(p[4], f.hi[2], f.lo[2]);
+  split(p[8 * st + 4], f.hi[3], f.lo[3]);
   return f;
 }
 

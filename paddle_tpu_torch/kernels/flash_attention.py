@@ -73,11 +73,18 @@ is cut into slices of up to 512 columns (640 in f32) on the grid's z
 axis, and every block forms S over all of D, split as at 512 (two halves
 of D's 64-column boxes in bf16, four parts of every 128 columns in f32),
 K and V streamed through the ring in boxes of D, Q resident up to D 1024
-and streamed with K past it, so any head dim is taken. dq and dkv past 512
-run their wide instances (``csrc/flash_wide.cuh``): every product over
-D sums 64-column chunks staged through shared memory, and each output's
-D axis is cut into 128-wide slices on the grid's z axis, each block
-recomputing S for its own slice (``_kernel_instance`` says which runs;
+and streamed with K past it, so any head dim is taken. So do the f32 dq
+and dkv (``flash_bwd_dq_tf32x3_slice_kernel``,
+``flash_bwd_dkv_tf32x3_slice_kernel``, 3xTF32 on ``mma.sync``): 16 q
+rows (dkv: 16 keys) a block as 8 parts of every 128 columns of D, the
+outputs in slices of up to 1024 columns on the grid's z axis, every
+block forming S and dP (S^T and dP^T) over all of D with the eight
+partials summed in part order, the owned rows resident up to D 1152 and
+streamed past it. Only the bf16 dq and dkv past 512 run their wide
+instances (``csrc/flash_wide.cuh``): every product over D sums
+64-column chunks staged through shared memory, and each output's D axis
+is cut into 128-wide slices on the grid's z axis, each block recomputing
+S for its own slice (``_kernel_instance`` says which runs;
 ``.dq_wide_launches``, ``.dkv_wide_launches`` count them). Any
 batch*heads is taken (it is the grid's x axis).
 
@@ -94,8 +101,8 @@ the f32 launches, ``flash_attention.bf16_launches``,
 ``flash_backward.dq_bf16_launches`` and
 ``flash_backward.dkv_bf16_launches`` the bf16 ones;
 ``flash_backward.dq_wide_launches`` and
-``flash_backward.dkv_wide_launches`` those of either dtype that ran a
-wide instance.
+``flash_backward.dkv_wide_launches`` those that ran a wide instance
+(bf16 only).
 """
 from __future__ import annotations
 
@@ -328,7 +335,8 @@ _SPLIT_HEAD_DIMS = (384, 512)
 _SLICE_D = 128
 # rows of a q/k tile: the tiles lie on the grid's y axis (limit 65535);
 # past D = 128 every instance owns 64 rows a block, or, the f32 ones at
-# 384 and 512, a pair of 32-row blocks on the grid's z axis
+# 384 and 512 and the f32 forward past 512, a pair of 32-row blocks on the
+# grid's z axis, the f32 dq and dkv past 512 four 16-row blocks
 _TILE_ROWS = 128
 _WIDE_TILE_ROWS = 64
 
@@ -354,13 +362,13 @@ def _kernel_head_dim(D):
 
 # the largest padded head dim of each kernel's tensor-core instances, by
 # dtype: in f32 all three run 192 and 256 as 3xTF32 with D split across
-# the warpgroups, and 384 and 512 with D split four ways across the warps
+# the warpgroups, 384 and 512 with D split four ways across the warps, and
+# past 512 their slice instances, at any head dim
 # (csrc/flash_attention_{fwd,bwd}.cu); in bf16 all three run 192, 256,
-# 384 and 512 on ``wgmma`` (csrc/flash_attention_bf16.cu). Past 512 the
-# forward of either dtype runs its slice instance on the tensor cores, at
-# any head dim; dq and dkv run their wide instances.
+# 384 and 512 on ``wgmma`` (csrc/flash_attention_bf16.cu), and past 512
+# the forward its slice instance, dq and dkv their wide instances.
 _TENSOR_CORE_HEAD_DIM = {
-    torch.float32: {"fwd": math.inf, "dq": 512, "dkv": 512},
+    torch.float32: {"fwd": math.inf, "dq": math.inf, "dkv": math.inf},
     torch.bfloat16: {"fwd": math.inf, "dq": 512, "dkv": 512},
 }
 
@@ -370,8 +378,8 @@ def _kernel_instance(D, dtype, kind):
     or "dkv") that takes head dim D in ``dtype``: D padded as
     ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
     that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
-    CUDA cores) rather than one on the tensor cores: in either dtype, dq
-    and dkv past 512; the forward never."""
+    CUDA cores) rather than one on the tensor cores: the bf16 dq and dkv
+    past 512; no f32 kernel and no forward."""
     kd = _kernel_head_dim(D)
     return kd, kd > _TENSOR_CORE_HEAD_DIM[dtype][kind]
 
@@ -379,7 +387,7 @@ def _kernel_instance(D, dtype, kind):
 def _max_t(D):
     """The longest sequence the grid's y axis holds at head dim D (past
     128 every instance takes 64 rows a y index: one block, or two 32-row
-    blocks on z)."""
+    or four 16-row blocks on z)."""
     rows = _TILE_ROWS if D <= KERNEL_HEAD_DIMS[-1] else _WIDE_TILE_ROWS
     return 65535 * rows
 
@@ -474,7 +482,7 @@ def _count(fn, counter):
 def _count_launch(kind, q):
     """One more launch of kernel ``kind`` ("fwd", "dq" or "dkv") on its
     dtype's counter and, where its instance at q's (padded) head dim is a
-    wide one (dq and dkv past 512), on
+    wide one (bf16 dq and dkv past 512), on
     ``flash_backward.<kind>_wide_launches``."""
     fn, prefix = ((flash_attention, "") if kind == "fwd"
                   else (flash_backward, f"{kind}_"))

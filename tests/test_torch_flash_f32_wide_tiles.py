@@ -19,11 +19,12 @@ emulates it); all three run their quarter instances at 384 and 512
 (``tests/test_torch_flash_f32_d512_tiles.py``, and for dkv
 ``tests/test_torch_flash_f32_dkv_d512_tiles.py``); past 512 the forward
 runs its slice instance (``tests/test_torch_flash_fwd_past512_tiles.py``)
-and dq and dkv the wide ones (``tests/test_torch_flash_wide_head.py``).
-Then the route: the
+and so do dq and dkv (``tests/test_torch_flash_f32_bwd_past512_tiles.py``):
+past 512 only the bf16 dq and dkv run the wide route
+(``tests/test_torch_flash_wide_head.py``). Then the route: the
 instance each f32 kernel takes, and the launch wiring with the kernel
 entries swapped for their plain versions (padded D handed over, outputs
-sliced back, the f32 and wide launch counters).
+sliced back, the f32 and wide launch counters: no f32 wide launch).
 """
 import math
 import re
@@ -236,14 +237,14 @@ F32 = torch.float32
     (128, "dkv", (128, False)), (512, "fwd", (512, False)),
     (448, "dq", (512, False)), (320, "dkv", (384, False)),
     (512, "dkv", (512, False)), (576, "fwd", (640, False)),
-    (576, "dq", (640, True)), (576, "dkv", (640, True)),
+    (576, "dq", (640, False)), (576, "dkv", (640, False)),
 ])
 def test_f32_kernel_instance(D, kind, instance):
     """f32's forward, dq and dkv take the tensor-core instances at a
     padded 192 and 256, and past 256 (a head dim in 257-512 padded to 384
     or 512, as in bf16) their quarter instances on the tensor cores; past
-    512 (padded to a multiple of 128) the forward its slice instance on
-    the tensor cores, dq and dkv the wide ones."""
+    512 (padded to a multiple of 128) their slice instances on the tensor
+    cores: no f32 kernel runs wide."""
     assert tfa._kernel_instance(D, F32, kind) == instance
 
 
@@ -290,17 +291,18 @@ class _PlainKernels:
                 tfa.flash_backward.dkv_wide_launches)
 
 
-# the D320 case keeps the id it was written with, when D320 padded to 320
+# the D320 and D576 cases keep the ids they were written with, when D320
+# padded to 320 and D576 ran the wide dq and dkv
 @pytest.mark.parametrize("D,padded,wide", [
     (160, 192, (0, 0)), (256, 256, (0, 0)),
     pytest.param(320, 384, (0, 0), id="320-320-wide2"),
-    (512, 512, (0, 0)), pytest.param(576, 640, (1, 1), id="576-576-wide4")])
+    (512, 512, (0, 0)), pytest.param(576, 640, (0, 0), id="576-576-wide4")])
 def test_f32_route_pads_counts_and_slices_back(D, padded, wide,
                                                monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each f32
     kernel the head dim padded to its instance, count one launch of each
-    and the wide ones apart (none up to 512, dq and dkv past it), and
-    give back the unpadded plain version's results (sm_scale from the
+    and no wide one (past 512 too: dq and dkv run their slice instances),
+    and give back the unpadded plain version's results (sm_scale from the
     true D)."""
     rng = np.random.RandomState(D)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(np.float32))

@@ -353,9 +353,9 @@ def test_forward_past_512_pads_counts_and_slices_back(D, padded, dtype,
                                                       monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each kernel
     the head dim padded to a multiple of 128, count one launch of each on
-    the dtype's counters and a wide one of dq and dkv only (the forward
-    has no wide instance left), and give back the plain version's results
-    on the zero-padded inputs, sliced back."""
+    the dtype's counters and a wide one of dq and dkv in bf16 only (the
+    forward has no wide instance left, nor f32 dq and dkv), and give back
+    the plain version's results on the zero-padded inputs, sliced back."""
     rng = np.random.RandomState(D)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(
         np.float32)).to(dtype) for _ in range(4))
@@ -372,7 +372,8 @@ def test_forward_past_512_pads_counts_and_slices_back(D, padded, dtype,
     grads = tfa.flash_backward(q, k, v, o, lse, g, lens, True)
     assert kernels.head_dims == [("fwd", padded), ("dq", padded),
                                  ("dkv", padded)]
-    assert kernels.counts() == (1, 1, 1, 1, 1)
+    wide = int(dtype == BF16)
+    assert kernels.counts() == (1, 1, 1, wide, wide)
     assert not hasattr(tfa.flash_attention, "wide_launches")
     torch.testing.assert_close(o, o_want[..., :D], atol=0, rtol=0)
     torch.testing.assert_close(lse, lse_want, atol=0, rtol=0)
@@ -384,13 +385,14 @@ def test_forward_past_512_pads_counts_and_slices_back(D, padded, dtype,
 @pytest.mark.parametrize("D", [513, 576, 640, 1000, 1024, 1025, 2048, 4096])
 def test_forward_never_runs_wide(D):
     """Past 512 the forward of either dtype runs its slice instance at D
-    padded to a multiple of 128 (dq and dkv their wide ones), and the
-    grid's y axis holds 65535 blocks of 64 q rows (bf16; f32: pairs of
-    32-row blocks, the pair's halves and the slices on z)."""
+    padded to a multiple of 128 (dq and dkv their slice instances in f32,
+    their wide ones in bf16), and the grid's y axis holds 65535 blocks of
+    64 q rows (bf16; f32: pairs of 32-row blocks, the pair's halves and
+    the slices on z)."""
     kd = -(-D // 128) * 128
     for dtype in (F32, BF16):
         assert tfa._kernel_instance(D, dtype, "fwd") == (kd, False)
-        assert tfa._kernel_instance(D, dtype, "dq") == (kd, True)
+        assert tfa._kernel_instance(D, dtype, "dq") == (kd, dtype == BF16)
     assert tfa._max_t(kd) == 65535 * BF16_ROWS == 65535 * 2 * F32_ROWS
 
 

@@ -3,9 +3,11 @@ instances.
 
 On a CUDA tensor a head dim D > 128 is zero-padded to a multiple of 64,
 one in 257-512 to 384 or 512, and one past 512 to a multiple of 128.
-Past 512 dq and dkv of either dtype run the wide instances
-(``csrc/flash_wide.cuh``): every product that sums over D (S = QK^T,
-dP = dO V^T) accumulates 64-column chunks, and each output's D axis is
+Past 512 only the bf16 dq and dkv run the wide instances
+(``csrc/flash_wide.cuh``; the f32 ones run their 3xTF32 slice instances,
+``tests/test_torch_flash_f32_bwd_past512_tiles.py``): every product that
+sums over D (S = QK^T, dP = dO V^T) accumulates 64-column chunks, and
+each output's D axis is
 cut into 128-wide slices on the grid's z axis, each block recomputing S
 for its own slice. Here that decomposition is emulated on the CPU (64-row
 tiles, chunk sums in order, the dkv loop starting at the causal bound)
