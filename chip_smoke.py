@@ -15,6 +15,7 @@
     python3 chip_smoke.py --per-layer-only  # phases 1, 2 and 12 only
     python3 chip_smoke.py --bf16-flash-only # phases 1, 2 and 12a only
     python3 chip_smoke.py --per-layer-d512-only  # phases 1, 2 and 12e only
+    python3 chip_smoke.py --per-layer-d1024-only  # phases 1, 2 and 12f only
     python3 chip_smoke.py --bf16-wide-times # phases 1, 2 and 12a's wide-head times
     python3 chip_smoke.py --lstm-only       # phases 1, 2 and 13 only
     python3 chip_smoke.py --zoo-only        # phases 1, 2 and 14 only
@@ -46,7 +47,7 @@ Phases, each fatal on failure (nonzero exit, no result line):
    forward's registers, spills (none allowed), shared memory and
    tensor-core opcodes (SASS: HGMMA and HMMA in the instances at 192 and
    256, HMMA in those at 384 and 512 and in the slice instances; no wide
-   forward left in either library), then times it at the serving,
+   instance left in any flash library), then times it at the serving,
    training, both D256, both D512, the D576 and the D1024 shapes in turns
    with ``F.scaled_dot_product_attention``'s f32 forward (its backend
    pinned and recorded: kernel, library, library, kernel), with profiler
@@ -103,8 +104,8 @@ Phases, each fatal on failure (nonzero exit, no result line):
    8192 (transformer_wide's width with 8 heads of 256, as 12d), the same
    batch and optimizer. In f32: step 1 with the kernels against the plain
    path (loss and every gradient, as phase 6), 8 launches a step of the
-   flash forward, dq and dkv on their D256 tensor-core instances and none
-   on the wide ones, falling losses, step ms,
+   flash forward, dq and dkv on their D256 tensor-core instances,
+   falling losses, step ms,
    tokens/s, the share of the f32 peak, peak memory and device time by
    kernel (``chiprun_out/stacked_d256_f32_profile.txt``). Built again
    under AMP with the same names from the same startup state: step-1 loss
@@ -115,19 +116,19 @@ Phases, each fatal on failure (nonzero exit, no result line):
    through ``GenerationEngine(kv_cache="dense")`` and ``Server``: 8
    requests of 700-1024 prompt tokens, 32 new tokens each; every result
    checked, the prefill's attention on the forward's D256 instance
-   (launches == layers x prefills, none wide), request 0's tokens equal to
+   (launches == layers x prefills), request 0's tokens equal to
    the plain path's on the card.
 6c. The stacked LM at head dim 512: 6b with 4 heads of 512 (d2048 L8 H4
    d_ff 8192, as 12e), nothing cut, the same gates in f32 and under AMP;
    8 launches a step of the f32 flash forward, dq and dkv on their D512
-   quarter instances (none wide), the same prints
+   quarter instances, the same prints
    (``stacked_d512_{f32,amp}_profile.txt``), then the same width
    served densely as in 6b (the prefill's attention on the forward's
    D512 quarter instance at ragged lengths).
 6d. The stacked LM at head dim 1024: 6c with 2 heads of 1024 (d2048 L8
    H2 d_ff 8192), nothing cut, the same gates in f32 and under AMP; 8
    launches a step of the f32 flash forward, dq and dkv on their slice
-   instances (none wide), the same prints
+   instances, the same prints
    (``stacked_d1024_{f32,amp}_profile.txt``), then the same width served
    densely as in 6b (every prefill's attention one launch a layer of the
    forward's slice instance).
@@ -214,20 +215,21 @@ Phases, each fatal on failure (nonzero exit, no result line):
     ragged D256, B8 H8 T2048 D256 causal; past 256 D384 causal with a
     fully masked row, a non-causal ragged D512 and B8 H4 T2048 D512
     causal (all three on their split wgmma instances at 384 and 512) and
-    phase 3's cases past 512 (the forward on its slice instance, dq and
-    dkv on the wide ones): each of
+    phase 3's cases past 512 and D1200 (all three on their slice wgmma
+    instances, dq's and dkv's with Q or K resident up to D1024 and
+    streamed past it): each of
     o, dq, dk, dv at most 2x as far from the f32 plain version on the same
     bf16 values as the bf16 plain version is, plus one bf16 ulp of the
     largest |value|, and its error's Frobenius norm at most 1.5x the bf16
     plain version's; a stale K/V stage planted in the plain version at
     the training shape must be refused; lse within 1e-4 of the plain
     version's; two launches at the training shape, at B8 H8 T2048
-    D256, at B8 H4 T2048 D512 and at D384 bitwise equal, and of the
-    forward at B2 H4 T1000 D576 and B8 H2 T2048 D1024; registers,
+    D256, at B8 H4 T2048 D512, at D384, at B2 H4 T1000 D576 and at B8 H2
+    T2048 D1024 bitwise equal; registers,
     spills (none allowed) and shared memory; in SASS every wgmma instance
-    (all three at 64, 128, 192, 256, 384 and 512, the forward's slice
+    (all three at 64, 128, 192, 256, 384 and 512, and their slice
     instances) runs HGMMA fed by UTMALDG (TMA) and no HMMA, and no wide
-    forward is left; timed at B8 H8
+    instance is left in any flash library; timed at B8 H8
     T2048 D128 beside the plain versions, the bound at the bf16
     tensor-core rate (TFLOP/s and share of it), the times of the mma.sync
     kernels they replaced and bf16 SDPA (forward; backward for the pair,
@@ -236,9 +238,10 @@ Phases, each fatal on failure (nonzero exit, no result line):
     bf16 SDPA and the times of the wide f32-FMA instances that they
     ran there before, and the same past 256 (B2 H4 T1000 D384 and D512,
     B8 H4 T2048 D512, causal) beside SDPA's memory-efficient backend, and
-    at B2 H4 T1000 D576 and B8 H2 T2048 D1024 (the forward's slice
-    instance, the wide dq and dkv) (``--bf16-wide-times`` times just
-    these), the forward there also in turns with bf16 SDPA;
+    at B2 H4 T1000 D576 and B8 H2 T2048 D1024 (the slice instances)
+    beside the times of the wide FMA dq and dkv they replaced
+    (``--bf16-wide-times`` times just these), the forward there also in
+    turns with bf16 SDPA;
     (b) bench.py's ``transformer`` (d1024 L8 H8 d_ff 4096 V16384, 8 x 2048
     tokens, Adam 1e-4) in f32: step 1 with the kernels against the plain
     path (loss and every gradient within 1e-4), 8 f32 launches of each
@@ -255,16 +258,20 @@ Phases, each fatal on failure (nonzero exit, no result line):
     ``transformer_wide`` (d2048 L8 H16 d_ff 8192) under AMP, the same
     gates (its f32 build runs step 1 only); (d) the same width with 8
     heads of 256 (d2048 L8 H8 d_ff 8192), the same gates, its 8
-    launches a step of each flash kernel on their D256 wgmma instances
-    and none on the wide ones, printed beside (c), the same FLOPs at
+    launches a step of each flash kernel on their D256 wgmma instances,
+    printed beside (c), the same FLOPs at
     head dim 128; (e) the same width with 4 heads of 512 (d2048 L8 H4
     d_ff 8192), the same gates, 8 launches a step of each flash kernel
-    on its D512 wgmma instance and none on the wide ones (dkv as two
+    on its D512 wgmma instance (dkv as two
     halves, dK and dV, on the grid's z axis), its f32 build's step 1
-    with the f32 forward, dq and dkv on their D512 quarter instances
-    (none wide), printed with step ms, tokens/s and a profiled
+    with the f32 forward, dq and dkv on their D512 quarter instances,
+    printed with step ms, tokens/s and a profiled
     step's device time by kernel (``--per-layer-d512-only`` runs just
-    (e)).
+    (e)); (f) the same width with 2 heads of 1024 (d2048 L8 H2 d_ff
+    8192), the same gates and prints, 8 launches a step of each bf16
+    flash kernel on its slice instance, its f32 build's step 1 on the
+    f32 slice trio (``--per-layer-d1024-only`` runs just (f)); each
+    part's wall seconds printed.
 
 13. The reference benchmark's recurrent rows and its decode row, each
     part fatal on failure: bench.py's ``lstm`` (2 x LSTM text
@@ -528,9 +535,23 @@ WIDE_CASES = [
     WIDE_D512,
     D512_TRAIN,
 ] + SLICE_CASES + BWD_STREAMED_CASES
-# a head dim of the bf16 wide instances, to look up their shared memory
-# (the same at every D)
-WIDE_D = 576
+# a padded head dim each bf16 dq and dkv slice instance takes (<1>: Q or
+# K resident up to Dp 1024, <0>: streamed past it), to look up its shared
+# memory
+BF16_BWD_SLICE_DP = {1: 1024, 0: 1280}
+
+
+def _bf16_smem(name, args):
+    """Dynamic shared memory of the bf16 flash instance ``name<args>`` at
+    a head dim it takes."""
+    from paddle_tpu_torch.kernels import build
+
+    lib = build.load("flash_attention_bf16")
+    fwd = "fwd" in name
+    D = ((SLICE_DP if fwd else BF16_BWD_SLICE_DP)[args[0]]
+         if "slice" in name else args[0])
+    return lib.paddle_flash_attention_bf16_smem_bytes(
+        0 if fwd else 1 if "dq" in name else 2, D)
 # the f32 instances at 192 and 256 on the tensor cores: in SASS, HMMA
 # (P V, dS K, dS^T Q, P^T dO and the backward's S, dP on mma.sync) and,
 # for the forward, HGMMA (S on wgmma)
@@ -657,7 +678,7 @@ def kernel_phase(gpu_name):
     assert not any(u.get("spill_store_bytes") or u.get("spill_load_bytes")
                    for u in usage.values()), f"the forward spills: {usage}"
     sass = _sass_counts("flash_attention_fwd", "flash_fwd")
-    _assert_no_wide_forward()
+    _assert_no_wide_route()
     for key, counts in sass.items():
         assert counts["HMMA"] + counts["HGMMA"] > 0, (
             f"{key} runs no product on the tensor cores: {counts}")
@@ -703,22 +724,24 @@ def kernel_phase(gpu_name):
     }
 
 
-def _assert_no_wide_forward():
-    """No wide forward instance is left in the flash libraries' binaries:
-    past head dim 512 the forward of either dtype has only its slice
-    instance on the tensor cores, so no path can launch a wide one."""
-    for lib in ("flash_attention_fwd", "flash_attention_bf16"):
-        left = _sass_counts(lib, "flash_fwd_wide")
-        assert not left, f"{lib} still holds a wide forward: {sorted(left)}"
-    print("flash forward: no wide instance in flash_attention_fwd or "
-          "flash_attention_bf16 (SASS)")
+def _assert_no_wide_route():
+    """No wide (f32 FMA) instance is left in the flash libraries'
+    binaries: past head dim 512 the forward, dq and dkv of either dtype
+    have only their slice instances on the tensor cores, so no path can
+    launch a wide one."""
+    libs = ("flash_attention_fwd", "flash_attention_bwd",
+            "flash_attention_bf16")
+    for lib in libs:
+        left = _sass_counts(lib, "_wide")
+        assert not left, f"{lib} still holds a wide instance: {sorted(left)}"
+    print(f"flash kernels: no wide instance in {', '.join(libs)} (SASS)")
 
 
 def slice_record(rec, dtype, launches):
     """The forward's slice instance past head dim 512 (``dtype`` "f32":
     phase 3's record ``rec``, on phase 6d's main path with ``launches``
-    a step; "bf16": phase 12a's, on no main path), timed at D1024_TRAIN
-    in turns with SDPA."""
+    a step; "bf16": phase 12a's, on 12f's main path, which sets its
+    launches), timed at D1024_TRAIN in turns with SDPA."""
     return {"name": "flash_attention_fwd_slice" + (
                 "" if dtype == "f32" else "_bf16"),
             "route": "cuda",
@@ -1407,7 +1430,6 @@ def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
         bound_ms, bound_by, bound_simt = _bound(flops, nbytes, gpu_name)
         was = F32_WIDE_PREVIOUS_MS.get((B, H, T, D, causal, lengths),
                                        (None,) * 3)[1 + i]
-        wide = fa._kernel_instance(D, torch.float32, name)[1]
         out[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "bound_ms_simt": bound_simt,
@@ -1415,12 +1437,12 @@ def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
                      "library": f"sdpa backward, {backend}",
                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
                      "tflop_per_s": flops / ms / 1e9,
-                     "bound_share": bound_ms / ms, "wide": wide,
+                     "bound_share": bound_ms / ms,
                      "previous_ms": was, "turns_ms": turns[name],
                      "pair_turns_ms": turns["pair"],
                      "library_turns_ms": lib_turns}
-        print(f"flash_attention_bwd_{name} ({'wide' if wide else 'tensor cores'})"
-              f" {shape}: two launches bitwise equal; {ms:.3f} ms"
+        print(f"flash_attention_bwd_{name} (tensor cores) {shape}: two "
+              f"launches bitwise equal; {ms:.3f} ms"
               f" (in turns {[round(x, 4) for x in turns[name]]})"
               f", {flops / ms / 1e9:.1f} TFLOP/s, "
               f"{bound_ms / ms * 100:.1f}% of the bound {bound_ms:.4f} ms "
@@ -1436,9 +1458,9 @@ def _time_wide_backward(F, fa, randn, gpu_name, B, H, T, D, causal, lengths):
 
 
 def _f32_wide_times(gpu_name):
-    """The f32 forward, dq and dkv at WIDE_TIMED and D256_TRAIN, at
-    WIDE_D512 and D512_TRAIN (the tensor-core instances), and at WIDE_D576
-    and D1024_TRAIN (the forward's slice instance, the wide dq and dkv),
+    """The f32 forward, dq and dkv at WIDE_TIMED and D256_TRAIN (the split
+    instances), at WIDE_D384, WIDE_D512 and D512_TRAIN (the quarter
+    instances), and at WIDE_D576 and D1024_TRAIN (the slice instances),
     each timed with CUDA events beside its plain version, its
     bound (3xTF32 rate) and f32 SDPA's fastest backend (the forward; the backward for dq and dkv
     together); no checks. Only the flash wrappers' public entry points
@@ -1451,8 +1473,9 @@ def _f32_wide_times(gpu_name):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     out = {}
-    for B, H, T, D, causal, lengths in (WIDE_TIMED, D256_TRAIN, WIDE_D512,
-                                        D512_TRAIN, WIDE_D576, D1024_TRAIN):
+    for B, H, T, D, causal, lengths in (WIDE_TIMED, D256_TRAIN, WIDE_D384,
+                                        WIDE_D512, D512_TRAIN, WIDE_D576,
+                                        D1024_TRAIN):
         q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
                        for _ in range(4))
         o, lse = fa.flash_forward(q, k, v, None, causal)
@@ -1555,20 +1578,17 @@ def _kernel_usage(lib_name, dynamic_smem, match):
 
 
 def _slice_kernel_usage():
-    """Registers, spills and shared memory of the forward's slice
-    instances past head dim 512, both dtypes (none on a commit before
-    them)."""
+    """Registers, spills and shared memory of the slice instances past
+    head dim 512: the f32 forward's and the bf16 forward's, dq's and
+    dkv's (none on a commit before them)."""
     from paddle_tpu_torch.kernels import build
 
     fwd = build.load("flash_attention_fwd")
-    bf16 = build.load("flash_attention_bf16")
     return {
         **_kernel_usage("flash_attention_fwd", lambda name, args:
                         fwd.paddle_flash_attention_fwd_smem_bytes(
                             SLICE_DP[args[0]]), match="slice"),
-        **_kernel_usage("flash_attention_bf16", lambda name, args:
-                        bf16.paddle_flash_attention_bf16_smem_bytes(
-                            0, SLICE_DP[args[0]]), match="slice")}
+        **_kernel_usage("flash_attention_bf16", _bf16_smem, match="slice")}
 
 
 def _backward_kernel_usage():
@@ -1778,14 +1798,10 @@ def _reset_launch_counts(fa):
 
 
 def _flash_counts(fa):
-    """(f32 fwd, dq, dkv launches, bf16 fwd, dq, dkv launches, and the dq,
-    dkv launches of either dtype on the wide instances: the forward has
-    none left)."""
+    """(f32 fwd, dq, dkv launches, bf16 fwd, dq, dkv launches)."""
     return _launch_counts(fa) + (fa.flash_attention.bf16_launches,
                                  fa.flash_backward.dq_bf16_launches,
-                                 fa.flash_backward.dkv_bf16_launches,
-                                 fa.flash_backward.dq_wide_launches,
-                                 fa.flash_backward.dkv_wide_launches)
+                                 fa.flash_backward.dkv_bf16_launches)
 
 
 def _reset_flash_counts(fa):
@@ -1793,8 +1809,6 @@ def _reset_flash_counts(fa):
     fa.flash_attention.bf16_launches = 0
     fa.flash_backward.dq_bf16_launches = 0
     fa.flash_backward.dkv_bf16_launches = 0
-    fa.flash_backward.dq_wide_launches = 0
-    fa.flash_backward.dkv_wide_launches = 0
 
 
 def _snapshot(scope):
@@ -1935,7 +1949,7 @@ def training_phase(records, gpu_name):
     losses, step_s, counts, peak_mem, profile = _timed_steps(
         exe, main, feed, loss, scope, fa, "train_profile.txt",
         ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
-    assert counts == (7 * L,) * 3 + (0,) * 5, counts
+    assert counts == (7 * L,) * 3 + (0,) * 3, counts
     launches = counts[:3]
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
@@ -2002,8 +2016,6 @@ STACKED_D1024_GROUPS = ("flash_fwd_tf32x3_slice",
                         "flash_bwd_dq_tf32x3_slice",
                         "flash_bwd_dkv_tf32x3_slice",
                         "flash_", "nvjet", "gemm", "elementwise", "reduce")
-# the flash kernels that have wide instances past head dim 512 (bf16's)
-WIDE_KINDS = ("dq", "dkv")
 
 
 def _stacked_tag(c):
@@ -2013,22 +2025,18 @@ def _stacked_tag(c):
 def _stacked_timed(exe, main, feed, loss, scope, fa, tag, c, peak, groups):
     """The main path of phase 6b, 6c or 6d in one precision: 1 warm + 6 timed
     steps (counts to 0 before, read after: 8 launches a step of each f32
-    flash kernel, on the wide instances those that ``_kernel_instance``
-    routes there at c's head dim, no bf16 launch), falling losses; step
+    flash kernel, no bf16 launch), falling losses; step
     ms, tokens/s, the share of ``peak``, peak memory and device ms by
     kernel ``groups`` (the trio first;
     ``chiprun_out/stacked_d<head dim>_<tag>_profile.txt``)."""
     import numpy as np
-    import torch
 
     L, tokens = c["n_layers"], c["batch"] * c["seq"]
     hd = c["d_model"] // c["num_heads"]
-    wide = tuple(7 * L * fa._kernel_instance(hd, torch.float32, kind)[1]
-                 for kind in WIDE_KINDS)
     losses, step_s, counts, peak_mem, profile = _timed_steps(
         exe, main, feed, loss, scope, fa, f"stacked_d{hd}_{tag}_profile.txt",
         groups)
-    assert counts == (7 * L,) * 3 + (0,) * 3 + wide, counts
+    assert counts == (7 * L,) * 3 + (0,) * 3, counts
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
                                     c["vocab"], c["d_ff"])
@@ -2041,8 +2049,7 @@ def _stacked_timed(exe, main, feed, loss, scope, fa, tag, c, peak, groups):
           f"{flops / med / peak * 100:.1f}% of the "
           f"{'f32' if tag == 'f32' else 'bf16'} peak, peak memory "
           f"{peak_mem / 2**30:.2f} GiB; f32 flash launches per step "
-          f"fwd/dq/dkv {launches} (dq/dkv {[n // 7 for n in counts[6:]]} on "
-          f"the wide instances); device "
+          f"fwd/dq/dkv {launches}; device "
           + (f"{profile['device_ms']:.1f} ms: " + ", ".join(
               f"{g} {profile['kernels_ms'][g]:.2f} ms "
               f"({profile['launches'][g]} launches)"
@@ -2052,7 +2059,6 @@ def _stacked_timed(exe, main, feed, loss, scope, fa, tag, c, peak, groups):
             "step_ms_median": med * 1e3, "tokens_per_s": tokens / med,
             "tflop_per_step": flops / 1e12, "peak_share": flops / med / peak,
             "peak_mem_bytes": peak_mem, "launches_per_step": launches,
-            "wide_launches_per_step": [n // 7 for n in counts[6:]],
             "profile": profile}
 
 
@@ -2065,30 +2071,16 @@ def stacked_d256_phase(gpu_name):
 def stacked_d512_phase(gpu_name):
     """Phase 6c: the stacked LM at d2048 L8 H4 (head dim 512)
     (stacked_phase): a step in either precision launches the f32 flash
-    forward, dq and dkv 8 times each on their D512 quarter instances and
-    none on the wide ones."""
-    return _stacked_on_tensor_cores(gpu_name, STACKED_D512,
-                                    STACKED_D512_GROUPS)
+    forward, dq and dkv 8 times each on their D512 quarter instances."""
+    return stacked_phase(gpu_name, STACKED_D512, STACKED_D512_GROUPS)
 
 
 def stacked_d1024_phase(gpu_name):
     """Phase 6d: the stacked LM at d2048 L8 H2 (head dim 1024)
     (stacked_phase): a step in either precision launches the f32 flash
-    forward, dq and dkv 8 times each on their slice instances and none on
-    a wide one; each prefill of its serving half one forward a layer."""
-    return _stacked_on_tensor_cores(gpu_name, STACKED_D1024,
-                                    STACKED_D1024_GROUPS)
-
-
-def _stacked_on_tensor_cores(gpu_name, c, groups):
-    """stacked_phase at ``c``, every f32 flash launch of a step in either
-    precision on a tensor-core instance: L of each kernel, none wide."""
-    out = stacked_phase(gpu_name, c, groups)
-    L = c["n_layers"]
-    for tag in ("f32", "amp"):
-        assert out[tag]["launches_per_step"] == [L] * 3, out[tag]
-        assert out[tag]["wide_launches_per_step"] == [0, 0], out[tag]
-    return out
+    forward, dq and dkv 8 times each on their slice instances; each
+    prefill of its serving half one forward a layer."""
+    return stacked_phase(gpu_name, STACKED_D1024, STACKED_D1024_GROUPS)
 
 
 def stacked_phase(gpu_name, c, groups):
@@ -2186,10 +2178,6 @@ def stacked_records(kern, bwd, stacked, hd):
     path runs, all three on the tensor cores, each timed at D256_TRAIN,
     D512_TRAIN or D1024_TRAIN (phases 3 and 5) with its launches a step in
     the phase's f32 run."""
-    import torch
-
-    from paddle_tpu_torch.kernels import flash_attention as fa
-
     launches = stacked["f32"]["launches_per_step"]
     shape, err = f"d{hd}_train_shape", f"max_abs_err_d{hd}"
     rows = (("fwd", "flash_attention_fwd", "flash_attention_fwd.cu", 229,
@@ -2202,12 +2190,9 @@ def stacked_records(kern, bwd, stacked, hd):
     for (kind, name, source, line, rec), n in zip(rows, launches):
         if hd > 512 and kind == "fwd":
             continue
-        wide = fa._kernel_instance(hd, torch.float32, kind)[1]
         out.append({
-            "name": f"{name}_d{hd}" + ("_wide" if wide else ""),
-            "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/"
-                      + ("flash_wide.cuh" if wide else source),
+            "name": f"{name}_d{hd}", "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{source}",
             "replaces": f"paddle_tpu/kernels/flash_attention.py:{line}",
             "launches": n, "max_abs_err": rec[err], **rec[shape]})
     return out
@@ -2219,8 +2204,8 @@ def stacked_serving(c):
     ``GenerationEngine(kv_cache="dense")`` and ``Server``: every result
     checked, zero dispatch errors, each prefill's attention on the f32
     forward's tensor-core instance at c's head dim (launches == layers x
-    prefills, none wide), request 0's tokens equal to the plain path's on
-    the card."""
+    prefills), request 0's tokens equal to the plain path's on the
+    card."""
     import numpy as np
     import torch
 
@@ -2263,7 +2248,7 @@ def stacked_serving(c):
     assert counters.get("dispatch_errors", 0) == 0, counters
     assert counters["completed"] == n_req, counters
     launches = spec.n_layers * prefills
-    assert prefills > 0 and counts == (launches,) + (0,) * 7, (counts,
+    assert prefills > 0 and counts == (launches,) + (0,) * 5, (counts,
                                                                 prefills)
 
     # request 0 against the plain path (greedy: the tokens must be equal)
@@ -3796,7 +3781,7 @@ def lm_amp_phase(gpu_name):
     print(f"training AMP: step-1 loss {l1:.6f}, the same step in f32 "
           f"{l32:.6f} (rel {abs(l1 - l32) / abs(l32):.3e}, tol {AMP_RTOL})")
     assert np.isfinite(l1) and abs(l1 - l32) <= AMP_RTOL * abs(l32), (l1, l32)
-    assert counts == (7 * L,) * 3 + (0,) * 5, counts
+    assert counts == (7 * L,) * 3 + (0,) * 3, counts
     assert set(dtypes.values()) == {"torch.float32"}, dtypes
     med = float(np.median(step_s[1:]))
     flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"], L,
@@ -3880,13 +3865,18 @@ PER_LAYER_D256 = dict(TRAIN, d_model=2048, num_heads=8, d_ff=8192)
 # any configuration the reference ships reaches (its Pallas kernel takes
 # any head dim): the three kernels' D512 wgmma instances
 PER_LAYER_D512 = dict(TRAIN, d_model=2048, num_heads=4, d_ff=8192)
+# the same width with 2 heads of 1024: head dim 1024, the three kernels'
+# slice instances (the stacked LM's 6d at the same width)
+PER_LAYER_D1024 = dict(TRAIN, d_model=2048, num_heads=2, d_ff=8192)
 # (B, H, T, D, causal, lengths): both training shapes, the serving shape,
 # a ragged T = 1000 with lengths (a fully masked row), a non-causal case;
 # past D = 128 phase 3's D160 and D256 cases and D192 (causal, a fully
 # masked row), a non-causal ragged D256, the D256 training shape; past
 # 256 D384 (causal, a fully masked row), D512 and the D512 training shape
 # (all three kernels on their split wgmma instances), and past 512 phase
-# 3's SLICE_CASES (the forward on its slice instance, dq and dkv wide)
+# 3's SLICE_CASES and phase 5's D1200 (all three on their slice
+# instances; dq's and dkv's Q or K resident up to D1024, streamed at
+# D1100, D1152 and D1200)
 BF16_FLASH_CASES = [
     (8, 8, 2048, 128, True, None),
     (8, 16, 2048, 128, True, None),
@@ -3901,51 +3891,52 @@ BF16_FLASH_CASES = [
     (2, 4, 1000, 384, True, [1000, 0]),
     (2, 2, 300, 512, False, [300, 0]),
     D512_TRAIN,
-] + SLICE_CASES
+] + SLICE_CASES + BWD_STREAMED_CASES
 # the cases whose two launches must agree bitwise: the training shapes at
-# D128, D256 and D512 and the D384 case (and the forward's at WIDE_D576
-# and D1024_TRAIN)
+# D128, D256 and D512 and the D384 case (and at WIDE_D576 and
+# D1024_TRAIN, uncut)
 BF16_BITWISE_CASES = (BF16_FLASH_CASES[0], D256_TRAIN, D512_TRAIN,
                       BF16_FLASH_CASES[10])
 BF16_FLASH = ("flash_attention_fwd_bf16", "flash_attention_bwd_dq_bf16",
               "flash_attention_bwd_dkv_bf16")
 BF16_FLASH_REPLACES = (229, 364, 386)
 # the bf16 flash kernel instances that run wgmma fed by TMA (all three at
-# D 64, 128, 192, 256, 384 and 512, and the forward's slice instances
-# past 512): in SASS, HGMMA and UTMALDG and no HMMA (mma.sync); ptxas
-# reports no spills
+# D 64, 128, 192, 256, 384 and 512, and their slice instances past 512):
+# in SASS, HGMMA and UTMALDG and no HMMA (mma.sync); ptxas reports no
+# spills
 BF16_FLASH_SASS = tuple(f"flash_{k}_bf16_kernel<{d}>"
                         for k in ("fwd", "bwd_dq", "bwd_dkv")
                         for d in (64, 128, 192, 256, 384, 512)) + (
-    "flash_fwd_slice_bf16_kernel<1>", "flash_fwd_slice_bf16_kernel<0>")
-# phase 3's shape at head dims 384 and 512 (WIDE_D384, WIDE_D512: all
-# three bf16 kernels on their split wgmma instances; only SDPA's
-# memory-efficient backend takes these inputs), and the attention of the
-# per-layer LM at d2048 H4 (12e): B8 H4 T2048 D512 causal; past 512 phase
-# 3's shape at D576 (WIDE_D576), where all three run the wide instances
+    "flash_fwd_slice_bf16_kernel<1>", "flash_fwd_slice_bf16_kernel<0>") + (
+    tuple(f"flash_bwd_{k}_slice_bf16_kernel<{r}>" for k in ("dq", "dkv")
+          for r in (1, 0)))
 # the shapes the bf16 trio is timed at past D = 128: phase 3's and
-# D256_TRAIN on the D256 wgmma instances, the D384 and D512 ones on the
-# split instances, D576 and D1024_TRAIN on the forward's slice instance
-# and the wide dq and dkv
+# D256_TRAIN on the D256 wgmma instances, the D384 and D512 ones (phase
+# 3's shape at head dims 384 and 512, and the attention of the per-layer
+# LM at d2048 H4, 12e) on the split instances (only SDPA's
+# memory-efficient backend takes these inputs), WIDE_D576 and D1024_TRAIN
+# (the attention of the per-layer LM at d2048 H2, 12f) on the slice
+# instances
 BF16_WIDE_TIMED = (WIDE_TIMED, D256_TRAIN, WIDE_D384, WIDE_D512, D512_TRAIN,
                    WIDE_D576, D1024_TRAIN)
 BF16_D512_TIMED = BF16_WIDE_TIMED[2:5]
-# the times, in ms, of the wide f32-FMA instances (flash_wide.cuh) that
-# the bf16 forward, dq and dkv ran before their wgmma instances, at
-# BF16_WIDE_TIMED's shapes up to 512, on an NVIDIA H100 80GB HBM3 at 700
-# W (``--bf16-wide-times`` once on the commit before each: the D256
-# shapes before the forward's and dq's, then dkv's, wgmma instances
-# there, the rest before the forward's and dq's at 384 and 512, and dkv's
-# there, and the forward's at WIDE_D576 and D1024_TRAIN before its slice
-# instance, the mean of two turns); no FMA instance that was replaced is
-# kept to time again, and past 512 the wide dq and dkv still run
+# the times, in ms, of the wide f32-FMA instances that the bf16 forward,
+# dq and dkv ran before their wgmma instances, at BF16_WIDE_TIMED's
+# shapes, on an NVIDIA H100 80GB HBM3 at 700 W (``--bf16-wide-times``
+# once on the commit before each: the D256 shapes before the forward's
+# and dq's, then dkv's, wgmma instances there, the rest before the
+# forward's and dq's at 384 and 512, and dkv's there, the forward's at
+# WIDE_D576 and D1024_TRAIN before its slice instance, and dq's and dkv's
+# there before theirs; past 512 the mean of two turns, dq's and dkv's in
+# turns with their slice instances); no FMA instance is kept to time
+# again
 BF16_WIDE_PREVIOUS_MS = {WIDE_TIMED: (0.509, 0.816, 0.657),
                          D256_TRAIN: (8.634, 13.966, 20.948),
                          WIDE_D384: (0.839, 1.404, 1.648),
                          WIDE_D512: (1.229, 2.209, 2.256),
                          D512_TRAIN: (14.616, 26.316, 38.035),
-                         WIDE_D576: (1.620, None, None),
-                         D1024_TRAIN: (27.091, None, None)}
+                         WIDE_D576: (1.620, 3.103, 4.119),
+                         D1024_TRAIN: (27.091, 51.198, 76.054)}
 # the times of the mma.sync kernels these replaced, at B8 H8 T2048 D128
 # causal, in ms, on an NVIDIA H100 80GB HBM3 at 700 W (the forward and
 # dkv as last timed beside the mma.sync dq, dq as last timed beside the
@@ -4136,25 +4127,17 @@ def bf16_flash_kernel_phase(gpu_name):
     at the bf16 tensor-core rate and bf16 SDPA (forward; backward for the
     pair), and past D = 128 (_bf16_wide_times) beside the times of the
     FMA instances they replaced there. Returns the three kernels'
-    records, then the records of their D256 and D512 instances and of
-    the wide dkv (past 512)."""
+    records, then the records of their D256, D512 and slice instances
+    (past 512)."""
     import torch
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.kernels import build
     from paddle_tpu_torch.kernels import flash_attention as fa
 
-    lib = build.load("flash_attention_bf16")
-    smem = lib.paddle_flash_attention_bf16_smem_bytes
-    usage = _kernel_usage(
-        "flash_attention_bf16",
-        lambda name, args: smem(0 if "fwd" in name else
-                                1 if "dq" in name else 2,
-                                SLICE_DP[args[0]] if "slice" in name
-                                else args[0] if args else WIDE_D),
-        match="bf16_kernel")
+    usage = _kernel_usage("flash_attention_bf16", _bf16_smem,
+                          match="bf16_kernel")
     sass = _sass_counts("flash_attention_bf16", "bf16_kernel")
-    _assert_no_wide_forward()
+    _assert_no_wide_route()
     # every product wgmma, operands by TMA, nothing spilled
     assert sorted(sass) == sorted(BF16_FLASH_SASS), sorted(sass)
     for key in BF16_FLASH_SASS:
@@ -4166,16 +4149,14 @@ def bf16_flash_kernel_phase(gpu_name):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     # max |kernel - plain| of each kernel, by the instance it ran: up to
     # D128, the wgmma instances at D192 and D256, those at D384 and D512,
-    # the forward's slice instance past 512, the wide dq and dkv there
-    errs, errs_d256, errs_d512, errs_slice, errs_wide = (
-        dict.fromkeys(BF16_FLASH, 0.0) for _ in range(5))
+    # the slice instances past 512
+    errs, errs_d256, errs_d512, errs_slice = (
+        dict.fromkeys(BF16_FLASH, 0.0) for _ in range(4))
 
-    def bucket(D, i):
-        kd, is_wide = fa._kernel_instance(D, torch.bfloat16,
-                                          ("fwd", "dq", "dkv")[i])
-        return (errs_wide if is_wide else errs if kd <= 128
-                else errs_d256 if kd <= 256 else errs_d512 if kd <= 512
-                else errs_slice)
+    def bucket(D):
+        kd = fa._kernel_head_dim(D)
+        return (errs if kd <= 128 else errs_d256 if kd <= 256
+                else errs_d512 if kd <= 512 else errs_slice)
 
     cases = []
     for B, H, T, D, causal, lengths in BF16_FLASH_CASES:
@@ -4202,7 +4183,7 @@ def bf16_flash_kernel_phase(gpu_name):
         fin = plse.isfinite()
         row["lse"] = float((lse - plse)[fin].abs().max())
         assert row["lse"] <= BF16_LSE_ATOL, row
-        _worst(bucket(D, 0), BF16_FLASH[0], o, po)
+        _worst(bucket(D), BF16_FLASH[0], o, po)
         del to
         # the backward on the plain forward's o and lse
         grads = fa.flash_backward(q, k, v, po, plse, do, lens, causal, sm)
@@ -4218,7 +4199,7 @@ def bf16_flash_kernel_phase(gpu_name):
             assert a.dtype == torch.bfloat16, (name, a.dtype)
             row[name] = _bf16_gate(a, b, t, name)
             i = 1 if name == "dq" else 2
-            _worst(bucket(D, i), BF16_FLASH[i], a, b)
+            _worst(bucket(D), BF16_FLASH[i], a, b)
             if first:
                 planted[name] = _bf16_errors(f, b, t)
         del pg, tg, fg
@@ -4250,17 +4231,19 @@ def bf16_flash_kernel_phase(gpu_name):
         torch.cuda.empty_cache()
     print("bf16 flash kernels: two launches on the same inputs bitwise equal "
           "at " + ", ".join(_case_text(*c) for c in BF16_BITWISE_CASES))
-    for B, H, T, D, causal, _ in (WIDE_D576, D1024_TRAIN):  # the forward
-        q, k, v = (torch.randn(B, H, T, D, device="cuda", generator=gen)
-                   .bfloat16() for _ in range(3))
-        first, second = (fa.flash_forward(q, k, v, None, True)
-                         for _ in range(2))
+    for B, H, T, D, causal, _ in (WIDE_D576, D1024_TRAIN):  # the slices
+        q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
+                       .bfloat16() for _ in range(4))
+        o, lse = fa.flash_forward(q, k, v, None, True)
+        runs = [(*fa.flash_forward(q, k, v, None, True),
+                 *fa.flash_backward(q, k, v, o, lse, do, None, True))
+                for _ in range(2)]
         torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(first, second)), (
-            f"two bf16 flash forward launches at D{D} differ")
-        print(f"flash_attention_fwd_bf16 B{B} H{H} T{T} D{D} causal: two "
-              f"launches are bitwise equal")
-        del q, k, v, first, second
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), (
+            f"two bf16 flash launches at D{D} differ")
+        print(f"bf16 flash forward, dq and dkv B{B} H{H} T{T} D{D} causal: "
+              f"two launches of each are bitwise equal")
+        del q, k, v, do, o, lse, runs
 
     B, H, T, D, causal, _ = BF16_FLASH_CASES[0]
     q, k, v, do = (torch.randn(B, H, T, D, device="cuda", generator=gen)
@@ -4323,49 +4306,56 @@ def bf16_flash_kernel_phase(gpu_name):
     torch.cuda.empty_cache()
 
     # past D = 128: the D256 instances on wgmma, the D384 and D512 ones on
-    # their split wgmma instances, each beside the FMA instances' times
-    # (the D384 and D512 shapes' on the commits before the split
-    # instances), and past 512 the wide ones
+    # their split wgmma instances, past 512 the slice instances, each
+    # beside the FMA instances' times (on the commits before each)
     wide = _bf16_wide_times(gpu_name, gen)
     for i, name in enumerate(BF16_FLASH):
         for shape, rows in wide.items():
             was = BF16_WIDE_PREVIOUS_MS[shape][i]
-            if was is None and shape in (WIDE_D576, D1024_TRAIN):
-                continue  # still wide there (dq, dkv), or not measured
             rows[i]["previous_ms"] = was
             print(f"{name} at {rows[i]['shape']}: {rows[i]['ms']:.3f} ms, "
                   f"was {_ms_text(was)} on the wide FMA instance"
                   + (f" ({was / rows[i]['ms']:.1f}x)" if was else ""))
     d256 = {shape: wide[shape] for shape in BF16_WIDE_TIMED[:2]}
     d512 = {shape: wide[shape] for shape in BF16_D512_TIMED}
+    pair = {}
+    for shape in (WIDE_D576, D1024_TRAIN):  # the slice dq and dkv
+        rows = wide[shape]
+        pair[shape] = rows[1]["ms"] + rows[2]["ms"]
+        was = sum(BF16_WIDE_PREVIOUS_MS[shape][1:])
+        print(f"bf16 flash backward at {rows[1]['shape']}: dq + dkv "
+              f"{pair[shape]:.3f} ms on the slice instances, was "
+              f"{was:.3f} on the wide FMA ones ({was / pair[shape]:.1f}x); "
+              f"bf16 SDPA's backward {_ms_text(rows[1]['library_ms'])}"
+              + (f" ({pair[shape] / rows[1]['library_ms']:.2f}x)"
+                 if rows[1]["library_ms"] else ""))
+        for i in (1, 2):
+            rows[i]["pair_ms"] = pair[shape]
 
-    def record(i, suffix, errors, times, instances):
+    def record(i, suffix, errors, times, keep):
         return {
             "name": f"{BF16_FLASH[i]}_{suffix}", "route": "cuda",
-            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bf16.cu"
-                      if suffix != "wide" else
-                      "paddle_tpu_torch/kernels/csrc/flash_wide.cuh",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention_bf16.cu",
             "replaces": f"paddle_tpu/kernels/flash_attention.py:"
                         f"{BF16_FLASH_REPLACES[i]}",
             "launches": 0, "max_abs_err": errors[BF16_FLASH[i]],
             **times[-1][i], "times": [rows[i] for rows in times],
-            "ptxas": {k: u for k, u in usage.items()
-                      if k.endswith(instances)}}
+            "ptxas": {k: u for k, u in usage.items() if keep(k)}}
 
     for i in range(3):  # each timed at D256_TRAIN
         records.append(record(i, "d256", errs_d256, list(d256.values()),
-                              ("<192>", "<256>")))
+                              lambda k: k.endswith(("<192>", "<256>"))))
     for i in range(3):  # each timed at D512_TRAIN
         records.append(record(i, "d512", errs_d512, list(d512.values()),
-                              ("<384>", "<512>")))
-    # the wide dq and dkv, on the path of the per-layer LM at head dim 512
-    # before their D384/D512 instances, now only past 512: timed at D576
-    records.append(record(1, "wide", errs_wide, [wide[WIDE_D576]], ()))
-    records.append(record(2, "wide", errs_wide, [wide[WIDE_D576]], ()))
-    print("bf16 flash past D = 512: max |kernel - plain| of the forward's "
-          f"slice instance {errs_slice[BF16_FLASH[0]]:.3e}, of the wide dq "
-          f"{errs_wide[BF16_FLASH[1]]:.3e} and dkv "
-          f"{errs_wide[BF16_FLASH[2]]:.3e}")
+                              lambda k: k.endswith(("<384>", "<512>"))))
+    for i in (1, 2):  # the slice dq and dkv, each timed at D1024_TRAIN
+        records.append(record(
+            i, "slice", errs_slice, [wide[WIDE_D576], wide[D1024_TRAIN]],
+            lambda k, kind=("dq", "dkv")[i - 1]: k.startswith(
+                f"flash_bwd_{kind}_slice")))
+    print("bf16 flash past D = 512: max |kernel - plain| of the slice "
+          "instances: " + ", ".join(
+              f"{name} {errs_slice[name]:.3e}" for name in BF16_FLASH))
     # the forward's slice instance, timed in turns with SDPA
     def randn(*shape):
         return torch.randn(*shape, device="cuda", generator=gen)
@@ -4410,16 +4400,10 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
     L, tokens = c["n_layers"], c["batch"] * c["seq"]
     hd = c["d_model"] // c["num_heads"]
     tag = f"d{c['d_model']} L{L} H{c['num_heads']} D{hd}"
-    # launches a step on the wide instances, (dq, dkv) of each dtype
-    wide_f32, wide_bf16 = (tuple(7 * L * fa._kernel_instance(hd, dt, k)[1]
-                                 for k in WIDE_KINDS)
-                           for dt in (torch.float32, torch.bfloat16))
-    # the profile's bf16 trio: a kernel on its wide instance by that name
-    bf16_groups = tuple(
-        f"flash_{k}_wide" if fa._kernel_instance(hd, torch.bfloat16,
-                                                  kind)[1] else g
-        for k, kind, g in zip(("fwd", "bwd_dq", "bwd_dkv"),
-                              ("fwd", "dq", "dkv"), PER_LAYER_GROUPS))
+    # the profile's bf16 trio, by instance name: past 512 the slice ones
+    bf16_groups = (tuple(f"flash_{k}_slice_bf16"
+                         for k in ("fwd", "bwd_dq", "bwd_dkv"))
+                   if fa._kernel_head_dim(hd) > 512 else PER_LAYER_GROUPS[:3])
     rng = np.random.RandomState(SEED)
     feed = {"ids": rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
             .astype("int64"),
@@ -4444,11 +4428,9 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
     _reset_flash_counts(fa)
     kern = _step_fetches(exe, main, feed, fetch, scope, state)
     counts = _flash_counts(fa)  # one f32 launch a layer of each kernel
-    assert counts == (L,) * 3 + (0,) * 3 + tuple(
-        n // 7 for n in wide_f32), counts
+    assert counts == (L,) * 3 + (0,) * 3, counts
     print(f"per-layer {tag} f32 step 1: f32 flash launches fwd/dq/dkv "
-          f"{list(counts[:3])}, {list(counts[6:])} of them on the wide "
-          f"instances")
+          f"{list(counts[:3])}")
     out["f32_step1_launches"] = list(counts)
     if time_f32:
         with _plain_flash(fa):
@@ -4464,7 +4446,7 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
         losses, step_s, counts, peak, profile = _timed_steps(
             exe, main, feed, loss, scope, fa, "per_layer_f32_profile.txt",
             PER_LAYER_GROUPS)
-        assert counts == (7 * L,) * 3 + (0,) * 3 + wide_f32, counts
+        assert counts == (7 * L,) * 3 + (0,) * 3, counts
         med = float(np.median(step_s[1:]))
         print(f"per-layer {tag} f32: losses {[round(x, 5) for x in losses]};"
               f" step median {med * 1e3:.1f} ms, {tokens / med:.0f} tokens/s,"
@@ -4538,8 +4520,7 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
             profile = _profile_step(
                 lambda: exe.run(main, feed=feed, fetch_list=[loss],
                                 scope=scope), path, groups=groups)
-    # every bf16 launch, and on the wide instances only those expected
-    assert counts == (0,) * 3 + (7 * L,) * 3 + wide_bf16, counts
+    assert counts == (0,) * 3 + (7 * L,) * 3, counts  # every launch bf16
     med = float(np.median(step_s[1:]))
     dev = profile["device_ms"] if profile else None
     trio = (sum(profile["kernels_ms"][g] for g in bf16_groups)
@@ -4558,8 +4539,7 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
           f"tokens/s, {flops / 1e12:.2f} TFLOP/step = "
           f"{flops / med / peak_bf16 * 100:.1f}% of the bf16 peak, peak "
           f"memory {peak / 2**30:.2f} GiB; bf16 flash launches per step "
-          f"{[n // 7 for n in counts[3:6]]} ({[n // 7 for n in counts[6:]]} "
-          f"on the wide instances), f32 {counts[:3]}; device "
+          f"{[n // 7 for n in counts[3:6]]}, f32 {counts[:3]}; device "
           f"{_ms_text(dev, '.1f')} ms of the step's {med * 1e3:.1f} ms on the "
           f"host clock, the bf16 flash trio {_ms_text(trio, '.1f')} ms")
     out["amp"] = {"loss_step1": la, "loss_f32_step1": l32,
@@ -4572,7 +4552,6 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
                   "bf16_peak_share": flops / med / peak_bf16,
                   "peak_mem_bytes": peak, "launches_per_step": [
                       n // 7 for n in counts[3:6]],
-                  "wide_launches_per_step": [n // 7 for n in counts[6:]],
                   "device_ms": dev, "flash_bf16_ms": trio,
                   "profile": profile}
     del exe, scope, main
@@ -4583,9 +4562,9 @@ def per_layer_lm_phase(gpu_name, c, time_f32):
 def per_layer_phases(gpu_name):
     """Phase 12: the bf16 flash kernels (a), then the per-layer LM at
     bench.py's transformer in f32 and under AMP (b), at transformer_wide
-    under AMP (c), at its width with 8 heads of 256 under AMP (d) and
-    with 4 heads of 512 under AMP (e). Returns (the bf16 kernel records,
-    the record of each part)."""
+    under AMP (c), at its width with 8 heads of 256 under AMP (d), with 4
+    heads of 512 under AMP (e) and with 2 heads of 1024 under AMP (f).
+    Returns (the bf16 kernel records, the record of each part)."""
     seconds = [time.perf_counter()]
     recs = bf16_flash_kernel_phase(gpu_name)
     seconds.append(time.perf_counter())
@@ -4597,50 +4576,58 @@ def per_layer_phases(gpu_name):
     seconds.append(time.perf_counter())
     d256 = per_layer_lm_phase(gpu_name, PER_LAYER_D256, time_f32=False)
     seconds.append(time.perf_counter())
-    d512 = per_layer_d512_phase(gpu_name, recs)
+    d512 = per_layer_head_phase(gpu_name, PER_LAYER_D512, recs)
+    seconds.append(time.perf_counter())
+    d1024 = per_layer_head_phase(gpu_name, PER_LAYER_D1024, recs)
     seconds.append(time.perf_counter())
     print("phase 12 seconds: " + ", ".join(
-        f"{part} {b - a:.1f}" for part, a, b in zip("abcde", seconds,
-                                                   seconds[1:])))
+        f"{part} {b - a:.1f}" for part, a, b in zip("abcdef", seconds,
+                                                    seconds[1:])))
     # the D256 records: each kernel's launches a step in (d)
     for rec, n in zip(recs[3:6], d256["amp"]["launches_per_step"]):
         rec["launches"] = n
-    a, b, e = wide["amp"], d256["amp"], d512["amp"]
     print("per-layer d2048 L8 AMP, the same FLOPs a step: " + "; ".join(
         f"H{h} (D{2048 // h}) step {r['step_ms_median']:.1f} ms, "
         f"{r['tokens_per_s']:.0f} tokens/s, "
         f"{r['bf16_peak_share'] * 100:.1f}% of the bf16 peak, the flash "
         f"trio {_ms_text(r['flash_bf16_ms'], '.1f')} ms of device time, "
         f"peak memory {r['peak_mem_bytes'] / 2**30:.2f} GiB"
-        for h, r in ((16, a), (8, b), (4, e))))
+        for h, r in ((16, wide["amp"]), (8, d256["amp"]), (4, d512["amp"]),
+                     (2, d1024["amp"]))))
     return recs, {"transformer": base, "transformer_wide": wide,
                   "transformer_wide_d256": d256,
-                  "transformer_wide_d512": d512}
+                  "transformer_wide_d512": d512,
+                  "transformer_wide_d1024": d1024}
 
 
-def per_layer_d512_phase(gpu_name, recs=None):
-    """Phase 12e: the per-layer LM at d2048 L8 H4 (head dim 512) under AMP
-    (per_layer_lm_phase): 8 launches a step of each bf16 flash kernel, on
-    its D512 wgmma instance, and none wide. With phase 12a's records
-    ``recs``, sets the D512 instances' launches a step (the wide dkv's
-    stay 0)."""
-    c = PER_LAYER_D512
+# the phase 12a records of the bf16 instances that 12e (head dim 512) and
+# 12f (1024) run, in BF16_FLASH's order
+PER_LAYER_HEAD_RECORDS = {
+    512: tuple(f"{name}_d512" for name in BF16_FLASH),
+    1024: ("flash_attention_fwd_slice_bf16",
+           "flash_attention_bwd_dq_bf16_slice",
+           "flash_attention_bwd_dkv_bf16_slice")}
+
+
+def per_layer_head_phase(gpu_name, c, recs=None):
+    """Phase 12e (``c`` = PER_LAYER_D512) or 12f (PER_LAYER_D1024): the
+    per-layer LM at transformer_wide's width with 4 heads of 512 or 2 of
+    1024 under AMP (per_layer_lm_phase: 8 launches a step of each bf16
+    flash kernel, its f32 build's step 1 one launch a layer of each f32
+    one), the bf16 trio on its D512 wgmma instances or its slice ones, as
+    the profiled step names them, the f32 trio on its quarter or slice
+    instances. With phase 12a's records ``recs``, sets the launches a
+    step of the instances the main path ran."""
     out = per_layer_lm_phase(gpu_name, c, time_f32=False)
     amp = out["amp"]
-    L = c["n_layers"]
-    # its f32 step 1: the forward, dq and dkv on their quarter instances
-    f32 = out["f32_step1_launches"]
-    assert f32[:3] == [L] * 3 and f32[6:] == [0, 0], f32
-    assert amp["launches_per_step"] == [L] * 3, amp["launches_per_step"]
-    assert amp["wide_launches_per_step"] == [0, 0], \
-        amp["wide_launches_per_step"]
-    print(f"per-layer d{c['d_model']} L{L} H{c['num_heads']} (D"
-          f"{c['d_model'] // c['num_heads']}) AMP: bf16 flash launches a step "
-          f"{amp['launches_per_step']}, on the wide instances "
-          f"{amp['wide_launches_per_step']} (all three on their D512 wgmma "
-          f"instances)")
+    L, hd = c["n_layers"], c["d_model"] // c["num_heads"]
+    tag = f"d{c['d_model']} L{L} H{c['num_heads']} (D{hd})"
+    print(f"per-layer {tag} AMP: bf16 flash launches a step "
+          f"{amp['launches_per_step']} (all three on their "
+          f"{'D512 wgmma' if hd <= 512 else 'slice'} instances), f32 step 1 "
+          f"{out['f32_step1_launches'][:3]}")
     prof = amp["profile"]
-    print(f"per-layer d{c['d_model']} L{L} H{c['num_heads']} AMP: step "
+    print(f"per-layer {tag} AMP: step "
           f"{amp['step_ms_median']:.1f} ms, {amp['tokens_per_s']:.0f} "
           f"tokens/s; one profiled step's device time "
           + (f"{prof['device_ms']:.1f} ms by kernel: " + ", ".join(
@@ -4649,10 +4636,9 @@ def per_layer_d512_phase(gpu_name, recs=None):
              else "not measured"))
     if recs is not None:
         by_name = {r["name"]: r for r in recs}
-        for i, name in enumerate(BF16_FLASH):
-            by_name[name + "_d512"]["launches"] = (
-                amp["launches_per_step"][i]
-                - ([0] + amp["wide_launches_per_step"])[i])
+        for name, n in zip(PER_LAYER_HEAD_RECORDS[hd],
+                           amp["launches_per_step"]):
+            by_name[name]["launches"] = n
     return out
 
 
@@ -5071,7 +5057,7 @@ def decode_row(pt):
                    return_numpy=False)
     check(f32)
     f32_s = time.perf_counter() - t0
-    assert _flash_counts(fa) == (L,) + (0,) * 7, _flash_counts(fa)
+    assert _flash_counts(fa) == (L,) + (0,) * 5, _flash_counts(fa)
     with _plain_flash(fa):
         plain, = exe.run(main, feed=feed, fetch_list=[out_ids], scope=scope,
                          return_numpy=False)
@@ -5096,7 +5082,7 @@ def decode_row(pt):
         toks = outs[-1].cpu()
         sec = (time.perf_counter() - t0) / DECODE_STEPS
     counts = _flash_counts(fa)
-    assert counts == (DECODE_STEPS * L,) + (0,) * 7, counts
+    assert counts == (DECODE_STEPS * L,) + (0,) * 5, counts
     check(toks.to(f32.device))
     assert all(torch.equal(o, outs[-1]) for o in outs)
     same = float((toks[:, Tp:] == f32[:, Tp:].cpu()).float().mean())
@@ -5874,6 +5860,10 @@ def main():
                         help="build the kernels and run only phase 12e (the "
                              "per-layer LM at d2048 H4, head dim 512, under "
                              "AMP); prints no ok line")
+    parser.add_argument("--per-layer-d1024-only", action="store_true",
+                        help="build the kernels and run only phase 12f (the "
+                             "per-layer LM at d2048 H2, head dim 1024, under "
+                             "AMP); prints no ok line")
     parser.add_argument("--bf16-wide-times", action="store_true",
                         help="build the kernels and only time the bf16 "
                              "flash forward, dq and dkv past head dim 128 "
@@ -5895,7 +5885,8 @@ def main():
     parser.add_argument("--f32-wide-times", action="store_true",
                         help="build the kernels and only time the f32 "
                              "flash forward, dq and dkv at head dims 256, "
-                             "512, 576 and 1024 beside f32 SDPA (no checks; "
+                             "384, 512, 576 and 1024 beside f32 SDPA (no "
+                             "checks; "
                              "it runs an earlier commit's instances too); "
                              "prints no ok line")
     parser.add_argument("--lstm-only", action="store_true",
@@ -5949,12 +5940,14 @@ def main():
                                       for r in recs]}))
         print(smi)
         return
-    if args.per_layer_d512_only:
-        d512 = per_layer_d512_phase(gpu)
+    if args.per_layer_d512_only or args.per_layer_d1024_only:
+        hd = 512 if args.per_layer_d512_only else 1024
+        part = per_layer_head_phase(
+            gpu, PER_LAYER_D512 if hd == 512 else PER_LAYER_D1024)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
-        (out / "chip_smoke_per_layer_d512.json").write_text(json.dumps(
-            {"gpu": smi, "per_layer_d512": d512}, indent=1))
+        (out / f"chip_smoke_per_layer_d{hd}.json").write_text(json.dumps(
+            {"gpu": smi, f"per_layer_d{hd}": part}, indent=1))
         print(smi)
         return
     if args.bf16_wide_times:

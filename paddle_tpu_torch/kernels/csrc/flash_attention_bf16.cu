@@ -23,10 +23,10 @@
 //
 // q, dO [BH, Tq, D]; k, v [BH, Tk, D] bf16; lse, Di [BH, Tq] f32; len
 // [BH] int32 -> o, dq [BH, Tq, D], dk, dv [BH, Tk, D] bf16. The wrapper
-// zero-pads D up to 64, 128 or a multiple of 64, and past 256 up to 384 or
-// 512: the `wgmma` instances take 64, 128, 192, 256, 384 and 512; past
-// them the wide instances run (flash_wide.cuh, instantiated for bf16: f32
-// FMA on the CUDA cores).
+// zero-pads D up to 64, 128 or a multiple of 64, past 256 up to 384 or
+// 512, and past 512 up to a multiple of 128: the instances take 64, 128,
+// 192, 256, 384 and 512, and past them the slice instances any multiple of
+// 128 (fwd_slice, bwd_slice below), all on `wgmma` fed by TMA.
 // exp is taken as 2^x of x * log2(e) folded into the scale (ex2.approx,
 // relative error ~2^-22, far below P's bf16 rounding).
 //
@@ -157,7 +157,8 @@
 // 128 KB, two stages of 32 KB), its dV half 229,816 at D = 384 (K 48 KB,
 // three stages of 32-query Q and dO, 48 KB each, with their lse, the
 // exchange buffers of S^T partials 32 KB) and 229,672 at D = 512 (K 64
-// KB, two stages of 64 KB); a dkv launch asks for the larger half's.
+// KB, two stages of 64 KB); a dkv launch asks for the larger half's. Past
+// D = 512 the slice instances' (fwd_slice, bwd_slice): at most 229,512.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,7 +167,6 @@
 
 #include <type_traits>
 
-#include "flash_wide.cuh"
 #include "tf32x3.cuh"  // cp.async (dkv's lse and Di)
 #include "tma.cuh"
 #include "wgmma_bf16.cuh"
@@ -1648,11 +1648,13 @@ static_assert(SliceRing<true>::bytes(SLICE_Q_MAX) <= SMEM_LIMIT &&
                   SliceRing<false>::bytes(0) <= SMEM_LIMIT,
               "the ring does not fit");
 
-// One consumer warp is done with ring stage u: its empty arrival.
+// One consumer warp is done with stage u of a ring of STAGES: its empty
+// arrival.
+template <int STAGES>
 __device__ __forceinline__ void release_stage(uint64_t* empty, int u,
                                               int lane) {
   __syncwarp();
-  if (lane == 0) mbar_arrive(&empty[u % SLICE_STAGES]);
+  if (lane == 0) mbar_arrive(&empty[u % STAGES]);
 }
 
 // The slice forward's block (SliceRing<QRES>) at slice z = blockIdx.z,
@@ -1751,12 +1753,12 @@ __device__ __forceinline__ void fwd_slice(
       wgmma_commit();
       if (j > 0) {
         wgmma_wait_one();  // the stage before is read
-        release_stage(empty, u - 1, lane);
+        release_stage<STAGES>(empty, u - 1, lane);
       }
     }
     wgmma_wait_all();
     fence_regs(sc);
-    release_stage(empty, u - 1, lane);
+    release_stage<STAGES>(empty, u - 1, lane);
     float4* x =
         reinterpret_cast<float4*>(smem + L::xch(Dp) + (i % 2) * L::XBUF) + tid;
     xch_put<NK / 2>(x + cw * (L::XHALF / 16), sc, 0);
@@ -1786,12 +1788,12 @@ __device__ __forceinline__ void fwd_slice(
       wgmma_commit();
       if (k > 0) {
         wgmma_wait_one();  // the stage before is read
-        release_stage(empty, u - 1, lane);
+        release_stage<STAGES>(empty, u - 1, lane);
       }
     }
     wgmma_wait_all();
     fence_regs(acc);
-    release_stage(empty, u - 1, lane);
+    release_stage<STAGES>(empty, u - 1, lane);
     fence_frags(pa);
   }
 
@@ -1839,6 +1841,403 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       fwd_slice<QRES, 1>(smem, &qmap, &kmap, &vmap, &omap, lens, lse, Tq, Tk,
                          Dp, causal, sm_scale);
   }
+}
+
+// --- past D = 512: dq, and dk and dv, with outputs in slices of D --------
+//
+// Past D = 512 neither dq_split's dQ nor dkv_half's dK (D / 2 f32
+// registers a consumer) fits, nor do the owned tiles: 64 rows of Q and dO
+// (of K and V) take 256 KB at Dp = 1024. The wrapper pads D to a multiple
+// of 128 (Dp) and the outputs are cut into slices on the grid's z axis.
+// A block owns 64 rows (q rows in dq, keys in dkv: A1 and A2 are Q and dO,
+// or K and V) and walks tiles of BWD_SLICE_ROWS streamed rows (keys in dq,
+// queries in dkv: B1 and B2 are K and V, or Q and dO). The consumers
+// split the work by operand, not by D: consumer 0 forms X = A1 B1^T (S, or
+// S^T in dkv), consumer 1 Y = A2 B2^T (dP, or dP^T), each over all of
+// Dp's 64-column boxes in order, and both write theirs into an exchange
+// buffer, meet, and read both back: every thread of either consumer holds
+// the same entries of S and dP (rows 16 w + g and + 8), forms P and dS
+// from them with the same instructions, and every slice does the same, so
+// every block that shares a tile holds its P and dS bit for bit (the order
+// over Dp's boxes does not depend on blockIdx.z). Then each adds its
+// output's product for its boxes of the slice, A from registers (as in
+// dq_split and dkv_half), B the slice's boxes of the streamed tile read
+// MN-major:
+// - dq (flash_bwd_dq_slice_bf16_kernel): dQ += dS K, slices of DQ_SLICE
+//   columns, each consumer half of them (HB boxes, at most 4: 128 f32
+//   registers, as dq_split's at D = 512);
+// - dkv (flash_bwd_dkv_slice_bf16_kernel): consumer 0 dK += dS^T Q,
+//   consumer 1 dV += P^T dO, slices of DKV_SLICE columns, each consumer
+//   all of them of its output (HB boxes, at most 4). S^T and dP^T are
+//   formed once for both outputs (the dK and dV halves of dkv_half would
+//   form S^T twice and leave one consumer idle in the dV half), so slices
+//   half as wide as dq's cost the same formations a column.
+// Stages are uniform and stream through one ring in the order the
+// consumers take them: for each tile, Dp / 64 stages of box b of B1 and
+// of B2 (one box a consumer), then HB stages of the slice's boxes (dq:
+// K's box k and HB + k of the slice; dkv: Q's and dO's box k). A1 stays
+// resident up to BWD_RES_MAX (ARES) and each box stage brings A2's box;
+// past it each box stage also brings A1's, so nothing in shared memory
+// grows with Dp and any Dp is taken (both streamed at Dp 1024 ran twice
+// as slow; both resident, which fits at Dp 640 only, 1-8% faster there:
+// PERF.md §6). A stage's products stay in flight while the next stage's
+// are issued; a stage is released once they are done. lse and Di come
+// from global memory: in dq each thread's two rows' once, in dkv each
+// thread's columns' at each tile's start. The outputs leave through A1's
+// resident boxes (ARES) or the ring once both consumers are done.
+// Shared memory: 229,448 bytes with A1 resident
+// at Dp = 1024 (128 KB, four stages of 16 KB with A2's box, the exchange
+// 32 KB), 180,296 at Dp = 640, and 229,512 past 1024 (eight stages of 24
+// KB with both owned boxes).
+constexpr int BWD_SLICE_ROWS = 32;  // streamed rows a tile: keys, queries
+constexpr int DQ_SLICE = 512;       // columns of dq a block owns at most
+constexpr int DKV_SLICE = 256;      // columns of dk, dv a block owns at most
+constexpr int BWD_RES_MAX = 1024;   // the widest Dp with A1 resident
+
+// Shared memory, in bytes, of a backward slice instance at padded head dim
+// Dp: A1's Dp / 64 boxes of 64 rows (ARES), the ring's stages (B1's and
+// B2's box, A2's, and A1's without ARES), the two exchange buffers of both
+// consumers' [64, ROWS] f32 products, then the barriers (A1's, and each
+// stage's full and empty).
+template <bool ARES>
+struct BwdSliceRing {
+  static constexpr int ROWS = BWD_SLICE_ROWS;
+  static constexpr int STAGES = ARES ? 4 : 8;
+  static constexpr int A_BOX = SPLIT_OWN * ROW_BYTES;  // an owned box
+  static constexpr int B_BOX = ROWS * ROW_BYTES;       // a streamed box
+  static constexpr int STAGE = 2 * B_BOX + (ARES ? 1 : 2) * A_BOX;
+  static constexpr int XHALF = SPLIT_OWN * ROWS * 4;  // a consumer's product
+  static constexpr int XBUF = 2 * XHALF;
+  __host__ __device__ static constexpr int ring(int Dp) {
+    return ARES ? Dp / 64 * A_BOX : 0;
+  }
+  __host__ __device__ static constexpr int xch(int Dp) {
+    return ring(Dp) + STAGES * STAGE;
+  }
+  __host__ __device__ static constexpr int bars(int Dp) {
+    return xch(Dp) + 2 * XBUF;
+  }
+  __host__ __device__ static constexpr int bytes(int Dp) {
+    return bars(Dp) + (1 + 2 * STAGES) * 8;
+  }
+  static_assert(A_BOX % 1024 == 0 && B_BOX % 1024 == 0,
+                "boxes must keep the swizzle's alignment");
+  static_assert(ROWS % 16 == 0, "a tile is whole k16 steps of the outputs");
+};
+static_assert(BwdSliceRing<true>::bytes(BWD_RES_MAX) <= SMEM_LIMIT &&
+                  BwdSliceRing<false>::bytes(0) <= SMEM_LIMIT,
+              "the ring does not fit");
+// the outputs leave through offset 0: A1's boxes (ARES: ten or more past
+// Dp = 512) or the ring's stages hold both consumers' 4 boxes
+static_assert(BwdSliceRing<false>::STAGES * BwdSliceRing<false>::STAGE >=
+                  2 * 4 * BwdSliceRing<false>::A_BOX,
+              "the outputs do not fit where they are staged");
+
+// What a backward slice block is given: the owned operands' maps (A1, A2),
+// the streamed ones' (B1, B2), the slice stages' (C0 for consumer 0, C1
+// for consumer 1) and the outputs' (O0, O1: dq twice, or dk and dv).
+struct BwdSliceArgs {
+  const CUtensorMap *a1, *a2, *b1, *b2, *c0, *c1, *o0, *o1;
+  const int* lens;
+  const float* lse;
+  const float* di;
+  int Tq, Tk, Dp, causal;
+  float sm_scale;
+};
+
+// In place, this thread's entries of a dkv tile's S^T (sp, replaced by
+// P^T = exp(s sm_scale - lse)) and dP^T (dp, replaced by dS^T = P^T (dP^T
+// - Di)), f32: keys row[0], row[1], queries q + 8j + 2t and + 1, whose
+// lse and Di are lz and dz (in registers, unlike dkv_p_ds); 0 where
+// masked (looked at only on an `edge` tile).
+template <int N>
+__device__ __forceinline__ void dkv_tile(float (&sp)[N / 2],
+                                         float (&dp)[N / 2],
+                                         const float2 (&lz)[N / 8],
+                                         const float2 (&dz)[N / 8],
+                                         const int (&row)[2], int q, int t,
+                                         float c, bool edge, int length,
+                                         int Tq, int causal) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float lse_c = (e & 1) ? lz[j].y : lz[j].x;
+      const float di_c = (e & 1) ? dz[j].y : dz[j].x;
+      float p = ex2(fmaf(sp[4 * j + e], c, -lse_c * LOG2E));
+      if (edge) {
+        const int q_pos = q + 8 * j + 2 * t + (e & 1);
+        const int k_pos = row[e >> 1];
+        if (k_pos >= length || q_pos >= Tq || (causal && q_pos < k_pos))
+          p = 0.f;
+      }
+      sp[4 * j + e] = p;
+      dp[4 * j + e] = p * (dp[4 * j + e] - di_c);
+    }
+}
+
+// ... and after the consumers have met, one consumer's whole product.
+template <int N>
+__device__ __forceinline__ void xch_get(const float4* from, float (&p)[N]) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 o = from[j * 128];
+    p[4 * j] = o.x;
+    p[4 * j + 1] = o.y;
+    p[4 * j + 2] = o.z;
+    p[4 * j + 3] = o.w;
+  }
+}
+
+// A backward slice block (BwdSliceRing<ARES>): dq (DKV false) or dk and
+// dv (DKV true) at slice z = blockIdx.z, each consumer's output HB boxes.
+template <bool ARES, int HB, bool DKV>
+__device__ __forceinline__ void bwd_slice(unsigned char* smem,
+                                          const BwdSliceArgs& a) {
+  using L = BwdSliceRing<ARES>;
+  constexpr int NT = L::ROWS;
+  constexpr int STAGES = L::STAGES;
+  const int NB = a.Dp / 64;
+  // the slice's first box of each consumer's streamed operand, and of its
+  // output
+  const int sb0 = blockIdx.z * (DKV ? DKV_SLICE : DQ_SLICE) / 64;
+  const int cb1 = DKV ? sb0 : sb0 + HB;
+  unsigned char* ring = smem + L::ring(a.Dp);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::bars(a.Dp));
+  uint64_t* full = own_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  // the owned rows from r0 on; the streamed tiles first .. first + n - 1
+  const int bh = blockIdx.x;
+  const int length = max(0, min(a.lens[bh], a.Tk));
+  int r0, first, n_tiles;
+  if (DKV) {  // the low keys, which causal queries see most, first
+    r0 = blockIdx.y * SPLIT_OWN;
+    const int n_q = (a.Tq + NT - 1) / NT;
+    // a k tile wholly past the length is seen by no query: dk = dv = 0
+    first = r0 >= length ? n_q : (a.causal ? r0 / NT : 0);
+    n_tiles = n_q - first;
+  } else {  // the heaviest causal q tiles first
+    r0 = (gridDim.y - 1 - blockIdx.y) * SPLIT_OWN;
+    first = 0;
+    n_tiles = (length + NT - 1) / NT;
+    if (a.causal)  // the last tile any of the block's rows sees
+      n_tiles = min(n_tiles, (min(r0 + SPLIT_OWN, a.Tq) + NT - 1) / NT);
+  }
+
+  init_ring<STAGES>(own_full);
+
+  if (threadIdx.x < 128) {  // the producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0 && n_tiles > 0) {
+      if (ARES) {
+        mbar_expect(own_full, NB * L::A_BOX);
+        for (int b = 0; b < NB; ++b)
+          tma_load_3d(smem + b * L::A_BOX, a.a1, 64 * b, r0, bh, own_full);
+      }
+      int u = 0;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int t0 = (first + i) * NT;
+        for (int b = 0; b < NB; ++b, ++u) {  // box b of B1, B2, A2 (A1)
+          const int s = ring_acquire<STAGES>(full, empty, u, L::STAGE);
+          unsigned char* st = ring + s * L::STAGE;
+          tma_load_3d(st, a.b1, 64 * b, t0, bh, &full[s]);
+          tma_load_3d(st + L::B_BOX, a.b2, 64 * b, t0, bh, &full[s]);
+          tma_load_3d(st + 2 * L::B_BOX, a.a2, 64 * b, r0, bh, &full[s]);
+          if (!ARES)
+            tma_load_3d(st + 2 * L::B_BOX + L::A_BOX, a.a1, 64 * b, r0, bh,
+                        &full[s]);
+        }
+#pragma unroll
+        for (int k = 0; k < HB; ++k, ++u) {  // the slice's box k
+          const int s = ring_acquire<STAGES>(full, empty, u, 2 * L::B_BOX);
+          unsigned char* st = ring + s * L::STAGE;
+          tma_load_3d(st, a.c0, 64 * (sb0 + k), t0, bh, &full[s]);
+          tma_load_3d(st + L::B_BOX, a.c1, 64 * (cb1 + k), t0, bh,
+                      &full[s]);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<240>();
+
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  const float c = a.sm_scale * LOG2E;  // s * c is s * sm_scale in base 2
+  // dq: p = 2^(s c - lse log2(e)) of this thread's rows; a row past Tq has
+  // lse = +inf, so p = 0
+  float lse2[2] = {0.f, 0.f}, di_r[2] = {0.f, 0.f};
+  if (!DKV)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool in = row[h] < a.Tq;
+      lse2[h] = in ? a.lse[(size_t)bh * a.Tq + row[h]] * LOG2E : INFINITY;
+      di_r[h] = in ? a.di[(size_t)bh * a.Tq + row[h]] : 0.f;
+    }
+  float acc[HB * 32];  // box k of this consumer's output: acc[32 k ..]
+#pragma unroll
+  for (int e = 0; e < HB * 32; ++e) acc[e] = 0.f;
+
+  if (ARES && n_tiles > 0) mbar_wait(own_full, 0);
+  int u = 0;  // the ring's stages taken so far
+  for (int i = 0; i < n_tiles; ++i) {
+    const int t0 = (first + i) * NT;
+    // dkv: lse and Di of this thread's columns (0 past Tq, masked there)
+    float2 lz[NT / 8], dz[NT / 8];
+    if (DKV)
+#pragma unroll
+      for (int j = 0; j < NT / 8; ++j) {
+        const int q = t0 + 8 * j + 2 * t;
+        const size_t at = (size_t)bh * a.Tq + q;
+        lz[j].x = q < a.Tq ? a.lse[at] : 0.f;
+        lz[j].y = q + 1 < a.Tq ? a.lse[at + 1] : 0.f;
+        dz[j].x = q < a.Tq ? a.di[at] : 0.f;
+        dz[j].y = q + 1 < a.Tq ? a.di[at + 1] : 0.f;
+      }
+    float f[NT / 2];  // this consumer's product: S (S^T) or dP (dP^T)
+    for (int b = 0; b < NB; ++b, ++u) {
+      const int s = u % STAGES;
+      mbar_wait(&full[s], (u / STAGES) & 1);
+      const unsigned char* st = ring + s * L::STAGE;
+      // A1's box resident or in the stage after A2's; A2's in the stage
+      const unsigned char* ab =
+          cw == 1 ? st + 2 * L::B_BOX
+          : ARES  ? smem + b * L::A_BOX
+                  : st + 2 * L::B_BOX + L::A_BOX;
+      const uint64_t da = sw128_desc(reinterpret_cast<const float*>(ab));
+      const uint64_t db =
+          sw128_desc(reinterpret_cast<const float*>(st + cw * L::B_BOX));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaBf16<NT, 0>::mma(f, da + 2 * kk, db + 2 * kk, b + kk);
+      wgmma_commit();
+      if (b > 0) {
+        wgmma_wait_one();  // the stage before is read
+        release_stage<STAGES>(empty, u - 1, lane);
+      }
+    }
+    wgmma_wait_all();
+    fence_regs(f);
+    release_stage<STAGES>(empty, u - 1, lane);
+    float4* x = reinterpret_cast<float4*>(smem + L::xch(a.Dp) +
+                                          (i % 2) * L::XBUF) + tid;
+    xch_put<NT / 2>(x + cw * (L::XHALF / 16), f, 0);
+    consumers_sync();
+    float sx[NT / 2], dx[NT / 2];  // S and dP, then P and dS (transposed)
+    xch_get<NT / 2>(x, sx);
+    xch_get<NT / 2>(x + L::XHALF / 16, dx);
+
+    uint32_t pa[NT / 16][4];  // bf16(dS), bf16(dS^T) or bf16(P^T)
+    if (DKV) {
+      const bool edge = r0 + SPLIT_OWN > length || t0 + NT > a.Tq ||
+                        (a.causal && t0 < r0 + SPLIT_OWN - 1);
+      dkv_tile<NT>(sx, dx, lz, dz, row, t0, t, c, edge, length, a.Tq,
+                   a.causal);
+      if (cw == 0)
+        pack_a<NT>(pa, dx);
+      else
+        pack_a<NT>(pa, sx);
+    } else {
+      ds_tile<NT>(sx, dx, lse2, di_r, row, t0, length, a.causal,
+                  t0 + NT > length || (a.causal && t0 + NT - 1 > r0), t, c);
+      pack_a<NT>(pa, dx);
+    }
+#pragma unroll
+    for (int k = 0; k < HB; ++k, ++u) {  // the output's box k
+      const int s = u % STAGES;
+      mbar_wait(&full[s], (u / STAGES) & 1);
+      const uint64_t dm = sw128_mn_desc(
+          ring + s * L::STAGE + cw * L::B_BOX, L::B_BOX);
+      float(&ak)[32] = *reinterpret_cast<float(*)[32]>(acc + 32 * k);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NT / 16; ++kk)
+        WgmmaBf16Rs<64>::mma(ak, pa[kk], dm + 128 * kk, 1);
+      wgmma_commit();
+      if (k > 0) {
+        wgmma_wait_one();  // the stage before is read
+        release_stage<STAGES>(empty, u - 1, lane);
+      }
+    }
+    wgmma_wait_all();
+    fence_regs(acc);
+    release_stage<STAGES>(empty, u - 1, lane);
+    fence_frags(pa);
+  }
+
+  // the outputs through offset 0, free once both consumers are done
+  consumers_sync();
+  unsigned char* ot = smem + cw * HB * L::A_BOX;
+  const float sc = DKV && cw == 1 ? 1.f : a.sm_scale;  // dv is not scaled
+  const float scale[2] = {sc, sc};
+  stage_tile<HB * 64>(ot, L::A_BOX, acc, scale, warp, g, t);
+  store_tile<HB * 64>(cw == 0 ? a.o0 : a.o1, ot, L::A_BOX, r0, bh, cw,
+                      DKV ? sb0 : sb0 + cw * HB);
+}
+
+// dq past D = 512 (Q resident with ARES): block z takes slice z of dq,
+// its consumers HB = min(DQ_SLICE, Dp - DQ_SLICE z) / 128 boxes each.
+template <bool ARES>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dq_slice_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                                   const __grid_constant__ CUtensorMap kmap,
+                                   const __grid_constant__ CUtensorMap vmap,
+                                   const __grid_constant__ CUtensorMap domap,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ di,
+                                   const __grid_constant__ CUtensorMap dqmap,
+                                   const int* __restrict__ lens, int Tq,
+                                   int Tk, int Dp, int causal,
+                                   float sm_scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const BwdSliceArgs a{&qmap, &domap, &kmap, &vmap, &kmap, &kmap, &dqmap,
+                       &dqmap, lens, lse, di, Tq, Tk, Dp, causal, sm_scale};
+  switch (min(DQ_SLICE, Dp - DQ_SLICE * (int)blockIdx.z) / 128) {
+    case 4:
+      bwd_slice<ARES, 4, false>(smem, a);
+      break;
+    case 3:
+      bwd_slice<ARES, 3, false>(smem, a);
+      break;
+    case 2:
+      bwd_slice<ARES, 2, false>(smem, a);
+      break;
+    default:
+      bwd_slice<ARES, 1, false>(smem, a);
+  }
+}
+
+// dk and dv past D = 512 (K resident with ARES): block z takes slice z
+// of both, each consumer HB = min(DKV_SLICE, Dp - DKV_SLICE z) / 64 boxes
+// of its output (4, or 2 at the end of a Dp that is an odd multiple of
+// 128).
+template <bool ARES>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_bwd_dkv_slice_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                                    const __grid_constant__ CUtensorMap kmap,
+                                    const __grid_constant__ CUtensorMap vmap,
+                                    const __grid_constant__ CUtensorMap domap,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ di,
+                                    const __grid_constant__ CUtensorMap dkmap,
+                                    const __grid_constant__ CUtensorMap dvmap,
+                                    const int* __restrict__ lens, int Tq,
+                                    int Tk, int Dp, int causal,
+                                    float sm_scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const BwdSliceArgs a{&kmap, &vmap, &qmap, &domap, &qmap, &domap, &dkmap,
+                       &dvmap, lens, lse, di, Tq, Tk, Dp, causal, sm_scale};
+  if (min(DKV_SLICE, Dp - DKV_SLICE * (int)blockIdx.z) == DKV_SLICE)
+    bwd_slice<ARES, 4, true>(smem, a);
+  else
+    bwd_slice<ARES, 2, true>(smem, a);
 }
 
 template <int D>
@@ -1966,6 +2365,80 @@ cudaError_t launch_fwd_slice(const bf16* q, const bf16* k, const bf16* v,
 
 bool slice_d(int D) { return D > 512 && D % 128 == 0; }
 
+// dq past 512 at padded head dim Dp (a multiple of 128): one block per
+// (bh, 64 q rows, slice of dq).
+template <bool ARES>
+cudaError_t launch_dq_slice(const bf16* q, const bf16* k, const bf16* v,
+                            const bf16* dout, const float* lse,
+                            const float* di, const int* lens, bf16* dq,
+                            int BH, int Tq, int Tk, int Dp, int causal,
+                            float sm_scale, cudaStream_t stream) {
+  using L = BwdSliceRing<ARES>;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap qmap = {}, kmap = {}, vmap = {}, domap = {}, dqmap = {};
+  cudaError_t err =
+      tensor_map_3d(&qmap, q, BF16, 2, Dp, Tq, BH, 64, SPLIT_OWN);
+  if (err == cudaSuccess)
+    err = tensor_map_3d(&domap, dout, BF16, 2, Dp, Tq, BH, 64, SPLIT_OWN);
+  if (err == cudaSuccess)
+    err = tensor_map_3d(&dqmap, dq, BF16, 2, Dp, Tq, BH, 64, SPLIT_OWN);
+  if (err == cudaSuccess && Tk > 0)  // Tk = 0: no K/V, dq = 0
+    err = tensor_map_3d(&kmap, k, BF16, 2, Dp, Tk, BH, 64, L::ROWS);
+  if (err == cudaSuccess && Tk > 0)
+    err = tensor_map_3d(&vmap, v, BF16, 2, Dp, Tk, BH, 64, L::ROWS);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_slice_bf16_kernel<ARES>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::bytes(Dp));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tq + SPLIT_OWN - 1) / SPLIT_OWN,
+                  (Dp + DQ_SLICE - 1) / DQ_SLICE);
+  flash_bwd_dq_slice_bf16_kernel<ARES><<<grid, WS_THREADS, L::bytes(Dp),
+                                        stream>>>(
+      qmap, kmap, vmap, domap, lse, di, dqmap, lens, Tq, Tk, Dp, causal,
+      sm_scale);
+  return cudaGetLastError();
+}
+
+// dk and dv past 512: one block per (bh, 64 keys, slice of dk and dv).
+template <bool ARES>
+cudaError_t launch_dkv_slice(const bf16* q, const bf16* k, const bf16* v,
+                             const bf16* dout, const float* lse,
+                             const float* di, const int* lens, bf16* dk,
+                             bf16* dv, int BH, int Tq, int Tk, int Dp,
+                             int causal, float sm_scale,
+                             cudaStream_t stream) {
+  using L = BwdSliceRing<ARES>;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap qmap = {}, kmap = {}, vmap = {}, domap = {};  // Tq = 0: none
+  CUtensorMap dkmap = {}, dvmap = {};
+  cudaError_t err =
+      tensor_map_3d(&kmap, k, BF16, 2, Dp, Tk, BH, 64, SPLIT_OWN);
+  if (err == cudaSuccess)
+    err = tensor_map_3d(&vmap, v, BF16, 2, Dp, Tk, BH, 64, SPLIT_OWN);
+  if (err == cudaSuccess)
+    err = tensor_map_3d(&dkmap, dk, BF16, 2, Dp, Tk, BH, 64, SPLIT_OWN);
+  if (err == cudaSuccess)
+    err = tensor_map_3d(&dvmap, dv, BF16, 2, Dp, Tk, BH, 64, SPLIT_OWN);
+  if (err == cudaSuccess && Tq > 0)
+    err = tensor_map_3d(&qmap, q, BF16, 2, Dp, Tq, BH, 64, L::ROWS);
+  if (err == cudaSuccess && Tq > 0)
+    err = tensor_map_3d(&domap, dout, BF16, 2, Dp, Tq, BH, 64, L::ROWS);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dkv_slice_bf16_kernel<ARES>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::bytes(Dp));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(BH, (Tk + SPLIT_OWN - 1) / SPLIT_OWN,
+                  (Dp + DKV_SLICE - 1) / DKV_SLICE);
+  flash_bwd_dkv_slice_bf16_kernel<ARES><<<grid, WS_THREADS, L::bytes(Dp),
+                                         stream>>>(
+      qmap, kmap, vmap, domap, lse, di, dkmap, dvmap, lens, Tq, Tk, Dp,
+      causal, sm_scale);
+  return cudaGetLastError();
+}
+
+
 // A dkv launch at head dim D: keys a block, rows of a Q/dO box, shared
 // memory and blocks on the grid's z axis; up to D = 256 DkvRing's, past
 // it the dK and dV halves'.
@@ -2049,16 +2522,12 @@ cudaError_t launch_dq(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
-bool wide_d(int D) { return D > 128 && D % wide::DC == 0; }
-
 }  // namespace
 
 // Plain C entry points (bound with ctypes). All pointers are device
 // pointers to contiguous tensors with 16-byte aligned bases; each returns
-// a cudaError_t (0 = launched). D is a multiple of 64: 64, 128, 192, 256,
-// 384 and 512 launch the wgmma instances; past 512 the forward takes a
-// multiple of 128 (the slice forward), dq and dkv any multiple of 64 (the
-// wide instances).
+// a cudaError_t (0 = launched). D is 64, 128, 192, 256, 384 or 512, or
+// past 512 a multiple of 128 (the slice instances of all three).
 extern "C" int paddle_flash_attention_fwd_bf16(
     const bf16* q, const bf16* k, const bf16* v, const int* lens, bf16* o,
     float* lse, int BH, int Tq, int Tk, int D, int causal, float sm_scale,
@@ -2116,10 +2585,12 @@ extern "C" int paddle_flash_attention_bwd_dq_bf16(
   if (D == 512)
     return (int)launch_dq<512>(q, k, v, dout, lse, di, lens, dq, BH, Tq, Tk,
                                causal, sm_scale, s);
-  if (wide_d(D))
-    return (int)launch_dq_wide<bf16>(q, k, v, dout, lse, di, lens, dq, BH,
-                                     Tq, Tk, D, causal, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (!slice_d(D)) return (int)cudaErrorInvalidValue;
+  return D <= BWD_RES_MAX
+             ? (int)launch_dq_slice<true>(q, k, v, dout, lse, di, lens, dq, BH,
+                                          Tq, Tk, D, causal, sm_scale, s)
+             : (int)launch_dq_slice<false>(q, k, v, dout, lse, di, lens, dq,
+                                           BH, Tq, Tk, D, causal, sm_scale, s);
 }
 
 extern "C" int paddle_flash_attention_bwd_dkv_bf16(
@@ -2146,10 +2617,14 @@ extern "C" int paddle_flash_attention_bwd_dkv_bf16(
   if (D == 512)
     return (int)launch_dkv<512>(q, k, v, dout, lse, di, lens, dk, dv, BH, Tq,
                                 Tk, causal, sm_scale, s);
-  if (wide_d(D))
-    return (int)launch_dkv_wide<bf16>(q, k, v, dout, lse, di, lens, dk, dv,
-                                      BH, Tq, Tk, D, causal, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (!slice_d(D)) return (int)cudaErrorInvalidValue;
+  return D <= BWD_RES_MAX
+             ? (int)launch_dkv_slice<true>(q, k, v, dout, lse, di, lens, dk,
+                                           dv, BH, Tq, Tk, D, causal,
+                                           sm_scale, s)
+             : (int)launch_dkv_slice<false>(q, k, v, dout, lse, di, lens, dk,
+                                            dv, BH, Tq, Tk, D, causal,
+                                            sm_scale, s);
 }
 
 // Dynamic shared memory of one block of kernel `which` (0 forward, 1 dq,
@@ -2170,13 +2645,12 @@ extern "C" int paddle_flash_attention_bf16_smem_bytes(int which, int D) {
                                     : DqSplit<512>::BYTES)
                         : (D == 384 ? DkvGrid<384>::BYTES
                                     : DkvGrid<512>::BYTES);
-  if (which == 0)  // the slice forward past 512
-    return !slice_d(D)          ? -1
-           : D <= SLICE_Q_MAX ? SliceRing<true>::bytes(D)
-                              : SliceRing<false>::bytes(D);
-  if (wide_d(D))
-    return which == 1 ? wide::DQ_BYTES : wide::DKV_BYTES;
-  return -1;
+  if (!slice_d(D)) return -1;
+  if (which == 0)  // the slice instances past 512
+    return D <= SLICE_Q_MAX ? SliceRing<true>::bytes(D)
+                            : SliceRing<false>::bytes(D);
+  return D <= BWD_RES_MAX ? BwdSliceRing<true>::bytes(D)
+                          : BwdSliceRing<false>::bytes(D);
 }
 
 extern "C" const char* paddle_cuda_error_string(int err) {

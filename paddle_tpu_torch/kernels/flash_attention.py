@@ -80,13 +80,14 @@ rows (dkv: 16 keys) a block as 8 parts of every 128 columns of D, the
 outputs in slices of up to 1024 columns on the grid's z axis, every
 block forming S and dP (S^T and dP^T) over all of D with the eight
 partials summed in part order, the owned rows resident up to D 1152 and
-streamed past it. Only the bf16 dq and dkv past 512 run their wide
-instances (``csrc/flash_wide.cuh``): every product over D sums
-64-column chunks staged through shared memory, and each output's D axis
-is cut into 128-wide slices on the grid's z axis, each block recomputing
-S for its own slice (``_kernel_instance`` says which runs;
-``.dq_wide_launches``, ``.dkv_wide_launches`` count them). Any
-batch*heads is taken (it is the grid's x axis).
+streamed past it. And so do the bf16 dq and dkv
+(``flash_bwd_dq_slice_bf16_kernel``, ``flash_bwd_dkv_slice_bf16_kernel``,
+on ``wgmma`` fed by TMA): 64 q rows (dkv: 64 keys) a block, 32-key
+(32-query) tiles, one consumer warpgroup forming S (S^T) and the other
+dP (dP^T) over all of D, exchanged through shared memory, the outputs in
+slices on the grid's z axis (dq 512 columns, half a consumer; dk and dv
+256, one a consumer), Q or K resident up to D 1024 and streamed with
+each tile past it. Any batch*heads is taken (it is the grid's x axis).
 
 ``flash_attention`` is differentiable (``_FlashAttention``). Every
 wrapper dispatches on the tensor's device: a CPU tensor runs the plain
@@ -99,10 +100,7 @@ dtypes raises). ``flash_attention.launches``,
 ``flash_backward.dq_launches`` and ``flash_backward.dkv_launches`` count
 the f32 launches, ``flash_attention.bf16_launches``,
 ``flash_backward.dq_bf16_launches`` and
-``flash_backward.dkv_bf16_launches`` the bf16 ones;
-``flash_backward.dq_wide_launches`` and
-``flash_backward.dkv_wide_launches`` those that ran a wide instance
-(bf16 only).
+``flash_backward.dkv_bf16_launches`` the bf16 ones.
 """
 from __future__ import annotations
 
@@ -360,30 +358,6 @@ def _kernel_head_dim(D):
     return kd
 
 
-# the largest padded head dim of each kernel's tensor-core instances, by
-# dtype: in f32 all three run 192 and 256 as 3xTF32 with D split across
-# the warpgroups, 384 and 512 with D split four ways across the warps, and
-# past 512 their slice instances, at any head dim
-# (csrc/flash_attention_{fwd,bwd}.cu); in bf16 all three run 192, 256,
-# 384 and 512 on ``wgmma`` (csrc/flash_attention_bf16.cu), and past 512
-# the forward its slice instance, dq and dkv their wide instances.
-_TENSOR_CORE_HEAD_DIM = {
-    torch.float32: {"fwd": math.inf, "dq": math.inf, "dkv": math.inf},
-    torch.bfloat16: {"fwd": math.inf, "dq": 512, "dkv": 512},
-}
-
-
-def _kernel_instance(D, dtype, kind):
-    """(head dim, wide) of the instance of kernel ``kind`` ("fwd", "dq"
-    or "dkv") that takes head dim D in ``dtype``: D padded as
-    ``_kernel_head_dim`` pads it (the same in both dtypes), and whether
-    that instance is a wide one (``csrc/flash_wide.cuh``, f32 FMA on the
-    CUDA cores) rather than one on the tensor cores: the bf16 dq and dkv
-    past 512; no f32 kernel and no forward."""
-    kd = _kernel_head_dim(D)
-    return kd, kd > _TENSOR_CORE_HEAD_DIM[dtype][kind]
-
-
 def _max_t(D):
     """The longest sequence the grid's y axis holds at head dim D (past
     128 every instance takes 64 rows a y index: one block, or two 32-row
@@ -481,14 +455,10 @@ def _count(fn, counter):
 
 def _count_launch(kind, q):
     """One more launch of kernel ``kind`` ("fwd", "dq" or "dkv") on its
-    dtype's counter and, where its instance at q's (padded) head dim is a
-    wide one (bf16 dq and dkv past 512), on
-    ``flash_backward.<kind>_wide_launches``."""
+    dtype's counter."""
     fn, prefix = ((flash_attention, "") if kind == "fwd"
                   else (flash_backward, f"{kind}_"))
     _count(fn, prefix + _INSTANCES[q.dtype][3])
-    if _kernel_instance(q.shape[-1], q.dtype, kind)[1]:
-        _count(fn, prefix + "wide_launches")
 
 
 def _launch_fwd(q, k, v, lengths, causal, sm_scale):
@@ -648,8 +618,6 @@ flash_backward.dq_launches = 0
 flash_backward.dkv_launches = 0
 flash_backward.dq_bf16_launches = 0
 flash_backward.dkv_bf16_launches = 0
-flash_backward.dq_wide_launches = 0
-flash_backward.dkv_wide_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

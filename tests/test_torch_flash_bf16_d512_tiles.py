@@ -25,9 +25,8 @@ fail that gate: a stale K/V stage, and a stale exchange (the other
 half's partial of the tile before). Then the route: the instance each
 kernel takes past 256, the
 launch wiring with the kernel entries swapped for their plain versions,
-the shared memory of the split instances, and the wide dq and dkv at D576
-(bf16 past 512, padded to 640: five 128-column output slices) against
-Pallas.
+and the shared memory of the split instances (past 512 the slice
+instances: ``tests/test_torch_flash_bf16_bwd_past512_tiles.py``).
 """
 import math
 import re
@@ -43,8 +42,6 @@ from paddle_tpu.kernels import flash_attention as jfa
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from test_torch_flash_bf16_tiles import _errors, _passes, _stale_stage, _torch
 from test_torch_flash_bf16_wide_tiles import _PlainKernels
-from test_torch_flash_wide_head import (DS, TOL, _inputs, _jax_backward,
-                                        _wide_backward)
 
 torch.set_num_threads(1)
 SOURCE = (Path(tfa.__file__).resolve().parent / "csrc" /
@@ -284,39 +281,46 @@ def test_planted_fault_fails_the_gate(case, fault):
 BF16, F32 = torch.bfloat16, torch.float32
 
 
-@pytest.mark.parametrize("D,dtype,kind,instance", [
-    (257, BF16, "fwd", (384, False)), (300, BF16, "dq", (384, False)),
-    (384, BF16, "fwd", (384, False)), (384, BF16, "dq", (384, False)),
-    (385, BF16, "fwd", (512, False)), (448, BF16, "dq", (512, False)),
-    (512, BF16, "fwd", (512, False)), (512, BF16, "dq", (512, False)),
-    (384, BF16, "dkv", (384, False)), (512, BF16, "dkv", (512, False)),
-    (513, BF16, "fwd", (640, False)), (576, BF16, "dq", (640, True)),
-    (384, F32, "fwd", (384, False)), (512, F32, "dq", (512, False)),
-    (320, F32, "dkv", (384, False)), (640, F32, "fwd", (640, False)),
-])
+_INSTANCE_CASES = [
+    (257, BF16, "fwd", 384), (300, BF16, "dq", 384), (384, BF16, "fwd", 384),
+    (384, BF16, "dq", 384), (385, BF16, "fwd", 512), (448, BF16, "dq", 512),
+    (512, BF16, "fwd", 512), (512, BF16, "dq", 512), (384, BF16, "dkv", 384),
+    (512, BF16, "dkv", 512), (513, BF16, "fwd", 640), (576, BF16, "dq", 640),
+    (384, F32, "fwd", 384), (512, F32, "dq", 512), (320, F32, "dkv", 384),
+    (640, F32, "fwd", 640),
+]
+
+
+# the ids the cases were written with, when each instance was a (head dim,
+# wide) pair
+@pytest.mark.parametrize("D,dtype,kind,instance", _INSTANCE_CASES, ids=[
+    f"{d}-dtype{i}-{kind}-instance{i}"
+    for i, (d, _, kind, _) in enumerate(_INSTANCE_CASES)])
 def test_split_instance_by_head_dim(D, dtype, kind, instance):
     """Every bf16 kernel runs wgmma at a padded 384 and 512; the f32
     forward, dq and dkv take their quarter instances on the tensor cores
     there (the same padded head dim); past 512, padded to a multiple of
-    128, the forward runs its slice instance and dq and dkv run wide. The
-    grid's y axis holds 65535 blocks of 64 q rows."""
-    assert tfa._kernel_instance(D, dtype, kind) == instance
-    assert tfa._kernel_head_dim(D) == instance[0]
-    assert tfa._max_t(instance[0]) == 65535 * ROWS
+    128, all three run their slice instances. The grid's y axis holds
+    65535 blocks of 64 q rows."""
+    assert tfa._kernel_head_dim(D) == instance
+    assert tfa._max_t(instance) == 65535 * ROWS
 
 
-@pytest.mark.parametrize("D,padded,wide", [
-    (300, 384, (0, 0)), (384, 384, (0, 0)), (448, 512, (0, 0)),
-    (512, 512, (0, 0)), pytest.param(576, 640, (1, 1), id="576-576-wide4")])
-def test_bf16_split_route_pads_counts_and_slices_back(D, padded, wide,
+# the cases keep the ids they were written with, when a third value
+# counted the wide launches and D576 ran the wide dq and dkv
+@pytest.mark.parametrize("D,padded", [
+    pytest.param(300, 384, id="300-384-wide0"),
+    pytest.param(384, 384, id="384-384-wide1"),
+    pytest.param(448, 512, id="448-512-wide2"),
+    pytest.param(512, 512, id="512-512-wide3"),
+    pytest.param(576, 640, id="576-576-wide4")])
+def test_bf16_split_route_pads_counts_and_slices_back(D, padded,
                                                       monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each kernel
     the bf16 head dim padded to 384 or 512 (a multiple of 128 past 512),
-    count one bf16 launch of each, a wide one of dq and dkv only past 512,
-    and
-    give back the plain version's results on
-    the zero-padded inputs, sliced back (sm_scale from the true D; the
-    zero columns change S's f32 sums only in their order)."""
+    count one bf16 launch of each, and give back the plain version's
+    results on the zero-padded inputs, sliced back (sm_scale from the true
+    D; the zero columns change S's f32 sums only in their order)."""
     rng = np.random.RandomState(D + 2)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(
         np.float32)).bfloat16() for _ in range(4))
@@ -334,7 +338,7 @@ def test_bf16_split_route_pads_counts_and_slices_back(D, padded, wide,
     grads = tfa.flash_backward(q, k, v, o, lse, g, lens, True)
     assert kernels.head_dims == [("fwd", padded), ("dq", padded),
                                  ("dkv", padded)]
-    assert kernels.counts() == (1, 1, 1) + wide
+    assert kernels.counts() == (1, 1, 1)
     torch.testing.assert_close(o, o_want, atol=0, rtol=0)
     torch.testing.assert_close(lse, lse_want, atol=0, rtol=0)
     for name, a, b in zip(("dq", "dk", "dv"), grads, grads_want):
@@ -359,25 +363,3 @@ def test_split_rings_fit_the_shared_memory(ring, D, want):
     smem = owned_bytes + ring_bytes + exchange + (1 + 2 * stages) * 8
     assert smem == want <= SMEM_LIMIT
     assert f"{want:,}" in SOURCE
-
-
-@pytest.mark.parametrize("causal", [True, False], ids=["causal", "ragged"])
-def test_wide_instances_past_512_match_pallas(causal):
-    """Past 512 bf16 dq and dkv run the wide instances: at D576, padded to
-    640, their outputs' D axis is five 128-column slices on the grid's z
-    axis (the D320 of ``tests/test_torch_flash_wide_head.py`` now pads to
-    384). The emulation holds against the Pallas backward in interpret
-    mode (f32, that file's tolerances). The forward there runs its slice
-    instance (``tests/test_torch_flash_fwd_past512_tiles.py``)."""
-    D = 576
-    B, H, T, lens = (2, 2, 80, None) if causal else (3, 1, 80, [80, 37, 0])
-    assert tfa._kernel_head_dim(D) == 5 * DS
-    assert tfa._kernel_instance(D, BF16, "fwd") == (5 * DS, False)
-    q, k, v, g = _inputs(B, H, T, D, seed=D)
-    sm = 1.0 / math.sqrt(D)
-    jo, jlse, want = _jax_backward(q, k, v, g, lens, causal, sm)
-    got = _wide_backward(*(torch.from_numpy(a) for a in (q, k, v, jo, jlse,
-                                                          g)),
-                         lens, causal, sm)
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        np.testing.assert_allclose(a.numpy(), b, err_msg=name, **TOL)

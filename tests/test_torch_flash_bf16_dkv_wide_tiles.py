@@ -14,9 +14,9 @@ D256, causal and ragged with a fully masked row, inputs from a numpy
 seed; a stale Q/dO stage planted at the query tile fails it. Then the
 route: dkv's instance by head dim, and the launch wiring with the kernel
 entry swapped for its plain version (padded D handed over, outputs
-sliced back, ``dkv_bf16_launches`` counted, ``dkv_wide_launches`` only
-past 512; D257-512 runs the instances of
-``tests/test_torch_flash_bf16_dkv_d512_tiles.py``).
+sliced back, ``dkv_bf16_launches`` counted; D257-512 runs the instances
+of ``tests/test_torch_flash_bf16_dkv_d512_tiles.py``, and past 512 those of
+``tests/test_torch_flash_bf16_bwd_past512_tiles.py``).
 """
 import math
 
@@ -90,35 +90,36 @@ def test_dkv_tiles_meet_the_card_gate(case):
 BF16, F32 = torch.bfloat16, torch.float32
 
 
-# instance: (the bf16 instance, the f32 one)
-@pytest.mark.parametrize("D,instance", [
-    (129, ((192, False),) * 2), (160, ((192, False),) * 2),
-    (192, ((192, False),) * 2), (193, ((256, False),) * 2),
-    (256, ((256, False),) * 2), (257, ((384, False),) * 2),
-    (512, ((512, False),) * 2),
-])
+_INSTANCE_CASES = [(129, 192), (160, 192), (192, 192), (193, 256),
+                   (256, 256), (257, 384), (512, 512)]
+
+
+# instance: the padded head dim of either dtype (the ids the cases were
+# written with, when it was a pair of (head dim, wide) pairs)
+@pytest.mark.parametrize("D,instance", _INSTANCE_CASES, ids=[
+    f"{d}-instance{i}" for i, (d, _) in enumerate(_INSTANCE_CASES)])
 def test_dkv_instance_by_head_dim(D, instance):
     """bf16 dkv runs wgmma up to a padded 512 (at 257-512 padded to 384
     or 512, as the forward and dq), and so does f32 dkv, on its 3xTF32
     instances. The grid's y axis holds 65535 blocks of 64 keys past
     128."""
-    assert tfa._kernel_instance(D, BF16, "dkv") == instance[0]
-    assert tfa._kernel_instance(D, F32, "dkv") == instance[1]
-    assert tfa._max_t(instance[0][0]) == 65535 * DKV_KEYS
+    assert tfa._kernel_head_dim(D) == instance
+    assert tfa._max_t(instance) == 65535 * DKV_KEYS
 
 
-# the D320 and D512 cases keep the ids they were written with, when D320
-# padded to 320 and both ran the wide instance
-@pytest.mark.parametrize("D,padded,wide", [
-    (160, 192, 0), (192, 192, 0), (256, 256, 0),
-    pytest.param(320, 384, 0, id="320-320-1"),
-    pytest.param(512, 512, 0, id="512-512-1")])
-def test_bf16_dkv_route_pads_counts_and_slices_back(D, padded, wide,
-                                                    monkeypatch):
+# the cases keep the ids they were written with, when a third value
+# counted the wide launches, D320 padded to 320 and both ran the wide
+# instance
+@pytest.mark.parametrize("D,padded", [
+    pytest.param(160, 192, id="160-192-0"),
+    pytest.param(192, 192, id="192-192-0"),
+    pytest.param(256, 256, id="256-256-0"),
+    pytest.param(320, 384, id="320-320-1"),
+    pytest.param(512, 512, id="512-512-1")])
+def test_bf16_dkv_route_pads_counts_and_slices_back(D, padded, monkeypatch):
     """flash_dkv on the CUDA route hands the kernel the bf16 head dim
-    padded to its instance, counts one bf16 launch and no wide one up to
-    512, and gives back the unpadded plain version's dk and dv (sm_scale
-    from the true D)."""
+    padded to its instance, counts one bf16 launch, and gives back the
+    unpadded plain version's dk and dv (sm_scale from the true D)."""
     rng = np.random.RandomState(D + 1)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(
         np.float32)).bfloat16() for _ in range(4))
@@ -130,7 +131,7 @@ def test_bf16_dkv_route_pads_counts_and_slices_back(D, padded, wide,
     kernels = _PlainKernels(monkeypatch)
     got = tfa.flash_dkv(q, k, v, lse, di, g, lens, True)
     assert kernels.head_dims == [("dkv", padded)]
-    assert kernels.counts() == (0, 0, 1, 0, wide)
+    assert kernels.counts() == (0, 0, 1)
     for name, a, b in zip(("dk", "dv"), got, want):
         assert a.dtype == BF16 and a.shape == (2, 2, 40, D), name
         torch.testing.assert_close(a, b, atol=0, rtol=0, msg=name)

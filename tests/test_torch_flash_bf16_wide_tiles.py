@@ -19,9 +19,9 @@ the forward and dq run their ``wgmma`` instances at 384 and 512
 (``tests/test_torch_flash_bf16_d512_tiles.py``), and dkv its own there
 (``tests/test_torch_flash_bf16_dkv_d512_tiles.py``); past 512 the forward
 runs its slice instance (``tests/test_torch_flash_fwd_past512_tiles.py``)
-and dq and dkv the wide ones (``tests/test_torch_flash_wide_head.py``
+and dq and dkv theirs (``tests/test_torch_flash_bf16_bwd_past512_tiles.py``
 emulates them). Then the route
-itself: which head dim and instance each kernel takes by dtype, the
+itself: which head dim each kernel takes by dtype, the
 launch wiring with the kernel entries swapped for their plain versions
 (padded D handed over, outputs sliced back, the launch counters), and
 the input checks on meta tensors.
@@ -109,23 +109,28 @@ def test_wide_tiles_meet_the_card_gate(case):
 BF16, F32 = torch.bfloat16, torch.float32
 
 
-@pytest.mark.parametrize("D,dtype,kind,instance", [
-    (160, BF16, "fwd", (192, False)), (160, BF16, "dq", (192, False)),
-    (192, BF16, "fwd", (192, False)), (256, BF16, "dq", (256, False)),
-    (200, BF16, "fwd", (256, False)), (160, BF16, "dkv", (192, False)),
-    (256, BF16, "dkv", (256, False)), (320, BF16, "fwd", (384, False)),
-    (320, BF16, "dq", (384, False)), (96, BF16, "dkv", (128, False)),
-    (160, F32, "fwd", (192, False)), (256, F32, "dq", (256, False)),
-    (96, F32, "fwd", (128, False)), (64, F32, "dkv", (64, False)),
-    (256, F32, "dkv", (256, False)), (320, F32, "fwd", (384, False)),
-])
+_INSTANCE_CASES = [
+    (160, BF16, "fwd", 192), (160, BF16, "dq", 192), (192, BF16, "fwd", 192),
+    (256, BF16, "dq", 256), (200, BF16, "fwd", 256), (160, BF16, "dkv", 192),
+    (256, BF16, "dkv", 256), (320, BF16, "fwd", 384), (320, BF16, "dq", 384),
+    (96, BF16, "dkv", 128), (160, F32, "fwd", 192), (256, F32, "dq", 256),
+    (96, F32, "fwd", 128), (64, F32, "dkv", 64), (256, F32, "dkv", 256),
+    (320, F32, "fwd", 384),
+]
+
+
+# the ids the cases were written with, when each instance was a (head dim,
+# wide) pair
+@pytest.mark.parametrize("D,dtype,kind,instance", _INSTANCE_CASES, ids=[
+    f"{d}-dtype{i}-{kind}-instance{i}"
+    for i, (d, _, kind, _) in enumerate(_INSTANCE_CASES)])
 def test_kernel_instance_by_dtype(D, dtype, kind, instance):
     """bf16 pads 160 to 192 and 256 to 256 on wgmma (all three kernels),
     and 320 to 384, where all three run wgmma too; f32 runs its
     forward, dq and dkv on the tensor cores at 192, 256 and 384, and the
-    padded head dim is the same in both."""
-    assert tfa._kernel_instance(D, dtype, kind) == instance
-    assert tfa._kernel_head_dim(D) == instance[0]
+    padded head dim is the same in both (every instance of either dtype
+    runs on the tensor cores)."""
+    assert tfa._kernel_head_dim(D) == instance
 
 
 class _PlainKernels:
@@ -140,8 +145,7 @@ class _PlainKernels:
         monkeypatch.setattr(tfa, "_plain_device", lambda t: False)
         for fn, names in ((tfa.flash_attention, ("bf16_launches",)),
                           (tfa.flash_backward, (
-                              "dq_bf16_launches", "dkv_bf16_launches",
-                              "dq_wide_launches", "dkv_wide_launches"))):
+                              "dq_bf16_launches", "dkv_bf16_launches"))):
             for name in names:
                 monkeypatch.setattr(fn, name, 0)
 
@@ -166,22 +170,20 @@ class _PlainKernels:
     def counts():
         return (tfa.flash_attention.bf16_launches,
                 tfa.flash_backward.dq_bf16_launches,
-                tfa.flash_backward.dkv_bf16_launches,
-                tfa.flash_backward.dq_wide_launches,
-                tfa.flash_backward.dkv_wide_launches)
+                tfa.flash_backward.dkv_bf16_launches)
 
 
-# the D320 case keeps the id it was written with, when D320 padded to 320
-@pytest.mark.parametrize("D,padded,wide", [
-    (160, 192, (0, 0)), (256, 256, (0, 0)),
-    pytest.param(320, 384, (0, 0), id="320-320-wide2")])
-def test_bf16_route_pads_counts_and_slices_back(D, padded, wide,
-                                                monkeypatch):
+# the cases keep the ids they were written with, when a third value
+# counted the wide launches and D320 padded to 320
+@pytest.mark.parametrize("D,padded", [
+    pytest.param(160, 192, id="160-192-wide0"),
+    pytest.param(256, 256, id="256-256-wide1"),
+    pytest.param(320, 384, id="320-320-wide2")])
+def test_bf16_route_pads_counts_and_slices_back(D, padded, monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each kernel
     the bf16 head dim padded to its instance, count one bf16 launch of
-    each and no wide one (at D320, padded to 384, all three on wgmma),
-    and give back the unpadded plain version's results (sm_scale from the
-    true D)."""
+    each (at D320, padded to 384, all three on wgmma), and give back the
+    unpadded plain version's results (sm_scale from the true D)."""
     rng = np.random.RandomState(D)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(
         np.float32)).bfloat16() for _ in range(4))
@@ -194,7 +196,7 @@ def test_bf16_route_pads_counts_and_slices_back(D, padded, wide,
     grads = tfa.flash_backward(q, k, v, o, lse, g, lens, True)
     assert kernels.head_dims == [("fwd", padded), ("dq", padded),
                                  ("dkv", padded)]
-    assert kernels.counts() == (1, 1, 1) + wide
+    assert kernels.counts() == (1, 1, 1)
     torch.testing.assert_close(o, o_want, atol=0, rtol=0)
     torch.testing.assert_close(lse, lse_want, atol=0, rtol=0)
     for name, a, b in zip(("dq", "dk", "dv"), grads, grads_want):
@@ -210,8 +212,7 @@ def _meta(B, H, T, D, dtype):
 @pytest.mark.parametrize("D", [160, 192, 256, 320])
 def test_kernel_checks_take_bf16_wide_heads(D):
     """bf16 q/k/v/o/dO past head dim 128 pass the checks; dkv's 64-key
-    blocks (wgmma up to 256, wide past it) on the grid's y axis bound T at
-    65535 x 64."""
+    blocks on the grid's y axis bound T at 65535 x 64."""
     q, k, v, do = _meta(2, 4, 16, D, BF16)
     tfa._check_kernel_inputs(q, k, v)
     tfa._check_kernel_inputs(q, k, v, q, do)

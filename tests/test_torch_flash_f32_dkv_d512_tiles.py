@@ -179,7 +179,7 @@ def test_quarter_dkv_tiles_fit_the_grid_and_the_shared_memory(D):
     half), the 64 keys a y index that ``_max_t`` counts."""
     assert (KEYS, QUERIES, PARTS) == (32, 8, 4)
     assert (D // PARTS) % 32 == 0
-    assert tfa._kernel_instance(D, torch.float32, "dkv") == (D, False)
+    assert tfa._kernel_head_dim(D) == D
     assert tfa._max_t(D) == 65535 * 2 * KEYS
     st = D + 4  # row stride in floats
     exchange = NWARPS * 2 * (QUERIES // 8) * 4 * 32 * 4

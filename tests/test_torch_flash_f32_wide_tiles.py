@@ -19,12 +19,10 @@ emulates it); all three run their quarter instances at 384 and 512
 (``tests/test_torch_flash_f32_d512_tiles.py``, and for dkv
 ``tests/test_torch_flash_f32_dkv_d512_tiles.py``); past 512 the forward
 runs its slice instance (``tests/test_torch_flash_fwd_past512_tiles.py``)
-and so do dq and dkv (``tests/test_torch_flash_f32_bwd_past512_tiles.py``):
-past 512 only the bf16 dq and dkv run the wide route
-(``tests/test_torch_flash_wide_head.py``). Then the route: the
-instance each f32 kernel takes, and the launch wiring with the kernel
-entries swapped for their plain versions (padded D handed over, outputs
-sliced back, the f32 and wide launch counters: no f32 wide launch).
+and so do dq and dkv (``tests/test_torch_flash_f32_bwd_past512_tiles.py``).
+Then the route: the head dim each f32 kernel takes, and the launch wiring
+with the kernel entries swapped for their plain versions (padded D
+handed over, outputs sliced back, the f32 launch counters).
 """
 import math
 import re
@@ -228,30 +226,33 @@ def test_split_tiles_fit_the_grid_and_the_emulation():
 F32 = torch.float32
 
 
-@pytest.mark.parametrize("D,kind,instance", [
-    (129, "fwd", (192, False)), (160, "dq", (192, False)),
-    (192, "fwd", (192, False)), (193, "dq", (256, False)),
-    (256, "fwd", (256, False)), (256, "dq", (256, False)),
-    (160, "dkv", (192, False)), (256, "dkv", (256, False)),
-    (257, "fwd", (384, False)), (320, "dq", (384, False)),
-    (128, "dkv", (128, False)), (512, "fwd", (512, False)),
-    (448, "dq", (512, False)), (320, "dkv", (384, False)),
-    (512, "dkv", (512, False)), (576, "fwd", (640, False)),
-    (576, "dq", (640, False)), (576, "dkv", (640, False)),
-])
+_INSTANCE_CASES = [
+    (129, "fwd", 192), (160, "dq", 192), (192, "fwd", 192), (193, "dq", 256),
+    (256, "fwd", 256), (256, "dq", 256), (160, "dkv", 192), (256, "dkv", 256),
+    (257, "fwd", 384), (320, "dq", 384), (128, "dkv", 128), (512, "fwd", 512),
+    (448, "dq", 512), (320, "dkv", 384), (512, "dkv", 512), (576, "fwd", 640),
+    (576, "dq", 640), (576, "dkv", 640),
+]
+
+
+# the ids the cases were written with, when each instance was a (head dim,
+# wide) pair
+@pytest.mark.parametrize("D,kind,instance", _INSTANCE_CASES, ids=[
+    f"{d}-{kind}-instance{i}"
+    for i, (d, kind, _) in enumerate(_INSTANCE_CASES)])
 def test_f32_kernel_instance(D, kind, instance):
     """f32's forward, dq and dkv take the tensor-core instances at a
     padded 192 and 256, and past 256 (a head dim in 257-512 padded to 384
     or 512, as in bf16) their quarter instances on the tensor cores; past
     512 (padded to a multiple of 128) their slice instances on the tensor
-    cores: no f32 kernel runs wide."""
-    assert tfa._kernel_instance(D, F32, kind) == instance
+    cores."""
+    assert tfa._kernel_head_dim(D) == instance
 
 
 class _PlainKernels:
     """The kernel entries swapped for their plain versions on the CPU:
     the head dims the CUDA route hands each kernel are recorded, and the
-    f32 and wide launch counters start at 0 (and go back after)."""
+    f32 launch counters start at 0 (and go back after)."""
 
     def __init__(self, monkeypatch):
         self.head_dims = []
@@ -260,8 +261,7 @@ class _PlainKernels:
         monkeypatch.setattr(tfa, "_plain_device", lambda t: False)
         for fn, names in ((tfa.flash_attention, ("launches",)),
                           (tfa.flash_backward, (
-                              "dq_launches", "dkv_launches",
-                              "dq_wide_launches", "dkv_wide_launches"))):
+                              "dq_launches", "dkv_launches"))):
             for name in names:
                 monkeypatch.setattr(fn, name, 0)
 
@@ -286,24 +286,23 @@ class _PlainKernels:
     def counts():
         return (tfa.flash_attention.launches,
                 tfa.flash_backward.dq_launches,
-                tfa.flash_backward.dkv_launches,
-                tfa.flash_backward.dq_wide_launches,
-                tfa.flash_backward.dkv_wide_launches)
+                tfa.flash_backward.dkv_launches)
 
 
-# the D320 and D576 cases keep the ids they were written with, when D320
-# padded to 320 and D576 ran the wide dq and dkv
-@pytest.mark.parametrize("D,padded,wide", [
-    (160, 192, (0, 0)), (256, 256, (0, 0)),
-    pytest.param(320, 384, (0, 0), id="320-320-wide2"),
-    (512, 512, (0, 0)), pytest.param(576, 640, (0, 0), id="576-576-wide4")])
-def test_f32_route_pads_counts_and_slices_back(D, padded, wide,
-                                               monkeypatch):
+# the cases keep the ids they were written with, when a third value
+# counted the wide launches, D320 padded to 320 and D576 ran the wide dq
+# and dkv
+@pytest.mark.parametrize("D,padded", [
+    pytest.param(160, 192, id="160-192-wide0"),
+    pytest.param(256, 256, id="256-256-wide1"),
+    pytest.param(320, 384, id="320-320-wide2"),
+    pytest.param(512, 512, id="512-512-wide3"),
+    pytest.param(576, 640, id="576-576-wide4")])
+def test_f32_route_pads_counts_and_slices_back(D, padded, monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each f32
     kernel the head dim padded to its instance, count one launch of each
-    and no wide one (past 512 too: dq and dkv run their slice instances),
-    and give back the unpadded plain version's results (sm_scale from the
-    true D)."""
+    (past 512 dq and dkv run their slice instances), and give back the
+    unpadded plain version's results (sm_scale from the true D)."""
     rng = np.random.RandomState(D)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(np.float32))
                   for _ in range(4))
@@ -316,7 +315,7 @@ def test_f32_route_pads_counts_and_slices_back(D, padded, wide,
     grads = tfa.flash_backward(q, k, v, o, lse, g, lens, True)
     assert kernels.head_dims == [("fwd", padded), ("dq", padded),
                                  ("dkv", padded)]
-    assert kernels.counts() == (1, 1, 1) + wide
+    assert kernels.counts() == (1, 1, 1)
     torch.testing.assert_close(o, o_want, **TOL)
     torch.testing.assert_close(lse, lse_want, **TOL)
     for name, a, b in zip(("dq", "dk", "dv"), grads, grads_want):

@@ -32,8 +32,8 @@ the card (``tests/test_torch_flash_bf16_d512_tiles.py``'s), against the
 bf16 plain version and Pallas at the same tiles; a stale K/V stage and a
 slice reading the wrong V box fail it. Every slice's lse and P are
 bitwise equal. Then the route with the kernel entries swapped for their
-plain versions (padding, counters: no wide forward), and the slice
-instances' shared memory.
+plain versions (padding, counters), and the slice instances' shared
+memory.
 """
 import math
 import re
@@ -353,9 +353,9 @@ def test_forward_past_512_pads_counts_and_slices_back(D, padded, dtype,
                                                       monkeypatch):
     """flash_forward and flash_backward on the CUDA route hand each kernel
     the head dim padded to a multiple of 128, count one launch of each on
-    the dtype's counters and a wide one of dq and dkv in bf16 only (the
-    forward has no wide instance left, nor f32 dq and dkv), and give back
-    the plain version's results on the zero-padded inputs, sliced back."""
+    the dtype's counters (no wide launch is counted: every kernel of
+    either dtype runs its slice instance there), and give back the plain
+    version's results on the zero-padded inputs, sliced back."""
     rng = np.random.RandomState(D)
     q, k, v, g = (torch.from_numpy(rng.randn(2, 2, 40, D).astype(
         np.float32)).to(dtype) for _ in range(4))
@@ -372,9 +372,11 @@ def test_forward_past_512_pads_counts_and_slices_back(D, padded, dtype,
     grads = tfa.flash_backward(q, k, v, o, lse, g, lens, True)
     assert kernels.head_dims == [("fwd", padded), ("dq", padded),
                                  ("dkv", padded)]
-    wide = int(dtype == BF16)
-    assert kernels.counts() == (1, 1, 1, wide, wide)
-    assert not hasattr(tfa.flash_attention, "wide_launches")
+    assert kernels.counts() == (1, 1, 1)
+    assert not any(hasattr(fn, f"{kind}wide_launches")
+                   for fn, kind in ((tfa.flash_attention, ""),
+                                    (tfa.flash_backward, "dq_"),
+                                    (tfa.flash_backward, "dkv_")))
     torch.testing.assert_close(o, o_want[..., :D], atol=0, rtol=0)
     torch.testing.assert_close(lse, lse_want, atol=0, rtol=0)
     for name, a, b in zip(("dq", "dk", "dv"), grads, grads_want):
@@ -385,14 +387,14 @@ def test_forward_past_512_pads_counts_and_slices_back(D, padded, dtype,
 @pytest.mark.parametrize("D", [513, 576, 640, 1000, 1024, 1025, 2048, 4096])
 def test_forward_never_runs_wide(D):
     """Past 512 the forward of either dtype runs its slice instance at D
-    padded to a multiple of 128 (dq and dkv their slice instances in f32,
-    their wide ones in bf16), and the grid's y axis holds 65535 blocks of
-    64 q rows (bf16; f32: pairs of 32-row blocks, the pair's halves and
-    the slices on z)."""
+    padded to a multiple of 128 (so do dq and dkv), no source of the
+    flash libraries holds a wide instance, and the grid's y axis holds
+    65535 blocks of 64 q rows (bf16; f32: pairs of 32-row blocks, the
+    pair's halves and the slices on z)."""
     kd = -(-D // 128) * 128
-    for dtype in (F32, BF16):
-        assert tfa._kernel_instance(D, dtype, "fwd") == (kd, False)
-        assert tfa._kernel_instance(D, dtype, "dq") == (kd, dtype == BF16)
+    assert tfa._kernel_head_dim(D) == kd
+    for name in ("flash_attention_fwd.cu", "flash_attention_bf16.cu"):
+        assert "_wide_kernel" not in (CSRC / name).read_text()
     assert tfa._max_t(kd) == 65535 * BF16_ROWS == 65535 * 2 * F32_ROWS
 
 
