@@ -19,6 +19,7 @@
     python3 chip_smoke.py --bf16-wide-times # phases 1, 2 and 12a's wide-head times
     python3 chip_smoke.py --lstm-only       # phases 1, 2 and 13 only
     python3 chip_smoke.py --zoo-only        # phases 1, 2 and 14 only
+    python3 chip_smoke.py --trainer-only    # phases 1, 2 and 15 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -333,6 +334,30 @@ Phases, each fatal on failure (nonzero exit, no result line):
     it 13 times; the logits against the plain path; the InferenceEngine
     replay (13 GEMM launches in a profiled replay), images/s and the
     graph's device ms.
+
+15. The trainer plane, each part fatal on failure: (a) bench.py's
+    ``transformer`` (the per-layer LM, d1024 L8 H8 d_ff 4096 V16384, 8 x
+    2048 tokens, Adam 1e-4, f32) through ``trainer.SGD.train`` over a
+    batched reader of rows (ids[2048], tgt[2048]) and ``DataFeeder``: a
+    pass of 6 batches with ``async_depth=1`` and, from the same start
+    state, with ``async_depth=3``: the losses bitwise equal, 8 launches a
+    step of the f32 flash forward, dq and dkv by the counters in each pass
+    and in a traced trainer step, no bf16 ones; ms a step of each loop and
+    of the executor's own loop (a device-resident feed, one blocking read)
+    from the same state, the device ms a step and each loop's host gap;
+    (b) the same pass with ``CheckpointConfig(every_n_steps=2, keep=2)``,
+    synchronous then in the background: the losses unchanged, 3 saves and
+    2 kept, the stall ms a save (``ckpt/stall``) and the bytes of a
+    checkpoint; then ``FaultPlan().at(step=3, kind="crash")``, and a new
+    pass resumes from the latest checkpoint to the end: every final value
+    against the uninterrupted run, bitwise when the two uninterrupted runs
+    (sync and pipelined) agree bitwise, else within their largest
+    difference; (c) bench.py's ``train_pipeline`` (MLP dim 1024, batch
+    256, depth 4, 30 steps, 3 rounds), ``checkpoint`` (dim 512, batch 64,
+    every 4) and ``transpiler_resnet50`` (ResNet-50 at batch 16, 224 x
+    224, raw against ``inference_pipeline(epilogue=True)``: 33
+    conv1x1_epilogue launches a batch, the logits within 1e-4) rows, with
+    bench.py's keys; the feeds on the card.
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -1765,22 +1790,29 @@ def transformer_train_flops(bs, T, d, n_layers, vocab, d_ff=None):
     return 3 * (dense + attn + head)
 
 
-def _build_training_program(pt, c, pipeline_stack=True):
+def _lm_loss(pt, c, pipeline_stack=True):
+    """The LM at ``c`` and its mean cross-entropy, built into the current
+    programs: (ids, tgt, loss)."""
     from paddle_tpu_torch import layers, models
 
+    ids = layers.data("ids", shape=[c["seq"]], dtype="int64")
+    tgt = layers.data("tgt", shape=[c["seq"]], dtype="int64")
+    logits = models.transformer_lm(
+        ids, vocab_size=c["vocab"], d_model=c["d_model"],
+        n_layers=c["n_layers"], num_heads=c["num_heads"],
+        d_ff=c["d_ff"], max_len=c["max_len"],
+        pipeline_stack=pipeline_stack)
+    loss = layers.mean(layers.softmax_with_cross_entropy(
+        layers.reshape(logits, shape=[-1, c["vocab"]]),
+        layers.reshape(tgt, shape=[-1, 1])))
+    return ids, tgt, loss
+
+
+def _build_training_program(pt, c, pipeline_stack=True):
     main, startup = pt.Program(), pt.Program()
     startup.random_seed = SEED
     with pt.program_guard(main, startup):
-        ids = layers.data("ids", shape=[c["seq"]], dtype="int64")
-        tgt = layers.data("tgt", shape=[c["seq"]], dtype="int64")
-        logits = models.transformer_lm(
-            ids, vocab_size=c["vocab"], d_model=c["d_model"],
-            n_layers=c["n_layers"], num_heads=c["num_heads"],
-            d_ff=c["d_ff"], max_len=c["max_len"],
-            pipeline_stack=pipeline_stack)
-        loss = layers.mean(layers.softmax_with_cross_entropy(
-            layers.reshape(logits, shape=[-1, c["vocab"]]),
-            layers.reshape(tgt, shape=[-1, 1])))
+        _, _, loss = _lm_loss(pt, c, pipeline_stack)
         params_grads = pt.optimizer.AdamOptimizer(
             learning_rate=c["lr"]).minimize(loss, startup_program=startup)
     return main, startup, loss, params_grads
@@ -5804,6 +5836,559 @@ def zoo_phase(gpu_name):
     return records, rec
 
 
+# --- The trainer plane (phase 15) -------------------------------------------
+# SGD.train of bench.py's transformer row (bench.py:154-160, TRAIN's
+# width: the per-layer LM the JAX benchmark trains) in f32 for a pass of
+# TRAINER_STEPS batches, synchronously and with TRAINER_DEPTH steps in
+# flight; checkpoints every TRAINER_CKPT_EVERY steps keeping
+# TRAINER_CKPT_KEEP, and a crash before step TRAINER_CRASH_STEP resumed
+TRAINER_STEPS = 6
+TRAINER_DEPTH = 3
+TRAINER_CKPT_EVERY = 2
+TRAINER_CKPT_KEEP = 2
+TRAINER_CRASH_STEP = 3
+TRAINER_FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# bench.py's rows as it writes them: bench_train_pipeline (:463),
+# bench_checkpoint (:635) and bench_transpiler (:332)
+TRAIN_PIPELINE = dict(batch=256, dim=1024, depth=4, steps=30, warmup=5,
+                      rounds=3)
+CKPT_BENCH = dict(batch=64, dim=512, steps=24, every=4, rounds=3)
+TRANSPILER = dict(batch=16, hw=224, steps=30)
+
+
+def _scope_state(scope):
+    """Every scope value, tensors cloned (the RNG key is a pair of
+    tensors that no op writes into)."""
+    import torch
+
+    return {n: (scope.get(n).clone() if isinstance(scope.get(n), torch.Tensor)
+                else scope.get(n)) for n in list(scope.keys())}
+
+
+def _put_state(scope, state):
+    import torch
+
+    for n, v in state.items():
+        scope.set(n, v.clone() if isinstance(v, torch.Tensor) else v)
+
+
+def _state_gap(got, want):
+    """(max |got - want| over every tensor, the names that differ)."""
+    import torch
+
+    worst, names = 0.0, []
+    for n, w in want.items():
+        g = got[n]
+        if not isinstance(w, torch.Tensor):
+            if tuple(int(t) for t in g) != tuple(int(t) for t in w):
+                names.append(n)
+            continue
+        if not torch.equal(g, w):
+            names.append(n)
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
+    return worst, names
+
+
+def _trainer_batches(c, n):
+    """``n`` minibatches of rows (ids[seq], tgt[seq]) from a seed."""
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 15)
+    out = []
+    for _ in range(n):
+        ids = rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+        tgt = rng.randint(0, c["vocab"], size=(c["batch"], c["seq"]))
+        out.append([(ids[i].astype("int64"), tgt[i].astype("int64"))
+                    for i in range(c["batch"])])
+    return out
+
+
+def _train_pass(trainer, state, batches, **kw):
+    """One ``SGD.train`` pass over ``batches`` from ``state``: (losses,
+    batch ids, wall seconds, final state)."""
+    import torch
+
+    from paddle_tpu_torch import event
+
+    ends = []
+    _put_state(trainer.scope, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train(lambda: iter(batches), event_handler=lambda e: ends.append(
+        (e.batch_id, e.cost)) if isinstance(e, event.EndIteration) else None,
+                  **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([c for _, c in ends], [b for b, _ in ends], wall,
+            _scope_state(trainer.scope))
+
+
+def _ckpt_totals():
+    """(ckpt/stall ms, ckpt/saves) so far in the port's global StatSet."""
+    from paddle_tpu_torch import profiler
+
+    d = profiler.global_stat.as_dict(prefix="ckpt/")
+    return (d.get("ckpt/stall", {}).get("total_ms", 0.0),
+            d.get("ckpt/saves", {}).get("total_ms", 0))
+
+
+def _embedding_grad_times(ids, c):
+    """The embedding gradient at the LM's shape, from the ids of one of
+    its batches: as ``lookup_table``'s gradient computes it (an
+    accumulating ``index_put_``, ops/tensor_ops.py) and as ``index_add_``
+    would. ms a call on CUDA events, in alternating rounds, and whether
+    five repeats give the first call's bits."""
+    import torch
+
+    torch.manual_seed(SEED)
+    rows = ids.reshape(-1)
+    og = torch.randn(rows.numel(), c["d_model"], device=rows.device)
+    table = torch.empty(c["vocab"], c["d_model"], device=rows.device)
+    ops = {"index_put_": lambda: torch.zeros_like(table).index_put_(
+        (rows,), og, accumulate=True),
+        "index_add_": lambda: torch.zeros_like(table).index_add_(0, rows, og)}
+    out = {}
+    for name, fn in ops.items():
+        first = fn()
+        out[name] = {"ms": [], "repeat_bitwise": all(
+            torch.equal(fn(), first) for _ in range(5))}
+    for _ in range(3):
+        for name, fn in ops.items():
+            out[name]["ms"].append(_cuda_ms(fn, iters=20))
+    for v in out.values():
+        v["ms"] = sorted(v["ms"])[1]
+    return out
+
+
+def trainer_lm_part(gpu_name, c=None):
+    """Phase 15 (a) and (b): the per-layer LM at TRAIN's width through
+    ``SGD.train``. Returns its record."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import checkpoint as ckpt_mod
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.resilience import (CheckpointConfig, FaultPlan,
+                                             SimulatedCrash)
+    from paddle_tpu_torch.trainer import SGD
+
+    c = c or PER_LAYER
+    L, n = c["n_layers"], TRAINER_STEPS
+    t0 = time.perf_counter()
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        ids, tgt, loss = _lm_loss(pt, c, pipeline_stack=False)
+        trainer = SGD(cost=loss, optimizer=pt.optimizer.AdamOptimizer(
+            learning_rate=c["lr"]), feed_list=[ids, tgt],
+            place=pt.CUDAPlace(0), scope=pt.Scope())
+    trainer._init_params()
+    start = _scope_state(trainer.scope)
+    params = main.all_parameters()
+    n_params = sum(trainer.scope.get(p.name).numel() for p in params)
+    state_bytes = sum(v.numel() * v.element_size() for v in start.values()
+                      if isinstance(v, torch.Tensor))
+    batches = _trainer_batches(c, n)
+    tag = f"d{c['d_model']} L{L} H{c['num_heads']}"
+    print(f"trainer: per-layer LM {tag} f32, {len(params)} parameters "
+          f"({n_params} = {n_params / 1e6:.1f} M), scope state "
+          f"{state_bytes / 1e9:.3f} GB with Adam's moments, built and "
+          f"initialised in {time.perf_counter() - t0:.2f} s")
+    out = {"config": c, "params": n_params, "state_bytes": state_bytes,
+           "steps": n}
+
+    # (a) sync and pipelined passes from the same start, each warmed by a
+    # one-batch pass; the flash counters cover each measured pass alone
+    runs = {}
+    for depth in (1, TRAINER_DEPTH):
+        _train_pass(trainer, start, batches[:1], async_depth=depth)
+        _reset_flash_counts(fa)
+        losses, order, wall, final = _train_pass(trainer, start, batches,
+                                                 async_depth=depth)
+        counts = _flash_counts(fa)
+        assert counts == (L * n,) * 3 + (0,) * 3, (depth, counts)
+        assert order == list(range(n)), order
+        assert all(np.isfinite(losses)), losses
+        runs[depth] = (losses, wall, final, trainer.goodput.snapshot())
+    (l_sync, w_sync, f_sync, m_sync), (l_async, w_async, f_async, meter) = (
+        runs[1], runs[TRAINER_DEPTH])
+    assert l_sync == l_async, ("sync and pipelined losses differ",
+                               l_sync, l_async)
+    # the executor's own loop from the same state: a device-resident
+    # feed, every step dispatched, one blocking read at the end
+    feed = {k: torch.from_numpy(v).cuda()
+            for k, v in trainer.feeder.feed(batches[0]).items()}
+
+    def step():
+        return trainer.exe.run(main, feed=feed, fetch_list=[loss],
+                               scope=trainer.scope, return_numpy=False)
+
+    _put_state(trainer.scope, start)
+    step()[0].item()
+    t1 = time.perf_counter()
+    for _ in range(n):
+        last, = step()
+    last.item()
+    exe_ms = (time.perf_counter() - t1) / n * 1e3
+    dev_ms = _device_ms(step, iters=3)
+    quiet = lambda e: None  # noqa: E731
+    traced = _count_kernels(
+        lambda: trainer.train(lambda: iter(batches[:1]), event_handler=quiet,
+                              goodput=False),
+        TRAINER_FLASH, expect=dict.fromkeys(TRAINER_FLASH, L))
+    assert traced is not None, "the trainer step's trace held no kernels"
+    assert all(traced[k] == L for k in TRAINER_FLASH), traced
+    sync_ms, async_ms = w_sync / n * 1e3, w_async / n * 1e3
+    gap = (lambda ms: None if dev_ms is None else ms - dev_ms)
+    print(f"trainer (a): losses sync {l_sync}; async_depth={TRAINER_DEPTH} "
+          f"{l_async} (bitwise equal)")
+    print(f"trainer (a): ms a step sync {sync_ms:.1f}, async_depth="
+          f"{TRAINER_DEPTH} {async_ms:.1f}, the executor's loop {exe_ms:.1f};"
+          f" device {_ms_text(dev_ms, '.1f')} ms a step; host gap sync "
+          f"{_ms_text(gap(sync_ms), '.1f')}, async "
+          f"{_ms_text(gap(async_ms), '.1f')}, the executor's loop "
+          f"{_ms_text(gap(exe_ms), '.1f')} ms; flash launches a step "
+          f"fwd/dq/dkv {[k // n for k in counts[:3]]} by the counters, "
+          f"{[traced[k] for k in TRAINER_FLASH]} in a traced trainer step, "
+          f"bf16 {list(counts[3:])}")
+    print(f"trainer (a): goodput of the sync pass {m_sync['goodput']}, "
+          f"of the async pass {meter['goodput']}; async buckets (s) "
+          f"{meter['buckets']}")
+    emb = _embedding_grad_times(feed["ids"], c)
+    print(f"trainer (a): embedding gradient [{c['vocab']}, {c['d_model']}] "
+          f"from {feed['ids'].numel()} ids: " + "; ".join(
+              f"{k} {v['ms']:.3f} ms, five repeats bitwise "
+              f"{'equal' if v['repeat_bitwise'] else 'unequal'}"
+              for k, v in emb.items()))
+    out["a"] = {"losses_sync": l_sync, "losses_async": l_async,
+                "async_depth": TRAINER_DEPTH, "sync_ms_per_step": sync_ms,
+                "async_ms_per_step": async_ms, "executor_ms_per_step": exe_ms,
+                "device_ms_per_step": dev_ms,
+                "host_gap_sync_ms": gap(sync_ms),
+                "host_gap_async_ms": gap(async_ms),
+                "host_gap_executor_ms": gap(exe_ms),
+                "flash_launches_per_step": [k // n for k in counts[:3]],
+                "flash_launches_traced_step": [traced[k]
+                                               for k in TRAINER_FLASH],
+                "goodput_sync": m_sync, "goodput_async": meter,
+                "embedding_grad": emb}
+    del feed, last
+
+    # (b) checkpoints every TRAINER_CKPT_EVERY steps, sync then background
+    root = ROOT / "build" / "trainer_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    free = shutil.disk_usage(ROOT).free
+    print(f"trainer (b): {free / 1e9:.1f} GB free where the checkpoints go")
+    saves = {}
+    for background in (False, True):
+        d = root / ("background" if background else "sync")
+        cfg = CheckpointConfig(str(d), every_n_steps=TRAINER_CKPT_EVERY,
+                               keep=TRAINER_CKPT_KEEP, background=background,
+                               resume=False, install_signal_handlers=False)
+        stall0, n0 = _ckpt_totals()
+        losses, _, wall, _ = _train_pass(trainer, start, batches,
+                                         checkpoint=cfg)
+        stall1, n1 = _ckpt_totals()
+        n0, n1 = int(n0), int(n1)
+        kept = sorted(p.name for p in d.glob("ckpt-*.npz"))
+        nbytes = (d / f"ckpt-{n}.npz").stat().st_size
+        assert losses == l_sync, ("a checkpointed pass trained differently",
+                                  losses, l_sync)
+        assert n1 - n0 == n // TRAINER_CKPT_EVERY, (n0, n1)
+        assert len(kept) == TRAINER_CKPT_KEEP, kept
+        saves["background" if background else "sync"] = {
+            "stall_ms_per_save": (stall1 - stall0) / (n1 - n0),
+            "saves": n1 - n0, "ckpt_bytes": nbytes,
+            "ms_per_step": wall / n * 1e3, "kept": kept}
+        shutil.rmtree(d)
+    print("trainer (b): " + "; ".join(
+        f"{k} saves: {v['saves']} of {v['ckpt_bytes']} bytes each, stall "
+        f"{v['stall_ms_per_save']:.1f} ms a save, {v['ms_per_step']:.1f} ms "
+        f"a step over the pass" for k, v in saves.items()))
+    # a crash before step TRAINER_CRASH_STEP, then resume in a new pass
+    d = root / "crash"
+    cfg = CheckpointConfig(str(d), every_n_steps=TRAINER_CKPT_EVERY,
+                           keep=TRAINER_CKPT_KEEP, background=True,
+                           install_signal_handlers=False)
+    _put_state(trainer.scope, start)
+    plan = FaultPlan().at(step=TRAINER_CRASH_STEP, kind="crash")
+    with plan.active():
+        try:
+            trainer.train(lambda: iter(batches), event_handler=quiet,
+                          checkpoint=cfg)
+        except SimulatedCrash:
+            pass  # the planned crash; anything else propagates
+    assert plan.pending() == [], plan
+    saved = ckpt_mod.latest_step(str(d))
+    resumed, order, _, f_resumed = _train_pass(trainer, start, batches,
+                                               checkpoint=cfg)
+    shutil.rmtree(root)
+    assert order == list(range(saved, n)), (saved, order)
+    runs_gap, runs_differ = _state_gap(f_async, f_sync)
+    gap_r, differ = _state_gap(f_resumed, f_sync)
+    if not runs_differ:
+        assert not differ and resumed == l_sync[saved:], (
+            "resume is not bit-exact", differ, gap_r)
+        verdict = "bitwise equal, as the two uninterrupted runs are"
+    else:
+        assert gap_r <= runs_gap, (gap_r, runs_gap, differ)
+        verdict = (f"within {runs_gap:.3e} (the two uninterrupted runs' "
+                   f"largest difference, in {runs_differ[:4]})")
+    print(f"trainer (b): crash before step {TRAINER_CRASH_STEP}, resumed "
+          f"from step {saved}: batches {order}, losses {resumed}; every "
+          f"final value against the uninterrupted run: {verdict}")
+    out["b"] = {"saves": saves, "crash_step": TRAINER_CRASH_STEP,
+                "resumed_from": saved, "resumed_losses": resumed,
+                "uninterrupted_runs_differ": runs_differ,
+                "uninterrupted_runs_gap": runs_gap,
+                "resumed_differ": differ, "resumed_gap": gap_r}
+    del trainer, start, f_sync, f_async, f_resumed, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mlp_trainer(pt, dim, batch):
+    """bench.py's trainer-row model: a 3-layer MLP (dim, dim, 10) under
+    SGD 0.1, and a batch of rows from RandomState(0)."""
+    import numpy as np
+
+    from paddle_tpu_torch import layers
+    from paddle_tpu_torch.trainer import SGD
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = layers.data("x", shape=[dim])
+        y = layers.data("y", shape=[1], dtype="int64")
+        h = layers.fc(x, size=dim, act="relu")
+        h = layers.fc(h, size=dim, act="relu")
+        logits = layers.fc(h, size=10)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, y))
+        trainer = SGD(cost=loss,
+                      optimizer=pt.optimizer.SGDOptimizer(learning_rate=0.1),
+                      feed_list=[x, y], place=pt.CUDAPlace(0),
+                      scope=pt.Scope())
+    rng = np.random.RandomState(0)
+    xs = rng.rand(batch, dim).astype("float32")
+    ys = rng.randint(0, 10, size=(batch, 1)).astype("int64")
+    return trainer, main, loss, xs, ys, [(xs[i], ys[i]) for i in range(batch)]
+
+
+def bench_train_pipeline_row(pt, batch, dim, depth, steps, warmup, rounds):
+    """bench.py's bench_train_pipeline on the card: the same keys."""
+    import torch
+
+    trainer, main, loss, xs, ys, rows = _mlp_trainer(pt, dim, batch)
+
+    def reader():
+        for _ in range(steps):
+            yield rows
+
+    trainer._init_params()
+    quiet = lambda e: None  # noqa: E731
+
+    def measure(async_depth):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(reader, num_passes=1, event_handler=quiet,
+                      async_depth=async_depth)
+        return (time.perf_counter() - t0) / steps
+
+    # the device's step: a CUDA-resident feed, every step dispatched, one
+    # blocking read closing the window
+    feed_dev = {"x": torch.from_numpy(xs).cuda(),
+                "y": torch.from_numpy(ys).cuda()}
+    for _ in range(warmup):
+        trainer.exe.run(main, feed=feed_dev, fetch_list=[loss],
+                        scope=trainer.scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        out, = trainer.exe.run(main, feed=feed_dev, fetch_list=[loss],
+                               scope=trainer.scope, return_numpy=False)
+    out.item()
+    device_s = (time.perf_counter() - t0) / steps
+    measure(1)
+    measure(depth)
+    sync_s, async_s = [], []
+    for _ in range(rounds):
+        sync_s.append(measure(1))
+        async_s.append(measure(depth))
+    sync = sorted(sync_s)[rounds // 2]
+    asynd = sorted(async_s)[rounds // 2]
+    return {
+        "sync_ms_per_step": round(sync * 1e3, 3),
+        "async_ms_per_step": round(asynd * 1e3, 3),
+        "device_ms_per_step": round(device_s * 1e3, 3),
+        "host_gap_sync_ms": round((sync - device_s) * 1e3, 3),
+        "host_gap_async_ms": round((asynd - device_s) * 1e3, 3),
+        "async_depth": depth,
+        "speedup_pct": round((sync - asynd) / sync * 100.0, 2),
+    }
+
+
+def bench_checkpoint_row(pt, batch, dim, steps, every, rounds):
+    """bench.py's bench_checkpoint on the card: the same keys."""
+    import os
+    import shutil
+
+    import torch
+
+    from paddle_tpu_torch.resilience import CheckpointConfig
+
+    trainer, _, _, _, _, rows = _mlp_trainer(pt, dim, batch)
+
+    def reader():
+        for _ in range(steps):
+            yield rows
+
+    trainer._init_params()
+    quiet = lambda e: None  # noqa: E731
+    workdir = ROOT / "build" / "bench_ckpt"
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    def measure(background):
+        ckpt = None
+        if background is not None:
+            ckpt = CheckpointConfig(
+                str(workdir / f"bg{int(background)}"), every_n_steps=every,
+                keep=2, background=background, resume=False,
+                save_final=False, install_signal_handlers=False)
+        stall0 = _ckpt_totals()[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(reader, num_passes=1, event_handler=quiet,
+                      checkpoint=ckpt)
+        wall = (time.perf_counter() - t0) / steps
+        return wall, (_ckpt_totals()[0] - stall0) / 1e3 / steps
+
+    try:
+        for m in (None, False, True):
+            measure(m)
+        base_s, sync_s, bg_s = [], [], []
+        for _ in range(rounds):
+            base_s.append(measure(None))
+            sync_s.append(measure(False))
+            bg_s.append(measure(True))
+        med = lambda xs, i: sorted(x[i] for x in xs)[rounds // 2]  # noqa: E731
+        base = med(base_s, 0)
+        sync, sync_stall = med(sync_s, 0), med(sync_s, 1)
+        bg, bg_stall = med(bg_s, 0), med(bg_s, 1)
+        ckpt_bytes = 0
+        for dirpath, _, files in os.walk(workdir):
+            ckpt_bytes = max([ckpt_bytes] + [
+                os.path.getsize(os.path.join(dirpath, f))
+                for f in files if f.endswith(".npz")])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {
+        "base_ms_per_step": round(base * 1e3, 3),
+        "sync_ms_per_step": round(sync * 1e3, 3),
+        "background_ms_per_step": round(bg * 1e3, 3),
+        "sync_overhead_pct": round((sync - base) / base * 100.0, 2),
+        "background_overhead_pct": round((bg - base) / base * 100.0, 2),
+        "sync_stall_ms_per_step": round(sync_stall * 1e3, 3),
+        "background_stall_ms_per_step": round(bg_stall * 1e3, 3),
+        "sync_stall_pct": round(sync_stall / base * 100.0, 2),
+        "background_stall_pct": round(bg_stall / base * 100.0, 2),
+        "every_n_steps": every,
+        "ckpt_bytes": int(ckpt_bytes),
+    }
+
+
+def bench_transpiler_row(pt, batch, hw, steps):
+    """bench.py's bench_transpiler on the card (ResNet-50, epilogue on):
+    the same keys, plus the conv1x1_epilogue launches a transpiled batch.
+    The port compiles nothing: ``*_compile_s`` is the first run's wall."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import layers, models
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+
+    main_prog, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main_prog, startup):
+        images = layers.data("images", shape=[hw, hw, 3])
+        logits = models.resnet_imagenet(images, num_classes=1000, depth=50,
+                                        is_test=True)
+    scope = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    img = torch.from_numpy(rng.rand(batch, hw, hw, 3).astype("float32")).cuda()
+    raw = pt.io.prune_program(main_prog, ["images"], [logits.name])
+    opt_scope = pt.Scope(parent=scope)
+    pm = pt.transpiler.inference_pipeline(epilogue=True)
+    t0 = time.perf_counter()
+    opt = pm.run(main_prog.clone(), ["images"], [logits.name],
+                 scope=opt_scope)
+    transpile_ms = (time.perf_counter() - t0) * 1e3
+
+    def measure(prog, run_scope):
+        exe = pt.Executor(pt.CUDAPlace(0))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(prog, feed={"images": img}, fetch_list=[logits.name],
+                scope=run_scope)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            o, = exe.run(prog, feed={"images": img},
+                         fetch_list=[logits.name], scope=run_scope,
+                         return_numpy=False)
+        o.cpu()
+        return first_s, (time.perf_counter() - t0) / steps, o
+
+    raw_first, raw_step, raw_out = measure(raw, scope)
+    _reset_conv_counts(ke)
+    opt_first, opt_step, opt_out = measure(opt, opt_scope)
+    launches = _conv_counts(ke)[1]
+    fused = sum(op.type == "conv1x1_bn_act" for op in opt.global_block.ops)
+    assert fused == FUSED_OPS and launches == fused * (steps + 1), (
+        fused, launches)
+    err = float((opt_out - raw_out).abs().max() / raw_out.abs().max())
+    assert err <= TRANSPILE_RTOL, err
+    return {
+        "raw_ops": len(raw.global_block.ops),
+        "transpiled_ops": len(opt.global_block.ops),
+        "transpile_ms": round(transpile_ms, 1),
+        "raw_compile_s": round(raw_first, 3),
+        "transpiled_compile_s": round(opt_first, 3),
+        "raw_ms_per_batch": round(raw_step * 1e3, 3),
+        "transpiled_ms_per_batch": round(opt_step * 1e3, 3),
+        "pass_stats": pm.stats(),
+        "conv1x1_epilogue_launches_per_batch": launches // (steps + 1),
+        "transpiled_vs_raw_rel_err": err,
+    }
+
+
+def trainer_phase(gpu_name):
+    """Phase 15: the trainer plane. (a)-(b) the per-layer LM through
+    ``SGD.train``, (c) bench.py's train_pipeline, checkpoint and
+    transpiler_resnet50 rows. Returns its record."""
+    import paddle_tpu_torch as pt
+
+    seconds = [time.perf_counter()]
+    out = {"lm": trainer_lm_part(gpu_name)}
+    seconds.append(time.perf_counter())
+    rows = {"train_pipeline": bench_train_pipeline_row(pt, **TRAIN_PIPELINE),
+            "checkpoint": bench_checkpoint_row(pt, **CKPT_BENCH)}
+    seconds.append(time.perf_counter())
+    rows["transpiler_resnet50"] = bench_transpiler_row(pt, **TRANSPILER)
+    seconds.append(time.perf_counter())
+    for name, row in rows.items():
+        print(f"trainer (c) {name}: " + json.dumps(
+            {k: v for k, v in row.items() if k != "pass_stats"}))
+    out["rows"] = rows
+    out["seconds"] = [b - a for a, b in zip(seconds, seconds[1:])]
+    print("phase 15 seconds: " + ", ".join(
+        f"{part} {s:.1f}" for part, s in zip(
+            ("lm (a, b)", "trainer rows", "transpiler row"), out["seconds"])))
+    return out
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -5898,6 +6483,11 @@ def main():
                         help="build the kernels and run only phase 14 (the "
                              "image-zoo rows and MobileNet served on the "
                              "conv epilogue); prints no ok line")
+    parser.add_argument("--trainer-only", action="store_true",
+                        help="build the kernels and run only phase 15 (the "
+                             "trainer plane: SGD.train of the per-layer LM, "
+                             "checkpoints and resume, bench.py's trainer and "
+                             "transpiler rows); prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -6046,6 +6636,14 @@ def main():
                                       for r in recs]}))
         print(smi)
         return
+    if args.trainer_only:
+        trainer = trainer_phase(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_trainer.json").write_text(json.dumps(
+            {"gpu": smi, "trainer": trainer}, indent=1))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -6114,6 +6712,8 @@ def main():
     recurrent = recurrent_phase()
     torch.cuda.empty_cache()
     zoo_recs, zoo = zoo_phase(gpu)
+    torch.cuda.empty_cache()
+    trainer = trainer_phase(gpu)
     records = ([kern, slice_record(
                    kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
@@ -6133,7 +6733,7 @@ def main():
          "resnet_inference": resnet_inference,
          "attention_rewrite": attention, "amp": amp,
          "per_layer": per_layer, "recurrent": recurrent, "zoo": zoo,
-         "build_s": built,
+         "trainer": trainer, "build_s": built,
          "rng": rng},
         indent=1))
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -9,7 +9,13 @@ build a program, ``optimizer.*Optimizer(...).minimize`` appends the
 backward pass and the updates, and ``Executor`` runs it (ResNet's fused
 conv epilogue under ``flags.FLAGS.fused_conv_epilogue``), in f32 or under
 mixed precision (``set_amp(True)`` or ``flags.FLAGS.use_amp``: bf16
-products on f32 master weights).
+products on f32 master weights). The trainer plane drives that loop:
+``trainer.SGD(cost, optimizer, feed_list).train(reader, ...)`` over
+``reader`` decorators and a ``data_feeder.DataFeeder``, with ``event``
+callbacks, an ``async_depth`` pipeline (``Executor.run_async``),
+``checkpoint`` save/resume in the JAX package's file format,
+``resilience`` (periodic checkpoints, graceful shutdown, fault plans) and
+``profiler`` timers.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);
@@ -39,13 +45,16 @@ def resolve_device(device=None) -> torch.device:
 
 from . import core, ops  # noqa: E402,F401  (ops register on import)
 from .core import backward  # noqa: E402,F401  (registers grad ops)
-from .core.executor import CPUPlace, CUDAPlace, Executor  # noqa: E402
+from .core.executor import (CPUPlace, CUDAPlace, Executor,  # noqa: E402
+                            RunHandle)
 from .ops.common import amp_enabled, set_amp  # noqa: E402
 from .core.program import (Program, default_main_program,  # noqa: E402
                            default_startup_program, program_guard)
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
 from . import flags, io, layers, models, nets, optimizer  # noqa: E402
 from . import initializer, transpiler  # noqa: E402
+from . import (checkpoint, data_feeder, event, profiler,  # noqa: E402
+               reader, resilience, trainer)
 from .serving import (BadRequestError, CacheExhaustedError,  # noqa: E402
                       DynamicBatcher, EngineClosedError, Future,
                       GenerationEngine, InferenceEngine, LMSpec,
@@ -56,11 +65,12 @@ from .decoding import SamplingParams  # noqa: E402
 from .models.transformer import TransformerLM, init_params  # noqa: E402
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "Executor", "Program", "Scope",
-    "amp_enabled", "set_amp",
-    "default_main_program", "default_startup_program", "flags",
+    "CPUPlace", "CUDAPlace", "Executor", "Program", "RunHandle", "Scope",
+    "amp_enabled", "set_amp", "checkpoint", "data_feeder",
+    "default_main_program", "default_startup_program", "event", "flags",
     "global_scope", "initializer", "io",
-    "layers", "models", "nets", "optimizer", "program_guard", "scope_from_numpy",
+    "layers", "models", "nets", "optimizer", "profiler", "program_guard",
+    "reader", "resilience", "scope_from_numpy", "trainer",
     "transpiler",
     "BadRequestError", "CacheExhaustedError", "DynamicBatcher",
     "EngineClosedError", "Future", "GenerationEngine", "InferenceEngine",

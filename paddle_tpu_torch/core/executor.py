@@ -4,8 +4,19 @@ Counterpart of ``paddle_tpu/core/executor.py``. The JAX package traces a
 whole block into one jitted XLA computation; the port interprets it, the
 counterpart of the reference's per-op interpreter ``_run_interpreted``:
 feeds, then scope reads, then ops, then the write-back of persistable
-state, then fetches. There is no jit, mesh, async dispatch, buffer
-donation or compile cache.
+state, then fetches. There is no jit, mesh, buffer donation or compile
+cache. Kernels queue on the device's stream as the interpreter reaches
+them, so ``run_async`` is ``run`` without the host sync: it returns a
+``RunHandle`` of device tensors, and nothing reads them on the host
+until ``result()``.
+
+``check_nan_inf`` (``FLAGS.check_nan_inf`` by default; the reference's
+executor.cc:25) scans the written-back state, in the order the block
+first writes it, and then the fetches for NaN/Inf, and raises
+``FloatingPointError`` naming the first bad variable, as the JAX
+executor does: ``run`` before that variable goes back to the scope;
+``run_async`` counts the non-finite values on the device at dispatch and
+raises at ``result()``.
 
 What the interpreter does in place of XLA's whole-program view:
 
@@ -30,7 +41,7 @@ equal the JAX executor's for the same seed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +87,106 @@ class CPUPlace:
         return "CPUPlace()"
 
 
+def _is_float(value) -> bool:
+    return isinstance(value, torch.Tensor) and value.is_floating_point()
+
+
+def _raise_nonfinite(name: str, n_nan: int, n_inf: int) -> None:
+    raise FloatingPointError(
+        f"variable {name!r} contains NaN/Inf "
+        f"({n_nan} NaN, {n_inf} Inf)")
+
+
+def _device_counts(value) -> torch.Tensor:
+    """[n_nan, n_inf] of a float tensor, on its device (no host sync)."""
+    return torch.stack([value.isnan().sum(), value.isinf().sum()])
+
+
+def _check_nan_inf(name: str, value) -> None:
+    if _is_float(value):
+        n_nan, n_inf = _device_counts(value).tolist()
+        if n_nan or n_inf:
+            _raise_nonfinite(name, n_nan, n_inf)
+
+
+class RunHandle:
+    """Deferred result of :meth:`Executor.run_async`.
+
+    Holds the fetches as device tensors (their kernels may still be
+    queued) and, for a deferred ``check_nan_inf``, one [n_nan, n_inf]
+    count tensor per written-back float state, computed on the device at
+    dispatch. The scope write-back happened at dispatch, so consecutive
+    dispatches chain on the device. Nothing touches the host until
+    :meth:`result` / :meth:`numpy`.
+    """
+
+    __slots__ = ("fetch_names", "_fetches", "_state_checks", "_check",
+                 "_start", "_done", "_checked")
+
+    def __init__(self, fetches, fetch_names, state_checks=(),
+                 check_nan_inf=False, start=None):
+        self._fetches = list(fetches)
+        self.fetch_names = list(fetch_names)
+        self._state_checks = list(state_checks)
+        self._check = check_nan_inf
+        self._checked = False
+        self._start = start
+        self._done = None
+        devices = {v.device for v in self._fetches
+                   if isinstance(v, torch.Tensor)}
+        cuda = [d for d in devices if d.type == "cuda"]
+        if cuda:  # marks the end of everything queued so far
+            self._done = torch.cuda.Event(enable_timing=start is not None)
+            self._done.record(torch.cuda.current_stream(cuda[0]))
+
+    def done(self) -> bool:
+        """Non-blocking readiness poll (True for host-resident values)."""
+        return self._done is None or self._done.query()
+
+    def block(self) -> "RunHandle":
+        """Wait for the device to finish the run, without copying."""
+        if self._done is not None:
+            self._done.synchronize()
+        return self
+
+    def device_seconds(self) -> Optional[float]:
+        """The run's span on its CUDA stream, in seconds: from an event
+        recorded at dispatch, which the stream reaches once the work
+        queued before the run is done, to the event after the run's last
+        kernel. Where the host launched the run's kernels slower than the
+        device ran them, the span holds those gaps too. Waits for the
+        run; None for a run on the host."""
+        if self._start is None or self._done is None:
+            return None
+        self._done.synchronize()
+        return self._start.elapsed_time(self._done) / 1e3
+
+    def result(self, return_numpy: bool = True):
+        """Resolve the run: applies the deferred ``check_nan_inf`` scan
+        (written-back state first, then the fetches) and returns the
+        fetch list, numpy by default (bf16 as f32, ``types.to_numpy``),
+        device tensors with ``return_numpy=False``."""
+        if self._check and not self._checked:
+            for name, counts in self._state_checks:
+                n_nan, n_inf = counts.tolist()
+                if n_nan or n_inf:
+                    _raise_nonfinite(name, n_nan, n_inf)
+            for name, val in zip(self.fetch_names, self._fetches):
+                _check_nan_inf(name, val)
+            self._checked = True
+            self._state_checks = []
+        if return_numpy:
+            return [to_numpy(v) for v in self._fetches]
+        return list(self._fetches)
+
+    def numpy(self):
+        return self.result(return_numpy=True)
+
+    def __repr__(self):
+        state = "done" if self.done() else "in-flight"
+        return f"RunHandle({self.fetch_names}, {state})"
+
+
 class _Plan:
     """What a run of one program version needs to know about its block:
     the generic grad op of each ``_vjp_key`` and each name's last
@@ -94,11 +205,16 @@ class _Plan:
 
 class Executor:
     """Runs programs on ``place`` (``CUDAPlace(0)`` by default; without
-    CUDA that raises)."""
+    CUDA that raises). ``check_nan_inf`` defaults to
+    ``FLAGS.check_nan_inf``."""
 
-    def __init__(self, place=None):
+    def __init__(self, place=None, check_nan_inf: Optional[bool] = None):
+        from ..flags import FLAGS
+
         self.place = place if place is not None else CUDAPlace(0)
         self.device = self.place.device()
+        self.check_nan_inf = (FLAGS.check_nan_inf if check_nan_inf is None
+                              else bool(check_nan_inf))
         self._plans: Dict[int, tuple] = {}
 
     def _plan(self, program: Program) -> _Plan:
@@ -144,10 +260,47 @@ class Executor:
         (numpy arrays unless ``return_numpy`` is False; a bfloat16 value
         comes back as float32, ``types.to_numpy``). Persistable
         state comes from and goes back to ``scope``."""
+        fetch_names = _fetch_names(fetch_list)
+        fetches, _ = self._execute(program, feed, fetch_names, scope,
+                                   check="sync" if self.check_nan_inf
+                                   else None)
+        if self.check_nan_inf:
+            for name, val in zip(fetch_names, fetches):
+                _check_nan_inf(name, val)
+        if return_numpy:
+            return [to_numpy(v) for v in fetches]
+        return fetches
+
+    def run_async(self, program: Optional[Program] = None,
+                  feed: Optional[Dict[str, Any]] = None,
+                  fetch_list: Optional[Sequence] = None,
+                  scope: Optional[Scope] = None) -> RunHandle:
+        """Dispatch a run without any host synchronisation and return a
+        :class:`RunHandle` of device tensors. The interpreter is
+        ``run``'s: its kernels are queued on the device's stream, the
+        updated state goes back to the scope as device tensors (so the
+        next dispatch chains on the device), and ``check_nan_inf``
+        counts non-finite values on the device, raising at
+        ``handle.result()``."""
+        fetch_names = _fetch_names(fetch_list)
+        start = None
+        if self.device.type == "cuda":  # the start of the run's span
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(self.device))
+        fetches, checks = self._execute(
+            program, feed, fetch_names, scope,
+            check="deferred" if self.check_nan_inf else None)
+        return RunHandle(fetches, fetch_names, state_checks=checks,
+                         check_nan_inf=self.check_nan_inf, start=start)
+
+    def _execute(self, program, feed, fetch_names, scope, check=None
+                 ) -> Tuple[List[Any], List[tuple]]:
+        """The interpreter: returns (fetches as tensors, [(state name,
+        [n_nan, n_inf] on the device)] with ``check="deferred"``). With
+        ``check="sync"`` a non-finite written-back state raises before it
+        goes back to the scope (the JAX executor's order)."""
         program = program or prog_mod.default_main_program()
         scope = scope or global_scope()
-        fetch_names = [f.name if hasattr(f, "name") else str(f)
-                       for f in (fetch_list or [])]
         block = program.global_block
         plan = self._plan(program)
         env: Dict[str, Any] = self._normalize_feeds(block, feed or {})
@@ -160,6 +313,7 @@ class Executor:
                        for op in block.ops)
         if uses_rng:
             rng = self._rng_state(program, scope)
+        checks: List[tuple] = []
         with torch.no_grad():
             for index, op in enumerate(block.ops):
                 opdef = get_op(op.type)
@@ -198,14 +352,19 @@ class Executor:
                         env.pop(name, None)
             if uses_rng:
                 scope.set(RNG_VAR, rng)
-            # write-back: persistable outputs and state read from the scope
-            for op in block.ops:
-                for name in op.output_names():
-                    if name not in env:
-                        continue
-                    persist = block.has_var(name) and block.var(name).persistable
-                    if persist or name in state_read:
-                        scope.set(name, env[name])
+            # write-back: persistable outputs and state read from the
+            # scope, in the order the block first writes them
+            written = dict.fromkeys(
+                name for op in block.ops for name in op.output_names()
+                if name in env and (name in state_read or (
+                    block.has_var(name) and block.var(name).persistable)))
+            for name in written:
+                val = env[name]
+                if check == "sync":
+                    _check_nan_inf(name, val)
+                scope.set(name, val)
+                if check == "deferred" and _is_float(val):
+                    checks.append((name, _device_counts(val)))
             fetches = []
             for name in fetch_names:
                 if name in env:
@@ -215,9 +374,7 @@ class Executor:
                 else:
                     raise RuntimeError(
                         f"fetch variable {name!r} is never produced")
-        if return_numpy:
-            return [to_numpy(v) for v in fetches]
-        return fetches
+        return fetches, checks
 
     def _run_op(self, op, opdef, ins, plan: _Plan, vjps, rng):
         key = op.attrs.get(VJP_KEY)
@@ -237,3 +394,8 @@ class Executor:
             with torch.device(self.device):
                 return opdef.fn(op.attrs, ins)
         return opdef.fn(op.attrs, ins)
+
+
+def _fetch_names(fetch_list) -> List[str]:
+    return [f.name if hasattr(f, "name") else str(f)
+            for f in (fetch_list or [])]

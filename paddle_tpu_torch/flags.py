@@ -1,5 +1,5 @@
 """Runtime flags. Counterpart of ``paddle_tpu/flags.py``, cut to the
-flags the port reads (booleans and the int ``seed``), behind the same ``FLAGS`` namespace
+flags the port reads (booleans, ints and strings), behind the same ``FLAGS`` namespace
 (``flags.FLAGS.fused_conv_epilogue``). Components read FLAGS when they
 build, so a flip affects what is built afterwards; ``reset_flags``
 restores every default.
@@ -21,6 +21,16 @@ _DEFAULTS: Dict[str, Any] = {
     # verify programs before compiling them (the JAX package's analysis
     # plane; not ported: setting it makes the engines raise)
     "verify_program": False,
+    # scan fetched outputs and updated state for NaN/Inf each run
+    # (executor.cc:25 --check_nan_inf)
+    "check_nan_inf": False,
+    # default trainer log cadence in batches (Flags.h --log_period)
+    "log_period": 100,
+    # deterministic chaos plan for manual resilience drills, e.g.
+    # 'preempt@5,torn_checkpoint@3': kind@step entries
+    # (resilience/faults.py FAULT_KINDS) injected once each into the next
+    # SGD.train run; empty = no injection
+    "fault_plan": "",
 }
 _values: Dict[str, Any] = dict(_DEFAULTS)
 
@@ -55,6 +65,8 @@ class _Namespace:
             raise FlagError(f"unknown flag {name!r}")
         if isinstance(_DEFAULTS[name], bool):
             _values[name] = _parse_bool(value)
+        elif isinstance(_DEFAULTS[name], str):
+            _values[name] = str(value)
         else:
             _values[name] = int(value)
 

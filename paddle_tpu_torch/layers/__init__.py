@@ -4,9 +4,9 @@ from .attention import (make_stack_params, multi_head_attention,
                         pipelined_transformer_stack,
                         transformer_encoder_layer)
 from .io import data
-from .nn import (batch_norm, conv1x1_bn_act, conv2d, dropout, embedding,
-                 fc, layer_norm, lrn, pool2d, rms_norm,
-                 softmax_with_cross_entropy)
+from .nn import (accuracy, batch_norm, conv1x1_bn_act, conv2d, dropout,
+                 embedding, fc, layer_norm, lrn, pool2d, rms_norm,
+                 softmax_with_cross_entropy, topk)
 from .ops import elementwise_add, gelu, relu, softmax
 from .sequence import (dynamic_gru, dynamic_lstm, sequence_first_step,
                        sequence_last_step, sequence_pool, simple_rnn)
@@ -14,7 +14,7 @@ from .tensor import (assign, concat, create_global_var, fill_constant,
                      matmul, mean, reshape, scale, split, transpose)
 
 __all__ = [
-    "assign", "batch_norm", "concat", "conv1x1_bn_act", "conv2d",
+    "accuracy", "assign", "batch_norm", "concat", "conv1x1_bn_act", "conv2d",
     "create_global_var", "data", "dropout", "dynamic_gru", "dynamic_lstm",
     "elementwise_add", "embedding", "fc", "fill_constant", "gelu",
     "layer_norm", "lrn",
@@ -22,5 +22,5 @@ __all__ = [
     "pipelined_transformer_stack", "pool2d", "relu", "reshape", "rms_norm",
     "scale", "sequence_first_step", "sequence_last_step", "sequence_pool",
     "simple_rnn", "softmax", "softmax_with_cross_entropy", "split",
-    "transformer_encoder_layer", "transpose",
+    "topk", "transformer_encoder_layer", "transpose",
 ]

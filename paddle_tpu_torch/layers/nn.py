@@ -285,6 +285,29 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     return outs["Loss"][0]
 
 
+def topk(input, k, main_program=None, startup_program=None):
+    """The ``k`` largest values of ``input``'s last axis and their int64
+    indices."""
+    helper = LayerHelper("top_k", main_program=main_program,
+                         startup_program=startup_program)
+    outs, _ = helper.append_op("top_k", {"X": [input]}, ["Out", "Indices"],
+                               {"k": k})
+    return outs["Out"][0], outs["Indices"][0]
+
+
+def accuracy(input, label, k=1, main_program=None, startup_program=None):
+    """Classification accuracy via top-k (the reference's nn.py
+    accuracy)."""
+    helper = LayerHelper("accuracy", main_program=main_program,
+                         startup_program=startup_program)
+    values, indices = topk(input, k, main_program=main_program,
+                           startup_program=startup_program)
+    outs, _ = helper.append_op(
+        "accuracy", {"Out": [values], "Indices": [indices], "Label": [label]},
+        ["Accuracy", "Correct", "Total"], {})
+    return outs["Accuracy"][0]
+
+
 def dropout(x, dropout_prob=0.5, is_test=False, main_program=None,
             startup_program=None):
     helper = LayerHelper("dropout", main_program=main_program,

@@ -3,7 +3,8 @@
 Counterpart of ``paddle_tpu/ops/tensor_ops.py``, cut to the ops the
 training, image and inference slices run (``transpose`` and ``split``
 for the per-layer transformer's heads, ``concat`` for GoogLeNet's
-inception blocks). The random init ops draw from
+inception blocks, ``top_k`` and ``accuracy`` for the trainer's
+metrics). The random init ops draw from
 their split of the executor's scope key (``core/prng.py``), bit-exact with
 the JAX executor's draws. Ops return new tensors and never write into their
 inputs (the executor relies on it: ``assign`` hands on the same tensor).
@@ -235,7 +236,11 @@ def _lookup_table_grad(attrs, ins, outs, ogs):
         keep = keep & (raw != pad)
     rows = torch.where(keep, ids, torch.zeros_like(ids))
     og = og * keep[:, None].to(og.dtype)
-    dw = torch.zeros_like(w).index_add_(0, rows, og)
+    # an accumulating index_put_ sums each row's gradients in a fixed
+    # order (on CUDA it sorts the ids; index_add_ there adds with atomics
+    # in whatever order they land), so the same step gives the same bits
+    # and a resumed or pipelined run equals an uninterrupted one
+    dw = torch.zeros_like(w).index_put_((rows,), og, accumulate=True)
     return {"W": [dw], "Ids": [None]}
 
 
@@ -259,3 +264,32 @@ def lookup_table(attrs, ins):
                                        device=rows.device), rows)
     shape = (ids.shape[:-1] if squeeze_last else ids.shape) + (w.shape[-1],)
     return out(Out=rows.reshape(shape))
+
+
+# --- top-k and metrics -------------------------------------------------------
+@register_op("top_k")
+def top_k(attrs, ins):
+    """The ``k`` largest values along the last axis and their indices
+    (int64), largest first; ties in the order of their indices, as
+    ``jax.lax.top_k`` breaks them (a stable descending sort)."""
+    x = single(ins, "X")
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    k = attrs["k"]
+    return {"Out": [vals[..., :k]], "Indices": [idx[..., :k]]}
+
+
+@register_op("accuracy")
+def accuracy(attrs, ins):
+    """Inputs: Out (top-k values), Indices (top-k indices), Label [N, 1].
+    The share of rows whose label is among their top-k indices (f32),
+    and the int32 counts behind it."""
+    idx = single(ins, "Indices")
+    label = single(ins, "Label").reshape(-1, 1)
+    correct = (idx == label).any(dim=1).sum()
+    total = idx.shape[0]
+    return {
+        "Accuracy": [correct.to(torch.float32) / total],
+        "Correct": [correct.to(torch.int32)],
+        "Total": [torch.tensor(total, dtype=torch.int32,
+                               device=idx.device)],
+    }

@@ -70,6 +70,8 @@ class MetricsRegistry:
         self._hist: Dict[str, List[int]] = {}
         self._hist_sum: Dict[str, float] = defaultdict(float)
         self._completions = deque()  # timestamps for the QPS window
+        # labeled gauge series: name -> {(("k","v"),...) -> value}
+        self._labeled: Dict[str, Dict[tuple, float]] = defaultdict(dict)
         self._t0 = time.monotonic()
 
     # -- write side --------------------------------------------------------
@@ -80,6 +82,13 @@ class MetricsRegistry:
     def set_gauge(self, name: str, value: float) -> None:
         with self._lock:
             self._gauges[name] = float(value)
+
+    def set_labeled(self, name: str, value: float, **labels) -> None:
+        """Set one sample of a labeled gauge series, e.g.
+        ``set_labeled("goodput_seconds_total", 1.5, bucket="data_wait")``."""
+        key = tuple(sorted((k, str(v)) for k, v in labels.items()))
+        with self._lock:
+            self._labeled[name][key] = float(value)
 
     def _hist_observe_locked(self, name: str, seconds: float) -> None:
         counts = self._hist.get(name)
@@ -137,7 +146,11 @@ class MetricsRegistry:
                 }
             cutoff = now - _QPS_WINDOW_S
             qps_n = sum(1 for t in self._completions if t >= cutoff)
-            return {
+            labeled = {name: {"{" + ",".join(f'{k}="{v}"'
+                                             for k, v in key) + "}": val
+                              for key, val in series.items()}
+                       for name, series in self._labeled.items()}
+            snap = {
                 "counters": dict(self._counters),
                 "gauges": dict(self._gauges),
                 "latency": lat,
@@ -145,6 +158,9 @@ class MetricsRegistry:
                 "qps": qps_n / min(max(now - self._t0, 1e-9), _QPS_WINDOW_S),
                 "uptime_s": now - self._t0,
             }
+            if labeled:
+                snap["labeled"] = labeled
+            return snap
 
     def update_device_gauges(self) -> None:
         """Refresh ``mem/cuda<N>_*`` gauges from the CUDA caching

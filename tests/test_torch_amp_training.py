@@ -7,7 +7,8 @@ in each: no ``set_amp`` call pins the JAX package's state):
   ``conv1x1_bn_act`` ops, Momentum) built under AMP with the name
   counters synced: every variable of the program carries JAX's dtype (a
   parameter fed by a bf16 activation is declared bf16, as in JAX). From
-  the JAX startup's values, step one's loss matches at rtol 3e-3 (measured
+  each package's own startup (the port's values equal JAX's bit for bit),
+  step one's loss matches at rtol 3e-3 (measured
   1.2e-3; JAX's own AMP loss is 6e-4 off its f32 loss), every gradient's
   dtype is JAX's, and so are every persistable variable's dtype after the
   step (Momentum's f32 velocity widens the bf16-declared parameters to
@@ -69,14 +70,18 @@ def _name(dtype):
     return str(dtype).replace("torch.", "")
 
 
-def _to_port(values):
-    """JAX startup values (bf16 ones as ml_dtypes arrays) as a port Scope,
-    each in its own dtype."""
+def _port_startup(tstart, values):
+    """The port's own startup run into a new Scope; every value equals the
+    JAX startup's (``values``, under the port's names) bit for bit, in its
+    own dtype (int64 reads as the int32 JAX holds it as without x64)."""
     scope = tpt.Scope()
+    tpt.Executor(tpt.CPUPlace()).run(tstart, scope=scope)
     for name, a in values.items():
-        t = torch.from_numpy(np.array(_f32(a) if a.dtype.name == "bfloat16"
-                                      else a))
-        scope.set(name, t.to(getattr(torch, a.dtype.name)))
+        t = scope.get(name)
+        assert _name(t.dtype).replace("int64", "int32") == a.dtype.name, (
+            name, t.dtype, a.dtype)
+        np.testing.assert_array_equal(to_numpy(t), _f32(a) if a.dtype.name
+                                      == "bfloat16" else a, err_msg=name)
     return scope
 
 
@@ -160,7 +165,8 @@ def test_fused_resnet_step_under_amp_matches_jax(amp, monkeypatch):
     jscope, jexe = jpt.Scope(), jpt.Executor(jpt.CPUPlace())
     jexe.run(jstart, scope=jscope)
     values = _carry(jstart, tstart, jscope)
-    tscope, texe = _to_port(values), tpt.Executor(tpt.CPUPlace())
+    tscope = _port_startup(tstart, values)
+    texe = tpt.Executor(tpt.CPUPlace())
     names = [jloss.name] + [f"{p}@GRAD" for p in params]
     feed = _feeds(1, seed=1)[0]
     jout, tout = _step(jexe, jmain, jscope, texe, tmain, tscope, feed,
@@ -203,7 +209,8 @@ def test_stacked_lm_step_under_amp_matches_jax(amp):
     jscope, jexe = jpt.Scope(), jpt.Executor(jpt.CPUPlace())
     jexe.run(jstart, scope=jscope)
     values = _carry(jstart, tstart, jscope)
-    tscope, texe = _to_port(values), tpt.Executor(tpt.CPUPlace())
+    tscope = _port_startup(tstart, values)
+    texe = tpt.Executor(tpt.CPUPlace())
     names = [jloss.name] + [f"{p}@GRAD" for p in params]
     jout, tout = _step(jexe, jmain, jscope, texe, tmain, tscope,
                        _batches(1)[0], names)
@@ -355,7 +362,7 @@ def test_amp_program_through_the_inference_pipeline_matches_jax(amp, fused):
     (jmain, jstart, name), (tmain, tstart, _) = built
     jscope = jpt.Scope()
     jpt.Executor(jpt.CPUPlace()).run(jstart, scope=jscope)
-    tscope = _to_port(_carry(jstart, tstart, jscope))
+    tscope = _port_startup(tstart, _carry(jstart, tstart, jscope))
     feed = {k: v.astype(np.float32) for k, v in feeds.items()}
     out = []
     for pt, main, scope in ((jpt, jmain, jscope), (tpt, tmain, tscope)):

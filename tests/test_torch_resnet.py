@@ -11,9 +11,9 @@ The slice: a narrow net built in both packages through ``models.resnet``'s
 own builders with ``--fused_conv_epilogue`` on (a 16-channel stem, a
 bottleneck with the fused projection, an identity bottleneck, a strided
 bottleneck, global pooling and fc(10), on 32x32 images at batch 2, so
-stage 1 has R = 128 and JAX takes its interpret-mode Pallas kernels). The
-JAX startup's values are carried into the port by pairing the two startup
-programs op by op. Step one's loss and every gradient, the BN running
+stage 1 has R = 128 and JAX takes its interpret-mode Pallas kernels). Each
+package runs its own startup; the port's values equal the JAX startup's
+bit for bit, paired op by op. Step one's loss and every gradient, the BN running
 stats after it, the losses of 3 Momentum steps and the
 ``clone(for_test=True)`` logits after them match at rtol 1e-4 / atol
 1e-6. ``resnet_imagenet(depth=50)`` is built in both packages, and the
@@ -335,7 +335,8 @@ def _feeds(n, seed=0):
 
 
 class _Run:
-    """Both packages train the narrow net from the JAX startup's values:
+    """Both packages train the narrow net from their own startups (the
+    port's draws the JAX startup's values, checked bit for bit):
     step one's loss and gradients, the BN running stats after it, two
     more steps' losses, and the for_test logits after them. Counts the
     port's kernel-wrapper calls per program run."""
@@ -359,13 +360,16 @@ class _Run:
             monkeypatch.setattr(tke, name, counted)
         jscope, jexe = jpt.Scope(), jpt.Executor(jpt.CPUPlace())
         jexe.run(jstart, scope=jscope)
+        tscope, texe = tpt.Scope(), tpt.Executor(tpt.CPUPlace())
+        texe.run(tstart, scope=tscope)
+        # the port's own startup draws the JAX startup's values, bit for bit
         values = {}
         for jop, top in zip(jstart.global_block.ops, tstart.global_block.ops):
             for jn, tn in zip(jop.output_names(), top.output_names()):
                 values[tn] = np.asarray(jscope.get(jn))
+                np.testing.assert_array_equal(tscope.get_numpy(tn),
+                                              values[tn], err_msg=tn)
         self.state_names = sorted(values)
-        tscope = tpt.scope_from_numpy(values, "cpu")
-        texe = tpt.Executor(tpt.CPUPlace())
         self.stats_names = sorted(n for n in values
                                   if n.endswith((".mean", ".var")))
         feeds = _feeds(3, seed=1)

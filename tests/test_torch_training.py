@@ -1,10 +1,10 @@
 """Training the stacked transformer LM with the port against the JAX package.
 
 ``demos/transformer_lm.py``'s training half at vocab 97, T 32, d 64, 2
-layers, 4 heads, batch 4, built in both packages. The JAX startup's
-values are carried into the port with ``scope_from_numpy``; then both
-``Executor``s run the same feeds. Step one's loss and every parameter
-gradient match at rtol 1e-4 / atol 1e-6; the losses of 3 Adam steps at
+layers, 4 heads, batch 4, built in both packages. Each package runs its
+own startup (the port's draws the JAX startup's values, checked bit
+for bit); then both ``Executor``s run the same feeds. Step one's loss
+and every parameter gradient match at rtol 1e-4 / atol 1e-6; the losses of 3 Adam steps at
 rtol 1e-4; the parameters after one SGD step at atol 1e-6. (Adam moves
 each weight by about lr * sign(g) on its first step, so a gradient that
 is zero up to rounding could flip a weight by 2 lr between packages:
@@ -59,8 +59,8 @@ def _batches(n, seed=0):
 
 
 class _Pair:
-    """One program built in both packages, the JAX startup run, and its
-    state carried into a port Scope on the CPU."""
+    """One program built in both packages, each package's startup run into
+    its own scope, the port's on the CPU."""
 
     def __init__(self, optimizer):
         self.jmain, jstartup, self.jloss, self.params = _build(jpt, optimizer)
@@ -69,15 +69,18 @@ class _Pair:
         self.jscope = jpt.Scope()
         self.jexe = jpt.Executor(jpt.CPUPlace())
         self.jexe.run(jstartup, scope=self.jscope)
+        self.tscope = tpt.Scope()
+        self.texe = tpt.Executor(tpt.CPUPlace())
+        self.texe.run(tstartup, scope=self.tscope)
         # the startup programs hold the same ops in the same order: their
-        # outputs pair the names (the learning-rate var's differs)
-        values = {}
+        # outputs pair the names (the learning-rate var's differs), and the
+        # port's own startup draws the JAX startup's values, bit for bit
         for jop, top in zip(jstartup.global_block.ops,
                             tstartup.global_block.ops):
             for jn, tn in zip(jop.output_names(), top.output_names()):
-                values[tn] = np.asarray(self.jscope.get(jn))
-        self.tscope = tpt.scope_from_numpy(values, "cpu")
-        self.texe = tpt.Executor(tpt.CPUPlace())
+                np.testing.assert_array_equal(
+                    self.tscope.get_numpy(tn), np.asarray(self.jscope.get(jn)),
+                    err_msg=tn)
 
     def run(self, feed, names=()):
         """One step in each package: (JAX fetches, port fetches) of the

@@ -1,8 +1,8 @@
 """The port's transpiler against the JAX package's.
 
 Small programs are built in both packages with the same names (the
-port's name counter started where JAX's was), the JAX startup's values
-are carried into a port scope, and each pass of the inference pipeline,
+port's name counter started where JAX's was), each package runs its own
+startup (the port's values equal JAX's bit for bit), and each pass of the inference pipeline,
 and the pipeline itself with and without ``--fused_conv_epilogue``, runs
 in both. The transpiled programs give equal ``program_to_dict`` output
 (the JAX ops' ``_callsite`` attrs and the port backward's ``_vjp_key``
@@ -88,7 +88,8 @@ def program_dict(pt, program):
 
 class Pair:
     """One builder's program in both packages: (main, startup, scope) per
-    package, the port's scope holding the JAX startup's values."""
+    package, the port's scope holding its own startup's values (the
+    JAX startup's, bit for bit)."""
 
     def __init__(self, builder, fused=False, test_clone=False):
         self.builder = builder
@@ -108,16 +109,20 @@ class Pair:
             if test_clone:
                 main = main.clone(for_test=True)
             built.append((main, startup, fetch.name))
-        (self.jmain, jstart, self.fetch), (self.tmain, _, tfetch) = built
+        (self.jmain, jstart, self.fetch), (self.tmain, tstart, tfetch) = built
         assert tfetch == self.fetch
         self.feeds = {k: v.astype(np.float32) for k, v in feeds.items()}
         self.feed_names = sorted(self.feeds)
         self.jscope = jpt.Scope()
         jpt.Executor(jpt.CPUPlace()).run(jstart, scope=self.jscope)
-        self.values = {n: np.asarray(self.jscope.get(n))
-                       for n in self.jscope.keys()
-                       if n != jprog.RNG_VAR}
-        self.tscope = tpt.scope_from_numpy(self.values, "cpu")
+        self.tscope = tpt.Scope()
+        tpt.Executor(tpt.CPUPlace()).run(tstart, scope=self.tscope)
+        # the port's own startup draws the JAX startup's values, bit for bit
+        for n in self.jscope.keys():
+            if n != jprog.RNG_VAR:
+                np.testing.assert_array_equal(
+                    self.tscope.get_numpy(n),
+                    np.asarray(self.jscope.get(n)), err_msg=n)
 
     def transpile(self, make_pm, **ctx):
         """Run ``make_pm(pt)``'s pipeline on clones in both packages, each
