@@ -20,6 +20,7 @@
     python3 chip_smoke.py --lstm-only       # phases 1, 2 and 13 only
     python3 chip_smoke.py --zoo-only        # phases 1, 2 and 14 only
     python3 chip_smoke.py --trainer-only    # phases 1, 2 and 15 only
+    python3 chip_smoke.py --train-memory-only  # phases 1, 2 and 16 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -358,6 +359,42 @@ Phases, each fatal on failure (nonzero exit, no result line):
     224, raw against ``inference_pipeline(epilogue=True)``: 33
     conv1x1_epilogue launches a batch, the logits within 1e-4) rows, with
     bench.py's keys; the feeds on the card.
+
+16. The training memory and optimizer plane, each part fatal on
+    failure: (a) the per-layer LM of 15 (d1024 L8 H8, 8 x 2048 tokens,
+    Adam, f32) built with ``transformer_lm(remat=False)`` and
+    ``remat=True`` (each block one recompute segment, its flash forward
+    run again in the backward) with the same names, each run from one
+    state: step-1 loss within 1e-5 and every gradient within 1e-4 of its
+    norm of remat=False's (bitwise equality reported), the flash forward,
+    dq and dkv launches of a step by the counters and in a traced step
+    (8/8/8 and 16/8/8), ms a step, device ms a step and the peak memory
+    (``max_memory_allocated`` after a reset) of each, remat=True's peak
+    below remat=False's; (b) the stacked LM of phase 2 (d1024 L8 H8)
+    with ``remat`` False, True and "dots", the same numbers (16/8/8 for
+    both remat modes: lse is not among the four names "dots" keeps);
+    (c) (a)'s remat program with ``minimize(accumulate_steps=4)`` on four
+    micro-batches of 2 x 2048: every parameter and Adam state bitwise
+    unchanged after each of the first three runs, and after the fourth
+    the moments within 1e-4 of a norm and each update within 1e-3 of a
+    norm of one step of (a)'s program on the 8 x 2048 rows together;
+    (d) bench.py's train_pipeline MLP (dim 1024, batch 256) three steps
+    under each of the eight other update ops (adamax, adagrad,
+    decayed_adagrad, adadelta, rmsprop, ftrl, proximal_gd,
+    proximal_adagrad) on the card against the port's CPU run from the
+    same start: losses within 1e-4, each parameter within 1e-3 of its
+    move or a multiple of the CPU's own move when the inputs are scaled
+    by (1 + 1e-6) (a ReLU that close to zero turns on in one run only); (e) ResNet-50 built plain (224 x 224, batch 32, Momentum)
+    trained two steps through ``trainer.SGD(transpile=True)`` under
+    ``--fused_conv_epilogue`` (``training_pipeline``: 33
+    ``conv1x1_bn_act`` ops, forward op counts before and after) and
+    untranspiled from the same state: 33 conv1x1_stats and
+    scale_shift_act launches a step, the step-1 losses within 1e-4;
+    then bench.py's ``goodput_overhead`` row (the MLP through
+    ``SGD.train(async_depth=3)``, goodput off and on, 30 steps, 3
+    interleaved rounds) with its keys and each round's overhead, not
+    gated. Each kernel record of the ``kernels`` line carries its
+    launches a step on these paths (``launches_phase16``).
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -1790,7 +1827,7 @@ def transformer_train_flops(bs, T, d, n_layers, vocab, d_ff=None):
     return 3 * (dense + attn + head)
 
 
-def _lm_loss(pt, c, pipeline_stack=True):
+def _lm_loss(pt, c, pipeline_stack=True, remat=False):
     """The LM at ``c`` and its mean cross-entropy, built into the current
     programs: (ids, tgt, loss)."""
     from paddle_tpu_torch import layers, models
@@ -1801,7 +1838,7 @@ def _lm_loss(pt, c, pipeline_stack=True):
         ids, vocab_size=c["vocab"], d_model=c["d_model"],
         n_layers=c["n_layers"], num_heads=c["num_heads"],
         d_ff=c["d_ff"], max_len=c["max_len"],
-        pipeline_stack=pipeline_stack)
+        pipeline_stack=pipeline_stack, remat=remat)
     loss = layers.mean(layers.softmax_with_cross_entropy(
         layers.reshape(logits, shape=[-1, c["vocab"]]),
         layers.reshape(tgt, shape=[-1, 1])))
@@ -6389,6 +6426,566 @@ def trainer_phase(gpu_name):
     return out
 
 
+# Phase 16: the training memory and optimizer plane. (a) and (c) train
+# PER_LAYER's LM, (b) TRAIN's stacked LM; (d) bench.py's train_pipeline
+# MLP (:463) under the eight other update ops; (e) ResNet-50 built plain
+# through SGD(transpile=True); bench.py's goodput_overhead (:542, :2833)
+# at its TPU row's sizes.
+MEMORY_TIMED = 3  # timed steps a mode, after its measured first step
+ACCUMULATE = 4
+# (c): one apply over 4 micro-batches against one step on their rows
+# together. Adam's first update is lr * m / (sqrt(v) + eps), smooth in
+# the mean gradient for |g| well above eps (and below it too, as g /
+# (|g| + eps)): the two sums differ in their order only (~1e-6 of each
+# gradient's norm), so the moments are held at GRAD_RTOL of their norm
+# and each parameter's update at 1e-3 of its own norm.
+ACCUMULATE_UPDATE_RTOL = 1e-3
+OPTIMIZER_OPS = ("adamax", "adagrad", "decayed_adagrad", "adadelta",
+                 "rmsprop", "ftrl", "proximal_gd", "proximal_adagrad")
+OPTIMIZER_MLP = dict(batch=256, dim=1024, steps=3)
+# (d): the card against the port's own CPU run of the same 3 steps, the
+# losses at 1e-4. The card's and the CPU's f32 products over 1024 terms
+# sum in other orders (~1e-6 of a value). A ReLU whose input lies that
+# close to zero turns on in one run and off in the other, and the update
+# ops that act like a sign at first (adagrad's lr * g / |g|, adadelta's
+# sqrt(eps / (1 - rho)) step) move its row by a whole step in one run
+# only: the CPU alone, its inputs scaled by (1 + 1e-6), moves adadelta's
+# first layer by 5.7e-3 of its 3-step move and adagrad's by 1.1e-3 (the
+# port's CPU run of this part), as far as the card lies from the CPU
+# (PERF.md §6). So each
+# parameter's gap is held within the largest of OPTIMIZER_RTOL of its
+# move, SENS_FACTOR times its own move under that nudge, and SENS_TOTAL
+# times the largest such move of any parameter (the zoo's Gate 1 rule).
+OPTIMIZER_RTOL = 1e-3
+OPTIMIZER_LOSS_RTOL = 1e-4
+OPTIMIZER_NUDGE = 1e-6
+TRANSPILE_TRAIN = dict(RESNET, batch=32, steps=2)
+GOODPUT = dict(batch=256, dim=1024, depth=3, steps=30, rounds=3)
+
+
+def _lm_program(pt, c, start, remat=False, pipeline_stack=False,
+                accumulate=1):
+    """The LM at ``c`` with Adam, built with the name counter at
+    ``start`` (so every build shares its names):
+    (main, startup, loss, params_grads)."""
+    pt.Program._uid_counter = start
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        _, _, loss = _lm_loss(pt, c, pipeline_stack, remat=remat)
+        params_grads = pt.optimizer.AdamOptimizer(
+            learning_rate=c["lr"]).minimize(loss, startup_program=startup,
+                                            accumulate_steps=accumulate)
+    return main, startup, loss, params_grads
+
+
+def _lm_feed(c, rows=None):
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 16)
+    b = rows or c["batch"]
+    return {k: torch.from_numpy(rng.randint(0, c["vocab"], size=(b, c["seq"]))
+                                .astype("int64")).cuda()
+            for k in ("ids", "tgt")}
+
+
+def _memory_mode(exe, main, loss, scope, state, feed, fa, expect):
+    """One remat mode from ``state``: its first step's loss, peak memory
+    and flash launches (counters), then MEMORY_TIMED steps' ms, the
+    device ms a step and the flash launches in a traced step. The scope
+    goes back to ``state``."""
+    import numpy as np
+    import torch
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+
+    _restore(scope, state)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts(fa)
+    first = float(step()[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts = _flash_counts(fa)
+    step_ms = []
+    for _ in range(MEMORY_TIMED):
+        t0 = time.perf_counter()
+        step()[0].item()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    dev_ms = _device_ms(step, iters=2)
+    traced = _count_kernels(step, TRAINER_FLASH,
+                            expect=dict(zip(TRAINER_FLASH, expect)))
+    _restore(scope, state)
+    assert np.isfinite(first), first
+    assert counts == tuple(expect) + (0, 0, 0), (counts, expect)
+    assert traced is not None and [traced[k] for k in TRAINER_FLASH] == \
+        list(expect), (traced, expect)
+    return {"loss": first, "peak_bytes": peak,
+            "ms_per_step": float(np.median(step_ms)), "step_ms": step_ms,
+            "device_ms_per_step": dev_ms, "flash_launches": list(counts[:3]),
+            "flash_launches_traced": [traced[k] for k in TRAINER_FLASH]}
+
+
+def _grad_compare(exe, builds, scope, state, feed):
+    """Step one's loss and every gradient of each build in ``builds``
+    ({mode: (main, loss, params_grads)}) from ``state``, held against
+    the first mode's: {mode: (loss, worst gap, its name, bitwise)}."""
+    import torch
+
+    out, ref = {}, None
+    for mode, (main, loss, pgs) in builds.items():
+        names = [loss.name] + [g.name for _, g in pgs]
+        got = _step_fetches(exe, main, feed, names, scope, state)
+        if ref is None:
+            ref = got
+        worst = _grad_gap(names[1:], got[1:], ref[1:])
+        out[mode] = (float(got[0]), worst[0], worst[1],
+                     all(torch.equal(g, r) for g, r in zip(got, ref)))
+        del got
+    return out
+
+
+def _remat_part(pt, fa, c, tag, modes, pipeline_stack, expect):
+    """(a) or (b): the LM at ``c`` under each remat mode, from one state.
+    Returns its record and (state, built programs, scope, exe, feed)."""
+    import torch
+
+    start = pt.Program._uid_counter
+    builds = {}
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace())
+    for mode in modes:
+        main, startup, loss, pgs = _lm_program(pt, c, start, remat=mode,
+                                               pipeline_stack=pipeline_stack)
+        builds[mode] = (main, loss, pgs)
+        # the same draws under the same names; only the learning rate's
+        # name follows the backward's count of names
+        exe.run(startup, scope=scope)
+    state = _snapshot(scope)
+    feed = _lm_feed(c)
+    runs = {mode: _memory_mode(exe, main, loss, scope, state, feed, fa,
+                               expect[mode])
+            for mode, (main, loss, _) in builds.items()}
+    grads = _grad_compare(exe, builds, scope, state, feed)
+    base = runs[modes[0]]
+    for mode, r in runs.items():
+        loss, gap, worst, bitwise = grads[mode]
+        r.update({"step1_loss": loss, "grad_gap": gap, "grad_gap_name": worst,
+                  "bitwise": bitwise})
+        assert abs(loss - grads[modes[0]][0]) <= LOSS_RTOL * abs(loss), (
+            mode, loss, grads[modes[0]][0])
+        assert gap <= GRAD_RTOL, (mode, gap, worst)
+        print(f"train memory {tag} remat={mode!r}: step-1 loss {loss:.6f}; "
+              f"gradients against remat={modes[0]!r} "
+              f"{'bitwise equal' if bitwise else f'within {gap:.3e} of a norm ({worst})'}"
+              f"; {r['ms_per_step']:.1f} ms a step, device "
+              f"{_ms_text(r['device_ms_per_step'], '.1f')} ms; peak "
+              f"{r['peak_bytes'] / 2**30:.3f} GiB"
+              f" ({r['peak_bytes'] / base['peak_bytes'] * 100:.1f}% of "
+              f"remat={modes[0]!r}'s); flash launches a step fwd/dq/dkv "
+              f"{r['flash_launches']} by the counters, "
+              f"{r['flash_launches_traced']} traced")
+    del builds
+    torch.cuda.empty_cache()
+    return runs, (state, scope, exe, feed, start)
+
+
+def _accumulation_part(pt, c, setup):
+    """(c): accumulate_steps=4 over 4 micro-batches of the remat LM's
+    batch, against (a)'s remat program's one step on the whole batch."""
+    import torch
+
+    state, scope, exe, feed, start = setup
+    k, rows = ACCUMULATE, c["batch"] // ACCUMULATE
+    main, startup, loss, pgs = _lm_program(pt, c, start, remat=True,
+                                           accumulate=k)
+    big_main, _, big_loss, _ = _lm_program(pt, c, start, remat=True)
+    acc_scope = pt.Scope()
+    exe.run(startup, scope=acc_scope)
+    _restore(acc_scope, state)
+    watched = [n for n in state
+               if any(n == p.name or n.startswith(p.name + "_")
+                      for p, _ in pgs) and not n.endswith("_gradsum_acc")]
+    off_equal = []
+    for i in range(k):
+        micro = {n: v[i * rows:(i + 1) * rows] for n, v in feed.items()}
+        exe.run(main, feed=micro, fetch_list=[loss], scope=acc_scope,
+                return_numpy=False)
+        if i < k - 1:
+            off_equal.append(all(torch.equal(acc_scope.get(n), state[n])
+                                 for n in watched))
+    assert all(off_equal), off_equal
+    _restore(scope, state)
+    exe.run(big_main, feed=feed, fetch_list=[big_loss], scope=scope,
+            return_numpy=False)
+    worst = {"update": (0.0, ""), "moment": (0.0, "")}
+    for n in watched:
+        got, want, was = acc_scope.get(n), scope.get(n), state[n]
+        kind = "moment" if "_moment" in n else "update"
+        if kind == "update":
+            got, want = got - was, want - was
+        if not want.is_floating_point() or want.numel() <= 1:
+            assert torch.equal(got, want), n
+            continue
+        gap = float((got - want).double().norm()
+                    / want.double().norm().clamp_min(1e-30))
+        worst[kind] = max(worst[kind], (gap, n))
+    _restore(scope, state)
+    assert worst["moment"][0] <= GRAD_RTOL, worst
+    assert worst["update"][0] <= ACCUMULATE_UPDATE_RTOL, worst
+    print(f"train memory (c) accumulate_steps={k} on {k} x {rows} x "
+          f"{c['seq']}: {len(watched)} parameters and Adam states bitwise "
+          f"unchanged after each of the {k - 1} off-step runs; after the "
+          f"applying run against one step on {c['batch']} x {c['seq']}: "
+          f"moments within {worst['moment'][0]:.3e} of a norm "
+          f"({worst['moment'][1]}), updates within {worst['update'][0]:.3e}"
+          f" ({worst['update'][1]})")
+    del acc_scope
+    torch.cuda.empty_cache()
+    return {"k": k, "micro_rows": rows, "watched": len(watched),
+            "off_step_bitwise": off_equal,
+            "moment_gap": worst["moment"][0], "moment_gap_name":
+            worst["moment"][1], "update_gap": worst["update"][0],
+            "update_gap_name": worst["update"][1]}
+
+
+def _update_optimizer(pt, op_type, lr):
+    """An optimizer for ``op_type``: the port's class where the JAX
+    package has one, else a subclass appending the op (the proximal
+    ones); the Ftrl and proximal L2 keep a dead unit's zero gradient
+    finite."""
+    O = pt.optimizer
+    classes = {"adamax": lambda: O.AdamaxOptimizer(lr),
+               "adagrad": lambda: O.AdagradOptimizer(lr),
+               "decayed_adagrad": lambda: O.DecayedAdagradOptimizer(lr),
+               "adadelta": lambda: O.AdadeltaOptimizer(1.0),
+               "rmsprop": lambda: O.RMSPropOptimizer(lr, momentum=0.5),
+               "ftrl": lambda: O.FtrlOptimizer(lr, l1=1e-4, l2=1e-4)}
+    if op_type in classes:
+        return classes[op_type]()
+
+    class Proximal(O.Optimizer):
+        def _create_accumulators(self, startup, params):
+            if op_type == "proximal_adagrad":
+                for p in params:
+                    self._add_accumulator("moment", p, startup, 0.1)
+
+        def _append_optimize_op(self, block, pg, lr_var):
+            p, g = pg
+            ins = {"Param": [p.name], "Grad": [g.name],
+                   "LearningRate": [lr_var.name]}
+            outs = {"ParamOut": [p.name]}
+            if op_type == "proximal_adagrad":
+                m = self._get_accumulator("moment", p).name
+                ins["Moment"], outs["MomentOut"] = [m], [m]
+            block.append_op(op_type, inputs=ins, outputs=outs,
+                            attrs={"l1": 1e-4, "l2": 1e-4})
+
+    return Proximal(lr)
+
+
+def _optimizers_part(pt):
+    """(d): the train_pipeline MLP 3 steps under each update op on the
+    card and in the port's CPU run, from the same start."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import layers
+
+    c = OPTIMIZER_MLP
+    rng = np.random.RandomState(0)
+    feed = {"x": rng.rand(c["batch"], c["dim"]).astype("float32"),
+            "y": rng.randint(0, 10, size=(c["batch"], 1)).astype("int64")}
+    out = {}
+    for op_type in OPTIMIZER_OPS:
+        main, startup = pt.Program(), pt.Program()
+        startup.random_seed = SEED
+        with pt.program_guard(main, startup):
+            x = layers.data("x", shape=[c["dim"]])
+            y = layers.data("y", shape=[1], dtype="int64")
+            h = layers.fc(x, size=c["dim"], act="relu")
+            h = layers.fc(h, size=c["dim"], act="relu")
+            loss = layers.mean(layers.softmax_with_cross_entropy(
+                layers.fc(h, size=10), y))
+            pgs = _update_optimizer(pt, op_type, 0.01).minimize(
+                loss, startup_program=startup)
+        assert sum(op.type == op_type for op in main.global_block.ops) == \
+            len(pgs)
+        cpu_exe, cpu = pt.Executor(pt.CPUPlace()), pt.Scope()
+        cpu_exe.run(startup, scope=cpu)
+        start = {n: cpu.get(n).clone() for n in cpu.keys()
+                 if isinstance(cpu.get(n), torch.Tensor)}
+        card_exe, card = pt.Executor(pt.CUDAPlace()), pt.Scope()
+        for n, v in start.items():
+            card.set(n, v.cuda())
+        nudged_scope = pt.Scope()
+        for n, v in start.items():
+            nudged_scope.set(n, v.clone())
+        nudged = dict(feed, x=feed["x"] * np.float32(1 + OPTIMIZER_NUDGE))
+        losses = {}
+        for tag, exe, scope, f in (("card", card_exe, card, feed),
+                                   ("cpu", cpu_exe, cpu, feed),
+                                   ("nudged", cpu_exe, nudged_scope, nudged)):
+            losses[tag] = [float(exe.run(main, feed=f, fetch_list=[loss],
+                                         scope=scope)[0])
+                           for _ in range(c["steps"])]
+        gaps, nudges = {}, {}
+        for p, _ in pgs:
+            got, want = card.get(p.name).cpu(), cpu.get(p.name)
+            move = (want - start[p.name]).double().norm()
+            assert move > 0 and got.isfinite().all(), (op_type, p.name)
+            gaps[p.name] = float((got - want).double().norm() / move)
+            nudges[p.name] = float((nudged_scope.get(p.name) - want)
+                                   .double().norm() / move)
+        floor = SENS_TOTAL * max(nudges.values())
+        ratio = {n: g / max(OPTIMIZER_RTOL, SENS_FACTOR * nudges[n], floor)
+                 for n, g in gaps.items()}
+        worst = max(ratio, key=ratio.get)
+        np.testing.assert_allclose(losses["card"], losses["cpu"],
+                                   rtol=OPTIMIZER_LOSS_RTOL, err_msg=op_type)
+        assert ratio[worst] <= 1.0, (op_type, worst, gaps[worst],
+                                     nudges[worst], floor)
+        top = max(gaps, key=gaps.get)
+        out[op_type] = {"losses_card": losses["card"],
+                        "losses_cpu": losses["cpu"],
+                        "param_gap": gaps[top], "param_gap_name": top,
+                        "nudge_move": nudges[top],
+                        "nudge_move_max": max(nudges.values()),
+                        "worst_allowance_ratio": ratio[worst]}
+    print("train memory (d) the train_pipeline MLP (dim "
+          f"{c['dim']}, batch {c['batch']}), {c['steps']} steps, card "
+          "against the port's CPU run (the largest parameter gap over its "
+          f"move; the CPU's own move under a {OPTIMIZER_NUDGE:g} input "
+          "nudge): " + "; ".join(
+              f"{k} {v['param_gap']:.2e} ({v['nudge_move']:.2e})"
+              for k, v in out.items()))
+    return out
+
+
+def _transpile_part(pt, ke):
+    """(e): ResNet-50 built plain, trained 2 steps through
+    SGD(transpile=True) under --fused_conv_epilogue and untranspiled,
+    from one state."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import layers, models
+    from paddle_tpu_torch.trainer import SGD
+
+    c = TRANSPILE_TRAIN
+    rng = np.random.RandomState(SEED + 16)
+    xs = rng.rand(c["steps"] * c["batch"], c["size"], c["size"], 3) \
+        .astype("float32")
+    ys = rng.randint(0, c["classes"], (len(xs), 1)).astype("int64")
+    batches = [[(xs[i], ys[i]) for i in range(s * c["batch"],
+                                              (s + 1) * c["batch"])]
+               for s in range(c["steps"])]
+    start, state, runs = pt.Program._uid_counter, None, {}
+    for transpile in (True, False):
+        pt.Program._uid_counter = start
+        main, startup = pt.Program(), pt.Program()
+        startup.random_seed = SEED
+        with pt.program_guard(main, startup):
+            images = layers.data("images", [c["size"], c["size"], 3])
+            label = layers.data("label", [1], "int64")
+            loss = layers.mean(layers.softmax_with_cross_entropy(
+                models.resnet_imagenet(images, num_classes=c["classes"],
+                                       depth=c["depth"]), label))
+            before = len(main.global_block.ops)
+            pt.flags.FLAGS.fused_conv_epilogue = transpile
+            try:
+                trainer = SGD(cost=loss, optimizer=pt.optimizer.
+                              MomentumOptimizer(c["lr"], c["momentum"]),
+                              feed_list=[images, label],
+                              place=pt.CUDAPlace(0), scope=pt.Scope(),
+                              transpile=transpile)
+            finally:
+                pt.flags.FLAGS.fused_conv_epilogue = False
+        ops = main.global_block.ops
+        # the forward after the pipeline: the ops before the loss
+        # gradient's seed, less the backward's @PRE snapshots
+        seed = next(i for i, op in enumerate(ops)
+                    if op.output_names() == [loss.name + "@GRAD"])
+        after = sum(not (op.type == "assign" and "@PRE" in op.output("Out"))
+                    for op in ops[:seed])
+        trainer._init_params()
+        if state is None:
+            state = _snapshot(trainer.scope)
+        else:
+            _restore(trainer.scope, state)
+        costs, ends = [], []
+
+        def handler(e):
+            if type(e).__name__ == "EndIteration":  # its cost is read
+                costs.append(e.cost)
+                ends.append(time.perf_counter())
+
+        _reset_conv_counts(ke)
+        trainer.train(lambda: iter(batches), event_handler=handler)
+        runs[transpile] = {
+            "ops_before": before, "ops_after": after,
+            "fused_ops": sum(op.type == "conv1x1_bn_act" for op in ops),
+            "losses": costs, "step2_ms": (ends[1] - ends[0]) * 1e3,
+            "launches": list(_conv_counts(ke))}
+        del trainer
+    t, u = runs[True], runs[False]
+    assert t["fused_ops"] == FUSED_OPS and u["fused_ops"] == 0, runs
+    assert t["launches"] == [FUSED_OPS * c["steps"], 0,
+                             FUSED_OPS * c["steps"]], t["launches"]
+    assert u["launches"] == [0, 0, 0], u["launches"]
+    assert all(np.isfinite(t["losses"])), t["losses"]
+    assert abs(t["losses"][0] - u["losses"][0]) <= TRANSPILE_RTOL * abs(
+        u["losses"][0]), (t["losses"], u["losses"])
+    print(f"train memory (e) ResNet-50 built plain, batch {c['batch']}, "
+          f"{c['steps']} steps through SGD(transpile=True): forward ops "
+          f"{t['ops_before']} -> {t['ops_after']} ({t['fused_ops']} "
+          f"conv1x1_bn_act); conv1x1_stats / conv1x1_epilogue / "
+          f"scale_shift_act launches a step "
+          f"{[n // c['steps'] for n in t['launches']]}; losses "
+          f"{t['losses']} against untranspiled {u['losses']}; step 2 "
+          f"{t['step2_ms']:.1f} against {u['step2_ms']:.1f} ms (through "
+          "SGD.train, the feeder's stack and copy included)")
+    torch.cuda.empty_cache()
+    return {"transpiled": t, "untranspiled": u}
+
+
+def _goodput_row(pt, batch, dim, depth, steps, rounds):
+    """bench.py's goodput_overhead on the card: the train_pipeline MLP
+    through SGD.train(async_depth=3) with the goodput meter off and on
+    in interleaved rounds (medians), and the meter's own cost a step in a
+    tight loop; the same keys, each round's overhead beside them."""
+    from collections import deque
+
+    from paddle_tpu_torch.trace.goodput import GoodputMeter
+
+    trainer, _, _, _, _, rows = _mlp_trainer(pt, dim, batch)
+
+    def reader():
+        for _ in range(steps):
+            yield rows
+
+    trainer._init_params()
+    quiet = lambda e: None  # noqa: E731
+
+    def measure(goodput):
+        t0 = time.perf_counter()
+        trainer.train(reader, num_passes=1, event_handler=quiet,
+                      async_depth=depth, goodput=goodput)
+        return (time.perf_counter() - t0) / steps
+
+    measure(False)
+    measure(None)
+    off_s, on_s = [], []
+    for _ in range(rounds):
+        off_s.append(measure(False))
+        on_s.append(measure(None))
+    off = sorted(off_s)[rounds // 2]
+    on = sorted(on_s)[rounds // 2]
+    snap = trainer.goodput.snapshot() if trainer.goodput else {}
+    probe = GoodputMeter()
+    probe.set_program_flops(1e9)
+    walls = deque(maxlen=32)
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        t_d = time.perf_counter()
+        probe.account("data_wait", time.perf_counter() - t_d)
+        with probe.measure("recovery_rollback"):
+            pass
+        t_r = time.perf_counter()
+        probe.account("fresh_compile", 0.0)
+        probe.account("host_dispatch", time.perf_counter() - t_r)
+        t_v = time.perf_counter()
+        probe.account("device_compute", time.perf_counter() - t_v)
+        probe.note_step(1e-3)
+        walls.append(1e-3)
+    meter_us = (time.perf_counter() - t0) / n * 1e6
+    return {
+        "off_ms_per_step": round(off * 1e3, 3),
+        "on_ms_per_step": round(on * 1e3, 3),
+        "overhead_pct": round((on - off) / off * 100.0, 2),
+        "overhead_pct_rounds": [round((b - a) / a * 100.0, 2)
+                                for a, b in zip(off_s, on_s)],
+        "meter_us_per_step": round(meter_us, 2),
+        "meter_overhead_pct": round(meter_us / (off * 1e6) * 100.0, 3),
+        "async_depth": depth,
+        "goodput_fraction": snap.get("goodput"),
+        "buckets_attributed": sum(
+            1 for v in (snap.get("buckets") or {}).values() if v > 0),
+    }
+
+
+def train_memory_phase(gpu_name):
+    """Phase 16: the training memory and optimizer plane, (a)-(e) and
+    the goodput row. Returns its record."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    seconds = [time.perf_counter()]
+    L = PER_LAYER["n_layers"]
+    plain, remat = (L, L, L), (2 * L, L, L)
+    out = {}
+    out["a"], setup = _remat_part(pt, fa, PER_LAYER, "(a) per-layer",
+                                  (False, True), False,
+                                  {False: plain, True: remat})
+    assert out["a"][True]["peak_bytes"] < out["a"][False]["peak_bytes"], \
+        out["a"]
+    seconds.append(time.perf_counter())
+    out["c"] = _accumulation_part(pt, PER_LAYER, setup)
+    del setup
+    seconds.append(time.perf_counter())
+    out["b"], setup = _remat_part(pt, fa, TRAIN, "(b) stacked",
+                                  (False, True, "dots"), True,
+                                  {False: plain, True: remat,
+                                   "dots": remat})
+    del setup
+    seconds.append(time.perf_counter())
+    out["d"] = _optimizers_part(pt)
+    seconds.append(time.perf_counter())
+    out["e"] = _transpile_part(pt, ke)
+    seconds.append(time.perf_counter())
+    out["goodput_overhead"] = _goodput_row(pt, **GOODPUT)
+    print("train memory goodput_overhead: " + json.dumps(
+        out["goodput_overhead"]))
+    seconds.append(time.perf_counter())
+    out["seconds"] = [b - a for a, b in zip(seconds, seconds[1:])]
+    print("phase 16 seconds: " + ", ".join(
+        f"{part} {s:.1f}" for part, s in zip(
+            ("(a)", "(c)", "(b)", "(d)", "(e)", "goodput"), out["seconds"]))
+        + f"; {sum(out['seconds']):.1f} in all")
+    # JSON keys: the modes as text
+    for part in ("a", "b"):
+        out[part] = {str(k): v for k, v in out[part].items()}
+    return out
+
+
+def phase16_launches(records, mem):
+    """Each kernel record's launches a step on phase 16's paths, where
+    the kernel ran there."""
+    paths = {("per_layer", m): r for m, r in mem["a"].items()}
+    paths.update({("stacked", m): r for m, r in mem["b"].items()})
+    steps = TRANSPILE_TRAIN["steps"]
+    for rec in records:
+        name = rec["name"]
+        if name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv"):
+            i = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv").index(name)
+            rec["launches_phase16"] = {
+                f"{model} remat={mode}": r["flash_launches"][i]
+                for (model, mode), r in paths.items()}
+        elif name in ("conv1x1_stats", "scale_shift_act"):
+            i = 0 if name == "conv1x1_stats" else 2
+            rec["launches_phase16"] = {
+                "resnet50 SGD(transpile=True)":
+                    mem["e"]["transpiled"]["launches"][i] // steps}
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -6488,6 +7085,13 @@ def main():
                              "trainer plane: SGD.train of the per-layer LM, "
                              "checkpoints and resume, bench.py's trainer and "
                              "transpiler rows); prints no ok line")
+    parser.add_argument("--train-memory-only", action="store_true",
+                        help="build the kernels and run only phase 16 (the "
+                             "training memory and optimizer plane: remat "
+                             "in the per-layer and stacked LMs, gradient "
+                             "accumulation, the other optimizers, "
+                             "SGD(transpile=True), goodput_overhead); "
+                             "prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -6644,6 +7248,14 @@ def main():
             {"gpu": smi, "trainer": trainer}, indent=1))
         print(smi)
         return
+    if args.train_memory_only:
+        mem = train_memory_phase(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_train_memory.json").write_text(json.dumps(
+            {"gpu": smi, "train_memory": mem}, indent=1))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -6714,6 +7326,8 @@ def main():
     zoo_recs, zoo = zoo_phase(gpu)
     torch.cuda.empty_cache()
     trainer = trainer_phase(gpu)
+    torch.cuda.empty_cache()
+    train_memory = train_memory_phase(gpu)
     records = ([kern, slice_record(
                    kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
@@ -6721,6 +7335,7 @@ def main():
                + stacked_records(kern, bwd, stacked_d1024, 1024)
                + conv
                + amp_recs + per_layer_recs + zoo_recs)
+    phase16_launches(records, train_memory)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -6733,11 +7348,13 @@ def main():
          "resnet_inference": resnet_inference,
          "attention_rewrite": attention, "amp": amp,
          "per_layer": per_layer, "recurrent": recurrent, "zoo": zoo,
-         "trainer": trainer, "build_s": built,
+         "trainer": trainer, "train_memory": train_memory,
+         "build_s": built,
          "rng": rng},
         indent=1))
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in records]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys}, **{k: r[k] for k in ("launches_phase16",)
+                                       if k in r}} for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,

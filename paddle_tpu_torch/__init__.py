@@ -15,7 +15,10 @@ products on f32 master weights). The trainer plane drives that loop:
 callbacks, an ``async_depth`` pipeline (``Executor.run_async``),
 ``checkpoint`` save/resume in the JAX package's file format,
 ``resilience`` (periodic checkpoints, graceful shutdown, fault plans) and
-``profiler`` timers.
+``profiler`` timers. Training trades step time for memory through
+recompute segments (``recompute_guard``, ``transformer_lm(remat=...)``,
+``resnet(recompute=True)``) and batch for steps through
+``minimize(accumulate_steps=k)``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);
@@ -49,7 +52,8 @@ from .core.executor import (CPUPlace, CUDAPlace, Executor,  # noqa: E402
                             RunHandle)
 from .ops.common import amp_enabled, set_amp  # noqa: E402
 from .core.program import (Program, default_main_program,  # noqa: E402
-                           default_startup_program, program_guard)
+                           default_startup_program, maybe_recompute,
+                           program_guard, recompute_guard)
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
 from . import flags, io, layers, models, nets, optimizer  # noqa: E402
 from . import initializer, transpiler  # noqa: E402
@@ -69,7 +73,8 @@ __all__ = [
     "amp_enabled", "set_amp", "checkpoint", "data_feeder",
     "default_main_program", "default_startup_program", "event", "flags",
     "global_scope", "initializer", "io",
-    "layers", "models", "nets", "optimizer", "profiler", "program_guard",
+    "layers", "maybe_recompute", "models", "nets", "optimizer", "profiler",
+    "program_guard", "recompute_guard",
     "reader", "resilience", "scope_from_numpy", "trainer",
     "transpiler",
     "BadRequestError", "CacheExhaustedError", "DynamicBatcher",

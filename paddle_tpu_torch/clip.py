@@ -12,6 +12,6 @@ def append_gradient_clip_ops(param_grad):
         if getattr(p, "gradient_clip", None) is not None:
             raise NotImplementedError(
                 f"parameter {p.name!r} sets gradient_clip: gradient "
-                "clipping is not ported to paddle_tpu_torch yet (it lands "
-                "with the optimizer-plane slice)")
+                "clipping is not ported to paddle_tpu_torch yet "
+                "(ROADMAP.md Queue 1 item 3)")
     return list(param_grad)

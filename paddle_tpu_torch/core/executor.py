@@ -25,8 +25,13 @@ What the interpreter does in place of XLA's whole-program view:
   its vjp closure waits for the grad op, which consumes it. The JAX
   package recomputes the forward inside ``jax.vjp`` and lets XLA merge
   the two; eagerly that would run every such op twice.
-- **Liveness.** An intermediate is dropped after its last reader, as XLA
-  frees a buffer, unless it is fetched or persistable.
+- **Recompute segments.** A ``seg_fwd`` op whose ``grad_seg`` comes
+  later keeps its residuals in a ``SegmentStash`` that lives in the run
+  alone; the ``grad_seg`` op consumes and frees it. So neither ``run``
+  nor ``run_async`` keeps a segment's residuals past the step.
+- **Liveness.** An intermediate is dropped after its last reader, or as
+  soon as it is written where nothing reads it, as XLA frees a buffer,
+  unless it is fetched or persistable.
 - **No aliasing.** Op functions return new tensors and never write into
   their inputs, so ``assign`` may hand on the same tensor and a ``@PRE``
   snapshot can never see a later write.
@@ -48,7 +53,8 @@ import torch
 
 from . import prng
 from . import program as prog_mod
-from .backward import VJP_KEY, apply_vjp, forward_with_vjp
+from .backward import (VJP_KEY, SegmentStash, apply_vjp, forward_with_vjp,
+                       segment_forward, segment_grad)
 from .enforce import EnforceError, op_error
 from .program import RNG_VAR, Program
 from .registry import get_op, op_uses_rng
@@ -189,16 +195,19 @@ class RunHandle:
 
 class _Plan:
     """What a run of one program version needs to know about its block:
-    the generic grad op of each ``_vjp_key`` and each name's last
-    reader."""
+    the generic grad op of each ``_vjp_key``, the recompute segments
+    whose ``grad_seg`` follows, and each name's last reader."""
 
     def __init__(self, block):
         self.grad_of: Dict[str, Any] = {}
+        self.seg_grads: set = set()
         self.last_read: Dict[str, int] = {}
         for i, op in enumerate(block.ops):
             key = op.attrs.get(VJP_KEY)
             if op.type == "grad" and key is not None:
                 self.grad_of[key] = op
+            if op.type == "grad_seg":
+                self.seg_grads.add(op.attrs["vjp_key"])
             for name in op.input_names():
                 self.last_read[name] = i
 
@@ -345,7 +354,11 @@ class Executor:
                     raise op_error(op, index, ins, exc) from exc
                 for slot, names in op.outputs.items():
                     for name, val in zip(names, (outs or {}).get(slot, [])):
-                        env[name] = val
+                        if plan.last_read.get(name, -1) > index \
+                                or name in keep or name in state_read:
+                            env[name] = val
+                        else:  # nothing reads this value
+                            env.pop(name, None)
                 for name in op.input_names():
                     if plan.last_read.get(name) == index and name not in keep \
                             and name not in state_read:
@@ -377,6 +390,14 @@ class Executor:
         return fetches, checks
 
     def _run_op(self, op, opdef, ins, plan: _Plan, vjps, rng):
+        if op.type == "seg_fwd":
+            key = op.attrs["vjp_key"]
+            if key not in plan.seg_grads:
+                return segment_forward(op.attrs, ins)
+            vjps[key] = SegmentStash()
+            return segment_forward(op.attrs, ins, vjps[key])
+        if op.type == "grad_seg":
+            return segment_grad(vjps.pop(op.attrs["vjp_key"]), op.attrs, ins)
         key = op.attrs.get(VJP_KEY)
         if op.type == "grad" and key in vjps:
             return apply_vjp(vjps.pop(key), op.attrs, ins)

@@ -173,6 +173,9 @@ class Block:
     def append_op(self, op_type: str, inputs=None, outputs=None,
                   attrs=None) -> Operator:
         op = Operator(self, op_type, inputs or {}, outputs or {}, attrs)
+        seg = self.program._recompute_seg
+        if seg is not None:
+            op.attrs.setdefault("__recompute_seg__", seg)
         self.ops.append(op)
         self.program._bump()
         return op
@@ -250,6 +253,7 @@ class Program:
         self.current_block_idx = 0
         self._version = 0  # bumped on every mutation
         self.random_seed: Optional[int] = None
+        self._recompute_seg: Optional[int] = None  # active recompute_guard
 
     def _bump(self):
         self._version += 1
@@ -337,6 +341,42 @@ def switch_startup_program(p: Program) -> Program:
     global _startup_program
     old, _startup_program = _startup_program, p
     return old
+
+
+_recompute_seg_counter = 0
+
+
+@contextlib.contextmanager
+def recompute_guard(main_program: Optional[Program] = None):
+    """Mark the ops built inside this scope as one recompute segment.
+
+    ``append_backward`` differentiates a run of ops tagged with the same
+    segment id as one ``seg_fwd`` op and its ``grad_seg`` op
+    (``core/backward.py``): the forward keeps only the outputs of
+    ``SEGMENT_SAVE_OPS`` ops (products, convolutions, pools) and tensors
+    of at most one dim, and the backward recomputes the rest of the
+    segment under autograd. Nested guards are not supported; an RNG op,
+    a special op or an op with a custom ``grad_fn`` (unless
+    ``grad_fn_is_optimization``) splits the segment and keeps its own
+    gradient."""
+    p = main_program or default_main_program()
+    global _recompute_seg_counter
+    _recompute_seg_counter += 1
+    old = p._recompute_seg
+    p._recompute_seg = _recompute_seg_counter
+    try:
+        yield
+    finally:
+        p._recompute_seg = old
+
+
+def maybe_recompute(enabled: bool, main_program: Optional[Program] = None):
+    """``recompute_guard`` when ``enabled``, else a no-op context: the
+    helper model builders share, so the guard lands on the program the
+    ops are appended to."""
+    if enabled:
+        return recompute_guard(main_program)
+    return contextlib.nullcontext()
 
 
 @contextlib.contextmanager

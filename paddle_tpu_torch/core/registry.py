@@ -34,13 +34,21 @@ class OpDef:
     grad_fn: Optional[Callable] = None
     # Input slots that may legally be absent or empty.
     optional_inputs: tuple = ()
+    # The grad_fn only computes faster what the vjp of ``fn`` computes,
+    # so a recompute segment may differentiate ``fn`` itself.
+    grad_fn_is_optimization: bool = False
+    # Ops the executor runs itself, with the run's state (``seg_fwd``,
+    # ``grad_seg``), rather than through ``fn`` alone.
+    special: bool = False
 
 
 _REGISTRY: Dict[str, OpDef] = {}
 
 
 def register_op(type: str, fn: Callable = None, *, needs_rng=False,
-                grad_fn: Callable = None, optional_inputs=()):
+                grad_fn: Callable = None, optional_inputs=(),
+                grad_fn_is_optimization: bool = False,
+                special: bool = False):
     """Register an op function. Usable as decorator or direct call."""
 
     def _do(f):
@@ -48,7 +56,10 @@ def register_op(type: str, fn: Callable = None, *, needs_rng=False,
             raise ValueError(f"op {type!r} already registered")
         _REGISTRY[type] = OpDef(type=type, fn=f, needs_rng=needs_rng,
                                 grad_fn=grad_fn,
-                                optional_inputs=tuple(optional_inputs))
+                                optional_inputs=tuple(optional_inputs),
+                                grad_fn_is_optimization=(
+                                    grad_fn_is_optimization),
+                                special=special)
         return f
 
     if fn is None:

@@ -12,7 +12,7 @@ from .layer_helper import LayerHelper
 
 _UNARY = ["gelu", "relu", "softmax"]
 
-_BINARY = ["elementwise_add"]
+_BINARY = ["elementwise_add", "elementwise_sub", "elementwise_mul", "equal"]
 
 _module = sys.modules[__name__]
 

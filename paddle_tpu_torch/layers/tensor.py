@@ -36,6 +36,11 @@ def create_global_var(shape, value, dtype, persistable=True, name=None,
     return var
 
 
+def cast(x, dtype, main_program=None, startup_program=None):
+    h = _helper("cast", main_program, startup_program)
+    return h.simple_op("cast", {"X": [x]}, {"out_dtype": dtype_name(dtype)})
+
+
 def assign(input, output=None, main_program=None, startup_program=None):
     h = _helper("assign", main_program, startup_program)
     if output is None:

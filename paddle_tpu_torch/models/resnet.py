@@ -6,20 +6,14 @@ default, projection shortcuts only where the shape changes.
 Under ``--fused_conv_epilogue`` every NHWC 1x1/stride-1 conv + BN
 (+ residual) (+ relu) chain is built as one ``conv1x1_bn_act`` op; for
 ResNet-50 that is conv a and conv c of each of the 16 bottlenecks and
-stage 1's stride-1 projection, 33 ops. Recompute segments
-(``recompute=True``) are a later slice of the port.
+stage 1's stride-1 projection, 33 ops. With ``recompute=True`` each
+residual block is one recompute segment (``core.program.recompute_guard``):
+only conv outputs and BN statistics survive to the backward.
 """
 from __future__ import annotations
 
 from .. import layers
-
-
-def _no_recompute(recompute):
-    if recompute:
-        raise NotImplementedError(
-            "resnet(recompute=True) builds recompute segments "
-            "(recompute_guard), which are not ported to paddle_tpu_torch "
-            "yet: they land with the per-layer transformer training slice")
+from ..core.program import maybe_recompute
 
 
 def _fuse_epilogue(filter_size, stride, padding, data_format):
@@ -51,32 +45,32 @@ def _shortcut(x, ch_out, stride, data_format, is_test):
 
 def _bottleneck(x, ch_mid, stride, data_format, is_test, recompute=False):
     """1x1 -> 3x3 -> 1x1 (x4) bottleneck."""
-    _no_recompute(recompute)
     ch_out = ch_mid * 4
-    short = _shortcut(x, ch_out, stride, data_format, is_test)
-    y = _conv_bn(x, ch_mid, 1, 1, 0, data_format=data_format,
-                 is_test=is_test)
-    y = _conv_bn(y, ch_mid, 3, stride, 1, data_format=data_format,
-                 is_test=is_test)
-    if _fuse_epilogue(1, 1, 0, data_format):
-        # residual add + relu ride the final 1x1 conv's output tile
-        return layers.conv1x1_bn_act(y, ch_out, residual=short,
-                                     act="relu", is_test=is_test)
-    y = _conv_bn(y, ch_out, 1, 1, 0, act=None, data_format=data_format,
-                 is_test=is_test)
-    added = layers.elementwise_add(y, short)
-    return layers.relu(added)
+    with maybe_recompute(recompute):
+        short = _shortcut(x, ch_out, stride, data_format, is_test)
+        y = _conv_bn(x, ch_mid, 1, 1, 0, data_format=data_format,
+                     is_test=is_test)
+        y = _conv_bn(y, ch_mid, 3, stride, 1, data_format=data_format,
+                     is_test=is_test)
+        if _fuse_epilogue(1, 1, 0, data_format):
+            # residual add + relu ride the final 1x1 conv's output tile
+            return layers.conv1x1_bn_act(y, ch_out, residual=short,
+                                         act="relu", is_test=is_test)
+        y = _conv_bn(y, ch_out, 1, 1, 0, act=None, data_format=data_format,
+                     is_test=is_test)
+        added = layers.elementwise_add(y, short)
+        return layers.relu(added)
 
 
 def _basicblock(x, ch_out, stride, data_format, is_test, recompute=False):
-    _no_recompute(recompute)
-    short = _shortcut(x, ch_out, stride, data_format, is_test)
-    y = _conv_bn(x, ch_out, 3, stride, 1, data_format=data_format,
-                 is_test=is_test)
-    y = _conv_bn(y, ch_out, 3, 1, 1, act=None, data_format=data_format,
-                 is_test=is_test)
-    added = layers.elementwise_add(y, short)
-    return layers.relu(added)
+    with maybe_recompute(recompute):
+        short = _shortcut(x, ch_out, stride, data_format, is_test)
+        y = _conv_bn(x, ch_out, 3, stride, 1, data_format=data_format,
+                     is_test=is_test)
+        y = _conv_bn(y, ch_out, 3, 1, 1, act=None, data_format=data_format,
+                     is_test=is_test)
+        added = layers.elementwise_add(y, short)
+        return layers.relu(added)
 
 
 def resnet_imagenet(images, num_classes=1000, depth=50, data_format="NHWC",

@@ -28,6 +28,7 @@ import torch
 from torch import nn
 
 from .. import layers
+from ..core.program import maybe_recompute
 from ..layers.layer_helper import LayerHelper
 from ..ops.pipeline_ops import _STACK_SLOTS
 from ..param_attr import ParamAttr
@@ -46,9 +47,12 @@ def transformer_lm(ids, vocab_size, d_model=256, n_layers=4, num_heads=8,
     benchmark trains) builds ``n_layers`` ``transformer_encoder_layer``
     blocks, about ten ops each; ``pipeline_stack=True`` one
     ``pipelined_transformer_stack`` op over [L, ...] weights under fixed
-    names the serving engines rejoin. ``remat`` (recompute segments) and
-    a headless model (``include_head=False``, for
-    ``fused_head_cross_entropy``) are not ported yet."""
+    names the serving engines rejoin. ``remat`` makes each per-layer
+    block one recompute segment (only its products' outputs survive to
+    the backward), or on the stacked path recomputes each layer
+    (``True``) or all but its four named products (``"dots"``). A
+    headless model (``include_head=False``, for
+    ``fused_head_cross_entropy``) is not ported yet."""
     # validate before building anything: a raise must not leave orphan
     # embedding ops or parameters in the caller's program
     if pipeline_stack and norm_type != "layer_norm":
@@ -59,11 +63,6 @@ def transformer_lm(ids, vocab_size, d_model=256, n_layers=4, num_heads=8,
             "transformer_lm(include_head=False) feeds "
             "fused_head_cross_entropy, which is not ported to "
             "paddle_tpu_torch yet (ROADMAP.md Queue 1 item 6)")
-    if remat and not pipeline_stack:
-        raise NotImplementedError(
-            "transformer_lm(remat=True) (one recompute segment per block) "
-            "is not ported to paddle_tpu_torch yet: recompute segments are "
-            "ROADMAP.md Queue 1 item 4")
     kw = dict(main_program=main_program, startup_program=startup_program)
     d_ff = d_ff or 4 * d_model
     tok = layers.embedding(ids, size=[vocab_size, d_model],
@@ -99,10 +98,13 @@ def transformer_lm(ids, vocab_size, d_model=256, n_layers=4, num_heads=8,
         head_attr = ParamAttr(name="lm_head.w")
     else:
         for _ in range(n_layers):
-            x = layers.transformer_encoder_layer(
-                x, num_heads=num_heads, d_ff=d_ff,
-                num_kv_heads=num_kv_heads, use_rope=use_rope, causal=True,
-                norm_type=norm_type, **kw)
+            # remat: each block is one recompute segment; the norms'
+            # grad_fn_is_optimization keeps them inside it
+            with maybe_recompute(remat, main_program):
+                x = layers.transformer_encoder_layer(
+                    x, num_heads=num_heads, d_ff=d_ff,
+                    num_kv_heads=num_kv_heads, use_rope=use_rope,
+                    causal=True, norm_type=norm_type, **kw)
     if norm_type == "rms_norm":
         x = layers.rms_norm(x, begin_norm_axis=2, **kw)
     else:

@@ -67,5 +67,5 @@ def img_conv_group(input, conv_num_filter, conv_filter_size=3, conv_act=None,
 def glu(input, dim=-1, main_program=None, startup_program=None):
     """Gated linear unit: not ported yet."""
     raise NotImplementedError(
-        "nets.glu needs the sigmoid and elementwise_mul ops, which are not "
-        "ported to paddle_tpu_torch; see ROADMAP.md Queue 1 item 2")
+        "nets.glu needs the sigmoid op, which is not ported to "
+        "paddle_tpu_torch; see ROADMAP.md Queue 1 item 2")

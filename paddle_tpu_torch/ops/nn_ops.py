@@ -272,7 +272,8 @@ def _batch_norm_grad(attrs, ins, outs, ogs):
     return grads
 
 
-@register_op("batch_norm", grad_fn=_batch_norm_grad)
+@register_op("batch_norm", grad_fn=_batch_norm_grad,
+             grad_fn_is_optimization=True)
 def batch_norm(attrs, ins):
     """Training: normalise with the batch statistics (variance as
     E[x^2] - mean^2) and return the running Mean/Variance updated with
@@ -366,7 +367,8 @@ def _layer_norm_grad(attrs, ins, outs, ogs):
     return grads
 
 
-@register_op("layer_norm", grad_fn=_layer_norm_grad)
+@register_op("layer_norm", grad_fn=_layer_norm_grad,
+             grad_fn_is_optimization=True)
 def layer_norm(attrs, ins):
     x = single(ins, "X")
     eps = attrs.get("epsilon", 1e-5)
@@ -440,6 +442,7 @@ def _rms_norm_grad(attrs, ins, outs, ogs):
 
 
 @register_op("rms_norm", grad_fn=_rms_norm_grad,
+             grad_fn_is_optimization=True,
              optional_inputs=("Scale", "Bias"))
 def rms_norm(attrs, ins):
     """Root-mean-square normalization, reduced in f32: y = x *

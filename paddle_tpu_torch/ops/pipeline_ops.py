@@ -26,13 +26,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core import prng
 from ..core.registry import register_op
 from ..kernels.flash_attention import (flash_attention, reference_attention,
                                        rotary)
 from ..kernels.sampling import sample_rows, top_logprobs
-from .common import amp_cast, matmul, maybe, out, single
+from .common import amp_cast, f32_accumulation, matmul, maybe, out, single
 
 _EPS = 1e-5
 
@@ -61,12 +62,23 @@ def _take_rows(table, ids):
 def _attn_proj(p, h, num_heads, num_kv_heads=None, use_rope=False, pos0=0):
     """LN1 + qkv projection -> q [b, H, t, dh], k/v [b, Hkv, t, dh].
     ``use_rope`` rotates q/k at absolute positions pos0..pos0+t-1."""
+    return _heads(_qkv_proj(p, h), h.shape[-1], num_heads, num_kv_heads,
+                  use_rope, pos0)
+
+
+def _qkv_proj(p, h):
+    """LN1 and the qkv projection [b, t, d + 2 * d_kv] (the tensor the
+    JAX op names ``qkv_proj``)."""
+    hn_c, qkv_c = amp_cast(_ln(h, p["ln1_s"], p["ln1_b"]), p["qkv_w"])
+    return matmul(hn_c, qkv_c).to(h.dtype)
+
+
+def _heads(qkv, d, num_heads, num_kv_heads=None, use_rope=False, pos0=0):
+    """q [b, H, t, dh], k/v [b, Hkv, t, dh] from the qkv projection."""
     num_kv_heads = num_kv_heads or num_heads
-    b, t, d = h.shape
+    b, t, _ = qkv.shape
     head_d = d // num_heads
     d_kv = head_d * num_kv_heads
-    hn_c, qkv_c = amp_cast(_ln(h, p["ln1_s"], p["ln1_b"]), p["qkv_w"])
-    qkv = matmul(hn_c, qkv_c).to(h.dtype)
 
     def heads(a, n):
         return a.reshape(b, t, n, head_d).transpose(1, 2)
@@ -114,32 +126,134 @@ def _block(p, x, num_heads, causal, num_kv_heads=None, use_rope=False):
     return _attn_out_ffn(p, x, ctx.transpose(1, 2).reshape(b, T, d))
 
 
+def _dot_grads(a, w, g):
+    """(da, dw) of ``matmul(*amp_cast(a, w)).to(g.dtype)`` for the
+    cotangent ``g``, as its autograd computes them, without the product:
+    a 2-D ``w`` folds a's leading dims into one product for dw."""
+    a_c, w_c = amp_cast(a, w)
+    g_c = g.to(a_c.dtype)
+    with f32_accumulation():
+        da = torch.matmul(g_c, w_c.mT)
+        dw = a_c.reshape(-1, a_c.shape[-1]).mT @ g_c.reshape(-1, g.shape[-1])
+    return da.to(a.dtype), dw.to(w.dtype)
+
+
+class _DotsLayer(torch.autograd.Function):
+    """One block under ``remat="dots"``, the JAX op's
+    ``save_only_these_names("qkv_proj", "attn_ctx", "attn_out",
+    "ffn_hidden")``: the forward keeps the layer's input, its weights and
+    the four named tensors (the qkv projection, the attention context
+    [b, T, d], the out-projection and the FFN's GELU output); the
+    backward recomputes the rest: both norms, the heads and the flash
+    forward (its lse is not among the names, so the flash forward runs
+    again), and the first FFN product under its GELU. The products whose
+    outputs are named are not rerun: their gradients come from the
+    saved operands (``_dot_grads``)."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, keys, *weights):
+        num_heads, causal, num_kv_heads, use_rope = cfg
+        p = dict(zip(keys, weights))
+        b, T, d = x.shape
+        qkv = _qkv_proj(p, x)
+        q, k, v = _heads(qkv, d, num_heads, num_kv_heads, use_rope)
+        k, v = _expand_kv(k, v, num_heads)
+        attn_ctx = flash_attention(q, k, v, causal=causal) \
+            .transpose(1, 2).reshape(b, T, d)
+        attn_out = matmul(*amp_cast(attn_ctx, p["out_w"])).to(x.dtype)
+        mid = x + attn_out
+        ffn_hidden = F.gelu(matmul(*amp_cast(
+            _ln(mid, p["ln2_s"], p["ln2_b"]), p["ff_w1"])).to(x.dtype)
+            + p["ff_b1"], approximate="tanh")
+        ctx.cfg, ctx.keys = cfg, keys
+        ctx.save_for_backward(x, qkv, attn_ctx, attn_out, ffn_hidden,
+                              *weights)
+        return mid + (matmul(*amp_cast(ffn_hidden, p["ff_w2"])).to(x.dtype)
+                      + p["ff_b2"])
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, causal, num_kv_heads, use_rope = ctx.cfg
+        x, qkv, attn_ctx, attn_out, ffn_hidden, *weights = ctx.saved_tensors
+        p = dict(zip(ctx.keys, weights))
+        grads = dict.fromkeys(ctx.keys)
+        b, T, d = x.shape
+        # out = mid + ffn_hidden @ ff_w2 + ff_b2
+        grads["ff_b2"] = g.sum(dim=(0, 1)).to(p["ff_b2"].dtype)
+        d_ff, grads["ff_w2"] = _dot_grads(ffn_hidden, p["ff_w2"], g)
+        # ffn_hidden = gelu(LN2(mid) @ ff_w1 + ff_b1), mid = x + attn_out
+        with torch.enable_grad():
+            xl = x.detach().requires_grad_(True)
+            al = attn_out.detach().requires_grad_(True)
+            wl = {k: p[k].detach().requires_grad_(True)
+                  for k in ("ln2_s", "ln2_b", "ff_w1", "ff_b1")}
+            mid = xl + al
+            hid = F.gelu(matmul(*amp_cast(
+                _ln(mid, wl["ln2_s"], wl["ln2_b"]), wl["ff_w1"]))
+                .to(x.dtype) + wl["ff_b1"], approximate="tanh")
+            got = torch.autograd.grad([hid, mid], [xl, al, *wl.values()],
+                                      [d_ff, g])
+        dx, d_attn = got[0], got[1]
+        grads.update(zip(wl, got[2:]))
+        # attn_out = attn_ctx @ out_w
+        d_ctx, grads["out_w"] = _dot_grads(attn_ctx, p["out_w"], d_attn)
+        # attn_ctx = flash(heads of qkv), rerun for its lse
+        with torch.enable_grad():
+            ql = qkv.detach().requires_grad_(True)
+            q, k, v = _heads(ql, d, num_heads, num_kv_heads, use_rope)
+            k, v = _expand_kv(k, v, num_heads)
+            o = flash_attention(q, k, v, causal=causal)
+            d_qkv, = torch.autograd.grad(
+                o.transpose(1, 2).reshape(b, T, d), [ql], [d_ctx])
+        # qkv = LN1(x) @ qkv_w
+        with torch.enable_grad():
+            xl = x.detach().requires_grad_(True)
+            wl = {k: p[k].detach().requires_grad_(True)
+                  for k in ("ln1_s", "ln1_b")}
+            hn = _ln(xl, wl["ln1_s"], wl["ln1_b"])
+        d_hn, grads["qkv_w"] = _dot_grads(hn.detach(), p["qkv_w"], d_qkv)
+        got = torch.autograd.grad([hn], [xl, *wl.values()], [d_hn])
+        grads.update(zip(wl, got[1:]))
+        dx = dx + got[0]
+        return (dx, None, None) + tuple(grads[k] for k in ctx.keys)
+
+
 @register_op("pipelined_transformer_stack")
 def pipelined_transformer_stack(attrs, ins):
     """X [b, T, d] + stacked block weights (leading dim L) -> Out [b, T, d]:
     a loop over the L layers. Differentiable: the executor records it
-    under autograd when its grad op follows. The port has no device mesh
-    yet, so the JAX package's GPipe branch (a ``pp`` mesh axis) belongs
-    to the parallel slice, and ``remat`` to the recompute slice."""
-    if attrs.get("remat"):
-        raise NotImplementedError(
-            "pipelined_transformer_stack(remat=...) is not ported to "
-            "paddle_tpu_torch yet: activation checkpointing lands with the "
-            "recompute slice")
+    under autograd when its grad op follows. ``remat=True`` recomputes
+    each layer in the backward (``torch.utils.checkpoint``), ``"dots"``
+    all but its four named tensors (``_DotsLayer``). The port has no
+    device mesh yet, so the JAX package's GPipe branch (a ``pp`` mesh
+    axis) belongs to the parallel slice."""
     x = single(ins, "X")
     params = _stack_params(ins)
     num_heads = attrs["num_heads"]
     num_kv_heads = attrs.get("num_kv_heads") or num_heads
     use_rope = attrs.get("use_rope", False)
     causal = attrs.get("causal", True)
+    remat = attrs.get("remat", False)
     # unbind, not w[i]: its backward stacks the L layer grads in one
     # allocation instead of scattering each into a zero [L, ...] tensor
     keys = list(params)
+    cfg = (num_heads, causal, num_kv_heads, use_rope)
+    recording = torch.is_grad_enabled()
     h = x
     for layer_w in zip(*(params[key].unbind(0) for key in keys)):
-        h = _block(dict(zip(keys, layer_w)), h, num_heads, causal,
-                   num_kv_heads, use_rope)
+        if recording and remat == "dots":
+            h = _DotsLayer.apply(h, cfg, keys, *layer_w)
+        elif recording and remat:
+            h = checkpoint(_block_of, h, keys, cfg, *layer_w,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _block(dict(zip(keys, layer_w)), h, num_heads, causal,
+                       num_kv_heads, use_rope)
     return out(Out=h)
+
+
+def _block_of(h, keys, cfg, *layer_w):
+    return _block(dict(zip(keys, layer_w)), h, *cfg)
 
 
 def _stack_params(ins):

@@ -4,7 +4,8 @@ Counterpart of ``paddle_tpu/ops/tensor_ops.py``, cut to the ops the
 training, image and inference slices run (``transpose`` and ``split``
 for the per-layer transformer's heads, ``concat`` for GoogLeNet's
 inception blocks, ``top_k`` and ``accuracy`` for the trainer's
-metrics). The random init ops draw from
+metrics, ``increment``, ``equal``, ``cast``, ``elementwise_sub`` and
+``elementwise_mul`` for gradient accumulation's counter and gate). The random init ops draw from
 their split of the executor's scope key (``core/prng.py``), bit-exact with
 the JAX executor's draws. Ops return new tensors and never write into their
 inputs (the executor relies on it: ``assign`` hands on the same tensor).
@@ -108,6 +109,20 @@ def assign(attrs, ins):
     return out(Out=single(ins, "X"))
 
 
+@register_op("cast")
+def cast(attrs, ins):
+    dtype = to_dtype(attrs.get("out_dtype", attrs.get("dtype", "float32")))
+    return out(Out=single(ins, "X").to(dtype))
+
+
+@register_op("increment")
+def increment(attrs, ins):
+    """x + step in x's dtype."""
+    x = single(ins, "X")
+    return out(Out=x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
+                                    device=x.device))
+
+
 # --- shape manipulation -----------------------------------------------------
 @register_op("reshape")
 def reshape(attrs, ins):
@@ -181,6 +196,16 @@ def _elementwise(op):
 
 
 register_op("elementwise_add", _elementwise(torch.add))
+register_op("elementwise_sub", _elementwise(torch.sub))
+register_op("elementwise_mul", _elementwise(torch.mul))
+
+
+@register_op("equal")
+def equal(attrs, ins):
+    """x == y (bool), y broadcast as the elementwise ops broadcast it."""
+    x = single(ins, "X")
+    y = broadcast_to_x(x, single(ins, "Y"), attrs.get("axis", -1))
+    return out(Out=torch.eq(x, y))
 
 
 @register_op("scale")

@@ -1,12 +1,14 @@
 """Optimizer classes: build backward + update ops into the program.
 
-Counterpart of ``paddle_tpu/optimizer.py``, cut to the ``Optimizer`` base
-(``minimize``, accumulators, the learning-rate variable), ``SGDOptimizer``,
-``MomentumOptimizer`` and ``AdamOptimizer``. ``minimize`` appends the backward pass, then one
-update op per parameter, creating accumulator state as persistable vars
-initialised in the startup program. Gradient accumulation
-(``accumulate_steps`` > 1), global steps, updater hooks and the other
-optimizers are later slices of the port.
+Counterpart of ``paddle_tpu/optimizer.py``: the ``Optimizer`` base
+(``minimize``, accumulators, the learning-rate variable, in-graph
+gradient accumulation) and the eleven optimizers SGD, Momentum, Adam,
+AdamW, Adamax, Adagrad, DecayedAdagrad, Adadelta, RMSProp and Ftrl.
+``minimize`` appends the backward pass, then one update op per
+parameter, creating accumulator state as persistable vars initialised in
+the startup program, under the JAX package's names (``checkpoint``
+saves them in its file format). Global steps, updater hooks,
+``ModelAverage`` and row-sparse updates are later slices of the port.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 from .clip import append_gradient_clip_ops
 from .core.backward import append_backward
 from .core.program import Program, Variable, default_startup_program
+from .core.types import dtype_name
 from .regularizer import append_regularization_ops
 
 
@@ -89,16 +92,26 @@ class Optimizer:
                  accumulate_steps: int = 1
                  ) -> List[Tuple[Variable, Variable]]:
         """Append backward + update ops for ``loss``; returns the
-        [(param, grad)] pairs."""
-        if accumulate_steps and int(accumulate_steps) > 1:
-            raise NotImplementedError(
-                "minimize(accumulate_steps > 1) is not ported to "
-                "paddle_tpu_torch yet: in-graph gradient accumulation lands "
-                "with the optimizer-plane slice")
+        [(param, grad)] pairs.
+
+        ``accumulate_steps`` > 1 turns on in-graph gradient accumulation:
+        each run adds the micro-batch gradient into a persistent
+        ``*_gradsum_acc`` buffer, and every k-th run the optimizer
+        (with its moments and beta powers) applies on the MEAN of the k
+        gradients, so k micro-batches make one large-batch step. Every
+        state write goes through a gate: the other runs leave all state
+        bit-identical."""
         startup = startup_program or default_startup_program()
         params_grads = append_backward(loss, parameter_list, no_grad_set)
         block = loss.block
         lr_var = self._create_lr_var(block.program, startup)
+        if accumulate_steps and int(accumulate_steps) > 1:
+            # clip and regularization must see the accumulated mean, so
+            # they are appended inside the accumulation plumbing
+            self._create_accumulators(startup, [p for p, _ in params_grads])
+            self._minimize_accumulated(block, startup, params_grads, lr_var,
+                                       int(accumulate_steps))
+            return params_grads
         # clip before regularization, fluid's order
         params_grads = append_gradient_clip_ops(params_grads)
         params_grads = append_regularization_ops(params_grads,
@@ -108,17 +121,96 @@ class Optimizer:
             self._append_optimize_op(block, pg, lr_var)
         return params_grads
 
+    def _minimize_accumulated(self, block, startup, params_grads, lr_var,
+                              k: int):
+        """Gradient accumulation: buffer += grad each run; every k-th run
+        clip, regularization and the optimizer op apply on the mean of
+        the k gradients, and every state write (param, moments, beta
+        powers) lands through a gate, s = old + gate * (s - old), so
+        the other runs keep all state bit-identical. The counter resets
+        on the applying run (no mod op needed)."""
+        from . import layers as L
+
+        kw = dict(main_program=block.program, startup_program=startup)
+        counter = L.create_global_var(
+            shape=[1], value=0.0, dtype="float32",
+            name=block.program.unique_name("grad_acc_step"), **kw)
+        block.append_op("increment", inputs={"X": [counter.name]},
+                        outputs={"Out": [counter.name]},
+                        attrs={"step": 1.0})
+        k_c = L.fill_constant(shape=[1], value=float(k), dtype="float32",
+                              **kw)
+        gate = L.cast(L.equal(counter, k_c, **kw), "float32", **kw)
+        inv_gate = L.scale(gate, scale=-1.0, bias=1.0, **kw)
+        block.append_op("elementwise_mul",
+                        inputs={"X": [counter.name], "Y": [inv_gate.name]},
+                        outputs={"Out": [counter.name]}, attrs={})
+        # LR schedules carry per-run counters (the JAX package's
+        # lr_global_step); subtracting the increment back on the other
+        # runs makes a schedule advance once per applied step. The port
+        # has no LR schedule yet, so this finds no counter.
+        lr_counters = {n for op in block.ops if op.type == "increment"
+                       for n in op.inputs.get("X", [])
+                       if "lr_global_step" in n}
+        shared = getattr(block.program, "_lr_step_counter", None)
+        if shared is not None:
+            lr_counters.add(shared.name)
+        for name in sorted(lr_counters):
+            dt = dtype_name(block.vars[name].dtype)
+            ig = inv_gate if dt == "float32" else L.cast(inv_gate, dt, **kw)
+            block.append_op("elementwise_sub",
+                            inputs={"X": [name], "Y": [ig.name]},
+                            outputs={"Out": [name]}, attrs={})
+        # pass 1: accumulate and form every mean
+        means, accs = [], []
+        for p, g in params_grads:
+            acc = self._add_accumulator("gradsum", p, startup)
+            accs.append(acc)
+            block.append_op("elementwise_add",
+                            inputs={"X": [acc.name], "Y": [g.name]},
+                            outputs={"Out": [acc.name]}, attrs={})
+            means.append(L.scale(acc, scale=1.0 / k, **kw))
+        pg_mean = append_gradient_clip_ops(
+            [(p, m) for (p, _), m in zip(params_grads, means)])
+        pg_mean = append_regularization_ops(pg_mean, self.regularization)
+        # pass 2: the gated update of each parameter and its state
+        for (p, mean), acc in zip(pg_mean, accs):
+            states = [p] + [vars_[p.name]
+                            for name, vars_ in self._accumulators.items()
+                            if name != "gradsum" and p.name in vars_]
+            olds = [L.assign(st, **kw) for st in states]
+            self._append_optimize_op(block, (p, mean), lr_var)
+            for st, old in zip(states, olds):
+                gated = L.elementwise_mul(L.elementwise_sub(st, old, **kw),
+                                          gate, **kw)
+                block.append_op("elementwise_add",
+                                inputs={"X": [old.name], "Y": [gated.name]},
+                                outputs={"Out": [st.name]}, attrs={})
+            block.append_op("elementwise_mul",
+                            inputs={"X": [acc.name], "Y": [inv_gate.name]},
+                            outputs={"Out": [acc.name]}, attrs={})
+
+
+def _update_op(block, op_type, p, g, lr_var, states, attrs):
+    """Append one update op: Param, Grad, LearningRate (when given) and
+    each (input slot, output slot, accumulator) of ``states``, written
+    back in place."""
+    inputs = {"Param": [p.name], "Grad": [g.name]}
+    if lr_var is not None:
+        inputs["LearningRate"] = [lr_var.name]
+    outputs = {"ParamOut": [p.name]}
+    for slot_in, slot_out, acc in states:
+        inputs[slot_in] = [acc.name]
+        outputs[slot_out] = [acc.name]
+    block.append_op(op_type, inputs=inputs, outputs=outputs, attrs=attrs)
+
 
 class SGDOptimizer(Optimizer):
     op_type = "sgd"
 
     def _append_optimize_op(self, block, pg, lr_var):
         p, g = pg
-        block.append_op(
-            "sgd",
-            inputs={"Param": [p.name], "Grad": [g.name],
-                    "LearningRate": [lr_var.name]},
-            outputs={"ParamOut": [p.name]})
+        _update_op(block, "sgd", p, g, lr_var, [], {})
 
 
 class MomentumOptimizer(Optimizer):
@@ -136,13 +228,10 @@ class MomentumOptimizer(Optimizer):
 
     def _append_optimize_op(self, block, pg, lr_var):
         p, g = pg
-        v = self._get_accumulator("velocity", p)
-        block.append_op(
-            "momentum",
-            inputs={"Param": [p.name], "Grad": [g.name], "Velocity": [v.name],
-                    "LearningRate": [lr_var.name]},
-            outputs={"ParamOut": [p.name], "VelocityOut": [v.name]},
-            attrs={"mu": self.momentum, "use_nesterov": self.use_nesterov})
+        _update_op(block, "momentum", p, g, lr_var,
+                   [("Velocity", "VelocityOut",
+                     self._get_accumulator("velocity", p))],
+                   {"mu": self.momentum, "use_nesterov": self.use_nesterov})
 
 
 class AdamOptimizer(Optimizer):
@@ -152,7 +241,7 @@ class AdamOptimizer(Optimizer):
                  epsilon=1e-8, **kw):
         super().__init__(learning_rate, **kw)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
-        self.weight_decay = 0.0
+        self.weight_decay = 0.0  # AdamWOptimizer sets it
 
     def _create_accumulators(self, startup, params):
         for p in params:
@@ -165,25 +254,174 @@ class AdamOptimizer(Optimizer):
 
     def _append_optimize_op(self, block, pg, lr_var):
         p, g = pg
-        acc = {name: self._get_accumulator(name, p).name
-               for name in ("moment1", "moment2", "beta1_pow", "beta2_pow")}
-        block.append_op(
-            "adam",
-            inputs={"Param": [p.name], "Grad": [g.name],
-                    "LearningRate": [lr_var.name],
-                    "Moment1": [acc["moment1"]], "Moment2": [acc["moment2"]],
-                    "Beta1Pow": [acc["beta1_pow"]],
-                    "Beta2Pow": [acc["beta2_pow"]]},
-            outputs={"ParamOut": [p.name],
-                     "Moment1Out": [acc["moment1"]],
-                     "Moment2Out": [acc["moment2"]],
-                     "Beta1PowOut": [acc["beta1_pow"]],
-                     "Beta2PowOut": [acc["beta2_pow"]]},
-            attrs={"beta1": self.beta1, "beta2": self.beta2,
-                   "epsilon": self.epsilon,
-                   "weight_decay": self.weight_decay})
+        acc = self._get_accumulator
+        _update_op(block, "adam", p, g, lr_var,
+                   [("Moment1", "Moment1Out", acc("moment1", p)),
+                    ("Moment2", "Moment2Out", acc("moment2", p)),
+                    ("Beta1Pow", "Beta1PowOut", acc("beta1_pow", p)),
+                    ("Beta2Pow", "Beta2PowOut", acc("beta2_pow", p))],
+                   {"beta1": self.beta1, "beta2": self.beta2,
+                    "epsilon": self.epsilon,
+                    "weight_decay": self.weight_decay})
 
 
+class AdamWOptimizer(AdamOptimizer):
+    """Adam with decoupled weight decay: p -= lr * wd * p outside the
+    moment estimates (``regularization=L2Decay`` would add wd * p into
+    the gradient, and so into the moments)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, weight_decay=0.01, **kw):
+        super().__init__(learning_rate, beta1=beta1, beta2=beta2,
+                         epsilon=epsilon, **kw)
+        self.weight_decay = weight_decay
+
+
+class AdamaxOptimizer(Optimizer):
+    op_type = "adamax"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kw):
+        super().__init__(learning_rate, **kw)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+
+    def _create_accumulators(self, startup, params):
+        for p in params:
+            self._add_accumulator("moment", p, startup)
+            self._add_accumulator("inf_norm", p, startup)
+            self._add_accumulator("beta1_pow", p, startup, self.beta1,
+                                  shape=[1])
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        acc = self._get_accumulator
+        _update_op(block, "adamax", p, g, lr_var,
+                   [("Moment", "MomentOut", acc("moment", p)),
+                    ("InfNorm", "InfNormOut", acc("inf_norm", p)),
+                    ("Beta1Pow", "Beta1PowOut", acc("beta1_pow", p))],
+                   {"beta1": self.beta1, "beta2": self.beta2,
+                    "epsilon": self.epsilon})
+
+
+class AdagradOptimizer(Optimizer):
+    op_type = "adagrad"
+
+    def __init__(self, learning_rate, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.epsilon = epsilon
+
+    def _create_accumulators(self, startup, params):
+        for p in params:
+            self._add_accumulator("moment", p, startup)
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        _update_op(block, "adagrad", p, g, lr_var,
+                   [("Moment", "MomentOut",
+                     self._get_accumulator("moment", p))],
+                   {"epsilon": self.epsilon})
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    op_type = "decayed_adagrad"
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.decay, self.epsilon = decay, epsilon
+
+    def _create_accumulators(self, startup, params):
+        for p in params:
+            self._add_accumulator("moment", p, startup)
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        _update_op(block, "decayed_adagrad", p, g, lr_var,
+                   [("Moment", "MomentOut",
+                     self._get_accumulator("moment", p))],
+                   {"decay": self.decay, "epsilon": self.epsilon})
+
+
+class AdadeltaOptimizer(Optimizer):
+    """Adadelta takes no learning rate in its update (the reference's
+    adadelta_op)."""
+
+    op_type = "adadelta"
+
+    def __init__(self, learning_rate=1.0, rho=0.95, epsilon=1e-6, **kw):
+        super().__init__(learning_rate, **kw)
+        self.rho, self.epsilon = rho, epsilon
+
+    def _create_accumulators(self, startup, params):
+        for p in params:
+            self._add_accumulator("avg_sq_grad", p, startup)
+            self._add_accumulator("avg_sq_update", p, startup)
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        acc = self._get_accumulator
+        _update_op(block, "adadelta", p, g, None,
+                   [("AvgSquaredGrad", "AvgSquaredGradOut",
+                     acc("avg_sq_grad", p)),
+                    ("AvgSquaredUpdate", "AvgSquaredUpdateOut",
+                     acc("avg_sq_update", p))],
+                   {"rho": self.rho, "epsilon": self.epsilon})
+
+
+class RMSPropOptimizer(Optimizer):
+    op_type = "rmsprop"
+
+    def __init__(self, learning_rate, decay=0.9, momentum=0.0,
+                 epsilon=1e-10, **kw):
+        super().__init__(learning_rate, **kw)
+        self.decay, self.momentum, self.epsilon = decay, momentum, epsilon
+
+    def _create_accumulators(self, startup, params):
+        for p in params:
+            self._add_accumulator("mean_square", p, startup)
+            self._add_accumulator("moment", p, startup)
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        acc = self._get_accumulator
+        _update_op(block, "rmsprop", p, g, lr_var,
+                   [("MeanSquare", "MeanSquareOut", acc("mean_square", p)),
+                    ("Moment", "MomentOut", acc("moment", p))],
+                   {"decay": self.decay, "momentum": self.momentum,
+                    "epsilon": self.epsilon})
+
+
+class FtrlOptimizer(Optimizer):
+    op_type = "ftrl"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5, **kw):
+        super().__init__(learning_rate, **kw)
+        self.l1, self.l2, self.lr_power = l1, l2, lr_power
+
+    def _create_accumulators(self, startup, params):
+        for p in params:
+            self._add_accumulator("squared_acc", p, startup)
+            self._add_accumulator("linear_acc", p, startup)
+
+    def _append_optimize_op(self, block, pg, lr_var):
+        p, g = pg
+        acc = self._get_accumulator
+        _update_op(block, "ftrl", p, g, lr_var,
+                   [("SquaredAccumulator", "SquaredAccumOut",
+                     acc("squared_acc", p)),
+                    ("LinearAccumulator", "LinearAccumOut",
+                     acc("linear_acc", p))],
+                   {"l1": self.l1, "l2": self.l2,
+                    "lr_power": self.lr_power})
+
+
+# fluid aliases
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adam = AdamOptimizer
+AdamW = AdamWOptimizer
+Adamax = AdamaxOptimizer
+Adagrad = AdagradOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer

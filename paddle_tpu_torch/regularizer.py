@@ -11,7 +11,7 @@ def append_regularization_ops(params_grads, regularization=None):
         if (getattr(param, "regularizer", None) or regularization) is not None:
             raise NotImplementedError(
                 f"parameter {param.name!r} has a regularizer: weight decay "
-                "is not ported to paddle_tpu_torch yet (it lands with the "
-                "optimizer-plane slice; AdamOptimizer's decoupled "
-                "weight_decay attr is ported)")
+                "is not ported to paddle_tpu_torch yet (ROADMAP.md Queue 1 "
+                "item 3; AdamWOptimizer's decoupled weight_decay is "
+                "ported)")
     return list(params_grads)

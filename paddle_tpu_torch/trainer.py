@@ -5,9 +5,10 @@ The optimizer appends its update ops into the program, so a step
 (forward, backward, update) is one ``Executor`` run. ``train`` drives
 the same events in the same order as the JAX package's loop, with the
 same ``async_depth`` pipeline, checkpoints, fault plans and goodput
-buckets. What the port leaves out raises, naming its ROADMAP.md Queue 1
-item: ``transpile=True`` (item 4's training pipeline), ``mesh``/``plan``
-(item 10), ``run_log`` and ``mem_budget`` (item 9), and
+buckets, and ``transpile=True`` runs ``transpiler.training_pipeline``
+on the program before ``minimize`` and ``prune_pipeline`` on its test
+clone. What the port leaves out raises, naming its ROADMAP.md Queue 1
+item: ``mesh``/``plan`` (item 10), ``run_log`` and ``mem_budget`` (item 9), and
 ``FLAGS.verify_program`` (item 9's analysis plane). The JAX package's
 trace spans, flight recorder and compile-signature manifests are item
 9's too; the port compiles nothing, so its trainer accounts nothing to
@@ -53,10 +54,6 @@ class SGD:
                  pad_to_multiple: Optional[int] = None):
         from .flags import FLAGS
 
-        if transpile:
-            raise _not_ported("SGD(transpile=True)", 4,
-                              "the training_pipeline rewrites come with the "
-                              "trainer plane's later part")
         if mesh is not None or plan is not None:
             raise _not_ported("SGD(mesh=..., plan=...)", 10,
                               "SPMD training comes with the parallel plane")
@@ -67,6 +64,17 @@ class SGD:
         # the test clone is taken BEFORE minimize appends the backward and
         # the updates, with is_test flipped (Program.clone(for_test=True))
         self.test_program = self.main_program.clone(for_test=True)
+        if transpile:
+            # the rewrites land before minimize appends the backward:
+            # grad ops name the op list they were derived from, and the
+            # fused replacements carry their own grad_fns
+            from .transpiler import prune_pipeline, training_pipeline
+
+            feeds = [v.name for v in feed_list]
+            fetches = [cost.name] + [v.name for v in self.metrics.values()]
+            training_pipeline().run(self.main_program, feeds, fetches,
+                                    scope=scope or global_scope())
+            prune_pipeline().run(self.test_program, feeds, fetches)
         optimizer.minimize(cost, startup_program=self.startup_program)
         if FLAGS.verify_program:
             raise _not_ported("FLAGS.verify_program", 9,

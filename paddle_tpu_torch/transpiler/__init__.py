@@ -12,9 +12,10 @@ and IR dump hooks, and the pass library the inference pipeline runs::
 
 ``io.save_inference_model`` runs the inference pipeline by default, and
 ``serving.InferenceEngine`` re-runs it on load (a no-op on a transpiled
-model). The memory-aware scheduling pass (``reduce_peak``), the
-sharding pass and the training and deployment pipelines are later pieces
-of the port: they raise, naming ``ROADMAP.md``.
+model); ``trainer.SGD(transpile=True)`` runs the training pipeline on
+its program before ``minimize``. The memory-aware scheduling pass
+(``reduce_peak``), the sharding pass and the deployment pipeline are
+later pieces of the port: they raise, naming ``ROADMAP.md``.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ __all__ = [
     "ExpandRecomputeSegments", "CanonicalizeIsTest", "DropoutToScale",
     "DeadOpElimination", "ConstantFolding", "FoldBatchNorm",
     "FusePatterns", "inference_pipeline", "prune_pipeline",
-    "shard_program",
+    "training_pipeline", "shard_program",
 ]
 
 
@@ -85,6 +86,17 @@ def inference_pipeline(*, constant_fold: bool = True,
         passes.append(FoldBatchNorm())
     passes.append(DeadOpElimination())
     return PassManager(passes, **pm_kw)
+
+
+def training_pipeline(*, epilogue: Optional[bool] = None,
+                      **pm_kw) -> PassManager:
+    """The build-time pipeline for training programs, run before
+    ``append_backward``/``minimize`` (grad ops name the op list they were
+    derived from; the fused replacements carry their own grad_fns):
+    literal constant folding (parameters stay live: they change every
+    step), then the fused-kernel pattern rewrites."""
+    return PassManager([ConstantFolding(fold_params=False),
+                        FusePatterns(epilogue=epilogue)], **pm_kw)
 
 
 def shard_program(*args, **kwargs):

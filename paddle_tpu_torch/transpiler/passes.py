@@ -63,18 +63,27 @@ def _same_segment(*ops: Operator) -> bool:
 # --------------------------------------------------------------------------
 @register_pass
 class ExpandRecomputeSegments(Pass):
-    """Inline ``seg_fwd`` composites back into their plain forward ops:
-    a no-op here, since the port builds no recompute segments (a
-    ``seg_fwd`` op raises)."""
+    """Inline ``seg_fwd`` composites back into their plain forward ops.
+
+    Must be followed by DCE before the program runs again: a surviving
+    ``grad_seg`` op needs the stash only a live ``seg_fwd`` fills."""
 
     name = "expand_recompute_segments"
 
     def apply(self, program: Program, ctx: PassContext) -> None:
         for block in program.blocks:
-            if any(op.type == "seg_fwd" for op in block.ops):
-                raise NotImplementedError(
-                    "recompute segments (seg_fwd) are not ported to "
-                    "paddle_tpu_torch; see ROADMAP.md Queue 1 item 4")
+            if not any(op.type == "seg_fwd" for op in block.ops):
+                continue
+            flat: List[Operator] = []
+            for op in block.ops:
+                if op.type != "seg_fwd":
+                    flat.append(op)
+                    continue
+                for sop in op.attrs["seg_ops"]:
+                    flat.append(Operator(block, sop["type"], sop["ins"],
+                                         sop["outs"], dict(sop["attrs"])))
+            block.ops = flat
+            program._bump()
 
 
 # --------------------------------------------------------------------------

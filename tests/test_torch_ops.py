@@ -303,9 +303,16 @@ def test_pipelined_transformer_stack_forward_and_vjp():
 
 
 def test_pipelined_transformer_stack_remat_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="recompute"):
-        torch_op("pipelined_transformer_stack").fn(
-            dict(STACK_ATTRS, remat=True), _torch_ins(_stack_ins()))
+    """``remat`` True (each layer recomputed) and "dots" (the four named
+    tensors kept): the forward and the vjp match the JAX op's."""
+    ins = _stack_ins()
+    for remat in (True, "dots"):
+        attrs = dict(STACK_ATTRS, remat=remat)
+        _run_both("pipelined_transformer_stack", attrs, ins,
+                  dict(atol=2e-5, rtol=1e-5))
+        _vjp_both("pipelined_transformer_stack", attrs, ins,
+                  ["X", "QkvW", "OutW", "Ln1S", "FfW1", "FfB2"],
+                  tol=dict(atol=5e-5, rtol=1e-4))
 
 
 def test_generic_grad_op_recomputes_the_forward_vjp():

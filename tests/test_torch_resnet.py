@@ -503,8 +503,12 @@ def test_port_startup_trains_resnet50_one_step_on_the_cpu():
 
 
 def test_recompute_is_a_later_slice():
+    """Recompute segments are ported: ``recompute=True`` tags each of
+    ResNet-50's 16 bottlenecks as one segment."""
     main, startup = tpt.Program(), tpt.Program()
     with tpt.program_guard(main, startup):
         images = tpt.layers.data("images", [32, 32, 3])
-        with pytest.raises(NotImplementedError, match="recompute"):
-            tpt.models.resnet_imagenet(images, depth=50, recompute=True)
+        tpt.models.resnet_imagenet(images, depth=50, recompute=True)
+    segs = {op.attrs.get("__recompute_seg__")
+            for op in main.global_block.ops}
+    assert len(segs - {None}) == 16

@@ -377,7 +377,8 @@ def test_sdpa_on_bf16_heads_matches_jax_cpu_op(case):
 
 
 # --- what is not ported -----------------------------------------------------
-@pytest.mark.parametrize("kw", [{"remat": True}, {"include_head": False}])
+@pytest.mark.parametrize("kw", [{"include_head": False},
+                                {"include_head": False, "remat": True}])
 def test_unported_model_options_raise_naming_roadmap(kw):
     main, startup = tpt.Program(), tpt.Program()
     with tpt.program_guard(main, startup):

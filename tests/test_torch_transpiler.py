@@ -181,11 +181,18 @@ def test_expand_recompute_and_is_test_passes_match_jax(builder):
 
 
 def test_expand_recompute_raises_on_a_segment():
+    """Recompute segments are ported: the pass inlines a ``seg_fwd``
+    into the ops it stands for."""
     prog = tpt.Program()
-    prog.global_block.append_op("seg_fwd", {}, {}, {"seg_ops": []})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpt.transpiler.ExpandRecomputeSegments().apply(
-            prog, tpt.transpiler.PassContext([], []))
+    sop = {"type": "relu", "attrs": {}, "ins": {"X": ["x"]},
+           "outs": {"Out": ["y"]}}
+    prog.global_block.append_op("seg_fwd", {"I": ["x"]}, {"O": ["y"]},
+                                {"seg_ops": [sop]})
+    tpt.transpiler.ExpandRecomputeSegments().apply(
+        prog, tpt.transpiler.PassContext([], []))
+    op, = prog.global_block.ops
+    assert (op.type, op.inputs, op.outputs) == ("relu", {"X": ["x"]},
+                                                {"Out": ["y"]})
 
 
 def test_dropout_to_scale_matches_jax():
