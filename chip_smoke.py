@@ -21,6 +21,7 @@
     python3 chip_smoke.py --zoo-only        # phases 1, 2 and 14 only
     python3 chip_smoke.py --trainer-only    # phases 1, 2 and 15 only
     python3 chip_smoke.py --train-memory-only  # phases 1, 2 and 16 only
+    python3 chip_smoke.py --demo-ops-only   # phases 1, 2 and 17 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -395,6 +396,40 @@ Phases, each fatal on failure (nonzero exit, no result line):
     interleaved rounds) with its keys and each round's overhead, not
     gated. Each kernel record of the ``kernels`` line carries its
     launches a step on these paths (``launches_phase16``).
+17. The op plane the demos lack, each part fatal on failure: (a) all 76
+    ops of the slice (32 activation, 30 tensor, 12 loss ops, ``dot`` and
+    ``cos_sim``; ``cross_entropy`` hard and soft) on the card at the
+    d1024 LM's activation width, [2048, 1024], in f32 and bf16, with tie
+    points mixed in, against the port's own CPU run of the same
+    function: the forward and, by ``torch.autograd.grad``, the gradient
+    of every float input; the piecewise-linear, comparison, logic, index
+    and shape ops bit for bit; the others within 4 f32 or 1 bf16 ulps,
+    each output read by element (the transcendental forwards and
+    gradients, the forwards of the sigmoid and tanh families, softplus,
+    elu and of the losses whose terms share one sign) or in ulps of the
+    tensor's largest |value| (row sums and cancelling results: those
+    families' gradients, tanh_shrink, log_softmax, the other losses),
+    with three f32 outputs that round again after a 4-ulp gap held at 5
+    or 6 ulps; (b) ``demos/gan_mnist.py``'s two programs built with the
+    port (Z 64, hidden 256, 784 pixels, batch 64, Adam 2e-4 with beta1
+    0.5, each ``minimize`` with its ``parameter_list``, one scope)
+    trained through its full loop of 5 passes of up to 200 batches (the
+    8192 synthetic samples give 128; a new shuffle each pass), two G
+    steps a D step, over the port's synthetic MNIST: the final losses
+    within the demo's bands (0.05 < d < 3.5, 0.02 < g < 6.0), the D
+    parameters bitwise unchanged by the G steps of the first three
+    rounds and of each pass's last, Adam only on each program's list,
+    the first three rounds' losses within 1e-5 of the port's CPU run
+    from the same state and the parameters after them within 4 times the
+    CPU's own move under an image nudge of (1 + 1e-6); (c)
+    ``demos/vae_mnist.py``'s program (batch 128, Z 16, Adam 1e-3)
+    through 5 passes of up to 200 steps (64 a pass): the last loss below
+    the first, the ``for_test`` clone's reconstruction in [0, 1], the
+    first three losses within 1e-5 of the CPU's (the noise from the RNG
+    plane); (d) ms a step of the D, G and VAE steps, and one profiled
+    step of each: wall ms beside device ms and kernel launches (the
+    steps are host-bound). None of the six kernels runs here (their
+    counters are unchanged).
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -6985,6 +7020,684 @@ def phase16_launches(records, mem):
                 "resnet50 SGD(transpile=True)":
                     mem["e"]["transpiled"]["launches"][i] // steps}
 
+# --- phase 17: the op plane the demos lack, and the GAN and VAE demos ------
+# (a): every op of the slice on the card against the port's own CPU run
+# of the same function, at the d1024 LM's activation width, one sequence
+# of 2048 tokens ([2048, 1024]), in f32 and bf16. "exact" ops compare,
+# select and take IEEE-rounded +, -, *, /, so the card equals the CPU bit
+# for bit. The others are held within DEMO_F32_ULPS / DEMO_BF16_ULPS ulps
+# in one of two readings, chosen for each output slot (the forward, then
+# the gradients): "elem" slots call exp, log, tanh, sin, pow or a root
+# (CUDA's and the CPU's differ in the last bits) and are held in ulps of
+# each element's own magnitude (down to the smallest normal); "max"
+# slots sum over a row or cancel (1 - tanh^2, sigmoid's ans * (1 - ans)
+# and softplus's exp(x - softplus(x)) near saturation, expm1(x) + 1,
+# sigmoid(x) - label, log_softmax's g - p * sum(g), a row's sum in
+# another order) and are held in ulps of the tensor's largest |value|
+# (on an H100, sigmoid's f32 gradient lay 277 ulps of its elements from
+# the CPU's, under 1 ulp of its largest value). The forwards of losses
+# whose terms share one sign are read by element. Both readings are kept
+# for every slot. Three f32 slots round again after a transcendental gap
+# of up to 4 ulps and are held at DEMO_F32_SLOT_ULPS: swish's forward
+# x * sigmoid(beta x) (one product more), sigmoid's gradient
+# g * (ans * (1 - ans)) and elementwise_pow's gradient of Y,
+# g * (out * log(x)) (two products after pow's and log's gaps). prelu's
+# gradient of Alpha sums 10^6 products of both signs, which the card and
+# the CPU add in other orders: it is read in ulps of the sum of their
+# magnitudes.
+DEMO_OPS = dict(rows=2048, cols=1024)
+DEMO_F32_ULPS = 4
+DEMO_BF16_ULPS = 1
+# (case, slot: 0 the forward, then each float input's gradient) -> ulps
+DEMO_F32_SLOT_ULPS = {("swish", 0): 5, ("sigmoid", 1): 6,
+                      ("elementwise_pow", 2): 6}
+DEMO_TIES = (0.0, 0.5, -0.5, 1.0, -1.0, 1.5, -1.5, 2.0, -2.0, 2.5, -2.5,
+             6.0, -6.0, 24.0)
+# exp's and elementwise_pow's inputs: bounded, with their own exact points
+DEMO_EXP_TIES = (0.0, 0.5, -0.5, 1.0, -1.0)
+DEMO_POW_X_TIES = (1.0, 2.0, 0.5, 4.0)
+DEMO_POW_Y_TIES = (0.0, 1.0, 2.0, -1.0, 0.5)
+# (b): the GAN demo's two programs at its own widths and loop; (c): the
+# VAE demo's. A demo's pass stops at ``batches`` or where the reader
+# ends: the synthetic MNIST's 8192 samples give 128 batches of 64 and
+# 64 of 128, so the loops run 640 and 320 steps of each program. Python's
+# RNG is seeded once, so each pass shuffles anew as the demos' does. The
+# first DEMO_CHECK_ROUNDS rounds are run again on the CPU
+# (losses at DEMO_LOSS_RTOL), and the GAN's parameters after them are
+# held within DEMO_NUDGE_MULT times the CPU's own move under an image
+# nudge of (1 + DEMO_NUDGE) (Adam's first steps are sign-like: a
+# near-zero gradient that flips moves its element by a whole lr).
+GAN = dict(z=64, hidden=256, pixels=784, batch=64, lr=2e-4, beta1=0.5,
+           passes=5, batches=200, seed=7)
+VAE = dict(z=16, hidden=256, pixels=784, batch=128, lr=1e-3, passes=5,
+           batches=200, seed=11)
+GAN_D_PARAMS = ("d_fc1_w", "d_fc1_b", "d_fc2_w", "d_fc2_b")
+GAN_G_PARAMS = ("g_fc1_w", "g_fc1_b", "g_fc2_w", "g_fc2_b")
+DEMO_CHECK_ROUNDS = 3
+DEMO_LOSS_RTOL = 1e-5
+DEMO_NUDGE = 1e-6
+DEMO_NUDGE_MULT = 4.0
+DEMO_PARAM_FLOOR = 1e-6
+
+
+def _demo_op_cases(rng):
+    """name -> (op, attrs, {slot: [numpy]}, out slot, class): the class
+    "exact", or (the forward's, the gradients') of "elem" and "max"."""
+    import numpy as np
+
+    R, C = DEMO_OPS["rows"], DEMO_OPS["cols"]
+
+    def randn(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype(np.float32)
+
+    def tied(x, ties=DEMO_TIES):
+        flat = x.reshape(-1)
+        for i, t in enumerate(ties):
+            flat[i::997 * len(ties)] = t
+        return x
+
+    def pos(*shape):
+        return np.abs(randn(*shape, scale=2.0)) + np.float32(0.05)
+
+    def unit(*shape):
+        return rng.uniform(0.02, 0.98, shape).astype(np.float32)
+
+    def dyadic(*shape):
+        return (rng.randint(-48, 49, size=shape) / 16.0).astype(np.float32)
+
+    def probs():
+        e = np.exp(randn(R, C))
+        return (e / e.sum(-1, keepdims=True)).astype(np.float32)
+
+    x = tied(randn(R, C, scale=2.0))
+    y_tied = randn(R, C, scale=2.0)
+    y_tied.reshape(-1)[::5] = x.reshape(-1)[::5]
+    maxout_x = x.copy()
+    maxout_x[:, 1::2] = maxout_x[:, 0::2]
+    ids = rng.permutation(R).astype(np.int64)
+    ids[:8] -= R                # negative ids wrap once
+    ids[8:12] = R + np.arange(4)  # out of range: NaN rows, no gradient
+    hot = rng.randint(0, C, size=(R, 1)).astype(np.int64)
+    hot[:4, 0] = [-1, C, 0, C - 1]
+    cases = {}
+    MAX = ("max", "max")
+    SUM = ("elem", "max")  # a forward of terms of one sign
+    elem = {"exp", "log", "sqrt", "rsqrt", "sin", "cos", "pow"}
+    # the forward by element, the gradient cancelling
+    elem_fwd = {"sigmoid", "logsigmoid", "softplus", "swish", "tanh", "stanh",
+                "elu"}
+    cancel = {"tanh_shrink", "log_softmax"}
+    for op in ("sigmoid", "logsigmoid", "tanh", "exp", "log", "sqrt",
+               "rsqrt", "abs", "ceil", "floor", "round", "reciprocal",
+               "square", "softplus", "softsign", "sin", "cos",
+               "tanh_shrink", "softshrink", "hard_shrink", "brelu", "relu6",
+               "leaky_relu", "elu", "pow", "stanh", "hard_sigmoid",
+               "thresholded_relu", "swish", "log_softmax"):
+        inp = pos(R, C) if op in ("log", "sqrt", "rsqrt", "reciprocal",
+                                  "pow") else x
+        if op == "exp":
+            inp = tied(randn(R, C, scale=2.0).clip(-8, 8), DEMO_EXP_TIES)
+        attrs = {"factor": 1.5} if op == "pow" else {}
+        kind = ("elem", "elem") if op in elem else \
+            ("elem", "max") if op in elem_fwd else \
+            ("max", "max") if op in cancel else "exact"
+        cases[op] = (op, attrs, {"X": [inp]}, "Out", kind)
+    cases["maxout"] = ("maxout", {"groups": 2}, {"X": [maxout_x]}, "Out",
+                       "exact")
+    cases["prelu"] = ("prelu", {}, {"X": [x], "Alpha": [
+        np.float32([0.25])]}, "Out", "exact")
+    pair = {"X": [x], "Y": [y_tied]}
+    cases.update({
+        "elementwise_div": ("elementwise_div", {}, {
+            "X": [x], "Y": [pos(R, C)]}, "Out", "exact"),
+        "elementwise_max": ("elementwise_max", {}, pair, "Out", "exact"),
+        "elementwise_min": ("elementwise_min", {}, pair, "Out", "exact"),
+        "elementwise_pow": ("elementwise_pow", {}, {
+            "X": [tied(pos(R, C), DEMO_POW_X_TIES)],
+            "Y": [tied(randn(R, C).clip(-3, 3), DEMO_POW_Y_TIES)]},
+            "Out", ("elem", "elem")),
+        "reduce_sum": ("reduce_sum", {"dim": [1]}, {"X": [x]}, "Out",
+                       MAX),
+        "reduce_mean": ("reduce_mean", {"dim": 1, "keep_dim": True},
+                        {"X": [x]}, "Out", MAX),
+        "reduce_max": ("reduce_max", {"dim": [1]}, {"X": [maxout_x]}, "Out",
+                       "exact"),
+        "reduce_min": ("reduce_min", {"dim": [1]}, {"X": [maxout_x]}, "Out",
+                       "exact"),
+        "reduce_prod": ("reduce_prod", {"dim": [1]}, {
+            "X": [1 + randn(R * C // 8, 8, scale=0.1)]}, "Out", MAX),
+        "argmax": ("argmax", {"axis": 1}, {"X": [maxout_x]}, "Out",
+                   "exact"),
+        "squeeze": ("squeeze", {"axes": [1]}, {"X": [x.reshape(R, 1, C)]},
+                    "Out", "exact"),
+        "unsqueeze": ("unsqueeze", {"axes": [0, -1]}, {"X": [x]}, "Out",
+                      "exact"),
+        "expand": ("expand", {"expand_times": [1, 2]}, {"X": [x]}, "Out",
+                   "exact"),
+        "stack": ("stack", {"axis": 1}, {"X": [x, y_tied]}, "Y", "exact"),
+        "pad": ("pad", {"paddings": [1, 2, 3, 4], "pad_value": 0.5},
+                {"X": [x]}, "Out", "exact"),
+        "crop": ("crop", {"offsets": [1, 256], "shape": [-1, 512]},
+                 {"X": [x]}, "Out", "exact"),
+        "clip": ("clip", {"min": -1.0, "max": 2.0}, {"X": [x]}, "Out",
+                 "exact"),
+        "assign_value": ("assign_value", {
+            "shape": [8, 128], "dtype": "float32",
+            "values": [float(v) for v in randn(1024)]}, {}, "Out", "exact"),
+        "fill_constant_batch_size_like": (
+            "fill_constant_batch_size_like",
+            {"shape": [-1, 1], "value": 0.9, "dtype": "float32"},
+            {"Input": [x]}, "Out", "exact"),
+        "gather": ("gather", {}, {"X": [x], "Index": [ids[:, None]]}, "Out",
+                   "exact"),
+        "one_hot": ("one_hot", {"depth": C}, {"X": [hot]}, "Out", "exact"),
+        "logical_not": ("logical_not", {}, {"X": [x > 0]}, "Out", "exact"),
+    })
+    for op in ("not_equal", "less_than", "less_equal", "greater_than",
+               "greater_equal"):
+        cases[op] = (op, {}, pair, "Out", "exact")
+    for op in ("logical_and", "logical_or", "logical_xor"):
+        cases[op] = (op, {}, {"X": [x > 0], "Y": [y_tied > 0]}, "Out",
+                     "exact")
+    labels01 = (rng.rand(R, C) > 0.5).astype(np.float32)
+    margin_x2 = dyadic(R, C)
+    cases.update({
+        "cross_entropy": ("cross_entropy", {}, {
+            "X": [probs()], "Label": [hot.clip(0, C - 1)]}, "Y", SUM),
+        "cross_entropy_soft": ("cross_entropy", {"soft_label": True}, {
+            "X": [probs()], "Label": [probs()]}, "Y", SUM),
+        "sigmoid_cross_entropy_with_logits": (
+            "sigmoid_cross_entropy_with_logits", {},
+            {"X": [x], "Label": [unit(R, C)]}, "Out", SUM),
+        "bce_loss": ("bce_loss", {}, {"X": [unit(R, C)],
+                                      "Label": [unit(R, C)]}, "Out", SUM),
+        "square_error_cost": ("square_error_cost", {}, pair, "Out",
+                              "exact"),
+        "squared_l2_distance": ("squared_l2_distance", {}, pair, "Out",
+                                SUM),
+        "squared_l2_norm": ("squared_l2_norm", {}, {"X": [x]}, "Out", SUM),
+        "hinge_loss": ("hinge_loss", {}, {"Logits": [dyadic(R, C)],
+                                          "Labels": [labels01]}, "Loss",
+                       "exact"),
+        "huber_loss": ("huber_loss", {"delta": 1.0}, {
+            "X": [dyadic(R, C)], "Y": [dyadic(R, C)]}, "Out", "exact"),
+        "log_loss": ("log_loss", {}, {"Predicted": [unit(R, C)],
+                                      "Labels": [labels01]}, "Loss", SUM),
+        "rank_loss": ("rank_loss", {}, {"Label": [unit(R, C)],
+                                        "Left": [x], "Right": [y_tied]},
+                      "Out", MAX),
+        "margin_rank_loss": ("margin_rank_loss", {"margin": 0.125}, {
+            "Label": [labels01 * 2 - 1], "X1": [margin_x2 + np.float32(
+                0.125)], "X2": [margin_x2]}, "Out", "exact"),
+        "smooth_l1_loss": ("smooth_l1_loss", {"sigma": 1.0}, {
+            "X": [dyadic(R, C)], "Y": [dyadic(R, C)]}, "Out", MAX),
+        "dot": ("dot", {}, pair, "Out", MAX),
+        "cos_sim": ("cos_sim", {}, pair, "Out", MAX),
+    })
+    return cases
+
+
+def _ulps_of(got, want, dtype, at_max, scale=0.0):
+    """The largest |got - want| in ulps of ``dtype``: each element's ulp
+    at its own magnitude in ``want`` (down to the smallest normal, 2^-126
+    in f32 and bf16 alike), or at the tensor's largest (``at_max``), or
+    at no less than ``scale``. NaN against NaN and equal infinities count
+    as equal."""
+    import numpy as np
+
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    ok = (np.isnan(got) & np.isnan(want)) | (np.isinf(want) & (got == want))
+    mag = np.abs(np.where(ok, 0.0, want))
+    mag = np.maximum(mag, max(scale, mag.max(initial=0.0) if at_max
+                              else 2.0 ** -126))
+    mant = 23 if dtype == "float32" else 7
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 2.0 ** -126))) - mant)
+    return float(np.max(np.where(ok, 0.0, np.abs(got - want)) / ulp,
+                        initial=0.0))
+
+
+def _demo_op_run(op, attrs, ins, slot, dtype, device, g):
+    """Out ``slot`` of the port's ``op`` on ``device`` and the gradient
+    of each float input (torch.autograd.grad with cotangent ``g``), as
+    CPU tensors."""
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op
+
+    tins, leaves = {}, []
+    for s, arrs in ins.items():
+        tins[s] = []
+        for a in arrs:
+            t = torch.from_numpy(a).to(device)
+            if t.dtype == torch.float32:
+                t = t.to(dtype).requires_grad_(True)
+                leaves.append(t)
+            tins[s].append(t)
+    with torch.device(device):  # ops without inputs create on it
+        out = get_op(op).fn(attrs, tins)[slot][0]
+    grads = []
+    if out.requires_grad:
+        cot = g[:out.numel()].reshape(out.shape).to(device, out.dtype)
+        grads = [torch.zeros_like(t) if d is None else d for t, d in zip(
+            leaves, torch.autograd.grad(out, leaves, cot,
+                                        allow_unused=True))]
+    return out.detach().cpu(), [d.cpu() for d in grads]
+
+
+def demo_ops_part(gpu_name):
+    """(a): every op of the slice on the card against the port's CPU run,
+    forward and gradient, f32 and bf16. Returns {case: record}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(SEED + 29)
+    cases = _demo_op_cases(rng)
+    g = torch.from_numpy(rng.randn(3 * DEMO_OPS["rows"] * DEMO_OPS["cols"])
+                         .astype(np.float32))
+    counts = _all_kernel_counts()
+    out, worst = {}, []
+    for name, (op, attrs, ins, slot, kind) in sorted(cases.items()):
+        for dtype in ("float32", "bfloat16"):
+            tdt = getattr(torch, dtype)
+            card = _demo_op_run(op, attrs, ins, slot, tdt, "cuda", g)
+            cpu = _demo_op_run(op, attrs, ins, slot, tdt, "cpu", g)
+            pairs = [card[0], *card[1]], [cpu[0], *cpu[1]]
+            assert card[0].dtype == cpu[0].dtype and \
+                card[0].shape == cpu[0].shape, (name, dtype)
+            rec = {"op": op, "class": kind, "shape": list(card[0].shape),
+                   "dtype": str(card[0].dtype).replace("torch.", ""),
+                   "grads": len(card[1])}
+            if kind == "exact" or not card[0].is_floating_point():
+                rec["equal"] = all(torch.equal(a, b) or bool(
+                    ((a == b) | (a.isnan() & b.isnan())).all())
+                    for a, b in zip(*pairs))
+                if name == "prelu":
+                    # Alpha's gradient (after X's) sums g * x over x < 0:
+                    # read in ulps of the sum of |g * x|
+                    rec["equal"] = torch.equal(card[0], cpu[0]) and \
+                        torch.equal(card[1][0], cpu[1][0])
+                    xs = ins["X"][0]
+                    terms = float(np.abs(g[:xs.size].numpy().reshape(
+                        xs.shape) * np.minimum(xs, 0)).sum())
+                    rec["alpha_terms"] = terms
+                    rec["alpha_grad_ulps"] = _ulps_of(
+                        card[1][1].float(), cpu[1][1].float(), dtype, True,
+                        terms)
+                ok = rec["equal"] and rec.get("alpha_grad_ulps", 0) <= (
+                    DEMO_F32_ULPS if dtype == "float32" else DEMO_BF16_ULPS)
+            else:
+                # each slot in both readings; the class's reading is held
+                slots = [kind[0]] + [kind[1]] * len(card[1])
+                rec["ulps_elem"] = [_ulps_of(a.float(), b.float(), dtype,
+                                             False) for a, b in zip(*pairs)]
+                rec["ulps_max"] = [_ulps_of(a.float(), b.float(), dtype,
+                                            True) for a, b in zip(*pairs)]
+                rec["ulps"] = [rec["ulps_" + c][i]
+                               for i, c in enumerate(slots)]
+                rec["limits"] = [DEMO_BF16_ULPS if dtype == "bfloat16" else
+                                 DEMO_F32_SLOT_ULPS.get((name, i),
+                                                        DEMO_F32_ULPS)
+                                 for i in range(len(slots))]
+                ok = all(u <= lim for u, lim in zip(rec["ulps"],
+                                                    rec["limits"]))
+            rec["ok"] = bool(ok)
+            out[f"{name} {dtype}"] = rec
+            if not ok:
+                worst.append(f"{name} {dtype}: {rec}")
+    assert _all_kernel_counts() == counts, "a demo op launched a kernel"
+    n_exact = sum(1 for r in out.values() if "equal" in r)
+
+    def worst_of(dtype, reading):
+        return max((u for r in out.values() if "ulps" in r
+                    and r["dtype"] == dtype
+                    for u, c in zip(r["ulps"], [r["class"][0]] + [
+                        r["class"][1]] * r["grads"]) if c == reading),
+                   default=0.0)
+
+    print(f"demo ops (a): {len(cases)} cases ({len(out)} with both dtypes) "
+          f"on the card at [{DEMO_OPS['rows']}, {DEMO_OPS['cols']}] against "
+          f"the port's CPU run, forward and gradient; {n_exact} held bit "
+          f"for bit, the others within {DEMO_F32_ULPS} f32 (three slots "
+          f"{min(DEMO_F32_SLOT_ULPS.values())}-"
+          f"{max(DEMO_F32_SLOT_ULPS.values())}) / "
+          f"{DEMO_BF16_ULPS} bf16 ulps; worst by element: f32 "
+          f"{worst_of('float32', 'elem'):.2f}, bf16 "
+          f"{worst_of('bfloat16', 'elem'):.2f}; worst of the largest: f32 "
+          f"{worst_of('float32', 'max'):.2f}, bf16 "
+          f"{worst_of('bfloat16', 'max'):.2f}; {len(worst)} outside their "
+          f"limits")
+    for line in worst:
+        print("demo ops (a) outside its limit: " + line)
+    return out, worst
+
+
+def _gan_programs(pt, c):
+    """demos/gan_mnist.py's two programs sharing parameters by name:
+    (d_prog, g_prog, startup, d_loss, g_loss)."""
+    L, P = pt.layers, pt.param_attr.ParamAttr
+
+    def generator(z):
+        h = L.fc(z, size=c["hidden"], act="relu",
+                 param_attr=P(name="g_fc1_w"), bias_attr=P(name="g_fc1_b"))
+        return L.fc(h, size=c["pixels"], act="tanh",
+                    param_attr=P(name="g_fc2_w"), bias_attr=P(name="g_fc2_b"))
+
+    def discriminator(x):
+        h = L.fc(x, size=c["hidden"], param_attr=P(name="d_fc1_w"),
+                 bias_attr=P(name="d_fc1_b"))
+        h = L.leaky_relu(h, alpha=0.2)
+        return L.fc(h, size=1, param_attr=P(name="d_fc2_w"),
+                    bias_attr=P(name="d_fc2_b"))
+
+    def bce_mean(logit, value):
+        target = L.fill_constant_batch_size_like(
+            logit, shape=[-1, 1], value=value, dtype="float32")
+        return L.mean(L.sigmoid_cross_entropy_with_logits(logit, target))
+
+    startup, d_prog, g_prog = pt.Program(), pt.Program(), pt.Program()
+    startup.random_seed = c["seed"]
+    with pt.program_guard(d_prog, startup):
+        x_real = L.data("x_real", shape=[c["pixels"]])
+        z = L.data("z", shape=[c["z"]])
+        d_loss = L.elementwise_add(bce_mean(discriminator(x_real), 0.9),
+                                   bce_mean(discriminator(generator(z)),
+                                            0.0))
+        pt.optimizer.AdamOptimizer(
+            learning_rate=c["lr"], beta1=c["beta1"]).minimize(
+            d_loss, parameter_list=list(GAN_D_PARAMS),
+            startup_program=startup)
+    with pt.program_guard(g_prog, startup):
+        z = L.data("z", shape=[c["z"]])
+        g_loss = bce_mean(discriminator(generator(z)), 1.0)
+        pt.optimizer.AdamOptimizer(
+            learning_rate=c["lr"], beta1=c["beta1"]).minimize(
+            g_loss, parameter_list=list(GAN_G_PARAMS),
+            startup_program=startup)
+    return d_prog, g_prog, startup, d_loss, g_loss
+
+
+def _vae_program(pt, c):
+    """demos/vae_mnist.py's program: (main, startup, infer, loss, recon)."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = c["seed"]
+    with pt.program_guard(main, startup):
+        x = L.data("x", shape=[c["pixels"]])
+        h = L.fc(x, size=c["hidden"], act="relu")
+        mu = L.fc(h, size=c["z"])
+        logvar = L.fc(h, size=c["z"])
+        eps = L.gaussian_random_batch_size_like(mu, shape=[-1, c["z"]],
+                                                mean=0.0, std=1.0)
+        z = L.elementwise_add(mu, L.elementwise_mul(
+            L.exp(L.scale(logvar, 0.5)), eps))
+        x_logits = L.fc(L.fc(z, size=c["hidden"], act="relu"),
+                        size=c["pixels"])
+        rec = L.reduce_sum(L.sigmoid_cross_entropy_with_logits(x_logits, x),
+                           dim=[1])
+        kl = L.scale(L.reduce_sum(L.elementwise_sub(
+            L.elementwise_add(L.exp(logvar), L.square(mu)),
+            L.scale(logvar, 1.0, bias=1.0)), dim=[1]), 0.5)
+        loss = L.mean(L.elementwise_add(rec, kl))
+        recon = L.sigmoid(x_logits)
+        infer = main.clone(for_test=True)
+        pt.optimizer.AdamOptimizer(learning_rate=c["lr"]).minimize(
+            loss, startup_program=startup)
+    return main, startup, infer, loss, recon
+
+
+def _demo_passes(pt, c):
+    """The demos' reader: per pass, the list of its batches (at most
+    ``batches``) of the synthetic MNIST shuffled in buffers of 2048.
+    Python's RNG is seeded once, so every pass draws a new order."""
+    import itertools
+    import random
+
+    import numpy as np
+
+    random.seed(SEED)
+    reader = pt.reader.batch(pt.reader.decorator.shuffle(
+        pt.dataset.mnist.train(), buf_size=2048), c["batch"])
+    for _ in range(c["passes"]):
+        yield [np.stack([r[0] for r in rows]).reshape(len(rows), -1)
+               for rows in itertools.islice(reader(), c["batches"])]
+
+
+def _host_params(scope, names):
+    return {n: scope.get_numpy(n) for n in names}
+
+
+def _one_step_anatomy(step):
+    """One step's wall ms (synchronised), then one profiled step's
+    device ms and kernel launches."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    try:
+        with _cuda_trace(primer=step) as prof:
+            step()
+        kernels = _traced_kernels(prof)
+        dev = sum(us for _, us in kernels) / 1e3 if kernels else None
+    except Exception as exc:  # noqa: BLE001 - a measurement aid
+        print(f"demo anatomy: not measured ({type(exc).__name__}: {exc})")
+        kernels, dev = [], None
+    return {"wall_ms": wall, "device_ms": dev, "launches": len(kernels)}
+
+
+def gan_part(pt):
+    """(b): the GAN demo's full loop on the card, its first rounds
+    against the CPU. Returns its record."""
+    import numpy as np
+    import torch
+
+    c = GAN
+    start = pt.Program._uid_counter
+    built = _gan_programs(pt, c)
+    d_prog, g_prog, startup, d_loss, g_loss = built
+    adam = {name: sorted(op.input("Param") for op in p.global_block.ops
+                         if op.type == "adam")
+            for name, p in (("d", d_prog), ("g", g_prog))}
+    assert adam == {"d": sorted(GAN_D_PARAMS), "g": sorted(GAN_G_PARAMS)}, \
+        adam
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    init = _host_params(scope, [n for n in scope.keys()
+                                if n != "@RNG_STATE@"])
+    state_names = sorted(init)
+    zrng = np.random.RandomState(0)
+    d_hist, g_hist, d_ms, g_ms, checked = [], [], [], [], []
+    first = []  # the first rounds' (x, z, z, z) for the CPU
+    step = 0
+    for batches in _demo_passes(pt, c):
+        for batch_id, x in enumerate(batches):
+            z = zrng.randn(len(x), c["z"]).astype(np.float32)
+            t0 = time.perf_counter()
+            dl, = exe.run(d_prog, feed={"x_real": x, "z": z},
+                          fetch_list=[d_loss], scope=scope)
+            d_ms.append((time.perf_counter() - t0) * 1e3)
+            zs = [z]
+            check = step < DEMO_CHECK_ROUNDS or batch_id == len(batches) - 1
+            for _ in range(2):
+                z = zrng.randn(len(x), c["z"]).astype(np.float32)
+                zs.append(z)
+                before = ([scope.get(n).clone() for n in GAN_D_PARAMS]
+                          if check else None)
+                t0 = time.perf_counter()
+                gl, = exe.run(g_prog, feed={"z": z}, fetch_list=[g_loss],
+                              scope=scope)
+                g_ms.append((time.perf_counter() - t0) * 1e3)
+                if check:
+                    checked.append(all(torch.equal(b, scope.get(n)) for b, n
+                                       in zip(before, GAN_D_PARAMS)))
+                g_hist.append(float(gl))
+            d_hist.append(float(dl))
+            if step < DEMO_CHECK_ROUNDS:
+                first.append((x, zs))
+                if step == DEMO_CHECK_ROUNDS - 1:
+                    after_rounds = _host_params(scope, state_names)
+            step += 1
+    anatomy = {"d": _one_step_anatomy(lambda: exe.run(
+        d_prog, feed={"x_real": first[0][0], "z": first[0][1][0]},
+        fetch_list=[d_loss], scope=scope)),
+        "g": _one_step_anatomy(lambda: exe.run(
+            g_prog, feed={"z": first[0][1][1]}, fetch_list=[g_loss],
+            scope=scope))}
+
+    # the first rounds on the CPU from the same state, and again with
+    # the images nudged
+    cpu_runs = []
+    for nudge in (1.0, 1.0 + DEMO_NUDGE):
+        pt.Program._uid_counter = start
+        cd, cg, _, cdl, cgl = _gan_programs(pt, c)
+        cscope = pt.scope_from_numpy(init, "cpu")
+        cexe = pt.Executor(pt.CPUPlace())
+        losses = []
+        for x, zs in first:
+            dl, = cexe.run(cd, feed={"x_real": x * np.float32(nudge),
+                                     "z": zs[0]},
+                           fetch_list=[cdl], scope=cscope)
+            losses.append(float(dl))
+            for z in zs[1:]:
+                gl, = cexe.run(cg, feed={"z": z}, fetch_list=[cgl],
+                               scope=cscope)
+                losses.append(float(gl))
+        cpu_runs.append((losses, _host_params(cscope, state_names)))
+    card_first = []
+    for i in range(DEMO_CHECK_ROUNDS):
+        card_first += [d_hist[i], g_hist[2 * i], g_hist[2 * i + 1]]
+    loss_rel = float(np.max(np.abs(np.array(card_first)
+                                   - np.array(cpu_runs[0][0]))
+                            / np.abs(np.array(cpu_runs[0][0]))))
+    ratios = {}
+    for n in GAN_D_PARAMS + GAN_G_PARAMS:
+        gap = float(np.linalg.norm(after_rounds[n] - cpu_runs[0][1][n]))
+        move = float(np.linalg.norm(cpu_runs[1][1][n] - cpu_runs[0][1][n]))
+        allow = max(DEMO_NUDGE_MULT * move,
+                    DEMO_PARAM_FLOOR * float(np.linalg.norm(
+                        cpu_runs[0][1][n])))
+        ratios[n] = {"gap": gap, "nudge_move": move, "allowed": allow}
+    rec = {"config": c, "d_loss_first": d_hist[:3], "g_loss_first":
+           g_hist[:6], "d_loss_final": d_hist[-1], "g_loss_final": g_hist[-1],
+           "d_steps": len(d_hist), "g_steps": len(g_hist),
+           "d_ms_per_step": float(np.median(d_ms)),
+           "g_ms_per_step": float(np.median(g_ms)),
+           "loop_s": float(sum(d_ms) + sum(g_ms)) / 1e3,
+           "cpu_loss_first": cpu_runs[0][0], "loss_rel_vs_cpu": loss_rel,
+           "params_vs_cpu": ratios, "d_frozen_checked": len(checked),
+           "d_frozen": all(checked), "adam_params": adam,
+           "anatomy": anatomy}
+    print(f"demo GAN (b): {rec['d_steps']} D and {rec['g_steps']} G steps "
+          f"at batch {c['batch']} on the card; final d_loss "
+          f"{rec['d_loss_final']:.4f} g_loss {rec['g_loss_final']:.4f}; "
+          f"D step {rec['d_ms_per_step']:.3f} ms, G step "
+          f"{rec['g_ms_per_step']:.3f} ms (median wall with the loss "
+          f"fetch); first {3 * DEMO_CHECK_ROUNDS} losses within "
+          f"{loss_rel:.2e} of the CPU's; D parameters bitwise unchanged "
+          f"over {len(checked)} checked G steps: {rec['d_frozen']}; worst "
+          f"parameter gap / nudge allowance "
+          f"{max(r['gap'] / r['allowed'] for r in ratios.values()):.3f}")
+    for k, a in anatomy.items():
+        print(f"demo GAN (d) {k.upper()} step: wall {a['wall_ms']:.3f} ms, "
+              f"device {_ms_text(a['device_ms'])} ms, {a['launches']} "
+              f"kernel launches (host-bound)")
+    assert np.isfinite(d_hist).all() and np.isfinite(g_hist).all()
+    assert 0.05 < d_hist[-1] < 3.5, d_hist[-5:]
+    assert 0.02 < g_hist[-1] < 6.0, g_hist[-5:]
+    assert rec["d_frozen"] and len(checked) == 2 * (
+        DEMO_CHECK_ROUNDS + c["passes"]), len(checked)
+    assert loss_rel <= DEMO_LOSS_RTOL, (card_first, cpu_runs[0][0])
+    assert all(r["gap"] <= r["allowed"] for r in ratios.values()), ratios
+    return rec
+
+
+def vae_part(pt):
+    """(c): the VAE demo's full loop on the card, its first steps against
+    the CPU. Returns its record."""
+    import numpy as np
+
+    c = VAE
+    start = pt.Program._uid_counter
+    main, startup, infer, loss, recon = _vae_program(pt, c)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    init = {n: scope.get_numpy(n) for n in scope.keys()
+            if n != "@RNG_STATE@"}
+    rng_state = tuple(t.cpu() for t in scope.get("@RNG_STATE@"))
+    hist, ms, first = [], [], []
+    for batches in _demo_passes(pt, c):
+        for x in batches:
+            x = (x + 1.0) / 2.0
+            if len(first) < DEMO_CHECK_ROUNDS:
+                first.append(x)
+            t0 = time.perf_counter()
+            lo, = exe.run(main, feed={"x": x}, fetch_list=[loss],
+                          scope=scope)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append(float(lo))
+    rec_np, = exe.run(infer, feed={"x": first[0][:4]}, fetch_list=[recon],
+                      scope=scope)
+    anatomy = _one_step_anatomy(lambda: exe.run(
+        main, feed={"x": first[0]}, fetch_list=[loss], scope=scope))
+    pt.Program._uid_counter = start
+    cmain, _, _, closs, _ = _vae_program(pt, c)
+    cscope = pt.scope_from_numpy(init, "cpu")
+    cscope.set("@RNG_STATE@", rng_state)
+    cexe = pt.Executor(pt.CPUPlace())
+    cpu = [float(cexe.run(cmain, feed={"x": x}, fetch_list=[closs],
+                          scope=cscope)[0]) for x in first]
+    loss_rel = float(np.max(np.abs(np.array(hist[:len(cpu)]) - cpu)
+                            / np.abs(cpu)))
+    rec = {"config": c, "loss_first": hist[:3], "loss_final": hist[-1],
+           "steps": len(hist), "ms_per_step": float(np.median(ms)),
+           "loop_s": float(sum(ms)) / 1e3, "cpu_loss_first": cpu,
+           "loss_rel_vs_cpu": loss_rel,
+           "recon_min": float(np.min(rec_np)),
+           "recon_max": float(np.max(rec_np)), "anatomy": anatomy}
+    print(f"demo VAE (c): {len(hist)} steps at batch {c['batch']} on the "
+          f"card; loss {hist[0]:.2f} -> {hist[-1]:.2f}; step "
+          f"{rec['ms_per_step']:.3f} ms (median wall with the loss fetch); "
+          f"first {len(cpu)} losses within {loss_rel:.2e} of the CPU's; "
+          f"for_test reconstruction in [{rec['recon_min']:.4f}, "
+          f"{rec['recon_max']:.4f}]")
+    print(f"demo VAE (d) step: wall {anatomy['wall_ms']:.3f} ms, device "
+          f"{_ms_text(anatomy['device_ms'])} ms, {anatomy['launches']} "
+          f"kernel launches (host-bound)")
+    assert np.isfinite(hist).all() and hist[-1] < hist[0], hist[:3]
+    assert 0.0 <= rec["recon_min"] and rec["recon_max"] <= 1.0
+    assert loss_rel <= DEMO_LOSS_RTOL, (hist[:3], cpu)
+    return rec
+
+
+def demo_ops_phase(gpu_name):
+    """Phase 17: (a) the slice's ops on the card against the CPU, (b)
+    the GAN and (c) the VAE demos' full loops, (d) their step times.
+    Returns its record."""
+    import paddle_tpu_torch as pt
+
+    seconds = [time.perf_counter()]
+    counts = _all_kernel_counts()
+    ops, worst = demo_ops_part(gpu_name)
+    seconds.append(time.perf_counter())
+    gan = gan_part(pt)
+    seconds.append(time.perf_counter())
+    vae = vae_part(pt)
+    seconds.append(time.perf_counter())
+    assert _all_kernel_counts() == counts, "phase 17 launched a kernel"
+    out = {"ops": ops, "gan": gan, "vae": vae, "seconds": [
+        b - a for a, b in zip(seconds, seconds[1:])]}
+    print("phase 17 seconds: " + ", ".join(
+        f"{part} {s:.1f}" for part, s in zip(("(a)", "(b)", "(c)"),
+                                             out["seconds"]))
+        + f"; {sum(out['seconds']):.1f} in all")
+    assert not worst, worst
+    return out
+
 
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
@@ -7092,6 +7805,11 @@ def main():
                              "accumulation, the other optimizers, "
                              "SGD(transpile=True), goodput_overhead); "
                              "prints no ok line")
+    parser.add_argument("--demo-ops-only", action="store_true",
+                        help="build the kernels and run only phase 17 (the "
+                             "slice's ops on the card against the CPU, the "
+                             "GAN and VAE demos' full loops); prints no ok "
+                             "line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -7256,6 +7974,14 @@ def main():
             {"gpu": smi, "train_memory": mem}, indent=1))
         print(smi)
         return
+    if args.demo_ops_only:
+        demo = demo_ops_phase(gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_demo_ops.json").write_text(json.dumps(
+            {"gpu": smi, "demo_ops": demo}, indent=1))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -7328,6 +8054,8 @@ def main():
     trainer = trainer_phase(gpu)
     torch.cuda.empty_cache()
     train_memory = train_memory_phase(gpu)
+    torch.cuda.empty_cache()
+    demo_ops = demo_ops_phase(gpu)
     records = ([kern, slice_record(
                    kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
@@ -7349,7 +8077,7 @@ def main():
          "attention_rewrite": attention, "amp": amp,
          "per_layer": per_layer, "recurrent": recurrent, "zoo": zoo,
          "trainer": trainer, "train_memory": train_memory,
-         "build_s": built,
+         "demo_ops": demo_ops, "build_s": built,
          "rng": rng},
         indent=1))
     print(json.dumps({"kernels": [

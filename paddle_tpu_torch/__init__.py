@@ -18,7 +18,10 @@ callbacks, an ``async_depth`` pipeline (``Executor.run_async``),
 ``profiler`` timers. Training trades step time for memory through
 recompute segments (``recompute_guard``, ``transformer_lm(remat=...)``,
 ``resnet(recompute=True)``) and batch for steps through
-``minimize(accumulate_steps=k)``.
+``minimize(accumulate_steps=k)``. The op plane holds the reference's
+activation, tensor, loss and math ops, their ``layers`` and Variable
+arithmetic (``a - b``), with the synthetic ``dataset.mnist`` the GAN and
+VAE demos train on.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);
@@ -57,8 +60,8 @@ from .core.program import (Program, default_main_program,  # noqa: E402
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
 from . import flags, io, layers, models, nets, optimizer  # noqa: E402
 from . import initializer, transpiler  # noqa: E402
-from . import (checkpoint, data_feeder, event, profiler,  # noqa: E402
-               reader, resilience, trainer)
+from . import (checkpoint, data_feeder, dataset, event,  # noqa: E402
+               profiler, reader, resilience, trainer)
 from .serving import (BadRequestError, CacheExhaustedError,  # noqa: E402
                       DynamicBatcher, EngineClosedError, Future,
                       GenerationEngine, InferenceEngine, LMSpec,
@@ -70,7 +73,7 @@ from .models.transformer import TransformerLM, init_params  # noqa: E402
 
 __all__ = [
     "CPUPlace", "CUDAPlace", "Executor", "Program", "RunHandle", "Scope",
-    "amp_enabled", "set_amp", "checkpoint", "data_feeder",
+    "amp_enabled", "set_amp", "checkpoint", "data_feeder", "dataset",
     "default_main_program", "default_startup_program", "event", "flags",
     "global_scope", "initializer", "io",
     "layers", "maybe_recompute", "models", "nets", "optimizer", "profiler",

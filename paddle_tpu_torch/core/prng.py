@@ -143,12 +143,12 @@ def random_bits(key, n):
     return bits.reshape(bits.shape[:-1] + shape)
 
 
-def _f32(x):
+def f32(x):
     """The f32 nearest the float x, as a Python float."""
     return struct.unpack("f", struct.pack("f", x))[0]
 
 
-def _fma(a, b, c):
+def fma(a, b, c):
     """a * b + c rounded once to f32 (the product is exact in f64)."""
     if not isinstance(a, torch.Tensor):
         a, b = b, a
@@ -186,24 +186,24 @@ def uniform(key, n, minval=0.0, maxval=1.0, dtype=torch.float32):
         raise TypeError(f"uniform draws float32 or bfloat16, not {dtype}")
     one = (bits >> 9) | 0x3F800000  # 23 random mantissa bits in [1, 2)
     floats = one.to(torch.int32).view(torch.float32) - 1.0
-    lo = _f32(minval)
-    return torch.clamp(_fma(floats, _f32(_f32(maxval) - lo), lo), min=lo)
+    lo = f32(minval)
+    return torch.clamp(fma(floats, f32(f32(maxval) - lo), lo), min=lo)
 
 
 def bernoulli(key, p, shape):
     """``jax.random.bernoulli(key, p, shape)`` (mode "low"): a bool mask,
     uniform < p in f32."""
-    return uniform(key, shape) < _f32(p)
+    return uniform(key, shape) < f32(p)
 
 
 # the Cephes log polynomial's coefficients and log(2) in two parts, as f32
-_LOG_P = tuple(_f32(c) for c in (
+_LOG_P = tuple(f32(c) for c in (
     7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
     1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
     3.3333331174e-1))
-_LOG2_LO, _LOG2_HI = _f32(-2.12194440e-4), _f32(0.693359375)
-_SQRT_HALF = _f32(0.707106781186547524)
-_TINY = _f32(1.1754943508222875e-38)  # the smallest normal f32
+_LOG2_LO, _LOG2_HI = f32(-2.12194440e-4), f32(0.693359375)
+_SQRT_HALF = f32(0.707106781186547524)
+_TINY = f32(1.1754943508222875e-38)  # the smallest normal f32
 
 
 def _xla_log(x):
@@ -220,11 +220,11 @@ def _xla_log(x):
     e = e - small.float()
     x2 = t * t
     x3 = x2 * t
-    y = _fma(_fma(t, p[0], p[1]), t, p[2])
-    y1 = _fma(_fma(t, p[3], p[4]), t, p[5])
-    y2 = _fma(_fma(t, p[6], p[7]), t, p[8])
-    y = _fma(_fma(y, x3, y1), x3, y2)
-    y = _fma(y, x3, _LOG2_LO * e)
+    y = fma(fma(t, p[0], p[1]), t, p[2])
+    y1 = fma(fma(t, p[3], p[4]), t, p[5])
+    y2 = fma(fma(t, p[6], p[7]), t, p[8])
+    y = fma(fma(y, x3, y1), x3, y2)
+    y = fma(y, x3, _LOG2_LO * e)
     t = (t - 0.5 * x2) + y
     t = t + _LOG2_HI * e
     t = torch.where(x == 0, torch.full_like(t, -torch.inf), t)
@@ -241,12 +241,12 @@ def gumbel(key, n):
 
 
 # XLA's f32 log1p: a Cephes rational for |x| < sqrt(2) - 1, else log(1 + x)
-_LOG1P_NUM = tuple(_f32(c) for c in (
+_LOG1P_NUM = tuple(f32(c) for c in (
     4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
     6.5787325942061044846969e0, 2.9911919328553073277375e1,
     6.0949667980987787057556e1, 5.7112963590585538103336e1,
     2.0039553499201281259648e1))
-_LOG1P_DEN = tuple(_f32(c) for c in (
+_LOG1P_DEN = tuple(f32(c) for c in (
     1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
     2.2176239823732856465394e2, 3.0909872225312059774938e2,
     2.1642788614495947685003e2, 6.0118660497603843919306e1))
@@ -256,7 +256,7 @@ def _horner(x, coeffs):
     """sum c_i x^(n-i) by Horner's rule, one fused multiply-add a step."""
     r = torch.full_like(x, coeffs[0])
     for c in coeffs[1:]:
-        r = _fma(r, x, c)
+        r = fma(r, x, c)
     return r
 
 
@@ -264,18 +264,18 @@ def _xla_log1p(x):
     """f32 log(1 + x) as XLA's CPU backend computes it."""
     x2 = x * x
     small = _horner(x, _LOG1P_NUM) / _horner(x, _LOG1P_DEN)
-    small = x + _fma(x2, -0.5, (x * x2) * small)
-    return torch.where(x.abs() < _f32(0.41421356237309504880), small,
+    small = x + fma(x2, -0.5, (x * x2) * small)
+    return torch.where(x.abs() < f32(0.41421356237309504880), small,
                        _xla_log(x + 1.0))
 
 
 # Giles' erf_inv: one polynomial in w - 2.5 below w = 5, one in
 # sqrt(w) - 3 above, w = -log1p(-x^2)
-_ERFINV_LT5 = tuple(_f32(c) for c in (
+_ERFINV_LT5 = tuple(f32(c) for c in (
     2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
     0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
     1.50140941))
-_ERFINV_GE5 = tuple(_f32(c) for c in (
+_ERFINV_GE5 = tuple(f32(c) for c in (
     -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
     0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
 
@@ -287,17 +287,17 @@ def erf_inv(x):
     w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
     p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0]).to(x.dtype)
     for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
-        p = _fma(p, w, torch.where(lt, a, b).to(x.dtype))
+        p = fma(p, w, torch.where(lt, a, b).to(x.dtype))
     return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
 
 
-_ERF_ALPHA = tuple(_f32(c) for c in (
+_ERF_ALPHA = tuple(f32(c) for c in (
     0.00022905065861350646, 0.0034082910107109506, 0.050955695062380861,
     0.18520832239976145, 1.128379143519084))
-_ERF_BETA = tuple(_f32(c) for c in (
+_ERF_BETA = tuple(f32(c) for c in (
     -1.1791602954361697e-7, 0.000023547966471313185, 0.0010179625278914885,
     0.014070470171167667, 0.11098505178285362, 0.49746925110067538, 1.0))
-_ERF_CLAMP = _f32(3.7439211627767994)  # erf_inv(1 - 2^-23)
+_ERF_CLAMP = f32(3.7439211627767994)  # erf_inv(1 - 2^-23)
 
 
 def erf(x):
@@ -308,7 +308,7 @@ def erf(x):
     return (x * _horner(x2, _ERF_ALPHA)) / _horner(x2, _ERF_BETA)
 
 
-_SQRT2 = _f32(2.0 ** 0.5)
+_SQRT2 = f32(2.0 ** 0.5)
 
 
 def normal(key, shape, dtype=torch.float32):
@@ -320,7 +320,7 @@ def normal(key, shape, dtype=torch.float32):
         u = uniform(key, shape, minval=-0.99609375, maxval=1.0,
                     dtype=dtype).float()  # nextafter(-1, 0) in bf16
         return _bf16(_bf16(2.0 ** 0.5) * _bf16(erf_inv(u))).to(dtype)
-    lo = _f32(-0.99999994)  # nextafter(-1, 0) in f32
+    lo = f32(-0.99999994)  # nextafter(-1, 0) in f32
     return _SQRT2 * erf_inv(uniform(key, shape, minval=lo, maxval=1.0))
 
 
@@ -346,7 +346,7 @@ def truncated_normal(key, lower, upper, shape, dtype=torch.float32):
         inf = torch.tensor([math.inf, -math.inf], dtype=dtype, device="cpu")
         lo, hi = torch.nextafter(b, inf).tolist()
         return torch.clamp(out, lo, hi).to(dtype)
-    lower, upper = _f32(lower), _f32(upper)
+    lower, upper = f32(lower), f32(upper)
     ab = erf(torch.tensor([lower, upper], dtype=torch.float32, device="cpu")
              / _SQRT2)
     a, b = float(ab[0]), float(ab[1])

@@ -1,0 +1,23 @@
+"""Dataset infrastructure, cut to the synthetic data's seed. Counterpart
+of ``paddle_tpu/dataset/common.py``: a dataset module draws its synthetic
+samples from ``synthetic_rng(name)``, a numpy RandomState seeded from the
+md5 of the name, so both packages draw the same samples."""
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+
+def synthetic_rng(name: str) -> np.random.RandomState:
+    """Deterministic per-dataset RNG so synthetic data is reproducible."""
+    seed = int(hashlib.md5(name.encode()).hexdigest()[:8], 16) % (2**31)
+    return np.random.RandomState(seed)
+
+
+def download(url: str, module_name: str, md5sum: str = None) -> str:
+    """Downloads are disabled: every dataset module serves its synthetic
+    reader."""
+    raise FileNotFoundError(
+        f"{module_name}: downloads are disabled ({url}); the dataset's "
+        f"readers serve synthetic samples")

@@ -5,25 +5,35 @@ from .attention import (make_stack_params, multi_head_attention,
                         transformer_encoder_layer)
 from .control_flow import increment
 from .io import data
-from .nn import (accuracy, batch_norm, conv1x1_bn_act, conv2d, dropout,
-                 embedding, fc, layer_norm, lrn, pool2d, rms_norm,
-                 softmax_with_cross_entropy, topk)
-from .ops import (elementwise_add, elementwise_mul, elementwise_sub, equal,
-                  gelu, relu, softmax)
+from .nn import (accuracy, batch_norm, clip, conv1x1_bn_act, conv2d,
+                 cos_sim, cross_entropy, dropout, embedding, fc, layer_norm,
+                 lrn, mul, pool2d, rms_norm,
+                 sigmoid_cross_entropy_with_logits,
+                 softmax_with_cross_entropy, square_error_cost, topk)
+from .ops import *  # noqa: F401,F403  (the generated unary/binary layers)
+from .ops import __all__ as _ops_all
+from . import math_op_patch  # noqa: F401  (patches +, -, *, / onto Variable)
 from .sequence import (dynamic_gru, dynamic_lstm, sequence_first_step,
                        sequence_last_step, sequence_pool, simple_rnn)
-from .tensor import (assign, cast, concat, create_global_var, fill_constant,
-                     matmul, mean, reshape, scale, split, transpose)
+from .tensor import (argmax, assign, cast, concat, create_global_var,
+                     create_tensor, fill_constant,
+                     fill_constant_batch_size_like,
+                     gaussian_random_batch_size_like, matmul, mean, one_hot,
+                     ones, reduce_max, reduce_mean, reduce_min, reduce_sum,
+                     reshape, scale, split, sums, transpose, zeros)
 
 __all__ = [
-    "accuracy", "assign", "batch_norm", "cast", "concat", "conv1x1_bn_act",
-    "conv2d", "create_global_var", "data", "dropout", "dynamic_gru",
-    "dynamic_lstm", "elementwise_add", "elementwise_mul", "elementwise_sub",
-    "embedding", "equal", "fc", "fill_constant", "gelu", "increment",
-    "layer_norm", "lrn",
-    "make_stack_params", "matmul", "mean", "multi_head_attention",
-    "pipelined_transformer_stack", "pool2d", "relu", "reshape", "rms_norm",
-    "scale", "sequence_first_step", "sequence_last_step", "sequence_pool",
-    "simple_rnn", "softmax", "softmax_with_cross_entropy", "split",
-    "topk", "transformer_encoder_layer", "transpose",
-]
+    "accuracy", "argmax", "assign", "batch_norm", "cast", "clip", "concat",
+    "conv1x1_bn_act", "conv2d", "cos_sim", "create_global_var",
+    "create_tensor", "cross_entropy", "data", "dropout", "dynamic_gru",
+    "dynamic_lstm", "embedding", "fc", "fill_constant",
+    "fill_constant_batch_size_like", "gaussian_random_batch_size_like",
+    "increment", "layer_norm", "lrn", "make_stack_params", "matmul", "mean",
+    "mul", "multi_head_attention", "one_hot", "ones",
+    "pipelined_transformer_stack", "pool2d", "reduce_max", "reduce_mean",
+    "reduce_min", "reduce_sum", "reshape", "rms_norm", "scale",
+    "sequence_first_step", "sequence_last_step", "sequence_pool",
+    "sigmoid_cross_entropy_with_logits", "simple_rnn",
+    "softmax_with_cross_entropy", "split", "square_error_cost", "sums",
+    "topk", "transformer_encoder_layer", "transpose", "zeros",
+] + list(_ops_all)

@@ -1,8 +1,10 @@
 """Core NN layers. Counterpart of ``paddle_tpu/layers/nn.py``, cut to
 what the training slices build: ``fc``, ``embedding`` (dense),
 ``conv2d``, ``pool2d``, ``batch_norm``, the fused ``conv1x1_bn_act``,
-``layer_norm``, ``rms_norm``, ``dropout``, ``lrn`` and
-``softmax_with_cross_entropy``."""
+``layer_norm``, ``rms_norm``, ``dropout``, ``lrn``, the losses
+``softmax_with_cross_entropy``, ``sigmoid_cross_entropy_with_logits``,
+``cross_entropy`` and ``square_error_cost``, ``cos_sim``, ``mul`` and
+``clip``, and the metrics ``topk`` and ``accuracy``."""
 from __future__ import annotations
 
 import math
@@ -283,6 +285,55 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
         ["Softmax", "Loss"], {"soft_label": soft_label,
                               "label_smoothing": float(label_smoothing)})
     return outs["Loss"][0]
+
+
+def sigmoid_cross_entropy_with_logits(x, label, main_program=None,
+                                      startup_program=None):
+    """Elementwise binary cross-entropy on logits."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits",
+                         main_program=main_program,
+                         startup_program=startup_program)
+    return helper.simple_op("sigmoid_cross_entropy_with_logits",
+                            {"X": [x], "Label": [label]}, {})
+
+
+def cross_entropy(input, label, soft_label=False, main_program=None,
+                  startup_program=None):
+    helper = LayerHelper("cross_entropy", main_program=main_program,
+                         startup_program=startup_program)
+    return helper.simple_op("cross_entropy", {"X": [input], "Label": [label]},
+                            {"soft_label": soft_label}, out_slot="Y")
+
+
+def square_error_cost(input, label, main_program=None, startup_program=None):
+    helper = LayerHelper("square_error_cost", main_program=main_program,
+                         startup_program=startup_program)
+    return helper.simple_op("square_error_cost", {"X": [input], "Y": [label]})
+
+
+def cos_sim(X, Y, main_program=None, startup_program=None):
+    """Cosine similarity of the rows of X and Y."""
+    helper = LayerHelper("cos_sim", main_program=main_program,
+                         startup_program=startup_program)
+    return helper.simple_op("cos_sim", {"X": [X], "Y": [Y]}, {})
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, main_program=None,
+        startup_program=None):
+    """The raw mul op as a layer."""
+    helper = LayerHelper("mul", main_program=main_program,
+                         startup_program=startup_program)
+    return helper.simple_op("mul", {"X": [x], "Y": [y]},
+                            {"x_num_col_dims": x_num_col_dims,
+                             "y_num_col_dims": y_num_col_dims})
+
+
+def clip(x, min, max, main_program=None, startup_program=None):  # noqa: A002
+    """Elementwise clamp to [min, max]."""
+    helper = LayerHelper("clip", main_program=main_program,
+                         startup_program=startup_program)
+    return helper.simple_op("clip", {"X": [x]},
+                            {"min": float(min), "max": float(max)})
 
 
 def topk(input, k, main_program=None, startup_program=None):

@@ -1,6 +1,5 @@
-"""Tensor layers. Counterpart of ``paddle_tpu/layers/tensor.py``, cut to
-what the training slices, the per-layer transformer, primitive
-attention and the image zoo's programs build."""
+"""Tensor layers. Counterpart of ``paddle_tpu/layers/tensor.py``: every
+layer of it."""
 from __future__ import annotations
 
 from ..core.types import dtype_name
@@ -55,6 +54,11 @@ def concat(input, axis=0, main_program=None, startup_program=None):
     return h.simple_op("concat", {"X": list(input)}, {"axis": axis})
 
 
+def sums(input, main_program=None, startup_program=None):
+    h = _helper("sum", main_program, startup_program)
+    return h.simple_op("sum", {"X": list(input)})
+
+
 def mean(x, main_program=None, startup_program=None):
     h = _helper("mean", main_program, startup_program)
     return h.simple_op("mean", {"X": [x]})
@@ -96,3 +100,81 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
         "matmul", {"X": [x], "Y": [y]},
         {"transpose_X": transpose_x, "transpose_Y": transpose_y,
          "alpha": alpha})
+
+
+def one_hot(input, depth, main_program=None, startup_program=None):
+    h = _helper("one_hot", main_program, startup_program)
+    return h.simple_op("one_hot", {"X": [input]}, {"depth": depth})
+
+
+def argmax(x, axis=-1, main_program=None, startup_program=None):
+    h = _helper("argmax", main_program, startup_program)
+    return h.simple_op("argmax", {"X": [x]}, {"axis": axis})
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0,
+                                  main_program=None, startup_program=None):
+    """A constant whose batch dim copies ``input``'s (batch-shaped
+    initial states, targets of a loss)."""
+    h = _helper("fill_constant_batch_size_like", main_program,
+                startup_program)
+    return h.simple_op(
+        "fill_constant_batch_size_like", {"Input": [input]},
+        {"shape": list(shape), "dtype": dtype_name(dtype), "value": value,
+         "input_dim_idx": input_dim_idx, "output_dim_idx": output_dim_idx})
+
+
+def gaussian_random_batch_size_like(input, shape, mean=0.0, std=1.0,
+                                    dtype="float32", input_dim_idx=0,
+                                    output_dim_idx=0, main_program=None,
+                                    startup_program=None):
+    """Gaussian noise with a batch dim copied from ``input``, drawn from
+    the executor's RNG plane; no gradient flows into it (the
+    reparameterization trick's noise)."""
+    h = _helper("gaussian_random_batch_size_like", main_program,
+                startup_program)
+    return h.simple_op(
+        "gaussian_random_batch_size_like", {"Input": [input]},
+        {"shape": list(shape), "dtype": dtype_name(dtype), "mean": mean,
+         "std": std, "input_dim_idx": input_dim_idx,
+         "output_dim_idx": output_dim_idx})
+
+
+def _reduce_layer(op_type):
+    def layer(x, dim=None, keep_dim=False, main_program=None,
+              startup_program=None):
+        h = _helper(op_type, main_program, startup_program)
+        return h.simple_op(op_type, {"X": [x]},
+                           {"dim": dim, "keep_dim": keep_dim,
+                            "reduce_all": dim is None})
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
+reduce_max = _reduce_layer("reduce_max")
+reduce_min = _reduce_layer("reduce_min")
+
+
+def create_tensor(dtype="float32", name=None, main_program=None,
+                  startup_program=None):
+    """An empty named [1] variable to assign into."""
+    h = _helper("create_tensor", main_program, startup_program)
+    return h.block.create_var(
+        name=name or h.main_program.unique_name("tensor"), shape=[1],
+        dtype=dtype)
+
+
+def ones(shape, dtype="float32", main_program=None, startup_program=None):
+    return fill_constant(shape=shape, value=1.0, dtype=dtype,
+                         main_program=main_program,
+                         startup_program=startup_program)
+
+
+def zeros(shape, dtype="float32", main_program=None, startup_program=None):
+    return fill_constant(shape=shape, value=0.0, dtype=dtype,
+                         main_program=main_program,
+                         startup_program=startup_program)

@@ -1,7 +1,6 @@
 """Composite network helpers. Counterpart of ``paddle_tpu/nets.py``:
-``simple_img_conv_pool`` and ``img_conv_group`` (VGG's conv blocks).
-``glu`` waits for the sigmoid activation op and raises, naming
-``ROADMAP.md``."""
+``simple_img_conv_pool``, ``img_conv_group`` (VGG's conv blocks) and
+``glu``."""
 from __future__ import annotations
 
 from . import layers
@@ -65,7 +64,11 @@ def img_conv_group(input, conv_num_filter, conv_filter_size=3, conv_act=None,
 
 
 def glu(input, dim=-1, main_program=None, startup_program=None):
-    """Gated linear unit: not ported yet."""
-    raise NotImplementedError(
-        "nets.glu needs the sigmoid op, which is not ported to "
-        "paddle_tpu_torch; see ROADMAP.md Queue 1 item 2")
+    """Gated linear unit: ``input`` split in two halves a, b along
+    ``dim``, a * sigmoid(b)."""
+    a, b = layers.split(input, 2, dim=dim, main_program=main_program,
+                        startup_program=startup_program)
+    gate = layers.sigmoid(b, main_program=main_program,
+                          startup_program=startup_program)
+    return layers.elementwise_mul(a, gate, main_program=main_program,
+                                  startup_program=startup_program)

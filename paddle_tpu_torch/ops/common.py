@@ -159,3 +159,166 @@ def broadcast_to_x(x, y, axis: int = -1):
         axis = x.ndim - y.ndim
     new_shape = (1,) * axis + tuple(y.shape) + (1,) * (x.ndim - axis - y.ndim)
     return y.reshape(new_shape)
+
+
+# --- elementwise arithmetic that rounds and differentiates as JAX's -------
+def weak(x, v):
+    """The Python scalar ``v`` in ``x``'s dtype, as JAX rounds it against
+    x: a floating x rounds its constants to its own dtype first (a bf16
+    operand to bf16), an integral x truncates them as ``jnp.asarray(v,
+    x.dtype)`` does. Kept a Python number so that torch's op takes it as
+    a scalar, on any device and under a CUDA graph."""
+    if x.dtype == torch.bool:
+        return v
+    return torch.tensor(v, dtype=x.dtype, device="cpu").item()
+
+
+class _Unary(torch.autograd.Function):
+    """``fwd(x)`` whose gradient is ``grad(g, out, x)``: the transpose of
+    the JAX primitive's jvp written op by op in x's dtype, so that both
+    packages round the gradient alike (torch's own derivative of
+    ``tanh``, ``sigmoid`` or ``abs`` rounds, or decides at 0, otherwise)."""
+
+    @staticmethod
+    def forward(x, fwd, grad):
+        return fwd(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.grad = inputs[2]
+        ctx.save_for_backward(inputs[0], output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ans = ctx.saved_tensors
+        return ctx.grad(g, ans, x), None, None
+
+
+def unary(fwd, grad):
+    """The op x -> ``fwd(x)`` with JAX's gradient ``grad(g, out, x)``."""
+    return lambda x: _Unary.apply(x, fwd, grad)
+
+
+# jnp.abs: the gradient at 0 is +g (``select(x >= 0, g, -g)``)
+abs_ = unary(torch.abs, lambda g, ans, x: torch.where(x >= 0, g, -g))
+sqrt = unary(torch.sqrt, lambda g, ans, x: g * (weak(x, 0.5) / ans))
+rsqrt = unary(torch.rsqrt, lambda g, ans, x: g * (weak(x, -0.5) * (ans / x)))
+exp = unary(torch.exp, lambda g, ans, x: g * ans)
+log = unary(torch.log, lambda g, ans, x: g / x)
+log1p = unary(torch.log1p, lambda g, ans, x: g / (x + 1))
+expm1 = unary(torch.expm1, lambda g, ans, x: g * (ans + 1))
+tanh = unary(torch.tanh, lambda g, ans, x: _tanh_grad(g, ans))
+# XLA lowers logistic as 1 / (1 + exp(-x)), each step in x's dtype
+sigmoid = unary(lambda x: 1 / (1 + torch.exp(-x)),
+                lambda g, ans, x: g * (ans * (1 - ans)))
+
+
+def _tanh_grad(g, ans):
+    c = g * (1 - ans)  # the transpose of (g + g * ans) * (1 - ans)
+    return c + c * ans
+
+
+def _replace_inf(t):
+    return torch.where(torch.isinf(t), torch.zeros_like(t), t)
+
+
+def _softplus_fwd(x):
+    """``jnp.logaddexp(x, 0)``: max(x, 0) + log1p(exp(-|x|)), x + 0
+    where x is NaN."""
+    body = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x + 0, body)
+
+
+softplus = unary(_softplus_fwd, lambda g, ans, x: g * torch.exp(
+    _replace_inf(x) - _replace_inf(ans)))
+
+
+class _Div(torch.autograd.Function):
+    """x / y with ``lax.div``'s gradient: g / y and -((g * (1 / (y*y)))
+    * x), each summed back to its operand's shape."""
+
+    @staticmethod
+    def forward(x, y):
+        return x / y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = (g / y).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            gy = (-((g * (1 / (y * y))) * x)).sum_to_size(y.shape)
+        return gx, gy
+
+
+class _Pow(torch.autograd.Function):
+    """x ** y (float y) with ``lax.pow``'s gradient: g * (y * x ** (y -
+    1)) and g * (log(x, 1 where x == 0) * out)."""
+
+    @staticmethod
+    def forward(x, y):
+        return torch.pow(x, y)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, ans = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = (g * (y * torch.pow(x, y - 1))).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            safe = torch.where(x == 0, torch.ones_like(x), x)
+            gy = (g * (torch.log(safe) * ans)).sum_to_size(y.shape)
+        return gx, gy
+
+
+def div(x, y):
+    """``jnp.divide`` of two tensors of one dtype (ints divide to f32)."""
+    if not x.is_floating_point():
+        return x / y
+    return _Div.apply(x, y)
+
+
+def pow_(x, y):
+    """``jnp.power`` of two float tensors of one dtype."""
+    if not x.is_floating_point():
+        return torch.pow(x, y)
+    return _Pow.apply(x, y)
+
+
+def clip(x, lo, hi):
+    """``jnp.clip``: minimum(hi, maximum(lo, x)) with the bounds in x's
+    dtype (0-dim tensors: torch.maximum takes no scalar), so a value at a
+    bound gets half the gradient, as jnp's maximum and minimum split a
+    tie (``torch.clamp`` passes all of it)."""
+    return torch.minimum(x.new_full((), hi),
+                         torch.maximum(x.new_full((), lo), x))
+
+
+def sum_f32(op, *xs, dim=None, keepdim=False):
+    """``jnp.sum(op(*xs), ...)`` as XLA computes it: a sum of 16-bit
+    floats reduces in f32, and XLA then keeps the op that feeds the sum
+    in f32 too (it drops the rounding of op's result to bf16 and back),
+    so a bf16 ``op`` runs here on f32 copies of its inputs. The result
+    is rounded to the inputs' dtype. ``dim`` None sums everything."""
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    if dtype in (torch.bfloat16, torch.float16):
+        xs = [x.float() for x in xs]
+    v = op(*xs)
+    total = v.sum() if dim is None else v.sum(dim=dim, keepdim=keepdim)
+    return total.to(dtype)
+
+
+def row_sum(op, *xs):
+    """``jnp.sum(op(*xs), axis=-1, keepdims=True)`` (``sum_f32``)."""
+    return sum_f32(op, *xs, dim=-1, keepdim=True)

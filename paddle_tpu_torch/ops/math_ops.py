@@ -1,6 +1,7 @@
-"""Matrix ops. Counterpart of ``paddle_tpu/ops/math_ops.py``, cut to
-``mul`` (the training slice's LM head) and ``matmul`` (the batched
-product of primitive attention programs). The product is a plain
+"""Matrix ops. Counterpart of ``paddle_tpu/ops/math_ops.py``: ``mul``
+(the training slice's LM head), ``matmul`` (the batched product of
+primitive attention programs), and the row products ``dot`` and
+``cos_sim``. The product is a plain
 ``torch.matmul`` (cuBLAS on the card), as the JAX package leaves it to
 XLA: f32, or under AMP bf16 operands with f32 accumulation and a bf16
 result (``common.matmul``). Its gradient is the generic vjp."""
@@ -11,6 +12,7 @@ import math
 import torch
 
 from ..core.registry import register_op
+from . import common as C
 from .common import amp_cast, matmul as _matmul, out, single
 
 
@@ -43,3 +45,23 @@ def matmul(attrs, ins):
     if alpha != 1.0:
         res = res * torch.tensor(alpha, dtype=res.dtype)
     return out(Out=res)
+
+
+
+@register_op("dot")
+def dot(attrs, ins):
+    """Row dot products: sum(x * y) over the last dim, kept."""
+    return out(Out=C.row_sum(torch.mul, single(ins, "X"), single(ins, "Y")))
+
+
+@register_op("cos_sim")
+def cos_sim(attrs, ins):
+    """Row cosines x.y / (|x| |y| + 1e-12), with the norms as XNorm and
+    YNorm."""
+    x = single(ins, "X")
+    y = single(ins, "Y")
+    xn = C.sqrt(C.row_sum(torch.mul, x, x))
+    yn = C.sqrt(C.row_sum(torch.mul, y, y))
+    den = xn * yn
+    sim = C.div(C.row_sum(torch.mul, x, y), den + C.weak(den, 1e-12))
+    return {"Out": [sim], "XNorm": [xn], "YNorm": [yn]}

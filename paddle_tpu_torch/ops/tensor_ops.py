@@ -1,11 +1,13 @@
 """Tensor creation / manipulation / elementwise / reduction ops.
 
-Counterpart of ``paddle_tpu/ops/tensor_ops.py``, cut to the ops the
-training, image and inference slices run (``transpose`` and ``split``
-for the per-layer transformer's heads, ``concat`` for GoogLeNet's
-inception blocks, ``top_k`` and ``accuracy`` for the trainer's
-metrics, ``increment``, ``equal``, ``cast``, ``elementwise_sub`` and
-``elementwise_mul`` for gradient accumulation's counter and gate). The random init ops draw from
+Counterpart of ``paddle_tpu/ops/tensor_ops.py``: every op of it but
+``clip_by_norm``, ``clip_by_global_norm`` and ``l1_decay_sign`` (they
+come with ``clip.py`` and ``regularizer.py``) and ``feed``/``fetch``
+(the executor's own). Dense tensors only: the SelectedRows operands of
+the JAX package's ``sum``, ``scale``, ``clip`` and elementwise ops come
+with the sparse-gradient slice. Comparisons and logic give bool and
+``argmax`` int64; their ops pass no gradient (``NON_DIFFERENTIABLE`` in
+``core/backward.py``). The random init ops draw from
 their split of the executor's scope key (``core/prng.py``), bit-exact with
 the JAX executor's draws. Ops return new tensors and never write into their
 inputs (the executor relies on it: ``assign`` hands on the same tensor).
@@ -15,10 +17,12 @@ the executor sets to the run's device (and shape inference to ``meta``).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..core import prng
 from ..core.registry import register_op
 from ..core.types import to_dtype
+from . import common
 from .common import broadcast_to_x, out, single
 
 
@@ -39,6 +43,25 @@ def _batch_size_like_shape(attrs, ref):
     return tuple(shape)
 
 
+@register_op("fill_constant_batch_size_like")
+def fill_constant_batch_size_like(attrs, ins):
+    """A constant whose batch dim copies Input's, on Input's device."""
+    ref = single(ins, "Input")
+    return out(Out=torch.full(_batch_size_like_shape(attrs, ref),
+                              attrs.get("value", 0.0),
+                              dtype=to_dtype(attrs.get("dtype", "float32")),
+                              device=ref.device))
+
+
+@register_op("assign_value")
+def assign_value(attrs, ins):
+    """The attr ``values`` as a tensor of ``shape`` and ``dtype`` (each
+    value rounded to the dtype, as ``np.asarray`` rounds it)."""
+    dtype = to_dtype(attrs.get("dtype", "float32"))
+    return out(Out=torch.tensor(list(attrs["values"]), dtype=dtype)
+               .reshape(tuple(attrs["shape"])))
+
+
 def _dtype(attrs):
     """The op's draw dtype: float32, or bfloat16 (a parameter declared
     bf16 under AMP); jax draws in it, so the port does too."""
@@ -57,7 +80,7 @@ def _affine(x, attrs):
     if x.dtype == torch.bfloat16:
         r = prng._bf16
         return r(r(r(std) * x.float()) + r(mean)).to(torch.bfloat16)
-    return prng._fma(x, prng._f32(std), prng._f32(mean))
+    return prng.fma(x, prng.f32(std), prng.f32(mean))
 
 
 def _gaussian(shape, attrs, rng):
@@ -68,9 +91,9 @@ def _gaussian(shape, attrs, rng):
     dtype = _dtype(attrs)
     if dtype == torch.bfloat16:
         return _affine(prng.normal(rng, shape, dtype), attrs)
-    u = prng.uniform(rng, shape, minval=prng._f32(-0.99999994), maxval=1.0)
-    k = prng._f32(prng._SQRT2 * prng._f32(attrs.get("std", 1.0)))
-    return prng._fma(prng.erf_inv(u), k, prng._f32(attrs.get("mean", 0.0)))
+    u = prng.uniform(rng, shape, minval=prng.f32(-0.99999994), maxval=1.0)
+    k = prng.f32(prng._SQRT2 * prng.f32(attrs.get("std", 1.0)))
+    return prng.fma(prng.erf_inv(u), k, prng.f32(attrs.get("mean", 0.0)))
 
 
 @register_op("uniform_random", needs_rng=True)
@@ -181,6 +204,65 @@ def slice_op(attrs, ins):
     return out(Out=x[tuple(idx)])
 
 
+@register_op("squeeze")
+def squeeze(attrs, ins):
+    """X without the dims ``axes``, or without every dim of size 1 when
+    ``axes`` is empty."""
+    x = single(ins, "X")
+    axes = attrs.get("axes") or [i for i, d in enumerate(x.shape) if d == 1]
+    return out(Out=torch.squeeze(x, dim=tuple(axes)) if axes else x)
+
+
+@register_op("unsqueeze")
+def unsqueeze(attrs, ins):
+    """``jnp.expand_dims``: ``axes`` name dims of the output."""
+    x = single(ins, "X")
+    n = x.ndim + len(attrs["axes"])
+    for a in sorted(a % n for a in attrs["axes"]):
+        x = x.unsqueeze(a)
+    return out(Out=x)
+
+
+@register_op("expand")
+def expand(attrs, ins):
+    """``jnp.tile`` by ``expand_times``."""
+    return out(Out=torch.tile(single(ins, "X"),
+                              tuple(attrs["expand_times"])))
+
+
+@register_op("stack")
+def stack(attrs, ins):
+    """The X tensors stacked on a new dim ``axis``, in their promoted
+    dtype as ``jnp.stack`` promotes a mix; output slot Y."""
+    xs = ins["X"]
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return out(Y=torch.stack([x.to(dtype) for x in xs],
+                             dim=attrs.get("axis", 0)))
+
+
+@register_op("pad")
+def pad(attrs, ins):
+    """Constant padding; ``paddings`` is [before0, after0, before1, ...]."""
+    x = single(ins, "X")
+    p = attrs["paddings"]
+    widths = []
+    for i in reversed(range(x.ndim)):  # F.pad takes the last dim first
+        widths += [p[2 * i], p[2 * i + 1]]
+    return out(Out=F.pad(x, widths, value=attrs.get("pad_value", 0.0)))
+
+
+@register_op("crop")
+def crop(attrs, ins):
+    """X[offsets : offsets + shape]; a -1 in ``shape`` keeps the rest of
+    that dim (the batch dim in particular)."""
+    x = single(ins, "X")
+    idx = tuple(slice(o, None if s == -1 else o + s)
+                for o, s in zip(attrs["offsets"], attrs["shape"]))
+    return out(Out=x[idx])
+
+
 # --- elementwise binary (broadcast semantics per elementwise_op.h) ----------
 def _elementwise(op):
     """Both operands in their promoted dtype first, as jnp promotes them:
@@ -198,14 +280,19 @@ def _elementwise(op):
 register_op("elementwise_add", _elementwise(torch.add))
 register_op("elementwise_sub", _elementwise(torch.sub))
 register_op("elementwise_mul", _elementwise(torch.mul))
+register_op("elementwise_div", _elementwise(common.div))
+# a tie splits its gradient evenly, in torch as in jnp
+register_op("elementwise_max", _elementwise(torch.maximum))
+register_op("elementwise_min", _elementwise(torch.minimum))
+register_op("elementwise_pow", _elementwise(common.pow_))
 
 
-@register_op("equal")
-def equal(attrs, ins):
-    """x == y (bool), y broadcast as the elementwise ops broadcast it."""
-    x = single(ins, "X")
-    y = broadcast_to_x(x, single(ins, "Y"), attrs.get("axis", -1))
-    return out(Out=torch.eq(x, y))
+@register_op("clip")
+def clip(attrs, ins):
+    """``jnp.clip`` to [min, max] (dense X): a value at a bound gets half
+    the gradient."""
+    return out(Out=common.clip(single(ins, "X"), attrs["min"],
+                               attrs["max"]))
 
 
 @register_op("scale")
@@ -213,8 +300,8 @@ def scale(attrs, ins):
     """x * scale + bias (``bias_after_scale``, the default) or (x + bias)
     * scale, in x's dtype: what ``DropoutToScale`` emits."""
     x = single(ins, "X")
-    s = torch.tensor(attrs.get("scale", 1.0), dtype=x.dtype)
-    b = torch.tensor(attrs.get("bias", 0.0), dtype=x.dtype)
+    s = common.weak(x, attrs.get("scale", 1.0))
+    b = common.weak(x, attrs.get("bias", 0.0))
     if attrs.get("bias_after_scale", True):
         return out(Out=x * s + b)
     return out(Out=(x + b) * s)
@@ -232,6 +319,83 @@ def sum_op(attrs, ins):
 @register_op("mean")
 def mean(attrs, ins):
     return out(Out=single(ins, "X").mean())
+
+
+def _reduce(op):
+    """Over ``dim`` (an int or a list), or every dim when ``reduce_all``
+    (the default when ``dim`` is None), keeping them when ``keep_dim``."""
+    def fn(attrs, ins):
+        x = single(ins, "X")
+        dim = attrs.get("dim")
+        keep = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", dim is None):
+            dims = tuple(range(x.ndim))
+        else:
+            dims = tuple(dim) if isinstance(dim, (list, tuple)) else (dim,)
+        return out(Out=op(x, dims, keep))
+
+    return fn
+
+
+def _prod(x, dims, keep):
+    for d in sorted((d % x.ndim for d in dims), reverse=True):
+        x = x.prod(dim=d, keepdim=keep)
+    return x
+
+
+# jnp.sum, mean and prod reduce a bf16 X in f32 and round the result
+# (XLA keeps an op that feeds such a sum in f32, ``common.sum_f32``: a
+# program-wide fusion the port's ops cannot see across op boundaries);
+# amax/amin split a tied maximum's gradient evenly, as jnp.max does
+# (torch.max(dim) would send it all to one element)
+register_op("reduce_sum", _reduce(lambda x, d, k: x.sum(
+    dim=d, keepdim=k, dtype=_acc(x)).to(x.dtype)))
+register_op("reduce_mean", _reduce(lambda x, d, k: x.mean(
+    dim=d, keepdim=k, dtype=_acc(x)).to(x.dtype)))
+register_op("reduce_max", _reduce(lambda x, d, k: x.amax(dim=d, keepdim=k)))
+register_op("reduce_min", _reduce(lambda x, d, k: x.amin(dim=d, keepdim=k)))
+register_op("reduce_prod", _reduce(lambda x, d, k: _prod(
+    x.to(_acc(x)), d, k).to(x.dtype)))
+
+
+def _acc(x):
+    """The dtype jnp reduces x in: f32 for a 16-bit float, else x's."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return torch.float32
+    return x.dtype
+
+
+@register_op("argmax")
+def argmax(attrs, ins):
+    """The index of the first maximum along ``axis``, int64."""
+    return out(Out=torch.argmax(single(ins, "X"), dim=attrs.get("axis", -1)))
+
+
+# --- comparison / logical ---------------------------------------------------
+def _compare(op):
+    """op(x, y) as bool, y broadcast as the elementwise ops broadcast it."""
+    def fn(attrs, ins):
+        x = single(ins, "X")
+        y = broadcast_to_x(x, single(ins, "Y"), attrs.get("axis", -1))
+        return out(Out=op(x, y))
+
+    return fn
+
+
+register_op("equal", _compare(torch.eq))
+register_op("not_equal", _compare(torch.ne))
+register_op("less_than", _compare(torch.lt))
+register_op("less_equal", _compare(torch.le))
+register_op("greater_than", _compare(torch.gt))
+register_op("greater_equal", _compare(torch.ge))
+register_op("logical_and", _compare(torch.logical_and))
+register_op("logical_or", _compare(torch.logical_or))
+register_op("logical_xor", _compare(torch.logical_xor))
+
+
+@register_op("logical_not")
+def logical_not(attrs, ins):
+    return out(Out=torch.logical_not(single(ins, "X")))
 
 
 # --- indexing ---------------------------------------------------------------
@@ -289,6 +453,39 @@ def lookup_table(attrs, ins):
                                        device=rows.device), rows)
     shape = (ids.shape[:-1] if squeeze_last else ids.shape) + (w.shape[-1],)
     return out(Out=rows.reshape(shape))
+
+
+@register_op("gather")
+def gather(attrs, ins):
+    """Rows of X at the flattened Index (``jnp.take`` on axis 0): a
+    negative index wraps once, an index out of range reads the fill
+    value (NaN for floats), and its gradient is dropped."""
+    x = single(ins, "X")
+    n = x.shape[0]
+    idx = _normalize_ids(single(ins, "Index").reshape(-1), n)
+    valid = (idx >= 0) & (idx < n)
+    rows = x[idx.clamp(0, max(n - 1, 0))]
+    if x.is_floating_point():
+        fill = float("nan")
+    elif x.dtype == torch.bool:
+        fill = True
+    else:
+        fill = torch.iinfo(x.dtype).min
+    mask = valid.reshape((-1,) + (1,) * (x.ndim - 1))
+    return out(Out=torch.where(mask, rows, torch.full(
+        (), fill, dtype=x.dtype, device=x.device)))
+
+
+@register_op("one_hot")
+def one_hot(attrs, ins):
+    """f32 rows of ``depth`` with a 1 at each id (zeros for an id out of
+    [0, depth)); a trailing dim of 1 is dropped first."""
+    x = single(ins, "X")
+    flat = x.reshape(x.shape[:-1] if (x.ndim > 1 and x.shape[-1] == 1)
+                     else x.shape)
+    depth = attrs["depth"]
+    return out(Out=(flat[..., None] == torch.arange(
+        depth, device=x.device)).to(torch.float32))
 
 
 # --- top-k and metrics -------------------------------------------------------

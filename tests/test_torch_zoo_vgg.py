@@ -100,8 +100,13 @@ def test_simple_img_conv_pool_and_glu():
 
     jd, td = _program_dicts(builder)
     assert td == jd
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpt.nets.glu(None)
+
+    def glu_builder(pt):
+        x = pt.layers.data("x", shape=[6, 8])
+        pt.nets.glu(x, dim=-1)
+
+    jd, td = _program_dicts(glu_builder)
+    assert td == jd
 
 
 def test_vgg_depth_is_16_or_19():
