@@ -22,6 +22,7 @@
     python3 chip_smoke.py --trainer-only    # phases 1, 2 and 15 only
     python3 chip_smoke.py --train-memory-only  # phases 1, 2 and 16 only
     python3 chip_smoke.py --demo-ops-only   # phases 1, 2 and 17 only
+    python3 chip_smoke.py --book-only       # phases 1, 2 and 18 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -430,6 +431,31 @@ Phases, each fatal on failure (nonzero exit, no result line):
     step of each: wall ms beside device ms and kernel launches (the
     steps are host-bound). None of the six kernels runs here (their
     counters are unchanged).
+18. The book plane (``--book-only``): (a) each chapter of
+    ``tests/test_book.py`` (fit_a_line, word2vec, recommender, the
+    sequence_conv and stacked-LSTM sentiment classifiers, the
+    sequence_conv + CRF label_semantic_roles with its ChunkEvaluator,
+    machine_translation with the fused beam decoder), built as that file
+    builds it and trained on the card through DataFeeder + minibatch
+    with its epochs, batch sizes and synthetic readers, against that
+    file's thresholds; each chapter's first 5 losses within 1e-4 of the
+    port's CPU run from the same startup weights; (b) the book's SRL
+    model ``db_lstm`` at its widths (word_dim 32, hidden_dim 512, depth
+    8, the CRF's transition shared as ``crfw``) over the synthetic
+    conll05, 3 epochs from the same weights with SGD at the book's 1e-4
+    and with Adam at 2e-3 (reported): the losses and the chunk F1 after
+    each epoch, ms a step beside device ms; (c) ``linear_chain_crf`` (NLL and both
+    gradients), ``crf_decoding`` and ``chunk_eval`` at db_lstm's
+    emission shape (b 32, T 17, 9 tags), ``sequence_conv`` at [32, 128,
+    512] with context 5 (forward and both gradients), and
+    ``beam_search_decoder`` (GRU and LSTM) at nmt_seq2seq's widths, beam
+    4, 12 steps, on the card against the port's CPU run: floats within
+    1e-5 of the largest |value|, Viterbi paths exact but where the two
+    paths' f64 scores lie within 1e-4 (counted), ids, lengths and counts
+    exact, beam scores within 4 f32 ulps of the largest |score| a step;
+    (d) ``demos/sequence_tagging_crf.py``'s and ``demos/nmt_seq2seq.py``'s
+    programs at their own sizes against their own gates. None of the six
+    kernels runs here.
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -7699,6 +7725,893 @@ def demo_ops_phase(gpu_name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the book plane (datasets, sequence_conv, the CRF ops,
+# beam_search_decoder, the evaluators) driving the Paddle book chapters
+# ---------------------------------------------------------------------------
+BOOK_CPU_STEPS = 5  # losses a chapter holds against the port's CPU run
+BOOK_LOSS_RTOL = 1e-4
+# the book's SRL model at its own widths (chapter 07, db_lstm), trained
+# from the same weights with SGD at the book's 1e-4, then with Adam at
+# 2e-3, the run reported: 3 epochs each, what the phase's time affords
+# (a step is host-bound at 0.2-0.4 s on the card)
+DB_LSTM = dict(word_dim=32, mark_dim=5, hidden_dim=512, depth=8,
+               mix_hidden_lr=1e-3, batch=32, epochs=3,
+               optimizers=(("sgd", 1e-4), ("adam", 2e-3)))
+BOOK_OPS = dict(batch=32, tags=9, conv=(32, 128, 512), context=5,
+                conv_out=512, dict=256, emb=32, hid=64, beam=4, max_len=12)
+BOOK_GRAD_TOL = 1e-5  # max |card - CPU| / max |CPU|, f32 products
+VITERBI_EPS = 1e-4  # a differing path's f64 score gap to the CPU's best
+# a beam's score sums max_len f32 log-probs, each a few ulps off the
+# CPU's (cuBLAS and the CPU's BLAS round the cell's products otherwise):
+# held at 4 f32 ulps of the largest |score| a step
+BEAM_SCORE_ULPS_A_STEP = 4
+SEQ_TAG = dict(vocab=200, tags=5, T=12, emb=32, batch=32, steps=80,
+               lr=5e-3)
+NMT = dict(dict=256, emb=32, hid=64, batch=32, epochs=10, batches=24,
+           beam=4, max_len=12, lr=5e-3)
+
+
+def _book_fit_a_line(pt):
+    layers = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = layers.data("x", shape=[13])
+        y = layers.data("y", shape=[1])
+        pred = layers.fc(x, size=1)
+        loss = layers.mean(layers.square_error_cost(pred, y))
+        pt.optimizer.SGDOptimizer(learning_rate=0.01).minimize(
+            loss, startup_program=startup)
+    return dict(main=main, startup=startup, feeds=[x, y], fetch=[loss],
+                reader=pt.dataset.uci_housing.train(), batch=32, epochs=12,
+                gate=("loss", 0.5))
+
+
+def _book_word2vec(pt):
+    layers = pt.layers
+    word_dict = pt.dataset.imikolov.build_dict()
+    V, emb_dim, N = len(word_dict), 16, 5
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        ws = [layers.data(f"w{i}", shape=[1], dtype="int64")
+              for i in range(N - 1)]
+        nxt = layers.data("next", shape=[1], dtype="int64")
+        shared = pt.ParamAttr(name="shared_emb")
+        embs = [layers.embedding(w, size=[V, emb_dim], param_attr=shared)
+                for w in ws]
+        hidden = layers.fc(layers.concat(embs, axis=1), size=64, act="relu")
+        logits = layers.fc(hidden, size=V)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, nxt))
+        pt.optimizer.AdamOptimizer(learning_rate=1e-2).minimize(
+            loss, startup_program=startup)
+    reader = pt.reader.decorator.firstn(
+        pt.dataset.imikolov.train(word_dict, N), 2000)
+    return dict(main=main, startup=startup, feeds=ws + [nxt], fetch=[loss],
+                reader=reader, batch=64, epochs=4, gate=("loss", 0.7))
+
+
+def _book_recommender(pt):
+    layers = pt.layers
+    ml = pt.dataset.movielens
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        ids = [layers.data(n, shape=[1], dtype="int64")
+               for n in ("uid", "gender", "age", "job", "mid")]
+        uid, gender, age, job, mid = ids
+        score = layers.data("score", shape=[1])
+        usr = layers.concat([
+            layers.embedding(uid, size=[ml.max_user_id() + 1, 16]),
+            layers.embedding(gender, size=[2, 4]),
+            layers.embedding(age, size=[len(ml.age_table), 4]),
+            layers.embedding(job, size=[ml.max_job_id() + 1, 8]),
+        ], axis=1)
+        mov = layers.embedding(mid, size=[ml.max_movie_id() + 1, 16])
+        both = layers.concat([layers.fc(usr, size=32, act="tanh"),
+                              layers.fc(mov, size=32, act="tanh")], axis=1)
+        pred = layers.fc(both, size=1)
+        loss = layers.mean(layers.square_error_cost(pred, score))
+        pt.optimizer.AdamOptimizer(learning_rate=5e-3).minimize(
+            loss, startup_program=startup)
+
+    def reader():
+        for (u, g, a, j, m, _c, _t, s) in ml.train()():
+            yield u, g, a, j, m, s
+
+    return dict(main=main, startup=startup, feeds=ids + [score],
+                fetch=[loss], reader=reader, batch=64, epochs=2,
+                gate=("loss", 0.6))
+
+
+def _book_sentiment(pt, lstm):
+    """understand_sentiment: the sequence_conv classifier, or the stacked
+    LSTM (``lstm``), as tests/test_book.py builds them."""
+    layers = pt.layers
+    word_dict = pt.dataset.imdb.word_dict()
+    V, hid = len(word_dict), 32
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        words = layers.data("words", shape=[1], dtype="int64", lod_level=1)
+        label = layers.data("label", shape=[1], dtype="int64")
+        emb = layers.embedding(words, size=[V, 16])
+        emb.seq_len = words.seq_len
+        if lstm:
+            x1 = layers.fc(emb, size=4 * hid, num_flatten_dims=2,
+                           bias_attr=False)
+            x1.seq_len = words.seq_len
+            h1, _ = layers.dynamic_lstm(x1, 4 * hid)
+            x2 = layers.fc(h1, size=4 * hid, num_flatten_dims=2,
+                           bias_attr=False)
+            x2.seq_len = words.seq_len
+            h2, _ = layers.dynamic_lstm(x2, 4 * hid, is_reverse=True)
+            feat = layers.concat([layers.sequence_pool(h1, "max"),
+                                  layers.sequence_pool(h2, "max")], axis=1)
+        else:
+            conv3 = layers.sequence_conv(emb, num_filters=16, filter_size=3,
+                                         act="tanh")
+            feat = layers.sequence_pool(conv3, "max")
+        logits = layers.fc(feat, size=2)
+        loss = layers.mean(layers.softmax_with_cross_entropy(logits, label))
+        acc = layers.accuracy(layers.softmax(logits), label)
+        pt.optimizer.AdamOptimizer(learning_rate=2e-2).minimize(
+            loss, startup_program=startup)
+    reader = pt.reader.decorator.firstn(pt.dataset.imdb.train(word_dict),
+                                        384 if lstm else 512)
+    return dict(main=main, startup=startup, feeds=[words, label],
+                fetch=[loss, acc], reader=reader, batch=32, epochs=3,
+                gate=("acc", 0.8 if lstm else 0.85))
+
+
+def _book_srl(pt):
+    layers = pt.layers
+    word_d, _, label_d = pt.dataset.conll05.get_dict()
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        word = layers.data("word", shape=[1], dtype="int64", lod_level=1)
+        mark = layers.data("mark", shape=[1], dtype="int64", lod_level=1)
+        tags = layers.data("tags", shape=[1], dtype="int64", lod_level=1)
+        w_emb = layers.embedding(word, size=[len(word_d), 24])
+        w_emb.seq_len = word.seq_len
+        m_emb = layers.embedding(mark, size=[2, 4])
+        m_emb.seq_len = mark.seq_len
+        feat = layers.concat([w_emb, m_emb], axis=2)
+        feat.seq_len = word.seq_len
+        hidden = layers.sequence_conv(feat, num_filters=64, filter_size=5,
+                                      act="tanh")
+        emission = layers.fc(hidden, size=len(label_d), num_flatten_dims=2)
+        crf = layers.linear_chain_crf(emission, tags)
+        avg = layers.mean(crf)
+        decoded = layers.crf_decoding(emission, transition=crf.transition)
+        chunk = pt.evaluator.ChunkEvaluator(decoded, tags,
+                                            num_chunk_types=4)
+        pt.optimizer.AdamOptimizer(learning_rate=2e-2).minimize(
+            avg, startup_program=startup)
+
+    def reader():
+        for s in pt.dataset.conll05.test()():
+            yield s[0], s[7], s[8]  # words, mark, labels
+
+    return dict(main=main, startup=startup, feeds=[word, mark, tags],
+                fetch=[avg], reader=reader, batch=32, epochs=3,
+                gate=("loss", 0.5), chunk=chunk, f1_gate=0.6)
+
+
+def _book_mt(pt, infer=False):
+    """machine_translation as tests/test_book.py builds it: the training
+    program, or (``infer``) the beam decoder over the trained weights."""
+    layers = pt.layers
+    dict_size, emb_dim, hid = 64, 16, 32
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        src = layers.data("src", shape=[1], dtype="int64", lod_level=1)
+        s_emb = layers.embedding(src, size=[dict_size, emb_dim],
+                                 param_attr=pt.ParamAttr(name="src_emb"))
+        s_emb.seq_len = src.seq_len
+        s_proj = layers.fc(s_emb, size=3 * hid, num_flatten_dims=2,
+                           bias_attr=False)
+        enc = layers.dynamic_gru(s_proj, size=hid)
+        enc_last = layers.sequence_last_step(enc)
+        if infer:
+            gb = main.global_block
+            declare = lambda name, shape: gb.create_var(  # noqa: E731
+                name=name, shape=shape, dtype="float32", persistable=True)
+            w_half, _ = layers.split(declare("dec_wout",
+                                             [2 * hid, dict_size]),
+                                     [hid, hid], dim=0)
+            outs = layers.beam_search_decoder(
+                enc_last, declare("trg_emb", [dict_size, emb_dim]),
+                (declare("dec_wx", [emb_dim, 3 * hid]),
+                 declare("dec_wh", [hid, 3 * hid]),
+                 declare("dec_bx", [3 * hid])), (w_half, None),
+                beam_size=3, max_len=12, bos_id=0, eos_id=1, cell="gru")
+            return main, startup, src, outs
+        trg_in = layers.data("trg_in", shape=[1], dtype="int64", lod_level=1)
+        trg_next = layers.data("trg_next", shape=[1], dtype="int64",
+                               lod_level=1)
+        t_emb = layers.embedding(trg_in, size=[dict_size, emb_dim],
+                                 param_attr=pt.ParamAttr(name="trg_emb"))
+        t_emb.seq_len = trg_in.seq_len
+        t_proj = layers.fc(t_emb, size=3 * hid, num_flatten_dims=2,
+                           param_attr=pt.ParamAttr(name="dec_wx"),
+                           bias_attr=pt.ParamAttr(name="dec_bx"))
+        dec = layers.dynamic_gru(t_proj, size=hid, h0=enc_last,
+                                 param_attr=pt.ParamAttr(name="dec_wh"),
+                                 bias_attr=False)
+        att_w = layers.softmax(layers.matmul(dec, enc, transpose_y=True))
+        both = layers.concat([dec, layers.matmul(att_w, enc)], axis=2)
+        both.seq_len = trg_in.seq_len
+        logits = layers.fc(both, size=dict_size, num_flatten_dims=2,
+                           param_attr=pt.ParamAttr(name="dec_wout"),
+                           bias_attr=False)
+        tok_loss = layers.softmax_with_cross_entropy(logits, trg_next)
+        tok_loss.seq_len = trg_next.seq_len
+        loss = layers.mean(layers.sequence_pool(tok_loss, "average"))
+        pt.optimizer.AdamOptimizer(learning_rate=5e-3).minimize(
+            loss, startup_program=startup)
+    reader = pt.reader.decorator.firstn(pt.dataset.wmt14.train(dict_size),
+                                        768)
+    return dict(main=main, startup=startup, feeds=[src, trg_in, trg_next],
+                fetch=[loss], reader=reader, batch=32, epochs=8,
+                gate=("loss", 0.7))
+
+
+BOOK_CHAPTERS = (
+    ("fit_a_line", _book_fit_a_line),
+    ("word2vec", _book_word2vec),
+    ("recommender", _book_recommender),
+    ("understand_sentiment_conv", lambda pt: _book_sentiment(pt, False)),
+    ("understand_sentiment_stacked_lstm",
+     lambda pt: _book_sentiment(pt, True)),
+    ("label_semantic_roles", _book_srl),
+    ("machine_translation", _book_mt),
+)
+
+
+def _state(scope):
+    return {n: scope.get_numpy(n) for n in scope.keys()
+            if n != "@RNG_STATE@"}
+
+
+def _book_train(pt, make, place, state=None, steps=None):
+    """Train a chapter through DataFeeder + minibatch with its epochs and
+    batch size; ``state`` (host arrays) replaces the startup's values.
+    Returns (built, scope, exe, fetched means a step, wall ms a step, the
+    first feeds, the startup state)."""
+    import numpy as np
+
+    b = make(pt)
+    scope = pt.Scope()
+    exe = pt.Executor(place)
+    exe.run(b["startup"], scope=scope)
+    if state is not None:
+        scope = pt.scope_from_numpy(state, exe.device)
+    init = _state(scope)
+    feeder = pt.data_feeder.DataFeeder(b["feeds"])
+    vals, ms, first = [], [], []
+    for _ in range(b["epochs"]):
+        if "chunk" in b:
+            b["chunk"].reset(exe, scope)
+        for rows in pt.reader.minibatch.batch(b["reader"], b["batch"])():
+            feed = feeder.feed(rows)
+            if len(first) < BOOK_CPU_STEPS:
+                first.append(feed)
+            t0 = time.perf_counter()
+            out = exe.run(b["main"], feed=feed, fetch_list=b["fetch"],
+                          scope=scope)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            vals.append([float(np.asarray(v).mean()) for v in out])
+            if steps is not None and len(vals) == steps:
+                return b, scope, exe, vals, ms, first, init
+    return b, scope, exe, vals, ms, first, init
+
+
+def book_chapters_part(pt, smi):
+    """(a): each chapter of tests/test_book.py trained on the card with
+    that file's epochs, batch sizes, readers and thresholds; its first
+    losses against the port's CPU run from the same startup weights.
+    Returns {chapter: record}."""
+    import numpy as np
+
+    out = {}
+    for name, make in BOOK_CHAPTERS:
+        start = pt.Program._uid_counter
+        t0 = time.perf_counter()
+        b, scope, exe, vals, ms, first, init = _book_train(
+            pt, make, pt.CUDAPlace(0))
+        loop_s = time.perf_counter() - t0
+        losses = [v[0] for v in vals]
+        rec = {"steps": len(vals), "epochs": b["epochs"],
+               "batch": b["batch"], "loss_first": losses[0],
+               "loss_final": losses[-1],
+               "ms_per_step": float(np.median(ms)), "loop_s": loop_s}
+        kind, limit = b["gate"]
+        if kind == "loss":
+            rec["loss_ratio"] = losses[-1] / losses[0]
+            passed = rec["loss_ratio"] < limit
+        else:
+            rec["final_acc"] = float(np.mean([v[1] for v in vals[-5:]]))
+            passed = rec["final_acc"] > limit
+        if "chunk" in b:
+            rec["chunk_f1"] = b["chunk"].eval(exe, scope)[2]
+            passed = passed and rec["chunk_f1"] > b["f1_gate"]
+        if name == "machine_translation":
+            infer, istart, src, outs = _book_mt(pt, infer=True)
+            exe.run(istart, scope=scope)
+            test_src = [s for s, _, _ in
+                        list(pt.dataset.wmt14.test(64)())[:4]]
+            feed = pt.data_feeder.DataFeeder([src]).feed(
+                [(s,) for s in test_src])
+            ids, scores, lens = exe.run(infer, feed=feed,
+                                        fetch_list=list(outs), scope=scope)
+            rec["beam_shape"] = list(ids.shape)
+            rec["beam_sorted"] = bool(np.all(np.diff(scores, axis=1)
+                                             <= 1e-5))
+            passed = (passed and ids.shape[1:] == (3, 12)
+                      and rec["beam_sorted"])
+        rec["anatomy"] = _one_step_anatomy(lambda: exe.run(
+            b["main"], feed=first[0], fetch_list=b["fetch"], scope=scope))
+        # the first steps again on the CPU, from the same startup weights
+        pt.Program._uid_counter = start
+        cpu = _book_train(pt, make, pt.CPUPlace(), state=init,
+                          steps=BOOK_CPU_STEPS)[3]
+        card = losses[:BOOK_CPU_STEPS]
+        rec["cpu_loss_first"] = [v[0] for v in cpu]
+        rec["loss_first_card"] = card
+        rec["loss_rel_vs_cpu"] = float(np.max(
+            np.abs(np.array(card) - rec["cpu_loss_first"])
+            / np.abs(rec["cpu_loss_first"])))
+        rec["passed"] = bool(passed)
+        out[name] = rec
+        gate = (f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (ratio "
+                f"{rec['loss_ratio']:.3f} < {limit})" if kind == "loss" else
+                f"accuracy of the last 5 batches {rec['final_acc']:.3f} > "
+                f"{limit}")
+        extra = (f"; chunk F1 {rec['chunk_f1']:.3f} > {b['f1_gate']}"
+                 if "chunk" in rec else "")
+        if "beam_shape" in rec:
+            extra += (f"; beam ids {rec['beam_shape']}, scores sorted: "
+                      f"{rec['beam_sorted']}")
+        a = rec["anatomy"]
+        print(f"book (a) {name}: {rec['steps']} steps ({b['epochs']} "
+              f"epochs, batch {b['batch']}) on the card, {gate}{extra}; "
+              f"first {BOOK_CPU_STEPS} losses within "
+              f"{rec['loss_rel_vs_cpu']:.2e} of the CPU's; step "
+              f"{rec['ms_per_step']:.3f} ms (median wall with the fetch), "
+              f"one step {a['wall_ms']:.3f} ms wall / "
+              f"{_ms_text(a['device_ms'])} ms device / {a['launches']} "
+              f"kernel launches [{smi}]")
+    bad = {n: r for n, r in out.items() if not r["passed"]
+           or r["loss_rel_vs_cpu"] > BOOK_LOSS_RTOL}
+    assert not bad, bad
+    return out
+
+
+def db_lstm_program(pt, c, optimizer, lr):
+    """The book's SRL model, db_lstm (chapter 07, label_semantic_roles),
+    at the widths in ``c``, with its CRF, decoder and chunk evaluator.
+    The fc layers take num_flatten_dims=2: a sequence is a padded
+    [b, T, d] tensor here, a [sum of T, d] LoD tensor in fluid."""
+    import math
+
+    layers = pt.layers
+    word_d, verb_d, label_d = pt.dataset.conll05.get_dict()
+    hidden_dim, n_labels = c["hidden_dim"], len(label_d)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        seq = lambda name: layers.data(  # noqa: E731
+            name, shape=[1], dtype="int64", lod_level=1)
+        word = seq("word_data")
+        ctx = [seq(n) for n in ("ctx_n2_data", "ctx_n1_data", "ctx_0_data",
+                                "ctx_p1_data", "ctx_p2_data")]
+        predicate, mark, target = (seq("verb_data"), seq("mark_data"),
+                                   seq("target"))
+        embs = [layers.embedding(
+            x, size=[len(word_d), c["word_dim"]],
+            param_attr=pt.ParamAttr(name="emb", trainable=False))
+            for x in [word] + ctx]
+        embs.append(layers.embedding(
+            predicate, size=[len(verb_d), c["word_dim"]], param_attr="vemb"))
+        embs.append(layers.embedding(mark, size=[2, c["mark_dim"]]))
+        hidden_0 = layers.sums([layers.fc(e, size=hidden_dim,
+                                          num_flatten_dims=2) for e in embs])
+        lstm_0, _ = layers.dynamic_lstm(
+            hidden_0, size=hidden_dim, candidate_activation="relu",
+            gate_activation="sigmoid", cell_activation="sigmoid")
+        input_tmp = [hidden_0, lstm_0]
+        for i in range(1, c["depth"]):
+            mix_hidden = layers.sums([
+                layers.fc(input_tmp[0], size=hidden_dim, num_flatten_dims=2),
+                layers.fc(input_tmp[1], size=hidden_dim, num_flatten_dims=2)])
+            lstm, _ = layers.dynamic_lstm(
+                mix_hidden, size=hidden_dim, candidate_activation="relu",
+                gate_activation="sigmoid", cell_activation="sigmoid",
+                is_reverse=(i % 2) == 1)
+            input_tmp = [mix_hidden, lstm]
+        feature_out = layers.sums([
+            layers.fc(input_tmp[0], size=n_labels, act="tanh",
+                      num_flatten_dims=2),
+            layers.fc(input_tmp[1], size=n_labels, act="tanh",
+                      num_flatten_dims=2)])
+        crf_cost = layers.linear_chain_crf(
+            feature_out, target, param_attr=pt.ParamAttr(
+                name="crfw", learning_rate=c["mix_hidden_lr"]))
+        avg_cost = layers.mean(crf_cost)
+        crf_decode = layers.crf_decoding(
+            feature_out, param_attr=pt.ParamAttr(name="crfw"))
+        chunk = pt.evaluator.ChunkEvaluator(
+            crf_decode, target, chunk_scheme="IOB",
+            num_chunk_types=int(math.ceil((n_labels - 1) / 2.0)))
+        opt = (pt.optimizer.AdamOptimizer if optimizer == "adam"
+               else pt.optimizer.SGDOptimizer)
+        opt(learning_rate=lr).minimize(avg_cost, startup_program=startup)
+    return dict(main=main, startup=startup,
+                feeds=[word] + ctx + [predicate, mark, target],
+                fetch=[avg_cost], reader=pt.dataset.conll05.test(),
+                batch=c["batch"], epochs=c["epochs"], chunk=chunk,
+                emission=feature_out)
+
+
+def _db_lstm_train(pt, c, optimizer, lr):
+    """db_lstm trained on the card for c["epochs"] epochs, the chunk F1
+    from ChunkEvaluator after each (reset at its start, as the book's
+    loop does). Returns (built, scope, exe, losses, ms a step, F1s, the
+    first feed, loop seconds)."""
+    import torch
+
+    b = db_lstm_program(pt, c, optimizer, lr)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(b["startup"], scope=scope)
+    # the book loads the pretrained word table into "emb"
+    scope.set("emb", torch.from_numpy(
+        pt.dataset.conll05.get_embedding()).to(exe.device))
+    feeder = pt.data_feeder.DataFeeder(b["feeds"])
+    vals, ms, f1s, first = [], [], [], None
+    t0 = time.perf_counter()
+    for _ in range(c["epochs"]):
+        b["chunk"].reset(exe, scope)
+        for rows in pt.reader.minibatch.batch(b["reader"], c["batch"])():
+            feed = feeder.feed(rows)
+            first = first or feed
+            s0 = time.perf_counter()
+            lo, = exe.run(b["main"], feed=feed, fetch_list=b["fetch"],
+                          scope=scope)
+            ms.append((time.perf_counter() - s0) * 1e3)
+            vals.append(float(lo))
+        f1s.append(b["chunk"].eval(exe, scope)[2])
+    return b, scope, exe, vals, ms, f1s, first, time.perf_counter() - t0
+
+
+def db_lstm_part(pt, smi):
+    """(b): db_lstm at the book's widths trained on the card over the
+    synthetic conll05, from the same startup weights with each optimizer
+    of DB_LSTM; the last is the one reported. Returns its record."""
+    import numpy as np
+
+    c = DB_LSTM
+    start = pt.Program._uid_counter
+    rec = {"config": c}
+    for optimizer, lr in c["optimizers"]:
+        pt.Program._uid_counter = start  # the same names, the same draws
+        b, scope, exe, vals, ms, f1s, first, loop_s = _db_lstm_train(
+            pt, c, optimizer, lr)
+        rec[optimizer] = {"lr": lr, "steps": len(vals), "losses": vals,
+                          "epoch_f1": f1s,
+                          "ms_per_step": float(np.median(ms)),
+                          "loop_s": loop_s}
+        print(f"book (b) db_lstm with {optimizer} {lr}: {len(vals)} steps "
+              f"({c['epochs']} epochs, batch {c['batch']}) on the card in "
+              f"{loop_s:.1f} s; loss {vals[0]:.3f} -> {vals[-1]:.3f}; chunk "
+              f"F1 by epoch {', '.join(f'{f:.3f}' for f in f1s)}; step "
+              f"{rec[optimizer]['ms_per_step']:.3f} ms (median wall with "
+              f"the fetch) [{smi}]")
+        assert np.isfinite(vals).all() and vals[-1] < vals[0], vals[:3]
+    n_params = sum(int(np.prod(p.shape))
+                   for p in b["main"].global_block.all_parameters())
+    anatomy = _one_step_anatomy(lambda: exe.run(
+        b["main"], feed=first, fetch_list=b["fetch"], scope=scope))
+    rec.update(optimizer=optimizer, params=n_params, anatomy=anatomy,
+               final_chunk_f1=f1s[-1])
+    print(f"book (b) db_lstm: word_dim {c['word_dim']}, hidden_dim "
+          f"{c['hidden_dim']} (LSTM {c['hidden_dim'] // 4} units), depth "
+          f"{c['depth']}, {n_params} parameters, trained with "
+          f"{optimizer}: final chunk F1 {f1s[-1]:.4f}; one step "
+          f"{anatomy['wall_ms']:.3f} ms wall / "
+          f"{_ms_text(anatomy['device_ms'])} ms device / "
+          f"{anatomy['launches']} kernel launches [{smi}]")
+    return rec
+
+
+def _path_score(em, trans, path, length):
+    """A tag path's CRF score in f64."""
+    if length == 0:
+        return 0.0
+    em = em.astype("float64")
+    trans = trans.astype("float64")
+    p = path[:length]
+    s = trans[0, p[0]] + trans[1, p[-1]] + em[range(length), p].sum()
+    return float(s + trans[2 + p[:-1], p[1:]].sum())
+
+
+def _op_pair(op, attrs, ins, slots, grad_of=(), seed=0):
+    """The port's ``op`` on the card and on the CPU over the same numpy
+    inputs: ({slot: CPU tensor} card, cpu, [card grads], [cpu grads],
+    card ms of the forward). Gradients of the ``grad_of`` inputs under a
+    random cotangent on the first slot."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op
+
+    res = []
+    for device in ("cuda", "cpu"):
+        tins, leaves = {}, []
+        for s, arrs in ins.items():
+            tins[s] = []
+            for a in arrs:
+                t = torch.from_numpy(a).to(device)
+                if s in grad_of:
+                    t.requires_grad_(True)
+                    leaves.append(t)
+                tins[s].append(t)
+        outs = get_op(op).fn(attrs, tins)
+        grads = []
+        if leaves:
+            y = outs[slots[0]][0]
+            cot = torch.from_numpy(np.random.RandomState(seed).randn(
+                *y.shape).astype(np.float32)).to(device)
+            grads = [g.cpu() for g in torch.autograd.grad(y, leaves, cot)]
+        ms = None
+        if device == "cuda":
+            with torch.no_grad():
+                ms = _cuda_ms(lambda: get_op(op).fn(attrs, tins), iters=10)
+        res.append(({s: outs[s][0].detach().cpu() for s in slots}, grads,
+                    ms))
+    (card, cg, ms), (cpu, pg, _) = res
+    return card, cpu, cg, pg, ms
+
+
+def _rel(got, want):
+    got = got.double()
+    want = want.double()
+    return float((got - want).abs().max() / max(float(want.abs().max()),
+                                                  1e-30))
+
+
+def book_ops_part(smi):
+    """(c): the slice's ops at full size on the card against the port's
+    CPU run of the same inputs. Returns its record."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    c = BOOK_OPS
+    rng = np.random.RandomState(SEED + 30)
+    rec = {}
+    # the CRF ops at db_lstm's emission shape for a batch of conll05
+    rows = list(pt.dataset.conll05.test()())
+    T = max(len(r[0]) for r in rows)
+    batch = rows[:c["batch"]]
+    lengths = np.array([len(r[0]) for r in batch], np.int32)
+    label = np.zeros((c["batch"], T), np.int64)
+    for i, r in enumerate(batch):
+        label[i, :len(r[8])] = r[8]
+    n = c["tags"]
+    em = (rng.randn(c["batch"], T, n) * 2).astype(np.float32)
+    trans = (rng.randn(n + 2, n) * 0.5).astype(np.float32)
+    ins = {"Emission": [em], "Transition": [trans], "Label": [label],
+           "Length": [lengths]}
+    card, cpu, cg, pg, crf_ms = _op_pair(
+        "linear_chain_crf", {}, ins, ["LogLikelihood", "Alpha"],
+        grad_of=("Emission", "Transition"), seed=SEED + 31)
+    rec["linear_chain_crf"] = {
+        "shape": [c["batch"], T, n], "ms": crf_ms,
+        "nll_rel": _rel(card["LogLikelihood"], cpu["LogLikelihood"]),
+        "alpha_rel": _rel(card["Alpha"], cpu["Alpha"]),
+        "d_emission_rel": _rel(cg[0], pg[0]),
+        "d_transition_rel": _rel(cg[1], pg[1])}
+    dins = {"Emission": [em], "Transition": [trans], "Length": [lengths]}
+    card, cpu, _, _, vit_ms = _op_pair("crf_decoding", {}, dins,
+                                       ["ViterbiPath"])
+    cp, pp = card["ViterbiPath"].numpy(), cpu["ViterbiPath"].numpy()
+    differ = [i for i in range(c["batch"]) if not np.array_equal(cp[i],
+                                                                 pp[i])]
+    gaps = [abs(_path_score(em[i], trans, cp[i], lengths[i])
+                - _path_score(em[i], trans, pp[i], lengths[i]))
+            for i in differ]
+    dins["Label"] = [label]
+    card_m, cpu_m, _, _, _ = _op_pair("crf_decoding", {}, dins,
+                                      ["ViterbiPath"])
+    same_rows = [i for i in range(c["batch"]) if i not in differ]
+    rec["crf_decoding"] = {
+        "ms": vit_ms, "paths_differ": len(differ),
+        "differ_score_gaps": gaps,
+        "mask_equal": bool(np.array_equal(
+            card_m["ViterbiPath"].numpy()[same_rows],
+            cpu_m["ViterbiPath"].numpy()[same_rows]))}
+    # chunk_eval over the CPU's paths against the labels
+    cins = {"Inference": [pp], "Label": [label], "Length": [lengths]}
+    slots = ["Precision", "Recall", "F1-Score", "NumInferChunks",
+             "NumLabelChunks", "NumCorrectChunks"]
+    card, cpu, _, _, chunk_ms = _op_pair("chunk_eval",
+                                         {"num_chunk_types": 4}, cins, slots)
+    rec["chunk_eval"] = {
+        "ms": chunk_ms,
+        "counts": [int(card[s][0]) for s in slots[3:]],
+        "equal": all(torch.equal(card[s], cpu[s]) for s in slots)}
+    # sequence_conv at [32, 128, 512], context 5
+    b, t, d = c["conv"]
+    k = c["context"]
+    x = rng.randn(b, t, d).astype(np.float32)
+    f = (rng.randn(k * d, c["conv_out"]) / np.sqrt(k * d)).astype(
+        np.float32)
+    slen = rng.randint(1, t + 1, size=b).astype(np.int32)
+    slen[0] = t
+    card, cpu, cg, pg, conv_ms = _op_pair(
+        "sequence_conv", {"contextLength": k, "contextStart": -(k // 2)},
+        {"X": [x], "Filter": [f], "Length": [slen]}, ["Out"],
+        grad_of=("X", "Filter"), seed=SEED + 32)
+    rec["sequence_conv"] = {
+        "shape": [b, t, d, c["conv_out"]], "context": k, "ms": conv_ms,
+        "out_rel": _rel(card["Out"], cpu["Out"]),
+        "dx_rel": _rel(cg[0], pg[0]), "dfilter_rel": _rel(cg[1], pg[1])}
+    # beam_search_decoder at nmt_seq2seq's widths
+    V, e, h = c["dict"], c["emb"], c["hid"]
+    for cell, G in (("gru", 3), ("lstm", 4)):
+        bins = {"InitState": [rng.randn(c["batch"], h).astype(np.float32)],
+                "Embedding": [rng.randn(V, e).astype(np.float32)],
+                "WeightX": [(rng.randn(e, G * h) * 0.3).astype(np.float32)],
+                "WeightH": [(rng.randn(h, G * h) * 0.3).astype(np.float32)],
+                "Bias": [(rng.randn(1, G * h) * 0.1).astype(np.float32)],
+                "WeightOut": [rng.randn(h, V).astype(np.float32)]}
+        if cell == "lstm":
+            bins["InitCell"] = [rng.randn(c["batch"], h).astype(np.float32)]
+        card, cpu, _, _, beam_ms = _op_pair(
+            "beam_search_decoder",
+            {"beam_size": c["beam"], "max_len": c["max_len"], "bos_id": 0,
+             "eos_id": 1, "cell": cell}, bins, ["Ids", "SeqScores",
+                                               "SeqLen"])
+        rec[f"beam_search_decoder_{cell}"] = {
+            "ms": beam_ms, "ids_equal": torch.equal(card["Ids"], cpu["Ids"]),
+            "lens_equal": torch.equal(card["SeqLen"], cpu["SeqLen"]),
+            "scores_abs": float((card["SeqScores"] - cpu["SeqScores"])
+                                .abs().max()),
+            "scores_ulps": _ulps_of(card["SeqScores"], cpu["SeqScores"],
+                                    "float32", True),
+            "mean_len": float(card["SeqLen"].float().mean())}
+    r = rec
+    print(f"book (c) ops on the card against the CPU: linear_chain_crf "
+          f"[{c['batch']}, {T}, {n}] NLL rel {r['linear_chain_crf']['nll_rel']:.2e}, "
+          f"dEmission {r['linear_chain_crf']['d_emission_rel']:.2e}, "
+          f"dTransition {r['linear_chain_crf']['d_transition_rel']:.2e} "
+          f"(of the largest |value|; limit {BOOK_GRAD_TOL}); crf_decoding: "
+          f"{r['crf_decoding']['paths_differ']} of {c['batch']} paths "
+          f"differ (f64 score gaps {gaps}, limit {VITERBI_EPS}), mask equal "
+          f"{r['crf_decoding']['mask_equal']}; chunk_eval counts "
+          f"{r['chunk_eval']['counts']} equal {r['chunk_eval']['equal']}; "
+          f"sequence_conv [{b}, {t}, {d}] -> {c['conv_out']} context {k}: "
+          f"out {r['sequence_conv']['out_rel']:.2e}, dX "
+          f"{r['sequence_conv']['dx_rel']:.2e}, dFilter "
+          f"{r['sequence_conv']['dfilter_rel']:.2e}; beam_search_decoder "
+          f"(V {V}, e {e}, h {h}, beam {c['beam']}, max_len {c['max_len']}, "
+          f"b {c['batch']}): gru ids equal "
+          f"{r['beam_search_decoder_gru']['ids_equal']}, lstm ids equal "
+          f"{r['beam_search_decoder_lstm']['ids_equal']}, score gaps "
+          f"{r['beam_search_decoder_gru']['scores_abs']:.2e} / "
+          f"{r['beam_search_decoder_lstm']['scores_abs']:.2e} ("
+          f"{r['beam_search_decoder_gru']['scores_ulps']:.2f} / "
+          f"{r['beam_search_decoder_lstm']['scores_ulps']:.2f} f32 ulps of "
+          f"the largest |score|, limit {BEAM_SCORE_ULPS_A_STEP} a step: "
+          f"{BEAM_SCORE_ULPS_A_STEP * c['max_len']}) [{smi}]")
+    print(f"book (c) card ms a call: linear_chain_crf {_ms_text(crf_ms)}, "
+          f"crf_decoding {_ms_text(vit_ms)}, chunk_eval "
+          f"{_ms_text(chunk_ms)}, sequence_conv {_ms_text(conv_ms)}, "
+          f"beam_search_decoder gru "
+          f"{_ms_text(r['beam_search_decoder_gru']['ms'])} / lstm "
+          f"{_ms_text(r['beam_search_decoder_lstm']['ms'])} (CUDA events, "
+          f"host-paced eager loops) [{smi}]")
+    lc = r["linear_chain_crf"]
+    assert max(lc["nll_rel"], lc["alpha_rel"], lc["d_emission_rel"],
+               lc["d_transition_rel"]) <= BOOK_GRAD_TOL, lc
+    assert all(g <= VITERBI_EPS for g in gaps), gaps
+    assert r["crf_decoding"]["mask_equal"] and r["chunk_eval"]["equal"]
+    sc = r["sequence_conv"]
+    assert max(sc["out_rel"], sc["dx_rel"], sc["dfilter_rel"]) \
+        <= BOOK_GRAD_TOL, sc
+    for cell in ("gru", "lstm"):
+        bd = r[f"beam_search_decoder_{cell}"]
+        assert bd["ids_equal"] and bd["lens_equal"], (cell, bd)
+        assert bd["scores_ulps"] <= BEAM_SCORE_ULPS_A_STEP * c["max_len"], \
+            (cell, bd)
+    return rec
+
+
+def _seq_tag_program(pt, c):
+    """demos/sequence_tagging_crf.py's program."""
+    layers = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        words = layers.data("words", shape=[1], dtype="int64", lod_level=1)
+        tags = layers.data("tags", shape=[1], dtype="int64", lod_level=1)
+        emb = layers.embedding(words, size=[c["vocab"], c["emb"]])
+        emb.seq_len = words.seq_len
+        feat = layers.fc(emb, size=c["tags"], num_flatten_dims=2)
+        feat.seq_len = words.seq_len
+        crf = layers.linear_chain_crf(feat, tags)
+        loss = layers.mean(crf)
+        decoded = layers.crf_decoding(feat, transition=crf.transition)
+        pt.optimizer.AdamOptimizer(learning_rate=c["lr"]).minimize(
+            loss, startup_program=startup)
+    return main, startup, loss, decoded
+
+
+def _seq_tag_batch(rng, n, c):
+    """The demo's synthetic_tagging: tags = word % n_tags."""
+    import numpy as np
+
+    words = rng.randint(0, c["vocab"], size=(n, c["T"])).astype(np.int64)
+    tags = (words % c["tags"]).astype(np.int64)
+    lens = rng.randint(max(2, c["T"] // 2), c["T"] + 1,
+                       size=n).astype(np.int32)
+    return {"words": words[..., None], "words@len": lens,
+            "tags": tags[..., None], "tags@len": lens}
+
+
+def _nmt_programs(pt, c, infer=False):
+    """demos/nmt_seq2seq.py's build_train / build_infer."""
+    layers = pt.layers
+    D, E, H = c["dict"], c["emb"], c["hid"]
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        src = layers.data("src", shape=[1], dtype="int64", lod_level=1)
+        s_emb = layers.embedding(src, size=[D, E],
+                                 param_attr=pt.ParamAttr(name="src_emb"))
+        s_emb.seq_len = src.seq_len
+        s_proj = layers.fc(s_emb, size=3 * H, num_flatten_dims=2,
+                           param_attr=pt.ParamAttr(name="src_proj_w"),
+                           bias_attr=False)
+        enc = layers.dynamic_gru(s_proj, size=H,
+                                 param_attr=pt.ParamAttr(name="enc_wh"),
+                                 bias_attr=False)
+        enc_last = layers.sequence_last_step(enc)
+        if infer:
+            gb = main.global_block
+            declare = lambda name, shape: gb.create_var(  # noqa: E731
+                name=name, shape=shape, dtype="float32", persistable=True)
+            w_half, _ = layers.split(declare("dec_wout", [2 * H, D]),
+                                     [H, H], dim=0)
+            outs = layers.beam_search_decoder(
+                enc_last, declare("trg_emb", [D, E]),
+                (declare("dec_wx", [E, 3 * H]), declare("dec_wh", [H, 3 * H]),
+                 declare("dec_bx", [3 * H])), (w_half, None),
+                beam_size=c["beam"], max_len=c["max_len"], bos_id=0,
+                eos_id=1, cell="gru")
+            return main, outs
+        trg_in = layers.data("trg_in", shape=[1], dtype="int64", lod_level=1)
+        trg_next = layers.data("trg_next", shape=[1], dtype="int64",
+                               lod_level=1)
+        t_emb = layers.embedding(trg_in, size=[D, E],
+                                 param_attr=pt.ParamAttr(name="trg_emb"))
+        t_emb.seq_len = trg_in.seq_len
+        t_proj = layers.fc(t_emb, size=3 * H, num_flatten_dims=2,
+                           param_attr=pt.ParamAttr(name="dec_wx"),
+                           bias_attr=pt.ParamAttr(name="dec_bx"))
+        dec = layers.dynamic_gru(t_proj, size=H, h0=enc_last,
+                                 param_attr=pt.ParamAttr(name="dec_wh"),
+                                 bias_attr=False)
+        scores = layers.matmul(dec, enc, transpose_y=True)
+        ctx = layers.matmul(layers.softmax(scores), enc)
+        both = layers.concat([dec, ctx], axis=2)
+        both.seq_len = trg_in.seq_len
+        logits = layers.fc(both, size=D, num_flatten_dims=2,
+                           param_attr=pt.ParamAttr(name="dec_wout"),
+                           bias_attr=False)
+        tok_loss = layers.softmax_with_cross_entropy(logits, trg_next)
+        tok_loss.seq_len = trg_next.seq_len
+        loss = layers.mean(layers.sequence_pool(tok_loss, "average"))
+        pt.optimizer.AdamOptimizer(learning_rate=c["lr"]).minimize(
+            loss, startup_program=startup)
+    startup.random_seed = 5
+    return main, startup, loss, [src, trg_in, trg_next]
+
+
+def book_demos_part(pt, smi):
+    """(d): demos/sequence_tagging_crf.py's and demos/nmt_seq2seq.py's
+    programs rebuilt against the port, run on the card at their own sizes.
+    Returns their record."""
+    import numpy as np
+
+    c = SEQ_TAG
+    main, startup, loss, decoded = _seq_tag_program(pt, c)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    hist, ms = [], []
+    for _ in range(c["steps"]):
+        feed = _seq_tag_batch(rng, c["batch"], c)
+        t0 = time.perf_counter()
+        lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        hist.append(float(lo))
+    feed = _seq_tag_batch(rng, 16, c)
+    dec, = exe.run(main, feed=feed, fetch_list=[decoded], scope=scope)
+    dec = np.asarray(dec).reshape(16, c["T"])
+    lens = feed["tags@len"]
+    mask = np.arange(c["T"])[None, :] < lens[:, None]
+    acc = float((dec == feed["tags"][..., 0])[mask].mean())
+    tag = {"config": c, "loss_first": hist[0], "loss_final": hist[-1],
+           "viterbi_accuracy": acc, "ms_per_step": float(np.median(ms))}
+    print(f"book (d) sequence_tagging_crf: {c['steps']} steps at batch "
+          f"{c['batch']} on the card, -log-likelihood {hist[0]:.4f} -> "
+          f"{hist[-1]:.4f}; viterbi tag accuracy {acc:.3f}; step "
+          f"{tag['ms_per_step']:.3f} ms (median wall) [{smi}]")
+    assert np.isfinite(hist).all() and hist[-1] < hist[0], hist[:3]
+
+    c = NMT
+    main, startup, loss, feeds = _nmt_programs(pt, c)
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    feeder = pt.data_feeder.DataFeeder(feeds)
+    rows = pt.reader.decorator.firstn(pt.dataset.wmt14.train(c["dict"]),
+                                      c["batch"] * c["batches"])
+    hist, ms = [], []
+    for _ in range(c["epochs"]):
+        for rws in pt.reader.minibatch.batch(rows, c["batch"])():
+            t0 = time.perf_counter()
+            lo, = exe.run(main, feed=feeder.feed(rws), fetch_list=[loss],
+                          scope=scope)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            hist.append(float(lo))
+    infer, (ids, scores, lens) = _nmt_programs(pt, c, infer=True)
+    sample = next(iter(pt.reader.minibatch.batch(rows, 4)()))
+    feed = feeder.feed(sample)
+    out_ids, out_scores, out_lens = exe.run(
+        infer, feed={"src": feed["src"], "src@len": feed["src@len"]},
+        fetch_list=[ids, scores, lens], scope=scope)
+    nmt = {"config": c, "loss_first": hist[0], "loss_final": hist[-1],
+           "steps": len(hist), "ms_per_step": float(np.median(ms)),
+           "beam0": [out_ids[i, 0, :int(out_lens[i, 0])].tolist()
+                     for i in range(len(sample))],
+           "beam0_score": [float(s) for s in out_scores[:, 0]]}
+    print(f"book (d) nmt_seq2seq: {len(hist)} steps ({c['epochs']} epochs "
+          f"of {c['batches']} batches of {c['batch']}) on the card, loss "
+          f"{hist[0]:.3f} -> {hist[-1]:.3f}; step {nmt['ms_per_step']:.3f} "
+          f"ms (median wall); beam {c['beam']} ids {list(out_ids.shape)}, "
+          f"beam 0 of the first source {nmt['beam0'][0]} score "
+          f"{nmt['beam0_score'][0]:.2f} [{smi}]")
+    assert np.isfinite(hist).all() and hist[-1] < 0.8 * hist[0], hist[:3]
+    assert out_ids.shape == (4, c["beam"], c["max_len"])
+    assert np.all(np.diff(out_scores, axis=1) <= 1e-5)
+    return {"sequence_tagging_crf": tag, "nmt_seq2seq": nmt}
+
+
+def book_phase(smi):
+    """Phase 18: (a) the book chapters, (b) db_lstm at the book's widths,
+    (c) the slice's ops at full size against the CPU, (d) the two demos.
+    Returns its record."""
+    import paddle_tpu_torch as pt
+
+    seconds = [time.perf_counter()]
+    counts = _all_kernel_counts()
+    chapters = book_chapters_part(pt, smi)
+    seconds.append(time.perf_counter())
+    db = db_lstm_part(pt, smi)
+    seconds.append(time.perf_counter())
+    ops = book_ops_part(smi)
+    seconds.append(time.perf_counter())
+    demos = book_demos_part(pt, smi)
+    seconds.append(time.perf_counter())
+    assert _all_kernel_counts() == counts, "phase 18 launched a kernel"
+    out = {"chapters": chapters, "db_lstm": db, "ops": ops, "demos": demos,
+           "seconds": [b - a for a, b in zip(seconds, seconds[1:])]}
+    print("phase 18 seconds: " + ", ".join(
+        f"{part} {s:.1f}" for part, s in zip(("(a)", "(b)", "(c)", "(d)"),
+                                             out["seconds"]))
+        + f"; {sum(out['seconds']):.1f} in all [{smi}]")
+    return out
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -7810,6 +8723,12 @@ def main():
                              "slice's ops on the card against the CPU, the "
                              "GAN and VAE demos' full loops); prints no ok "
                              "line")
+    parser.add_argument("--book-only", action="store_true",
+                        help="build the kernels and run only phase 18 (the "
+                             "book plane: the Paddle book chapters, db_lstm "
+                             "at the book's widths, the CRF, sequence_conv "
+                             "and beam ops against the CPU, the CRF and NMT "
+                             "demos); prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -7982,6 +8901,14 @@ def main():
             {"gpu": smi, "demo_ops": demo}, indent=1))
         print(smi)
         return
+    if args.book_only:
+        book = book_phase(smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_book.json").write_text(json.dumps(
+            {"gpu": smi, "book": book}, indent=1))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -8056,6 +8983,8 @@ def main():
     train_memory = train_memory_phase(gpu)
     torch.cuda.empty_cache()
     demo_ops = demo_ops_phase(gpu)
+    torch.cuda.empty_cache()
+    book = book_phase(smi)
     records = ([kern, slice_record(
                    kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
@@ -8077,7 +9006,7 @@ def main():
          "attention_rewrite": attention, "amp": amp,
          "per_layer": per_layer, "recurrent": recurrent, "zoo": zoo,
          "trainer": trainer, "train_memory": train_memory,
-         "demo_ops": demo_ops, "build_s": built,
+         "demo_ops": demo_ops, "book": book, "build_s": built,
          "rng": rng},
         indent=1))
     print(json.dumps({"kernels": [

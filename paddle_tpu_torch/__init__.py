@@ -21,7 +21,10 @@ recompute segments (``recompute_guard``, ``transformer_lm(remat=...)``,
 ``minimize(accumulate_steps=k)``. The op plane holds the reference's
 activation, tensor, loss and math ops, their ``layers`` and Variable
 arithmetic (``a - b``), with the synthetic ``dataset.mnist`` the GAN and
-VAE demos train on.
+VAE demos train on. The book plane holds the six book datasets,
+``sequence_conv``, the linear-chain CRF ops, the fused
+``beam_search_decoder`` and the ``evaluator`` module's ``Accuracy`` and
+``ChunkEvaluator``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);
@@ -60,8 +63,9 @@ from .core.program import (Program, default_main_program,  # noqa: E402
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
 from . import flags, io, layers, models, nets, optimizer  # noqa: E402
 from . import initializer, transpiler  # noqa: E402
-from . import (checkpoint, data_feeder, dataset, event,  # noqa: E402
-               profiler, reader, resilience, trainer)
+from . import (checkpoint, data_feeder, dataset, evaluator,  # noqa: E402
+               event, profiler, reader, resilience, trainer)
+from .param_attr import ParamAttr  # noqa: E402
 from .serving import (BadRequestError, CacheExhaustedError,  # noqa: E402
                       DynamicBatcher, EngineClosedError, Future,
                       GenerationEngine, InferenceEngine, LMSpec,
@@ -72,8 +76,9 @@ from .decoding import SamplingParams  # noqa: E402
 from .models.transformer import TransformerLM, init_params  # noqa: E402
 
 __all__ = [
-    "CPUPlace", "CUDAPlace", "Executor", "Program", "RunHandle", "Scope",
-    "amp_enabled", "set_amp", "checkpoint", "data_feeder", "dataset",
+    "CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program",
+    "RunHandle", "Scope", "amp_enabled", "set_amp", "checkpoint",
+    "data_feeder", "dataset", "evaluator",
     "default_main_program", "default_startup_program", "event", "flags",
     "global_scope", "initializer", "io",
     "layers", "maybe_recompute", "models", "nets", "optimizer", "profiler",

@@ -1,7 +1,12 @@
-"""Datasets, cut to the synthetic MNIST the GAN and VAE demos read.
-Counterpart of ``paddle_tpu/dataset``: its readers serve deterministic
-synthetic data (downloads are disabled there too), and the port's yield
-the same samples bit for bit."""
-from . import common, mnist
+"""Datasets: the synthetic MNIST the GAN and VAE demos read and the six
+the Paddle book chapters read (``uci_housing``, ``imikolov``,
+``movielens``, ``imdb``, ``conll05``, ``wmt14``). Counterpart of
+``paddle_tpu/dataset``: its readers serve deterministic synthetic data
+(downloads are disabled there too), and the port's yield the same
+samples bit for bit; a real corpus already under ``common.DATA_HOME`` is
+parsed by the same rules."""
+from . import (common, conll05, imdb, imikolov, mnist, movielens,
+               uci_housing, wmt14)
 
-__all__ = ["common", "mnist"]
+__all__ = ["common", "conll05", "imdb", "imikolov", "mnist", "movielens",
+           "uci_housing", "wmt14"]

@@ -1,12 +1,19 @@
-"""Dataset infrastructure, cut to the synthetic data's seed. Counterpart
-of ``paddle_tpu/dataset/common.py``: a dataset module draws its synthetic
-samples from ``synthetic_rng(name)``, a numpy RandomState seeded from the
-md5 of the name, so both packages draw the same samples."""
+"""Dataset infrastructure, cut to the synthetic data's seed and the
+cache directory. Counterpart of ``paddle_tpu/dataset/common.py``: a
+dataset module draws its synthetic samples from ``synthetic_rng(name)``,
+a numpy RandomState seeded from the md5 of the name, so both packages
+draw the same samples; a real corpus is read only where its files
+already lie under ``DATA_HOME`` (the same ``PADDLE_TPU_DATA_HOME``
+directory as the JAX package's)."""
 from __future__ import annotations
 
 import hashlib
+import os
 
 import numpy as np
+
+DATA_HOME = os.path.expanduser(os.environ.get("PADDLE_TPU_DATA_HOME",
+                                              "~/.cache/paddle_tpu/dataset"))
 
 
 def synthetic_rng(name: str) -> np.random.RandomState:

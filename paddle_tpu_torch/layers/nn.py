@@ -4,7 +4,8 @@ what the training slices build: ``fc``, ``embedding`` (dense),
 ``layer_norm``, ``rms_norm``, ``dropout``, ``lrn``, the losses
 ``softmax_with_cross_entropy``, ``sigmoid_cross_entropy_with_logits``,
 ``cross_entropy`` and ``square_error_cost``, ``cos_sim``, ``mul`` and
-``clip``, and the metrics ``topk`` and ``accuracy``."""
+``clip``, the metrics ``topk`` and ``accuracy``, and the CRF layers
+``linear_chain_crf``, ``crf_decoding`` and ``chunk_eval``."""
 from __future__ import annotations
 
 import math
@@ -380,3 +381,80 @@ def lrn(input, n=5, k=2.0, alpha=1e-4, beta=0.75, data_format="NCHW",
                                {"n": n, "k": k, "alpha": alpha, "beta": beta,
                                 "data_format": data_format})
     return outs["Out"][0]
+
+
+def linear_chain_crf(input, label, param_attr=None, main_program=None,
+                     startup_program=None):
+    """Linear-chain CRF negative log-likelihood cost (reference fluid
+    layers.linear_chain_crf / linear_chain_crf_op.cc). ``input`` is the
+    padded emission sequence [b, T, n]; creates the [n+2, n] transition
+    parameter (rows: start, end, pairwise). Returns the per-row NLL
+    [b, 1]; the transition variable is ``crf.transition``, for
+    crf_decoding."""
+    from .sequence import get_seq_len
+
+    helper = LayerHelper("linear_chain_crf", main_program=main_program,
+                         startup_program=startup_program)
+    n = input.shape[-1]
+    trans = helper.create_parameter(
+        param_attr, shape=[n + 2, n], dtype=input.dtype,
+        default_initializer=XavierInitializer())
+    ins = {"Emission": [input], "Transition": [trans], "Label": [label]}
+    sl = get_seq_len(input)
+    if sl is not None:
+        ins["Length"] = [sl]
+    outs, _ = helper.append_op("linear_chain_crf", ins,
+                               ["LogLikelihood", "Alpha"])
+    nll = outs["LogLikelihood"][0]
+    nll.transition = trans
+    return nll
+
+
+def crf_decoding(input, param_attr=None, transition=None, label=None,
+                 main_program=None, startup_program=None):
+    """Viterbi decode (crf_decoding_op.cc): pass ``transition`` (e.g.
+    ``cost.transition`` from linear_chain_crf) or a param_attr naming the
+    shared transition parameter."""
+    from .sequence import get_seq_len
+
+    helper = LayerHelper("crf_decoding", main_program=main_program,
+                         startup_program=startup_program)
+    if transition is None:
+        n = input.shape[-1]
+        transition = helper.create_parameter(
+            param_attr, shape=[n + 2, n], dtype=input.dtype,
+            default_initializer=XavierInitializer())
+    ins = {"Emission": [input], "Transition": [transition]}
+    sl = get_seq_len(input)
+    if sl is not None:
+        ins["Length"] = [sl]
+    if label is not None:
+        ins["Label"] = [label]
+    outs, _ = helper.append_op("crf_decoding", ins, ["ViterbiPath"])
+    path = outs["ViterbiPath"][0]
+    path.seq_len = sl
+    return path
+
+
+def chunk_eval(input, label, chunk_scheme="IOB", num_chunk_types=1,
+               main_program=None, startup_program=None):
+    """Chunk precision/recall/F1 (chunk_eval_op.cc). Returns
+    (precision, recall, f1, n_infer, n_label, n_correct)."""
+    from .sequence import get_seq_len
+
+    if chunk_scheme != "IOB":
+        raise NotImplementedError("only the IOB chunk scheme is supported")
+    helper = LayerHelper("chunk_eval", main_program=main_program,
+                         startup_program=startup_program)
+    ins = {"Inference": [input], "Label": [label]}
+    sl = get_seq_len(input) or get_seq_len(label)
+    if sl is not None:
+        ins["Length"] = [sl]
+    outs, _ = helper.append_op(
+        "chunk_eval", ins,
+        ["Precision", "Recall", "F1-Score", "NumInferChunks",
+         "NumLabelChunks", "NumCorrectChunks"],
+        {"chunk_scheme": chunk_scheme, "num_chunk_types": num_chunk_types})
+    return (outs["Precision"][0], outs["Recall"][0], outs["F1-Score"][0],
+            outs["NumInferChunks"][0], outs["NumLabelChunks"][0],
+            outs["NumCorrectChunks"][0])

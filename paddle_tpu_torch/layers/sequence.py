@@ -1,7 +1,7 @@
 """Sequence and recurrent layer functions.
 
-Counterpart of ``paddle_tpu/layers/sequence.py``, cut to the pools and
-the three recurrent layers. Sequence-ness is a build-time property: a
+Counterpart of ``paddle_tpu/layers/sequence.py``, cut to the pools,
+``sequence_conv`` and the three recurrent layers. Sequence-ness is a build-time property: a
 Variable carries a ``seq_len`` pointer to its companion int32 [batch]
 lengths Variable (made by ``layers.data(..., lod_level>0)``), and these
 layers pass it to their op as ``Length`` and on to their outputs.
@@ -39,6 +39,39 @@ def sequence_first_step(input, **kw):
 
 def sequence_last_step(input, **kw):
     return sequence_pool(input, "last", **kw)
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  main_program=None, startup_program=None):
+    """Context-window conv over a sequence (reference nn.py
+    sequence_conv): the ``filter_size`` rows centred on each step,
+    concatenated, times a [filter_size*d, num_filters] filter, + bias,
+    then ``act``."""
+    if filter_stride != 1:
+        # the reference op enforces contextStride == 1 too
+        # (sequence_conv_op.cc PADDLE_ENFORCE)
+        raise ValueError("sequence_conv only supports filter_stride=1")
+    if padding is not None:
+        raise NotImplementedError(
+            "trainable context padding (PaddingData) is not supported; "
+            "out-of-range context rows are zero-padded")
+    helper = LayerHelper("sequence_conv", main_program=main_program,
+                         startup_program=startup_program)
+    d = input.shape[-1]
+    filt = helper.create_parameter(
+        param_attr, shape=[filter_size * d, num_filters], dtype=input.dtype,
+        default_initializer=XavierInitializer())
+    pre_bias = helper.simple_op(
+        "sequence_conv",
+        {"X": [input], "Filter": [filt], **_len_input(input)},
+        {"contextLength": filter_size, "contextStart": -int(filter_size // 2),
+         "contextStride": filter_stride})
+    pre_act = helper.append_bias_op(pre_bias, bias_attr, num_filters,
+                                    dim_start=2)
+    o = helper.append_activation(pre_act, act)
+    o.seq_len = get_seq_len(input)
+    return o
 
 
 def _recurrent(helper, op_type, input, w, bias, init, out_slots, attrs):

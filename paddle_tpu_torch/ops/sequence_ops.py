@@ -1,7 +1,7 @@
 """Sequence ops over padded [batch, time, ...] tensors and per-row lengths.
 
 Counterpart of ``paddle_tpu/ops/sequence_ops.py``, cut to the mask
-helpers and ``sequence_pool``. A sequence tensor is dense-padded to the
+helpers, ``sequence_pool``, ``sequence_conv`` and ``context_project``. A sequence tensor is dense-padded to the
 batch's longest row and travels with an int32 ``Length`` companion
 ([batch]); positions t >= Length[b] are padding, which the ops ignore
 and where they produce zeros. The mask is built on the tensors' device
@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..core.registry import register_op
-from .common import maybe, out, single
+from .common import matmul, maybe, out, single
 
 
 def time_mask(lengths, T, dtype=torch.float32):
@@ -69,3 +69,53 @@ def sequence_pool(attrs, ins):
     else:
         raise ValueError(f"unknown pool_type {ptype!r}")
     return out(Out=y)
+
+
+def _context_columns(x, lengths, k, start):
+    """The context window of every step: x with its padding zeroed,
+    shifted along time by each offset in [start, start + k) (zeros where
+    the window leaves the padded axis) and concatenated on the feature
+    axis -> ([b, T, k*d], the [b, T, 1] mask)."""
+    b, T = x.shape[:2]
+    mask = (time_mask(lengths, T, x.dtype)[..., None]
+            if lengths is not None
+            else torch.ones((b, T, 1), dtype=x.dtype, device=x.device))
+    xm = x * mask
+    cols = []
+    for off in range(start, start + k):
+        if off < 0:
+            shifted = torch.nn.functional.pad(xm, (0, 0, -off, 0))[:, :T]
+        elif off > 0:
+            shifted = torch.nn.functional.pad(xm, (0, 0, 0, off))[:, off:]
+        else:
+            shifted = xm
+        cols.append(shifted)
+    return torch.cat(cols, dim=-1), mask
+
+
+@register_op("sequence_conv", optional_inputs=("Length", "PaddingData"))
+def sequence_conv(attrs, ins):
+    """Context-window projection + filter product (the reference's
+    sequence_conv_op.cc / context_project.h): each step's row becomes the
+    concat of its [contextStart, contextStart + contextLength) neighbours,
+    zeros outside the sequence, times ``Filter`` [k*d, out], one
+    [b*T, k*d] x [k*d, out] product. ``PaddingData`` is accepted and
+    ignored, as in JAX: context rows past either end are zeros."""
+    x = single(ins, "X")  # [b, T, d]
+    filt = single(ins, "Filter")  # [k*d, out]
+    k = int(attrs.get("contextLength", attrs.get("context_length", 3)))
+    start = int(attrs.get("contextStart",
+                          attrs.get("context_start", -(k // 2))))
+    ctx, mask = _context_columns(x, maybe(ins, "Length"), k, start)
+    return out(Out=matmul(ctx, filt) * mask)
+
+
+@register_op("context_project", optional_inputs=("Length",))
+def context_project(attrs, ins):
+    """``sequence_conv`` without the filter product (the v1
+    context_projection): [b, T, d] -> [b, T, k*d]."""
+    k = int(attrs["context_length"])
+    start = int(attrs.get("context_start", -(k // 2)))
+    ctx, mask = _context_columns(single(ins, "X"), maybe(ins, "Length"),
+                                 k, start)
+    return out(Out=ctx * mask)
