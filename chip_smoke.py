@@ -23,6 +23,7 @@
     python3 chip_smoke.py --train-memory-only  # phases 1, 2 and 16 only
     python3 chip_smoke.py --demo-ops-only   # phases 1, 2 and 17 only
     python3 chip_smoke.py --book-only       # phases 1, 2 and 18 only
+    python3 chip_smoke.py --optim-only      # phases 1, 2 and 19 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -456,6 +457,31 @@ Phases, each fatal on failure (nonzero exit, no result line):
     (d) ``demos/sequence_tagging_crf.py``'s and ``demos/nmt_seq2seq.py``'s
     programs at their own sizes against their own gates. None of the six
     kernels runs here.
+19. The optimizer plane and the chunked fused head (``--optim-only``):
+    (a) ``demos/gpt_modern.py``'s program and loop at its own size (the
+    per-layer LM d64 L2, 4 heads over 2 K/V heads with RoPE and RMSNorm,
+    headless into ``fused_head_cross_entropy`` with chunk 128 over vocab
+    211 and label smoothing 0.05, AdamW under ``linear_lr_warmup(
+    cosine_decay(...))``, 150 steps of 32 x 64 tokens): the eval clone's
+    next-token accuracy over 0.4 as the demo asserts, the learning rate
+    a step (the scope's int32 counter read back) within 4 f32 ulps of
+    the schedule's peak of the closed form, the first 5 losses within
+    1e-4 of the port's CPU run from the same weights, ms a step beside a
+    profiled step's device ms and launches, 2 launches a step of each
+    f32 flash kernel (head dim 16 on the 64 instance) by the counters and
+    in a trace; (b) bench.py's ``bench_transformer_step(fused_head=True)``
+    at its size (per-layer d1024 L8 H8, V16384, 8 x 2048 tokens, Adam,
+    f32) beside the same row unfused, from the same weights: step 1's
+    loss within LOSS_RTOL and every gradient within GRAD_RTOL of a norm
+    of the unfused row's, then each row's ms a step, device ms, peak
+    memory and flash launches (8 a step each); (c) every ``lr_schedule``
+    policy over steps 0-299 and ``lr_warmup``, each clip attr, L1 and L2
+    decay (global and a parameter's own), ``accumulate_steps=4`` under a
+    schedule, ``ModelAverage.apply`` and the pruning hook on a small MLP
+    on the card against the port's CPU run (floats within 1e-5 of the
+    largest |value|, schedules within 4 ulps of their peaks). The flash
+    records of the ``kernels`` line carry their launches a step here
+    (``launches_phase19``).
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -8612,6 +8638,562 @@ def book_phase(smi):
     return out
 
 
+# --- phase 19: the optimizer plane and the chunked fused head ---------------
+# (a) demos/gpt_modern.py at its own full size through its own program and
+# loop (the demo imports the JAX package, so its program and corpus are
+# restated here with the port): the per-layer LM with GQA (4 heads over 2
+# K/V heads, head dim 16, padded to the flash kernels' 64), RoPE and
+# RMSNorm, headless into the smoothed chunked head (chunk 128 over vocab
+# 211), AdamW under warmup + cosine, 150 steps of 32 x 64 tokens, and the
+# eval clone's next-token accuracy gate (> 0.4) as the demo asserts it.
+# The learning rate a step, read back with the scope's counter, is held
+# to the closed form within GPT_LR_ULPS f32 ulps of the schedule's peak
+# (CUDA's cos is not the CPU's); the first GPT_CPU_STEPS losses to the
+# port's CPU run from the same weights within GPT_LOSS_RTOL (the card's
+# and the CPU's sums run in other orders; over 150 steps they drift).
+GPT_MODERN = dict(vocab=211, T=64, d_model=64, n_layers=2, heads=4,
+                  kv_heads=2, batch=32, steps=150, chunk=128,
+                  smoothing=0.05, lr=3e-3, start_lr=3e-4, warmup=10,
+                  decay_steps=150, weight_decay=0.01, eval_rows=16)
+GPT_CPU_STEPS = 5
+GPT_LOSS_RTOL = 1e-4
+GPT_LR_ULPS = 4
+GPT_ACC_FLOOR = 0.4
+# (b) bench.py's bench_transformer_step(fused_head=True) at the row's own
+# size (d1024 L8 H8, head dim 128, V16384, 8 x 2048 tokens, Adam 1e-4,
+# f32, the per-layer path), beside the same row unfused (fc head +
+# softmax_with_cross_entropy), from the same weights: without smoothing
+# the two compute one function, so step 1's loss and every gradient are
+# held at LOSS_RTOL / GRAD_RTOL (phase 6's). The head's default chunk
+# 8192 gives two chunks.
+HEAD_ROWS = dict(TRAIN, timed=3)
+# (c) the rest of the plane at small sizes, one card run against the
+# port's CPU run from the same state: every lr_schedule policy and
+# lr_warmup over steps 0-299 (within GPT_LR_ULPS ulps of each
+# schedule's peak), each clip attr and L1/L2 decay (global and a
+# parameter's own) through one SGD step of an MLP, accumulate_steps=4
+# under a schedule (the counter and the learning rate each run),
+# ModelAverage.apply after six steps, and a pruned weight that stays
+# pruned. Floats within SWEEP_TOL of each tensor's largest |value|.
+SWEEP_MLP = dict(batch=64, dim=32, hidden=64, classes=8)
+SWEEP_TOL = 1e-5
+SWEEP_STEPS = 300
+CARD = "cuda"
+SWEEP_SCHEDULES = (
+    ("exponential", {"learning_rate": 0.1, "decay_steps": 7,
+                     "decay_rate": 0.9}),
+    ("exponential", {"learning_rate": 0.1, "decay_steps": 7,
+                     "decay_rate": 0.5, "staircase": True}),
+    ("natural_exp", {"learning_rate": 0.3, "decay_steps": 9,
+                     "decay_rate": 0.7}),
+    ("inverse_time", {"learning_rate": 0.2, "decay_steps": 3,
+                      "decay_rate": 0.37, "staircase": True}),
+    ("polynomial", {"learning_rate": 0.1, "decay_steps": 37,
+                    "end_learning_rate": 1e-3, "power": 1.7}),
+    ("polynomial", {"learning_rate": 0.1, "decay_steps": 13,
+                    "end_learning_rate": 1e-3, "power": 0.5,
+                    "cycle": True}),
+    ("piecewise", {"boundaries": [5.0, 17.0, 40.0],
+                   "values": [0.1, 0.03, 0.007, 0.001]}),
+    ("noam", {"d_model": 512.0, "warmup_steps": 11}),
+    ("cosine", {"learning_rate": 3e-3, "decay_steps": 150, "alpha": 0.0}),
+    ("cosine", {"learning_rate": 0.7, "decay_steps": 33, "alpha": 0.13}),
+)
+
+
+def _gpt_corpus(rng, vocab, n, T):
+    """demos/gpt_modern.py's learnable language: token t+1 = (5*t +
+    noise) % vocab."""
+    import numpy as np
+
+    x = np.zeros((n, T + 1), np.int64)
+    x[:, 0] = rng.randint(0, vocab, size=n)
+    for t in range(T):
+        noise = rng.randint(0, 2, size=n)
+        x[:, t + 1] = (5 * x[:, t] + noise) % vocab
+    return x
+
+
+def _gpt_program(pt, c):
+    """demos/gpt_modern.py's program: (main, startup, eval clone, loss,
+    hidden states, learning rate)."""
+    from paddle_tpu_torch import layers, models
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        ids = layers.data("ids", shape=[c["T"]], dtype="int64")
+        tgt = layers.data("tgt", shape=[c["T"], 1], dtype="int64")
+        h = models.transformer_lm(
+            ids, vocab_size=c["vocab"], d_model=c["d_model"],
+            n_layers=c["n_layers"], num_heads=c["heads"],
+            num_kv_heads=c["kv_heads"], use_rope=True,
+            norm_type="rms_norm", max_len=2 * c["T"], include_head=False)
+        loss = layers.mean(layers.fused_head_cross_entropy(
+            h, tgt, num_classes=c["vocab"], chunk=c["chunk"],
+            label_smoothing=c["smoothing"],
+            param_attr=pt.ParamAttr(name="head.w")))
+        eval_prog = main.clone(for_test=True)
+        decay = pt.learning_rate_decay
+        lr = decay.linear_lr_warmup(
+            decay.cosine_decay(c["lr"], decay_steps=c["decay_steps"]),
+            warmup_steps=c["warmup"], start_lr=c["start_lr"],
+            end_lr=c["lr"])
+        pt.optimizer.AdamWOptimizer(
+            learning_rate=lr, weight_decay=c["weight_decay"]).minimize(
+            loss, startup_program=startup)
+    return main, startup, eval_prog, loss, h, lr
+
+
+def _gpt_lr(c, step):
+    """The warmup + cosine schedule's closed form at ``step``, in f64."""
+    import math
+
+    if step < c["warmup"]:
+        return c["start_lr"] + (c["lr"] - c["start_lr"]) * step / c["warmup"]
+    frac = min(step, c["decay_steps"]) / c["decay_steps"]
+    return c["lr"] * 0.5 * (1 + math.cos(math.pi * frac))
+
+
+def _f32_ulp(x):
+    import numpy as np
+
+    return float(np.spacing(np.float32(abs(x))))
+
+
+def gpt_modern_part(pt, fa, smi):
+    """(a): the demo's loop on the card. Returns its record."""
+    import numpy as np
+    import torch
+
+    c = GPT_MODERN
+    L = c["n_layers"]
+    main, startup, eval_prog, loss, h, lr = _gpt_program(pt, c)
+    counter = main._lr_step_counter.name
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    init = {n: scope.get_numpy(n) for n in scope.keys()
+            if n != "@RNG_STATE@"}
+    rng = np.random.RandomState(0)
+    feeds, losses, lrs, lr_gaps, step_ms = [], [], [], [], []
+    peak_lr = max(_gpt_lr(c, s) for s in range(1, c["steps"] + 1))
+    torch.cuda.synchronize()
+    _reset_flash_counts(fa)
+    t_loop = time.perf_counter()
+    for step in range(c["steps"]):
+        seq = _gpt_corpus(rng, c["vocab"], n=c["batch"], T=c["T"])
+        feed = {"ids": seq[:, :-1], "tgt": seq[:, 1:, None]}
+        if step < GPT_CPU_STEPS:
+            feeds.append(feed)
+        t0 = time.perf_counter()
+        lo, lv = exe.run(main, feed=feed, fetch_list=[loss, lr],
+                         scope=scope)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(np.asarray(lo)))
+        count = scope.get(counter)
+        assert count.dtype == torch.int32 and count.device.type == CARD, \
+            (count.dtype, count.device)
+        at = int(count.item())
+        assert at == step + 1, (at, step)
+        lrs.append(float(np.asarray(lv).reshape(())))
+        lr_gaps.append(abs(lrs[-1] - _gpt_lr(c, at)) / _f32_ulp(peak_lr))
+    loop_s = time.perf_counter() - t_loop
+    counts = _flash_counts(fa)
+    # the eval clone up to the hidden states, projected on the host
+    # against the trained head weight, as the demo does
+    seq = _gpt_corpus(rng, c["vocab"], n=c["eval_rows"], T=c["T"])
+    hv, = exe.run(eval_prog, feed={"ids": seq[:, :-1],
+                                   "tgt": seq[:, 1:, None]},
+                  fetch_list=[h.name], scope=scope)
+    pred = (np.asarray(hv, np.float32)
+            @ scope.get_numpy("head.w").astype(np.float32)).argmax(-1)
+    acc = float((pred[:, :-1] == seq[:, 1:-1]).mean())
+    # the first steps on the CPU from the same weights
+    cscope = pt.scope_from_numpy(init, "cpu")
+    cexe = pt.Executor(pt.CPUPlace())
+    cpu = [float(np.asarray(cexe.run(main, feed=f, fetch_list=[loss],
+                                     scope=cscope)[0])) for f in feeds]
+    loss_rel = float(np.max(np.abs(np.array(losses[:GPT_CPU_STEPS])
+                                   - cpu) / np.abs(cpu)))
+    state = _snapshot(scope)
+    anatomy = _one_step_anatomy(lambda: exe.run(
+        main, feed=feeds[0], fetch_list=[loss], scope=scope))
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    traced = _count_kernels(lambda: exe.run(main, feed=feeds[0],
+                                            fetch_list=[loss], scope=scope),
+                            names, expect={n: L for n in names})
+    _restore(scope, state)
+    rec = {"config": c, "losses_first": losses[:GPT_CPU_STEPS],
+           "loss_final": losses[-1], "cpu_losses_first": cpu,
+           "loss_rel_vs_cpu": loss_rel, "accuracy": acc,
+           "lr_first": lrs[:12], "lr_final": lrs[-1],
+           "lr_worst_ulps_of_peak": float(max(lr_gaps)),
+           "ms_per_step": float(np.median(step_ms)), "loop_s": loop_s,
+           "flash_launches": list(counts[:3]),
+           "flash_launches_traced": (None if traced is None
+                                     else [traced[n] for n in names]),
+           "anatomy": anatomy}
+    print(f"optim (a) gpt_modern: {c['steps']} steps of {c['batch']} x "
+          f"{c['T']} tokens on the card (d{c['d_model']} L{L} "
+          f"H{c['heads']}/{c['kv_heads']} K/V, vocab {c['vocab']}, chunk "
+          f"{c['chunk']}): loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"next-token accuracy {acc:.3f} (gate > {GPT_ACC_FLOOR}); first "
+          f"{GPT_CPU_STEPS} losses within {loss_rel:.2e} of the CPU's "
+          f"(tol {GPT_LOSS_RTOL}); learning rate from the int32 counter "
+          f"within {max(lr_gaps):.2f} ulps of the peak of the closed form "
+          f"(tol {GPT_LR_ULPS}); {rec['ms_per_step']:.2f} ms a step "
+          f"(median wall with the fetches), loop {loop_s:.1f} s; one step "
+          f"{anatomy['wall_ms']:.2f} ms wall, device "
+          f"{_ms_text(anatomy['device_ms'])} ms in {anatomy['launches']} "
+          f"launches; flash fwd/dq/dkv launches {list(counts[:3])} in "
+          f"{c['steps']} steps, {rec['flash_launches_traced']} in a traced "
+          f"step [{smi}]")
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    assert acc > GPT_ACC_FLOOR, acc
+    assert loss_rel <= GPT_LOSS_RTOL, (losses[:GPT_CPU_STEPS], cpu)
+    assert max(lr_gaps) <= GPT_LR_ULPS, max(lr_gaps)
+    assert counts == (c["steps"] * L,) * 3 + (0, 0, 0), counts
+    assert traced is not None and all(traced[n] == L for n in names), traced
+    return rec
+
+
+def _head_row_program(pt, c, start, fused):
+    """bench.py's bench_transformer_step at ``c``, its head fused or
+    not, built from the name counter ``start``: (main, startup, loss,
+    params_grads)."""
+    from paddle_tpu_torch import layers, models
+
+    pt.Program._uid_counter = start
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    T, V = c["seq"], c["vocab"]
+    kw = dict(vocab_size=V, d_model=c["d_model"], n_layers=c["n_layers"],
+              num_heads=c["num_heads"], d_ff=c["d_ff"], max_len=T)
+    with pt.program_guard(main, startup):
+        ids = layers.data("ids", shape=[T], dtype="int64")
+        tgt = layers.data("tgt", shape=[T], dtype="int64")
+        if fused:
+            h = models.transformer_lm(ids, include_head=False, **kw)
+            loss = layers.mean(layers.fused_head_cross_entropy(
+                h, layers.reshape(tgt, shape=[-1, T, 1]), num_classes=V))
+        else:
+            logits = models.transformer_lm(ids, **kw)
+            loss = layers.mean(layers.softmax_with_cross_entropy(
+                layers.reshape(logits, shape=[-1, V]),
+                layers.reshape(tgt, shape=[-1, 1])))
+        pgs = pt.optimizer.AdamOptimizer(learning_rate=c["lr"]).minimize(
+            loss, startup_program=startup)
+    return main, startup, loss, pgs
+
+
+def _head_row(pt, fa, c, built, feed, tag):
+    """One row: its startup on the card, step 1's loss and gradients
+    (host copies), then ``c['timed']`` steps' wall ms and peak memory,
+    the device ms a step and the flash launches (counters over the timed
+    steps, and a traced step)."""
+    import numpy as np
+    import torch
+
+    main, startup, loss, pgs = built
+    L = c["n_layers"]
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    head = scope.get_numpy(pgs[-1][0].name)
+    state = _snapshot(scope)
+    fetch = [loss.name] + [g.name for _, g in pgs]
+    got = _step_fetches(exe, main, feed, fetch, scope, state)
+    first = ([float(got[0])], [g.cpu() for g in got[1:]])
+    del got
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+
+    step()[0].item()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flash_counts(fa)
+    ms = []
+    for _ in range(c["timed"]):
+        t0 = time.perf_counter()
+        step()[0].item()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    counts = _flash_counts(fa)
+    dev_ms = _device_ms(step, iters=2)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    traced = _count_kernels(step, names, expect={n: L for n in names})
+    rec = {"ms_per_step": float(np.median(ms)), "step_ms": ms,
+           "device_ms_per_step": dev_ms, "peak_bytes": peak,
+           "flash_launches": [n // c["timed"] for n in counts[:3]],
+           "flash_launches_traced": (None if traced is None
+                                     else [traced[n] for n in names]),
+           "step1_loss": first[0][0]}
+    print(f"optim (b) {tag}: {rec['ms_per_step']:.1f} ms a step (median of "
+          f"{c['timed']}), device {_ms_text(dev_ms, '.1f')} ms; peak "
+          f"{peak / 2**30:.3f} GiB; flash fwd/dq/dkv launches a step "
+          f"{rec['flash_launches']} by the counters, "
+          f"{rec['flash_launches_traced']} traced")
+    assert counts == (c["timed"] * L,) * 3 + (0, 0, 0), counts
+    assert traced is not None and all(traced[n] == L for n in names), traced
+    del scope, state, exe
+    torch.cuda.empty_cache()
+    return rec, first, head
+
+
+def head_rows_part(pt, fa, smi):
+    """(b): the fused-head row beside the unfused one. Returns its
+    record."""
+    import numpy as np
+    import torch
+
+    c = HEAD_ROWS
+    start = pt.Program._uid_counter
+    unfused = _head_row_program(pt, c, start, fused=False)
+    fused = _head_row_program(pt, c, start, fused=True)
+    rng = np.random.RandomState(SEED)
+    feed = {k: torch.from_numpy(rng.randint(0, c["vocab"], size=(
+        c["batch"], c["seq"])).astype("int64")).to(CARD)
+        for k in ("ids", "tgt")}
+    torch.cuda.empty_cache()
+    rows, firsts, heads = {}, {}, {}
+    for tag, built in (("unfused", unfused), ("fused", fused)):
+        rows[tag], firsts[tag], heads[tag] = _head_row(pt, fa, c, built,
+                                                       feed, tag)
+    # the same weights (the head is the last draw of both startups), the
+    # same step 1
+    assert np.array_equal(heads["fused"], heads["unfused"])
+    lu, lf = firsts["unfused"][0][0], firsts["fused"][0][0]
+    pnames = [p.name for p, _ in fused[3]]
+    assert [tuple(g.shape) for g in firsts["fused"][1]] == \
+        [tuple(g.shape) for g in firsts["unfused"][1]]
+    worst = _grad_gap(pnames, firsts["fused"][1], firsts["unfused"][1])
+    loss_gap = abs(lf - lu) / abs(lu)
+    flops = transformer_train_flops(c["batch"], c["seq"], c["d_model"],
+                                    c["n_layers"], c["vocab"], c["d_ff"])
+    head_flops = 2 * c["batch"] * c["seq"] * c["d_model"] * c["vocab"]
+    rec = {"config": {k: v for k, v in c.items()}, "unfused": rows["unfused"],
+           "fused": rows["fused"], "loss_unfused": lu, "loss_fused": lf,
+           "loss_gap": loss_gap, "worst_grad_gap": worst[0],
+           "worst_grad": worst[1], "tflop_per_step_unfused": flops / 1e12,
+           "tflop_per_step_fused": (flops + head_flops) / 1e12,
+           "peak_saved_bytes": rows["unfused"]["peak_bytes"]
+           - rows["fused"]["peak_bytes"]}
+    print(f"optim (b) step 1 from the same weights: loss fused {lf:.6f} "
+          f"unfused {lu:.6f} (gap {loss_gap:.2e}, tol {LOSS_RTOL}); worst "
+          f"gradient gap {worst[0]:.3e} of a norm ({worst[1]}; tol "
+          f"{GRAD_RTOL}) over {len(pnames)} parameters; the fused head "
+          f"holds {rec['peak_saved_bytes'] / 2**30:.3f} GiB less at its "
+          f"peak and takes {rows['fused']['ms_per_step'] - rows['unfused']['ms_per_step']:+.1f} ms "
+          f"a step for {head_flops / 1e12:.3f} TFLOP more [{smi}]")
+    assert np.isfinite(lf) and loss_gap <= LOSS_RTOL, (lf, lu)
+    assert worst[0] <= GRAD_RTOL, worst
+    return rec
+
+
+def _sweep_mlp(pt, c, clip=None, reg=None, own_reg=None, hook=False,
+               lr=None, accumulate=1, average=False):
+    """An MLP (dim -> hidden tanh -> classes, softmax CE) under SGD with
+    what the sweep case asks for: (main, startup, loss, lr var, model
+    average)."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        x = L.data("x", shape=[c["dim"]])
+        y = L.data("y", shape=[1], dtype="int64")
+        attr = pt.ParamAttr(
+            name="sw1", regularizer=own_reg(pt) if own_reg else None,
+            update_hooks=pt.param_attr.Hook("pruning", 0.5) if hook
+            else None)
+        hid = L.fc(x, size=c["hidden"], act="tanh", param_attr=attr)
+        logits = L.fc(hid, size=c["classes"],
+                      param_attr=pt.ParamAttr(name="sw2"))
+        loss = L.mean(L.softmax_with_cross_entropy(logits, y))
+        if clip is not None:
+            pt.clip.set_gradient_clip(clip(pt), param_list=["sw1", "sw2"])
+        rate = lr(pt.learning_rate_decay) if lr else 0.1
+        pt.optimizer.SGDOptimizer(rate, regularization=reg(pt) if reg
+                                  else None).minimize(
+            loss, accumulate_steps=accumulate)
+        ma = (pt.optimizer.ModelAverage(min_average_window=2,
+                                        max_average_window=3)
+              if average else None)
+    return main, startup, loss, (rate if lr else None), ma
+
+
+def _rel_max(got, want):
+    import numpy as np
+
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _sweep_case(pt, c, steps, **kw):
+    """One MLP case on the card and on the CPU from the same state:
+    (card scope, CPU scope, worst float gap, the lr values a run on the
+    card and the CPU, model averages)."""
+    import numpy as np
+
+    main, startup, loss, lr, ma = _sweep_mlp(pt, c, **kw)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    cscope = pt.scope_from_numpy({n: scope.get_numpy(n) for n in scope.keys()
+                                  if n != "@RNG_STATE@"}, "cpu")
+    cexe = pt.Executor(pt.CPUPlace())
+    rng = np.random.RandomState(SEED + 19)
+    lrs = ([], [])
+    fetch = [loss] + ([lr] if lr is not None else [])
+    for _ in range(steps):
+        feed = {"x": rng.randn(c["batch"], c["dim"]).astype(np.float32),
+                "y": rng.randint(0, c["classes"], (c["batch"], 1))
+                .astype(np.int64)}
+        for i, (e, s) in enumerate(((exe, scope), (cexe, cscope))):
+            out = e.run(main, feed=feed, fetch_list=fetch, scope=s)
+            if lr is not None:
+                lrs[i].append(float(np.asarray(out[1]).reshape(())))
+    gap = max(_rel_max(scope.get_numpy(n), cscope.get_numpy(n))
+              for n in cscope.keys() if scope.get(n).is_floating_point())
+    return scope, cscope, gap, lrs, ma
+
+
+def sweep_part(pt, smi):
+    """(c): the rest of the plane on the card against the CPU. Returns
+    its record."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op
+
+    c = SWEEP_MLP
+    out = {"schedules": [], "cases": {}}
+    steps = torch.arange(SWEEP_STEPS, dtype=torch.int32)
+    for policy, attrs in SWEEP_SCHEDULES:
+        attrs = dict(attrs, policy=policy)
+        op = get_op("lr_schedule").fn
+        card = torch.stack([op(attrs, {"GlobalStep": [s.reshape(1)]})["Out"][0]
+                            for s in steps.to(CARD)]).cpu().reshape(-1)
+        cpu = torch.stack([op(attrs, {"GlobalStep": [s.reshape(1)]})["Out"][0]
+                           for s in steps]).reshape(-1)
+        peak = float(cpu.abs().max())
+        ulps = float((card - cpu).abs().max()) / _f32_ulp(peak)
+        out["schedules"].append({"policy": policy, "attrs": attrs,
+                                 "ulps_of_peak": ulps,
+                                 "bitwise": bool(torch.equal(card, cpu))})
+        assert torch.isfinite(card).all() and ulps <= GPT_LR_ULPS, (
+            policy, attrs, ulps)
+    warm = {"warmup_steps": 17, "start_lr": 1e-4, "end_lr": 0.05}
+    base = torch.full((1,), 0.03)
+    wcard = torch.stack([get_op("lr_warmup").fn(warm, {
+        "LearningRate": [base.to(CARD)], "GlobalStep": [s.reshape(1)]})[
+        "Out"][0] for s in steps[:40].to(CARD)]).cpu()
+    wcpu = torch.stack([get_op("lr_warmup").fn(warm, {
+        "LearningRate": [base], "GlobalStep": [s.reshape(1)]})["Out"][0]
+        for s in steps[:40]])
+    assert torch.equal(wcard, wcpu)
+    cases = {
+        "clip_value": dict(clip=lambda p: p.clip.GradientClipByValue(0.02)),
+        "clip_norm": dict(clip=lambda p: p.clip.GradientClipByNorm(0.05)),
+        "clip_global_norm": dict(
+            clip=lambda p: p.clip.GradientClipByGlobalNorm(0.05)),
+        "l2": dict(reg=lambda p: p.regularizer.L2Decay(0.1)),
+        "l1": dict(reg=lambda p: p.regularizer.L1Decay(0.05)),
+        "own_l1_over_global_l2": dict(
+            reg=lambda p: p.regularizer.L2Decay(0.1),
+            own_reg=lambda p: p.regularizer.L1Decay(0.05)),
+    }
+    for name, kw in cases.items():
+        _, _, gap, _, _ = _sweep_case(pt, c, 1, **kw)
+        out["cases"][name] = {"gap": gap}
+        assert gap <= SWEEP_TOL, (name, gap)
+    # accumulate_steps=4 under a schedule: the learning rate each run
+    sched = lambda d: d.exponential_decay(0.1, 1, 0.5,  # noqa: E731
+                                          staircase=True)
+    scope, cscope, gap, lrs, _ = _sweep_case(pt, c, 8, lr=sched,
+                                             accumulate=4)
+    counter = [n for n in scope.keys() if "lr_global_step" in n][0]
+    want = [float(np.float32(0.05))] * 4 + [float(np.float32(0.025))] * 4
+    assert lrs[0] == lrs[1] == want, lrs
+    assert scope.get(counter).dtype == torch.int32
+    assert int(scope.get(counter).item()) == 2 == int(cscope.get(counter))
+    assert gap <= SWEEP_TOL, gap
+    out["cases"]["accumulate_4_schedule"] = {"gap": gap, "lr": lrs[0]}
+    # ModelAverage.apply after six steps (window 3)
+    scope, cscope, gap, _, ma = _sweep_case(pt, c, 6, average=True)
+    live = {n: scope.get(n) for n in ("sw1", "sw2")}
+    with ma.apply(scope), ma.apply(cscope):
+        avg_gap = max(_rel_max(scope.get_numpy(n), cscope.get_numpy(n))
+                      for n in live)
+        moved = all(not torch.equal(scope.get(n), live[n]) for n in live)
+        on_card = all(scope.get(n).device.type == CARD for n in live)
+    assert all(scope.get(n) is live[n] for n in live)
+    assert moved and on_card and gap <= SWEEP_TOL and avg_gap <= SWEEP_TOL, \
+        (moved, on_card, gap, avg_gap)
+    out["cases"]["model_average"] = {"gap": gap, "average_gap": avg_gap}
+    # the pruning hook: pruned weights stay 0 through three updates
+    scope, cscope, gap, _, _ = _sweep_case(pt, c, 3, hook=True)
+    mask = scope.get("sw1@PRUNE_MASK")
+    w = scope.get("sw1")
+    assert torch.equal(mask.cpu(), cscope.get("sw1@PRUNE_MASK"))
+    assert int(mask.sum()) == mask.numel() // 2
+    assert not w[mask == 0].any() and gap <= SWEEP_TOL, gap
+    out["cases"]["pruning"] = {"gap": gap, "kept": int(mask.sum()),
+                               "of": mask.numel()}
+    worst = max(s["ulps_of_peak"] for s in out["schedules"])
+    bitwise = sum(s["bitwise"] for s in out["schedules"])
+    print(f"optim (c) sweep on the card against the CPU: {len(SWEEP_SCHEDULES)} "
+          f"schedules over steps 0-{SWEEP_STEPS - 1} within {worst:.2f} ulps "
+          f"of their peaks ({bitwise} bit for bit), lr_warmup bit for bit; "
+          + "; ".join(f"{k} {v['gap']:.2e}" for k, v in out["cases"].items())
+          + f" of the largest |value| (tol {SWEEP_TOL}); the accumulated "
+          f"schedule's rates {lrs[0][:1]}x4 then {lrs[0][4:5]}x4 equal the "
+          f"CPU's; averaged weights within {avg_gap:.2e}; "
+          f"{out['cases']['pruning']['kept']} of "
+          f"{out['cases']['pruning']['of']} weights kept after 3 updates "
+          f"[{smi}]")
+    return out
+
+
+def optim_phase(smi):
+    """Phase 19: (a) gpt_modern, (b) the fused-head row beside the
+    unfused one, (c) the sweep. Returns its record."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    seconds = [time.perf_counter()]
+    out = {"a": gpt_modern_part(pt, fa, smi)}
+    seconds.append(time.perf_counter())
+    torch.cuda.empty_cache()
+    out["b"] = head_rows_part(pt, fa, smi)
+    seconds.append(time.perf_counter())
+    out["c"] = sweep_part(pt, smi)
+    seconds.append(time.perf_counter())
+    out["seconds"] = [b - a for a, b in zip(seconds, seconds[1:])]
+    print("phase 19 seconds: " + ", ".join(
+        f"{part} {s:.1f}" for part, s in zip(("(a)", "(b)", "(c)"),
+                                             out["seconds"]))
+        + f"; {sum(out['seconds']):.1f} in all [{smi}]")
+    return out
+
+
+def phase19_launches(records, optim):
+    """Each flash record's launches a step on phase 19's paths."""
+    paths = {"gpt_modern": [n // GPT_MODERN["steps"]
+                            for n in optim["a"]["flash_launches"]],
+             "d1024 fused head": optim["b"]["fused"]["flash_launches"],
+             "d1024 unfused head": optim["b"]["unfused"]["flash_launches"]}
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    for rec in records:
+        if rec["name"] in names:
+            i = names.index(rec["name"])
+            rec["launches_phase19"] = {k: v[i] for k, v in paths.items()}
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -8729,6 +9311,13 @@ def main():
                              "at the book's widths, the CRF, sequence_conv "
                              "and beam ops against the CPU, the CRF and NMT "
                              "demos); prints no ok line")
+    parser.add_argument("--optim-only", action="store_true",
+                        help="build the kernels and run only phase 19 (the "
+                             "optimizer plane and the chunked fused head: "
+                             "gpt_modern's loop, the d1024 fused-head row "
+                             "beside the unfused one, the schedule, clip, "
+                             "decay, averaging and pruning sweep); prints "
+                             "no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -8909,6 +9498,14 @@ def main():
             {"gpu": smi, "book": book}, indent=1))
         print(smi)
         return
+    if args.optim_only:
+        optim = optim_phase(smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_optim.json").write_text(json.dumps(
+            {"gpu": smi, "optim": optim}, indent=1))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -8985,6 +9582,8 @@ def main():
     demo_ops = demo_ops_phase(gpu)
     torch.cuda.empty_cache()
     book = book_phase(smi)
+    torch.cuda.empty_cache()
+    optim = optim_phase(smi)
     records = ([kern, slice_record(
                    kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
@@ -8993,6 +9592,7 @@ def main():
                + conv
                + amp_recs + per_layer_recs + zoo_recs)
     phase16_launches(records, train_memory)
+    phase19_launches(records, optim)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -9006,12 +9606,14 @@ def main():
          "attention_rewrite": attention, "amp": amp,
          "per_layer": per_layer, "recurrent": recurrent, "zoo": zoo,
          "trainer": trainer, "train_memory": train_memory,
-         "demo_ops": demo_ops, "book": book, "build_s": built,
+         "demo_ops": demo_ops, "book": book, "optim": optim,
+         "build_s": built,
          "rng": rng},
         indent=1))
     print(json.dumps({"kernels": [
-        {**{k: r[k] for k in keys}, **{k: r[k] for k in ("launches_phase16",)
-                                       if k in r}} for r in records]}))
+        {**{k: r[k] for k in keys},
+         **{k: r[k] for k in ("launches_phase16", "launches_phase19")
+            if k in r}} for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": gpu,

@@ -24,7 +24,11 @@ arithmetic (``a - b``), with the synthetic ``dataset.mnist`` the GAN and
 VAE demos train on. The book plane holds the six book datasets,
 ``sequence_conv``, the linear-chain CRF ops, the fused
 ``beam_search_decoder`` and the ``evaluator`` module's ``Accuracy`` and
-``ChunkEvaluator``.
+``ChunkEvaluator``. The optimizer plane adds ``learning_rate_decay``
+schedules, ``Optimizer(global_step=)``, gradient ``clip`` attrs,
+``regularizer`` decay, ``ModelAverage`` and the pruning hook
+(``ParamAttr(update_hooks=)``), and ``layers.fused_head_cross_entropy``
+is the chunked LM head over ``transformer_lm(include_head=False)``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);
@@ -62,7 +66,8 @@ from .core.program import (Program, default_main_program,  # noqa: E402
                            program_guard, recompute_guard)
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
 from . import flags, io, layers, models, nets, optimizer  # noqa: E402
-from . import initializer, transpiler  # noqa: E402
+from . import clip, initializer, learning_rate_decay  # noqa: E402
+from . import regularizer, transpiler  # noqa: E402
 from . import (checkpoint, data_feeder, dataset, evaluator,  # noqa: E402
                event, profiler, reader, resilience, trainer)
 from .param_attr import ParamAttr  # noqa: E402
@@ -77,13 +82,14 @@ from .models.transformer import TransformerLM, init_params  # noqa: E402
 
 __all__ = [
     "CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program",
-    "RunHandle", "Scope", "amp_enabled", "set_amp", "checkpoint",
+    "RunHandle", "Scope", "amp_enabled", "set_amp", "checkpoint", "clip",
     "data_feeder", "dataset", "evaluator",
     "default_main_program", "default_startup_program", "event", "flags",
     "global_scope", "initializer", "io",
-    "layers", "maybe_recompute", "models", "nets", "optimizer", "profiler",
+    "layers", "learning_rate_decay", "maybe_recompute", "models", "nets",
+    "optimizer", "profiler",
     "program_guard", "recompute_guard",
-    "reader", "resilience", "scope_from_numpy", "trainer",
+    "reader", "regularizer", "resilience", "scope_from_numpy", "trainer",
     "transpiler",
     "BadRequestError", "CacheExhaustedError", "DynamicBatcher",
     "EngineClosedError", "Future", "GenerationEngine", "InferenceEngine",

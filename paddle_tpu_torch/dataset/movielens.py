@@ -186,7 +186,7 @@ def test():
 
 
 # ---------------------------------------------------------------------------
-# CTR impressions through the varlen plane (ROADMAP 4c): each rating
+# CTR impressions through the varlen plane: each rating
 # becomes one impression whose sparse features are a single VARIABLE-
 # LENGTH id list — the fixed slots (user, gender, age, job, movie) plus
 # every category id and title word, each slot offset into its own

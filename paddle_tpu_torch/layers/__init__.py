@@ -7,8 +7,8 @@ from .control_flow import beam_search_decoder, increment
 from .io import data
 from .nn import (accuracy, batch_norm, chunk_eval, clip, conv1x1_bn_act,
                  conv2d, cos_sim, crf_decoding, cross_entropy, dropout,
-                 embedding, fc, layer_norm, linear_chain_crf, lrn, mul,
-                 pool2d, rms_norm,
+                 embedding, fc, fused_head_cross_entropy, layer_norm,
+                 linear_chain_crf, lrn, mul, pool2d, rms_norm,
                  sigmoid_cross_entropy_with_logits,
                  softmax_with_cross_entropy, square_error_cost, topk)
 from .ops import *  # noqa: F401,F403  (the generated unary/binary layers)
@@ -30,7 +30,8 @@ __all__ = [
     "cos_sim", "create_global_var", "create_tensor", "crf_decoding",
     "cross_entropy", "data", "dropout", "dynamic_gru", "dynamic_lstm",
     "embedding", "fc", "fill_constant", "fill_constant_batch_size_like",
-    "gaussian_random_batch_size_like", "increment", "layer_norm",
+    "fused_head_cross_entropy", "gaussian_random_batch_size_like",
+    "increment", "layer_norm",
     "linear_chain_crf", "lrn", "make_stack_params", "matmul", "mean",
     "mul", "multi_head_attention", "one_hot", "ones",
     "pipelined_transformer_stack", "pool2d", "reduce_max", "reduce_mean",

@@ -65,6 +65,7 @@ class LayerHelper:
         param.optimize_attr = {"learning_rate": attr.learning_rate}
         param.regularizer = attr.regularizer
         param.gradient_clip = attr.gradient_clip
+        param.update_hooks = list(attr.update_hooks)
         # mirror into the startup program with its init op
         sb = self.startup_program.global_block
         sv = sb.create_var(name=name, shape=shape, dtype=dtype,

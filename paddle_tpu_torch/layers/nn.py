@@ -2,7 +2,8 @@
 what the training slices build: ``fc``, ``embedding`` (dense),
 ``conv2d``, ``pool2d``, ``batch_norm``, the fused ``conv1x1_bn_act``,
 ``layer_norm``, ``rms_norm``, ``dropout``, ``lrn``, the losses
-``softmax_with_cross_entropy``, ``sigmoid_cross_entropy_with_logits``,
+``softmax_with_cross_entropy``, ``fused_head_cross_entropy`` (the
+chunked LM head), ``sigmoid_cross_entropy_with_logits``,
 ``cross_entropy`` and ``square_error_cost``, ``cos_sim``, ``mul`` and
 ``clip``, the metrics ``topk`` and ``accuracy``, and the CRF layers
 ``linear_chain_crf``, ``crf_decoding`` and ``chunk_eval``."""
@@ -285,6 +286,41 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
         "softmax_with_cross_entropy", {"Logits": [logits], "Label": [label]},
         ["Softmax", "Loss"], {"soft_label": soft_label,
                               "label_smoothing": float(label_smoothing)})
+    return outs["Loss"][0]
+
+
+def fused_head_cross_entropy(input, label, num_classes, chunk=8192,
+                             param_attr=None, main_program=None,
+                             startup_program=None, *,
+                             label_smoothing=0.0,
+                             vocab_parallel=False, model_axis="mp",
+                             data_axis="dp"):
+    """The LM head's projection and softmax cross-entropy in one chunked
+    op (``ops/loss_ops.py``): the [tokens, num_classes] logits never
+    materialize. Use it in place of ``fc(x, num_classes)`` +
+    ``softmax_with_cross_entropy`` for a large vocabulary. Returns the
+    per-row Loss [.., 1]; the head weight is a [d, num_classes]
+    parameter. ``vocab_parallel`` and its axes are recorded for the
+    parallel plane; with no mesh the op runs its serial chunks, as the
+    JAX program does on one device."""
+    if not 0.0 <= float(label_smoothing) < 1.0:
+        raise ValueError(
+            f"label_smoothing must be in [0, 1), got {label_smoothing}")
+    helper = LayerHelper("fused_head_cross_entropy",
+                         main_program=main_program,
+                         startup_program=startup_program)
+    d = input.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[int(d), int(num_classes)],
+                                dtype="float32")
+    outs, _ = helper.append_op(
+        "fused_head_cross_entropy",
+        {"X": [input], "W": [w], "Label": [label]},
+        ["Loss", "LSE"], {"chunk": int(chunk),
+                          "label_smoothing": float(label_smoothing),
+                          "vocab_parallel": bool(vocab_parallel),
+                          "model_axis": model_axis,
+                          "data_axis": data_axis})
+    outs["LSE"][0].stop_gradient = True
     return outs["Loss"][0]
 
 

@@ -50,19 +50,22 @@ def transformer_lm(ids, vocab_size, d_model=256, n_layers=4, num_heads=8,
     names the serving engines rejoin. ``remat`` makes each per-layer
     block one recompute segment (only its products' outputs survive to
     the backward), or on the stacked path recomputes each layer
-    (``True``) or all but its four named products (``"dots"``). A
-    headless model (``include_head=False``, for
-    ``fused_head_cross_entropy``) is not ported yet."""
+    (``True``) or all but its four named products (``"dots"``).
+    ``include_head=False`` returns the final-norm hidden states [b, T,
+    d] instead of logits, for ``layers.fused_head_cross_entropy`` (the
+    chunked head whose [tokens, vocab] logits never materialize)."""
     # validate before building anything: a raise must not leave orphan
     # embedding ops or parameters in the caller's program
     if pipeline_stack and norm_type != "layer_norm":
         raise ValueError(
             "pipeline_stack=True supports norm_type='layer_norm' only")
-    if not include_head:
-        raise NotImplementedError(
-            "transformer_lm(include_head=False) feeds "
-            "fused_head_cross_entropy, which is not ported to "
-            "paddle_tpu_torch yet (ROADMAP.md Queue 1 item 6)")
+    if not include_head and pipeline_stack:
+        raise ValueError(
+            "pipeline_stack=True requires include_head=True: the "
+            "generation/serving siblings rejoin the trained head by its "
+            "fixed name (lm_head.w), which only the built-in head "
+            "creates; a fused_head_cross_entropy head would train under "
+            "another name and serving would run an untrained head")
     kw = dict(main_program=main_program, startup_program=startup_program)
     d_ff = d_ff or 4 * d_model
     tok = layers.embedding(ids, size=[vocab_size, d_model],
@@ -110,6 +113,8 @@ def transformer_lm(ids, vocab_size, d_model=256, n_layers=4, num_heads=8,
     else:
         x = layers.layer_norm(x, begin_norm_axis=2, param_attr=ln_attr,
                               bias_attr=ln_bias, **kw)
+    if not include_head:
+        return x
     return layers.fc(x, size=vocab_size, num_flatten_dims=2,
                      param_attr=head_attr, bias_attr=False, **kw)
 

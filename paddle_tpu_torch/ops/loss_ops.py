@@ -1,7 +1,6 @@
-"""Loss ops. Counterpart of ``paddle_tpu/ops/loss_ops.py``: every loss
-but ``fused_head_cross_entropy``, which comes with the chunked LM head.
+"""Loss ops. Counterpart of ``paddle_tpu/ops/loss_ops.py``: every loss.
 ``softmax_with_cross_entropy`` has its fused gradient (softmax - onehot)
-* dLoss. The others are written op by op as the JAX package writes them,
+* dLoss, and ``fused_head_cross_entropy`` its chunked backward. The others are written op by op as the JAX package writes them,
 with each Python constant rounded to the operand's dtype
 (``common.weak``), a bf16 operand against an f32 one promoted to f32 as
 jnp promotes, and the gradient of ``abs`` and ``maximum`` at a tie as
@@ -10,11 +9,13 @@ does), so ``sigmoid_cross_entropy_with_logits`` at x = 0 differentiates
 to -label in both packages."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core.registry import register_op
 from . import common as C
-from .common import maybe, out, single, weak
+from .common import amp_cast, maybe, out, single, weak
 
 
 def _take_label_prob(x, label):
@@ -62,6 +63,178 @@ def softmax_with_cross_entropy(attrs, ins):
                 lse - x.mean(dim=-1, keepdim=True))
     return {"Softmax": [torch.exp(x - lse)], "Loss": [loss]}
 
+
+
+# --- the chunked LM head -----------------------------------------------------
+# fused_head_cross_entropy projects X [.., d] onto W [d, vocab] and takes
+# the softmax cross-entropy without the [tokens, vocab] logits: the vocab
+# is scanned in chunks with an online logsumexp, and the backward
+# recomputes each chunk's logits and contracts (softmax - target) * dLoss
+# into dX and that chunk's dW at once. A chunk's logits, p - target and
+# the accumulators stay f32 whatever the operands' dtype (bf16 under
+# AMP): the products run on f32 copies of the operands, which for bf16
+# values is exact, as XLA's bf16 dot with an f32 result is.
+def _fhce_chunks(vocab, chunk):
+    """(chunk, n_chunks), n_chunks = ceil(vocab / chunk): the last chunk
+    is padded, never shrunk, so an awkward vocab does not lengthen the
+    loop."""
+    c = min(chunk, vocab)
+    return c, -(-vocab // c)
+
+
+def _fhce_w3(wc, chunk, n_chunks, vocab):
+    """W [d, vocab] -> [d, n_chunks, chunk], the tail chunk zero-padded
+    (its padded columns are masked to -inf logits)."""
+    pad = n_chunks * chunk - vocab
+    if pad:
+        wc = torch.nn.functional.pad(wc, (0, pad))
+    return wc.reshape(wc.shape[0], n_chunks, chunk)
+
+
+def _fhce_gather(logits_c, lab, c0, cols):
+    """Each row's logit at ``lab`` where the label falls inside this
+    chunk, else 0."""
+    local = lab - c0
+    inside = (local >= 0) & (local < cols)
+    safe = local.clamp(0, cols - 1)
+    picked = torch.gather(logits_c, 1, safe[:, None])[:, 0]
+    return torch.where(inside, picked, picked.new_zeros(()))
+
+
+def _fhce_chunk_logits(x2, w3, i, chunk, vocab):
+    """Chunk ``i``'s logits in f32, its padded columns -inf; the one
+    recompute shared by the forward's logsumexp and the backward's
+    softmax (the saved LSE is valid for the backward only so)."""
+    wck = w3[:, i]
+    logits = torch.matmul(x2.float(), wck.float())
+    valid = (i * chunk + torch.arange(chunk, device=x2.device)) < vocab
+    return torch.where(valid[None, :], logits,
+                       logits.new_full((), -math.inf)), wck
+
+
+def _fhce_lse_chunk(x2, w3, i, chunk, vocab, lab, carry):
+    """One online-logsumexp step over chunk ``i``; carry = (m, s, ll,
+    rs), rs each row's sum of valid logits (label smoothing's term).
+    A label outside [0, vocab) never gathers."""
+    m, s, ll, rs = carry
+    logits, _ = _fhce_chunk_logits(x2, w3, i, chunk, vocab)
+    m_new = torch.maximum(m, logits.amax(dim=1))
+    s = s * torch.exp(m - m_new) + torch.exp(logits - m_new[:, None]).sum(1)
+    ll = ll + _fhce_gather(logits, lab, i * chunk, chunk)
+    rs = rs + torch.where(torch.isneginf(logits), logits.new_zeros(()),
+                          logits).sum(1)
+    return m_new, s, ll, rs
+
+
+def _fhce_lse(x2, wc, lab, chunk, n_chunks):
+    """(lse, label logit, row sum of logits) over the vocab chunks."""
+    vocab = wc.shape[-1]
+    w3 = _fhce_w3(wc, chunk, n_chunks, vocab)
+    n = x2.shape[0]
+    zeros = x2.new_zeros((n,), dtype=torch.float32)
+    carry = (torch.full_like(zeros, -math.inf), zeros, zeros, zeros)
+    for i in range(n_chunks):
+        carry = _fhce_lse_chunk(x2, w3, i, chunk, vocab, lab, carry)
+    m, s, ll, rs = carry
+    return m + torch.log(s), ll, rs
+
+
+def _fhce_grad_chunk(x2, w3, i, chunk, vocab, lab, lse2, dl2,
+                     smoothing=0.0):
+    """One backward step over chunk ``i``: (its dX term [n, d] f32, its
+    dW columns [d, chunk] f32) from g = (softmax - target) * dLoss, the
+    target one-hot or label-smoothed; g is cast to X's dtype before the
+    two products."""
+    logits, wck = _fhce_chunk_logits(x2, w3, i, chunk, vocab)
+    p = torch.exp(logits - lse2)
+    # one-hot by comparison (a label outside the chunk matches no
+    # column), with no data-dependent indexing and so no host sync
+    target = (torch.arange(i * chunk, (i + 1) * chunk, device=p.device)
+              == lab[:, None]).float()
+    if smoothing:
+        valid = (~torch.isneginf(logits)).float()
+        target = ((1.0 - smoothing) * target
+                  + (smoothing / vocab) * valid)
+    g = ((p - target) * dl2).to(x2.dtype).float()
+    return torch.matmul(g, wck.float().T), torch.matmul(x2.float().T, g)
+
+
+def _fused_head_ce_grad(attrs, ins, outs, ogs):
+    """The chunked backward: each chunk's logits recomputed, (softmax -
+    target) * dLoss formed and contracted at once into dX and that
+    chunk's dW; the [tokens, vocab] gradient never materializes. LSE is
+    the forward's saved row (or recomputed chunk by chunk)."""
+    x = single(ins, "X")
+    w = single(ins, "W")
+    label = single(ins, "Label")
+    dloss = ogs.get("Loss", [None])[0]
+    if dloss is None:
+        raise NotImplementedError("fused_head_cross_entropy grad needs "
+                                  "Loss@GRAD (LSE is not differentiable)")
+    if any(g is not None for g in ogs.get("LSE", [])):
+        raise NotImplementedError(
+            "fused_head_cross_entropy LSE output is an auxiliary "
+            "residual, not a differentiable head")
+    xc, wc = amp_cast(x, w)
+    lead = tuple(x.shape[:-1])
+    d = x.shape[-1]
+    vocab = w.shape[-1]
+    n = math.prod(lead)
+    x2 = xc.reshape(n, d)
+    lab = label.reshape(n).long()
+    dl2 = dloss.reshape(n, 1).float()
+    # vocab_parallel=True without a mesh runs this serial path, as the
+    # JAX program does on one device (the mesh path is the parallel
+    # plane's, ROADMAP.md Queue 1 item 10)
+    chunk, n_chunks = _fhce_chunks(vocab, attrs.get("chunk", 8192))
+    lse = outs.get("LSE", [None])[0]
+    if lse is None:
+        lse = _fhce_lse(x2, wc, lab, chunk, n_chunks)[0]
+    lse2 = lse.reshape(n, 1).float()
+    eps = attrs.get("label_smoothing", 0.0)
+    w3 = _fhce_w3(wc, chunk, n_chunks, vocab)
+    dx = x2.new_zeros((n, d), dtype=torch.float32)
+    dw = []
+    for i in range(n_chunks):
+        dx_c, dw_c = _fhce_grad_chunk(x2, w3, i, chunk, vocab, lab, lse2,
+                                      dl2, smoothing=eps)
+        dx = dx + dx_c
+        dw.append(dw_c)
+    dw = torch.cat(dw, dim=1)[:, :vocab]
+    return {"X": [dx.reshape(x.shape).to(x.dtype)],
+            "W": [dw.to(w.dtype)], "Label": [None]}
+
+
+@register_op("fused_head_cross_entropy", grad_fn=_fused_head_ce_grad,
+             grad_fn_is_optimization=True)
+def fused_head_cross_entropy(attrs, ins):
+    """The LM head's projection and softmax cross-entropy without the
+    [tokens, vocab] logits: an online logsumexp over vocab chunks, so
+    the head holds O(tokens * chunk). Hard labels only. X [.., d] x W
+    [d, vocab] with Label [.., 1] -> Loss [.., 1], and LSE [..] (a
+    residual for the backward)."""
+    x = single(ins, "X")
+    w = single(ins, "W")
+    label = single(ins, "Label")
+    if attrs.get("soft_label", False):
+        raise NotImplementedError(
+            "fused_head_cross_entropy supports hard labels only")
+    xc, wc = amp_cast(x, w)
+    lead = tuple(x.shape[:-1])
+    d = x.shape[-1]
+    vocab = w.shape[-1]
+    n = math.prod(lead)
+    chunk, n_chunks = _fhce_chunks(vocab, attrs.get("chunk", 8192))
+    lse, ll, rs = _fhce_lse(xc.reshape(n, d), wc, label.reshape(n).long(),
+                            chunk, n_chunks)
+    eps = attrs.get("label_smoothing", 0.0)
+    if eps:
+        # the target (1-eps)*onehot + eps/V: loss = (1-eps)*(lse - x_label)
+        #   + eps*(lse - sum(x)/V)
+        loss = (1.0 - eps) * (lse - ll) + eps * (lse - rs / vocab)
+    else:
+        loss = lse - ll
+    return {"Loss": [loss.reshape(lead + (1,))], "LSE": [lse.reshape(lead)]}
 
 
 # Mixed operands promote at each binary op, as in jnp: torch's tensor

@@ -2,16 +2,21 @@
 cut to dense gradients: ``sgd``, ``momentum``, ``adam``, ``adamax``,
 ``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``, ``ftrl``,
 ``proximal_gd`` and ``proximal_adagrad`` (row-sparse ``SelectedRows``
-gradients are a later slice). Each returns new tensors for its outputs
+gradients are a later slice), the learning-rate schedules
+``lr_schedule`` and ``lr_warmup``, ``model_average_update`` and
+``static_prune_mask``. Each returns new tensors for its outputs
 (ParamOut, moments, beta powers); the executor writes them back to the
 scope over the old ones, which are freed then. Moments update in f32
 from an f32 copy of the gradient, as the JAX ops compute them."""
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from ..core.registry import register_op
-from .common import out, single
+from .common import out, single, weak
 
 
 @register_op("sgd")
@@ -184,3 +189,167 @@ def proximal_adagrad(attrs, ins):
     p_out = _proximal(p - lr_t * g, lr_t, attrs.get("l1", 0.0),
                       attrs.get("l2", 0.0))
     return {"ParamOut": [p_out.to(p.dtype)], "MomentOut": [mom_out]}
+
+
+# ---------------------------------------------------------------------------
+# Learning-rate schedules as ops
+# ---------------------------------------------------------------------------
+# The JAX executor jits the whole block, and XLA rewrites the schedule's
+# arithmetic before it runs: a division by a constant becomes a product
+# with the constant's f32 reciprocal, a chain of constant factors folds
+# into one f32 constant, pow(x, 1) is x and pow(x, 2) is x * x, and on
+# the CPU each a * b + c whose product feeds only the sum is one FMA. The
+# schedules below compute that form (``_fold``, ``_fma``), which is the
+# closed form rounded once less, so that both packages agree to an ulp.
+# Nothing leaves the device: the step stays a tensor.
+def _fold(*cs):
+    """The product of Python constants as XLA folds it: each rounded to
+    f32, multiplied in f32 from the left."""
+    acc = np.float32(cs[0])
+    for c in cs[1:]:
+        acc = np.float32(acc * np.float32(c))
+    return float(acc)
+
+
+def _rcp(c):
+    """1 / c rounded to f32: XLA's rewrite of a division by c."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once, as one FMA: the f64 product of two f32
+    values is exact, and its f64 sum with c is rounded to f32."""
+    return (a.double() * b + c).float()
+
+
+def _pow(x, p):
+    """``jnp.power(x, p)`` after XLA's rewrites of pow(x, 1) and
+    pow(x, 2)."""
+    if p == 1.0:
+        return x
+    if p == 2.0:
+        return x * x
+    return torch.pow(x, x.new_full((), p))
+
+
+@register_op("lr_schedule")
+def lr_schedule(attrs, ins):
+    """The step's learning rate from GlobalStep, one policy an op:
+    ``exponential``, ``natural_exp``, ``inverse_time`` (each with
+    ``staircase``), ``polynomial`` (with ``cycle``), ``piecewise``,
+    ``noam`` and ``cosine``. Out is [1] f32."""
+    step = single(ins, "GlobalStep").reshape(()).float()
+    policy = attrs["policy"]
+    lr0 = attrs.get("learning_rate", 0.1)
+    decay_steps = attrs.get("decay_steps", 1)
+    decay_rate = attrs.get("decay_rate", 0.1)
+    rcp = _rcp(decay_steps)
+    stair = attrs.get("staircase", False)
+    t = torch.floor(step * rcp) if stair else None
+    if policy == "exponential":
+        t = step * rcp if t is None else t
+        lr = torch.pow(step.new_full((), decay_rate), t) * weak(step, lr0)
+    elif policy == "natural_exp":
+        # -rate * (step * rcp) folds to step * (rcp * -rate)
+        x = step * _fold(rcp, -decay_rate) if t is None \
+            else t * weak(t, -decay_rate)
+        lr = torch.exp(x) * weak(step, lr0)
+    elif policy == "inverse_time":
+        den = _fma(step, _fold(rcp, decay_rate), 1.0) if t is None \
+            else _fma(t, weak(t, decay_rate), 1.0)
+        lr = step.new_full((), lr0) / den
+    elif policy == "polynomial":
+        end_lr = attrs.get("end_learning_rate", 1e-4)
+        power = attrs.get("power", 1.0)
+        if attrs.get("cycle", False):
+            ds = torch.clamp_min(torch.ceil(step * rcp), 1.0)
+            ds = ds * weak(ds, decay_steps)
+            base = 1.0 - torch.minimum(step, ds) / ds
+        else:
+            # 1 - min(step, ds) * rcp: the product feeds the difference.
+            # From step ds on the FMA leaves -2^-25 or so, not 0, and a
+            # negative base to a non-integer power is NaN: the JAX package
+            # returns NaN there; the port clamps at the closed form's 0
+            base = _fma(torch.clamp_max(step, float(decay_steps)), -rcp,
+                        1.0)
+            if power != int(power):
+                base = torch.clamp_min(base, 0.0)
+        lr = _fma(_pow(base, power), weak(step, lr0 - end_lr),
+                  weak(step, end_lr))
+    elif policy == "piecewise":
+        # values[i] for i = the count of boundaries at or below the step
+        idx = sum((step >= b).int() for b in attrs["boundaries"])
+        values = attrs["values"]
+        lr = step.new_full((), values[-1])
+        for i in range(len(values) - 2, -1, -1):
+            lr = torch.where(idx == i, weak(step, values[i]), lr)
+    elif policy == "noam":
+        warmup = attrs.get("warmup_steps", 4000)
+        s = torch.clamp_min(step, 1.0)
+        lr = torch.minimum(_pow(s, -0.5), s * weak(s, warmup ** -1.5)) \
+            * weak(s, attrs.get("d_model", 512) ** -0.5)
+    elif policy == "cosine":
+        # lr * ((1 - alpha) * 0.5 * (1 + cos(pi * frac)) + alpha)
+        alpha = attrs.get("alpha", 0.0)
+        x = torch.clamp_max(step, float(decay_steps)) * _fold(math.pi, rcp)
+        c1 = torch.cos(x) + 1.0
+        if alpha:
+            lr = _fma(c1, _fold(0.5, 1.0 - alpha), weak(c1, alpha)) \
+                * weak(c1, lr0)
+        else:
+            lr = c1 * _fold(0.5, lr0)
+    else:
+        raise ValueError(f"unknown lr_schedule policy {policy!r}")
+    return out(Out=lr.reshape(1))
+
+
+@register_op("lr_warmup")
+def lr_warmup(attrs, ins):
+    """A linear warmup over another LR variable: start_lr -> end_lr over
+    warmup_steps, then the wrapped schedule's value."""
+    lr = single(ins, "LearningRate").reshape(())
+    step = single(ins, "GlobalStep").reshape(()).float()
+    warmup = float(attrs["warmup_steps"])
+    start = attrs.get("start_lr", 0.0)
+    end = attrs.get("end_lr", 1.0)
+    # start + (end - start) * (step / warmup), its constants folded
+    ramp = _fma(step, _fold(end - start, _rcp(warmup)), weak(step, start))
+    return out(Out=torch.where(step < warmup, ramp, lr).reshape(1))
+
+
+@register_op("model_average_update")
+def model_average_update(attrs, ins):
+    """The windowed parameter average's accumulation (``ModelAverage``):
+    Sum1 adds the live parameter each step; when the window fills
+    (Num1 >= max_average_window) Sum2/Num2 take the window over and
+    Sum1/Num1 restart, by selects (no host branch)."""
+    p = single(ins, "Param")
+    s1n = single(ins, "Sum1") + p
+    n1n = single(ins, "Num1").reshape(()) + 1.0
+    n2 = single(ins, "Num2").reshape(())
+    roll = n1n >= float(attrs.get("max_average_window", 10000))
+    return {
+        "Sum1Out": [torch.where(roll, torch.zeros_like(s1n), s1n)],
+        "Sum2Out": [torch.where(roll, s1n, single(ins, "Sum2"))],
+        "Num1Out": [torch.where(roll, torch.zeros_like(n1n),
+                                n1n).reshape(1)],
+        "Num2Out": [torch.where(roll, n1n, n2).reshape(1)],
+    }
+
+
+@register_op("static_prune_mask")
+def static_prune_mask(attrs, ins):
+    """The fixed pruning mask of ``StaticPruningHook``: 1 at the largest
+    |w| (1 - sparsity_ratio) share of the weights, by index, so that ties
+    (constant-initialised weights) still keep the exact count, the lower
+    index first as ``jax.lax.top_k`` keeps them (a stable descending
+    sort, where ``torch.topk`` promises no order among ties)."""
+    w = single(ins, "Param")
+    ratio = float(attrs.get("sparsity_ratio", 0.6))
+    flat = w.abs().reshape(-1)
+    n = flat.shape[0]
+    keep = max(1, int(round(n * (1.0 - ratio))))
+    idx = torch.sort(flat, descending=True, stable=True).indices[:keep]
+    mask = torch.zeros(n, dtype=w.dtype, device=w.device)
+    mask[idx] = 1.0
+    return out(Mask=mask.reshape(w.shape))

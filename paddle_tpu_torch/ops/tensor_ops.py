@@ -1,11 +1,10 @@
 """Tensor creation / manipulation / elementwise / reduction ops.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py``: every op of it but
-``clip_by_norm``, ``clip_by_global_norm`` and ``l1_decay_sign`` (they
-come with ``clip.py`` and ``regularizer.py``) and ``feed``/``fetch``
-(the executor's own). Dense tensors only: the SelectedRows operands of
-the JAX package's ``sum``, ``scale``, ``clip`` and elementwise ops come
-with the sparse-gradient slice. Comparisons and logic give bool and
+``feed``/``fetch`` (the executor's own). Dense tensors only: the
+SelectedRows operands of the JAX package's ``sum``, ``scale``, ``clip``,
+``clip_by_norm``, ``clip_by_global_norm`` and elementwise ops come with
+the sparse-gradient slice. Comparisons and logic give bool and
 ``argmax`` int64; their ops pass no gradient (``NON_DIFFERENTIABLE`` in
 ``core/backward.py``). The random init ops draw from
 their split of the executor's scope key (``core/prng.py``), bit-exact with
@@ -140,10 +139,11 @@ def cast(attrs, ins):
 
 @register_op("increment")
 def increment(attrs, ins):
-    """x + step in x's dtype."""
+    """x + step in x's dtype (an int32 step counter stays int32). The
+    step enters as a Python scalar: a tensor made from it on the card
+    would be a host-to-device copy, and a stream sync, every run."""
     x = single(ins, "X")
-    return out(Out=x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype,
-                                    device=x.device))
+    return out(Out=x + common.weak(x, attrs.get("step", 1.0)))
 
 
 # --- shape manipulation -----------------------------------------------------
@@ -293,6 +293,43 @@ def clip(attrs, ins):
     the gradient."""
     return out(Out=common.clip(single(ins, "X"), attrs["min"],
                                attrs["max"]))
+
+
+def _sq_l2(g):
+    """The squared L2 norm of a gradient, summed in f32."""
+    g = g.float()
+    return (g * g).sum()
+
+
+def _clip_factor(sq, max_norm):
+    """min(1, max_norm / sqrt(max(sq, 1e-12))), a 0-dim f32 tensor (the
+    numerator a tensor: float / tensor would take the reciprocal)."""
+    norm = torch.sqrt(torch.clamp_min(sq, 1e-12))
+    return torch.clamp_max(norm.new_full((), max_norm) / norm, 1.0)
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(attrs, ins):
+    """X rescaled so that its L2 norm is at most max_norm; the factor is
+    cast to X's dtype before the product."""
+    x = single(ins, "X")
+    return out(Out=x * _clip_factor(_sq_l2(x), attrs["max_norm"]).to(x.dtype))
+
+
+@register_op("clip_by_global_norm")
+def clip_by_global_norm(attrs, ins):
+    """Every gradient of X rescaled by one factor, so that the L2 norm of
+    the whole set is at most max_norm: one op over all of them."""
+    xs = ins["X"]
+    factor = _clip_factor(sum(_sq_l2(g) for g in xs), attrs["max_norm"])
+    return {"Out": [g * factor.to(g.dtype) for g in xs]}
+
+
+@register_op("l1_decay_sign")
+def l1_decay_sign(attrs, ins):
+    """sign(X) * coeff, the L1 regularizer's gradient term."""
+    x = single(ins, "X")
+    return out(Out=torch.sign(x) * common.weak(x, attrs["coeff"]))
 
 
 @register_op("scale")

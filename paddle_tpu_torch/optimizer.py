@@ -7,11 +7,15 @@ AdamW, Adamax, Adagrad, DecayedAdagrad, Adadelta, RMSProp and Ftrl.
 ``minimize`` appends the backward pass, then one update op per
 parameter, creating accumulator state as persistable vars initialised in
 the startup program, under the JAX package's names (``checkpoint``
-saves them in its file format). Global steps, updater hooks,
-``ModelAverage`` and row-sparse updates are later slices of the port.
+saves them in its file format). ``Optimizer(global_step=)`` advances a
+user's counter once an applied step, a learning rate may be a schedule
+of ``learning_rate_decay``, ``ParamAttr(update_hooks=)`` prunes through
+``StaticPruningHook``, and ``ModelAverage`` keeps a windowed average of
+the parameters for evaluation. Row-sparse updates are a later slice.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Tuple
 
 from .clip import append_gradient_clip_ops
@@ -26,10 +30,6 @@ class Optimizer:
 
     def __init__(self, learning_rate: float = 0.001, global_step=None,
                  regularization=None):
-        if global_step is not None:
-            raise NotImplementedError(
-                "Optimizer(global_step=...) is not ported to "
-                "paddle_tpu_torch yet: it lands with the LR-schedule slice")
         self.learning_rate = learning_rate
         self.global_step = global_step
         self.regularization = regularization
@@ -41,7 +41,8 @@ class Optimizer:
         if self._lr_var is not None:
             return self._lr_var
         if hasattr(self.learning_rate, "name"):
-            # a program-computed LR Variable
+            # a program-computed LR Variable (a learning_rate_decay
+            # schedule)
             self._lr_var = self.learning_rate
             return self._lr_var
         name = program.unique_name("learning_rate")
@@ -111,6 +112,8 @@ class Optimizer:
             self._create_accumulators(startup, [p for p, _ in params_grads])
             self._minimize_accumulated(block, startup, params_grads, lr_var,
                                        int(accumulate_steps))
+            self._append_updater_hooks(block, startup,
+                                       [p for p, _ in params_grads])
             return params_grads
         # clip before regularization, fluid's order
         params_grads = append_gradient_clip_ops(params_grads)
@@ -119,6 +122,13 @@ class Optimizer:
         self._create_accumulators(startup, [p for p, _ in params_grads])
         for pg in params_grads:
             self._append_optimize_op(block, pg, lr_var)
+        if self.global_step is not None:
+            block.append_op("increment",
+                            inputs={"X": [self.global_step.name]},
+                            outputs={"Out": [self.global_step.name]},
+                            attrs={"step": 1.0})
+        self._append_updater_hooks(block, startup,
+                                   [p for p, _ in params_grads])
         return params_grads
 
     def _minimize_accumulated(self, block, startup, params_grads, lr_var,
@@ -126,9 +136,16 @@ class Optimizer:
         """Gradient accumulation: buffer += grad each run; every k-th run
         clip, regularization and the optimizer op apply on the mean of
         the k gradients, and every state write (param, moments, beta
-        powers) lands through a gate, s = old + gate * (s - old), so
-        the other runs keep all state bit-identical. The counter resets
-        on the applying run (no mod op needed)."""
+        powers, step counters) lands through a gate, s = old + gate * (s
+        - old), so the other runs keep all state bit-identical. The
+        counter resets on the applying run (no mod op needed).
+
+        Counters keep their dtypes (a schedule's ``lr_global_step`` is
+        int32). Schedules on the shared ``lr_global_step`` counter, and
+        the optimizer's own ``global_step``, advance once an applied
+        step; a ``global_step`` passed straight to a decay function
+        cannot be found here and would tick every run, so pass it to the
+        optimizer as well."""
         from . import layers as L
 
         kw = dict(main_program=block.program, startup_program=startup)
@@ -145,10 +162,10 @@ class Optimizer:
         block.append_op("elementwise_mul",
                         inputs={"X": [counter.name], "Y": [inv_gate.name]},
                         outputs={"Out": [counter.name]}, attrs={})
-        # LR schedules carry per-run counters (the JAX package's
-        # lr_global_step); subtracting the increment back on the other
-        # runs makes a schedule advance once per applied step. The port
-        # has no LR schedule yet, so this finds no counter.
+        # LR schedules carry per-run counters (learning_rate_decay's
+        # lr_global_step, incremented where the schedule was built);
+        # subtracting the increment back on the other runs makes a
+        # schedule advance once per applied step
         lr_counters = {n for op in block.ops if op.type == "increment"
                        for n in op.inputs.get("X", [])
                        if "lr_global_step" in n}
@@ -189,6 +206,43 @@ class Optimizer:
             block.append_op("elementwise_mul",
                             inputs={"X": [acc.name], "Y": [inv_gate.name]},
                             outputs={"Out": [acc.name]}, attrs={})
+        if self.global_step is not None:
+            # counter += gate, in the counter's own dtype
+            name = self.global_step.name
+            dt = dtype_name(self.global_step.dtype)
+            g = gate if dt == "float32" else L.cast(gate, dt, **kw)
+            block.append_op("elementwise_add",
+                            inputs={"X": [name], "Y": [g.name]},
+                            outputs={"Out": [name]}, attrs={})
+
+    def _append_updater_hooks(self, block, startup, params):
+        """Updater hooks: for a parameter with a ``StaticPruningHook``,
+        the startup program builds the fixed mask from the initialised
+        weights and prunes them, and the main program applies the mask
+        again after every update."""
+        from .param_attr import StaticPruningHook
+
+        for p in params:
+            for hook in getattr(p, "update_hooks", ()) or ():
+                if not isinstance(hook, StaticPruningHook):
+                    raise TypeError(f"unsupported updater hook {hook!r}")
+                mask_name = p.name + "@PRUNE_MASK"
+                sb = startup.global_block
+                sb.create_var(name=mask_name, shape=p.shape, dtype=p.dtype,
+                              persistable=True)
+                sb.append_op(
+                    "static_prune_mask", inputs={"Param": [p.name]},
+                    outputs={"Mask": [mask_name]},
+                    attrs={"sparsity_ratio": hook.sparsity_ratio})
+                sb.append_op("elementwise_mul",
+                             inputs={"X": [p.name], "Y": [mask_name]},
+                             outputs={"Out": [p.name]}, attrs={})
+                block.create_var(name=mask_name, shape=p.shape,
+                                 dtype=p.dtype, persistable=True,
+                                 stop_gradient=True)
+                block.append_op("elementwise_mul",
+                                inputs={"X": [p.name], "Y": [mask_name]},
+                                outputs={"Out": [p.name]}, attrs={})
 
 
 def _update_op(block, op_type, p, g, lr_var, states, attrs):
@@ -425,3 +479,90 @@ DecayedAdagrad = DecayedAdagradOptimizer
 Adadelta = AdadeltaOptimizer
 RMSProp = RMSPropOptimizer
 Ftrl = FtrlOptimizer
+
+
+class ModelAverage:
+    """A windowed average of the parameters, for evaluation.
+
+    Build it after ``Optimizer.minimize``: it appends one
+    ``model_average_update`` op a trainable parameter, so the window
+    accumulates inside the training step. ``apply(scope)`` is a context
+    manager that puts the averaged values into the scope and restores the
+    live parameters on exit. Two buffers rotate (Sum1 live, Sum2 the last
+    full window), so the average spans one to two windows;
+    ``min_average_window`` gates ``apply``: with fewer accumulated steps
+    the live parameters stay.
+    """
+
+    def __init__(self, average_window_rate: float = 0.15,
+                 min_average_window: int = 100,
+                 max_average_window: int = 10000,
+                 main_program: Optional[Program] = None,
+                 startup_program: Optional[Program] = None):
+        from .core.program import default_main_program
+        from .initializer import ConstantInitializer
+
+        del average_window_rate  # the window is bounded explicitly
+        self.min_average_window = int(min_average_window)
+        self.max_average_window = int(max_average_window)
+        main = main_program or default_main_program()
+        startup = startup_program or default_startup_program()
+        block = main.global_block
+        self._slots: List[Tuple[str, Dict[str, str]]] = []
+        for p in block.all_parameters():
+            if not p.trainable:
+                continue
+            names = {}
+            for suffix, shape in (("sum_1", p.shape), ("sum_2", p.shape),
+                                  ("num_1", [1]), ("num_2", [1])):
+                name = f"{p.name}@MA_{suffix}"
+                names[suffix] = name
+                block.create_var(name=name, shape=shape, dtype="float32",
+                                 persistable=True, stop_gradient=True)
+                sv = startup.global_block.create_var(
+                    name=name, shape=shape, dtype="float32",
+                    persistable=True)
+                ConstantInitializer(0.0)(sv, startup.global_block)
+            block.append_op(
+                "model_average_update",
+                inputs={"Param": [p.name], "Sum1": [names["sum_1"]],
+                        "Sum2": [names["sum_2"]], "Num1": [names["num_1"]],
+                        "Num2": [names["num_2"]]},
+                outputs={"Sum1Out": [names["sum_1"]],
+                         "Sum2Out": [names["sum_2"]],
+                         "Num1Out": [names["num_1"]],
+                         "Num2Out": [names["num_2"]]},
+                attrs={"max_average_window": self.max_average_window})
+            self._slots.append((p.name, names))
+
+    def apply(self, scope=None):
+        """A context manager: inside it the scope holds the averaged
+        parameters, (Sum1 + Sum2) / (Num1 + Num2) computed where the
+        sums live, in the parameter's dtype; on exit the live tensors
+        themselves go back (no host copy is left in the scope)."""
+        from .core.scope import global_scope
+
+        scope = scope or global_scope()
+
+        @contextlib.contextmanager
+        def _ctx():
+            backup = {}
+            for pname, names in self._slots:
+                n = (float(scope.get(names["num_1"]).reshape(-1)[0])
+                     + float(scope.get(names["num_2"]).reshape(-1)[0]))
+                if n <= 0 or n < self.min_average_window:
+                    continue
+                live = scope.get(pname)
+                total = scope.get(names["sum_1"]) + scope.get(names["sum_2"])
+                # a tensor divisor: a scalar one is a reciprocal product
+                # on the card
+                avg = total / total.new_full((), n)
+                backup[pname] = live
+                scope.set(pname, avg.to(live.dtype))
+            try:
+                yield self
+            finally:
+                for pname, val in backup.items():
+                    scope.set(pname, val)
+
+        return _ctx()

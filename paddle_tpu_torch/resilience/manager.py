@@ -59,8 +59,8 @@ class CheckpointConfig:
     On resume the interrupted pass skips the batches it had already
     consumed. The JAX package's hooks for its elastic StreamingTrainer
     (``extra_fn``, ``pre_save_fn``, ``on_saved``, ``accept_fn``,
-    ``keep_last_n``, ``skip_batches_on_resume``) land with that trainer
-    (ROADMAP.md Queue 1 item 4).
+    ``keep_last_n``, ``skip_batches_on_resume``) land with that trainer,
+    which waits for the ``master`` module (ROADMAP.md Queue 1 item 9).
     """
 
     def __init__(self, dirname: str, every_n_steps: int = 100,

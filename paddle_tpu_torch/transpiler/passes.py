@@ -5,9 +5,8 @@ Counterpart of ``paddle_tpu/transpiler/passes.py``, the passes
 provenance attrs (``__fused_from__`` / ``__folded_from__``), so both
 packages transpile a program to the same program dict:
 
-- ``ExpandRecomputeSegments``: nothing to do on a program without
-  recompute segments; a ``seg_fwd`` op raises (recompute is not ported,
-  ``ROADMAP.md`` Queue 1 item 4).
+- ``ExpandRecomputeSegments``: each ``seg_fwd`` recompute segment is
+  inlined back into its ops (an inference program keeps no stash).
 - ``CanonicalizeIsTest``: every ``is_test`` attr to True.
 - ``DropoutToScale``: inference dropout (downscale-in-infer) becomes a
   ``scale`` op, equal to the untranspiled program.

@@ -128,11 +128,14 @@ def test_unported_options_raise_and_name_their_slice():
                                   n_layers=1, num_heads=HEADS, remat=True)
         assert any(op.attrs.get("__recompute_seg__") is not None
                    for op in main.global_block.ops[n_ops:])
-        with pytest.raises(NotImplementedError,
-                           match="fused_head_cross_entropy"):
-            tpt.models.transformer_lm(ids, vocab_size=V, d_model=D_MODEL,
+        # the headless model is ported now: it ends at the final norm,
+        # its hidden states [b, T, d] (no head projection after it)
+        h = tpt.models.transformer_lm(ids, vocab_size=V, d_model=D_MODEL,
                                       n_layers=1, num_heads=HEADS,
                                       include_head=False)
+        assert main.global_block.ops[-1].type == "layer_norm"
+        assert h.name in main.global_block.ops[-1].outputs["Y"]
+        assert tuple(h.shape)[1:] == (T, D_MODEL)
         with pytest.raises(NotImplementedError, match="sparse"):
             tpt.layers.embedding(ids, size=[V, D_MODEL], is_sparse=True)
         # padded sequence feeds are ported now: a [b, T, ...] feed and

@@ -380,13 +380,22 @@ def test_sdpa_on_bf16_heads_matches_jax_cpu_op(case):
 @pytest.mark.parametrize("kw", [{"include_head": False},
                                 {"include_head": False, "remat": True}])
 def test_unported_model_options_raise_naming_roadmap(kw):
+    """The headless model is ported now (the chunked fused head): on the
+    per-layer path it builds, with or without remat, and ends at the
+    final norm; on the stacked path it raises the reference's ValueError
+    before building anything."""
     main, startup = tpt.Program(), tpt.Program()
     with tpt.program_guard(main, startup):
         ids = tpt.layers.data("ids", shape=[T], dtype="int64")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="include_head"):
             tpt.models.transformer_lm(ids, vocab_size=V, d_model=D_MODEL,
+                                      n_layers=1, num_heads=HEADS,
+                                      pipeline_stack=True, **kw)
+        assert not main.global_block.ops  # nothing built before the raise
+        h = tpt.models.transformer_lm(ids, vocab_size=V, d_model=D_MODEL,
                                       n_layers=1, num_heads=HEADS, **kw)
-    assert not main.global_block.ops  # nothing built before the raise
+    assert main.global_block.ops[-1].type == "layer_norm"
+    assert tuple(h.shape)[1:] == (T, D_MODEL)
 
 
 @pytest.mark.parametrize("kw", [{"moe_experts": 4},
