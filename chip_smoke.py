@@ -24,6 +24,7 @@
     python3 chip_smoke.py --demo-ops-only   # phases 1, 2 and 17 only
     python3 chip_smoke.py --book-only       # phases 1, 2 and 18 only
     python3 chip_smoke.py --optim-only      # phases 1, 2 and 19 only
+    python3 chip_smoke.py --precision-only  # phases 1, 2 and 20 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -482,6 +483,46 @@ Phases, each fatal on failure (nonzero exit, no result line):
     largest |value|, schedules within 4 ulps of their peaks). The flash
     records of the ``kernels`` line carry their launches a step here
     (``launches_phase19``).
+20. The precision policy, the flags and the v2 facade
+    (``--precision-only``). Phases 1-19 run under ``--mxu_precision=
+    highest`` (f32-accurate: full f32 library products, the 3xTF32 conv
+    GEMM kernels; set and printed after the build), as before the policy
+    was ported; phase 20 runs ``default`` (TF32) beside it. (a) ``mul``,
+    ``matmul`` and ``conv2d`` (3x3, and the 1x1 dot path) at ResNet-50
+    shapes, forward and both gradients, under both policies against the
+    CPU in f64: highest within phase 7's TF32_RTOL; default within a
+    tolerance derived from TF32's rounding (printed before the run) and
+    apart from highest (TF32 engaged). (b) The 1xTF32 instances of
+    ``conv1x1_stats`` and ``conv1x1_epilogue`` (``conv1x1_tf32_kernel``,
+    ``round_w_kernel``) at every distinct shape of the ResNet-50 step
+    (batch 256) and served batch (16) against their TF32 plain versions,
+    two launches bitwise equal, ptxas and SASS (HGMMA, no spills), timed
+    in turns with ``torch.matmul`` under cuBLAS TF32 beside their bound
+    at the TF32 rate: records ``conv1x1_stats_tf32`` and
+    ``conv1x1_epilogue_tf32`` in the ``kernels`` line, with
+    ``launches_phase20``. (c) Phase 19's unfused LM row (per-layer d1024
+    L8 H8, V16384, 8 x 2048 tokens, Adam, f32) under both policies from
+    the same weights: step 1's loss and gradients held at a stated TF32
+    tolerance, ms a step, device ms and the f32 GEMMs' device ms, 8
+    launches a step of each flash kernel under both. (d) ResNet-50 at
+    batch 256 with the fused epilogues under both policies from the same
+    weights: the loss and gradients within a multiple of highest's own
+    move under a half-TF32-ulp nudge of the images, ms a step, the conv
+    GEMM's device ms by instance (33 launches a step of the 1xTF32
+    kernel under default, of the 3xTF32 one under highest). (e)
+    ``parse_flags``/``set_flags`` flip the policy and an explicit
+    ``set_mxu_precision`` wins; an ``InferenceEngine`` of ResNet-50's
+    for_test clone built under default captures a new graph after a flip
+    to highest, each replay equal to the eager run under its policy, each
+    on its own instance of the conv GEMM; bf16 and fp8 parameters through
+    ``save_params``/``load_params`` on the card bit for bit. (f)
+    ``demos/mnist_v2.py``, ``demos/traffic_prediction.py`` and
+    ``demos/quick_start.py`` (``cnn``, ``lstm``) through
+    ``paddle_tpu_torch.v2``, their loops at their own sizes (but one pass
+    of traffic_prediction's eight): the first 5
+    losses within 1e-4 of the port's CPU run from the same weights, each
+    demo's own closing output, ms a step beside a step's device ms and
+    launches.
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -9194,6 +9235,965 @@ def phase19_launches(records, optim):
             rec["launches_phase19"] = {k: v[i] for k, v in paths.items()}
 
 
+# --- phase 20: the precision policy, the flags and the v2 facade ------------
+# (a) mul, matmul and conv2d (3x3, and the 1x1 dot path) at ResNet-50
+# shapes, forward and both gradients, on the card under default and
+# highest against the same op on the CPU in f64. highest: phase 7's gate,
+# max |card - f64| <= TF32_RTOL of max |f64|. default: TF32 rounds each f32
+# operand to nearest at 10 mantissa bits (unit roundoff 2^-11), so each
+# term a_k b_k of a sum carries at most 2^-10 + 2^-22 of |a_k b_k|, and
+# elementwise |default - f64| <= PRECISION_TF32_TERM * (|A| |B|) (the same
+# op on |A| and |B|, and for a gradient on |g|, in f64) plus
+# PRECISION_ORDER_MULT times highest's own largest error (the f32 sums,
+# whose order a TF32 kernel need not share). TF32 engaged: default must
+# differ from highest by more than PRECISION_ENGAGED times highest's own
+# largest error.
+PRECISION_TF32_TERM = 2.0 ** -10 + 2.0 ** -22
+PRECISION_ORDER_MULT = 4.0
+PRECISION_ENGAGED = 10.0
+# (op, attrs, {slot: shape}): the fc head at batch 256, a stage-3 1x1 conv
+# at batch 16 as a batched matmul, phase 7's 3x3 conv (s2 p1, 64 -> 64
+# over stage 1's 56 x 56, batch 8) and stage 1's 256 -> 64 1x1 conv (the
+# dot path) at batch 2. TF32_RTOL holds an f32 sum of up to ~6300 terms (phase 7's
+# dW: 8 x 28 x 28); the filter gradients here sum 6272 (a 12544-term
+# sum erred 1.69e-5 of max |f64| under highest on an H100).
+PRECISION_CASES = (
+    ("mul", {"x_num_col_dims": 1, "y_num_col_dims": 1},
+     {"X": (256, 2048), "Y": (2048, 1000)}),
+    ("matmul", {}, {"X": (16, 196, 1024), "Y": (1024, 256)}),
+    ("conv2d", {"strides": 2, "paddings": 1, "data_format": "NHWC"},
+     {"Input": (8, 56, 56, 64), "Filter": (3, 3, 64, 64)}),
+    ("conv2d", {"strides": 1, "paddings": 0, "data_format": "NHWC"},
+     {"Input": (2, 56, 56, 256), "Filter": (1, 1, 256, 64)}),
+)
+# (b) the 1xTF32 conv GEMM instances against their TF32 plain versions
+# (operands rounded as the kernels round them, an f32 product): the same
+# products, summed in another order: GEMM_TOL and STATS_TOL, as phase 8.
+# The bound is at the tensor cores' dense TF32 rate.
+TF32_PEAK = {"sxm": 494.7e12, "pcie": 378e12, "nvl": 417.5e12}
+# (c) phase 19's unfused row (d1024 L8 H8, V16384, 8 x 2048 tokens, Adam,
+# f32) under default and highest from the same weights: step 1's loss
+# within PRECISION_LM_LOSS_RTOL and each gradient within
+# PRECISION_LM_GRAD_RTOL of its norm. The bound behind them: a TF32
+# product's output moves by ~2^-11 sqrt(2) = 7e-4 of its norm (both
+# operands rounded, the errors independent); a gradient passes ~64
+# products of the 8 blocks forward and back, which adds up to
+# sqrt(64) x 7e-4 = 5.5e-3 if the errors are independent and 4.5e-2 if
+# they line up; allow 2e-2 of each gradient's norm and 1e-3 of the loss
+# (an average over 16384 tokens).
+PRECISION_LM_LOSS_RTOL = 1e-3
+PRECISION_LM_GRAD_RTOL = 2e-2
+# (d) ResNet-50 at batch 256 under default and highest from the same
+# weights. The yardstick for its ill-conditioned gradients (ReLUs and BN,
+# ROADMAP "Ill-conditioned gradients") is highest's own move when each
+# image value moves by half a TF32 ulp (x (1 +- 2^-11), the sign drawn
+# per value): the size of the rounding TF32 applies to every operand.
+# Each gradient within SENS_FACTOR times that move (or GRAD_RTOL of its
+# norm), all together within SENS_TOTAL times, the loss within
+# SENS_FACTOR times the loss's move or 2^-10 of it.
+PRECISION_NUDGE = 2.0 ** -11
+PRECISION_TIMED = 3
+PRECISION_LM_GROUPS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "nvjet",
+                       "gemm", "cutlass", "elementwise", "reduce")
+PRECISION_RESNET_GROUPS = ("conv1x1_tf32_kernel", "conv1x1_tf32x3_kernel",
+                           "round_w_kernel", "split_w_kernel",
+                           "stats_reduce_kernel", "scale_shift_act_kernel",
+                           "cudnn", "engine", "xmma", "nvjet", "gemm",
+                           "elementwise", "reduce")
+# (f) the v2 demos, their loops copied from demos/*.py: their first
+# V2_CPU_STEPS losses under highest within V2_LOSS_RTOL of the port's CPU
+# run from the same weights. Passes are the demos' own but
+# traffic_prediction's: 1 of its 8 (its 791-op step is host-bound at
+# ~214 ms on an H100: 105 s for the 8 passes).
+V2_DEMOS = {"mnist_v2": dict(passes=5, batch=64),
+            "traffic_prediction": dict(passes=1, batch=128, n_train=8192),
+            "quick_start_cnn": dict(passes=4, batch=64),
+            "quick_start_lstm": dict(passes=4, batch=64)}
+V2_CPU_STEPS = 5
+V2_LOSS_RTOL = 1e-4
+
+
+def _policy(p):
+    from paddle_tpu_torch.ops import common
+
+    common.set_mxu_precision(p)
+
+
+def _abs_bound(op, attrs, ins, out_slot, g):
+    """(|out|, |d in| for each input) bounds: the op on |inputs| in f64
+    on the CPU, its vjp with |g|."""
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op
+
+    leaves = {s: t.abs().double().requires_grad_() for s, t in ins.items()}
+    y = get_op(op).fn(attrs, {s: [t] for s, t in leaves.items()})[
+        out_slot][0]
+    grads = torch.autograd.grad(y, list(leaves.values()), g.abs().double())
+    return [y.detach()] + list(grads)
+
+
+def _op_with_grads(op, attrs, ins, out_slot, g, device, dtype):
+    """(out, d input for each input) of the registered op on ``device``
+    in ``dtype``, by autograd, as host f64 tensors."""
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op
+
+    leaves = {s: t.to(device, dtype).requires_grad_()
+              for s, t in ins.items()}
+    y = get_op(op).fn(attrs, {s: [t] for s, t in leaves.items()})[
+        out_slot][0]
+    grads = torch.autograd.grad(y, list(leaves.values()), g.to(device, dtype))
+    return [t.detach().double().cpu() for t in [y] + list(grads)]
+
+
+def policy_ops_part(smi):
+    """(a): the library products under default and highest."""
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op
+
+    print(f"precision (a) tolerances: highest max |card - f64| <= "
+          f"{TF32_RTOL} of max |f64| (phase 7's); default elementwise "
+          f"|card - f64| <= {PRECISION_TF32_TERM:.6e} x (|A||B|)_f64 + "
+          f"{PRECISION_ORDER_MULT:g} x max |highest - f64|; TF32 engaged: "
+          f"max |default - highest| > {PRECISION_ENGAGED:g} x max |highest "
+          f"- f64|")
+    gen = torch.Generator().manual_seed(SEED + 20)
+    rows = []
+    for op, attrs, shapes in PRECISION_CASES:
+        out_slot = "Out" if op in ("mul", "matmul") else "Output"
+        ins = {s: torch.randn(*shape, generator=gen, dtype=torch.float64)
+               for s, shape in shapes.items()}
+        w_slot = list(ins)[1]
+        fan_in = ins[w_slot].shape[0] * (ins[w_slot].shape[1] * ins[
+            w_slot].shape[2] if op == "conv2d" else 1)
+        ins[w_slot] = ins[w_slot] / fan_in ** 0.5
+        ins = {s: t.float().double() for s, t in ins.items()}  # f32 values
+        with torch.no_grad():
+            yshape = get_op(op).fn(attrs, {s: [t] for s, t in
+                                           ins.items()})[out_slot][0].shape
+        g = torch.randn(*yshape, generator=gen).double()
+        want = _op_with_grads(op, attrs, ins, out_slot, g, "cpu",
+                              torch.float64)
+        bound = _abs_bound(op, attrs, ins, out_slot, g)
+        got = {}
+        for policy in ("highest", "default"):
+            _policy(policy)
+            got[policy] = _op_with_grads(op, attrs, ins, out_slot, g, "cuda",
+                                         torch.float32)
+        _policy("highest")
+        for name, w, b, hi, de in zip(("out",) + tuple(
+                f"d{s}" for s in ins), want, bound, got["highest"],
+                got["default"]):
+            scale = float(w.abs().max())
+            e_hi = float((hi - w).abs().max())
+            e_de = (de - w).abs()
+            allow = PRECISION_TF32_TERM * b + PRECISION_ORDER_MULT * e_hi
+            ratio = float((e_de / allow).max())
+            gap = float((de - hi).abs().max())
+            row = {"op": op, "shapes": {s: list(v) for s, v in
+                                        shapes.items()},
+                   "attrs": attrs, "what": name,
+                   "highest_rel": e_hi / scale,
+                   "default_rel": float(e_de.max()) / scale,
+                   "default_to_allowance": ratio,
+                   "default_vs_highest": gap / scale,
+                   "engaged_ratio": gap / max(e_hi, 1e-30)}
+            rows.append(row)
+            print(f"precision (a) {op} {dict(shapes)} {name}: highest "
+                  f"{row['highest_rel']:.3e} of max |f64| (tol {TF32_RTOL}); "
+                  f"default {row['default_rel']:.3e} of it, worst "
+                  f"{ratio:.3f} of its TF32 allowance; default vs highest "
+                  f"{row['default_vs_highest']:.3e} = "
+                  f"{row['engaged_ratio']:.1f} x highest's own error")
+            assert row["highest_rel"] <= TF32_RTOL, row
+            assert ratio <= 1.0, row
+            assert gap > PRECISION_ENGAGED * e_hi, row
+    return rows
+
+
+def _tf32_bound(flops, nbytes, gpu_name):
+    """(bound ms, what bounds it): FLOPs at the tensor cores' dense TF32
+    rate, bytes at the memory rate."""
+    low = gpu_name.lower()
+    peak = TF32_PEAK["pcie" if "pcie" in low else "nvl" if "nvl" in low
+                     else "sxm"]
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / _peaks(gpu_name)[1] * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tf32_kernel_part(gpu_name, train_shapes, infer_shapes, smi):
+    """(b): the 1xTF32 instances of conv1x1_stats and conv1x1_epilogue at
+    every distinct shape of the ResNet-50 step and served batch."""
+    import torch
+
+    from paddle_tpu_torch.kernels import build, conv_epilogue as ke
+    from paddle_tpu_torch.ops import common
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+
+    def inputs(R, I, O, residual):
+        x = torch.randn(R, I, device="cuda", generator=gen)
+        w = torch.randn(I, O, device="cuda", generator=gen) * I ** -0.5
+        scale = 1.0 + 0.2 * torch.randn(O, device="cuda", generator=gen)
+        shift = 0.1 * torch.randn(O, device="cuda", generator=gen)
+        res = (torch.randn(R, O, device="cuda", generator=gen)
+               if residual else None)
+        return x, w, scale, shift, res
+
+    _policy("default")
+    errs = {"conv1x1_stats": 0.0, "conv1x1_epilogue": 0.0}
+    stats_err, repeats = 0.0, 0
+    for R, I, O, res, act in sorted(set(train_shapes)):
+        x, w, _, _, _ = inputs(R, I, O, False)
+        y, stats = ke.conv1x1_stats(x, w)
+        y2, stats2 = ke.conv1x1_stats(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2) and torch.equal(stats, stats2), (R, I, O)
+        repeats += 1
+        ry, rstats = ke.conv1x1_stats_tf32_reference(x, w)
+        err = _assert_close(y, ry, GEMM_TOL, f"conv1x1_stats tf32 {R}x{I}x{O}")
+        mass = torch.stack([ry.abs().sum(0), (ry * ry).sum(0)])
+        s_err = float(((stats - rstats).abs() / mass.clamp_min(1e-30)).max())
+        assert s_err <= STATS_TOL, (R, I, O, s_err)
+        errs["conv1x1_stats"] = max(errs["conv1x1_stats"], err)
+        stats_err = max(stats_err, s_err)
+        del x, w, y, y2, ry
+    for R, I, O, res, act in sorted(set(infer_shapes)):
+        x, w, scale, shift, r = inputs(R, I, O, res)
+        out = ke.conv1x1_epilogue(x, w, scale, shift, r, act)
+        out2 = ke.conv1x1_epilogue(x, w, scale, shift, r, act)
+        torch.cuda.synchronize()
+        assert torch.equal(out, out2), (R, I, O)
+        repeats += 1
+        err = _assert_close(out, ke.conv1x1_epilogue_tf32_reference(
+            x, w, scale, shift, r, act), GEMM_TOL,
+            f"conv1x1_epilogue tf32 {R}x{I}x{O}")
+        errs["conv1x1_epilogue"] = max(errs["conv1x1_epilogue"], err)
+        del x, w, r, out, out2
+    print(f"precision (b) the 1xTF32 instances against their TF32 plain "
+          f"versions at {len(set(train_shapes))} step shapes and "
+          f"{len(set(infer_shapes))} served shapes: max abs err stats y "
+          f"{errs['conv1x1_stats']:.3e}, epilogue out "
+          f"{errs['conv1x1_epilogue']:.3e} (tol {GEMM_TOL}), statistics "
+          f"{stats_err:.3e} of the summed mass (tol {STATS_TOL}); two "
+          f"launches bitwise equal in all {repeats} cases")
+    smem = build.load("conv_epilogue").paddle_conv1x1_smem_bytes_tf32
+    usage = _kernel_usage("conv_epilogue", lambda name, args: smem(args[0]),
+                          match="conv1x1_tf32_kernel")
+    sass = _sass_counts("conv_epilogue", "conv1x1_tf32_kernel")
+    assert usage and all(not u.get("spill_store_bytes")
+                         and not u.get("spill_load_bytes")
+                         for u in usage.values()), usage
+    assert sass and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                        for c in sass.values()), sass
+
+    def library(x, w):
+        with common.library_precision(True):
+            return torch.matmul(x, w)
+
+    records = []
+    for kind, shapes in (("conv1x1_stats", train_shapes),
+                         ("conv1x1_epilogue", infer_shapes)):
+        rows = {}
+        for shape in sorted(set(shapes)):
+            R, I, O, res, act = shape
+            x, w, scale, shift, r = inputs(R, I, O, res)
+            if kind == "conv1x1_stats":
+                calls = (lambda: ke.conv1x1_stats(x, w),
+                         lambda: ke.conv1x1_stats_tf32_reference(x, w),
+                         lambda: library(x, w))
+            else:
+                calls = (lambda: ke.conv1x1_epilogue(x, w, scale, shift, r,
+                                                     act),
+                         lambda: ke.conv1x1_epilogue_tf32_reference(
+                             x, w, scale, shift, r, act),
+                         lambda: library(x, w))
+            flops, nbytes = _conv_work(kind, R, I, O, res, act)
+            bound, by = _tf32_bound(flops, nbytes, gpu_name)
+            turns = [_cuda_ms(calls[i], iters=20) for i in (0, 2, 2, 0)]
+            rows[shape] = {
+                "ms": (turns[0] + turns[3]) / 2,
+                "library_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns,
+                "plain_ms": _cuda_ms(calls[1], iters=5),
+                "bound_ms": bound, "bound_by": by,
+                "count": shapes.count(shape)}
+            del x, w, r, calls
+        shape, top = max(rows.items(), key=lambda kv: kv[1]["bound_ms"])
+        per_step = {k: sum(v[k] * v["count"] for v in rows.values())
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        rec = {"name": f"{kind}_tf32", "route": "cuda",
+               "source": "paddle_tpu_torch/kernels/csrc/conv_epilogue.cu",
+               "replaces": f"paddle_tpu/kernels/conv_epilogue.py:"
+                           f"{CONV_REPLACES[kind]}",
+               "launches": None, "max_abs_err": errs[kind], "ms": top["ms"],
+               "plain_ms": top["plain_ms"], "bound_ms": top["bound_ms"],
+               "bound_by": top["bound_by"], "bound_ms_simt": None,
+               "library_ms": top["library_ms"],
+               "library": "torch.matmul with cuBLAS TF32 allowed, product "
+                          "only",
+               "shape": "R{} I{} O{} residual={} act={}".format(*shape),
+               "per_step": per_step, "ptxas": usage, "sass": sass,
+               "per_shape": [[list(k), v] for k, v in rows.items()]}
+        if kind == "conv1x1_stats":
+            rec["stats_err_of_mass"] = stats_err
+        print(f"precision (b) {kind} 1xTF32: heaviest shape {rec['shape']} "
+              f"{top['ms']:.4f} ms, cuBLAS TF32 {top['library_ms']:.4f}, "
+              f"plain {top['plain_ms']:.4f}, bound {top['bound_ms']:.4f} "
+              f"({top['bound_by']}, TF32 rate); per "
+              f"{'step' if kind == 'conv1x1_stats' else 'batch'} "
+              f"{per_step['ms']:.3f} ms (cuBLAS TF32 "
+              f"{per_step['library_ms']:.3f}, plain {per_step['plain_ms']:.3f}"
+              f", bound {per_step['bound_ms']:.3f}) [{smi}]")
+        records.append(rec)
+    ke.conv1x1_stats.tf32_launches = ke.conv1x1_epilogue.tf32_launches = 0
+    _policy("highest")
+    return records
+
+
+def lm_policy_part(pt, fa, smi):
+    """(c): the per-layer LM (phase 19's unfused row) under default and
+    highest from the same weights."""
+    import numpy as np
+    import torch
+
+    c = HEAD_ROWS
+    L = c["n_layers"]
+    main, startup, loss, pgs = _head_row_program(
+        pt, c, pt.Program._uid_counter, fused=False)
+    rng = np.random.RandomState(SEED + 20)
+    feed = {k: torch.from_numpy(rng.randint(0, c["vocab"], size=(
+        c["batch"], c["seq"])).astype("int64")).to(CARD)
+        for k in ("ids", "tgt")}
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    state = _snapshot(scope)
+    fetch = [loss.name] + [g.name for _, g in pgs]
+
+    def step():
+        return exe.run(main, feed=feed, fetch_list=[loss], scope=scope,
+                       return_numpy=False)
+
+    firsts, rows = {}, {}
+    for policy in ("highest", "default"):
+        _policy(policy)
+        got = _step_fetches(exe, main, feed, fetch, scope, state)
+        firsts[policy] = (float(got[0]), [g.cpu() for g in got[1:]])
+        del got
+        step()[0].item()  # warm
+        _reset_flash_counts(fa)
+        ms = []
+        for _ in range(PRECISION_TIMED):
+            t0 = time.perf_counter()
+            step()[0].item()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = _flash_counts(fa)
+        assert counts == (PRECISION_TIMED * L,) * 3 + (0, 0, 0), counts
+        prof = _profile_step(step, f"precision_lm_{policy}_profile.txt",
+                             groups=PRECISION_LM_GROUPS)
+        _restore(scope, state)
+        gemm = (None if prof is None else sum(
+            prof["kernels_ms"][g] for g in ("nvjet", "gemm", "cutlass")))
+        rows[policy] = {
+            "ms_per_step": float(np.median(ms)), "step_ms": ms,
+            "device_ms_per_step": None if prof is None else prof["device_ms"],
+            "f32_gemm_device_ms": gemm,
+            "flash_launches": [n // PRECISION_TIMED for n in counts[:3]],
+            "profile": prof, "step1_loss": firsts[policy][0]}
+        print(f"precision (c) LM d{c['d_model']} L{L} H{c['num_heads']} "
+              f"f32 under {policy}: {rows[policy]['ms_per_step']:.1f} ms a "
+              f"step (median of {PRECISION_TIMED}), device "
+              f"{_ms_text(rows[policy]['device_ms_per_step'], '.1f')} ms, "
+              f"f32 GEMMs {_ms_text(gemm, '.1f')} ms of it; flash "
+              f"fwd/dq/dkv launches a step {rows[policy]['flash_launches']}")
+    _policy("highest")
+    names = [p.name for p, _ in pgs]
+    worst = _grad_gap(names, firsts["default"][1], firsts["highest"][1])
+    lo_d, lo_h = firsts["default"][0], firsts["highest"][0]
+    loss_gap = abs(lo_d - lo_h) / abs(lo_h)
+    identical = sum(torch.equal(a, b) for a, b in zip(
+        firsts["default"][1], firsts["highest"][1]))
+    print(f"precision (c) step 1 from the same weights: loss default "
+          f"{lo_d:.6f} highest {lo_h:.6f} (gap {loss_gap:.2e}, tol "
+          f"{PRECISION_LM_LOSS_RTOL}); worst gradient gap {worst[0]:.3e} of "
+          f"a norm ({worst[1]}; tol {PRECISION_LM_GRAD_RTOL}); "
+          f"{identical} of {len(names)} gradients bitwise equal [{smi}]")
+    assert np.isfinite(lo_d) and loss_gap <= PRECISION_LM_LOSS_RTOL
+    assert worst[0] <= PRECISION_LM_GRAD_RTOL, worst
+    assert identical < len(names), "default computed what highest did"
+    del scope, state, exe, firsts
+    torch.cuda.empty_cache()
+    return {"config": dict(c), "default": rows["default"],
+            "highest": rows["highest"], "loss_gap": loss_gap,
+            "worst_grad_gap": worst[0], "worst_grad": worst[1]}
+
+
+def resnet_policy_part(pt, gpu_name, built, smi):
+    """(d): ResNet-50 trained at batch 256 with fused epilogues under
+    default and highest from the same weights. Returns (record, scope)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+
+    c = RESNET
+    B = c["batch"]
+    main, startup, test_prog, loss, logits, params_grads = built
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace())
+    exe.run(startup, scope=scope)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    images = torch.randn(B, c["size"], c["size"], 3, device="cuda",
+                         generator=gen)
+    feed = {"images": images,
+            "label": torch.randint(0, c["classes"], (B, 1), device="cuda",
+                                   generator=gen)}
+    sign = torch.randint(0, 2, images.shape, device="cuda",
+                         generator=gen) * 2 - 1
+    nudged = dict(feed, images=images * (1 + PRECISION_NUDGE * sign))
+    state = _snapshot(scope)
+    grad_names = [g.name for _, g in params_grads]
+    fetch = [loss.name] + grad_names
+    first = {}
+    for tag, policy, f in (("highest", "highest", feed),
+                           ("nudged", "highest", nudged),
+                           ("default", "default", feed)):
+        _policy(policy)
+        got = _step_fetches(exe, main, f, fetch, scope, state)
+        first[tag] = (float(got[0]), [g.float() for g in got[1:]])
+        del got
+    d_dh, d_nh, norms, worst = [], [], [], (-1.0, "")
+    for i, name in enumerate(grad_names):
+        gh, gn, gd = (first[t][1][i] for t in ("highest", "nudged",
+                                               "default"))
+        assert torch.isfinite(gd).all(), name
+        dd, dn, n = (float((gd - gh).norm()), float((gn - gh).norm()),
+                     float(gh.norm()))
+        d_dh.append(dd)
+        d_nh.append(dn)
+        norms.append(n)
+        worst = max(worst, (dd / max(GRAD_RTOL * n, SENS_FACTOR * dn,
+                                     1e-30), name))
+    total_d = float(np.linalg.norm(d_dh)) / float(np.linalg.norm(norms))
+    total_n = float(np.linalg.norm(d_nh)) / float(np.linalg.norm(norms))
+    lh, ln, ld = (first[t][0] for t in ("highest", "nudged", "default"))
+    loss_allow = max(SENS_FACTOR * abs(ln - lh), 2.0 ** -10 * abs(lh))
+    rel_d = np.array(d_dh) / np.maximum(norms, 1e-30)
+    rel_n = np.array(d_nh) / np.maximum(norms, 1e-30)
+    print(f"precision (d) ResNet-50 step 1 from the same weights: loss "
+          f"default {ld:.6f} highest {lh:.6f} (gap {abs(ld - lh):.3e}, "
+          f"allowed {loss_allow:.3e}; highest with the images nudged by "
+          f"half a TF32 ulp {ln:.6f}); gradients |default - highest| / "
+          f"|highest| median {np.median(rel_d):.3e} max {rel_d.max():.3e}, "
+          f"all together {total_d:.3e}; the nudge's move median "
+          f"{np.median(rel_n):.3e} max {rel_n.max():.3e}, all together "
+          f"{total_n:.3e}; worst gap-to-allowance ratio {worst[0]:.3f} "
+          f"({worst[1]}) over {len(grad_names)} parameters [{smi}]")
+    del first
+    assert np.isfinite(ld) and abs(ld - lh) <= loss_allow, (ld, lh, ln)
+    assert worst[0] <= 1.0, worst
+    assert total_d <= max(SENS_TOTAL * total_n, GRAD_RTOL), (total_d,
+                                                              total_n)
+
+    rows = {}
+    for policy in ("highest", "default"):
+        _policy(policy)
+        _restore(scope, state)
+        tf32 = policy == "default"
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)  # warm
+        _reset_conv_counts(ke)
+        ke.conv1x1_stats.tf32_launches = 0
+        losses, step_s = [], []
+        for _ in range(PRECISION_TIMED):
+            t1 = time.perf_counter()
+            lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            step_s.append(time.perf_counter() - t1)
+            losses.append(float(lo))
+        counts = {"3xtf32": ke.conv1x1_stats.launches,
+                  "1xtf32": ke.conv1x1_stats.tf32_launches,
+                  "scale_shift_act": ke.scale_shift_act.launches}
+        want = PRECISION_TIMED * FUSED_OPS
+        assert counts == {"3xtf32": 0 if tf32 else want,
+                          "1xtf32": want if tf32 else 0,
+                          "scale_shift_act": want}, counts
+        assert all(np.isfinite(losses)), losses
+        prof = _profile_step(
+            lambda: exe.run(main, feed=feed, fetch_list=[loss], scope=scope),
+            f"precision_resnet_{policy}_profile.txt",
+            groups=PRECISION_RESNET_GROUPS)
+        med = float(np.median(step_s))
+        gemm_key = "conv1x1_tf32_kernel" if tf32 else "conv1x1_tf32x3_kernel"
+        rows[policy] = {
+            "ms_per_step": med * 1e3, "step_ms": [s * 1e3 for s in step_s],
+            "images_per_s": B / med, "losses": losses,
+            "launches_per_step": {k: n // PRECISION_TIMED
+                                  for k, n in counts.items()},
+            "device_ms_per_step": None if prof is None else prof["device_ms"],
+            "conv_gemm_device_ms": None if prof is None
+            else prof["kernels_ms"][gemm_key],
+            "conv_gemm_launches_traced": None if prof is None
+            else prof["launches"][gemm_key],
+            "profile": prof}
+        print(f"precision (d) ResNet-50 batch {B} under {policy}: "
+              f"{med * 1e3:.1f} ms a step (median of {PRECISION_TIMED}), "
+              f"{B / med:.1f} images/s, device "
+              f"{_ms_text(rows[policy]['device_ms_per_step'], '.1f')} ms; "
+              f"{gemm_key} {_ms_text(rows[policy]['conv_gemm_device_ms'])} "
+              f"ms of device time in "
+              f"{rows[policy]['conv_gemm_launches_traced']} traced launches; "
+              f"wrapper launches a step {rows[policy]['launches_per_step']}")
+        if prof is not None:
+            assert prof["launches"][gemm_key] == FUSED_OPS, prof["launches"]
+    _policy("highest")
+    return {"default": rows["default"], "highest": rows["highest"],
+            "loss_default": ld, "loss_highest": lh, "loss_nudged": ln,
+            "grad_rel_median": float(np.median(rel_d)),
+            "grad_rel_max": float(rel_d.max()), "grad_rel_total": total_d,
+            "nudge_rel_median": float(np.median(rel_n)),
+            "nudge_rel_max": float(rel_n.max()), "nudge_rel_total": total_n,
+            "worst_ratio_to_allowance": worst[0],
+            "worst_grad": worst[1]}, scope
+
+
+def flags_keys_part(pt, built, scope, smi):
+    """(e): the flags flip the policy; the engine captures a new graph
+    after a flip; fp8 and bf16 parameters round-trip on the card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+    from paddle_tpu_torch.ops import common
+
+    # the flags, with the policy unset (it follows --mxu_precision)
+    common._MXU_PRECISION = common._UNSET
+    x = torch.randn(512, 1024, device="cuda")
+    w = torch.randn(1024, 512, device="cuda")
+    seen = {}
+    for argv in (["--mxu_precision=default"], ["--mxu_precision", "highest"]):
+        rest = flags.parse_flags(argv + ["--log_period=7", "positional"])
+        assert rest == ["positional"] and flags.FLAGS.log_period == 7
+        seen[common.mxu_precision()] = common.matmul(x, w)
+    assert set(seen) == {None, "highest"}
+    flip_gap = float((seen[None] - seen["highest"]).abs().max())
+    assert flip_gap > 0, "--mxu_precision changed nothing on the card"
+    flags.set_flags({"mxu_precision": "default"})
+    assert common.mxu_precision() is None
+    common.set_mxu_precision("highest")  # an explicit set wins
+    flags.set_flags({"mxu_precision": "default"})
+    assert common.mxu_precision() == "highest"
+    assert torch.equal(common.matmul(x, w), seen["highest"])
+    flags.reset_flags()
+    flags.parse_flags(["--mxu_precision=highest"])
+    print(f"precision (e) parse_flags/set_flags flip the policy (a 512 x "
+          f"1024 x 512 product moves {flip_gap:.3e} between default and "
+          f"highest); an explicit set_mxu_precision wins over the flag")
+
+    # the engine: the ResNet-50 for_test clone served at batch 16
+    c = RESNET
+    B = c["infer_batch"]
+    test_prog, logits = built[2], built[4]
+    exe = pt.Executor(pt.CUDAPlace())
+    model_dir = ROOT / "build" / "resnet50_precision"
+    shutil.rmtree(model_dir, ignore_errors=True)
+    pt.flags.FLAGS.fused_conv_epilogue = True
+    try:
+        pt.io.save_inference_model(str(model_dir), ["images"], [logits], exe,
+                                   main_program=test_prog, scope=scope)
+    finally:
+        pt.flags.FLAGS.fused_conv_epilogue = False
+    _policy("default")
+    eng = pt.InferenceEngine(str(model_dir), place=pt.CUDAPlace(0),
+                             batch_buckets=(B,))
+    ke.conv1x1_epilogue.tf32_launches = 0
+    assert eng.warmup() == 1 and eng.cache_stats()["graphs"] == 1
+    epi_launches = ke.conv1x1_epilogue.tf32_launches
+    assert epi_launches > 0, "the default engine never ran the 1xTF32 kernel"
+    xs = np.random.RandomState(SEED + 23).randn(
+        B, c["size"], c["size"], 3).astype("float32")
+    outs, counted = {}, {}
+    names = ("conv1x1_tf32_kernel", "conv1x1_tf32x3_kernel")
+    for policy in ("default", "highest"):
+        _policy(policy)
+        outs[policy] = eng.run({"images": xs})[0]
+        eager = exe.run(eng.program, feed={"images": xs},
+                        fetch_list=eng.fetch_names, scope=eng.scope)[0]
+        ref = float(np.abs(eager).max())
+        err = float(np.abs(outs[policy] - eager).max())
+        counted[policy] = _count_kernels(lambda: eng.run({"images": xs}),
+                                         names)
+        print(f"precision (e) engine at batch {B} under {policy}: "
+              f"{eng.cache_stats()['graphs']} CUDA graph(s); the replay vs "
+              f"the eager run under the same policy {err:.3e} (tol "
+              f"{REPLAY_RTOL} of max |logit| {ref:.3e}); one traced replay "
+              f"launched {counted[policy]}")
+        assert err <= REPLAY_RTOL * ref, (policy, err, ref)
+    assert eng.cache_stats()["graphs"] == 2
+    policy_gap = float(np.abs(outs["default"] - outs["highest"]).max())
+    assert policy_gap > 0, "the flip replayed the other policy's graph"
+    for policy, kname in (("default", names[0]), ("highest", names[1])):
+        if counted[policy] is not None:
+            other = names[1 - names.index(kname)]
+            assert counted[policy][kname] == FUSED_OPS, counted
+            assert counted[policy][other] == 0, counted
+    eng.close()
+    _policy("highest")
+    shutil.rmtree(model_dir, ignore_errors=True)
+
+    # fp8 and bf16 parameters through save_params / load_params
+    dtypes = ("bfloat16", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+              "float8_e5m2fnuz")
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        inp = pt.layers.data("x", shape=[64])
+        pt.layers.fc(inp, size=64, param_attr=pt.ParamAttr(name="w8"),
+                     bias_attr=pt.ParamAttr(name="b8"))
+    io_dir = ROOT / "build" / "precision_io"
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    for name in dtypes:
+        dt = getattr(torch, name)
+        view = torch.int16 if dt.itemsize == 2 else torch.uint8
+        src = pt.Scope()
+        for key, shape in (("w8", (64, 64)), ("b8", (64,))):
+            bits = torch.randint(-2**15 if view == torch.int16 else 0,
+                                 2**15 if view == torch.int16 else 256,
+                                 shape, device="cuda", generator=gen)
+            src.set(key, bits.to(view).view(dt))
+        shutil.rmtree(io_dir, ignore_errors=True)
+        pt.io.save_params(exe, str(io_dir), main_program=main, scope=src)
+        dst = pt.Scope()
+        pt.io.load_params(exe, str(io_dir), main_program=main, scope=dst)
+        for key in ("w8", "b8"):
+            got = dst.get(key)
+            assert got.is_cuda and got.dtype == dt, (name, got.dtype)
+            assert torch.equal(got.view(view), src.get(key).view(view)), name
+    shutil.rmtree(io_dir, ignore_errors=True)
+    print(f"precision (e) {', '.join(dtypes)} parameters saved from and "
+          f"loaded onto the card bit for bit [{smi}]")
+    return {"flip_gap": flip_gap, "engine_policy_gap": policy_gap,
+            "engine_kernels": counted, "epilogue_1xtf32_launches_at_capture":
+            epi_launches, "io_dtypes": list(dtypes)}
+
+
+# The demos' own loops, through paddle_tpu_torch.v2 (copied from
+# demos/mnist_v2.py, demos/traffic_prediction.py and demos/quick_start.py,
+# which import the JAX package; the demos stay as they are).
+def _v2_mnist_build(paddle):
+    images = paddle.layer.data("pixel", paddle.data_type.dense_vector(784))
+    label = paddle.layer.data("label", paddle.data_type.integer_value(10))
+    h1 = paddle.layer.fc(input=images, size=128,
+                         act=paddle.activation.Relu())
+    h2 = paddle.layer.fc(input=h1, size=64, act=paddle.activation.Relu())
+    logits = paddle.layer.fc(input=h2, size=10)
+    cost = paddle.layer.classification_cost(input=logits, label=label)
+    return cost, logits, paddle.optimizer.Adam(learning_rate=1e-3)
+
+
+TRAFFIC_TERMS = TRAFFIC_HORIZONS = 24
+
+
+def _v2_traffic_series(n_days=30, seed=0):
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(n_days * 288)
+    base = 0.5 + 0.35 * np.sin(2 * np.pi * t / 288.0 - 1.2)
+    rush = 0.15 * np.exp(-0.5 * ((t % 288 - 102) / 12.0) ** 2)
+    return np.clip(base + rush + 0.05 * rng.randn(t.size), 0, 1)
+
+
+def _v2_quantize(x):
+    import numpy as np
+
+    return np.minimum((x * 4).astype(np.int64), 3)
+
+
+def _v2_windows(series, n, seed=1):
+    import numpy as np
+
+    def reader():
+        rng = np.random.RandomState(seed)
+        for _ in range(n):
+            i = rng.randint(0, series.size - TRAFFIC_TERMS - TRAFFIC_HORIZONS)
+            past = series[i:i + TRAFFIC_TERMS].astype(np.float32)
+            future = _v2_quantize(series[i + TRAFFIC_TERMS:
+                                         i + TRAFFIC_TERMS + TRAFFIC_HORIZONS])
+            yield (past, *[np.array([lvl]) for lvl in future])
+    return reader
+
+
+def _v2_traffic_build(paddle):
+    link_encode = paddle.layer.data(
+        "link_encode", paddle.data_type.dense_vector(TRAFFIC_TERMS))
+    shared = paddle.attr.Param(name="_link_vec.w")
+    total_cost, scores = None, []
+    for i in range(TRAFFIC_HORIZONS):
+        link_vec = paddle.layer.fc(input=link_encode, size=16,
+                                   act=paddle.activation.Tanh(),
+                                   param_attr=shared)
+        score = paddle.layer.fc(input=link_vec, size=4,
+                                act=paddle.activation.Softmax())
+        label = paddle.layer.data(f"label_{(i + 1) * 5}min",
+                                  paddle.data_type.integer_value(4))
+        cls = paddle.layer.classification_cost(input=score, label=label)
+        total_cost = cls if total_cost is None else total_cost + cls
+        scores.append(score)
+    return total_cost, scores, paddle.optimizer.Adam(learning_rate=1e-2)
+
+
+def _v2_quick_start_build(paddle, config, word_dim):
+    words = paddle.layer.data(
+        "words", paddle.data_type.integer_value_sequence(word_dim))
+    emb = paddle.layer.embedding(input=words, size=128)
+    if config == "cnn":
+        hidden = paddle.networks.sequence_conv_pool(
+            input=emb, context_len=3, hidden_size=128)
+    else:
+        lstm = paddle.networks.simple_lstm(input=emb, size=128)
+        hidden = paddle.layer.pooling(input=lstm,
+                                      pooling_type=paddle.pooling.Max())
+    output = paddle.layer.fc(input=hidden, size=2,
+                             act=paddle.activation.Softmax())
+    label = paddle.layer.data("label", paddle.data_type.integer_value(2))
+    cost = paddle.layer.classification_cost(input=output, label=label)
+    return cost, output, paddle.optimizer.Adam(learning_rate=2e-3)
+
+
+def _v2_setup(pt, paddle, demo, use_gpu, start):
+    """The demo's program, parameters and trainer, built from the name
+    counter ``start`` on the card or the CPU."""
+    paddle.init(use_gpu=use_gpu, trainer_count=1, seed=v2_SEEDS[demo])
+    pt.Program._uid_counter = start
+    with pt.program_guard(pt.Program(), pt.Program()):
+        if demo == "mnist_v2":
+            cost, out, opt = _v2_mnist_build(paddle)
+        elif demo == "traffic_prediction":
+            cost, out, opt = _v2_traffic_build(paddle)
+        else:
+            cost, out, opt = _v2_quick_start_build(
+                paddle, demo.rsplit("_", 1)[1],
+                len(pt.dataset.imdb.word_dict()))
+        params = paddle.parameters.create(cost)
+        trainer = paddle.trainer.SGD(cost=cost, parameters=params,
+                                     update_equation=opt)
+    return cost, out, params, trainer
+
+
+v2_SEEDS = {"mnist_v2": 42, "traffic_prediction": 11,
+            "quick_start_cnn": 7, "quick_start_lstm": 7}
+
+
+def _v2_passes(pt, demo, c):
+    """Each pass's batches, materialised: the demo's reader (shuffled
+    where the demo shuffles, Python's RNG seeded once) cut into batches."""
+    import random
+
+    from paddle_tpu_torch.reader import decorator
+
+    random.seed(SEED)
+    if demo == "mnist_v2":
+        train = pt.dataset.mnist.train()
+    elif demo == "traffic_prediction":
+        train = _v2_windows(_v2_traffic_series(), c["n_train"])
+    else:
+        train = decorator.shuffle(pt.dataset.imdb.train(
+            pt.dataset.imdb.word_dict()), 512)
+    batched = pt.reader.batch(train, c["batch"])
+    return [list(batched()) for _ in range(c["passes"])]
+
+
+def _v2_demo(pt, demo, smi):
+    """One demo's loop on the card through paddle_tpu_torch.v2, its first
+    V2_CPU_STEPS losses against the port's CPU run from the same weights,
+    its own closing output. Returns its record."""
+    import numpy as np
+    import torch
+
+    import paddle_tpu_torch.v2 as paddle
+    from paddle_tpu_torch.reader import decorator
+
+    c = V2_DEMOS[demo]
+    passes = _v2_passes(pt, demo, c)
+    start = pt.Program._uid_counter
+    cpu = _v2_setup(pt, paddle, demo, False, start)
+    cost, out, params, trainer = _v2_setup(pt, paddle, demo, True, start)
+    params.init()
+    cpu[2].init()
+    for name, value in list(params.scope._vars.items()):
+        if isinstance(value, torch.Tensor):
+            cpu[2].scope.set(name, value.detach().cpu().clone())
+    cpu_losses = []
+    cpu[3].train(lambda: iter(passes[0][:V2_CPU_STEPS]), num_passes=1,
+                 event_handler=lambda e: cpu_losses.append(e.cost)
+                 if isinstance(e, paddle.event.EndIteration) else None)
+
+    losses, stamps = [], []
+    feed_iter = iter(passes)
+
+    def handler(event):
+        if isinstance(event, paddle.event.EndIteration):
+            losses.append(event.cost)
+            stamps.append(time.perf_counter())
+        elif isinstance(event, paddle.event.BeginPass):
+            stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    trainer.train(lambda: iter(next(feed_iter)), num_passes=c["passes"],
+                  event_handler=handler)
+    loop_s = time.perf_counter() - t0
+    gaps = np.diff(stamps) * 1e3
+    first = np.array(losses[:V2_CPU_STEPS])
+    loss_rel = float(np.max(np.abs(first - cpu_losses) / np.abs(cpu_losses)))
+    rec = {"config": c, "steps": len(losses), "loop_s": loop_s,
+           "ms_per_step": float(np.median(gaps)),
+           "first_losses": first.tolist(), "cpu_first_losses": cpu_losses,
+           "loss_rel_vs_cpu": loss_rel, "final_loss": losses[-1]}
+
+    # the demo's own closing output
+    if demo == "mnist_v2":
+        result = trainer.test(paddle.batch(decorator.firstn(
+            pt.dataset.mnist.test(), 256), 64))
+        rows = [(img,) for img, _ in list(pt.dataset.mnist.test()())[:8]]
+        probs = paddle.infer(output_layer=out, parameters=params, input=rows)
+        rec.update(test_cost=result.cost,
+                   predicted=np.argmax(probs, axis=1).tolist())
+        said = (f"test cost: {result.cost:.4f}; predicted digits: "
+                f"{rec['predicted']}")
+    elif demo == "traffic_prediction":
+        series = _v2_traffic_series()
+        i = series.size - TRAFFIC_TERMS - TRAFFIC_HORIZONS - 1
+        past = series[i:i + TRAFFIC_TERMS].astype(np.float32)
+        truth = _v2_quantize(series[i + TRAFFIC_TERMS:
+                                    i + TRAFFIC_TERMS + TRAFFIC_HORIZONS])
+        probs = paddle.infer(output_layer=out, parameters=params,
+                             input=[(past,)])
+        pred = [int(np.argmax(p, axis=1)[0]) for p in probs]
+        rec.update(predicted=pred, truth=truth.tolist(),
+                   agreement=float(np.mean(np.array(pred) == truth)))
+        said = f"horizon agreement: {rec['agreement']:.2f}"
+    else:
+        config = demo.rsplit("_", 1)[1]
+        test = pt.dataset.imdb.test(pt.dataset.imdb.word_dict())
+        result = trainer.test(paddle.batch(test, 64))
+        rows = [(x,) for x, _ in decorator.firstn(test, 8)()]
+        probs = paddle.infer(output_layer=out, parameters=params, input=rows)
+        prog = params.test_program_for([out])
+        feeds = [v.name for v in params.data_vars(program=prog)]
+        pm = pt.transpiler.inference_pipeline()
+        pm.run(prog, feeds, [out.name], scope=pt.Scope(parent=params.scope))
+        rec.update(test_cost=result.cost,
+                   predicted=np.argmax(probs, axis=1).tolist())
+        said = (f"[{config}] test cost: {result.cost:.4f}; predicted "
+                f"labels: {rec['predicted']}; transpiler passes "
+                f"{len(pm.format_stats().splitlines())} lines of stats")
+    # one more training step, timed, then traced: its device time and
+    # kernel launches (after the demo's own output, which it would move)
+    batch = trainer._feeder(None).feed(passes[0][0])
+    anatomy = rec["anatomy"] = _one_step_anatomy(
+        lambda: params.executor.run(params.main_program, feed=batch,
+                                    fetch_list=[cost], scope=params.scope))
+    print(f"precision (f) {demo}: {rec['steps']} steps in {loop_s:.1f} s, "
+          f"{rec['ms_per_step']:.2f} ms a step (median wall with the cost "
+          f"fetch), one step's device {_ms_text(anatomy['device_ms'])} ms "
+          f"in {anatomy['launches']} kernel launches; first "
+          f"{V2_CPU_STEPS} losses {np.round(first, 6).tolist()} within "
+          f"{loss_rel:.2e} of the CPU's (tol {V2_LOSS_RTOL}); final loss "
+          f"{losses[-1]:.4f}; {said} [{smi}]")
+    assert np.isfinite(losses).all(), losses[-5:]
+    assert loss_rel <= V2_LOSS_RTOL, (first, cpu_losses)
+    assert params.executor.device.type == "cuda"
+    del trainer, params, cpu
+    return rec
+
+
+def v2_demos_part(pt, smi):
+    """(f): the three v2 demos' loops on the card."""
+    import paddle_tpu_torch.v2 as paddle
+
+    _policy("highest")
+    try:
+        return {demo: _v2_demo(pt, demo, smi) for demo in V2_DEMOS}
+    finally:
+        paddle.init()
+
+
+def precision_phase(smi, gpu_name):
+    """Phase 20: (a) the policy on the library products, (b) the 1xTF32
+    conv GEMM kernels, (c) the f32 LM and (d) ResNet-50 under both
+    policies, (e) the flags, the engine's keys and the saved dtypes, (f)
+    the v2 demos. Returns (kernel records, its record)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    seconds = [time.perf_counter()]
+    out = {"a": policy_ops_part(smi)}
+    seconds.append(time.perf_counter())
+    built = _build_resnet(pt, RESNET)
+    recs = tf32_kernel_part(gpu_name, _fused_shapes(built[0], RESNET["batch"]),
+                            _fused_shapes(built[2], RESNET["infer_batch"]),
+                            smi)
+    seconds.append(time.perf_counter())
+    torch.cuda.empty_cache()
+    out["c"] = lm_policy_part(pt, fa, smi)
+    seconds.append(time.perf_counter())
+    # the main path's launches of the 1xTF32 kernels: counts to 0 before
+    # (d) and (e), read after
+    ke.conv1x1_stats.tf32_launches = ke.conv1x1_epilogue.tf32_launches = 0
+    out["d"], scope = resnet_policy_part(pt, gpu_name, built, smi)
+    seconds.append(time.perf_counter())
+    out["e"] = flags_keys_part(pt, built, scope, smi)
+    launches = {"conv1x1_stats_tf32": ke.conv1x1_stats.tf32_launches,
+                "conv1x1_epilogue_tf32": ke.conv1x1_epilogue.tf32_launches}
+    del built, scope
+    torch.cuda.empty_cache()
+    seconds.append(time.perf_counter())
+    out["f"] = v2_demos_part(pt, smi)
+    seconds.append(time.perf_counter())
+    for rec in recs:
+        rec["launches"] = launches[rec["name"]]
+        assert rec["launches"] > 0, (rec["name"], launches)
+    per_step = out["d"]["default"]["launches_per_step"]["1xtf32"]
+    recs[0]["launches_phase20"] = {"ResNet-50 step, default": per_step}
+    recs[1]["launches_phase20"] = {
+        f"ResNet-50 served batch {RESNET['infer_batch']}, default (one "
+        "replay, traced)":
+        (out["e"]["engine_kernels"]["default"] or {}).get(
+            "conv1x1_tf32_kernel")}
+    out["launches"] = launches
+    out["seconds"] = [b - a for a, b in zip(seconds, seconds[1:])]
+    print("phase 20 seconds: " + ", ".join(
+        f"{part} {s:.1f}" for part, s in zip(("(a)", "(b)", "(c)", "(d)",
+                                              "(e)", "(f)"), out["seconds"]))
+        + f"; {sum(out['seconds']):.1f} in all [{smi}]")
+    return recs, out
+
+
+def phase20_launches(records, precision):
+    """The 3xTF32 conv GEMM's and the flash trio's launches a step on
+    phase 20's paths (the 1xTF32 records carry their own)."""
+    c, d = precision["c"], precision["d"]
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    for rec in records:
+        if rec["name"] in names:
+            i = names.index(rec["name"])
+            rec["launches_phase20"] = {
+                f"d1024 LM, {p}": c[p]["flash_launches"][i]
+                for p in ("default", "highest")}
+        elif rec["name"] == "conv1x1_stats":
+            rec["launches_phase20"] = {
+                "ResNet-50 step, highest":
+                d["highest"]["launches_per_step"]["3xtf32"]}
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -9318,6 +10318,13 @@ def main():
                              "beside the unfused one, the schedule, clip, "
                              "decay, averaging and pruning sweep); prints "
                              "no ok line")
+    parser.add_argument("--precision-only", action="store_true",
+                        help="build the kernels and run only phase 20 (the "
+                             "precision policy: the library products and "
+                             "the 1xTF32 conv GEMM kernels, the f32 LM and "
+                             "ResNet-50 under default and highest, the "
+                             "flags, the engine's keys, the saved dtypes, "
+                             "the v2 demos); prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -9332,6 +10339,15 @@ def main():
     # is left at PyTorch's default (on): the port's conv2d turns it off
     # itself, and tf32_phase checks that it does
     torch.backends.cuda.matmul.allow_tf32 = False
+    # phases 1-19 run under the precision policy highest (f32-accurate:
+    # full f32 library products, the 3xTF32 conv GEMM kernels), as they
+    # ran before the policy was ported; phase 20 runs default and highest
+    from paddle_tpu_torch import flags
+
+    flags.parse_flags(["--mxu_precision=highest"])
+    print(f"precision: --mxu_precision={flags.FLAGS.mxu_precision} for "
+          f"phases 1-19; torch.backends.cuda.matmul.allow_tf32 = "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
@@ -9506,6 +10522,18 @@ def main():
             {"gpu": smi, "optim": optim}, indent=1))
         print(smi)
         return
+    if args.precision_only:
+        recs, precision = precision_phase(smi, gpu)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_precision.json").write_text(json.dumps(
+            {"gpu": smi, "kernels": recs, "precision": precision},
+            indent=1, default=str))
+        print(json.dumps({"kernels": [
+            {**{k: r[k] for k in keys}, "launches_phase20":
+             r["launches_phase20"]} for r in recs]}))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -9584,15 +10612,18 @@ def main():
     book = book_phase(smi)
     torch.cuda.empty_cache()
     optim = optim_phase(smi)
+    torch.cuda.empty_cache()
+    precision_recs, precision = precision_phase(smi, gpu)
     records = ([kern, slice_record(
                    kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
                + stacked_records(kern, bwd, stacked_d512, 512)
                + stacked_records(kern, bwd, stacked_d1024, 1024)
-               + conv
+               + conv + precision_recs
                + amp_recs + per_layer_recs + zoo_recs)
     phase16_launches(records, train_memory)
     phase19_launches(records, optim)
+    phase20_launches(records, precision)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -9607,12 +10638,13 @@ def main():
          "per_layer": per_layer, "recurrent": recurrent, "zoo": zoo,
          "trainer": trainer, "train_memory": train_memory,
          "demo_ops": demo_ops, "book": book, "optim": optim,
-         "build_s": built,
+         "precision": precision, "build_s": built,
          "rng": rng},
-        indent=1))
+        indent=1, default=str))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
-         **{k: r[k] for k in ("launches_phase16", "launches_phase19")
+         **{k: r[k] for k in ("launches_phase16", "launches_phase19",
+                              "launches_phase20")
             if k in r}} for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,11 @@ schedules, ``Optimizer(global_step=)``, gradient ``clip`` attrs,
 ``regularizer`` decay, ``ModelAverage`` and the pruning hook
 (``ParamAttr(update_hooks=)``), and ``layers.fused_head_cross_entropy``
 is the chunked LM head over ``transformer_lm(include_head=False)``.
+``set_mxu_precision`` / ``--mxu_precision`` choose the products' math on
+the card (``default``: TF32; ``high``, ``highest``: f32-accurate; the
+CPU computes all three in f32), the ``flags`` module holds the JAX
+package's flag plane, and ``v2`` its v2 facade (``init``, ``layer``,
+``parameters.create``, ``trainer.SGD``, ``infer``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);
@@ -60,12 +65,14 @@ from . import core, ops  # noqa: E402,F401  (ops register on import)
 from .core import backward  # noqa: E402,F401  (registers grad ops)
 from .core.executor import (CPUPlace, CUDAPlace, Executor,  # noqa: E402
                             RunHandle)
-from .ops.common import amp_enabled, set_amp  # noqa: E402
+from .ops.common import (amp_enabled, mxu_precision,  # noqa: E402
+                         set_amp, set_mxu_precision)
 from .core.program import (Program, default_main_program,  # noqa: E402
                            default_startup_program, maybe_recompute,
                            program_guard, recompute_guard)
 from .core.scope import Scope, global_scope, scope_from_numpy  # noqa: E402
 from . import flags, io, layers, models, nets, optimizer  # noqa: E402
+from .flags import FLAGS, parse_flags, set_flags  # noqa: E402
 from . import clip, initializer, learning_rate_decay  # noqa: E402
 from . import regularizer, transpiler  # noqa: E402
 from . import (checkpoint, data_feeder, dataset, evaluator,  # noqa: E402

@@ -102,26 +102,44 @@ def _is_parameter(v: Variable) -> bool:
     return isinstance(v, Parameter)
 
 
+# The dtypes numpy has no name for, by the names ml_dtypes gives them (the
+# manifest's "dtype"), each with the integer type of its bit view: they go
+# to disk as that view, as the JAX package stores ml_dtypes arrays.
+_BIT_VIEW_DTYPES = {
+    "bfloat16": (torch.bfloat16, torch.int16, np.uint16),
+    "float8_e4m3fn": (torch.float8_e4m3fn, torch.uint8, np.uint8),
+    "float8_e5m2": (torch.float8_e5m2, torch.uint8, np.uint8),
+    "float8_e4m3fnuz": (torch.float8_e4m3fnuz, torch.uint8, np.uint8),
+    "float8_e5m2fnuz": (torch.float8_e5m2fnuz, torch.uint8, np.uint8),
+}
+_BIT_VIEW_NAMES = {d: name for name, (d, _, _) in _BIT_VIEW_DTYPES.items()}
+
+
 def _to_numpy(value):
-    """(array, logical dtype or None): bf16 goes to disk as its uint16
-    bit view with the dtype in the manifest, as the JAX package stores
-    ml_dtypes arrays."""
+    """(array, logical dtype or None): a bf16 or fp8 tensor goes to disk
+    as its unsigned integer bit view with the dtype's name in the
+    manifest."""
     if isinstance(value, torch.Tensor):
         t = value.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        name = _BIT_VIEW_NAMES.get(t.dtype)
+        if name is not None:
+            _, view, np_view = _BIT_VIEW_DTYPES[name]
+            return t.view(view).numpy().view(np_view), name
         return t.numpy(), None
     return np.asarray(value), None
 
 
 def _from_numpy(arr: np.ndarray, logical: Optional[str], device):
     if logical:
-        if logical != "bfloat16":
+        if logical not in _BIT_VIEW_DTYPES:
             raise NotImplementedError(
-                f"saved dtype {logical!r} is not ported to paddle_tpu_torch "
-                "(bf16 is); see ROADMAP.md Queue 1 item 5")
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
-        return t.view(torch.bfloat16).to(device)
+                f"saved dtype {logical!r} has no torch counterpart in "
+                f"paddle_tpu_torch (it reads {sorted(_BIT_VIEW_DTYPES)})")
+        dtype, view, np_view = _BIT_VIEW_DTYPES[logical]
+        bits = np.ascontiguousarray(arr).view(np_view)
+        if view == torch.int16:  # torch has no uint16 view
+            bits = bits.view(np.int16)
+        return torch.from_numpy(bits).view(dtype).to(device)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 

@@ -19,7 +19,9 @@ replaces, each launched through ``pl.pallas_call``, all in
   [+ residual]) in one read and one write of [R, O].
 
 Each kernel has two instances, chosen by x's dtype, as the Pallas
-kernels take either:
+kernels take either, and the two GEMM kernels a third, chosen by the
+precision policy (``ops/common.py``), as the Pallas bodies take
+``precision``:
 
 - f32 (AMP off): the two GEMM kernels do 2*R*I*O FLOPs on
   4*(R*I + I*O + R*O) bytes: bound by operations once I and O reach 128,
@@ -27,7 +29,21 @@ kernels take either:
   3xTF32 ``wgmma`` (f32 accuracy: each operand split into a tf32 hi and
   lo, three products summed), W split once per launch by a pre-pass, x
   split by the thread that reads it, sharing one main loop over a ring
-  of 32-deep K stages.
+  of 32-deep K stages. That is the instance of the policies ``high`` and
+  ``highest``.
+- 1xTF32 (f32 operands under the policy ``default``, the Pallas bodies'
+  ``precision=None``: the backend's fast path, as XLA's ``DEFAULT`` on
+  this card): the same kernel with each operand rounded once to tf32
+  (round to nearest, ties away from zero, as ``cvt.rna.tf32.f32``: x by
+  the thread that reads it, W by its pre-pass, which writes only the
+  rounded copy) and one ``wgmma`` a k8 step. The statistics, the
+  epilogue and the tile plan are the 3xTF32 instance's. At the tensor
+  cores' dense TF32 rate (494.7 TFLOP/s) the ridge is ~148 FLOP/byte,
+  about I*O/(2(I+O)) at large R: bound by bytes at ResNet-50's shapes
+  with I or O <= 256, by operations at 512 x 1024 and up. Its plain
+  version
+  (``*_tf32_reference``) rounds the operands the same way and multiplies
+  them in f32.
 - bf16 (AMP on, ``ops/common.py``): x and W in bf16, scale and shift in
   f32, a residual in bf16 or f32 (the transpiled serving program's
   BN-folded shortcuts add an f32 bias), the output in bf16. One bf16
@@ -61,9 +77,13 @@ back to XLA when ``_pick_block_r`` finds no tile.
 Every wrapper dispatches on the tensor's device: a CPU tensor runs the
 plain version (``*_reference``), a meta tensor (build-time shape
 inference) runs it too and computes nothing, and a CUDA tensor launches
-the instance of its dtypes or raises, naming them. ``conv1x1_stats.launches``,
-``conv1x1_epilogue.launches`` and ``scale_shift_act.launches`` count the
-f32 instances' launches, ``.bf16_launches`` the bf16 ones'.
+the instance of its dtypes (and, for f32, of the policy) or raises,
+naming them. ``conv1x1_stats.launches``, ``conv1x1_epilogue.launches``
+and ``scale_shift_act.launches`` count the f32 instances' launches (the
+GEMMs' 3xTF32 ones), ``conv1x1_stats.tf32_launches`` and
+``conv1x1_epilogue.tf32_launches`` the 1xTF32 ones, ``.bf16_launches``
+the bf16 ones. On the CPU every policy runs the f32 plain version, as
+XLA's CPU backend computes every precision in f32.
 """
 from __future__ import annotations
 
@@ -98,6 +118,12 @@ class TilePlan(NamedTuple):
     def wt_shape(self) -> Tuple[int, int, int]:
         """W's hi and lo copies, transposed and padded."""
         return (2, self.o_pad, self.i_pad)
+
+    @property
+    def wt_shape_tf32(self) -> Tuple[int, int, int]:
+        """W's rounded copy (the 1xTF32 instance), transposed and
+        padded."""
+        return (1, self.o_pad, self.i_pad)
 
     def partial_shape(self, O: int) -> Tuple[int, int, int]:
         """Per-row-tile BN sums of ``conv1x1_stats``."""
@@ -189,6 +215,43 @@ def scale_shift_act_reference(y_raw, scale, shift, residual=None, act=None):
     return _affine_act(y_raw, scale, shift, residual, act).to(y_raw.dtype)
 
 
+# The 1xTF32 instance's plain versions: each f32 operand rounded to tf32
+# as the kernels round it, then an f32 product (the products of two tf32
+# values are exact in f32; only the order of the f32 sums differs from
+# the tensor cores'). For holding the kernels on the card, not for the
+# main path, which runs the kernels there and the f32 product on the CPU.
+def round_tf32(t):
+    """f32 ``t`` rounded to tf32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds: +0x1000 on the bit pattern
+    and the low 13 bits cleared (a carry into the exponent is the right
+    rounding, up to infinity past the largest tf32). NaN stays NaN."""
+    bits = t.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (bits + 0x1000) & 0xFFFFE000
+    r = torch.where(r >= 2**31, r - 2**32, r).to(torch.int32)
+    return torch.where(torch.isnan(t), t, r.view(torch.float32))
+
+
+def _tf32_product(x2, w):
+    from ..ops.common import library_precision
+
+    with library_precision(False):
+        return torch.matmul(round_tf32(x2), round_tf32(w))
+
+
+def conv1x1_stats_tf32_reference(x2, w):
+    """``conv1x1_stats_reference`` of f32 operands with the 1xTF32
+    kernel's rounding."""
+    y = _tf32_product(x2, w)
+    return y, torch.stack([y.sum(0), (y * y).sum(0)])
+
+
+def conv1x1_epilogue_tf32_reference(x2, w, scale, shift, residual=None,
+                                    act=None):
+    """``conv1x1_epilogue_reference`` of f32 operands with the 1xTF32
+    kernel's rounding."""
+    return _affine_act(_tf32_product(x2, w), scale, shift, residual, act)
+
+
 # --- the CUDA launches ------------------------------------------------------
 _ARGTYPES = {
     # x, w, wt, y, partial, stats, R, I, O, bn, stream
@@ -197,6 +260,11 @@ _ARGTYPES = {
     # x, w, wt, scale, shift, residual, out, slice_out, R, I, O, relu, bn,
     # slices, slice_steps, stream
     "paddle_conv1x1_epilogue_f32": [ctypes.c_void_p] * 8
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    # the 1xTF32 instances take the 3xTF32 ones' arguments
+    "paddle_conv1x1_stats_tf32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    "paddle_conv1x1_epilogue_tf32": [ctypes.c_void_p] * 8
     + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     # y, scale, shift, residual, out, R (long long), O, relu, stream
     "paddle_scale_shift_act_f32": [ctypes.c_void_p] * 5
@@ -336,16 +404,17 @@ def _launch_stats_bf16(x2, w):
     return y, stats
 
 
-def _launch_stats(x2, w):
+def _launch_stats(x2, w, tf32=False):
     _check("conv1x1_stats", x2, w)
     if x2.dtype == torch.bfloat16:
         return _launch_stats_bf16(x2, w)
     (R, I), O = x2.shape, w.shape[1]
-    lib, fn = _bind("paddle_conv1x1_stats_f32")
+    lib, fn = _bind("paddle_conv1x1_stats_tf32" if tf32 else
+                    "paddle_conv1x1_stats_f32")
     dev = x2.device
     x2, w = _aligned(x2), _aligned(w)
     plan = tile_plan(R, I, O)
-    wt = _empty(plan.wt_shape, dev)
+    wt = _empty(plan.wt_shape_tf32 if tf32 else plan.wt_shape, dev)
     partial = _empty(plan.partial_shape(O), dev)
     y = _empty((R, O), dev)
     stats = _empty((2, O), dev)
@@ -354,7 +423,10 @@ def _launch_stats(x2, w):
                  partial.data_ptr(), stats.data_ptr(), R, I, O, plan.bn,
                  _stream(dev))
     _raise_on(lib, err, "conv1x1_stats")
-    conv1x1_stats.launches += 1
+    if tf32:
+        conv1x1_stats.tf32_launches += 1
+    else:
+        conv1x1_stats.launches += 1
     return y, stats
 
 
@@ -383,18 +455,19 @@ def _launch_epilogue_bf16(x2, w, scale, shift, residual, act):
     return out
 
 
-def _launch_epilogue(x2, w, scale, shift, residual, act):
+def _launch_epilogue(x2, w, scale, shift, residual, act, tf32=False):
     scale, shift = _f32_vec(scale), _f32_vec(shift)
     _check("conv1x1_epilogue", x2, w, (scale, shift), residual)
     if x2.dtype == torch.bfloat16:
         return _launch_epilogue_bf16(x2, w, scale, shift, residual, act)
     (R, I), O = x2.shape, w.shape[1]
-    lib, fn = _bind("paddle_conv1x1_epilogue_f32")
+    lib, fn = _bind("paddle_conv1x1_epilogue_tf32" if tf32 else
+                    "paddle_conv1x1_epilogue_f32")
     dev = x2.device
     x2, w = _aligned(x2), _aligned(w)
     res = None if residual is None else _aligned(residual)
     plan = tile_plan(R, I, O, split_k=True)
-    wt = _empty(plan.wt_shape, dev)
+    wt = _empty(plan.wt_shape_tf32 if tf32 else plan.wt_shape, dev)
     slices = _empty(plan.slices_shape(R, O), dev)
     out = _empty((R, O), dev)
     with torch.cuda.device(dev):
@@ -403,7 +476,10 @@ def _launch_epilogue(x2, w, scale, shift, residual, act):
                  out.data_ptr(), _ptr(slices), R, I, O, int(act == "relu"),
                  plan.bn, plan.slices, plan.slice_steps, _stream(dev))
     _raise_on(lib, err, "conv1x1_epilogue")
-    conv1x1_epilogue.launches += 1
+    if tf32:
+        conv1x1_epilogue.tf32_launches += 1
+    else:
+        conv1x1_epilogue.launches += 1
     return out
 
 
@@ -444,24 +520,35 @@ def _plain_device(t):
     return False
 
 
+def _tf32_instance(x2):
+    """True where f32 operands take the 1xTF32 instance: the policy is
+    ``default``."""
+    from ..ops.common import mxu_precision
+
+    return x2.dtype == torch.float32 and mxu_precision() is None
+
+
 # --- the wrappers -----------------------------------------------------------
 def conv1x1_stats(x2, w):
     """(y_raw = x2 @ w [R, O] in x2's dtype, stats [2, O] f32 = (sum y,
-    sum y*y) of the f32 product): the CUDA kernels for a CUDA tensor, the
-    plain version for a CPU or meta one."""
+    sum y*y) of the f32 product): the CUDA kernels for a CUDA tensor (f32
+    in 1xTF32 under the policy ``default``, 3xTF32 otherwise), the plain
+    version for a CPU or meta one."""
     if _plain_device(x2):
         return conv1x1_stats_reference(x2, w)
-    return _launch_stats(x2, w)
+    return _launch_stats(x2, w, _tf32_instance(x2))
 
 
 def conv1x1_epilogue(x2, w, scale, shift, residual=None, act=None):
     """act((x2 @ w) * scale + shift [+ residual]) in x2's dtype with the
-    raw product never written: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU or meta one. scale/shift are the folded BN
-    affine ([O] f32)."""
+    raw product never written: the CUDA kernel for a CUDA tensor (f32 in
+    1xTF32 under the policy ``default``, 3xTF32 otherwise), the plain
+    version for a CPU or meta one. scale/shift are the folded BN affine
+    ([O] f32)."""
     if _plain_device(x2):
         return conv1x1_epilogue_reference(x2, w, scale, shift, residual, act)
-    return _launch_epilogue(x2, w, scale, shift, residual, act)
+    return _launch_epilogue(x2, w, scale, shift, residual, act,
+                            _tf32_instance(x2))
 
 
 def scale_shift_act(y_raw, scale, shift, residual=None, act=None):
@@ -473,8 +560,10 @@ def scale_shift_act(y_raw, scale, shift, residual=None, act=None):
     return _launch_apply(y_raw, scale, shift, residual, act)
 
 
-# launches of the f32 instances (.launches) and of the bf16 ones
+# launches of the f32 instances (.launches: the GEMMs' 3xTF32 ones), of
+# the GEMMs' 1xTF32 ones (.tf32_launches) and of the bf16 ones
 for _wrapper in (conv1x1_stats, conv1x1_epilogue, scale_shift_act):
     _wrapper.launches = 0
     _wrapper.bf16_launches = 0
+conv1x1_stats.tf32_launches = conv1x1_epilogue.tf32_launches = 0
 del _wrapper

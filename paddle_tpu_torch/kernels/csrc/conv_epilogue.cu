@@ -66,6 +66,17 @@
 // scale_shift_act does 2-4 FLOPs a value and is bound by bytes: float4
 // loads and stores when O % 4 == 0.
 //
+// The 1xTF32 instance (conv1x1_tf32_kernel; the precision policy
+// default, the Pallas kernels' precision=None, XLA's DEFAULT on this
+// card): the same tiles, ring, epilogue and statistics (gemm_tile), with
+// x rounded once to tf32 by the thread that reads it (split's hi: round
+// to nearest, ties away from zero, as cvt.rna), W's pre-pass
+// (round_w_kernel) writing the rounded copy alone, and one wgmma a k8
+// step: a third of the products and half of W's bytes a stage. At the
+// dense TF32 rate (494.7 TFLOP/s) the ridge is ~148 FLOP/byte, about
+// I*O/(2(I+O)) at large R: bound by bytes at ResNet-50's shapes with I or
+// O <= 256.
+//
 // The bf16 instances (AMP: the JAX package's bf16 products on f32 master
 // weights) take x and W in bf16, scale and shift in f32, a residual in bf16
 // or f32, and write y / out in bf16; partial sums and statistics stay f32.
@@ -175,18 +186,23 @@ __device__ __forceinline__ void store1(bf16* p, float v) {
 // stages come the ring's barriers: full[s] (the stage's copies have
 // landed) and empty[s] (every thread is done with it). (W's tiles without
 // a swizzle, in 128-byte core matrices 128 and 1024 bytes apart, made the
-// kernel markedly slower: those share banks.)
-template <int BN>
+// kernel markedly slower: those share banks.) X3: the 3xTF32 instance's
+// stage holds W's hi and lo tiles, the 1xTF32 instance's W's rounded tile
+// alone.
+template <int BN, bool X3>
 struct Ring {
   static constexpr int STAGES = BN == 128 ? 4 : 3;
   static constexpr int A = BM * BK;
   static constexpr int B = BN * BK;
-  static constexpr int STAGE = A + 2 * B;
+  static constexpr int NW = X3 ? 2 : 1;  // W tiles a stage
+  static constexpr int STAGE = A + NW * B;
   static constexpr int BARRIERS = STAGES * STAGE * 4;  // byte offset
   static constexpr int BYTES = BARRIERS + 2 * STAGES * 8;
   // the epilogue's staged tile and the stats' per-warp sums reuse it
   static_assert(BM * (BN + 8) + 2 * NWARPS * BN <= STAGES * STAGE,
                 "the epilogue must fit the ring");
+  static_assert(STAGE * 4 % 1024 == 0 && A * 4 % 1024 == 0,
+                "stages and W's tiles must keep the swizzle's alignment");
 };
 
 // x's K steps [k0, k0 + BK) of this block's rows into an A tile, 4 bytes
@@ -207,20 +223,19 @@ __device__ __forceinline__ void copy_a(float* dst, const float* __restrict__ x,
 // of slice blockIdx.y. kStats: y and this row tile's column sums into
 // partial[tile, 2, O]. kAffine: act(y * scale + shift [+ residual]), or,
 // with scale null (a split K), the raw slice into out + slice * R * O.
-template <int BN, bool TMA_A, int EPI>
-__global__ void __launch_bounds__(NTHREADS, BN == 128 ? 1 : 2)
-conv1x1_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
-                      const __grid_constant__ CUtensorMap wmap,
-                      const float* __restrict__ x,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ shift,
-                      const float* __restrict__ residual,
-                      float* __restrict__ out, float* __restrict__ partial,
-                      int R, int I, int O, int i_pad, int o_pad,
-                      int slice_steps, int relu) {
-  using L = Ring<BN>;
+// X3: 3xTF32 (x split into hi and lo as it is read, W's hi and lo tiles,
+// three products a k8 step); else 1xTF32, the Pallas kernels'
+// precision=None (x rounded to tf32 as it is read, W's rounded tile, one
+// product a k8 step). Everything after the products is shared.
+template <int BN, bool TMA_A, int EPI, bool X3>
+__device__ __forceinline__ void gemm_tile(
+    const CUtensorMap& xmap, const CUtensorMap& wmap, float* smem,
+    const float* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ shift, const float* __restrict__ residual,
+    float* __restrict__ out, float* __restrict__ partial, int R, int I, int O,
+    int i_pad, int o_pad, int slice_steps, int relu) {
+  using L = Ring<BN, X3>;
   constexpr int NACC = BN / 2;
-  extern __shared__ __align__(1024) float smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(
       reinterpret_cast<char*>(smem) + L::BARRIERS);
   uint64_t* empty = full + L::STAGES;
@@ -253,10 +268,10 @@ conv1x1_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
     uint64_t* bar = &full[i % L::STAGES];
     const int k0 = (step0 + i) * BK;
     if (threadIdx.x == 0) {
-      mbar_expect(bar, (TMA_A ? L::A * 4 : 0) + 2 * L::B * 4);
+      mbar_expect(bar, (TMA_A ? L::A * 4 : 0) + L::NW * L::B * 4);
       if (TMA_A) tma_load(st, &xmap, k0, row0, bar);
       tma_load(st + L::A, &wmap, k0, col0, bar);
-      tma_load(st + L::A + L::B, &wmap, k0, o_pad + col0, bar);
+      if (X3) tma_load(st + L::A + L::B, &wmap, k0, o_pad + col0, bar);
     }
     if (!TMA_A) {
       copy_a(st, x, R, I, row0, k0);
@@ -294,14 +309,16 @@ conv1x1_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
       split(v1.w, ahi[2 * u + 1][3], alo[2 * u + 1][3]);
     }
     const uint64_t dhi = sw128_desc(st + L::A),
-                   dlo = sw128_desc(st + L::A + L::B);
+                   dlo = X3 ? sw128_desc(st + L::A + L::B) : 0;
     wgmma_fence();
 #pragma unroll
     for (int s = 0; s < BK / 8; ++s) {
       const uint64_t step = s * (32 >> 4);
-      Wgmma<BN>::mma(part, alo[s], dhi + step, s);  // s == 0: fresh
-      Wgmma<BN>::mma(part, ahi[s], dlo + step, 1);
-      Wgmma<BN>::mma(part, ahi[s], dhi + step, 1);
+      if (X3) {
+        Wgmma<BN>::mma(part, alo[s], dhi + step, s);  // s == 0: fresh
+        Wgmma<BN>::mma(part, ahi[s], dlo + step, 1);
+      }
+      Wgmma<BN>::mma(part, ahi[s], dhi + step, X3 || s > 0);
     }
     wgmma_commit();
 
@@ -412,14 +429,44 @@ conv1x1_tf32x3_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+#define GEMM_PARAMS                                                       \
+  const __grid_constant__ CUtensorMap xmap,                               \
+      const __grid_constant__ CUtensorMap wmap,                           \
+      const float* __restrict__ x, const float* __restrict__ scale,       \
+      const float* __restrict__ shift, const float* __restrict__ residual, \
+      float* __restrict__ out, float* __restrict__ partial, int R, int I, \
+      int O, int i_pad, int o_pad, int slice_steps, int relu
+#define GEMM_ARGS                                                         \
+  xmap, wmap, smem, x, scale, shift, residual, out, partial, R, I, O,     \
+      i_pad, o_pad, slice_steps, relu
+
+// The two instances, each a kernel of its own name: 3xTF32 (f32
+// accurate: the policies high and highest) and 1xTF32 (default).
+template <int BN, bool TMA_A, int EPI>
+__global__ void __launch_bounds__(NTHREADS, BN == 128 ? 1 : 2)
+conv1x1_tf32x3_kernel(GEMM_PARAMS) {
+  extern __shared__ __align__(1024) float smem[];
+  gemm_tile<BN, TMA_A, EPI, true>(GEMM_ARGS);
+}
+
+template <int BN, bool TMA_A, int EPI>
+__global__ void __launch_bounds__(NTHREADS, BN == 128 ? 1 : 2)
+conv1x1_tf32_kernel(GEMM_PARAMS) {
+  extern __shared__ __align__(1024) float smem[];
+  gemm_tile<BN, TMA_A, EPI, false>(GEMM_ARGS);
+}
+
 // wt[h][n][p] for h = 0 (hi), 1 (lo), n < o_pad, p < i_pad: the split of
 // w[k][n] (0 past I or O), K-major, with k permuted inside each 16-deep
 // block as the main loop's A fragments read x: position 16u + 8h' + q
 // holds k = 16u + 4 (q % 4) + 2h' + q / 4. One 32 x 32 tile per block of
 // 32 x 8 threads, transposed through shared memory.
-__global__ void split_w_kernel(const float* __restrict__ w,
-                               float* __restrict__ wt, int I, int O,
-                               int i_pad, int o_pad) {
+// X3 false (round_w_kernel): wt[0] alone, w rounded to tf32 as the main
+// loop rounds x.
+template <bool X3>
+__device__ __forceinline__ void prepare_w(const float* __restrict__ w,
+                                          float* __restrict__ wt, int I,
+                                          int O, int i_pad, int o_pad) {
   __shared__ float tile[32][33];
   const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -435,8 +482,20 @@ __global__ void split_w_kernel(const float* __restrict__ w,
     split(tile[kl][ny], hi, lo);
     const size_t at = (size_t)(n0 + ny) * i_pad + k0 + tx;
     wt[at] = __uint_as_float(hi);
-    wt[(size_t)o_pad * i_pad + at] = __uint_as_float(lo);
+    if (X3) wt[(size_t)o_pad * i_pad + at] = __uint_as_float(lo);
   }
+}
+
+__global__ void split_w_kernel(const float* __restrict__ w,
+                               float* __restrict__ wt, int I, int O,
+                               int i_pad, int o_pad) {
+  prepare_w<true>(w, wt, I, O, i_pad, o_pad);
+}
+
+__global__ void round_w_kernel(const float* __restrict__ w,
+                               float* __restrict__ wt, int I, int O,
+                               int i_pad, int o_pad) {
+  prepare_w<false>(w, wt, I, O, i_pad, o_pad);
 }
 
 // stats[s, c] = sum over row tiles t, in order, of partial[t, s, c]. Block
@@ -526,16 +585,20 @@ bool plan_ok(int I, int bk, int bn, int slices, int slice_steps) {
          (slices == 1 || (long long)(slices - 1) * slice_steps < k_steps);
 }
 
-cudaError_t split_w(const float* w, float* wt, int I, int O, int bn,
-                    cudaStream_t s) {
+// W's pre-pass: its hi and lo copies (x3) or its rounded copy alone.
+cudaError_t prepare_w(const float* w, float* wt, int I, int O, int bn,
+                      bool x3, cudaStream_t s) {
   const int i_pad = pad_to(I, BK), o_pad = pad_to(O, bn);
   if (i_pad == 0) return cudaSuccess;
-  split_w_kernel<<<dim3(i_pad / 32, o_pad / 32), dim3(32, 8), 0, s>>>(
-      w, wt, I, O, i_pad, o_pad);
+  const dim3 grid(i_pad / 32, o_pad / 32), block(32, 8);
+  if (x3)
+    split_w_kernel<<<grid, block, 0, s>>>(w, wt, I, O, i_pad, o_pad);
+  else
+    round_w_kernel<<<grid, block, 0, s>>>(w, wt, I, O, i_pad, o_pad);
   return cudaGetLastError();
 }
 
-template <int BN, int EPI>
+template <int BN, int EPI, bool X3>
 cudaError_t launch_gemm(const float* x, const float* wt, const float* scale,
                         const float* shift, const float* residual, float* out,
                         float* partial, int R, int I, int O, int slices,
@@ -553,33 +616,57 @@ cudaError_t launch_gemm(const float* x, const float* wt, const float* scale,
                        BK, BM, false);
     if (err == cudaSuccess)
       err = tensor_map(&wmap, wt, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, i_pad,
-                       2 * o_pad, i_pad, BK, BN, true);
+                       Ring<BN, X3>::NW * o_pad, i_pad, BK, BN, true);
     if (err != cudaSuccess) return err;
   }
-  auto kernel = va ? conv1x1_tf32x3_kernel<BN, true, EPI>
-                   : conv1x1_tf32x3_kernel<BN, false, EPI>;
+  auto kernel = X3 ? (va ? conv1x1_tf32x3_kernel<BN, true, EPI>
+                         : conv1x1_tf32x3_kernel<BN, false, EPI>)
+                   : (va ? conv1x1_tf32_kernel<BN, true, EPI>
+                         : conv1x1_tf32_kernel<BN, false, EPI>);
+  constexpr int bytes = Ring<BN, X3>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<BN>::BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NTHREADS, Ring<BN>::BYTES, stream>>>(
+  kernel<<<grid, NTHREADS, bytes, stream>>>(
       xmap, wmap, x, scale, shift, residual, out, partial, R, I, O, i_pad,
       o_pad, slice_steps, relu);
   return cudaGetLastError();
 }
 
-template <int EPI>
+template <int EPI, bool X3>
 cudaError_t launch_gemm_bn(int bn, const float* x, const float* wt,
                         const float* scale, const float* shift,
                         const float* residual, float* out, float* partial,
                         int R, int I, int O, int slices, int slice_steps,
                         int relu, cudaStream_t stream) {
   return bn == 64
-             ? launch_gemm<64, EPI>(x, wt, scale, shift, residual, out,
-                                    partial, R, I, O, slices, slice_steps,
-                                    relu, stream)
-             : launch_gemm<128, EPI>(x, wt, scale, shift, residual, out,
-                                     partial, R, I, O, slices, slice_steps,
-                                     relu, stream);
+             ? launch_gemm<64, EPI, X3>(x, wt, scale, shift, residual, out,
+                                        partial, R, I, O, slices,
+                                        slice_steps, relu, stream)
+             : launch_gemm<128, EPI, X3>(x, wt, scale, shift, residual, out,
+                                         partial, R, I, O, slices,
+                                         slice_steps, relu, stream);
+}
+
+// y = x . w and stats [2, O], 3xTF32 (x3) or 1xTF32: W's pre-pass, the
+// GEMM with the statistics' per-tile sums, their fixed-order reduction.
+template <bool X3>
+int stats_f32(const float* x, const float* w, float* wt, float* y,
+              float* partial, float* stats, int R, int I, int O, int bn,
+              void* stream) {
+  if (R <= 0 || O <= 0) return (int)cudaSuccess;
+  const int k_steps = pad_to(I, BK) / BK;
+  if (!plan_ok(I, BK, bn, 1, k_steps)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = prepare_w(w, wt, I, O, bn, X3, s);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm_bn<kStats, X3>(bn, x, wt, nullptr, nullptr, nullptr, y,
+                                   partial, R, I, O, 1, k_steps, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((O + RED_X - 1) / RED_X, 2);
+  stats_reduce_kernel<<<grid, dim3(RED_X, RED_Y), 0, s>>>(
+      partial, stats, (R + BM - 1) / BM, O);
+  return (int)cudaGetLastError();
 }
 
 template <typename TY, typename TR, typename TO>
@@ -608,6 +695,33 @@ cudaError_t launch_apply(const TY* y, int slices, const float* scale,
         y, 1, scale, shift, residual, out, n, O, relu);
   }
   return cudaGetLastError();
+}
+
+// out = act((x . w) * scale + shift [+ residual]), 3xTF32 (x3) or
+// 1xTF32; a split K's slices go through slice_out and scale_shift_act.
+template <bool X3>
+int epilogue_f32(const float* x, const float* w, float* wt,
+                 const float* scale, const float* shift,
+                 const float* residual, float* out, float* slice_out, int R,
+                 int I, int O, int relu, int bn, int slices, int slice_steps,
+                 void* stream) {
+  if (R <= 0 || O <= 0) return (int)cudaSuccess;
+  if (!plan_ok(I, BK, bn, slices, slice_steps) ||
+      (slices > 1 && slice_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = prepare_w(w, wt, I, O, bn, X3, s);
+  if (err != cudaSuccess) return (int)err;
+  if (slices == 1)
+    return (int)launch_gemm_bn<kAffine, X3>(bn, x, wt, scale, shift,
+                                            residual, out, nullptr, R, I, O,
+                                            1, slice_steps, relu, s);
+  err = launch_gemm_bn<kAffine, X3>(bn, x, wt, nullptr, nullptr, nullptr,
+                                    slice_out, nullptr, R, I, O, slices,
+                                    slice_steps, 0, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_apply(slice_out, slices, scale, shift, residual, out, R,
+                           O, relu, s);
 }
 
 // --- the bf16 instances ----------------------------------------------------
@@ -1071,7 +1185,14 @@ extern "C" int paddle_conv1x1_blocks_per_sm_bf16() {
   return BF16_BLOCKS_PER_SM;
 }
 extern "C" int paddle_conv1x1_smem_bytes(int bn) {
-  return bn == 64 ? Ring<64>::BYTES : bn == 128 ? Ring<128>::BYTES : -1;
+  return bn == 64    ? Ring<64, true>::BYTES
+         : bn == 128 ? Ring<128, true>::BYTES
+                     : -1;
+}
+extern "C" int paddle_conv1x1_smem_bytes_tf32(int bn) {
+  return bn == 64    ? Ring<64, false>::BYTES
+         : bn == 128 ? Ring<128, false>::BYTES
+                     : -1;
 }
 extern "C" int paddle_conv1x1_smem_bytes_bf16(int bn) {
   return bn == 64 ? RingBf16<64>::BYTES
@@ -1085,19 +1206,15 @@ extern "C" int paddle_conv1x1_stats_f32(const float* x, const float* w,
                                         float* wt, float* y, float* partial,
                                         float* stats, int R, int I, int O,
                                         int bn, void* stream) {
-  if (R <= 0 || O <= 0) return (int)cudaSuccess;
-  const int k_steps = pad_to(I, BK) / BK;
-  if (!plan_ok(I, BK, bn, 1, k_steps)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = split_w(w, wt, I, O, bn, s);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm_bn<kStats>(bn, x, wt, nullptr, nullptr, nullptr, y,
-                               partial, R, I, O, 1, k_steps, 0, s);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((O + RED_X - 1) / RED_X, 2);
-  stats_reduce_kernel<<<grid, dim3(RED_X, RED_Y), 0, s>>>(
-      partial, stats, (R + BM - 1) / BM, O);
-  return (int)cudaGetLastError();
+  return stats_f32<true>(x, w, wt, y, partial, stats, R, I, O, bn, stream);
+}
+
+// The same in 1xTF32 (the policy default); wt [1, pad(O, bn), pad(I, 32)].
+extern "C" int paddle_conv1x1_stats_tf32(const float* x, const float* w,
+                                         float* wt, float* y, float* partial,
+                                         float* stats, int R, int I, int O,
+                                         int bn, void* stream) {
+  return stats_f32<false>(x, w, wt, y, partial, stats, R, I, O, bn, stream);
 }
 
 // out = act((x . w) * scale + shift [+ residual]); residual may be null.
@@ -1108,23 +1225,19 @@ extern "C" int paddle_conv1x1_epilogue_f32(
     const float* shift, const float* residual, float* out, float* slice_out,
     int R, int I, int O, int relu, int bn, int slices, int slice_steps,
     void* stream) {
-  if (R <= 0 || O <= 0) return (int)cudaSuccess;
-  if (!plan_ok(I, BK, bn, slices, slice_steps) ||
-      (slices > 1 && slice_out == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = split_w(w, wt, I, O, bn, s);
-  if (err != cudaSuccess) return (int)err;
-  if (slices == 1)
-    return (int)launch_gemm_bn<kAffine>(bn, x, wt, scale, shift, residual, out,
-                                     nullptr, R, I, O, 1, slice_steps, relu,
-                                     s);
-  err = launch_gemm_bn<kAffine>(bn, x, wt, nullptr, nullptr, nullptr,
-                                slice_out, nullptr, R, I, O, slices,
-                                slice_steps, 0, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_apply(slice_out, slices, scale, shift, residual, out, R,
-                           O, relu, s);
+  return epilogue_f32<true>(x, w, wt, scale, shift, residual, out, slice_out,
+                            R, I, O, relu, bn, slices, slice_steps, stream);
+}
+
+// The same in 1xTF32 (the policy default); wt [1, pad(O, bn), pad(I, 32)].
+extern "C" int paddle_conv1x1_epilogue_tf32(
+    const float* x, const float* w, float* wt, const float* scale,
+    const float* shift, const float* residual, float* out, float* slice_out,
+    int R, int I, int O, int relu, int bn, int slices, int slice_steps,
+    void* stream) {
+  return epilogue_f32<false>(x, w, wt, scale, shift, residual, out,
+                             slice_out, R, I, O, relu, bn, slices,
+                             slice_steps, stream);
 }
 
 // out = act(y * scale + shift [+ residual]) over a contiguous [R, O].

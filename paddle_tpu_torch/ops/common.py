@@ -5,13 +5,29 @@ and training paths use. An op takes ``ins``, a dict of slot name -> [tensor], an
 returns the same shape of dict, so it is called exactly like its JAX
 twin.
 
-Precision: with ``--use_amp`` off (the default) every op computes in f32.
-Matrix products run in full f32: PyTorch leaves
-``torch.backends.cuda.matmul.allow_tf32`` off unless a caller turns it
-on. Convolutions would not: PyTorch runs f32 convolutions through cuDNN
-in TF32 by default (``torch.backends.cudnn.allow_tf32`` is True), so
-``conv2d`` (``ops/nn_ops.py``) turns it off around its forward and its
-backward (``full_f32_convolutions``), whatever the caller has set.
+Contraction precision, the JAX package's ``mxu_precision`` policy: a
+tri-state that follows ``--mxu_precision`` (flags.py) until
+``set_mxu_precision`` is called, and then what that call set. Every
+product of f32 operands on the card takes it (``matmul``,
+``product_precision``: ``mul``, ``matmul``, the convolutions, the LM's
+blocks and head, the recurrent steps, the fused conv's gradients), and
+the conv GEMM kernels choose their instance by it
+(``kernels/conv_epilogue.py``):
+
+- ``default`` (``None``): the backend's fast path, as XLA's ``DEFAULT``
+  on this card: cuBLAS and cuDNN may run f32 products in TF32, and the
+  conv GEMM kernels run their 1xTF32 instance;
+- ``high``: f32-accurate: full f32 library products, the 3xTF32 kernels
+  (the analogue of the TPU's bf16_3x). torch offers no 3xTF32 GEMM, so
+  ``high`` and ``highest`` coincide for library products on the card;
+- ``highest``: full f32 (IEEE) library products, the 3xTF32 kernels.
+
+The backend switches are set around each product and given back after
+it (``library_precision``), never for the process. On the CPU every
+policy computes in full f32, as XLA's CPU backend does, so the CPU runs
+match the JAX package's f32 results under any policy. The flash kernels
+take no policy (the Pallas kernels pass none to their dots): the f32
+trio is 3xTF32 under all three.
 
 Mixed precision (AMP), the JAX package's policy: bf16 operands for the
 products, f32 master weights. With AMP on (``set_amp(True)``, or
@@ -29,10 +45,38 @@ import numbers
 import torch
 
 
-# Tri-state: _UNSET defers to --use_amp (flags.py), so a flag flip takes
-# effect; an explicit set_amp() wins over the flag.
+# Tri-state: _UNSET defers to --use_amp and --mxu_precision (flags.py),
+# so a flag flip takes effect; an explicit set_amp() or
+# set_mxu_precision() wins over the flag.
 _UNSET = object()
 _AMP = _UNSET
+_MXU_PRECISION = _UNSET
+_PRECISIONS = {None: None, "default": None, "high": "high",
+               "highest": "highest"}
+
+
+def _precision(p):
+    try:
+        return _PRECISIONS[p]
+    except (KeyError, TypeError):
+        raise ValueError(f"mxu precision must be one of None, 'default', "
+                         f"'high', 'highest'; got {p!r}") from None
+
+
+def set_mxu_precision(p):
+    """Set contraction precision globally: None/'default' | 'high' |
+    'highest'."""
+    global _MXU_PRECISION
+    _MXU_PRECISION = _precision(p)
+
+
+def mxu_precision(*_tensors):
+    """The policy in force: None (default), 'high' or 'highest'."""
+    if _MXU_PRECISION is _UNSET:
+        from ..flags import FLAGS
+
+        return _precision(FLAGS.mxu_precision)
+    return _MXU_PRECISION
 
 
 def set_amp(enabled: bool):
@@ -46,6 +90,12 @@ def amp_enabled() -> bool:
 
         return FLAGS.use_amp
     return _AMP
+
+
+def policy_key() -> tuple:
+    """The policies a captured CUDA graph depends on: it replays the
+    casts and the library math modes it recorded."""
+    return (("amp", amp_enabled()), ("mxu_precision", mxu_precision()))
 
 
 def amp_cast(*tensors):
@@ -73,50 +123,101 @@ def f32_accumulation():
         flags.allow_bf16_reduced_precision_reduction = prev
 
 
-class _Bf16Matmul(torch.autograd.Function):
-    """``torch.matmul`` of 16-bit operands whose forward and backward both
-    run under ``f32_accumulation``: the generic grad op differentiates
-    the op after the forward's context has closed, so the backward sets
-    it again itself. A 2-D ``w`` folds x's leading dims into one product
-    for dW, as a single ``dot_general`` contracts them."""
+@contextlib.contextmanager
+def library_precision(tf32: bool):
+    """cuBLAS and cuDNN f32 products in TF32 (``tf32``) or in full f32
+    inside the block, the caller's settings after it."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_tf32, torch.backends.cudnn.allow_tf32
+    mm.allow_tf32 = torch.backends.cudnn.allow_tf32 = bool(tf32)
+    try:
+        yield
+    finally:
+        mm.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def precision_mode(*tensors):
+    """How a product of these operands runs: "bf16" (f32 accumulation),
+    "tf32" or "f32" (an f32 product on the card, by the policy), or None
+    (the CPU computes every policy in f32)."""
+    dtypes = {t.dtype for t in tensors}
+    if torch.bfloat16 in dtypes:
+        return "bf16"
+    if torch.float32 in dtypes and any(t.is_cuda for t in tensors):
+        return "tf32" if mxu_precision() is None else "f32"
+    return None
+
+
+@contextlib.contextmanager
+def _in_mode(mode):
+    if mode == "bf16":
+        with f32_accumulation():
+            yield
+    elif mode is not None:
+        with library_precision(mode == "tf32"):
+            yield
+    else:
+        yield
+
+
+def product_precision(*tensors):
+    """The context a product of these operands runs in: bf16 operands
+    with f32 accumulation, f32 ones on the card in TF32 or full f32 by
+    the policy (``library_precision``), nothing on the CPU. A hand-written
+    backward sets it again itself."""
+    return _in_mode(precision_mode(*tensors))
+
+
+class _Matmul(torch.autograd.Function):
+    """``torch.matmul`` whose forward and backward both run in the
+    precision ``mode`` the forward was called under (``_in_mode``): the
+    generic grad op differentiates the op after the forward's context
+    has closed, so the backward sets it again itself. A 2-D ``w`` folds
+    x's leading dims into one product for dW, as a single
+    ``dot_general`` contracts them."""
 
     @staticmethod
-    def forward(x, w):
-        with f32_accumulation():
+    def forward(x, w, mode):
+        with _in_mode(mode):
             return torch.matmul(x, w)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        ctx.save_for_backward(*inputs)
+        ctx.save_for_backward(*inputs[:2])
+        ctx.mode = inputs[2]
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         gx = gw = None
-        with f32_accumulation():
+        with _in_mode(ctx.mode):
             if ctx.needs_input_grad[0]:
                 gx = torch.matmul(g, w.mT).sum_to_size(x.shape)
             if ctx.needs_input_grad[1]:
                 if w.ndim == 2:
-                    gw = (x.reshape(-1, x.shape[-1]).mT
-                          @ g.reshape(-1, g.shape[-1]))
+                    gw = torch.matmul(x.reshape(-1, x.shape[-1]).mT,
+                                      g.reshape(-1, g.shape[-1]))
                 else:
                     gw = torch.matmul(x.mT, g).sum_to_size(w.shape)
-        return gx, gw
+        return gx, gw, None
 
 
 def matmul(x, w):
-    """``torch.matmul(x, w)``; bf16 operands (AMP) of at least 2 dims are
-    multiplied with f32 accumulation and give bf16."""
-    if torch.bfloat16 in (x.dtype, w.dtype) and min(x.ndim, w.ndim) >= 2:
-        return _Bf16Matmul.apply(x, w)
-    return torch.matmul(x, w)
+    """``torch.matmul(x, w)`` in the precision of its operands: bf16
+    operands (AMP) of at least 2 dims are multiplied with f32
+    accumulation and give bf16; f32 operands on the card follow the
+    policy (``product_precision``)."""
+    mode = precision_mode(x, w)
+    if mode is not None and min(x.ndim, w.ndim) >= 2:
+        return _Matmul.apply(x, w, mode)
+    with _in_mode(mode):
+        return torch.matmul(x, w)
 
 
 @contextlib.contextmanager
 def full_f32_convolutions():
     """cuDNN with TF32 off inside the block, the caller's setting after
-    it."""
+    it (``conv2d`` under ``high`` and ``highest``, and on the CPU)."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:

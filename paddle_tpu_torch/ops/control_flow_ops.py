@@ -75,17 +75,17 @@ def beam_search_decoder(attrs, ins):
     def cell_step(tok, hs, cs):
         """One decoder cell step over the flattened [b*beam] rows."""
         x = emb[tok]  # [N, e]
-        gates_x = torch.matmul(x, wx)
+        gates_x = common.matmul(x, wx)
         if bias is not None:
             gates_x = gates_x + bias
         if cell_kind == "gru":
             gx, cx = gates_x[..., : 2 * h], gates_x[..., 2 * h:]
-            g = common.sigmoid(gx + torch.matmul(hs, wh[:, : 2 * h]))
+            g = common.sigmoid(gx + common.matmul(hs, wh[:, : 2 * h]))
             u, r = g[..., :h], g[..., h:]
-            cand = torch.tanh(cx + torch.matmul(r * hs, wh[:, 2 * h:]))
+            cand = torch.tanh(cx + common.matmul(r * hs, wh[:, 2 * h:]))
             new_h = (1.0 - u) * hs + u * cand
             return new_h, cs
-        gates = gates_x + torch.matmul(hs, wh)
+        gates = gates_x + common.matmul(hs, wh)
         gc, gi, gf, go = torch.chunk(gates, 4, dim=-1)
         c_new = (common.sigmoid(gf) * cs
                  + common.sigmoid(gi) * torch.tanh(gc))
@@ -109,7 +109,7 @@ def beam_search_decoder(attrs, ins):
     steps = torch.arange(max_len, device=dev)
     for t in range(max_len):
         new_h, new_c = cell_step(last.reshape(-1), hs, cs)
-        logits = torch.matmul(new_h, w_out)
+        logits = common.matmul(new_h, w_out)
         if b_out is not None:
             logits = logits + b_out
         logp = _log_softmax(logits.to(torch.float32)).reshape(b, beam, V)

@@ -84,8 +84,9 @@ def conv1x1_bn_act(attrs, ins):
 
 def _conv1x1_bn_act_grad(attrs, ins, outs, ogs):
     """Plain backward of the fused op: relu mask -> BN backward over the
-    saved raw conv output -> the two gradient products (``torch.matmul``,
-    outside any kernel, as the JAX package leaves them to XLA)."""
+    saved raw conv output -> the two gradient products (``matmul``, in
+    the precision policy's math, outside any kernel, as the JAX package
+    leaves them to XLA)."""
     x = single(ins, "X")
     w = single(ins, "Filter")
     scale = single(ins, "Scale")
@@ -120,7 +121,7 @@ def _conv1x1_bn_act_grad(attrs, ins, outs, ogs):
         # (that is its point): recompute it for the scale/bias grads, as
         # the kernel computes it (f32 product of the cast operands)
         x2c, wmc = amp_cast(x2, wm)
-        y_raw2 = torch.matmul(x2c.float(), wmc.float())
+        y_raw2 = matmul(x2c.float(), wmc.float())
         dz = dy2 * (sc * inv)
         xhat = (y_raw2 - sm) * inv
         dscale = (dy2 * xhat).sum(0)

@@ -106,7 +106,7 @@ def _fhce_chunk_logits(x2, w3, i, chunk, vocab):
     recompute shared by the forward's logsumexp and the backward's
     softmax (the saved LSE is valid for the backward only so)."""
     wck = w3[:, i]
-    logits = torch.matmul(x2.float(), wck.float())
+    logits = C.matmul(x2.float(), wck.float())
     valid = (i * chunk + torch.arange(chunk, device=x2.device)) < vocab
     return torch.where(valid[None, :], logits,
                        logits.new_full((), -math.inf)), wck
@@ -156,7 +156,7 @@ def _fhce_grad_chunk(x2, w3, i, chunk, vocab, lab, lse2, dl2,
         target = ((1.0 - smoothing) * target
                   + (smoothing / vocab) * valid)
     g = ((p - target) * dl2).to(x2.dtype).float()
-    return torch.matmul(g, wck.float().T), torch.matmul(x2.float().T, g)
+    return C.matmul(g, wck.float().T), C.matmul(x2.float().T, g)
 
 
 def _fused_head_ce_grad(attrs, ins, outs, ogs):

@@ -23,47 +23,56 @@ import torch.nn.functional as F
 
 from ..core import prng
 from ..core.registry import register_op
-from .common import (amp_cast, full_f32_convolutions, matmul, maybe,
-                     normalize_pair, out, single)
+from .common import (amp_cast, full_f32_convolutions, library_precision,
+                     matmul, maybe, normalize_pair, out, precision_mode,
+                     single)
 
 
 # --- conv2d -------------------------------------------------------------------
+def _conv_precision(tf32):
+    """cuDNN's math for an f32 convolution: TF32 under the ``default``
+    policy on the card, full f32 otherwise."""
+    return library_precision(True) if tf32 else full_f32_convolutions()
+
+
 class _Conv2dF32(torch.autograd.Function):
     """``F.conv2d`` over NCHW tensors (no bias) whose forward and backward
-    both run with cuDNN's TF32 off: the generic grad op differentiates
-    the op after the forward's context has closed, so the backward sets
-    it again itself. (bf16 operands under AMP are not affected: cuDNN
-    accumulates them in f32.)"""
+    both run in the precision the policy gave the forward (``tf32``):
+    the generic grad op differentiates the op after the forward's
+    context has closed, so the backward sets it again itself. (bf16
+    operands under AMP are not affected: cuDNN accumulates them in
+    f32.)"""
 
     @staticmethod
-    def forward(x, w, stride, padding, dilation, groups):
-        with full_f32_convolutions():
+    def forward(x, w, stride, padding, dilation, groups, tf32):
+        with _conv_precision(tf32):
             return F.conv2d(x, w, None, stride, padding, dilation, groups)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        x, w, *conf = inputs
+        x, w, *conf, tf32 = inputs
         ctx.save_for_backward(x, w)
-        ctx.conf = conf
+        ctx.conf, ctx.tf32 = conf, tf32
 
     @staticmethod
     def backward(ctx, gy):
         x, w = ctx.saved_tensors
         stride, padding, dilation, groups = ctx.conf
-        with full_f32_convolutions():
+        with _conv_precision(ctx.tf32):
             gx, gw, _ = torch.ops.aten.convolution_backward(
                 gy, x, w, None, stride, padding, dilation, False, [0, 0],
                 groups, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
                          False])
-        return gx, gw, None, None, None, None
+        return gx, gw, None, None, None, None, None
 
 
 @register_op("conv2d")
 def conv2d(attrs, ins):
-    """2-D convolution, full f32 (bf16 operands and output under AMP). A
-    1x1/stride-1 conv is a matmul over [B*H*W, I], as the JAX op lowers
-    it (``dot_general``); every other shape is ``F.conv2d`` (cuDNN on the
-    card) with TF32 off."""
+    """2-D convolution in f32 by the precision policy (``ops/common.py``;
+    bf16 operands and output under AMP). A 1x1/stride-1 conv is a matmul
+    over [B*H*W, I], as the JAX op lowers it (``dot_general``); every
+    other shape is ``F.conv2d`` (cuDNN on the card), TF32 under
+    ``default`` and full f32 under ``high`` and ``highest``."""
     x, w = amp_cast(single(ins, "Input"), single(ins, "Filter"))
     fmt = attrs.get("data_format", "NCHW")
     strides = normalize_pair(attrs.get("strides", [1, 1]))
@@ -81,12 +90,13 @@ def conv2d(attrs, ins):
         wm = w.reshape(w.shape[0], w.shape[1])  # OIHW -> [O, I]
         y = matmul(x.movedim(1, -1), wm.t())  # [B, H, W, O]
         return out(Output=y.movedim(-1, 1))
+    tf32 = precision_mode(x, w) == "tf32"
     if fmt == "NHWC":
         y = _Conv2dF32.apply(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                             strides, pads, dilations, groups)
+                             strides, pads, dilations, groups, tf32)
         return out(Output=y.permute(0, 2, 3, 1))
     return out(Output=_Conv2dF32.apply(x, w, strides, pads, dilations,
-                                       groups))
+                                       groups, tf32))
 
 
 @register_op("depthwise_conv2d")

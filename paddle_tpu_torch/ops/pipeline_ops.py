@@ -33,7 +33,7 @@ from ..core.registry import register_op
 from ..kernels.flash_attention import (flash_attention, reference_attention,
                                        rotary)
 from ..kernels.sampling import sample_rows, top_logprobs
-from .common import amp_cast, f32_accumulation, matmul, maybe, out, single
+from .common import amp_cast, matmul, maybe, out, product_precision, single
 
 _EPS = 1e-5
 
@@ -132,9 +132,10 @@ def _dot_grads(a, w, g):
     a 2-D ``w`` folds a's leading dims into one product for dw."""
     a_c, w_c = amp_cast(a, w)
     g_c = g.to(a_c.dtype)
-    with f32_accumulation():
+    with product_precision(a_c, w_c):
         da = torch.matmul(g_c, w_c.mT)
-        dw = a_c.reshape(-1, a_c.shape[-1]).mT @ g_c.reshape(-1, g.shape[-1])
+        dw = torch.matmul(a_c.reshape(-1, a_c.shape[-1]).mT,
+                          g_c.reshape(-1, g.shape[-1]))
     return da.to(a.dtype), dw.to(w.dtype)
 
 

@@ -35,7 +35,7 @@ import torch
 from ..core.executor import CUDAPlace, Executor
 from ..core.scope import Scope
 from ..core.types import to_numpy
-from ..ops.common import amp_enabled
+from ..ops.common import policy_key
 from .errors import BadRequestError, EngineClosedError
 from .metrics import MetricsRegistry
 
@@ -238,10 +238,12 @@ class InferenceEngine:
         return fed, bucket
 
     def _signature(self, fed) -> tuple:
-        """A CUDA graph's key: the feed shapes and the AMP policy it was
-        captured under (a graph replays the casts it recorded)."""
+        """A CUDA graph's key: the feed shapes and the AMP and precision
+        policies it was captured under (a graph replays the casts, the
+        library math modes and the kernel instances it recorded), as the
+        JAX executor keys its compiled programs on the policy."""
         return tuple((n, tuple(fed[n].shape)) for n in self.feed_names) \
-            + (("amp", amp_enabled()),)
+            + policy_key()
 
     def _run_program(self, feed):
         return self.executor.run(self.program, feed=feed,
@@ -265,6 +267,14 @@ class InferenceEngine:
     def _replay(self, fed: Dict[str, np.ndarray], bucket: int):
         sig = self._signature(fed)
         entry = self._graphs.get(sig)
+        n_feeds = len(self.feed_names)
+        if entry is None and any(s[:n_feeds] == sig[:n_feeds]
+                                 for s in self._graphs):
+            # a warmed shape under a policy flipped since: capture anew
+            entry = self._capture({
+                name: torch.zeros(fed[name].shape, device=self.device,
+                                  dtype=self._feed_template(name)[1])
+                for name in self.feed_names})
         if entry is None:
             raise RuntimeError(
                 f"no CUDA graph for feed shapes {dict(sig)}: call warmup() "
@@ -324,15 +334,22 @@ class InferenceEngine:
                     continue
                 self._run_program(static_in)  # eager: kernels, workspaces
                 if self._use_graphs:
-                    sig = self._signature(static_in)
-                    graph, outs = _graph_capture(
-                        lambda feed=static_in: self._run_program(feed),
-                        self.device)
-                    self._graphs[sig] = (graph, static_in, list(outs))
+                    self._capture(static_in)
                 combos += 1
         self.metrics.inc("warmup_compiles", combos)
         self.metrics.set_gauge("cuda_graphs", len(self._graphs))
         return combos
+
+    def _capture(self, static_in):
+        """Capture the program over the static feeds into a CUDA graph
+        under the policies now in force, keyed by its signature."""
+        graph, outs = _graph_capture(
+            lambda feed=static_in: self._run_program(feed), self.device)
+        entry = (graph, static_in, list(outs))
+        self._graphs[self._signature(static_in)] = entry
+        self.metrics.inc("graph_captures")
+        self.metrics.set_gauge("cuda_graphs", len(self._graphs))
+        return entry
 
     def cache_stats(self) -> dict:
         return {"graphs": len(self._graphs)}

@@ -31,7 +31,7 @@ from ..core import prng
 from ..decoding.params import SamplingParams
 from ..decoding.stops import StopMatcher
 from ..models.transformer import TransformerLM
-from ..ops.common import amp_enabled
+from ..ops.common import policy_key
 from ..ops.pipeline_ops import (kv_cache_page_copy,
                                 transformer_stack_paged_decode,
                                 transformer_stack_paged_prefill,
@@ -642,7 +642,7 @@ class PagedGenerationEngine(GenerationEngine):
                                    device=self.device)
         self.cache_v = torch.zeros_like(self.cache_k)
         self._graph = None        # the captured decode step (CUDA)
-        self._graph_amp = None    # the AMP policy it was captured under
+        self._graph_policy = None  # the policies it was captured under
         self._static: Dict[str, torch.Tensor] = {}
         self._static_next: Optional[torch.Tensor] = None
         self._mask_open = True    # the static mask is all ones
@@ -780,11 +780,12 @@ class PagedGenerationEngine(GenerationEngine):
         """One decode step as a replay of the captured graph: the host
         feed goes into the static inputs (the mask only when a row is
         masked now or was last time), then NextTok comes back. A graph
-        captured under another AMP policy is captured anew."""
-        amp = amp_enabled()
-        if self._graph is None or self._graph_amp != amp:
+        captured under another AMP or precision policy is captured
+        anew."""
+        policy = policy_key()
+        if self._graph is None or self._graph_policy != policy:
             self._capture_decode()
-            self._graph_amp = amp
+            self._graph_policy = policy
         static = self._static
         for key, arr in feed.items():
             if key == "mask":
