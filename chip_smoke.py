@@ -25,6 +25,7 @@
     python3 chip_smoke.py --book-only       # phases 1, 2 and 18 only
     python3 chip_smoke.py --optim-only      # phases 1, 2 and 19 only
     python3 chip_smoke.py --precision-only  # phases 1, 2 and 20 only
+    python3 chip_smoke.py --decode-plane-only  # phases 1, 2 and 21 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -523,6 +524,36 @@ Phases, each fatal on failure (nonzero exit, no result line):
     losses within 1e-4 of the port's CPU run from the same weights, each
     demo's own closing output, ms a step beside a step's device ms and
     launches.
+
+21. The decode plane (``--decode-plane-only``), under ``highest``. (a)
+    The d1024 L8 H16 V16384 LM (random weights from the seed), batch 4 x
+    prompt 512, through Executor.run: ``transformer_lm_beam_search``
+    (beam 4, 64 new tokens, GNMT penalty 0.6),
+    ``transformer_lm_speculative_generate`` (draft_layers 2, gamma 4,
+    the draft head a copy of the target's) and ``transformer_lm_generate``;
+    the speculative output equals greedy token for token but at a near
+    tie (the top two logits within 1e-5, relative; both printed); each
+    prefill launches the flash forward 8 times (asserted); wall ms beside
+    device ms. (b) ``PagedGenerationEngine(beam_width=4)`` at that width:
+    ``generate_beam``'s best beam equals (a)'s op on the same prompt;
+    then 4 greedy and 4 beam-4 requests in one continuous batch through
+    ``Server`` (forks and shared pages > 0, the captured decode graph
+    with its TopV/TopI plane, TPOT). (c) Transformer-base (Vaswani et
+    al. 2017, Table 3 base: d512, 6 layers, 8 heads, d_ff 2048, a shared
+    vocabulary of 37,000) at 256 source and target positions, batch 32:
+    3 Adam steps under AMP and 3 in f32 through
+    ``transformer_nmt_teacher`` (6 launches a step of each f32 flash
+    kernel, asserted), then the trained scope served by
+    ``Seq2SeqGenerationEngine(slots=16, page_size=16, beam_width=4)``:
+    ``translate`` of 16 sources of 32-128 tokens, 32 new tokens each and
+    no eos (one encode a source; every token the teacher op's argmax
+    re-run on its own output, but at a near tie), ``translate_beam``
+    (forks > 0), TTFT and TPOT. (d)
+    ``demos/transformer_lm.py`` (speculative = greedy) and
+    ``demos/nmt_transformer.py`` at their own sizes, the NMT demo's loop
+    cut to its FAST mode's 12 steps (its 700 took 47 s on an H100). The
+    flash records of the ``kernels`` line
+    carry their launches on these paths (``launches_phase21``).
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -1215,14 +1246,14 @@ def _replay_against_eager(eng, spec, vocab, peak_bw,
         k0, v0 = eng.cache_k.clone(), eng.cache_v.clone()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        eager = eng._decode_step_eager(feed)
+        eager = eng._decode_step_eager(feed)[0]
         t1 = time.perf_counter()
         ke, ve = eng.cache_k.clone(), eng.cache_v.clone()
         eng.cache_k.copy_(k0)
         eng.cache_v.copy_(v0)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        replayed = eng._decode_step_replay(feed)
+        replayed = eng._decode_step_replay(feed)[0]
         t3 = time.perf_counter()
         eager_ms.append((t1 - t0) * 1e3)
         replay_ms.append((t3 - t2) * 1e3)
@@ -8742,16 +8773,16 @@ SWEEP_SCHEDULES = (
 )
 
 
-def _gpt_corpus(rng, vocab, n, T):
+def _gpt_corpus(rng, vocab, n, T, mult=5):
     """demos/gpt_modern.py's learnable language: token t+1 = (5*t +
-    noise) % vocab."""
+    noise) % vocab (``mult`` 3: demos/transformer_lm.py's)."""
     import numpy as np
 
     x = np.zeros((n, T + 1), np.int64)
     x[:, 0] = rng.randint(0, vocab, size=n)
     for t in range(T):
         noise = rng.randint(0, 2, size=n)
-        x[:, t + 1] = (5 * x[:, t] + noise) % vocab
+        x[:, t + 1] = (mult * x[:, t] + noise) % vocab
     return x
 
 
@@ -10194,6 +10225,691 @@ def phase20_launches(records, precision):
                 d["highest"]["launches_per_step"]["3xtf32"]}
 
 
+# --- phase 21: the decode plane ----------------------------------------------
+# (a) the stacked LM's one-shot decoders at the serving width (phase 1's
+# d1024 L8 H16 V16384, random weights from SEED), batch 4, prompt 512:
+# transformer_lm_beam_search (beam 4, 64 new tokens, GNMT 0.6),
+# transformer_lm_speculative_generate (draft_layers 2, gamma 4, the draft
+# head a copy of the target's, as demos/transformer_lm.py sets it) and
+# transformer_lm_generate (greedy), each through Executor.run. (b) the
+# paged engine's beam plane at the same width. (c) Transformer-base NMT
+# (Vaswani et al. 2017, Table 3 "base") trained with the teacher op in f32
+# and under AMP, then served through Seq2SeqGenerationEngine. (d) the two
+# demos at their own sizes.
+DECODE_LM = dict(vocab=16384, d_model=1024, n_layers=8, num_heads=16,
+                 max_len=2048, batch=4, prompt=512, new=64, beam=4,
+                 penalty=0.6, draft_layers=2, gamma=4)
+PAGED_BEAM = dict(slots=20, page_size=64, greedy=4, beams=4, new=32,
+                  prompt=(256, 513))
+# d_model 512, 6 layers (encoder and decoder alike), 8 heads (head dim
+# 64), d_ff 2048, a shared 37,000-token vocabulary (WMT14 En-De BPE);
+# source and target cut to 256 positions; batch 32 x 256 + 256 tokens
+NMT_BASE = dict(vocab=37000, d_model=512, n_layers=6, num_heads=8,
+                d_ff=2048, max_len=256, batch=32, steps=3, lr=1e-4,
+                slots=16, page_size=16, beam=4, sources=16,
+                src_len=(32, 129), new=32, penalty=0.6)
+NMT_BOS, NMT_EOS, NMT_SHIFT = 0, 1, 2
+LM_DEMO = dict(vocab=97, T=64, d_model=64, n_layers=2, heads=4, steps=120,
+               batch=32, lr=3e-3, new=8, beam=3, draft_layers=1, gamma=3)
+# its 700 steps took 47.0 s on an NVIDIA H100 80GB HBM3 at 700 W (67.1
+# ms a step, host-bound), past the ~30 s the phase affords: it runs as
+# PADDLE_TPU_DEMO_FAST=1 does, 12 steps, without the full run's loss
+# and accuracy gates
+NMT_DEMO = dict(src_v=24, tgt_v=24, d_model=32, n_layers=2, heads=2, ts=12,
+                tt=16, steps=12, batch=32, lr=4e-3, slots=4, page_size=4)
+NEAR_TIE_RTOL = 1e-5  # a decoder may part from greedy only at such a tie
+
+
+def _lm_decoder_program(pt, c, kind, prompt_len):
+    """One of the stacked LM's one-shot decoders over a [b, prompt_len]
+    feed "prompt": (program, fetch vars)."""
+    from paddle_tpu_torch import layers, models
+
+    main, startup = pt.Program(), pt.Program()
+    kw = dict(vocab_size=c["vocab"], d_model=c["d_model"],
+              n_layers=c["n_layers"], num_heads=c["num_heads"],
+              max_len=c["max_len"], max_new_tokens=c["new"])
+    with pt.program_guard(main, startup):
+        prompt = layers.data("prompt", shape=[prompt_len], dtype="int64")
+        if kind == "greedy":
+            fetch = [models.transformer_lm_generate(prompt, **kw)]
+        elif kind == "beam":
+            fetch = list(models.transformer_lm_beam_search(
+                prompt, beam_size=c["beam"], length_penalty=c["penalty"],
+                **kw))
+        else:
+            fetch = list(models.transformer_lm_speculative_generate(
+                prompt, draft_layers=c["draft_layers"], gamma=c["gamma"],
+                **kw))
+    return main, fetch
+
+
+def _with_draft_head(params):
+    """The weights plus a draft head copied from the target's."""
+    return dict(params, **{"draft_head.w": params["lm_head.w"],
+                           "draft_ln.scale": params["final_ln.scale"],
+                           "draft_ln.bias": params["final_ln.bias"]})
+
+
+def _lm_next_logits(scope, num_heads, ids):
+    """The full stack's next-token logits after each row of ``ids`` (a
+    [b, t] tensor on the card), by the plain prefill path."""
+    from paddle_tpu_torch.ops import pipeline_ops as po
+
+    params = {k: scope.get(f"lm_stack.stack_{k}")
+              for k in po._STACK_SLOTS.values()}
+    x = po._embed_fn(scope.get("tok_emb"), scope.get("pos_emb"))(ids, 0)
+    h, _, _ = po._prefill(params, x, num_heads, ids.shape[0], ids.shape[1])
+    return po._logits_fn(scope.get("final_ln.scale"),
+                         scope.get("final_ln.bias"),
+                         scope.get("lm_head.w"))(h[:, -1])
+
+
+def _greedy_gate(scope, num_heads, prompts, greedy, other, what):
+    """``other`` [b, Tp + N] must equal ``greedy`` token for token, but
+    where greedy's step had its top two logits within NEAR_TIE_RTOL of
+    each other (relative) and ``other`` took the runner-up: then both
+    margins are printed and the rest of the row is not compared.
+    Returns the rows that parted so."""
+    import numpy as np
+    import torch
+
+    Tp = prompts.shape[1]
+    ties = []
+    for row in range(greedy.shape[0]):
+        diff = np.nonzero(greedy[row, Tp:] != other[row, Tp:])[0]
+        if not diff.size:
+            continue
+        j = Tp + int(diff[0])
+        ids = torch.from_numpy(greedy[row:row + 1, :j]).cuda()
+        with torch.no_grad():
+            logits = _lm_next_logits(scope, num_heads, ids)[0].double()
+        top = torch.topk(logits, 2)
+        rel = float((top.values[0] - top.values[1]) / top.values[0].abs())
+        a, b = int(greedy[row, j]), int(other[row, j])
+        print(f"decode plane: {what} row {row} parts from greedy at "
+              f"position {j}: greedy took {a} (logit "
+              f"{float(logits[a]):.7f}), {what} {b} (logit "
+              f"{float(logits[b]):.7f}); the top two "
+              f"{top.indices.tolist()} are {rel:.3e} apart, relative "
+              f"(a near tie passes within {NEAR_TIE_RTOL})")
+        assert {a, b} == set(top.indices.tolist()) and rel <= NEAR_TIE_RTOL, (
+            what, row, j, a, b, rel)
+        ties.append({"row": row, "position": j, "rel_gap": rel})
+    return ties
+
+
+def _traced_run(run):
+    """(device ms, kernel launches) of one profiled ``run()``; the trace
+    opens with _cuda_trace's fills, not with another run (a decoder's run
+    is tens of thousands of launches)."""
+    try:
+        with _cuda_trace() as prof:
+            run()
+        kernels = _traced_kernels(prof)
+    except Exception as exc:  # noqa: BLE001 - a measurement aid
+        print(f"device time: not measured ({type(exc).__name__}: {exc})")
+        kernels = []
+    return (sum(us for _, us in kernels) / 1e3 if kernels else None,
+            len(kernels))
+
+
+def lm_decoders_part(pt, fa, smi):
+    """(a): beam search, speculative and greedy decoding of the d1024 LM
+    through Executor.run, each timed on its main-path run (the first)
+    and traced once more. Returns its record and the beam output."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import init_params
+    from paddle_tpu_torch.serving import LMSpec
+
+    c = DECODE_LM
+    spec = LMSpec(vocab_size=c["vocab"], d_model=c["d_model"],
+                  n_layers=c["n_layers"], num_heads=c["num_heads"],
+                  max_len=c["max_len"])
+    params = _with_draft_head(init_params(spec, SEED))
+    scope = pt.scope_from_numpy(params, "cuda")
+    exe = pt.Executor(pt.CUDAPlace(0))
+    rng = np.random.RandomState(SEED + 21)
+    prompts = rng.randint(0, c["vocab"], (c["batch"], c["prompt"])).astype(
+        np.int64)
+    rec, outs = {}, {}
+    for kind in ("beam", "speculative", "greedy"):
+        prog, fetch = _lm_decoder_program(pt, c, kind, c["prompt"])
+
+        def run(prog=prog, fetch=fetch):
+            return exe.run(prog, feed={"prompt": prompts},
+                           fetch_list=fetch, scope=scope)
+
+        fa.flash_attention.launches = 0  # the main path's launches only
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[kind] = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = fa.flash_attention.launches
+        dev, n = _traced_run(run)
+        rec[kind] = {"flash_launches": launches, "wall_ms": wall,
+                     "device_ms": dev, "kernel_launches": n}
+        assert launches == c["n_layers"], (kind, launches)
+    beams, scores = (np.asarray(x) for x in outs["beam"])
+    spec_ids, rounds = (np.asarray(x) for x in outs["speculative"])
+    greedy = np.asarray(outs["greedy"][0])
+    Tp, N, K = c["prompt"], c["new"], c["beam"]
+    assert beams.shape == (c["batch"], K, Tp + N) and scores.shape == (
+        c["batch"], K), (beams.shape, scores.shape)
+    assert (beams[:, :, :Tp] == prompts[:, None]).all()
+    assert ((beams >= 0) & (beams < c["vocab"])).all()
+    assert np.isfinite(scores).all() and (np.diff(scores, axis=1) <= 0).all()
+    ties = _greedy_gate(scope, c["num_heads"], prompts, greedy, spec_ids,
+                        "speculative")
+    rounds = int(rounds.reshape(-1)[0])
+    assert 0 < rounds <= N - 1, rounds
+    rec.update({"config": c, "rounds": rounds, "near_ties": ties,
+                "best_scores": scores[:, 0].tolist()})
+    for kind in ("beam", "speculative", "greedy"):
+        r = rec[kind]
+        print(f"decode plane (a) {kind}: batch {c['batch']} x prompt {Tp}, "
+              f"{N} new tokens: {r['wall_ms']:.1f} ms wall, device "
+              f"{_ms_text(r['device_ms'], '.1f')} ms in "
+              f"{r['kernel_launches']} launches; flash forward launches "
+              f"{r['flash_launches']} (one prefill of {c['n_layers']} "
+              f"layers) [{smi}]")
+    print(f"decode plane (a): speculative = greedy token for token "
+          f"({len(ties)} near ties) in {rounds} verify rounds against "
+          f"{N - 1} decode steps; best beam scores "
+          f"{[round(s, 4) for s in rec['best_scores']]}")
+    return rec, beams, prompts, params
+
+
+def paged_beam_part(pt, smi, beams, prompts, params):
+    """(b): the paged engine's beam plane at the serving width: one
+    generate_beam against (a)'s op, then greedy and beam requests in one
+    continuous batch through Server."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.transformer import TransformerLM
+    from paddle_tpu_torch.serving import LMSpec, PagedGenerationEngine, Server
+
+    c, b = DECODE_LM, PAGED_BEAM
+    spec = LMSpec(vocab_size=c["vocab"], d_model=c["d_model"],
+                  n_layers=c["n_layers"], num_heads=c["num_heads"],
+                  max_len=c["max_len"])
+    model = TransformerLM.from_jax_params(spec, params, "cuda")
+    eng = PagedGenerationEngine(spec, model, slots=b["slots"],
+                                page_size=b["page_size"],
+                                beam_width=c["beam"], device="cuda")
+    t0 = time.perf_counter()
+    ids, scores = eng.generate_beam(prompts[0], beam_size=c["beam"],
+                                    max_new_tokens=c["new"],
+                                    length_penalty=c["penalty"])
+    torch.cuda.synchronize()
+    solo_s = time.perf_counter() - t0
+    same = bool(np.array_equal(ids[0], beams[0, 0]))
+    print(f"decode plane (b): generate_beam (beam {c['beam']}, {c['new']} "
+          f"new tokens, prompt {prompts.shape[1]}) in {solo_s:.2f} s: best "
+          f"beam {'equals' if same else 'DIFFERS from'} (a)'s op; scores "
+          f"{[round(float(s), 4) for s in scores]}")
+    assert same, (ids[0, -c["new"]:], beams[0, 0, -c["new"]:])
+    forks0 = eng.metrics.counter("beam_forks")
+    rng = np.random.RandomState(SEED + 22)
+    wave = []
+    for i in range(b["greedy"] + b["beams"]):
+        p = rng.randint(0, c["vocab"], rng.randint(*b["prompt"])).astype(
+            np.int64)
+        beam = i % 2 == 1
+        wave.append((p, dict(max_new_tokens=b["new"], **(
+            {"beam_size": c["beam"], "return_beams": True,
+             "length_penalty": c["penalty"]} if beam else {}))))
+    steps0 = eng.metrics.counter("decode_steps")
+    srv = Server([eng]).start()
+    try:
+        t0 = time.perf_counter()
+        futs = [srv.submit({"prompt": p}, **meta) for p, meta in wave]
+        results = [f.result(timeout=600) for f in futs]
+        wall_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    for (p, meta), r in zip(wave, results):
+        if "beam_size" in meta:
+            rid, rsc = r
+            assert rid.shape == (c["beam"], p.size + b["new"]), rid.shape
+            assert (rid[:, :p.size] == p).all() and np.isfinite(rsc).all()
+        else:
+            assert r.shape == (p.size + b["new"],) and (r[:p.size] == p).all()
+    snap = eng.metrics.snapshot()
+    counters = snap["counters"]
+    forks = counters["beam_forks"] - forks0
+    shared = counters["beam_shared_pages"]
+    assert forks > 0 and shared > 0, counters
+    assert len(eng._static_top) == 2, "the graph has no beam plane"
+    assert counters["decode_graph_captures"] == 1, counters
+    eng._decode_step_replay(eng._neutral_decode_feed())  # scrap page only
+    replay_ms = _cuda_ms(eng._graph.replay, iters=10)
+    rec = {"config": b, "best_beam_equals_op": same, "solo_s": solo_s,
+           "wave_s": wall_s, "beam_forks": forks,
+           "beam_shared_pages": shared,
+           "beam_parked": counters.get("beam_parked", 0),
+           "decode_steps": counters["decode_steps"] - steps0,
+           "decode_step_ms_mean": snap["latency"]["decode_step_ms"]["mean"],
+           "decode_step_replay_device_ms": replay_ms,
+           "tpot_ms_p50": snap["hist"]["tpot"]["p50_ms"],
+           "ttft_ms_p50": snap["hist"]["ttft"]["p50_ms"]}
+    print(f"decode plane (b): {b['greedy']} greedy and {b['beams']} beam-"
+          f"{c['beam']} requests in one continuous batch ({b['slots']} "
+          f"slots, pages of {b['page_size']}) in {wall_s:.2f} s: "
+          f"{forks} forks sharing {shared} pages, {rec['beam_parked']} "
+          f"parks; decode step {rec['decode_step_ms_mean']:.2f} ms wall "
+          f"(mean over {rec['decode_steps']}), one replay "
+          f"{replay_ms:.3f} ms on the card; TPOT p50 "
+          f"{rec['tpot_ms_p50']:.2f} ms, TTFT p50 {rec['ttft_ms_p50']:.1f} "
+          f"ms (greedy rows) [{smi}]")
+    return rec
+
+
+def _nmt_batch(rng, bs, ts, tt, vocab):
+    """demos/nmt_transformer.py's synthetic translation at ``vocab``: the
+    target is the source reversed and shifted into the target ids, ended
+    by EOS; ids 0 and 1 are BOS and EOS."""
+    import numpy as np
+
+    n = rng.randint(3, min(ts, tt - 1) + 1, size=bs)
+    src = np.zeros((bs, ts), np.int64)
+    slen = n.astype(np.int32)
+    tgt_in = np.full((bs, tt), NMT_EOS, np.int64)
+    tgt_next = np.full((bs, tt), NMT_EOS, np.int64)
+    for i in range(bs):
+        s = rng.randint(2, vocab, size=n[i])
+        t = ((s[::-1] + NMT_SHIFT) % (vocab - 2)) + 2
+        src[i, :n[i]] = s
+        tgt_in[i, 0] = NMT_BOS
+        tgt_in[i, 1:n[i] + 1] = t
+        tgt_next[i, :n[i]] = t
+        tgt_next[i, n[i]] = NMT_EOS
+    return {"src": src, "slen": slen, "tgt_in": tgt_in, "tgt_next": tgt_next}
+
+
+def _nmt_program(pt, v_src, v_tgt, d, L, H, ts, tt, lr, d_ff=None):
+    """The NMT teacher's training program: (main, startup, loss, logits,
+    the for_test clone up to the logits)."""
+    from paddle_tpu_torch import layers, models
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        src = layers.data("src", shape=[ts], dtype="int64")
+        slen = layers.data("slen", shape=[], dtype="int32")
+        tgt_in = layers.data("tgt_in", shape=[tt], dtype="int64")
+        tgt_next = layers.data("tgt_next", shape=[tt], dtype="int64")
+        logits = models.transformer_nmt_teacher(
+            src, slen, tgt_in, src_vocab_size=v_src, tgt_vocab_size=v_tgt,
+            d_model=d, n_layers=L, num_heads=H, d_ff=d_ff,
+            max_src_len=ts, max_tgt_len=tt)
+        test = main.clone(for_test=True)
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.reshape(logits, shape=[-1, v_tgt]),
+            layers.reshape(tgt_next, shape=[-1, 1])))
+        pt.optimizer.AdamOptimizer(learning_rate=lr).minimize(
+            loss, startup_program=startup)
+    return main, startup, loss, logits, test
+
+
+def _nmt_train(pt, fa, c, amp, smi):
+    """c["steps"] timed Transformer-base steps (f32 or under AMP) from a
+    fresh startup: (record, scope, test program, logits)."""
+    import numpy as np
+    import torch
+
+    L, ts = c["n_layers"], c["max_len"]
+    with (_Amp() if amp else contextlib.nullcontext()):
+        main, startup, loss, logits, test = _nmt_program(
+            pt, c["vocab"], c["vocab"], c["d_model"], L, c["num_heads"], ts,
+            ts, c["lr"], c["d_ff"])
+        startup.random_seed = SEED
+        scope = pt.Scope()
+        exe = pt.Executor(pt.CUDAPlace(0))
+        exe.run(startup, scope=scope)
+        rng = np.random.RandomState(SEED + 23)
+        feeds = [_nmt_batch(rng, c["batch"], ts, ts, c["vocab"])
+                 for _ in range(c["steps"])]
+        torch.cuda.reset_peak_memory_stats()
+        _reset_flash_counts(fa)
+        losses, step_ms = [], []
+        for feed in feeds:
+            t0 = time.perf_counter()
+            lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(np.asarray(lo)))
+        counts = _flash_counts(fa)
+        peak = torch.cuda.max_memory_allocated()
+        state = _snapshot(scope)
+        anatomy = _one_step_anatomy(lambda: exe.run(
+            main, feed=feeds[-1], fetch_list=[loss], scope=scope))
+        _restore(scope, state)
+    tag = "AMP" if amp else "f32"
+    tokens = c["batch"] * ts
+    med = float(np.median(step_ms[1:]))
+    rec = {"losses": losses, "step_ms": step_ms, "ms_median": med,
+           "device_ms": anatomy["device_ms"],
+           "kernel_launches": anatomy["launches"],
+           "flash_launches": list(counts), "peak_mem_bytes": peak,
+           "tgt_tokens_per_s": tokens / med * 1e3,
+           "tokens_per_s": 2 * tokens / med * 1e3}
+    print(f"decode plane (c) Transformer-base {tag}: {c['steps']} Adam steps "
+          f"of {c['batch']} x ({ts} source + {ts} target) tokens, losses "
+          f"{[round(x, 4) for x in losses]}; {step_ms[0]:.1f} ms the first, "
+          f"{med:.1f} ms median of the rest, one step "
+          f"{anatomy['wall_ms']:.1f} ms wall, device "
+          f"{_ms_text(anatomy['device_ms'], '.1f')} ms in "
+          f"{anatomy['launches']} launches; {rec['tgt_tokens_per_s']:.0f} "
+          f"target tokens/s ({rec['tokens_per_s']:.0f} with the source); "
+          f"peak {peak / 2 ** 30:.2f} GiB; flash fwd/dq/dkv launches "
+          f"{list(counts[:3])} f32, {list(counts[3:])} bf16 [{smi}]")
+    assert np.isfinite(losses).all(), losses
+    # the decoder's six self-attentions: the teacher op casts q/k/v back
+    # to the activations' f32 under AMP too, as the JAX op does, so the
+    # f32 instances run in both
+    assert counts == (c["steps"] * L,) * 3 + (0, 0, 0), counts
+    return rec, scope, test, logits
+
+
+def _teacher_forced_gate(pt, c, scope, test, logits, srcs, outs):
+    """Each served translation against the teacher op re-run on its own
+    tokens (one batched forward): every generated token must be the
+    teacher's argmax at its position, but at a near tie (the top two
+    within NEAR_TIE_RTOL, relative). Returns (positions, near ties)."""
+    import numpy as np
+
+    ts = c["max_len"]
+    n = len(srcs)
+    src = np.zeros((n, ts), np.int64)
+    tgt = np.full((n, ts), NMT_EOS, np.int64)
+    for i, (s, o) in enumerate(zip(srcs, outs)):
+        src[i, :s.size] = s
+        tgt[i, :o.size] = o
+    lo, = pt.Executor(pt.CUDAPlace(0)).run(
+        test, feed={"src": src, "slen": np.asarray([s.size for s in srcs],
+                                                   np.int32),
+                    "tgt_in": tgt}, fetch_list=[logits], scope=scope)
+    lo = np.asarray(lo, np.float64)
+    checked, ties = 0, 0
+    for i, o in enumerate(outs):
+        for j in range(o.size - 1):
+            row = lo[i, j]
+            top = np.argsort(-row, kind="stable")[:2]
+            checked += 1
+            if top[0] == o[j + 1]:
+                continue
+            rel = (row[top[0]] - row[top[1]]) / abs(row[top[0]])
+            assert top[1] == o[j + 1] and rel <= NEAR_TIE_RTOL, (
+                i, j, o[j + 1], top, rel)
+            ties += 1
+    return checked, ties
+
+
+def nmt_base_part(pt, fa, smi):
+    """(c): Transformer-base trained in f32 and under AMP, then served."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.decoding import Seq2SeqGenerationEngine, Seq2SeqSpec
+
+    c = NMT_BASE
+    rec = {"config": c}
+    rec["amp"], *_ = _nmt_train(pt, fa, c, True, smi)
+    torch.cuda.empty_cache()
+    rec["f32"], scope, test, logits = _nmt_train(pt, fa, c, False, smi)
+    spec = Seq2SeqSpec(src_vocab_size=c["vocab"], tgt_vocab_size=c["vocab"],
+                       d_model=c["d_model"], n_layers=c["n_layers"],
+                       num_heads=c["num_heads"], d_ff=c["d_ff"],
+                       max_src_len=c["max_len"], max_tgt_len=c["max_len"])
+    t0 = time.perf_counter()
+    eng = Seq2SeqGenerationEngine(spec, scope, slots=c["slots"],
+                                  page_size=c["page_size"],
+                                  beam_width=c["beam"], bos_id=NMT_BOS)
+    combos = eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 24)
+    srcs = [rng.randint(2, c["vocab"], rng.randint(*c["src_len"])).astype(
+        np.int64) for _ in range(c["sources"])]
+    # no eos: three steps teach the model EOS first (the padded targets'
+    # most frequent id), so every request decodes its c["new"] tokens
+    t0 = time.perf_counter()
+    outs = eng.translate(srcs, max_new_tokens=c["new"])
+    translate_s = time.perf_counter() - t0
+    encodes = eng.metrics.counter("encodes")
+    assert encodes == len(srcs), encodes
+    for o in outs:
+        assert o[0] == NMT_BOS and o.size == c["new"] + 1, o
+        assert ((o >= 0) & (o < c["vocab"])).all()
+    checked, ties = _teacher_forced_gate(pt, c, scope, test, logits, srcs,
+                                         outs)
+    snap = eng.metrics.snapshot()
+    t0 = time.perf_counter()
+    ids, scores = eng.translate_beam(srcs[0], beam_size=c["beam"],
+                                     max_new_tokens=c["new"],
+                                     length_penalty=c["penalty"])
+    beam_s = time.perf_counter() - t0
+    forks = eng.metrics.counter("beam_forks")
+    assert ids.shape[0] == c["beam"] and np.isfinite(scores).all(), ids.shape
+    assert forks > 0 and eng.metrics.counter("encodes") == len(srcs) + 1
+    assert int(eng._xrow_ref.sum()) == 0 and eng.pool.pages_in_use() == 0
+    rec["serving"] = {
+        "warmup_shapes": combos, "warmup_s": warm_s,
+        "translate_s": translate_s, "sources": len(srcs),
+        "generated_tokens": int(sum(o.size - 1 for o in outs)),
+        "encodes": encodes,
+        "encode_batches": snap["counters"]["encode_batches"],
+        "teacher_checked": checked, "near_ties": ties,
+        "ttft_ms_p50": snap["hist"]["ttft"]["p50_ms"],
+        "tpot_ms_p50": snap["hist"]["tpot"]["p50_ms"],
+        "decode_step_ms_mean": snap["latency"]["decode_step_ms"]["mean"],
+        "encode_ms_mean": snap["latency"]["encode_ms"]["mean"],
+        "beam_s": beam_s, "beam_forks": forks,
+        "beam_shared_pages": eng.metrics.counter("beam_shared_pages"),
+        "beam_scores": [float(s) for s in scores]}
+    s = rec["serving"]
+    print(f"decode plane (c) serving: warmup {combos} shapes {warm_s:.1f} s; "
+          f"translate {len(srcs)} sources of {c['src_len'][0]}-"
+          f"{c['src_len'][1] - 1} tokens, {s['generated_tokens']} target "
+          f"tokens in {translate_s:.2f} s, {encodes} encodes in "
+          f"{s['encode_batches']} batches (mean {s['encode_ms_mean']:.1f} "
+          f"ms); TTFT p50 {s['ttft_ms_p50']:.1f} ms, TPOT p50 "
+          f"{s['tpot_ms_p50']:.2f} ms, decode step {s['decode_step_ms_mean']:.2f}"
+          f" ms wall; every token the teacher's argmax re-run on the card "
+          f"({checked} positions, {ties} near ties); translate_beam (beam "
+          f"{c['beam']}) in {beam_s:.2f} s, {forks} forks sharing "
+          f"{s['beam_shared_pages']} pages [{smi}]")
+    return rec
+
+
+def lm_demo_part(pt, fa, smi):
+    """(d) demos/transformer_lm.py at its size: its training loop, then
+    greedy, beam and speculative decoding of the trained weights (the
+    draft head a copy of the target's, as the demo sets it)."""
+    import numpy as np
+
+    from paddle_tpu_torch import layers, models
+
+    c = LM_DEMO
+    T, V = c["T"], c["vocab"]
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        ids = layers.data("ids", shape=[T], dtype="int64")
+        tgt = layers.data("tgt", shape=[T], dtype="int64")
+        logits = models.transformer_lm(
+            ids, vocab_size=V, d_model=c["d_model"], n_layers=c["n_layers"],
+            num_heads=c["heads"], max_len=2 * T, pipeline_stack=True)
+        loss = layers.mean(layers.softmax_with_cross_entropy(
+            layers.reshape(logits, shape=[-1, V]),
+            layers.reshape(tgt, shape=[-1, 1])))
+        pt.optimizer.AdamOptimizer(learning_rate=c["lr"]).minimize(
+            loss, startup_program=startup)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        seq = _gpt_corpus(rng, V, c["batch"], T, mult=3)
+        lo, = exe.run(main, feed={"ids": seq[:, :-1], "tgt": seq[:, 1:]},
+                      fetch_list=[loss], scope=scope)
+        losses.append(float(np.asarray(lo)))
+    train_s = time.perf_counter() - t0
+    dc = dict(vocab=V, d_model=c["d_model"], n_layers=c["n_layers"],
+              num_heads=c["heads"], max_len=2 * T, new=c["new"],
+              beam=c["beam"], penalty=0.0, draft_layers=c["draft_layers"],
+              gamma=c["gamma"])
+    for name, src in (("draft_head.w", "lm_head.w"),
+                      ("draft_ln.scale", "final_ln.scale"),
+                      ("draft_ln.bias", "final_ln.bias")):
+        scope.set(name, scope.get(src).clone())
+    ctx = _gpt_corpus(rng, V, 1, T, mult=3)[:, :-1]
+    got = {}
+    for kind in ("greedy", "beam", "speculative"):
+        prog, fetch = _lm_decoder_program(pt, dc, kind, T)
+        got[kind] = [np.asarray(x) for x in exe.run(
+            prog, feed={"prompt": ctx}, fetch_list=fetch, scope=scope)]
+    gen = got["greedy"][0]
+    sp, rounds = got["speculative"]
+    ties = _greedy_gate(scope, c["heads"], ctx, gen, sp, "demo speculative")
+    tail = gen[0, -(c["new"] + 1):]
+    ok = sum(int(tail[i + 1]) in {(3 * int(tail[i])) % V,
+                                  (3 * int(tail[i]) + 1) % V}
+             for i in range(c["new"]))
+    bm, sc = got["beam"]
+    rec = {"losses_first_last": [losses[0], losses[-1]], "train_s": train_s,
+           "rule_consistent": ok, "rounds": int(rounds.reshape(-1)[0]),
+           "near_ties": ties, "beam_best": bm[0, 0, -c["new"]:].tolist(),
+           "beam_scores": sc[0].tolist()}
+    print(f"decode plane (d) transformer_lm demo: {c['steps']} steps in "
+          f"{train_s:.1f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"greedy {gen[0, -c['new']:].tolist()} ({ok}/{c['new']} "
+          f"rule-consistent); beam best {rec['beam_best']} (score "
+          f"{sc[0, 0]:.2f}); speculative = greedy ({len(ties)} near ties) "
+          f"in {rec['rounds']} verify rounds against {c['new']} [{smi}]")
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    return rec
+
+
+def nmt_demo_part(pt, fa, smi):
+    """(d) demos/nmt_transformer.py at its size, cut as its FAST mode
+    (NMT_DEMO): its training steps, then greedy and beam translation
+    through Seq2SeqGenerationEngine."""
+    import numpy as np
+
+    from paddle_tpu_torch.decoding import Seq2SeqGenerationEngine, Seq2SeqSpec
+
+    c = NMT_DEMO
+    ts, tt, V = c["ts"], c["tt"], c["tgt_v"]
+    main, startup, loss, _, _ = _nmt_program(
+        pt, c["src_v"], V, c["d_model"], c["n_layers"], c["heads"], ts, tt,
+        c["lr"])
+    startup.random_seed = 9
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    hist = []
+    _reset_flash_counts(fa)
+    t0 = time.perf_counter()
+    for _ in range(c["steps"]):
+        feed = _nmt_batch(rng, c["batch"], ts, tt, V)
+        lo, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        hist.append(float(np.asarray(lo)))
+    train_s = time.perf_counter() - t0
+    counts = _flash_counts(fa)
+    spec = Seq2SeqSpec(src_vocab_size=c["src_v"], tgt_vocab_size=V,
+                       d_model=c["d_model"], n_layers=c["n_layers"],
+                       num_heads=c["heads"], max_src_len=ts, max_tgt_len=tt)
+    eng = Seq2SeqGenerationEngine(spec, scope, slots=c["slots"],
+                                  page_size=c["page_size"], bos_id=NMT_BOS,
+                                  beam_width=4, default_max_new_tokens=tt - 1)
+    srcs = [rng.randint(2, c["src_v"], size=rng.randint(3, 9)).astype(
+        np.int64) for _ in range(4)]
+    greedy = eng.translate(srcs, eos_id=NMT_EOS)
+    ids, scores = eng.translate_beam(srcs[0], beam_size=4, eos_id=NMT_EOS,
+                                     length_penalty=0.6)
+    rec = {"steps": c["steps"], "train_s": train_s,
+           "ms_per_step": train_s / c["steps"] * 1e3,
+           "loss_first_last": [hist[0], hist[-1]],
+           "flash_launches": list(counts[:3]),
+           "beam_forks": eng.metrics.counter("beam_forks"),
+           "encodes": eng.metrics.counter("encodes")}
+    for s, g in zip(srcs, greedy):
+        print(f"decode plane (d) nmt_transformer demo: src={s.tolist()} -> "
+              f"greedy={g[1:].tolist()}")
+    print(f"decode plane (d) nmt_transformer demo: {c['steps']} steps in "
+          f"{train_s:.1f} s ({rec['ms_per_step']:.1f} ms a step), loss "
+          f"{hist[0]:.3f} -> {hist[-1]:.3f}; beam0 {ids[0, 1:].tolist()} "
+          f"score {scores[0]:.3f}, {rec['beam_forks']} forks, "
+          f"{rec['encodes']} encodes; flash fwd/dq/dkv {list(counts[:3])} "
+          f"[{smi}]")
+    assert np.isfinite(hist).all(), hist
+    assert ids.shape[0] == 4
+    assert counts == (c["steps"] * c["n_layers"],) * 3 + (0, 0, 0), counts
+    return rec
+
+
+def decode_plane_phase(smi):
+    """Phase 21 (a)-(d) under the precision policy highest. Returns its
+    record; "launches" holds the flash kernels' counts on its paths."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    flags.parse_flags(["--mxu_precision=highest"])
+    seconds = [time.perf_counter()]
+    out = {}
+    out["a"], beams, prompts, params = lm_decoders_part(pt, fa, smi)
+    seconds.append(time.perf_counter())
+    out["b"] = paged_beam_part(pt, smi, beams, prompts, params)
+    del beams, params
+    torch.cuda.empty_cache()
+    seconds.append(time.perf_counter())
+    out["c"] = nmt_base_part(pt, fa, smi)
+    torch.cuda.empty_cache()
+    seconds.append(time.perf_counter())
+    out["d"] = {"transformer_lm": lm_demo_part(pt, fa, smi),
+                "nmt_transformer": nmt_demo_part(pt, fa, smi)}
+    seconds.append(time.perf_counter())
+    out["seconds"] = [b - a for a, b in zip(seconds, seconds[1:])]
+    print("phase 21 seconds: " + ", ".join(
+        f"{part} {s:.1f}" for part, s in zip(("(a)", "(b)", "(c)", "(d)"),
+                                              out["seconds"]))
+        + f"; {sum(out['seconds']):.1f} in all [{smi}]")
+    return out
+
+
+def phase21_launches(records, plane):
+    """The flash records' launches on phase 21's paths: each one-shot
+    decoder's prefill (a), a Transformer-base step in f32 and under AMP
+    (c); the bf16 instances none (the teacher op's q/k/v stay f32 under
+    AMP, as in the JAX op)."""
+    steps = NMT_BASE["steps"]
+    per_step = {p: [n // steps for n in plane["c"][k]["flash_launches"]]
+                for p, k in (("f32", "f32"), ("AMP", "amp"))}
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    names = names + tuple(n + "_bf16" for n in names)
+    for rec in records:
+        if rec["name"] not in names:
+            continue
+        i = names.index(rec["name"])
+        paths = {f"Transformer-base step, {p}": v[i]
+                 for p, v in per_step.items()}
+        if i == 0:
+            paths.update({f"d1024 LM {k} prefill":
+                          plane["a"][k]["flash_launches"]
+                          for k in ("beam", "speculative", "greedy")})
+        rec["launches_phase21"] = paths
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -10325,6 +11041,12 @@ def main():
                              "ResNet-50 under default and highest, the "
                              "flags, the engine's keys, the saved dtypes, "
                              "the v2 demos); prints no ok line")
+    parser.add_argument("--decode-plane-only", action="store_true",
+                        help="build the kernels and run only phase 21 (the "
+                             "decode plane: the d1024 LM's beam, "
+                             "speculative and greedy decoders, the paged "
+                             "beam plane, Transformer-base NMT trained and "
+                             "served, the two demos); prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -10534,6 +11256,14 @@ def main():
              r["launches_phase20"]} for r in recs]}))
         print(smi)
         return
+    if args.decode_plane_only:
+        plane = decode_plane_phase(smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_decode_plane.json").write_text(json.dumps(
+            {"gpu": smi, "decode_plane": plane}, indent=1, default=str))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -10614,6 +11344,8 @@ def main():
     optim = optim_phase(smi)
     torch.cuda.empty_cache()
     precision_recs, precision = precision_phase(smi, gpu)
+    torch.cuda.empty_cache()
+    plane = decode_plane_phase(smi)
     records = ([kern, slice_record(
                    kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
@@ -10624,6 +11356,7 @@ def main():
     phase16_launches(records, train_memory)
     phase19_launches(records, optim)
     phase20_launches(records, precision)
+    phase21_launches(records, plane)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -10638,13 +11371,14 @@ def main():
          "per_layer": per_layer, "recurrent": recurrent, "zoo": zoo,
          "trainer": trainer, "train_memory": train_memory,
          "demo_ops": demo_ops, "book": book, "optim": optim,
-         "precision": precision, "build_s": built,
+         "precision": precision, "decode_plane": plane,
+         "build_s": built,
          "rng": rng},
         indent=1, default=str))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **{k: r[k] for k in ("launches_phase16", "launches_phase19",
-                              "launches_phase20")
+                              "launches_phase20", "launches_phase21")
             if k in r}} for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ engine default field by field (:meth:`SamplingParams.from_meta`). The
 paged engine feeds each row's policy into its one decode step; a sampled
 request's tokens are a function of (request, ``seed``) alone, drawn from
 ``fold_in(PRNGKey(seed), step)`` (``core/prng.py``) exactly as the JAX
-package draws them. Beam search (``BeamParams``) is a later slice.
+package draws them. :class:`BeamParams` is a beam request's policy.
 """
 from __future__ import annotations
 
@@ -112,3 +112,33 @@ class SamplingParams:
 
     def with_seed(self, seed: int) -> "SamplingParams":
         return dataclasses.replace(self, seed=int(seed))
+
+
+@dataclasses.dataclass(frozen=True)
+class BeamParams:
+    """Beam-search policy for a request (``beam_size`` in the request
+    meta / /v1/generate body). Beam decode is deterministic: sampling
+    fields are ignored for beam requests."""
+
+    beam_size: int = 4
+    length_penalty: float = 0.0  # GNMT ((5+len)/6)^alpha normalization
+    eos_id: Optional[int] = None
+    return_all: bool = False     # future result = (ids [K, T], scores [K])
+
+    def validate(self, vocab_size: Optional[int] = None) -> None:
+        if self.beam_size < 1:
+            raise ValueError(f"beam_size must be >= 1, got "
+                             f"{self.beam_size}")
+        if vocab_size is not None and self.beam_size > vocab_size:
+            raise ValueError(f"beam_size {self.beam_size} exceeds the "
+                             f"vocab ({vocab_size})")
+
+    @classmethod
+    def from_meta(cls, meta: dict) -> Optional["BeamParams"]:
+        k = (meta or {}).get("beam_size")
+        if not k or int(k) <= 1:
+            return None
+        return cls(beam_size=int(k),
+                   length_penalty=float(meta.get("length_penalty") or 0.0),
+                   eos_id=meta.get("eos_id"),
+                   return_all=bool(meta.get("return_beams", False)))

@@ -7,8 +7,11 @@ Counterpart of ``paddle_tpu/models/transformer.py``:
   ``Executor``: per layer (``transformer_encoder_layer`` blocks, the
   model the JAX package's benchmark trains) or stacked (one
   ``pipelined_transformer_stack`` op);
-- ``transformer_lm_generate`` builds the stacked LM's KV-cache decoding
-  program (one ``transformer_stack_generate`` op) over the same named
+- ``transformer_lm_generate``, ``transformer_lm_beam_search`` and
+  ``transformer_lm_speculative_generate`` build the stacked LM's
+  KV-cache decoding programs (one ``transformer_stack_generate``,
+  ``transformer_stack_beam_search`` or
+  ``transformer_stack_speculative_generate`` op) over the same named
   weights;
 - :class:`TransformerLM` holds the stacked LM's weights for serving.
 
@@ -188,6 +191,78 @@ def transformer_lm_generate(prompt, vocab_size, d_model=256, n_layers=4,
                           "top_k": int(top_k)})
     o.stop_gradient = True
     return o
+
+
+def transformer_lm_beam_search(prompt, vocab_size, d_model=256, n_layers=4,
+                               num_heads=8, d_ff=None, num_kv_heads=None,
+                               use_rope=False, max_len=2048,
+                               max_new_tokens=32, beam_size=4,
+                               length_penalty=0.0, eos_id=None,
+                               main_program=None, startup_program=None):
+    """Beam-search generation for a ``transformer_lm(pipeline_stack=True)``
+    model (one ``transformer_stack_beam_search`` op). Same
+    shared-parameter contract as ``transformer_lm_generate``. Returns
+    (ids [b, K, Tp+N] best-first, scores [b, K])."""
+    kw = dict(main_program=main_program, startup_program=startup_program)
+    d_ff = d_ff or 4 * d_model
+    helper = LayerHelper("transformer_lm_beam_search", **kw)
+    ins = {"Prompt": [prompt]}
+    ins.update(_shared_lm_params(helper, vocab_size, d_model, d_ff,
+                                 max_len, n_layers, num_heads,
+                                 num_kv_heads, use_rope))
+    outs, _ = helper.append_op(
+        "transformer_stack_beam_search", ins, ["Out", "Scores"],
+        {"num_heads": num_heads, "num_kv_heads": num_kv_heads,
+         "use_rope": use_rope, "max_new_tokens": max_new_tokens,
+         "beam_size": beam_size, "length_penalty": float(length_penalty),
+         "eos_id": -1 if eos_id is None else int(eos_id)})
+    ids, scores = outs["Out"][0], outs["Scores"][0]
+    ids.stop_gradient = scores.stop_gradient = True
+    return ids, scores
+
+
+def transformer_lm_speculative_generate(prompt, vocab_size, d_model=256,
+                                        n_layers=4, num_heads=8, d_ff=None,
+                                        num_kv_heads=None, use_rope=False,
+                                        max_len=2048, max_new_tokens=32,
+                                        draft_layers=None, gamma=4,
+                                        main_program=None,
+                                        startup_program=None):
+    """Self-speculative greedy decoding for a
+    ``transformer_lm(pipeline_stack=True)`` model (one
+    ``transformer_stack_speculative_generate`` op): the first
+    ``draft_layers`` of the same stack plus a draft head (draft_ln.scale,
+    draft_ln.bias, draft_head.w) propose ``gamma`` tokens a round and
+    the full stack verifies them in one block-causal pass. The output is
+    exactly the greedy decode. Returns (ids [b, Tp+N], rounds [1]: plain
+    decode would take N)."""
+    from ..initializer import ConstantInitializer
+
+    kw = dict(main_program=main_program, startup_program=startup_program)
+    d_ff = d_ff or 4 * d_model
+    draft_layers = draft_layers or max(1, n_layers // 2)
+    helper = LayerHelper("transformer_lm_speculative_generate", **kw)
+    ins = {"Prompt": [prompt]}
+    ins.update(_shared_lm_params(helper, vocab_size, d_model, d_ff,
+                                 max_len, n_layers, num_heads,
+                                 num_kv_heads, use_rope))
+    ins["DraftLnS"] = [helper.create_parameter(
+        ParamAttr(name="draft_ln.scale"), shape=[d_model],
+        dtype="float32", default_initializer=ConstantInitializer(1.0))]
+    ins["DraftLnB"] = [helper.create_parameter(
+        ParamAttr(name="draft_ln.bias"), shape=[d_model], dtype="float32",
+        is_bias=True)]
+    ins["DraftHeadW"] = [helper.create_parameter(
+        ParamAttr(name="draft_head.w"), shape=[d_model, vocab_size],
+        dtype="float32")]
+    outs, _ = helper.append_op(
+        "transformer_stack_speculative_generate", ins, ["Out", "Rounds"],
+        {"num_heads": num_heads, "num_kv_heads": num_kv_heads,
+         "use_rope": use_rope, "max_new_tokens": max_new_tokens,
+         "draft_layers": int(draft_layers), "gamma": int(gamma)})
+    ids, rounds = outs["Out"][0], outs["Rounds"][0]
+    ids.stop_gradient = rounds.stop_gradient = True
+    return ids, rounds
 
 
 def param_shapes(spec) -> Dict[str, tuple]:

@@ -4,5 +4,5 @@ Importing this package registers every ported op in
 ``core/registry.py``."""
 from . import (activation_ops, attention_ops,  # noqa: F401
                control_flow_ops, crf_ops, fusion_ops, loss_ops, math_ops,
-               nn_ops, optimizer_ops, pipeline_ops, rnn_ops, sequence_ops,
-               tensor_ops)
+               nn_ops, optimizer_ops, pipeline_ops, rnn_ops, seq2seq_ops,
+               sequence_ops, tensor_ops)

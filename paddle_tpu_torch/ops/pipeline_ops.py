@@ -1,8 +1,9 @@
 """Stacked transformer ops: L pre-LN blocks with stacked weights.
 
-Counterpart of ``paddle_tpu/ops/pipeline_ops.py``, cut to the training
-op (``pipelined_transformer_stack``) and the serving paths of the dense
-slot engine and the paged engine. Every weight carries a leading layer
+Counterpart of ``paddle_tpu/ops/pipeline_ops.py``: the training op
+(``pipelined_transformer_stack``), the one-shot decoders (greedy or
+sampled, beam search, self-speculative) and the serving paths of the
+dense slot engine and the paged engine. Every weight carries a leading layer
 axis [L, ...] in the JAX layout ([in, out], applied as ``x @ W``); where
 the JAX package scans over that axis, the port runs a Python loop over
 layers. Op functions take ``(attrs, ins)`` with ``ins`` a dict of slot
@@ -13,8 +14,8 @@ bf16 operands (``amp_cast``, ``common.matmul``: f32 accumulation) and their
 results are cast back to the activations' dtype, as the JAX op casts them,
 so activations, q/k/v and the flash kernels stay f32.
 
-Causal attention over a whole sequence (the training forward and the
-dense prefill) is the sm_90a flash kernel (``kernels/flash_attention.py``),
+Causal attention over a whole sequence (the training forward and every
+one-shot decoder's and the dense engine's prefill) is the sm_90a flash kernel (``kernels/flash_attention.py``),
 differentiable through its backward kernels; decode attention over the
 slot cache, and both paged ops' attention over their gathered pages, stay
 plain tensor code (``reference_attention``), as the JAX package leaves
@@ -34,6 +35,7 @@ from ..kernels.flash_attention import (flash_attention, reference_attention,
                                        rotary)
 from ..kernels.sampling import sample_rows, top_logprobs
 from .common import amp_cast, matmul, maybe, out, product_precision, single
+from .control_flow_ops import _log_softmax, _top_k
 
 _EPS = 1e-5
 
@@ -393,6 +395,228 @@ def transformer_stack_generate(attrs, ins, rng=None):
     return out(Out=torch.cat([prompt, gen], dim=1))
 
 
+def _unpack_lm_ins(ins):
+    """(prompt, tok_emb, pos_emb, final LN scale, bias, head_w, stacked
+    block weights) of a one-shot decoder's inputs."""
+    return (single(ins, "Prompt"), single(ins, "TokEmb"),
+            maybe(ins, "PosEmb"), single(ins, "FinalLnS"),
+            single(ins, "FinalLnB"), single(ins, "HeadW"),
+            _stack_params(ins))
+
+
+def _padded_cache(ks, vs, T):
+    """The prefill's per-layer K/V lists as [L, b, Hkv, T, dh] caches,
+    rows past the prompt zero."""
+    Tp = ks[0].shape[2]
+    shape = (len(ks), ks[0].shape[0], ks[0].shape[1], T, ks[0].shape[3])
+    cache_k = torch.zeros(shape, dtype=ks[0].dtype, device=ks[0].device)
+    cache_v = torch.zeros_like(cache_k)
+    cache_k[:, :, :, :Tp] = torch.stack(ks)
+    cache_v[:, :, :, :Tp] = torch.stack(vs)
+    return cache_k, cache_v
+
+
+@register_op("transformer_stack_beam_search", optional_inputs=("PosEmb",))
+def transformer_stack_beam_search(attrs, ins):
+    """Beam search over the KV-cache decode path.
+
+    Same inputs as transformer_stack_generate; attrs: num_heads,
+    max_new_tokens, beam_size, length_penalty (GNMT
+    ((5+len)/6)^alpha score normalisation), eos_id (-1 = none).
+    Out [b, K, Tp + N] int (beams sorted best-first) and Scores [b, K]
+    f32 (length-normalised log-probs).
+
+    The beams ride the batch axis (caches [L, b*K, ...]); every step
+    gathers each layer's cache by the surviving beams' parent index. The
+    JAX op's scan over steps is a Python loop here, each step's top-K a
+    stable sort, so ties break as ``lax.top_k`` breaks them."""
+    (prompt, tok_emb, pos_emb, ln_s, ln_b, head_w,
+     params) = _unpack_lm_ins(ins)
+    num_heads = attrs["num_heads"]
+    num_kv_heads = attrs.get("num_kv_heads") or num_heads
+    use_rope = attrs.get("use_rope", False)
+    N = attrs["max_new_tokens"]
+    K = attrs.get("beam_size", 4)
+    alpha = attrs.get("length_penalty") or 0.0
+    eos_id = attrs.get("eos_id", -1)
+    if eos_id is None:
+        eos_id = -1
+    b, Tp = prompt.shape
+    V = head_w.shape[1]
+    if pos_emb is not None and Tp + N > pos_emb.shape[0]:
+        raise ValueError(f"prompt {Tp} + {N} new tokens exceeds max_len "
+                         f"{pos_emb.shape[0]}")
+    if N < 1:
+        raise ValueError("beam search needs max_new_tokens >= 1")
+    if not 0 < K <= V:
+        raise ValueError(f"beam_size {K} outside [1, vocab {V}]")
+    dev = prompt.device
+    embed = _embed_fn(tok_emb, pos_emb)
+    logits_of = _logits_fn(ln_s, ln_b, head_w)
+
+    # prefill over the bare batch, then tile to beams
+    h, ks, vs = _prefill(params, embed(prompt, 0), num_heads, b, Tp,
+                         num_kv_heads, use_rope)
+    cache_k, cache_v = _padded_cache(ks, vs, Tp + N)
+    cache_k = cache_k.repeat_interleave(K, dim=1)  # [L, b*K, Hkv, T, dh]
+    cache_v = cache_v.repeat_interleave(K, dim=1)
+    scores, tok0 = _top_k(_log_softmax(logits_of(h[:, -1])), K)  # [b, K]
+    tokens = torch.full((b, K, N), eos_id if eos_id >= 0 else 0,
+                        dtype=prompt.dtype, device=dev)
+    tokens[:, :, 0] = tok0.to(prompt.dtype)
+    alive = (tok0 != eos_id) if eos_id >= 0 else \
+        torch.ones((b, K), dtype=torch.bool, device=dev)
+    if eos_id >= 0:
+        frozen = torch.full((V,), -math.inf, device=dev)
+        frozen[eos_id] = 0.0
+    batch_ix = torch.arange(b, device=dev)[:, None]
+    for n in range(N - 1):
+        pos = Tp + n  # the query's position
+        h1 = embed(tokens[:, :, n].reshape(b * K)[:, None], pos)
+        for i in range(cache_k.shape[0]):
+            h1 = _decode_layer(_layer(params, i), h1, cache_k[i],
+                               cache_v[i], pos, num_heads, num_kv_heads,
+                               use_rope)
+        logp = _log_softmax(logits_of(h1[:, 0])).reshape(b, K, V)
+        # finished beams: only the eos continuation keeps their score
+        if eos_id >= 0:
+            logp = torch.where(alive[:, :, None], logp, frozen)
+        cand = scores[:, :, None] + logp  # [b, K, V]
+        scores, flat_idx = _top_k(cand.reshape(b, K * V), K)
+        parent = flat_idx // V  # [b, K]
+        tok = (flat_idx % V).to(tokens.dtype)
+        tokens = tokens[batch_ix, parent]
+        tokens[:, :, n + 1] = tok
+        if eos_id >= 0:
+            alive = alive[batch_ix, parent] & (tok != eos_id)
+        flat_parent = (batch_ix * K + parent).reshape(b * K)
+        cache_k = cache_k[:, flat_parent]
+        cache_v = cache_v[:, flat_parent]
+
+    if alpha:
+        # GNMT length normalisation over the generated (non-frozen) length
+        if eos_id >= 0:
+            hit = tokens == eos_id
+            gen_len = torch.clamp(hit.int().argmax(dim=2) + 1, max=N).float()
+            gen_len = torch.where(hit.any(dim=2), gen_len,
+                                  torch.full_like(gen_len, float(N)))
+        else:
+            gen_len = torch.full((b, K), float(N), device=dev)
+        scores = scores / ((5.0 + gen_len) / 6.0) ** alpha
+    order = torch.sort(-scores, dim=1, stable=True).indices
+    tokens = tokens[batch_ix, order]
+    scores = scores[batch_ix, order]
+    prompts = prompt[:, None, :].expand(b, K, Tp)
+    return out(Out=torch.cat([prompts, tokens], dim=2), Scores=scores)
+
+
+def _window_verify(params, xw, cache_k, cache_v, pos0, num_heads,
+                   num_kv_heads, use_rope):
+    """Forward a w-token window through every layer against the cache
+    (block-causal: window token i attends cache rows <= pos0 + i),
+    writing the window's K/V at rows pos0..pos0+w-1 in place: the verify
+    pass of speculative decoding. Returns the hidden [b, w, d]."""
+    b, w, d = xw.shape
+    row = max(0, min(pos0, cache_k.shape[3] - w))  # dynamic-update clamp
+    h = xw
+    for i in range(cache_k.shape[0]):
+        layer_p = _layer(params, i)
+        q, k, v = _attn_proj(layer_p, h, num_heads, num_kv_heads, use_rope,
+                             pos0=pos0)
+        cache_k[i, :, :, row:row + w] = k
+        cache_v[i, :, :, row:row + w] = v
+        ctx = reference_attention(q, cache_k[i], cache_v[i], causal=True,
+                                  q_pos0=pos0)
+        h = _attn_out_ffn(layer_p, h, ctx.transpose(1, 2).reshape(b, w, d))
+    return h
+
+
+@register_op("transformer_stack_speculative_generate",
+             optional_inputs=("PosEmb",))
+def transformer_stack_speculative_generate(attrs, ins):
+    """Self-speculative greedy decoding: an early-exit draft proposes,
+    the full stack verifies.
+
+    Same inputs as transformer_stack_generate plus a draft head
+    (DraftLnS/DraftLnB [d], DraftHeadW [d, V]); attrs: num_heads,
+    max_new_tokens, draft_layers (k < L), gamma (proposals a round).
+    Each round the first k layers of the same stack plus the draft head
+    decode gamma tokens through the cache's first k layer planes; the
+    full stack scores the window in one block-causal pass, and the
+    longest prefix every batch row agrees on is accepted with the
+    target's correction token. Out [b, Tp + N] int is exactly the greedy
+    decode; Rounds [1] int32 counts the verify rounds.
+
+    The JAX op's ``while_loop`` is a host loop: each round reads the
+    batch-minimum acceptance back (one synchronisation a round)."""
+    (prompt, tok_emb, pos_emb, ln_s, ln_b, head_w,
+     params) = _unpack_lm_ins(ins)
+    num_heads = attrs["num_heads"]
+    num_kv_heads = attrs.get("num_kv_heads") or num_heads
+    use_rope = attrs.get("use_rope", False)
+    N = attrs["max_new_tokens"]
+    k_layers = attrs["draft_layers"]
+    gamma = attrs.get("gamma", 4)
+    b, Tp = prompt.shape
+    L = params["ln1_s"].shape[0]
+    if not 0 < k_layers < L:
+        raise ValueError(f"draft_layers {k_layers} outside [1, {L - 1}]")
+    if N < 1 or gamma < 1:
+        raise ValueError("max_new_tokens and gamma must be >= 1")
+    # cache slack: a round may write gamma + 1 rows past the last emit
+    Ttot = Tp + N + gamma + 1
+    if pos_emb is not None and Ttot > pos_emb.shape[0]:
+        raise ValueError(
+            f"prompt {Tp} + {N} new tokens (+{gamma + 1} speculative "
+            f"slack) exceeds max_len {pos_emb.shape[0]}")
+    if prompt.is_meta:  # shape inference: the loop's length is data
+        return out(Out=torch.empty((b, Tp + N), dtype=prompt.dtype),
+                   Rounds=torch.empty((1,), dtype=torch.int32))
+    embed = _embed_fn(tok_emb, pos_emb)
+    logits_of = _logits_fn(ln_s, ln_b, head_w)
+    draft_logits_of = _logits_fn(single(ins, "DraftLnS"),
+                                 single(ins, "DraftLnB"),
+                                 single(ins, "DraftHeadW"))
+
+    h, ks, vs = _prefill(params, embed(prompt, 0), num_heads, b, Tp,
+                         num_kv_heads, use_rope)
+    cache_k, cache_v = _padded_cache(ks, vs, Ttot)
+    cur = torch.argmax(logits_of(h[:, -1]), dim=-1).to(prompt.dtype)
+    tokens = torch.zeros((b, N + gamma + 1), dtype=prompt.dtype,
+                         device=prompt.device)
+    tokens[:, 0] = cur
+    n, pos, rounds = 0, Tp, 0
+    # tokens[0] came from the prefill; indices 0..n are filled
+    while n < N - 1:
+        # 1. draft chain: k-layer incremental decode of gamma proposals
+        dtok, dtoks = cur, []
+        for i in range(gamma):
+            h1 = embed(dtok[:, None], pos + i)
+            for j in range(k_layers):
+                h1 = _decode_layer(_layer(params, j), h1, cache_k[j],
+                                   cache_v[j], pos + i, num_heads,
+                                   num_kv_heads, use_rope)
+            dtok = torch.argmax(draft_logits_of(h1[:, 0]),
+                                dim=-1).to(prompt.dtype)
+            dtoks.append(dtok)
+        dtoks = torch.stack(dtoks, dim=1)  # [b, gamma]
+        # 2. verify: the full stack over [cur, d_0..d_{gamma-1}] at once
+        window = torch.cat([cur[:, None], dtoks], dim=1)
+        hw = _window_verify(params, embed(window, pos), cache_k, cache_v,
+                            pos, num_heads, num_kv_heads, use_rope)
+        t = torch.argmax(logits_of(hw.reshape(b * (gamma + 1), -1)),
+                         dim=-1).reshape(b, gamma + 1).to(prompt.dtype)
+        # 3. lockstep acceptance: the batch-min longest agreeing prefix
+        agree = (t[:, :gamma] == dtoks).int()
+        a = int(torch.cumprod(agree, dim=1).sum(dim=1).min())
+        tokens[:, n + 1:n + 2 + a] = t[:, :a + 1]
+        cur = t[:, a]
+        n, pos, rounds = n + 1 + a, pos + 1 + a, rounds + 1
+    return out(Out=torch.cat([prompt, tokens[:, :N]], dim=1),
+               Rounds=torch.tensor([rounds], dtype=torch.int32,
+                                   device=prompt.device))
+
+
 # ---------------------------------------------------------------------------
 # Slot-cache decode ops: the continuous-batching serving path
 # (serving/generation.py). The KV cache is a slot table [L, S, Hkv, Tmax,
@@ -569,6 +793,20 @@ def _gather_pages(pool_l, table):
     return ctx.transpose(1, 2).reshape(b, hkv, P * ps, dh)
 
 
+def _paged_targets(start, lengths, table, Tc, ps):
+    """Absolute positions [b, Tc] of a prefill chunk and each token's
+    (page, row) target; padding tokens write the scrap page 0."""
+    P = table.shape[1]
+    steps = torch.arange(Tc, device=start.device)
+    pos = start[:, None] + steps[None, :]
+    valid = steps[None, :] < lengths[:, None]
+    entry = (pos // ps).clamp(0, P - 1)
+    zero = torch.zeros_like(pos)
+    page_id = torch.where(valid, torch.gather(table, 1, entry), zero)
+    page_row = torch.where(valid, pos % ps, zero)
+    return pos, page_id, page_row
+
+
 def _lm_head(ins):
     return (single(ins, "TokEmb"), maybe(ins, "PosEmb"),
             _logits_fn(single(ins, "FinalLnS"), single(ins, "FinalLnB"),
@@ -613,18 +851,10 @@ def transformer_stack_paged_prefill(attrs, ins, rng=None):
     num_kv_heads = attrs.get("num_kv_heads") or num_heads
     use_rope = attrs.get("use_rope", False)
     b, Tc = chunk.shape
-    ps = cache_k.shape[3]
-    P = table.shape[1]
     d = params["ln1_s"].shape[1]
     dev = chunk.device
-    # absolute positions + per-token page targets (padding -> scrap 0)
-    steps = torch.arange(Tc, device=dev)
-    pos = start[:, None] + steps[None, :]
-    valid = steps[None, :] < lengths[:, None]
-    entry = (pos // ps).clamp(0, P - 1)
-    zero = torch.zeros_like(pos)
-    page_id = torch.where(valid, torch.gather(table, 1, entry), zero)
-    page_row = torch.where(valid, pos % ps, zero)
+    pos, page_id, page_row = _paged_targets(start, lengths, table, Tc,
+                                            cache_k.shape[3])
     h = _take_rows(tok_emb, chunk)
     if pos_emb is not None:
         h = h + pos_emb[pos.clamp(0, pos_emb.shape[0] - 1)]

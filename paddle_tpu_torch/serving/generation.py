@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..core import prng
-from ..decoding.params import SamplingParams
+from ..decoding.beam import BeamJob
+from ..decoding.params import BeamParams, SamplingParams
 from ..decoding.stops import StopMatcher
 from ..models.transformer import TransformerLM
 from ..ops.common import policy_key
@@ -519,7 +520,8 @@ class GenerationEngine:
 # ---------------------------------------------------------------------------
 class _PagedSlot(_Slot):
     __slots__ = ("pages", "shared_tokens", "cow_reserve", "prefill_done",
-                 "state", "sampling", "stop_matcher", "mask_proc")
+                 "state", "sampling", "stop_matcher", "mask_proc",
+                 "beam_job", "role", "xrow")
 
     def __init__(self, request, prompt, max_new, eos_id,
                  sampling: Optional[SamplingParams] = None):
@@ -529,9 +531,13 @@ class _PagedSlot(_Slot):
         self.cow_reserve = 0             # pages held for copy-on-write
         self.prefill_done = 0            # prompt tokens whose K/V is cached
         self.state = "decode"            # "prefill" while chunks stream in
+                                         # ("hold"/"beam_wait" for beams)
         self.sampling = sampling or SamplingParams()
         self.stop_matcher = StopMatcher(self.sampling.stop)
         self.mask_proc = self.sampling.logits_processor
+        self.beam_job = None             # set for beam-owned slots
+        self.role = "normal"             # beam_parent | beam | hold
+        self.xrow = None                 # seq2seq: cross-KV cache row
 
 
 class PagedGenerationEngine(GenerationEngine):
@@ -563,20 +569,29 @@ class PagedGenerationEngine(GenerationEngine):
     sampled row's tokens are a function of (request, seed) alone, equal
     to the JAX engine's (``core/prng.py``).
 
+    **Beam search as paged forks** (``beam_width`` > 0): the prefill and
+    decode steps also return each row's top-``beam_width`` log-probs
+    (TopV/TopI), and a request with ``beam_size`` in its meta (or
+    :meth:`generate_beam`) claims ``beam_size`` slots whose hypotheses
+    (:class:`~paddle_tpu_torch.decoding.BeamJob`) fork by refcount: the
+    written prefix is shared, the boundary page copied on write. Beam
+    rows ride the same decode step as every other request.
+
     The decode step is one fixed shape: every slot, a ``[slots, pmax]``
     block table. On a CUDA device the engine captures it (the paged
     decode op plus the sampler) once into a ``torch.cuda.CUDAGraph`` and
     each tick copies the host feed into its static inputs, replays it and
-    reads NextTok back: one launch of the whole step instead of hundreds
-    of small ones. Copy-on-write copies run eagerly before the replay. A
-    capture or replay that fails raises; nothing decodes eagerly on the
-    card in its place. On the CPU the step runs eagerly.
+    reads NextTok (and the beam plane's TopV/TopI) back: one launch of
+    the whole step instead of hundreds of small ones. Copy-on-write
+    copies (a beam fork's boundary page's too) run eagerly before the
+    replay. A capture or replay that
+    fails raises; nothing decodes eagerly on the card in its place. On
+    the CPU the step runs eagerly.
 
-    Not in this slice (each raises, naming ROADMAP.md): beam search
-    (``beam_width``/``generate_beam``), a pool shared with another engine
-    (``share_cache_with``) and KV handoff (``export_slot``/
-    ``adopt_slot``), resume-from-token recovery, warmup manifests and
-    ``swap_params``.
+    Not ported yet (each raises, naming ROADMAP.md): a pool shared with
+    another engine (``share_cache_with``) and KV handoff
+    (``export_slot``/``adopt_slot``), resume-from-token recovery, warmup
+    manifests and ``swap_params``.
     """
 
     def __init__(self, spec: LMSpec,
@@ -595,9 +610,8 @@ class PagedGenerationEngine(GenerationEngine):
                 "for the dense slot table")
         if page_size is not None and page_size < 1:
             raise ValueError("page_size must be >= 1")
-        if beam_width:
-            raise NotImplementedError(_LATER.format("beam plane "
-                                                    "(beam_width)"))
+        if beam_width < 0:
+            raise ValueError("beam_width must be >= 0")
         if share_cache_with is not None:
             raise NotImplementedError(_LATER.format(
                 "shared page pool (share_cache_with, disaggregation)"))
@@ -605,6 +619,9 @@ class PagedGenerationEngine(GenerationEngine):
         self._n_pages_arg = n_pages
         self._prefill_chunk_arg = prefill_chunk
         self._prefix_sharing = bool(prefix_sharing)
+        # beam_width > 0 puts the TopV/TopI (emit_topk) plane into the
+        # prefill and decode steps; beam requests up to this width ride it
+        self.beam_width = int(beam_width)
         super().__init__(spec, model, **kw)
 
     # -- cache construction ---------------------------------------------------
@@ -613,8 +630,12 @@ class PagedGenerationEngine(GenerationEngine):
         self.page_size = int(self._page_size_arg or min(64, self.tmax))
         # table width: enough entries for a full-context sequence
         self.pmax = -(-self.tmax // self.page_size)
+        # beam engines default to a bigger pool: K fully diverged
+        # hypotheses can each hold a full table plus a copy-on-write spare
+        beam_extra = self.slots + 2 * self.beam_width if self.beam_width \
+            else 0
         self.n_pages = int(self._n_pages_arg
-                           or self.slots * self.pmax + 1)
+                           or self.slots * self.pmax + 1 + beam_extra)
         if self.n_pages < 2:
             raise ValueError("need at least 2 pages (one is scrap)")
         chunk = self._prefill_chunk_arg
@@ -635,6 +656,7 @@ class PagedGenerationEngine(GenerationEngine):
         self._pos = np.zeros(self._nslots, np.int32)
         self._deferred = deque()  # pool-blocked validated admissions
         self._pf_cursor = 0       # round-robin over prefilling slots
+        self._beam_jobs: List[BeamJob] = []
         self._seed_counter = 0    # default per-request seeds
         shape = (s.n_layers, self.n_pages, s.kv_heads, self.page_size,
                  s.head_dim)
@@ -642,9 +664,10 @@ class PagedGenerationEngine(GenerationEngine):
                                    device=self.device)
         self.cache_v = torch.zeros_like(self.cache_k)
         self._graph = None        # the captured decode step (CUDA)
-        self._graph_policy = None  # the policies it was captured under
+        self._graph_key = None    # the policies and beam width of it
         self._static: Dict[str, torch.Tensor] = {}
         self._static_next: Optional[torch.Tensor] = None
+        self._static_top: tuple = ()  # the beam plane's TopV, TopI
         self._mask_open = True    # the static mask is all ones
         self.metrics.set_gauge("mem/kv_cache_bytes",
                                2.0 * float(np.prod(shape)) * 4)
@@ -658,7 +681,17 @@ class PagedGenerationEngine(GenerationEngine):
         attrs["temperature"] = 0.0
         attrs["top_k"] = 0
         attrs["page_size"] = self.page_size
+        if self.beam_width:
+            attrs["emit_topk"] = self.beam_width
         return attrs
+
+    def _step_outs(self, res) -> tuple:
+        """(NextTok, TopV, TopI) of a paged step's outputs, on the host;
+        the beam plane's two are None without it."""
+        if not self.beam_width:
+            return res["NextTok"][0].cpu().numpy(), None, None
+        return tuple(res[k][0].cpu().numpy()
+                     for k in ("NextTok", "TopV", "TopI"))
 
     def _check_prompt_fits(self, prompt: np.ndarray) -> None:
         # chunked prefill serves ANY prompt the context admits: the
@@ -707,23 +740,34 @@ class PagedGenerationEngine(GenerationEngine):
             else:
                 feed["mask"][row] = mask
 
+    # the per-row plane of the steps' feeds (op slot, feed key) and the
+    # ops of the two steps: a subclass extends the plane and swaps the ops
+    _plane = _PLANE
+    _prefill_op = staticmethod(transformer_stack_paged_prefill)
+    _decode_op = staticmethod(transformer_stack_paged_decode)
+
     def _sampling_ins(self, feed) -> Dict[str, list]:
-        """The sampling plane's op inputs from a host feed."""
+        """The per-row plane's op inputs from a host feed."""
         return {slot: [torch.from_numpy(feed[key]).to(self.device)]
-                for slot, key in _PLANE}
+                for slot, key in self._plane}
+
+    def _state_ins(self) -> Dict[str, list]:
+        """The steps' device state: the page pools and the weights."""
+        return {"CacheK": [self.cache_k], "CacheV": [self.cache_v],
+                **self._lm_ins}
 
     # -- device steps ---------------------------------------------------------
     @torch.no_grad()
-    def _run_prefill_chunk(self, feed) -> np.ndarray:
+    def _run_prefill_chunk(self, feed) -> tuple:
+        """One prefill call: (NextTok, TopV, TopI) on the host."""
         dev = self.device
         ins = {"Chunk": [torch.from_numpy(feed["chunk"]).to(dev)],
                "StartPos": [torch.from_numpy(feed["start"]).to(dev)],
                "Lengths": [torch.from_numpy(feed["chunk_len"]).to(dev)],
                "BlockTable": [torch.from_numpy(feed["block_table"]).to(dev)],
-               "CacheK": [self.cache_k], "CacheV": [self.cache_v],
-               **self._sampling_ins(feed), **self._lm_ins}
-        res = transformer_stack_paged_prefill(self._decode_attrs(), ins)
-        return res["NextTok"][0].cpu().numpy()
+               **self._sampling_ins(feed), **self._state_ins()}
+        res = self._prefill_op(self._decode_attrs(), ins)
+        return self._step_outs(res)
 
     @torch.no_grad()
     def _run_page_copy(self, src: int, dst: int) -> None:
@@ -737,19 +781,17 @@ class PagedGenerationEngine(GenerationEngine):
         """The paged decode op's inputs from device tensors ``feed``."""
         return {"Tok": [feed["tok"]], "Pos": [feed["pos"]],
                 "BlockTable": [feed["block_table"]],
-                **{slot: [feed[key]] for slot, key in _PLANE},
-                "CacheK": [self.cache_k], "CacheV": [self.cache_v],
-                **self._lm_ins}
+                **{slot: [feed[key]] for slot, key in self._plane},
+                **self._state_ins()}
 
     @torch.no_grad()
-    def _decode_step_eager(self, feed) -> np.ndarray:
+    def _decode_step_eager(self, feed) -> tuple:
         """One decode step run op by op (the CPU's step; on the card only
         the reference the replayed step is checked against)."""
         dev = self.device
         tensors = {k: torch.from_numpy(v).to(dev) for k, v in feed.items()}
-        res = transformer_stack_paged_decode(self._decode_attrs(),
-                                             self._decode_ins(tensors))
-        return res["NextTok"][0].cpu().numpy()
+        res = self._decode_op(self._decode_attrs(), self._decode_ins(tensors))
+        return self._step_outs(res)
 
     def _capture_decode(self) -> None:
         """Capture the decode step into a CUDA graph over static input
@@ -765,27 +807,29 @@ class PagedGenerationEngine(GenerationEngine):
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.no_grad(), torch.cuda.stream(side):
             for _ in range(2):  # library handles and workspaces first
-                transformer_stack_paged_decode(attrs, ins)
+                self._decode_op(attrs, ins)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         # thread-local: another engine's thread may run CUDA work meanwhile
         with torch.no_grad(), torch.cuda.graph(
                 graph, capture_error_mode="thread_local"):
-            res = transformer_stack_paged_decode(attrs, ins)
+            res = self._decode_op(attrs, ins)
         self._static_next = res["NextTok"][0]
+        self._static_top = tuple(res[k][0] for k in ("TopV", "TopI")
+                                 if k in res)
         self._graph = graph
         self.metrics.inc("decode_graph_captures")
 
-    def _decode_step_replay(self, feed) -> np.ndarray:
+    def _decode_step_replay(self, feed) -> tuple:
         """One decode step as a replay of the captured graph: the host
         feed goes into the static inputs (the mask only when a row is
-        masked now or was last time), then NextTok comes back. A graph
-        captured under another AMP or precision policy is captured
-        anew."""
-        policy = policy_key()
-        if self._graph is None or self._graph_policy != policy:
+        masked now or was last time), then NextTok (and TopV/TopI) come
+        back. A graph captured under another AMP or precision policy, or
+        another beam width, is captured anew."""
+        key = (policy_key(), self.beam_width)
+        if self._graph is None or self._graph_key != key:
             self._capture_decode()
-            self._graph_policy = policy
+            self._graph_key = key
         static = self._static
         for key, arr in feed.items():
             if key == "mask":
@@ -796,9 +840,12 @@ class PagedGenerationEngine(GenerationEngine):
             static[key].copy_(torch.from_numpy(arr), non_blocking=False)
         self._graph.replay()
         self.metrics.inc("decode_graph_replays")
-        return self._static_next.cpu().numpy()
+        nxt = self._static_next.cpu().numpy()
+        if not self.beam_width:
+            return nxt, None, None
+        return (nxt, *(t.cpu().numpy() for t in self._static_top))
 
-    def _decode_step(self, feed) -> np.ndarray:
+    def _decode_step(self, feed) -> tuple:
         if self.device.type == "cuda":
             return self._decode_step_replay(feed)
         return self._decode_step_eager(feed)
@@ -916,12 +963,11 @@ class PagedGenerationEngine(GenerationEngine):
     def _validate(self, req: Request):
         """Base validation plus the request's decode policy: a
         SamplingParams merged request over engine default, field by
-        field; a sampled request without a seed gets the engine's next
-        default seed."""
+        field (a sampled request without a seed gets the engine's next
+        default seed), and BeamParams when the request asks for beam
+        search."""
         prompt, max_new, eos = super()._validate(req)
         meta = req.meta or {}
-        if int(meta.get("beam_size") or 0) > 1:
-            raise BadRequestError(_LATER.format("beam search (beam_size)"))
         if meta.get("resume_tokens"):
             raise BadRequestError(_LATER.format("resume-from-token recovery"))
         sp = meta.get("sampling_params")
@@ -930,8 +976,26 @@ class PagedGenerationEngine(GenerationEngine):
                         else SamplingParams.from_meta(
                             meta, self.default_sampling))
             sampling.validate(self.spec.vocab_size)
+            beam = BeamParams.from_meta(meta)
+            if beam is not None:
+                if beam.eos_id is None and eos is not None:
+                    beam = dataclasses.replace(beam, eos_id=eos)
+                beam.validate(self.spec.vocab_size)
         except (ValueError, TypeError) as exc:
             raise BadRequestError(str(exc))
+        if beam is not None:
+            if not self.beam_width:
+                raise BadRequestError(
+                    "beam request on an engine built without the beam "
+                    "plane — construct with beam_width >= beam_size")
+            if beam.beam_size > self.beam_width:
+                raise BadRequestError(
+                    f"beam_size {beam.beam_size} exceeds the engine's "
+                    f"beam_width ({self.beam_width})")
+            if beam.beam_size > self.slots:
+                raise BadRequestError(
+                    f"beam_size {beam.beam_size} exceeds the slot count "
+                    f"({self.slots}) — a hypothesis occupies one slot")
         if sampling.sampled and sampling.seed is None:
             sampling = sampling.with_seed(self._seed_counter)
             self._seed_counter = (self._seed_counter + 1) & 0x7FFFFFFF
@@ -942,7 +1006,7 @@ class PagedGenerationEngine(GenerationEngine):
                 raise BadRequestError(
                     f"prompt ({prompt.size}) + max_tokens ({max_new}) "
                     f"exceeds the serving context ({self.tmax})")
-        return prompt, max_new, eos, sampling
+        return prompt, max_new, eos, sampling, beam
 
     def admit(self, requests: List[Request]) -> int:
         """Admit a group of requests: prefix-cache lookup + page
@@ -950,8 +1014,9 @@ class PagedGenerationEngine(GenerationEngine):
         whose unshared prompt remainder fits ``prefill_chunk``; longer
         prompts claim their slot and stream in via :meth:`prefill_tick`.
         Requests the pool cannot hold right now are DEFERRED (retried as
-        pages free); only a request that can never fit fails, typed.
-        Returns the number admitted to a slot."""
+        pages free); only a request that can never fit fails, typed. A
+        beam request claims ``beam_size`` slots (its parent plus holds its
+        hypotheses fork into). Returns the number admitted to a slot."""
         todo = []
         for req in requests:
             try:
@@ -977,12 +1042,13 @@ class PagedGenerationEngine(GenerationEngine):
         self._gauges()
         return admitted
 
-    def _admit_one(self, req, prompt, max_new, eos, sampling, group) -> str:
+    def _admit_one(self, req, prompt, max_new, eos, sampling, beam,
+                   group) -> str:
         """Claim a slot + pages for one validated request. Returns "ok"
         (slot taken; short prefills appended to ``group``), "defer"
         (transient pool/slot pressure), or "failed" (future completed
         with CacheExhaustedError: the request can NEVER fit)."""
-        if self.free_slots < 1:
+        if self.free_slots < (beam.beam_size if beam is not None else 1):
             self.metrics.inc("admission_deferred")
             return "defer"
         plen = int(prompt.size)
@@ -1026,6 +1092,25 @@ class PagedGenerationEngine(GenerationEngine):
         st.prefill_done = shared
         self.metrics.observe_hist("queue_wait", st.timeline.queue_wait_s)
         self._slots[slot] = st
+        if beam is not None:
+            # parent + (K-1) parked hold slots the hypotheses fork into;
+            # holds occupy the slot table now, so later admissions cannot
+            # starve the expansion
+            holds = []
+            for _ in range(beam.beam_size - 1):
+                h = self._slots.index(None)
+                hs = _PagedSlot(req, prompt, max_new, eos, sampling)
+                hs.state = hs.role = "hold"
+                self._slots[h] = hs
+                holds.append(h)
+            job = BeamJob(self, req, prompt, max_new, beam,
+                          parent_slot=slot, hold_slots=holds)
+            st.beam_job = job
+            st.role = "beam_parent"
+            for h in holds:
+                self._slots[h].beam_job = job
+            self._beam_jobs.append(job)
+            self.metrics.inc("beam_jobs")
         if shared:
             self.metrics.inc("prefix_hits")
             self.metrics.inc("prefix_hit_tokens", shared)
@@ -1067,7 +1152,7 @@ class PagedGenerationEngine(GenerationEngine):
             feed["block_table"][row, :len(st.pages)] = st.pages
             self._slot_sampling_feed(row, st, feed, step=len(st.generated))
         t0 = time.perf_counter()
-        first = self._run_prefill_chunk(feed)
+        first, topv, topi = self._run_prefill_chunk(feed)
         self.metrics.observe_latency(time.perf_counter() - t0,
                                      name="prefill")
         self.metrics.inc("prefills")
@@ -1076,6 +1161,12 @@ class PagedGenerationEngine(GenerationEngine):
             st.prefill_done = st.prompt.size
             self._register_prefix(st)
             st.state = "decode"
+            if st.role == "beam_parent":
+                # the parent's top-K row expands the hypothesis set; the
+                # job takes the slot bookkeeping over from here
+                st.role = "beam"
+                st.beam_job.on_parent_row(topv[row], topi[row])
+                continue
             self._tok[slot] = first[row]
             self._pos[slot] = st.prompt.size
             self._emit(slot, int(first[row]))
@@ -1086,7 +1177,7 @@ class PagedGenerationEngine(GenerationEngine):
         cannot fit, nothing will ever free its pages: it fails typed."""
         admitted = 0
         while self._deferred:
-            req, prompt, max_new, eos, sampling = self._deferred[0]
+            req, prompt, max_new, eos, sampling, beam = self._deferred[0]
             if req.expired():
                 self._deferred.popleft()
                 self.metrics.inc("timeouts")
@@ -1097,7 +1188,7 @@ class PagedGenerationEngine(GenerationEngine):
             if self.free_slots == 0:
                 break
             group: list = []
-            r = self._admit_one(req, prompt, max_new, eos, sampling,
+            r = self._admit_one(req, prompt, max_new, eos, sampling, beam,
                                 group=group)
             if r == "defer":
                 if self.active == 0 and admitted == 0:
@@ -1150,7 +1241,7 @@ class PagedGenerationEngine(GenerationEngine):
         feed["block_table"][0, :len(st.pages)] = st.pages
         self._slot_sampling_feed(0, st, feed, step=len(st.generated))
         t0 = time.perf_counter()
-        first = self._run_prefill_chunk(feed)
+        first, topv, topi = self._run_prefill_chunk(feed)
         self.metrics.observe_latency(time.perf_counter() - t0,
                                      name="prefill_chunk")
         self.metrics.inc("prefill_chunks")
@@ -1159,16 +1250,21 @@ class PagedGenerationEngine(GenerationEngine):
             self.metrics.inc("prefills")
             self._register_prefix(st)
             st.state = "decode"
-            self._tok[slot] = first[0]
-            self._pos[slot] = plen
-            self._emit(slot, int(first[0]))
+            if st.role == "beam_parent":
+                st.role = "beam"
+                st.beam_job.on_parent_row(topv[0], topi[0])
+            else:
+                self._tok[slot] = first[0]
+                self._pos[slot] = plen
+                self._emit(slot, int(first[0]))
             self._gauges()
         return True
 
     def decode_tick(self) -> bool:
         """Advance every DECODING slot one token (prefilling slots sit
-        out: their block tables are mid-write). One step, the same shape
-        whatever the occupancy or policy mix."""
+        out: their block tables are mid-write; a pool-parked beam job's
+        slots wait in ``beam_wait``). One step, the same shape whatever
+        the occupancy or policy mix."""
         decoding = [s for s in range(self.slots)
                     if self._slots[s] is not None
                     and self._slots[s].state == "decode"]
@@ -1176,21 +1272,203 @@ class PagedGenerationEngine(GenerationEngine):
             return False
         self._cow_guard(decoding)
         t0 = time.perf_counter()
-        nxt = self._decode_step(self._decode_feed())
+        nxt, topv, topi = self._decode_step(self._decode_feed())
         self.metrics.observe_latency(time.perf_counter() - t0,
                                      name="decode_step")
         self.metrics.inc("decode_steps")
         self.metrics.inc("decode_tokens", len(decoding))
         self.metrics.set_gauge("batch_occupancy",
                                len(decoding) / self.slots)
+        beam_rows: Dict[BeamJob, dict] = {}
+        parent_rows = []  # (job, slot): full-prefix-hit first rows
         for slot in decoding:
-            if self._slots[slot] is None:
+            st = self._slots[slot]
+            if st is None:
+                continue
+            if st.beam_job is not None:
+                if st.role == "beam_parent":
+                    st.role = "beam"
+                    parent_rows.append((st.beam_job, slot))
+                else:
+                    beam_rows.setdefault(st.beam_job, {})[slot] = (
+                        topv[slot], topi[slot])
                 continue
             self._pos[slot] += 1
             self._tok[slot] = nxt[slot]
             self._emit(slot, int(nxt[slot]))
+        for job, slot in parent_rows:
+            job.on_parent_row(topv[slot], topi[slot])
+        for job, rows in beam_rows.items():
+            job.on_decode_rows(rows)
         self._gauges()
         return True
+
+    # -- beam search as paged forks -------------------------------------------
+    def _fork_layout(self, pages: List[int], n_written: int):
+        """How a fork views the source's table after ``n_written``
+        positions: (pages shared as they are, fresh pages to allocate,
+        whether the boundary falls inside a page). Fully written pages
+        are shared by refcount; the partially written boundary page is
+        shared with one copy-on-write spare; entries not yet written get
+        fresh pages."""
+        ps = self.page_size
+        n_share = min(len(pages),
+                      n_written // ps + (1 if n_written % ps else 0))
+        return n_share, len(pages) - n_share, bool(n_written % ps)
+
+    def _beam_can_fork(self, job, n_forks: int, n_written: int) -> bool:
+        """Pool feasibility of ``n_forks`` forks of ``job``'s cache view,
+        checked before any state changes, so a rerank applies whole or
+        parks whole."""
+        if n_forks <= 0:
+            return True
+        slot = (job.parent_slot if not job.expanded
+                else job.live_slots()[0])
+        _, own_n, partial = self._fork_layout(self._slots[slot].pages,
+                                              n_written)
+        need = n_forks * (own_n + (2 if partial else 0))  # COW + top-up
+        if need and self.pool.available() < need \
+                and self.prefix_index is not None:
+            self.prefix_index.evict_until(need)
+        return self.pool.available() >= need
+
+    def _beam_fork(self, src_slot: int, hold_slot: int,
+                   n_written: int) -> int:
+        """Fork ``src_slot``'s hypothesis into a parked hold slot: the
+        written prefix is shared (refcounts on an int32 table copy; no
+        cache bytes move), the boundary page gets a copy-on-write spare,
+        and future entries allocate fresh. ``_beam_can_fork`` checked the
+        pool."""
+        st_src = self._slots[src_slot]
+        n_share, own_n, partial = self._fork_layout(st_src.pages,
+                                                    n_written)
+        shared = st_src.pages[:n_share]
+        for pid in shared:
+            self.pool.incref(pid)
+        owned = [self.pool.alloc() for _ in range(own_n)]
+        st = self._slots[hold_slot]
+        st.pages = list(shared) + owned
+        if partial:
+            self.pool.reserve(1)
+            st.cow_reserve = 1
+            if st_src.cow_reserve == 0:
+                # the source's boundary page is shared now too: whichever
+                # sibling writes first copies, so both hold a spare
+                self.pool.reserve(1)
+                st_src.cow_reserve = 1
+        st.state = "decode"
+        st.role = "beam"
+        st.prefill_done = int(st.prompt.size)
+        self.metrics.inc("beam_forks")
+        self.metrics.inc("beam_shared_pages", n_share)
+        return hold_slot
+
+    def _beam_release(self, slot: int, job) -> None:
+        """A hypothesis died (or froze): its pages go back to the pool and
+        the slot parks as a hold for later forks of this job."""
+        st = self._slots[slot]
+        self._release_pages(st)
+        st.state = st.role = "hold"
+        job.holds.append(slot)
+
+    def _beam_park(self, job) -> None:
+        """Pool-parked: the job's slots sit out decode ticks until a
+        retry (``_beam_maintenance``) finds pages."""
+        for slot in self._beam_live(job):
+            self._slots[slot].state = "beam_wait"
+        self.metrics.inc("beam_parked")
+
+    def _beam_unpark(self, job) -> None:
+        for slot in self._beam_live(job):
+            self._slots[slot].state = "decode"
+
+    @staticmethod
+    def _beam_live(job) -> List[int]:
+        """The job's slots that decode: its live hypotheses, or its
+        parent before the expansion."""
+        return job.live_slots() if job.expanded else [job.parent_slot]
+
+    def _beam_free_slots(self, job) -> None:
+        slots = set(job.holds) | set(job.live_slots())
+        if not job.expanded:
+            slots.add(job.parent_slot)
+        for slot in slots:
+            st = self._slots[slot]
+            if st is not None:
+                if st.pages:
+                    self._release_pages(st)
+                self._slots[slot] = None
+        job.holds = []
+
+    def _beam_finish(self, job, ids: np.ndarray,
+                     scores: np.ndarray) -> None:
+        """Every hypothesis frozen or at the horizon: free the job's slots
+        and complete the request with ``(ids [K, Tp+N], scores [K])`` when
+        it asked for all beams, else the best beam's ids cut after its
+        eos."""
+        self._beam_free_slots(job)
+        if job in self._beam_jobs:
+            self._beam_jobs.remove(job)
+        if job.params.return_all:
+            result = (ids, scores)
+        else:
+            result = ids[0]
+            plen = int(job.prompt.size)
+            if job.eos_id >= 0:
+                hits = np.nonzero(result[plen:] == job.eos_id)[0]
+                if hits.size:
+                    result = result[:plen + int(hits[0]) + 1]
+        latency = time.monotonic() - job.request.enqueue_t
+        job.request.future.set_result(result)
+        self.metrics.inc("completed")
+        self.metrics.observe_latency(latency)
+
+    def _beam_abort(self, job, exc) -> None:
+        self._beam_free_slots(job)
+        if job in self._beam_jobs:
+            self._beam_jobs.remove(job)
+        job.done = True
+        self.metrics.inc("cache_exhausted")
+        job.request.future.set_exception(exc)
+
+    def _beam_maintenance(self) -> bool:
+        """Retry pool-parked beam jobs; a job that can never get its pages
+        (nothing else runs and eviction already failed) aborts typed
+        instead of parking forever."""
+        did = False
+        for job in list(self._beam_jobs):
+            if not job.waiting:
+                continue
+            if job.retry():
+                did = True
+                continue
+            others = any(st is not None and st.beam_job is not job
+                         for st in self._slots)
+            if not others and not self._deferred:
+                self._beam_abort(job, CacheExhaustedError(
+                    f"beam_size {job.K} cannot get its fork pages "
+                    f"({self.pool.available()} available and nothing "
+                    "else in flight) — shrink the beam or grow n_pages",
+                    pages_needed=job.K, pages_free=self.pool.available()))
+        return did
+
+    def generate_beam(self, prompt, beam_size: int = 4,
+                      max_new_tokens: Optional[int] = None,
+                      eos_id: Optional[int] = None,
+                      length_penalty: float = 0.0,
+                      return_all: bool = True):
+        """Synchronous beam search through the engine loop. Returns
+        ``(ids [K, Tp+N] best-first, scores [K])`` (``return_all=False``:
+        the best beam's ids). Token-exact against
+        ``transformer_stack_beam_search`` over the same weights."""
+        req = Request({"prompt": prompt},
+                      {"max_new_tokens": (max_new_tokens
+                                          or self.default_max_new_tokens),
+                       "eos_id": eos_id, "beam_size": int(beam_size),
+                       "length_penalty": float(length_penalty),
+                       "return_beams": bool(return_all)}, None)
+        self._drive([req])
+        return req.future.result(timeout=0.1)
 
     # -- state ----------------------------------------------------------------
     def _gauges(self):
@@ -1198,6 +1476,7 @@ class PagedGenerationEngine(GenerationEngine):
         self.metrics.set_gauge("mem/kv_pages_in_use",
                                self.pool.pages_in_use())
         self.metrics.set_gauge("mem/kv_pages_free", self.pool.available())
+        self.metrics.set_gauge("beam_active_jobs", len(self._beam_jobs))
         if self.prefix_index is not None:
             self.metrics.set_gauge("kv_prefix_entries",
                                    len(self.prefix_index))
@@ -1215,13 +1494,21 @@ class PagedGenerationEngine(GenerationEngine):
 
     # -- hard engine death ----------------------------------------------------
     def kill(self, reason: str = "chaos") -> int:
-        """Paged kill: the deferred queue dies with the slots (every
-        future fails retryable) and pages go back to the pool."""
+        """Paged kill: beam jobs and the deferred queue die with the slots
+        (every future fails retryable) and pages go back to the pool."""
         exc = ConnectionError(f"replica killed mid-stream ({reason})")
+        failed = 0
+        for job in list(self._beam_jobs):
+            self._beam_free_slots(job)
+            self._beam_jobs.remove(job)
+            job.done = True
+            if not job.request.future.done():
+                job.request.future.set_exception(exc)
+                failed += 1
         for st in self._slots:
             if st is not None and st.pages:
                 self._release_pages(st)
-        failed = super().kill(reason)
+        failed += super().kill(reason)
         while self._deferred:
             req = self._deferred.popleft()[0]
             if not req.future.done():
@@ -1231,10 +1518,6 @@ class PagedGenerationEngine(GenerationEngine):
         return failed
 
     # -- later slices ---------------------------------------------------------
-    def generate_beam(self, *args, **kw):
-        raise NotImplementedError(_LATER.format("beam search "
-                                                "(generate_beam)"))
-
     def export_slot(self, slot: int):
         raise NotImplementedError(_LATER.format("KV handoff (export_slot)"))
 
@@ -1254,12 +1537,13 @@ class PagedGenerationEngine(GenerationEngine):
     # -- server-driver interface ----------------------------------------------
     def serve_step(self, batcher,
                    idle_wait_s: Optional[float] = None) -> bool:
-        """One engine tick: retry deferred admissions, admit queued
-        requests into free slots, advance one prefill chunk, then one
-        decode step."""
+        """One engine tick: retry pool-parked beam jobs and deferred
+        admissions, admit queued requests into free slots, advance one
+        prefill chunk, then one decode step."""
         if self._killed:
             return self._drain_killed(batcher)
-        did = self._admit_deferred() > 0
+        did = self._beam_maintenance()
+        did = self._admit_deferred() > 0 or did
         free = self.free_slots
         if free and not self._deferred:
             wait = 0 if (self.active or did) else idle_wait_s
@@ -1271,13 +1555,15 @@ class PagedGenerationEngine(GenerationEngine):
         return did
 
     def _drive(self, reqs: List[Request]) -> None:
-        """Run the engine loop until every given request completes."""
+        """Run the engine loop until every given request completes, beam
+        jobs included."""
         pending = list(reqs)
-        while pending or self.active or self._deferred:
+        while pending or self.active or self._deferred or self._beam_jobs:
             if pending and self.free_slots and not self._deferred:
                 k = min(len(pending), self.free_slots)
                 self.admit(pending[:k])
                 pending = pending[k:]
+            self._beam_maintenance()
             self._admit_deferred()
             self.prefill_tick()
             self.decode_tick()

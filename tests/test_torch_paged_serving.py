@@ -371,23 +371,23 @@ def test_slot_ops_are_registered_as_in_the_jax_package():
 
 
 def test_later_slices_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _engine(beam_width=2)
     eng = _engine(slots=2, page_size=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _engine(share_cache_with=eng)
-    for call in (lambda: eng.generate_beam([1, 2]),
-                 lambda: eng.export_slot(0), lambda: eng.adopt_slot({}),
+    for call in (lambda: eng.export_slot(0), lambda: eng.adopt_slot({}),
                  lambda: eng.swap_params({}), eng.save_manifest,
                  eng.warm_from_manifest):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
-    for meta in ({"beam_size": 2}, {"resume_tokens": [3]}):
-        req = Request({"prompt": [1, 2]}, dict(max_new_tokens=2, **meta),
-                      None)
-        assert eng.admit([req]) == 0
-        with pytest.raises(BadRequestError, match="ROADMAP"):
-            req.future.result(timeout=1)
+    req = Request({"prompt": [1, 2]},
+                  dict(max_new_tokens=2, resume_tokens=[3]), None)
+    assert eng.admit([req]) == 0
+    with pytest.raises(BadRequestError, match="ROADMAP"):
+        req.future.result(timeout=1)
+    # the beam plane is ported: without it a beam request fails typed,
+    # as in the JAX package
+    with pytest.raises(BadRequestError, match="beam plane"):
+        eng.generate_beam([1, 2])
 
 
 def test_kill_fails_in_flight_and_returns_every_page():
