@@ -26,6 +26,7 @@
     python3 chip_smoke.py --optim-only      # phases 1, 2 and 19 only
     python3 chip_smoke.py --precision-only  # phases 1, 2 and 20 only
     python3 chip_smoke.py --decode-plane-only  # phases 1, 2 and 21 only
+    python3 chip_smoke.py --ctr-only        # phases 1, 2 and 22 only
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -555,6 +556,33 @@ Phases, each fatal on failure (nonzero exit, no result line):
     flash records of the ``kernels`` line
     carry their launches on these paths (``launches_phase21``).
 
+22. The row-sparse gradient plane and Wide&Deep CTR (``--ctr-only``),
+    under ``highest``, all f32. (a) bench.py's ``online`` row, part (a):
+    an embedding at V 10^6, D 16 over 8 slots, a mean loss, Adagrad 0.05;
+    the dense and the sparse step at batch 128 and 32 from one state: the
+    untouched rows and moments bit for bit unchanged, the touched rows
+    within 1e-6 of the dense step's, the sparse step's peak allocation
+    above the resident state below one [V, D] f32 table, the sparse
+    update ops (the lookup's row gradient, the dedup, the scatters) under
+    ``torch.cuda.set_sync_debug_mode("error")`` (the whole step's result
+    printed); wall ms, device ms, launches and peak of each step. (b)
+    ``models.wide_deep`` (embed_dim 16, hidden (64, 32)) at V 10^6 on
+    ``dataset.ctr``'s 8 slots and 4 dense features, batch 512,
+    ``is_sparse``, Adagrad 0.05, 200 steps with ``Auc`` reset before the
+    last 50: the first 5 losses within 1e-4 of the port's CPU run from
+    the same weights, the loss falling, AUC > 0.65; ms a step (wall,
+    device), launches and peak, beside ``is_sparse=False``. (c) The
+    program pruned to ids, dense -> prob served by ``InferenceEngine``
+    (CUDA graphs at batches 1 and 64): its probabilities within 1e-6 of
+    the executor's forward on the card, p50 latency a batch. (d)
+    ``demos/quick_start.py lr`` through ``paddle_tpu_torch.v2`` at its
+    FAST size (256 samples, one pass, 4 batches of 64): the losses within
+    1e-4 of the CPU run's, the demo's closing output, ms a step beside
+    device ms. (e) The seven metric ops and ``addto`` on the card against
+    the CPU: counts and sums exact, the other floats within 1e-5. None of
+    the six kernels runs here (every counter unchanged, asserted;
+    ``launches_phase22``).
+
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
 ``chiprun_out/chip_smoke.json``.
@@ -562,6 +590,7 @@ Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -9978,6 +10007,15 @@ def _v2_traffic_build(paddle):
 
 
 def _v2_quick_start_build(paddle, config, word_dim):
+    if config == "lr":  # logistic regression over a sparse bag of words
+        words = paddle.layer.data(
+            "words", paddle.data_type.sparse_binary_vector(word_dim))
+        output = paddle.layer.fc(input=words, size=2,
+                                 act=paddle.activation.Softmax())
+        label = paddle.layer.data("label",
+                                  paddle.data_type.integer_value(2))
+        cost = paddle.layer.classification_cost(input=output, label=label)
+        return cost, output, paddle.optimizer.Adam(learning_rate=2e-3)
     words = paddle.layer.data(
         "words", paddle.data_type.integer_value_sequence(word_dim))
     emb = paddle.layer.embedding(input=words, size=128)
@@ -10016,7 +10054,15 @@ def _v2_setup(pt, paddle, demo, use_gpu, start):
 
 
 v2_SEEDS = {"mnist_v2": 42, "traffic_prediction": 11,
-            "quick_start_cnn": 7, "quick_start_lstm": 7}
+            "quick_start_cnn": 7, "quick_start_lstm": 7, "quick_start_lr": 7}
+
+
+def _v2_bow(reader, dim):
+    """quick_start.py's bow_reader: (sorted unique ids, label)."""
+    def wrapped():
+        for ids, label in reader():
+            yield sorted(set(i for i in ids if i < dim)), label
+    return wrapped
 
 
 def _v2_passes(pt, demo, c):
@@ -10031,6 +10077,10 @@ def _v2_passes(pt, demo, c):
         train = pt.dataset.mnist.train()
     elif demo == "traffic_prediction":
         train = _v2_windows(_v2_traffic_series(), c["n_train"])
+    elif demo == "quick_start_lr":  # the demo's FAST cut: firstn(256)
+        wd = pt.dataset.imdb.word_dict()
+        train = decorator.shuffle(decorator.firstn(
+            _v2_bow(pt.dataset.imdb.train(wd), len(wd)), c["samples"]), 512)
     else:
         train = decorator.shuffle(pt.dataset.imdb.train(
             pt.dataset.imdb.word_dict()), 512)
@@ -10038,7 +10088,7 @@ def _v2_passes(pt, demo, c):
     return [list(batched()) for _ in range(c["passes"])]
 
 
-def _v2_demo(pt, demo, smi):
+def _v2_demo(pt, demo, smi, c=None, label="precision (f)"):
     """One demo's loop on the card through paddle_tpu_torch.v2, its first
     V2_CPU_STEPS losses against the port's CPU run from the same weights,
     its own closing output. Returns its record."""
@@ -10048,7 +10098,7 @@ def _v2_demo(pt, demo, smi):
     import paddle_tpu_torch.v2 as paddle
     from paddle_tpu_torch.reader import decorator
 
-    c = V2_DEMOS[demo]
+    c = c or V2_DEMOS[demo]
     passes = _v2_passes(pt, demo, c)
     start = pt.Program._uid_counter
     cpu = _v2_setup(pt, paddle, demo, False, start)
@@ -10109,7 +10159,10 @@ def _v2_demo(pt, demo, smi):
         said = f"horizon agreement: {rec['agreement']:.2f}"
     else:
         config = demo.rsplit("_", 1)[1]
-        test = pt.dataset.imdb.test(pt.dataset.imdb.word_dict())
+        wd = pt.dataset.imdb.word_dict()
+        test = pt.dataset.imdb.test(wd)
+        if config == "lr":
+            test = decorator.firstn(_v2_bow(test, len(wd)), c["test"])
         result = trainer.test(paddle.batch(test, 64))
         rows = [(x,) for x, _ in decorator.firstn(test, 8)()]
         probs = paddle.infer(output_layer=out, parameters=params, input=rows)
@@ -10128,11 +10181,11 @@ def _v2_demo(pt, demo, smi):
     anatomy = rec["anatomy"] = _one_step_anatomy(
         lambda: params.executor.run(params.main_program, feed=batch,
                                     fetch_list=[cost], scope=params.scope))
-    print(f"precision (f) {demo}: {rec['steps']} steps in {loop_s:.1f} s, "
+    print(f"{label} {demo}: {rec['steps']} steps in {loop_s:.1f} s, "
           f"{rec['ms_per_step']:.2f} ms a step (median wall with the cost "
           f"fetch), one step's device {_ms_text(anatomy['device_ms'])} ms "
           f"in {anatomy['launches']} kernel launches; first "
-          f"{V2_CPU_STEPS} losses {np.round(first, 6).tolist()} within "
+          f"{len(first)} losses {np.round(first, 6).tolist()} within "
           f"{loss_rel:.2e} of the CPU's (tol {V2_LOSS_RTOL}); final loss "
           f"{losses[-1]:.4f}; {said} [{smi}]")
     assert np.isfinite(losses).all(), losses[-5:]
@@ -10910,6 +10963,487 @@ def phase21_launches(records, plane):
         rec["launches_phase21"] = paths
 
 
+# --- phase 22: the row-sparse gradient plane and Wide&Deep CTR --------------
+# (a) bench.py's online row, part (a) (bench_online): one embedding at
+# V 10^6, D 16 over 8 slots, a mean loss, Adagrad at lr 0.05, its dense
+# and its sparse step at batch 128 and 32 from one state. (b) Wide&Deep
+# CTR (BASELINE.json configs[5]; models/wide_deep.py's defaults, embed_dim
+# 16 and hidden (64, 32)) at V 10^6 over dataset.ctr's 8 slots and 4
+# dense features, batch 512, is_sparse, Adagrad 0.05, random weights from
+# SEED. (c) its program pruned to ids, dense -> prob (demos/online_ctr.py)
+# served by InferenceEngine. (d) demos/quick_start.py lr through the v2
+# facade at its FAST size (256 samples, one pass: 4 batches of 64). (e)
+# the seven metric ops and addto at Wide&Deep's batch.
+ONLINE = dict(vocab=10 ** 6, dim=16, slots=8, lr=0.05, batches=(128, 32),
+              timed=20)
+WIDE_DEEP = dict(vocab=10 ** 6, embed=16, hidden=(64, 32), batch=512,
+                 lr=0.05, steps=200, auc_steps=50, dense_steps=10)
+CTR_SERVE = dict(batches=(1, 64), timed=200)
+QS_LR = dict(passes=1, batch=64, samples=256, test=64)
+CTR_CPU_STEPS = 5
+CTR_LOSS_RTOL = 1e-4   # the card's first losses against the port's CPU run
+ONLINE_ROW_RTOL = 1e-6  # sparse-step touched rows against the dense step's
+CTR_AUC_FLOOR = 0.65   # tests/test_sparse_embedding.py's bar
+SERVE_ATOL = 1e-6      # served probabilities against the executor's forward
+METRIC_RTOL = 1e-5     # float metric outputs against the CPU's (counts exact)
+
+
+def _kernel_counters():
+    """Every launch counter of the six kernels' wrappers, by name."""
+    from paddle_tpu_torch.kernels import conv_epilogue as ke
+    from paddle_tpu_torch.kernels import flash_attention as fa
+
+    out = {"flash_attention." + k: getattr(fa.flash_attention, k)
+           for k in ("launches", "bf16_launches")}
+    out.update({"flash_backward." + k: getattr(fa.flash_backward, k)
+                for k in ("dq_launches", "dkv_launches", "dq_bf16_launches",
+                          "dkv_bf16_launches")})
+    for n in CONV_KERNELS:
+        for k in ("launches", "bf16_launches", "tf32_launches"):
+            if hasattr(getattr(ke, n), k):
+                out[f"{n}.{k}"] = getattr(getattr(ke, n), k)
+    return out
+
+
+def _scope_copy(pt, scope, device):
+    """A new scope holding copies of ``scope``'s tensors on ``device``
+    (the programs copied run no op that draws)."""
+    new = pt.Scope()
+    for n, v in _snapshot(scope).items():
+        new.set(n, v.to(device))
+    return new
+
+
+def _peak_bytes(step):
+    """One step's peak allocation above what was allocated before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    step()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _loop_ms(step, n):
+    """Wall ms a step over ``n`` steps enqueued back to back, synchronised
+    at the end."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _online_program(pt, c, is_sparse):
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        ids = pt.layers.data("ids", shape=[c["slots"]], dtype="int64")
+        emb = pt.layers.embedding(ids, size=[c["vocab"], c["dim"]],
+                                  is_sparse=is_sparse,
+                                  param_attr=pt.ParamAttr(name="online.emb"))
+        loss = pt.layers.mean(emb)
+        pt.optimizer.AdagradOptimizer(learning_rate=c["lr"]).minimize(
+            loss, startup_program=startup)
+    return main, startup, loss
+
+
+def online_row_part(pt, smi):
+    """(a): the dense against the sparse Adagrad step at V 10^6."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op
+
+    c = ONLINE
+    start = pt.Program._uid_counter
+    built = {}
+    for sparse in (False, True):
+        pt.Program._uid_counter = start
+        built[sparse] = _online_program(pt, c, sparse)
+    assert [op.type for op in built[True][0].global_block.ops].count(
+        "sparse_adagrad") == 1
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope0 = pt.Scope()
+    exe.run(built[True][1], scope=scope0)
+    state = _snapshot(scope0)
+    table = "online.emb"
+    moment = next(n for n in state if n != table
+                  and tuple(state[n].shape) == (c["vocab"], c["dim"]))
+    resident = sum(t.numel() * t.element_size() for t in state.values())
+    vd_bytes = c["vocab"] * c["dim"] * 4
+    rng = np.random.RandomState(SEED)
+    rec = {"config": c, "resident_bytes": resident, "table_bytes": vd_bytes,
+           "rows": {}}
+    for b in c["batches"]:
+        ids = rng.randint(0, c["vocab"], size=(b, c["slots"])).astype(
+            np.int64)
+        feed = {"ids": ids}
+        row = {}
+        scopes = {s: _scope_copy(pt, scope0, "cuda") for s in (False, True)}
+        for sparse in (False, True):
+            main = built[sparse][0]
+            peak = _peak_bytes(lambda: exe.run(
+                main, feed=feed, scope=scopes[sparse]))
+            row["sparse" if sparse else "dense"] = {"peak_bytes": peak}
+        # the gates: one step each from the same state and batch
+        touched = torch.zeros(c["vocab"], dtype=torch.bool, device="cuda")
+        touched[torch.from_numpy(ids.ravel()).cuda()] = True
+        gaps = {}
+        for name in (table, moment):
+            d, s = scopes[False].get(name), scopes[True].get(name)
+            s0 = state[name]
+            assert torch.equal(s[~touched], s0[~touched]), (
+                f"online (a) b{b}: {name}'s untouched rows moved")
+            assert torch.equal(d[~touched], s0[~touched])
+            dt, st = d[touched].double(), s[touched].double()
+            gaps[name] = float((st - dt).abs().max()
+                               / max(float(dt.abs().max()), 1e-30))
+            assert gaps[name] <= ONLINE_ROW_RTOL, (name, gaps[name])
+        row["touched_rows"] = int(touched.sum())
+        row["touched_rel_gap"] = gaps
+        assert row["sparse"]["peak_bytes"] < vd_bytes, row
+        # the sparse update ops (the lookup's row gradient, the dedup and
+        # the scatters) under the sync debugger: a host sync raises
+        w, mom = scopes[True].get(table), scopes[True].get(moment)
+        og = torch.full((b, c["slots"], c["dim"]), 1.0, device="cuda")
+        ids_dev = torch.from_numpy(ids).cuda()
+        lr = torch.full((1,), c["lr"], device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            g = get_op("lookup_table").grad_fn(
+                {"is_sparse": True}, {"W": [w], "Ids": [ids_dev]}, {},
+                {"Out": [og]})["W"][0]
+            get_op("sparse_adagrad").fn(
+                {"epsilon": 1e-6}, {"Param": [w], "Grad": [g],
+                                    "Moment": [mom], "LearningRate": [lr]})
+            try:  # the whole sparse step, feed on the card, no fetch
+                exe.run(built[True][0], feed={"ids": ids_dev},
+                        scope=scopes[True])
+                row["whole_step_sync_free"] = True
+            except RuntimeError as exc:
+                row["whole_step_sync_free"] = f"{type(exc).__name__}: {exc}"
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        row["update_ops_sync_free"] = True
+        # times: wall over back-to-back steps, device and launches of one
+        for sparse in (False, True):
+            main = built[sparse][0]
+
+            def step(main=main, sparse=sparse):
+                exe.run(main, feed=feed, scope=scopes[sparse])
+
+            r = row["sparse" if sparse else "dense"]
+            r["wall_ms"] = _loop_ms(step, c["timed"])
+            r.update({k: v for k, v in _one_step_anatomy(step).items()
+                      if k != "wall_ms"})
+            r["device_ms"] = _device_ms(step)
+        del scopes
+        torch.cuda.empty_cache()
+        rec["rows"][b] = row
+        d, s = row["dense"], row["sparse"]
+        print(f"ctr (a) online row, batch {b} ({row['touched_rows']} of "
+              f"{c['vocab']} rows touched): dense step {d['wall_ms']:.3f} "
+              f"ms wall, {_ms_text(d['device_ms'])} ms device, "
+              f"{d['launches']} launches, peak {d['peak_bytes'] / 2**20:.1f}"
+              f" MiB above the resident state; sparse step "
+              f"{s['wall_ms']:.3f} ms wall, {_ms_text(s['device_ms'])} ms "
+              f"device, {s['launches']} launches, peak "
+              f"{s['peak_bytes'] / 2**20:.2f} MiB (< one [V, D] table, "
+              f"{vd_bytes / 2**20:.0f} MiB); untouched rows and moments "
+              f"bit for bit, touched within {max(gaps.values()):.1e} of "
+              f"the dense step's (tol {ONLINE_ROW_RTOL}); update ops "
+              f"sync-free, whole step sync-free: "
+              f"{row['whole_step_sync_free']} [{smi}]")
+    del scope0, state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _wide_deep_program(pt, c, is_sparse=True):
+    ctr = pt.dataset.ctr
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        ids = pt.layers.data("ids", shape=[ctr.SLOTS], dtype="int64")
+        dense = pt.layers.data("dense", shape=[ctr.DENSE_DIM])
+        label = pt.layers.data("label", shape=[1])
+        logit = pt.models.wide_deep(ids, dense, vocab_size=c["vocab"],
+                                    embed_dim=c["embed"],
+                                    hidden_sizes=c["hidden"],
+                                    is_sparse=is_sparse)
+        loss, prob = pt.models.wide_deep_loss(logit, label)
+        auc = pt.evaluator.Auc(prob, label, main_program=main,
+                               startup_program=startup)
+        pt.optimizer.AdagradOptimizer(learning_rate=c["lr"]).minimize(
+            loss, startup_program=startup)
+    return dict(main=main, startup=startup, loss=loss, prob=prob, auc=auc)
+
+
+def _ctr_batches(pt, n, batch, vocab, seed="ctr-train"):
+    ctr = pt.dataset.ctr
+    rows = list(ctr.train(n * batch, vocab=vocab, seed=seed)())
+    return [ctr.make_batch(rows[i * batch:(i + 1) * batch])
+            for i in range(n)]
+
+
+def wide_deep_part(pt, smi):
+    """(b): Wide&Deep trained on the card; returns (its record, the
+    program, the trained scope)."""
+    import numpy as np
+    import torch
+
+    c = WIDE_DEEP
+    t0 = time.perf_counter()
+    batches = _ctr_batches(pt, c["steps"], c["batch"], c["vocab"])
+    data_s = time.perf_counter() - t0
+    start = pt.Program._uid_counter
+    w = _wide_deep_program(pt, c)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(w["startup"], scope=scope)
+    cpu_scope = _scope_copy(pt, scope, "cpu")
+    cpu_exe = pt.Executor(pt.CPUPlace())
+    cpu_losses = [float(cpu_exe.run(w["main"], feed=f, fetch_list=[w["loss"]],
+                                    scope=cpu_scope)[0])
+                  for f in batches[:CTR_CPU_STEPS]]
+    del cpu_scope
+    resident = sum(t.numel() * t.element_size()
+                   for t in _snapshot(scope).values())
+    losses, stamps = [], []
+    t0 = time.perf_counter()
+    for step, feed in enumerate(batches):
+        if step == c["steps"] - c["auc_steps"]:
+            w["auc"].reset(exe, scope)
+        losses.append(float(exe.run(w["main"], feed=feed,
+                                    fetch_list=[w["loss"]], scope=scope)[0]))
+        stamps.append(time.perf_counter())
+    loop_s = time.perf_counter() - t0
+    auc = w["auc"].eval(exe, scope)
+    first = np.array(losses[:CTR_CPU_STEPS])
+    loss_rel = float(np.max(np.abs(first - cpu_losses) / np.abs(cpu_losses)))
+    head, tail = np.mean(losses[:20]), np.mean(losses[-20:])
+    feed = batches[-1]
+
+    def step(main=w["main"], scope=scope):
+        exe.run(main, feed=feed, scope=scope)
+
+    peak = _peak_bytes(step)
+    anatomy = _one_step_anatomy(step)
+    rec = {"config": c, "data_s": data_s, "loop_s": loop_s,
+           "ms_per_step": float(np.median(np.diff(stamps)) * 1e3),
+           "first_losses": first.tolist(), "cpu_first_losses": cpu_losses,
+           "loss_rel_vs_cpu": loss_rel, "loss_head": float(head),
+           "loss_tail": float(tail), "auc_last": auc,
+           "resident_bytes": resident, "peak_bytes": peak,
+           "anatomy": anatomy, "device_ms": _device_ms(step)}
+    # the same model with dense embedding gradients, from the same weights
+    # (built under the same names)
+    pt.Program._uid_counter = start
+    d = _wide_deep_program(pt, c, is_sparse=False)
+    dscope = _scope_copy(pt, scope, "cuda")
+    dfeeds = itertools.cycle(batches[:c["dense_steps"]])
+
+    def dstep(main=d["main"]):
+        exe.run(main, feed=next(dfeeds), scope=dscope)
+
+    dpeak = _peak_bytes(dstep)
+    rec["dense_grad"] = {"ms_per_step": _loop_ms(dstep, c["dense_steps"]),
+                         "peak_bytes": dpeak,
+                         "anatomy": _one_step_anatomy(dstep),
+                         "device_ms": _device_ms(dstep, iters=3)}
+    del dscope, d
+    torch.cuda.empty_cache()
+    dr = rec["dense_grad"]
+    print(f"ctr (b) Wide&Deep V {c['vocab']} d{c['embed']} {c['hidden']} "
+          f"batch {c['batch']}: {c['steps']} steps in {loop_s:.1f} s, "
+          f"{rec['ms_per_step']:.3f} ms a step (median wall with the loss "
+          f"fetch), one step {anatomy['wall_ms']:.3f} ms wall, "
+          f"{_ms_text(rec['device_ms'])} ms device in "
+          f"{anatomy['launches']} launches, peak "
+          f"{peak / 2**20:.1f} MiB above the resident "
+          f"{resident / 2**20:.0f} MiB; first {CTR_CPU_STEPS} losses "
+          f"{np.round(first, 6).tolist()} within {loss_rel:.2e} of the "
+          f"CPU's (tol {CTR_LOSS_RTOL}); loss {head:.4f} -> {tail:.4f} "
+          f"(first and last 20 steps); AUC over the last {c['auc_steps']} "
+          f"steps {auc:.4f} (floor {CTR_AUC_FLOOR}); is_sparse=False: "
+          f"{dr['ms_per_step']:.3f} ms a step wall, "
+          f"{_ms_text(dr['device_ms'])} ms device in "
+          f"{dr['anatomy']['launches']} launches, peak "
+          f"{dpeak / 2**20:.1f} MiB [{smi}]")
+    assert np.isfinite(losses).all(), losses[-5:]
+    assert loss_rel <= CTR_LOSS_RTOL, (first, cpu_losses)
+    assert tail < head, (head, tail)
+    assert auc > CTR_AUC_FLOOR, auc
+    return rec, w, scope
+
+
+def ctr_serving_part(pt, w, scope, smi):
+    """(c): the pruned program served through InferenceEngine."""
+    import numpy as np
+
+    c = CTR_SERVE
+    prob = w["prob"].name
+    serve = pt.io.prune_program(w["main"], ["ids", "dense"], [prob])
+    assert not any(op.type.startswith(("sparse_", "adagrad", "auc"))
+                   for op in serve.global_block.ops)
+    eng = pt.InferenceEngine(program=serve, feed_names=["ids", "dense"],
+                             fetch_names=[prob], scope=scope,
+                             batch_buckets=c["batches"],
+                             place=pt.CUDAPlace(0))
+    eng.warmup()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    held = _ctr_batches(pt, 1, max(c["batches"]), WIDE_DEEP["vocab"],
+                        seed="ctr-serve")[0]
+    rec = {"config": c, "p50_ms": {}}
+    gap = 0.0
+    for b in c["batches"]:
+        feed = {k: held[k][:b] for k in ("ids", "dense")}
+        got = eng.run(feed)[0]
+        want = exe.run(serve, feed=feed, fetch_list=[prob], scope=scope)[0]
+        gap = max(gap, float(np.abs(got - want).max()))
+        lat = []
+        for _ in range(c["timed"]):
+            t0 = time.perf_counter()
+            eng.run(feed)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        rec["p50_ms"][b] = float(np.median(lat))
+    rec["max_abs_gap"] = gap
+    probs = eng.run({k: held[k] for k in ("ids", "dense")})[0].ravel()
+    labels = held["label"].ravel() > 0.5
+    order = np.argsort(probs)
+    ranks = np.empty(len(probs))
+    ranks[order] = np.arange(1, len(probs) + 1)
+    n_pos, n_neg = labels.sum(), (~labels).sum()
+    rec["held_out_auc"] = float((ranks[labels].sum() - n_pos * (n_pos + 1)
+                                 / 2) / max(n_pos * n_neg, 1))
+    eng.close()
+    print(f"ctr (c) serving ids, dense -> prob through InferenceEngine "
+          f"(CUDA graphs, buckets {c['batches']}): p50 "
+          + ", ".join(f"{rec['p50_ms'][b]:.3f} ms at batch {b}"
+                      for b in c["batches"])
+          + f" over {c['timed']} requests; served probabilities within "
+          f"{gap:.1e} of the executor's forward (tol {SERVE_ATOL}); "
+          f"held-out AUC of {max(c['batches'])} rows "
+          f"{rec['held_out_auc']:.4f} [{smi}]")
+    assert gap <= SERVE_ATOL, gap
+    return rec
+
+
+def _metric_cases(rng):
+    """(op, attrs, ins, out slots, exact) at Wide&Deep's batch."""
+    import numpy as np
+
+    b = WIDE_DEEP["batch"]
+    prob = rng.rand(b, 1).astype(np.float32)
+    label = (rng.rand(b, 1) < 0.3).astype(np.float32)
+    scores = rng.rand(b, 2).astype(np.float32)
+    cls = rng.randint(0, 2, (b, 1)).astype(np.int64)
+    q, L = 64, 32
+    qscore = (rng.randint(0, 16, (q, L)) / 15.0).astype(np.float32)
+    qlen = rng.randint(1, L + 1, q).astype(np.int64)
+    x = [rng.randn(b, 64).astype(np.float32) for _ in range(3)]
+    return [
+        ("confusion_counts", {"num_classes": 2},
+         {"Pred": [scores], "Label": [cls]}, ("TP", "FP", "FN"), True),
+        ("auc_histogram", {"num_thresholds": 200},
+         {"Score": [prob], "Label": [label]}, ("Pos", "Neg"), True),
+        ("rank_auc", {}, {"Score": [qscore], "Click": [
+            rng.randint(0, 2, (q, L)).astype(np.float32)], "Length": [qlen]},
+         ("AucSum", "QueryCount"), False),
+        ("pnpair_counts", {}, {"Score": [qscore], "Label": [
+            rng.randint(0, 3, (q, L)).astype(np.float32)],
+            "Weight": [rng.rand(q, L).astype(np.float32)],
+            "Length": [qlen]}, ("Pos", "Neg", "Spe"), False),
+        ("precision_recall", {"num_classes": 2},
+         {"Pred": [scores], "Label": [cls]},
+         ("BatchMetrics", "ClassPrecision", "ClassRecall"), False),
+        ("auc", {"num_thresholds": 200}, {"Out": [prob], "Label": [label]},
+         ("AUC",), False),
+        ("positive_negative_pair", {}, {
+            "Score": [prob.ravel()], "Label": [label.ravel()],
+            "QueryID": [rng.randint(0, 16, b).astype(np.int64)]},
+         ("PositivePair", "NegativePair", "NeutralPair"), True),
+        ("addto", {}, {"X": x}, ("Out",), True),
+    ]
+
+
+def metric_ops_part(smi):
+    """(e): the seven metric ops and addto on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    rec = {}
+    for op, attrs, ins, slots, exact in _metric_cases(
+            np.random.RandomState(SEED)):
+        card, cpu, _, _, ms = _op_pair(op, attrs, ins, slots)
+        gap = max(_rel(card[s].double(), cpu[s].double()) for s in slots)
+        same = all(torch.equal(card[s], cpu[s]) for s in slots)
+        rec[op] = {"rel_gap": gap, "bitwise": same, "ms": ms}
+        assert (same if exact else gap <= METRIC_RTOL), (op, gap)
+    said = {op: "exact" if r["bitwise"] else format(r["rel_gap"], ".1e")
+            for op, r in rec.items()}
+    print("ctr (e) metric ops and addto on the card against the CPU: "
+          + ", ".join(f"{op} {v}" for op, v in said.items())
+          + f" (counts exact, floats within {METRIC_RTOL}) [{smi}]")
+    return rec
+
+
+def ctr_phase(smi):
+    """Phase 22 (a)-(e) under the precision policy highest. Returns its
+    record; "kernel_launches" is the six kernels' launches over it (0)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
+
+    flags.parse_flags(["--mxu_precision=highest"])
+    before = _kernel_counters()
+    seconds = [time.perf_counter()]
+    out = {"a": online_row_part(pt, smi)}
+    seconds.append(time.perf_counter())
+    out["b"], w, scope = wide_deep_part(pt, smi)
+    seconds.append(time.perf_counter())
+    out["c"] = ctr_serving_part(pt, w, scope, smi)
+    del w, scope
+    torch.cuda.empty_cache()
+    seconds.append(time.perf_counter())
+    import paddle_tpu_torch.v2 as paddle
+
+    try:
+        out["d"] = _v2_demo(pt, "quick_start_lr", smi, c=QS_LR,
+                            label="ctr (d)")
+    finally:
+        paddle.init()
+    seconds.append(time.perf_counter())
+    out["e"] = metric_ops_part(smi)
+    seconds.append(time.perf_counter())
+    after = _kernel_counters()
+    out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    assert not any(out["kernel_launches"].values()), out["kernel_launches"]
+    out["seconds"] = [b - a for a, b in zip(seconds, seconds[1:])]
+    print("phase 22 seconds: " + ", ".join(
+        f"{part} {s:.1f}" for part, s in zip(("(a)", "(b)", "(c)", "(d)",
+                                              "(e)"), out["seconds"]))
+        + f"; {sum(out['seconds']):.1f} in all; the six kernels launched "
+        f"0 times [{smi}]")
+    return out
+
+
+def phase22_launches(records, plane):
+    """Every kernel record's launches on phase 22's paths: none of the
+    six kernels lies on them (asserted in ctr_phase)."""
+    total = sum(plane["kernel_launches"].values())
+    for rec in records:
+        rec["launches_phase22"] = {"phase 22, all paths": total}
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -11047,6 +11581,12 @@ def main():
                              "speculative and greedy decoders, the paged "
                              "beam plane, Transformer-base NMT trained and "
                              "served, the two demos); prints no ok line")
+    parser.add_argument("--ctr-only", action="store_true",
+                        help="build the kernels and run only phase 22 (the "
+                             "row-sparse gradient plane: bench.py's online "
+                             "row, Wide&Deep CTR at V 10^6 trained and "
+                             "served, quick_start lr, the metric ops); "
+                             "prints no ok line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -11264,6 +11804,14 @@ def main():
             {"gpu": smi, "decode_plane": plane}, indent=1, default=str))
         print(smi)
         return
+    if args.ctr_only:
+        ctr = ctr_phase(smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_ctr.json").write_text(json.dumps(
+            {"gpu": smi, "ctr": ctr}, indent=1, default=str))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -11346,6 +11894,8 @@ def main():
     precision_recs, precision = precision_phase(smi, gpu)
     torch.cuda.empty_cache()
     plane = decode_plane_phase(smi)
+    torch.cuda.empty_cache()
+    ctr = ctr_phase(smi)
     records = ([kern, slice_record(
                    kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
@@ -11357,6 +11907,7 @@ def main():
     phase19_launches(records, optim)
     phase20_launches(records, precision)
     phase21_launches(records, plane)
+    phase22_launches(records, ctr)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -11371,14 +11922,15 @@ def main():
          "per_layer": per_layer, "recurrent": recurrent, "zoo": zoo,
          "trainer": trainer, "train_memory": train_memory,
          "demo_ops": demo_ops, "book": book, "optim": optim,
-         "precision": precision, "decode_plane": plane,
+         "precision": precision, "decode_plane": plane, "ctr": ctr,
          "build_s": built,
          "rng": rng},
         indent=1, default=str))
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},
          **{k: r[k] for k in ("launches_phase16", "launches_phase19",
-                              "launches_phase20", "launches_phase21")
+                              "launches_phase20", "launches_phase21",
+                              "launches_phase22")
             if k in r}} for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,11 @@ is the chunked LM head over ``transformer_lm(include_head=False)``.
 the card (``default``: TF32; ``high``, ``highest``: f32-accurate; the
 CPU computes all three in f32), the ``flags`` module holds the JAX
 package's flag plane, and ``v2`` its v2 facade (``init``, ``layer``,
-``parameters.create``, ``trainer.SGD``, ``infer``).
+``parameters.create``, ``trainer.SGD``, ``infer``). The sparse plane
+gives an ``embedding(is_sparse=True)`` a row-sparse ``SelectedRows``
+gradient that the optimizers apply to the looked-up rows only
+(``models.wide_deep`` over ``dataset.ctr``, with the ``Auc``,
+``PrecisionRecall``, ``RankAuc`` and ``Pnpair`` evaluators).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);

@@ -4,9 +4,9 @@ Counterpart of ``paddle_tpu/clip.py``, whole: ``GradientClipByValue``
 appends a ``clip`` op a gradient, ``GradientClipByNorm`` a
 ``clip_by_norm`` op, and ``GradientClipByGlobalNorm`` one
 ``clip_by_global_norm`` op over every gradient whose parameter shares
-the attr, so the norm and all the rescales are one op. Gradients are
-dense: the port has no SelectedRows gradient (``embedding(is_sparse=True)``
-raises, naming ROADMAP.md Queue 1 item 3), so no clip meets one.
+the attr, so the norm and all the rescales are one op. A sparse
+embedding's SelectedRows gradient stays rows through each: the ops merge
+its duplicate rows before they bound or measure it.
 """
 from __future__ import annotations
 

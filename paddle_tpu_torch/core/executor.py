@@ -32,9 +32,17 @@ What the interpreter does in place of XLA's whole-program view:
 - **Liveness.** An intermediate is dropped after its last reader, or as
   soon as it is written where nothing reads it, as XLA frees a buffer,
   unless it is fetched or persistable.
+- **Row-sparse gradients.** A sparse embedding's gradient is a
+  ``SelectedRows`` value in the run's environment, passed on to the
+  ``sum``, clip and optimizer ops that keep it sparse; it is fetched
+  dense, and ``check_nan_inf`` scans its values.
 - **No aliasing.** Op functions return new tensors and never write into
   their inputs, so ``assign`` may hand on the same tensor and a ``@PRE``
-  snapshot can never see a later write.
+  snapshot can never see a later write. The one exception is the update
+  ops' row rule for a ``SelectedRows`` gradient, which writes the
+  touched rows into the parameter and its moments in place (the JAX
+  executor donates them) and runs after every reader of their old
+  values.
 
 Randomness is the JAX package's scope key: the first run that draws
 seeds ``prng_key(program.random_seed)`` (``FLAGS.seed`` when the program
@@ -59,6 +67,7 @@ from .enforce import EnforceError, op_error
 from .program import RNG_VAR, Program
 from .registry import get_op, op_uses_rng
 from .scope import Scope, global_scope
+from .selected_rows import SelectedRows, densify
 from .types import to_numpy
 
 
@@ -94,6 +103,8 @@ class CPUPlace:
 
 
 def _is_float(value) -> bool:
+    if isinstance(value, SelectedRows):
+        value = value.values
     return isinstance(value, torch.Tensor) and value.is_floating_point()
 
 
@@ -104,7 +115,10 @@ def _raise_nonfinite(name: str, n_nan: int, n_inf: int) -> None:
 
 
 def _device_counts(value) -> torch.Tensor:
-    """[n_nan, n_inf] of a float tensor, on its device (no host sync)."""
+    """[n_nan, n_inf] of a float tensor (a SelectedRows' values), on its
+    device (no host sync)."""
+    if isinstance(value, SelectedRows):
+        value = value.values
     return torch.stack([value.isnan().sum(), value.isinf().sum()])
 
 
@@ -380,8 +394,8 @@ class Executor:
                     checks.append((name, _device_counts(val)))
             fetches = []
             for name in fetch_names:
-                if name in env:
-                    fetches.append(env[name])
+                if name in env:  # a SelectedRows is fetched dense
+                    fetches.append(densify(env[name]))
                 elif scope.has(name):
                     fetches.append(scope.get(name))
                 else:

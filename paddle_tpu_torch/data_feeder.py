@@ -7,7 +7,9 @@ int64 (the JAX package carries them as int32 without x64).
 
 Variable-length (LoD) columns, whose entries are sequences of differing
 length, are padded to the batch max and returned together with a
-``<name>@len`` int32 length vector.
+``<name>@len`` int32 length vector. A ``sparse_float_vector`` column (v2's
+``data_type``), rows of (index, value) pairs, becomes the padded id feed
+with its lengths and the padded value feed of its companion variable.
 """
 from __future__ import annotations
 
@@ -55,9 +57,13 @@ class DataFeeder:
             col = [row[i] for row in data]
             sval = getattr(var, "sparse_values", None)
             if sval is not None:
-                raise NotImplementedError(
-                    "sparse_float_vector feeds are not ported to "
-                    "paddle_tpu_torch yet (ROADMAP.md Queue 1 item 3)")
+                # sparse_float_vector rows, [(index, value), ...]: the
+                # padded id feed and its companion value feed
+                out.update(self._pad_sequences(
+                    var, [[p[0] for p in item] for item in col]))
+                out[sval.name] = self._pad_sequences(
+                    sval, [[p[1] for p in item] for item in col])[sval.name]
+                continue
             if var.lod_level > 0 or _is_ragged(col):
                 out.update(self._pad_sequences(var, col))
             else:

@@ -1,8 +1,10 @@
 """Evaluators: metric accumulation across batches, built into the program.
 
 Counterpart of ``paddle_tpu/evaluator.py``, cut to ``Evaluator``,
-``Accuracy`` and ``ChunkEvaluator``. A metric's state is a set of
-persistable int32 variables, zeroed by the startup program; the update
+``Accuracy``, ``ChunkEvaluator`` and the CTR and ranking evaluators
+``PrecisionRecall``, ``Auc``, ``RankAuc`` and ``Pnpair``. A metric's
+state is a set of persistable variables (int32 counts, or f32 sums for
+``RankAuc`` and ``Pnpair``), zeroed by the startup program; the update
 ops appended to the main program add each batch's counts into them,
 and the executor writes them back to the scope after every run, on the
 run's device, as it does the optimizer's state. ``eval(exe, scope)``
@@ -16,13 +18,15 @@ added, so the state keeps its dtype across runs.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .core.types import dtype_name, to_dtype
 from .initializer import ConstantInitializer
 from .layers.layer_helper import LayerHelper
 
-__all__ = ["Evaluator", "Accuracy", "ChunkEvaluator"]
+__all__ = ["Evaluator", "Accuracy", "ChunkEvaluator", "PrecisionRecall",
+           "Auc", "RankAuc", "Pnpair"]
 
 
 class Evaluator:
@@ -141,3 +145,113 @@ class ChunkEvaluator(Evaluator):
         f1 = (2 * precision * recall / (precision + recall)
               if precision + recall else 0.0)
         return precision, recall, f1
+
+
+class PrecisionRecall(Evaluator):
+    """Multi-class streaming precision/recall/F1 from confusion counts
+    (legacy precision_recall_evaluator). eval() returns the macro
+    (precision, recall, f1)."""
+
+    def __init__(self, input, label, num_classes, **kwargs):
+        super().__init__("precision_recall", **kwargs)
+        self.num_classes = num_classes
+        self.tp = self._create_state("tp", [num_classes], "int32")
+        self.fp = self._create_state("fp", [num_classes], "int32")
+        self.fn = self._create_state("fn", [num_classes], "int32")
+        outs, _ = self.helper.append_op(
+            "confusion_counts", {"Pred": [input], "Label": [label]},
+            ["TP", "FP", "FN"], {"num_classes": num_classes})
+        self._accumulate(self.tp, outs["TP"][0])
+        self._accumulate(self.fp, outs["FP"][0])
+        self._accumulate(self.fn, outs["FN"][0])
+
+    def eval(self, executor, scope=None):
+        tp, fp, fn = [a.astype(np.float64) for a in
+                      self._fetch_states(scope)]
+        p = tp / np.maximum(tp + fp, 1)
+        r = tp / np.maximum(tp + fn, 1)
+        f1 = 2 * p * r / np.maximum(p + r, 1e-10)
+        return float(p.mean()), float(r.mean()), float(f1.mean())
+
+
+class Auc(Evaluator):
+    """Streaming AUC from score histograms (legacy AucEvaluator): the
+    positive-class scores in ``num_thresholds`` buckets; eval()
+    integrates the ROC curve by the trapezoid rule."""
+
+    def __init__(self, input, label, num_thresholds=200, **kwargs):
+        super().__init__("auc", **kwargs)
+        self.num_thresholds = num_thresholds
+        self.pos = self._create_state("pos_hist", [num_thresholds], "int32")
+        self.neg = self._create_state("neg_hist", [num_thresholds], "int32")
+        outs, _ = self.helper.append_op(
+            "auc_histogram", {"Score": [input], "Label": [label]},
+            ["Pos", "Neg"], {"num_thresholds": num_thresholds})
+        self._accumulate(self.pos, outs["Pos"][0])
+        self._accumulate(self.neg, outs["Neg"][0])
+
+    def eval(self, executor, scope=None):
+        pos, neg = (a.astype(np.float64) for a in self._fetch_states(scope))
+        # cumulated from the highest threshold down: the ROC curve
+        tp = np.cumsum(pos[::-1])
+        fp = np.cumsum(neg[::-1])
+        if tp[-1] == 0 or fp[-1] == 0:
+            return 0.5
+        tpr = np.concatenate([[0.0], tp / tp[-1]])
+        fpr = np.concatenate([[0.0], fp / fp[-1]])
+        # np.trapezoid(tpr, fpr), written out (older numpy lacks the name)
+        return float((np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0).sum())
+
+
+class RankAuc(Evaluator):
+    """Streaming per-query ranking AUC (legacy rankauc evaluator) over
+    dense padded [b, L] query rows of ``score``/``click``/``pv`` with an
+    optional ``length`` [b]. eval() returns the mean per-query AUC."""
+
+    def __init__(self, score, click, pv=None, length=None, **kwargs):
+        super().__init__("rank_auc_eval", **kwargs)
+        self.auc_sum = self._create_state("auc_sum", [], "float32")
+        self.queries = self._create_state("queries", [], "float32")
+        ins = {"Score": [score], "Click": [click]}
+        if pv is not None:
+            ins["Pv"] = [pv]
+        if length is not None:
+            ins["Length"] = [length]
+        outs, _ = self.helper.append_op(
+            "rank_auc", ins, ["AucSum", "QueryCount"], {})
+        self._accumulate(self.auc_sum, outs["AucSum"][0])
+        self._accumulate(self.queries, outs["QueryCount"][0])
+
+    def eval(self, executor, scope=None):
+        s, n = self._fetch_states(scope)
+        return float(s) / max(float(n), 1.0)
+
+
+class Pnpair(Evaluator):
+    """Streaming positive/negative pair counts for ranking (legacy pnpair
+    evaluator). eval() returns pos / neg; ``counts()`` gives (pos, neg,
+    special)."""
+
+    def __init__(self, score, label, weight=None, length=None, **kwargs):
+        super().__init__("pnpair_eval", **kwargs)
+        self.pos = self._create_state("pos", [], "float32")
+        self.neg = self._create_state("neg", [], "float32")
+        self.spe = self._create_state("spe", [], "float32")
+        ins = {"Score": [score], "Label": [label]}
+        if weight is not None:
+            ins["Weight"] = [weight]
+        if length is not None:
+            ins["Length"] = [length]
+        outs, _ = self.helper.append_op(
+            "pnpair_counts", ins, ["Pos", "Neg", "Spe"], {})
+        self._accumulate(self.pos, outs["Pos"][0])
+        self._accumulate(self.neg, outs["Neg"][0])
+        self._accumulate(self.spe, outs["Spe"][0])
+
+    def counts(self, scope=None):
+        p, n, s = self._fetch_states(scope)
+        return float(p), float(n), float(s)
+
+    def eval(self, executor, scope=None):
+        p, n, _ = self._fetch_states(scope)
+        return float(p) / max(float(n), 1e-10)

@@ -5,6 +5,7 @@ from .attention import (make_stack_params, multi_head_attention,
                         transformer_encoder_layer)
 from .control_flow import beam_search_decoder, increment
 from .io import data
+from .legacy import addto
 from .nn import (accuracy, batch_norm, chunk_eval, clip, conv1x1_bn_act,
                  conv2d, cos_sim, crf_decoding, cross_entropy, dropout,
                  embedding, fc, fused_head_cross_entropy, layer_norm,
@@ -25,7 +26,7 @@ from .tensor import (argmax, assign, cast, concat, create_global_var,
                      reshape, scale, split, sums, transpose, zeros)
 
 __all__ = [
-    "accuracy", "argmax", "assign", "batch_norm", "beam_search_decoder",
+    "accuracy", "addto", "argmax", "assign", "batch_norm", "beam_search_decoder",
     "cast", "chunk_eval", "clip", "concat", "conv1x1_bn_act", "conv2d",
     "cos_sim", "create_global_var", "create_tensor", "crf_decoding",
     "cross_entropy", "data", "dropout", "dynamic_gru", "dynamic_lstm",

@@ -60,12 +60,11 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 def embedding(input, size, is_sparse=False, padding_idx=None,
               param_attr=None, dtype="float32", main_program=None,
               startup_program=None):
-    """Embedding lookup (lookup_table) with a dense gradient. Sparse
-    (SelectedRows) gradients are a later slice of the port."""
-    if is_sparse:
-        raise NotImplementedError(
-            "embedding(is_sparse=True) is not ported to paddle_tpu_torch "
-            "yet: it lands with the sparse-grad (SelectedRows) slice")
+    """Embedding lookup (lookup_table). With ``is_sparse`` its gradient
+    is a SelectedRows (the looked-up ids and their rows' gradients, no
+    [V, D] buffer) and the optimizer updates the touched rows only, as
+    large vocabularies (CTR) want. A regularizer on such a weight
+    densifies the gradient: leave it unset there."""
     helper = LayerHelper("embedding", main_program=main_program,
                          startup_program=startup_program)
     w = helper.create_parameter(

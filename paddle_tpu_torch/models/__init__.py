@@ -10,10 +10,11 @@ from .transformer import (TransformerLM, init_params, transformer_lm,
                           transformer_lm_beam_search, transformer_lm_generate,
                           transformer_lm_speculative_generate)
 from .vgg import vgg
+from .wide_deep import wide_deep, wide_deep_loss
 
 __all__ = ["TransformerLM", "alexnet", "googlenet", "init_params", "lenet5",
            "mobilenet", "resnet_cifar10", "resnet_imagenet",
            "shared_nmt_params", "smallnet_mnist_cifar", "transformer_lm",
            "transformer_lm_beam_search", "transformer_lm_generate",
            "transformer_lm_speculative_generate", "transformer_nmt_teacher",
-           "vgg"]
+           "vgg", "wide_deep", "wide_deep_loss"]

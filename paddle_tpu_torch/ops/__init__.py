@@ -3,6 +3,6 @@
 Importing this package registers every ported op in
 ``core/registry.py``."""
 from . import (activation_ops, attention_ops,  # noqa: F401
-               control_flow_ops, crf_ops, fusion_ops, loss_ops, math_ops,
-               nn_ops, optimizer_ops, pipeline_ops, rnn_ops, seq2seq_ops,
-               sequence_ops, tensor_ops)
+               control_flow_ops, crf_ops, fusion_ops, legacy_ops, loss_ops,
+               math_ops, metric_ops, nn_ops, optimizer_ops, pipeline_ops,
+               rnn_ops, seq2seq_ops, sequence_ops, sparse_ops, tensor_ops)

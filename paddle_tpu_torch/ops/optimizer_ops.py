@@ -1,13 +1,26 @@
-"""Optimizers as ops. Counterpart of ``paddle_tpu/ops/optimizer_ops.py``,
-cut to dense gradients: ``sgd``, ``momentum``, ``adam``, ``adamax``,
-``adagrad``, ``decayed_adagrad``, ``adadelta``, ``rmsprop``, ``ftrl``,
-``proximal_gd`` and ``proximal_adagrad`` (row-sparse ``SelectedRows``
-gradients are a later slice), the learning-rate schedules
+"""Optimizers as ops. Counterpart of ``paddle_tpu/ops/optimizer_ops.py``:
+``sgd``, ``momentum``, ``adam``, ``adamax``, ``adagrad``,
+``decayed_adagrad``, ``adadelta``, ``rmsprop``, ``ftrl``,
+``proximal_gd`` and ``proximal_adagrad``, the learning-rate schedules
 ``lr_schedule`` and ``lr_warmup``, ``model_average_update`` and
 ``static_prune_mask``. Each returns new tensors for its outputs
 (ParamOut, moments, beta powers); the executor writes them back to the
 scope over the old ones, which are freed then. Moments update in f32
-from an f32 copy of the gradient, as the JAX ops compute them."""
+from an f32 copy of the gradient, as the JAX ops compute them.
+
+A row-sparse gradient (``SelectedRows``, a sparse embedding's) takes
+the row rule of ``sgd``, ``momentum``, ``adam`` and ``adagrad``, as in
+the JAX package: only the looked-up rows of the parameter and of its
+moments are read and written (lazy momentum and Adam: an untouched
+row's moments do not decay), through ``core/selected_rows.py``'s
+sync-free gathers and scatters. A row rule writes those rows into the
+Param and moment tensors in place, where the JAX executor donates them:
+the one exception to the ops' rule of returning new tensors, as a new
+[V, D] table a step is what the sparse path exists to avoid. Every
+reader of the old values runs before the update op in the block, and a
+gradient-accumulating program never meets a row rule (its accumulated
+gradient is dense). The other update ops densify the gradient
+(``_dense_grad``), as the reference has no row kernel for them."""
 from __future__ import annotations
 
 import math
@@ -16,7 +29,14 @@ import numpy as np
 import torch
 
 from ..core.registry import register_op
+from ..core.selected_rows import (SelectedRows, densify, gather_rows,
+                                  scatter_rows_, set_rows_)
 from .common import out, single, weak
+
+
+def _dense_grad(ins):
+    """The gradient, densified for an update op with no row rule."""
+    return densify(single(ins, "Grad"))
 
 
 @register_op("sgd")
@@ -24,20 +44,33 @@ def sgd(attrs, ins):
     p = single(ins, "Param")
     g = single(ins, "Grad")
     lr = single(ins, "LearningRate").to(p.dtype).reshape(())
+    if isinstance(g, SelectedRows):
+        # duplicates add one after the other: no merge needed
+        return out(ParamOut=scatter_rows_(p, g, -lr * g.values.to(p.dtype)))
     return out(ParamOut=p - lr * g.to(p.dtype))
 
 
 @register_op("momentum")
 def momentum(attrs, ins):
     """v' = mu * v + g; p' = p - lr * v', or with ``use_nesterov``
-    p' = p - lr * (g + mu * v')."""
+    p' = p - lr * (g + mu * v'). Rows: lazy momentum, only the touched
+    rows' velocity decays."""
     p = single(ins, "Param")
-    g = single(ins, "Grad").to(p.dtype)
+    g = single(ins, "Grad")
     v = single(ins, "Velocity")
     lr = single(ins, "LearningRate").to(p.dtype).reshape(())
     mu = attrs.get("mu", 0.9)
+    nesterov = attrs.get("use_nesterov", False)
+    if isinstance(g, SelectedRows):
+        m = g.merged()
+        gv = m.values.to(p.dtype)
+        v_rows = mu * gather_rows(v, m) + gv
+        step = (gv + mu * v_rows) * lr if nesterov else lr * v_rows
+        return out(ParamOut=scatter_rows_(p, m, -step),
+                   VelocityOut=set_rows_(v, m, v_rows))
+    g = g.to(p.dtype)
     v_out = mu * v + g
-    if attrs.get("use_nesterov", False):
+    if nesterov:
         p_out = p - (g + mu * v_out) * lr
     else:
         p_out = p - lr * v_out
@@ -60,6 +93,22 @@ def adam(attrs, ins):
     eps = attrs.get("epsilon", 1e-8)
     wd = attrs.get("weight_decay", 0.0)  # decoupled (AdamW), outside moments
     lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+    if isinstance(g, SelectedRows):
+        # lazy Adam: the moments of untouched rows stay as they are
+        m = g.merged()
+        gv = m.values.float()
+        m1_rows = b1 * gather_rows(m1, m) + (1 - b1) * gv
+        m2_rows = b2 * gather_rows(m2, m) + (1 - b2) * gv.square()
+        step = (lr_t * m1_rows / (torch.sqrt(m2_rows) + eps)).to(p.dtype)
+        if wd:  # decays only the touched rows
+            step = step + (lr * wd * gather_rows(p, m)).to(p.dtype)
+        return {
+            "ParamOut": [scatter_rows_(p, m, -step)],
+            "Moment1Out": [set_rows_(m1, m, m1_rows)],
+            "Moment2Out": [set_rows_(m2, m, m2_rows)],
+            "Beta1PowOut": [b1p_acc * b1],
+            "Beta2PowOut": [b2p_acc * b2],
+        }
     g = g.float()
     m1_out = b1 * m1 + (1 - b1) * g
     m2_out = b2 * m2 + (1 - b2) * g.square()
@@ -82,7 +131,7 @@ def _lr(ins):
 @register_op("adamax")
 def adamax(attrs, ins):
     p = single(ins, "Param")
-    g = single(ins, "Grad").float()
+    g = _dense_grad(ins).float()
     m = single(ins, "Moment")
     inf_norm = single(ins, "InfNorm")
     b1p_acc = single(ins, "Beta1Pow")  # keep its stored shape
@@ -97,20 +146,38 @@ def adamax(attrs, ins):
             "InfNormOut": [inf_out], "Beta1PowOut": [b1p_acc * b1]}
 
 
+def _adagrad_rows(p, m, mom, lr, eps):
+    """The row rule of adagrad on a merged SelectedRows ``m``: the moment
+    accumulates and the parameter steps on the touched rows only."""
+    gv = m.values.float()
+    mom_rows = gather_rows(mom, m) + gv.square()
+    step = (lr * gv / (torch.sqrt(mom_rows) + eps)).to(p.dtype)
+    return {"ParamOut": [scatter_rows_(p, m, -step)],
+            "MomentOut": [set_rows_(mom, m, mom_rows)]}
+
+
+def _adagrad_dense(p, g, mom, lr, eps):
+    g = g.float()
+    mom_out = mom + g.square()
+    p_out = p - (lr * g / (torch.sqrt(mom_out) + eps)).to(p.dtype)
+    return {"ParamOut": [p_out], "MomentOut": [mom_out]}
+
+
 @register_op("adagrad")
 def adagrad(attrs, ins):
     p = single(ins, "Param")
-    g = single(ins, "Grad").float()
-    mom_out = single(ins, "Moment") + g.square()
+    g = single(ins, "Grad")
+    mom = single(ins, "Moment")
     eps = attrs.get("epsilon", 1e-6)
-    p_out = p - (_lr(ins) * g / (torch.sqrt(mom_out) + eps)).to(p.dtype)
-    return {"ParamOut": [p_out], "MomentOut": [mom_out]}
+    if isinstance(g, SelectedRows):
+        return _adagrad_rows(p, g.merged(), mom, _lr(ins), eps)
+    return _adagrad_dense(p, g, mom, _lr(ins), eps)
 
 
 @register_op("decayed_adagrad")
 def decayed_adagrad(attrs, ins):
     p = single(ins, "Param")
-    g = single(ins, "Grad").float()
+    g = _dense_grad(ins).float()
     decay = attrs.get("decay", 0.95)
     eps = attrs.get("epsilon", 1e-6)
     mom_out = decay * single(ins, "Moment") + (1 - decay) * g.square()
@@ -121,7 +188,7 @@ def decayed_adagrad(attrs, ins):
 @register_op("adadelta")
 def adadelta(attrs, ins):
     p = single(ins, "Param")
-    g = single(ins, "Grad").float()
+    g = _dense_grad(ins).float()
     avg_sq_upd = single(ins, "AvgSquaredUpdate")
     rho = attrs.get("rho", 0.95)
     eps = attrs.get("epsilon", 1e-6)
@@ -136,7 +203,7 @@ def adadelta(attrs, ins):
 @register_op("rmsprop")
 def rmsprop(attrs, ins):
     p = single(ins, "Param")
-    g = single(ins, "Grad").float()
+    g = _dense_grad(ins).float()
     rho = attrs.get("decay", 0.9)
     eps = attrs.get("epsilon", 1e-10)
     ms_out = rho * single(ins, "MeanSquare") + (1 - rho) * g.square()
@@ -149,7 +216,7 @@ def rmsprop(attrs, ins):
 @register_op("ftrl")
 def ftrl(attrs, ins):
     p = single(ins, "Param")
-    g = single(ins, "Grad").float()
+    g = _dense_grad(ins).float()
     sq_acc = single(ins, "SquaredAccumulator")
     lr = _lr(ins)
     l1 = attrs.get("l1", 0.0)
@@ -173,7 +240,7 @@ def _proximal(prox, lr, l1, l2):
 @register_op("proximal_gd")
 def proximal_gd(attrs, ins):
     p = single(ins, "Param")
-    g = single(ins, "Grad").float()
+    g = _dense_grad(ins).float()
     lr = _lr(ins)
     p_out = _proximal(p - lr * g, lr, attrs.get("l1", 0.0),
                       attrs.get("l2", 0.0))
@@ -183,7 +250,7 @@ def proximal_gd(attrs, ins):
 @register_op("proximal_adagrad")
 def proximal_adagrad(attrs, ins):
     p = single(ins, "Param")
-    g = single(ins, "Grad").float()
+    g = _dense_grad(ins).float()
     mom_out = single(ins, "Moment") + g.square()
     lr_t = _lr(ins) / torch.sqrt(mom_out)
     p_out = _proximal(p - lr_t * g, lr_t, attrs.get("l1", 0.0),

@@ -1,10 +1,10 @@
 """Tensor creation / manipulation / elementwise / reduction ops.
 
 Counterpart of ``paddle_tpu/ops/tensor_ops.py``: every op of it but
-``feed``/``fetch`` (the executor's own). Dense tensors only: the
-SelectedRows operands of the JAX package's ``sum``, ``scale``, ``clip``,
-``clip_by_norm``, ``clip_by_global_norm`` and elementwise ops come with
-the sparse-gradient slice. Comparisons and logic give bool and
+``feed``/``fetch`` (the executor's own). ``sum``, ``scale``, ``clip``,
+``clip_by_norm`` and ``clip_by_global_norm`` keep a SelectedRows
+operand (a sparse embedding's gradient) sparse, as the JAX ops do; the
+elementwise ops take its dense view. Comparisons and logic give bool and
 ``argmax`` int64; their ops pass no gradient (``NON_DIFFERENTIABLE`` in
 ``core/backward.py``). The random init ops draw from
 their split of the executor's scope key (``core/prng.py``), bit-exact with
@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from ..core import prng
 from ..core.registry import register_op
+from ..core.selected_rows import SelectedRows, densify
 from ..core.types import to_dtype
 from . import common
 from .common import broadcast_to_x, out, single
@@ -269,8 +270,12 @@ def _elementwise(op):
     torch would keep a bf16 x's dtype against a 0-dim f32 y (under AMP,
     bf16 activations meet f32 biases and scalars), where JAX widens."""
     def fn(attrs, ins):
-        x = single(ins, "X")
-        y = broadcast_to_x(x, single(ins, "Y"), attrs.get("axis", -1))
+        # a SelectedRows operand (a sparse gradient meeting a dense
+        # consumer, the gradient accumulation's ``acc += grad``) takes
+        # its dense view: only the optimizer ops keep rows sparse
+        x = densify(single(ins, "X"))
+        y = broadcast_to_x(x, densify(single(ins, "Y")),
+                           attrs.get("axis", -1))
         dtype = torch.promote_types(x.dtype, y.dtype)
         return out(Out=op(x.to(dtype), y.to(dtype)))
 
@@ -289,16 +294,32 @@ register_op("elementwise_pow", _elementwise(common.pow_))
 
 @register_op("clip")
 def clip(attrs, ins):
-    """``jnp.clip`` to [min, max] (dense X): a value at a bound gets half
-    the gradient."""
-    return out(Out=common.clip(single(ins, "X"), attrs["min"],
-                               attrs["max"]))
+    """``jnp.clip`` to [min, max]: a value at a bound gets half the
+    gradient. A SelectedRows merges its duplicate rows first, so the
+    bound applies to each row's summed gradient."""
+    x = single(ins, "X")
+    if isinstance(x, SelectedRows):
+        m = x.merged()
+        return out(Out=SelectedRows(
+            m.rows, common.clip(m.values, attrs["min"], attrs["max"]),
+            m.height))
+    return out(Out=common.clip(x, attrs["min"], attrs["max"]))
 
 
 def _sq_l2(g):
-    """The squared L2 norm of a gradient, summed in f32."""
+    """The squared L2 norm of a gradient, summed in f32; a SelectedRows
+    is merged first, so a repeated row counts with its summed value."""
+    if isinstance(g, SelectedRows):
+        g = g.merged().values
     g = g.float()
     return (g * g).sum()
+
+
+def _rescale(g, factor):
+    """g times the 0-dim factor, cast to g's dtype; rows stay rows."""
+    if isinstance(g, SelectedRows):
+        return SelectedRows(g.rows, g.values * factor.to(g.dtype), g.height)
+    return g * factor.to(g.dtype)
 
 
 def _clip_factor(sq, max_norm):
@@ -313,7 +334,7 @@ def clip_by_norm(attrs, ins):
     """X rescaled so that its L2 norm is at most max_norm; the factor is
     cast to X's dtype before the product."""
     x = single(ins, "X")
-    return out(Out=x * _clip_factor(_sq_l2(x), attrs["max_norm"]).to(x.dtype))
+    return out(Out=_rescale(x, _clip_factor(_sq_l2(x), attrs["max_norm"])))
 
 
 @register_op("clip_by_global_norm")
@@ -322,7 +343,7 @@ def clip_by_global_norm(attrs, ins):
     the whole set is at most max_norm: one op over all of them."""
     xs = ins["X"]
     factor = _clip_factor(sum(_sq_l2(g) for g in xs), attrs["max_norm"])
-    return {"Out": [g * factor.to(g.dtype) for g in xs]}
+    return {"Out": [_rescale(g, factor) for g in xs]}
 
 
 @register_op("l1_decay_sign")
@@ -335,8 +356,14 @@ def l1_decay_sign(attrs, ins):
 @register_op("scale")
 def scale(attrs, ins):
     """x * scale + bias (``bias_after_scale``, the default) or (x + bias)
-    * scale, in x's dtype: what ``DropoutToScale`` emits."""
+    * scale, in x's dtype: what ``DropoutToScale`` emits. A SelectedRows
+    scales its values (a bias is not defined on rows)."""
     x = single(ins, "X")
+    if isinstance(x, SelectedRows):
+        if attrs.get("bias", 0.0):
+            raise ValueError("scale with bias is not defined on SelectedRows")
+        return out(Out=x.scale(common.weak(x.values,
+                                           attrs.get("scale", 1.0))))
     s = common.weak(x, attrs.get("scale", 1.0))
     b = common.weak(x, attrs.get("bias", 0.0))
     if attrs.get("bias_after_scale", True):
@@ -346,9 +373,21 @@ def scale(attrs, ins):
 
 @register_op("sum")
 def sum_op(attrs, ins):
-    acc = ins["X"][0]
-    for x in ins["X"][1:]:
-        acc = acc + x
+    """The sum of X. SelectedRows operands (a sparse embedding's gradient
+    fanning out) stay rows when all are rows (their rows concatenated);
+    a dense operand densifies them."""
+    xs = ins["X"]
+    sparse = [x for x in xs if isinstance(x, SelectedRows)]
+    dense = [x for x in xs if not isinstance(x, SelectedRows)]
+    acc = None
+    if sparse:
+        acc = sparse[0]
+        for x in sparse[1:]:
+            acc = acc + x
+        if dense:
+            acc = acc.to_dense()
+    for x in dense:
+        acc = x if acc is None else acc + x
     return out(Out=acc)
 
 
@@ -442,22 +481,27 @@ def _normalize_ids(ids, n):
 
 
 def _lookup_table_grad(attrs, ins, outs, ogs):
-    """Dense embedding gradient: a scatter-add of the output gradient
-    into a zero [V, D] table, dropping out-of-range ids (JAX's
-    ``.at[ids].add(mode="drop")``) and the padding row (its forward
-    output is zero). ``is_sparse`` (SelectedRows) grads are a later
-    slice."""
-    if attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "sparse (SelectedRows) embedding gradients are not ported to "
-            "paddle_tpu_torch yet: they land with the sparse-grad slice")
+    """Embedding gradient, sparse or dense.
+
+    With ``is_sparse`` it is a SelectedRows: the (normalised) ids and the
+    output gradient's rows, no [V, D] buffer, the padding lookups pointed
+    at the ``V`` sentinel that every consumer drops. Without it, a
+    scatter-add of the output gradient into a zero [V, D] table, dropping
+    out-of-range ids (JAX's ``.at[ids].add(mode="drop")``) and the
+    padding row (its forward output is zero)."""
     w = single(ins, "W")
     V = w.shape[0]
     raw = single(ins, "Ids").reshape(-1)
     ids = _normalize_ids(raw, V)
     og = ogs["Out"][0].reshape(ids.shape[0], w.shape[-1]).to(w.dtype)
-    keep = (ids >= 0) & (ids < V)
     pad = attrs.get("padding_idx")
+    if attrs.get("is_sparse", False):
+        drop = (ids < 0) | (ids >= V)
+        if pad is not None and pad >= 0:
+            drop = drop | (raw == pad)
+        ids = torch.where(drop, torch.full_like(ids, V), ids)
+        return {"W": [SelectedRows(ids, og, V)], "Ids": [None]}
+    keep = (ids >= 0) & (ids < V)
     if pad is not None and pad >= 0:
         keep = keep & (raw != pad)
     rows = torch.where(keep, ids, torch.zeros_like(ids))
@@ -473,11 +517,10 @@ def _lookup_table_grad(attrs, ins, outs, ogs):
 @register_op("lookup_table", grad_fn=_lookup_table_grad)
 def lookup_table(attrs, ins):
     """W[ids] with XLA gather semantics: negative ids wrap once and
-    out-of-range ids clamp to the table; the padding row reads as 0."""
-    if attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "embedding(is_sparse=True) is not ported to paddle_tpu_torch "
-            "yet: it lands with the sparse-grad (SelectedRows) slice")
+    out-of-range ids clamp to the table; the padding row reads as 0.
+    ``is_sparse`` changes only the gradient (a SelectedRows); the
+    ``vocab_axis`` of a sharded table is ignored on one device, as the
+    JAX op ignores it without a mesh."""
     w = single(ins, "W")
     ids = single(ins, "Ids")
     squeeze_last = ids.ndim > 1 and ids.shape[-1] == 1

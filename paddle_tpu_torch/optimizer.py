@@ -11,7 +11,10 @@ saves them in its file format). ``Optimizer(global_step=)`` advances a
 user's counter once an applied step, a learning rate may be a schedule
 of ``learning_rate_decay``, ``ParamAttr(update_hooks=)`` prunes through
 ``StaticPruningHook``, and ``ModelAverage`` keeps a windowed average of
-the parameters for evaluation. Row-sparse updates are a later slice.
+the parameters for evaluation. The weight of an ``is_sparse``
+embedding gets a SelectedRows gradient: SGD and Adagrad update it
+through their ``sparse_sgd``/``sparse_adagrad`` ops, and Momentum and
+Adam through their ops' row rules, touching only the looked-up rows.
 """
 from __future__ import annotations
 
@@ -22,6 +25,17 @@ from .clip import append_gradient_clip_ops
 from .core.backward import append_backward
 from .core.program import Program, Variable, default_startup_program
 from .core.types import dtype_name
+
+
+def _sparse_grad_params(block) -> set:
+    """The parameters whose gradient arrives as a SelectedRows: the
+    weights of ``is_sparse`` lookup_table ops. SGD and Adagrad emit
+    their ``sparse_*`` op for them."""
+    names = set()
+    for op in block.ops:
+        if op.type == "lookup_table" and op.attrs.get("is_sparse", False):
+            names.update(op.inputs.get("W", ()))
+    return names
 from .regularizer import append_regularization_ops
 
 
@@ -35,6 +49,7 @@ class Optimizer:
         self.regularization = regularization
         self._lr_var: Optional[Variable] = None
         self._accumulators: Dict[str, Dict[str, Variable]] = {}
+        self._sparse_params: set = set()
 
     # -- learning rate -----------------------------------------------------
     def _create_lr_var(self, program: Program, startup: Program) -> Variable:
@@ -104,6 +119,7 @@ class Optimizer:
         bit-identical."""
         startup = startup_program or default_startup_program()
         params_grads = append_backward(loss, parameter_list, no_grad_set)
+        self._sparse_params = _sparse_grad_params(loss.block)
         block = loss.block
         lr_var = self._create_lr_var(block.program, startup)
         if accumulate_steps and int(accumulate_steps) > 1:
@@ -264,7 +280,8 @@ class SGDOptimizer(Optimizer):
 
     def _append_optimize_op(self, block, pg, lr_var):
         p, g = pg
-        _update_op(block, "sgd", p, g, lr_var, [], {})
+        op_type = "sparse_sgd" if p.name in self._sparse_params else "sgd"
+        _update_op(block, op_type, p, g, lr_var, [], {})
 
 
 class MomentumOptimizer(Optimizer):
@@ -370,7 +387,9 @@ class AdagradOptimizer(Optimizer):
 
     def _append_optimize_op(self, block, pg, lr_var):
         p, g = pg
-        _update_op(block, "adagrad", p, g, lr_var,
+        op_type = ("sparse_adagrad" if p.name in self._sparse_params
+                   else "adagrad")
+        _update_op(block, op_type, p, g, lr_var,
                    [("Moment", "MomentOut",
                      self._get_accumulator("moment", p))],
                    {"epsilon": self.epsilon})

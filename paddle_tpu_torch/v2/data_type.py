@@ -4,10 +4,10 @@ describes one feed slot; ``layer.data`` turns them into typed data
 variables.
 
 The sparse types declare padded id-list feeds, as in the JAX package: a
-``sparse_binary_vector(dim)`` row is a list of active indices, consumed
-through an embedding sum whose gradient is a SelectedRows update. The
-port builds their variables; ``layer.fc`` over them, the sparse gradient
-and the ``sparse_float_vector`` feed wait for ROADMAP item 3.
+``sparse_binary_vector(dim)`` row is a list of active indices and a
+``sparse_float_vector(dim)`` row a list of (index, value) pairs, consumed
+by ``layer.fc`` through an embedding sum (weighted by the values). That
+embedding's gradient is dense, as the JAX package builds it.
 """
 
 

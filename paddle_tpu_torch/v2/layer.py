@@ -6,9 +6,8 @@ package. Each function documents the v1 DSL name it serves.
 
 Where the port lacks what a layer function needs, it raises
 ``NotImplementedError`` naming the ROADMAP item that ports it: the 21
-``legacy_ops`` layers and ``hsigmoid`` (item 8); ``sequence_concat``,
-``sequence_expand``, ``warpctc`` and an ``fc`` over a sparse input
-(item 3); an op it appends that the port's registry lacks (the
+``legacy_ops`` layers but ``addto``, and ``hsigmoid`` (item 8);
+``sequence_concat``, ``sequence_expand`` and ``warpctc`` (item 3); an op it appends that the port's registry lacks (the
 item named in ``_OP_ITEMS``); the step-level recurrent DSL of ``v1``
 (item 9). Each works as it is once what it needs lands.
 """
@@ -76,12 +75,18 @@ def data(name, type: InputType, **kw):
 
 
 def _sparse_fc_branch(inp, size, param_attr):
-    """One fc branch over a sparse id-list input: in the JAX package the
-    sum of weight rows for the active ids (optionally value-weighted) ==
-    multi-hot row @ W, fed O(nnz) and backed by its SelectedRows plane,
-    which the port lacks."""
-    _missing("fc over a sparse_binary_vector / sparse_float_vector input "
-             "(SelectedRows gradients)", 3)
+    """One fc branch over a sparse id-list input: the sum of the weight
+    rows of the active ids (weighted by their values for a float input),
+    which is the multi-hot row @ W fed O(nnz). Its embedding keeps a
+    dense gradient, as the JAX package builds it."""
+    t = inp.input_type
+    emb = L.embedding(inp, size=[t.dim, size], param_attr=param_attr)
+    emb.seq_len = inp.seq_len
+    values = getattr(inp, "sparse_values", None)
+    if values is not None:
+        emb = L.elementwise_mul(emb, L.reshape(values, shape=[0, -1, 1]))
+        emb.seq_len = inp.seq_len
+    return L.sequence_pool(emb, "sum")
 
 
 def _is_sparse(v):

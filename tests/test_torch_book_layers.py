@@ -104,8 +104,8 @@ def test_signatures_and_registry():
 
     assert not set(OPS) - set(_REGISTRY)
     assert not set(_REGISTRY) - set(JAX_REGISTRY)
-    assert len(_REGISTRY) == 162  # with the optimizer plane's eight
-    # and the decode plane's six
+    assert len(_REGISTRY) == 172  # with the optimizer plane's eight,
+    # the decode plane's six and the sparse plane's ten
     for cls in ("Evaluator", "Accuracy", "ChunkEvaluator"):
         for method in ("__init__", "reset", "eval"):
             want = inspect.signature(getattr(getattr(jpt.evaluator, cls),

@@ -190,9 +190,22 @@ def test_lookup_table_and_grad(padding_idx, ids_shape):
 
 
 def test_lookup_table_sparse_is_a_later_slice():
-    ins = _torch_ins({"W": [_rand(10, 4)], "Ids": [IDS]})
-    with pytest.raises(NotImplementedError, match="sparse"):
-        torch_op("lookup_table").fn({"is_sparse": True}, ins)
+    """``is_sparse`` lookups are ported: the forward equals JAX's and the
+    gradient is a SelectedRows (no [V, D] buffer) whose dense view equals
+    JAX's, the padding id and the ids past the table dropped."""
+    from paddle_tpu_torch.core.selected_rows import SelectedRows
+
+    attrs = {"is_sparse": True, "padding_idx": 3}
+    ins = {"W": [_rand(10, 4)], "Ids": [IDS]}
+    got, want = _run_both("lookup_table", attrs, ins)
+    og = _rand(*want["Out"][0].shape, seed=2)
+    jg = jax_op("lookup_table").grad_fn(attrs, _jax_ins(ins), want,
+                                        {"Out": [jnp.asarray(og)]})
+    tg = torch_op("lookup_table").grad_fn(attrs, _torch_ins(ins), got,
+                                          {"Out": [torch.from_numpy(og)]})
+    assert isinstance(tg["W"][0], SelectedRows) and tg["Ids"] == [None]
+    assert tg["W"][0].values.shape == (IDS.size, 4)
+    _close(tg["W"][0].to_dense(), jg["W"][0].to_dense(), what="dW")
 
 
 # --- layer_norm and its hand-written gradient -------------------------------

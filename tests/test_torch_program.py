@@ -136,8 +136,10 @@ def test_unported_options_raise_and_name_their_slice():
         assert main.global_block.ops[-1].type == "layer_norm"
         assert h.name in main.global_block.ops[-1].outputs["Y"]
         assert tuple(h.shape)[1:] == (T, D_MODEL)
-        with pytest.raises(NotImplementedError, match="sparse"):
-            tpt.layers.embedding(ids, size=[V, D_MODEL], is_sparse=True)
+        # so are sparse embeddings: a lookup_table with is_sparse set
+        tpt.layers.embedding(ids, size=[V, D_MODEL], is_sparse=True)
+        assert main.global_block.ops[-1].type == "lookup_table"
+        assert main.global_block.ops[-1].attrs["is_sparse"] is True
         # padded sequence feeds are ported now: a [b, T, ...] feed and
         # its int32 lengths companion
         seq = tpt.layers.data("seq", shape=[T], dtype="int64", lod_level=1)

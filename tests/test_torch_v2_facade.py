@@ -3,9 +3,10 @@ the CPU, for every case whose layers and ops the port has: mixed_layer
 and its projections, the layer-name tail's cos_sim / maxout / pad / eos,
 the cost tail, and the GRU encoder-decoder without attention. The cases
 that reach what the port lacks check that it raises, naming the ROADMAP
-item: the legacy layers of the name tail and ``addto`` (item 8, so the
-ResNet-in-v2 case), and the ``sequence_mask`` op of the attention
-composites (item 3). ``small_vgg`` (a slow test there) has no twin."""
+item: the legacy layers of the name tail (item 8) and the
+``sequence_mask`` op of the attention composites (item 3). ``addto``
+(the ResNet-in-v2 case) and ``fc`` over a sparse input are ported and
+held to numpy. ``small_vgg`` (a slow test there) has no twin."""
 import numpy as np
 import pytest
 import torch
@@ -221,15 +222,23 @@ def test_gru_encoder_decoder_trains():
 
 
 def test_resnet_in_v2_waits_for_addto():
-    """The ResNet-in-v2 case joins its branches with addto (item 8)."""
-    with pt.program_guard(pt.Program(), pt.Program()):
+    """The ResNet-in-v2 case joins its branches with addto, ported now:
+    the join is relu(x + c)."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
         img = l2.data("img", pt.v2.data_type.dense_vector(16 * 16 * 3))
         x = pt.layers.reshape(img, shape=[-1, 16, 16, 3])
         c = l2.batch_norm(l2.img_conv(x, 3, 8, padding=1, act=None,
                                       bias_attr=False),
                           act=activation.Relu())
-        with pytest.raises(NotImplementedError, match="item 8"):
-            l2.addto([x, c], act=activation.Relu())
+        c = pt.layers.fc(c, size=16 * 16 * 3, num_flatten_dims=1)
+        c = pt.layers.reshape(c, shape=[-1, 16, 16, 3])
+        y = l2.addto([x, c], act=activation.Relu())
+    assert [op.type for op in main.global_block.ops][-2:] == ["addto",
+                                                             "relu"]
+    feed = {"img": np.random.RandomState(0).rand(2, 768).astype("float32")}
+    got, xv, cv = _run([y, x, c], feed, main, startup)
+    np.testing.assert_allclose(got, np.maximum(xv + cv, 0), rtol=1e-6)
 
 
 def test_mixed_layer_default_has_no_bias():
@@ -255,10 +264,24 @@ def test_mixed_layer_context_form_honors_drop_rate():
 
 
 def test_sparse_inputs_wait_for_selected_rows():
-    """quick_start's lr config: fc over a sparse_binary_vector (item
-    3); the data variable itself builds."""
-    with pt.program_guard(pt.Program(), pt.Program()):
+    """quick_start's lr config: fc over a sparse_binary_vector, ported
+    now, is the sum of the active ids' weight rows (the multi-hot row
+    times W) plus the bias, then the softmax."""
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
         words = l2.data("words", pt.v2.data_type.sparse_binary_vector(50))
         assert words.input_type.sparse == "binary"
-        with pytest.raises(NotImplementedError, match="item 3"):
-            l2.fc(input=words, size=2, act=activation.Softmax())
+        out = l2.fc(input=words, size=2, act=activation.Softmax())
+    types = [op.type for op in main.global_block.ops]
+    assert types[:3] == ["lookup_table", "sequence_pool", "addto"], types
+    rows = [([1, 7, 30],), ([4],)]
+    feed = pt.data_feeder.DataFeeder([words]).feed(rows)
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CPUPlace())
+    exe.run(startup, scope=scope)
+    got, = exe.run(main, feed=feed, fetch_list=[out], scope=scope)
+    w, b = (scope.get_numpy(p.name)
+            for p in main.global_block.all_parameters())
+    logits = np.stack([w[[1, 7, 30]].sum(0), w[4]]) + b
+    want = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
