@@ -27,6 +27,9 @@
     python3 chip_smoke.py --precision-only  # phases 1, 2 and 20 only
     python3 chip_smoke.py --decode-plane-only  # phases 1, 2 and 21 only
     python3 chip_smoke.py --ctr-only        # phases 1, 2 and 22 only
+    python3 chip_smoke.py --v1-only         # phases 1, 2 and 23 only
+    python3 chip_smoke.py --checkgrad-draws N  # phases 1, 2, then the CNN
+                                            # demo's checkgrad over N draws
 
 Phases, each fatal on failure (nonzero exit, no result line):
 
@@ -582,6 +585,38 @@ Phases, each fatal on failure (nonzero exit, no result line):
     the CPU: counts and sums exact, the other floats within 1e-5. None of
     the six kernels runs here (every counter unchanged, asserted;
     ``launches_phase22``).
+
+23. The control-flow plane and the v1 config plane (``--v1-only``),
+    under ``highest``, all f32, each gate against the port's CPU run.
+    (a) The control-flow ops at b 32, T 64, hidden 512: a ``StaticRNN``
+    (h = tanh([x, h] W + b)) forward and every gradient, without and with
+    Length, within 1e-4 of the CPU's (max |difference| over max |value|),
+    finished rows zero; ``DynamicRNN`` (a running sum) over variable
+    lengths equal to the CPU's; ``While`` sum-of-squares 30 with its
+    bound inferred (5) and in the dynamic form; the tensor arrays inside
+    a dynamic ``While`` ([0, 1, 4, 9]); the decode-train ``While`` of
+    tests/test_control_flow.py:409-475 (bound inferred, 5 SGD steps)
+    within 1e-4 of the CPU's losses; both branches of ``cond`` within
+    1e-6. One step's wall ms, device ms and launches for each recurrence.
+    (b) ``demos/v1_config_compat.py``'s CNN classifier and
+    ``recurrent_group`` tagger, written out as the demo writes them:
+    their training startups (parameters, Adam moments) equal on the card
+    and the CPU, 4 passes through ``v1.train_from_config`` on the card
+    with the first 5 losses within 1e-4 of the CPU's and the pass cost
+    falling; then ``python -m paddle_tpu_torch.v1.trainer`` on the CNN
+    config, ``--job=test`` and ``--job=checkgrad`` side by side and
+    ``--job=time`` alone, each exiting 0 (checkgrad's probes that reach
+    across a ReLU or max-pool kink are counted and held to one side's
+    slope, paddle_tpu_torch/checkgrad.py). (c) quick_start's ``lstm``
+    config (emb 128, LSTM 128, max pool, 2 classes, Adam 2e-3) as a v1
+    config over ``dataset.imdb``, batch 64, 20 steps, as ``simple_lstm``
+    (the ``lstm`` op) and as ``lstmemory_group`` (``recurrent_group`` over
+    ``lstm_step_layer``: the ``static_rnn`` op): the first 5 losses
+    within 1e-4 of the CPU's, one more step from the trained state
+    carried to the CPU with ``scope_from_numpy`` within 1e-4 (loss,
+    parameters and moments); ms a step, wall beside device, and launches.
+    None of the six kernels runs here (every counter unchanged, asserted;
+    ``launches_phase23``).
 
 Prints a ``{"kernels": [...]}`` line and the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. A fuller record goes to
@@ -11444,6 +11479,654 @@ def phase22_launches(records, plane):
         rec["launches_phase22"] = {"phase 22, all paths": total}
 
 
+# --- phase 23: the control-flow plane and the v1 config plane --------------
+# (a) The control-flow ops at b 32, T 64, hidden 512: a StaticRNN
+# (h_t = tanh([x_t, h_{t-1}] W + b)) forward and gradient with and without
+# Length; DynamicRNN (a running sum) over variable lengths; While in both
+# forms (the decode-train loop of tests/test_control_flow.py:409-475
+# trained, its bound inferred; sum-of-squares inferred and dynamic); the
+# tensor arrays inside a dynamic While; both branches of cond. (b)
+# demos/v1_config_compat.py's two configs, written out as the demo writes
+# them, parsed and trained for 4 passes through v1.train_from_config; then
+# the paddle_trainer CLI as a subprocess, --job=test, checkgrad and time.
+# (c) quick_start's lstm config (demos/quick_start.py:49-57: emb 128, LSTM
+# 128, max pool, 2 classes, Adam 2e-3) as a v1 config over dataset.imdb,
+# batch 64, 20 steps, two ways: simple_lstm (the lstm op) and
+# lstmemory_group (recurrent_group over lstm_step_layer: the static_rnn op).
+CF = dict(batch=32, T=64, hidden=512, decoder_steps=5)
+CF_RTOL = 1e-4      # card against CPU, max |difference| / max |CPU value|
+V1_PASSES = 4
+V1_CPU_STEPS = 5
+V1_LOSS_RTOL = 1e-4  # the card's first losses against the port's CPU run
+QS_V1 = dict(batch=64, samples=1280, cpu_samples=320, emb=128, hidden=128,
+             lr=2e-3)
+
+QS_V1_PROVIDER = '''
+from paddle.trainer.PyDataProvider2 import *
+from paddle_tpu_torch.dataset import imdb
+
+
+def init(settings, file_list, samples=0, **kw):
+    settings.word_dict = imdb.word_dict()
+    settings.samples = int(samples)
+    settings.input_types = {
+        'word': integer_value_sequence(len(settings.word_dict)),
+        'label': integer_value(2)}
+
+
+@provider(init_hook=init, cache=CacheType.CACHE_PASS_IN_MEM)
+def process(settings, filename):
+    for i, (ids, label) in enumerate(imdb.train(settings.word_dict)()):
+        if i >= settings.samples:
+            break
+        yield {'word': [int(w) for w in ids], 'label': int(label)}
+'''
+
+QS_V1_CONF = '''
+from paddle.trainer_config_helpers import *
+
+samples = get_config_arg('samples', int, 1280)
+form = get_config_arg('form', str, 'simple')
+define_py_data_sources2(train_list='data/train.list', test_list=None,
+                        module='provider_imdb', obj='process',
+                        args={'samples': samples})
+settings(batch_size=64, learning_rate=2e-3,
+         learning_method=AdamOptimizer())
+
+word = data_layer(name='word', size=2048)
+label = data_layer(name='label', size=2)
+emb = embedding_layer(input=word, size=128)
+if form == 'simple':
+    lstm = simple_lstm(input=emb, size=128)
+else:
+    lstm = lstmemory_group(input=emb, size=128)
+pooled = pooling_layer(input=lstm, pooling_type=MaxPooling())
+prob = fc_layer(input=pooled, size=2, act=SoftmaxActivation())
+outputs(classification_cost(input=prob, label=label))
+'''
+
+
+def _card_and_cpu(pt, main, startup, feeds, fetch):
+    """Run ``startup`` on the card, copy its state to the CPU, run
+    ``main`` once on each; returns (card values, CPU values, card exe,
+    card scope)."""
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+    cpu_scope = _scope_copy(pt, scope, "cpu")
+    got = exe.run(main, feed=feeds, fetch_list=fetch, scope=scope)
+    want = pt.Executor(pt.CPUPlace()).run(main, feed=feeds, fetch_list=fetch,
+                                          scope=cpu_scope)
+    return got, want, exe, scope
+
+
+def _static_rnn_program(pt, c, lod):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    startup.random_seed = SEED
+    with pt.program_guard(main, startup):
+        if lod:
+            x = L.data("x", shape=[c["hidden"]], lod_level=1)
+        else:
+            x = L.data("x", shape=[c["T"], c["hidden"]])
+        h0 = L.data("h0", shape=[c["hidden"]])
+        rnn = L.StaticRNN()
+        with rnn.step():
+            xt = rnn.step_input(x)
+            mem = rnn.memory(init=h0)
+            nh = L.fc([xt, mem], size=c["hidden"], act="tanh")
+            rnn.update_memory(mem, nh)
+            rnn.step_output(nh)
+        out = rnn()
+        loss = L.mean(L.sequence_last_step(out))
+        grads = sorted(g.name for _, g in pt.append_backward(loss))
+    return main, startup, [out.name, loss.name] + grads
+
+
+def static_rnn_part(pt, smi):
+    """(a) StaticRNN at b 32, T 64, hidden 512, without and with Length."""
+    import numpy as np
+
+    c = CF
+    rng = np.random.RandomState(SEED)
+    out = {}
+    for lod in (False, True):
+        main, startup, fetch = _static_rnn_program(pt, c, lod)
+        feeds = {"x": rng.randn(c["batch"], c["T"], c["hidden"]).astype(
+            np.float32), "h0": rng.randn(c["batch"], c["hidden"]).astype(
+            np.float32) * 0.1}
+        if lod:
+            lens = rng.randint(1, c["T"] + 1, size=c["batch"])
+            lens[0] = c["T"]
+            feeds["x@len"] = lens.astype(np.int32)
+        got, want, exe, scope = _card_and_cpu(pt, main, startup, feeds,
+                                              fetch)
+        errs = {n: _rel_max(g, w) for n, g, w in zip(fetch, got, want)}
+        anatomy = _one_step_anatomy(lambda: exe.run(
+            main, feed=feeds, fetch_list=[fetch[1]], scope=scope))
+        key = "length" if lod else "dense"
+        out[key] = {"rel_err": errs, "anatomy": anatomy,
+                    "static_rnn_ops": sum(op.type == "static_rnn" for op in
+                                          main.global_block.ops)}
+        print(f"v1 (a) static_rnn {key}: b{c['batch']} T{c['T']} "
+              f"h{c['hidden']} forward + backward, outputs and "
+              f"{len(fetch) - 2} gradients within "
+              f"{max(errs.values()):.2e} of the CPU's (tol {CF_RTOL}); one "
+              f"step {anatomy['wall_ms']:.1f} ms wall, device "
+              f"{_ms_text(anatomy['device_ms'])} ms in "
+              f"{anatomy['launches']} kernel launches [{smi}]")
+        assert max(errs.values()) <= CF_RTOL, errs
+        if lod:  # finished rows emit zeros past their length
+            o = np.asarray(got[0])
+            short = int(np.argmin(lens))
+            assert not o[short, lens[short]:].any()
+    return out
+
+
+def _dynamic_rnn_program(pt, c):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        seq = L.data("seq", shape=[c["hidden"]], lod_level=1)
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            x_t = drnn.step_input(seq)
+            mem = drnn.memory(shape=[c["hidden"]])
+            acc = L.sums([x_t, mem])
+            drnn.update_memory(mem, acc)
+            drnn.output(acc)
+        out = drnn()
+    return main, startup, out
+
+
+def _sum_of_squares(pt, max_iters):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        i = L.fill_constant(shape=[], value=0.0, dtype="float32")
+        n = L.fill_constant(shape=[], value=5.0, dtype="float32")
+        acc = L.fill_constant(shape=[], value=0.0, dtype="float32")
+        cond = L.less_than(i, n)
+        w = L.While(cond, max_iters=max_iters)
+        with w.block():
+            L.assign(L.elementwise_add(acc, L.elementwise_mul(i, i)),
+                     output=acc)
+            L.assign(L.increment(i, 1.0), output=i)
+            L.assign(L.less_than(i, n), output=cond)
+    op = [o for o in main.global_block.ops if o.type == "while"][0]
+    return main, startup, [acc.name, i.name], op.attrs["max_iters"]
+
+
+def _array_loop(pt):
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        i = L.fill_constant(shape=[], value=0.0, dtype="float32")
+        n = L.fill_constant(shape=[], value=4.0, dtype="float32")
+        arr = L.create_array([], max_len=4)
+        total = L.fill_constant(shape=[], value=0.0, dtype="float32")
+        cond = L.less_than(i, n)
+        w = L.While(cond, max_iters=0)
+        with w.block():
+            L.assign(L.array_write(L.elementwise_mul(i, i), i, arr),
+                     output=arr)
+            L.assign(L.elementwise_add(total, L.array_read(arr, i)),
+                     output=total)
+            L.assign(L.increment(i, 1.0), output=i)
+            L.assign(L.less_than(i, n), output=cond)
+    return main, startup, [arr.name, total.name]
+
+
+def _decoder_program(pt, max_len=5):
+    """tests/test_control_flow.py:409-475's decode-train loop: per-step
+    outputs into an array, a loss over it, the bound inferred; SGD."""
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup):
+        x = L.data("x", shape=[4])
+        state = L.fc(x, size=4, bias_attr=False, param_attr=pt.ParamAttr(
+            name="dec_w",
+            initializer=pt.initializer.ConstantInitializer(0.5)))
+        buf = L.create_array([], max_len)
+        i = L.fill_constant(shape=[], value=0.0, dtype="float32")
+        n = L.fill_constant(shape=[], value=float(max_len), dtype="float32")
+        cond = L.less_than(i, n)
+        w = L.While(cond)
+        with w.block():
+            nxt = L.scale(L.tanh(state), 0.9)
+            L.assign(nxt, output=state)
+            L.assign(L.array_write(L.mean(nxt), L.cast(i, "int64"), buf),
+                     output=buf)
+            L.assign(L.increment(i, 1.0), output=i)
+            L.assign(L.less_than(i, n), output=cond)
+        loss = L.mean(buf)
+        pt.optimizer.SGDOptimizer(learning_rate=0.5).minimize(loss)
+    op = [o for o in main.global_block.ops if o.type == "while"][0]
+    return main, startup, loss, op.attrs["max_iters"]
+
+
+COND_ATTRS = {
+    "true_ops": [
+        {"type": "scale", "inputs": {"X": ["x"]}, "outputs": {"Out": ["y"]},
+         "attrs": {"scale": 2.0}},
+        {"type": "tanh", "inputs": {"X": ["y"]}, "outputs": {"Out": ["z"]},
+         "attrs": {}}],
+    "false_ops": [
+        {"type": "elementwise_mul", "inputs": {"X": ["x"], "Y": ["w"]},
+         "outputs": {"Out": ["y"]}, "attrs": {}},
+        {"type": "sigmoid", "inputs": {"X": ["y"]},
+         "outputs": {"Out": ["z"]}, "attrs": {}}],
+    "param_names": ["x", "w"],
+    "out_names": ["y", "z"],
+}
+
+
+def control_flow_part(pt, smi):
+    """(a): the control-flow ops on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op
+
+    c = CF
+    rec = {"static_rnn": static_rnn_part(pt, smi)}
+    rng = np.random.RandomState(SEED + 1)
+
+    main, startup, out = _dynamic_rnn_program(pt, c)
+    lens = rng.randint(1, c["T"] + 1, size=c["batch"]).astype(np.int32)
+    feeds = {"seq": rng.randn(c["batch"], c["T"], c["hidden"]).astype(
+        np.float32), "seq@len": lens}
+    (got,), (want,), exe, scope = _card_and_cpu(pt, main, startup, feeds,
+                                                [out])
+    anatomy = _one_step_anatomy(lambda: exe.run(main, feed=feeds,
+                                                fetch_list=[out],
+                                                scope=scope))
+    rec["dynamic_rnn"] = {"max_abs_diff": float(np.abs(got - want).max()),
+                          "anatomy": anatomy}
+    assert np.array_equal(got, want)  # one add a step, rounded alike
+    short = int(np.argmin(lens))
+    assert not got[short, lens[short]:].any()
+
+    whiles = {}
+    for form, max_iters in (("inferred", None), ("dynamic", 0)):
+        main, startup, fetch, bound = _sum_of_squares(pt, max_iters)
+        got = pt.Executor(pt.CUDAPlace(0)).run(main, fetch_list=fetch,
+                                               scope=pt.Scope())
+        whiles[form] = {"max_iters": bound,
+                        "acc_i": [float(v) for v in got]}
+        assert whiles[form]["acc_i"] == [30.0, 5.0], whiles[form]
+    assert whiles["inferred"]["max_iters"] == 5
+    assert whiles["dynamic"]["max_iters"] is None
+    main, startup, fetch = _array_loop(pt)
+    arr, total = pt.Executor(pt.CUDAPlace(0)).run(main, fetch_list=fetch,
+                                                  scope=pt.Scope())
+    whiles["arrays"] = {"array": np.asarray(arr).tolist(),
+                        "total": float(total)}
+    assert whiles["arrays"] == {"array": [0.0, 1.0, 4.0, 9.0],
+                                "total": 14.0}, whiles["arrays"]
+
+    main, startup, loss, bound = _decoder_program(pt)
+    x = rng.rand(c["batch"], 4).astype(np.float32)
+    losses = {}
+    for place in ("card", "cpu"):
+        exe = pt.Executor(pt.CUDAPlace(0) if place == "card"
+                          else pt.CPUPlace())
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        losses[place] = [float(exe.run(main, feed={"x": x},
+                                       fetch_list=[loss], scope=scope)[0])
+                         for _ in range(c["decoder_steps"])]
+    dec_rel = float(np.max(np.abs(np.subtract(losses["card"],
+                                              losses["cpu"]))
+                           / np.abs(losses["cpu"])))
+    whiles["decoder"] = {"max_iters": bound, "losses": losses["card"],
+                         "cpu_losses": losses["cpu"],
+                         "loss_rel_vs_cpu": dec_rel}
+    assert bound == 5 and dec_rel <= CF_RTOL, whiles["decoder"]
+    assert losses["card"][-1] < losses["card"][0]
+    rec["while"] = whiles
+
+    conds = {}
+    op = get_op("cond")
+    params = [rng.randn(c["batch"], c["hidden"]).astype(np.float32)
+              for _ in range(2)]
+    for pred in (True, False):
+        vals = {}
+        for dev in ("cuda", "cpu"):
+            ins = {"Cond": [torch.tensor(pred, device=dev)],
+                   "Param": [torch.from_numpy(p).to(dev) for p in params]}
+            vals[dev] = [t.cpu().numpy() for t in
+                         op.fn(COND_ATTRS, ins)["Out"]]
+        conds[str(pred)] = max(_rel_max(g, w) for g, w in
+                               zip(vals["cuda"], vals["cpu"]))
+        assert conds[str(pred)] <= 1e-6, conds
+    rec["cond"] = conds
+    print(f"v1 (a) DynamicRNN running sum b{c['batch']} T{c['T']} "
+          f"h{c['hidden']} equal to the CPU's, one run "
+          f"{anatomy['wall_ms']:.1f} ms wall, device "
+          f"{_ms_text(anatomy['device_ms'])} ms in {anatomy['launches']} "
+          f"launches; While sum-of-squares 30 in both forms (bound "
+          f"inferred 5 / dynamic), the arrays [0, 1, 4, 9]; the decode-"
+          f"train While's {c['decoder_steps']} SGD losses "
+          f"{np.round(losses['card'], 6).tolist()} within {dec_rel:.1e} of "
+          f"the CPU's; cond's branches within "
+          f"{max(conds.values()):.1e} of the CPU's [{smi}]")
+    return rec
+
+
+def _demo_module():
+    """demos/v1_config_compat.py's configs and provider (its module
+    level defines them and imports no package of the repo)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "v1_config_compat_demo", ROOT / "demos" / "v1_config_compat.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _v1_workdir(files):
+    """A config directory laid out as the demo lays it out."""
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="v1_phase23_"))
+    (work / "data").mkdir()
+    (work / "data" / "train.list").write_text("data/part-0\n")
+    (work / "data" / "part-0").write_text("")
+    for name, text in files.items():
+        (work / name).write_text(text)
+    return work
+
+
+def _train_v1(pt, conf, args, passes, place):
+    """train_from_config with each batch's cost and wall stamp."""
+    from paddle_tpu_torch import v1
+
+    losses, stamps = [], []
+
+    def handler(e):
+        losses.append(e["cost"])
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    parsed, scope, pass_costs = v1.train_from_config(
+        str(conf), args, num_passes=passes, event_handler=handler,
+        place=place)
+    return parsed, scope, losses, [t0] + stamps
+
+
+def _startups_equal(pt, conf, args):
+    """The config's training startup (parameters, Adam moments) on the
+    card and on the CPU: equal bit for bit (the RNG plane)."""
+    import numpy as np
+
+    from paddle_tpu_torch import v1
+    from paddle_tpu_torch.v1 import trainer as v1t
+
+    values = []
+    for place in (pt.CUDAPlace(0), pt.CPUPlace()):
+        start = pt.Program._uid_counter
+        parsed = v1.parse_config(str(conf), args)
+        v1t._training_program(parsed)
+        pt.Program._uid_counter = start
+        scope = pt.Scope()
+        pt.Executor(place).run(parsed.startup_program, scope=scope)
+        values.append({n: scope.get_numpy(n) for n in scope.keys()
+                       if n != "@RNG_STATE@"})
+    return (sorted(values[0]) == sorted(values[1])
+            and all(np.array_equal(values[0][n], values[1][n])
+                    for n in values[0])), len(values[0])
+
+
+def v1_demo_part(pt, smi):
+    """(b): the demo's two configs trained on the card, then the CLI."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    demo = _demo_module()
+    work = _v1_workdir({"provider_demo.py": demo.PROVIDER,
+                        "cnn_conf.py": demo.CNN_CONF,
+                        "rnn_conf.py": demo.RNN_CONF})
+    rec = {}
+    for name in ("cnn_conf.py", "rnn_conf.py"):
+        conf = work / name
+        equal, n_state = _startups_equal(pt, conf, "")
+        start = pt.Program._uid_counter
+        parsed, _, losses, stamps = _train_v1(pt, conf, "", V1_PASSES,
+                                              pt.CUDAPlace(0))
+        ops = [op.type for op in parsed.main_program.global_block.ops]
+        pt.Program._uid_counter = start
+        _, _, cpu_losses, _ = _train_v1(pt, conf, "", 2, pt.CPUPlace())
+        first = np.array(losses[:V1_CPU_STEPS])
+        cpu_first = np.array(cpu_losses[:V1_CPU_STEPS])
+        rel = float(np.max(np.abs(first - cpu_first) / np.abs(cpu_first)))
+        per_pass = len(losses) // V1_PASSES
+        pass_means = [float(np.mean(losses[i * per_pass:(i + 1) * per_pass]))
+                      for i in range(V1_PASSES)]
+        rec[name] = {"ops": len(ops), "static_rnn": ops.count("static_rnn"),
+                     "steps": len(losses), "first_losses": first.tolist(),
+                     "cpu_first_losses": cpu_first.tolist(),
+                     "loss_rel_vs_cpu": rel, "pass_costs": pass_means,
+                     "startup_equal": equal, "startup_values": n_state,
+                     "ms_per_step": float(np.median(np.diff(stamps)) * 1e3)}
+        print(f"v1 (b) {name}: {len(ops)} ops ({ops.count('static_rnn')} "
+              f"static_rnn), startup ({n_state} values) equal on the card "
+              f"and the CPU: {equal}; {V1_PASSES} passes, {len(losses)} "
+              f"steps, {rec[name]['ms_per_step']:.2f} ms a step (median "
+              f"wall with the cost fetch); pass costs "
+              f"{np.round(pass_means, 4).tolist()}; first "
+              f"{V1_CPU_STEPS} losses within {rel:.2e} of the CPU's (tol "
+              f"{V1_LOSS_RTOL}) [{smi}]")
+        assert equal and np.isfinite(losses).all()
+        assert rel <= V1_LOSS_RTOL, (first, cpu_first)
+        assert pass_means[-1] < pass_means[0], pass_means
+    assert rec["rnn_conf.py"]["static_rnn"] == 1
+
+    # the paddle_trainer CLI, as a user runs it (on the card: no flag)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+
+    def cli(job, conf):
+        return subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.v1.trainer",
+             "--config", conf, "--job", job], cwd=work, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    t0 = time.perf_counter()
+    procs = {"test": cli("test", "cnn_conf.py"),
+             "checkgrad": cli("checkgrad", "cnn_conf.py")}
+    outs = {job: p.communicate(timeout=600) for job, p in procs.items()}
+    procs["time"] = cli("time", "cnn_conf.py")
+    outs["time"] = procs["time"].communicate(timeout=600)
+    cli_s = time.perf_counter() - t0
+    jobs = {}
+    for job, (stdout, stderr) in outs.items():
+        assert procs[job].returncode == 0, (job, stderr[-2000:])
+        jobs[job] = [ln for ln in stdout.splitlines()
+                     if "mean cost" in ln or "ms/batch" in ln
+                     or "max rel err" in ln or "across a kink" in ln]
+    assert any("ms/batch" in ln for ln in jobs["time"])
+    checked = [ln for ln in jobs["checkgrad"] if "max rel err" in ln]
+    kinks = [ln for ln in jobs["checkgrad"] if "across a kink" in ln]
+    n_kinks = int(kinks[0].split()[1]) if kinks else 0
+    assert len(checked) == 5 and jobs["test"]
+    rec["cli"] = {"seconds": cli_s, "jobs": jobs, "checkgrad_kinks": n_kinks}
+    print(f"v1 (b) the CLI on the card ({cli_s:.1f} s, test and checkgrad "
+          f"side by side, then time alone): {jobs['test'][-1]}; "
+          f"{len(checked)} parameters pass checkgrad (worst "
+          f"{max(float(ln.rsplit(' ', 1)[1]) for ln in checked):.2e}; "
+          f"{n_kinks} probes reached across a kink and were "
+          f"held to one side's slope); {jobs['time'][0]} [{smi}]")
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def checkgrad_draws(n, smi):
+    """The CNN demo config's ``--job=checkgrad`` CLI on the card over n
+    data draws: the demo's provider seeds each draw with ``hash()`` of
+    its file name, which PYTHONHASHSEED k (k = 0 .. n-1) fixes for one
+    process. Four processes at a time. Returns each draw's exit code,
+    worst error and probes that reached across a kink."""
+    import os
+    import shutil
+
+    demo = _demo_module()
+    work = _v1_workdir({"provider_demo.py": demo.PROVIDER,
+                        "cnn_conf.py": demo.CNN_CONF})
+    draws = []
+    for first in range(0, n, 4):
+        procs = {}
+        for k in range(first, min(n, first + 4)):
+            env = dict(os.environ, PYTHONPATH=str(ROOT),
+                       PYTHONHASHSEED=str(k))
+            procs[k] = subprocess.Popen(
+                [sys.executable, "-m", "paddle_tpu_torch.v1.trainer",
+                 "--config", "cnn_conf.py", "--job", "checkgrad"],
+                cwd=work, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for k, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=600)
+            lines = stdout.splitlines()
+            errs = [float(ln.rsplit(" ", 1)[1]) for ln in lines
+                    if "max rel err" in ln]
+            kinks = [int(ln.split()[1]) for ln in lines
+                     if "across a kink" in ln]
+            failed = [ln for ln in stderr.splitlines()
+                      if "gradient check FAILED" in ln]
+            draws.append({"hashseed": k, "rc": proc.returncode,
+                          "worst": max(errs) if errs else None,
+                          "kinks": kinks[0] if kinks else 0,
+                          "failed": failed[-1] if failed else None})
+            print(f"checkgrad draw {k}: rc {proc.returncode}, worst "
+                  f"{draws[-1]['worst']}, {draws[-1]['kinks']} probes "
+                  f"across a kink{'; ' + failed[-1] if failed else ''}")
+    shutil.rmtree(work, ignore_errors=True)
+    passed = sum(d["rc"] == 0 for d in draws)
+    print(f"checkgrad on the CNN demo config: {passed} of {n} draws pass "
+          f"[{smi}]")
+    return draws
+
+
+def quick_start_v1_part(pt, smi):
+    """(c): quick_start lstm at full width, the monolithic lstm op and
+    the recurrent_group form."""
+    import shutil
+
+    import numpy as np
+
+    from paddle_tpu_torch.v1 import V1DataFeeder, make_reader
+
+    c = QS_V1
+    work = _v1_workdir({"provider_imdb.py": QS_V1_PROVIDER,
+                        "qs_lstm_conf.py": QS_V1_CONF})
+    conf = work / "qs_lstm_conf.py"
+    rec = {"config": c}
+    for form in ("simple", "group"):
+        args = f"form={form},samples={c['samples']}"
+        start = pt.Program._uid_counter
+        parsed, scope, losses, stamps = _train_v1(pt, conf, args, 1,
+                                                  pt.CUDAPlace(0))
+        pt.Program._uid_counter = start
+        _, _, cpu_losses, _ = _train_v1(
+            pt, conf, f"form={form},samples={c['cpu_samples']}", 1,
+            pt.CPUPlace())
+        first = np.array(losses[:V1_CPU_STEPS])
+        rel = float(np.max(np.abs(first - cpu_losses[:V1_CPU_STEPS])
+                           / np.abs(cpu_losses[:V1_CPU_STEPS])))
+        ops = [op.type for op in parsed.main_program.global_block.ops]
+        rows = next(iter(make_reader(parsed)()))
+        feed = V1DataFeeder(parsed.input_vars).feed(rows)
+        exe = pt.Executor(pt.CUDAPlace(0))
+        # one more step from the trained state, the card's and the CPU's
+        # from a copy carried across with scope_from_numpy (parameters
+        # and Adam moments)
+        state = {n: scope.get_numpy(n).copy() for n in scope.keys()
+                 if n != "@RNG_STATE@"}
+        cpu_scope = pt.scope_from_numpy(state, "cpu")
+        cost = [op.output("Out") for op in
+                parsed.main_program.global_block.ops
+                if op.type == "mean"][-1]  # the trainer's batch mean
+        got = exe.run(parsed.main_program, feed=feed, fetch_list=[cost],
+                      scope=scope)[0]
+        want = pt.Executor(pt.CPUPlace()).run(
+            parsed.main_program, feed=feed, fetch_list=[cost],
+            scope=cpu_scope)[0]
+        carried = {"loss_rel": _rel_max(got, want),
+                   "param_rel": max(_rel_max(scope.get_numpy(n),
+                                                cpu_scope.get_numpy(n))
+                                    for n in state)}
+        anatomy = _one_step_anatomy(lambda: exe.run(
+            parsed.main_program, feed=feed, scope=scope))
+        T = int(feed["word"].shape[1])
+        rec[form] = {"ops": len(ops), "lstm": ops.count("lstm"),
+                     "static_rnn": ops.count("static_rnn"),
+                     "steps": len(losses), "T": T,
+                     "ms_per_step": float(np.median(np.diff(stamps)) * 1e3),
+                     "first_losses": first.tolist(),
+                     "cpu_first_losses": cpu_losses[:V1_CPU_STEPS],
+                     "loss_rel_vs_cpu": rel, "carried_step": carried,
+                     "final_loss": losses[-1], "anatomy": anatomy}
+        what = ("simple_lstm, the lstm op" if form == "simple" else
+                "recurrent_group over lstm_step_layer, the static_rnn op")
+        print(f"v1 (c) quick_start lstm as {what}: "
+              f"batch {c['batch']}, T {T}, {len(losses)} steps, "
+              f"{rec[form]['ms_per_step']:.2f} ms a step (median wall with "
+              f"the cost fetch); one step {anatomy['wall_ms']:.1f} ms wall, "
+              f"device {_ms_text(anatomy['device_ms'])} ms in "
+              f"{anatomy['launches']} kernel launches; first "
+              f"{V1_CPU_STEPS} losses within {rel:.2e} of the CPU's (tol "
+              f"{V1_LOSS_RTOL}); a step from the carried state: loss "
+              f"within {carried['loss_rel']:.1e}, parameters within "
+              f"{carried['param_rel']:.1e} [{smi}]")
+        assert np.isfinite(losses).all()
+        assert rel <= V1_LOSS_RTOL and carried["loss_rel"] <= V1_LOSS_RTOL
+        assert carried["param_rel"] <= CF_RTOL, carried
+        assert (rec[form]["lstm"], rec[form]["static_rnn"]) == (
+            (1, 0) if form == "simple" else (0, 1))
+    shutil.rmtree(work, ignore_errors=True)
+    return rec
+
+
+def v1_phase(smi):
+    """Phase 23 (a)-(c) under the precision policy highest. Returns its
+    record; "kernel_launches" is the six kernels' launches over it (0)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
+
+    flags.parse_flags(["--mxu_precision=highest"])
+    before = _kernel_counters()
+    seconds = [time.perf_counter()]
+    out = {"a": control_flow_part(pt, smi)}
+    seconds.append(time.perf_counter())
+    torch.cuda.empty_cache()
+    out["b"] = v1_demo_part(pt, smi)
+    seconds.append(time.perf_counter())
+    out["c"] = quick_start_v1_part(pt, smi)
+    seconds.append(time.perf_counter())
+    after = _kernel_counters()
+    out["kernel_launches"] = {k: after[k] - before[k] for k in after}
+    assert not any(out["kernel_launches"].values()), out["kernel_launches"]
+    out["seconds"] = [b - a for a, b in zip(seconds, seconds[1:])]
+    print("phase 23 seconds: " + ", ".join(
+        f"{part} {s:.1f}" for part, s in zip(("(a)", "(b)", "(c)"),
+                                             out["seconds"]))
+        + f"; {sum(out['seconds']):.1f} in all; the six kernels launched "
+        f"0 times [{smi}]")
+    return out
+
+
+def phase23_launches(records, plane):
+    """Every kernel record's launches on phase 23's paths: none of the
+    six kernels lies on them (asserted in v1_phase)."""
+    total = sum(plane["kernel_launches"].values())
+    for rec in records:
+        rec["launches_phase23"] = {"phase 23, all paths": total}
+
+
 def rng_line():
     """Not a check: how many of 10^6 ``normal`` draws from one key differ
     between the card and the CPU (core/prng.py; the CPU's equal
@@ -11587,6 +12270,18 @@ def main():
                              "row, Wide&Deep CTR at V 10^6 trained and "
                              "served, quick_start lr, the metric ops); "
                              "prints no ok line")
+    parser.add_argument("--v1-only", action="store_true",
+                        help="build the kernels and run only phase 23 (the "
+                             "control-flow plane at b32 T64 h512, the v1 "
+                             "demo's configs trained and its CLI, "
+                             "quick_start lstm as a v1 config in both "
+                             "forms); prints no ok line")
+    parser.add_argument("--checkgrad-draws", type=int, default=0,
+                        metavar="N",
+                        help="build the kernels and run only the CNN demo "
+                             "config's --job=checkgrad CLI over N data "
+                             "draws (PYTHONHASHSEED 0..N-1); prints no ok "
+                             "line")
     parser.add_argument("--conv-only", action="store_true",
                         help="build the kernels and run only phase 8 (the "
                              "conv-epilogue kernels at ResNet-50's shapes); "
@@ -11812,6 +12507,22 @@ def main():
             {"gpu": smi, "ctr": ctr}, indent=1, default=str))
         print(smi)
         return
+    if args.checkgrad_draws:
+        draws = checkgrad_draws(args.checkgrad_draws, smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_checkgrad_draws.json").write_text(json.dumps(
+            {"gpu": smi, "draws": draws}, indent=1))
+        print(smi)
+        return
+    if args.v1_only:
+        v1 = v1_phase(smi)
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_v1.json").write_text(json.dumps(
+            {"gpu": smi, "v1": v1}, indent=1, default=str))
+        print(smi)
+        return
     if args.paged_only:
         paged = paged_serving_phase(gpu)
         out = ROOT / "chiprun_out"
@@ -11896,6 +12607,8 @@ def main():
     plane = decode_plane_phase(smi)
     torch.cuda.empty_cache()
     ctr = ctr_phase(smi)
+    torch.cuda.empty_cache()
+    v1 = v1_phase(smi)
     records = ([kern, slice_record(
                    kern, "f32", stacked_d1024["f32"]["launches_per_step"][0])]
                + bwd + stacked_records(kern, bwd, stacked_d256, 256)
@@ -11908,6 +12621,7 @@ def main():
     phase20_launches(records, precision)
     phase21_launches(records, plane)
     phase22_launches(records, ctr)
+    phase23_launches(records, v1)
 
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
@@ -11923,6 +12637,7 @@ def main():
          "trainer": trainer, "train_memory": train_memory,
          "demo_ops": demo_ops, "book": book, "optim": optim,
          "precision": precision, "decode_plane": plane, "ctr": ctr,
+         "v1": v1,
          "build_s": built,
          "rng": rng},
         indent=1, default=str))
@@ -11930,7 +12645,7 @@ def main():
         {**{k: r[k] for k in keys},
          **{k: r[k] for k in ("launches_phase16", "launches_phase19",
                               "launches_phase20", "launches_phase21",
-                              "launches_phase22")
+                              "launches_phase22", "launches_phase23")
             if k in r}} for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,13 @@ package's flag plane, and ``v2`` its v2 facade (``init``, ``layer``,
 gives an ``embedding(is_sparse=True)`` a row-sparse ``SelectedRows``
 gradient that the optimizers apply to the looked-up rows only
 (``models.wide_deep`` over ``dataset.ctr``, with the ``Auc``,
-``PrecisionRecall``, ``RankAuc`` and ``Pnpair`` evaluators).
+``PrecisionRecall``, ``RankAuc`` and ``Pnpair`` evaluators). The
+control-flow plane runs user-defined recurrences and loops
+(``layers.StaticRNN``, ``While``, ``DynamicRNN``, the tensor arrays),
+and ``v1`` the first-generation config API over it: ``parse_config``,
+``PyDataProvider2``, ``trainer_config_helpers`` with ``recurrent_group``,
+and the ``paddle_trainer`` CLI (``python -m paddle_tpu_torch.v1.trainer``),
+with ``check_gradients`` for its ``--job=checkgrad``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 or ``CPUPlace()`` (where every kernel runs its plain PyTorch version);
@@ -67,6 +73,7 @@ def resolve_device(device=None) -> torch.device:
 
 from . import core, ops  # noqa: E402,F401  (ops register on import)
 from .core import backward  # noqa: E402,F401  (registers grad ops)
+from .core.backward import append_backward  # noqa: E402
 from .core.executor import (CPUPlace, CUDAPlace, Executor,  # noqa: E402
                             RunHandle)
 from .ops.common import (amp_enabled, mxu_precision,  # noqa: E402
@@ -82,6 +89,7 @@ from . import regularizer, transpiler  # noqa: E402
 from . import (checkpoint, data_feeder, dataset, evaluator,  # noqa: E402
                event, profiler, reader, resilience, trainer)
 from .param_attr import ParamAttr  # noqa: E402
+from .checkgrad import check_gradients  # noqa: E402
 from .serving import (BadRequestError, CacheExhaustedError,  # noqa: E402
                       DynamicBatcher, EngineClosedError, Future,
                       GenerationEngine, InferenceEngine, LMSpec,
@@ -93,7 +101,8 @@ from .models.transformer import TransformerLM, init_params  # noqa: E402
 
 __all__ = [
     "CPUPlace", "CUDAPlace", "Executor", "ParamAttr", "Program",
-    "RunHandle", "Scope", "amp_enabled", "set_amp", "checkpoint", "clip",
+    "RunHandle", "Scope", "amp_enabled", "append_backward",
+    "check_gradients", "set_amp", "checkpoint", "clip",
     "data_feeder", "dataset", "evaluator",
     "default_main_program", "default_startup_program", "event", "flags",
     "global_scope", "initializer", "io",

@@ -273,6 +273,20 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def create_block(self, parent_idx: Optional[int] = None) -> Block:
+        """A new sub-block (a control-flow body), child of the current
+        block unless ``parent_idx`` says otherwise; it becomes current."""
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump()
+        return b
+
+    def rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
+
     def all_parameters(self) -> List[Parameter]:
         return [v for b in self.blocks for v in b.vars.values()
                 if isinstance(v, Parameter)]

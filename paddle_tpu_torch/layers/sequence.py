@@ -1,7 +1,8 @@
 """Sequence and recurrent layer functions.
 
 Counterpart of ``paddle_tpu/layers/sequence.py``, cut to the pools,
-``sequence_conv`` and the three recurrent layers. Sequence-ness is a build-time property: a
+``sequence_reverse``, ``sequence_conv``, the three recurrent layers and
+the two single-step layers (``lstm_unit``, ``gru_unit``). Sequence-ness is a build-time property: a
 Variable carries a ``seq_len`` pointer to its companion int32 [batch]
 lengths Variable (made by ``layers.data(..., lod_level>0)``), and these
 layers pass it to their op as ``Length`` and on to their outputs.
@@ -39,6 +40,17 @@ def sequence_first_step(input, **kw):
 
 def sequence_last_step(input, **kw):
     return sequence_pool(input, "last", **kw)
+
+
+def sequence_reverse(input, main_program=None, startup_program=None):
+    """Reverse each sequence's valid steps; the padding stays in place."""
+    helper = LayerHelper("sequence_reverse", main_program=main_program,
+                         startup_program=startup_program)
+    outs, _ = helper.append_op(
+        "sequence_reverse", {"X": [input], **_len_input(input)}, ["Y"])
+    y = outs["Y"][0]
+    y.seq_len = get_seq_len(input)
+    return y
 
 
 def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
@@ -159,3 +171,47 @@ def simple_rnn(input, size=None, is_reverse=False, activation="tanh",
     h_seq = outs["Hidden"][0]
     h_seq.seq_len = get_seq_len(input)
     return h_seq
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, main_program=None,
+              startup_program=None):
+    """One LSTM step from raw inputs (reference nn.py lstm_unit): concat
+    [x, h] -> fc to 4h -> the lstm_unit op. Returns (h, c)."""
+    from . import nn as nn_layers
+    from . import tensor as tensor_layers
+
+    helper = LayerHelper("lstm_unit", main_program=main_program,
+                         startup_program=startup_program)
+    size = cell_t_prev.shape[-1]
+    concat = tensor_layers.concat([x_t, hidden_t_prev], axis=-1)
+    gates = nn_layers.fc(concat, size=4 * size, param_attr=param_attr,
+                         bias_attr=bias_attr,
+                         main_program=helper.main_program,
+                         startup_program=helper.startup_program)
+    outs, _ = helper.append_op(
+        "lstm_unit", {"X": [gates], "C_prev": [cell_t_prev]},
+        ["C", "H"], {"forget_bias": forget_bias})
+    return outs["H"][0], outs["C"][0]
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid",
+             main_program=None, startup_program=None):
+    """One GRU step (reference nn.py gru_unit): ``input`` pre-projected
+    [b, 3*h]; returns (new_hidden, gates, reset_hidden_prev)."""
+    helper = LayerHelper("gru_unit", main_program=main_program,
+                         startup_program=startup_program)
+    hdim = size
+    w = helper.create_parameter(
+        param_attr, shape=[hdim, 3 * hdim], dtype=input.dtype,
+        default_initializer=XavierInitializer())
+    bias = None if bias_attr is False else helper.create_parameter(
+        bias_attr, shape=[1, 3 * hdim], dtype=input.dtype, is_bias=True)
+    ins = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if bias is not None:
+        ins["Bias"] = [bias]
+    outs, _ = helper.append_op(
+        "gru_unit", ins, ["Hidden", "Gate", "ResetHiddenPrev"],
+        {"activation": activation, "gate_activation": gate_activation})
+    return outs["Hidden"][0], outs["Gate"][0], outs["ResetHiddenPrev"][0]

@@ -1,7 +1,8 @@
 """Recurrent ops: the LSTM, GRU and plain-RNN scans.
 
-Counterpart of ``paddle_tpu/ops/rnn_ops.py``, cut to the three scans
-(``lstm_unit`` and ``gru_unit`` are a later slice). Inputs are padded
+Counterpart of ``paddle_tpu/ops/rnn_ops.py``: the three scans and the
+two single-step ops (``lstm_unit``, ``gru_unit``) that a user-defined
+recurrence (``static_rnn``) runs once a step. Inputs are padded
 [batch, T, ...] with an optional int32 ``Length`` (``sequence_ops``);
 the input projection happens outside, as one time-parallel product, and
 only the h-recurrence is sequential. Where the JAX package runs a
@@ -211,3 +212,55 @@ def simple_rnn(attrs, ins):
 
     h, (hidden,) = _scan(step, h, seqs, reverse)
     return out(Hidden=hidden, LastH=h)
+
+
+# the step ops' activations: the JAX primitives' gradients (common.unary)
+_STEP_ACT = {
+    "sigmoid": common.sigmoid,
+    "tanh": common.tanh,
+    "relu": torch.relu,
+    "identity": lambda x: x,
+}
+
+
+@register_op("lstm_unit", optional_inputs=("Bias",))
+def lstm_unit(attrs, ins):
+    """Single LSTM step (lstm_unit_op.cc): X [b, 4h] the projected gates,
+    in the (i, f, o, g) layout of lstm_unit_op.h:63-66; C_prev [b, h].
+    Returns C and H."""
+    gates = single(ins, "X")
+    c_prev = single(ins, "C_prev")
+    bias = maybe(ins, "Bias")
+    forget_bias = attrs.get("forget_bias", 0.0)
+    if bias is not None:
+        gates = gates + bias
+    gi, gf, go, gc = torch.chunk(gates, 4, dim=-1)
+    i = common.sigmoid(gi)
+    f = common.sigmoid(gf + common.weak(gf, forget_bias))
+    c = f * c_prev + i * common.tanh(gc)
+    h = common.sigmoid(go) * common.tanh(c)
+    return out(C=c, H=h)
+
+
+@register_op("gru_unit", optional_inputs=("Bias",))
+def gru_unit(attrs, ins):
+    """Single GRU step (gru_unit_op.cc): Input [b, 3h] pre-projected,
+    HiddenPrev [b, h], Weight [h, 3h] (update and reset columns first,
+    then the candidate's); the two products take the precision policy.
+    Returns Hidden, Gate ([b, 2h], after the gate activation) and
+    ResetHiddenPrev."""
+    xt = single(ins, "Input")
+    h_prev = single(ins, "HiddenPrev")
+    w = single(ins, "Weight")
+    bias = maybe(ins, "Bias")
+    act_g = _STEP_ACT[attrs.get("gate_activation", "sigmoid")]
+    act_c = _STEP_ACT[attrs.get("activation", "tanh")]
+    hdim = h_prev.shape[-1]
+    if bias is not None:
+        xt = xt + bias
+    xg, xc = xt[..., : 2 * hdim], xt[..., 2 * hdim:]
+    g = act_g(xg + common.matmul(h_prev, w[:, : 2 * hdim]))
+    u, r = g[..., :hdim], g[..., hdim:]
+    cand = act_c(xc + common.matmul(r * h_prev, w[:, 2 * hdim:]))
+    h = (1.0 - u) * h_prev + u * cand  # gru_unit_op.cc:122
+    return out(Hidden=h, Gate=g, ResetHiddenPrev=r * h_prev)

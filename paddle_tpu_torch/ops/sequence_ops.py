@@ -1,7 +1,8 @@
 """Sequence ops over padded [batch, time, ...] tensors and per-row lengths.
 
 Counterpart of ``paddle_tpu/ops/sequence_ops.py``, cut to the mask
-helpers, ``sequence_pool``, ``sequence_conv`` and ``context_project``. A sequence tensor is dense-padded to the
+helpers, ``sequence_pool``, ``sequence_reverse``, ``sequence_conv`` and
+``context_project``. A sequence tensor is dense-padded to the
 batch's longest row and travels with an int32 ``Length`` companion
 ([batch]); positions t >= Length[b] are padding, which the ops ignore
 and where they produce zeros. The mask is built on the tensors' device
@@ -91,6 +92,25 @@ def _context_columns(x, lengths, k, start):
             shifted = xm
         cols.append(shifted)
     return torch.cat(cols, dim=-1), mask
+
+
+@register_op("sequence_reverse", optional_inputs=("Length",))
+def sequence_reverse(attrs, ins):
+    """Reverse each row's valid prefix, leaving the padding in place (it
+    feeds reversed recurrences). A gather along time by an index built
+    on the device from Length."""
+    x = single(ins, "X")  # [b, T, ...]
+    lengths = maybe(ins, "Length")
+    T = x.shape[1]
+    t = torch.arange(T, dtype=torch.int64, device=x.device)
+    if lengths is None:
+        idx = t.flip(0)[None, :].expand(x.shape[0], T)
+    else:
+        lens = lengths.to(torch.int64)[:, None]
+        idx = torch.where(t[None, :] < lens, lens - 1 - t[None, :],
+                          t[None, :])
+    idx = idx.reshape(tuple(idx.shape) + (1,) * (x.ndim - 2))
+    return out(Y=torch.take_along_dim(x, idx, dim=1))
 
 
 @register_op("sequence_conv", optional_inputs=("Length", "PaddingData"))

@@ -7,9 +7,12 @@ package. Each function documents the v1 DSL name it serves.
 Where the port lacks what a layer function needs, it raises
 ``NotImplementedError`` naming the ROADMAP item that ports it: the 21
 ``legacy_ops`` layers but ``addto``, and ``hsigmoid`` (item 8);
-``sequence_concat``, ``sequence_expand`` and ``warpctc`` (item 3); an op it appends that the port's registry lacks (the
-item named in ``_OP_ITEMS``); the step-level recurrent DSL of ``v1``
-(item 9). Each works as it is once what it needs lands.
+``sequence_concat``, ``sequence_expand`` and ``warpctc`` (item 3); an op
+it appends that the port's registry lacks (the item named in
+``_OP_ITEMS``). Each works as it is once what it needs lands. The v1
+step-level recurrent DSL (``recurrent_group``, ``memory``,
+``StaticInput``, ``GeneratedInput``, ``gru_step_layer``,
+``lstm_step_layer``) is re-exported from ``v1.helpers``.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ def _layer(name, item):
 
 # ops the layer functions below append that the port's registry may lack,
 # by the ROADMAP item that ports them
-_OP_ITEMS = {"conv3d": 2, "pool3d": 2, "im2sequence": 2, "conv_shift": 8,
+_OP_ITEMS = {"conv3d": 2, "pool3d": 2, "im2sequence": 2, "spp": 2,
+             "roi_pool": 2, "detection_output": 2, "conv_shift": 8,
              "nce": 8, "cross_entropy_with_selfnorm": 8, "lambda_cost": 8,
              "sub_seq": 8, "switch_order": 8, "scale_sub_region": 8,
              "sequence_mask": 3}
@@ -936,8 +940,8 @@ def conv_operator(*a, **kw):
 # ---------------------------------------------------------------------------
 # the step-level recurrent DSL, re-exported (reference v2/layer.py carries
 # recurrent_group/memory/StaticInput from trainer_config_helpers into the
-# v2 namespace). The JAX package's machinery lives in v1/helpers.py, over
-# StaticRNN; neither is ported (ROADMAP item 9, item 3).
+# v2 namespace). The machinery lives in v1/helpers.py and needs no parse
+# context: it builds directly on StaticRNN.
 # ---------------------------------------------------------------------------
 
 _DSL_REEXPORTS = ("recurrent_group", "memory", "StaticInput",
@@ -946,7 +950,9 @@ _DSL_REEXPORTS = ("recurrent_group", "memory", "StaticInput",
 
 def __getattr__(name):
     if name in _DSL_REEXPORTS:
-        _missing(f"v2.layer.{name} (the v1 step-level recurrent DSL)", 9)
+        from ..v1 import helpers as _h
+
+        return getattr(_h, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

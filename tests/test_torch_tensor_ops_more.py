@@ -304,9 +304,9 @@ SLICE_OPS = {
 
 def test_registry_holds_the_slice_ops():
     """All 76 names are registered, and every op the port registers is
-    one of the reference's (172 of its 256: this slice's 142, the book
-    plane's six, the optimizer plane's eight, the decode plane's six and
-    the sparse plane's ten)."""
+    one of the reference's (180 of its 256: this slice's 142, the book
+    plane's six, the optimizer plane's eight, the decode plane's six, the
+    sparse plane's ten and the control-flow plane's eight)."""
     from paddle_tpu.core.registry import _REGISTRY as JAX_REGISTRY
 
     names = [n for ops in SLICE_OPS.values() for n in ops]
@@ -314,7 +314,7 @@ def test_registry_holds_the_slice_ops():
     assert len(set(names)) == 76
     assert not set(names) - set(_REGISTRY)
     assert not set(_REGISTRY) - set(JAX_REGISTRY)
-    assert len(_REGISTRY) == 172 and len(JAX_REGISTRY) == 256
+    assert len(_REGISTRY) == 180 and len(JAX_REGISTRY) == 256
 
 
 def test_comparisons_pass_no_gradient_through_a_program():
